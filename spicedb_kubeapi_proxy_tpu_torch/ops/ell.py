@@ -423,6 +423,29 @@ class EllKernelCache:
             plan.append((repeat, wants_aux, rows, ops))
         return plan
 
+    def note_main_aux_ref(self, row: int) -> bool:
+        """Incremental growth (the endpoint graph's `_grow`) pointed main
+        row `row` at an OR-tree aux node.  If the stage covering that row
+        was annotated aux-free at build time, flip its wants_aux flag so
+        its gathers see refreshed aux rows (reference ell.py:733-753);
+        returns True when a flip happened.  The flip builds a NEW plan
+        list: a batch that already took the old one (`evaluate`) sweeps
+        on with it — the flip only adds a refresh, so answers agree."""
+        if not self.stages:
+            return False
+        for i, (ranges, repeat, wants_aux) in enumerate(self.stages):
+            if any(lo <= row < hi for lo, hi in ranges):
+                if wants_aux:
+                    return False
+                self.stages = (self.stages[:i] + ((ranges, repeat, True),)
+                               + self.stages[i + 1:])
+                plan = list(self._plan)
+                p_repeat, _, rows, ops = plan[i]
+                plan[i] = (p_repeat, True, rows, ops)
+                self._plan = plan
+                return True
+        return False
+
     # -- state arenas --------------------------------------------------------
 
     def take_arena(self, n_words: int) -> _Arena:
@@ -449,7 +472,7 @@ class EllKernelCache:
 
     # -- the sweep -----------------------------------------------------------
 
-    def sweep_steps(self, idx_main, idx_aux):
+    def sweep_steps(self, idx_main, idx_aux, plan: Optional[list] = None):
         """The kernel calls of one staged Gauss-Seidel sweep (reference
         staged_step, ell.py:444-500), in order: ("ell_gather_or", idx,
         dst_lo, seeded, wc_bits) and ("perm_program", code, offset,
@@ -457,11 +480,13 @@ class EllKernelCache:
         OR-trees (`aux_passes` Jacobi passes) when its rows read aux
         roots, then gathers its row ranges, then runs its permission ops;
         a final refresh leaves the aux rows consistent with the state, so
-        a fixpoint compares unchanged."""
+        a fixpoint compares unchanged.  `plan` defaults to the current
+        one."""
         n = self.prog.state_size
         refresh = [("ell_gather_or", idx_aux, n, False, None)] \
             * (self.aux_passes if self.n_aux_rows else 0)
-        for repeat, wants_aux, rows, ops in self._plan:
+        for repeat, wants_aux, rows, ops in (plan if plan is not None
+                                             else self._plan):
             for _ in range(repeat):
                 if wants_aux:
                     yield from refresh
@@ -485,20 +510,22 @@ class EllKernelCache:
             _, code, off, length, in_place = step
             impl.perm_program(cur, x0, code, off, length, in_place=in_place)
 
-    def _sweep(self, cur, x0, idx_main, idx_aux, live) -> None:
+    def _sweep(self, cur, x0, idx_main, idx_aux, live, plan) -> None:
         """One sweep: `cur` enters as a copy of the previous state and
         leaves as the next one, dead row not yet zeroed (sweep_delta does
         that).  `live` is the wildcard liveness: the reference ORs the
         self rows of the sweep's input state, which always equal the
         seed's (no edge targets a self slot), so the seed kernel computed
         it once."""
-        for step in self.sweep_steps(idx_main, idx_aux):
+        for step in self.sweep_steps(idx_main, idx_aux, plan):
             self.run_step(step, cur, x0, live)
 
     def evaluate(self, q_idx: torch.Tensor, n_words: int, idx_main,
                  idx_aux, arena: _Arena) -> tuple:
         """Seed, then sweep to the fixpoint (or the iteration cap).
-        Returns (final state — one of the arena's buffers, trace)."""
+        Returns (final state — one of the arena's buffers, trace).  The
+        whole batch sweeps with the plan current at its start."""
+        plan = self._plan
         prog = self.prog
         nt = prog.state_size + self.n_aux_rows
         dead = prog.dead_index
@@ -515,7 +542,7 @@ class EllKernelCache:
         changed = True
         while changed and i < self.num_iters:
             cur.copy_(x)
-            self._sweep(cur, x0, idx_main, idx_aux, live)
+            self._sweep(cur, x0, idx_main, idx_aux, live, plan)
             delta, any_change = kernels.sweep_delta(cur, x, dead).tolist()
             trace[1 + i] = delta
             changed = bool(any_change)

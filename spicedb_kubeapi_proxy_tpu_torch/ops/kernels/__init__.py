@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels of the ELL fixpoint sweep, and their wrappers.
+"""Hand-written CUDA kernels of the ELL fixpoint sweep and of the delta
+flush, and their wrappers.
 
 Each wrapper takes torch tensors.  On CUDA tensors it launches the kernel
 from csrc/ell_kernels.cu (built for sm_90a with nvcc at first use, bound
@@ -29,7 +30,7 @@ import torch
 from . import reference
 
 KERNEL_NAMES = ("ell_gather_or", "perm_program", "sweep_delta",
-                "seed_bitplanes", "check_gather", "lookup_T")
+                "seed_bitplanes", "check_gather", "lookup_T", "scatter_rows")
 
 # launches per kernel since the last reset_launches(); CPU twins never count
 LAUNCHES: dict = {name: 0 for name in KERNEL_NAMES}
@@ -104,6 +105,7 @@ def _load():
                 "ell_seed_bitplanes": (P, I, L, I, L, P, I, P, P, P),
                 "ell_check_gather": (P, I, P, P, L, P, P),
                 "ell_lookup_T": (P, I, L, L, P, P),
+                "ell_scatter_rows": (P, L, I, P, L, P, P, I, P),
             }
             for fn, args in sigs.items():
                 f = getattr(lib, fn)
@@ -290,4 +292,28 @@ def lookup_T(x: torch.Tensor, offset: int, length: int) -> torch.Tensor:
     out = torch.empty((w, length), dtype=torch.int32, device=x.device)
     _run("ell_lookup_T", _ptr(x), w, offset, length, _ptr(out))
     LAUNCHES["lookup_T"] += 1
+    return out
+
+
+def scatter_rows(src: torch.Tensor, rows: torch.Tensor,
+                 vals: torch.Tensor) -> torch.Tensor:
+    """Copy-on-write row scatter: a new int32 [R, K] tensor equal to `src`
+    with row rows[i] replaced by vals[i] (`rows` int32 [b], `vals` int32
+    [b, K]).  `src` is never written.  Duplicate rows must carry equal
+    values; rows outside [0, R) are skipped."""
+    if not _on_cuda(src, rows, vals):
+        return reference.scatter_rows(src, rows, vals)
+    _check(src, "src", 2)
+    _check(rows, "rows", 1)
+    _check(vals, "vals", 2)
+    r, k = src.shape
+    b = rows.shape[0]
+    if tuple(vals.shape) != (b, k):
+        raise KernelError(f"scatter_rows: vals shape {tuple(vals.shape)} != "
+                          f"({b}, {k})")
+    out = torch.empty_like(src)
+    vec = int(src.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    _run("ell_scatter_rows", _ptr(src), r, k, _ptr(rows), b, _ptr(vals),
+         _ptr(out), vec)
+    LAUNCHES["scatter_rows"] += 1
     return out

@@ -9,6 +9,7 @@
 //                     + staged_step's wildcard liveness       (ell.py:462-468)
 //   check_gather   <- _pipe_fns.run_checks, definite          (ell.py:878-887)
 //   lookup_T       <- _pipe_fns.run_lookup, definite          (ell.py:889-895)
+//   scatter_rows   <- _EllGraph.flush's `.at[rows].set`  (jax_endpoint.py:1004-1027)
 //
 // State layout: x is int32 [NT, W] row-major (W packed words per row, bit
 // b of word w = query column 32*w + b).  Words are handled as uint32
@@ -195,6 +196,42 @@ __global__ void lookup_T_kernel(const int32_t* __restrict__ x, int W,
     }
 }
 
+// out = src, as a grid-stride copy: 16-byte words when both pointers are
+// 16-byte aligned (`vec`), then the < 4 trailing int32 one by one.
+__global__ void copy_words_kernel(const int32_t* __restrict__ src,
+                                  int32_t* __restrict__ out, long long n,
+                                  int vec) {
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    long long done = 0;
+    if (vec) {
+        const long long n4 = n >> 2;
+        const int4* __restrict__ s4 = reinterpret_cast<const int4*>(src);
+        int4* __restrict__ o4 = reinterpret_cast<int4*>(out);
+        for (long long t = t0; t < n4; t += stride) o4[t] = __ldg(s4 + t);
+        done = n4 << 2;
+    }
+    for (long long t = done + t0; t < n; t += stride) out[t] = __ldg(src + t);
+}
+
+// out[rows[i], k] = vals[i, k]; rows outside [0, R) are skipped.  Equal
+// rows must carry equal values (pad_scatter's padding): their writes
+// then race to the same word with the same bits.
+__global__ void scatter_rows_kernel(const int32_t* __restrict__ rows,
+                                    const int32_t* __restrict__ vals,
+                                    long long b, int K, long long R,
+                                    int32_t* __restrict__ out) {
+    const long long total = b * K;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         t < total; t += stride) {
+        const long long i = t / K;
+        const int k = (int)(t - i * K);
+        const long long r = __ldg(rows + i);
+        if (r >= 0 && r < R) out[r * K + k] = __ldg(vals + t);
+    }
+}
+
 inline int last_error() { return (int)cudaGetLastError(); }
 
 }  // namespace
@@ -289,4 +326,32 @@ EXPORT int ell_lookup_T(const void* x, int W, long long offset, long long L,
     lookup_T_kernel<<<grid_for(L * W, kBlock, 1LL << 30), kBlock, 0, s>>>(
         (const int32_t*)x, W, offset, L, (int32_t*)out);
     return last_error();
+}
+
+// Copy-on-write row scatter of one gather table (int32 [R, K]): `out` (a
+// fresh buffer) = `src` with rows[i] replaced by vals[i, :].  `src` is
+// only read, so a batch that captured it keeps sweeping the old table.
+// Two launches on one stream — the copy, then the scatter — so the
+// scatter's writes land after the copy of the same rows.  Memory-bound:
+// 2 * R * K * 4 bytes of copy against b * (K + 1) * 4 of scatter.
+EXPORT int ell_scatter_rows(const void* src, long long R, int K,
+                            const void* rows, long long b, const void* vals,
+                            void* out, int vec, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    const long long n = R * K;
+    if (n > 0) {
+        const long long work = vec ? (n >> 2) : n;
+        copy_words_kernel<<<grid_for(work, kBlock, 132 * 32), kBlock, 0, s>>>(
+            (const int32_t*)src, (int32_t*)out, n, vec);
+        int e = last_error();
+        if (e) return e;
+    }
+    if (b > 0 && K > 0) {
+        scatter_rows_kernel<<<grid_for(b * K, kBlock, 1LL << 30), kBlock, 0,
+                              s>>>(
+            (const int32_t*)rows, (const int32_t*)vals, b, K, R,
+            (int32_t*)out);
+        return last_error();
+    }
+    return 0;
 }

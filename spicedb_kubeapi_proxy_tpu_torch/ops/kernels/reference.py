@@ -137,5 +137,19 @@ def check_gather(x: torch.Tensor, gather_idx: torch.Tensor,
 
 
 def lookup_T(x: torch.Tensor, offset: int, length: int) -> torch.Tensor:
-    """int32 [W, length]: rows [offset, offset + length) transposed."""
-    return x[offset: offset + length].t().contiguous()
+    """int32 [W, length]: rows [offset, offset + length) transposed, in a
+    tensor of its own as the kernel's (for W = 1 `.t().contiguous()`
+    would return a view of `x`, which the next batch overwrites)."""
+    out = torch.empty((x.shape[1], length), dtype=x.dtype, device=x.device)
+    out.copy_(x[offset: offset + length].t())
+    return out
+
+
+def scatter_rows(src: torch.Tensor, rows: torch.Tensor,
+                 vals: torch.Tensor) -> torch.Tensor:
+    """A copy of `src` with out[rows[i]] = vals[i]; rows outside [0, R)
+    are skipped, `src` is left as it was."""
+    out = src.clone()
+    keep = (rows >= 0) & (rows < src.shape[0])
+    out[rows[keep].long()] = vals[keep]
+    return out

@@ -15,20 +15,27 @@ What this endpoint carries over from the reference, and what not yet:
 - the fused check capture/finish and lookup capture/extract;
 - caveat-affected (type, permission) pairs answered by the host oracle
   (no tri-state planes yet);
-- writes, deletes and expirations invalidate the device graph and the
-  next read rebuilds it (no incremental delta absorption yet), so every
-  read reflects every committed write.
+- incremental delta absorption: committed writes, deletes and
+  expirations queue as deltas; the next read applies them to the host
+  tables (positionless OR-tree edits, spare rows renamed for new ids,
+  OR-tree growth for full rows) and flushes the dirty rows to the device
+  copy-on-write (the `scatter_rows` kernel).  A delta the tables cannot
+  absorb — a wildcard change, a caveated tuple (no caveat planes yet), a
+  dry spare pool, an exhausted growth budget — rebuilds the generation
+  synchronously under the lock (the reference's AsyncRebuild-off path).
 
-Reads are fully consistent w.r.t. the store: the graph a query runs on is
-rebuilt under the endpoint lock whenever the store moved past it.
+Reads are fully consistent w.r.t. the store: pending deltas are applied
+under the endpoint lock before a query captures its snapshot.
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
+import heapq
 import logging
-import math
 import threading
+import time
 from typing import Iterable, Optional
 
 import numpy as np
@@ -46,16 +53,22 @@ from ..spicedb.endpoints import (
 from ..spicedb.evaluator import Evaluator
 from ..spicedb.store import TupleStore, Watcher
 from ..spicedb.types import (
+    WILDCARD,
     AnnotatedIds,
     CheckRequest,
     CheckResult,
+    ObjectRef,
     Permissionship,
     Precondition,
+    Relationship,
     RelationshipFilter,
     RelationshipUpdate,
+    SubjectRef,
+    UpdateOp,
     WatchUpdate,
 )
-from .ell import EllKernelCache, batch_words, build_tables
+from . import kernels
+from .ell import EllKernelCache, _to_device, batch_words, build_tables
 from .graph_compile import (GraphProgram, caveat_affected_pairs,
                             compile_graph, compile_graph_columnar)
 
@@ -71,10 +84,11 @@ _MIN_BATCH_BUCKET = 8
 # NUL, which can never appear in a stored relationship id.
 PHANTOM_ID = "\x00__phantom__"
 
-# Spare object rows, sized exactly as the reference sizes them so both
-# packages compile the same layout (the reference renames them in place
-# for new object ids; this endpoint rebuilds instead and leaves them
-# unused).  The prefix contains NUL, which can never appear in a stored id.
+# Spare object rows, sized exactly as the reference sizes them: a write
+# that names a brand-new object id claims one by renaming it in the
+# program's id maps instead of rebuilding, and a row whose assigned id
+# loses its last tuple returns to the pool.  The prefix contains NUL,
+# which can never appear in a stored id.
 _SPARE_PREFIX = "\x00__spare__"
 _SPARE_FLOOR = 64
 _SPARE_DIVISOR = 64
@@ -91,7 +105,9 @@ def bucket(n: int, minimum: int = 16) -> int:
 def _object_ids_np(graph, resource_type: str) -> tuple:
     """(ids array, placeholder mask) view of the program's id list, cached
     per graph: object-dtype ids for fancy-indexed materialization, and a
-    mask of internal NUL-prefixed ids (phantom + spare placeholders)."""
+    mask of internal NUL-prefixed ids (phantom + spare placeholders).
+    The entry is marked published: the caller indexes it outside the
+    lock, so a later rename copies it first (`_rename_row`)."""
     entry = graph.ids_np.get(resource_type)
     if entry is None:
         lst = graph.prog.object_ids[resource_type]
@@ -99,7 +115,23 @@ def _object_ids_np(graph, resource_type: str) -> tuple:
         mask = np.fromiter(("\x00" in i for i in lst), dtype=bool,
                            count=len(lst))
         entry = graph.ids_np[resource_type] = (arr, mask)
+    graph.ids_np_published.add(resource_type)
     return entry
+
+
+def _evict_id_views(graph) -> None:
+    """Drop an outgoing generation's cached id views.  Lookups that
+    already captured a pair keep their own references."""
+    if graph is not None:
+        graph.ids_np.clear()
+        graph.ids_np_published.clear()
+
+
+def _rel_from_key(key: tuple) -> Relationship:
+    """The identity fields of a relationship from its key (enough for
+    edge endpoints)."""
+    return Relationship(resource=ObjectRef(key[0], key[1]), relation=key[2],
+                        subject=SubjectRef(key[3], key[4], key[5]))
 
 
 def _sweep_bytes(graph, lanes: int) -> int:
@@ -146,31 +178,164 @@ def _unify_check_buckets(q_arr, gather_idx, gather_col) -> tuple:
 
 
 class _EllGraph:
-    """One compiled graph generation on the device: fixed-fanin gather
-    tables plus the kernel cache that sweeps them.  Tables are never
-    mutated after the build (writes rebuild the generation), so a
-    snapshot taken under the endpoint lock stays valid for a batch that
-    runs outside it."""
+    """One compiled graph generation: fixed-fanin gather tables on the
+    host and on the device, plus the kernel cache that sweeps them.
 
-    def __init__(self, prog: GraphProgram, device: torch.device,
-                 num_iters: Optional[int] = None):
+    Delta edits are positionless (reference jax_endpoint.py:778-1027,
+    definite plane): an edge (src -> dst) lives somewhere in dst's main
+    row or its OR-tree, and since every tree node is a monotone OR gate,
+    any dead slot in the tree can take a new child.  Inserts and removals
+    walk the host tables (O(row fanin), on writes only) and mark rows
+    dirty; `flush` moves them to the device.
+
+    Copy-on-write: `flush` never writes a device table in place.  It
+    builds new tensors (`scatter_rows`) and swaps them in, so a
+    `snapshot()` captured under the endpoint lock keeps the tables it
+    took — alive through its own references — while its batch sweeps
+    outside the lock.  Flushes and batches run on the device's current
+    stream, so the caching allocator reuses a dropped table's memory only
+    after every kernel queued before the drop."""
+
+    # Repeated growth on one destination nests OR-tree levels beyond the
+    # single spare level the sweep's aux_passes budget covers; each level
+    # past it costs queries on that hub an extra sweep.  Past this many
+    # extra levels on one root the delta goes stale (rebuild).
+    _GROW_EXTRA_MAX = 3
+
+    def __init__(self, prog: GraphProgram, edge_endpoints,
+                 device: torch.device, num_iters: Optional[int] = None):
         self.prog = prog
+        self._edge_endpoints = edge_endpoints
         t = build_tables(prog)
-        self.dev_main = torch.from_numpy(t.idx_main).to(device)
-        self.dev_aux = torch.from_numpy(t.idx_aux).to(device)
+        self.host_main = t.idx_main
+        self.host_aux = t.idx_aux
+        self._spare_aux = list(t.spare_rows)
+        # copies: on the CPU `.to()` would alias the host tables
+        self.dev_main = torch.from_numpy(t.idx_main).to(device, copy=True)
+        self.dev_aux = torch.from_numpy(t.idx_aux).to(device, copy=True)
         self.kernel = EllKernelCache(prog, n_aux_rows=t.idx_aux.shape[0],
                                      tree_depth=t.tree_depth, device=device,
                                      num_iters=num_iters,
                                      shared_tree_depth=t.tree_depth,
                                      host_main=t.idx_main)
+        self._dirty_main: set = set()
+        self._dirty_aux: set = set()
+        self._grow_extra: dict = {}  # root row -> levels grown past build
+        # growths that flipped a stage's build-time aux-free annotation
+        # (the endpoint folds them into its stage_aux_flips stat)
+        self.stage_aux_flips = 0
         self.ids_np: dict = {}
+        self.ids_np_published: set = set()
         self.last_trace = None   # sweep trace of the last kernel batch
+
+    # -- tree walking --------------------------------------------------------
+
+    def _walk(self, root_row: int, want: int) -> Optional[tuple]:
+        """Find `want` (a state index, or the dead index for a free slot)
+        in root_row's main row or its aux subtree: (table, row, col)."""
+        n = self.prog.state_size
+        stack = [("m", root_row)]
+        while stack:
+            table, row = stack.pop()
+            arr = self.host_main if table == "m" else self.host_aux
+            for col, v in enumerate(arr[row]):
+                v = int(v)
+                if v == want:
+                    return (table, row, col)
+                if v >= n:  # aux child: descend
+                    stack.append(("a", v - n))
+        return None
+
+    def _set(self, loc: tuple, value: int) -> None:
+        table, row, col = loc
+        if table == "m":
+            self.host_main[row, col] = value
+            self._dirty_main.add(row)
+        else:
+            self.host_aux[row, col] = value
+            self._dirty_aux.add(row)
+
+    # -- delta application ---------------------------------------------------
+
+    def remove_key(self, key: tuple) -> None:
+        """Remove a tuple's edges wherever they sit (absent ones, and ids
+        outside the compiled universe, are no-ops)."""
+        for (s, d) in self._edge_endpoints(self.prog,
+                                           _rel_from_key(key)) or ():
+            loc = self._walk(d, s)
+            if loc is not None:
+                self._set(loc, self.prog.dead_index)
+
+    def _grow(self, root_row: int, src: int) -> bool:
+        """Full main row: move its entries into a spare aux node, append
+        `src` there and point the row at the node — one extra OR-tree
+        level, exactly equivalent under OR.  False (rebuild) when the
+        spare pool is dry or the root's growth budget is spent."""
+        if not self._spare_aux:
+            return False
+        grown = self._grow_extra.get(root_row, 0)
+        if grown >= self._GROW_EXTRA_MAX:
+            return False
+        row = self.host_main[root_row].copy()
+        if len(row) + 1 > self.host_aux.shape[1]:
+            return False  # K_MAIN >= K_AUX: the children do not fit a node
+        j = self._spare_aux.pop()
+        n = self.prog.state_size
+        self.host_aux[j, : len(row)] = row
+        self.host_aux[j, len(row)] = src
+        self._dirty_aux.add(j)
+        self.host_main[root_row, 0] = n + j
+        self.host_main[root_row, 1:] = self.prog.dead_index
+        self._dirty_main.add(root_row)
+        self._grow_extra[root_row] = grown + 1
+        if self.kernel.note_main_aux_ref(root_row):
+            self.stage_aux_flips += 1
+        return True
+
+    def add_rel(self, rel: Relationship) -> bool:
+        """Insert a definite tuple's edges; False forces a rebuild (an id
+        outside the universe, a wildcard, or a row that cannot grow)."""
+        pairs = self._edge_endpoints(self.prog, rel)
+        if pairs is None:
+            return False
+        dead = self.prog.dead_index
+        for (s, d) in pairs:
+            if self._walk(d, s) is not None:
+                continue  # already present (re-touch)
+            loc = self._walk(d, dead)
+            if loc is None:
+                if not self._grow(d, s):
+                    return False
+                continue
+            self._set(loc, s)
+        return True
+
+    def flush(self) -> bool:
+        """Push the dirty rows to the device, copy-on-write; True when a
+        table changed.  Exactly the dirty rows go: torch compiles nothing
+        per shape, so the reference's power-of-two padding is not
+        needed."""
+        changed = False
+        if self._dirty_main:
+            self.dev_main = _scatter_dirty(self.dev_main, self.host_main,
+                                           self._dirty_main)
+            self._dirty_main = set()
+            changed = True
+        if self._dirty_aux:
+            self.dev_aux = _scatter_dirty(self.dev_aux, self.host_aux,
+                                          self._dirty_aux)
+            self._dirty_aux = set()
+            changed = True
+        return changed
+
+    # -- queries ------------------------------------------------------------
 
     def batch_bucket(self, n: int) -> int:
         return batch_words(n) * 32
 
     def snapshot(self) -> tuple:
-        """Immutable query view of the device tables."""
+        """The current device tables; a flush swaps in new ones and never
+        writes these."""
         return (self.dev_main, self.dev_aux)
 
     def run_checks3_device(self, q_arr, gather_idx, gather_col, snap=None):
@@ -190,6 +355,14 @@ class _EllGraph:
         return dev, tel, self.kernel
 
 
+def _scatter_dirty(dev: torch.Tensor, host: np.ndarray,
+                   dirty: set) -> torch.Tensor:
+    """A new device table: `dev` with the `dirty` rows taken from `host`."""
+    rows = np.asarray(sorted(dirty), np.int32)
+    return kernels.scatter_rows(dev, _to_device(rows, dev.device),
+                                _to_device(host[rows], dev.device))
+
+
 class TorchEndpoint(PermissionsEndpoint):
     def __init__(self, schema: sch.Schema, store: Optional[TupleStore] = None,
                  num_iters: Optional[int] = None, device=None):
@@ -201,16 +374,32 @@ class TorchEndpoint(PermissionsEndpoint):
         self._num_iters = num_iters
         self._lock = threading.RLock()
         self._graph: Optional[_EllGraph] = None
-        # store revision the device graph reflects (checked_at source)
+        # store revision the device graph reflects (checked_at source):
+        # a rebuild captures it with its snapshot, applied delta batches
+        # advance it to their own revision
         self._graph_revision = 0
-        # set by store listeners (which run under the STORE lock and must
-        # never take self._lock): the next query rebuilds
+        # store listeners run under the STORE lock and must never take
+        # self._lock: delta intake is a lock-free deque append, a store
+        # reset only raises a flag
+        self._pending: collections.deque = collections.deque()
         self._graph_invalid = False
-        self._next_expiry = math.inf
+        # (expires_at, key) min-heap; _expiry_meta holds each key's
+        # current expiry, and heap entries that disagree are skipped
+        self._expiry_heap: list = []
+        self._expiry_meta: dict = {}
         self._caveat_affected: set = set()
+        self._caveated_keys: set = set()
+        self._stale_closure_cache: dict = {}   # (type, rel) -> pair set
         self._spare_pool: dict = {}
-        self.stats = {"rebuilds": 0, "kernel_calls": 0,
-                      "oracle_residual_checks": 0, "placeholder_suppressed": 0}
+        # (type, id) -> live tuple keys, for spare-ASSIGNED ids only: an
+        # emptied set renames the row back to a placeholder and repools it
+        self._assigned_refs: dict = {}
+        self._spare_seq = 0
+        self.stats = {"rebuilds": 0, "delta_batches": 0, "kernel_calls": 0,
+                      "oracle_residual_checks": 0, "placeholder_suppressed": 0,
+                      "spare_assignments": 0, "spare_reclaims": 0,
+                      "stage_aux_flips": 0, "stale_pair_marks": 0,
+                      "delta_apply_s": 0.0, "flush_s": 0.0}
         self.store.add_delta_listener(self._on_delta)
         self.store.add_reset_listener(self._on_reset)
 
@@ -234,35 +423,126 @@ class TorchEndpoint(PermissionsEndpoint):
         self.graph()
 
     def graph(self) -> "_EllGraph":
-        """The device graph reflecting the committed store (built or
-        rebuilt first when the store moved past it)."""
+        """The device graph reflecting the committed store (pending
+        deltas applied, or the generation rebuilt, first)."""
         with self._lock:
             return self._current_graph()
 
-    # -- graph maintenance --------------------------------------------------
+    def force_rebuild(self) -> None:
+        """Rebuild the generation from the store now."""
+        with self._lock:
+            self._rebuild()
+
+    # -- delta intake -------------------------------------------------------
 
     def _on_delta(self, update: WatchUpdate) -> None:
-        self._graph_invalid = True
+        # under the store lock: must not take self._lock
+        self._pending.append(update)
 
     def _on_reset(self) -> None:
+        # bulk_load / delete_all: the next read rebuilds
         self._graph_invalid = True
+
+    def _drain_pending(self) -> list:
+        """Atomically take all queued delta batches."""
+        out = []
+        while True:
+            try:
+                out.append(self._pending.popleft())
+            except IndexError:
+                return out
+
+    # -- graph maintenance --------------------------------------------------
+
+    def _edge_endpoints(self, prog: GraphProgram,
+                        rel: Relationship) -> Optional[list]:
+        """(src, dst) state pairs a tuple contributes, [] for an edgeless
+        one, None when an id is outside the compiled universe or the
+        subject is a wildcard (baked into the program: rebuild)."""
+        rt = rel.resource.type
+        d = self.schema.definitions.get(rt)
+        if d is None or rel.relation not in d.relations:
+            return []
+        dst = prog.state_index(rt, rel.relation, rel.resource.id)
+        if dst is None:
+            return None
+        st, sid, srel = rel.subject.type, rel.subject.id, rel.subject.relation
+        if sid == WILDCARD:
+            return None
+        src = prog.subject_index(st, sid, srel)
+        if src is None:
+            return None
+        out = [(src, dst)]
+        for (_, _, target, slot) in prog.arrow_specs.get((rt, rel.relation),
+                                                         ()):
+            if srel:
+                continue
+            target_def = self.schema.definitions.get(st)
+            if (target_def is None
+                    or not target_def.has_relation_or_permission(target)):
+                continue
+            asrc = prog.state_index(st, target, sid)
+            adst = prog.state_index(rt, slot, rel.resource.id)
+            if asrc is None or adst is None:
+                return None
+            out.append((asrc, adst))
+        return out
 
     def _current_graph(self) -> _EllGraph:
         """The graph reflecting the committed store (under self._lock)."""
-        if (self._graph is None or self._graph_invalid
-                or self.store.now() >= self._next_expiry):
-            self._rebuild()
+        self._apply_pending()
         return self._graph
 
+    def _apply_pending(self) -> None:
+        """Drain store deltas into the graph and flush them (under
+        self._lock); rebuild when the graph is missing or invalid, or when
+        a delta could not be absorbed."""
+        if self._graph_invalid:
+            self._graph_invalid = False
+            _evict_id_views(self._graph)
+            self._graph = None
+        graph = self._graph
+        if graph is None:
+            self._rebuild()
+            return
+        batches = self._drain_pending()
+        if not batches and not (self._expiry_heap and self._expiry_heap[0][0]
+                                <= self.store.now()):
+            return
+        t0 = time.perf_counter()
+        stale, applied_revision = self._apply_batches(batches)
+        if stale:
+            # no quarantine yet: the snapshot of a synchronous rebuild
+            # subsumes every drained delta
+            self._rebuild()
+            return
+        self._graph_revision = applied_revision
+        if graph.stage_aux_flips:
+            self.stats["stage_aux_flips"] += graph.stage_aux_flips
+            graph.stage_aux_flips = 0
+        t1 = time.perf_counter()
+        if graph.flush():
+            self.stats["delta_batches"] += 1
+        # host seconds of delta application and of the flush (its
+        # uploads and launches; the kernels run on asynchronously)
+        self.stats["delta_apply_s"] += t1 - t0
+        self.stats["flush_s"] += time.perf_counter() - t1
+
     def _rebuild(self) -> None:
-        """Full build from the store snapshot (reference _build_candidate,
-        jax_endpoint.py:1523-1606, without Leopard and background
-        machinery)."""
+        """Full build from the store snapshot under the endpoint lock
+        (reference _rebuild + _build_candidate + _install_candidate,
+        jax_endpoint.py:1511-1625, without Leopard and the background
+        machinery).  Queued deltas are subsumed by the snapshot: one that
+        lands after the drain is re-applied idempotently."""
+        self._drain_pending()
         self._graph_invalid = False
         prev = self._graph
         extra = {}
         spare_pool = {}
         for t in self.schema.definitions:
+            # num_objects counts the previous generation's synthetic rows
+            # (1 phantom + the unassigned spares): size the pool from the
+            # real universe
             prev_n = prev.prog.num_objects.get(t, 0) if prev else 0
             prev_synth = 1 + len(self._spare_pool.get(t, ())) if prev else 0
             n_t = max(prev_n - prev_synth,
@@ -274,30 +554,209 @@ class TorchEndpoint(PermissionsEndpoint):
         with self.store.lock:
             revision = self.store.revision
             caveated = self.store.caveated_relation_pairs()
+            caveated_keys = self.store.caveated_keys() if caveated else set()
             view = self.store.columnar_view()
             tuples = None if view is not None else self.store.read(None)
-        now = self.store.now()
         if view is not None:
             snap, rows, overlay = view
             prog = compile_graph_columnar(self.schema, snap, rows, overlay,
                                           extra_subject_ids=extra)
-            exp = snap.expiry[rows]
-            exp = exp[~np.isnan(exp)]
-            expiries = [float(exp.min())] if len(exp) else []
-            expiries += [r.expires_at for r in overlay
-                         if r.expires_at is not None]
+            self._reset_expiry_columnar(snap, rows, overlay)
         else:
             prog = compile_graph(self.schema, tuples, extra_subject_ids=extra)
-            expiries = [r.expires_at for r in tuples
-                        if r.expires_at is not None]
-        self._graph = _EllGraph(prog, self.device, num_iters=self._num_iters)
+            self._reset_expiry(tuples)
+        _evict_id_views(prev)
+        self._graph = _EllGraph(prog, self._edge_endpoints, self.device,
+                                num_iters=self._num_iters)
         self._graph_revision = revision
         self._spare_pool = spare_pool
+        self._assigned_refs = {}
+        self._spare_seq = 0
         self._caveat_affected = (caveat_affected_pairs(self.schema, caveated)
                                  if caveated else set())
-        self._next_expiry = min((e for e in expiries if e > now),
-                                default=math.inf)
+        self._caveated_keys = caveated_keys
         self.stats["rebuilds"] += 1
+
+    # -- expiry heap ----------------------------------------------------------
+
+    def _reset_expiry_columnar(self, snap, rows, overlay) -> None:
+        self._expiry_heap = []
+        self._expiry_meta = {}
+        exp = snap.expiry[rows]
+        for i in np.nonzero(~np.isnan(exp))[0]:
+            key = snap.key_of(int(rows[i]))
+            self._set_expiry(key, float(exp[i]))
+        for rel in overlay:
+            if rel.expires_at is not None:
+                self._set_expiry(rel.key(), rel.expires_at)
+
+    def _reset_expiry(self, tuples: list) -> None:
+        self._expiry_heap = []
+        self._expiry_meta = {}
+        for rel in tuples:
+            if rel.expires_at is not None:
+                self._set_expiry(rel.key(), rel.expires_at)
+
+    def _set_expiry(self, key: tuple, expires_at) -> None:
+        if expires_at is None:
+            self._expiry_meta.pop(key, None)
+        else:
+            self._expiry_meta[key] = expires_at
+            heapq.heappush(self._expiry_heap, (expires_at, key))
+
+    # -- spare object rows ----------------------------------------------------
+
+    def _assign_spare(self, graph, type_name: str, new_id: str) -> bool:
+        """Claim a spare row for a brand-new object id by renaming it in
+        the program's id maps; the tables are untouched (the row exists,
+        dead, in every slot of the type).  False when the pool is dry."""
+        pool = self._spare_pool.get(type_name)
+        if not pool:
+            return False
+        self._rename_row(graph, type_name, pool.pop(), new_id)
+        self._assigned_refs[(type_name, new_id)] = set()
+        self.stats["spare_assignments"] += 1
+        return True
+
+    def _rename_row(self, graph, type_name: str, old_id: str,
+                    new_id: str) -> bool:
+        """Rename one object row in the program's id maps and patch the
+        graph's cached id view.  A published view (one a lookup may be
+        indexing outside the lock) is copied before the patch and the copy
+        replaces it; an unpublished one is patched in place."""
+        prog = graph.prog
+        local = prog.object_index[type_name].pop(old_id, None)
+        if local is None:
+            return False
+        prog.object_index[type_name][new_id] = local
+        prog.object_ids[type_name][local] = new_id
+        entry = graph.ids_np.get(type_name)
+        if entry is not None:
+            arr, mask = entry
+            if type_name in graph.ids_np_published:
+                arr, mask = arr.copy(), mask.copy()
+                graph.ids_np[type_name] = (arr, mask)
+                graph.ids_np_published.discard(type_name)
+            arr[local] = new_id
+            mask[local] = "\x00" in new_id
+        return True
+
+    def _note_key_applied(self, key: tuple) -> None:
+        """Record a live tuple against any spare-assigned ids it names."""
+        for side in ((key[0], key[1]), (key[3], key[4])):
+            refs = self._assigned_refs.get(side)
+            if refs is not None:
+                refs.add(key)
+
+    def _note_key_removed(self, graph, key: tuple) -> None:
+        """Drop a tuple from its ids' ref sets; an emptied set reclaims
+        the spare row."""
+        for side in ((key[0], key[1]), (key[3], key[4])):
+            refs = self._assigned_refs.get(side)
+            if refs is None:
+                continue
+            refs.discard(key)
+            if not refs:
+                self._reclaim_spare(graph, side)
+
+    def _reclaim_spare(self, graph, side: tuple) -> None:
+        """Rename an assigned id's row back to a fresh placeholder and
+        return it to the pool."""
+        t, old_id = side
+        self._assigned_refs.pop(side, None)
+        self._spare_seq += 1
+        placeholder = f"{_SPARE_PREFIX}r{self._spare_seq}"
+        if not self._rename_row(graph, t, old_id, placeholder):
+            return
+        self._spare_pool.setdefault(t, []).append(placeholder)
+        self.stats["spare_reclaims"] += 1
+
+    def _ensure_ids_for(self, graph, rel: Relationship) -> bool:
+        """Make every id a TOUCHed tuple names indexable, assigning spare
+        rows to new ones; False (pool dry) forces a rebuild."""
+        prog = graph.prog
+        rt, rid = rel.resource.type, rel.resource.id
+        d = self.schema.definitions.get(rt)
+        if d is None or rel.relation not in d.relations:
+            return True  # edgeless tuple: never spend a spare on it
+        if rt in prog.object_index and rid not in prog.object_index[rt]:
+            if not self._assign_spare(graph, rt, rid):
+                return False
+        stype, sid = rel.subject.type, rel.subject.id
+        if (stype in prog.object_index and sid != WILDCARD
+                and sid not in prog.object_index[stype]):
+            if not self._assign_spare(graph, stype, sid):
+                return False
+        return True
+
+    # -- delta application ----------------------------------------------------
+
+    def _stale_closure(self, resource_type: str, relation: str) -> set:
+        """(type, permission) pairs whose answers could depend on tuples
+        of (resource_type, relation); memoized per schema."""
+        key = (resource_type, relation)
+        out = self._stale_closure_cache.get(key)
+        if out is None:
+            out = set(caveat_affected_pairs(self.schema, {key}))
+            self._stale_closure_cache[key] = out
+        return out
+
+    def _remove_applied(self, graph, key: tuple) -> bool:
+        """Take a removed or expired tuple out of the graph; False when
+        only a rebuild can (a caveated tuple: no caveat planes yet)."""
+        if key in self._caveated_keys:
+            return False
+        graph.remove_key(key)
+        self._note_key_removed(graph, key)
+        return True
+
+    def _apply_batches(self, batches: list) -> tuple:
+        """Apply drained delta batches and due expirations to the host
+        tables (under self._lock; reference jax_endpoint.py:1865-2001,
+        definite plane).  Returns (stale pairs, applied revision): an
+        update the tables cannot absorb adds its affected (type,
+        permission) closure to the stale set and application goes on; the
+        caller rebuilds when the set is non-empty, and flushes otherwise."""
+        graph = self._graph
+        stale: set = set()
+        applied_revision = self._graph_revision
+        for batch in batches:
+            applied_revision = max(applied_revision, batch.revision)
+            for u in batch.updates:
+                key = u.rel.key()
+                rt, relation = u.rel.resource.type, u.rel.relation
+                if u.op == UpdateOp.DELETE:
+                    if u.rel.subject.id == WILDCARD:
+                        # wildcard masks are baked into the program
+                        stale |= self._stale_closure(rt, relation)
+                        continue
+                    self._set_expiry(key, None)
+                    if not self._remove_applied(graph, key):
+                        stale |= self._stale_closure(rt, relation)
+                    continue
+                self._set_expiry(key, u.rel.expires_at)
+                if (not self._ensure_ids_for(graph, u.rel)
+                        or u.rel.caveat is not None
+                        or key in self._caveated_keys
+                        or not graph.add_rel(u.rel)):
+                    # a caveated tuple, or a definite one replacing a
+                    # caveated one, needs caveat planes: rebuild
+                    stale |= self._stale_closure(rt, relation)
+                    continue
+                self._note_key_applied(key)
+        # expire lazily after the batches, on the store's clock (the one
+        # reads filter with), so kernel and oracle agree at the instant
+        now = self.store.now()
+        while self._expiry_heap and self._expiry_heap[0][0] <= now:
+            exp, key = heapq.heappop(self._expiry_heap)
+            if self._expiry_meta.get(key) != exp:
+                continue  # deleted or re-touched since
+            del self._expiry_meta[key]
+            if key[4] == WILDCARD or not self._remove_applied(graph, key):
+                stale |= self._stale_closure(key[0], key[2])
+        if stale:
+            self.stats["stale_pair_marks"] += len(stale)
+        return stale, applied_revision
 
     # -- query encoding -----------------------------------------------------
 

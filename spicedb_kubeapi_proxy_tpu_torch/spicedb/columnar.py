@@ -59,6 +59,12 @@ class ColumnarSnapshot:
             expires_at=None if np.isnan(exp) else exp,
         )
 
+    def key_of(self, i: int) -> tuple:
+        """Identity key of row i, as Relationship.key() gives it."""
+        pool = self.pool
+        return (pool[self.rtype[i]], pool[self.rid[i]], pool[self.rel[i]],
+                pool[self.stype[i]], pool[self.sid[i]], pool[self.srel[i]])
+
     # -- constructors -------------------------------------------------------
 
     @classmethod

@@ -7,8 +7,9 @@ preconditions, relationship expiration (`use expiration` /
 `with expiration`, used by the dual-write engine's idempotency keys,
 reference activity.go:47-102), read filters, and watch subscriptions.
 
-The device tables used by the torch:// backend are a cache rebuilt
-from this store (SURVEY.md §5 checkpoint/resume note).
+The device tables used by the torch:// backend are a cache built from
+this store and kept current from its committed deltas (SURVEY.md §5
+checkpoint/resume note).
 """
 
 from __future__ import annotations
@@ -170,7 +171,7 @@ class TupleStore:
         self._revision = 0
         self._watchers: list[Watcher] = []
         # delta listeners get every committed batch synchronously under the
-        # store lock — the torch:// backend uses them to invalidate its
+        # store lock — the torch:// backend queues them as deltas for its
         # device graph.
         self._delta_listeners: list[Callable[[WatchUpdate], None]] = []
         # reset listeners fire on non-delta mass changes (bulk_load,

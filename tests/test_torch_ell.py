@@ -194,3 +194,15 @@ def test_twin_popcount_and_seed_cover_bit_31():
         ref[r, c // 32] |= np.uint32(1) << np.uint32(c % 32)
     ref[10] = 0
     assert np.array_equal(x0.numpy().view(np.uint32), ref)
+
+
+@pytest.mark.parametrize("w", [1, 4])
+def test_lookup_T_twin_owns_its_result(w):
+    """The state arena is reused by the next batch, so the lookup words
+    must not alias it (a one-word batch made `.t().contiguous()` a view)."""
+    x = torch.arange(40 * w, dtype=torch.int32).reshape(40, w)
+    words = twins.lookup_T(x, 3, 20)
+    assert torch.equal(words, x[3:23].t())
+    assert words.is_contiguous()
+    x.zero_()
+    assert int(words.abs().sum()) > 0

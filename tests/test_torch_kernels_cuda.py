@@ -95,3 +95,38 @@ def test_card_and_cpu_endpoints_agree_with_wildcards():
     assert all(kernels.LAUNCHES[k] for k in
                ("seed_bitplanes", "ell_gather_or", "perm_program",
                 "sweep_delta", "lookup_T"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 32])
+def test_scatter_rows_matches_its_twin(k):
+    """Copy-on-write row scatter on random tables: b from 1 to 4096 dirty
+    rows, duplicates with equal values included, `src` never written."""
+    _needs_card()
+    rng = np.random.default_rng(k)
+    r = 50_000 if k == 2 else 6_000
+    src = torch.from_numpy(rng.integers(-2**31, 2**31, (r, k), dtype=np.int64)
+                           .astype(np.int32)).cuda()
+    src0 = src.clone()
+    kernels.reset_launches()
+    for b in (1, 2, 17, 512, 4096):
+        rows = rng.integers(0, r, b).astype(np.int32)
+        rows = np.concatenate([rows, rows[: b // 2], np.repeat(rows[-1:], 3)])
+        uniq, first = np.unique(rows, return_index=True)
+        vals = rng.integers(-2**31, 2**31, (len(rows), k),
+                            dtype=np.int64).astype(np.int32)
+        vals = vals[first[np.searchsorted(uniq, rows)]]
+        t_rows = torch.from_numpy(rows).cuda()
+        t_vals = torch.from_numpy(vals).cuda()
+        got = kernels.scatter_rows(src, t_rows, t_vals)
+        torch.cuda.synchronize()
+        assert torch.equal(got, reference.scatter_rows(src, t_rows, t_vals))
+        assert torch.equal(src, src0)
+    # a row-offset view: for K = 2 it is not 16-byte aligned and takes
+    # the scalar copy path
+    view = src[1:]
+    rows = torch.tensor([0, 5, 5], dtype=torch.int32, device="cuda")
+    vals = torch.full((3, k), 7, dtype=torch.int32, device="cuda")
+    assert torch.equal(kernels.scatter_rows(view, rows, vals),
+                       reference.scatter_rows(view, rows, vals))
+    assert kernels.LAUNCHES["scatter_rows"] == 6
