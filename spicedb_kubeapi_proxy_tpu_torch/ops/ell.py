@@ -1,23 +1,31 @@
 """Bit-packed ELL (fixed-fanin gather) reachability sweep on torch.
 
-The torch counterpart of the reference's ops/ell.py, definite plane and
-staged step only.  Two halves:
+The torch counterpart of the reference's ops/ell.py.  Two halves:
 
 - host (numpy, copied from the reference so both packages build the very
-  same tables): `batch_words`, `build_tables`, `compute_stages`,
-  `annotate_stage_refresh`, plus `compile_perm_program`, which flattens a
-  permission expression into the postfix code the perm_program kernel
-  runs;
+  same tables): `batch_words`, `build_tables`, `build_cav_tables`,
+  `compute_stages`, `annotate_stage_refresh`, plus `compile_perm_program`,
+  which flattens a permission expression into the postfix code the
+  perm_program kernel runs;
 - device: `EllKernelCache`, whose pipelined entries `checks_device` and
-  `lookup_packed_T_device` seed the bitplanes, run the staged
-  Gauss-Seidel sweep to its fixpoint and gather the answers — every step
-  a hand-written CUDA kernel (ops/kernels) on a CUDA device, or the
-  kernels' plain-torch twins on the CPU.
+  `lookup_packed_T_device` seed the bitplanes, run a sweep to its
+  fixpoint and gather the answers — every step a hand-written CUDA kernel
+  (ops/kernels) on a CUDA device, or the kernels' plain-torch twins on
+  the CPU.  The sweep is the staged Gauss-Seidel step on the definite
+  path, or the Jacobi step (`stages=()`, and always with `planes`).
 
 Layout: x is int32 [NT, W] (W = batch lanes / 32); rows [0, state_size)
 are the GraphProgram's state, rows [state_size, NT) the aux OR-tree nodes
 of hub destinations.  The program's dead index is the last state row;
 padding slots in both tables point at it and it stays zero.
+
+Tri-state (caveat) path, `planes=True`: x is [NT, 2W], words [0, W) the
+DEFINITE plane and [W, 2W) the MAYBE plane (maybe ⊇ definite).  Edges of
+caveated tuples whose context cannot decide the caveat live in a third
+gather table, idx_cav [NT, K_CAV], which feeds only the maybe plane;
+exclusion mixes the planes by Kleene logic.  Checks answer {0, 1, 2}
+(NO / CONDITIONAL / HAS), lookups the definite plane only (LookupResources
+skips conditional results).
 
 The fixpoint loop runs on the host: after each sweep it reads back the
 sweep_delta pair (changed bits, any change) — one device sync per sweep.
@@ -50,6 +58,9 @@ from .kernels.reference import OP_AND, OP_ANDNOT, OP_OR, OP_READ, OP_ZERO
 K_MAIN = 2
 # Aux-node fanin: wider is better for hubs (fewer tree levels).
 K_AUX = 32
+# Caveat (MAYBE-plane) table fanin; caveated tuples are typically sparse,
+# hubs tree-split inside the same table
+K_CAV = 8
 
 MAX_ITERATIONS = 50  # matches embedded reference dispatch depth cap
 
@@ -146,6 +157,50 @@ def build_tables(prog: GraphProgram,
         spares = ()
     return EllTables(idx_main=idx_main, idx_aux=idx_aux,
                      tree_depth=tree_depth, spare_rows=spares)
+
+
+@dataclass
+class CavTables:
+    """MAYBE-plane adjacency: one [NT, K_CAV] gather table whose OR is the
+    one-step closure over UNDECIDABLE caveated edges only.  Caveat hubs
+    tree-split into aux rows appended after the shared aux rows (their
+    children live in this same table); rows the shared tables own are
+    dead-padded here and vice versa."""
+    idx_cav: np.ndarray   # int32 [NT, K_CAV]
+    n_aux_cav: int
+    tree_depth: int
+
+
+def build_cav_tables(prog: GraphProgram, n_aux_shared: int) -> CavTables:
+    """Destination-major fixed-fanin table for the program's caveat edges.
+    Python-loop build is fine: caveated tuples are sparse by nature."""
+    dead = prog.dead_index
+    base = prog.state_size + n_aux_shared
+    groups: dict[int, list] = {}
+    for s, d in zip(prog.cav_src, prog.cav_dst):
+        groups.setdefault(int(d), []).append(int(s))
+    aux_rows: list[list] = []
+    roots: dict[int, list] = {}
+    tree_depth = 0
+    for dst, children in groups.items():
+        depth = 0
+        while len(children) > K_CAV:
+            nxt = []
+            for i in range(0, len(children), K_CAV):
+                aux_rows.append(children[i: i + K_CAV])
+                nxt.append(base + len(aux_rows) - 1)
+            children = nxt
+            depth += 1
+        roots[dst] = children
+        tree_depth = max(tree_depth, depth)
+    nt = base + len(aux_rows)
+    idx_cav = np.full((nt, K_CAV), dead, np.int32)
+    for dst, children in roots.items():
+        idx_cav[dst, : len(children)] = children
+    for j, children in enumerate(aux_rows):
+        idx_cav[base + j, : len(children)] = children
+    return CavTables(idx_cav=idx_cav, n_aux_cav=len(aux_rows),
+                     tree_depth=tree_depth)
 
 
 def compute_stages(prog: GraphProgram) -> tuple:
@@ -288,8 +343,9 @@ def annotate_stage_refresh(stages: tuple, host_main: np.ndarray,
 def compile_perm_program(expr, offset: int, length: int) -> tuple:
     """Postfix code (int32 pairs) for one permission op, as the
     perm_program kernel runs it; returns (code, stack depth, reads own
-    rows).  Mirrors the reference's _apply_perm_expr_packed (definite
-    plane): union = OR, intersection = AND, exclusion = AND-NOT."""
+    rows).  Mirrors the reference's _apply_perm_expr_packed: union = OR,
+    intersection = AND, exclusion = AND-NOT (across planes when the
+    kernel runs in plane mode)."""
     code: list = []
     depth = [0, 0]   # current, max
     self_read = [False]
@@ -329,8 +385,9 @@ def compile_perm_program(expr, offset: int, length: int) -> tuple:
 
 @dataclass
 class _Arena:
-    """One bucket's state buffers, [NT, W] int32 each: the seed x0 and
-    the two sweep states the fixpoint loop swaps between."""
+    """One bucket's state buffers, [NT, W] int32 each ([NT, 2W] with
+    planes): the seed x0 and the two sweep states the fixpoint loop swaps
+    between."""
     x0: torch.Tensor
     a: torch.Tensor
     b: torch.Tensor
@@ -338,35 +395,44 @@ class _Arena:
 
 class EllKernelCache:
     """Packed check/lookup entry points for one (program, tables) pair on
-    one device — the definite-plane pipelined path of the reference's
-    EllKernelCache (ops/ell.py:676-996), with the KernelIntrospect sweep
+    one device — the pipelined and serial paths of the reference's
+    EllKernelCache (ops/ell.py:676-1088), with the KernelIntrospect sweep
     trace always on: every call returns an int32 [1 + num_iters] trace,
     entry 0 the executed sweep count and entry 1 + i popcount(x1 ^ x) of
-    sweep i."""
+    sweep i.
+
+    With `planes=True` the state carries definite/maybe bitplanes and the
+    entry points take the caveat table `idx_cav`: checks return tri-state
+    {0, 1, 2}, lookups the DEFINITE plane.  The plane path sweeps with the
+    Jacobi step, as the reference's does; `stages=()` selects the same
+    step on the definite path (the reference's SPICEDB_TPU_STAGED=0)."""
 
     def __init__(self, prog: GraphProgram, n_aux_rows: int, tree_depth: int,
                  device: torch.device, num_iters: Optional[int] = None,
                  shared_tree_depth: Optional[int] = None,
                  host_main: Optional[np.ndarray] = None,
-                 stages: Optional[tuple] = None):
+                 stages: Optional[tuple] = None, planes: bool = False):
         self.prog = prog
         self.n_aux_rows = n_aux_rows
         self.device = torch.device(device)
+        self.planes = planes
         # in-sweep bottom-up aux refresh passes: the shared table's tree
-        # height, +1 spare pass (as the reference sizes it)
+        # height, +1 spare pass (as the reference sizes it); cav trees
+        # climb one level per sweep and only count toward the cap
         std = shared_tree_depth if shared_tree_depth is not None else tree_depth
         self.aux_passes = std + 1
         base = num_iters or MAX_ITERATIONS
+        self.tree_depth = tree_depth
         self.num_iters = base * (1 + tree_depth)
-        if stages is None:
+        if planes:
+            if stages:
+                raise ValueError("the plane path has no staged step")
+            stages = ()
+        elif stages is None:
             stages = compute_stages(prog)
             if stages and host_main is not None:
                 stages = annotate_stage_refresh(stages, host_main,
                                                 prog.state_size)
-        if not stages and prog.state_size > 1:
-            raise NotImplementedError(
-                "a program without type stages needs the Jacobi step, which "
-                "the torch port does not have yet")
         self.stages = stages
         self._plan = self._build_plan()
         self._arenas: dict = {}
@@ -379,7 +445,9 @@ class EllKernelCache:
         length, in_place)]), with every table the kernels read uploaded
         once.  Perm ops and wildcard terms are grouped by the stage whose
         ranges contain them (a type's slots are contiguous, so containment
-        is exact), as the reference groups them."""
+        is exact), as the reference groups them.  The Jacobi step is one
+        pseudo-stage: every state row and every perm op in program
+        order."""
         prog, dev = self.prog, self.device
         terms = list(prog.wildcard_terms)
         if len(terms) > kernels.MAX_WILDCARD_TERMS:
@@ -396,8 +464,9 @@ class EllKernelCache:
         def in_stage(ranges, off):
             return any(lo <= off < hi for lo, hi in ranges)
 
+        stages = self.stages or ((((0, prog.state_size),), 1, True),)
         plan = []
-        for ranges, repeat, wants_aux in self.stages or ():
+        for ranges, repeat, wants_aux in stages:
             rows = []
             for lo, hi in ranges:
                 # bit i of a row's mask word: wildcard term i grants it
@@ -448,6 +517,10 @@ class EllKernelCache:
 
     # -- state arenas --------------------------------------------------------
 
+    def width(self, n_words: int) -> int:
+        """State words per row for a bucket of `n_words` lane words."""
+        return 2 * n_words if self.planes else n_words
+
     def take_arena(self, n_words: int) -> _Arena:
         """Pop the bucket's state arena (exclusive: two in-flight calls
         never share one); allocated on first use."""
@@ -456,8 +529,9 @@ class EllKernelCache:
         if a is not None:
             return a
         nt = self.prog.state_size + self.n_aux_rows
-        return _Arena(*(torch.empty((nt, n_words), dtype=torch.int32,
-                                    device=self.device) for _ in range(3)))
+        return _Arena(*(torch.empty((nt, self.width(n_words)),
+                                    dtype=torch.int32, device=self.device)
+                        for _ in range(3)))
 
     def put_arena(self, n_words: int, arena: _Arena) -> None:
         """Return an arena to the pool; if a concurrent call repooled
@@ -472,69 +546,96 @@ class EllKernelCache:
 
     # -- the sweep -----------------------------------------------------------
 
-    def sweep_steps(self, idx_main, idx_aux, plan: Optional[list] = None):
-        """The kernel calls of one staged Gauss-Seidel sweep (reference
-        staged_step, ell.py:444-500), in order: ("ell_gather_or", idx,
-        dst_lo, seeded, wc_bits) and ("perm_program", code, offset,
-        length, in_place).  Each stage pass first refreshes the aux
-        OR-trees (`aux_passes` Jacobi passes) when its rows read aux
-        roots, then gathers its row ranges, then runs its permission ops;
-        a final refresh leaves the aux rows consistent with the state, so
-        a fixpoint compares unchanged.  `plan` defaults to the current
-        one."""
+    def sweep_steps(self, idx_main, idx_aux, idx_cav=None,
+                    n_words: Optional[int] = None,
+                    plan: Optional[list] = None):
+        """The kernel calls of one sweep, in order: ("ell_gather_or", idx,
+        dst_lo, seeded, wc_bits), ("cav_gather_or", idx_cav, half) and
+        ("perm_program", code, offset, length, in_place, half); `half` is
+        `n_words` on the plane path and None on the definite one.  `plan`
+        defaults to the current one.
+
+        Staged step (reference staged_step, ell.py:444-500): each stage
+        pass first refreshes the aux OR-trees (`aux_passes` Jacobi passes)
+        when its rows read aux roots, then gathers its row ranges, then
+        runs its permission ops; a final refresh leaves the aux rows
+        consistent with the state, so a fixpoint compares unchanged.
+
+        Jacobi step (reference step, ell.py:504-551): the aux refresh
+        passes, the main gather over every state row (reading the state
+        rows of the sweep's input and the refreshed aux rows), the caveat
+        gather into the maybe plane (reading the sweep's INPUT, its aux
+        rows included, so caveat trees climb one level per sweep), then
+        every perm op in program order on the result."""
+        half = n_words if self.planes else None
         n = self.prog.state_size
         refresh = [("ell_gather_or", idx_aux, n, False, None)] \
             * (self.aux_passes if self.n_aux_rows else 0)
-        for repeat, wants_aux, rows, ops in (plan if plan is not None
-                                             else self._plan):
+        plan = plan if plan is not None else self._plan
+        if not self.stages:
+            yield from refresh
+            ((_, _, rows, ops),) = plan
+            for lo, hi, wc in rows:
+                yield ("ell_gather_or", idx_main[lo:hi], lo, True, wc)
+            if self.planes and idx_cav is not None:
+                yield ("cav_gather_or", idx_cav, half)
+            for code, off, length, in_place in ops:
+                yield ("perm_program", code, off, length, in_place, half)
+            return
+        for repeat, wants_aux, rows, ops in plan:
             for _ in range(repeat):
                 if wants_aux:
                     yield from refresh
                 for lo, hi, wc in rows:
                     yield ("ell_gather_or", idx_main[lo:hi], lo, True, wc)
                 for code, off, length, in_place in ops:
-                    yield ("perm_program", code, off, length, in_place)
+                    yield ("perm_program", code, off, length, in_place, None)
         yield from refresh
 
     @staticmethod
-    def run_step(step, cur, x0, live, impl=kernels) -> None:
+    def run_step(step, cur, x0, live, impl=kernels, x_in=None) -> None:
         """Run one sweep step on `cur` with `impl` — the kernel wrappers,
         or their twins (kernels.reference) to hold a kernel against its
-        plain version on the same inputs."""
-        if step[0] == "ell_gather_or":
+        plain version on the same inputs.  `x_in` is the sweep's input
+        state, which only the caveat gather reads."""
+        kind = step[0]
+        if kind == "ell_gather_or":
             _, idx, dst_lo, seeded, wc = step
             impl.ell_gather_or(cur, idx, dst_lo, x0=x0 if seeded else None,
                                wc_bits=wc,
                                wc_live=live if wc is not None else None)
+        elif kind == "cav_gather_or":
+            _, idx, half = step
+            impl.cav_gather_or(cur, x_in, idx, half)
         else:
-            _, code, off, length, in_place = step
-            impl.perm_program(cur, x0, code, off, length, in_place=in_place)
-
-    def _sweep(self, cur, x0, idx_main, idx_aux, live, plan) -> None:
-        """One sweep: `cur` enters as a copy of the previous state and
-        leaves as the next one, dead row not yet zeroed (sweep_delta does
-        that).  `live` is the wildcard liveness: the reference ORs the
-        self rows of the sweep's input state, which always equal the
-        seed's (no edge targets a self slot), so the seed kernel computed
-        it once."""
-        for step in self.sweep_steps(idx_main, idx_aux, plan):
-            self.run_step(step, cur, x0, live)
+            _, code, off, length, in_place, half = step
+            impl.perm_program(cur, x0, code, off, length, in_place=in_place,
+                              half=half)
 
     def evaluate(self, q_idx: torch.Tensor, n_words: int, idx_main,
-                 idx_aux, arena: _Arena) -> tuple:
+                 idx_aux, arena: _Arena, idx_cav=None) -> tuple:
         """Seed, then sweep to the fixpoint (or the iteration cap).
         Returns (final state — one of the arena's buffers, trace).  The
-        whole batch sweeps with the plan current at its start."""
+        whole batch sweeps with the plan current at its start.
+
+        Each sweep starts `cur` as a copy of the input `x` and leaves it
+        the next state, dead row zeroed by sweep_delta.  `live` is the
+        wildcard liveness: the reference ORs the self rows of the sweep's
+        input state, which always equal the seed's (no edge, definite or
+        caveated, targets a self slot), so the seed kernel computes it
+        once."""
         plan = self._plan
         prog = self.prog
         nt = prog.state_size + self.n_aux_rows
         dead = prog.dead_index
         live = None
         if self._wc_ranges is not None:
-            live = torch.empty((self._wc_ranges.shape[0], n_words),
+            live = torch.empty((self._wc_ranges.shape[0],
+                                self.width(n_words)),
                                dtype=torch.int32, device=self.device)
         x0 = kernels.seed_bitplanes(q_idx, nt, n_words, dead, out=arena.x0,
-                                    wc_ranges=self._wc_ranges, live=live)
+                                    wc_ranges=self._wc_ranges, live=live,
+                                    planes=self.planes)
         x, cur = arena.a, arena.b
         x.copy_(x0)
         trace = np.zeros(1 + self.num_iters, np.int32)
@@ -542,7 +643,9 @@ class EllKernelCache:
         changed = True
         while changed and i < self.num_iters:
             cur.copy_(x)
-            self._sweep(cur, x0, idx_main, idx_aux, live, plan)
+            for step in self.sweep_steps(idx_main, idx_aux, idx_cav,
+                                         n_words, plan):
+                self.run_step(step, cur, x0, live, x_in=x)
             delta, any_change = kernels.sweep_delta(cur, x, dead).tolist()
             trace[1 + i] = delta
             changed = bool(any_change)
@@ -551,11 +654,15 @@ class EllKernelCache:
         trace[0] = i
         return x, trace
 
-    def _run(self, n_words: int, q_idx, idx_main, idx_aux, finish) -> tuple:
+    def _run(self, n_words: int, q_idx, idx_main, idx_aux, idx_cav,
+             finish) -> tuple:
+        if self.planes and idx_cav is None:
+            raise ValueError("the plane path needs the caveat table")
         arena = self.take_arena(n_words)
         try:
             q = _to_device(q_idx, self.device)
-            x, trace = self.evaluate(q, n_words, idx_main, idx_aux, arena)
+            x, trace = self.evaluate(q, n_words, idx_main, idx_aux, arena,
+                                     idx_cav)
             out = finish(x)
         except BaseException:
             # a failed call returns no arena, and drops the bucket's pooled
@@ -568,23 +675,67 @@ class EllKernelCache:
     # -- pipelined entry points ----------------------------------------------
 
     def checks_device(self, q_idx, n_words: int, gather_idx, gather_col,
-                      idx_main, idx_aux) -> tuple:
-        """Tri-state-encoded checks ({0, 2}) per gather slot: returns
-        (int32 [G] device tensor, trace)."""
+                      idx_main, idx_aux, idx_cav=None) -> tuple:
+        """Tri-state-encoded checks per gather slot ({0, 2}; {0, 1, 2}
+        with planes): returns (int32 [G] device tensor, trace)."""
         gi = _to_device(gather_idx, self.device)
         gc = _to_device(gather_col, self.device)
-        return self._run(n_words, q_idx, idx_main, idx_aux,
-                         lambda x: kernels.check_gather(x, gi, gc))
+        if self.planes:
+            finish = lambda x: kernels.check_gather3(x, gi, gc, n_words)
+        else:
+            finish = lambda x: kernels.check_gather(x, gi, gc)
+        return self._run(n_words, q_idx, idx_main, idx_aux, idx_cav, finish)
 
     def lookup_packed_T_device(self, slot_offset: int, slot_length: int,
                                q_idx, n_words: int, idx_main,
-                               idx_aux) -> tuple:
+                               idx_aux, idx_cav=None) -> tuple:
         """Packed lookup words, word-transposed on device: returns
         (int32 [n_words, slot_length] device tensor, trace); bit b of word
-        row w is query column 32*w + b."""
-        return self._run(n_words, q_idx, idx_main, idx_aux,
+        row w is query column 32*w + b (the DEFINITE plane with planes)."""
+        return self._run(n_words, q_idx, idx_main, idx_aux, idx_cav,
                          lambda x: kernels.lookup_T(x, slot_offset,
-                                                    slot_length))
+                                                    slot_length, n_words))
+
+    def iterations(self, q_idx, n_words: int, idx_main, idx_aux,
+                   idx_cav=None) -> int:
+        """Executed sweeps to the fixpoint for this batch — the trace's
+        trip count (the reference's roofline probe, ell.py:998-1040)."""
+        _, trace = self._run(n_words, q_idx, idx_main, idx_aux, idx_cav,
+                             lambda x: None)
+        return int(trace[0])
+
+    # -- serial host-facing entry points (blocking) ---------------------------
+
+    def checks(self, q_idx, n_words: int, gather_idx, gather_col, idx_main,
+               idx_aux, idx_cav=None) -> np.ndarray:
+        """bool allowed per gather slot — or int8 {0, 1, 2} tri-state when
+        the plane path is active."""
+        out, _ = self.checks_device(q_idx, n_words, gather_idx, gather_col,
+                                    idx_main, idx_aux, idx_cav)
+        out = out.cpu().numpy()
+        if self.planes:
+            return out.astype(np.int8)
+        return out != 0
+
+    def lookup_packed(self, slot_offset: int, slot_length: int, q_idx,
+                      n_words: int, idx_main, idx_aux,
+                      idx_cav=None) -> np.ndarray:
+        """Packed uint32 [slot_length, n_words] allowed words (bit b of
+        word w is query column w*32+b; DEFINITE plane with planes)."""
+        words, _ = self.lookup_packed_T_device(slot_offset, slot_length,
+                                               q_idx, n_words, idx_main,
+                                               idx_aux, idx_cav)
+        return np.ascontiguousarray(words.cpu().numpy().view(np.uint32).T)
+
+    def lookup(self, slot_offset: int, slot_length: int, q_idx,
+               n_words: int, idx_main, idx_aux, idx_cav=None) -> np.ndarray:
+        """bool [slot_length, n_words*32] allowed bitmap (columns beyond
+        the real batch are padding; DEFINITE plane with planes)."""
+        packed = self.lookup_packed(slot_offset, slot_length, q_idx, n_words,
+                                    idx_main, idx_aux, idx_cav)
+        # uint32 little-endian: bit b of word w lands at column w*32 + b
+        return np.unpackbits(packed.view(np.uint8).reshape(slot_length, -1),
+                             axis=1, bitorder="little").astype(bool)
 
 
 def _to_device(a, device: torch.device) -> torch.Tensor:

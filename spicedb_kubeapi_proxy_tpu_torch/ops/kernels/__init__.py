@@ -1,6 +1,11 @@
 """Hand-written CUDA kernels of the ELL fixpoint sweep and of the delta
 flush, and their wrappers.
 
+The tri-state (caveat) path keeps two bitplanes per state row, words
+[0, H) definite and [H, 2H) maybe; the wrappers that read planes take H
+as `half` (perm_program, cav_gather_or, check_gather3) or a flag
+(seed_bitplanes' `planes`, lookup_T's `words`).
+
 Each wrapper takes torch tensors.  On CUDA tensors it launches the kernel
 from csrc/ell_kernels.cu (built for sm_90a with nvcc at first use, bound
 with ctypes) on the current stream, and adds one to its entry in
@@ -30,7 +35,8 @@ import torch
 from . import reference
 
 KERNEL_NAMES = ("ell_gather_or", "perm_program", "sweep_delta",
-                "seed_bitplanes", "check_gather", "lookup_T", "scatter_rows")
+                "seed_bitplanes", "check_gather", "lookup_T", "scatter_rows",
+                "cav_gather_or", "check_gather3")
 
 # launches per kernel since the last reset_launches(); CPU twins never count
 LAUNCHES: dict = {name: 0 for name in KERNEL_NAMES}
@@ -100,11 +106,13 @@ def _load():
             P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             sigs = {
                 "ell_gather_or": (P, P, I, L, I, P, P, P, P, P, P),
-                "ell_perm_program": (P, P, I, L, I, P, P, P),
+                "ell_perm_program": (P, P, I, L, I, I, P, P, P),
+                "ell_cav_gather_or": (P, P, I, L, I, P, P),
                 "ell_sweep_delta": (P, P, L, I, L, P, P),
-                "ell_seed_bitplanes": (P, I, L, I, L, P, I, P, P, P),
+                "ell_seed_bitplanes": (P, I, L, I, I, L, P, I, P, P, P),
                 "ell_check_gather": (P, I, P, P, L, P, P),
-                "ell_lookup_T": (P, I, L, L, P, P),
+                "ell_check_gather3": (P, I, P, P, L, P, P),
+                "ell_lookup_T": (P, I, L, L, L, P, P),
                 "ell_scatter_rows": (P, L, I, P, L, P, P, I, P),
             }
             for fn, args in sigs.items():
@@ -189,29 +197,56 @@ def ell_gather_or(cur: torch.Tensor, idx: torch.Tensor, dst_lo: int,
 
 
 def perm_program(cur: torch.Tensor, x0: torch.Tensor, code: torch.Tensor,
-                 offset: int, length: int, in_place: bool = False) -> None:
+                 offset: int, length: int, in_place: bool = False,
+                 half: Optional[int] = None) -> None:
     """cur[offset: offset + length] = program(cur) | x0[same rows].
     `in_place` is only legal when the program reads no row of its own
     output range (the caller decides, see ops/ell.py); otherwise the
-    result goes through a scratch buffer first."""
+    result goes through a scratch buffer first.  With `half` the rows are
+    definite/maybe planes of `half` words each and the program runs in
+    Kleene mode (exclusion mixes the planes)."""
     if not _on_cuda(cur, x0, code):
         return reference.perm_program(cur, x0, code, offset, length,
-                                      in_place)
+                                      in_place, half)
     _check(cur, "cur", 2)
     _check(x0, "x0", 2)
     _check(code, "code", 1)
     if length == 0:
         return None
     w = cur.shape[1]
+    if half is not None and 2 * half != w:
+        raise KernelError(f"perm_program: half {half} != width {w} / 2")
     seed = x0[offset: offset + length]
     dst = cur[offset: offset + length]
     out = dst if in_place else torch.empty((length, w), dtype=torch.int32,
                                            device=cur.device)
     _run("ell_perm_program", _ptr(cur), _ptr(code), code.shape[0], length, w,
-         _ptr(seed), _ptr(out))
+         half or 0, _ptr(seed), _ptr(out))
     LAUNCHES["perm_program"] += 1
     if not in_place:
         dst.copy_(out)
+    return None
+
+
+def cav_gather_or(cur: torch.Tensor, x_in: torch.Tensor, idx: torch.Tensor,
+                  half: int) -> None:
+    """Maybe plane of rows [0, R): cur[r, half:] |= OR_k x_in[idx[r, k],
+    half:], with `idx` int32 [R, K] (the caveat table) and `x_in` the
+    sweep's input state (a buffer other than `cur`)."""
+    if not _on_cuda(cur, x_in, idx):
+        return reference.cav_gather_or(cur, x_in, idx, half)
+    _check(cur, "cur", 2)
+    _check(x_in, "x_in", 2)
+    _check(idx, "idx", 2)
+    r, k = idx.shape
+    if cur.shape != x_in.shape or cur.shape[1] != 2 * half:
+        raise KernelError("cav_gather_or: state shapes do not match half")
+    if r > cur.shape[0]:
+        raise KernelError("cav_gather_or: more table rows than state rows")
+    if cur.data_ptr() == x_in.data_ptr():
+        raise KernelError("cav_gather_or: x_in must not be the output")
+    _run("ell_cav_gather_or", _ptr(x_in), _ptr(idx), k, r, half, _ptr(cur))
+    LAUNCHES["cav_gather_or"] += 1
     return None
 
 
@@ -235,32 +270,35 @@ def sweep_delta(x_new: torch.Tensor, x_old: torch.Tensor,
 def seed_bitplanes(q_idx: torch.Tensor, nt: int, n_words: int, dead: int,
                    out: Optional[torch.Tensor] = None,
                    wc_ranges: Optional[torch.Tensor] = None,
-                   live: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   live: Optional[torch.Tensor] = None,
+                   planes: bool = False) -> torch.Tensor:
     """One-hot packed state [nt, n_words] from per-column state rows.
     With `wc_ranges` (int32 [T, 2] self-row ranges of the wildcard terms)
     it also fills `live` (int32 [T, n_words]): the columns whose seed row
-    lies in each range — the wildcard liveness of every sweep."""
+    lies in each range — the wildcard liveness of every sweep.  With
+    `planes` both are [.., 2 * n_words], the bits set in both planes."""
     if not _on_cuda(q_idx, out, wc_ranges, live):
         return reference.seed_bitplanes(q_idx, nt, n_words, dead, out,
-                                        wc_ranges, live)
+                                        wc_ranges, live, planes)
     _check(q_idx, "q_idx", 1)
     if q_idx.shape[0] > 32 * n_words:
         raise KernelError("seed_bitplanes: more columns than lanes")
+    width = 2 * n_words if planes else n_words
     if out is None:
-        out = torch.empty((nt, n_words), dtype=torch.int32,
+        out = torch.empty((nt, width), dtype=torch.int32,
                           device=q_idx.device)
     _check(out, "out", 2)
-    if tuple(out.shape) != (nt, n_words):
+    if tuple(out.shape) != (nt, width):
         raise KernelError("seed_bitplanes: out shape mismatch")
     n_wc = 0
     if wc_ranges is not None:
         _check(wc_ranges, "wc_ranges", 2)
         _check(live, "live", 2)
         n_wc = wc_ranges.shape[0]
-        if live.shape[0] < n_wc or live.shape[1] != n_words:
+        if live.shape[0] < n_wc or live.shape[1] != width:
             raise KernelError("seed_bitplanes: live shape mismatch")
     _run("ell_seed_bitplanes", _ptr(q_idx), q_idx.shape[0], nt, n_words,
-         dead, _ptr(wc_ranges), n_wc, _ptr(out), _ptr(live))
+         int(planes), dead, _ptr(wc_ranges), n_wc, _ptr(out), _ptr(live))
     LAUNCHES["seed_bitplanes"] += 1
     return out
 
@@ -281,16 +319,41 @@ def check_gather(x: torch.Tensor, gather_idx: torch.Tensor,
     return out
 
 
-def lookup_T(x: torch.Tensor, offset: int, length: int) -> torch.Tensor:
-    """int32 [W, length]: state rows [offset, offset + length) transposed."""
+def check_gather3(x: torch.Tensor, gather_idx: torch.Tensor,
+                  gather_col: torch.Tensor, half: int) -> torch.Tensor:
+    """int32 [G] tri-state checks of a definite/maybe state ([NT, 2 *
+    half]): 2 = HAS, 1 = CONDITIONAL (maybe, not definite), 0 = NO."""
+    if not _on_cuda(x, gather_idx, gather_col):
+        return reference.check_gather3(x, gather_idx, gather_col, half)
+    _check(x, "x", 2)
+    _check(gather_idx, "gather_idx", 1)
+    _check(gather_col, "gather_col", 1)
+    if x.shape[1] != 2 * half:
+        raise KernelError(f"check_gather3: half {half} != width "
+                          f"{x.shape[1]} / 2")
+    g = gather_idx.shape[0]
+    out = torch.empty(g, dtype=torch.int32, device=x.device)
+    _run("ell_check_gather3", _ptr(x), half, _ptr(gather_idx),
+         _ptr(gather_col), g, _ptr(out))
+    LAUNCHES["check_gather3"] += 1
+    return out
+
+
+def lookup_T(x: torch.Tensor, offset: int, length: int,
+             words: Optional[int] = None) -> torch.Tensor:
+    """int32 [words, length]: the first `words` words (default all; the
+    definite plane of a tri-state state) of state rows [offset, offset +
+    length), transposed."""
     if not _on_cuda(x):
-        return reference.lookup_T(x, offset, length)
+        return reference.lookup_T(x, offset, length, words)
     _check(x, "x", 2)
     if offset < 0 or offset + length > x.shape[0]:
         raise KernelError("lookup_T: rows out of range")
-    w = x.shape[1]
+    w = x.shape[1] if words is None else words
+    if not 0 < w <= x.shape[1]:
+        raise KernelError(f"lookup_T: {w} words of a {x.shape[1]}-word row")
     out = torch.empty((w, length), dtype=torch.int32, device=x.device)
-    _run("ell_lookup_T", _ptr(x), w, offset, length, _ptr(out))
+    _run("ell_lookup_T", _ptr(x), w, x.shape[1], offset, length, _ptr(out))
     LAUNCHES["lookup_T"] += 1
     return out
 

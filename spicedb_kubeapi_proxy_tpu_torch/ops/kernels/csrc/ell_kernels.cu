@@ -3,17 +3,23 @@
 // (spicedb_kubeapi_proxy_tpu/ops/ell.py), which XLA lowered for the TPU:
 //
 //   ell_gather_or  <- make_ell_step.staged_step, gather part (ell.py:444-500)
-//   perm_program   <- _apply_perm_expr_packed                 (ell.py:215-254)
+//                     and the Jacobi step's aux + main gathers (ell.py:504-527)
+//   cav_gather_or  <- the Jacobi step's idx_cav gather        (ell.py:528-536)
+//   perm_program   <- _apply_perm_expr_packed, both planes    (ell.py:215-254)
 //   sweep_delta    <- make_ell_evaluate.fixpoint test + trace (ell.py:613-631)
-//   seed_bitplanes <- init_packed_state                       (ell.py:556-584)
-//                     + staged_step's wildcard liveness       (ell.py:462-468)
+//   seed_bitplanes <- init_packed_state, both planes          (ell.py:556-584)
+//                     + the steps' wildcard liveness          (ell.py:462-468)
 //   check_gather   <- _pipe_fns.run_checks, definite          (ell.py:878-887)
-//   lookup_T       <- _pipe_fns.run_lookup, definite          (ell.py:889-895)
-//   scatter_rows   <- _EllGraph.flush's `.at[rows].set`  (jax_endpoint.py:1004-1027)
+//   check_gather3  <- _pipe_fns.run_checks, tri-state         (ell.py:853-865)
+//   lookup_T       <- _pipe_fns.run_lookup, definite plane    (ell.py:867-895)
+//   scatter_rows   <- _EllGraph.flush's `.at[rows].set`  (jax_endpoint.py:1004-1050)
 //
 // State layout: x is int32 [NT, W] row-major (W packed words per row, bit
 // b of word w = query column 32*w + b).  Words are handled as uint32
-// inside the kernels, so bit 31 needs no special case.
+// inside the kernels, so bit 31 needs no special case.  On the tri-state
+// (caveat) path a row is 2H words: words [0, H) are the definite plane,
+// words [H, 2H) the maybe plane, and the kernels that read planes take H
+// (`half`) and use 2H as the row stride.
 //
 // What bounds them on this card: every kernel here is a memory-bound
 // streaming pass (a few integer ops per 4-byte word, far below the
@@ -126,6 +132,88 @@ __global__ void perm_program_kernel(const int32_t* cur,
     }
 }
 
+// The same program over definite/maybe planes (rows of stride 2H): thread
+// (i, w) owns the word pair (w, w + H) and a stack of pairs.  OR and AND
+// act on each plane; ANDNOT mixes them (Kleene exclusion):
+//   def(a - b) = def(a) & ~maybe(b),   maybe(a - b) = maybe(a) & ~def(b).
+__global__ void perm_program_planes_kernel(const int32_t* cur,
+                                           const int32_t* __restrict__ code,
+                                           int n_code, long long length,
+                                           int H,
+                                           const int32_t* __restrict__ seed,
+                                           int32_t* out) {
+    const long long total = length * H;
+    const long long S = 2LL * H;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         t < total; t += stride) {
+        const long long i = t / H;
+        const int w = (int)(t - i * H);
+        uint32_t sd[kMaxStack], sm[kMaxStack];
+        int sp = 0;
+        for (int pc = 0; pc < n_code; pc += 2) {
+            const int op = __ldg(code + pc);
+            const int arg = __ldg(code + pc + 1);
+            if (op == 0) {
+                const int32_t* r = cur + ((long long)arg + i) * S + w;
+                sd[sp] = (uint32_t)r[0];
+                sm[sp] = (uint32_t)r[H];
+                ++sp;
+            } else if (op == 1) {
+                sd[sp] = 0u;
+                sm[sp] = 0u;
+                ++sp;
+            } else if (op == 2) {
+                --sp;
+                uint32_t d = sd[sp], m = sm[sp];
+                for (int j = 1; j < arg; ++j) { --sp; d |= sd[sp]; m |= sm[sp]; }
+                sd[sp] = d;
+                sm[sp] = m;
+                ++sp;
+            } else if (op == 3) {
+                --sp;
+                uint32_t d = sd[sp], m = sm[sp];
+                for (int j = 1; j < arg; ++j) { --sp; d &= sd[sp]; m &= sm[sp]; }
+                sd[sp] = d;
+                sm[sp] = m;
+                ++sp;
+            } else {
+                const uint32_t bd = sd[--sp], bm = sm[sp];
+                const uint32_t ad = sd[--sp], am = sm[sp];
+                sd[sp] = ad & ~bm;
+                sm[sp] = am & ~bd;
+                ++sp;
+            }
+        }
+        const long long o = i * S + w;
+        out[o] = (int32_t)(sd[0] | (uint32_t)seed[o]);
+        out[o + H] = (int32_t)(sm[0] | (uint32_t)seed[o + H]);
+    }
+}
+
+// Maybe plane of rows [0, R) (stride 2H): out[r, H + w] |= OR_j
+// x[idx[r, j], H + w].  `x` is the sweep's input state, a buffer other
+// than `out`, so every read sees the previous sweep's values.
+__global__ void cav_gather_or_kernel(const int32_t* __restrict__ x,
+                                     const int32_t* __restrict__ idx, int k,
+                                     long long R, int H,
+                                     int32_t* __restrict__ out) {
+    const long long total = R * H;
+    const long long S = 2LL * H;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         t < total; t += stride) {
+        const long long r = t / H;
+        const int w = (int)(t - r * H);
+        const int32_t* ir = idx + r * k;
+        uint32_t v = 0;
+        for (int j = 0; j < k; ++j) {
+            v |= (uint32_t)__ldg(x + (long long)__ldg(ir + j) * S + H + w);
+        }
+        if (v) out[r * S + H + w] |= (int32_t)v;
+    }
+}
+
 // out[0] += popcount(a ^ b) (mod 2^32), out[1] |= any(a != b)
 __global__ void sweep_delta_kernel(const int32_t* __restrict__ a,
                                    const int32_t* __restrict__ b,
@@ -151,19 +239,25 @@ __global__ void sweep_delta_kernel(const int32_t* __restrict__ a,
 // x0[q[c], c / 32] |= 1 << (c % 32); and live[t, c / 32] |= the same bit
 // when q[c] lies in wildcard term t's self range [lo_t, hi_t).  Self rows
 // are static seeds (no edge ever targets a self slot), so this equals the
-// reference's per-sweep OR over x's self rows.
+// reference's per-sweep OR over x's self rows.  With `planes` the rows
+// are 2W words and the bit is set in both planes (a query subject is
+// definite, hence also maybe), in x0 and in live alike.
 __global__ void seed_kernel(const int32_t* __restrict__ q, int B, int W,
+                            int planes,
                             const int32_t* __restrict__ wc_ranges, int n_wc,
                             uint32_t* __restrict__ x0,
                             uint32_t* __restrict__ live) {
     const int c = blockIdx.x * blockDim.x + threadIdx.x;
     if (c < B) {
+        const long long S = (long long)W * (1 + planes);
         const long long row = q[c];
         const uint32_t bit = 1u << (c & 31);
-        atomicOr(x0 + row * W + (c >> 5), bit);
+        atomicOr(x0 + row * S + (c >> 5), bit);
+        if (planes) atomicOr(x0 + row * S + W + (c >> 5), bit);
         for (int t = 0; t < n_wc; ++t) {
             if (row >= wc_ranges[2 * t] && row < wc_ranges[2 * t + 1]) {
-                atomicOr(live + (long long)t * W + (c >> 5), bit);
+                atomicOr(live + (long long)t * S + (c >> 5), bit);
+                if (planes) atomicOr(live + (long long)t * S + W + (c >> 5), bit);
             }
         }
     }
@@ -182,9 +276,27 @@ __global__ void check_gather_kernel(const int32_t* __restrict__ x, int W,
     }
 }
 
-// out[w, l] = x[offset + l, w]
+// Tri-state check (rows of stride 2H): d and m are the bits of column
+// gc[g] in row gi[g]'s definite and maybe planes; out[g] = d * 2 + (m & ~d):
+// 2 = HAS, 1 = CONDITIONAL, 0 = NO.
+__global__ void check_gather3_kernel(const int32_t* __restrict__ x, int H,
+                                     const int32_t* __restrict__ gi,
+                                     const int32_t* __restrict__ gc,
+                                     long long G, int32_t* __restrict__ out) {
+    const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (g < G) {
+        const int col = gc[g];
+        const int32_t* row = x + (long long)gi[g] * 2 * H + (col >> 5);
+        const uint32_t d = ((uint32_t)row[0] >> (col & 31)) & 1u;
+        const uint32_t m = ((uint32_t)row[H] >> (col & 31)) & 1u;
+        out[g] = (int32_t)(d * 2u + (m & (d ^ 1u)));
+    }
+}
+
+// out[w, l] = x[offset + l, w] for the first W words of rows of stride S
+// (S = W, or 2W to read the definite plane of a tri-state row)
 __global__ void lookup_T_kernel(const int32_t* __restrict__ x, int W,
-                                long long offset, long long L,
+                                long long S, long long offset, long long L,
                                 int32_t* __restrict__ out) {
     const long long total = L * W;
     const long long stride = (long long)gridDim.x * blockDim.x;
@@ -192,7 +304,7 @@ __global__ void lookup_T_kernel(const int32_t* __restrict__ x, int W,
          t < total; t += stride) {
         const long long w = t / L;
         const long long l = t - w * L;
-        out[t] = x[(offset + l) * W + w];
+        out[t] = x[(offset + l) * S + w];
     }
 }
 
@@ -260,15 +372,34 @@ EXPORT int ell_gather_or(const void* cur, const void* idx, int k,
                                 cudaMemcpyDeviceToDevice, s);
 }
 
+// `half` > 0: the tri-state program over rows of W = 2 * half words.
 EXPORT int ell_perm_program(const void* cur, const void* code, int n_code,
-                            long long length, int W, const void* seed,
-                            void* out, void* stream) {
+                            long long length, int W, int half,
+                            const void* seed, void* out, void* stream) {
     if (length <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
+    if (half > 0) {
+        const long long total = length * half;
+        perm_program_planes_kernel<<<grid_for(total, kBlock, 1LL << 30),
+                                     kBlock, 0, s>>>(
+            (const int32_t*)cur, (const int32_t*)code, n_code, length, half,
+            (const int32_t*)seed, (int32_t*)out);
+        return last_error();
+    }
     const long long total = length * W;
     perm_program_kernel<<<grid_for(total, kBlock, 1LL << 30), kBlock, 0, s>>>(
         (const int32_t*)cur, (const int32_t*)code, n_code, length, W,
         (const int32_t*)seed, (int32_t*)out);
+    return last_error();
+}
+
+EXPORT int ell_cav_gather_or(const void* x, const void* idx, int k,
+                             long long R, int half, void* out, void* stream) {
+    if (R <= 0 || half <= 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    const long long total = R * half;
+    cav_gather_or_kernel<<<grid_for(total, kBlock, 1LL << 30), kBlock, 0, s>>>(
+        (const int32_t*)x, (const int32_t*)idx, k, R, half, (int32_t*)out);
     return last_error();
 }
 
@@ -289,23 +420,25 @@ EXPORT int ell_sweep_delta(void* x_new, const void* x_old, long long nt,
 }
 
 EXPORT int ell_seed_bitplanes(const void* q, int B, long long nt, int W,
-                              long long dead, const void* wc_ranges, int n_wc,
-                              void* x0, void* live, void* stream) {
+                              int planes, long long dead,
+                              const void* wc_ranges, int n_wc, void* x0,
+                              void* live, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    int e = (int)cudaMemsetAsync(x0, 0, (size_t)nt * W * 4, s);
+    const long long S = (long long)W * (planes ? 2 : 1);
+    int e = (int)cudaMemsetAsync(x0, 0, (size_t)nt * S * 4, s);
     if (e) return e;
     if (n_wc > 0) {
-        e = (int)cudaMemsetAsync(live, 0, (size_t)n_wc * W * 4, s);
+        e = (int)cudaMemsetAsync(live, 0, (size_t)n_wc * S * 4, s);
         if (e) return e;
     }
     if (B > 0) {
         seed_kernel<<<grid_for(B, kBlock, 1LL << 30), kBlock, 0, s>>>(
-            (const int32_t*)q, B, W, (const int32_t*)wc_ranges, n_wc,
-            (uint32_t*)x0, (uint32_t*)live);
+            (const int32_t*)q, B, W, planes ? 1 : 0,
+            (const int32_t*)wc_ranges, n_wc, (uint32_t*)x0, (uint32_t*)live);
         e = last_error();
         if (e) return e;
     }
-    return (int)cudaMemsetAsync((int32_t*)x0 + dead * W, 0, (size_t)W * 4, s);
+    return (int)cudaMemsetAsync((int32_t*)x0 + dead * S, 0, (size_t)S * 4, s);
 }
 
 EXPORT int ell_check_gather(const void* x, int W, const void* gi,
@@ -319,12 +452,23 @@ EXPORT int ell_check_gather(const void* x, int W, const void* gi,
     return last_error();
 }
 
-EXPORT int ell_lookup_T(const void* x, int W, long long offset, long long L,
-                        void* out, void* stream) {
+EXPORT int ell_check_gather3(const void* x, int half, const void* gi,
+                             const void* gc, long long G, void* out,
+                             void* stream) {
+    if (G <= 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    check_gather3_kernel<<<grid_for(G, kBlock, 1LL << 30), kBlock, 0, s>>>(
+        (const int32_t*)x, half, (const int32_t*)gi, (const int32_t*)gc, G,
+        (int32_t*)out);
+    return last_error();
+}
+
+EXPORT int ell_lookup_T(const void* x, int W, long long S, long long offset,
+                        long long L, void* out, void* stream) {
     if (L <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
     lookup_T_kernel<<<grid_for(L * W, kBlock, 1LL << 30), kBlock, 0, s>>>(
-        (const int32_t*)x, W, offset, L, (int32_t*)out);
+        (const int32_t*)x, W, S, offset, L, (int32_t*)out);
     return last_error();
 }
 

@@ -45,10 +45,13 @@ def ell_gather_or(cur: torch.Tensor, idx: torch.Tensor, dst_lo: int,
 
 
 def perm_program(cur: torch.Tensor, x0: torch.Tensor, code: torch.Tensor,
-                 offset: int, length: int, in_place: bool = False) -> None:
+                 offset: int, length: int, in_place: bool = False,
+                 half: Optional[int] = None) -> None:
     """cur[offset: offset + length] = program(cur) | x0[same rows]; the
     program is evaluated entirely before the write (`in_place` is the
-    kernel's buffering hint and changes nothing here)."""
+    kernel's buffering hint and changes nothing here).  With `half`
+    (definite words [0, half), maybe words [half, 2 * half)) exclusion
+    subtracts the other plane: a & ~swap(b), as the reference writes it."""
     ops = code.tolist()
     stack: list = []
     for pc in range(0, len(ops), 2):
@@ -69,11 +72,24 @@ def perm_program(cur: torch.Tensor, x0: torch.Tensor, code: torch.Tensor,
         elif op == OP_ANDNOT:
             b = stack.pop()
             a = stack.pop()
+            if half is not None:
+                b = torch.cat([b[:, half:], b[:, :half]], dim=1)
             stack.append(a & ~b)
         else:
             raise ValueError(f"bad perm opcode {op}")
     (result,) = stack
     cur[offset: offset + length] = result | x0[offset: offset + length]
+
+
+def cav_gather_or(cur: torch.Tensor, x_in: torch.Tensor, idx: torch.Tensor,
+                  half: int) -> None:
+    """cur[r, half:] |= OR_k x_in[idx[r, k], half:] for the rows r of
+    `idx`."""
+    idx64 = idx.long()
+    extra = x_in[idx64[:, 0], half:]
+    for k in range(1, idx.shape[1]):
+        extra |= x_in[idx64[:, k], half:]
+    cur[: idx.shape[0], half:] |= extra
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -100,10 +116,12 @@ def sweep_delta(x_new: torch.Tensor, x_old: torch.Tensor,
 def seed_bitplanes(q_idx: torch.Tensor, nt: int, n_words: int, dead: int,
                    out: Optional[torch.Tensor] = None,
                    wc_ranges: Optional[torch.Tensor] = None,
-                   live: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   live: Optional[torch.Tensor] = None,
+                   planes: bool = False) -> torch.Tensor:
     """One-hot packed [nt, n_words]: bit c % 32 of word c // 32 in row
     q_idx[c]; the dead row stays zero.  With `wc_ranges` ([T, 2] row
-    ranges) also live[t] = OR of the seed rows in range t."""
+    ranges) also live[t] = OR of the seed rows in range t.  With `planes`
+    both are [.., 2 * n_words], the definite words repeated as maybe."""
     b = q_idx.shape[0]
     cols = torch.arange(b, device=q_idx.device)
     acc = torch.zeros((nt, n_words), dtype=torch.int64, device=q_idx.device)
@@ -121,7 +139,9 @@ def seed_bitplanes(q_idx: torch.Tensor, nt: int, n_words: int, dead: int,
             v = torch.zeros(n_words, dtype=torch.int32, device=x0.device)
             for r in torch.nonzero((rows != 0).any(dim=1)).flatten().tolist():
                 v |= rows[r]
-            live[t] = v
+            live[t] = torch.cat([v, v]) if planes else v
+    if planes:
+        x0 = torch.cat([x0, x0], dim=1)
     if out is not None:
         out.copy_(x0)
         return out
@@ -136,12 +156,27 @@ def check_gather(x: torch.Tensor, gather_idx: torch.Tensor,
     return (((words >> (gc % 32).to(torch.int32)) & 1) * 2).to(torch.int32)
 
 
-def lookup_T(x: torch.Tensor, offset: int, length: int) -> torch.Tensor:
-    """int32 [W, length]: rows [offset, offset + length) transposed, in a
-    tensor of its own as the kernel's (for W = 1 `.t().contiguous()`
-    would return a view of `x`, which the next batch overwrites)."""
-    out = torch.empty((x.shape[1], length), dtype=x.dtype, device=x.device)
-    out.copy_(x[offset: offset + length].t())
+def check_gather3(x: torch.Tensor, gather_idx: torch.Tensor,
+                  gather_col: torch.Tensor, half: int) -> torch.Tensor:
+    """int32 [G]: d * 2 + (m & ~d), d and m the column's bits in the
+    definite and maybe planes."""
+    gc = gather_col.long()
+    gi = gather_idx.long()
+    b = (gc % 32).to(torch.int32)
+    d = (x[gi, gc // 32] >> b) & 1
+    m = (x[gi, half + gc // 32] >> b) & 1
+    return (d * 2 + (m & (d ^ 1))).to(torch.int32)
+
+
+def lookup_T(x: torch.Tensor, offset: int, length: int,
+             words: Optional[int] = None) -> torch.Tensor:
+    """int32 [words, length]: the first `words` words of rows [offset,
+    offset + length) transposed, in a tensor of its own as the kernel's
+    (for W = 1 `.t().contiguous()` would return a view of `x`, which the
+    next batch overwrites)."""
+    w = x.shape[1] if words is None else words
+    out = torch.empty((w, length), dtype=x.dtype, device=x.device)
+    out.copy_(x[offset: offset + length, :w].t())
     return out
 
 

@@ -13,16 +13,22 @@ What this endpoint carries over from the reference, and what not yet:
   the reference's pool of spare object ids, so the compiled program has
   the reference's exact layout;
 - the fused check capture/finish and lookup capture/extract;
-- caveat-affected (type, permission) pairs answered by the host oracle
-  (no tri-state planes yet);
+- caveats on the device: a caveated tuple whose stored context decides
+  its caveat is an ordinary edge (True) or none (False); an undecidable
+  one is an edge of the MAYBE plane (the caveat table), and checks on a
+  graph with planes answer HAS / CONDITIONAL / NO.  Only a caveat shape
+  with no device lowering (caveated wildcard, unknown caveat, evaluation
+  error) routes its affected (type, permission) pairs to the host oracle;
 - incremental delta absorption: committed writes, deletes and
   expirations queue as deltas; the next read applies them to the host
-  tables (positionless OR-tree edits, spare rows renamed for new ids,
-  OR-tree growth for full rows) and flushes the dirty rows to the device
-  copy-on-write (the `scatter_rows` kernel).  A delta the tables cannot
-  absorb — a wildcard change, a caveated tuple (no caveat planes yet), a
-  dry spare pool, an exhausted growth budget — rebuilds the generation
+  tables (positionless OR-tree edits in the definite and caveat tables,
+  spare rows renamed for new ids, OR-tree growth for full rows) and
+  flushes the dirty rows to the device copy-on-write (the `scatter_rows`
+  kernel).  A delta the tables cannot absorb — a wildcard change, the
+  first undecidable caveat on a graph compiled without planes, a dry
+  spare pool, an exhausted growth budget — rebuilds the generation
   synchronously under the lock (the reference's AsyncRebuild-off path).
+  The reference's Leopard index hooks have no counterpart yet.
 
 Reads are fully consistent w.r.t. the store: pending deltas are applied
 under the endpoint lock before a query captures its snapshot.
@@ -68,7 +74,8 @@ from ..spicedb.types import (
     WatchUpdate,
 )
 from . import kernels
-from .ell import EllKernelCache, _to_device, batch_words, build_tables
+from .ell import (K_AUX, EllKernelCache, _to_device, batch_words,
+                  build_cav_tables, build_tables)
 from .graph_compile import (GraphProgram, caveat_affected_pairs,
                             compile_graph, compile_graph_columnar)
 
@@ -138,12 +145,17 @@ def _sweep_bytes(graph, lanes: int) -> int:
     """Modeled device bytes for ONE fixpoint sweep of `graph` at `lanes`
     query lanes (the reference's model, jax_endpoint.py:258-303): each
     gather slot's packed-state read plus one state write per row, main
-    table once and the aux table once per aux pass, scaled by the batch
-    width (4 bytes per 32 lanes)."""
+    table once, the aux table once per aux pass and the caveat table once,
+    scaled by the batch width (4 bytes per 32 lanes, twice that with the
+    definite and maybe planes)."""
     n, km = graph.dev_main.shape
     a_rows, ka = graph.dev_aux.shape
     rows = n * (km + 1) + graph.kernel.aux_passes * a_rows * (ka + 1)
-    return rows * max(1, lanes // 32) * 4
+    width = max(1, lanes // 32) * 4
+    if graph.has_cav:
+        rows += (n + a_rows) * (graph.dev_cav.shape[1] + 1)
+        width *= 2
+    return rows * width
 
 
 def _word_col_indices(wcol: np.ndarray, bit: int) -> np.ndarray:
@@ -181,12 +193,14 @@ class _EllGraph:
     """One compiled graph generation: fixed-fanin gather tables on the
     host and on the device, plus the kernel cache that sweeps them.
 
-    Delta edits are positionless (reference jax_endpoint.py:778-1027,
-    definite plane): an edge (src -> dst) lives somewhere in dst's main
-    row or its OR-tree, and since every tree node is a monotone OR gate,
-    any dead slot in the tree can take a new child.  Inserts and removals
-    walk the host tables (O(row fanin), on writes only) and mark rows
-    dirty; `flush` moves them to the device.
+    Delta edits are positionless (reference jax_endpoint.py:778-1050):
+    an edge (src -> dst) lives somewhere in dst's main row or its
+    OR-tree, and since every tree node is a monotone OR gate, any dead
+    slot in the tree can take a new child.  Inserts and removals walk the
+    host tables (O(row fanin), on writes only) and mark rows dirty;
+    `flush` moves them to the device.  Undecidable caveated edges get the
+    same treatment in the caveat (MAYBE-plane) table when the graph was
+    compiled with planes (`has_cav`).
 
     Copy-on-write: `flush` never writes a device table in place.  It
     builds new tensors (`scatter_rows`) and swaps them in, so a
@@ -207,19 +221,48 @@ class _EllGraph:
         self.prog = prog
         self._edge_endpoints = edge_endpoints
         t = build_tables(prog)
+        # tri-state path: undecidable caveated edges live in a separate
+        # MAYBE-plane gather table and caveat-affected queries stay on
+        # the device; a graph without them compiles no planes
+        self.has_cav = bool(len(prog.cav_src)) and prog.caveats_device_ok
+        self.tri_state_capable = prog.caveats_device_ok
+        # caveated tuples delta incrementally: decided ones through the
+        # definite tables, undecidable ones through the caveat table
+        self.supports_cav_deltas = True
+        tree_depth = t.tree_depth
+        a_shared = t.idx_aux.shape[0]
+        self.host_cav = None
+        if self.has_cav:
+            ct = build_cav_tables(prog, a_shared)
+            if ct.n_aux_cav:
+                # caveat OR-tree nodes get dead rows in the shared aux
+                # table so the main/aux step covers every state row
+                t.idx_aux = np.vstack([
+                    t.idx_aux,
+                    np.full((ct.n_aux_cav, K_AUX), prog.dead_index,
+                            np.int32)])
+            self.host_cav = ct.idx_cav
+            tree_depth = max(tree_depth, ct.tree_depth)
         self.host_main = t.idx_main
         self.host_aux = t.idx_aux
         self._spare_aux = list(t.spare_rows)
         # copies: on the CPU `.to()` would alias the host tables
         self.dev_main = torch.from_numpy(t.idx_main).to(device, copy=True)
         self.dev_aux = torch.from_numpy(t.idx_aux).to(device, copy=True)
+        self.dev_cav = (torch.from_numpy(self.host_cav).to(device, copy=True)
+                        if self.has_cav else None)
         self.kernel = EllKernelCache(prog, n_aux_rows=t.idx_aux.shape[0],
-                                     tree_depth=t.tree_depth, device=device,
+                                     tree_depth=tree_depth, device=device,
                                      num_iters=num_iters,
                                      shared_tree_depth=t.tree_depth,
-                                     host_main=t.idx_main)
+                                     host_main=t.idx_main,
+                                     planes=self.has_cav)
         self._dirty_main: set = set()
         self._dirty_aux: set = set()
+        self._dirty_cav: set = set()
+        # first caveat-aux row: values >= this in the caveat table are
+        # OR-tree nodes whose children live in the caveat table itself
+        self._cav_aux_base = prog.state_size + a_shared
         self._grow_extra: dict = {}  # root row -> levels grown past build
         # growths that flipped a stage's build-time aux-free annotation
         # (the endpoint folds them into its stage_aux_flips stat)
@@ -310,6 +353,57 @@ class _EllGraph:
             self._set(loc, s)
         return True
 
+    # -- caveat (MAYBE plane) table deltas -----------------------------------
+    # The same positionless tree walk over the caveat table; the endpoint
+    # routes a tuple's edges here when its caveat is undecidable.
+
+    def _walk_cav(self, root_row: int, want: int) -> Optional[tuple]:
+        if self.host_cav is None:
+            return None
+        stack = [root_row]
+        while stack:
+            row = stack.pop()
+            for col, v in enumerate(self.host_cav[row]):
+                v = int(v)
+                if v == want:
+                    return (row, col)
+                if v >= self._cav_aux_base:  # caveat OR-tree node: descend
+                    stack.append(v)
+        return None
+
+    def _set_cav(self, loc: tuple, value: int) -> None:
+        row, col = loc
+        self.host_cav[row, col] = value
+        self._dirty_cav.add(row)
+
+    def remove_cav_key(self, key: tuple) -> None:
+        """Remove a tuple's MAYBE-plane edges (absent ones are no-ops)."""
+        if self.host_cav is None:
+            return
+        for (s, d) in self._edge_endpoints(self.prog,
+                                           _rel_from_key(key)) or ():
+            loc = self._walk_cav(d, s)
+            if loc is not None:
+                self._set_cav(loc, self.prog.dead_index)
+
+    def add_cav_rel(self, rel: Relationship) -> bool:
+        """Insert a tuple's edges into the MAYBE plane; False forces a
+        rebuild (no planes compiled, unknown ids, or a full row/tree)."""
+        if self.host_cav is None:
+            return False
+        pairs = self._edge_endpoints(self.prog, rel)
+        if pairs is None:
+            return False
+        dead = self.prog.dead_index
+        for (s, d) in pairs:
+            if self._walk_cav(d, s) is not None:
+                continue  # already present (re-touch)
+            loc = self._walk_cav(d, dead)
+            if loc is None:
+                return False  # row and tree full: a rebuild grows a level
+            self._set_cav(loc, s)
+        return True
+
     def flush(self) -> bool:
         """Push the dirty rows to the device, copy-on-write; True when a
         table changed.  Exactly the dirty rows go: torch compiles nothing
@@ -326,6 +420,11 @@ class _EllGraph:
                                           self._dirty_aux)
             self._dirty_aux = set()
             changed = True
+        if self._dirty_cav:
+            self.dev_cav = _scatter_dirty(self.dev_cav, self.host_cav,
+                                          self._dirty_cav)
+            self._dirty_cav = set()
+            changed = True
         return changed
 
     # -- queries ------------------------------------------------------------
@@ -334,24 +433,27 @@ class _EllGraph:
         return batch_words(n) * 32
 
     def snapshot(self) -> tuple:
-        """The current device tables; a flush swaps in new ones and never
-        writes these."""
-        return (self.dev_main, self.dev_aux)
+        """The current device tables (main, aux, caveat — None without
+        planes); a flush swaps in new ones and never writes these."""
+        return (self.dev_main, self.dev_aux, self.dev_cav)
 
     def run_checks3_device(self, q_arr, gather_idx, gather_col, snap=None):
-        main, aux = snap if snap is not None else self.snapshot()
+        """Tri-state check values {0: NO, 1: CONDITIONAL, 2: HAS} on the
+        device ({0, 2} without planes)."""
+        main, aux, cav = snap if snap is not None else self.snapshot()
         q_arr, gi, gc = _unify_check_buckets(q_arr, gather_idx, gather_col)
         n_words = max(1, len(q_arr) // 32)
         dev, tel = self.kernel.checks_device(q_arr, n_words, gi, gc, main,
-                                             aux)
+                                             aux, cav)
         return dev, tel, self.kernel
 
     def run_lookup_packed_T_device(self, offset: int, length: int, q_arr,
                                    snap=None):
-        main, aux = snap if snap is not None else self.snapshot()
+        """Definite-plane lookup words [W, length] on the device."""
+        main, aux, cav = snap if snap is not None else self.snapshot()
         n_words = max(1, len(q_arr) // 32)
         dev, tel = self.kernel.lookup_packed_T_device(offset, length, q_arr,
-                                                      n_words, main, aux)
+                                                      n_words, main, aux, cav)
         return dev, tel, self.kernel
 
 
@@ -701,22 +803,59 @@ class TorchEndpoint(PermissionsEndpoint):
             self._stale_closure_cache[key] = out
         return out
 
+    def _caveat_decidability(self, rel: Relationship):
+        """Mirror of the compiler's caveat resolution (_emit_tuple_edges):
+        True = definite edges, False = no edges, None = MAYBE-plane edges,
+        "unsupported" = no device lowering (wildcard / unknown caveat /
+        evaluation error) — rebuild-only."""
+        c = self.schema.caveats.get(rel.caveat.name)
+        if c is None or rel.subject.id == WILDCARD:
+            return "unsupported"
+        try:
+            return c.evaluate(rel.caveat.context())
+        except Exception:
+            return "unsupported"
+
     def _remove_applied(self, graph, key: tuple) -> bool:
         """Take a removed or expired tuple out of the graph; False when
-        only a rebuild can (a caveated tuple: no caveat planes yet)."""
+        only a rebuild can.  A caveated tuple may sit in the definite
+        tables (context decided True) or in the MAYBE plane (undecidable):
+        both placements are cleared."""
         if key in self._caveated_keys:
-            return False
+            if not graph.supports_cav_deltas:
+                return False
+            graph.remove_cav_key(key)
+            self._caveated_keys.discard(key)
         graph.remove_key(key)
         self._note_key_removed(graph, key)
         return True
 
+    def _touch_caveated(self, graph, rel: Relationship, key: tuple) -> bool:
+        """Place a caveated TOUCH by its decidability; False when only a
+        rebuild can (an unsupported caveat shape, the first undecidable
+        caveat on a graph without planes, a full row)."""
+        value = self._caveat_decidability(rel)
+        if value == "unsupported" or not graph.supports_cav_deltas:
+            return False
+        # a re-touch may change the caveat's decidability (context edits):
+        # clear any previous placement, then insert per the new value
+        graph.remove_key(key)
+        graph.remove_cav_key(key)
+        self._caveated_keys.add(key)
+        if value is True:
+            return graph.add_rel(rel)
+        if value is None:
+            return graph.add_cav_rel(rel)
+        return True  # decided False: no edges at all
+
     def _apply_batches(self, batches: list) -> tuple:
         """Apply drained delta batches and due expirations to the host
         tables (under self._lock; reference jax_endpoint.py:1865-2001,
-        definite plane).  Returns (stale pairs, applied revision): an
-        update the tables cannot absorb adds its affected (type,
-        permission) closure to the stale set and application goes on; the
-        caller rebuilds when the set is non-empty, and flushes otherwise."""
+        without the Leopard hooks).  Returns (stale pairs, applied
+        revision): an update the tables cannot absorb adds its affected
+        (type, permission) closure to the stale set and application goes
+        on; the caller rebuilds when the set is non-empty, and flushes
+        otherwise."""
         graph = self._graph
         stale: set = set()
         applied_revision = self._graph_revision
@@ -735,12 +874,22 @@ class TorchEndpoint(PermissionsEndpoint):
                         stale |= self._stale_closure(rt, relation)
                     continue
                 self._set_expiry(key, u.rel.expires_at)
-                if (not self._ensure_ids_for(graph, u.rel)
-                        or u.rel.caveat is not None
-                        or key in self._caveated_keys
-                        or not graph.add_rel(u.rel)):
-                    # a caveated tuple, or a definite one replacing a
-                    # caveated one, needs caveat planes: rebuild
+                if not self._ensure_ids_for(graph, u.rel):
+                    stale |= self._stale_closure(rt, relation)
+                    continue
+                if u.rel.caveat is not None:
+                    ok = self._touch_caveated(graph, u.rel, key)
+                elif key in self._caveated_keys:
+                    # a caveated tuple replaced by a definite one: undo its
+                    # MAYBE-plane placement first
+                    ok = graph.supports_cav_deltas
+                    if ok:
+                        graph.remove_cav_key(key)
+                        self._caveated_keys.discard(key)
+                        ok = graph.add_rel(u.rel)
+                else:
+                    ok = graph.add_rel(u.rel)
+                if not ok:
                     stale |= self._stale_closure(rt, relation)
                     continue
                 self._note_key_applied(key)
@@ -812,9 +961,12 @@ class TorchEndpoint(PermissionsEndpoint):
             kernel_rows: list[int] = []
             results: list[Optional[tuple]] = [None] * len(reqs)
             oracle_rows: list[int] = []
+            tri = graph.tri_state_capable
             for i, r in enumerate(reqs):
-                if (r.resource.type, r.permission) in self._caveat_affected:
-                    # caveat residual: host tri-state evaluation
+                if (not tri and (r.resource.type, r.permission)
+                        in self._caveat_affected):
+                    # caveat residual with no device lowering: host
+                    # tri-state evaluation
                     oracle_rows.append(i)
                     self.stats["oracle_residual_checks"] += 1
                     continue
@@ -892,8 +1044,11 @@ class TorchEndpoint(PermissionsEndpoint):
         with self._lock:
             graph = self._current_graph()
             rng = graph.prog.slot_range(resource_type, permission)
-            if ((resource_type, permission) in self._caveat_affected
-                    or rng is None):
+            # a plane-capable kernel returns the DEFINITE plane, which
+            # skips CONDITIONAL results as LookupResources must; without
+            # a device lowering the oracle does the same
+            if (((resource_type, permission) in self._caveat_affected
+                 and not graph.tri_state_capable) or rng is None):
                 ctx["all_oracle"] = True
                 return ctx
             q_arr, cols, unknown = self._encode_subjects(graph, subjects)

@@ -93,17 +93,23 @@ class Caveat:
     params: tuple          # ((param name, type source text), ...)
     body_src: str          # raw CEL source between the braces
 
+    def __post_init__(self):
+        self._prog = None
+
     def evaluate(self, context: dict) -> Optional[bool]:
         """True/False when decidable with `context`; None (CONDITIONAL)
         when required parameters are missing."""
         missing = [n for (n, _) in self.params if n not in context]
         if missing:
             return None
-        # the CEL evaluator is not part of this package yet: a context
-        # that would decide the caveat fails loudly instead of guessing
-        raise NotImplementedError(
-            f"caveat {self.name!r}: CEL evaluation is not available in "
-            f"the torch port yet")
+        if self._prog is None:
+            from ..rules import cel  # lazy: schema is imported by rules
+            self._prog = cel.compile_expression(self.body_src)
+        out = self._prog.eval(dict(context))
+        if not isinstance(out, bool):
+            raise SchemaError(f"caveat {self.name!r} returned "
+                              f"{type(out).__name__}, expected bool")
+        return out
 
 
 @dataclass

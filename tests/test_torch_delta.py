@@ -425,7 +425,7 @@ def test_flush_is_copy_on_write_for_tables_and_id_views():
     alice = SubjectRef("user", "alice")
     ctx = p.port._lookup_batch_capture("namespace", "view", [alice])
     g = p.port._graph
-    main, aux = g.snapshot()
+    main, aux, _ = g.snapshot()
     main0, aux0 = main.clone(), aux.clone()
     arr, mask = ctx["ids"], ctx["mask"]
     arr0, mask0 = arr.copy(), mask.copy()
@@ -658,7 +658,7 @@ def test_churned_tables_and_sweeps_match_reference(name):
         ref_state = np.asarray(rg.kernel._arenas[w])
         ref_words, ref_tel_l = rg.kernel.lookup_packed_T_device(
             off, length, q, w, rg.dev_main, rg.dev_aux)
-        main, aux = pg.snapshot()
+        main, aux, _ = pg.snapshot()
         state, tel = pg.kernel.evaluate(torch.from_numpy(q), w, main, aux,
                                         pg.kernel.take_arena(w))
         out, tel_c = pg.kernel.checks_device(q, w, gi, gc, main, aux)

@@ -45,7 +45,7 @@ def test_every_sweep_step_matches_its_twin(lanes):
     _needs_card()
     g_cpu, g = _graphs(*_workload())
     kc, prog = g.kernel, g.prog
-    main, aux = g.snapshot()
+    main, aux, _ = g.snapshot()
     rng = np.random.default_rng(lanes)
     w = max(1, -(-lanes // 32))
     w = 1 << (w - 1).bit_length()
@@ -130,3 +130,113 @@ def test_scatter_rows_matches_its_twin(k):
     assert torch.equal(kernels.scatter_rows(view, rows, vals),
                        reference.scatter_rows(view, rows, vals))
     assert kernels.LAUNCHES["scatter_rows"] == 6
+
+
+def _rand(rng, shape):
+    return torch.from_numpy(rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+                            .astype(np.int32)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [33, 256])
+def test_plane_kernels_match_their_twins(lanes):
+    """cav_gather_or, perm_program in plane mode (ANDNOT across planes),
+    check_gather3 and the plane seed and definite-half lookup on random
+    inputs; bit 31 is live in both planes."""
+    _needs_card()
+    from spicedb_kubeapi_proxy_tpu_torch.ops.ell import compile_perm_program
+    from spicedb_kubeapi_proxy_tpu_torch.ops.graph_compile import (
+        PExclude, PIntersect, PRead, PUnion, PZero)
+    rng = np.random.default_rng(lanes)
+    half = 1 << (-(-lanes // 32) - 1).bit_length()
+    nt = 3_000
+    x = _rand(rng, (nt, 2 * half))
+    x[:, half:] |= x[:, :half]
+    kernels.reset_launches()
+    idx = torch.from_numpy(rng.integers(0, nt, (nt - 7, 8))
+                           .astype(np.int32)).cuda()
+    a, b = x.clone(), x.clone()
+    x_in = _rand(rng, (nt, 2 * half))
+    kernels.cav_gather_or(a, x_in, idx, half)
+    reference.cav_gather_or(b, x_in, idx, half)
+    assert torch.equal(a, b) and not torch.equal(a, x)
+
+    expr = PUnion((PExclude(PIntersect((PRead(0, 500), PRead(500, 500))),
+                            PRead(1000, 500)),
+                   PExclude(PRead(1500, 500), PZero(500))))
+    x0 = _rand(rng, (nt, 2 * half))
+    for off, in_place in ((2000, True), (500, False)):
+        code, _, self_read = compile_perm_program(expr, off, 500)
+        code = torch.from_numpy(code).cuda()
+        a, b = x.clone(), x.clone()
+        kernels.perm_program(a, x0, code, off, 500, in_place=not self_read,
+                             half=half)
+        reference.perm_program(b, x0, code, off, 500, half=half)
+        assert torch.equal(a, b)
+        assert self_read == (not in_place)
+
+    gi = torch.from_numpy(rng.integers(0, nt, 5_000).astype(np.int32)).cuda()
+    gc = torch.from_numpy(rng.integers(0, lanes, 5_000).astype(np.int32)).cuda()
+    got = kernels.check_gather3(x, gi, gc, half)
+    assert torch.equal(got, reference.check_gather3(x, gi, gc, half))
+    assert set(got.unique().tolist()) == {0, 1, 2}
+
+    q = torch.from_numpy(rng.integers(0, nt - 1, 32 * half)
+                         .astype(np.int32)).cuda()
+    wc = torch.tensor([[0, 700], [700, 2_999]], dtype=torch.int32,
+                      device="cuda")
+    live_k = torch.empty((2, 2 * half), dtype=torch.int32, device="cuda")
+    live_t = torch.empty_like(live_k)
+    s_k = kernels.seed_bitplanes(q, nt, half, nt - 1, wc_ranges=wc,
+                                 live=live_k, planes=True)
+    s_t = reference.seed_bitplanes(q, nt, half, nt - 1, wc_ranges=wc,
+                                   live=live_t, planes=True)
+    assert torch.equal(s_k, s_t) and torch.equal(live_k, live_t)
+    assert torch.equal(kernels.lookup_T(x, 100, 900, half),
+                       reference.lookup_T(x, 100, 900, half))
+    for name in ("cav_gather_or", "perm_program", "check_gather3",
+                 "seed_bitplanes", "lookup_T"):
+        assert kernels.LAUNCHES[name] > 0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [33, 256])
+def test_every_plane_sweep_step_matches_its_twin(lanes):
+    """The Jacobi sweep of a caveated graph, step by step, on the card
+    and on the twins; then the card's and the CPU's endpoints agree."""
+    _needs_card()
+    w = workloads.caveated_rbac(n_pods=2_000, n_users=1_500, n_groups=40)
+    g_cpu, g = _graphs(w.schema_text, w.relationships)
+    assert g.has_cav and g.kernel.planes
+    kc, prog = g.kernel, g.prog
+    main, aux, cav = g.snapshot()
+    rng = np.random.default_rng(lanes)
+    n_words = 1 << (-(-lanes // 32) - 1).bit_length()
+    q = np.full(32 * n_words, prog.dead_index, np.int32)
+    q[:lanes] = rng.integers(0, prog.dead_index, lanes)
+    qd = torch.from_numpy(q).cuda()
+    nt = prog.state_size + kc.n_aux_rows
+    x0 = kernels.seed_bitplanes(qd, nt, n_words, prog.dead_index, planes=True)
+    x = x0.clone()
+    for _ in range(3):
+        a, b = x.clone(), x.clone()
+        for step in kc.sweep_steps(main, aux, cav, n_words):
+            EllKernelCache.run_step(step, a, x0, None, kernels, x_in=x)
+            EllKernelCache.run_step(step, b, x0, None, reference, x_in=x)
+            torch.cuda.synchronize()
+            assert torch.equal(a, b), step[0]
+        assert kernels.sweep_delta(a, x, prog.dead_index).tolist() == \
+            reference.sweep_delta(b, x, prog.dead_index).tolist()
+        x = a
+    users = [u for u in w.subjects[:lanes]]
+    q_arr = np.full(32 * n_words, prog.dead_index, np.int32)
+    q_arr[:lanes] = [prog.subject_index("user", u) for u in users]
+    pods = prog.slot_range("pod", "view")
+    gi = (pods[0] + rng.integers(0, pods[1], 4_000)).astype(np.int32)
+    gc = rng.integers(0, lanes, 4_000).astype(np.int32)
+    out, tel = g.run_checks3_device(q_arr, gi, gc)[:2]
+    out_c, tel_c = g_cpu.run_checks3_device(q_arr, gi, gc)[:2]
+    assert torch.equal(out.cpu(), out_c) and np.array_equal(tel, tel_c)
+    words, tel = g.run_lookup_packed_T_device(*pods, q_arr)[:2]
+    words_c, tel_c = g_cpu.run_lookup_packed_T_device(*pods, q_arr)[:2]
+    assert torch.equal(words.cpu(), words_c) and np.array_equal(tel, tel_c)
