@@ -49,8 +49,31 @@ deployment (`models/workloads.py multitenant_1m()` with its defaults:
    flush, and answer as `force_rebuild()` and the oracle do.  Every kernel
    of the caveat path (all but the definite `check_gather`) must have
    launched during phase 10.
+11. the segment kernel on the phase-3 store, before phase 10 frees the
+   ELL endpoint: `create_endpoint("torch://", kernel="segment",
+   store=...)`.  Its 256-lane lookup and 10,000-pair check batches must
+   answer every lane and pair as the ELL endpoint does, and every kernel
+   of the segment path (`edge_or` and the seed, permission, delta, check
+   and lookup kernels) must have launched in them; `edge_or` is held
+   against its twin on the full edge arrays (padding edges in), one real
+   sweep step by step, one whole batch on the CPU twins; then 4 rounds
+   of phase 9's churn through the shared store: no rebuild, the card's
+   edge arrays equal the host's after each flush, `scatter_rows`
+   launched from the segment flush, both endpoints' answers equal;
+12. the Leopard index at the reference's group-explosion deployment
+   (`group_explosion()` defaults: 100,000 groups in depth-8 chains,
+   2,000 users, 5,000 docs): an indexed endpoint (A) and an index-free
+   one (B) on one store.  `doc#view` must be indexed (and nothing at
+   multitenant-1m, over the budget); A's read batches must be served
+   from the closure plane (`check_gather` and `word_cols_T`, no sweep
+   kernel) and equal B's and a sample of the oracle's; the plane kernels
+   are held against their twins on the full plane; then 4 rounds of the
+   reference bench's tail-user moves (quarantine, background re-close),
+   after which `wait_rebuilds()` leaves `doc#view` indexed and A serving
+   from the plane again.
 
-Any failed phase raises and the script exits non-zero.  The second-to-
+Phases run in the order 1-9, 11, 10, 12, and each phase's seconds are
+logged.  Any failed phase raises and the script exits non-zero.  The second-to-
 last line is the kernel table as JSON, the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits 2 and prints no result.
@@ -97,6 +120,15 @@ CAV_DEFINITE = 4        # caveated tuples replaced by definite ones
 CAV_ORACLE_CHECKS = 1_000
 CAV_ORACLE_CONDITIONAL = 200
 CAV_CHURN_ORACLE = 300
+
+# phase 11, the segment kernel at multitenant-1m: churn rounds of phase
+# 9's generator through the shared store
+SEG_ROUNDS = 4
+# phase 12, the Leopard index at group-explosion (its defaults: 100,000
+# groups in depth-8 chains, 2,000 users, 5,000 docs)
+LEO_ROUNDS = 4
+LEO_ORACLE_LOOKUPS = 4
+LEO_ORACLE_CHECKS = 500
 UNDECIDED = '[caveat:within_quota:{"used": 1}]'
 DECIDED = ('[caveat:within_quota:{"used": 1, "quota": 5}]',
            '[caveat:within_quota:{"used": 9, "quota": 5}]')
@@ -112,12 +144,29 @@ REPLACES = {
     "scatter_rows": "spicedb_kubeapi_proxy_tpu/ops/jax_endpoint.py:1004",
     "cav_gather_or": "spicedb_kubeapi_proxy_tpu/ops/ell.py:528",
     "check_gather3": "spicedb_kubeapi_proxy_tpu/ops/ell.py:853",
+    "edge_or": "spicedb_kubeapi_proxy_tpu/ops/spmv.py:130",
+    "word_cols_T": "spicedb_kubeapi_proxy_tpu/ops/jax_endpoint.py:2970",
+}
+# further TPU kernels a ported kernel also stands for (PERF.md rows 9-11)
+REPLACES_ALSO = {
+    "edge_or": "spicedb_kubeapi_proxy_tpu/ops/spmv.py:195 (fixpoint), "
+               ":155 (init_state), :320 (_pipe_fns)",
+    "check_gather": "spicedb_kubeapi_proxy_tpu/ops/jax_endpoint.py:2345 "
+                    "(_leo_check_fill, the Leopard check route)",
+    "scatter_rows": "spicedb_kubeapi_proxy_tpu/ops/jax_endpoint.py:690 "
+                    "(_SegmentGraph.flush)",
 }
 # the kernels of the definite read path (phases 4-5) and of the caveat
 # path (phase 10: definite checks are check_gather3's there)
 READ_KERNELS = ("ell_gather_or", "perm_program", "sweep_delta",
                 "seed_bitplanes", "check_gather", "lookup_T")
-CAVEAT_KERNELS = tuple(k for k in REPLACES if k != "check_gather")
+CAVEAT_KERNELS = tuple(k for k in REPLACES
+                       if k not in ("check_gather", "edge_or",
+                                    "word_cols_T"))
+# the segment path's kernels (phase 11; the init step is a plain copy of
+# the seed when the program has no wildcard term, as multitenant-1m's)
+SEGMENT_KERNELS = ("seed_bitplanes", "edge_or", "perm_program",
+                   "sweep_delta", "check_gather", "lookup_T")
 # 32-bit integer ALU rate used for the operations bound: one op per CUDA
 # core lane per clock, i.e. half the 67 TFLOP/s fp32 FMA rate of an H100
 # SXM at its 700 W limit (bitwise ops never reach the tensor cores)
@@ -436,7 +485,7 @@ def oracle_check(ep, batches, lookups, reqs, checks):
         f"{ORACLE_CHECKS} checks ({time.perf_counter() - t1:.1f} s) equal")
 
 
-def _churn_plan(w, n_rounds: int, seed: int) -> list:
+def _churn_plan(w, n_rounds: int, seed: int, tag: str = "w") -> list:
     """Phase 9's writes, from the seed: per round a list of writes, each
     a list of (op, relationship string) — one pod create or delete per
     write (the proxy's dual-write commits its two tuples together), one
@@ -467,7 +516,7 @@ def _churn_plan(w, n_rounds: int, seed: int) -> list:
         writes, created, granted = [], [], []
         for i in range(ROUND_CREATES):
             k, u = rng.randrange(n_ns), rng.choice(users)
-            pod = f"ns{k}/w{r}-{i}"
+            pod = f"ns{k}/{tag}{r}-{i}"
             created.append((pod, k, u))
             writes.append([("touch", f"pod:{pod}#namespace@namespace:ns{k}"),
                            ("touch", f"pod:{pod}#creator@user:{u}")])
@@ -1214,6 +1263,728 @@ def caveats(timer, peak, smi_line, device: str = "cuda",
     return rows
 
 
+def _seg_rows(rows, name, err, ms, plain_ms, nbytes, ops, peak,
+              library_ms=None):
+    """A kernel-table row: bound = max(bytes over the memory rate, integer
+    operations over the integer rate)."""
+    b_bytes = nbytes / peak * 1e3
+    b_ops = ops / INT_OPS_PER_S * 1e3
+    rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": max(b_bytes, b_ops),
+                  "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                  "library_ms": library_ms}
+
+
+def segment_path(ep, w, timer, peak, smi_line, device: str = "cuda",
+                 n_rounds: int = SEG_ROUNDS) -> dict:
+    """Phase 11: the segment kernel on the phase-3 store, beside the ELL
+    endpoint.  Returns {kernel name: measurements on the segment path}."""
+    import numpy as np
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.ops.kernels import reference
+    from spicedb_kubeapi_proxy_tpu_torch.ops.spmv import KernelCache
+    from spicedb_kubeapi_proxy_tpu_torch.ops.torch_endpoint import (
+        _SegmentGraph, _sweep_bytes, _unify_check_buckets)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import (
+        Bootstrap, create_endpoint)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        CheckRequest, ObjectRef, RelationshipUpdate, SubjectRef, UpdateOp,
+        parse_relationship)
+
+    t_phase = time.perf_counter()
+    url = "torch://" if device == "cuda" else f"torch://?device={device}"
+    seg = create_endpoint(url, Bootstrap(w.schema_text, ""),
+                          kernel="segment", store=ep.store)
+    t0 = time.perf_counter()
+    g = seg.graph()
+    timer.sync()
+    t_build = time.perf_counter() - t0
+    if not isinstance(g, _SegmentGraph) or seg.kernel_kind != "segment":
+        raise AssertionError("kernel='segment' built another graph kind")
+    prog = g.prog
+    cap = int(g.edge_src.shape[0])
+    log(f"segment graph: {prog.state_size} state rows, {len(prog.edge_src)} "
+        f"edges in a {cap}-edge capacity ({len(g.free)} free, padding "
+        f"dead -> dead), {len(g.positions)} tuples positioned; build "
+        f"{t_build:.3f} s (tuple-list compile, as the reference's); Leopard "
+        f"statuses {seg._leopard.status_map()}")
+
+    rng = np.random.default_rng(SEED + 11)
+    users = w.subjects
+    batches = [[SubjectRef("user", users[i]) for i in
+                rng.choice(len(users), LOOKUP_LANES, replace=False)]
+               for _ in range(1 + N_WARM)]
+    pods = [p for p in prog.object_ids["pod"] if "\x00" not in p]
+    pick = rng.choice(len(pods), N_CHECKS, replace=False)
+    subj = rng.integers(0, LOOKUP_LANES, N_CHECKS)
+    reqs = [CheckRequest(ObjectRef("pod", pods[i]), "view", batches[0][s])
+            for i, s in zip(pick, subj)]
+    rebuilds0 = (seg.stats["rebuilds"], ep.stats["rebuilds"])
+
+    # the segment path's read batches, launches counted from zero
+    kernels.reset_launches()
+    summary, lookups, checks = {}, [], []
+    for verb in ("lookup", "check"):
+        e2e, sweeps = [], []
+        for k in range(1 + N_WARM):
+            t0 = time.perf_counter()
+            if verb == "lookup":
+                lookups.append(asyncio.run(seg.lookup_resources_batch(
+                    "pod", "view", batches[k])))
+            else:
+                checks.append(asyncio.run(seg.check_bulk_permissions(reqs)))
+            timer.sync()
+            e2e.append(time.perf_counter() - t0)
+            sweeps.append(int(g.last_trace[0]))
+        summary[verb] = {"e2e_s": e2e, "sweeps": sweeps}
+        log(f"segment {verb}: sweeps per batch {sweeps}; trace "
+            f"{g.last_trace[: 1 + sweeps[-1]].tolist()}; e2e per batch cold "
+            f"{e2e[0]:.4f} s, warm median {statistics.median(e2e[1:]):.4f} s "
+            f"(all: {', '.join(f'{t:.4f}' for t in e2e)})")
+    launches = {k: kernels.LAUNCHES[k] for k in kernels.KERNEL_NAMES}
+    log(f"launches on the segment path: {launches}")
+    idle = [k for k in SEGMENT_KERNELS if not launches[k]]
+    if idle:
+        raise AssertionError(f"kernels never launched on the segment path: "
+                             f"{idle}")
+
+    # the ELL endpoint on the same batches: every lane and pair equal
+    t0 = time.perf_counter()
+    for k in range(1 + N_WARM):
+        ell = asyncio.run(ep.lookup_resources_batch("pod", "view",
+                                                    batches[k]))
+        if [sorted(x) for x in ell] != [sorted(x) for x in lookups[k]]:
+            raise AssertionError(f"segment lookup batch {k} differs from "
+                                 "the ELL endpoint's")
+    ell_checks = asyncio.run(ep.check_bulk_permissions(reqs))
+    if any([c.allowed for c in ell_checks] != [c.allowed for c in cs]
+           for cs in checks):
+        raise AssertionError("segment checks differ from the ELL endpoint's")
+    log(f"segment vs ELL: {1 + N_WARM} lookup batches x {LOOKUP_LANES} lanes "
+        f"and {1 + N_WARM} check batches x {len(reqs)} pairs equal "
+        f"({sum(len(x) for x in lookups[0])} allowed (subject, pod) pairs, "
+        f"{sum(c.allowed for c in checks[0])} allowed checks; "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    # the kernels of one real sweep against their twins, on the full edge
+    # arrays (padding edges in), step by step
+    kc = g.kernel
+    src, dst = g.snapshot()
+    dev = src.device
+    q_arr, _, _ = seg._encode_subjects(g, batches[0])
+    q = torch.from_numpy(q_arr).to(dev)
+    n_words = len(q_arr) // 32
+    n, dead = prog.state_size, prog.dead_index
+    word = 4 * n_words
+    rows = {}
+    x0, live = kc.init_state(q, n_words)
+    x0_t = reference.seed_bitplanes(q, n, n_words, dead)
+    _seg_rows(rows, "seed_bitplanes", _diff(x0, x0_t),
+              timer.ms(lambda: kc.init_state(q, n_words, out=x0)),
+              timer.ms(lambda: reference.seed_bitplanes(q, n, n_words, dead)),
+              q.numel() * 4 + n * word, q.numel(), peak)
+    steps = list(kc.sweep_steps(src, dst))
+    err = {"edge_or": 0, "perm_program": 0, "sweep_delta": 0}
+    x = x0.clone()
+    for sweep in range(2):
+        y_k = torch.empty_like(x)
+        y_t = torch.empty_like(x)
+        for i, step in enumerate(steps):
+            kc.run_step(step, y_k, x, x0, live, kernels)
+            kc.run_step(step, y_t, x, x0, live, reference)
+            if step[0] in err:
+                err[step[0]] = max(err[step[0]], _diff(y_k, y_t))
+            if _diff(y_k, y_t):
+                raise AssertionError(f"{step[0]} differs from its twin at "
+                                     f"segment step {i} of sweep {sweep}")
+        d_k = kernels.sweep_delta(y_k, x, dead)
+        d_t = reference.sweep_delta(y_t, x, dead)
+        err["sweep_delta"] = max(err["sweep_delta"], _diff(d_k.cpu(), d_t)
+                                 + _diff(y_k, y_t))
+        x = y_k
+    # edge_or alone on the full arrays, from a zero state and from the
+    # seed-initialized one, bit for bit
+    for base in (torch.zeros_like(x), x0):
+        a, b = base.clone(), base.clone()
+        kernels.edge_or(a, x, src, dst)
+        reference.edge_or(b, x, src, dst)
+        err["edge_or"] = max(err["edge_or"], _diff(a, b))
+    if any(err.values()):
+        raise AssertionError(f"segment kernels disagree with their twins: "
+                             f"{err}")
+    # per-sweep times at this batch's shapes, on the state after 2 sweeps
+    y = torch.empty_like(x)
+    per = {"init": [0.0, 0.0], "edge_or": [0.0, 0.0],
+           "perm_program": [0.0, 0.0]}
+    for step in steps:
+        acc = per[step[0]]
+        acc[0] += timer.ms(lambda: kc.run_step(step, y, x, x0, live,
+                                               kernels))
+        acc[1] += timer.ms(lambda: kc.run_step(step, y, x, x0, live,
+                                               reference), reps=2)
+    # edge_or's bound: the edge arrays, each distinct source row's words
+    # read once and each distinct destination row's words read and
+    # written once (the packed bytes the kernel must move; the
+    # reference's model counts float32 lanes); one OR per edge word
+    uniq_src = int(torch.unique(src).numel())
+    uniq_dst = int(torch.unique(dst).numel())
+    e_bytes = cap * 8 + uniq_src * word + 2 * uniq_dst * word
+    # the library yardstick: the reference's float32 [N, B] layout, one
+    # gather and one index_reduce_ "amax" (timed apart)
+    lanes_f = 32 * n_words
+    xf = ((x.view(torch.uint8).unsqueeze(-1) >> torch.arange(
+        8, device=dev, dtype=torch.uint8)) & 1).reshape(n, lanes_f) \
+        .to(torch.float32)
+    src64, dst64 = src.long(), dst.long()
+    gathered = xf[src64]
+    yf = torch.zeros_like(xf)
+    gather_ms = timer.ms(lambda: xf.index_select(0, src64), reps=3)
+    reduce_ms = timer.ms(lambda: yf.index_reduce_(0, dst64, gathered,
+                                                  "amax"), reps=3)
+    del xf, gathered, yf
+    _seg_rows(rows, "edge_or", err["edge_or"], per["edge_or"][0],
+              per["edge_or"][1], e_bytes, cap * n_words, peak,
+              library_ms=reduce_ms)
+    code_ops = 0
+    p_bytes = 0
+    for step in steps:
+        if step[0] == "perm_program":
+            _, code, _, length, _ = step
+            n_read = int((code[0::2] == 0).sum())
+            p_bytes += code.numel() * 4 + length * word * (n_read + 2)
+            code_ops += length * n_words * (code.numel() // 2 + 1)
+    _seg_rows(rows, "perm_program", err["perm_program"],
+              per["perm_program"][0], per["perm_program"][1], p_bytes,
+              code_ops, peak)
+    x_prev = x.clone()
+    _seg_rows(rows, "sweep_delta", err["sweep_delta"],
+              timer.ms(lambda: kernels.sweep_delta(y, x_prev, dead)),
+              timer.ms(lambda: reference.sweep_delta(y, x_prev, dead),
+                       reps=2),
+              2 * n * word + 8, 3 * n * n_words, peak)
+    sweep_ms = (per["init"][0] + per["edge_or"][0] + per["perm_program"][0]
+                + rows["sweep_delta"]["ms"])
+    model = _sweep_bytes(g, LOOKUP_LANES)
+    log(f"segment kernels vs twins on the full edge arrays ({cap} edges, "
+        f"{cap - len(prog.edge_src)} of them padding at the build): all "
+        f"bit-identical ({len(steps)} steps x 2 sweeps, edge_or alone twice,"
+        f" seed, delta); per sweep: init (seed copy) "
+        f"{per['init'][0]:.6f} ms, edge_or {per['edge_or'][0]:.6f} ms "
+        f"(bound {rows['edge_or']['bound_ms']:.6f} ms over {e_bytes} packed "
+        f"bytes), perm_program {per['perm_program'][0]:.6f} ms, sweep_delta "
+        f"{rows['sweep_delta']['ms']:.6f} ms; whole sweep {sweep_ms:.6f} ms. "
+        f"Reference byte model (_sweep_bytes, float32 lanes): {model} bytes "
+        f"-> {model / peak * 1e3:.6f} ms at {peak / 1e12:.2f} TB/s "
+        f"({smi_line}). Library yardstick on the float32 [{n}, {lanes_f}] "
+        f"layout: x[src] gather {gather_ms:.6f} ms, index_reduce_ amax "
+        f"{reduce_ms:.6f} ms")
+
+    # checks and lookups of the converged state, and one whole batch on
+    # the CPU twins
+    x_final, trace = kc.evaluate(q, n_words, src, dst,
+                                 kc.take_arena(n_words))
+    qa, cm, _ = seg._encode_subjects(g, [r.subject for r in reqs])
+    gidx = [prog.state_index("pod", "view", r.resource.id) for r in reqs]
+    gcol = [cm[r.subject] for r in reqs]
+    _, gi, gc = _unify_check_buckets(qa, gidx, gcol)
+    gi, gc = torch.from_numpy(gi).to(dev), torch.from_numpy(gc).to(dev)
+    cells = int(torch.unique(gi.long() * n_words + gc.long() // 32).numel())
+    _seg_rows(rows, "check_gather",
+              _diff(kernels.check_gather(x_final, gi, gc),
+                    reference.check_gather(x_final, gi, gc)),
+              timer.ms(lambda: kernels.check_gather(x_final, gi, gc)),
+              timer.ms(lambda: reference.check_gather(x_final, gi, gc)),
+              gi.numel() * 4 * 3 + cells * 4, 3 * gi.numel(), peak)
+    off, length = prog.slot_range("pod", "view")
+    lk = kernels.lookup_T(x_final, off, length)
+    _seg_rows(rows, "lookup_T", _diff(lk, reference.lookup_T(x_final, off,
+                                                             length)),
+              timer.ms(lambda: kernels.lookup_T(x_final, off, length)),
+              timer.ms(lambda: reference.lookup_T(x_final, off, length)),
+              2 * length * word, 0, peak,
+              library_ms=timer.ms(lambda: x_final.narrow(0, off, length)
+                                  .t().contiguous()))
+    bad = {k: r["max_abs_err"] for k, r in rows.items() if r["max_abs_err"]}
+    if bad:
+        raise AssertionError(f"segment read kernels disagree: {bad}")
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    kc_cpu = KernelCache(prog, cpu)
+    if kc_cpu.num_iters != kc.num_iters:
+        raise AssertionError("CPU twin cache has another iteration cap")
+    x_cpu, tr_cpu = kc_cpu.evaluate(q.cpu(), n_words, src.cpu(), dst.cpu(),
+                                    kc_cpu.take_arena(n_words))
+    if not (torch.equal(x_final.cpu(), x_cpu) and np.array_equal(trace, tr_cpu)
+            and torch.equal(lk.cpu(), reference.lookup_T(x_cpu, off,
+                                                         length))):
+        raise AssertionError("card and CPU-twin segment sweeps disagree")
+    log(f"whole segment batch on the CPU twins: state, trace "
+        f"{tr_cpu[:1 + tr_cpu[0]].tolist()} and lookup words equal the "
+        f"card's ({time.perf_counter() - t0:.1f} s)")
+
+    # churn through the shared store: both endpoints absorb it
+    plan = _churn_plan(w, n_rounds, SEED + 11, tag="s")
+    ops = {"touch": UpdateOp.TOUCH, "delete": UpdateOp.DELETE}
+    scatter = 0
+    flushes = []
+    for r, rnd in enumerate(plan):
+        f0 = seg.stats["flush_s"]
+        a0 = seg.stats["delta_apply_s"]
+        if r == n_rounds - 1:
+            prev_dev = g.snapshot()
+            prev_host = (g.host_src.copy(), g.host_dst.copy())
+
+        async def commit():
+            for wr in rnd["writes"]:
+                await seg.write_relationships(
+                    [RelationshipUpdate(ops[o], parse_relationship(rel))
+                     for o, rel in wr])
+        asyncio.run(commit())
+        creators = list(dict.fromkeys(u for _, _, u in rnd["created"]))
+        extra = [users[i] for i in rng.choice(len(users), LOOKUP_LANES,
+                                              replace=False)]
+        names = list(dict.fromkeys(creators + extra))[:LOOKUP_LANES]
+        subjects = [SubjectRef("user", u) for u in names]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = asyncio.run(seg.lookup_resources_batch("pod", "view", subjects))
+        timer.sync()
+        t_lookup = time.perf_counter() - t0
+        n_scatter = kernels.LAUNCHES["scatter_rows"]
+        scatter += n_scatter
+        if not n_scatter:
+            raise AssertionError("the segment flush launched no scatter_rows")
+        g2 = seg.graph()
+        if g2 is not g:
+            raise AssertionError("the segment endpoint rebuilt under churn")
+        s_now, d_now = g.snapshot()
+        if not (np.array_equal(s_now.cpu().numpy(), g.host_src)
+                and np.array_equal(d_now.cpu().numpy(), g.host_dst)):
+            raise AssertionError("card edge arrays differ from the host's "
+                                 "after the flush")
+        flushes.append((seg.stats["flush_s"] - f0) * 1e3)
+        new = [(pod, u) for pod, _, u in rnd["created"]]
+        pick = rng.choice(len(pods), N_CHECKS - len(new), replace=False)
+        pairs = new + [(pods[i], names[j]) for i, j in
+                       zip(pick, rng.integers(0, len(names), len(pick)))]
+        creqs = [CheckRequest(ObjectRef("pod", p_), "view",
+                              SubjectRef("user", u)) for p_, u in pairs]
+        t0 = time.perf_counter()
+        cres = asyncio.run(seg.check_bulk_permissions(creqs))
+        timer.sync()
+        t_check = time.perf_counter() - t0
+        ell = asyncio.run(ep.lookup_resources_batch("pod", "view", subjects))
+        ell_c = asyncio.run(ep.check_bulk_permissions(creqs))
+        if [sorted(a) for a in res] != [sorted(b) for b in ell] or \
+                [c.allowed for c in cres] != [c.allowed for c in ell_c]:
+            raise AssertionError(f"segment and ELL answers differ after "
+                                 f"churn round {r}")
+        if not all(c.allowed for c in cres[: len(new)]):
+            raise AssertionError("a creator cannot view the pod just created")
+        log(f"segment churn round {r}: {sum(len(x) for x in rnd['writes'])} "
+            f"updates; delta application "
+            f"{(seg.stats['delta_apply_s'] - a0) * 1e3:.3f} ms, flush "
+            f"{flushes[-1]:.3f} ms (host, {n_scatter} scatter_rows "
+            f"launches); read-after-write lookup {t_lookup:.4f}"
+            f" s, check {t_check:.4f} s (sweeps {int(g.last_trace[0])}); "
+            f"{len(g.free)} free edge positions; card arrays equal host; "
+            "answers equal the ELL endpoint's")
+    if (seg.stats["rebuilds"], ep.stats["rebuilds"]) != rebuilds0:
+        raise AssertionError("a rebuild happened during the segment churn")
+    # scatter_rows at the segment flush's shapes: the last round's edge
+    # positions into each [cap, 1] edge array, against its twin and
+    # torch.index_put; the captured arrays are the pre-flush snapshot
+    changed = np.nonzero((g.host_src != prev_host[0])
+                         | (g.host_dst != prev_host[1]))[0].astype(np.int32)
+    rows_t = torch.from_numpy(changed).to(dev)
+    rows64 = rows_t.long()
+    s_err, s_ms, s_plain, s_lib = 0, 0.0, 0.0, 0.0
+    for old, host, live_arr in zip(prev_dev, (g.host_src, g.host_dst),
+                                   g.snapshot()):
+        old2 = old.view(cap, 1)
+        vals = torch.from_numpy(host[changed][:, None].copy()).to(dev)
+        got = kernels.scatter_rows(old2, rows_t, vals)
+        s_err = max(s_err, _diff(got, reference.scatter_rows(old2, rows_t,
+                                                             vals)),
+                    _diff(got.view(cap), live_arr))
+        s_ms += timer.ms(lambda: kernels.scatter_rows(old2, rows_t, vals))
+        s_plain += timer.ms(lambda: reference.scatter_rows(old2, rows_t,
+                                                           vals))
+        s_lib += timer.ms(lambda: torch.index_put(old2, (rows64,), vals))
+    if s_err:
+        raise AssertionError(f"scatter_rows differs on the edge arrays: "
+                             f"{s_err}")
+    s_bytes = 2 * (2 * cap * 4 + len(changed) * 2 * 4)
+    log(f"scatter_rows vs twin on the last round's {len(changed)} edge "
+        f"positions of both [{cap}, 1] arrays: bit-identical, equal to the "
+        f"flushed arrays; one flush {s_ms:.6f} ms, twin {s_plain:.6f} ms, "
+        f"torch.index_put {s_lib:.6f} ms, bound {s_bytes / peak * 1e3:.6f}"
+        f" ms")
+    med = lambda v: statistics.median(v[1:])
+    log(f"segment summary: warm median lookup "
+        f"{med(summary['lookup']['e2e_s']):.6f} s, check "
+        f"{med(summary['check']['e2e_s']):.6f} s; sweeps "
+        f"{summary['lookup']['sweeps'][-1]}; edge_or {per['edge_or'][0]:.6f} "
+        f"ms per sweep vs bound {rows['edge_or']['bound_ms']:.6f} ms; whole "
+        f"sweep {sweep_ms:.6f} ms; flush median "
+        f"{statistics.median(flushes):.3f} ms host; scatter_rows launches "
+        f"{scatter}")
+    log(f"phase 11 wall time {time.perf_counter() - t_phase:.1f} s")
+    for name, r in rows.items():
+        r["launches"] = launches[name]
+    rows["scatter_rows"] = {"launches": scatter, "max_abs_err": s_err,
+                            "ms": s_ms, "plain_ms": s_plain,
+                            "bound_ms": s_bytes / peak * 1e3,
+                            "bound_by": "bytes", "library_ms": s_lib}
+    return rows, summary
+
+
+def _leo_pairs(w, rng, n: int, depth: int = 8) -> list:
+    """(doc, user) check pairs for group-explosion, as the reference
+    bench draws them: half with the doc's own chain-tail user (HAS until
+    a churn moves the user), half with a random user."""
+    n_users = len(w.subjects)
+    doc_user = {}
+    for r in w.relationships:
+        if r.startswith("doc:"):
+            d, head = r[len("doc:"):].split("#viewer@group:g")
+            doc_user[d] = f"u{(int(head.split('#')[0]) // depth) % n_users}"
+    docs = sorted(doc_user)
+    out = []
+    for _ in range(n):
+        d = docs[int(rng.integers(len(docs)))]
+        u = (doc_user[d] if rng.random() < 0.5
+             else f"u{int(rng.integers(n_users))}")
+        out.append((d, u))
+    return out, doc_user
+
+
+def leopard_path(timer, peak, smi_line, mt_statuses: dict,
+                 device: str = "cuda", workload_kwargs: Optional[dict] = None,
+                 n_rounds: int = LEO_ROUNDS) -> dict:
+    """Phase 12: the Leopard index at group-explosion's full size, an
+    indexed endpoint (A) against an index-free one (B) on one store.
+    Returns {kernel name: measurements on the plane reads}."""
+    import numpy as np
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.models import workloads
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.ops.kernels import reference
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import (
+        Bootstrap, create_endpoint)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        CheckRequest, ObjectRef, RelationshipUpdate, SubjectRef, UpdateOp,
+        parse_relationship)
+
+    t_phase = time.perf_counter()
+    over = {k: v for k, v in mt_statuses.items()
+            if v == "ineligible(over-budget)"}
+    log(f"multitenant-1m Leopard statuses (phase 3): {mt_statuses}")
+    if not over or any(v.startswith("indexed") for v in mt_statuses.values()):
+        raise AssertionError("multitenant-1m should index nothing: every "
+                             "eligible nested pair is over the budget")
+    depth = 8
+    t0 = time.perf_counter()
+    w = workloads.group_explosion(**(workload_kwargs or {}))
+    text = "\n".join(w.relationships)
+    url = "torch://" if device == "cuda" else f"torch://?device={device}"
+    a = create_endpoint(url, Bootstrap(w.schema_text, text))
+    b = create_endpoint(url, Bootstrap(w.schema_text, ""), store=a.store,
+                        leopard=False)
+    t1 = time.perf_counter()
+    a.graph()
+    timer.sync()
+    t2 = time.perf_counter()
+    b.graph()
+    timer.sync()
+    t3 = time.perf_counter()
+    lp = a._leopard
+    statuses = lp.status_map()
+    frag = lp.lookup_frag("doc", "view")
+    if statuses.get("doc#view") != "indexed" or frag is None:
+        raise AssertionError(f"doc#view is not indexed: {statuses}")
+    plane = frag.plane
+    n_users = len(w.subjects)
+    log(f"group-explosion: {len(w.relationships)} tuples, generated and "
+        f"loaded in {t1 - t0:.3f} s; build A (index on) {t2 - t1:.3f} s, B "
+        f"(index off) {t3 - t2:.3f} s; statuses {statuses}; doc#view plane "
+        f"{list(plane.shape)} int32 = {plane.numel() * 4} bytes on "
+        f"{plane.device}, host closure (state + seeds) {frag.nbytes_host} "
+        f"bytes over {frag.n_rows} fragment rows x {frag.words} words; "
+        f"{lp.uploads} upload(s) {lp.upload_s * 1e3:.3f} ms")
+
+    rng = np.random.default_rng(SEED + 12)
+    oracle = a._oracle
+    batches = [[SubjectRef("user", w.subjects[i]) for i in
+                rng.choice(n_users, LOOKUP_LANES, replace=False)]
+               for _ in range(1 + N_WARM)]
+    pairs, doc_user = _leo_pairs(w, rng, N_CHECKS - 400)
+    # HAS pairs from oracle lookups, so both answers occur
+    t0 = time.perf_counter()
+    for s in batches[0][:LEO_ORACLE_LOOKUPS]:
+        got = oracle.lookup_resources("doc", "view", s)
+        pairs += [(d, s.id) for d in got[:100]]
+    t_oracle_lookups = time.perf_counter() - t0
+    pairs += [(d, f"u{int(rng.integers(n_users))}")
+              for d in rng.choice(sorted(doc_user), N_CHECKS - len(pairs))]
+    reqs = [CheckRequest(ObjectRef("doc", d), "view", SubjectRef("user", u))
+            for d, u in pairs]
+
+    def reads(ep, label):
+        out_l, out_c, e2e = [], [], {"lookup": [], "check": []}
+        sweeps = []
+        for k in range(1 + N_WARM):
+            t0 = time.perf_counter()
+            out_l.append(asyncio.run(ep.lookup_resources_batch(
+                "doc", "view", batches[k])))
+            timer.sync()
+            e2e["lookup"].append(time.perf_counter() - t0)
+        for k in range(1 + N_WARM):
+            t0 = time.perf_counter()
+            out_c.append(asyncio.run(ep.check_bulk_permissions(reqs)))
+            timer.sync()
+            e2e["check"].append(time.perf_counter() - t0)
+            tr = ep.graph().last_trace
+            sweeps.append(int(tr[0]) if tr is not None else 0)
+        log(f"{label}: lookup e2e cold {e2e['lookup'][0]:.4f} s, warm median "
+            f"{statistics.median(e2e['lookup'][1:]):.6f} s; check e2e cold "
+            f"{e2e['check'][0]:.4f} s, warm median "
+            f"{statistics.median(e2e['check'][1:]):.6f} s; last sweeps "
+            f"{sweeps}")
+        return out_l, out_c, e2e, sweeps
+
+    kernels.reset_launches()
+    s0 = dict(a.stats)
+    a_l, a_c, a_e2e, _ = reads(a, "A (index on)")
+    a_launch = dict(kernels.LAUNCHES)
+    served = {k: a.stats[k] - s0[k] for k in ("leopard_checks",
+                                              "leopard_lookups",
+                                              "kernel_calls")}
+    log(f"A launches {a_launch}; served {served}")
+    swept = [k for k in ("ell_gather_or", "perm_program", "sweep_delta",
+                         "seed_bitplanes", "edge_or", "lookup_T")
+             if a_launch[k]]
+    if swept or served["kernel_calls"]:
+        raise AssertionError(f"A's batches reached the sweep: {swept}")
+    # one closure column per distinct query column of each lookup batch
+    n_cols = sum(len(set(a._encode_subjects(a.graph(), bt)[1].values()))
+                 for bt in batches)
+    if (served["leopard_checks"] != (1 + N_WARM) * len(reqs)
+            or served["leopard_lookups"] != n_cols
+            or not (a_launch["check_gather"] and a_launch["word_cols_T"])):
+        raise AssertionError(f"A's batches were not served from the plane: "
+                             f"{served}")
+    kernels.reset_launches()
+    b_l, b_c, b_e2e, b_sweeps = reads(b, "B (index off)")
+    if b.stats["leopard_checks"] or b.stats["leopard_lookups"]:
+        raise AssertionError("B consulted an index")
+    if min(b_sweeps) < 2:
+        raise AssertionError(f"B did not sweep the chains: {b_sweeps}")
+    for k in range(1 + N_WARM):
+        if [sorted(x) for x in a_l[k]] != [sorted(x) for x in b_l[k]] or \
+                [c.allowed for c in a_c[k]] != [c.allowed for c in b_c[k]]:
+            raise AssertionError(f"A and B disagree on batch {k}")
+    n_has = sum(c.allowed for c in a_c[0])
+    if not 0 < n_has < len(reqs):
+        raise AssertionError(f"the check batch is one-sided: {n_has}")
+    log(f"A and B agree on {1 + N_WARM} lookup batches and {1 + N_WARM} "
+        f"check batches ({n_has} HAS of {len(reqs)}, "
+        f"{sum(len(x) for x in a_l[0])} allowed (user, doc) pairs); B's "
+        f"trace {b.graph().last_trace[: 1 + b_sweeps[-1]].tolist()}")
+    t0 = time.perf_counter()
+    for i in rng.choice(len(reqs), LEO_ORACLE_CHECKS, replace=False):
+        r = reqs[int(i)]
+        if oracle.check(r.resource, r.permission, r.subject) != \
+                a_c[0][int(i)].allowed:
+            raise AssertionError(f"check {r} differs from the oracle")
+    for i in range(2):
+        s = batches[0][i]
+        if sorted(oracle.lookup_resources("doc", "view", s)) != \
+                sorted(a_l[0][i]):
+            raise AssertionError(f"lookup for {s} differs from the oracle")
+    log(f"oracle: {LEO_ORACLE_CHECKS} checks and 2 lookups equal A's "
+        f"({time.perf_counter() - t0:.1f} s; the HAS-pair lookups took "
+        f"{t_oracle_lookups:.1f} s)")
+
+    # the plane kernels against their twins, on the full plane
+    rows = {}
+    dev = plane.device
+    prog = a.graph().prog
+    off = prog.slot_offsets[("doc", "view")]
+    q_arr, cols, _ = a._encode_subjects(a.graph(), [r.subject for r in reqs])
+    pr = np.asarray([prog.state_index("doc", "view", r.resource.id) - off
+                     for r in reqs], np.int32)
+    pc = np.asarray([frag.col_of[int(q_arr[cols[r.subject]])]
+                     for r in reqs], np.int32)
+    pr_t, pc_t = torch.from_numpy(pr).to(dev), torch.from_numpy(pc).to(dev)
+    cells = len(set(zip(pr.tolist(), (pc // 32).tolist())))
+    _seg_rows(rows, "check_gather",
+              _diff(kernels.check_gather(plane, pr_t, pc_t),
+                    reference.check_gather(plane, pr_t, pc_t)),
+              timer.ms(lambda: kernels.check_gather(plane, pr_t, pc_t)),
+              timer.ms(lambda: reference.check_gather(plane, pr_t, pc_t)),
+              len(pr) * 4 * 3 + cells * 4, 3 * len(pr), peak)
+    rows_n = frag.plane_rows
+    all_w = torch.arange(plane.shape[1], dtype=torch.int32, device=dev)
+    batch_w = torch.tensor(sorted({int(frag.col_of[int(q_arr[c])]) // 32
+                                   for c in set(cols.values())}),
+                           dtype=torch.int32, device=dev)
+    err = 0
+    for words in (all_w, batch_w, all_w.flip(0)[:7].repeat(2)):
+        err = max(err, _diff(kernels.word_cols_T(plane, rows_n, words),
+                             reference.word_cols_T(plane, rows_n, words)))
+    w64 = batch_w.long()
+    _seg_rows(rows, "word_cols_T", err,
+              timer.ms(lambda: kernels.word_cols_T(plane, rows_n, batch_w)),
+              timer.ms(lambda: reference.word_cols_T(plane, rows_n, batch_w)),
+              2 * batch_w.numel() * rows_n * 4 + batch_w.numel() * 4, 0,
+              peak, library_ms=timer.ms(
+                  lambda: plane[:rows_n, w64].t().contiguous()))
+    if any(r["max_abs_err"] for r in rows.values()):
+        raise AssertionError(f"plane kernels disagree with their twins: "
+                             f"{rows}")
+    log(f"plane kernels vs twins on the full [{rows_n}, {plane.shape[1]}] "
+        f"plane: check_gather over {len(pr)} (row, col) pairs and "
+        f"word_cols_T over all, the batch's ({batch_w.numel()}) and "
+        f"repeated words: bit-identical; check_gather "
+        f"{rows['check_gather']['ms']:.6f} ms (bound "
+        f"{rows['check_gather']['bound_ms']:.6f}), word_cols_T "
+        f"{rows['word_cols_T']['ms']:.6f} ms for the batch's words (bound "
+        f"{rows['word_cols_T']['bound_ms']:.6f}, library "
+        f"{rows['word_cols_T']['library_ms']:.6f})")
+
+    # churn: the reference bench's tail-user moves
+    ops_of = {"touch": UpdateOp.TOUCH, "delete": UpdateOp.DELETE}
+    # one user membership per chain, at its tail
+    n_chains = sum(1 for r in w.relationships
+                   if r.startswith("group:") and "@user:" in r)
+    rebuilds0 = a.stats["rebuilds"]
+    crng = np.random.default_rng(SEED + 13)
+    q0, r0 = lp.quarantines, lp.recloses
+    rounds = []
+    for r in range(n_rounds):
+        writes = []
+        for _ in range(4):
+            c = int(crng.integers(n_chains))
+            tail = c * depth + depth - 1
+            writes.append(("delete", f"group:g{tail}#member@user:u"
+                                     f"{c % n_users}"))
+            writes.append(("touch", f"group:g{tail}#member@user:u"
+                                    f"{int(crng.integers(n_users))}"))
+        a0, u0, us0 = (a.stats["delta_apply_s"], lp.uploads, lp.upload_s)
+        a.store.write([RelationshipUpdate(ops_of[o], parse_relationship(x))
+                       for o, x in writes])
+        t0 = time.perf_counter()
+        a.graph()                       # apply + Leopard maintenance
+        t_apply = time.perf_counter() - t0
+        subjects = [SubjectRef("user", x.split("@user:")[1])
+                    for _, x in writes[1::2]]
+        subjects += batches[r % len(batches)][: LOOKUP_LANES - len(subjects)]
+        cpairs, _ = _leo_pairs(w, crng, 2_000)
+        creqs = [CheckRequest(ObjectRef("doc", d), "view",
+                              SubjectRef("user", u)) for d, u in cpairs]
+        al = asyncio.run(a.lookup_resources_batch("doc", "view", subjects))
+        ac = asyncio.run(a.check_bulk_permissions(creqs))
+        bl = asyncio.run(b.lookup_resources_batch("doc", "view", subjects))
+        bc = asyncio.run(b.check_bulk_permissions(creqs))
+        if [sorted(x) for x in al] != [sorted(x) for x in bl] or \
+                [c.allowed for c in ac] != [c.allowed for c in bc]:
+            raise AssertionError(f"A and B disagree after round {r}")
+        for i in crng.choice(len(creqs), 100, replace=False):
+            q_ = creqs[int(i)]
+            if oracle.check(q_.resource, q_.permission, q_.subject) != \
+                    ac[int(i)].allowed:
+                raise AssertionError(f"check {q_} differs from the oracle "
+                                     f"after round {r}")
+        moved = subjects[0]
+        if sorted(oracle.lookup_resources("doc", "view", moved)) != \
+                sorted(al[0]):
+            raise AssertionError(f"lookup for {moved} differs from the "
+                                 f"oracle after round {r}")
+        rounds.append({"apply_ms": (a.stats["delta_apply_s"] - a0) * 1e3,
+                       "call_ms": t_apply * 1e3,
+                       "uploads": lp.uploads - u0,
+                       "upload_ms": (lp.upload_s - us0) * 1e3})
+        log(f"leopard churn round {r}: 4 deletes + 4 touches; host delta "
+            f"application {rounds[-1]['apply_ms']:.3f} ms (Leopard "
+            f"maintenance inside); plane uploads since the write, by "
+            f"inserts and background re-closes: {rounds[-1]['uploads']} in "
+            f"{rounds[-1]['upload_ms']:.3f} ms; status "
+            f"{lp.status_map()['doc#view']}; quarantines "
+            f"{lp.quarantines - q0}, re-closes kicked "
+            f"{a.stats['leopard_recloses']}, installed {lp.recloses - r0}; "
+            "A equals B and the oracle sample")
+    t0 = time.perf_counter()
+    if not a.wait_rebuilds(timeout=300):
+        raise AssertionError("re-closes did not quiesce")
+    t_wait = time.perf_counter() - t0
+    if a.stats["rebuilds"] != rebuilds0 or a._leopard is not lp:
+        raise AssertionError("A rebuilt under the churn")
+    if lp.quarantines - q0 < 1 or lp.recloses - r0 < 1:
+        raise AssertionError("the churn made no quarantine and re-close")
+    frag = lp.lookup_frag("doc", "view")
+    if (lp.status_map().get("doc#view") != "indexed" or frag is None
+            or frag.quarantined or not frag.live):
+        raise AssertionError(f"doc#view is not live again: "
+                             f"{lp.status_map()}")
+    # insert propagation on the live fragment: a round of touches only
+    # (the bench's rounds delete first, which quarantines the fragment and
+    # leaves the inserts to the re-close)
+    touches = []
+    for _ in range(4):
+        c = int(crng.integers(n_chains))
+        touches.append(f"group:g{c * depth + depth - 1}#member@user:u"
+                       f"{int(crng.integers(n_users))}")
+    a0, u0, us0 = a.stats["delta_apply_s"], lp.uploads, lp.upload_s
+    a.store.write([RelationshipUpdate(UpdateOp.TOUCH, parse_relationship(x))
+                   for x in touches])
+    a.graph()
+    insert_ms = (a.stats["delta_apply_s"] - a0) * 1e3
+    if lp.lookup_frag("doc", "view") is None:
+        raise AssertionError("inserts quarantined the fragment")
+    moved = [SubjectRef("user", x.split("@user:")[1]) for x in touches]
+    al = asyncio.run(a.lookup_resources_batch("doc", "view", moved))
+    bl = asyncio.run(b.lookup_resources_batch("doc", "view", moved))
+    if [sorted(x) for x in al] != [sorted(x) for x in bl] or \
+            sorted(oracle.lookup_resources("doc", "view", moved[0])) != \
+            sorted(al[0]):
+        raise AssertionError("A differs after the inserts")
+    log(f"insert round (4 touches, fragment live): host delta application "
+        f"{insert_ms:.3f} ms, {lp.uploads - u0} plane uploads "
+        f"{(lp.upload_s - us0) * 1e3:.3f} ms; A equals B and the oracle")
+    kernels.reset_launches()
+    s0 = dict(a.stats)
+    al = asyncio.run(a.lookup_resources_batch("doc", "view", batches[1]))
+    ac = asyncio.run(a.check_bulk_permissions(reqs))
+    bl = asyncio.run(b.lookup_resources_batch("doc", "view", batches[1]))
+    bc = asyncio.run(b.check_bulk_permissions(reqs))
+    if [sorted(x) for x in al] != [sorted(x) for x in bl] or \
+            [c.allowed for c in ac] != [c.allowed for c in bc]:
+        raise AssertionError("A and B disagree after the re-closes")
+    if a.stats["leopard_checks"] - s0["leopard_checks"] != len(reqs) or \
+            a.stats["kernel_calls"] != s0["kernel_calls"]:
+        raise AssertionError("A does not serve from the plane again")
+    med = lambda k: statistics.median(x[k] for x in rounds)
+    log(f"after wait_rebuilds() ({t_wait:.3f} s): doc#view indexed, live; A "
+        f"serves from the plane again and equals B. Leopard summary: "
+        f"re-closes {lp.recloses - r0} installed in {lp.reclose_s:.3f} s "
+        f"(host, background); plane uploads {lp.uploads} in total, "
+        f"{lp.upload_s / max(1, lp.uploads) * 1e3:.3f} ms each; delta "
+        f"application median {med('apply_ms'):.3f} ms a round; warm "
+        f"medians A lookup {statistics.median(a_e2e['lookup'][1:]):.6f} s, "
+        f"check {statistics.median(a_e2e['check'][1:]):.6f} s; B lookup "
+        f"{statistics.median(b_e2e['lookup'][1:]):.6f} s, check "
+        f"{statistics.median(b_e2e['check'][1:]):.6f} s, {b_sweeps[-1]} "
+        f"sweeps")
+    log(f"phase 12 wall time {time.perf_counter() - t_phase:.1f} s")
+    for name, r in rows.items():
+        r["launches"] = a_launch[name]
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1251,8 +2022,14 @@ def main() -> int:
             log("  " + line.strip())
 
     # 3. load
+    phase_s = {}
+    t_ph = time.perf_counter()
     timer = Timer(torch, torch.device("cuda"))
     ep, w = load("cuda", {})
+    mt_statuses = ep._leopard.status_map()
+    log(f"Leopard statuses at multitenant-1m: {mt_statuses}")
+    phase_s["1-3"] = time.perf_counter() - t_ph
+    t_ph = time.perf_counter()
 
     # 4-5. the main path, launches counted from zero
     kernels.reset_launches()
@@ -1288,16 +2065,34 @@ def main() -> int:
             f"{statistics.median(s['e2e_s'][1:]):.6f} s, sweeps "
             f"{s['sweeps'][-1]}")
 
+    phase_s["4-8"] = time.perf_counter() - t_ph
+
     # 9. the write path, launches counted from zero over the churn
+    t_ph = time.perf_counter()
     rows["scatter_rows"] = churn(
         ep, w, timer, peak,
         statistics.median(summary["lookup"]["e2e_s"][1:]))
+    phase_s["9"] = time.perf_counter() - t_ph
+
+    # 11. the segment kernel on the same store, beside the ELL endpoint
+    t_ph = time.perf_counter()
+    seg_rows, _ = segment_path(ep, w, timer, peak, smi_line)
+    phase_s["11"] = time.perf_counter() - t_ph
 
     # 10. the caveated deployment on its own endpoint (the first one goes)
+    t_ph = time.perf_counter()
     del ep, g, batches, lookups, reqs, checks
     gc.collect()
     torch.cuda.empty_cache()
     cav_rows = caveats(timer, peak, smi_line)
+    phase_s["10"] = time.perf_counter() - t_ph
+
+    # 12. the Leopard index at group-explosion, indexed against not
+    t_ph = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    leo_rows = leopard_path(timer, peak, smi_line, mt_statuses)
+    phase_s["12"] = time.perf_counter() - t_ph
     for kname, r in cav_rows.items():
         if kname in rows:
             # a kernel of both paths: its plane-mode numbers beside the
@@ -1310,6 +2105,24 @@ def main() -> int:
             rows[kname] = {"name": kname, "route": "cuda",
                            "source": KERNEL_SOURCE,
                            "replaces": REPLACES[kname], **r}
+    # the segment path's and the plane reads' numbers: new kernels get
+    # their row, shared ones the numbers beside their own (prefixed)
+    for prefix, extra in (("segment", seg_rows), ("leopard", leo_rows)):
+        for kname, r in extra.items():
+            if kname in rows:
+                rows[kname]["max_abs_err"] = max(
+                    rows[kname]["max_abs_err"], r.get("max_abs_err", 0))
+                rows[kname].update({f"{prefix}_{k}": v for k, v in r.items()
+                                    if k != "max_abs_err"})
+            else:
+                rows[kname] = {"name": kname, "route": "cuda",
+                               "source": KERNEL_SOURCE,
+                               "replaces": REPLACES[kname], **r}
+    rows["edge_or"]["replaces_also"] = REPLACES_ALSO["edge_or"]
+    rows["check_gather"]["replaces_also"] = REPLACES_ALSO["check_gather"]
+    rows["scatter_rows"]["replaces_also"] = REPLACES_ALSO["scatter_rows"]
+    log("phase seconds: " + ", ".join(f"{k}: {v:.1f}"
+                                      for k, v in phase_s.items()))
     print(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

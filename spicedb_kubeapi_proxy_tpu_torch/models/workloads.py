@@ -9,6 +9,10 @@ resource_type, permission) for one of the five north-star configs
 3. user -> group -> team -> namespace nested groups, depth-4 recursion
 4. intersection + exclusion userset rewrites (RBAC-with-deny)
 5. 1M-tuple multi-tenant graph, 256 concurrent list subjects
+
+plus `group_explosion`, the reference's Leopard deployment (its copy of
+fuzz/scenarios.py `group_explosion`, which the reference bench runs as
+`--config group-explosion`).
 """
 
 from __future__ import annotations
@@ -308,3 +312,46 @@ def multitenant_1m(n_tenants: int = 100, n_users: int = 50_000,
         permission="view",
         expected_objects=n_pods,
     )
+
+
+GROUP_EXPLOSION_SCHEMA = """
+definition user {}
+definition group {
+  relation member: user | group#member
+}
+definition doc {
+  relation viewer: group#member | user
+  permission view = viewer
+}
+"""
+
+
+def group_explosion(n_groups: int = 100_000, n_users: int = 2_000,
+                    n_docs: int = 5_000, depth: int = 8,
+                    seed: int = 15) -> Workload:
+    """Leopard's headline shape: `n_groups` groups arranged in disjoint
+    membership chains of length `depth` (every user membership enters at
+    the chain TAIL, so reaching a chain-head group — and any doc shared
+    with it — costs `depth` userset hops), docs shared with chain heads.
+    Pure union/userset rewrites: every pair is Leopard-eligible, so the
+    index collapses the depth-8 walk to one closure-plane probe."""
+    rng = random.Random(seed)
+    n_chains = max(1, n_groups // depth)
+    rels = set()
+    for c in range(n_chains):
+        base = c * depth
+        for i in range(depth - 1):
+            # members of g{base+i+1} are members of g{base+i}: the chain
+            # HEAD (g{base}) is `depth` hops from the user
+            rels.add(f"group:g{base + i}#member"
+                     f"@group:g{base + i + 1}#member")
+        rels.add(f"group:g{base + depth - 1}#member@user:u{c % n_users}")
+    for d in range(n_docs):
+        head = rng.randrange(n_chains) * depth
+        rels.add(f"doc:d{d}#viewer@group:g{head}#member")
+    return Workload(name="group-explosion",
+                    schema_text=GROUP_EXPLOSION_SCHEMA,
+                    relationships=sorted(rels),
+                    subjects=[f"u{i}" for i in range(n_users)],
+                    resource_type="doc", permission="view",
+                    expected_objects=n_docs)

@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels of the ELL fixpoint sweep and of the delta
-flush, and their wrappers.
+"""Hand-written CUDA kernels of the ELL and segment fixpoint sweeps, of
+the delta flush and of the Leopard plane reads, and their wrappers.
 
 The tri-state (caveat) path keeps two bitplanes per state row, words
 [0, H) definite and [H, 2H) maybe; the wrappers that read planes take H
@@ -36,7 +36,7 @@ from . import reference
 
 KERNEL_NAMES = ("ell_gather_or", "perm_program", "sweep_delta",
                 "seed_bitplanes", "check_gather", "lookup_T", "scatter_rows",
-                "cav_gather_or", "check_gather3")
+                "cav_gather_or", "check_gather3", "edge_or", "word_cols_T")
 
 # launches per kernel since the last reset_launches(); CPU twins never count
 LAUNCHES: dict = {name: 0 for name in KERNEL_NAMES}
@@ -114,6 +114,8 @@ def _load():
                 "ell_check_gather3": (P, I, P, P, L, P, P),
                 "ell_lookup_T": (P, I, L, L, L, P, P),
                 "ell_scatter_rows": (P, L, I, P, L, P, P, I, P),
+                "ell_edge_or": (P, P, P, L, I, P, P),
+                "ell_word_cols_T": (P, I, P, I, L, P, P),
             }
             for fn, args in sigs.items():
                 f = getattr(lib, fn)
@@ -379,4 +381,47 @@ def scatter_rows(src: torch.Tensor, rows: torch.Tensor,
     _run("ell_scatter_rows", _ptr(src), r, k, _ptr(rows), b, _ptr(vals),
          _ptr(out), vec)
     LAUNCHES["scatter_rows"] += 1
+    return out
+
+
+def edge_or(y: torch.Tensor, x: torch.Tensor, src: torch.Tensor,
+            dst: torch.Tensor) -> None:
+    """The segment sweep's edge pass: y[dst[e], w] |= x[src[e], w] for
+    every edge e and word w.  `x` and `y` are int32 [N, W] packed states,
+    distinct buffers (Jacobi: every edge reads the sweep's input);
+    `src`/`dst` int32 [E] row indices in [0, N)."""
+    if not _on_cuda(y, x, src, dst):
+        return reference.edge_or(y, x, src, dst)
+    _check(y, "y", 2)
+    _check(x, "x", 2)
+    _check(src, "src", 1)
+    _check(dst, "dst", 1)
+    if y.shape != x.shape:
+        raise KernelError("edge_or: x and y shapes differ")
+    if src.shape != dst.shape:
+        raise KernelError("edge_or: src and dst lengths differ")
+    if y.data_ptr() == x.data_ptr():
+        raise KernelError("edge_or: y must not be the input state")
+    _run("ell_edge_or", _ptr(x), _ptr(src), _ptr(dst), src.shape[0],
+         x.shape[1], _ptr(y))
+    LAUNCHES["edge_or"] += 1
+    return None
+
+
+def word_cols_T(plane: torch.Tensor, rows: int,
+                words: torch.Tensor) -> torch.Tensor:
+    """int32 [K, rows]: out[k, r] = plane[r, words[k]] — word columns of
+    a closure plane (int32 [R, Wc]) made contiguous, in a new tensor."""
+    if not _on_cuda(plane, words):
+        return reference.word_cols_T(plane, rows, words)
+    _check(plane, "plane", 2)
+    _check(words, "words", 1)
+    if not 0 <= rows <= plane.shape[0]:
+        raise KernelError(f"word_cols_T: {rows} rows of a "
+                          f"{plane.shape[0]}-row plane")
+    k = words.shape[0]
+    out = torch.empty((k, rows), dtype=torch.int32, device=plane.device)
+    _run("ell_word_cols_T", _ptr(plane), plane.shape[1], _ptr(words), k,
+         rows, _ptr(out))
+    LAUNCHES["word_cols_T"] += 1
     return out

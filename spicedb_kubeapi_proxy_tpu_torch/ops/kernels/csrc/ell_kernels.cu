@@ -13,6 +13,11 @@
 //   check_gather3  <- _pipe_fns.run_checks, tri-state         (ell.py:853-865)
 //   lookup_T       <- _pipe_fns.run_lookup, definite plane    (ell.py:867-895)
 //   scatter_rows   <- _EllGraph.flush's `.at[rows].set`  (jax_endpoint.py:1004-1050)
+//                     and _SegmentGraph.flush's edge scatter (jax_endpoint.py:690-704)
+//   edge_or        <- the segment kernel's gather + segment_sum + `> 0`
+//                     (spmv.py:130-134), on packed words
+//   word_cols_T    <- the Leopard plane's word-column reads
+//                     (jax_endpoint.py:2970-2977)
 //
 // State layout: x is int32 [NT, W] row-major (W packed words per row, bit
 // b of word w = query column 32*w + b).  Words are handled as uint32
@@ -344,6 +349,44 @@ __global__ void scatter_rows_kernel(const int32_t* __restrict__ rows,
     }
 }
 
+// Segment sweep, one thread per (edge, word): y[dst[e], w] |= x[src[e], w].
+// `x` is the sweep's input and `y` another buffer (Jacobi).  The OR of the
+// 0/1 values of a column equals the reference's `segment_sum(...) > 0`.
+// A zero source word makes no atomic, so the padding edges (dead -> dead,
+// the dead row is all zero) and freed positions cost one load each and
+// never serialize on the dead row.  Words go through uint32_t so bit 31
+// is an ordinary bit.
+__global__ void edge_or_kernel(const uint32_t* __restrict__ x,
+                               const int32_t* __restrict__ src,
+                               const int32_t* __restrict__ dst,
+                               long long E, int W,
+                               uint32_t* __restrict__ y) {
+    const long long total = E * W;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         t < total; t += stride) {
+        const long long e = t / W;
+        const int w = (int)(t - e * W);
+        const uint32_t v = __ldg(x + (long long)__ldg(src + e) * W + w);
+        if (v) atomicOr(y + (long long)__ldg(dst + e) * W + w, v);
+    }
+}
+
+// out[k, r] = plane[r, words[k]] for r < R: the batch's distinct closure
+// word columns, each made contiguous (one launch, one readback).
+__global__ void word_cols_T_kernel(const int32_t* __restrict__ plane, int Wc,
+                                   const int32_t* __restrict__ words, int K,
+                                   long long R, int32_t* __restrict__ out) {
+    const long long total = (long long)K * R;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         t < total; t += stride) {
+        const long long k = t / R;
+        const long long r = t - k * R;
+        out[t] = __ldg(plane + r * Wc + __ldg(words + k));
+    }
+}
+
 inline int last_error() { return (int)cudaGetLastError(); }
 
 }  // namespace
@@ -498,4 +541,25 @@ EXPORT int ell_scatter_rows(const void* src, long long R, int K,
         return last_error();
     }
     return 0;
+}
+
+EXPORT int ell_edge_or(const void* x, const void* src, const void* dst,
+                       long long E, int W, void* y, void* stream) {
+    if (E <= 0 || W <= 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    edge_or_kernel<<<grid_for(E * W, kBlock, 1LL << 30), kBlock, 0, s>>>(
+        (const uint32_t*)x, (const int32_t*)src, (const int32_t*)dst, E, W,
+        (uint32_t*)y);
+    return last_error();
+}
+
+EXPORT int ell_word_cols_T(const void* plane, int Wc, const void* words,
+                           int K, long long R, void* out, void* stream) {
+    if (K <= 0 || R <= 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    word_cols_T_kernel<<<grid_for((long long)K * R, kBlock, 1LL << 30),
+                         kBlock, 0, s>>>(
+        (const int32_t*)plane, Wc, (const int32_t*)words, K, R,
+        (int32_t*)out);
+    return last_error();
 }

@@ -32,7 +32,10 @@ def ell_gather_or(cur: torch.Tensor, idx: torch.Tensor, dst_lo: int,
     if n == 0:
         return
     idx64 = idx.long()
-    y = cur[idx64[:, 0]]
+    if idx.shape[1] == 0:   # no gathers: the seed and wildcard terms only
+        y = torch.zeros((n, cur.shape[1]), dtype=cur.dtype, device=cur.device)
+    else:
+        y = cur[idx64[:, 0]]
     for k in range(1, idx.shape[1]):
         y |= cur[idx64[:, k]]
     if x0 is not None:
@@ -187,4 +190,31 @@ def scatter_rows(src: torch.Tensor, rows: torch.Tensor,
     out = src.clone()
     keep = (rows >= 0) & (rows < src.shape[0])
     out[rows[keep].long()] = vals[keep]
+    return out
+
+
+def edge_or(y: torch.Tensor, x: torch.Tensor, src: torch.Tensor,
+            dst: torch.Tensor) -> None:
+    """y[dst[e]] |= x[src[e]] for every edge, as the reference computes
+    it: per bit, the 0/1 values of the edges' sources are summed per
+    destination (`index_add_`) and a positive sum sets the bit."""
+    if not src.numel():
+        return
+    vals = x[src.long()]                       # [E, W]
+    d = dst.long()
+    acc = torch.zeros(y.shape, dtype=torch.int64, device=y.device)
+    for b in range(32):
+        cnt = torch.zeros(y.shape, dtype=torch.int32, device=y.device)
+        cnt.index_add_(0, d, (vals >> b) & 1)
+        acc |= (cnt > 0).to(torch.int64) << b
+    acc = torch.where(acc >= 1 << 31, acc - (1 << 32), acc)
+    y |= acc.to(torch.int32)
+
+
+def word_cols_T(plane: torch.Tensor, rows: int,
+                words: torch.Tensor) -> torch.Tensor:
+    """int32 [K, rows]: plane[:rows, words].t(), in a tensor of its own."""
+    out = torch.empty((words.shape[0], rows), dtype=plane.dtype,
+                      device=plane.device)
+    out.copy_(plane[:rows, words.long()].t())
     return out

@@ -2,9 +2,20 @@
 
 The torch counterpart of the reference's ops/jax_endpoint.py.  The same
 host tuple store as `embedded://` stays the source of truth; the device
-holds the compiled relation graph as bit-packed fixed-fanin gather tables
-(ops/ell.py), and CheckBulkPermissions / LookupResources run as one fused
-sweep per batch — every step a hand-written CUDA kernel (ops/kernels).
+holds the compiled relation graph, and CheckBulkPermissions /
+LookupResources run as one fused sweep per batch — every step a
+hand-written CUDA kernel (ops/kernels).  Two interchangeable kernel kinds,
+as in the reference:
+
+- **ell** (default): bit-packed fixed-fanin gather tables (ops/ell.py);
+- **segment**: a flat padded COO edge list swept by `edge_or`
+  (ops/spmv.py), the reference's differential fallback; select it with
+  `TorchEndpoint(kernel="segment")` or `SPICEDB_TPU_KERNEL=segment`.
+
+Both are fronted by the Leopard closure index (ops/leopard.py, on unless
+`leopard=False`): a nested-group (type, permission) pair whose fragment
+is indexed answers checks with one bit gather of its closure plane and
+lookups with its word columns, instead of one sweep per nesting level.
 
 What this endpoint carries over from the reference, and what not yet:
 
@@ -28,7 +39,9 @@ What this endpoint carries over from the reference, and what not yet:
   first undecidable caveat on a graph compiled without planes, a dry
   spare pool, an exhausted growth budget — rebuilds the generation
   synchronously under the lock (the reference's AsyncRebuild-off path).
-  The reference's Leopard index hooks have no counterpart yet.
+  Every absorbed delta is mirrored into the Leopard closure (inserts
+  propagate, unprovable deletes quarantine the fragment until a
+  background re-close, a caveated tuple retires it).
 
 Reads are fully consistent w.r.t. the store: pending deltas are applied
 under the endpoint lock before a query captures its snapshot.
@@ -38,8 +51,10 @@ from __future__ import annotations
 
 import asyncio
 import collections
+import concurrent.futures
 import heapq
 import logging
+import os
 import threading
 import time
 from typing import Iterable, Optional
@@ -78,8 +93,13 @@ from .ell import (K_AUX, EllKernelCache, _to_device, batch_words,
                   build_cav_tables, build_tables)
 from .graph_compile import (GraphProgram, caveat_affected_pairs,
                             compile_graph, compile_graph_columnar)
+from .leopard import LeopardIndex
+from .spmv import KernelCache as SegmentKernelCache
+from .spmv import pad_edges
 
 _log = logging.getLogger(__name__)
+
+_MIN_EDGE_BUCKET = 256
 
 _MIN_BATCH_BUCKET = 8
 
@@ -147,7 +167,12 @@ def _sweep_bytes(graph, lanes: int) -> int:
     gather slot's packed-state read plus one state write per row, main
     table once, the aux table once per aux pass and the caveat table once,
     scaled by the batch width (4 bytes per 32 lanes, twice that with the
-    definite and maybe planes)."""
+    definite and maybe planes).  The segment kernel's term is the
+    reference's too: one gather read and one segment write per edge slot
+    at 4 bytes per lane — float32 lanes, 32 times the packed words the
+    port's `edge_or` moves."""
+    if isinstance(graph, _SegmentGraph):
+        return int(graph.edge_src.shape[0]) * 2 * lanes * 4
     n, km = graph.dev_main.shape
     a_rows, ka = graph.dev_aux.shape
     rows = n * (km + 1) + graph.kernel.aux_passes * a_rows * (ka + 1)
@@ -456,6 +481,10 @@ class _EllGraph:
                                                       n_words, main, aux, cav)
         return dev, tel, self.kernel
 
+    def index_tuples(self, tuples: list) -> None:
+        """Positionless tables: nothing to index (the segment graph
+        records each tuple's edge positions here)."""
+
 
 def _scatter_dirty(dev: torch.Tensor, host: np.ndarray,
                    dirty: set) -> torch.Tensor:
@@ -465,9 +494,186 @@ def _scatter_dirty(dev: torch.Tensor, host: np.ndarray,
                                 _to_device(host[rows], dev.device))
 
 
+class _SegmentGraph:
+    """One compiled generation as flat padded edge arrays, swept by the
+    segment kernel (ops/spmv.py) — the reference's _SegmentGraph
+    (jax_endpoint.py:601-776).
+
+    Edge capacity is twice the compiled edge count, bucketed; padding
+    edges are (dead, dead).  A tuple's edges occupy positions recorded in
+    `positions`; a removal frees them (dead edges again) and an insert
+    pops free positions from the end of the free list.  Edits queue in
+    `_updates` (last write wins per position) and `flush` writes NEW
+    device arrays with `scatter_rows` (each array viewed as [cap, 1]), so
+    a captured `snapshot()` keeps the arrays it took.  `host_src` and
+    `host_dst` are the host copies of the device arrays.
+
+    The segment kernel has no MAYBE plane: it serves caveat-affected
+    pairs only when every caveat was decided at compile time.  A
+    context-decided caveated tuple deltas as an ordinary edge; an
+    undecidable one forces a rebuild (`add_cav_rel` is False), and the
+    rebuilt graph routes the affected pairs to the host oracle."""
+
+    def __init__(self, prog: GraphProgram, edge_endpoints,
+                 device: torch.device, num_iters: Optional[int] = None):
+        self.prog = prog
+        self._edge_endpoints = edge_endpoints
+        self.tri_state_capable = (prog.caveats_device_ok
+                                  and not len(prog.cav_src))
+        self.supports_cav_deltas = True
+        capacity = bucket(max(len(prog.edge_src) * 2, _MIN_EDGE_BUCKET))
+        self.host_src, self.host_dst = pad_edges(prog, capacity)
+        # copies: on the CPU `.to()` would alias the host arrays
+        self.edge_src = torch.from_numpy(self.host_src).to(device, copy=True)
+        self.edge_dst = torch.from_numpy(self.host_dst).to(device, copy=True)
+        e = len(prog.edge_src)
+        self.free: list = list(range(e, capacity))
+        # tuple key -> positions occupied by that tuple's edges
+        self.positions: dict = {}
+        self._updates: dict = {}   # pos -> (src, dst), until the flush
+        # (src, dst) -> compiled positions, consumed by index_tuples
+        self._pos_by_pair: dict = {}
+        for i, pair in enumerate(zip(prog.edge_src.tolist(),
+                                     prog.edge_dst.tolist())):
+            self._pos_by_pair.setdefault(pair, []).append(i)
+        self.kernel = SegmentKernelCache(prog, device, num_iters=num_iters)
+        self.stage_aux_flips = 0
+        self.ids_np: dict = {}
+        self.ids_np_published: set = set()
+        self.last_trace = None
+
+    def index_tuples(self, tuples: list) -> None:
+        """Record each loaded tuple's compiled edge positions (edges were
+        emitted in tuple order then sorted: match them by pair)."""
+        for rel in tuples:
+            pairs = self._edge_endpoints(self.prog, rel)
+            if not pairs:
+                continue
+            positions = []
+            for pair in pairs:
+                stack = self._pos_by_pair.get(pair)
+                if stack:
+                    positions.append(stack.pop())
+            self.positions[rel.key()] = positions
+        self._pos_by_pair = {}
+
+    # -- delta application ---------------------------------------------------
+
+    def remove_key(self, key: tuple) -> bool:
+        for pos in self.positions.pop(key, ()):
+            self._updates[pos] = (self.prog.dead_index, self.prog.dead_index)
+            self.free.append(pos)
+        return True
+
+    def add_rel(self, rel: Relationship) -> bool:
+        """Place a definite tuple's edges in free positions; False forces
+        a rebuild (an id outside the universe, a wildcard, no capacity)."""
+        key = rel.key()
+        if key in self.positions:
+            return True  # edges already present (re-touch)
+        pairs = self._edge_endpoints(self.prog, rel)
+        if pairs is None:
+            return False
+        positions = []
+        for (s, d) in pairs:
+            if not self.free:
+                return False
+            pos = self.free.pop()
+            self._updates[pos] = (s, d)
+            positions.append(pos)
+        self.positions[key] = positions
+        return True
+
+    # no MAYBE plane: removals are vacuous, insertions force a rebuild
+    def remove_cav_key(self, key: tuple) -> bool:
+        return True
+
+    def add_cav_rel(self, rel: Relationship) -> bool:
+        return False
+
+    def flush(self) -> bool:
+        """Write the queued edits into new device arrays, copy-on-write;
+        True when an array changed."""
+        if not self._updates:
+            return False
+        pos = np.fromiter(self._updates.keys(), np.int32,
+                          count=len(self._updates))
+        sd = np.asarray(list(self._updates.values()), np.int32).reshape(-1, 2)
+        self._updates = {}
+        self.host_src[pos] = sd[:, 0]
+        self.host_dst[pos] = sd[:, 1]
+        dev = self.edge_src.device
+        cap = self.host_src.shape[0]
+        rows = _to_device(pos, dev)
+        self.edge_src = kernels.scatter_rows(
+            self.edge_src.view(cap, 1), rows,
+            _to_device(sd[:, :1], dev)).view(cap)
+        self.edge_dst = kernels.scatter_rows(
+            self.edge_dst.view(cap, 1), rows,
+            _to_device(sd[:, 1:], dev)).view(cap)
+        return True
+
+    # -- queries ------------------------------------------------------------
+
+    def batch_bucket(self, n: int) -> int:
+        return batch_words(n) * 32
+
+    def snapshot(self) -> tuple:
+        """The current device edge arrays; a flush swaps in new ones and
+        never writes these."""
+        return (self.edge_src, self.edge_dst)
+
+    def run_checks3_device(self, q_arr, gather_idx, gather_col, snap=None):
+        """{0, 2} check values on the device."""
+        src, dst = snap if snap is not None else self.snapshot()
+        q_arr, gi, gc = _unify_check_buckets(q_arr, gather_idx, gather_col)
+        n_words = max(1, len(q_arr) // 32)
+        dev, tel = self.kernel.checks_device(q_arr, n_words, gi, gc, src, dst)
+        return dev, tel, self.kernel
+
+    def run_lookup_packed_T_device(self, offset: int, length: int, q_arr,
+                                   snap=None):
+        """Lookup words [W, length] on the device."""
+        src, dst = snap if snap is not None else self.snapshot()
+        n_words = max(1, len(q_arr) // 32)
+        dev, tel = self.kernel.lookup_packed_T_device(offset, length, q_arr,
+                                                      n_words, src, dst)
+        return dev, tel, self.kernel
+
+
+_GRAPH_KINDS = {"ell": _EllGraph, "segment": _SegmentGraph}
+
+# Background Leopard re-closes run here, never on the event loop's
+# executor that the query paths wait on (reference _rebuild_pool).
+_REBUILD_POOL = None
+_REBUILD_POOL_LOCK = threading.Lock()
+
+
+def _rebuild_pool():
+    global _REBUILD_POOL
+    if _REBUILD_POOL is None:
+        with _REBUILD_POOL_LOCK:
+            if _REBUILD_POOL is None:
+                _REBUILD_POOL = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=2, thread_name_prefix="authz-rebuild")
+    return _REBUILD_POOL
+
+
 class TorchEndpoint(PermissionsEndpoint):
+    """`kernel` picks the graph kind ("ell" or "segment"; default the
+    SPICEDB_TPU_KERNEL environment variable, else "ell").  `leopard` is
+    the port's form of the reference's LeopardIndex gate, read once here:
+    with it on, every generation builds the closure index."""
+
     def __init__(self, schema: sch.Schema, store: Optional[TupleStore] = None,
-                 num_iters: Optional[int] = None, device=None):
+                 num_iters: Optional[int] = None, device=None,
+                 kernel: Optional[str] = None, leopard: bool = True):
+        kind = kernel or os.environ.get("SPICEDB_TPU_KERNEL", "ell")
+        if kind not in _GRAPH_KINDS:
+            raise ValueError(f"unknown kernel {kind!r}; "
+                             f"expected one of {sorted(_GRAPH_KINDS)}")
+        self.kernel_kind = kind
+        self._graph_cls = _GRAPH_KINDS[kind]
         self.device = resolve_device(device)
         self.schema = schema
         self.store = store if store is not None else TupleStore()
@@ -475,7 +681,7 @@ class TorchEndpoint(PermissionsEndpoint):
         self._oracle = Evaluator(schema, self.store)
         self._num_iters = num_iters
         self._lock = threading.RLock()
-        self._graph: Optional[_EllGraph] = None
+        self._graph = None
         # store revision the device graph reflects (checked_at source):
         # a rebuild captures it with its snapshot, applied delta batches
         # advance it to their own revision
@@ -501,7 +707,14 @@ class TorchEndpoint(PermissionsEndpoint):
                       "oracle_residual_checks": 0, "placeholder_suppressed": 0,
                       "spare_assignments": 0, "spare_reclaims": 0,
                       "stage_aux_flips": 0, "stale_pair_marks": 0,
+                      "leopard_checks": 0, "leopard_lookups": 0,
+                      "leopard_recloses": 0,
                       "delta_apply_s": 0.0, "flush_s": 0.0}
+        # the Leopard closure index of the live generation (None when
+        # off), and the in-flight background re-closes
+        self._leopard_wanted = bool(leopard)
+        self._leopard: Optional[LeopardIndex] = None
+        self._leo_futures: list = []
         self.store.add_delta_listener(self._on_delta)
         self.store.add_reset_listener(self._on_reset)
 
@@ -524,7 +737,7 @@ class TorchEndpoint(PermissionsEndpoint):
         the first query."""
         self.graph()
 
-    def graph(self) -> "_EllGraph":
+    def graph(self):
         """The device graph reflecting the committed store (pending
         deltas applied, or the generation rebuilt, first)."""
         with self._lock:
@@ -590,7 +803,7 @@ class TorchEndpoint(PermissionsEndpoint):
             out.append((asrc, adst))
         return out
 
-    def _current_graph(self) -> _EllGraph:
+    def _current_graph(self):
         """The graph reflecting the committed store (under self._lock)."""
         self._apply_pending()
         return self._graph
@@ -629,13 +842,58 @@ class TorchEndpoint(PermissionsEndpoint):
         # uploads and launches; the kernels run on asynchronously)
         self.stats["delta_apply_s"] += t1 - t0
         self.stats["flush_s"] += time.perf_counter() - t1
+        self._kick_leopard_recloses()
+
+    def _kick_leopard_recloses(self) -> None:
+        """Submit background re-closes for delete-quarantined fragments
+        (under self._lock; reference jax_endpoint.py:2061-2083).  Until a
+        re-close lands the quarantined pairs are served by the sweep,
+        which the delta path kept correct."""
+        lp = self._leopard
+        if lp is None:
+            return
+        self._leo_futures = [f for f in self._leo_futures if not f.done()]
+        if self._leo_futures:
+            return  # one re-close wave at a time
+        for frag in lp.reclose_pending():
+            try:
+                fut = _rebuild_pool().submit(lp.reclose, frag)
+            except RuntimeError:
+                break  # executor shut down: the fragment stays quarantined
+            self._leo_futures.append(fut)
+            self.stats["leopard_recloses"] += 1
+
+    def wait_rebuilds(self, timeout: float = 30.0) -> bool:
+        """Quiesce background work: block until no Leopard re-close is in
+        flight or pending (kicking one if a quarantined fragment waits).
+        Rebuilds themselves are synchronous here (the reference's
+        AsyncRebuild-off branch), so they leave nothing to wait for.
+        Returns True when quiescent."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            with self._lock:
+                leo = [f for f in self._leo_futures if not f.done()]
+                if not leo and self._leopard is not None \
+                        and self._leopard.reclose_pending():
+                    self._kick_leopard_recloses()
+                    leo = [f for f in self._leo_futures if not f.done()]
+                if not leo:
+                    return True
+            try:
+                leo[0].result(timeout=max(0.01,
+                                          deadline - time.monotonic()))
+            except Exception:
+                pass  # a failed re-close leaves the fragment quarantined
+        with self._lock:
+            return not any(not f.done() for f in self._leo_futures)
 
     def _rebuild(self) -> None:
         """Full build from the store snapshot under the endpoint lock
         (reference _rebuild + _build_candidate + _install_candidate,
-        jax_endpoint.py:1511-1625, without Leopard and the background
-        machinery).  Queued deltas are subsumed by the snapshot: one that
-        lands after the drain is re-applied idempotently."""
+        jax_endpoint.py:1511-1625, without the background machinery),
+        the Leopard index included.  Queued deltas are subsumed by the
+        snapshot: one that lands after the drain is re-applied
+        idempotently."""
         self._drain_pending()
         self._graph_invalid = False
         prev = self._graph
@@ -657,7 +915,10 @@ class TorchEndpoint(PermissionsEndpoint):
             revision = self.store.revision
             caveated = self.store.caveated_relation_pairs()
             caveated_keys = self.store.caveated_keys() if caveated else set()
-            view = self.store.columnar_view()
+            # the segment graph records tuple positions: it compiles from
+            # the tuple list, as the reference's does
+            view = (self.store.columnar_view()
+                    if self._graph_cls is _EllGraph else None)
             tuples = None if view is not None else self.store.read(None)
         if view is not None:
             snap, rows, overlay = view
@@ -668,8 +929,11 @@ class TorchEndpoint(PermissionsEndpoint):
             prog = compile_graph(self.schema, tuples, extra_subject_ids=extra)
             self._reset_expiry(tuples)
         _evict_id_views(prev)
-        self._graph = _EllGraph(prog, self._edge_endpoints, self.device,
+        graph = self._graph_cls(prog, self._edge_endpoints, self.device,
                                 num_iters=self._num_iters)
+        if tuples is not None:
+            graph.index_tuples(tuples)
+        self._graph = graph
         self._graph_revision = revision
         self._spare_pool = spare_pool
         self._assigned_refs = {}
@@ -677,6 +941,13 @@ class TorchEndpoint(PermissionsEndpoint):
         self._caveat_affected = (caveat_affected_pairs(self.schema, caveated)
                                  if caveated else set())
         self._caveated_keys = caveated_keys
+        # the closure is seeded from the compiled edges, so it reflects
+        # exactly this generation's revision; the port has no workload
+        # plane, so no candidate pairs go first
+        self._leopard = (LeopardIndex.build(
+            self.schema, prog,
+            caveat_affected=frozenset(self._caveat_affected),
+            device=self.device) if self._leopard_wanted else None)
         self.stats["rebuilds"] += 1
 
     # -- expiry heap ----------------------------------------------------------
@@ -816,17 +1087,33 @@ class TorchEndpoint(PermissionsEndpoint):
         except Exception:
             return "unsupported"
 
+    def _leo_insert(self, graph, rel: Relationship, key: tuple) -> None:
+        """Mirror a definite tuple the graph just absorbed into the
+        Leopard closure."""
+        if self._leopard is not None:
+            self._leopard.apply_insert(key, self._edge_endpoints(graph.prog,
+                                                                 rel))
+
+    def _leo_remove(self, graph, key: tuple) -> None:
+        """Mirror a removal into the Leopard closure BEFORE a spare-row
+        reclaim renames the ids away: the closure's rows are keyed by the
+        compiled state index, which the rename re-purposes."""
+        if self._leopard is not None:
+            self._leopard.apply_remove(key, self._edge_endpoints(
+                graph.prog, _rel_from_key(key)))
+
     def _remove_applied(self, graph, key: tuple) -> bool:
-        """Take a removed or expired tuple out of the graph; False when
-        only a rebuild can.  A caveated tuple may sit in the definite
-        tables (context decided True) or in the MAYBE plane (undecidable):
-        both placements are cleared."""
+        """Take a removed or expired tuple out of the graph and the
+        Leopard closure; False when only a rebuild can.  A caveated tuple
+        may sit in the definite tables (context decided True) or in the
+        MAYBE plane (undecidable): both placements are cleared."""
         if key in self._caveated_keys:
             if not graph.supports_cav_deltas:
                 return False
             graph.remove_cav_key(key)
             self._caveated_keys.discard(key)
         graph.remove_key(key)
+        self._leo_remove(graph, key)
         self._note_key_removed(graph, key)
         return True
 
@@ -843,15 +1130,22 @@ class TorchEndpoint(PermissionsEndpoint):
         graph.remove_cav_key(key)
         self._caveated_keys.add(key)
         if value is True:
-            return graph.add_rel(rel)
-        if value is None:
-            return graph.add_cav_rel(rel)
-        return True  # decided False: no edges at all
+            ok = graph.add_rel(rel)
+        elif value is None:
+            ok = graph.add_cav_rel(rel)
+        else:
+            ok = True  # decided False: no edges at all
+        if ok and self._leopard is not None:
+            # a caveated tuple now lives on this relation: a closure bit
+            # cannot represent CONDITIONAL, so its fragments retire for
+            # the generation (the next build skips them as caveat-affected)
+            self._leopard.retire_relation((rel.resource.type, rel.relation))
+        return ok
 
     def _apply_batches(self, batches: list) -> tuple:
         """Apply drained delta batches and due expirations to the host
-        tables (under self._lock; reference jax_endpoint.py:1865-2001,
-        without the Leopard hooks).  Returns (stale pairs, applied
+        tables and the Leopard closure (under self._lock; reference
+        jax_endpoint.py:1865-2001).  Returns (stale pairs, applied
         revision): an update the tables cannot absorb adds its affected
         (type, permission) closure to the stale set and application goes
         on; the caller rebuilds when the set is non-empty, and flushes
@@ -879,16 +1173,19 @@ class TorchEndpoint(PermissionsEndpoint):
                     continue
                 if u.rel.caveat is not None:
                     ok = self._touch_caveated(graph, u.rel, key)
-                elif key in self._caveated_keys:
-                    # a caveated tuple replaced by a definite one: undo its
-                    # MAYBE-plane placement first
-                    ok = graph.supports_cav_deltas
-                    if ok:
-                        graph.remove_cav_key(key)
-                        self._caveated_keys.discard(key)
-                        ok = graph.add_rel(u.rel)
                 else:
-                    ok = graph.add_rel(u.rel)
+                    if key in self._caveated_keys:
+                        # a caveated tuple replaced by a definite one:
+                        # undo its MAYBE-plane placement first
+                        ok = graph.supports_cav_deltas
+                        if ok:
+                            graph.remove_cav_key(key)
+                            self._caveated_keys.discard(key)
+                            ok = graph.add_rel(u.rel)
+                    else:
+                        ok = graph.add_rel(u.rel)
+                    if ok:
+                        self._leo_insert(graph, u.rel, key)
                 if not ok:
                     stale |= self._stale_closure(rt, relation)
                     continue
@@ -962,6 +1259,16 @@ class TorchEndpoint(PermissionsEndpoint):
             results: list[Optional[tuple]] = [None] * len(reqs)
             oracle_rows: list[int] = []
             tri = graph.tri_state_capable
+            # Leopard consult: rows whose (type, permission) has a live
+            # closure fragment answer with one bit gather of its plane
+            # instead of the sweep; views are immutable snapshots, so the
+            # gather runs outside the lock like the kernel dispatch.  The
+            # fragment is looked up once per pair and the closure columns
+            # once per fragment (vectorized), so a batch on pairs the
+            # index does not hold pays one dict probe per row.
+            leo = self._leopard
+            leo_frag: dict = {}   # pair -> (fragment, slot offset) | None
+            leo_cand: dict = {}   # pair -> ([i], [query col], [state idx])
             for i, r in enumerate(reqs):
                 if (not tri and (r.resource.type, r.permission)
                         in self._caveat_affected):
@@ -984,14 +1291,43 @@ class TorchEndpoint(PermissionsEndpoint):
                         # unknown object: no tuples, the kernel answer is 0
                         results[i] = (0, rev)
                     continue
+                if leo is not None:
+                    pair = (r.resource.type, r.permission)
+                    hit = leo_frag.get(pair, False)
+                    if hit is False:
+                        hit = leo_frag[pair] = leo.check_fragment(*pair)
+                    if hit is not None:
+                        cand = leo_cand.setdefault(pair, ([], [], []))
+                        cand[0].append(i)
+                        cand[1].append(cols[r.subject])
+                        cand[2].append(state_idx)
+                        continue
                 gather_idx.append(state_idx)
                 gather_col.append(cols[r.subject])
                 kernel_rows.append(i)
+            leo_rows: list = []   # (view, [i], rows, cols) per fragment
+            for pair, (idx, qcols, sidx) in leo_cand.items():
+                frag, off = leo_frag[pair]
+                lcol = frag.col_of[q_arr[np.asarray(qcols, np.int64)]]
+                ok = lcol >= 0
+                for j in np.nonzero(~ok)[0].tolist():
+                    # the subject has no closure column: the sweep answers
+                    gather_idx.append(sidx[j])
+                    gather_col.append(qcols[j])
+                    kernel_rows.append(idx[j])
+                if ok.any():
+                    leo_rows.append((
+                        frag.view, np.asarray(idx)[ok].tolist(),
+                        (np.asarray(sidx, np.int64)[ok] - off).astype(
+                            np.int32), lcol[ok].astype(np.int32)))
+                    self.stats["leopard_checks"] += int(ok.sum())
             if kernel_rows:
                 snap = graph.snapshot()
                 self.stats["kernel_calls"] += 1
         ctx = {"reqs": reqs, "results": results, "kernel_rows": kernel_rows,
                "oracle_rows": oracle_rows, "rev": rev}
+        if leo_rows:
+            ctx["leopard"] = self._leo_check_launch(leo_rows)
         if kernel_rows:
             dev, tel, _ = graph.run_checks3_device(q_arr, gather_idx,
                                                    gather_col, snap=snap)
@@ -999,10 +1335,27 @@ class TorchEndpoint(PermissionsEndpoint):
             ctx["out"] = dev
         return ctx
 
+    def _leo_check_launch(self, leo_rows: list) -> list:
+        """Launch one `check_gather` per closure plane over its (row, col)
+        pairs — `((plane[row, col // 32] >> col % 32) & 1) * 2` is exactly
+        the reference's `_leo_check_fill` (fragment closures never carry
+        CONDITIONAL).  Returns [(request rows, device values)] for the
+        finish to read back."""
+        out = []
+        for (view, idx, rows, cls) in leo_rows:
+            plane = view[0]
+            vals = kernels.check_gather(plane, _to_device(rows, plane.device),
+                                        _to_device(cls, plane.device))
+            out.append((idx, vals))
+        return out
+
     def _check_batch_finish(self, ctx: dict) -> list:
-        """Phase 2: read the kernel result back, evaluate oracle rows on
-        the live store, assemble CheckResults."""
+        """Phase 2: read the kernel and closure-plane results back,
+        evaluate oracle rows on the live store, assemble CheckResults."""
         results = ctx["results"]
+        for rows, vals in ctx.get("leopard", ()):
+            for i, v in zip(rows, vals.cpu().tolist()):
+                results[i] = (v, ctx["rev"])
         if "out" in ctx:
             out = ctx["out"].cpu().numpy()
             for j, row in enumerate(ctx["kernel_rows"]):
@@ -1055,23 +1408,66 @@ class TorchEndpoint(PermissionsEndpoint):
             snap = graph.snapshot()
             ids, mask = _object_ids_np(graph, resource_type)
             ph = graph.prog.object_index[resource_type].get(PHANTOM_ID)
-            self.stats["kernel_calls"] += 1
+            # Leopard consult: a live fragment with a closure column for
+            # EVERY known subject answers the whole batch from its plane
+            # (unknown subjects go to the oracle at extraction either way)
+            leo = None
+            frag = (self._leopard.lookup_frag(resource_type, permission)
+                    if self._leopard is not None else None)
+            if frag is not None:
+                lcols: Optional[dict] = {}
+                for s, col in cols.items():
+                    lcol = int(frag.col_of[int(q_arr[col])])
+                    if lcol < 0:
+                        lcols = None
+                        break
+                    lcols[col] = lcol
+                if lcols is not None:
+                    leo = (frag.view, lcols)
+                    self.stats["leopard_lookups"] += len(lcols)
+            if leo is None:
+                self.stats["kernel_calls"] += 1
+        ctx.update(cols=cols, unknown=unknown, ids=ids, mask=mask, ph=ph)
+        if leo is not None:
+            # the batch's distinct closure word columns, one launch
+            (plane, plane_rows), lcols = leo
+            words = sorted({lcol // 32 for lcol in lcols.values()})
+            dev = (kernels.word_cols_T(plane, plane_rows,
+                                       _to_device(np.asarray(words, np.int32),
+                                                  plane.device))
+                   if words else None)
+            ctx["leopard"] = (dev, {w: k for k, w in enumerate(words)},
+                              lcols)
+            return ctx
         dev, tel, _ = graph.run_lookup_packed_T_device(rng[0], rng[1], q_arr,
                                                        snap=snap)
         graph.last_trace = tel
-        ctx.update(dev=dev, cols=cols, unknown=unknown, ids=ids, mask=mask,
-                   ph=ph)
+        ctx["dev"] = dev
         return ctx
 
     def _lookup_batch_extract(self, ctx: dict) -> list:
-        """Phase 2: read the [W, L] words back and materialize per-subject
-        id lists (columns shared by several subjects are decoded once)."""
+        """Phase 2: read the [W, L] words (or the closure plane's word
+        columns) back and materialize per-subject id lists (columns
+        shared by several subjects are decoded once)."""
         rt, perm = ctx["rt"], ctx["perm"]
         if ctx.get("all_oracle"):
             return [AnnotatedIds(self._oracle.lookup_resources(rt, perm, s),
                                  source="oracle")
                     for s in ctx["subjects"]]
-        packed_T = ctx["dev"].cpu().numpy().view(np.uint32)   # [W, L]
+        if "leopard" in ctx:
+            dev, word_row, lcols = ctx["leopard"]
+            word_cols = (dev.cpu().numpy().view(np.uint32)
+                         if dev is not None else None)   # [K, plane rows]
+
+            def col_indices(col):
+                lcol = lcols[col]
+                return _word_col_indices(word_cols[word_row[lcol // 32]],
+                                         lcol % 32)
+        else:
+            packed_T = ctx["dev"].cpu().numpy().view(np.uint32)   # [W, L]
+
+            def col_indices(col):
+                return _word_col_indices(packed_T[col // 32], col % 32)
         ids, mask, ph = ctx["ids"], ctx["mask"], ctx["ph"]
         cols, unknown = ctx["cols"], ctx["unknown"]
         per_col: dict = {}
@@ -1085,9 +1481,7 @@ class TorchEndpoint(PermissionsEndpoint):
             col = cols[s]
             lst = per_col.get(col)
             if lst is None:
-                got, bad_n = _ids_for(
-                    ids, _word_col_indices(packed_T[col // 32], col % 32),
-                    ph, mask)
+                got, bad_n = _ids_for(ids, col_indices(col), ph, mask)
                 if bad_n:
                     # an internal placeholder reached the result: never
                     # emit it; answer this column from the oracle

@@ -63,6 +63,45 @@ def test_port_runs_with_jax_blocked_and_imports_no_reference():
         assert res["default"] == "DeviceUnavailableError"
 
 
+_PROBE_SLICE4 = r"""
+import json, sys
+sys.modules["jax"] = None          # any `import jax` now raises
+import asyncio
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import (
+    Bootstrap, create_endpoint)
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import SubjectRef
+bs = Bootstrap(
+    "definition user {}\ndefinition group { relation member: user | "
+    "group#member }\ndefinition doc { relation viewer: group#member | user"
+    "\npermission view = viewer }",
+    "group:g0#member@group:g1#member\ngroup:g1#member@user:ann\n"
+    "doc:d1#viewer@group:g0#member")
+out = {}
+for kernel in ("ell", "segment"):
+    ep = create_endpoint("torch://?device=cpu", bs, kernel=kernel)
+    ids = asyncio.run(ep.lookup_resources("doc", "view",
+                                          SubjectRef("user", "ann")))
+    out[kernel] = [list(ids), ep._leopard.status_map()["doc#view"],
+                   ep.stats["leopard_lookups"]]
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None)
+print(json.dumps({"out": out, "modules": loaded}))
+"""
+
+
+def test_index_and_segment_kernel_run_with_jax_blocked():
+    """The slice-4 modules (ops/leopard.py, ops/spmv.py) load and serve
+    with jax unimportable, and import nothing of the reference."""
+    out = subprocess.run([sys.executable, "-c", _PROBE_SLICE4], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    for kernel in ("ell", "segment"):
+        assert res["out"][kernel] == [["d1"], "indexed", 1]
+    assert not [m for m in res["modules"] if _is_forbidden(m)]
+    assert {"spicedb_kubeapi_proxy_tpu_torch.ops.leopard",
+            "spicedb_kubeapi_proxy_tpu_torch.ops.spmv"} <= set(res["modules"])
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), str(path))
     for node in ast.walk(tree):

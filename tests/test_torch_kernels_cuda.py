@@ -240,3 +240,113 @@ def test_every_plane_sweep_step_matches_its_twin(lanes):
     words, tel = g.run_lookup_packed_T_device(*pods, q_arr)[:2]
     words_c, tel_c = g_cpu.run_lookup_packed_T_device(*pods, q_arr)[:2]
     assert torch.equal(words.cpu(), words_c) and np.array_equal(tel, tel_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 2, 8])
+def test_edge_or_matches_its_twin(w):
+    """The segment sweep's edge pass on random states: heavy duplicate
+    destinations, dead padding edges on the all-zero dead row, bit 31 live,
+    W = 1, 2 and 8 words."""
+    _needs_card()
+    rng = np.random.default_rng(w)
+    n, e = 20_000, 150_000
+    dead = n - 1
+    x = _rand(rng, (n, w))
+    x[dead] = 0
+    y = _rand(rng, (n, w))
+    y[dead] = 0
+    src = rng.integers(0, dead, e).astype(np.int32)
+    dst = rng.integers(0, 500, e).astype(np.int32)
+    src[-50_000:] = dst[-50_000:] = dead
+    src_t, dst_t = torch.from_numpy(src).cuda(), torch.from_numpy(dst).cuda()
+    kernels.reset_launches()
+    a, b = y.clone(), y.clone()
+    kernels.edge_or(a, x, src_t, dst_t)
+    reference.edge_or(b, x, src_t, dst_t)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and not torch.equal(a, y)
+    assert bool((a < 0).any()) and not bool(a[dead].any())
+    assert kernels.LAUNCHES["edge_or"] == 1
+    with pytest.raises(kernels.KernelError):
+        kernels.edge_or(x, x, src_t, dst_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 1_000, 5_013])
+def test_word_cols_T_matches_its_twin(rows):
+    """Closure-plane word columns: repeated words, a row count that is no
+    multiple of the block, a plane taller than the rows read."""
+    _needs_card()
+    rng = np.random.default_rng(rows)
+    plane = _rand(rng, (rows + 7, 63))
+    kernels.reset_launches()
+    for words in ([0, 62, 5, 5, 31], list(range(63)), [7]):
+        wt = torch.tensor(words, dtype=torch.int32, device="cuda")
+        got = kernels.word_cols_T(plane, rows, wt)
+        assert got.shape == (len(words), rows) and got.is_contiguous()
+        assert torch.equal(got, reference.word_cols_T(plane, rows, wt))
+    assert kernels.LAUNCHES["word_cols_T"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [8, 33, 256])
+def test_every_segment_sweep_step_matches_its_twin(lanes):
+    """The segment sweep of a card graph, step by step, against the
+    twins; then the card's and the CPU's segment endpoints agree."""
+    _needs_card()
+    schema, rels = _workload()
+    bs = Bootstrap(schema, "\n".join(rels))
+    g_cpu, g = [create_endpoint(f"torch://?device={d}", bs,
+                                kernel="segment", leopard=False).graph()
+                for d in ("cpu", "cuda")]
+    kc, prog = g.kernel, g.prog
+    src, dst = g.snapshot()
+    rng = np.random.default_rng(lanes)
+    w = 1 << (-(-lanes // 32) - 1).bit_length()
+    q = np.full(32 * w, prog.dead_index, np.int32)
+    q[:lanes] = rng.integers(0, prog.dead_index, lanes)
+    qd = torch.from_numpy(q).cuda()
+    x0, live = kc.init_state(qd, w)
+    x = x0.clone()
+    for _ in range(3):
+        a, b = torch.empty_like(x), torch.empty_like(x)
+        for step in kc.sweep_steps(src, dst):
+            kc.run_step(step, a, x, x0, live, kernels)
+            kc.run_step(step, b, x, x0, live, reference)
+            torch.cuda.synchronize()
+            assert torch.equal(a, b), step[0]
+        assert kernels.sweep_delta(a, x, prog.dead_index).tolist() == \
+            reference.sweep_delta(b, x, prog.dead_index).tolist()
+        x = a
+    off, length = prog.slot_range("pod", "view")
+    words, tel = g.run_lookup_packed_T_device(off, length, q)[:2]
+    words_c, tel_c = g_cpu.run_lookup_packed_T_device(off, length, q)[:2]
+    assert torch.equal(words.cpu(), words_c) and np.array_equal(tel, tel_c)
+
+
+@pytest.mark.cuda
+def test_card_and_cpu_agree_on_the_leopard_plane():
+    """Group-explosion at a small size: the card endpoint serves from its
+    closure plane and answers as the CPU one does."""
+    _needs_card()
+    import asyncio
+
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        CheckRequest, ObjectRef, SubjectRef)
+    w = workloads.group_explosion(n_groups=800, n_users=64, n_docs=200)
+    bs = Bootstrap(w.schema_text, "\n".join(w.relationships))
+    eps = [create_endpoint(f"torch://?device={d}", bs) for d in ("cpu",
+                                                                  "cuda")]
+    subs = [SubjectRef("user", u) for u in w.subjects]
+    reqs = [CheckRequest(ObjectRef("doc", f"d{i}"), "view", s)
+            for i in range(200) for s in subs[:8]]
+    kernels.reset_launches()
+    out = [(asyncio.run(ep.lookup_resources_batch("doc", "view", subs)),
+            [c.allowed for c in asyncio.run(ep.check_bulk_permissions(reqs))])
+           for ep in eps]
+    assert [sorted(x) for x in out[0][0]] == [sorted(x) for x in out[1][0]]
+    assert out[0][1] == out[1][1] and any(out[1][1])
+    assert kernels.LAUNCHES["word_cols_T"] == 1
+    assert kernels.LAUNCHES["check_gather"] == 1
+    assert kernels.LAUNCHES["sweep_delta"] == 0
