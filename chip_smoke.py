@@ -72,9 +72,32 @@ deployment (`models/workloads.py multitenant_1m()` with its defaults:
    after which `wait_rebuilds()` leaves `doc#view` indexed and A serving
    from the plane again.
 
-Phases run in the order 1-9, 11, 10, 12, and each phase's seconds are
-logged.  Any failed phase raises and the script exits non-zero.  The second-to-
-last line is the kernel table as JSON, the last line
+13. the mesh path: a 2 x 4 (data x graph) mesh over the visible cards
+   (`cuda:0` repeated when fewer than eight are visible), each phase run
+   while the deployment it reuses is alive.  (a) `TorchEndpoint(mesh=...)`
+   on the phase-3 store: its 256-lane lookup and 10,000-pair check
+   batches must answer as the single-device endpoint, every per-shard
+   kernel must have launched in them, the all_gathers must move
+   `comm_model`'s bytes per sweep, the seed and two sweeps must equal the
+   twins shard by shard and a whole batch on the twins (on the card
+   tensors) the kernels'; then 4 rounds of phase 9's churn: no rebuild,
+   every table block of every data replica equal to the host table
+   after each flush, `scatter_rows` launched by the sharded flush, answers
+   equal the single-device endpoint's.  (b) `ShardedKernel` (the
+   edge-sharded segment sweep) on the segment endpoint's program and
+   edges: answers equal that endpoint's, `or_combine` equal its twin on a
+   real sweep's partials.  (c) the caveated deployment of phase 10 on a
+   mesh endpoint: tri-state answers (CONDITIONAL included) equal the
+   single-device endpoint's, nothing routed to the oracle, the block-form
+   `cav_gather_or` launched and the sweep equal to the twins.  (d)
+   group-explosion of phase 12 on a mesh endpoint with the index on:
+   `doc#view` indexed in one plane block per graph shard, reads served
+   from it with no sweep kernel, answers equal A's.
+
+Phases run in the order 1-9, 11, 13a-b, 10, 13c, 12, 13d, and each
+phase's seconds are logged.  Any failed phase raises and the script
+exits non-zero.  The second-to-last line is the kernel table as JSON,
+the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits 2 and prints no result.
 """
@@ -129,6 +152,10 @@ SEG_ROUNDS = 4
 LEO_ROUNDS = 4
 LEO_ORACLE_LOOKUPS = 4
 LEO_ORACLE_CHECKS = 500
+# phase 13, the mesh path: a 2 x 4 (data x graph) mesh on every deployment
+# above; churn rounds of phase 9's generator on its multitenant-1m endpoint
+MESH_DATA, MESH_GRAPH = 2, 4
+MESH_ROUNDS = 4
 UNDECIDED = '[caveat:within_quota:{"used": 1}]'
 DECIDED = ('[caveat:within_quota:{"used": 1, "quota": 5}]',
            '[caveat:within_quota:{"used": 9, "quota": 5}]')
@@ -146,6 +173,7 @@ REPLACES = {
     "check_gather3": "spicedb_kubeapi_proxy_tpu/ops/ell.py:853",
     "edge_or": "spicedb_kubeapi_proxy_tpu/ops/spmv.py:130",
     "word_cols_T": "spicedb_kubeapi_proxy_tpu/ops/jax_endpoint.py:2970",
+    "or_combine": "spicedb_kubeapi_proxy_tpu/parallel/sharding.py:69",
 }
 # further TPU kernels a ported kernel also stands for (PERF.md rows 9-11)
 REPLACES_ALSO = {
@@ -154,15 +182,27 @@ REPLACES_ALSO = {
     "check_gather": "spicedb_kubeapi_proxy_tpu/ops/jax_endpoint.py:2345 "
                     "(_leo_check_fill, the Leopard check route)",
     "scatter_rows": "spicedb_kubeapi_proxy_tpu/ops/jax_endpoint.py:690 "
-                    "(_SegmentGraph.flush)",
+                    "(_SegmentGraph.flush), spicedb_kubeapi_proxy_tpu/"
+                    "parallel/sharding.py:396 (_scatter_rows, per table "
+                    "block)",
+    "ell_gather_or": "spicedb_kubeapi_proxy_tpu/parallel/sharding.py:437 "
+                     "(_evaluate_shard_fn, the aux and main gathers of "
+                     "each shard's block)",
+    "cav_gather_or": "spicedb_kubeapi_proxy_tpu/parallel/sharding.py:499 "
+                     "(the caveat block of each shard)",
 }
+REPLACES_ALSO["edge_or"] += (", spicedb_kubeapi_proxy_tpu/parallel/"
+                             "sharding.py:63 (make_sharded_evaluate, each "
+                             "edge shard)")
 # the kernels of the definite read path (phases 4-5) and of the caveat
 # path (phase 10: definite checks are check_gather3's there)
 READ_KERNELS = ("ell_gather_or", "perm_program", "sweep_delta",
                 "seed_bitplanes", "check_gather", "lookup_T")
 CAVEAT_KERNELS = tuple(k for k in REPLACES
                        if k not in ("check_gather", "edge_or",
-                                    "word_cols_T"))
+                                    "word_cols_T", "or_combine"))
+# the per-shard kernels of the mesh read path (phase 13a)
+MESH_KERNELS = READ_KERNELS
 # the segment path's kernels (phase 11; the init step is a plain copy of
 # the seed when the program has no wildcard term, as multitenant-1m's)
 SEGMENT_KERNELS = ("seed_bitplanes", "edge_or", "perm_program",
@@ -1260,7 +1300,7 @@ def caveats(timer, peak, smi_line, device: str = "cuda",
     log(f"phase 10 wall time {time.perf_counter() - t_phase:.1f} s")
     for name, r in rows.items():
         r["launches"] = launches[name]
-    return rows
+    return rows, ep, w
 
 
 def _seg_rows(rows, name, err, ms, plain_ms, nbytes, ops, peak,
@@ -1638,7 +1678,7 @@ def segment_path(ep, w, timer, peak, smi_line, device: str = "cuda",
                             "ms": s_ms, "plain_ms": s_plain,
                             "bound_ms": s_bytes / peak * 1e3,
                             "bound_by": "bytes", "library_ms": s_lib}
-    return rows, summary
+    return rows, summary, seg
 
 
 def _leo_pairs(w, rng, n: int, depth: int = 8) -> list:
@@ -1706,7 +1746,7 @@ def leopard_path(timer, peak, smi_line, mt_statuses: dict,
     frag = lp.lookup_frag("doc", "view")
     if statuses.get("doc#view") != "indexed" or frag is None:
         raise AssertionError(f"doc#view is not indexed: {statuses}")
-    plane = frag.plane
+    plane = frag.plane[0]
     n_users = len(w.subjects)
     log(f"group-explosion: {len(w.relationships)} tuples, generated and "
         f"loaded in {t1 - t0:.3f} s; build A (index on) {t2 - t1:.3f} s, B "
@@ -1982,7 +2022,754 @@ def leopard_path(timer, peak, smi_line, mt_statuses: dict,
     log(f"phase 12 wall time {time.perf_counter() - t_phase:.1f} s")
     for name, r in rows.items():
         r["launches"] = a_launch[name]
-    return rows
+    return rows, a, w
+
+
+# -- phase 13, the mesh path --------------------------------------------------
+
+def make_smoke_mesh(device: str):
+    """The 2 x 4 mesh of phase 13 over the visible cards, cuda:0 repeated
+    when fewer than eight are visible (every shard on the CPU for a CPU
+    rehearsal)."""
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.parallel.sharding import make_mesh
+    n = MESH_DATA * MESH_GRAPH
+    if device == "cuda":
+        visible = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+        devices = visible[:n] + [torch.device("cuda", 0)] * (n - len(
+            visible[:n]))
+    else:
+        devices = [torch.device(device)] * n
+    mesh = make_mesh(devices, data=MESH_DATA, graph=MESH_GRAPH)
+    log(f"mesh placement: {mesh}")
+    return mesh
+
+
+def _mesh_endpoint(store, schema_text: str, mesh, device: str, **kw):
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import (
+        Bootstrap, create_endpoint)
+    url = "torch://" if device == "cuda" else f"torch://?device={device}"
+    return create_endpoint(url, Bootstrap(schema_text, ""), store=store,
+                           mesh=mesh, **kw)
+
+
+def _mesh_tables_match(graph) -> None:
+    """Every block of every data replica equals the host table, remapped
+    into the padded row space."""
+    import numpy as np
+    import torch
+    want = graph.kernel.pad_tables(graph.host_main, graph.host_aux,
+                                   graph.host_cav)
+    for blocks, host in zip(graph.snapshot(), want):
+        for d, row in enumerate(blocks):
+            got = torch.cat([b.cpu() for b in row]).numpy()
+            if not np.array_equal(got, host):
+                raise AssertionError(f"data replica {d}'s table blocks "
+                                     "differ from the host table")
+
+
+def _mesh_gathers(kern, cur, n_words: int) -> None:
+    """The all_gathers of one sharded sweep, alone (for their time)."""
+    from spicedb_kubeapi_proxy_tpu_torch.parallel.collectives import (
+        all_gather_rows)
+    half = n_words // kern.mesh.shape["data"]
+    for _ in range(kern.aux_passes):
+        for reps in cur:
+            all_gather_rows(reps, kern.n_pad, kern.rows)
+    for reps in cur:
+        all_gather_rows(reps, 0, kern.n_pad)
+    if kern.planes:
+        for reps in cur:
+            all_gather_rows(reps, 0, kern.rows, cols=(half, 2 * half))
+
+
+def mesh_sweep(kern, q_arr, n_words: int, tables: tuple, timer, peak,
+               label: str) -> dict:
+    """A sharded batch's kernels against their twins on the card: the
+    seed, two sweeps step by step (every shard compared after each), the
+    deltas; then the whole batch again with the twins on the same card
+    tensors (per-shard state, trace and words equal).  Then one sweep's
+    time, kernels and copies apart, and its bound.  Returns the sweep's
+    numbers."""
+    import numpy as np
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.ops.kernels import reference
+    from spicedb_kubeapi_proxy_tpu_torch.parallel import collectives
+
+    dead = kern.prog.dead_index
+    wl = n_words // kern.mesh.shape["data"]
+    width = kern.width(n_words)
+    word = 4 * width
+    ar_k = kern._alloc_arenas(n_words)
+    ar_t = kern._alloc_arenas(n_words)
+    x0, live = kern.seed(q_arr, n_words, ar_k)
+    x0_t, _ = kern.seed(q_arr, n_words, ar_t, reference)
+    err = max(_diff(a, b) for ra, rb in zip(x0, x0_t) for a, b in zip(ra, rb))
+    x = [[a.clone() for a in row] for row in x0]
+    for sweep in range(2):
+        cur_k = [[a.clone() for a in row] for row in x]
+        cur_t = [[a.clone() for a in row] for row in x]
+        kern.step(cur_k, x, x0, live, tables, n_words)
+        kern.step(cur_t, x, x0, live, tables, n_words, reference)
+        d_k = [[kernels.sweep_delta(c, a, dead) for c, a in zip(cr, xr)]
+               for cr, xr in zip(cur_k, x)]
+        d_t = [[reference.sweep_delta(c, a, dead) for c, a in zip(cr, xr)]
+               for cr, xr in zip(cur_t, x)]
+        err = max([err] + [_diff(a, b) for ra, rb in zip(cur_k, cur_t)
+                           for a, b in zip(ra, rb)]
+                  + [_diff(a.cpu(), b) for ra, rb in zip(d_k, d_t)
+                     for a, b in zip(ra, rb)])
+        if err:
+            raise AssertionError(f"{label}: a per-shard kernel differs from "
+                                 f"its twin in sweep {sweep}")
+        x = cur_k
+    # the whole batch, kernels and twins, on the card
+    t0 = time.perf_counter()
+    xs_k, tr_k = kern.evaluate(q_arr, n_words, tables, ar_k)
+    xs_t, tr_t = kern.evaluate(q_arr, n_words, tables, ar_t, reference)
+    off_len = (0, min(kern.prog.state_size, 4096))
+    w_k = kern.finish_lookup(xs_k, *off_len, n_words)
+    w_t = kern.finish_lookup(xs_t, *off_len, n_words, reference)
+    err = max([_diff(w_k, w_t)] + [_diff(a, b) for ra, rb in zip(xs_k, xs_t)
+                                   for a, b in zip(ra, rb)])
+    if err or not np.array_equal(tr_k, tr_t):
+        raise AssertionError(f"{label}: the sharded batch on the twins "
+                             "differs from the kernels'")
+    log(f"{label}: seed, 2 sweeps step by step on {kern.mesh.size} shards "
+        f"and the whole batch on the twins (state of every shard, trace "
+        f"{tr_k[:1 + tr_k[0]].tolist()}, lookup words): bit-identical "
+        f"({time.perf_counter() - t0:.1f} s)")
+    # one sweep's time on the state after two sweeps
+    cur = [[a.clone() for a in row] for row in x]
+    t_copy = timer.ms(lambda: [c.copy_(a) for cr, xr in zip(cur, x)
+                               for c, a in zip(cr, xr)])
+    t_step = timer.ms(lambda: kern.step(cur, x, x0, live, tables, n_words))
+    collectives.reset_collectives()
+    t_gath = timer.ms(lambda: _mesh_gathers(kern, cur, n_words), reps=1)
+    moved = collectives.COLLECTIVES["all_gather_rows"]["bytes"] // 2
+    t_delta = timer.ms(lambda: [kernels.sweep_delta(c, a, dead)
+                                for cr, xr in zip(cur, x)
+                                for c, a in zip(cr, xr)])
+    t_plain = timer.ms(lambda: kern.step(cur, x, x0, live, tables, n_words,
+                                         reference), reps=2)
+    # the bound: what each shard's kernels must read and write (its table
+    # blocks, each distinct state row its gathers read, its rows' seeds
+    # and outputs, the permission ops on its replica, the delta), plus
+    # the copies (each byte read and written once)
+    nbytes = 0
+    main, aux = tables[0], tables[1]
+    for d, row in enumerate(main):
+        for g, blk in enumerate(row):
+            n, k = blk.shape
+            nbytes += (n * k * 4 + int(torch.unique(blk).numel()) * word
+                       + 2 * n * word)
+            a_blk = aux[d][g]
+            na, ka = a_blk.shape
+            nbytes += kern.aux_passes * (
+                na * ka * 4 + int(torch.unique(a_blk).numel()) * word
+                + na * word)
+            if kern.planes:
+                c_blk = tables[2][d][g]
+                nc, kc_ = c_blk.shape
+                nbytes += (nc * kc_ * 4 + int(torch.unique(c_blk).numel())
+                           * 4 * wl + 2 * nc * 4 * wl)
+            for code, _, length, _ in kern._plans[blk.device][2]:
+                n_read = int((code[0::2] == 0).sum())
+                nbytes += code.numel() * 4 + length * word * (n_read + 2)
+            nbytes += 2 * kern.rows * word
+    nbytes += 2 * moved
+    out = {"copy_ms": t_copy, "step_ms": t_step, "gather_copies_ms": t_gath,
+           "kernels_ms": t_step - t_gath + t_delta, "delta_ms": t_delta,
+           "sweep_ms": t_copy + t_step + t_delta, "plain_step_ms": t_plain,
+           "bound_ms": nbytes / peak * 1e3, "bytes": nbytes,
+           "copy_bytes": moved, "trace": tr_k[:1 + tr_k[0]].tolist(),
+           "max_abs_err": err}
+    log(f"{label}: one sweep on {kern.mesh.size} shards: replica input "
+        f"copies {t_copy:.6f} ms, step {t_step:.6f} ms (all_gathers alone "
+        f"{t_gath:.6f} ms, {moved} bytes), deltas {t_delta:.6f} ms; kernels "
+        f"{out['kernels_ms']:.6f} ms, whole sweep {out['sweep_ms']:.6f} ms; "
+        f"bound {out['bound_ms']:.6f} ms over {nbytes} bytes; the step on "
+        f"the twins {t_plain:.6f} ms")
+    return out
+
+
+def mesh_multitenant(ep, w, mesh, timer, peak, smi_line, device: str = "cuda",
+                     n_rounds: int = MESH_ROUNDS) -> tuple:
+    """Phase 13a: a 2 x 4 mesh endpoint on the phase-3 store at
+    multitenant-1m.  Returns (mesh endpoint, numbers)."""
+    import numpy as np
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.ops.kernels import reference
+    from spicedb_kubeapi_proxy_tpu_torch.ops.torch_endpoint import (
+        _ShardedEllGraph)
+    from spicedb_kubeapi_proxy_tpu_torch.parallel import collectives
+    from spicedb_kubeapi_proxy_tpu_torch.parallel.sharding import comm_model
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        CheckRequest, ObjectRef, RelationshipUpdate, SubjectRef, UpdateOp,
+        parse_relationship)
+
+    t_phase = time.perf_counter()
+    m = _mesh_endpoint(ep.store, w.schema_text, mesh, device)
+    t0 = time.perf_counter()
+    g = m.graph()
+    timer.sync()
+    t_build = time.perf_counter() - t0
+    if not isinstance(g, _ShardedEllGraph):
+        raise AssertionError("the mesh endpoint built no sharded graph")
+    kern, prog = g.kernel, g.prog
+    log(f"mesh multitenant-1m: build {t_build:.3f} s; {prog.state_size} state "
+        f"rows padded to {kern.n_pad} + {kern.a_pad} aux rows; blocks main "
+        f"{kern.block_main}, aux {kern.block_aux}, caveat {kern.block_cav} "
+        f"rows a shard; aux passes {kern.aux_passes}, iteration cap "
+        f"{kern.num_iters}; Leopard statuses {m._leopard.status_map()}")
+
+    rng = np.random.default_rng(SEED + 13)
+    users = w.subjects
+    batches = [[SubjectRef("user", users[i]) for i in
+                rng.choice(len(users), LOOKUP_LANES, replace=False)]
+               for _ in range(1 + N_WARM)]
+    pods = [p for p in prog.object_ids["pod"] if "\x00" not in p]
+    pick = rng.choice(len(pods), N_CHECKS, replace=False)
+    subj = rng.integers(0, LOOKUP_LANES, N_CHECKS)
+    reqs = [CheckRequest(ObjectRef("pod", pods[i]), "view", batches[0][s])
+            for i, s in zip(pick, subj)]
+    rebuilds0 = (m.stats["rebuilds"], ep.stats["rebuilds"])
+
+    # the mesh path's read batches, launches and copies counted from zero
+    kernels.reset_launches()
+    collectives.reset_collectives()
+    summary, lookups, checks = {}, [], []
+    sweeps_all = 0
+    for verb in ("lookup", "check"):
+        e2e, sweeps = [], []
+        for k in range(1 + N_WARM):
+            t0 = time.perf_counter()
+            if verb == "lookup":
+                lookups.append(asyncio.run(m.lookup_resources_batch(
+                    "pod", "view", batches[k])))
+            else:
+                checks.append(asyncio.run(m.check_bulk_permissions(reqs)))
+            timer.sync()
+            e2e.append(time.perf_counter() - t0)
+            sweeps.append(int(g.last_trace[0]))
+        sweeps_all += sum(sweeps)
+        summary[verb] = {"e2e_s": e2e, "sweeps": sweeps}
+        log(f"mesh {verb}: sweeps per batch {sweeps}; trace "
+            f"{g.last_trace[: 1 + sweeps[-1]].tolist()}; e2e per batch cold "
+            f"{e2e[0]:.4f} s, warm median {statistics.median(e2e[1:]):.4f} s "
+            f"(all: {', '.join(f'{t:.4f}' for t in e2e)})")
+    launches = {k: kernels.LAUNCHES[k] for k in kernels.KERNEL_NAMES}
+    coll = {k: dict(v) for k, v in collectives.COLLECTIVES.items()}
+    log(f"launches on the mesh path: {launches}")
+    idle = [k for k in MESH_KERNELS if not launches[k]]
+    if idle:
+        raise AssertionError(f"kernels never launched on the mesh path: "
+                             f"{idle}")
+    cm = comm_model(prog.state_size, kern.a_pad, MESH_DATA, MESH_GRAPH,
+                    LOOKUP_LANES, aux_passes=kern.aux_passes)
+    per_sweep = coll["all_gather_rows"]["bytes"] / sweeps_all
+    per_dev = per_sweep / mesh.size
+    log(f"collectives over the mesh batches ({sweeps_all} sweeps): {coll}; "
+        f"all_gather bytes per sweep {per_sweep:.0f}, per device "
+        f"{per_dev:.0f}; comm_model "
+        f"all_gather_recv_bytes_per_device_per_iter "
+        f"{cm['all_gather_recv_bytes_per_device_per_iter']}")
+    if per_dev != cm["all_gather_recv_bytes_per_device_per_iter"]:
+        raise AssertionError("the all_gathers moved other bytes than "
+                             "comm_model's")
+
+    # the single-device ELL endpoint on the same batches, timed as the
+    # mesh's were
+    t0 = time.perf_counter()
+    single = {"lookup": [], "check": []}
+    for k in range(1 + N_WARM):
+        t1 = time.perf_counter()
+        one = asyncio.run(ep.lookup_resources_batch("pod", "view",
+                                                    batches[k]))
+        timer.sync()
+        single["lookup"].append(time.perf_counter() - t1)
+        if [sorted(x) for x in one] != [sorted(x) for x in lookups[k]]:
+            raise AssertionError(f"mesh lookup batch {k} differs from the "
+                                 "single-device endpoint's")
+    for k in range(1 + N_WARM):
+        t1 = time.perf_counter()
+        one_c = asyncio.run(ep.check_bulk_permissions(reqs))
+        timer.sync()
+        single["check"].append(time.perf_counter() - t1)
+        if [c.allowed for c in one_c] != [c.allowed for c in checks[k]]:
+            raise AssertionError("mesh checks differ from the single-device "
+                                 "endpoint's")
+    for verb, e2e in single.items():
+        summary[verb]["single_e2e_s"] = e2e
+        log(f"single-device {verb} on the same batches: warm median "
+            f"{statistics.median(e2e[1:]):.4f} s vs mesh "
+            f"{statistics.median(summary[verb]['e2e_s'][1:]):.4f} s "
+            f"(all: {', '.join(f'{t:.4f}' for t in e2e)})")
+    log(f"mesh vs single device: {1 + N_WARM} lookup batches x "
+        f"{LOOKUP_LANES} lanes and {1 + N_WARM} check batches x {len(reqs)} "
+        f"pairs equal ({sum(len(x) for x in lookups[0])} allowed (subject, "
+        f"pod) pairs, {sum(c.allowed for c in checks[0])} allowed checks; "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    q_arr, _, _ = m._encode_subjects(g, batches[0])
+    sweep = mesh_sweep(kern, q_arr, len(q_arr) // 32, g.snapshot(), timer,
+                       peak, "mesh multitenant-1m")
+
+    # churn through the shared store: both endpoints absorb it
+    plan = _churn_plan(w, n_rounds, SEED + 13, tag="m")
+    ops = {"touch": UpdateOp.TOUCH, "delete": UpdateOp.DELETE}
+    scatter = 0
+    for r, rnd in enumerate(plan):
+        f0, a0 = m.stats["flush_s"], m.stats["delta_apply_s"]
+        if r == n_rounds - 1:
+            prev = (g.snapshot(), g.host_main.copy(), g.host_aux.copy())
+
+        async def commit():
+            for wr in rnd["writes"]:
+                await m.write_relationships(
+                    [RelationshipUpdate(ops[o], parse_relationship(rel))
+                     for o, rel in wr])
+        asyncio.run(commit())
+        creators = list(dict.fromkeys(u for _, _, u in rnd["created"]))
+        extra = [users[i] for i in rng.choice(len(users), LOOKUP_LANES,
+                                              replace=False)]
+        names = list(dict.fromkeys(creators + extra))[:LOOKUP_LANES]
+        subjects = [SubjectRef("user", u) for u in names]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = asyncio.run(m.lookup_resources_batch("pod", "view", subjects))
+        timer.sync()
+        t_lookup = time.perf_counter() - t0
+        n_scatter = kernels.LAUNCHES["scatter_rows"]
+        scatter += n_scatter
+        if not n_scatter:
+            raise AssertionError("the sharded flush launched no scatter_rows")
+        if m.graph() is not g:
+            raise AssertionError("the mesh endpoint rebuilt under churn")
+        _mesh_tables_match(g)
+        new = [(pod, u) for pod, _, u in rnd["created"]]
+        pk = rng.choice(len(pods), N_CHECKS - len(new), replace=False)
+        pairs = new + [(pods[i], names[j]) for i, j in
+                       zip(pk, rng.integers(0, len(names), len(pk)))]
+        creqs = [CheckRequest(ObjectRef("pod", p_), "view",
+                              SubjectRef("user", u)) for p_, u in pairs]
+        t0 = time.perf_counter()
+        cres = asyncio.run(m.check_bulk_permissions(creqs))
+        timer.sync()
+        t_check = time.perf_counter() - t0
+        one = asyncio.run(ep.lookup_resources_batch("pod", "view", subjects))
+        one_c = asyncio.run(ep.check_bulk_permissions(creqs))
+        if [sorted(a) for a in res] != [sorted(b) for b in one] or \
+                [c.allowed for c in cres] != [c.allowed for c in one_c]:
+            raise AssertionError(f"mesh and single-device answers differ "
+                                 f"after churn round {r}")
+        if not all(c.allowed for c in cres[: len(new)]):
+            raise AssertionError("a creator cannot view the pod just created")
+        log(f"mesh churn round {r}: {sum(len(x) for x in rnd['writes'])} "
+            f"updates; delta application "
+            f"{(m.stats['delta_apply_s'] - a0) * 1e3:.3f} ms, flush "
+            f"{(m.stats['flush_s'] - f0) * 1e3:.3f} ms (host, {n_scatter} "
+            f"scatter_rows launches); read-after-write lookup "
+            f"{t_lookup:.4f} s, check {t_check:.4f} s (sweeps "
+            f"{int(g.last_trace[0])}); every shard block equals the host "
+            "table; answers equal the single-device endpoint's")
+    if (m.stats["rebuilds"], ep.stats["rebuilds"]) != rebuilds0:
+        raise AssertionError("a rebuild happened during the mesh churn")
+    # the sharded flush's scatters at the last round's shapes: each
+    # touched block of the main and aux tables, kernel against twin
+    blocks_prev, main_prev, aux_prev = prev
+    work = []
+    for i, (host, old_host, b) in enumerate(
+            ((g.host_main, main_prev, kern.block_main),
+             (g.host_aux, aux_prev, kern.block_aux))):
+        rows_c = np.nonzero((host != old_host).any(axis=1))[0]
+        vals = kern.remap_values(host[rows_c])
+        seen = set()
+        for gg in np.unique(rows_c // b).tolist():
+            sel = rows_c // b == gg
+            for d in range(MESH_DATA):
+                blk = blocks_prev[i][d][gg]
+                if id(blk) in seen:
+                    continue
+                seen.add(id(blk))
+                work.append((blk, torch.from_numpy(
+                    (rows_c[sel] - gg * b).astype(np.int32)).to(blk.device),
+                    torch.from_numpy(np.ascontiguousarray(vals[sel])).to(
+                        blk.device)))
+    s_err = max(_diff(kernels.scatter_rows(*a), reference.scatter_rows(*a))
+                for a in work)
+    s_ms = timer.ms(lambda: [kernels.scatter_rows(*a) for a in work])
+    s_plain = timer.ms(lambda: [reference.scatter_rows(*a) for a in work])
+    s_lib = timer.ms(lambda: [torch.index_put(b_, (r_.long(),), v_)
+                              for b_, r_, v_ in work])
+    s_bytes = sum(2 * b_.numel() * 4 + r_.numel() * 4 + v_.numel() * 4
+                  for b_, r_, v_ in work)
+    if s_err:
+        raise AssertionError(f"scatter_rows differs on the table blocks: "
+                             f"{s_err}")
+    log(f"sharded flush: the last round's {len(work)} touched (block, data "
+        f"replica) scatters of the main and aux tables: bit-identical to "
+        f"the twins; {s_ms:.6f} ms, twins {s_plain:.6f} ms, torch.index_put "
+        f"{s_lib:.6f} ms, bound {s_bytes / peak * 1e3:.6f} ms over {s_bytes}"
+        f" bytes")
+    med = lambda v: statistics.median(v[1:])
+    log(f"mesh summary: warm median lookup "
+        f"{med(summary['lookup']['e2e_s']):.6f} s (single device on the "
+        f"same batches {med(summary['lookup']['single_e2e_s']):.6f} s), "
+        f"check {med(summary['check']['e2e_s']):.6f} s (single device "
+        f"{med(summary['check']['single_e2e_s']):.6f} s); sweeps "
+        f"{summary['lookup']['sweeps'][-1]} (lookup), "
+        f"{summary['check']['sweeps'][-1]} (check); whole sweep "
+        f"{sweep['sweep_ms']:.6f} ms vs bound {sweep['bound_ms']:.6f} ms; "
+        f"scatter_rows launches {scatter} ({smi_line})")
+    log(f"phase 13a wall time {time.perf_counter() - t_phase:.1f} s")
+    out = {"launches": launches, "sweep": sweep, "summary": summary,
+           "scatter": {"launches": scatter, "max_abs_err": s_err,
+                       "ms": s_ms, "plain_ms": s_plain,
+                       "bound_ms": s_bytes / peak * 1e3,
+                       "library_ms": s_lib}}
+    return m, out
+
+
+def mesh_segment(seg, mesh, timer, peak, device: str = "cuda") -> dict:
+    """Phase 13b: ShardedKernel (the edge-sharded segment sweep) at 2 x 4
+    on the segment endpoint's program and current edge arrays; answers
+    equal the segment endpoint's, `or_combine` against its twin on a real
+    sweep's partials.  Returns the or_combine row and the sweep's
+    numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.ops.kernels import reference
+    from spicedb_kubeapi_proxy_tpu_torch.parallel import collectives
+    from spicedb_kubeapi_proxy_tpu_torch.parallel.sharding import (
+        ShardedKernel)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        CheckRequest, ObjectRef, SubjectRef)
+
+    t_phase = time.perf_counter()
+    g = seg.graph()                 # applies the deltas of phase 13a
+    # the current edges, padding included, as the program's edge list
+    prog = dataclasses.replace(g.prog, edge_src=g.host_src.copy(),
+                               edge_dst=g.host_dst.copy())
+    cap = len(g.host_src)
+    sk = ShardedKernel(prog, mesh)
+    src, dst = sk.device_edges(cap)
+    users = [u for u in prog.object_ids["user"] if "\x00" not in u]
+    rng = np.random.default_rng(SEED + 14)
+    names = [users[i] for i in rng.choice(len(users), LOOKUP_LANES,
+                                          replace=False)]
+    q = np.asarray([prog.subject_index("user", u) for u in names], np.int32)
+    subjects = [SubjectRef("user", u) for u in names]
+    pods = [p for p in prog.object_ids["pod"] if "\x00" not in p]
+    pick = rng.choice(len(pods), N_CHECKS, replace=False)
+    cols = rng.integers(0, LOOKUP_LANES, N_CHECKS)
+    gi = np.asarray([prog.state_index("pod", "view", pods[i]) for i in pick],
+                    np.int32)
+    off, length = prog.slot_range("pod", "view")
+    kernels.reset_launches()
+    collectives.reset_collectives()
+    t0 = time.perf_counter()
+    bitmap = sk.lookup(off, length, q, src, dst)
+    timer.sync()
+    t_lookup = time.perf_counter() - t0
+    lk_sweeps = int(sk.last_trace[0])
+    t0 = time.perf_counter()
+    allowed = sk.checks(q, gi, cols, src, dst)
+    t_check = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in kernels.KERNEL_NAMES}
+    coll = {k: dict(v) for k, v in collectives.COLLECTIVES.items()}
+    log(f"ShardedKernel 2x4 on the segment program ({cap} edges, "
+        f"{cap // MESH_GRAPH} a graph shard): lookup {t_lookup:.4f} s "
+        f"({lk_sweeps} sweeps, trace "
+        f"{sk.last_trace[:1 + lk_sweeps].tolist()}), check {t_check:.4f} s; "
+        f"launches {launches}; collectives {coll}")
+    idle = [k for k in ("seed_bitplanes", "edge_or", "or_combine",
+                        "perm_program", "sweep_delta", "check_gather",
+                        "lookup_T") if not launches[k]]
+    if idle:
+        raise AssertionError(f"kernels never launched by ShardedKernel: "
+                             f"{idle}")
+    ids = prog.object_ids["pod"]
+    look = asyncio.run(seg.lookup_resources_batch("pod", "view", subjects))
+    for j, got in enumerate(look):
+        mine = sorted(ids[i] for i in np.nonzero(bitmap[:, j])[0]
+                      if "\x00" not in ids[i])
+        if mine != sorted(got):
+            raise AssertionError(f"ShardedKernel lookup for {names[j]} "
+                                 "differs from the segment endpoint's")
+    creqs = [CheckRequest(ObjectRef("pod", pods[i]), "view", subjects[c])
+             for i, c in zip(pick, cols)]
+    seg_c = asyncio.run(seg.check_bulk_permissions(creqs))
+    if [c.allowed for c in seg_c] != [bool(x) for x in allowed]:
+        raise AssertionError("ShardedKernel checks differ from the segment "
+                             "endpoint's")
+    log(f"ShardedKernel answers equal the segment endpoint's: "
+        f"{LOOKUP_LANES} lookups ({int(bitmap.sum())} allowed) and "
+        f"{N_CHECKS} checks ({int(allowed.sum())} allowed)")
+
+    # or_combine on a real sweep's partials, and one sweep's time
+    n_words = MESH_DATA * max(1, LOOKUP_LANES // 32 // MESH_DATA)
+    qp = np.full(32 * n_words, prog.dead_index, np.int32)
+    qp[:LOOKUP_LANES] = q
+    x0, live = sk.seed(qp, n_words)
+    x = [[t.clone() for t in row] for row in x0]
+    y = [[torch.empty_like(t) for t in row] for row in x0]
+    for _ in range(2):
+        sk.partials(y, x, x0, live, src, dst)
+        for reps in y:
+            collectives.or_allreduce(reps)
+        sk.finish_step(y, x, x0, live)
+        x, y = y, x
+    sk.partials(y, x, x0, live, src, dst)
+    recv = torch.empty_like(y[0][0])
+    err = 0
+    for j in range(1, MESH_GRAPH):
+        recv.copy_(y[0][j])
+        a, b = y[0][0].clone(), y[0][0].clone()
+        kernels.or_combine(a, recv)
+        reference.or_combine(b, recv)
+        err = max(err, _diff(a, b))
+    if err:
+        raise AssertionError("or_combine differs from its twin")
+    # timed over every shard's partial, each with its own peer copy (16
+    # buffers, more than the 50 MB L2 holds), per combine
+    pairs = [(t.clone(), y[d][(gg + 1) % MESH_GRAPH].clone())
+             for d, row in enumerate(y) for gg, t in enumerate(row)]
+    numel = pairs[0][0].numel()
+    per = len(pairs)
+    rows = {}
+    _seg_rows(rows, "or_combine", err,
+              timer.ms(lambda: [kernels.or_combine(a_, b_)
+                                for a_, b_ in pairs]) / per,
+              timer.ms(lambda: [reference.or_combine(a_, b_)
+                                for a_, b_ in pairs]) / per,
+              3 * numel * 4, numel, peak,
+              library_ms=timer.ms(lambda: [torch.bitwise_or(a_, b_, out=a_)
+                                           for a_, b_ in pairs]) / per)
+    del pairs
+    rows["or_combine"]["launches"] = launches["or_combine"]
+    t_part = timer.ms(lambda: sk.partials(y, x, x0, live, src, dst))
+    t_red = timer.ms(lambda: [collectives.or_allreduce(reps) for reps in y])
+    t_fin = timer.ms(lambda: sk.finish_step(y, x, x0, live))
+    dead = prog.dead_index
+    t_delta = timer.ms(lambda: [kernels.sweep_delta(a_, b_, dead)
+                                for ra, rb in zip(y, x)
+                                for a_, b_ in zip(ra, rb)])
+    t_plain = (timer.ms(lambda: sk.partials(y, x, x0, live, src, dst,
+                                            reference), reps=2)
+               + timer.ms(lambda: [collectives.or_allreduce(reps, reference)
+                                   for reps in y], reps=2)
+               + timer.ms(lambda: sk.finish_step(y, x, x0, live, reference),
+                          reps=2))
+    word = 4 * (n_words // MESH_DATA)
+    n = prog.state_size
+    nbytes = 0
+    for d in range(MESH_DATA):
+        for gg in range(MESH_GRAPH):
+            s_, d_ = src[d][gg], dst[d][gg]
+            nbytes += (s_.numel() * 8 + int(torch.unique(s_).numel()) * word
+                       + 2 * int(torch.unique(d_).numel()) * word
+                       + 2 * n * word          # init: seed in, partial out
+                       + 2 * n * word)         # delta
+            for code, _, length, _ in sk._caches[s_.device]._ops:
+                n_read = int((code[0::2] == 0).sum())
+                nbytes += code.numel() * 4 + length * word * (n_read + 2)
+    # the all-reduce: each of the G partials read once and each of the G
+    # replicas written once
+    nbytes += MESH_DATA * MESH_GRAPH * 2 * n * word
+    sweep = {"partials_ms": t_part, "allreduce_ms": t_red,
+             "finish_ms": t_fin, "delta_ms": t_delta,
+             "sweep_ms": t_part + t_red + t_fin + t_delta,
+             "plain_ms": t_plain, "bound_ms": nbytes / peak * 1e3,
+             "bytes": nbytes, "sweeps": lk_sweeps}
+    log(f"ShardedKernel sweep at {LOOKUP_LANES} lanes on 8 shards: "
+        f"partials (init + edge_or) {t_part:.6f} ms, or_allreduce (copies + "
+        f"or_combine) {t_red:.6f} ms, permission ops {t_fin:.6f} ms, deltas "
+        f"{t_delta:.6f} ms; whole sweep {sweep['sweep_ms']:.6f} ms, bound "
+        f"{sweep['bound_ms']:.6f} ms over {nbytes} bytes; twins "
+        f"{t_plain:.6f} ms. or_combine on a real partial [{n}, "
+        f"{n_words // MESH_DATA}]: bit-identical, "
+        f"{rows['or_combine']['ms']:.6f} ms (bound "
+        f"{rows['or_combine']['bound_ms']:.6f}, twin "
+        f"{rows['or_combine']['plain_ms']:.6f}, torch.bitwise_or "
+        f"{rows['or_combine']['library_ms']:.6f})")
+    log(f"phase 13b wall time {time.perf_counter() - t_phase:.1f} s")
+    return {"rows": rows, "sweep": sweep, "launches": launches}
+
+
+def mesh_caveats(ep, w, mesh, timer, peak, device: str = "cuda") -> dict:
+    """Phase 13c: the caveated deployment of phase 10 on a 2 x 4 mesh
+    endpoint over its store: tri-state answers equal the single-device
+    endpoint's, CONDITIONAL included, nothing routed to the oracle, the
+    block-form `cav_gather_or` launched and equal to its twin."""
+    import numpy as np
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        CheckRequest, ObjectRef, SubjectRef)
+
+    t_phase = time.perf_counter()
+    m = _mesh_endpoint(ep.store, w.schema_text, mesh, device)
+    t0 = time.perf_counter()
+    g = m.graph()
+    timer.sync()
+    kern = g.kernel
+    if not (g.has_cav and kern.planes):
+        raise AssertionError("the caveated mesh graph compiled no planes")
+    log(f"mesh caveats: build {time.perf_counter() - t0:.3f} s; caveat "
+        f"table sharded {kern.block_cav} rows a shard over {kern.rows} "
+        f"rows; aux passes {kern.aux_passes}, cap {kern.num_iters}")
+    member_of, assigned, _ = _cav_index(w)
+    prog = g.prog
+    users = w.subjects
+    pods = [p for p in prog.object_ids["pod"] if "\x00" not in p]
+    rng = np.random.default_rng(SEED + 15)
+    batches = [[SubjectRef("user", users[i]) for i in
+                rng.choice(len(users), LOOKUP_LANES, replace=False)]
+               for _ in range(2)]
+    pairs = _cav_pairs(rng, [s.id for s in batches[0]], pods, member_of,
+                       assigned, N_CHECKS)
+    reqs = [CheckRequest(ObjectRef("pod", p), "view", SubjectRef("user", u))
+            for p, u in pairs]
+    res0 = m.stats["oracle_residual_checks"]
+    kernels.reset_launches()
+    e2e = {"lookup": [], "check": []}
+    looks, chks = [], []
+    for bt in batches:
+        t0 = time.perf_counter()
+        looks.append(asyncio.run(m.lookup_resources_batch("pod", "view",
+                                                          bt)))
+        timer.sync()
+        e2e["lookup"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        chks.append(asyncio.run(m.check_bulk_permissions(reqs)))
+        timer.sync()
+        e2e["check"].append(time.perf_counter() - t0)
+    launches = {k: kernels.LAUNCHES[k] for k in kernels.KERNEL_NAMES}
+    log(f"mesh caveats: lookup e2e {e2e['lookup']}, check e2e "
+        f"{e2e['check']} s; sweeps {int(g.last_trace[0])}, trace "
+        f"{g.last_trace[:1 + int(g.last_trace[0])].tolist()}; launches "
+        f"{launches}")
+    idle = [k for k in ("ell_gather_or", "cav_gather_or", "perm_program",
+                        "sweep_delta", "seed_bitplanes", "check_gather3",
+                        "lookup_T") if not launches[k]]
+    if idle:
+        raise AssertionError(f"kernels never launched on the caveated mesh "
+                             f"path: {idle}")
+    for bt, lk in zip(batches, looks):
+        one = asyncio.run(ep.lookup_resources_batch("pod", "view", bt))
+        if [sorted(x) for x in one] != [sorted(x) for x in lk]:
+            raise AssertionError("caveated mesh lookups differ from the "
+                                 "single-device endpoint's")
+    one_c = _tri(asyncio.run(ep.check_bulk_permissions(reqs)))
+    tri = _tri(chks[0])
+    if tri != one_c or _tri(chks[1]) != tri:
+        raise AssertionError("caveated mesh checks differ from the "
+                             "single-device endpoint's")
+    counts = {v: tri.count(v) for v in (2, 1, 0)}
+    if not counts[1]:
+        raise AssertionError("no CONDITIONAL answer on the mesh")
+    if m.stats["oracle_residual_checks"] != res0 or any(
+            r.source != "kernel" for c in chks for r in c):
+        raise AssertionError("caveat rows were routed to the oracle")
+    log(f"mesh caveats equal the single-device endpoint: HAS {counts[2]}, "
+        f"CONDITIONAL {counts[1]}, NO {counts[0]} of {len(reqs)}; nothing "
+        "routed to the oracle")
+    # the plane path is the Jacobi step on both: one batch, one trace
+    asyncio.run(m.lookup_resources_batch("pod", "view", batches[0]))
+    asyncio.run(ep.lookup_resources_batch("pod", "view", batches[0]))
+    tr_m, tr_1 = g.last_trace, ep.graph().last_trace
+    if not np.array_equal(tr_m[:1 + tr_m[0]], tr_1[:1 + tr_1[0]]):
+        raise AssertionError(f"the mesh's Jacobi trace "
+                             f"{tr_m[:1 + tr_m[0]].tolist()} differs from "
+                             f"the single-device one's "
+                             f"{tr_1[:1 + tr_1[0]].tolist()}")
+    log(f"mesh caveats: one lookup batch sweeps as on a single device: "
+        f"trace {tr_m[:1 + tr_m[0]].tolist()} on both")
+    q_arr, _, _ = m._encode_subjects(g, batches[0])
+    sweep = mesh_sweep(kern, q_arr, len(q_arr) // 32, g.snapshot(), timer,
+                       peak, "mesh caveats")
+    log(f"phase 13c wall time {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "sweep": sweep, "e2e": e2e}
+
+
+def mesh_leopard(a, w, mesh, timer, device: str = "cuda") -> dict:
+    """Phase 13d: group-explosion (phase 12's store) on a 2 x 4 mesh
+    endpoint with the index on: `doc#view` indexed with its plane in one
+    block per graph shard, reads served from the sharded plane with no
+    sweep kernel, answers equal endpoint A's."""
+    import numpy as np
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        CheckRequest, ObjectRef, SubjectRef)
+
+    t_phase = time.perf_counter()
+    m = _mesh_endpoint(a.store, w.schema_text, mesh, device)
+    t0 = time.perf_counter()
+    m.graph()
+    timer.sync()
+    lp = m._leopard
+    frag = lp.lookup_frag("doc", "view")
+    if lp.status_map().get("doc#view") != "indexed" or frag is None:
+        raise AssertionError(f"doc#view is not indexed on the mesh: "
+                             f"{lp.status_map()}")
+    if not isinstance(frag.plane, tuple) or len(frag.plane) != MESH_GRAPH:
+        raise AssertionError("the plane is not sharded over the graph axis")
+    log(f"mesh group-explosion: build {time.perf_counter() - t0:.3f} s; "
+        f"doc#view plane in {len(frag.plane)} blocks of "
+        f"{list(frag.plane[0].shape)} on "
+        f"{[str(b.device) for b in frag.plane]} for {frag.plane_rows} rows")
+    rng = np.random.default_rng(SEED + 16)
+    n_users = len(w.subjects)
+    subjects = [SubjectRef("user", w.subjects[i]) for i in
+                rng.choice(n_users, LOOKUP_LANES, replace=False)]
+    pairs, _ = _leo_pairs(w, rng, N_CHECKS)
+    reqs = [CheckRequest(ObjectRef("doc", d), "view", SubjectRef("user", u))
+            for d, u in pairs]
+    kernels.reset_launches()
+    s0 = dict(m.stats)
+    t0 = time.perf_counter()
+    look = asyncio.run(m.lookup_resources_batch("doc", "view", subjects))
+    timer.sync()
+    t_look = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chk = asyncio.run(m.check_bulk_permissions(reqs))
+    timer.sync()
+    t_chk = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in kernels.KERNEL_NAMES}
+    served = {k: m.stats[k] - s0[k] for k in ("leopard_checks",
+                                              "leopard_lookups",
+                                              "kernel_calls")}
+    swept = [k for k in ("ell_gather_or", "perm_program", "sweep_delta",
+                         "seed_bitplanes", "lookup_T") if launches[k]]
+    if swept or served["kernel_calls"] or served["leopard_checks"] != \
+            len(reqs) or not (launches["check_gather"]
+                              and launches["word_cols_T"]):
+        raise AssertionError(f"the mesh reads were not served from the "
+                             f"sharded plane: {served}, {launches}")
+    a_l = asyncio.run(a.lookup_resources_batch("doc", "view", subjects))
+    a_c = asyncio.run(a.check_bulk_permissions(reqs))
+    if [sorted(x) for x in look] != [sorted(x) for x in a_l] or \
+            [c.allowed for c in chk] != [c.allowed for c in a_c]:
+        raise AssertionError("mesh plane answers differ from endpoint A's")
+    log(f"mesh group-explosion reads from the sharded plane: lookup "
+        f"{t_look:.4f} s, check {t_chk:.4f} s (cold); served {served}; "
+        f"launches check_gather {launches['check_gather']}, word_cols_T "
+        f"{launches['word_cols_T']}, no sweep kernel; answers equal A's "
+        f"({sum(c.allowed for c in chk)} HAS of {len(reqs)})")
+    log(f"phase 13d wall time {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
 
 
 def main() -> int:
@@ -2076,23 +2863,45 @@ def main() -> int:
 
     # 11. the segment kernel on the same store, beside the ELL endpoint
     t_ph = time.perf_counter()
-    seg_rows, _ = segment_path(ep, w, timer, peak, smi_line)
+    seg_rows, _, seg = segment_path(ep, w, timer, peak, smi_line)
     phase_s["11"] = time.perf_counter() - t_ph
 
-    # 10. the caveated deployment on its own endpoint (the first one goes)
+    # 13a-b. the mesh path on the same store: the sharded ELL endpoint
+    # against the single-device one, then ShardedKernel against the
+    # segment endpoint
     t_ph = time.perf_counter()
-    del ep, g, batches, lookups, reqs, checks
+    mesh = make_smoke_mesh("cuda")
+    m_ep, mesh_mt = mesh_multitenant(ep, w, mesh, timer, peak, smi_line)
+    del m_ep
     gc.collect()
-    torch.cuda.empty_cache()
-    cav_rows = caveats(timer, peak, smi_line)
-    phase_s["10"] = time.perf_counter() - t_ph
+    mesh_seg = mesh_segment(seg, mesh, timer, peak)
+    phase_s["13a-b"] = time.perf_counter() - t_ph
 
-    # 12. the Leopard index at group-explosion, indexed against not
+    # 10. the caveated deployment on its own endpoint (the first one goes),
+    # then 13c, the same store on a mesh endpoint
+    t_ph = time.perf_counter()
+    del ep, g, batches, lookups, reqs, checks, seg
+    gc.collect()
+    torch.cuda.empty_cache()
+    cav_rows, cav_ep, cav_w = caveats(timer, peak, smi_line)
+    phase_s["10"] = time.perf_counter() - t_ph
+    t_ph = time.perf_counter()
+    mesh_cav = mesh_caveats(cav_ep, cav_w, mesh, timer, peak)
+    del cav_ep, cav_w
+    phase_s["13c"] = time.perf_counter() - t_ph
+
+    # 12. the Leopard index at group-explosion, indexed against not, then
+    # 13d, its store on a mesh endpoint with the index on
     t_ph = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    leo_rows = leopard_path(timer, peak, smi_line, mt_statuses)
+    leo_rows, leo_a, leo_w = leopard_path(timer, peak, smi_line,
+                                          mt_statuses)
     phase_s["12"] = time.perf_counter() - t_ph
+    t_ph = time.perf_counter()
+    mesh_leo = mesh_leopard(leo_a, leo_w, mesh, timer)
+    del leo_a, leo_w
+    phase_s["13d"] = time.perf_counter() - t_ph
     for kname, r in cav_rows.items():
         if kname in rows:
             # a kernel of both paths: its plane-mode numbers beside the
@@ -2118,9 +2927,22 @@ def main() -> int:
                 rows[kname] = {"name": kname, "route": "cuda",
                                "source": KERNEL_SOURCE,
                                "replaces": REPLACES[kname], **r}
-    rows["edge_or"]["replaces_also"] = REPLACES_ALSO["edge_or"]
-    rows["check_gather"]["replaces_also"] = REPLACES_ALSO["check_gather"]
-    rows["scatter_rows"]["replaces_also"] = REPLACES_ALSO["scatter_rows"]
+    # the mesh path (phase 13): or_combine's row, and every kernel's
+    # launches on its read batches beside the single-device ones
+    rows["or_combine"] = {"name": "or_combine", "route": "cuda",
+                          "source": KERNEL_SOURCE,
+                          "replaces": REPLACES["or_combine"],
+                          **mesh_seg["rows"]["or_combine"]}
+    for kname in rows:
+        rows[kname]["mesh_launches"] = {
+            "multitenant": mesh_mt["launches"].get(kname, 0),
+            "segment": mesh_seg["launches"].get(kname, 0),
+            "caveats": mesh_cav["launches"].get(kname, 0),
+            "leopard": mesh_leo["launches"].get(kname, 0)}
+    rows["scatter_rows"].update({f"mesh_flush_{k}": v for k, v in
+                                 mesh_mt["scatter"].items()})
+    for kname, also in REPLACES_ALSO.items():
+        rows[kname]["replaces_also"] = also
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}"
                                       for k, v in phase_s.items()))
     print(json.dumps({"kernels": [rows[k] for k in REPLACES]}))

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels of the ELL and segment fixpoint sweeps, of
-the delta flush and of the Leopard plane reads, and their wrappers.
+the delta flush, of the Leopard plane reads and of the mesh path's
+OR-combine, and their wrappers.
 
 The tri-state (caveat) path keeps two bitplanes per state row, words
 [0, H) definite and [H, 2H) maybe; the wrappers that read planes take H
@@ -8,8 +9,9 @@ as `half` (perm_program, cav_gather_or, check_gather3) or a flag
 
 Each wrapper takes torch tensors.  On CUDA tensors it launches the kernel
 from csrc/ell_kernels.cu (built for sm_90a with nvcc at first use, bound
-with ctypes) on the current stream, and adds one to its entry in
-`LAUNCHES`; a build or launch failure raises.  On CPU tensors it runs the
+with ctypes) on the current stream of the tensors' card (all on one),
+and adds one to its entry in `LAUNCHES`; a build or launch failure
+raises.  On CPU tensors it runs the
 plain-torch twin from reference.py instead — that is the only reason a
 twin runs, and it never counts as a launch.  Any other device raises.
 
@@ -36,7 +38,8 @@ from . import reference
 
 KERNEL_NAMES = ("ell_gather_or", "perm_program", "sweep_delta",
                 "seed_bitplanes", "check_gather", "lookup_T", "scatter_rows",
-                "cav_gather_or", "check_gather3", "edge_or", "word_cols_T")
+                "cav_gather_or", "check_gather3", "edge_or", "word_cols_T",
+                "or_combine")
 
 # launches per kernel since the last reset_launches(); CPU twins never count
 LAUNCHES: dict = {name: 0 for name in KERNEL_NAMES}
@@ -116,6 +119,7 @@ def _load():
                 "ell_scatter_rows": (P, L, I, P, L, P, P, I, P),
                 "ell_edge_or": (P, P, P, L, I, P, P),
                 "ell_word_cols_T": (P, I, P, I, L, P, P),
+                "ell_or_combine": (P, P, L, I, P),
             }
             for fn, args in sigs.items():
                 f = getattr(lib, fn)
@@ -134,6 +138,8 @@ def _on_cuda(*tensors) -> bool:
     if kinds == {"cpu"}:
         return False
     if kinds == {"cuda"}:
+        if len({t.device for t in tensors if t is not None}) > 1:
+            raise KernelError("tensors on more than one CUDA device")
         return True
     raise KernelError(f"unsupported tensor devices {sorted(kinds)}")
 
@@ -151,13 +157,14 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _run(fn: str, *args) -> None:
+def _run(fn: str, device: torch.device, *args) -> None:
+    """Launch `fn` on `device`'s current stream with `device` current, so
+    a shard on another card launches in that card's context and is
+    ordered after the work torch queued there."""
     lib = _load()
-    code = getattr(lib, fn)(*args, _stream())
+    with torch.cuda.device(device):
+        code = getattr(lib, fn)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
     if code != 0:
         raise KernelError(f"{fn}: CUDA error {code}: "
                           f"{lib.ell_error_string(code).decode()}")
@@ -192,7 +199,7 @@ def ell_gather_or(cur: torch.Tensor, idx: torch.Tensor, dst_lo: int,
             raise KernelError("ell_gather_or: wildcard shape mismatch")
     scratch = torch.empty((n, w), dtype=torch.int32, device=cur.device)
     dst = cur[dst_lo: dst_lo + n]
-    _run("ell_gather_or", _ptr(cur), _ptr(idx), k, n, w, _ptr(seed),
+    _run("ell_gather_or", cur.device, _ptr(cur), _ptr(idx), k, n, w, _ptr(seed),
          _ptr(wc_bits), _ptr(wc_live), _ptr(scratch), _ptr(dst))
     LAUNCHES["ell_gather_or"] += 1
     return None
@@ -222,7 +229,7 @@ def perm_program(cur: torch.Tensor, x0: torch.Tensor, code: torch.Tensor,
     dst = cur[offset: offset + length]
     out = dst if in_place else torch.empty((length, w), dtype=torch.int32,
                                            device=cur.device)
-    _run("ell_perm_program", _ptr(cur), _ptr(code), code.shape[0], length, w,
+    _run("ell_perm_program", cur.device, _ptr(cur), _ptr(code), code.shape[0], length, w,
          half or 0, _ptr(seed), _ptr(out))
     LAUNCHES["perm_program"] += 1
     if not in_place:
@@ -231,23 +238,25 @@ def perm_program(cur: torch.Tensor, x0: torch.Tensor, code: torch.Tensor,
 
 
 def cav_gather_or(cur: torch.Tensor, x_in: torch.Tensor, idx: torch.Tensor,
-                  half: int) -> None:
-    """Maybe plane of rows [0, R): cur[r, half:] |= OR_k x_in[idx[r, k],
-    half:], with `idx` int32 [R, K] (the caveat table) and `x_in` the
-    sweep's input state (a buffer other than `cur`)."""
+                  half: int, dst_lo: int = 0) -> None:
+    """Maybe plane of rows [dst_lo, dst_lo + R): cur[dst_lo + r, half:] |=
+    OR_k x_in[idx[r, k], half:], with `idx` int32 [R, K] (the caveat
+    table, or one row block of it) and `x_in` the sweep's input state (a
+    buffer other than `cur`)."""
     if not _on_cuda(cur, x_in, idx):
-        return reference.cav_gather_or(cur, x_in, idx, half)
+        return reference.cav_gather_or(cur, x_in, idx, half, dst_lo)
     _check(cur, "cur", 2)
     _check(x_in, "x_in", 2)
     _check(idx, "idx", 2)
     r, k = idx.shape
     if cur.shape != x_in.shape or cur.shape[1] != 2 * half:
         raise KernelError("cav_gather_or: state shapes do not match half")
-    if r > cur.shape[0]:
-        raise KernelError("cav_gather_or: more table rows than state rows")
+    if dst_lo < 0 or dst_lo + r > cur.shape[0]:
+        raise KernelError("cav_gather_or: table rows out of the state rows")
     if cur.data_ptr() == x_in.data_ptr():
         raise KernelError("cav_gather_or: x_in must not be the output")
-    _run("ell_cav_gather_or", _ptr(x_in), _ptr(idx), k, r, half, _ptr(cur))
+    _run("ell_cav_gather_or", x_in.device, _ptr(x_in), _ptr(idx), k, r, half,
+         _ptr(cur[dst_lo:]))
     LAUNCHES["cav_gather_or"] += 1
     return None
 
@@ -264,7 +273,7 @@ def sweep_delta(x_new: torch.Tensor, x_old: torch.Tensor,
         raise KernelError("sweep_delta: shape mismatch")
     out = torch.empty(2, dtype=torch.int32, device=x_new.device)
     nt, w = x_new.shape
-    _run("ell_sweep_delta", _ptr(x_new), _ptr(x_old), nt, w, dead, _ptr(out))
+    _run("ell_sweep_delta", x_new.device, _ptr(x_new), _ptr(x_old), nt, w, dead, _ptr(out))
     LAUNCHES["sweep_delta"] += 1
     return out
 
@@ -299,7 +308,7 @@ def seed_bitplanes(q_idx: torch.Tensor, nt: int, n_words: int, dead: int,
         n_wc = wc_ranges.shape[0]
         if live.shape[0] < n_wc or live.shape[1] != width:
             raise KernelError("seed_bitplanes: live shape mismatch")
-    _run("ell_seed_bitplanes", _ptr(q_idx), q_idx.shape[0], nt, n_words,
+    _run("ell_seed_bitplanes", q_idx.device, _ptr(q_idx), q_idx.shape[0], nt, n_words,
          int(planes), dead, _ptr(wc_ranges), n_wc, _ptr(out), _ptr(live))
     LAUNCHES["seed_bitplanes"] += 1
     return out
@@ -315,7 +324,7 @@ def check_gather(x: torch.Tensor, gather_idx: torch.Tensor,
     _check(gather_col, "gather_col", 1)
     g = gather_idx.shape[0]
     out = torch.empty(g, dtype=torch.int32, device=x.device)
-    _run("ell_check_gather", _ptr(x), x.shape[1], _ptr(gather_idx),
+    _run("ell_check_gather", x.device, _ptr(x), x.shape[1], _ptr(gather_idx),
          _ptr(gather_col), g, _ptr(out))
     LAUNCHES["check_gather"] += 1
     return out
@@ -335,7 +344,7 @@ def check_gather3(x: torch.Tensor, gather_idx: torch.Tensor,
                           f"{x.shape[1]} / 2")
     g = gather_idx.shape[0]
     out = torch.empty(g, dtype=torch.int32, device=x.device)
-    _run("ell_check_gather3", _ptr(x), half, _ptr(gather_idx),
+    _run("ell_check_gather3", x.device, _ptr(x), half, _ptr(gather_idx),
          _ptr(gather_col), g, _ptr(out))
     LAUNCHES["check_gather3"] += 1
     return out
@@ -355,7 +364,7 @@ def lookup_T(x: torch.Tensor, offset: int, length: int,
     if not 0 < w <= x.shape[1]:
         raise KernelError(f"lookup_T: {w} words of a {x.shape[1]}-word row")
     out = torch.empty((w, length), dtype=torch.int32, device=x.device)
-    _run("ell_lookup_T", _ptr(x), w, x.shape[1], offset, length, _ptr(out))
+    _run("ell_lookup_T", x.device, _ptr(x), w, x.shape[1], offset, length, _ptr(out))
     LAUNCHES["lookup_T"] += 1
     return out
 
@@ -378,7 +387,7 @@ def scatter_rows(src: torch.Tensor, rows: torch.Tensor,
                           f"({b}, {k})")
     out = torch.empty_like(src)
     vec = int(src.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    _run("ell_scatter_rows", _ptr(src), r, k, _ptr(rows), b, _ptr(vals),
+    _run("ell_scatter_rows", src.device, _ptr(src), r, k, _ptr(rows), b, _ptr(vals),
          _ptr(out), vec)
     LAUNCHES["scatter_rows"] += 1
     return out
@@ -402,7 +411,7 @@ def edge_or(y: torch.Tensor, x: torch.Tensor, src: torch.Tensor,
         raise KernelError("edge_or: src and dst lengths differ")
     if y.data_ptr() == x.data_ptr():
         raise KernelError("edge_or: y must not be the input state")
-    _run("ell_edge_or", _ptr(x), _ptr(src), _ptr(dst), src.shape[0],
+    _run("ell_edge_or", x.device, _ptr(x), _ptr(src), _ptr(dst), src.shape[0],
          x.shape[1], _ptr(y))
     LAUNCHES["edge_or"] += 1
     return None
@@ -421,7 +430,26 @@ def word_cols_T(plane: torch.Tensor, rows: int,
                           f"{plane.shape[0]}-row plane")
     k = words.shape[0]
     out = torch.empty((k, rows), dtype=torch.int32, device=plane.device)
-    _run("ell_word_cols_T", _ptr(plane), plane.shape[1], _ptr(words), k,
+    _run("ell_word_cols_T", plane.device, _ptr(plane), plane.shape[1], _ptr(words), k,
          rows, _ptr(out))
     LAUNCHES["word_cols_T"] += 1
     return out
+
+
+def or_combine(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst |= src over int32 packed words of equal shape — the compute
+    half of the sharded segment kernel's OR all-reduce over `graph`
+    (`src` a peer's partial, already copied onto dst's device)."""
+    if not _on_cuda(dst, src):
+        return reference.or_combine(dst, src)
+    _check(dst, "dst")
+    _check(src, "src")
+    if dst.shape != src.shape:
+        raise KernelError(f"or_combine: shapes {tuple(dst.shape)} and "
+                          f"{tuple(src.shape)} differ")
+    if dst.data_ptr() == src.data_ptr():
+        raise KernelError("or_combine: src must not be dst")
+    vec = int(dst.data_ptr() % 16 == 0 and src.data_ptr() % 16 == 0)
+    _run("ell_or_combine", dst.device, _ptr(dst), _ptr(src), dst.numel(), vec)
+    LAUNCHES["or_combine"] += 1
+    return None

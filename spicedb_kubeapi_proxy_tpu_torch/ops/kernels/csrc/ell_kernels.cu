@@ -18,6 +18,9 @@
 //                     (spmv.py:130-134), on packed words
 //   word_cols_T    <- the Leopard plane's word-column reads
 //                     (jax_endpoint.py:2970-2977)
+//   or_combine     <- the sharded segment kernel's `lax.pmax(y, "graph")`,
+//                     its compute half (parallel/sharding.py:69); the peer
+//                     partials reach the local device as plain copies
 //
 // State layout: x is int32 [NT, W] row-major (W packed words per row, bit
 // b of word w = query column 32*w + b).  Words are handled as uint32
@@ -198,7 +201,9 @@ __global__ void perm_program_planes_kernel(const int32_t* cur,
 
 // Maybe plane of rows [0, R) (stride 2H): out[r, H + w] |= OR_j
 // x[idx[r, j], H + w].  `x` is the sweep's input state, a buffer other
-// than `out`, so every read sees the previous sweep's values.
+// than `out`, so every read sees the previous sweep's values.  `out` may
+// point at any row of the state (the wrapper's `dst_lo`): a mesh shard
+// fills the maybe half of its own block of the caveat table's rows.
 __global__ void cav_gather_or_kernel(const int32_t* __restrict__ x,
                                      const int32_t* __restrict__ idx, int k,
                                      long long R, int H,
@@ -387,6 +392,35 @@ __global__ void word_cols_T_kernel(const int32_t* __restrict__ plane, int Wc,
     }
 }
 
+// dst[i] |= src[i] over n packed words: the OR-combine of one peer's
+// partial one-step closure into the local one.  A streaming pass (two
+// reads and one write per word, one OR), so it is bound by bytes: 16-byte
+// words when both pointers are 16-byte aligned (`vec`), then the < 4
+// trailing int32 one by one, as copy_words_kernel.
+__global__ void or_combine_kernel(int32_t* __restrict__ dst,
+                                  const int32_t* __restrict__ src,
+                                  long long n, int vec) {
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    long long done = 0;
+    if (vec) {
+        const long long n4 = n >> 2;
+        const int4* __restrict__ s4 = reinterpret_cast<const int4*>(src);
+        int4* __restrict__ d4 = reinterpret_cast<int4*>(dst);
+        for (long long t = t0; t < n4; t += stride) {
+            const int4 b = __ldg(s4 + t);
+            int4 a = d4[t];
+            a.x |= b.x;
+            a.y |= b.y;
+            a.z |= b.z;
+            a.w |= b.w;
+            d4[t] = a;
+        }
+        done = n4 << 2;
+    }
+    for (long long t = done + t0; t < n; t += stride) dst[t] |= __ldg(src + t);
+}
+
 inline int last_error() { return (int)cudaGetLastError(); }
 
 }  // namespace
@@ -561,5 +595,15 @@ EXPORT int ell_word_cols_T(const void* plane, int Wc, const void* words,
                          kBlock, 0, s>>>(
         (const int32_t*)plane, Wc, (const int32_t*)words, K, R,
         (int32_t*)out);
+    return last_error();
+}
+
+EXPORT int ell_or_combine(void* dst, const void* src, long long n, int vec,
+                          void* stream) {
+    if (n <= 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    const long long work = vec ? (n >> 2) : n;
+    or_combine_kernel<<<grid_for(work, kBlock, 132 * 32), kBlock, 0, s>>>(
+        (int32_t*)dst, (const int32_t*)src, n, vec);
     return last_error();
 }

@@ -85,14 +85,14 @@ def perm_program(cur: torch.Tensor, x0: torch.Tensor, code: torch.Tensor,
 
 
 def cav_gather_or(cur: torch.Tensor, x_in: torch.Tensor, idx: torch.Tensor,
-                  half: int) -> None:
-    """cur[r, half:] |= OR_k x_in[idx[r, k], half:] for the rows r of
-    `idx`."""
+                  half: int, dst_lo: int = 0) -> None:
+    """cur[dst_lo + r, half:] |= OR_k x_in[idx[r, k], half:] for the rows
+    r of `idx`."""
     idx64 = idx.long()
     extra = x_in[idx64[:, 0], half:]
     for k in range(1, idx.shape[1]):
         extra |= x_in[idx64[:, k], half:]
-    cur[: idx.shape[0], half:] |= extra
+    cur[dst_lo: dst_lo + idx.shape[0], half:] |= extra
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -218,3 +218,8 @@ def word_cols_T(plane: torch.Tensor, rows: int,
                       device=plane.device)
     out.copy_(plane[:rows, words.long()].t())
     return out
+
+
+def or_combine(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst |= src, elementwise."""
+    dst |= src

@@ -35,9 +35,12 @@ line for line, so both packages build and maintain the very same closure.
 What differs is the device plane: `_upload_plane` builds a NEW int32
 tensor from the closure rows every time (a copy, as the reference's
 `jnp.asarray`), never writing a plane in place, so a batch holding an
-older `view` keeps reading the plane it captured.  The reference's
-metrics gauges, HBM-ledger registration and mesh-sharded planes have no
-counterpart here yet (ROADMAP).
+older `view` keeps reading the plane it captured.  The plane is a tuple
+of row blocks: one, or with a mesh one per graph shard (rows padded to a
+multiple of the `graph` axis, as the reference shards them);
+`plane_check` and `plane_word_cols` route each read to its block.  The reference's metrics
+gauges and HBM-ledger registration have no counterpart here yet
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -52,6 +55,8 @@ import numpy as np
 import torch
 
 from ..spicedb import schema as sch
+from . import kernels
+from .ell import _to_device
 from .graph_compile import GraphProgram, PRead, PUnion, PZero, SELF_SLOT
 
 BUDGET_ENV = "SPICEDB_TPU_LEOPARD_BUDGET_BYTES"
@@ -269,7 +274,9 @@ class _Fragment:
     perm_lo: int                  # local row of the permission slot range
     plane_rows: int               # num_objects[rtype]
     key_edges: dict = field(default_factory=dict)   # key -> [(s_l, d_l)]
-    plane: Optional[torch.Tensor] = None   # device int32 [plane_rows, words]
+    # device int32 row blocks of [plane_rows, words]: one, or one per
+    # graph shard under a mesh
+    plane: Optional[tuple] = None
     view: tuple = ()              # (plane, plane_rows) consult snapshot
     live: bool = False
     quarantined: bool = False
@@ -317,6 +324,53 @@ def _close(state: np.ndarray, src: np.ndarray, dst: np.ndarray,
 
 # -- the index ---------------------------------------------------------------
 
+def plane_check(view: tuple, rows: np.ndarray,
+                cols: np.ndarray) -> torch.Tensor:
+    """`check_gather` over a consult view's plane blocks: int32 {0, 2} per
+    (plane row, closure column) pair, in request order.  Each row is
+    routed to its block, one launch per block the rows touch, and the
+    results are reassembled on the first block's device."""
+    blocks, _ = view
+    rows = np.asarray(rows, np.int32)
+    cols = np.asarray(cols, np.int32)
+    b = blocks[0].shape[0]
+    dev0 = blocks[0].device
+    g_of = rows // b
+    parts, order = [], []
+    for g in np.unique(g_of).tolist():
+        sel = np.nonzero(g_of == g)[0]
+        blk = blocks[g]
+        parts.append(kernels.check_gather(
+            blk, _to_device(rows[sel] - g * b, blk.device),
+            _to_device(cols[sel], blk.device)).to(dev0))
+        order.append(sel)
+    if len(parts) == 1:
+        return parts[0]
+    out = torch.empty(len(rows), dtype=torch.int32, device=dev0)
+    if parts:
+        out[torch.from_numpy(np.concatenate(order)).to(dev0)] = \
+            torch.cat(parts)
+    return out
+
+
+def plane_word_cols(view: tuple, words: np.ndarray) -> torch.Tensor:
+    """`word_cols_T` over a consult view's plane blocks: int32 [K, plane
+    rows], the closure word columns `words` made contiguous, each block's
+    real rows joined in row order on the first block's device."""
+    blocks, n_rows = view
+    words = np.asarray(words, np.int32)
+    b = blocks[0].shape[0]
+    dev0 = blocks[0].device
+    parts = []
+    for g, blk in enumerate(blocks):
+        n = min(b, n_rows - g * b)
+        if n <= 0:
+            break
+        parts.append(kernels.word_cols_T(
+            blk, n, _to_device(words, blk.device)).to(dev0))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
 class LeopardIndex:
     """Per-generation materialized closure over the eligible fragments of
     one compiled graph.  Thread discipline: every mutation happens under
@@ -324,9 +378,10 @@ class LeopardIndex:
     holding it); the query path is lock-free against immutable `view`
     snapshots captured under the endpoint lock."""
 
-    def __init__(self, prog: GraphProgram, device=None):
+    def __init__(self, prog: GraphProgram, device=None, mesh=None):
         self.prog = prog
         self.device = torch.device("cpu" if device is None else device)
+        self.mesh = mesh
         self._lock = threading.Lock()
         self._frags: List[_Fragment] = []
         self._by_pair: Dict[Tuple[str, str], _Fragment] = {}
@@ -344,11 +399,12 @@ class LeopardIndex:
     @classmethod
     def build(cls, schema: sch.Schema, prog: GraphProgram,
               caveat_affected=frozenset(), candidate_order: tuple = (),
-              device=None) -> "LeopardIndex":
+              device=None, mesh=None) -> "LeopardIndex":
         """Materialize every statically eligible fragment that fits the
         byte budget, candidates first, then the rest in deterministic
-        pair order."""
-        idx = cls(prog, device)
+        pair order.  With a `mesh` the planes are row-sharded over its
+        `graph` axis."""
+        idx = cls(prog, device, mesh)
         plan = plan_schema(schema)
         order = [p for p in candidate_order if p in plan]
         order += sorted(p for p in plan if p not in set(order))
@@ -479,9 +535,19 @@ class LeopardIndex:
         that captured it keeps it alive and reads it unchanged."""
         t0 = time.perf_counter()
         rows = frag.state[frag.perm_lo:frag.perm_lo + frag.plane_rows]
-        host = torch.from_numpy(np.ascontiguousarray(rows).view(np.int32))
+        host = np.ascontiguousarray(rows).view(np.int32)
+        # one block of rows per graph shard (rows padded to a multiple of
+        # the axis) on data replica 0's devices; one block without a mesh
+        devices = (self.mesh.devices[0] if self.mesh is not None
+                   else (self.device,))
+        pad = (-frag.plane_rows) % len(devices)
+        if pad:
+            host = np.vstack([host, np.zeros((pad, frag.words), np.int32)])
+        b = host.shape[0] // len(devices)
         # copy=True: on the CPU `.to()` would alias the host closure
-        plane = host.to(self.device, copy=True)
+        plane = tuple(
+            torch.from_numpy(host[g * b:(g + 1) * b]).to(dev, copy=True)
+            for g, dev in enumerate(devices))
         frag.plane = plane
         frag.view = (plane, frag.plane_rows)
         self.upload_s += time.perf_counter() - t0

@@ -93,7 +93,7 @@ from .ell import (K_AUX, EllKernelCache, _to_device, batch_words,
                   build_cav_tables, build_tables)
 from .graph_compile import (GraphProgram, caveat_affected_pairs,
                             compile_graph, compile_graph_columnar)
-from .leopard import LeopardIndex
+from .leopard import LeopardIndex, plane_check, plane_word_cols
 from .spmv import KernelCache as SegmentKernelCache
 from .spmv import pad_edges
 
@@ -256,7 +256,7 @@ class _EllGraph:
         self.supports_cav_deltas = True
         tree_depth = t.tree_depth
         a_shared = t.idx_aux.shape[0]
-        self.host_cav = None
+        self.host_cav = ct = None
         if self.has_cav:
             ct = build_cav_tables(prog, a_shared)
             if ct.n_aux_cav:
@@ -271,17 +271,6 @@ class _EllGraph:
         self.host_main = t.idx_main
         self.host_aux = t.idx_aux
         self._spare_aux = list(t.spare_rows)
-        # copies: on the CPU `.to()` would alias the host tables
-        self.dev_main = torch.from_numpy(t.idx_main).to(device, copy=True)
-        self.dev_aux = torch.from_numpy(t.idx_aux).to(device, copy=True)
-        self.dev_cav = (torch.from_numpy(self.host_cav).to(device, copy=True)
-                        if self.has_cav else None)
-        self.kernel = EllKernelCache(prog, n_aux_rows=t.idx_aux.shape[0],
-                                     tree_depth=tree_depth, device=device,
-                                     num_iters=num_iters,
-                                     shared_tree_depth=t.tree_depth,
-                                     host_main=t.idx_main,
-                                     planes=self.has_cav)
         self._dirty_main: set = set()
         self._dirty_aux: set = set()
         self._dirty_cav: set = set()
@@ -295,6 +284,23 @@ class _EllGraph:
         self.ids_np: dict = {}
         self.ids_np_published: set = set()
         self.last_trace = None   # sweep trace of the last kernel batch
+        self._init_device(t, ct, tree_depth, device, num_iters)
+
+    def _init_device(self, t, ct, tree_depth: int, device,
+                     num_iters: Optional[int]) -> None:
+        """Upload the host tables (`ct` the caveat tables, or None) and
+        build the kernel cache that sweeps them."""
+        # copies: on the CPU `.to()` would alias the host tables
+        self.dev_main = torch.from_numpy(t.idx_main).to(device, copy=True)
+        self.dev_aux = torch.from_numpy(t.idx_aux).to(device, copy=True)
+        self.dev_cav = (torch.from_numpy(self.host_cav).to(device, copy=True)
+                        if self.has_cav else None)
+        self.kernel = EllKernelCache(self.prog, n_aux_rows=t.idx_aux.shape[0],
+                                     tree_depth=tree_depth, device=device,
+                                     num_iters=num_iters,
+                                     shared_tree_depth=t.tree_depth,
+                                     host_main=t.idx_main,
+                                     planes=self.has_cav)
 
     # -- tree walking --------------------------------------------------------
 
@@ -641,6 +647,67 @@ class _SegmentGraph:
         return dev, tel, self.kernel
 
 
+class _ShardedEllGraph(_EllGraph):
+    """The ELL graph over a (data x graph) mesh — the reference's
+    _ShardedEllGraph (jax_endpoint.py:1126-1255).  The host tables and
+    the positionless delta walk are _EllGraph's; the device tables are
+    row blocks owned by a parallel.sharding.ShardedEllKernel, which
+    sweeps them shard by shard.  `flush` goes through the kernel's
+    `update_*_rows` (copy-on-write `scatter_rows` per touched block, the
+    caveat table remapped into the padded row space).  The sharded sweep
+    has no staged step, so no growth flips a stage."""
+
+    def __init__(self, prog: GraphProgram, edge_endpoints, mesh,
+                 num_iters: Optional[int] = None):
+        super().__init__(prog, edge_endpoints, mesh, num_iters)
+
+    def _init_device(self, t, ct, tree_depth: int, mesh,
+                     num_iters: Optional[int]) -> None:
+        from ..parallel.sharding import ShardedEllKernel
+
+        self.kernel = ShardedEllKernel(self.prog, mesh, num_iters=num_iters,
+                                       tables=t, cav=ct)
+
+    def flush(self) -> bool:
+        changed = False
+        for dirty, host, update in (
+                (self._dirty_main, self.host_main,
+                 self.kernel.update_main_rows),
+                (self._dirty_aux, self.host_aux, self.kernel.update_aux_rows),
+                (self._dirty_cav, self.host_cav,
+                 self.kernel.update_cav_rows)):
+            if dirty:
+                rows = np.asarray(sorted(dirty), np.int32)
+                update(rows, host[rows])
+                dirty.clear()
+                changed = True
+        return changed
+
+    def batch_bucket(self, n: int) -> int:
+        # whole words per data shard
+        return self.kernel.padded_batch_words(max(n, 32)) * 32
+
+    def snapshot(self) -> tuple:
+        """The kernel's current [D][G] table blocks; a flush swaps in new
+        blocks and never writes these."""
+        return self.kernel.snapshot_tables()
+
+    def run_checks3_device(self, q_arr, gather_idx, gather_col, snap=None):
+        tables = snap if snap is not None else self.snapshot()
+        q_arr, gi, gc = _unify_check_buckets(q_arr, gather_idx, gather_col)
+        n_words = max(1, len(q_arr) // 32)
+        dev, tel = self.kernel.checks_device(q_arr, n_words, gi, gc, *tables)
+        return dev, tel, self.kernel
+
+    def run_lookup_packed_T_device(self, offset: int, length: int, q_arr,
+                                   snap=None):
+        tables = snap if snap is not None else self.snapshot()
+        n_words = max(1, len(q_arr) // 32)
+        dev, tel = self.kernel.lookup_packed_T_device(offset, length, q_arr,
+                                                      n_words, *tables)
+        return dev, tel, self.kernel
+
+
 _GRAPH_KINDS = {"ell": _EllGraph, "segment": _SegmentGraph}
 
 # Background Leopard re-closes run here, never on the event loop's
@@ -663,17 +730,26 @@ class TorchEndpoint(PermissionsEndpoint):
     """`kernel` picks the graph kind ("ell" or "segment"; default the
     SPICEDB_TPU_KERNEL environment variable, else "ell").  `leopard` is
     the port's form of the reference's LeopardIndex gate, read once here:
-    with it on, every generation builds the closure index."""
+    with it on, every generation builds the closure index.  `mesh` (a
+    parallel.sharding.Mesh) shards the ELL graph and the closure planes
+    over its (data x graph) grid; the endpoint's own device is then shard
+    (0, 0)'s unless `device` names one."""
 
     def __init__(self, schema: sch.Schema, store: Optional[TupleStore] = None,
                  num_iters: Optional[int] = None, device=None,
-                 kernel: Optional[str] = None, leopard: bool = True):
+                 kernel: Optional[str] = None, leopard: bool = True,
+                 mesh=None):
         kind = kernel or os.environ.get("SPICEDB_TPU_KERNEL", "ell")
         if kind not in _GRAPH_KINDS:
             raise ValueError(f"unknown kernel {kind!r}; "
                              f"expected one of {sorted(_GRAPH_KINDS)}")
+        if mesh is not None and kind != "ell":
+            raise ValueError("mesh sharding requires the ell kernel")
+        self.mesh = mesh
         self.kernel_kind = kind
         self._graph_cls = _GRAPH_KINDS[kind]
+        if device is None and mesh is not None:
+            device = mesh.devices[0][0]
         self.device = resolve_device(device)
         self.schema = schema
         self.store = store if store is not None else TupleStore()
@@ -929,8 +1005,12 @@ class TorchEndpoint(PermissionsEndpoint):
             prog = compile_graph(self.schema, tuples, extra_subject_ids=extra)
             self._reset_expiry(tuples)
         _evict_id_views(prev)
-        graph = self._graph_cls(prog, self._edge_endpoints, self.device,
-                                num_iters=self._num_iters)
+        if self.mesh is not None:
+            graph = _ShardedEllGraph(prog, self._edge_endpoints, self.mesh,
+                                     num_iters=self._num_iters)
+        else:
+            graph = self._graph_cls(prog, self._edge_endpoints, self.device,
+                                    num_iters=self._num_iters)
         if tuples is not None:
             graph.index_tuples(tuples)
         self._graph = graph
@@ -947,7 +1027,8 @@ class TorchEndpoint(PermissionsEndpoint):
         self._leopard = (LeopardIndex.build(
             self.schema, prog,
             caveat_affected=frozenset(self._caveat_affected),
-            device=self.device) if self._leopard_wanted else None)
+            device=self.device, mesh=self.mesh)
+            if self._leopard_wanted else None)
         self.stats["rebuilds"] += 1
 
     # -- expiry heap ----------------------------------------------------------
@@ -1336,18 +1417,14 @@ class TorchEndpoint(PermissionsEndpoint):
         return ctx
 
     def _leo_check_launch(self, leo_rows: list) -> list:
-        """Launch one `check_gather` per closure plane over its (row, col)
-        pairs — `((plane[row, col // 32] >> col % 32) & 1) * 2` is exactly
+        """Launch one `check_gather` per closure plane (per plane block
+        under a mesh) over its (row, col) pairs —
+        `((plane[row, col // 32] >> col % 32) & 1) * 2` is exactly
         the reference's `_leo_check_fill` (fragment closures never carry
         CONDITIONAL).  Returns [(request rows, device values)] for the
         finish to read back."""
-        out = []
-        for (view, idx, rows, cls) in leo_rows:
-            plane = view[0]
-            vals = kernels.check_gather(plane, _to_device(rows, plane.device),
-                                        _to_device(cls, plane.device))
-            out.append((idx, vals))
-        return out
+        return [(idx, plane_check(view, rows, cls))
+                for (view, idx, rows, cls) in leo_rows]
 
     def _check_batch_finish(self, ctx: dict) -> list:
         """Phase 2: read the kernel and closure-plane results back,
@@ -1429,13 +1506,11 @@ class TorchEndpoint(PermissionsEndpoint):
                 self.stats["kernel_calls"] += 1
         ctx.update(cols=cols, unknown=unknown, ids=ids, mask=mask, ph=ph)
         if leo is not None:
-            # the batch's distinct closure word columns, one launch
-            (plane, plane_rows), lcols = leo
+            # the batch's distinct closure word columns, one launch (one
+            # per plane block under a mesh)
+            view, lcols = leo
             words = sorted({lcol // 32 for lcol in lcols.values()})
-            dev = (kernels.word_cols_T(plane, plane_rows,
-                                       _to_device(np.asarray(words, np.int32),
-                                                  plane.device))
-                   if words else None)
+            dev = plane_word_cols(view, words) if words else None
             ctx["leopard"] = (dev, {w: k for k, w in enumerate(words)},
                               lcols)
             return ctx

@@ -1,0 +1,110 @@
+"""In-process collectives of the mesh path.
+
+The reference's sharded programs run under `shard_map` and join their
+shards with `lax.all_gather(tiled=True)`, `lax.pmax` and `lax.psum`.  The
+port drives every shard from one process, so its collectives are copies
+between the shards' buffers plus one small kernel:
+
+- `all_gather_rows`: a tiled all_gather along `graph` — each replica's
+  row block is copied into every peer replica (`Tensor.copy_` on row
+  slices: `cudaMemcpyAsync` on one card, a peer copy across cards, ordered
+  by torch against both devices' current streams);
+- `or_allreduce`: a boolean all-reduce along `graph` — the `or_combine`
+  kernel ORs every peer's partial into replica 0, which is then copied
+  back to the peers;
+- `reduce_sweep_deltas`: the convergence flag ORed over every shard and
+  the changed-bit count summed over the `data` shards only (the state is
+  replicated along `graph`; summing over it too would multiply the count
+  by its size, reference parallel/sharding.py:548-552).
+
+`COLLECTIVES` counts the calls and the bytes each collective moved since
+the last `reset_collectives()`, on every device (the CPU included: these
+are copies, not kernels), so a run can hold the bytes a sweep moves
+against `sharding.comm_model`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import kernels
+
+COLLECTIVES: dict = {name: {"calls": 0, "bytes": 0}
+                     for name in ("all_gather_rows", "or_allreduce",
+                                  "reduce_sweep_deltas")}
+
+
+def reset_collectives() -> None:
+    for c in COLLECTIVES.values():
+        c["calls"] = 0
+        c["bytes"] = 0
+
+
+def _count(name: str, nbytes: int) -> None:
+    COLLECTIVES[name]["calls"] += 1
+    COLLECTIVES[name]["bytes"] += nbytes
+
+
+def all_gather_rows(replicas: list, lo: int, hi: int,
+                    cols: tuple = None) -> None:
+    """Rows [lo, hi) of the replicas (one data shard's graph replicas,
+    [rows, words] each) split into len(replicas) equal blocks, block g
+    owned by replicas[g]: copy each block into every peer.  `cols` = (a,
+    b) copies only words [a, b) of each row (the maybe plane)."""
+    n = len(replicas)
+    if n == 1:
+        return
+    if (hi - lo) % n:
+        raise ValueError(f"rows [{lo}, {hi}) do not split into {n} blocks")
+    b = (hi - lo) // n
+    moved = 0
+    for g, src in enumerate(replicas):
+        blk = src[lo + g * b: lo + (g + 1) * b]
+        if cols is not None:
+            blk = blk[:, cols[0]: cols[1]]
+        for j, dst in enumerate(replicas):
+            if j == g:
+                continue
+            out = dst[lo + g * b: lo + (g + 1) * b]
+            if cols is not None:
+                out = out[:, cols[0]: cols[1]]
+            out.copy_(blk)
+            moved += blk.numel() * blk.element_size()
+    _count("all_gather_rows", moved)
+
+
+def or_allreduce(partials: list, impl=kernels) -> None:
+    """partials[g] |= every peer's partial, in place, for one data shard's
+    graph replicas: reduce into partials[0], then copy the result to the
+    peers — (G-1) combines and (G-1) copies.  `impl.or_combine` (the
+    kernel, or its twin) reads a peer on the same device directly; a peer
+    on another device is first copied next to partials[0]."""
+    n = len(partials)
+    if n == 1:
+        return
+    root = partials[0]
+    moved = 0
+    for src in partials[1:]:
+        if src.device != root.device:
+            src = src.to(root.device)
+        impl.or_combine(root, src)
+        moved += src.numel() * src.element_size()
+    for dst in partials[1:]:
+        dst.copy_(root)
+        moved += root.numel() * root.element_size()
+    _count("or_allreduce", moved)
+
+
+def reduce_sweep_deltas(deltas: list) -> tuple:
+    """One sweep's per-shard `sweep_delta` pairs ([D][G] int32 [2]
+    tensors: changed-bit count, any change) -> (global count as int32,
+    changed anywhere).  One readback for the whole mesh."""
+    flat = [t for row in deltas for t in row]
+    dev = flat[0].device
+    vals = torch.stack([t.to(dev) for t in flat]).tolist()
+    n_graph = len(deltas[0])
+    count = sum(vals[d * n_graph][0] for d in range(len(deltas)))
+    changed = any(v[1] for v in vals)
+    _count("reduce_sweep_deltas", 8 * len(flat))
+    return int(np.int64(count).astype(np.int32)), changed

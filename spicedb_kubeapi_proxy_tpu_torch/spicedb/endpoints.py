@@ -344,7 +344,16 @@ def create_endpoint(url: str,
     """Endpoint registry dispatching on URL scheme
     (reference options.go:307-369).  `torch://` runs on the CUDA device
     unless `torch://?device=cpu` or `device="cpu"` asks for the CPU; a
-    missing CUDA device raises instead of falling back."""
+    missing CUDA device raises instead of falling back.
+
+    `torch://?mesh=auto|DxG` shards the ELL graph over a (data x graph)
+    mesh, as `jax://?mesh=` does (reference endpoints.py:464-501): `auto`
+    splits every visible card and builds no mesh when one is visible;
+    `DxG` takes the first D*G cards and is a configuration error when
+    fewer are visible.  With `device=cpu` the D*G shards are co-located
+    on the CPU (the counterpart of the reference's virtual CPU devices);
+    `auto` there builds no mesh.  Under the MeshExecution gate off, `auto`
+    builds no mesh and `DxG` is a configuration error."""
     split = urlsplit(url)
     scheme = split.scheme
     params = parse_qs(split.query)
@@ -359,13 +368,54 @@ def create_endpoint(url: str,
                     f"device={params['device'][0]!r} in {url!r} conflicts "
                     f"with device={kwargs['device']!r}")
             kwargs["device"] = params["device"][0]
-        unknown = set(params) - {"device"}
+        unknown = set(params) - {"device", "mesh"}
         if unknown:
             raise EndpointConfigError(
                 f"unsupported torch:// parameters {sorted(unknown)} in {url!r}")
+        mesh_param = (params.get("mesh") or [""])[0]
+        if mesh_param and "mesh" not in kwargs:
+            mesh = _torch_mesh(mesh_param, kwargs.get("device"), url)
+            if mesh is not None:
+                kwargs["mesh"] = mesh
         if store is not None:
             kwargs["store"] = store
         return TorchEndpoint.from_bootstrap(bootstrap, **kwargs)
     raise EndpointConfigError(
         f"unsupported spicedb endpoint scheme {scheme!r} "
         f"(this package serves embedded:// and torch://)")
+
+
+def _torch_mesh(param: str, device, url: str):
+    """The mesh a `torch://?mesh=` value asks for, or None (see
+    create_endpoint)."""
+    import torch
+
+    from ..parallel.sharding import make_mesh
+    from ..utils import features
+    if not features.MESH_EXECUTION:
+        if param != "auto":
+            raise EndpointConfigError(
+                f"mesh={param!r} in {url!r} requires the MeshExecution "
+                f"feature gate (disabled)")
+        return None
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    if param == "auto":
+        n = 1 if on_cpu else torch.cuda.device_count()
+        return make_mesh() if n > 1 else None
+    try:
+        data_s, _, graph_s = param.partition("x")
+        d, g = int(data_s), int(graph_s)
+        if d < 1 or g < 1:
+            raise ValueError(f"mesh axes must be positive, got {d}x{g}")
+        if on_cpu:
+            return make_mesh([torch.device("cpu")] * (d * g), data=d,
+                             graph=g)
+        n = torch.cuda.device_count()
+        if d * g > n:
+            raise ValueError(f"mesh {d}x{g} needs {d * g} devices, have {n}")
+        # an explicit DxG smaller than the host takes the first d*g cards
+        return make_mesh([torch.device("cuda", i) for i in range(d * g)],
+                         data=d, graph=g)
+    except ValueError as e:
+        raise EndpointConfigError(
+            f"invalid mesh {param!r} in {url!r}: {e}") from e

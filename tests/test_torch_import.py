@@ -102,6 +102,42 @@ def test_index_and_segment_kernel_run_with_jax_blocked():
             "spicedb_kubeapi_proxy_tpu_torch.ops.spmv"} <= set(res["modules"])
 
 
+_PROBE_SLICE5 = r"""
+import json, sys
+sys.modules["jax"] = None          # any `import jax` now raises
+import asyncio
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import (
+    Bootstrap, create_endpoint)
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import SubjectRef
+bs = Bootstrap(
+    "definition user {}\ndefinition doc { relation viewer: user\n"
+    "permission view = viewer }", "doc:d1#viewer@user:ann")
+ep = create_endpoint("torch://?mesh=2x4&device=cpu", bs)
+ids = asyncio.run(ep.lookup_resources("doc", "view",
+                                      SubjectRef("user", "ann")))
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None)
+print(json.dumps({"ids": list(ids), "mesh": ep.mesh.shape,
+                  "graph": type(ep._graph).__name__, "modules": loaded}))
+"""
+
+
+def test_mesh_path_runs_with_jax_blocked():
+    """The slice-5 modules (parallel/, utils/features.py) load and serve
+    `torch://?mesh=` with jax unimportable, and import nothing of the
+    reference."""
+    out = subprocess.run([sys.executable, "-c", _PROBE_SLICE5], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["ids"] == ["d1"] and res["graph"] == "_ShardedEllGraph"
+    assert res["mesh"] == {"data": 2, "graph": 4}
+    assert not [m for m in res["modules"] if _is_forbidden(m)]
+    assert {"spicedb_kubeapi_proxy_tpu_torch.parallel.sharding",
+            "spicedb_kubeapi_proxy_tpu_torch.parallel.collectives",
+            "spicedb_kubeapi_proxy_tpu_torch.utils.features"} <= \
+        set(res["modules"])
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), str(path))
     for node in ast.walk(tree):

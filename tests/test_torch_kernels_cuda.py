@@ -350,3 +350,185 @@ def test_card_and_cpu_agree_on_the_leopard_plane():
     assert kernels.LAUNCHES["word_cols_T"] == 1
     assert kernels.LAUNCHES["check_gather"] == 1
     assert kernels.LAUNCHES["sweep_delta"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1), (7, 3), (4_099, 8), (100_000, 4)])
+def test_or_combine_matches_its_twin(shape):
+    """dst |= src on random words (bit 31 live), the 16-byte path and the
+    scalar tail alike; a row-offset view takes the unaligned path."""
+    _needs_card()
+    rng = np.random.default_rng(shape[0])
+    dst, src = _rand(rng, shape), _rand(rng, shape)
+    kernels.reset_launches()
+    a, b = dst.clone(), dst.clone()
+    kernels.or_combine(a, src)
+    reference.or_combine(b, src)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, dst | src)
+    if shape[0] > 1:
+        a, b = dst[1:].clone(), dst[1:].clone()
+        kernels.or_combine(a, src[1:])
+        reference.or_combine(b, src[1:])
+        assert torch.equal(a, b)
+    with pytest.raises(kernels.KernelError):
+        kernels.or_combine(a, a)
+    assert kernels.LAUNCHES["or_combine"] == (2 if shape[0] > 1 else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half", [1, 4])
+def test_cav_gather_or_block_form_matches_its_twin(half):
+    """The mesh shard's form: one row block of the caveat table ORed into
+    the maybe words of rows [dst_lo, dst_lo + R) of the state."""
+    _needs_card()
+    rng = np.random.default_rng(half)
+    nt = 4_000
+    x = _rand(rng, (nt, 2 * half))
+    x_in = _rand(rng, (nt, 2 * half))
+    idx = torch.from_numpy(rng.integers(0, nt, (nt // 4, 8))
+                           .astype(np.int32)).cuda()
+    kernels.reset_launches()
+    for dst_lo in (0, 1_000, nt - nt // 4):
+        a, b = x.clone(), x.clone()
+        kernels.cav_gather_or(a, x_in, idx, half, dst_lo=dst_lo)
+        reference.cav_gather_or(b, x_in, idx, half, dst_lo=dst_lo)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        outside = torch.ones(nt, dtype=torch.bool, device="cuda")
+        outside[dst_lo: dst_lo + nt // 4] = False
+        assert torch.equal(a[outside], x[outside])
+        assert torch.equal(a[:, :half], x[:, :half])
+    with pytest.raises(kernels.KernelError):
+        kernels.cav_gather_or(x.clone(), x_in, idx, half, dst_lo=nt - 10)
+    assert kernels.LAUNCHES["cav_gather_or"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", ["1x2", "2x4"])
+def test_mesh_endpoint_on_the_card_agrees_with_the_cpu(mesh):
+    """A mesh of shards co-located on one card answers as the same mesh on
+    the CPU twins and as the single-device endpoint, with every per-shard
+    kernel launched and the caveat path in play."""
+    _needs_card()
+    from spicedb_kubeapi_proxy_tpu_torch.ops.torch_endpoint import (
+        TorchEndpoint)
+    from spicedb_kubeapi_proxy_tpu_torch.parallel.sharding import make_mesh
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb import schema as sch
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        CheckRequest, ObjectRef, SubjectRef)
+    w = workloads.caveated_rbac(n_pods=400, n_users=300, n_groups=10)
+    d, g = (int(v) for v in mesh.split("x"))
+    eps = []
+    for dev in ("cpu", "cuda"):
+        ep = TorchEndpoint(sch.parse_schema(w.schema_text), device=dev,
+                           mesh=make_mesh([dev] * (d * g), data=d, graph=g),
+                           leopard=False)
+        ep.store.bulk_load_text("\n".join(w.relationships))
+        eps.append(ep)
+    single = create_endpoint("torch://", Bootstrap(
+        w.schema_text, "\n".join(w.relationships)))
+    subs = [SubjectRef("user", u) for u in w.subjects[:70]]
+    pods = single.graph().prog.object_ids["pod"][:200]
+    reqs = [CheckRequest(ObjectRef("pod", p), "view", subs[i % 70])
+            for i, p in enumerate(pods)]
+    kernels.reset_launches()
+    import asyncio
+    out = []
+    for ep in eps + [single]:
+        look = asyncio.run(ep.lookup_resources_batch("pod", "view", subs))
+        chk = asyncio.run(ep.check_bulk_permissions(reqs))
+        out.append(([sorted(x) for x in look],
+                    [c.permissionship for c in chk]))
+    assert out[0] == out[1] == out[2]
+    assert eps[1]._graph.kernel.planes
+    for name in ("ell_gather_or", "perm_program", "sweep_delta",
+                 "seed_bitplanes", "check_gather3", "lookup_T",
+                 "cav_gather_or"):
+        assert kernels.LAUNCHES[name] > 0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
+@pytest.mark.parametrize("workload", ["caveated", "groups"])
+def test_mesh_across_cards_agrees_with_the_cpu(mesh, workload):
+    """Shards on distinct cards (`torch://?mesh=DxG` takes the first D*G):
+    each kernel launches on its shard's card and the collectives copy
+    between cards.  Answers before and after a write flushed into the
+    blocks equal the co-located CPU mesh's and the single-device
+    endpoint's; with the index on, the Leopard plane's blocks sit on
+    the graph shards' cards.  ShardedKernel (the edge-sharded sweep with
+    its OR all-reduce) answers as on the CPU."""
+    _needs_card()
+    d, g = (int(v) for v in mesh.split("x"))
+    if torch.cuda.device_count() < d * g:
+        pytest.skip(f"needs {d * g} CUDA devices (one shard a card)")
+    import asyncio
+
+    from spicedb_kubeapi_proxy_tpu_torch.parallel.sharding import (
+        ShardedKernel, make_mesh)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        CheckRequest, ObjectRef, RelationshipUpdate, SubjectRef, UpdateOp,
+        parse_relationship)
+    if workload == "caveated":
+        w = workloads.caveated_rbac(n_pods=400, n_users=300, n_groups=10)
+        rtype, perm = "pod", "view"
+    else:
+        w = workloads.group_explosion(n_groups=400, n_users=100, n_docs=300,
+                                      depth=4)
+        rtype, perm = "doc", "view"
+    bs = Bootstrap(w.schema_text, "\n".join(w.relationships))
+    eps = [create_endpoint(f"torch://?mesh={mesh}&device=cpu", bs),
+           create_endpoint(f"torch://?mesh={mesh}", bs),
+           create_endpoint("torch://", bs)]
+    cards = [torch.device("cuda", i) for i in range(d * g)]
+    assert [dev for row in eps[1].mesh.devices for dev in row] == cards
+    subs = [SubjectRef("user", u) for u in w.subjects[:70]]
+    objs = eps[2].graph().prog.object_ids[rtype][:200]
+    reqs = [CheckRequest(ObjectRef(rtype, o), perm, subs[i % 70])
+            for i, o in enumerate(objs) if "\x00" not in o]
+
+    def answers():
+        out = []
+        for ep in eps:
+            look = asyncio.run(ep.lookup_resources_batch(rtype, perm, subs))
+            chk = asyncio.run(ep.check_bulk_permissions(reqs))
+            out.append(([sorted(x) for x in look],
+                        [c.permissionship for c in chk]))
+        assert out[0] == out[1] == out[2]
+        return out[0]
+
+    kernels.reset_launches()
+    answers()
+    assert sum(kernels.LAUNCHES.values()) > 0
+    if workload == "groups":
+        frag = eps[1]._leopard.lookup_frag("doc", "view")
+        assert frag is not None and \
+            [b.device for b in frag.plane] == cards[:g]
+    else:
+        assert eps[1].graph().kernel.planes
+    # a membership write for a queried subject, absorbed by every
+    # endpoint (three stores) and flushed into the mesh's blocks
+    member = next(r for r in w.relationships if "#member@user:" in r)
+    rel = member.split("@")[0] + "@user:" + w.subjects[0]
+    for ep in eps:
+        ep.store.write([RelationshipUpdate(UpdateOp.TOUCH,
+                                           parse_relationship(rel))])
+    answers()
+    assert eps[1].stats["rebuilds"] == eps[2].stats["rebuilds"]
+
+    prog = eps[2].graph().prog
+    q = np.random.default_rng(5).integers(0, prog.dead_index, 37) \
+        .astype(np.int32)
+    off, length = prog.slot_range(rtype, perm)
+    gi = np.random.default_rng(6).integers(0, prog.state_size, 300) \
+        .astype(np.int32)
+    gc = np.random.default_rng(7).integers(0, 37, 300).astype(np.int32)
+    got = []
+    for devs in (["cpu"] * (d * g), cards):
+        sk = ShardedKernel(prog, make_mesh(devs, data=d, graph=g))
+        src, dst = sk.device_edges()
+        got.append((np.asarray(sk.lookup(off, length, q, src, dst)),
+                    np.asarray(sk.checks(q, gi, gc, src, dst))))
+    assert np.array_equal(got[0][0], got[1][0])
+    assert np.array_equal(got[0][1], got[1][1])

@@ -262,7 +262,7 @@ def assert_same_fragment(pf, rf) -> None:
     assert {k: [tuple(e) for e in v] for k, v in pf.key_edges.items()} == \
         {k: [tuple(e) for e in v] for k, v in rf.key_edges.items()}
     if rf.plane is not None and not pf.retired:
-        plane = pf.plane.numpy().view(np.uint32)
+        plane = pf.plane[0].numpy().view(np.uint32)
         assert np.array_equal(plane, np.asarray(rf.plane))
         assert pf.view[1] == rf.view[1] and pf.view[0] is pf.plane
 
@@ -437,11 +437,11 @@ def test_plane_snapshot_survives_maintenance():
     p = Pair()
     p.agree(["alice", "zed"])
     frag = p.port._leopard.lookup_frag("doc", "view")
-    plane0 = frag.plane
+    plane0 = frag.plane[0]
     copy0 = plane0.clone()
     p.write(touch("group:g1#member@user:zed"))
     p.agree(["alice", "zed"])
-    assert frag.plane is not plane0 and bool((plane0 == copy0).all())
+    assert frag.plane[0] is not plane0 and bool((plane0 == copy0).all())
 
 
 def test_index_converted_from_the_reference_maintains_alike():
@@ -534,7 +534,7 @@ def test_small_group_explosion_with_bench_churn(kernel):
     assert allowed > 0
     assert p.port._leopard.status_map()["doc#view"] == "indexed"
     frag = p.port._leopard.lookup_frag("doc", "view")
-    assert bool((frag.plane < 0).any())   # a column with bit 31 set
+    assert bool((frag.plane[0] < 0).any())   # a column with bit 31 set
     assert int(b.graph().last_trace[0]) > 2   # B sweeps the chains
     for _ in range(3):
         ops = []
