@@ -94,6 +94,12 @@ deployment (`models/workloads.py multitenant_1m()` with its defaults:
    `doc#view` indexed in one plane block per graph shard, reads served
    from it with no sweep kernel, answers equal A's.
 
+Wherever `lookup_T` and `scatter_rows` are timed (phases 6, 9, 10, 11,
+13a), their rows also carry the device-only time, the time with L2
+flushed and the host cost per call, of the kernel and of its library
+yardstick (`attribute`), so that a gap between the event-timed loops is
+put down to the card or to the host.
+
 Phases run in the order 1-9, 11, 13a-b, 10, 13c, 12, 13d, and each
 phase's seconds are logged.  Any failed phase raises and the script
 exits non-zero.  The second-to-last line is the kernel table as JSON,
@@ -121,6 +127,8 @@ N_CHECKS = 10_000       # (pod, subject) pairs per check batch
 ORACLE_LOOKUPS = 4
 ORACLE_CHECKS = 2_000
 REPS = 10               # timing repetitions per kernel measurement
+ATTR_CALLS = 50         # calls per device-only / host-cost measurement
+L2_FLUSH_BYTES = 256 << 20   # scratch written before each cold call (> 5 x L2)
 
 # phase 9, the write path (per round)
 N_ROUNDS = 16
@@ -258,6 +266,135 @@ class Timer:
         for _ in range(reps):
             fn()
         return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _profile(fn, n: int, before=None) -> dict:
+    """{name: [launches, microseconds]} of the device activity (kernels,
+    copies, memsets) of `n` calls of `fn`, each after `before()` if
+    given, as torch.profiler's CUDA activity records it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            if before is not None:
+                before()
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU or getattr(
+                e, "is_user_annotation", False):
+            continue
+        acc = out.setdefault(e.name, [0, 0.0])
+        acc[0] += 1
+        acc[1] += e.time_range.elapsed_us()
+    return out
+
+
+def _graph_ms(fn, n: int, before=None) -> float:
+    """Device ms per call of `n` calls of `fn` (each after `before()` if
+    given): CUDA events around one replay of a CUDA graph that captured
+    them."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(n):
+            if before is not None:
+                before()
+            fn()
+    graph.replay()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    graph.replay()
+    ev1.record()
+    ev1.synchronize()
+    del graph
+    return ev0.elapsed_time(ev1) / n
+
+
+def attribute(fn, n: int = ATTR_CALLS) -> dict:
+    """One callable's time on the card, four ways, so that device time
+    and per-call host cost are reported apart:
+
+    event_ms   (a) CUDA events around REPS back-to-back calls (Timer.ms);
+    device_ms  (b) device time per call of its kernels, copies and
+               memsets over `n` back-to-back calls;
+    host_us    (c) wall time of `n` calls with no synchronise, per call;
+    cold_ms    (d) device time per call when each call follows a write of
+               L2_FLUSH_BYTES of scratch (the 50 MB L2 flushed; the
+               write itself not counted).
+
+    (b) and (d) come from torch.profiler's CUDA activity (device_by
+    "profiler"; it records the ctypes launches too) when its record is
+    whole: every activity seen `n` times or a multiple of it, the same
+    in both runs (in (d) the activities (b) did not see are the scratch
+    write).  Otherwise (device_by "graph") from CUDA events around the
+    replay of a CUDA graph of the `n` calls, (d) less a graph of the `n`
+    scratch writes alone.  `launches` is the profiler's activities per
+    call.
+    """
+    import torch
+
+    timer = Timer(torch, torch.device("cuda"))
+    out = {"event_ms": timer.ms(fn)}
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                          device="cuda")
+    flush = lambda: scratch.fill_(1)
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    warm = _profile(fn, n)
+    cold = {k: v for k, v in _profile(fn, n, flush).items() if k in warm}
+    counts = {k: c for k, (c, _) in warm.items()}
+    launches = sum(counts.values()) / n
+    if counts and all(c % n == 0 for c in counts.values()) and counts == {
+            k: c for k, (c, _) in cold.items()}:
+        out.update(device_by="profiler",
+                   device_ms=sum(t for _, t in warm.values()) / n / 1e3,
+                   cold_ms=sum(t for _, t in cold.values()) / n / 1e3)
+    else:
+        out.update(device_by="graph", device_ms=_graph_ms(fn, n),
+                   cold_ms=_graph_ms(fn, n, flush) - _graph_ms(flush, n))
+    out.update(launches=launches, device_names=sorted(warm))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    out["host_us"] = (time.perf_counter() - t0) * 1e6 / n
+    torch.cuda.synchronize()
+    del scratch
+    return out
+
+
+def split_times(kernel_fn, library_fn) -> dict:
+    """The device-only, cold and host columns (`attribute` (b)-(d)) of a
+    kernel and of its library yardstick, as extra fields of a kernel row
+    (PERF.md rows 4c, 8, 11, 13)."""
+    k = attribute(kernel_fn)
+    lib = attribute(library_fn)
+    return {"device_ms": k["device_ms"], "cold_ms": k["cold_ms"],
+            "host_us": k["host_us"], "device_by": k["device_by"],
+            "launches_per_call": k["launches"],
+            "library_device_by": lib["device_by"],
+            "library_device_ms": lib["device_ms"],
+            "library_cold_ms": lib["cold_ms"],
+            "library_host_us": lib["host_us"]}
+
+
+def _log_split(label: str, t: dict) -> None:
+    log(f"{label}: device {t['device_ms']:.6f} ms ({t['device_by']}, "
+        f"{t['launches_per_call']:g} launches a call), cold "
+        f"{t['cold_ms']:.6f} ms, host {t['host_us']:.2f} us a call; library "
+        f"device {t['library_device_ms']:.6f} ms, cold "
+        f"{t['library_cold_ms']:.6f} ms, host {t['library_host_us']:.2f} us")
 
 
 def load(device: str, workload_kwargs: dict, generator: str = "multitenant_1m"):
@@ -474,6 +611,11 @@ def kernels_vs_twins(ep, batches, reqs, timer, peak):
         2 * length * word, 0,
         library_ms=timer.ms(
             lambda: x_final.narrow(0, off, length).t().contiguous()))
+    if timer.cuda:
+        rows["lookup_T"].update(split_times(
+            lambda: kernels.lookup_T(x_final, off, length),
+            lambda: x_final.narrow(0, off, length).t().contiguous()))
+        _log_split(f"lookup_T [{n_words}, {length}]", rows["lookup_T"])
     bad = {n: r["max_abs_err"] for n, r in rows.items() if r["max_abs_err"]}
     if bad:
         raise AssertionError(f"kernels disagree with their twins: {bad}")
@@ -739,7 +881,7 @@ def churn(ep, w, timer, peak, warm_lookup_s, n_rounds: int = N_ROUNDS):
     out_row = {"name": "scatter_rows", "route": "cuda",
                "source": KERNEL_SOURCE, "replaces": REPLACES["scatter_rows"],
                "launches": launches["scatter_rows"]}
-    err, ms, plain, lib, nbytes, dims = 0, 0.0, 0.0, 0.0, 0, []
+    err, ms, plain, lib, nbytes, dims, work = 0, 0.0, 0.0, 0.0, 0, [], []
     for src, host_prev, host in zip(prev_tables, prev_host,
                                     (graph.host_main, graph.host_aux)):
         changed = np.nonzero((host != host_prev).any(axis=1))[0]
@@ -761,6 +903,7 @@ def churn(ep, w, timer, peak, warm_lookup_s, n_rounds: int = N_ROUNDS):
         ms += timer.ms(lambda: kernels.scatter_rows(src, rows_t, vals_t))
         plain += timer.ms(lambda: reference.scatter_rows(src, rows_t, vals_t))
         lib += timer.ms(lambda: torch.index_put(src, (rows64,), vals_t))
+        work.append((src, rows_t, vals_t))
         r_, k_ = src.shape
         nbytes += 2 * r_ * k_ * 4 + len(rows_np) * (k_ + 1) * 4
         dims.append(f"[{r_}, {k_}] with {len(rows_np)} rows")
@@ -773,6 +916,18 @@ def churn(ep, w, timer, peak, warm_lookup_s, n_rounds: int = N_ROUNDS):
     out_row.update(max_abs_err=err, ms=ms, plain_ms=plain,
                    bound_ms=nbytes / peak * 1e3, bound_by="bytes",
                    library_ms=lib)
+    if timer.cuda:
+        # the flush (every touched table), then the main table alone
+        out_row.update(split_times(
+            lambda: [kernels.scatter_rows(*a) for a in work],
+            lambda: [torch.index_put(t, (r.long(),), v) for t, r, v in work]))
+        _log_split("scatter_rows, one flush", out_row)
+        main = split_times(
+            lambda: kernels.scatter_rows(*work[0]),
+            lambda: torch.index_put(work[0][0], (work[0][1].long(),),
+                                    work[0][2]))
+        _log_split(f"scatter_rows, {dims[0]}", main)
+        out_row.update({f"first_table_{k}": v for k, v in main.items()})
 
     # the incremental generation answers as a fresh build does
     t0 = time.perf_counter()
@@ -1137,6 +1292,13 @@ def caveats(timer, peak, smi_line, device: str = "cuda",
         2 * length * 4 * n_words, 0,
         library_ms=timer.ms(lambda: x_final.narrow(0, off, length)
                             [:, :n_words].t().contiguous()))
+    if timer.cuda:
+        rows["lookup_T"].update(split_times(
+            lambda: kernels.lookup_T(x_final, off, length, n_words),
+            lambda: x_final.narrow(0, off, length)[:, :n_words].t()
+            .contiguous()))
+        _log_split(f"lookup_T, definite plane [{n_words}, {length}]",
+                   rows["lookup_T"])
     bad = {n: r["max_abs_err"] for n, r in rows.items() if r["max_abs_err"]}
     if bad:
         raise AssertionError(f"caveat-path kernels disagree with their "
@@ -1546,6 +1708,12 @@ def segment_path(ep, w, timer, peak, smi_line, device: str = "cuda",
               2 * length * word, 0, peak,
               library_ms=timer.ms(lambda: x_final.narrow(0, off, length)
                                   .t().contiguous()))
+    if timer.cuda:
+        rows["lookup_T"].update(split_times(
+            lambda: kernels.lookup_T(x_final, off, length),
+            lambda: x_final.narrow(0, off, length).t().contiguous()))
+        _log_split(f"segment lookup_T [{word // 4}, {length}]",
+                   rows["lookup_T"])
     bad = {k: r["max_abs_err"] for k, r in rows.items() if r["max_abs_err"]}
     if bad:
         raise AssertionError(f"segment read kernels disagree: {bad}")
@@ -1640,11 +1808,12 @@ def segment_path(ep, w, timer, peak, smi_line, device: str = "cuda",
                          | (g.host_dst != prev_host[1]))[0].astype(np.int32)
     rows_t = torch.from_numpy(changed).to(dev)
     rows64 = rows_t.long()
-    s_err, s_ms, s_plain, s_lib = 0, 0.0, 0.0, 0.0
+    s_err, s_ms, s_plain, s_lib, s_work = 0, 0.0, 0.0, 0.0, []
     for old, host, live_arr in zip(prev_dev, (g.host_src, g.host_dst),
                                    g.snapshot()):
         old2 = old.view(cap, 1)
         vals = torch.from_numpy(host[changed][:, None].copy()).to(dev)
+        s_work.append((old2, rows_t, vals))
         got = kernels.scatter_rows(old2, rows_t, vals)
         s_err = max(s_err, _diff(got, reference.scatter_rows(old2, rows_t,
                                                              vals)),
@@ -1678,6 +1847,12 @@ def segment_path(ep, w, timer, peak, smi_line, device: str = "cuda",
                             "ms": s_ms, "plain_ms": s_plain,
                             "bound_ms": s_bytes / peak * 1e3,
                             "bound_by": "bytes", "library_ms": s_lib}
+    if timer.cuda:
+        rows["scatter_rows"].update(split_times(
+            lambda: [kernels.scatter_rows(*a) for a in s_work],
+            lambda: [torch.index_put(t, (r.long(),), v)
+                     for t, r, v in s_work]))
+        _log_split("segment flush scatter_rows", rows["scatter_rows"])
     return rows, summary, seg
 
 
@@ -2410,6 +2585,10 @@ def mesh_multitenant(ep, w, mesh, timer, peak, smi_line, device: str = "cuda",
                               for b_, r_, v_ in work])
     s_bytes = sum(2 * b_.numel() * 4 + r_.numel() * 4 + v_.numel() * 4
                   for b_, r_, v_ in work)
+    s_split = split_times(
+        lambda: [kernels.scatter_rows(*a) for a in work],
+        lambda: [torch.index_put(b_, (r_.long(),), v_)
+                 for b_, r_, v_ in work]) if timer.cuda else {}
     if s_err:
         raise AssertionError(f"scatter_rows differs on the table blocks: "
                              f"{s_err}")
@@ -2418,6 +2597,8 @@ def mesh_multitenant(ep, w, mesh, timer, peak, smi_line, device: str = "cuda",
         f"the twins; {s_ms:.6f} ms, twins {s_plain:.6f} ms, torch.index_put "
         f"{s_lib:.6f} ms, bound {s_bytes / peak * 1e3:.6f} ms over {s_bytes}"
         f" bytes")
+    if s_split:
+        _log_split("sharded flush scatter_rows", s_split)
     med = lambda v: statistics.median(v[1:])
     log(f"mesh summary: warm median lookup "
         f"{med(summary['lookup']['e2e_s']):.6f} s (single device on the "
@@ -2433,7 +2614,7 @@ def mesh_multitenant(ep, w, mesh, timer, peak, smi_line, device: str = "cuda",
            "scatter": {"launches": scatter, "max_abs_err": s_err,
                        "ms": s_ms, "plain_ms": s_plain,
                        "bound_ms": s_bytes / peak * 1e3,
-                       "library_ms": s_lib}}
+                       "library_ms": s_lib, **s_split}}
     return m, out
 
 

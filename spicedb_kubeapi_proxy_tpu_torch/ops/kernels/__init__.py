@@ -160,11 +160,18 @@ def _ptr(t: Optional[torch.Tensor]):
 def _run(fn: str, device: torch.device, *args) -> None:
     """Launch `fn` on `device`'s current stream with `device` current, so
     a shard on another card launches in that card's context and is
-    ordered after the work torch queued there."""
+    ordered after the work torch queued there.  The stream is read as a
+    raw handle, and the device is switched only when another one is
+    current: per call that is two lookups, not a Stream object and a
+    device context."""
     lib = _load()
-    with torch.cuda.device(device):
-        code = getattr(lib, fn)(
-            *args, torch.cuda.current_stream(device).cuda_stream)
+    idx = device.index
+    if torch._C._cuda_getDevice() == idx:
+        code = getattr(lib, fn)(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            code = getattr(lib, fn)(
+                *args, torch._C._cuda_getCurrentRawStream(idx))
     if code != 0:
         raise KernelError(f"{fn}: CUDA error {code}: "
                           f"{lib.ell_error_string(code).decode()}")

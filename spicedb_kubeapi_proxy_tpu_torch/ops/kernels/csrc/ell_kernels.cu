@@ -33,11 +33,19 @@
 // streaming pass (a few integer ops per 4-byte word, far below the
 // ~300 op/byte balance point of an H100).  The gathers read rows at data-
 // dependent addresses; with W words per row a warp reads 32/W rows'
-// worth of contiguous W-word segments, so the design goal of this first
-// version is simply one thread per (row, word) — neighbouring threads on
-// neighbouring words of a row, then of the next row — with no shared
-// memory and no tensor cores.  Making them fast (row-per-warp gathers with
-// 16-byte loads, fusing the range copy-back) is later work.
+// worth of contiguous W-word segments, so their design is one thread per
+// (row, word) — neighbouring threads on neighbouring words of a row, then
+// of the next row — with no shared memory and no tensor cores.  Making
+// them fast (row-per-warp gathers with 16-byte loads, fusing the range
+// copy-back) is later work.  Two kernels are redesigned for the card:
+// lookup_T, whose one-thread-per-output-word loads were strided (each
+// 4-byte load cost a 32-byte sector, fetched again by every other word
+// pass), is a tiled transpose through shared memory with 16-byte loads
+// and stores; scatter_rows, a copy launch then a scatter launch that
+// waited on it, is one launch whose blocks copy their span and then
+// write the overrides inside it.  At the main path's sizes (6.4-8.7 MB)
+// both run for a few microseconds, close to the cost of a launch, and
+// the wrapper's host path per call is longer than either.
 //
 // Interface: plain C launchers taking raw device pointers and the CUDA
 // stream, bound from Python with ctypes.  Each launcher returns the CUDA
@@ -303,54 +311,183 @@ __global__ void check_gather3_kernel(const int32_t* __restrict__ x, int H,
     }
 }
 
-// out[w, l] = x[offset + l, w] for the first W words of rows of stride S
-// (S = W, or 2W to read the definite plane of a tri-state row)
-__global__ void lookup_T_kernel(const int32_t* __restrict__ x, int W,
-                                long long S, long long offset, long long L,
-                                int32_t* __restrict__ out) {
-    const long long total = L * W;
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         t < total; t += stride) {
-        const long long w = t / L;
-        const long long l = t - w * L;
-        out[t] = x[(offset + l) * S + w];
+// lookup_T: out[w, l] = x[offset + l, w] for the first W words of rows
+// of stride S (S = W, or 2W to read the definite plane of a tri-state
+// row), as a tiled transpose through shared memory.
+//
+// A block owns a tile of T rows by wc words (blockIdx.x the rows,
+// blockIdx.y the word chunk, wc <= 32, T * wc <= 2048 words).  It reads
+// the tile row by row (neighbouring threads on neighbouring 16-byte words
+// of a row, then of the next row), so each 32-byte sector of the state is
+// fetched once, and writes it transposed into `tile` [wc][P].  After one
+// barrier it stores each output row segment out[w, l0 : l0 + T] with
+// 16-byte stores, neighbouring threads on neighbouring words.  The row
+// pitch P = T + pad keeps the transposing writes free of bank conflicts
+// and the rows 16-byte aligned for the reads: for wc a power of two up to
+// 8 (256 lanes), pad = 32 / wc words (mod 32) puts the 32 lanes of a warp
+// (32 / wc rows by wc words, or 16-byte words of them) on 32 distinct
+// banks; wider chunks take pad 4 and 2- or 4-way conflicts.  Tile indices
+// are 32-bit; the only 64-bit arithmetic is one multiply per loaded row.
+//
+// Ragged edges: the last tile is short (tl < T); a row start that is not
+// 16-byte aligned (offset * S or S or wc not a multiple of 4, or a
+// misaligned base) takes the 4-byte load path; an output row segment that
+// does not start on a 16-byte boundary (L % 4 != 0) is stored as aligned
+// 16-byte words covering it, the partial words at either end one by one.
+// TMA (cp.async.bulk.tensor) would need a tensor map encoded on the host
+// for every call (the state buffer and the slot range change per batch),
+// a driver-API call on a path whose per-call host cost already exceeds
+// the kernel's device time; the 16-byte loads already move each sector
+// once.
+constexpr int kLookupThreads = 256;
+constexpr int kLookupTileWords = 2048;  // T * wc
+constexpr int kLookupMaxChunk = 32;     // words of a row per block (wc)
+constexpr int kLookupUnroll = 4;        // 16-byte loads in flight a thread
+
+__global__ void __launch_bounds__(kLookupThreads)
+lookup_T_kernel(const int32_t* __restrict__ x, int W, long long S,
+                long long offset, long long L, int wc, int T, int P,
+                int vec_load, int32_t* __restrict__ out) {
+    extern __shared__ int4 tile_raw[];
+    int32_t* tile = reinterpret_cast<int32_t*>(tile_raw);  // [wc][P]
+    const long long l0 = (long long)blockIdx.x * T;
+    const int w0 = blockIdx.y * wc;
+    const int wn = min(wc, W - w0);
+    const int tl = (int)min((long long)T, L - l0);
+    const int tid = threadIdx.x;
+    const int32_t* base = x + (offset + l0) * S + w0;
+
+    if (vec_load && (wn & 3) == 0) {
+        const int quads = wn >> 2;             // 16-byte words a row
+        const int units = tl * quads;
+        for (int u0 = tid; u0 < units;
+             u0 += kLookupThreads * kLookupUnroll) {
+            int4 v[kLookupUnroll];
+#pragma unroll
+            for (int i = 0; i < kLookupUnroll; ++i) {
+                const int u = u0 + i * kLookupThreads;
+                if (u < units) {
+                    const int r = u / quads;
+                    const int q = u - r * quads;
+                    v[i] = __ldg(reinterpret_cast<const int4*>(
+                                     base + (long long)r * S) + q);
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < kLookupUnroll; ++i) {
+                const int u = u0 + i * kLookupThreads;
+                if (u < units) {
+                    const int r = u / quads;
+                    const int q = u - r * quads;
+                    int32_t* d = tile + 4 * q * P + r;
+                    d[0] = v[i].x;
+                    d[P] = v[i].y;
+                    d[2 * P] = v[i].z;
+                    d[3 * P] = v[i].w;
+                }
+            }
+        }
+    } else {
+        const int units = tl * wn;
+        for (int u = tid; u < units; u += kLookupThreads) {
+            const int r = u / wn;
+            const int w = u - r * wn;
+            tile[w * P + r] = __ldg(base + (long long)r * S + w);
+        }
+    }
+    __syncthreads();
+
+    // slot j of row w: the aligned 16-byte output word that starts 4j
+    // words after the row segment's first word rounded down to 16 bytes
+    // (`out` is 16-byte aligned)
+    const int slots = (T >> 2) + 1;
+    for (int e = tid; e < wn * slots; e += kLookupThreads) {
+        const int w = e / slots;
+        const int j = e - w * slots;
+        const long long g0 = (long long)(w0 + w) * L + l0;
+        const int m = (int)(g0 & 3);
+        const int lo = 4 * j - m;              // tile column of the slot
+        if (lo >= tl) continue;
+        const int32_t* src = tile + w * P;
+        int32_t* dst = out + (g0 - m) + 4 * j;
+        if (lo >= 0 && lo + 4 <= tl) {
+            int4 v;
+            if (m == 0) {
+                v = *reinterpret_cast<const int4*>(src + lo);
+            } else {
+                v = make_int4(src[lo], src[lo + 1], src[lo + 2], src[lo + 3]);
+            }
+            *reinterpret_cast<int4*>(dst) = v;
+        } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                const int r = lo + c;
+                if (r >= 0 && r < tl) dst[c] = src[r];
+            }
+        }
     }
 }
 
-// out = src, as a grid-stride copy: 16-byte words when both pointers are
-// 16-byte aligned (`vec`), then the < 4 trailing int32 one by one.
-__global__ void copy_words_kernel(const int32_t* __restrict__ src,
-                                  int32_t* __restrict__ out, long long n,
-                                  int vec) {
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    long long done = 0;
+// scatter_rows: out = src with out[rows[i], k] = vals[i, k] (rows
+// outside [0, R) skipped), one launch.  Block i owns the words
+// [i * kScatterSpan, (i + 1) * kScatterSpan) of the flat [R * K] table:
+// it copies them (16-byte loads and stores when both pointers are 16-byte
+// aligned, kScatterVec of them in flight a thread; 4-byte otherwise),
+// then, after a barrier, writes every override word that falls in its
+// span.  A row's overrides are thus ordered after the copy of that row
+// by the block that owns it, with no second launch.  Each thread reads
+// `rows` entries straight from global memory: every entry is read once
+// per block, by one thread, so staging the list in shared memory would
+// add a copy and a barrier without saving a read; the list (<= a few
+// hundred rows a flush) stays in L2.  Equal rows must carry equal values
+// (pad_scatter's padding): their writes then race to the same word with
+// the same bits.  Bound by bytes: 2 * R * K * 4 of copy against
+// b * (K + 1) * 4 of overrides.
+constexpr int kScatterThreads = 256;
+constexpr int kScatterVec = 4;
+constexpr int kScatterSpan = kScatterThreads * kScatterVec * 4;  // words
+
+__global__ void __launch_bounds__(kScatterThreads)
+scatter_rows_kernel(const int32_t* __restrict__ src, long long R, int K,
+                    const int32_t* __restrict__ rows, long long b,
+                    const int32_t* __restrict__ vals, int vec,
+                    int32_t* __restrict__ out) {
+    const long long n = R * K;
+    const long long e0 = (long long)blockIdx.x * kScatterSpan;
+    const long long e1 = min(e0 + kScatterSpan, n);
+    const int tid = threadIdx.x;
     if (vec) {
-        const long long n4 = n >> 2;
-        const int4* __restrict__ s4 = reinterpret_cast<const int4*>(src);
-        int4* __restrict__ o4 = reinterpret_cast<int4*>(out);
-        for (long long t = t0; t < n4; t += stride) o4[t] = __ldg(s4 + t);
-        done = n4 << 2;
+        const int4* __restrict__ s4 = reinterpret_cast<const int4*>(src + e0);
+        int4* __restrict__ o4 = reinterpret_cast<int4*>(out + e0);
+        const int n4 = (int)((e1 - e0) >> 2);
+        int4 v[kScatterVec];
+#pragma unroll
+        for (int i = 0; i < kScatterVec; ++i) {
+            const int t = tid + i * kScatterThreads;
+            if (t < n4) v[i] = __ldg(s4 + t);
+        }
+#pragma unroll
+        for (int i = 0; i < kScatterVec; ++i) {
+            const int t = tid + i * kScatterThreads;
+            if (t < n4) o4[t] = v[i];
+        }
+        const long long e = e0 + 4LL * n4 + tid;   // the table's < 4 last words
+        if (e < e1) out[e] = __ldg(src + e);
+    } else {
+        for (int t = tid; t < (int)(e1 - e0); t += kScatterThreads)
+            out[e0 + t] = __ldg(src + e0 + t);
     }
-    for (long long t = done + t0; t < n; t += stride) out[t] = __ldg(src + t);
-}
-
-// out[rows[i], k] = vals[i, k]; rows outside [0, R) are skipped.  Equal
-// rows must carry equal values (pad_scatter's padding): their writes
-// then race to the same word with the same bits.
-__global__ void scatter_rows_kernel(const int32_t* __restrict__ rows,
-                                    const int32_t* __restrict__ vals,
-                                    long long b, int K, long long R,
-                                    int32_t* __restrict__ out) {
-    const long long total = b * K;
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         t < total; t += stride) {
-        const long long i = t / K;
-        const int k = (int)(t - i * K);
+    __syncthreads();
+    const long long r_lo = e0 / K;               // rows meeting the span
+    const long long r_hi = (e1 - 1) / K;
+    for (long long i = tid; i < b; i += kScatterThreads) {
         const long long r = __ldg(rows + i);
-        if (r >= 0 && r < R) out[r * K + k] = __ldg(vals + t);
+        if (r < r_lo || r > r_hi || r >= R) continue;   // r_lo >= 0
+        const long long rk = r * K;
+        const int32_t* v = vals + i * K;
+        const int k0 = (int)max(0LL, e0 - rk);
+        const int k1 = (int)min((long long)K, e1 - rk);
+        for (int k = k0; k < k1; ++k) out[rk + k] = __ldg(v + k);
     }
 }
 
@@ -396,7 +533,7 @@ __global__ void word_cols_T_kernel(const int32_t* __restrict__ plane, int Wc,
 // partial one-step closure into the local one.  A streaming pass (two
 // reads and one write per word, one OR), so it is bound by bytes: 16-byte
 // words when both pointers are 16-byte aligned (`vec`), then the < 4
-// trailing int32 one by one, as copy_words_kernel.
+// trailing int32 one by one.
 __global__ void or_combine_kernel(int32_t* __restrict__ dst,
                                   const int32_t* __restrict__ src,
                                   long long n, int vec) {
@@ -542,39 +679,40 @@ EXPORT int ell_check_gather3(const void* x, int half, const void* gi,
 
 EXPORT int ell_lookup_T(const void* x, int W, long long S, long long offset,
                         long long L, void* out, void* stream) {
-    if (L <= 0) return 0;
+    if (L <= 0 || W <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
-    lookup_T_kernel<<<grid_for(L * W, kBlock, 1LL << 30), kBlock, 0, s>>>(
-        (const int32_t*)x, W, S, offset, L, (int32_t*)out);
+    const int wc = W < kLookupMaxChunk ? W : kLookupMaxChunk;
+    int T = 1;
+    while (2 * T * wc <= kLookupTileWords) T *= 2;
+    T = T < 32 ? 32 : (T > 1024 ? 1024 : T);
+    if ((uintptr_t)out % 16) return (int)cudaErrorMisalignedAddress;
+    const int pad = (wc & (wc - 1)) == 0 && wc <= 8 ? (32 / wc) % 32 : 4;
+    const int P = T + pad;                      // a multiple of 4
+    const int vec_load = S % 4 == 0 && wc % 4 == 0 &&
+                         ((uintptr_t)x + (uintptr_t)(offset * S * 4)) % 16 == 0;
+    const dim3 grid((unsigned int)((L + T - 1) / T),
+                    (unsigned int)((W + wc - 1) / wc));
+    lookup_T_kernel<<<grid, kLookupThreads, (size_t)wc * P * 4, s>>>(
+        (const int32_t*)x, W, S, offset, L, wc, T, P, vec_load,
+        (int32_t*)out);
     return last_error();
 }
 
 // Copy-on-write row scatter of one gather table (int32 [R, K]): `out` (a
 // fresh buffer) = `src` with rows[i] replaced by vals[i, :].  `src` is
 // only read, so a batch that captured it keeps sweeping the old table.
-// Two launches on one stream — the copy, then the scatter — so the
-// scatter's writes land after the copy of the same rows.  Memory-bound:
-// 2 * R * K * 4 bytes of copy against b * (K + 1) * 4 of scatter.
+// One launch: the copy and the overrides, ordered inside each block.
 EXPORT int ell_scatter_rows(const void* src, long long R, int K,
                             const void* rows, long long b, const void* vals,
                             void* out, int vec, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
     const long long n = R * K;
-    if (n > 0) {
-        const long long work = vec ? (n >> 2) : n;
-        copy_words_kernel<<<grid_for(work, kBlock, 132 * 32), kBlock, 0, s>>>(
-            (const int32_t*)src, (int32_t*)out, n, vec);
-        int e = last_error();
-        if (e) return e;
-    }
-    if (b > 0 && K > 0) {
-        scatter_rows_kernel<<<grid_for(b * K, kBlock, 1LL << 30), kBlock, 0,
-                              s>>>(
-            (const int32_t*)rows, (const int32_t*)vals, b, K, R,
-            (int32_t*)out);
-        return last_error();
-    }
-    return 0;
+    if (n <= 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    scatter_rows_kernel<<<(unsigned int)((n + kScatterSpan - 1) / kScatterSpan),
+                          kScatterThreads, 0, s>>>(
+        (const int32_t*)src, R, K, (const int32_t*)rows, b,
+        (const int32_t*)vals, vec, (int32_t*)out);
+    return last_error();
 }
 
 EXPORT int ell_edge_or(const void* x, const void* src, const void* dst,

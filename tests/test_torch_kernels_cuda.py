@@ -137,6 +137,75 @@ def _rand(rng, shape):
                             .astype(np.int32)).cuda()
 
 
+def _lookup_tile(words: int) -> int:
+    """Rows of one lookup_T tile (ell_kernels.cu ell_lookup_T): the
+    largest power of two with tile * words <= 2048, within [32, 1024]."""
+    t = 1
+    while 2 * t * words <= 2048:
+        t *= 2
+    return min(max(t, 32), 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", ["1", "3", "tile-1", "tile+1", "200003"])
+@pytest.mark.parametrize("planes", [False, True])
+@pytest.mark.parametrize("words", [1, 2, 8, 32])
+def test_lookup_T_edges_match_the_twin(words, planes, length):
+    """The tiled transpose at its ragged edges: a short last tile, an odd
+    row offset (rows not 16-byte aligned at 1 and 2 words), lengths not a
+    multiple of 4 (output rows not 16-byte aligned), rows of one plane or
+    of two (the definite plane of a tri-state row), and 32 words (1,024
+    lanes: the wide-chunk padding)."""
+    _needs_card()
+    tile = _lookup_tile(words)
+    n = {"1": 1, "3": 3, "tile-1": tile - 1, "tile+1": tile + 1,
+         "200003": 200_003}[length]
+    rng = np.random.default_rng(words * 10 + planes)
+    stride = 2 * words if planes else words
+    for offset in (3, 4):
+        x = _rand(rng, (offset + n + 2, stride))
+        kernels.reset_launches()
+        got = kernels.lookup_T(x, offset, n, words)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["lookup_T"] == 1
+        assert torch.equal(got, reference.lookup_T(x, offset, n, words))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("b", [0, 1, 257, 5000])
+@pytest.mark.parametrize("k", [1, 2, 32])
+def test_scatter_rows_edges_match_the_twin(k, b, misaligned):
+    """The one-launch copy and overrides: unsorted rows with duplicates
+    (equal values), rows at and past R and negative ones (skipped), b
+    past one block's 256 threads (a second pass over the list), a table
+    whose word count is not a multiple of 4 or of the block span, and a
+    source at a one-word offset (not 16-byte aligned: the 4-byte copy
+    path).  `src` is left as it was."""
+    _needs_card()
+    r = 12_347
+    rng = np.random.default_rng(k * 1000 + b)
+    flat = _rand(rng, (1 + r * k,))
+    src = flat[int(misaligned):][: r * k].view(r, k)
+    assert (src.data_ptr() % 16 != 0) == misaligned
+    src0 = src.clone()
+    rows = rng.integers(0, r, b).astype(np.int32)
+    if b > 1:
+        rows[: b // 8] = rows[b // 2: b // 2 + b // 8]
+        rows[-4:] = [r, r + 5, 2**31 - 1, -1][-min(4, b):]
+    uniq, first = np.unique(rows, return_index=True)
+    vals = rng.integers(-2**31, 2**31, (b, k), dtype=np.int64).astype(
+        np.int32)[first[np.searchsorted(uniq, rows)]]
+    t_rows = torch.from_numpy(rows).cuda()
+    t_vals = torch.from_numpy(vals.reshape(b, k)).cuda()
+    kernels.reset_launches()
+    got = kernels.scatter_rows(src, t_rows, t_vals)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["scatter_rows"] == 1
+    assert torch.equal(got, reference.scatter_rows(src, t_rows, t_vals))
+    assert torch.equal(src, src0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("lanes", [33, 256])
 def test_plane_kernels_match_their_twins(lanes):
