@@ -18,7 +18,12 @@ deployment (`models/workloads.py multitenant_1m()` with its defaults:
 6. kernels against their plain-torch twins, on the card, on the real
    1M-row tables: every step of two real sweeps, the seed, the delta, the
    check gather and the lookup transpose, bit for bit; then one whole
-   lookup batch re-run on the CPU twins (state, trace and words equal);
+   lookup batch re-run on the CPU twins (state, trace and words equal)
+   and launched step by step (equal to its CUDA graph replays), and a
+   warm endpoint batch that must be one graph replay and one readback a
+   sweep, its launch counts those of the steps; each sweep kernel's
+   launches and the whole sweep, step by step and replayed, timed by
+   `attribute`;
 7. answers against the host oracle on a fixed-seed sample (4 full
    lookups, 2,000 checks);
 8. the sweep byte model and the bound it implies at this card's peak;
@@ -27,7 +32,9 @@ deployment (`models/workloads.py multitenant_1m()` with its defaults:
    touches and 8 deletes, 2 grants that grow a full namespace row), each
    followed by a 256-lane lookup batch and a 10,000-pair check batch that
    read the round's writes; every kernel, `scatter_rows` included, must
-   have launched during the rounds.  No rebuild may happen; after every flush
+   have launched during the rounds (each round's first batch recaptures
+   the sweep graphs, whose host cost is logged).  No rebuild may happen;
+   after every flush
    the card's tables equal the host's; `scatter_rows` is held against its
    twin on one round's real dirty rows (duplicates added); a batch
    captured before a round's writes extracts its old answers after the
@@ -41,7 +48,8 @@ deployment (`models/workloads.py multitenant_1m()` with its defaults:
    somewhere and route nothing to the oracle; every step of a real Jacobi
    sweep, the plane seed, `check_gather3` and the definite-half lookup
    must equal their twins on the full tables, and one whole batch must
-   equal the CPU twins'; a sample of checks (CONDITIONAL ones included)
+   equal the CPU twins' and its step-by-step launch (the graph checks
+   and `attribute` timings of phase 6, on the Jacobi sweep); a sample of checks (CONDITIONAL ones included)
    and one lookup must equal the host oracle's; then 8 rounds of caveat
    churn (new undecidable memberships, re-touches that flip decidability,
    deletes, caveated tuples made definite) must be absorbed without a
@@ -66,8 +74,10 @@ deployment (`models/workloads.py multitenant_1m()` with its defaults:
    one (B) on one store.  `doc#view` must be indexed (and nothing at
    multitenant-1m, over the budget); A's read batches must be served
    from the closure plane (`check_gather` and `word_cols_T`, no sweep
-   kernel) and equal B's and a sample of the oracle's; the plane kernels
-   are held against their twins on the full plane; then 4 rounds of the
+   kernel) and equal B's and a sample of the oracle's; B's staged sweep
+   over the chains is held against the twins step by step and against
+   its step-by-step launch; the plane kernels are held against their
+   twins on the full plane; then 4 rounds of the
    reference bench's tail-user moves (quarantine, background re-close),
    after which `wait_rebuilds()` leaves `doc#view` indexed and A serving
    from the plane again.
@@ -320,7 +330,31 @@ def _graph_ms(fn, n: int, before=None) -> float:
     return ev0.elapsed_time(ev1) / n
 
 
-def attribute(fn, n: int = ATTR_CALLS) -> dict:
+def _events_ms(fn, n: int, before=None) -> float:
+    """Device ms per call of `n` back-to-back calls of `fn` (each after
+    `before()` if given, which is timed alone and taken off): CUDA events
+    around the loop.  For a call that is itself a CUDA graph replay, whose
+    host cost per call is far below its device time."""
+    import torch
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for f, sign in ((fn, 1), (None, -1)) if before is not None else \
+            ((fn, 1),):
+        torch.cuda.synchronize()
+        ev0.record()
+        for _ in range(n):
+            if before is not None:
+                before()
+            if f is not None:
+                f()
+        ev1.record()
+        ev1.synchronize()
+        total += sign * ev0.elapsed_time(ev1)
+    return total / n
+
+
+def attribute(fn, n: int = ATTR_CALLS, capturable: bool = True) -> dict:
     """One callable's time on the card, four ways, so that device time
     and per-call host cost are reported apart:
 
@@ -338,8 +372,10 @@ def attribute(fn, n: int = ATTR_CALLS) -> dict:
     in both runs (in (d) the activities (b) did not see are the scratch
     write).  Otherwise (device_by "graph") from CUDA events around the
     replay of a CUDA graph of the `n` calls, (d) less a graph of the `n`
-    scratch writes alone.  `launches` is the profiler's activities per
-    call.
+    scratch writes alone; a call that replays a graph itself
+    (`capturable` False) is timed by CUDA events around the calls
+    instead (device_by "events").  `launches` is the profiler's
+    activities per call.
     """
     import torch
 
@@ -360,9 +396,12 @@ def attribute(fn, n: int = ATTR_CALLS) -> dict:
         out.update(device_by="profiler",
                    device_ms=sum(t for _, t in warm.values()) / n / 1e3,
                    cold_ms=sum(t for _, t in cold.values()) / n / 1e3)
-    else:
+    elif capturable:
         out.update(device_by="graph", device_ms=_graph_ms(fn, n),
                    cold_ms=_graph_ms(fn, n, flush) - _graph_ms(flush, n))
+    else:
+        out.update(device_by="events", device_ms=_events_ms(fn, n),
+                   cold_ms=_events_ms(fn, n, flush))
     out.update(launches=launches, device_names=sorted(warm))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -372,6 +411,88 @@ def attribute(fn, n: int = ATTR_CALLS) -> dict:
     torch.cuda.synchronize()
     del scratch
     return out
+
+
+def _twin_sweeps(kc, tables, x0, live, n_words: int, label: str) -> tuple:
+    """Two sweeps of a batch from its seed `x0`: every step on the card
+    and on the twins from identical copies, compared after each step,
+    then the deltas.  Returns ({kernel: max error}, the steps, the state
+    after the two sweeps)."""
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.ops.ell import EllKernelCache
+    from spicedb_kubeapi_proxy_tpu_torch.ops.kernels import reference
+    dead = kc.prog.dead_index
+    steps = list(kc.sweep_steps(*tables, n_words=n_words))
+    err = {"ell_gather_or": 0, "perm_program": 0, "sweep_delta": 0}
+    x = x0.clone()
+    for sweep in range(2):
+        cur_k, cur_t = x.clone(), x.clone()
+        for i, step in enumerate(steps):
+            EllKernelCache.run_step(step, cur_k, x0, live, kernels, x_in=x)
+            EllKernelCache.run_step(step, cur_t, x0, live, reference, x_in=x)
+            e = _diff(cur_k, cur_t)
+            err[step[0]] = max(err.get(step[0], 0), e)
+            if e:
+                raise AssertionError(f"{label}: {step[0]} differs from its "
+                                     f"twin at step {i} of sweep {sweep}")
+        d_k = kernels.sweep_delta(cur_k, x, dead)
+        d_t = reference.sweep_delta(cur_t, x, dead)
+        err["sweep_delta"] = max(err["sweep_delta"], _diff(d_k.cpu(), d_t)
+                                 + _diff(cur_k, cur_t))
+        x = cur_k
+    return err, steps, x
+
+
+def sweep_split(kc, tables, x0, live, x, steps, n_words: int,
+                label: str) -> dict:
+    """`attribute` of one sweep's launches on the state `x` (the input of
+    the batch's third sweep): each gather/program kernel's launches of
+    the sweep together, the sweep's input copy and delta, and the whole
+    sweep launched step by step ("eager") and replayed from a CUDA graph
+    ("graph"), as `EllKernelCache.evaluate` runs it."""
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.ops.ell import EllKernelCache, _Arena
+    cur = x.clone()
+    dead = kc.prog.dead_index
+    arena = _Arena(x0=x0, a=x, b=cur, live=live)
+    out = {}
+    for kind in dict.fromkeys(s[0] for s in steps):
+        mine = [s for s in steps if s[0] == kind]
+        out[kind] = attribute(lambda mine=mine: [EllKernelCache.run_step(
+            s, cur, x0, live, kernels, x_in=x) for s in mine])
+        out[kind]["calls"] = len(mine)
+    out["copy"] = attribute(lambda: cur.copy_(x))
+    out["sweep_delta"] = attribute(lambda: kernels.sweep_delta(cur, x, dead))
+    eager = lambda: kc._sweep(x, cur, arena, tables, n_words, kc.plan)
+    out["eager"] = attribute(eager)
+    graph = kernels.LaunchGraph(x.device)
+    graph.capture(eager)
+    out["graph"] = attribute(graph.replay, capturable=False)
+    del graph
+    torch.cuda.synchronize()
+    for k, r in out.items():
+        log(f"{label} {k}: event {r['event_ms']:.6f} ms, device "
+            f"{r['device_ms']:.6f} ms ({r['device_by']}, {r['launches']:g} "
+            f"activities), host {r['host_us']:.2f} us, cold "
+            f"{r['cold_ms']:.6f} ms")
+    return out
+
+
+def _split_into(rows: dict, split: dict) -> None:
+    """Fold `sweep_split` readings into the kernel rows: each kernel's
+    device, cold and host time per sweep, and (under ell_gather_or) the
+    whole sweep's, eager and replayed."""
+    pick = lambda r: {"device_ms": r["device_ms"], "cold_ms": r["cold_ms"],
+                      "host_us": r["host_us"], "event_ms": r["event_ms"],
+                      "device_by": r["device_by"],
+                      "launches_per_call": r["launches"]}
+    for kind, r in split.items():
+        if kind in rows:
+            rows[kind].update(pick(r))
+    rows["ell_gather_or"]["sweep"] = {k: pick(split[k]) for k in
+                                      ("eager", "graph", "copy")}
 
 
 def split_times(kernel_fn, library_fn) -> dict:
@@ -536,23 +657,8 @@ def kernels_vs_twins(ep, batches, reqs, timer, peak):
 
     # two real sweeps, step by step: the kernel and the twin run every
     # step on identical copies, compared after each step
-    steps = list(kc.sweep_steps(main, aux))
-    err = {"ell_gather_or": 0, "perm_program": 0, "sweep_delta": 0}
-    x = x0.clone()
-    for _ in range(2):
-        cur_k, cur_t = x.clone(), x.clone()
-        for step in steps:
-            EllKernelCache.run_step(step, cur_k, x0, live, kernels)
-            EllKernelCache.run_step(step, cur_t, x0, live, reference)
-            err[step[0]] = max(err[step[0]], _diff(cur_k, cur_t))
-            if err[step[0]]:
-                raise AssertionError(f"{step[0]} differs from its twin at "
-                                     f"step {steps.index(step)}")
-        d_k = kernels.sweep_delta(cur_k, x, dead)
-        d_t = reference.sweep_delta(cur_t, x, dead)
-        err["sweep_delta"] = max(err["sweep_delta"], _diff(d_k.cpu(), d_t)
-                                 + _diff(cur_k, cur_t))
-        x = cur_k
+    err, steps, x = _twin_sweeps(kc, (main, aux, None), x0, live, n_words,
+                                 "staged sweep")
     # per-sweep work of each sweep kernel, timed step by step on the
     # state after two sweeps; bytes: each input read once (distinct
     # gathered rows), each output written once
@@ -566,7 +672,7 @@ def kernels_vs_twins(ep, batches, reqs, timer, peak):
         acc[1] += timer.ms(lambda: EllKernelCache.run_step(
             step, cur, x0, live, reference), reps=2)
         if name == "ell_gather_or":
-            _, idx, _, seeded, wcb = step
+            idx, seeded, wcb = step[1], step[3], step[4]
             n, k = idx.shape
             uniq = int(torch.unique(idx).numel())
             acc[2] += (n * k * 4 + uniq * word + n * word * (1 + seeded)
@@ -574,7 +680,7 @@ def kernels_vs_twins(ep, batches, reqs, timer, peak):
                           else 0))
             acc[3] += n * n_words * (k + seeded)
         else:
-            _, code, _, length, _, _ = step
+            code, length = step[1], step[3]
             n_read = int((code[0::2] == 0).sum())
             acc[2] += code.numel() * 4 + length * word * (n_read + 2)
             acc[3] += length * n_words * (code.numel() // 2 + 1)
@@ -585,6 +691,13 @@ def kernels_vs_twins(ep, batches, reqs, timer, peak):
         timer.ms(lambda: kernels.sweep_delta(cur, x_prev, dead)),
         timer.ms(lambda: reference.sweep_delta(cur, x_prev, dead), reps=2),
         2 * nt * word + 8, 3 * nt * n_words)
+    if timer.cuda:
+        # device-only, cold and host time of each kernel's launches of a
+        # sweep, and of the whole sweep step by step and replayed
+        _split_into(rows, sweep_split(kc, (main, aux, None), x0, live, x,
+                                      steps, n_words, "staged sweep"))
+        sweep_bound = (sum(per[k][2] for k in per) + 4 * nt * word + 8)
+        rows["ell_gather_or"]["sweep"]["bound_ms"] = sweep_bound / peak * 1e3
 
     # the converged state of this batch, from the endpoint's own entry
     x_final, _ = kc.evaluate(q, n_words, main, aux, kc.take_arena(n_words))
@@ -642,7 +755,54 @@ def kernels_vs_twins(ep, batches, reqs, timer, peak):
         raise AssertionError("card and CPU-twin sweeps disagree")
     log(f"whole batch on the CPU twins: state and trace {tr_cpu[:1 + tr_cpu[0]]}"
         f" equal the card's ({time.perf_counter() - t0:.1f} s)")
+    if timer.cuda:
+        graph_batch_checks(ep, kc, q, n_words, (main, aux, None), x_dev,
+                           tr_dev, steps, batches[1], "pod", "staged")
     return rows, per, nt
+
+
+def graph_batch_checks(ep, kc, q, n_words: int, tables, x_dev, tr_dev,
+                       steps, batch, rtype: str, label: str) -> None:
+    """The graph-replayed batch (`x_dev`, `tr_dev`) equals the same batch
+    launched step by step; then a warm batch of the endpoint's (its arena
+    already captured) is one graph replay and one readback a sweep: no
+    capture, no sweep launched step by step, and the launches its replays
+    count equal the steps' own."""
+    import asyncio
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    x_e, tr_e = kc._evaluate_eager(q, n_words, tables[0], tables[1],
+                                   kc.take_arena(n_words), tables[2])
+    if not (torch.equal(x_dev, x_e) and np.array_equal(tr_dev, tr_e)):
+        raise AssertionError(f"{label}: graph-replayed and step-by-step "
+                             "sweeps disagree")
+    # the first batch may capture (the arenas above left the pool)
+    asyncio.run(ep.lookup_resources_batch(rtype, "view", batch))
+    st0 = dict(kc.graph_stats)
+    kernels.reset_launches()
+    asyncio.run(ep.lookup_resources_batch(rtype, "view", batch))
+    sweeps = int(ep.graph().last_trace[0])
+    d = {k: kc.graph_stats[k] - st0[k] for k in ("captures", "replays",
+                                                   "eager_sweeps")}
+    want = Counter()
+    for _ in range(sweeps):
+        want.update(s[0] for s in steps)
+        want["sweep_delta"] += 1
+    want.update(("seed_bitplanes", "lookup_T"))
+    got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if d["captures"] or d["eager_sweeps"] or d["replays"] != sweeps or \
+            got != dict(want):
+        raise AssertionError(f"{label}: a warm batch was not one replay a "
+                             f"sweep: graph stats {d}, launches {got}, "
+                             f"want {dict(want)}")
+    log(f"{label}: graph-replayed batch equals the step-by-step one (state, "
+        f"trace {tr_dev[:1 + tr_dev[0]].tolist()}); a warm endpoint batch of "
+        f"{sweeps} sweeps = {sweeps} graph replays + {sweeps} readbacks, "
+        f"launches {got}; graph stats {kc.graph_stats}")
 
 
 def oracle_check(ep, batches, lookups, reqs, checks):
@@ -798,6 +958,7 @@ def churn(ep, w, timer, peak, warm_lookup_s, n_rounds: int = N_ROUNDS):
             prev_host = (ep.graph().host_main.copy(),
                          ep.graph().host_aux.copy())
         a0, f0 = ep.stats["delta_apply_s"], ep.stats["flush_s"]
+        gs0 = dict(ep._graph.kernel.graph_stats)
         t0 = time.perf_counter()
         asyncio.run(commit(rnd["writes"]))
         t_write = time.perf_counter() - t0
@@ -806,6 +967,9 @@ def churn(ep, w, timer, peak, warm_lookup_s, n_rounds: int = N_ROUNDS):
         tables_match(graph)
         apply_ms = (ep.stats["delta_apply_s"] - a0) * 1e3
         flush_ms = (ep.stats["flush_s"] - f0) * 1e3
+        gs = graph.kernel.graph_stats
+        capture_ms = (gs["capture_s"] - gs0["capture_s"]) * 1e3
+        captures = gs["captures"] - gs0["captures"]
         # the round's new pods are visible to their creators at once
         by_user = dict(zip(names, res))
         for pod, _, u in rnd["created"]:
@@ -828,13 +992,14 @@ def churn(ep, w, timer, peak, warm_lookup_s, n_rounds: int = N_ROUNDS):
                           for p in pods_in[ns][:4]]
         rounds.append({"write_ms": t_write * 1e3, "apply_ms": apply_ms,
                        "flush_ms": flush_ms, "lookup_s": t_lookup,
-                       "check_s": t_check,
+                       "check_s": t_check, "capture_ms": capture_ms,
                        "sweeps": int(graph.last_trace[0])})
         log(f"churn round {r}: {sum(len(x) for x in rnd['writes'])} updates "
             f"in {len(rnd['writes'])} writes {t_write * 1e3:.3f} ms; delta "
             f"application {apply_ms:.3f} ms, flush {flush_ms:.3f} ms (host); "
             f"read-after-write lookup batch {t_lookup:.4f} s, check batch "
-            f"{t_check:.4f} s; device tables equal host")
+            f"{t_check:.4f} s ({captures} sweep graph captures, "
+            f"{capture_ms:.3f} ms of host); device tables equal host")
         if iso is not None:
             iso_subj, before, ctx, snap, snap0 = iso
             after = ep._lookup_batch_extract(ctx)
@@ -869,10 +1034,11 @@ def churn(ep, w, timer, peak, warm_lookup_s, n_rounds: int = N_ROUNDS):
         raise AssertionError(f"the churn was not absorbed incrementally: {d}")
     med = lambda k: statistics.median(x[k] for x in rounds)
     log(f"write path summary: median per round delta application "
-        f"{med('apply_ms'):.3f} ms, flush {med('flush_ms'):.3f} ms (host); "
-        f"read-after-write lookup batch median {med('lookup_s'):.4f} s vs "
-        f"phase-4 warm median {warm_lookup_s:.4f} s; check batch median "
-        f"{med('check_s'):.4f} s")
+        f"{med('apply_ms'):.3f} ms, flush {med('flush_ms'):.3f} ms (host), "
+        f"sweep graph captures {med('capture_ms'):.3f} ms; read-after-write "
+        f"lookup batch median {med('lookup_s'):.4f} s vs phase-4 warm median "
+        f"{warm_lookup_s:.4f} s ({med('lookup_s') / warm_lookup_s:.3f}x; "
+        f"limit 1.10x); check batch median {med('check_s'):.4f} s")
 
     # scatter_rows on the last round's real rows, against its twin, and
     # its times: main and aux table per flush
@@ -1208,24 +1374,8 @@ def caveats(timer, peak, smi_line, device: str = "cuda",
                                                   wc_ranges=wc, live=live,
                                                   planes=True)),
         q.numel() * 4 + nt * word, 2 * q.numel())
-    steps = list(kc.sweep_steps(main, aux, cav, n_words))
-    err = {"ell_gather_or": 0, "cav_gather_or": 0, "perm_program": 0,
-           "sweep_delta": 0}
-    x = x0.clone()
-    for _ in range(2):
-        cur_k, cur_t = x.clone(), x.clone()
-        for i, step in enumerate(steps):
-            EllKernelCache.run_step(step, cur_k, x0, live, kernels, x_in=x)
-            EllKernelCache.run_step(step, cur_t, x0, live, reference, x_in=x)
-            err[step[0]] = max(err[step[0]], _diff(cur_k, cur_t))
-            if err[step[0]]:
-                raise AssertionError(f"{step[0]} differs from its twin at "
-                                     f"Jacobi step {i}")
-        d_k = kernels.sweep_delta(cur_k, x, dead)
-        d_t = reference.sweep_delta(cur_t, x, dead)
-        err["sweep_delta"] = max(err["sweep_delta"],
-                                 _diff(d_k.cpu(), d_t) + _diff(cur_k, cur_t))
-        x = cur_k
+    err, steps, x = _twin_sweeps(kc, (main, aux, cav), x0, live, n_words,
+                                 "Jacobi sweep")
     # per-sweep work of each sweep kernel at this batch's shapes; bytes:
     # each input read once (distinct gathered rows), each output written
     # once; the caveat gather reads and writes only the maybe half of the
@@ -1242,7 +1392,7 @@ def caveats(timer, peak, smi_line, device: str = "cuda",
         acc[1] += timer.ms(lambda: EllKernelCache.run_step(
             step, cur, x0, live, reference, x_in=x_in), reps=2)
         if name == "ell_gather_or":
-            _, idx, _, seeded, wcb = step
+            idx, seeded, wcb = step[1], step[3], step[4]
             n, k = idx.shape
             uniq = int(torch.unique(idx).numel())
             acc[2] += (n * k * 4 + uniq * word + n * word * (1 + seeded)
@@ -1257,7 +1407,7 @@ def caveats(timer, peak, smi_line, device: str = "cuda",
             acc[2] += r_ * k * 4 + (uniq + 2 * reached) * 4 * half
             acc[3] += r_ * half * k
         else:
-            _, code, _, length, _, _ = step
+            code, length = step[1], step[3]
             n_read = int((code[0::2] == 0).sum())
             acc[2] += code.numel() * 4 + length * word * (n_read + 2)
             acc[3] += length * width * (code.numel() // 2 + 1)
@@ -1268,6 +1418,11 @@ def caveats(timer, peak, smi_line, device: str = "cuda",
         timer.ms(lambda: kernels.sweep_delta(cur, x_prev, dead)),
         timer.ms(lambda: reference.sweep_delta(cur, x_prev, dead), reps=2),
         2 * nt * word + 8, 3 * nt * width)
+    if timer.cuda:
+        _split_into(rows, sweep_split(kc, (main, aux, cav), x0, live, x,
+                                      steps, n_words, "Jacobi sweep"))
+        rows["ell_gather_or"]["sweep"]["bound_ms"] = (
+            sum(per[k][2] for k in per) + 4 * nt * word + 8) / peak * 1e3
 
     x_final, trace = kc.evaluate(q, n_words, main, aux, kc.take_arena(n_words),
                                  cav)
@@ -1323,6 +1478,9 @@ def caveats(timer, peak, smi_line, device: str = "cuda",
     log(f"whole caveat batch on the CPU twins: state, trace "
         f"{tr_cpu[:1 + tr_cpu[0]].tolist()} and lookup words equal the "
         f"card's ({time.perf_counter() - t0:.1f} s)")
+    if timer.cuda:
+        graph_batch_checks(ep, kc, q, n_words, (main, aux, cav), x_final,
+                           trace, steps, batches[1], "pod", "Jacobi")
     model = _sweep_bytes(g, LOOKUP_LANES)
     sweep_ms = (sum(per[k][0] for k in per) + rows["sweep_delta"]["ms"])
     log(f"caveat sweep byte model (reference _sweep_bytes, planes): {model} "
@@ -1389,6 +1547,7 @@ def caveats(timer, peak, smi_line, device: str = "cuda",
         subjects = [SubjectRef("user", u)
                     for u in list(dict.fromkeys(names))[:LOOKUP_LANES]]
         kernels.reset_launches()
+        gs0 = dict(kc.graph_stats)
         t0 = time.perf_counter()
         res = asyncio.run(ep.lookup_resources_batch("pod", "view", subjects))
         timer.sync()
@@ -1413,14 +1572,18 @@ def caveats(timer, peak, smi_line, device: str = "cuda",
                                      f"user:{u} differs from the oracle")
         rounds.append({"apply_ms": (ep.stats["delta_apply_s"] - a0) * 1e3,
                        "flush_ms": (ep.stats["flush_s"] - f0) * 1e3,
-                       "lookup_s": t_lookup, "check_s": t_check})
+                       "lookup_s": t_lookup, "check_s": t_check,
+                       "capture_ms": (kc.graph_stats["capture_s"]
+                                      - gs0["capture_s"]) * 1e3})
         log(f"caveat churn round {r}: {len(rnd['writes'])} writes "
             f"{t_write * 1e3:.3f} ms; delta application "
             f"{rounds[-1]['apply_ms']:.3f} ms, flush "
             f"{rounds[-1]['flush_ms']:.3f} ms (host); read-after-write "
             f"lookup batch {t_lookup:.4f} s, check batch {t_check:.4f} s "
             f"(sweeps {int(g.last_trace[0])}, CONDITIONAL "
-            f"{cres.count(1)}); device tables equal host")
+            f"{cres.count(1)}; {kc.graph_stats['captures'] - gs0['captures']}"
+            f" sweep graph captures, {rounds[-1]['capture_ms']:.3f} ms of "
+            f"host); device tables equal host")
     d = {k: ep.stats[k] - stats0[k] for k in
          ("rebuilds", "delta_batches", "stale_pair_marks",
           "oracle_residual_checks")}
@@ -1431,10 +1594,13 @@ def caveats(timer, peak, smi_line, device: str = "cuda",
         raise AssertionError(f"the caveat churn was not absorbed "
                              f"incrementally: {d}")
     med = lambda k: statistics.median(x[k] for x in rounds)
+    warm = statistics.median(summary["lookup"]["e2e_s"][1:])
     log(f"caveat write path summary: median per round delta application "
-        f"{med('apply_ms'):.3f} ms, flush {med('flush_ms'):.3f} ms (host); "
-        f"read-after-write lookup batch median {med('lookup_s'):.4f} s, check"
-        f" batch median {med('check_s'):.4f} s")
+        f"{med('apply_ms'):.3f} ms, flush {med('flush_ms'):.3f} ms (host), "
+        f"sweep graph captures {med('capture_ms'):.3f} ms; read-after-write "
+        f"lookup batch median {med('lookup_s'):.4f} s vs warm median "
+        f"{warm:.4f} s ({med('lookup_s') / warm:.3f}x; limit 1.10x), check "
+        f"batch median {med('check_s'):.4f} s")
     t0 = time.perf_counter()
     ep.force_rebuild()
     timer.sync()
@@ -1653,7 +1819,7 @@ def segment_path(ep, w, timer, peak, smi_line, device: str = "cuda",
     p_bytes = 0
     for step in steps:
         if step[0] == "perm_program":
-            _, code, _, length, _ = step
+            code, length = step[1], step[3]
             n_read = int((code[0::2] == 0).sum())
             p_bytes += code.numel() * 4 + length * word * (n_read + 2)
             code_ops += length * n_words * (code.numel() // 2 + 1)
@@ -2026,6 +2192,8 @@ def leopard_path(timer, peak, smi_line, mt_statuses: dict,
 
     # the plane kernels against their twins, on the full plane
     rows = {}
+    if timer.cuda:
+        rows.update(staged_b_vs_twins(b, batches))
     dev = plane.device
     prog = a.graph().prog
     off = prog.slot_offsets[("doc", "view")]
@@ -2202,6 +2370,41 @@ def leopard_path(timer, peak, smi_line, mt_statuses: dict,
 
 # -- phase 13, the mesh path --------------------------------------------------
 
+def staged_b_vs_twins(b, batches) -> dict:
+    """Phase 12 (B): the index-free endpoint's staged sweep over the
+    5-deep userset chains, two sweeps step by step against the twins,
+    then one batch replayed from its graphs against the same batch
+    launched step by step (`graph_batch_checks`).  Returns the kernels'
+    errors as rows."""
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    g = b.graph()
+    kc, prog = g.kernel, g.prog
+    tables = g.snapshot()
+    q_arr, _, _ = b._encode_subjects(g, batches[0])
+    q = torch.from_numpy(q_arr).to(g.dev_main.device)
+    n_words = len(q_arr) // 32
+    nt = prog.state_size + kc.n_aux_rows
+    live = (torch.empty((kc._wc_ranges.shape[0], n_words), dtype=torch.int32,
+                        device=q.device)
+            if kc._wc_ranges is not None else None)
+    x0 = kernels.seed_bitplanes(q, nt, n_words, prog.dead_index,
+                                wc_ranges=kc._wc_ranges, live=live)
+    err, steps, _ = _twin_sweeps(kc, tables, x0, live, n_words,
+                                 "group-explosion B")
+    modes = [s[5] for s in steps if s[0] == "ell_gather_or"]
+    log(f"group-explosion B: {len(steps)} staged steps x 2 sweeps "
+        f"bit-identical to the twins (gathers in place {modes.count('in_place')}"
+        f", through scratch {modes.count('scratch')})")
+    x_g, tr_g = kc.evaluate(q, n_words, tables[0], tables[1],
+                            kc.take_arena(n_words), plan=tables.plan)
+    graph_batch_checks(b, kc, q, n_words, tables, x_g, tr_g, steps,
+                       batches[1], "doc", "group-explosion B")
+    return {k: {"max_abs_err": e} for k, e in err.items()
+            if k in ("ell_gather_or", "perm_program")}
+
+
 def make_smoke_mesh(device: str):
     """The 2 x 4 mesh of phase 13 over the visible cards, cuda:0 repeated
     when fewer than eight are visible (every shard on the CPU for a CPU
@@ -2352,7 +2555,7 @@ def mesh_sweep(kern, q_arr, n_words: int, tables: tuple, timer, peak,
                 nc, kc_ = c_blk.shape
                 nbytes += (nc * kc_ * 4 + int(torch.unique(c_blk).numel())
                            * 4 * wl + 2 * nc * 4 * wl)
-            for code, _, length, _ in kern._plans[blk.device][2]:
+            for code, _, length, *_ in kern._plans[blk.device][2]:
                 n_read = int((code[0::2] == 0).sum())
                 nbytes += code.numel() * 4 + length * word * (n_read + 2)
             nbytes += 2 * kern.rows * word
@@ -2762,7 +2965,7 @@ def mesh_segment(seg, mesh, timer, peak, device: str = "cuda") -> dict:
                        + 2 * int(torch.unique(d_).numel()) * word
                        + 2 * n * word          # init: seed in, partial out
                        + 2 * n * word)         # delta
-            for code, _, length, _ in sk._caches[s_.device]._ops:
+            for code, _, length, *_ in sk._caches[s_.device]._ops:
                 n_read = int((code[0::2] == 0).sum())
                 nbytes += code.numel() * 4 + length * word * (n_read + 2)
     # the all-reduce: each of the G partials read once and each of the G
@@ -3003,7 +3206,8 @@ def main() -> int:
     kernels.reset_launches()
     batches, lookups, reqs, checks, summary = drive(ep, w, timer)
     launches = {k: kernels.LAUNCHES[k] for k in READ_KERNELS}
-    log(f"launches on the main path: {launches}")
+    log(f"launches on the main path: {launches}; sweep graphs "
+        f"{ep.graph().kernel.graph_stats}")
     idle = [k for k, v in launches.items() if v == 0]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: "

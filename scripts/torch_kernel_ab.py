@@ -1,44 +1,61 @@
 #!/usr/bin/env python3
-"""`lookup_T` and `scatter_rows` against their first versions and their
-PyTorch yardsticks, on one CUDA card, with device time and host cost
-apart.
+"""The hand-written sweep and table kernels against their first versions
+and their PyTorch yardsticks, on one CUDA card, with device time and
+host cost apart.
 
-    python3 scripts/torch_kernel_ab.py [--variants old,new,library]
+    python3 scripts/torch_kernel_ab.py [--rows sweep|copy|all]
+                                       [--variants old,new,graph,library]
                                        [--rounds 3] [--out FILE]
 
-Loads multitenant-1m (`models/workloads.py multitenant_1m()` defaults)
-into `create_endpoint("torch://")` as `chip_smoke.py` does (phase 3),
-runs one 256-subject lookup batch to its converged state (phases 4-6),
-then `--rounds` rounds of phase 9's churn, and takes the last round's
-real flush.  On those inputs, at the main path's shapes:
+`--rows sweep` (the default; PERF.md rows 1, 2, 3, 5, 9, 12, 14a) loads
+multitenant-1m (`models/workloads.py multitenant_1m()` defaults) into
+`create_endpoint("torch://")` as `chip_smoke.py` does (phase 3), seeds a
+256-subject lookup batch and runs one sweep, then measures on the state
+that the batch's second sweep reads, at the main path's shapes:
 
-  4c         lookup_T, definite state [8, pod rows] (rows of 8 words)
-  4c_planes  lookup_T, the definite plane of rows of 16 words (the same
-             state twice side by side: the caveat path's shape)
-  8          scatter_rows, the flush of the main and aux tables
-  11         scatter_rows, the segment flush's shape: two [cap, 1] edge
-             arrays (cap from the store's edge count as the segment graph
-             computes it), 212 seeded positions
-  13         scatter_rows, the sharded flush's shape: the main and aux
-             tables cut into 4 row blocks (a 2 x 4 mesh's graph shards),
-             the flush's rows scattered into each block they touch
+  mt gather i    each `ell_gather_or` launch of the staged sweep alone
+                 (the aux refreshes and the stage ranges, in sweep order)
+  mt program i   each `perm_program` launch alone
+  mt copy        the sweep's `cur.copy_(x)`
+  mt delta       `sweep_delta`
+  mt sweep       the whole staged sweep (copy, every step, delta)
+  mesh gathers   the per-shard `ell_gather_or` launches of one sweep of a
+                 2 x 4 mesh endpoint on the same store (row 12)
 
-Variants: "old" is the first CUDA version of each kernel (one thread per
-output word with 64-bit division; the copy and the scatter as two
-launches), kept here as source and built beside the package's library so
+then the caveated RBAC deployment of `chip_smoke.py` phase 10
+(`caveated_rbac(n_pods=200_000, n_users=50_000, n_groups=2_000)`), on
+the Jacobi sweep: `cav gather i`, `cav cav_gather_or`, `cav program i`,
+`cav copy`, `cav delta`, `cav sweep`; last `word_cols_T` on a closure
+plane of group-explosion's shape ([5,079, 65] int32, 63 word columns)
+and `or_combine` on the mesh's [1,084,061, 4] partials, seeded random
+words, beside their library calls.
+
+`--rows copy` runs `lookup_T` and `scatter_rows` (rows 4c, 8, 11, 13) at
+multitenant-1m after `--rounds` rounds of phase 9's churn, as before:
+the lookup transpose of the converged state (and of its two-plane
+shape), the churn's last real flush, the segment flush's shape (two
+[cap, 1] edge arrays, 212 positions) and the sharded flush's (the main
+and aux tables cut into 4 row blocks), and last the host time of that
+flush sent in two pageable copies a table against one pinned copy.
+
+Variants: "old" is the first CUDA version of each kernel with its first
+wrapper (`ell_gather_or` one thread per (row, word) through a scratch
+buffer copied back into the state; `perm_program` with a run-time
+indexed stack, through scratch when it reads its own slot; `lookup_T`
+one thread per output word; `scatter_rows` a copy launch and a scatter
+launch), kept here as source and built beside the package's library so
 that it can be measured and never reached from the path; "new" the
-package's kernel; "library" one PyTorch call computing the same function
-(`narrow().t().contiguous()`, `torch.index_put`).  Every variant is first
-held bit for bit against the plain twin, then measured by
-`chip_smoke.attribute`: (a) event-timed loop, (b) device-only time,
-(c) host cost per call, (d) device time with L2 flushed.  Each row runs
-the variants in the order given and then reversed (old, new, new, old),
-and reports each reading.  Last, the host time of row 8's flush with
-its rows and values sent in two pageable copies a table against one
-pinned asynchronous copy (pageable, staged, staged, pageable).  Prints
-the card's nvidia-smi line first and one JSON object last (and to
---out, if given, with the names of the device activities each variant
-ran).  Needs one card.
+package's kernel, launched eagerly; "graph" (whole sweeps only) the same
+sweep captured once in a CUDA graph and replayed, as
+`EllKernelCache.evaluate` runs it; "library" one PyTorch call computing
+the same function where there is one.  Every variant is first held bit
+for bit against the plain twins, then measured by `chip_smoke.attribute`:
+(a) event-timed loop, (b) device-only time, (c) host cost per call,
+(d) device time with L2 flushed.  Each case runs the variants in the
+order given and then reversed (old, new, new, old), and reports each
+reading.  Prints the card's nvidia-smi line first and one JSON object
+last (and to --out, if given, with the names of the device activities
+each variant ran).  Needs one card.
 """
 
 from __future__ import annotations
@@ -56,6 +73,9 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEG_POSITIONS = 212     # the segment flush's positions (PERF.md row 11)
 MESH_GRAPH = 4          # graph shards of the 2 x 4 mesh (PERF.md row 13)
+PLANE_SHAPE = (5_079, 65)       # group-explosion's doc#view closure plane
+PLANE_WORDS = 63                # the word columns one batch reads from it
+COMBINE_SHAPE = (1_084_061, 4)  # one replica's partial on the 2 x 4 mesh
 
 OLD_SOURCE = r"""
 #include <cuda_runtime.h>
@@ -110,7 +130,186 @@ __global__ void scatter_rows_kernel(const int32_t* __restrict__ rows,
         if (r >= 0 && r < R) out[r * K + k] = __ldg(vals + t);
     }
 }
+constexpr int kMaxStack = 16;
+// y[r, w] = OR_j cur[idx[r, j], w]  |  seed[r, w]  |  OR_{t in wc_bits[r]} wc_live[t, w]
+__global__ void ell_gather_or_kernel(const int32_t* __restrict__ cur,
+                                     const int32_t* __restrict__ idx, int k,
+                                     long long nrows, int W,
+                                     const int32_t* __restrict__ seed,
+                                     const int32_t* __restrict__ wc_bits,
+                                     const int32_t* __restrict__ wc_live,
+                                     int32_t* __restrict__ out) {
+    const long long total = nrows * W;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         t < total; t += stride) {
+        const long long r = t / W;
+        const int w = (int)(t - r * W);
+        const int32_t* ir = idx + r * k;
+        uint32_t v = 0;
+        for (int j = 0; j < k; ++j) {
+            v |= (uint32_t)__ldg(cur + (long long)__ldg(ir + j) * W + w);
+        }
+        if (seed != nullptr) v |= (uint32_t)seed[t];
+        if (wc_bits != nullptr) {
+            uint32_t b = (uint32_t)wc_bits[r];
+            while (b) {
+                const int term = __ffs(b) - 1;
+                b &= b - 1;
+                v |= (uint32_t)wc_live[(long long)term * W + w];
+            }
+        }
+        out[t] = (int32_t)v;
+    }
+}
+
+// Postfix program over slot slices, two int32 per instruction:
+//   0 READ offset   push cur[offset + i, w]
+//   1 ZERO -        push 0
+//   2 OR   n        pop n, push their OR
+//   3 AND  n        pop n, push their AND
+//   4 ANDNOT -      pop b, pop a, push a & ~b
+// out[i, w] = result | seed[i, w].  `out` may point into `cur` (the slot
+// being written is never read by its own program when in place; the
+// wrapper routes self-reading programs through a scratch buffer).
+__global__ void perm_program_kernel(const int32_t* cur,
+                                    const int32_t* __restrict__ code,
+                                    int n_code, long long length, int W,
+                                    const int32_t* __restrict__ seed,
+                                    int32_t* out) {
+    const long long total = length * W;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         t < total; t += stride) {
+        const long long i = t / W;
+        const int w = (int)(t - i * W);
+        uint32_t stack[kMaxStack];
+        int sp = 0;
+        for (int pc = 0; pc < n_code; pc += 2) {
+            const int op = __ldg(code + pc);
+            const int arg = __ldg(code + pc + 1);
+            if (op == 0) {
+                stack[sp++] = (uint32_t)cur[((long long)arg + i) * W + w];
+            } else if (op == 1) {
+                stack[sp++] = 0u;
+            } else if (op == 2) {
+                uint32_t v = stack[--sp];
+                for (int j = 1; j < arg; ++j) v |= stack[--sp];
+                stack[sp++] = v;
+            } else if (op == 3) {
+                uint32_t v = stack[--sp];
+                for (int j = 1; j < arg; ++j) v &= stack[--sp];
+                stack[sp++] = v;
+            } else {
+                const uint32_t b = stack[--sp];
+                const uint32_t a = stack[--sp];
+                stack[sp++] = a & ~b;
+            }
+        }
+        out[t] = (int32_t)(stack[0] | (uint32_t)seed[t]);
+    }
+}
+
+// The same program over definite/maybe planes (rows of stride 2H): thread
+// (i, w) owns the word pair (w, w + H) and a stack of pairs.  OR and AND
+// act on each plane; ANDNOT mixes them (Kleene exclusion):
+//   def(a - b) = def(a) & ~maybe(b),   maybe(a - b) = maybe(a) & ~def(b).
+__global__ void perm_program_planes_kernel(const int32_t* cur,
+                                           const int32_t* __restrict__ code,
+                                           int n_code, long long length,
+                                           int H,
+                                           const int32_t* __restrict__ seed,
+                                           int32_t* out) {
+    const long long total = length * H;
+    const long long S = 2LL * H;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         t < total; t += stride) {
+        const long long i = t / H;
+        const int w = (int)(t - i * H);
+        uint32_t sd[kMaxStack], sm[kMaxStack];
+        int sp = 0;
+        for (int pc = 0; pc < n_code; pc += 2) {
+            const int op = __ldg(code + pc);
+            const int arg = __ldg(code + pc + 1);
+            if (op == 0) {
+                const int32_t* r = cur + ((long long)arg + i) * S + w;
+                sd[sp] = (uint32_t)r[0];
+                sm[sp] = (uint32_t)r[H];
+                ++sp;
+            } else if (op == 1) {
+                sd[sp] = 0u;
+                sm[sp] = 0u;
+                ++sp;
+            } else if (op == 2) {
+                --sp;
+                uint32_t d = sd[sp], m = sm[sp];
+                for (int j = 1; j < arg; ++j) { --sp; d |= sd[sp]; m |= sm[sp]; }
+                sd[sp] = d;
+                sm[sp] = m;
+                ++sp;
+            } else if (op == 3) {
+                --sp;
+                uint32_t d = sd[sp], m = sm[sp];
+                for (int j = 1; j < arg; ++j) { --sp; d &= sd[sp]; m &= sm[sp]; }
+                sd[sp] = d;
+                sm[sp] = m;
+                ++sp;
+            } else {
+                const uint32_t bd = sd[--sp], bm = sm[sp];
+                const uint32_t ad = sd[--sp], am = sm[sp];
+                sd[sp] = ad & ~bm;
+                sm[sp] = am & ~bd;
+                ++sp;
+            }
+        }
+        const long long o = i * S + w;
+        out[o] = (int32_t)(sd[0] | (uint32_t)seed[o]);
+        out[o + H] = (int32_t)(sm[0] | (uint32_t)seed[o + H]);
+    }
+}
 }  // namespace
+// Gather-OR a row range into `scratch`, then copy it to `dst` (rows of the
+// state).  Out of place on purpose: the range's gathers must read the
+// state as it stood before the range is written (reference ell.py:478-488).
+EXPORT int old_ell_gather_or(const void* cur, const void* idx, int k,
+                         long long nrows, int W, const void* seed,
+                         const void* wc_bits, const void* wc_live,
+                         void* scratch, void* dst, void* stream) {
+    if (nrows <= 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    const long long total = nrows * W;
+    ell_gather_or_kernel<<<grid_for(total, kBlock, 1LL << 30), kBlock, 0, s>>>(
+        (const int32_t*)cur, (const int32_t*)idx, k, nrows, W,
+        (const int32_t*)seed, (const int32_t*)wc_bits,
+        (const int32_t*)wc_live, (int32_t*)scratch);
+    int e = (int)cudaGetLastError();
+    if (e) return e;
+    return (int)cudaMemcpyAsync(dst, scratch, (size_t)total * 4,
+                                cudaMemcpyDeviceToDevice, s);
+}
+
+// `half` > 0: the tri-state program over rows of W = 2 * half words.
+EXPORT int old_perm_program(const void* cur, const void* code, int n_code,
+                            long long length, int W, int half,
+                            const void* seed, void* out, void* stream) {
+    if (length <= 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (half > 0) {
+        const long long total = length * half;
+        perm_program_planes_kernel<<<grid_for(total, kBlock, 1LL << 30),
+                                     kBlock, 0, s>>>(
+            (const int32_t*)cur, (const int32_t*)code, n_code, length, half,
+            (const int32_t*)seed, (int32_t*)out);
+        return (int)cudaGetLastError();
+    }
+    const long long total = length * W;
+    perm_program_kernel<<<grid_for(total, kBlock, 1LL << 30), kBlock, 0, s>>>(
+        (const int32_t*)cur, (const int32_t*)code, n_code, length, W,
+        (const int32_t*)seed, (int32_t*)out);
+    return (int)cudaGetLastError();
+}
+
 EXPORT int old_lookup_T(const void* x, int W, long long S, long long offset,
                         long long L, void* out, void* stream) {
     if (L <= 0) return 0;
@@ -149,7 +348,8 @@ def log(msg: str) -> None:
 
 class OldKernels:
     """The first versions, built from OLD_SOURCE with the package's nvcc
-    flags, behind wrappers with the first versions' host path."""
+    flags, behind wrappers with the first versions' host path.  Kernels
+    without a first version here are the package's."""
 
     def __init__(self):
         import torch
@@ -169,14 +369,21 @@ class OldKernels:
             src.unlink(missing_ok=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
+            self.build_log = proc.stdout + proc.stderr
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for fn, args in (("old_lookup_T", (P, I, L, L, L, P, P)),
-                         ("old_scatter_rows", (P, L, I, P, L, P, P, I, P))):
+                         ("old_scatter_rows", (P, L, I, P, L, P, P, I, P)),
+                         ("old_ell_gather_or", (P, P, I, L, I, P, P, P, P,
+                                                P, P)),
+                         ("old_perm_program", (P, P, I, L, I, I, P, P, P))):
             getattr(lib, fn).argtypes = list(args)
             getattr(lib, fn).restype = ctypes.c_int
         self.lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self.kernels, name)
 
     def _run(self, fn, device, *args):
         torch = self.torch
@@ -185,6 +392,41 @@ class OldKernels:
                 *args, torch.cuda.current_stream(device).cuda_stream)
         if code:
             raise RuntimeError(f"{fn}: CUDA error {code}")
+
+    def ell_gather_or(self, cur, idx, dst_lo, x0=None, wc_bits=None,
+                      wc_live=None, **_):
+        """The first wrapper: always through a scratch buffer, copied
+        back into the state by the launcher (the package's `in_place` and
+        `x_in` choices do not change what it computes)."""
+        torch = self.torch
+        n, k = idx.shape
+        w = cur.shape[1]
+        if n == 0:
+            return
+        seed = x0[dst_lo: dst_lo + n] if x0 is not None else None
+        scratch = torch.empty((n, w), dtype=torch.int32, device=cur.device)
+        dst = cur[dst_lo: dst_lo + n]
+        p = lambda t: None if t is None else t.data_ptr()
+        self._run("old_ell_gather_or", cur.device, cur.data_ptr(),
+                  idx.data_ptr(), k, n, w, p(seed), p(wc_bits), p(wc_live),
+                  scratch.data_ptr(), dst.data_ptr())
+
+    def perm_program(self, cur, x0, code, offset, length, in_place=False,
+                     half=None, **_):
+        torch = self.torch
+        if length == 0:
+            return
+        w = cur.shape[1]
+        seed = x0[offset: offset + length]
+        dst = cur[offset: offset + length]
+        out = dst if in_place else torch.empty((length, w),
+                                               dtype=torch.int32,
+                                               device=cur.device)
+        self._run("old_perm_program", cur.device, cur.data_ptr(),
+                  code.data_ptr(), code.shape[0], length, w, half or 0,
+                  seed.data_ptr(), out.data_ptr())
+        if not in_place:
+            dst.copy_(out)
 
     def lookup_T(self, x, offset, length, words=None):
         self.kernels._check(x, "x", 2)
@@ -205,6 +447,318 @@ class OldKernels:
                   rows.data_ptr(), rows.shape[0], vals.data_ptr(),
                   out.data_ptr(), vec)
         return out
+
+
+def old_steps(steps: list) -> list:
+    """A sweep's steps as the first plan ran them: a permission program
+    goes through scratch exactly when it reads its own slot (the first
+    plan's rule; the gathers' modes are ignored by the first wrapper)."""
+    out = []
+    for s in steps:
+        if s[0] == "perm_program":
+            code = s[1].cpu().tolist()
+            self_read = any(op == 0 and arg == s[2]
+                            for op, arg in zip(code[0::2], code[1::2]))
+            s = s[:4] + (not self_read,) + s[5:]
+        out.append(s)
+    return out
+
+
+class Case:
+    """One row of the A/B: its variants' callables, the twin's, and what
+    each one's result is compared on."""
+
+    def __init__(self, name, shape, nbytes, fns, twin, result, reset):
+        self.name, self.shape, self.nbytes = name, shape, nbytes
+        self.fns, self.twin, self.result, self.reset = (fns, twin, result,
+                                                        reset)
+
+
+def step_bytes(step, word: int, live, dead: int) -> int:
+    """Bytes one sweep step must move: each input read once (distinct
+    gathered rows), each output written once (`chip_smoke.py`'s count)."""
+    import torch
+    if step[0] == "ell_gather_or":
+        idx, seeded, wcb = step[1], step[3], step[4]
+        n, k = idx.shape
+        uniq = int(torch.unique(idx).numel())
+        return (n * k * 4 + uniq * word + n * word * (1 + seeded)
+                + (n * 4 + word * live.shape[0] if wcb is not None else 0))
+    if step[0] == "cav_gather_or":
+        idx, half = step[1], step[2]
+        r_, k = idx.shape
+        uniq = int(torch.unique(idx).numel())
+        reached = int((idx != dead).any(dim=1).sum())
+        return r_ * k * 4 + (uniq + 2 * reached) * 4 * half
+    code, length = step[1], step[3]
+    n_read = int((code[0::2] == 0).sum())
+    return code.numel() * 4 + length * word * (n_read + 2)
+
+
+def sweep_cases(label, kc, tables, q, n_words, old, variants) -> list:
+    """The cases of one single-device sweep (see the module docstring)."""
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.ops.ell import EllKernelCache
+    from spicedb_kubeapi_proxy_tpu_torch.ops.kernels import reference
+
+    prog = kc.prog
+    dead = prog.dead_index
+    nt = prog.state_size + kc.n_aux_rows
+    width = kc.width(n_words)
+    word = 4 * width
+    live = None
+    if kc._wc_ranges is not None:
+        live = torch.empty((kc._wc_ranges.shape[0], width),
+                           dtype=torch.int32, device=q.device)
+    x0 = kernels.seed_bitplanes(q, nt, n_words, dead,
+                                wc_ranges=kc._wc_ranges, live=live,
+                                planes=kc.planes)
+    steps = list(kc.sweep_steps(*tables, n_words=n_words))
+    first = old_steps(steps)
+    st = {"x": x0.clone(), "cur": x0.clone()}
+
+    def sweep(impl, ss, whole=True):
+        def fn():
+            cur, x = st["cur"], st["x"]
+            if whole:
+                cur.copy_(x)
+            for s in ss:
+                EllKernelCache.run_step(s, cur, x0, live, impl, x_in=x)
+            if whole:
+                impl.sweep_delta(cur, x, dead)
+        return fn
+
+    # the input of the batch's second sweep
+    sweep(kernels, steps)()
+    st["x"] = st["cur"].clone()
+    reset = lambda: st["cur"].copy_(st["x"])
+    result = lambda out: st["cur"]
+    impls = {"old": (old, first), "new": (kernels, steps)}
+    cases = []
+    n_of = {}
+    for i, s in enumerate(steps):
+        kind = {"ell_gather_or": "gather", "perm_program": "program",
+                "cav_gather_or": "cav_gather_or"}[s[0]]
+        j = n_of[kind] = n_of.get(kind, -1) + 1
+        if kind == "gather":
+            idx, lo = s[1], s[2]
+            shape = (f"rows [{lo}, {lo + idx.shape[0]}) x K {idx.shape[1]}, "
+                     f"{width} words")
+        elif kind == "program":
+            shape = (f"slot [{s[2]}, {s[2] + s[3]}), {s[1].numel() // 2} "
+                     f"instructions, {width} words")
+        else:
+            shape = f"[{s[1].shape[0]}, {s[1].shape[1]}] maybe plane"
+        name = f"{label} {kind}" + ("" if kind == "cav_gather_or" else
+                                    f" {j}")
+        fns = {v: sweep(m, [ss[i]], whole=False)
+               for v, (m, ss) in impls.items()
+               if v in variants and kind != "cav_gather_or"}
+        if kind == "cav_gather_or":
+            fns = {"new": sweep(kernels, [s], whole=False)}
+        cases.append(Case(name, shape, step_bytes(s, word, live, dead), fns,
+                          sweep(reference, [s], whole=False), result, reset))
+    cases.append(Case(f"{label} copy", f"[{nt}, {width}]", 2 * nt * word,
+                      {"new": lambda: st["cur"].copy_(st["x"])},
+                      lambda: st["cur"].copy_(st["x"]), result, reset))
+    cases.append(Case(f"{label} delta", f"[{nt}, {width}]",
+                      2 * nt * word + 8,
+                      {"new": lambda: kernels.sweep_delta(st["cur"], st["x"],
+                                                          dead)},
+                      lambda: reference.sweep_delta(st["cur"], st["x"], dead),
+                      result, reset))
+    fns = {v: sweep(m, ss) for v, (m, ss) in impls.items() if v in variants}
+    if "graph" in variants:
+        lg = kernels.LaunchGraph(q.device)
+        lg.capture(sweep(kernels, steps))
+        fns["graph"] = lg.replay
+    total = (sum(step_bytes(s, word, live, dead) for s in steps)
+             + 4 * nt * word + 8)
+    cases.append(Case(f"{label} sweep",
+                      f"{len(steps)} steps + copy + delta on [{nt}, {width}]",
+                      total, fns, sweep(reference, steps), result, reset))
+    return cases
+
+
+def mesh_case(ep, w, q_arr, n_words, old, variants):
+    """Row 12: the per-shard gathers of one sweep of a 2 x 4 mesh
+    endpoint on the store of `ep` (cuda:0 for every shard on one card)."""
+    import torch
+
+    import chip_smoke as cs
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.ops.kernels import reference
+
+    mesh = cs.make_smoke_mesh("cuda")
+    m_ep = cs._mesh_endpoint(ep.store, w.schema_text, mesh, "cuda")
+    g = m_ep.graph()
+    kern = g.kernel
+    tables = g.snapshot()
+    main, aux = tables[0], tables[1]
+    arenas = kern._alloc_arenas(n_words)
+    x0, live = kern.seed(q_arr, n_words, arenas)
+    x = [[a.clone() for a in row] for row in x0]
+    cur = [[a.clone() for a in row] for row in x0]
+    kern.step(cur, x, x0, live, tables, n_words)
+    x = [[a.clone() for a in row] for row in cur]
+    grid = [(d, gi, dev) for d, row in enumerate(mesh.devices)
+            for gi, dev in enumerate(row)]
+    word = 4 * kern.width(n_words)
+
+    def gathers(impl):
+        def fn():
+            for _ in range(kern.aux_passes):
+                for d, gi, _dev in grid:
+                    impl.ell_gather_or(cur[d][gi], aux[d][gi],
+                                       kern.n_pad + gi * kern.block_aux)
+            for d, gi, dev in grid:
+                wc = kern._plans[dev][1][gi]
+                impl.ell_gather_or(cur[d][gi], main[d][gi],
+                                   gi * kern.block_main, x0=x0[d][gi],
+                                   wc_bits=wc,
+                                   wc_live=live[d][gi] if wc is not None
+                                   else None)
+        return fn
+
+    def reset():
+        for cr, xr in zip(cur, x):
+            for c, a in zip(cr, xr):
+                c.copy_(a)
+
+    nbytes = 0
+    for d, gi, _dev in grid:
+        n, k = main[d][gi].shape
+        nbytes += (n * k * 4 + int(torch.unique(main[d][gi]).numel()) * word
+                   + 2 * n * word)
+        na, ka = aux[d][gi].shape
+        nbytes += kern.aux_passes * (
+            na * ka * 4 + int(torch.unique(aux[d][gi]).numel()) * word
+            + na * word)
+    fns = {v: gathers(m) for v, m in (("old", old), ("new", kernels))
+           if v in variants}
+    n_launch = (kern.aux_passes + 1) * len(grid)
+    case = Case("mesh gathers",
+                f"{n_launch} launches: {len(grid)} shards' main blocks "
+                f"[{main[0][0].shape[0]}, {main[0][0].shape[1]}] and aux "
+                f"blocks [{aux[0][0].shape[0]}, {aux[0][0].shape[1]}] x "
+                f"{kern.aux_passes} passes", nbytes, fns, gathers(reference),
+                lambda out: torch.cat([c for row in cur for c in row]), reset)
+    return case, m_ep
+
+
+def library_cases(variants) -> list:
+    """`word_cols_T` and `or_combine` on seeded random words at the main
+    path's shapes, beside their library calls."""
+    import numpy as np
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.ops.kernels import reference
+
+    rng = np.random.default_rng(7)
+    words32 = lambda shape: torch.from_numpy(rng.integers(
+        -(1 << 31), 1 << 31, shape, dtype=np.int64).astype(np.int32)).cuda()
+    plane = words32(PLANE_SHAPE)
+    rows = PLANE_SHAPE[0]
+    cols = torch.from_numpy(np.sort(rng.choice(
+        PLANE_SHAPE[1], PLANE_WORDS, replace=False)).astype(np.int32)).cuda()
+    cols64 = cols.long()
+    dst0, src = words32(COMBINE_SHAPE), words32(COMBINE_SHAPE)
+    dst = dst0.clone()
+
+    def reset():
+        dst.copy_(dst0)
+
+    cases = [
+        Case("word_cols_T",
+             f"[{PLANE_WORDS}, {rows}] of a [{rows}, {PLANE_SHAPE[1]}] plane",
+             2 * PLANE_WORDS * rows * 4 + PLANE_WORDS * 4,
+             {"new": lambda: kernels.word_cols_T(plane, rows, cols),
+              "library": lambda: plane[:rows, cols64].t().contiguous()},
+             lambda: reference.word_cols_T(plane, rows, cols),
+             lambda out: out, lambda: None),
+        Case("or_combine", f"[{COMBINE_SHAPE[0]}, {COMBINE_SHAPE[1]}]",
+             3 * dst.numel() * 4,
+             {"new": lambda: kernels.or_combine(dst, src),
+              "library": lambda: dst.bitwise_or_(src)},
+             lambda: reference.or_combine(dst, src), lambda out: dst, reset),
+    ]
+    return [c for c in cases if any(v in variants for v in c.fns)]
+
+
+def run_cases(cases, variants, peak, result: dict) -> None:
+    """Hold each variant against the twin, then attribute it, in the
+    order given and reversed."""
+    import chip_smoke as cs
+    order = variants + variants[::-1]
+    for case in cases:
+        case.reset()
+        want = case.result(case.twin())
+        want = [t.clone() for t in (want if isinstance(want, list)
+                                    else [want])]
+        readings = {}
+        for v in order:
+            if v not in case.fns:
+                continue
+            fn = case.fns[v]
+            case.reset()
+            got = case.result(fn())
+            got = got if isinstance(got, list) else [got]
+            err = max(cs._diff(a, b) for a, b in zip(got, want))
+            if err:
+                raise AssertionError(f"{case.name}: {v} differs from the "
+                                     f"twin by {err}")
+            readings.setdefault(v, []).append(
+                cs.attribute(fn, capturable=v != "graph"))
+        row = {"shape": case.shape, "bound_ms": case.nbytes / peak * 1e3,
+               "bytes": case.nbytes, "readings": readings}
+        result["rows"][case.name] = row
+        for v, rs in readings.items():
+            log(f"{case.name} {v}: " + " | ".join(
+                f"event {r['event_ms']:.6f} ms, device {r['device_ms']:.6f} "
+                f"ms ({r['device_by']}, {r['launches']:g} launches), host "
+                f"{r['host_us']:.2f} us, cold {r['cold_ms']:.6f} ms"
+                for r in rs))
+        log(f"{case.name}: {case.shape}; bound {row['bound_ms']:.6f} ms "
+            f"over {case.nbytes} bytes")
+
+
+def sweep_rows(args, variants, old, peak, result) -> None:
+    """`--rows sweep`: multitenant-1m's staged sweep and its mesh gathers,
+    the caveated deployment's Jacobi sweep, and the two library pairs."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import SubjectRef
+
+    for label, kwargs, gen in (("mt", {}, "multitenant_1m"),
+                               ("cav", cs.CAVEAT_WORKLOAD, "caveated_rbac")):
+        ep, w = cs.load("cuda", kwargs, gen)
+        g = ep.graph()
+        rng = np.random.default_rng(cs.SEED)
+        batch = [SubjectRef("user", w.subjects[i]) for i in
+                 rng.choice(len(w.subjects), cs.LOOKUP_LANES, replace=False)]
+        q_arr, _, _ = ep._encode_subjects(g, batch)
+        n_words = len(q_arr) // 32
+        q = torch.from_numpy(q_arr).cuda()
+        tables = g.snapshot()
+        cases = sweep_cases(label, g.kernel, tables, q, n_words, old,
+                            variants)
+        m_ep = None
+        if label == "mt":
+            case, m_ep = mesh_case(ep, w, q_arr, n_words, old, variants)
+            cases.append(case)
+        torch.cuda.synchronize()
+        run_cases(cases, variants, peak, result)
+        del ep, w, g, cases, m_ep, tables
+        gc.collect()
+        torch.cuda.empty_cache()
+    run_cases(library_cases(variants), variants, peak, result)
 
 
 def churn_flush(ep, w, n_rounds: int):
@@ -308,38 +862,17 @@ def blocks_of(table, rows, vals, n_blocks: int):
     return work
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--variants", default="old,new,library")
-    ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--out", default=None)
-    args = ap.parse_args()
+def copy_rows(args, variants, old, peak, result) -> None:
+    """`--rows copy`: `lookup_T` and `scatter_rows` (rows 4c, 8, 11, 13)
+    and the flush's host time, pageable against staged."""
     import numpy as np
     import torch
-    if not torch.cuda.is_available():
-        print("torch_kernel_ab: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, ROOT)
+
     import chip_smoke as cs
     from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
     from spicedb_kubeapi_proxy_tpu_torch.ops.kernels import reference
     from spicedb_kubeapi_proxy_tpu_torch.ops.torch_endpoint import bucket
     from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import SubjectRef
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip().splitlines()[0]
-    name = torch.cuda.get_device_name(0)
-    peak = cs.hbm_peak(name)
-    log(smi)
-    t0 = time.perf_counter()
-    kernels.build()
-    kernels._load()
-    old = OldKernels()
-    log(f"built in {time.perf_counter() - t0:.1f} s")
-    for line in kernels.BUILD_LOG.splitlines():
-        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
-            log("  " + line.strip())
 
     ep, w = cs.load("cuda", {})
     g = ep.graph()
@@ -370,69 +903,44 @@ def main() -> int:
 
     impl = {"old": old, "new": kernels}
 
-    def lookup_fns(xx, words):
+    def lookup_case(name, xx, words):
         lib = (lambda: xx.narrow(0, off, length).t().contiguous()) \
             if words == xx.shape[1] else \
             (lambda: xx.narrow(0, off, length)[:, :words].t().contiguous())
-        return ({v: (lambda m=m: m.lookup_T(xx, off, length, words))
-                 for v, m in impl.items()}, lib,
-                lambda: reference.lookup_T(xx, off, length, words),
-                2 * length * words * 4)
+        fns = {v: (lambda m=m: m.lookup_T(xx, off, length, words))
+               for v, m in impl.items() if v in variants}
+        if "library" in variants:
+            fns["library"] = lib
+        return Case(name, f"[{words}, {length}] of [{xx.shape[0]}, "
+                          f"{xx.shape[1]}]", 2 * length * words * 4, fns,
+                    lambda: reference.lookup_T(xx, off, length, words),
+                    lambda out: out, lambda: None)
 
-    def scatter_fns(work):
-        lib = lambda: [torch.index_put(s, (r.long(),), v) for s, r, v in work]
-        return ({v: (lambda m=m: [m.scatter_rows(*a) for a in work])
-                 for v, m in impl.items()}, lib,
-                lambda: [reference.scatter_rows(*a) for a in work],
-                sum(2 * s.numel() * 4 + r.numel() * 4 + v.numel() * 4
-                    for s, r, v in work))
+    def scatter_case(name, work, shape):
+        fns = {v: (lambda m=m: [m.scatter_rows(*a) for a in work])
+               for v, m in impl.items() if v in variants}
+        if "library" in variants:
+            fns["library"] = lambda: [torch.index_put(s, (r.long(),), v)
+                                      for s, r, v in work]
+        return Case(name, shape,
+                    sum(2 * s.numel() * 4 + r.numel() * 4 + v.numel() * 4
+                        for s, r, v in work), fns,
+                    lambda: [reference.scatter_rows(*a) for a in work],
+                    lambda out: out, lambda: None)
 
-    cases = {
-        "4c": lookup_fns(x, n_words),
-        "4c_planes": lookup_fns(x_pl, n_words),
-        "8": scatter_fns(flush),
-        "11": scatter_fns(seg),
-        "13": scatter_fns(mesh),
-    }
-    shapes = {
-        "4c": f"[{n_words}, {length}] of [{x.shape[0]}, {x.shape[1]}]",
-        "4c_planes": f"[{n_words}, {length}] of [{x_pl.shape[0]}, "
-                     f"{x_pl.shape[1]}]",
-        "8": "; ".join(f"[{s.shape[0]}, {s.shape[1]}] with {r.numel()} rows"
-                       for s, r, _ in flush),
-        "11": f"2 x [{cap}, 1] with {SEG_POSITIONS} positions",
-        "13": "; ".join(f"[{s.shape[0]}, {s.shape[1]}] with {r.numel()} rows"
-                        for s, r, _ in mesh),
-    }
-    variants = args.variants.split(",")
-    order = variants + variants[::-1]
-    result = {"smi": smi, "device": name, "rows": {}}
-    for case, (fns, lib, twin, nbytes) in cases.items():
-        want = twin()
-        want = want if isinstance(want, list) else [want]
-        readings = {v: [] for v in variants}
-        for v in order:
-            fn = lib if v == "library" else fns[v]
-            got = fn()
-            got = got if isinstance(got, list) else [got]
-            err = max(cs._diff(a, b) for a, b in zip(got, want))
-            if err:
-                raise AssertionError(f"{case}: {v} differs from the twin "
-                                     f"by {err}")
-            readings[v].append(cs.attribute(fn))
-        row = {"shape": shapes[case],
-               "bound_ms": nbytes / peak * 1e3, "bytes": nbytes,
-               "readings": readings}
-        result["rows"][case] = row
-        for v in variants:
-            rs = readings[v]
-            log(f"{case} {v}: " + " | ".join(
-                f"event {r['event_ms']:.6f} ms, device {r['device_ms']:.6f} "
-                f"ms ({r['device_by']}, {r['launches']:g} launches), host "
-                f"{r['host_us']:.2f} us, cold "
-                f"{r['cold_ms']:.6f} ms" for r in rs))
-        log(f"{case}: {shapes[case]}; bound {row['bound_ms']:.6f} ms over "
-            f"{nbytes} bytes")
+    cases = [
+        lookup_case("4c", x, n_words),
+        lookup_case("4c_planes", x_pl, n_words),
+        scatter_case("8", flush, "; ".join(
+            f"[{s.shape[0]}, {s.shape[1]}] with {r.numel()} rows"
+            for s, r, _ in flush)),
+        scatter_case("11", seg, f"2 x [{cap}, 1] with {SEG_POSITIONS} "
+                                f"positions"),
+        scatter_case("13", mesh, "; ".join(
+            f"[{s.shape[0]}, {s.shape[1]}] with {r.numel()} rows"
+            for s, r, _ in mesh)),
+    ]
+    run_cases(cases, [v for v in variants if v != "graph"], peak, result)
     host_work = [(t, r.cpu().numpy(), v.cpu().numpy()) for t, r, v in flush]
     result["flush_host_us"] = {"pageable": [], "staged": []}
     for staged in (False, True, True, False):
@@ -442,6 +950,45 @@ def main() -> int:
         result["flush_host_us"]))
     if not all(torch.equal(s, s0) for (s, _, _), s0 in zip(sources, kept)):
         raise AssertionError("a scatter wrote its source table")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rows", default="sweep",
+                    choices=("sweep", "copy", "all"))
+    ap.add_argument("--variants", default="old,new,graph,library")
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    peak = cs.hbm_peak(name)
+    log(smi)
+    t0 = time.perf_counter()
+    kernels.build()
+    kernels._load()
+    variants = args.variants.split(",")
+    old = OldKernels() if "old" in variants else None
+    log(f"built in {time.perf_counter() - t0:.1f} s")
+    for line in kernels.BUILD_LOG.splitlines():
+        if "ptxas info" in line and ("Used" in line or "Compiling" in line
+                                     or "spill" in line):
+            log("  " + line.strip())
+    result = {"smi": smi, "device": name, "variants": variants, "rows": {}}
+    if args.rows in ("sweep", "all"):
+        sweep_rows(args, variants, old, peak, result)
+    if args.rows in ("copy", "all"):
+        copy_rows(args, variants, old, peak, result)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -97,7 +97,7 @@ def from_reference(ref_prog, idx_main, idx_aux, stages: Optional[tuple] = None,
                             tree_depth=tree_depth, device=dev,
                             num_iters=num_iters,
                             shared_tree_depth=shared_tree_depth,
-                            host_main=main, stages=stages)
+                            host_main=main, host_aux=aux, stages=stages)
     return (prog, torch.from_numpy(main).to(dev), torch.from_numpy(aux).to(dev),
             kernel)
 

@@ -29,12 +29,18 @@ skips conditional results).
 
 The fixpoint loop runs on the host: after each sweep it reads back the
 sweep_delta pair (changed bits, any change) — one device sync per sweep.
-Moving the convergence test onto the device is later work (ROADMAP).
+On a CUDA device a sweep's launches (the copy of the input, every step,
+the delta) are captured once per state arena, tables and plan in a CUDA
+graph, one for each direction between the arena's two buffers, and each
+sweep is one replay; moving the convergence test onto the device is
+later work (ROADMAP).
 """
 
 from __future__ import annotations
 
+import bisect
 import threading
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -50,7 +56,8 @@ from .graph_compile import (
     PUnion,
     PZero,
 )
-from .kernels.reference import OP_AND, OP_ANDNOT, OP_OR, OP_READ, OP_ZERO
+from .kernels.reference import (OP_AND, OP_ANDNOT, OP_OR, OP_READ, OP_ZERO,
+                                reads_in_place)
 
 # Main-table fanin: rows with more in-edges are tree-split (production
 # graphs are fanin-skewed: most rows have fanin 0 or 1).  The reference
@@ -387,10 +394,19 @@ def compile_perm_program(expr, offset: int, length: int) -> tuple:
 class _Arena:
     """One bucket's state buffers, [NT, W] int32 each ([NT, 2W] with
     planes): the seed x0 and the two sweep states the fixpoint loop swaps
-    between."""
+    between; the wildcard liveness [T, W] (None without wildcard terms);
+    and on a CUDA device the sweep's two captured graphs with the tables
+    and plan they were captured for (`graph_key`, which also keeps those
+    tensors alive while the graphs may replay them) and the memory pool
+    that every capture of this arena reuses (its graphs never replay at
+    the same time: the arena is one batch's at a time)."""
     x0: torch.Tensor
     a: torch.Tensor
     b: torch.Tensor
+    live: Optional[torch.Tensor] = None
+    graph_key: Optional[tuple] = None
+    graphs: Optional[list] = None
+    pool: Optional[tuple] = None    # the graphs' memory pool, kept
 
 
 class EllKernelCache:
@@ -405,13 +421,21 @@ class EllKernelCache:
     entry points take the caveat table `idx_cav`: checks return tri-state
     {0, 1, 2}, lookups the DEFINITE plane.  The plane path sweeps with the
     Jacobi step, as the reference's does; `stages=()` selects the same
-    step on the definite path (the reference's SPICEDB_TPU_STAGED=0)."""
+    step on the definite path (the reference's SPICEDB_TPU_STAGED=0).
+
+    Where each gather writes is part of the plan: a staged row range, or
+    the aux refresh, writes the state in place when its host table reads
+    none of its own rows (counted at build from `host_main`/`host_aux`
+    and kept true by `note_row`; unknown tables mean scratch), and the
+    Jacobi main gather always does, reading its own rows from the sweep's
+    input.  Permission programs always write in place."""
 
     def __init__(self, prog: GraphProgram, n_aux_rows: int, tree_depth: int,
                  device: torch.device, num_iters: Optional[int] = None,
                  shared_tree_depth: Optional[int] = None,
                  host_main: Optional[np.ndarray] = None,
-                 stages: Optional[tuple] = None, planes: bool = False):
+                 stages: Optional[tuple] = None, planes: bool = False,
+                 host_aux: Optional[np.ndarray] = None):
         self.prog = prog
         self.n_aux_rows = n_aux_rows
         self.device = torch.device(device)
@@ -434,20 +458,59 @@ class EllKernelCache:
                 stages = annotate_stage_refresh(stages, host_main,
                                                 prog.state_size)
         self.stages = stages
+        self._count_self_reads(host_main, host_aux)
         self._plan = self._build_plan()
         self._arenas: dict = {}
         self._arena_lock = threading.Lock()
+        # CUDA graph upkeep: captures (and their host seconds), replayed
+        # sweeps, sweeps launched step by step on the card
+        self.graph_stats = {"captures": 0, "capture_s": 0.0, "replays": 0,
+                            "eager_sweeps": 0}
 
     # -- build-time plan -----------------------------------------------------
 
+    def _count_self_reads(self, host_main: Optional[np.ndarray],
+                          host_aux: Optional[np.ndarray]) -> None:
+        """Per staged row range, the entries of its host main-table rows
+        that point inside it; and the aux entries that point at aux nodes
+        (the aux refresh writes every aux row).  A gather whose count is 0
+        reads none of the rows it writes.  None where the table is not
+        given."""
+        n = self.prog.state_size
+        self._ranges = sorted((lo, hi) for ranges, _, _ in self.stages
+                              for lo, hi in ranges)
+        self._range_lo = [lo for lo, _ in self._ranges]
+        self._range_index = {r: i for i, r in enumerate(self._ranges)}
+        self._main_reads = None if host_main is None else [
+            int(((host_main[lo:hi] >= lo) & (host_main[lo:hi] < hi)).sum())
+            for lo, hi in self._ranges]
+        self._aux_reads = (None if host_aux is None
+                           else int((host_aux >= n).sum()))
+
+    def _gather_mode(self, lo: int, hi: int) -> str:
+        """How the main gather of rows [lo, hi) writes: "x_in" (the Jacobi
+        step: in place, its own rows read from the sweep's input),
+        "in_place" (no row of the range is read), else "scratch"."""
+        if not self.stages:
+            return "x_in"
+        if self._main_reads is not None and \
+                self._main_reads[self._range_index[(lo, hi)]] == 0:
+            return "in_place"
+        return "scratch"
+
+    def _aux_mode(self) -> str:
+        return "in_place" if self._aux_reads == 0 else "scratch"
+
     def _build_plan(self) -> list:
-        """Per stage: (repeat, wants_aux, [(lo, hi, wc_bits)], [(code, offset,
-        length, in_place)]), with every table the kernels read uploaded
-        once.  Perm ops and wildcard terms are grouped by the stage whose
-        ranges contain them (a type's slots are contiguous, so containment
-        is exact), as the reference groups them.  The Jacobi step is one
-        pseudo-stage: every state row and every perm op in program
-        order."""
+        """Per stage: (repeat, wants_aux, [(lo, hi, wc_bits, mode)],
+        [(code, offset, length, depth)], aux mode), with every table the
+        kernels read uploaded once.  Perm ops and wildcard terms are
+        grouped by the stage whose ranges contain them (a type's slots are
+        contiguous, so containment is exact), as the reference groups
+        them.  The Jacobi step is one pseudo-stage: every state row and
+        every perm op in program order.  Every program writes in place:
+        slots are disjoint row ranges of one length, so a READ is of the
+        output slot itself or of rows outside it (checked here)."""
         prog, dev = self.prog, self.device
         terms = list(prog.wildcard_terms)
         if len(terms) > kernels.MAX_WILDCARD_TERMS:
@@ -465,6 +528,7 @@ class EllKernelCache:
             return any(lo <= off < hi for lo, hi in ranges)
 
         stages = self.stages or ((((0, prog.state_size),), 1, True),)
+        aux_mode = self._aux_mode()
         plan = []
         for ranges, repeat, wants_aux in stages:
             rows = []
@@ -476,20 +540,28 @@ class EllKernelCache:
                     bits[m - lo] |= np.uint32(1) << np.uint32(i)
                 wc = (torch.from_numpy(bits.view(np.int32)).to(dev)
                       if bits.any() else None)
-                rows.append((lo, hi, wc))
+                rows.append((lo, hi, wc, self._gather_mode(lo, hi)))
             ops = []
             for op in prog.perm_ops:
                 if not in_stage(ranges, op.offset):
                     continue
-                code, depth, self_read = compile_perm_program(
-                    op.expr, op.offset, op.length)
+                code, depth, _ = compile_perm_program(op.expr, op.offset,
+                                                      op.length)
                 if depth > kernels.MAX_STACK:
                     raise NotImplementedError(
                         f"permission expression needs a stack of {depth} "
                         f"(> {kernels.MAX_STACK})")
+                if len(code) // 2 > kernels.MAX_PROGRAM:
+                    raise NotImplementedError(
+                        f"permission program of {len(code) // 2} "
+                        f"instructions (> {kernels.MAX_PROGRAM})")
+                if not reads_in_place(code.tolist(), op.offset, op.length):
+                    raise RuntimeError(
+                        f"permission op at {op.offset} reads rows that "
+                        f"overlap its own slot")
                 ops.append((torch.from_numpy(code).to(dev), op.offset,
-                            op.length, not self_read))
-            plan.append((repeat, wants_aux, rows, ops))
+                            op.length, depth))
+            plan.append((repeat, wants_aux, rows, ops, aux_mode))
         return plan
 
     def note_main_aux_ref(self, row: int) -> bool:
@@ -509,11 +581,53 @@ class EllKernelCache:
                 self.stages = (self.stages[:i] + ((ranges, repeat, True),)
                                + self.stages[i + 1:])
                 plan = list(self._plan)
-                p_repeat, _, rows, ops = plan[i]
-                plan[i] = (p_repeat, True, rows, ops)
+                p_repeat, _, rows, ops, aux_mode = plan[i]
+                plan[i] = (p_repeat, True, rows, ops, aux_mode)
                 self._plan = plan
                 return True
         return False
+
+    def note_row(self, table: str, row: int, old: np.ndarray,
+                 new: np.ndarray) -> None:
+        """The endpoint graph changed row `row` of its host main ("m") or
+        aux ("a") table from `old` to `new`: keep the self-read counts
+        true.  The plan follows at `sync_in_place`."""
+        if table == "m":
+            if self._main_reads is None:
+                return
+            i = bisect.bisect_right(self._range_lo, row) - 1
+            if i < 0 or row >= self._ranges[i][1]:
+                return
+            lo, hi = self._ranges[i]
+            inside = lambda v: int(((v >= lo) & (v < hi)).sum())
+            self._main_reads[i] += inside(new) - inside(old)
+        elif self._aux_reads is not None:
+            n = self.prog.state_size
+            self._aux_reads += int((new >= n).sum()) - int((old >= n).sum())
+
+    def sync_in_place(self) -> bool:
+        """After a flush: give each gather the write mode its range's
+        count now proves (a new child inside its own range moves it to
+        scratch; removing the last one moves it back in place).  A change
+        builds a NEW plan list, which goes into the graph's snapshots with
+        the flushed tables; a batch holding an older snapshot sweeps its
+        tables with its own plan.  Returns True when a mode changed."""
+        aux_mode = self._aux_mode()
+        plan, changed = [], False
+        for repeat, wants_aux, rows, ops, old_aux in self._plan:
+            new_rows = [(lo, hi, wc, self._gather_mode(lo, hi))
+                        for lo, hi, wc, _ in rows]
+            changed |= old_aux != aux_mode or any(
+                a[3] != b[3] for a, b in zip(rows, new_rows))
+            plan.append((repeat, wants_aux, new_rows, ops, aux_mode))
+        if changed:
+            self._plan = plan
+        return changed
+
+    @property
+    def plan(self) -> list:
+        """The current sweep plan (see `_build_plan`)."""
+        return self._plan
 
     # -- state arenas --------------------------------------------------------
 
@@ -529,9 +643,13 @@ class EllKernelCache:
         if a is not None:
             return a
         nt = self.prog.state_size + self.n_aux_rows
-        return _Arena(*(torch.empty((nt, self.width(n_words)),
-                                    dtype=torch.int32, device=self.device)
-                        for _ in range(3)))
+        w = self.width(n_words)
+        live = (torch.empty((self._wc_ranges.shape[0], w), dtype=torch.int32,
+                            device=self.device)
+                if self._wc_ranges is not None else None)
+        return _Arena(*(torch.empty((nt, w), dtype=torch.int32,
+                                    device=self.device)
+                        for _ in range(3)), live=live)
 
     def put_arena(self, n_words: int, arena: _Arena) -> None:
         """Return an arena to the pool; if a concurrent call repooled
@@ -550,8 +668,9 @@ class EllKernelCache:
                     n_words: Optional[int] = None,
                     plan: Optional[list] = None):
         """The kernel calls of one sweep, in order: ("ell_gather_or", idx,
-        dst_lo, seeded, wc_bits), ("cav_gather_or", idx_cav, half) and
-        ("perm_program", code, offset, length, in_place, half); `half` is
+        dst_lo, seeded, wc_bits, mode), ("cav_gather_or", idx_cav, half)
+        and ("perm_program", code, offset, length, in_place, half, depth);
+        `mode` is where the gather writes (`_gather_mode`), `half` is
         `n_words` on the plane path and None on the definite one.  `plan`
         defaults to the current one.
 
@@ -569,27 +688,29 @@ class EllKernelCache:
         every perm op in program order on the result."""
         half = n_words if self.planes else None
         n = self.prog.state_size
-        refresh = [("ell_gather_or", idx_aux, n, False, None)] \
-            * (self.aux_passes if self.n_aux_rows else 0)
         plan = plan if plan is not None else self._plan
+        refresh = [("ell_gather_or", idx_aux, n, False, None, plan[0][4])] \
+            * (self.aux_passes if self.n_aux_rows else 0)
         if not self.stages:
             yield from refresh
-            ((_, _, rows, ops),) = plan
-            for lo, hi, wc in rows:
-                yield ("ell_gather_or", idx_main[lo:hi], lo, True, wc)
+            ((_, _, rows, ops, _),) = plan
+            for lo, hi, wc, mode in rows:
+                yield ("ell_gather_or", idx_main[lo:hi], lo, True, wc, mode)
             if self.planes and idx_cav is not None:
                 yield ("cav_gather_or", idx_cav, half)
-            for code, off, length, in_place in ops:
-                yield ("perm_program", code, off, length, in_place, half)
+            for code, off, length, depth in ops:
+                yield ("perm_program", code, off, length, True, half, depth)
             return
-        for repeat, wants_aux, rows, ops in plan:
+        for repeat, wants_aux, rows, ops, _ in plan:
             for _ in range(repeat):
                 if wants_aux:
                     yield from refresh
-                for lo, hi, wc in rows:
-                    yield ("ell_gather_or", idx_main[lo:hi], lo, True, wc)
-                for code, off, length, in_place in ops:
-                    yield ("perm_program", code, off, length, in_place, None)
+                for lo, hi, wc, mode in rows:
+                    yield ("ell_gather_or", idx_main[lo:hi], lo, True, wc,
+                           mode)
+                for code, off, length, depth in ops:
+                    yield ("perm_program", code, off, length, True, None,
+                           depth)
         yield from refresh
 
     @staticmethod
@@ -597,72 +718,142 @@ class EllKernelCache:
         """Run one sweep step on `cur` with `impl` — the kernel wrappers,
         or their twins (kernels.reference) to hold a kernel against its
         plain version on the same inputs.  `x_in` is the sweep's input
-        state, which only the caveat gather reads."""
+        state, which the caveat gather and the Jacobi main gather read
+        (the latter only for rows where it equals `cur`)."""
         kind = step[0]
         if kind == "ell_gather_or":
-            _, idx, dst_lo, seeded, wc = step
+            _, idx, dst_lo, seeded, wc, mode = step
+            if mode == "x_in" and x_in is None:
+                raise ValueError("this gather reads the sweep's input: "
+                                 "pass x_in")
             impl.ell_gather_or(cur, idx, dst_lo, x0=x0 if seeded else None,
                                wc_bits=wc,
-                               wc_live=live if wc is not None else None)
+                               wc_live=live if wc is not None else None,
+                               in_place=mode == "in_place",
+                               x_in=x_in if mode == "x_in" else None)
         elif kind == "cav_gather_or":
             _, idx, half = step
             impl.cav_gather_or(cur, x_in, idx, half)
         else:
-            _, code, off, length, in_place, half = step
+            _, code, off, length, in_place, half, depth = step
             impl.perm_program(cur, x0, code, off, length, in_place=in_place,
-                              half=half)
+                              half=half, depth=depth)
 
     def evaluate(self, q_idx: torch.Tensor, n_words: int, idx_main,
-                 idx_aux, arena: _Arena, idx_cav=None) -> tuple:
+                 idx_aux, arena: _Arena, idx_cav=None,
+                 plan: Optional[list] = None) -> tuple:
         """Seed, then sweep to the fixpoint (or the iteration cap).
         Returns (final state — one of the arena's buffers, trace).  The
-        whole batch sweeps with the plan current at its start.
+        whole batch sweeps with `plan` (the one its snapshot captured;
+        default the current one).
 
         Each sweep starts `cur` as a copy of the input `x` and leaves it
         the next state, dead row zeroed by sweep_delta.  `live` is the
         wildcard liveness: the reference ORs the self rows of the sweep's
         input state, which always equal the seed's (no edge, definite or
         caveated, targets a self slot), so the seed kernel computes it
-        once."""
-        plan = self._plan
-        prog = self.prog
-        nt = prog.state_size + self.n_aux_rows
-        dead = prog.dead_index
-        live = None
-        if self._wc_ranges is not None:
-            live = torch.empty((self._wc_ranges.shape[0],
-                                self.width(n_words)),
-                               dtype=torch.int32, device=self.device)
-        x0 = kernels.seed_bitplanes(q_idx, nt, n_words, dead, out=arena.x0,
-                                    wc_ranges=self._wc_ranges, live=live,
-                                    planes=self.planes)
-        x, cur = arena.a, arena.b
-        x.copy_(x0)
+        once.  On a CUDA device every sweep is one replay of a CUDA graph
+        of the arena (`_sweep_graphs`); on the CPU the twins run step by
+        step."""
+        return self._evaluate(q_idx, n_words, (idx_main, idx_aux, idx_cav),
+                              arena, plan, self.device.type == "cuda")
+
+    def _evaluate_eager(self, q_idx: torch.Tensor, n_words: int, idx_main,
+                        idx_aux, arena: _Arena, idx_cav=None,
+                        plan: Optional[list] = None) -> tuple:
+        """`evaluate` with every sweep launched step by step, as the CPU
+        runs it: what the graphs replay, for the card tests and the
+        measurements that hold the two side by side."""
+        return self._evaluate(q_idx, n_words, (idx_main, idx_aux, idx_cav),
+                              arena, plan, False)
+
+    def _evaluate(self, q_idx, n_words: int, tables: tuple, arena: _Arena,
+                  plan: Optional[list], graphs: bool) -> tuple:
+        plan = plan if plan is not None else self._plan
+        x0 = kernels.seed_bitplanes(q_idx, self.prog.state_size
+                                    + self.n_aux_rows, n_words,
+                                    self.prog.dead_index, out=arena.x0,
+                                    wc_ranges=self._wc_ranges,
+                                    live=arena.live, planes=self.planes)
+        bufs = (arena.a, arena.b)
+        bufs[0].copy_(x0)
+        replay = self._sweep_graphs(arena, tables, plan) if graphs else None
         trace = np.zeros(1 + self.num_iters, np.int32)
         i = 0
         changed = True
         while changed and i < self.num_iters:
-            cur.copy_(x)
-            for step in self.sweep_steps(idx_main, idx_aux, idx_cav,
-                                         n_words, plan):
-                self.run_step(step, cur, x0, live, x_in=x)
-            delta, any_change = kernels.sweep_delta(cur, x, dead).tolist()
+            p = i % 2
+            if replay is None:
+                out = self._sweep(bufs[p], bufs[1 - p], arena, tables,
+                                  n_words, plan)
+                if graphs:
+                    self.graph_stats["eager_sweeps"] += 1
+            else:
+                graph, out = replay[p]
+                graph.replay()
+                self.graph_stats["replays"] += 1
+            delta, any_change = out.tolist()
+            if graphs and replay is None:
+                # the first sweep after a miss ran every kernel of the
+                # plan once (loaded); now capture both directions
+                replay = self._capture(arena, tables, n_words, plan)
             trace[1 + i] = delta
             changed = bool(any_change)
             i += 1
-            x, cur = cur, x
         trace[0] = i
-        return x, trace
+        return bufs[i % 2], trace
+
+    def _sweep(self, x, cur, arena: _Arena, tables: tuple, n_words: int,
+               plan: list) -> torch.Tensor:
+        """One sweep from `x` into `cur`; returns sweep_delta's device
+        [changed bits, any change] pair."""
+        cur.copy_(x)
+        for step in self.sweep_steps(*tables, n_words, plan):
+            self.run_step(step, cur, arena.x0, arena.live, x_in=x)
+        return kernels.sweep_delta(cur, x, self.prog.dead_index)
+
+    @staticmethod
+    def _sweep_graphs(arena: _Arena, tables: tuple, plan: list):
+        """The arena's captured sweep graphs if they were captured for
+        these very tables and this plan (identity), else None: a flush, a
+        plan change or a new arena recaptures, and a graph is never
+        replayed over pointers it was not captured with."""
+        key = arena.graph_key
+        if key is not None and all(a is b for a, b in zip(key,
+                                                          (*tables, plan))):
+            return arena.graphs
+        return None
+
+    def _capture(self, arena: _Arena, tables: tuple, n_words: int,
+                 plan: list) -> list:
+        """Capture one sweep in each direction between the arena's two
+        buffers: [(graph a -> b, its delta pair), (graph b -> a, ...)]."""
+        t0 = time.perf_counter()
+        if arena.pool is None:
+            arena.pool = torch.cuda.graph_pool_handle()
+        # the old graphs go only after the new ones hold the pool, so that
+        # its memory stays reserved for them
+        graphs = []
+        for x, cur in ((arena.a, arena.b), (arena.b, arena.a)):
+            graph = kernels.LaunchGraph(self.device, arena.pool)
+            out = graph.capture(lambda x=x, cur=cur: self._sweep(
+                x, cur, arena, tables, n_words, plan))
+            graphs.append((graph, out))
+        arena.graph_key = (*tables, plan)
+        arena.graphs = graphs
+        self.graph_stats["captures"] += 1
+        self.graph_stats["capture_s"] += time.perf_counter() - t0
+        return graphs
 
     def _run(self, n_words: int, q_idx, idx_main, idx_aux, idx_cav,
-             finish) -> tuple:
+             finish, plan: Optional[list] = None) -> tuple:
         if self.planes and idx_cav is None:
             raise ValueError("the plane path needs the caveat table")
         arena = self.take_arena(n_words)
         try:
             q = _to_device(q_idx, self.device)
             x, trace = self.evaluate(q, n_words, idx_main, idx_aux, arena,
-                                     idx_cav)
+                                     idx_cav, plan)
             out = finish(x)
         except BaseException:
             # a failed call returns no arena, and drops the bucket's pooled
@@ -675,7 +866,8 @@ class EllKernelCache:
     # -- pipelined entry points ----------------------------------------------
 
     def checks_device(self, q_idx, n_words: int, gather_idx, gather_col,
-                      idx_main, idx_aux, idx_cav=None) -> tuple:
+                      idx_main, idx_aux, idx_cav=None,
+                      plan: Optional[list] = None) -> tuple:
         """Tri-state-encoded checks per gather slot ({0, 2}; {0, 1, 2}
         with planes): returns (int32 [G] device tensor, trace)."""
         gi = _to_device(gather_idx, self.device)
@@ -684,17 +876,20 @@ class EllKernelCache:
             finish = lambda x: kernels.check_gather3(x, gi, gc, n_words)
         else:
             finish = lambda x: kernels.check_gather(x, gi, gc)
-        return self._run(n_words, q_idx, idx_main, idx_aux, idx_cav, finish)
+        return self._run(n_words, q_idx, idx_main, idx_aux, idx_cav, finish,
+                         plan)
 
     def lookup_packed_T_device(self, slot_offset: int, slot_length: int,
                                q_idx, n_words: int, idx_main,
-                               idx_aux, idx_cav=None) -> tuple:
+                               idx_aux, idx_cav=None,
+                               plan: Optional[list] = None) -> tuple:
         """Packed lookup words, word-transposed on device: returns
         (int32 [n_words, slot_length] device tensor, trace); bit b of word
         row w is query column 32*w + b (the DEFINITE plane with planes)."""
         return self._run(n_words, q_idx, idx_main, idx_aux, idx_cav,
                          lambda x: kernels.lookup_T(x, slot_offset,
-                                                    slot_length, n_words))
+                                                    slot_length, n_words),
+                         plan)
 
     def iterations(self, q_idx, n_words: int, idx_main, idx_aux,
                    idx_cav=None) -> int:

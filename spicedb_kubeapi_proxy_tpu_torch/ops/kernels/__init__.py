@@ -10,8 +10,9 @@ as `half` (perm_program, cav_gather_or, check_gather3) or a flag
 Each wrapper takes torch tensors.  On CUDA tensors it launches the kernel
 from csrc/ell_kernels.cu (built for sm_90a with nvcc at first use, bound
 with ctypes) on the current stream of the tensors' card (all on one),
-and adds one to its entry in `LAUNCHES`; a build or launch failure
-raises.  On CPU tensors it runs the
+and adds one to its entry in `LAUNCHES` (under a `LaunchGraph` capture,
+to the graph's count, which every replay adds); a build or launch
+failure raises.  On CPU tensors it runs the
 plain-torch twin from reference.py instead — that is the only reason a
 twin runs, and it never counts as a launch.  Any other device raises.
 
@@ -43,6 +44,9 @@ KERNEL_NAMES = ("ell_gather_or", "perm_program", "sweep_delta",
 
 # launches per kernel since the last reset_launches(); CPU twins never count
 LAUNCHES: dict = {name: 0 for name in KERNEL_NAMES}
+# a thread capturing a CUDA graph records its wrappers' launches here
+# instead (LaunchGraph): they run only when the graph is replayed
+_capture = threading.local()
 
 SOURCE = Path(__file__).with_name("csrc") / "ell_kernels.cu"
 BUILD_DIR = Path(__file__).with_name("_build")
@@ -51,6 +55,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 MAX_WILDCARD_TERMS = 32   # wc_bits is one int32 bitmask per row
 MAX_STACK = 16            # kMaxStack, perm_program's operand stack
+MAX_PROGRAM = 4096        # perm_program instructions (shared memory)
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -64,6 +69,61 @@ class KernelError(RuntimeError):
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _count(name: str) -> None:
+    """One launch of `name`: into LAUNCHES, or into the capture this
+    thread is recording."""
+    rec = getattr(_capture, "counts", None)
+    if rec is None:
+        LAUNCHES[name] += 1
+    else:
+        rec[name] = rec.get(name, 0) + 1
+
+
+class LaunchGraph:
+    """Wrapper calls captured once in a CUDA graph and replayed.
+
+    `capture(fn)` records what `fn` launches on `device` (kernels, copies,
+    memsets; tensors it allocates come from the graph's own memory pool
+    and live as long as the graph) and returns `fn`'s result; nothing runs
+    until `replay()`, which launches the whole graph on the current stream
+    and adds the captured launches to LAUNCHES, as the calls would have.
+    The capture is `torch.cuda.graph`'s in "thread_local" mode (other
+    threads keep launching meanwhile) on a side stream, without that
+    context's device synchronise and cache flush; `pool`
+    (`torch.cuda.graph_pool_handle()`) lets graphs that never replay
+    at the same time share their memory.  A capture that fails
+    raises; nothing falls back to eager launches.  Every pointer the calls
+    read is baked into the graph, so the caller keeps their tensors alive
+    and unmoved while it may replay."""
+
+    def __init__(self, device, pool=None):
+        self.device = torch.device(device)
+        self.graph = torch.cuda.CUDAGraph()
+        self.pool = pool
+        self.counts: dict = {}
+
+    def capture(self, fn):
+        side = torch.cuda.Stream(self.device)
+        _capture.counts = counts = {}
+        try:
+            with torch.cuda.device(self.device), torch.cuda.stream(side):
+                self.graph.capture_begin(pool=self.pool,
+                                         capture_error_mode="thread_local")
+                try:
+                    out = fn()
+                finally:
+                    self.graph.capture_end()
+        finally:
+            _capture.counts = None
+        self.counts = counts
+        return out
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for name, n in self.counts.items():
+            LAUNCHES[name] += n
 
 
 def _nvcc() -> str:
@@ -108,8 +168,9 @@ def _load():
             lib = ctypes.CDLL(str(build()))
             P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             sigs = {
-                "ell_gather_or": (P, P, I, L, I, P, P, P, P, P, P),
-                "ell_perm_program": (P, P, I, L, I, I, P, P, P),
+                "ell_gather_or": (P, P, L, L, P, I, I, L, I, I, P, P, P, P,
+                                  P, P),
+                "ell_perm_program": (P, P, I, L, I, I, I, I, P, P, P),
                 "ell_cav_gather_or": (P, P, I, L, I, P, P),
                 "ell_sweep_delta": (P, P, L, I, L, P, P),
                 "ell_seed_bitplanes": (P, I, L, I, I, L, P, I, P, P, P),
@@ -182,11 +243,21 @@ def _run(fn: str, device: torch.device, *args) -> None:
 def ell_gather_or(cur: torch.Tensor, idx: torch.Tensor, dst_lo: int,
                   x0: Optional[torch.Tensor] = None,
                   wc_bits: Optional[torch.Tensor] = None,
-                  wc_live: Optional[torch.Tensor] = None) -> None:
+                  wc_live: Optional[torch.Tensor] = None,
+                  in_place: bool = False,
+                  x_in: Optional[torch.Tensor] = None) -> None:
     """cur[dst_lo + r] = OR_k cur[idx[r, k]] (| seed | wildcard terms),
-    out of place.  `idx` is int32 [n, K] (a row slice of a gather table)."""
-    if not _on_cuda(cur, idx, x0, wc_bits, wc_live):
-        return reference.ell_gather_or(cur, idx, dst_lo, x0, wc_bits, wc_live)
+    every gather reading the state as it stood before the write.  `idx`
+    is int32 [n, K] (a row slice of a gather table).  Three ways to get
+    there: through a scratch buffer copied back into `cur` (the default);
+    `in_place`, straight into `cur`, legal only when `idx` reads no row of
+    the output range [dst_lo, dst_lo + n) (the caller proves it from the
+    host table; the twin raises otherwise); `x_in`, straight into `cur`
+    with the reads of the output range taken from `x_in`, another buffer
+    that equals `cur` on those rows (the Jacobi step's sweep input)."""
+    if not _on_cuda(cur, idx, x0, wc_bits, wc_live, x_in):
+        return reference.ell_gather_or(cur, idx, dst_lo, x0, wc_bits, wc_live,
+                                       in_place, x_in)
     _check(cur, "cur", 2)
     _check(idx, "idx", 2)
     n, k = idx.shape
@@ -204,26 +275,45 @@ def ell_gather_or(cur: torch.Tensor, idx: torch.Tensor, dst_lo: int,
         _check(wc_live, "wc_live", 2)
         if wc_bits.shape[0] != n or wc_live.shape[1] != w:
             raise KernelError("ell_gather_or: wildcard shape mismatch")
-    scratch = torch.empty((n, w), dtype=torch.int32, device=cur.device)
+    if x_in is not None:
+        _check(x_in, "x_in", 2)
+        if x_in.shape != cur.shape or x_in.data_ptr() == cur.data_ptr():
+            raise KernelError("ell_gather_or: x_in must be another buffer "
+                              "of the state's shape")
     dst = cur[dst_lo: dst_lo + n]
-    _run("ell_gather_or", cur.device, _ptr(cur), _ptr(idx), k, n, w, _ptr(seed),
-         _ptr(wc_bits), _ptr(wc_live), _ptr(scratch), _ptr(dst))
-    LAUNCHES["ell_gather_or"] += 1
+    direct = in_place or x_in is not None
+    out = dst if direct else torch.empty((n, w), dtype=torch.int32,
+                                         device=cur.device)
+    src = cur if x_in is None else x_in
+    vec = int(w % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (cur, src, out, seed, wc_live)
+        if t is not None))
+    iv = (4 if k % 4 == 0 and idx.data_ptr() % 16 == 0 else
+          2 if k % 2 == 0 and idx.data_ptr() % 8 == 0 else 1)
+    _run("ell_gather_or", cur.device, _ptr(cur), _ptr(src), dst_lo,
+         0 if x_in is None else n, _ptr(idx), k, iv, n, w, vec, _ptr(seed),
+         _ptr(wc_bits), _ptr(wc_live), _ptr(out),
+         None if direct else _ptr(dst))
+    _count("ell_gather_or")
     return None
 
 
 def perm_program(cur: torch.Tensor, x0: torch.Tensor, code: torch.Tensor,
                  offset: int, length: int, in_place: bool = False,
-                 half: Optional[int] = None) -> None:
+                 half: Optional[int] = None,
+                 depth: Optional[int] = None) -> None:
     """cur[offset: offset + length] = program(cur) | x0[same rows].
-    `in_place` is only legal when the program reads no row of its own
-    output range (the caller decides, see ops/ell.py); otherwise the
-    result goes through a scratch buffer first.  With `half` the rows are
-    definite/maybe planes of `half` words each and the program runs in
-    Kleene mode (exclusion mixes the planes)."""
+    `in_place` writes the rows directly; it is legal when every READ of
+    the program is of the output slot itself or of a row range disjoint
+    from it (the caller proves it, see ops/ell.py; the twin raises
+    otherwise); else the result goes through a scratch buffer first.
+    With `half` the rows are definite/maybe planes of `half` words each
+    and the program runs in Kleene mode (exclusion mixes the planes).
+    `depth` is the program's stack depth (default MAX_STACK): the kernel
+    keeps a smaller register stack for programs at most 4 deep."""
     if not _on_cuda(cur, x0, code):
         return reference.perm_program(cur, x0, code, offset, length,
-                                      in_place, half)
+                                      in_place, half, depth)
     _check(cur, "cur", 2)
     _check(x0, "x0", 2)
     _check(code, "code", 1)
@@ -232,13 +322,22 @@ def perm_program(cur: torch.Tensor, x0: torch.Tensor, code: torch.Tensor,
     w = cur.shape[1]
     if half is not None and 2 * half != w:
         raise KernelError(f"perm_program: half {half} != width {w} / 2")
+    n_ins = code.shape[0] // 2
+    if n_ins > MAX_PROGRAM:
+        raise KernelError(f"perm_program: {n_ins} instructions (> "
+                          f"{MAX_PROGRAM})")
+    depth = MAX_STACK if depth is None else depth
+    if not 0 < depth <= MAX_STACK:
+        raise KernelError(f"perm_program: stack depth {depth}")
     seed = x0[offset: offset + length]
     dst = cur[offset: offset + length]
     out = dst if in_place else torch.empty((length, w), dtype=torch.int32,
                                            device=cur.device)
-    _run("ell_perm_program", cur.device, _ptr(cur), _ptr(code), code.shape[0], length, w,
-         half or 0, _ptr(seed), _ptr(out))
-    LAUNCHES["perm_program"] += 1
+    vec = int((half or w) % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (cur, seed, out)))
+    _run("ell_perm_program", cur.device, _ptr(cur), _ptr(code), n_ins, length,
+         w, half or 0, depth, vec, _ptr(seed), _ptr(out))
+    _count("perm_program")
     if not in_place:
         dst.copy_(out)
     return None
@@ -264,7 +363,7 @@ def cav_gather_or(cur: torch.Tensor, x_in: torch.Tensor, idx: torch.Tensor,
         raise KernelError("cav_gather_or: x_in must not be the output")
     _run("ell_cav_gather_or", x_in.device, _ptr(x_in), _ptr(idx), k, r, half,
          _ptr(cur[dst_lo:]))
-    LAUNCHES["cav_gather_or"] += 1
+    _count("cav_gather_or")
     return None
 
 
@@ -281,7 +380,7 @@ def sweep_delta(x_new: torch.Tensor, x_old: torch.Tensor,
     out = torch.empty(2, dtype=torch.int32, device=x_new.device)
     nt, w = x_new.shape
     _run("ell_sweep_delta", x_new.device, _ptr(x_new), _ptr(x_old), nt, w, dead, _ptr(out))
-    LAUNCHES["sweep_delta"] += 1
+    _count("sweep_delta")
     return out
 
 
@@ -317,7 +416,7 @@ def seed_bitplanes(q_idx: torch.Tensor, nt: int, n_words: int, dead: int,
             raise KernelError("seed_bitplanes: live shape mismatch")
     _run("ell_seed_bitplanes", q_idx.device, _ptr(q_idx), q_idx.shape[0], nt, n_words,
          int(planes), dead, _ptr(wc_ranges), n_wc, _ptr(out), _ptr(live))
-    LAUNCHES["seed_bitplanes"] += 1
+    _count("seed_bitplanes")
     return out
 
 
@@ -333,7 +432,7 @@ def check_gather(x: torch.Tensor, gather_idx: torch.Tensor,
     out = torch.empty(g, dtype=torch.int32, device=x.device)
     _run("ell_check_gather", x.device, _ptr(x), x.shape[1], _ptr(gather_idx),
          _ptr(gather_col), g, _ptr(out))
-    LAUNCHES["check_gather"] += 1
+    _count("check_gather")
     return out
 
 
@@ -353,7 +452,7 @@ def check_gather3(x: torch.Tensor, gather_idx: torch.Tensor,
     out = torch.empty(g, dtype=torch.int32, device=x.device)
     _run("ell_check_gather3", x.device, _ptr(x), half, _ptr(gather_idx),
          _ptr(gather_col), g, _ptr(out))
-    LAUNCHES["check_gather3"] += 1
+    _count("check_gather3")
     return out
 
 
@@ -372,7 +471,7 @@ def lookup_T(x: torch.Tensor, offset: int, length: int,
         raise KernelError(f"lookup_T: {w} words of a {x.shape[1]}-word row")
     out = torch.empty((w, length), dtype=torch.int32, device=x.device)
     _run("ell_lookup_T", x.device, _ptr(x), w, x.shape[1], offset, length, _ptr(out))
-    LAUNCHES["lookup_T"] += 1
+    _count("lookup_T")
     return out
 
 
@@ -396,7 +495,7 @@ def scatter_rows(src: torch.Tensor, rows: torch.Tensor,
     vec = int(src.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     _run("ell_scatter_rows", src.device, _ptr(src), r, k, _ptr(rows), b, _ptr(vals),
          _ptr(out), vec)
-    LAUNCHES["scatter_rows"] += 1
+    _count("scatter_rows")
     return out
 
 
@@ -420,7 +519,7 @@ def edge_or(y: torch.Tensor, x: torch.Tensor, src: torch.Tensor,
         raise KernelError("edge_or: y must not be the input state")
     _run("ell_edge_or", x.device, _ptr(x), _ptr(src), _ptr(dst), src.shape[0],
          x.shape[1], _ptr(y))
-    LAUNCHES["edge_or"] += 1
+    _count("edge_or")
     return None
 
 
@@ -439,7 +538,7 @@ def word_cols_T(plane: torch.Tensor, rows: int,
     out = torch.empty((k, rows), dtype=torch.int32, device=plane.device)
     _run("ell_word_cols_T", plane.device, _ptr(plane), plane.shape[1], _ptr(words), k,
          rows, _ptr(out))
-    LAUNCHES["word_cols_T"] += 1
+    _count("word_cols_T")
     return out
 
 
@@ -458,5 +557,5 @@ def or_combine(dst: torch.Tensor, src: torch.Tensor) -> None:
         raise KernelError("or_combine: src must not be dst")
     vec = int(dst.data_ptr() % 16 == 0 and src.data_ptr() % 16 == 0)
     _run("ell_or_combine", dst.device, _ptr(dst), _ptr(src), dst.numel(), vec)
-    LAUNCHES["or_combine"] += 1
+    _count("or_combine")
     return None

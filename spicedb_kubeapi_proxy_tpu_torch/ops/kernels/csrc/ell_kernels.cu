@@ -32,20 +32,23 @@
 // What bounds them on this card: every kernel here is a memory-bound
 // streaming pass (a few integer ops per 4-byte word, far below the
 // ~300 op/byte balance point of an H100).  The gathers read rows at data-
-// dependent addresses; with W words per row a warp reads 32/W rows'
-// worth of contiguous W-word segments, so their design is one thread per
-// (row, word) — neighbouring threads on neighbouring words of a row, then
-// of the next row — with no shared memory and no tensor cores.  Making
-// them fast (row-per-warp gathers with 16-byte loads, fusing the range
-// copy-back) is later work.  Two kernels are redesigned for the card:
-// lookup_T, whose one-thread-per-output-word loads were strided (each
-// 4-byte load cost a 32-byte sector, fetched again by every other word
-// pass), is a tiled transpose through shared memory with 16-byte loads
-// and stores; scatter_rows, a copy launch then a scatter launch that
-// waited on it, is one launch whose blocks copy their span and then
-// write the overrides inside it.  At the main path's sizes (6.4-8.7 MB)
-// both run for a few microseconds, close to the cost of a launch, and
-// the wrapper's host path per call is longer than either.
+// dependent addresses; their first design was one thread per (row, word)
+// — neighbouring threads on neighbouring words of a row, then of the next
+// row — with no shared memory and no tensor cores, which edge_or,
+// cav_gather_or and the rest keep.  Four kernels are redesigned for the
+// card: lookup_T, whose one-thread-per-output-word loads were strided
+// (each 4-byte load cost a 32-byte sector, fetched again by every other
+// word pass), is a tiled transpose through shared memory with 16-byte
+// loads and stores; scatter_rows, a copy launch then a scatter launch
+// that waited on it, is one launch whose blocks copy their span and then
+// write the overrides inside it; ell_gather_or and perm_program work on
+// 16-byte chunks of a row, read their indices or program once, and write
+// the state in place wherever that is exact, which drops the scratch
+// buffer and the copy back into the state that every launch paid.  At
+// the main path's sizes each launch runs for microseconds, close to the
+// cost of a launch, and the wrapper's host path per call is longer than
+// most; the single-device sweep therefore replays its launches from a
+// CUDA graph (ops/ell.py).
 //
 // Interface: plain C launchers taking raw device pointers and the CUDA
 // stream, bound from Python with ctypes.  Each launcher returns the CUDA
@@ -60,6 +63,7 @@
 namespace {
 
 constexpr int kBlock = 256;
+constexpr int kSMs = 132;       // streaming multiprocessors of an H100 SXM
 constexpr int kMaxStack = 16;   // perm_program operand stack (MAX_STACK in __init__.py)
 
 inline unsigned int grid_for(long long n, int block, long long cap) {
@@ -69,141 +73,321 @@ inline unsigned int grid_for(long long n, int block, long long cap) {
     return (unsigned int)g;
 }
 
-// y[r, w] = OR_j cur[idx[r, j], w]  |  seed[r, w]  |  OR_{t in wc_bits[r]} wc_live[t, w]
-__global__ void ell_gather_or_kernel(const int32_t* __restrict__ cur,
-                                     const int32_t* __restrict__ idx, int k,
-                                     long long nrows, int W,
-                                     const int32_t* __restrict__ seed,
-                                     const int32_t* __restrict__ wc_bits,
-                                     const int32_t* __restrict__ wc_live,
-                                     int32_t* __restrict__ out) {
-    const long long total = nrows * W;
+// Chunks of one row: a thread of the gather and program kernels owns N
+// consecutive words of a row, N = 4 (one 16-byte load and store; rows of
+// W % 4 == 0 words, 16-byte aligned) or N = 1 (any W).  Chunk<V> gives
+// the loads, stores and bitwise ops for either, so both kernels are
+// written once.
+template <typename V> struct Chunk;
+
+template <> struct Chunk<uint32_t> {
+    static constexpr int N = 1;
+    static __device__ __forceinline__ uint32_t ld(const int32_t* p) {
+        return (uint32_t)*p;
+    }
+    static __device__ __forceinline__ void st(int32_t* p, uint32_t v) {
+        *p = (int32_t)v;
+    }
+    static __device__ __forceinline__ uint32_t zero() { return 0u; }
+    static __device__ __forceinline__ uint32_t ones() { return ~0u; }
+    static __device__ __forceinline__ uint32_t or_(uint32_t a, uint32_t b) {
+        return a | b;
+    }
+    static __device__ __forceinline__ uint32_t and_(uint32_t a, uint32_t b) {
+        return a & b;
+    }
+    static __device__ __forceinline__ uint32_t andn(uint32_t a, uint32_t b) {
+        return a & ~b;
+    }
+    static __device__ __forceinline__ uint32_t shfl_xor(uint32_t v, int m) {
+        return __shfl_xor_sync(0xffffffffu, v, m);
+    }
+};
+
+template <> struct Chunk<uint4> {
+    static constexpr int N = 4;
+    static __device__ __forceinline__ uint4 ld(const int32_t* p) {
+        return *reinterpret_cast<const uint4*>(p);
+    }
+    static __device__ __forceinline__ void st(int32_t* p, uint4 v) {
+        *reinterpret_cast<uint4*>(p) = v;
+    }
+    static __device__ __forceinline__ uint4 zero() {
+        return make_uint4(0u, 0u, 0u, 0u);
+    }
+    static __device__ __forceinline__ uint4 ones() {
+        return make_uint4(~0u, ~0u, ~0u, ~0u);
+    }
+    static __device__ __forceinline__ uint4 or_(uint4 a, uint4 b) {
+        return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
+    }
+    static __device__ __forceinline__ uint4 and_(uint4 a, uint4 b) {
+        return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
+    }
+    static __device__ __forceinline__ uint4 andn(uint4 a, uint4 b) {
+        return make_uint4(a.x & ~b.x, a.y & ~b.y, a.z & ~b.z, a.w & ~b.w);
+    }
+    static __device__ __forceinline__ uint4 shfl_xor(uint4 v, int m) {
+        return make_uint4(__shfl_xor_sync(0xffffffffu, v.x, m),
+                          __shfl_xor_sync(0xffffffffu, v.y, m),
+                          __shfl_xor_sync(0xffffffffu, v.z, m),
+                          __shfl_xor_sync(0xffffffffu, v.w, m));
+    }
+};
+
+// ell_gather_or: out[r] = OR_j src(idx[r, j]) | seed[r] | OR over the set
+// bits t of wc_bits[r] of wc_live[t], where src(s) is row s of x_in when
+// s lies in [in_lo, in_lo + in_span) and row s of cur otherwise.
+//
+// One thread per (row, chunk, part): the C = W / N chunks of a row sit
+// side by side, so a warp's gathers of one index read 32 / C rows'
+// contiguous 16-byte words.  A row of K >= 16 indices (the aux tables,
+// K = 32) is split over P = 4 neighbouring lanes, each gathering K / P of
+// them, and the partial ORs meet by warp shuffles: two threads a row with
+// 32 gathers each left an aux table of 6,333 rows only ~12,700 threads
+// and a long chain of round trips a thread.  Each thread reads its share
+// of the row's indices once (16-, 8- or 4-byte loads, `iv` indices a
+// load), which the first version re-read for every word of the row, and
+// issues all its gathers before it needs any.  Launches of fewer threads
+// than two full waves take blocks of 64, not 256, so that every SM gets
+// some.
+//
+// Where it writes (the wrapper's choice, see ops/kernels/__init__.py):
+// `out` is either a scratch buffer that the launcher copies into the
+// state afterwards (the range may read its own rows: every read must see
+// the state as it stood before the write), or the destination rows
+// themselves.  Writing the state directly is exact when no gather reads a
+// row of the output range (the plan proves it from the host table), or
+// when those reads are redirected to x_in, a buffer equal to the state on
+// those rows (the Jacobi step's sweep input, in_span = the range).  No
+// thread then reads a word that another thread writes.
+//
+// Bound by bytes: the distinct gathered rows, the index rows, the seed
+// rows and the written rows, once each.  Half the main table's index
+// slots hold the dead row, whose word stays in L1; the copy-back the
+// scratch path adds (a read and a write of every output row) is what
+// writing in place saves.
+template <typename V, int P>
+__global__ void __launch_bounds__(kBlock)
+gather_or_kernel(const int32_t* cur, const int32_t* x_in, long long in_lo,
+                 unsigned long long in_span,
+                 const int32_t* __restrict__ idx, int k, int iv,
+                 long long nrows, int W, const int32_t* __restrict__ seed,
+                 const int32_t* __restrict__ wc_bits,
+                 const int32_t* __restrict__ wc_live, int32_t* out) {
+    using C = Chunk<V>;
+    const int chunks = W / C::N;
+    const int kp = k / P;
+    const long long total = nrows * chunks * P;
+    // 32-bit thread-index arithmetic when the launch fits (a 64-bit
+    // division per thread costs as much as the gathers of a short row)
+    const bool narrow = total <= 0x7fffffffLL;
     const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         t < total; t += stride) {
-        const long long r = t / W;
-        const int w = (int)(t - r * W);
-        const int32_t* ir = idx + r * k;
-        uint32_t v = 0;
-        for (int j = 0; j < k; ++j) {
-            v |= (uint32_t)__ldg(cur + (long long)__ldg(ir + j) * W + w);
+    // the loop runs the same trips in every lane of a block (its bound
+    // moves with the block's base), so the shuffles see whole warps
+    for (long long base = (long long)blockIdx.x * blockDim.x; base < total;
+         base += stride) {
+        const long long t = base + threadIdx.x;
+        const bool active = t < total;
+        const long long tt = active ? t : 0;
+        const int part = (int)(tt % P);
+        long long r;
+        int c;
+        if (narrow) {
+            const unsigned int u = (unsigned int)tt / P;    // (row, chunk)
+            const unsigned int ru = u / (unsigned int)chunks;
+            r = ru;
+            c = (int)(u - ru * (unsigned int)chunks) * C::N;
+        } else {
+            const long long u = tt / P;
+            r = u / chunks;
+            c = (int)(u - r * chunks) * C::N;
         }
-        if (seed != nullptr) v |= (uint32_t)seed[t];
+        auto row = [&](int s) -> V {
+            const int32_t* src =
+                (unsigned long long)(s - in_lo) < in_span ? x_in : cur;
+            return C::ld(src + (long long)s * W + c);
+        };
+        V v = C::zero();
+        if (active) {
+            const int32_t* ir = idx + r * k + part * kp;
+            if (iv == 4) {
+#pragma unroll 8
+                for (int j = 0; j < kp; j += 4) {
+                    const int4 s =
+                        __ldg(reinterpret_cast<const int4*>(ir + j));
+                    const V a = row(s.x), b = row(s.y), d = row(s.z),
+                            e = row(s.w);
+                    v = C::or_(v, C::or_(C::or_(a, b), C::or_(d, e)));
+                }
+            } else if (iv == 2) {
+                for (int j = 0; j < kp; j += 2) {
+                    const int2 s =
+                        __ldg(reinterpret_cast<const int2*>(ir + j));
+                    const V a = row(s.x), b = row(s.y);
+                    v = C::or_(v, C::or_(a, b));
+                }
+            } else {
+                for (int j = 0; j < kp; ++j) v = C::or_(v, row(__ldg(ir + j)));
+            }
+        }
+#pragma unroll
+        for (int m = 1; m < P; m <<= 1) v = C::or_(v, C::shfl_xor(v, m));
+        if (!active || part != 0) continue;
+        if (seed != nullptr) v = C::or_(v, C::ld(seed + r * W + c));
         if (wc_bits != nullptr) {
-            uint32_t b = (uint32_t)wc_bits[r];
+            uint32_t b = (uint32_t)__ldg(wc_bits + r);
             while (b) {
                 const int term = __ffs(b) - 1;
                 b &= b - 1;
-                v |= (uint32_t)wc_live[(long long)term * W + w];
+                v = C::or_(v, C::ld(wc_live + (long long)term * W + c));
             }
         }
-        out[t] = (int32_t)v;
+        C::st(out + r * W + c, v);
     }
 }
 
-// Postfix program over slot slices, two int32 per instruction:
-//   0 READ offset   push cur[offset + i, w]
+// S stack slots of chunks as named members (head, then the tail's), not
+// an array: every access is to a member, so the compiler keeps all of
+// them in registers whatever the index (a run-time index becomes a chain
+// of selects over the S slots); an array indexed in a loop went to a
+// local-memory stack frame.
+template <typename V, int S> struct Slots {
+    V head;
+    Slots<V, S - 1> tail;
+    __device__ __forceinline__ V get(int i) const {
+        return i == 0 ? head : tail.get(i - 1);
+    }
+    __device__ __forceinline__ void set(int i, V v) {
+        if (i == 0) {
+            head = v;
+        } else {
+            tail.set(i - 1, v);
+        }
+    }
+};
+
+template <typename V> struct Slots<V, 0> {
+    __device__ __forceinline__ V get(int) const { return Chunk<V>::zero(); }
+    __device__ __forceinline__ void set(int, V) {}
+};
+
+// perm_program: a postfix program over slot slices, two int32 per
+// instruction:
+//   0 READ offset   push cur[offset + i]
 //   1 ZERO -        push 0
 //   2 OR   n        pop n, push their OR
 //   3 AND  n        pop n, push their AND
 //   4 ANDNOT -      pop b, pop a, push a & ~b
-// out[i, w] = result | seed[i, w].  `out` may point into `cur` (the slot
-// being written is never read by its own program when in place; the
-// wrapper routes self-reading programs through a scratch buffer).
-__global__ void perm_program_kernel(const int32_t* cur,
-                                    const int32_t* __restrict__ code,
-                                    int n_code, long long length, int W,
-                                    const int32_t* __restrict__ seed,
-                                    int32_t* out) {
-    const long long total = length * W;
+// out[i] = result | seed[i].  With PLANES the rows are definite/maybe
+// pairs of stride W = 2H: a thread owns chunk c of both planes and a stack
+// of pairs; OR and AND act on each plane, ANDNOT mixes them (Kleene
+// exclusion): def(a - b) = def(a) & ~maybe(b), maybe(a - b) = maybe(a) &
+// ~def(b).
+//
+// Design.  One thread per (row, chunk), the chunks of a row side by side.
+// Each block copies the program into shared memory once (`prog`), so the
+// interpreter's instruction reads cost no global loads.  The operand
+// stack is S register slots (`Slots`); S is 4 for programs at most 4 deep
+// (the plans of every schema here) and 16 (kMaxStack) otherwise, and a
+// plane program deeper than 4 runs on 4-byte chunks.  `nvcc -Xptxas -v`
+// on sm_90a: no stack frame and no spill for every S = 4 variant (32-70
+// registers) and the definite S = 16 ones (48 and 142); 12 bytes of spill
+// for the 4-byte plane S = 16 one (80); 16-byte plane pairs at S = 16
+// took 255 registers and spilled 504 bytes, hence the 4-byte path; the
+// stack as an array indexed in unrolled loops sat in a local-memory
+// frame (32-512 bytes).  A run of READs issues all its loads before any
+// is used.  `out` may be the
+// output rows of `cur` (the single-device plan always writes in place):
+// slots of one type are disjoint row ranges of one length, so a READ of
+// another slot never reaches the output range, and a READ of the output
+// slot itself reads only the word its own thread writes, before writing
+// it.  Bound by bytes: the rows each READ reads, the seed rows and the
+// written rows.
+template <typename V, int S, bool PLANES>
+__global__ void __launch_bounds__(kBlock)
+perm_program_kernel(const int32_t* cur, const int32_t* __restrict__ code,
+                    int n_ins, long long length, int W, int H,
+                    const int32_t* __restrict__ seed, int32_t* out) {
+    using C = Chunk<V>;
+    extern __shared__ int2 prog[];
+    for (int p = threadIdx.x; p < n_ins; p += blockDim.x)
+        prog[p] = make_int2(__ldg(code + 2 * p), __ldg(code + 2 * p + 1));
+    __syncthreads();
+    const int chunks = H / C::N;
+    const long long total = length * chunks;
+    const bool narrow = total <= 0x7fffffffLL;
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
          t < total; t += stride) {
-        const long long i = t / W;
-        const int w = (int)(t - i * W);
-        uint32_t stack[kMaxStack];
-        int sp = 0;
-        for (int pc = 0; pc < n_code; pc += 2) {
-            const int op = __ldg(code + pc);
-            const int arg = __ldg(code + pc + 1);
-            if (op == 0) {
-                stack[sp++] = (uint32_t)cur[((long long)arg + i) * W + w];
-            } else if (op == 1) {
-                stack[sp++] = 0u;
-            } else if (op == 2) {
-                uint32_t v = stack[--sp];
-                for (int j = 1; j < arg; ++j) v |= stack[--sp];
-                stack[sp++] = v;
-            } else if (op == 3) {
-                uint32_t v = stack[--sp];
-                for (int j = 1; j < arg; ++j) v &= stack[--sp];
-                stack[sp++] = v;
-            } else {
-                const uint32_t b = stack[--sp];
-                const uint32_t a = stack[--sp];
-                stack[sp++] = a & ~b;
-            }
+        long long i;
+        int c;
+        if (narrow) {
+            const unsigned int iu = (unsigned int)t / (unsigned int)chunks;
+            i = iu;
+            c = (int)((unsigned int)t - iu * (unsigned int)chunks) * C::N;
+        } else {
+            i = t / chunks;
+            c = (int)(t - i * chunks) * C::N;
         }
-        out[t] = (int32_t)(stack[0] | (uint32_t)seed[t]);
-    }
-}
-
-// The same program over definite/maybe planes (rows of stride 2H): thread
-// (i, w) owns the word pair (w, w + H) and a stack of pairs.  OR and AND
-// act on each plane; ANDNOT mixes them (Kleene exclusion):
-//   def(a - b) = def(a) & ~maybe(b),   maybe(a - b) = maybe(a) & ~def(b).
-__global__ void perm_program_planes_kernel(const int32_t* cur,
-                                           const int32_t* __restrict__ code,
-                                           int n_code, long long length,
-                                           int H,
-                                           const int32_t* __restrict__ seed,
-                                           int32_t* out) {
-    const long long total = length * H;
-    const long long S = 2LL * H;
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         t < total; t += stride) {
-        const long long i = t / H;
-        const int w = (int)(t - i * H);
-        uint32_t sd[kMaxStack], sm[kMaxStack];
+        Slots<V, S> sd, sm;
         int sp = 0;
-        for (int pc = 0; pc < n_code; pc += 2) {
-            const int op = __ldg(code + pc);
-            const int arg = __ldg(code + pc + 1);
+        for (int pc = 0; pc < n_ins;) {
+            const int op = prog[pc].x;
             if (op == 0) {
-                const int32_t* r = cur + ((long long)arg + i) * S + w;
-                sd[sp] = (uint32_t)r[0];
-                sm[sp] = (uint32_t)r[H];
-                ++sp;
-            } else if (op == 1) {
-                sd[sp] = 0u;
-                sm[sp] = 0u;
-                ++sp;
-            } else if (op == 2) {
-                --sp;
-                uint32_t d = sd[sp], m = sm[sp];
-                for (int j = 1; j < arg; ++j) { --sp; d |= sd[sp]; m |= sm[sp]; }
-                sd[sp] = d;
-                sm[sp] = m;
-                ++sp;
-            } else if (op == 3) {
-                --sp;
-                uint32_t d = sd[sp], m = sm[sp];
-                for (int j = 1; j < arg; ++j) { --sp; d &= sd[sp]; m &= sm[sp]; }
-                sd[sp] = d;
-                sm[sp] = m;
-                ++sp;
-            } else {
-                const uint32_t bd = sd[--sp], bm = sm[sp];
-                const uint32_t ad = sd[--sp], am = sm[sp];
-                sd[sp] = ad & ~bm;
-                sm[sp] = am & ~bd;
-                ++sp;
+                int m = 1;
+                while (pc + m < n_ins && prog[pc + m].x == 0) ++m;
+#pragma unroll
+                for (int j = 0; j < S; ++j) {
+                    if (j >= sp && j < sp + m) {
+                        const int32_t* r =
+                            cur + ((long long)prog[pc + j - sp].y + i) * W + c;
+                        sd.set(j, C::ld(r));
+                        if constexpr (PLANES) sm.set(j, C::ld(r + H));
+                    }
+                }
+                sp += m;
+                pc += m;
+                continue;
             }
+            if (op == 1) {
+                sd.set(sp, C::zero());
+                if constexpr (PLANES) sm.set(sp, C::zero());
+                ++sp;
+            } else if (op == 2 || op == 3) {
+                const int lo = sp - prog[pc].y;
+                V d = op == 2 ? C::zero() : C::ones();
+                V m = d;
+#pragma unroll
+                for (int j = 0; j < S; ++j) {
+                    if (j >= lo && j < sp) {
+                        d = op == 2 ? C::or_(d, sd.get(j))
+                                    : C::and_(d, sd.get(j));
+                        if constexpr (PLANES)
+                            m = op == 2 ? C::or_(m, sm.get(j))
+                                        : C::and_(m, sm.get(j));
+                    }
+                }
+                sd.set(lo, d);
+                if constexpr (PLANES) sm.set(lo, m);
+                sp = lo + 1;
+            } else {
+                const V ad = sd.get(sp - 2), bd = sd.get(sp - 1);
+                if constexpr (PLANES) {
+                    const V am = sm.get(sp - 2), bm = sm.get(sp - 1);
+                    sd.set(sp - 2, C::andn(ad, bm));
+                    sm.set(sp - 2, C::andn(am, bd));
+                } else {
+                    sd.set(sp - 2, C::andn(ad, bd));
+                }
+                --sp;
+            }
+            ++pc;
         }
-        const long long o = i * S + w;
-        out[o] = (int32_t)(sd[0] | (uint32_t)seed[o]);
-        out[o + H] = (int32_t)(sm[0] | (uint32_t)seed[o + H]);
+        const long long o = i * W + c;
+        C::st(out + o, C::or_(sd.head, C::ld(seed + o)));
+        if constexpr (PLANES)
+            C::st(out + o + H, C::or_(sm.head, C::ld(seed + o + H)));
     }
 }
 
@@ -566,45 +750,101 @@ EXPORT const char* ell_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 
-// Gather-OR a row range into `scratch`, then copy it to `dst` (rows of the
-// state).  Out of place on purpose: the range's gathers must read the
-// state as it stood before the range is written (reference ell.py:478-488).
-EXPORT int ell_gather_or(const void* cur, const void* idx, int k,
-                         long long nrows, int W, const void* seed,
-                         const void* wc_bits, const void* wc_live,
-                         void* scratch, void* dst, void* stream) {
+// Gather-OR of `nrows` rows into `out` (rows of the state, or a scratch
+// buffer that is then copied into `dst`; `dst` null when `out` is the
+// destination).  Reads of rows [in_lo, in_lo + in_span) go to `x_in`
+// (in_span 0: every read goes to `cur`).  `vec`: W % 4 == 0 and every row
+// pointer 16-byte aligned; `iv`: indices a load (4, 2 or 1; k % iv == 0
+// and the index rows aligned to it).
+EXPORT int ell_gather_or(const void* cur, const void* x_in, long long in_lo,
+                         long long in_span, const void* idx, int k, int iv,
+                         long long nrows, int W, int vec, const void* seed,
+                         const void* wc_bits, const void* wc_live, void* out,
+                         void* dst, void* stream) {
     if (nrows <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
-    const long long total = nrows * W;
-    ell_gather_or_kernel<<<grid_for(total, kBlock, 1LL << 30), kBlock, 0, s>>>(
-        (const int32_t*)cur, (const int32_t*)idx, k, nrows, W,
-        (const int32_t*)seed, (const int32_t*)wc_bits,
-        (const int32_t*)wc_live, (int32_t*)scratch);
+    // a wide row's indices over 4 lanes, each share a whole number of
+    // index loads
+    const int parts = k >= 16 && k % (4 * iv) == 0 ? 4 : 1;
+    const long long total = nrows * (vec ? W / 4 : W) * parts;
+    // fewer threads than two full waves of 256-thread blocks: smaller
+    // blocks, so that every SM gets some
+    const int block = total < 2LL * kSMs * kBlock ? kBlock / 4 : kBlock;
+    const unsigned int grid = grid_for(total, block, 1LL << 30);
+    const int32_t *c_ = (const int32_t*)cur, *x_ = (const int32_t*)x_in,
+                  *i_ = (const int32_t*)idx, *s_ = (const int32_t*)seed,
+                  *b_ = (const int32_t*)wc_bits, *l_ = (const int32_t*)wc_live;
+    int32_t* o_ = (int32_t*)out;
+    const unsigned long long span = (unsigned long long)in_span;
+    if (vec && parts == 4) {
+        gather_or_kernel<uint4, 4><<<grid, block, 0, s>>>(
+            c_, x_, in_lo, span, i_, k, iv, nrows, W, s_, b_, l_, o_);
+    } else if (vec) {
+        gather_or_kernel<uint4, 1><<<grid, block, 0, s>>>(
+            c_, x_, in_lo, span, i_, k, iv, nrows, W, s_, b_, l_, o_);
+    } else if (parts == 4) {
+        gather_or_kernel<uint32_t, 4><<<grid, block, 0, s>>>(
+            c_, x_, in_lo, span, i_, k, iv, nrows, W, s_, b_, l_, o_);
+    } else {
+        gather_or_kernel<uint32_t, 1><<<grid, block, 0, s>>>(
+            c_, x_, in_lo, span, i_, k, iv, nrows, W, s_, b_, l_, o_);
+    }
     int e = last_error();
-    if (e) return e;
-    return (int)cudaMemcpyAsync(dst, scratch, (size_t)total * 4,
+    if (e || dst == nullptr) return e;
+    return (int)cudaMemcpyAsync(dst, out, (size_t)nrows * W * 4,
                                 cudaMemcpyDeviceToDevice, s);
 }
 
-// `half` > 0: the tri-state program over rows of W = 2 * half words.
-EXPORT int ell_perm_program(const void* cur, const void* code, int n_code,
-                            long long length, int W, int half,
-                            const void* seed, void* out, void* stream) {
-    if (length <= 0) return 0;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (half > 0) {
-        const long long total = length * half;
-        perm_program_planes_kernel<<<grid_for(total, kBlock, 1LL << 30),
-                                     kBlock, 0, s>>>(
-            (const int32_t*)cur, (const int32_t*)code, n_code, length, half,
+template <typename V, int S, bool PLANES>
+int launch_perm(const void* cur, const void* code, int n_ins,
+                long long length, int W, int H, const void* seed, void* out,
+                cudaStream_t s) {
+    const long long total = length * (H / Chunk<V>::N);
+    perm_program_kernel<V, S, PLANES>
+        <<<grid_for(total, kBlock, 1LL << 30), kBlock,
+           (size_t)n_ins * sizeof(int2), s>>>(
+            (const int32_t*)cur, (const int32_t*)code, n_ins, length, W, H,
             (const int32_t*)seed, (int32_t*)out);
-        return last_error();
-    }
-    const long long total = length * W;
-    perm_program_kernel<<<grid_for(total, kBlock, 1LL << 30), kBlock, 0, s>>>(
-        (const int32_t*)cur, (const int32_t*)code, n_code, length, W,
-        (const int32_t*)seed, (int32_t*)out);
     return last_error();
+}
+
+template <typename V, bool PLANES>
+int launch_perm_depth(int depth, const void* cur, const void* code,
+                      int n_ins, long long length, int W, int H,
+                      const void* seed, void* out, cudaStream_t s) {
+    if (depth <= 4)
+        return launch_perm<V, 4, PLANES>(cur, code, n_ins, length, W, H,
+                                         seed, out, s);
+    return launch_perm<V, kMaxStack, PLANES>(cur, code, n_ins, length, W, H,
+                                             seed, out, s);
+}
+
+// `half` > 0: the tri-state program over rows of W = 2 * half words.
+// `depth`: the program's stack depth (<= kMaxStack); `vec`: the plane
+// width (half, else W) a multiple of 4 and the row pointers 16-byte
+// aligned.  `out` may be the output rows of `cur` (see the kernel).
+EXPORT int ell_perm_program(const void* cur, const void* code, int n_ins,
+                            long long length, int W, int half, int depth,
+                            int vec, const void* seed, void* out,
+                            void* stream) {
+    if (length <= 0) return 0;
+    if (depth > kMaxStack) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    const int H = half > 0 ? half : W;
+    if (half > 0) {
+        // 16 slots of 16-byte definite/maybe pairs need 255 registers and
+        // spill: a deeper plane program takes 4-byte chunks
+        return vec && depth <= 4
+                   ? launch_perm<uint4, 4, true>(cur, code, n_ins, length, W,
+                                                 H, seed, out, s)
+                   : launch_perm_depth<uint32_t, true>(
+                         depth, cur, code, n_ins, length, W, H, seed, out, s);
+    }
+    return vec ? launch_perm_depth<uint4, false>(depth, cur, code, n_ins,
+                                                 length, W, H, seed, out, s)
+               : launch_perm_depth<uint32_t, false>(depth, cur, code, n_ins,
+                                                    length, W, H, seed, out,
+                                                    s);
 }
 
 EXPORT int ell_cav_gather_or(const void* x, const void* idx, int k,

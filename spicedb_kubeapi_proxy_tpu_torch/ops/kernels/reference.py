@@ -24,20 +24,38 @@ OP_READ, OP_ZERO, OP_OR, OP_AND, OP_ANDNOT = 0, 1, 2, 3, 4
 def ell_gather_or(cur: torch.Tensor, idx: torch.Tensor, dst_lo: int,
                   x0: Optional[torch.Tensor] = None,
                   wc_bits: Optional[torch.Tensor] = None,
-                  wc_live: Optional[torch.Tensor] = None) -> None:
-    """cur[dst_lo + r] = OR_k cur[idx[r, k]] | x0[dst_lo + r]
+                  wc_live: Optional[torch.Tensor] = None,
+                  in_place: bool = False,
+                  x_in: Optional[torch.Tensor] = None) -> None:
+    """cur[dst_lo + r] = OR_k src[idx[r, k]] | x0[dst_lo + r]
     | OR over the set bits t of wc_bits[r] of wc_live[t] — every gather
-    reads `cur` as it stood before the write (out of place)."""
+    reads `cur` as it stood before the write, except that with `x_in` the
+    rows of the output range [dst_lo, dst_lo + n) are read from `x_in`,
+    as the kernel reads them.  `in_place` asks the kernel to write
+    straight into `cur`; it is refused (ValueError) when `idx` reads a row
+    of the output range, since the kernel would then race with itself."""
     n = idx.shape[0]
     if n == 0:
         return
     idx64 = idx.long()
+    own = ((idx64 >= dst_lo) & (idx64 < dst_lo + n)
+           if in_place or x_in is not None else None)
+    if in_place and x_in is None and bool(own.any()):
+        raise ValueError(f"ell_gather_or: in place asked of rows [{dst_lo}, "
+                         f"{dst_lo + n}), whose table reads its own rows")
+
+    def rows(k):
+        got = cur[idx64[:, k]]
+        if x_in is None:
+            return got
+        return torch.where(own[:, k, None], x_in[idx64[:, k]], got)
+
     if idx.shape[1] == 0:   # no gathers: the seed and wildcard terms only
         y = torch.zeros((n, cur.shape[1]), dtype=cur.dtype, device=cur.device)
     else:
-        y = cur[idx64[:, 0]]
+        y = rows(0)
     for k in range(1, idx.shape[1]):
-        y |= cur[idx64[:, k]]
+        y |= rows(k)
     if x0 is not None:
         y |= x0[dst_lo: dst_lo + n]
     if wc_bits is not None:
@@ -47,15 +65,31 @@ def ell_gather_or(cur: torch.Tensor, idx: torch.Tensor, dst_lo: int,
     cur[dst_lo: dst_lo + n] = y
 
 
+def reads_in_place(code: list, offset: int, length: int) -> bool:
+    """Whether a perm program may write its output rows in place: every
+    READ is of the output slot itself (a thread reads only the word it
+    later writes) or of a row range disjoint from it."""
+    return all(op != OP_READ or arg == offset or arg + length <= offset
+               or arg >= offset + length
+               for op, arg in zip(code[0::2], code[1::2]))
+
+
 def perm_program(cur: torch.Tensor, x0: torch.Tensor, code: torch.Tensor,
                  offset: int, length: int, in_place: bool = False,
-                 half: Optional[int] = None) -> None:
+                 half: Optional[int] = None,
+                 depth: Optional[int] = None) -> None:
     """cur[offset: offset + length] = program(cur) | x0[same rows]; the
-    program is evaluated entirely before the write (`in_place` is the
-    kernel's buffering hint and changes nothing here).  With `half`
-    (definite words [0, half), maybe words [half, 2 * half)) exclusion
-    subtracts the other plane: a & ~swap(b), as the reference writes it."""
+    program is evaluated entirely before the write.  `in_place` is
+    refused (ValueError) for a program that READs a range overlapping the
+    output rows other than the output slot itself (`reads_in_place`);
+    otherwise it changes nothing here, nor does `depth` (the kernel's
+    stack size).  With `half` (definite words [0, half), maybe words
+    [half, 2 * half)) exclusion subtracts the other plane: a & ~swap(b),
+    as the reference writes it."""
     ops = code.tolist()
+    if in_place and not reads_in_place(ops, offset, length):
+        raise ValueError(f"perm_program: in place asked of slot [{offset}, "
+                         f"{offset + length}), which a READ overlaps")
     stack: list = []
     for pc in range(0, len(ops), 2):
         op, arg = ops[pc], ops[pc + 1]

@@ -122,7 +122,7 @@ class KernelCache:
                     f"permission expression needs a stack of {depth} "
                     f"(> {kernels.MAX_STACK})")
             ops.append((torch.from_numpy(code).to(dev), op.offset, op.length,
-                        not self_read))
+                        not self_read, depth))
         self._ops = ops
 
     # -- state arenas --------------------------------------------------------
@@ -165,11 +165,12 @@ class KernelCache:
     def sweep_steps(self, edge_src: torch.Tensor, edge_dst: torch.Tensor):
         """The kernel calls of one sweep, in order: ("init", wc_bits) —
         y = x0 | wildcard terms on every row; ("edge_or", src, dst);
-        then ("perm_program", code, offset, length, in_place) per op."""
+        then ("perm_program", code, offset, length, in_place, depth) per
+        op."""
         yield ("init", self._wc_bits)
         yield ("edge_or", edge_src, edge_dst)
-        for code, off, length, in_place in self._ops:
-            yield ("perm_program", code, off, length, in_place)
+        for op in self._ops:
+            yield ("perm_program", *op)
 
     def run_step(self, step, y, x, x0, live, impl=kernels) -> None:
         """Run one sweep step into `y` with `impl` — the kernel wrappers,
@@ -186,8 +187,9 @@ class KernelCache:
         elif kind == "edge_or":
             impl.edge_or(y, x, step[1], step[2])
         else:
-            _, code, off, length, in_place = step
-            impl.perm_program(y, x0, code, off, length, in_place=in_place)
+            _, code, off, length, in_place, depth = step
+            impl.perm_program(y, x0, code, off, length, in_place=in_place,
+                              depth=depth)
 
     def evaluate(self, q_idx: torch.Tensor, n_words: int, edge_src,
                  edge_dst, arena: _Arena) -> tuple:

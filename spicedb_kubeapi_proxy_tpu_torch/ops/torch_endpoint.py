@@ -300,6 +300,7 @@ class _EllGraph:
                                      num_iters=num_iters,
                                      shared_tree_depth=t.tree_depth,
                                      host_main=t.idx_main,
+                                     host_aux=t.idx_aux,
                                      planes=self.has_cav)
 
     # -- tree walking --------------------------------------------------------
@@ -322,12 +323,17 @@ class _EllGraph:
 
     def _set(self, loc: tuple, value: int) -> None:
         table, row, col = loc
-        if table == "m":
-            self.host_main[row, col] = value
-            self._dirty_main.add(row)
-        else:
-            self.host_aux[row, col] = value
-            self._dirty_aux.add(row)
+        arr = self.host_main if table == "m" else self.host_aux
+        old = arr[row].copy()
+        arr[row, col] = value
+        (self._dirty_main if table == "m" else self._dirty_aux).add(row)
+        self._note_row(table, row, old, arr[row])
+
+    def _note_row(self, table: str, row: int, old: np.ndarray,
+                  new: np.ndarray) -> None:
+        """Every host-table row whose children change passes here, so the
+        kernel's in-place proofs stay true (EllKernelCache.note_row)."""
+        self.kernel.note_row(table, row, old, new)
 
     # -- delta application ---------------------------------------------------
 
@@ -355,12 +361,15 @@ class _EllGraph:
             return False  # K_MAIN >= K_AUX: the children do not fit a node
         j = self._spare_aux.pop()
         n = self.prog.state_size
+        old_aux = self.host_aux[j].copy()
         self.host_aux[j, : len(row)] = row
         self.host_aux[j, len(row)] = src
         self._dirty_aux.add(j)
+        self._note_row("a", j, old_aux, self.host_aux[j])
         self.host_main[root_row, 0] = n + j
         self.host_main[root_row, 1:] = self.prog.dead_index
         self._dirty_main.add(root_row)
+        self._note_row("m", root_row, row, self.host_main[root_row])
         self._grow_extra[root_row] = grown + 1
         if self.kernel.note_main_aux_ref(root_row):
             self.stage_aux_flips += 1
@@ -456,6 +465,10 @@ class _EllGraph:
                                           self._dirty_cav)
             self._dirty_cav = set()
             changed = True
+        if changed:
+            # the gathers' write modes for the new tables, which the next
+            # snapshot carries with them
+            self.kernel.sync_in_place()
         return changed
 
     # -- queries ------------------------------------------------------------
@@ -465,31 +478,49 @@ class _EllGraph:
 
     def snapshot(self) -> tuple:
         """The current device tables (main, aux, caveat — None without
-        planes); a flush swaps in new ones and never writes these."""
-        return (self.dev_main, self.dev_aux, self.dev_cav)
+        planes), with the sweep plan proven for them as `.plan`; a flush
+        swaps in new ones and never writes these."""
+        return _Snapshot((self.dev_main, self.dev_aux, self.dev_cav),
+                         self.kernel.plan)
 
     def run_checks3_device(self, q_arr, gather_idx, gather_col, snap=None):
         """Tri-state check values {0: NO, 1: CONDITIONAL, 2: HAS} on the
         device ({0, 2} without planes)."""
-        main, aux, cav = snap if snap is not None else self.snapshot()
+        snap = snap if snap is not None else self.snapshot()
+        main, aux, cav = snap
         q_arr, gi, gc = _unify_check_buckets(q_arr, gather_idx, gather_col)
         n_words = max(1, len(q_arr) // 32)
         dev, tel = self.kernel.checks_device(q_arr, n_words, gi, gc, main,
-                                             aux, cav)
+                                             aux, cav,
+                                             plan=getattr(snap, "plan", None))
         return dev, tel, self.kernel
 
     def run_lookup_packed_T_device(self, offset: int, length: int, q_arr,
                                    snap=None):
         """Definite-plane lookup words [W, length] on the device."""
-        main, aux, cav = snap if snap is not None else self.snapshot()
+        snap = snap if snap is not None else self.snapshot()
+        main, aux, cav = snap
         n_words = max(1, len(q_arr) // 32)
-        dev, tel = self.kernel.lookup_packed_T_device(offset, length, q_arr,
-                                                      n_words, main, aux, cav)
+        dev, tel = self.kernel.lookup_packed_T_device(
+            offset, length, q_arr, n_words, main, aux, cav,
+            plan=getattr(snap, "plan", None))
         return dev, tel, self.kernel
 
     def index_tuples(self, tuples: list) -> None:
         """Positionless tables: nothing to index (the segment graph
         records each tuple's edge positions here)."""
+
+
+class _Snapshot(tuple):
+    """An _EllGraph's (main, aux, caveat) device tables and, as `plan`,
+    the kernel's sweep plan of the same moment: a flush may change where
+    the gathers write, so a batch sweeps its tables with the plan proven
+    for them."""
+
+    def __new__(cls, tables: tuple, plan: list):
+        snap = super().__new__(cls, tables)
+        snap.plan = plan
+        return snap
 
 
 def _scatter_dirty(dev: torch.Tensor, host: np.ndarray,
@@ -667,6 +698,11 @@ class _ShardedEllGraph(_EllGraph):
 
         self.kernel = ShardedEllKernel(self.prog, mesh, num_iters=num_iters,
                                        tables=t, cav=ct)
+
+    def _note_row(self, table: str, row: int, old: np.ndarray,
+                  new: np.ndarray) -> None:
+        """The sharded gathers always go through scratch: nothing to
+        prove."""
 
     def flush(self) -> bool:
         changed = False

@@ -411,7 +411,7 @@ class ShardedEllKernel:
                 raise NotImplementedError(
                     f"permission expression needs a stack of {depth} "
                     f"(> {kernels.MAX_STACK})")
-            ops.append((code, op.offset, op.length, not self_read))
+            ops.append((code, op.offset, op.length, not self_read, depth))
         b = self.block_main
         for row in self.mesh.devices:
             for dev in row:
@@ -428,8 +428,9 @@ class ShardedEllKernel:
                         dev, copy=True) if blk.any() else None)
                 self._plans[dev] = (
                     wc_ranges, wc_bits,
-                    [(torch.from_numpy(code).to(dev), off, length, in_place)
-                     for code, off, length, in_place in ops])
+                    [(torch.from_numpy(code).to(dev), off, length, in_place,
+                      depth)
+                     for code, off, length, in_place, depth in ops])
 
     # -- state arenas ---------------------------------------------------------
 
@@ -517,9 +518,9 @@ class ShardedEllKernel:
             for reps in cur:
                 all_gather_rows(reps, 0, self.rows, cols=(half, 2 * half))
         for d, g, dev in grid:
-            for code, off, length, in_place in self._plans[dev][2]:
+            for code, off, length, in_place, depth in self._plans[dev][2]:
                 impl.perm_program(cur[d][g], x0[d][g], code, off, length,
-                                  in_place=in_place, half=half)
+                                  in_place=in_place, half=half, depth=depth)
 
     def evaluate(self, q_idx, n_words: int, tables: tuple, arenas: list,
                  impl=kernels) -> tuple:

@@ -601,3 +601,174 @@ def test_mesh_across_cards_agrees_with_the_cpu(mesh, workload):
                     np.asarray(sk.checks(q, gi, gc, src, dst))))
     assert np.array_equal(got[0][0], got[1][0])
     assert np.array_equal(got[0][1], got[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["scratch", "in_place", "x_in"])
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 8, 16])
+def test_gather_modes_match_the_twin(w, seeded, mode):
+    """`ell_gather_or` (16-byte chunks where W % 4 == 0, else 4-byte)
+    against its twin at K of 0-4 and 32, with wildcard bits, through
+    scratch, in place (a table that reads no row of its range) and with
+    the range's own rows read from an input buffer; a misaligned state
+    view takes the 4-byte path."""
+    _needs_card()
+    rng = np.random.default_rng(100 * w + 10 * seeded + len(mode))
+    nt, lo, n = 5_000, 1_200, 2_777
+    kernels.reset_launches()
+    for k in (0, 1, 2, 3, 4, 32):
+        cur, x0 = _rand(rng, (nt, w)), _rand(rng, (nt, w))
+        pool = (np.r_[0:lo, lo + n:nt] if mode == "in_place"
+                else np.arange(nt))
+        idx = torch.from_numpy(rng.choice(pool, (n, k)).astype(np.int32))
+        idx = idx.cuda()
+        x_in = None
+        if mode == "x_in":
+            x_in = _rand(rng, (nt, w))
+            x_in[lo: lo + n] = cur[lo: lo + n]
+        bits = torch.from_numpy(rng.integers(0, 8, n).astype(np.int32)).cuda()
+        live = _rand(rng, (3, w))
+        a, b = cur.clone(), cur.clone()
+        args = (x0 if seeded else None, bits, live)
+        kernels.ell_gather_or(a, idx, lo, *args, in_place=mode == "in_place",
+                              x_in=x_in)
+        reference.ell_gather_or(b, idx, lo, *args,
+                                in_place=mode == "in_place", x_in=x_in)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), k
+    assert kernels.LAUNCHES["ell_gather_or"] == 6
+    base = _rand(rng, (nt * w + 1,))
+    view = base[1:].view(nt, w)
+    idx = torch.from_numpy(rng.integers(0, nt, (n, 2)).astype(np.int32)).cuda()
+    b = view.clone()
+    kernels.ell_gather_or(view, idx, lo)
+    reference.ell_gather_or(b, idx, lo)
+    assert torch.equal(view, b)
+
+
+def _random_program(rng, offs, length, depth):
+    from spicedb_kubeapi_proxy_tpu_torch.ops.graph_compile import (
+        PExclude, PIntersect, PRead, PUnion, PZero)
+    if depth == 0 or rng.random() < 0.3:
+        if rng.random() < 0.1:
+            return PZero(length)
+        return PRead(int(rng.choice(offs)), length)
+    kind = int(rng.integers(0, 3))
+    if kind == 0:
+        return PUnion(tuple(_random_program(rng, offs, length, depth - 1)
+                            for _ in range(int(rng.integers(2, 5)))))
+    if kind == 1:
+        return PIntersect(tuple(_random_program(rng, offs, length, depth - 1)
+                                for _ in range(int(rng.integers(2, 4)))))
+    return PExclude(_random_program(rng, offs, length, depth - 1),
+                    _random_program(rng, offs, length, depth - 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [False, True])
+@pytest.mark.parametrize("w", [1, 3, 8, 16])
+def test_perm_program_matches_the_twin(w, planes):
+    """Random programs (self-reading ones, a 16-deep stack) in place
+    against the out-of-place twin, definite and planes, at the register
+    stack of 4 and of 16; and through scratch."""
+    _needs_card()
+    from spicedb_kubeapi_proxy_tpu_torch.ops.ell import compile_perm_program
+    from spicedb_kubeapi_proxy_tpu_torch.ops.graph_compile import (
+        PRead, PUnion)
+    if planes and w % 2:
+        pytest.skip("a plane row has an even width")
+    rng = np.random.default_rng(w + 50 * planes)
+    length, n_slots = 3_001, 6
+    offs = [i * length for i in range(n_slots)]
+    half = w // 2 if planes else None
+    kernels.reset_launches()
+    for trial in range(12):
+        out = int(rng.choice(offs))
+        if trial == 0:
+            expr = PRead(out, length)
+            for i in range(15):
+                expr = PUnion((PRead(offs[i % n_slots], length), expr))
+        else:
+            expr = _random_program(rng, offs, length, 4)
+        code, depth, _ = compile_perm_program(expr, out, length)
+        code = torch.from_numpy(code).cuda()
+        cur = _rand(rng, (n_slots * length + 5, w))
+        x0 = _rand(rng, cur.shape)
+        want = cur.clone()
+        reference.perm_program(want, x0, code, out, length, half=half)
+        for in_place, d in ((True, depth), (True, None), (False, depth)):
+            got = cur.clone()
+            kernels.perm_program(got, x0, code, out, length,
+                                 in_place=in_place, half=half, depth=d)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (trial, in_place, d)
+    assert kernels.LAUNCHES["perm_program"] == 36
+
+
+GROUP_HUB = ("definition user {}\ndefinition group {\n"
+             "  relation member: user | group#member\n}\n"
+             "definition namespace {\n"
+             "  relation viewer: user | group#member\n"
+             "  relation creator: user\n"
+             "  permission view = viewer + creator\n}")
+
+
+@pytest.mark.cuda
+def test_graph_sweeps_equal_eager_sweeps_across_flushes():
+    """`evaluate` (one CUDA graph replay a sweep) equals `_evaluate_eager`
+    in state and trace: on the loaded tables, after a flush (which
+    recaptures), and after a growth that flips a stage's aux refresh
+    on.  Replays count their launches: a graph batch and an eager batch
+    of the same sweeps add the same LAUNCHES."""
+    _needs_card()
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        RelationshipUpdate, UpdateOp, parse_relationship)
+    rels = [f"group:hub#member@user:h{i}" for i in range(40)]
+    rels += ["namespace:ns#viewer@user:u0"]
+    rels += [f"namespace:seed{i}#viewer@user:u{i}" for i in range(1, 12)]
+    rels += [f"namespace:n{i}#viewer@group:hub#member" for i in range(5)]
+    ep = create_endpoint("torch://", Bootstrap(GROUP_HUB, "\n".join(rels)))
+    q = None
+
+    def compare(tag):
+        g = ep.graph()
+        kc, prog = g.kernel, g.prog
+        snap = g.snapshot()
+        nonlocal q
+        q = np.full(64, prog.dead_index, np.int32)
+        q[:50] = np.random.default_rng(len(tag)).integers(
+            0, prog.dead_index, 50)
+        qd = torch.from_numpy(q).cuda()
+        arena = kc.take_arena(2)
+        stats0 = dict(kc.graph_stats)
+        for _ in range(2):       # a capture, then a hit
+            kernels.reset_launches()
+            x_g, tr_g = kc.evaluate(qd, 2, snap[0], snap[1], arena,
+                                    plan=snap.plan)
+            x_g = x_g.clone()
+            graph_launches = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        x_e, tr_e = kc._evaluate_eager(qd, 2, snap[0], snap[1],
+                                       kc.take_arena(2), plan=snap.plan)
+        assert torch.equal(x_g, x_e) and np.array_equal(tr_g, tr_e), tag
+        assert graph_launches == kernels.LAUNCHES, tag
+        sweeps = int(tr_g[0])
+        assert kc.graph_stats["captures"] == stats0["captures"] + 1, tag
+        assert kc.graph_stats["replays"] >= stats0["replays"] + 2 * sweeps - 1
+        return g
+
+    g = compare("loaded")
+    _write = lambda ops: ep.store.write(
+        [RelationshipUpdate(UpdateOp.TOUCH if o == "touch" else
+                            UpdateOp.DELETE, parse_relationship(r))
+         for o, r in ops])
+    _write([("touch", "group:hub#member@user:u5"),
+            ("delete", "group:hub#member@user:h3")])
+    assert compare("flushed") is g
+    flips = ep.stats["stage_aux_flips"]
+    for j in range(1, 12):
+        _write([("touch", f"namespace:ns#viewer@user:u{j}")])
+    assert compare("grown") is g
+    assert ep.stats["stage_aux_flips"] > flips
+    assert ep.stats["rebuilds"] == 1
