@@ -95,9 +95,11 @@ deployment (`models/workloads.py multitenant_1m()` with its defaults:
    after each flush, `scatter_rows` launched by the sharded flush, answers
    equal the single-device endpoint's.  (b) `ShardedKernel` (the
    edge-sharded segment sweep) on the segment endpoint's program and
-   edges: answers equal that endpoint's, `or_combine` equal its twin on a
-   real sweep's partials.  (c) the caveated deployment of phase 10 on a
-   mesh endpoint: tri-state answers (CONDITIONAL included) equal the
+   edges: answers equal that endpoint's, `or_combine` (one launch a data
+   shard, its 4 replicas) equal its twin on a real sweep's partials and
+   timed beside the library chain (3 `bitwise_or_` + 3 `copy_`).  (c)
+   the caveated deployment of phase 10 on a mesh endpoint: tri-state
+   answers (CONDITIONAL included) equal the
    single-device endpoint's, nothing routed to the oracle, the block-form
    `cav_gather_or` launched and the sweep equal to the twins.  (d)
    group-explosion of phase 12 on a mesh endpoint with the index on:
@@ -1247,9 +1249,10 @@ def _cav_churn_plan(graph, caveated, member_of, assigned, users, seed):
 
 
 def caveats(timer, peak, smi_line, device: str = "cuda",
-            workload_kwargs: Optional[dict] = None) -> dict:
+            workload_kwargs: Optional[dict] = None) -> tuple:
     """Phase 10: the caveated deployment on a second endpoint.  Returns
-    {kernel name: measurements on the caveat path}."""
+    ({kernel name: measurements on the caveat path}, the endpoint, its
+    workload, {"warm_lookup_s", "rounds"} of the write path)."""
     import numpy as np
     import torch
 
@@ -1400,7 +1403,7 @@ def caveats(timer, peak, smi_line, device: str = "cuda",
                           else 0))
             acc[3] += n * width * (k + seeded)
         elif name == "cav_gather_or":
-            _, idx, half = step
+            _, idx, half, _ = step
             r_, k = idx.shape
             uniq = int(torch.unique(idx).numel())
             reached = int((idx != dead).any(dim=1).sum())
@@ -1552,6 +1555,17 @@ def caveats(timer, peak, smi_line, device: str = "cuda",
         res = asyncio.run(ep.lookup_resources_batch("pod", "view", subjects))
         timer.sync()
         t_lookup = time.perf_counter() - t0
+        lookup_capture_ms = (kc.graph_stats["capture_s"]
+                             - gs0["capture_s"]) * 1e3
+        # the same batch again with no write between: the batch's own cost,
+        # so that lookup_s - again_s is what the round's writes added
+        t0 = time.perf_counter()
+        again = asyncio.run(ep.lookup_resources_batch("pod", "view",
+                                                      subjects))
+        timer.sync()
+        t_again = time.perf_counter() - t0
+        if [sorted(a) for a in again] != [sorted(a) for a in res]:
+            raise AssertionError("a repeated lookup batch differs")
         _tables_match(g)
         round_pairs = touched + _cav_pairs(
             rng, [s.id for s in subjects], pods, member_of, assigned,
@@ -1572,14 +1586,18 @@ def caveats(timer, peak, smi_line, device: str = "cuda",
                                      f"user:{u} differs from the oracle")
         rounds.append({"apply_ms": (ep.stats["delta_apply_s"] - a0) * 1e3,
                        "flush_ms": (ep.stats["flush_s"] - f0) * 1e3,
-                       "lookup_s": t_lookup, "check_s": t_check,
+                       "lookup_s": t_lookup, "again_s": t_again,
+                       "check_s": t_check,
+                       "lookup_capture_ms": lookup_capture_ms,
                        "capture_ms": (kc.graph_stats["capture_s"]
                                       - gs0["capture_s"]) * 1e3})
         log(f"caveat churn round {r}: {len(rnd['writes'])} writes "
             f"{t_write * 1e3:.3f} ms; delta application "
             f"{rounds[-1]['apply_ms']:.3f} ms, flush "
             f"{rounds[-1]['flush_ms']:.3f} ms (host); read-after-write "
-            f"lookup batch {t_lookup:.4f} s, check batch {t_check:.4f} s "
+            f"lookup batch {t_lookup:.4f} s ({lookup_capture_ms:.3f} ms of "
+            f"sweep graph capture; the same batch again {t_again:.4f} s), "
+            f"check batch {t_check:.4f} s "
             f"(sweeps {int(g.last_trace[0])}, CONDITIONAL "
             f"{cres.count(1)}; {kc.graph_stats['captures'] - gs0['captures']}"
             f" sweep graph captures, {rounds[-1]['capture_ms']:.3f} ms of "
@@ -1595,12 +1613,16 @@ def caveats(timer, peak, smi_line, device: str = "cuda",
                              f"incrementally: {d}")
     med = lambda k: statistics.median(x[k] for x in rounds)
     warm = statistics.median(summary["lookup"]["e2e_s"][1:])
+    added = statistics.median(x["lookup_s"] - x["again_s"] for x in rounds)
     log(f"caveat write path summary: median per round delta application "
         f"{med('apply_ms'):.3f} ms, flush {med('flush_ms'):.3f} ms (host), "
-        f"sweep graph captures {med('capture_ms'):.3f} ms; read-after-write "
+        f"sweep graph captures {med('capture_ms'):.3f} ms "
+        f"({med('lookup_capture_ms'):.3f} ms in the lookup); read-after-write "
         f"lookup batch median {med('lookup_s'):.4f} s vs warm median "
-        f"{warm:.4f} s ({med('lookup_s') / warm:.3f}x; limit 1.10x), check "
-        f"batch median {med('check_s'):.4f} s")
+        f"{warm:.4f} s ({med('lookup_s') / warm:.3f}x; limit 1.10x); the "
+        f"same batches again {med('again_s'):.4f} s "
+        f"({med('again_s') / warm:.3f}x), the writes' share "
+        f"{added * 1e3:.3f} ms; check batch median {med('check_s'):.4f} s")
     t0 = time.perf_counter()
     ep.force_rebuild()
     timer.sync()
@@ -1628,7 +1650,7 @@ def caveats(timer, peak, smi_line, device: str = "cuda",
     log(f"phase 10 wall time {time.perf_counter() - t_phase:.1f} s")
     for name, r in rows.items():
         r["launches"] = launches[name]
-    return rows, ep, w
+    return rows, ep, w, {"warm_lookup_s": warm, "rounds": rounds}
 
 
 def _seg_rows(rows, name, err, ms, plain_ms, nbytes, ops, peak,
@@ -2821,12 +2843,21 @@ def mesh_multitenant(ep, w, mesh, timer, peak, smi_line, device: str = "cuda",
     return m, out
 
 
+def or_chain(parts: list) -> None:
+    """The all-reduce's library yardstick: the pairwise form in PyTorch
+    calls, G - 1 `bitwise_or_` into parts[0], then G - 1 `copy_` back."""
+    for t in parts[1:]:
+        parts[0].bitwise_or_(t)
+    for t in parts[1:]:
+        t.copy_(parts[0])
+
+
 def mesh_segment(seg, mesh, timer, peak, device: str = "cuda") -> dict:
     """Phase 13b: ShardedKernel (the edge-sharded segment sweep) at 2 x 4
     on the segment endpoint's program and current edge arrays; answers
-    equal the segment endpoint's, `or_combine` against its twin on a real
-    sweep's partials.  Returns the or_combine row and the sweep's
-    numbers."""
+    equal the segment endpoint's, the G-way `or_combine` against its twin
+    on a real sweep's partials and timed beside the library chain.
+    Returns the or_combine row and the sweep's numbers."""
     import dataclasses
 
     import numpy as np
@@ -2915,32 +2946,32 @@ def mesh_segment(seg, mesh, timer, peak, device: str = "cuda") -> dict:
         sk.finish_step(y, x, x0, live)
         x, y = y, x
     sk.partials(y, x, x0, live, src, dst)
-    recv = torch.empty_like(y[0][0])
+    # the all-reduce on a real sweep's partials: each data shard's G
+    # replicas in one launch, against the twin
     err = 0
-    for j in range(1, MESH_GRAPH):
-        recv.copy_(y[0][j])
-        a, b = y[0][0].clone(), y[0][0].clone()
-        kernels.or_combine(a, recv)
-        reference.or_combine(b, recv)
-        err = max(err, _diff(a, b))
+    for reps in y:
+        a = [t.clone() for t in reps]
+        b = [t.clone() for t in reps]
+        kernels.or_combine(a)
+        reference.or_combine(b)
+        err = max(err, max(_diff(u, v) for u, v in zip(a, b)))
     if err:
         raise AssertionError("or_combine differs from its twin")
-    # timed over every shard's partial, each with its own peer copy (16
-    # buffers, more than the 50 MB L2 holds), per combine
-    pairs = [(t.clone(), y[d][(gg + 1) % MESH_GRAPH].clone())
-             for d, row in enumerate(y) for gg, t in enumerate(row)]
-    numel = pairs[0][0].numel()
-    per = len(pairs)
+
+    # timed over every data shard's replicas (8 buffers, more than the
+    # 50 MB L2 holds), per all-reduce of one data shard
+    sets = [[t.clone() for t in reps] for reps in y]
+    numel = sets[0][0].numel()
+    per = len(sets)
     rows = {}
     _seg_rows(rows, "or_combine", err,
-              timer.ms(lambda: [kernels.or_combine(a_, b_)
-                                for a_, b_ in pairs]) / per,
-              timer.ms(lambda: [reference.or_combine(a_, b_)
-                                for a_, b_ in pairs]) / per,
-              3 * numel * 4, numel, peak,
-              library_ms=timer.ms(lambda: [torch.bitwise_or(a_, b_, out=a_)
-                                           for a_, b_ in pairs]) / per)
-    del pairs
+              timer.ms(lambda: [kernels.or_combine(s_) for s_ in sets]) / per,
+              timer.ms(lambda: [reference.or_combine(s_)
+                                for s_ in sets]) / per,
+              2 * MESH_GRAPH * numel * 4, (MESH_GRAPH - 1) * numel, peak,
+              library_ms=timer.ms(lambda: [or_chain(s_)
+                                           for s_ in sets]) / per)
+    del sets
     rows["or_combine"]["launches"] = launches["or_combine"]
     t_part = timer.ms(lambda: sk.partials(y, x, x0, live, src, dst))
     t_red = timer.ms(lambda: [collectives.or_allreduce(reps) for reps in y])
@@ -2977,15 +3008,17 @@ def mesh_segment(seg, mesh, timer, peak, device: str = "cuda") -> dict:
              "plain_ms": t_plain, "bound_ms": nbytes / peak * 1e3,
              "bytes": nbytes, "sweeps": lk_sweeps}
     log(f"ShardedKernel sweep at {LOOKUP_LANES} lanes on 8 shards: "
-        f"partials (init + edge_or) {t_part:.6f} ms, or_allreduce (copies + "
-        f"or_combine) {t_red:.6f} ms, permission ops {t_fin:.6f} ms, deltas "
+        f"partials (init + edge_or) {t_part:.6f} ms, or_allreduce (one "
+        f"or_combine a data shard) {t_red:.6f} ms, permission ops "
+        f"{t_fin:.6f} ms, deltas "
         f"{t_delta:.6f} ms; whole sweep {sweep['sweep_ms']:.6f} ms, bound "
         f"{sweep['bound_ms']:.6f} ms over {nbytes} bytes; twins "
-        f"{t_plain:.6f} ms. or_combine on a real partial [{n}, "
+        f"{t_plain:.6f} ms. or_combine of {MESH_GRAPH} real partials [{n}, "
         f"{n_words // MESH_DATA}]: bit-identical, "
-        f"{rows['or_combine']['ms']:.6f} ms (bound "
+        f"{rows['or_combine']['ms']:.6f} ms a data shard (bound "
         f"{rows['or_combine']['bound_ms']:.6f}, twin "
-        f"{rows['or_combine']['plain_ms']:.6f}, torch.bitwise_or "
+        f"{rows['or_combine']['plain_ms']:.6f}, library chain of "
+        f"{MESH_GRAPH - 1} bitwise_or_ + {MESH_GRAPH - 1} copy_ "
         f"{rows['or_combine']['library_ms']:.6f})")
     log(f"phase 13b wall time {time.perf_counter() - t_phase:.1f} s")
     return {"rows": rows, "sweep": sweep, "launches": launches}
@@ -3268,7 +3301,7 @@ def main() -> int:
     del ep, g, batches, lookups, reqs, checks, seg
     gc.collect()
     torch.cuda.empty_cache()
-    cav_rows, cav_ep, cav_w = caveats(timer, peak, smi_line)
+    cav_rows, cav_ep, cav_w, _ = caveats(timer, peak, smi_line)
     phase_s["10"] = time.perf_counter() - t_ph
     t_ph = time.perf_counter()
     mesh_cav = mesh_caveats(cav_ep, cav_w, mesh, timer, peak)

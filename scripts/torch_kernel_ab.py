@@ -7,7 +7,7 @@ host cost apart.
                                        [--variants old,new,graph,library]
                                        [--rounds 3] [--out FILE]
 
-`--rows sweep` (the default; PERF.md rows 1, 2, 3, 5, 9, 12, 14a) loads
+`--rows sweep` (the default; PERF.md rows 1-6, 9, 10, 12, 14, 14a) loads
 multitenant-1m (`models/workloads.py multitenant_1m()` defaults) into
 `create_endpoint("torch://")` as `chip_smoke.py` does (phase 3), seeds a
 256-subject lookup batch and runs one sweep, then measures on the state
@@ -17,18 +17,31 @@ that the batch's second sweep reads, at the main path's shapes:
                  (the aux refreshes and the stage ranges, in sweep order)
   mt program i   each `perm_program` launch alone
   mt copy        the sweep's `cur.copy_(x)`
-  mt delta       `sweep_delta`
+  mt delta       `sweep_delta` (row 3)
   mt sweep       the whole staged sweep (copy, every step, delta)
+  mt seed        `seed_bitplanes` of the batch (row 4a)
+  mt check_gather  a 10,000-pair check batch's gathers (row 4b)
   mesh gathers   the per-shard `ell_gather_or` launches of one sweep of a
                  2 x 4 mesh endpoint on the same store (row 12)
+  seg edge_or    `edge_or` over the segment endpoint's full edge arrays
+                 on the same store (row 10)
+  mesh allreduce   a 2 x 4 `ShardedKernel` sweep's two `or_allreduce`s
+                 on its real partials (rows 14a, 14)
+  mesh sharded sweep  that whole sweep: partials, all-reduces,
+                 permission ops, deltas (row 14)
 
 then the caveated RBAC deployment of `chip_smoke.py` phase 10
 (`caveated_rbac(n_pods=200_000, n_users=50_000, n_groups=2_000)`), on
-the Jacobi sweep: `cav gather i`, `cav cav_gather_or`, `cav program i`,
-`cav copy`, `cav delta`, `cav sweep`; last `word_cols_T` on a closure
-plane of group-explosion's shape ([5,079, 65] int32, 63 word columns)
-and `or_combine` on the mesh's [1,084,061, 4] partials, seeded random
-words, beside their library calls.
+the Jacobi sweep: `cav gather i`, `cav cav_gather_or` (row 5), `cav
+program i`, `cav copy`, `cav delta`, `cav sweep`, `cav seed`, `cav
+check_gather3` (row 6); last `word_cols_T` on a closure plane of
+group-explosion's shape ([5,079, 65] int32, 63 word columns) and
+`or_combine` on seeded random words at the mesh's partial shape
+([1,084,061, 4]): the all-reduce of G = 4 replicas beside the pairwise
+chain in PyTorch calls (G - 1 `bitwise_or_`, G - 1 `copy_`), of G = 2
+beside one `bitwise_or_`, and with "old" the G = 4 all-reduce at each
+launch shape of COMBINE_SHAPES (and `cav_gather_or` at each of
+CAV_ROWS_SWEEP, after row 5), built from SHAPE_SOURCE.
 
 `--rows copy` runs `lookup_T` and `scatter_rows` (rows 4c, 8, 11, 13) at
 multitenant-1m after `--rounds` rounds of phase 9's churn, as before:
@@ -41,14 +54,17 @@ flush sent in two pageable copies a table against one pinned copy.
 Variants: "old" is the first CUDA version of each kernel with its first
 wrapper (`ell_gather_or` one thread per (row, word) through a scratch
 buffer copied back into the state; `perm_program` with a run-time
-indexed stack, through scratch when it reads its own slot; `lookup_T`
-one thread per output word; `scatter_rows` a copy launch and a scatter
-launch), kept here as source and built beside the package's library so
-that it can be measured and never reached from the path; "new" the
-package's kernel, launched eagerly; "graph" (whole sweeps only) the same
-sweep captured once in a CUDA graph and replayed, as
-`EllKernelCache.evaluate` runs it; "library" one PyTorch call computing
-the same function where there is one.  Every variant is first held bit
+indexed stack, through scratch when it reads its own slot;
+`cav_gather_or` one thread per (row, word), every index gathered;
+`or_combine` a launch per peer into replica 0, then a copy back to each
+peer; `lookup_T` one thread per output word; `scatter_rows` a copy
+launch and a scatter launch), kept here as source and built beside the
+package's library so that it can be measured and never reached from the
+path; "new" the package's kernel, launched eagerly; "graph" (whole
+sweeps only) the same sweep captured once in a CUDA graph and replayed,
+as `EllKernelCache.evaluate` runs it; "library" one PyTorch call (or,
+for the all-reduce, the chain of them) computing the same function
+where there is one.  Every variant is first held bit
 for bit against the plain twins, then measured by `chip_smoke.attribute`:
 (a) event-timed loop, (b) device-only time, (c) host cost per call,
 (d) device time with L2 flushed.  Each case runs the variants in the
@@ -76,6 +92,14 @@ MESH_GRAPH = 4          # graph shards of the 2 x 4 mesh (PERF.md row 13)
 PLANE_SHAPE = (5_079, 65)       # group-explosion's doc#view closure plane
 PLANE_WORDS = 63                # the word columns one batch reads from it
 COMBINE_SHAPE = (1_084_061, 4)  # one replica's partial on the 2 x 4 mesh
+N_CHECKS = 10_000               # pairs of a check batch (chip_smoke.py)
+LANES = 256                     # lanes of a lookup batch (chip_smoke.py)
+# or_combine launch shapes swept at G = 4: 16-byte chunks a thread a trip,
+# and the grid's cap in blocks (0: one trip a thread; else 2-16 blocks an
+# SM of the 132).  The package runs (2, 0).
+COMBINE_SHAPES = [(u, b) for u in (1, 2) for b in (0, 264, 528, 1056, 2112)]
+CAV_ROWS_SWEEP = (1, 2, 4)      # cav_gather_or's table rows a thread; the
+                                # package runs 1
 
 OLD_SOURCE = r"""
 #include <cuda_runtime.h>
@@ -268,6 +292,52 @@ __global__ void perm_program_planes_kernel(const int32_t* cur,
         out[o + H] = (int32_t)(sm[0] | (uint32_t)seed[o + H]);
     }
 }
+// Maybe plane of rows [0, R) (stride 2H): out[r, H + w] |= OR_j
+// x[idx[r, j], H + w], one thread per (row, word).
+__global__ void cav_gather_or_kernel(const int32_t* __restrict__ x,
+                                     const int32_t* __restrict__ idx, int k,
+                                     long long R, int H,
+                                     int32_t* __restrict__ out) {
+    const long long total = R * H;
+    const long long S = 2LL * H;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         t < total; t += stride) {
+        const long long r = t / H;
+        const int w = (int)(t - r * H);
+        const int32_t* ir = idx + r * k;
+        uint32_t v = 0;
+        for (int j = 0; j < k; ++j) {
+            v |= (uint32_t)__ldg(x + (long long)__ldg(ir + j) * S + H + w);
+        }
+        if (v) out[r * S + H + w] |= (int32_t)v;
+    }
+}
+
+// dst[i] |= src[i] over n packed words (one peer into replica 0).
+__global__ void or_combine_kernel(int32_t* __restrict__ dst,
+                                  const int32_t* __restrict__ src,
+                                  long long n, int vec) {
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    long long done = 0;
+    if (vec) {
+        const long long n4 = n >> 2;
+        const int4* __restrict__ s4 = reinterpret_cast<const int4*>(src);
+        int4* __restrict__ d4 = reinterpret_cast<int4*>(dst);
+        for (long long t = t0; t < n4; t += stride) {
+            const int4 b = __ldg(s4 + t);
+            int4 a = d4[t];
+            a.x |= b.x;
+            a.y |= b.y;
+            a.z |= b.z;
+            a.w |= b.w;
+            d4[t] = a;
+        }
+        done = n4 << 2;
+    }
+    for (long long t = done + t0; t < n; t += stride) dst[t] |= __ldg(src + t);
+}
 }  // namespace
 // Gather-OR a row range into `scratch`, then copy it to `dst` (rows of the
 // state).  Out of place on purpose: the range's gathers must read the
@@ -339,56 +409,209 @@ EXPORT int old_scatter_rows(const void* src, long long R, int K,
     }
     return 0;
 }
+EXPORT int old_cav_gather_or(const void* x, const void* idx, int k,
+                             long long R, int half, void* out, void* stream) {
+    if (R <= 0 || half <= 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    const long long total = R * half;
+    cav_gather_or_kernel<<<grid_for(total, kBlock, 1LL << 30), kBlock, 0, s>>>(
+        (const int32_t*)x, (const int32_t*)idx, k, R, half, (int32_t*)out);
+    return (int)cudaGetLastError();
+}
+EXPORT int old_or_combine(void* dst, const void* src, long long n, int vec,
+                          void* stream) {
+    if (n <= 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    const long long work = vec ? (n >> 2) : n;
+    or_combine_kernel<<<grid_for(work, kBlock, 132 * 32), kBlock, 0, s>>>(
+        (int32_t*)dst, (const int32_t*)src, n, vec);
+    return (int)cudaGetLastError();
+}
 """
 
+
+# The launch shapes the redesigned or_combine and cav_gather_or were
+# chosen from, built over the package's source (its Chunk<V>, Parts,
+# kBlock and grid_for) into a library of their own.
+SHAPE_SOURCE = r"""
+#include "ell_kernels.cu"
+namespace {
+template <int G, int U>
+__global__ void __launch_bounds__(kBlock)
+shape_or_combine_kernel(Parts parts, long long n) {
+    const long long n4 = n >> 2;
+    const long long stride = (long long)gridDim.x * blockDim.x * U;
+    for (long long t = (long long)blockIdx.x * blockDim.x * U + threadIdx.x;
+         t < n4; t += stride) {
+        uint4 v[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) v[u] = Chunk<uint4>::zero();
+#pragma unroll
+        for (int j = 0; j < G; ++j)
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const long long c = t + (long long)u * blockDim.x;
+                if (c < n4)
+                    v[u] = Chunk<uint4>::or_(
+                        v[u], Chunk<uint4>::ld(parts.p[j] + 4 * c));
+            }
+#pragma unroll
+        for (int j = 0; j < G; ++j)
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const long long c = t + (long long)u * blockDim.x;
+                if (c < n4) Chunk<uint4>::st(parts.p[j] + 4 * c, v[u]);
+            }
+    }
+}
+template <int RPT>
+__global__ void __launch_bounds__(kBlock)
+shape_cav_kernel(const int32_t* __restrict__ x,
+                 const int32_t* __restrict__ idx, unsigned int R, int H,
+                 int dead, int32_t* __restrict__ out) {
+    using C = Chunk<uint4>;
+    const long long S = 2LL * H;
+    const unsigned int stride = gridDim.x * blockDim.x * RPT;
+    for (unsigned int r0 = blockIdx.x * blockDim.x * RPT + threadIdx.x;
+         r0 < R; r0 += stride) {
+        int s[RPT][kCav];
+#pragma unroll
+        for (int u = 0; u < RPT; ++u) {
+            const unsigned int r = r0 + u * blockDim.x;
+#pragma unroll
+            for (int j = 0; j < kCav; j += 4) {
+                const int4 q = r < R ? __ldg(reinterpret_cast<const int4*>(
+                                           idx + r * kCav + j))
+                                     : make_int4(dead, dead, dead, dead);
+                s[u][j] = q.x; s[u][j + 1] = q.y;
+                s[u][j + 2] = q.z; s[u][j + 3] = q.w;
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < RPT; ++u) {
+            unsigned int live = 0;
+#pragma unroll
+            for (int j = 0; j < kCav; ++j)
+                live |= (s[u][j] != dead ? 1u : 0u) << j;
+            if (!live) continue;
+            int32_t* o = out + (long long)(r0 + u * blockDim.x) * S + H;
+            for (int c = 0; c < H; c += C::N) {
+                uint4 v = C::zero();
+#pragma unroll
+                for (int j = 0; j < kCav; ++j)
+                    if (live >> j & 1u)
+                        v = C::or_(v, C::ld(x + (long long)s[u][j] * S + H
+                                            + c));
+                if (C::any(v)) C::st(o + c, C::or_(C::ld(o + c), v));
+            }
+        }
+    }
+}
+}  // namespace
+// G = 4 replicas, 16-byte aligned, n % 4 == 0; `per_thread` 1 or 2,
+// `max_blocks` 0 for one trip a thread
+EXPORT int shape_or_combine(const void* const* ptrs, long long n,
+                            int per_thread, long long max_blocks,
+                            void* stream) {
+    Parts parts = {};
+    for (int j = 0; j < 4; ++j) parts.p[j] = (int32_t*)ptrs[j];
+    const unsigned int grid = grid_for(((n >> 2) + per_thread - 1) / per_thread,
+                                       kBlock, max_blocks ? max_blocks
+                                                          : 1LL << 30);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (per_thread == 2)
+        shape_or_combine_kernel<4, 2><<<grid, kBlock, 0, s>>>(parts, n);
+    else
+        shape_or_combine_kernel<4, 1><<<grid, kBlock, 0, s>>>(parts, n);
+    return (int)cudaGetLastError();
+}
+// half % 4 == 0, every pointer 16-byte aligned; `rows` 1, 2 or 4
+EXPORT int shape_cav_gather_or(const void* x, const void* idx, long long R,
+                               int half, int dead, int rows, void* out,
+                               void* stream) {
+    const unsigned int grid = grid_for((R + rows - 1) / rows, kBlock,
+                                       1LL << 30);
+    cudaStream_t s = (cudaStream_t)stream;
+    const int32_t *x_ = (const int32_t*)x, *i_ = (const int32_t*)idx;
+    int32_t* o_ = (int32_t*)out;
+    if (rows == 4)
+        shape_cav_kernel<4><<<grid, kBlock, 0, s>>>(x_, i_, R, half, dead, o_);
+    else if (rows == 2)
+        shape_cav_kernel<2><<<grid, kBlock, 0, s>>>(x_, i_, R, half, dead, o_);
+    else
+        shape_cav_kernel<1><<<grid, kBlock, 0, s>>>(x_, i_, R, half, dead, o_);
+    return (int)cudaGetLastError();
+}
+"""
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def build_lib(kernels, source: str, stem: str, *flags: str,
+              includes: str = ""):
+    """`source` built with the package's nvcc flags (and `flags`) into
+    the package's build directory, once per source, `includes` (the text
+    of the files it includes) and flags; a ctypes handle and nvcc's
+    output (empty when it was built before)."""
+    h = hashlib.sha256((source + includes + " ".join(
+        kernels.NVCC_FLAGS + flags)).encode())
+    out = kernels.BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"
+    build_log = ""
+    if not out.exists():
+        kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = out.with_suffix(f".{os.getpid()}.cu")
+        src.write_text(source)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, *flags,
+                               "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        src.unlink(missing_ok=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
+        build_log = proc.stdout + proc.stderr
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out)), build_log
+
+
 class OldKernels:
     """The first versions, built from OLD_SOURCE with the package's nvcc
-    flags, behind wrappers with the first versions' host path.  Kernels
-    without a first version here are the package's."""
+    flags, behind wrappers with the first versions' host path, and the
+    launch shapes of SHAPE_SOURCE.  Kernels without a first version here
+    are the package's."""
 
     def __init__(self):
         import torch
         from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
         self.torch, self.kernels = torch, kernels
-        h = hashlib.sha256(OLD_SOURCE.encode()
-                           + " ".join(kernels.NVCC_FLAGS).encode())
-        out = kernels.BUILD_DIR / f"libold_kernels-{h.hexdigest()[:16]}.so"
-        if not out.exists():
-            kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            src = out.with_suffix(f".{os.getpid()}.cu")
-            src.write_text(OLD_SOURCE)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS,
-                                   "-o", str(tmp), str(src)],
-                                  capture_output=True, text=True)
-            src.unlink(missing_ok=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
-            self.build_log = proc.stdout + proc.stderr
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
+        lib, self.build_log = build_lib(kernels, OLD_SOURCE, "old_kernels")
+        shape, log_ = build_lib(kernels, SHAPE_SOURCE, "shape_kernels",
+                                "-I", str(kernels.SOURCE.parent),
+                                includes=kernels.SOURCE.read_text())
+        self.build_log += log_
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for fn, args in (("old_lookup_T", (P, I, L, L, L, P, P)),
-                         ("old_scatter_rows", (P, L, I, P, L, P, P, I, P)),
-                         ("old_ell_gather_or", (P, P, I, L, I, P, P, P, P,
-                                                P, P)),
-                         ("old_perm_program", (P, P, I, L, I, I, P, P, P))):
-            getattr(lib, fn).argtypes = list(args)
-            getattr(lib, fn).restype = ctypes.c_int
-        self.lib = lib
+        for lib_, fn, args in (
+                (lib, "old_lookup_T", (P, I, L, L, L, P, P)),
+                (lib, "old_scatter_rows", (P, L, I, P, L, P, P, I, P)),
+                (lib, "old_ell_gather_or", (P, P, I, L, I, P, P, P, P, P,
+                                            P)),
+                (lib, "old_perm_program", (P, P, I, L, I, I, P, P, P)),
+                (lib, "old_cav_gather_or", (P, P, I, L, I, P, P)),
+                (lib, "old_or_combine", (P, P, L, I, P)),
+                (shape, "shape_or_combine", (P, L, I, L, P)),
+                (shape, "shape_cav_gather_or", (P, P, L, I, I, I, P, P))):
+            getattr(lib_, fn).argtypes = list(args)
+            getattr(lib_, fn).restype = ctypes.c_int
+        self.lib, self.shape = lib, shape
 
     def __getattr__(self, name):
         return getattr(self.kernels, name)
 
     def _run(self, fn, device, *args):
         torch = self.torch
+        lib = self.shape if fn.startswith("shape_") else self.lib
         with torch.cuda.device(device):
-            code = getattr(self.lib, fn)(
+            code = getattr(lib, fn)(
                 *args, torch.cuda.current_stream(device).cuda_stream)
         if code:
             raise RuntimeError(f"{fn}: CUDA error {code}")
@@ -437,6 +660,25 @@ class OldKernels:
                   offset, length, out.data_ptr())
         return out
 
+    def cav_gather_or(self, cur, x_in, idx, half, dst_lo=0, dead=None):
+        """The first version: one thread per (row, word), every index
+        gathered (`dead` is not read)."""
+        r, k = idx.shape
+        self._run("old_cav_gather_or", x_in.device, x_in.data_ptr(),
+                  idx.data_ptr(), k, r, half, cur[dst_lo:].data_ptr())
+
+    def or_combine(self, parts):
+        """The first all-reduce (the first `or_allreduce`, over the pairwise
+        kernel): each peer ORed into parts[0] by its own launch, then
+        parts[0] copied back to each peer."""
+        root = parts[0]
+        for src in parts[1:]:
+            vec = int(root.data_ptr() % 16 == 0 and src.data_ptr() % 16 == 0)
+            self._run("old_or_combine", root.device, root.data_ptr(),
+                      src.data_ptr(), root.numel(), vec)
+        for dst in parts[1:]:
+            dst.copy_(root)
+
     def scatter_rows(self, src, rows, vals):
         for t, name in ((src, "src"), (rows, "rows"), (vals, "vals")):
             self.kernels._check(t, name)
@@ -468,10 +710,12 @@ class Case:
     """One row of the A/B: its variants' callables, the twin's, and what
     each one's result is compared on."""
 
-    def __init__(self, name, shape, nbytes, fns, twin, result, reset):
+    def __init__(self, name, shape, nbytes, fns, twin, result, reset,
+                 order=None):
         self.name, self.shape, self.nbytes = name, shape, nbytes
         self.fns, self.twin, self.result, self.reset = (fns, twin, result,
                                                         reset)
+        self.order = order    # its own variants, else the run's
 
 
 def step_bytes(step, word: int, live, dead: int) -> int:
@@ -497,6 +741,7 @@ def step_bytes(step, word: int, live, dead: int) -> int:
 
 def sweep_cases(label, kc, tables, q, n_words, old, variants) -> list:
     """The cases of one single-device sweep (see the module docstring)."""
+    import numpy as np
     import torch
 
     from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
@@ -554,10 +799,7 @@ def sweep_cases(label, kc, tables, q, n_words, old, variants) -> list:
         name = f"{label} {kind}" + ("" if kind == "cav_gather_or" else
                                     f" {j}")
         fns = {v: sweep(m, [ss[i]], whole=False)
-               for v, (m, ss) in impls.items()
-               if v in variants and kind != "cav_gather_or"}
-        if kind == "cav_gather_or":
-            fns = {"new": sweep(kernels, [s], whole=False)}
+               for v, (m, ss) in impls.items() if v in variants}
         cases.append(Case(name, shape, step_bytes(s, word, live, dead), fns,
                           sweep(reference, [s], whole=False), result, reset))
     cases.append(Case(f"{label} copy", f"[{nt}, {width}]", 2 * nt * word,
@@ -579,6 +821,56 @@ def sweep_cases(label, kc, tables, q, n_words, old, variants) -> list:
     cases.append(Case(f"{label} sweep",
                       f"{len(steps)} steps + copy + delta on [{nt}, {width}]",
                       total, fns, sweep(reference, steps), result, reset))
+    # row 5: cav_gather_or at each of its launch shapes (CAV_ROWS_SWEEP)
+    for s in steps if old is not None else ():
+        if s[0] != "cav_gather_or":
+            continue
+        _, idx, half, dead_ = s
+
+        def rows_fn(n, idx=idx, half=half, dead_=dead_):
+            cur, x = st["cur"], st["x"]
+            return lambda: old._run(
+                "shape_cav_gather_or", cur.device, x.data_ptr(),
+                idx.data_ptr(), idx.shape[0], half, dead_, n, cur.data_ptr())
+        shapes = {f"rows {n}": rows_fn(n) for n in CAV_ROWS_SWEEP}
+        cases.append(Case(f"{label} cav_gather_or launch shapes",
+                          f"[{idx.shape[0]}, {idx.shape[1]}] maybe plane",
+                          step_bytes(s, word, live, dead), shapes,
+                          sweep(reference, [s], whole=False), result, reset,
+                          order=list(shapes)))
+    # rows 4a and 4b / 6: the batch's seed, and a check batch's gathers
+    # (the smoke's 10,000 pairs) on the second sweep's input
+    seed = dict(wc_ranges=kc._wc_ranges, planes=kc.planes)
+    s_live = None if live is None else torch.empty_like(live)
+    s_out = torch.empty_like(x0)
+    cases.append(Case(
+        f"{label} seed", f"{q.numel()} columns into [{nt}, {width}]",
+        q.numel() * 4 + nt * word,
+        {"new": lambda: kernels.seed_bitplanes(q, nt, n_words, dead,
+                                               out=s_out, live=s_live,
+                                               **seed)},
+        lambda: reference.seed_bitplanes(
+            q, nt, n_words, dead, live=None if live is None
+            else torch.empty_like(live), **seed),
+        lambda out: out, lambda: None))
+    rng = np.random.default_rng(13)
+    off, length = prog.slot_range("pod", "view")
+    gi = torch.from_numpy(rng.integers(off, off + length, N_CHECKS)
+                          .astype(np.int32)).to(q.device)
+    gc = torch.from_numpy(rng.integers(0, LANES, N_CHECKS)
+                          .astype(np.int32)).to(q.device)
+    cells = int(torch.unique(gi.long() * n_words + gc.long() // 32).numel())
+    if kc.planes:
+        name, fn = "check_gather3", lambda impl: impl.check_gather3(
+            st["x"], gi, gc, n_words)
+    else:
+        name, fn = "check_gather", lambda impl: impl.check_gather(
+            st["x"], gi, gc)
+    cases.append(Case(f"{label} {name}", f"{N_CHECKS} gathers of [{nt}, "
+                                         f"{width}]",
+                      N_CHECKS * 4 * 3 + cells * 4 * (1 + kc.planes),
+                      {"new": lambda: fn(kernels)}, lambda: fn(reference),
+                      lambda out: out, lambda: None))
     return cases
 
 
@@ -648,12 +940,134 @@ def mesh_case(ep, w, q_arr, n_words, old, variants):
     return case, m_ep
 
 
-def library_cases(variants) -> list:
-    """`word_cols_T` and `or_combine` on seeded random words at the main
-    path's shapes, beside their library calls."""
+def segment_cases(ep, w, batch, old, variants) -> list:
+    """Rows 10, 14 and 14a on the store of `ep`: `edge_or` over the
+    segment endpoint's full edge arrays, then a 2 x 4 `ShardedKernel` on
+    its program (cuda:0 for every shard on one card), as `chip_smoke.py`
+    phase 13b drives it: one sweep's all-reduces alone and the whole
+    sweep, on the partials of its third sweep."""
+    import dataclasses
+
     import numpy as np
     import torch
 
+    import chip_smoke as cs
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.ops.kernels import reference
+    from spicedb_kubeapi_proxy_tpu_torch.parallel import collectives
+    from spicedb_kubeapi_proxy_tpu_torch.parallel.sharding import (
+        ShardedKernel)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import (
+        Bootstrap, create_endpoint)
+
+    seg = create_endpoint("torch://", Bootstrap(w.schema_text, ""),
+                          kernel="segment", store=ep.store)
+    g = seg.graph()
+    kc, prog = g.kernel, g.prog
+    dead = prog.dead_index
+    src, dst = g.snapshot()
+    q_arr, _, _ = seg._encode_subjects(g, batch)
+    n_words = len(q_arr) // 32
+    word = 4 * n_words
+    q = torch.from_numpy(q_arr).cuda()
+    x0, live = kc.init_state(q, n_words)
+    x, y = x0.clone(), torch.empty_like(x0)
+    for step in kc.sweep_steps(src, dst):        # the second sweep's input
+        kc.run_step(step, y, x, x0, live)
+    x = y.clone()
+    y0 = torch.empty_like(x0)
+    kc.run_step(("init", kc._wc_bits), y0, x, x0, live)
+    y = y0.clone()
+    e_bytes = lambda s_, d_: (s_.numel() * 8
+                              + int(torch.unique(s_).numel()) * word
+                              + 2 * int(torch.unique(d_).numel()) * word)
+    cases = [Case("seg edge_or", f"{src.numel()} edges, {n_words} words",
+                  e_bytes(src, dst),
+                  {"new": lambda: kernels.edge_or(y, x, src, dst)},
+                  lambda: reference.edge_or(y, x, src, dst),
+                  lambda out: y, lambda: y.copy_(y0))]
+
+    mesh = cs.make_smoke_mesh("cuda")
+    sk = ShardedKernel(dataclasses.replace(
+        prog, edge_src=g.host_src.copy(), edge_dst=g.host_dst.copy()), mesh)
+    e_src, e_dst = sk.device_edges(len(g.host_src))
+    nw = cs.MESH_DATA * max(1, LANES // 32 // cs.MESH_DATA)
+    qp = np.full(32 * nw, dead, np.int32)
+    qp[:LANES] = q_arr[:LANES]
+    sx0, slive = sk.seed(qp, nw)
+    sx = [[t.clone() for t in row] for row in sx0]
+    sy = [[torch.empty_like(t) for t in row] for row in sx0]
+    for _ in range(2):
+        sk.partials(sy, sx, sx0, slive, e_src, e_dst)
+        for reps in sy:
+            collectives.or_allreduce(reps)
+        sk.finish_step(sy, sx, sx0, slive)
+        sx, sy = sy, sx
+    sk.partials(sy, sx, sx0, slive, e_src, e_dst)
+    parts0 = [[t.clone() for t in reps] for reps in sy]
+
+    def reset():
+        for reps, p0 in zip(sy, parts0):
+            for t, u in zip(reps, p0):
+                t.copy_(u)
+
+    flat = lambda out: [t for reps in sy for t in reps]
+    allreduce = lambda impl: (
+        lambda: [collectives.or_allreduce(reps, impl) for reps in sy])
+
+    def sweep(impl):
+        def fn():
+            sk.partials(sy, sx, sx0, slive, e_src, e_dst, impl)
+            for reps in sy:
+                collectives.or_allreduce(reps, impl)
+            sk.finish_step(sy, sx, sx0, slive, impl)
+            for ra, rb in zip(sy, sx):
+                for a_, b_ in zip(ra, rb):
+                    impl.sweep_delta(a_, b_, dead)
+        return fn
+
+    n = prog.state_size
+    sw = 4 * (nw // cs.MESH_DATA)
+    d_, g_ = cs.MESH_DATA, cs.MESH_GRAPH
+    part_bytes = n * sw
+    sweep_bytes = 2 * d_ * g_ * part_bytes       # the all-reduces
+    for d in range(d_):
+        for gg in range(g_):
+            s_, t_ = e_src[d][gg], e_dst[d][gg]
+            sweep_bytes += (s_.numel() * 8 + int(torch.unique(s_).numel()) * sw
+                            + 2 * int(torch.unique(t_).numel()) * sw
+                            + 4 * n * sw)        # init and delta
+            for code, _, length, *_ in sk._caches[s_.device]._ops:
+                n_read = int((code[0::2] == 0).sum())
+                sweep_bytes += code.numel() * 4 + length * sw * (n_read + 2)
+    have = {"old": old, "new": kernels}
+    ar = {v: allreduce(m) for v, m in have.items() if v in variants}
+    if "library" in variants:
+        ar["library"] = lambda: [cs.or_chain(reps) for reps in sy]
+    cases.append(Case("mesh allreduce", f"{d_} data shards x {g_} replicas "
+                      f"[{n}, {nw // d_}]", 2 * d_ * g_ * part_bytes, ar,
+                      allreduce(reference), flat, reset))
+    cases.append(Case("mesh sharded sweep", f"{d_} x {g_} shards, "
+                      f"{e_src[0][0].numel()} edges a shard",
+                      sweep_bytes, {v: sweep(m) for v, m in have.items()
+                                    if v in variants},
+                      sweep(reference), flat, reset))
+    return cases, seg
+
+
+def library_cases(variants, old) -> list:
+    """`word_cols_T` and `or_combine` on seeded random words at the main
+    path's shapes, beside their library calls: `or_combine` as the 2 x 4
+    mesh's all-reduce of one data shard (G = 4, against the pairwise
+    chain in PyTorch calls) and at G = 2 (against one `bitwise_or_`,
+    which writes one replica of the two), then its launch shapes at
+    G = 4 (COMBINE_SHAPES)."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
     from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
     from spicedb_kubeapi_proxy_tpu_torch.ops.kernels import reference
 
@@ -665,12 +1079,29 @@ def library_cases(variants) -> list:
     cols = torch.from_numpy(np.sort(rng.choice(
         PLANE_SHAPE[1], PLANE_WORDS, replace=False)).astype(np.int32)).cuda()
     cols64 = cols.long()
-    dst0, src = words32(COMBINE_SHAPE), words32(COMBINE_SHAPE)
-    dst = dst0.clone()
+    p0 = [words32(COMBINE_SHAPE) for _ in range(MESH_GRAPH)]
+    parts = [t.clone() for t in p0]
+    pair = parts[:2]
+    numel = parts[0].numel()
 
     def reset():
-        dst.copy_(dst0)
+        for t, u in zip(parts, p0):
+            t.copy_(u)
 
+    def shape_fn(per_thread, max_blocks):
+        ptrs = (ctypes.c_void_p * len(parts))(*(t.data_ptr() for t in parts))
+        return lambda: old._run("shape_or_combine", parts[0].device, ptrs,
+                                numel, per_thread, max_blocks)
+
+    fns4 = {"new": lambda: kernels.or_combine(parts),
+            "library": lambda: cs.or_chain(parts)}
+    fns2 = {"new": lambda: kernels.or_combine(pair),
+            "library": lambda: pair[0].bitwise_or_(pair[1])}
+    if old is not None:
+        fns4["old"] = lambda: old.or_combine(parts)
+        fns2["old"] = lambda: old.or_combine(pair)
+    shapes = {f"chunks {u}, blocks {b or 'all'}": shape_fn(u, b)
+              for u, b in COMBINE_SHAPES} if old is not None else {}
     cases = [
         Case("word_cols_T",
              f"[{PLANE_WORDS}, {rows}] of a [{rows}, {PLANE_SHAPE[1]}] plane",
@@ -679,21 +1110,30 @@ def library_cases(variants) -> list:
               "library": lambda: plane[:rows, cols64].t().contiguous()},
              lambda: reference.word_cols_T(plane, rows, cols),
              lambda out: out, lambda: None),
-        Case("or_combine", f"[{COMBINE_SHAPE[0]}, {COMBINE_SHAPE[1]}]",
-             3 * dst.numel() * 4,
-             {"new": lambda: kernels.or_combine(dst, src),
-              "library": lambda: dst.bitwise_or_(src)},
-             lambda: reference.or_combine(dst, src), lambda out: dst, reset),
+        Case("or_combine G=4", f"{MESH_GRAPH} x [{COMBINE_SHAPE[0]}, "
+             f"{COMBINE_SHAPE[1]}]", 2 * MESH_GRAPH * numel * 4, fns4,
+             lambda: reference.or_combine(parts), lambda out: parts, reset),
+        # the result compared is replica 0's: bitwise_or_ writes no other
+        Case("or_combine G=2", f"2 x [{COMBINE_SHAPE[0]}, "
+             f"{COMBINE_SHAPE[1]}]", 2 * 2 * numel * 4, fns2,
+             lambda: reference.or_combine(pair), lambda out: pair[0], reset),
+        Case("or_combine G=4 launch shapes", f"{MESH_GRAPH} x "
+             f"[{COMBINE_SHAPE[0]}, {COMBINE_SHAPE[1]}]",
+             2 * MESH_GRAPH * numel * 4, shapes,
+             lambda: reference.or_combine(parts), lambda out: parts, reset,
+             order=list(shapes)),
     ]
-    return [c for c in cases if any(v in variants for v in c.fns)]
+    return [c for c in cases
+            if c.order or any(v in variants for v in c.fns)]
 
 
 def run_cases(cases, variants, peak, result: dict) -> None:
     """Hold each variant against the twin, then attribute it, in the
     order given and reversed."""
     import chip_smoke as cs
-    order = variants + variants[::-1]
     for case in cases:
+        order = case.order or variants
+        order = order + order[::-1]
         case.reset()
         want = case.result(case.twin())
         want = [t.clone() for t in (want if isinstance(want, list)
@@ -749,16 +1189,18 @@ def sweep_rows(args, variants, old, peak, result) -> None:
         tables = g.snapshot()
         cases = sweep_cases(label, g.kernel, tables, q, n_words, old,
                             variants)
-        m_ep = None
+        m_ep = seg = None
         if label == "mt":
             case, m_ep = mesh_case(ep, w, q_arr, n_words, old, variants)
             cases.append(case)
+            more, seg = segment_cases(ep, w, batch, old, variants)
+            cases += more
         torch.cuda.synchronize()
         run_cases(cases, variants, peak, result)
-        del ep, w, g, cases, m_ep, tables
+        del ep, w, g, cases, m_ep, seg, tables
         gc.collect()
         torch.cuda.empty_cache()
-    run_cases(library_cases(variants), variants, peak, result)
+    run_cases(library_cases(variants, old), variants, peak, result)
 
 
 def churn_flush(ep, w, n_rounds: int):

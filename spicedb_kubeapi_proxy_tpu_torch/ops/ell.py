@@ -66,8 +66,8 @@ K_MAIN = 2
 # Aux-node fanin: wider is better for hubs (fewer tree levels).
 K_AUX = 32
 # Caveat (MAYBE-plane) table fanin; caveated tuples are typically sparse,
-# hubs tree-split inside the same table
-K_CAV = 8
+# hubs tree-split inside the same table (cav_gather_or's fixed width)
+K_CAV = kernels.K_CAV
 
 MAX_ITERATIONS = 50  # matches embedded reference dispatch depth cap
 
@@ -668,10 +668,11 @@ class EllKernelCache:
                     n_words: Optional[int] = None,
                     plan: Optional[list] = None):
         """The kernel calls of one sweep, in order: ("ell_gather_or", idx,
-        dst_lo, seeded, wc_bits, mode), ("cav_gather_or", idx_cav, half)
-        and ("perm_program", code, offset, length, in_place, half, depth);
-        `mode` is where the gather writes (`_gather_mode`), `half` is
-        `n_words` on the plane path and None on the definite one.  `plan`
+        dst_lo, seeded, wc_bits, mode), ("cav_gather_or", idx_cav, half,
+        dead) and ("perm_program", code, offset, length, in_place, half,
+        depth); `mode` is where the gather writes (`_gather_mode`), `half`
+        is `n_words` on the plane path and None on the definite one,
+        `dead` the dead row (the caveat kernel skips its gathers).  `plan`
         defaults to the current one.
 
         Staged step (reference staged_step, ell.py:444-500): each stage
@@ -697,7 +698,8 @@ class EllKernelCache:
             for lo, hi, wc, mode in rows:
                 yield ("ell_gather_or", idx_main[lo:hi], lo, True, wc, mode)
             if self.planes and idx_cav is not None:
-                yield ("cav_gather_or", idx_cav, half)
+                yield ("cav_gather_or", idx_cav, half,
+                       self.prog.dead_index)
             for code, off, length, depth in ops:
                 yield ("perm_program", code, off, length, True, half, depth)
             return
@@ -732,8 +734,8 @@ class EllKernelCache:
                                in_place=mode == "in_place",
                                x_in=x_in if mode == "x_in" else None)
         elif kind == "cav_gather_or":
-            _, idx, half = step
-            impl.cav_gather_or(cur, x_in, idx, half)
+            _, idx, half, dead = step
+            impl.cav_gather_or(cur, x_in, idx, half, dead=dead)
         else:
             _, code, off, length, in_place, half, depth = step
             impl.perm_program(cur, x0, code, off, length, in_place=in_place,

@@ -56,6 +56,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 MAX_WILDCARD_TERMS = 32   # wc_bits is one int32 bitmask per row
 MAX_STACK = 16            # kMaxStack, perm_program's operand stack
 MAX_PROGRAM = 4096        # perm_program instructions (shared memory)
+MAX_OR_PARTS = 8          # kMaxParts, or_combine's replicas a launch
+K_CAV = 8                 # kCav, the caveat table's width (cav_gather_or)
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -171,7 +173,7 @@ def _load():
                 "ell_gather_or": (P, P, L, L, P, I, I, L, I, I, P, P, P, P,
                                   P, P),
                 "ell_perm_program": (P, P, I, L, I, I, I, I, P, P, P),
-                "ell_cav_gather_or": (P, P, I, L, I, P, P),
+                "ell_cav_gather_or": (P, P, L, I, I, I, P, P),
                 "ell_sweep_delta": (P, P, L, I, L, P, P),
                 "ell_seed_bitplanes": (P, I, L, I, I, L, P, I, P, P, P),
                 "ell_check_gather": (P, I, P, P, L, P, P),
@@ -180,7 +182,7 @@ def _load():
                 "ell_scatter_rows": (P, L, I, P, L, P, P, I, P),
                 "ell_edge_or": (P, P, P, L, I, P, P),
                 "ell_word_cols_T": (P, I, P, I, L, P, P),
-                "ell_or_combine": (P, P, L, I, P),
+                "ell_or_combine": (P, I, L, I, P),
             }
             for fn, args in sigs.items():
                 f = getattr(lib, fn)
@@ -344,25 +346,38 @@ def perm_program(cur: torch.Tensor, x0: torch.Tensor, code: torch.Tensor,
 
 
 def cav_gather_or(cur: torch.Tensor, x_in: torch.Tensor, idx: torch.Tensor,
-                  half: int, dst_lo: int = 0) -> None:
+                  half: int, dst_lo: int = 0,
+                  dead: Optional[int] = None) -> None:
     """Maybe plane of rows [dst_lo, dst_lo + R): cur[dst_lo + r, half:] |=
-    OR_k x_in[idx[r, k], half:], with `idx` int32 [R, K] (the caveat
-    table, or one row block of it) and `x_in` the sweep's input state (a
-    buffer other than `cur`)."""
+    OR_k x_in[idx[r, k], half:], with `idx` int32 [R, K_CAV] (the caveat
+    table, or one row block of it; 16-byte aligned on a card) and `x_in`
+    the sweep's input state (a buffer other than `cur`).  `dead` is the
+    state's dead row: the kernel skips its gathers, exact because its
+    words are zero (sweep_delta and the seed zero it); None skips
+    nothing.  The twin gathers every index, so a comparison with it also
+    checks that the dead row is zero."""
+    if idx.dim() != 2 or idx.shape[1] != K_CAV:
+        raise KernelError(f"cav_gather_or: table shape {tuple(idx.shape)}, "
+                          f"not [R, {K_CAV}]")
     if not _on_cuda(cur, x_in, idx):
-        return reference.cav_gather_or(cur, x_in, idx, half, dst_lo)
+        return reference.cav_gather_or(cur, x_in, idx, half, dst_lo, dead)
     _check(cur, "cur", 2)
     _check(x_in, "x_in", 2)
     _check(idx, "idx", 2)
-    r, k = idx.shape
+    r = idx.shape[0]
+    if idx.data_ptr() % 16:
+        raise KernelError("cav_gather_or: table rows not 16-byte aligned")
     if cur.shape != x_in.shape or cur.shape[1] != 2 * half:
         raise KernelError("cav_gather_or: state shapes do not match half")
     if dst_lo < 0 or dst_lo + r > cur.shape[0]:
         raise KernelError("cav_gather_or: table rows out of the state rows")
     if cur.data_ptr() == x_in.data_ptr():
         raise KernelError("cav_gather_or: x_in must not be the output")
-    _run("ell_cav_gather_or", x_in.device, _ptr(x_in), _ptr(idx), k, r, half,
-         _ptr(cur[dst_lo:]))
+    out = cur[dst_lo:]
+    vec = int(half % 4 == 0 and x_in.data_ptr() % 16 == 0
+              and out.data_ptr() % 16 == 0)
+    _run("ell_cav_gather_or", x_in.device, _ptr(x_in), _ptr(idx), r, half,
+         -1 if dead is None else dead, vec, _ptr(out))
     _count("cav_gather_or")
     return None
 
@@ -542,20 +557,35 @@ def word_cols_T(plane: torch.Tensor, rows: int,
     return out
 
 
-def or_combine(dst: torch.Tensor, src: torch.Tensor) -> None:
-    """dst |= src over int32 packed words of equal shape — the compute
-    half of the sharded segment kernel's OR all-reduce over `graph`
-    (`src` a peer's partial, already copied onto dst's device)."""
-    if not _on_cuda(dst, src):
-        return reference.or_combine(dst, src)
-    _check(dst, "dst")
-    _check(src, "src")
-    if dst.shape != src.shape:
-        raise KernelError(f"or_combine: shapes {tuple(dst.shape)} and "
-                          f"{tuple(src.shape)} differ")
-    if dst.data_ptr() == src.data_ptr():
-        raise KernelError("or_combine: src must not be dst")
-    vec = int(dst.data_ptr() % 16 == 0 and src.data_ptr() % 16 == 0)
-    _run("ell_or_combine", dst.device, _ptr(dst), _ptr(src), dst.numel(), vec)
+def or_combine(parts: list) -> None:
+    """The OR all-reduce of one data shard's co-located graph replicas:
+    every parts[g] becomes parts[0] | ... | parts[G-1], in place, in one
+    launch for G >= 2 (G = 1 leaves the replica as it is and launches
+    nothing).  The parts are int32 packed words of one shape on one
+    device, at most MAX_OR_PARTS of them, no two sharing memory — the
+    compute half of the sharded segment kernel's OR all-reduce over
+    `graph` (a peer on another card is copied next to the others
+    first, parallel/collectives.py)."""
+    if not parts:
+        raise KernelError("or_combine: no replicas")
+    if not _on_cuda(*parts):
+        return reference.or_combine(parts)
+    g = len(parts)
+    if g > MAX_OR_PARTS:
+        raise KernelError(f"or_combine: {g} replicas (> {MAX_OR_PARTS})")
+    for i, t in enumerate(parts):
+        _check(t, f"parts[{i}]")
+        if t.shape != parts[0].shape:
+            raise KernelError(f"or_combine: shapes {tuple(parts[0].shape)} "
+                              f"and {tuple(t.shape)} differ")
+    n = parts[0].numel()
+    spans = sorted((t.data_ptr(), t.data_ptr() + 4 * n) for t in parts)
+    if n and any(b[0] < a[1] for a, b in zip(spans, spans[1:])):
+        raise KernelError("or_combine: two replicas share memory")
+    if g == 1 or n == 0:
+        return None
+    ptrs = (ctypes.c_void_p * g)(*(t.data_ptr() for t in parts))
+    vec = int(all(t.data_ptr() % 16 == 0 for t in parts))
+    _run("ell_or_combine", parts[0].device, ptrs, g, n, vec)
     _count("or_combine")
     return None

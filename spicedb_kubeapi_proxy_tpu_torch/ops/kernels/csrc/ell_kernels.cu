@@ -19,8 +19,9 @@
 //   word_cols_T    <- the Leopard plane's word-column reads
 //                     (jax_endpoint.py:2970-2977)
 //   or_combine     <- the sharded segment kernel's `lax.pmax(y, "graph")`,
-//                     its compute half (parallel/sharding.py:69); the peer
-//                     partials reach the local device as plain copies
+//                     its compute half (parallel/sharding.py:69): the OR
+//                     all-reduce of a data shard's co-located replicas;
+//                     peers on another card reach it as plain copies
 //
 // State layout: x is int32 [NT, W] row-major (W packed words per row, bit
 // b of word w = query column 32*w + b).  Words are handled as uint32
@@ -34,21 +35,24 @@
 // ~300 op/byte balance point of an H100).  The gathers read rows at data-
 // dependent addresses; their first design was one thread per (row, word)
 // — neighbouring threads on neighbouring words of a row, then of the next
-// row — with no shared memory and no tensor cores, which edge_or,
-// cav_gather_or and the rest keep.  Four kernels are redesigned for the
-// card: lookup_T, whose one-thread-per-output-word loads were strided
-// (each 4-byte load cost a 32-byte sector, fetched again by every other
-// word pass), is a tiled transpose through shared memory with 16-byte
-// loads and stores; scatter_rows, a copy launch then a scatter launch
-// that waited on it, is one launch whose blocks copy their span and then
-// write the overrides inside it; ell_gather_or and perm_program work on
-// 16-byte chunks of a row, read their indices or program once, and write
-// the state in place wherever that is exact, which drops the scratch
-// buffer and the copy back into the state that every launch paid.  At
-// the main path's sizes each launch runs for microseconds, close to the
-// cost of a launch, and the wrapper's host path per call is longer than
-// most; the single-device sweep therefore replays its launches from a
-// CUDA graph (ops/ell.py).
+// row — with no shared memory and no tensor cores, which edge_or and the
+// rest keep.  Six kernels are redesigned for the card: lookup_T, whose
+// one-thread-per-output-word loads were strided (each 4-byte load cost a
+// 32-byte sector, fetched again by every other word pass), is a tiled
+// transpose through shared memory with 16-byte loads and stores;
+// scatter_rows, a copy launch then a scatter launch that waited on it, is
+// one launch whose blocks copy their span and then write the overrides
+// inside it; ell_gather_or and perm_program work on 16-byte chunks of a
+// row, read their indices or program once, and write the state in place
+// wherever that is exact, which drops the scratch buffer and the copy
+// back into the state that every launch paid; cav_gather_or is one
+// thread a table row that skips the dead row's gathers, so it streams the
+// table and gathers only where a caveat edge is; or_combine ORs all of a
+// data shard's replicas in one pass and writes the result into each, in
+// place of a launch and a copy per peer.  At the main path's sizes each
+// launch runs for microseconds, close to the cost of a launch, and the
+// wrapper's host path per call is longer than most; the single-device
+// sweep therefore replays its launches from a CUDA graph (ops/ell.py).
 //
 // Interface: plain C launchers taking raw device pointers and the CUDA
 // stream, bound from Python with ctypes.  Each launcher returns the CUDA
@@ -102,6 +106,7 @@ template <> struct Chunk<uint32_t> {
     static __device__ __forceinline__ uint32_t shfl_xor(uint32_t v, int m) {
         return __shfl_xor_sync(0xffffffffu, v, m);
     }
+    static __device__ __forceinline__ bool any(uint32_t v) { return v != 0u; }
 };
 
 template <> struct Chunk<uint4> {
@@ -132,6 +137,9 @@ template <> struct Chunk<uint4> {
                           __shfl_xor_sync(0xffffffffu, v.y, m),
                           __shfl_xor_sync(0xffffffffu, v.z, m),
                           __shfl_xor_sync(0xffffffffu, v.w, m));
+    }
+    static __device__ __forceinline__ bool any(uint4 v) {
+        return (v.x | v.y | v.z | v.w) != 0u;
     }
 };
 
@@ -391,28 +399,64 @@ perm_program_kernel(const int32_t* cur, const int32_t* __restrict__ code,
     }
 }
 
-// Maybe plane of rows [0, R) (stride 2H): out[r, H + w] |= OR_j
-// x[idx[r, j], H + w].  `x` is the sweep's input state, a buffer other
-// than `out`, so every read sees the previous sweep's values.  `out` may
-// point at any row of the state (the wrapper's `dst_lo`): a mesh shard
-// fills the maybe half of its own block of the caveat table's rows.
-__global__ void cav_gather_or_kernel(const int32_t* __restrict__ x,
-                                     const int32_t* __restrict__ idx, int k,
-                                     long long R, int H,
-                                     int32_t* __restrict__ out) {
-    const long long total = R * H;
+// cav_gather_or: the maybe plane of rows [0, R) (stride 2H): out[r, H +
+// w] |= OR_j x[idx[r, j], H + w].  `x` is the sweep's input state, a
+// buffer other than `out`, so every read sees the previous sweep's
+// values.  `out` may point at any row of the state (the wrapper's
+// `dst_lo`): a mesh shard fills the maybe half of its own block of the
+// caveat table's rows.
+//
+// Design.  One thread per table row.  It reads the row's kCav = 8
+// indices once (two 16-byte loads, so a warp reads 32 rows x 32 bytes of
+// the table, contiguous) and skips every index equal to `dead`, the dead
+// row, wherever it sits in the row: a caveated delete leaves holes
+// mid-row.  The dead row of `x` is zero (sweep_delta and the seed zero
+// it), so a skipped gather would OR in nothing.  Only the destinations
+// of undecidable caveat edges and the caveat OR-tree nodes hold a live
+// index, so nearly every thread ends after its index loads and the launch
+// is a streaming read of the table.  A live row gathers each live
+// source's maybe half in chunks (Chunk<V>: 16 bytes when H % 4 == 0 and
+// the rows are 16-byte aligned, else 4), ORs them in registers and does
+// one read-modify-write of its own maybe chunk, only when the OR is not
+// zero.  No thread writes a word that another thread reads.  Row and
+// index arithmetic is 32-bit where R * kCav < 2^31 (`I`); there is no
+// division.  Two or four rows a thread, their index loads issued
+// together, read slower on an H100 (scripts/torch_kernel_ab.py, PERF.md
+// row 5).  The first design ran one thread per (row, word), with a
+// 64-bit division each, re-read the row's indices for every word and
+// gathered the dead row for every padding slot.  Bound by bytes: the
+// table, once; the live rows' distinct sources and their maybe chunks
+// are a few hundred KB at the caveated deployment's size.
+constexpr int kCav = 8;  // the caveat table's width (ops/ell.py K_CAV)
+
+template <typename V, typename I>
+__global__ void __launch_bounds__(kBlock)
+cav_gather_or_kernel(const int32_t* __restrict__ x,
+                     const int32_t* __restrict__ idx, I R, int H, int dead,
+                     int32_t* __restrict__ out) {
+    using C = Chunk<V>;
     const long long S = 2LL * H;
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         t < total; t += stride) {
-        const long long r = t / H;
-        const int w = (int)(t - r * H);
-        const int32_t* ir = idx + r * k;
-        uint32_t v = 0;
-        for (int j = 0; j < k; ++j) {
-            v |= (uint32_t)__ldg(x + (long long)__ldg(ir + j) * S + H + w);
+    const I stride = (I)gridDim.x * blockDim.x;
+    for (I r = (I)blockIdx.x * blockDim.x + threadIdx.x; r < R;
+         r += stride) {
+        const int4* ir = reinterpret_cast<const int4*>(idx + r * (I)kCav);
+        const int4 a = __ldg(ir), b = __ldg(ir + 1);
+        const int s[kCav] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+        unsigned int live = 0;
+#pragma unroll
+        for (int j = 0; j < kCav; ++j)
+            live |= (s[j] != dead ? 1u : 0u) << j;
+        if (!live) continue;
+        int32_t* o = out + (long long)r * S + H;
+        for (int c = 0; c < H; c += C::N) {
+            V v = C::zero();
+#pragma unroll
+            for (int j = 0; j < kCav; ++j) {
+                if (live >> j & 1u)
+                    v = C::or_(v, C::ld(x + (long long)s[j] * S + H + c));
+            }
+            if (C::any(v)) C::st(o + c, C::or_(C::ld(o + c), v));
         }
-        if (v) out[r * S + H + w] |= (int32_t)v;
     }
 }
 
@@ -713,33 +757,73 @@ __global__ void word_cols_T_kernel(const int32_t* __restrict__ plane, int Wc,
     }
 }
 
-// dst[i] |= src[i] over n packed words: the OR-combine of one peer's
-// partial one-step closure into the local one.  A streaming pass (two
-// reads and one write per word, one OR), so it is bound by bytes: 16-byte
-// words when both pointers are 16-byte aligned (`vec`), then the < 4
-// trailing int32 one by one.
-__global__ void or_combine_kernel(int32_t* __restrict__ dst,
-                                  const int32_t* __restrict__ src,
-                                  long long n, int vec) {
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// or_combine: the OR all-reduce of G co-located replicas of n packed
+// words: every p[g][i] = OR_j p[j][i], in one launch.
+//
+// Design.  The G pointers (G <= kMaxParts) travel by value in `Parts`.
+// Each thread owns kCombineChunks = 2 16-byte chunks (blockDim apart, so
+// each of its loads is coalesced across the warp), loads those chunks of
+// all G replicas before it uses any, ORs them in registers and stores the
+// result into every replica: one read and one write of each replica, 2G
+// streams in all.  The grid has one trip a thread.  The first design ORed
+// one peer a launch into replica 0 (G - 1 launches of two reads and a
+// write) and copied the result back to each peer (G - 1 copies): 5(G - 1)
+// streams.  No thread reads a word that another thread writes.  The < 4
+// trailing words, and all n when a replica is not 16-byte aligned (`vec`
+// 0), go one word a thread.  On an H100 at G = 4, one or two chunks a
+// thread with the grid capped at 2-16 blocks an SM or not all read within
+// 3 % of each other cold (scripts/torch_kernel_ab.py, PERF.md row 14a).
+// Bound by bytes: 2 * G * n * 4.
+constexpr int kMaxParts = 8;
+struct Parts {
+    int32_t* p[kMaxParts];
+};
+
+constexpr int kCombineChunks = 2;
+
+template <int G>
+__global__ void __launch_bounds__(kBlock)
+or_combine_kernel(Parts parts, long long n, int vec) {
+    constexpr int U = kCombineChunks;
+    const long long t0 = (long long)blockIdx.x * blockDim.x * U + threadIdx.x;
     long long done = 0;
     if (vec) {
         const long long n4 = n >> 2;
-        const int4* __restrict__ s4 = reinterpret_cast<const int4*>(src);
-        int4* __restrict__ d4 = reinterpret_cast<int4*>(dst);
+        const long long stride = (long long)gridDim.x * blockDim.x * U;
         for (long long t = t0; t < n4; t += stride) {
-            const int4 b = __ldg(s4 + t);
-            int4 a = d4[t];
-            a.x |= b.x;
-            a.y |= b.y;
-            a.z |= b.z;
-            a.w |= b.w;
-            d4[t] = a;
+            uint4 v[U];
+#pragma unroll
+            for (int u = 0; u < U; ++u) v[u] = Chunk<uint4>::zero();
+#pragma unroll
+            for (int j = 0; j < G; ++j) {
+#pragma unroll
+                for (int u = 0; u < U; ++u) {
+                    const long long c = t + (long long)u * blockDim.x;
+                    if (c < n4)
+                        v[u] = Chunk<uint4>::or_(
+                            v[u], Chunk<uint4>::ld(parts.p[j] + 4 * c));
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < G; ++j) {
+#pragma unroll
+                for (int u = 0; u < U; ++u) {
+                    const long long c = t + (long long)u * blockDim.x;
+                    if (c < n4) Chunk<uint4>::st(parts.p[j] + 4 * c, v[u]);
+                }
+            }
         }
         done = n4 << 2;
     }
-    for (long long t = done + t0; t < n; t += stride) dst[t] |= __ldg(src + t);
+    const long long step = (long long)gridDim.x * blockDim.x;
+    for (long long t = done + (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         t < n; t += step) {
+        int32_t v = 0;
+#pragma unroll
+        for (int j = 0; j < G; ++j) v |= parts.p[j][t];
+#pragma unroll
+        for (int j = 0; j < G; ++j) parts.p[j][t] = v;
+    }
 }
 
 inline int last_error() { return (int)cudaGetLastError(); }
@@ -847,14 +931,32 @@ EXPORT int ell_perm_program(const void* cur, const void* code, int n_ins,
                                                     s);
 }
 
-EXPORT int ell_cav_gather_or(const void* x, const void* idx, int k,
-                             long long R, int half, void* out, void* stream) {
+template <typename V>
+int launch_cav(const void* x, const void* idx, long long R, int half,
+               int dead, void* out, cudaStream_t s) {
+    const unsigned int grid = grid_for(R, kBlock, 1LL << 30);
+    const int32_t *x_ = (const int32_t*)x, *i_ = (const int32_t*)idx;
+    int32_t* o_ = (int32_t*)out;
+    if (R * kCav < 0x7fffffffLL - (long long)kBlock * kCav) {
+        cav_gather_or_kernel<V, unsigned int><<<grid, kBlock, 0, s>>>(
+            x_, i_, (unsigned int)R, half, dead, o_);
+    } else {
+        cav_gather_or_kernel<V, long long><<<grid, kBlock, 0, s>>>(
+            x_, i_, R, half, dead, o_);
+    }
+    return last_error();
+}
+
+// `idx`: R rows of kCav indices, 16-byte aligned; `vec`: half % 4 == 0
+// and `x`, `out` 16-byte aligned.  `dead`: the state's dead row, whose
+// gathers are skipped.
+EXPORT int ell_cav_gather_or(const void* x, const void* idx, long long R,
+                             int half, int dead, int vec, void* out,
+                             void* stream) {
     if (R <= 0 || half <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
-    const long long total = R * half;
-    cav_gather_or_kernel<<<grid_for(total, kBlock, 1LL << 30), kBlock, 0, s>>>(
-        (const int32_t*)x, (const int32_t*)idx, k, R, half, (int32_t*)out);
-    return last_error();
+    return vec ? launch_cav<uint4>(x, idx, R, half, dead, out, s)
+               : launch_cav<uint32_t>(x, idx, R, half, dead, out, s);
 }
 
 // Zero the dead row of `x_new` (the step's last write, ell.py:500), then
@@ -976,12 +1078,34 @@ EXPORT int ell_word_cols_T(const void* plane, int Wc, const void* words,
     return last_error();
 }
 
-EXPORT int ell_or_combine(void* dst, const void* src, long long n, int vec,
-                          void* stream) {
-    if (n <= 0) return 0;
-    cudaStream_t s = (cudaStream_t)stream;
-    const long long work = vec ? (n >> 2) : n;
-    or_combine_kernel<<<grid_for(work, kBlock, 132 * 32), kBlock, 0, s>>>(
-        (int32_t*)dst, (const int32_t*)src, n, vec);
+int launch_or_combine(const Parts& parts, int g, long long n, int vec,
+                      cudaStream_t s) {
+    const long long work =
+        vec ? ((n >> 2) + kCombineChunks - 1) / kCombineChunks : n;
+    const unsigned int grid = grid_for(work, kBlock, 1LL << 30);
+    switch (g) {
+#define OR_COMBINE_CASE(G)                                              \
+        case G:                                                         \
+            or_combine_kernel<G><<<grid, kBlock, 0, s>>>(parts, n, vec); \
+            break;
+        OR_COMBINE_CASE(2) OR_COMBINE_CASE(3) OR_COMBINE_CASE(4)
+        OR_COMBINE_CASE(5) OR_COMBINE_CASE(6) OR_COMBINE_CASE(7)
+        OR_COMBINE_CASE(8)
+#undef OR_COMBINE_CASE
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
     return last_error();
+}
+
+// The OR all-reduce of `g` (2..kMaxParts) replicas: `ptrs` a host array of
+// their device pointers, n int32 words each.  `vec`: every replica
+// 16-byte aligned.
+EXPORT int ell_or_combine(const void* const* ptrs, int g, long long n,
+                          int vec, void* stream) {
+    if (n <= 0 || g == 1) return 0;
+    if (g < 1 || g > kMaxParts) return (int)cudaErrorInvalidValue;
+    Parts parts = {};
+    for (int j = 0; j < g; ++j) parts.p[j] = (int32_t*)ptrs[j];
+    return launch_or_combine(parts, g, n, vec, (cudaStream_t)stream);
 }

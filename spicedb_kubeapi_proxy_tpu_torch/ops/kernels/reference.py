@@ -119,9 +119,11 @@ def perm_program(cur: torch.Tensor, x0: torch.Tensor, code: torch.Tensor,
 
 
 def cav_gather_or(cur: torch.Tensor, x_in: torch.Tensor, idx: torch.Tensor,
-                  half: int, dst_lo: int = 0) -> None:
+                  half: int, dst_lo: int = 0,
+                  dead: Optional[int] = None) -> None:
     """cur[dst_lo + r, half:] |= OR_k x_in[idx[r, k], half:] for the rows
-    r of `idx`."""
+    r of `idx`.  Every index is gathered, `dead`'s too (the kernel skips
+    them because that row is zero; gathering them here checks it)."""
     idx64 = idx.long()
     extra = x_in[idx64[:, 0], half:]
     for k in range(1, idx.shape[1]):
@@ -254,6 +256,10 @@ def word_cols_T(plane: torch.Tensor, rows: int,
     return out
 
 
-def or_combine(dst: torch.Tensor, src: torch.Tensor) -> None:
-    """dst |= src, elementwise."""
-    dst |= src
+def or_combine(parts: list) -> None:
+    """Every parts[g] = parts[0] | ... | parts[G-1], elementwise."""
+    acc = parts[0].clone()
+    for p in parts[1:]:
+        acc |= p
+    for p in parts:
+        p.copy_(acc)

@@ -9,9 +9,10 @@ between the shards' buffers plus one small kernel:
   row block is copied into every peer replica (`Tensor.copy_` on row
   slices: `cudaMemcpyAsync` on one card, a peer copy across cards, ordered
   by torch against both devices' current streams);
-- `or_allreduce`: a boolean all-reduce along `graph` — the `or_combine`
-  kernel ORs every peer's partial into replica 0, which is then copied
-  back to the peers;
+- `or_allreduce`: a boolean all-reduce along `graph` — one `or_combine`
+  launch ORs the replicas that share a card and writes the result into
+  each; a peer on another card is copied in first and the result copied
+  back to it;
 - `reduce_sweep_deltas`: the convergence flag ORed over every shard and
   the changed-bit count summed over the `data` shards only (the state is
   replicated along `graph`; summing over it too would multiply the count
@@ -76,24 +77,31 @@ def all_gather_rows(replicas: list, lo: int, hi: int,
 
 def or_allreduce(partials: list, impl=kernels) -> None:
     """partials[g] |= every peer's partial, in place, for one data shard's
-    graph replicas: reduce into partials[0], then copy the result to the
-    peers — (G-1) combines and (G-1) copies.  `impl.or_combine` (the
-    kernel, or its twin) reads a peer on the same device directly; a peer
-    on another device is first copied next to partials[0]."""
+    graph replicas: `impl.or_combine` (the kernel, or its twin) over the
+    replicas on partials[0]'s device and a copy, next to them, of each
+    peer on another device; then the result is copied back to those
+    peers.  One launch, and no copy between co-located replicas, up to
+    MAX_OR_PARTS replicas; past that, each further group of peers is
+    combined with partials[0] in its own launch and the earlier groups
+    get the final result by copy.  The bytes counted are each peer's
+    partial in and the result out to each peer: 2 (G - 1) partials."""
     n = len(partials)
     if n == 1:
         return
     root = partials[0]
-    moved = 0
-    for src in partials[1:]:
-        if src.device != root.device:
-            src = src.to(root.device)
-        impl.or_combine(root, src)
-        moved += src.numel() * src.element_size()
-    for dst in partials[1:]:
-        dst.copy_(root)
-        moved += root.numel() * root.element_size()
-    _count("or_allreduce", moved)
+    far = [p for p in partials[1:] if p.device != root.device]
+    peers = ([p for p in partials[1:] if p.device == root.device]
+             + [p.to(root.device) for p in far])
+    step = kernels.MAX_OR_PARTS - 1
+    groups = [peers[i: i + step] for i in range(0, len(peers), step)]
+    for grp in groups:
+        impl.or_combine([root] + grp)
+    for grp in groups[:-1]:
+        for p in grp:
+            p.copy_(root)
+    for p in far:
+        p.copy_(root)
+    _count("or_allreduce", 2 * (n - 1) * root.numel() * root.element_size())
 
 
 def reduce_sweep_deltas(deltas: list) -> tuple:

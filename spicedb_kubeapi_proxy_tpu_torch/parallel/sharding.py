@@ -514,7 +514,8 @@ class ShardedEllKernel:
         if cav is not None:
             for d, g, _dev in grid:
                 impl.cav_gather_or(cur[d][g], x[d][g], cav[d][g], half,
-                                   dst_lo=g * self.block_cav)
+                                   dst_lo=g * self.block_cav,
+                                   dead=self.prog.dead_index)
             for reps in cur:
                 all_gather_rows(reps, 0, self.rows, cols=(half, 2 * half))
         for d, g, dev in grid:
@@ -667,10 +668,10 @@ class ShardedKernel:
     per shard (the reference's float32 lanes [N, B/D]), is replicated
     along `graph`.  One sweep per shard: `x0 | wildcard terms`, then
     `edge_or` over the shard's own edges, then `or_allreduce` over
-    `graph` (the reference's `lax.pmax(y, "graph")`: copies plus the
-    `or_combine` kernel), then the permission ops and `sweep_delta` on
-    every replica.  The per-device plan (wildcard bits, permission
-    programs) is the single-device segment cache's."""
+    `graph` (the reference's `lax.pmax(y, "graph")`: one `or_combine`
+    launch over the co-located replicas), then the permission ops and
+    `sweep_delta` on every replica.  The per-device plan (wildcard bits,
+    permission programs) is the single-device segment cache's."""
 
     def __init__(self, prog: GraphProgram, mesh: Mesh,
                  num_iters: Optional[int] = None):

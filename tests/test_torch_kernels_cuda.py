@@ -423,54 +423,90 @@ def test_card_and_cpu_agree_on_the_leopard_plane():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 1), (7, 3), (4_099, 8), (100_000, 4)])
-def test_or_combine_matches_its_twin(shape):
-    """dst |= src on random words (bit 31 live), the 16-byte path and the
-    scalar tail alike; a row-offset view takes the unaligned path."""
+@pytest.mark.parametrize("g", [2, 3, 4, 8])
+def test_or_combine_matches_its_twin(g, shape):
+    """The OR all-reduce of G replicas in one launch on random words (bit
+    31 live): every replica ends at the twin's OR, through the 16-byte
+    path and its scalar tail (n % 4 != 0), and through the scalar path
+    when the replicas are views one word off 16 bytes; more than
+    MAX_OR_PARTS replicas, or two that share memory, are refused."""
     _needs_card()
-    rng = np.random.default_rng(shape[0])
-    dst, src = _rand(rng, shape), _rand(rng, shape)
+    rng = np.random.default_rng(g * 1_000 + shape[0])
+    n = shape[0] * shape[1]
     kernels.reset_launches()
-    a, b = dst.clone(), dst.clone()
-    kernels.or_combine(a, src)
-    reference.or_combine(b, src)
-    torch.cuda.synchronize()
-    assert torch.equal(a, b) and torch.equal(a, dst | src)
-    if shape[0] > 1:
-        a, b = dst[1:].clone(), dst[1:].clone()
-        kernels.or_combine(a, src[1:])
-        reference.or_combine(b, src[1:])
-        assert torch.equal(a, b)
+    for off in (0, 1):
+        bufs = [_rand(rng, (n + off,)) for _ in range(g)]
+        parts = [b[off:].view(shape) for b in bufs]
+        twin = [p.clone() for p in parts]
+        want = twin[0].clone()
+        for t in twin[1:]:
+            want |= t
+        kernels.or_combine(parts)
+        reference.or_combine(twin)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(parts, twin))
+        assert all(torch.equal(a, want) for a in parts)
+    assert kernels.LAUNCHES["or_combine"] == 2
     with pytest.raises(kernels.KernelError):
-        kernels.or_combine(a, a)
-    assert kernels.LAUNCHES["or_combine"] == (2 if shape[0] > 1 else 1)
+        kernels.or_combine([_rand(rng, shape)
+                            for _ in range(kernels.MAX_OR_PARTS + 1)])
+    a = _rand(rng, (2 * n,))
+    for alias in ([parts[0], parts[0]],
+                  [a[:n].view(shape), a[n - 1: 2 * n - 1].view(shape)]):
+        with pytest.raises(kernels.KernelError):
+            kernels.or_combine(parts[1:] + alias)
+    assert kernels.LAUNCHES["or_combine"] == 2
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("half", [1, 4])
+@pytest.mark.parametrize("half", [1, 2, 3, 4, 8, 16])
 def test_cav_gather_or_block_form_matches_its_twin(half):
     """The mesh shard's form: one row block of the caveat table ORed into
-    the maybe words of rows [dst_lo, dst_lo + R) of the state."""
+    the maybe words of rows [dst_lo, dst_lo + R) of the state, and the
+    whole table (dst_lo 0).  The kernel skips the dead row's gathers; the
+    twin does not, and the dead row of x_in is zero as the sweep keeps
+    it.  The table has holes mid-row, all-dead rows and rows that read
+    the live rows next to the dead row (whose words are not zero).  A
+    table narrower than K_CAV, and one whose rows are not 16-byte
+    aligned, are refused."""
     _needs_card()
-    rng = np.random.default_rng(half)
+    k = kernels.K_CAV
+    rng = np.random.default_rng(half * 10 + k)
     nt = 4_000
+    dead = nt - 500
     x = _rand(rng, (nt, 2 * half))
     x_in = _rand(rng, (nt, 2 * half))
-    idx = torch.from_numpy(rng.integers(0, nt, (nt // 4, 8))
-                           .astype(np.int32)).cuda()
+    x_in[dead] = 0
+    blk = nt // 4
+    host = np.full((nt, k), dead, np.int32)
+    live = rng.random((nt, k)) < 0.2
+    host[live] = rng.integers(0, nt, int(live.sum()))
+    host[::5] = dead                                   # all-dead rows
+    host[1::9, :3] = [dead - 1, dead, dead + 1]
+    assert (host == dead).any(axis=1).mean() > 0.5
     kernels.reset_launches()
-    for dst_lo in (0, 1_000, nt - nt // 4):
+    for dst_lo, idx in ((0, host), (0, host[:blk]), (1_000, host[:blk]),
+                        (nt - blk, host[blk: 2 * blk])):
+        idx = torch.from_numpy(np.ascontiguousarray(idx)).cuda()
+        r = idx.shape[0]
         a, b = x.clone(), x.clone()
-        kernels.cav_gather_or(a, x_in, idx, half, dst_lo=dst_lo)
-        reference.cav_gather_or(b, x_in, idx, half, dst_lo=dst_lo)
+        kernels.cav_gather_or(a, x_in, idx, half, dst_lo=dst_lo, dead=dead)
+        reference.cav_gather_or(b, x_in, idx, half, dst_lo=dst_lo, dead=dead)
         torch.cuda.synchronize()
         assert torch.equal(a, b)
+        assert not torch.equal(a, x)
         outside = torch.ones(nt, dtype=torch.bool, device="cuda")
-        outside[dst_lo: dst_lo + nt // 4] = False
+        outside[dst_lo: dst_lo + r] = False
         assert torch.equal(a[outside], x[outside])
         assert torch.equal(a[:, :half], x[:, :half])
     with pytest.raises(kernels.KernelError):
-        kernels.cav_gather_or(x.clone(), x_in, idx, half, dst_lo=nt - 10)
-    assert kernels.LAUNCHES["cav_gather_or"] == 3
+        kernels.cav_gather_or(x.clone(), x_in, idx, half, dst_lo=nt - 10,
+                              dead=dead)
+    flat = torch.from_numpy(host[:blk].ravel()).cuda()
+    for bad in (idx[:, :3], flat[1: 1 + (blk - 1) * k].view(blk - 1, k)):
+        with pytest.raises(kernels.KernelError):
+            kernels.cav_gather_or(x.clone(), x_in, bad, half, dead=dead)
+    assert kernels.LAUNCHES["cav_gather_or"] == 4
 
 
 @pytest.mark.cuda
