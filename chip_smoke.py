@@ -1795,12 +1795,14 @@ def segment_path(ep, w, timer, peak, smi_line, device: str = "cuda",
                                  + _diff(y_k, y_t))
         x = y_k
     # edge_or alone on the full arrays, from a zero state and from the
-    # seed-initialized one, bit for bit
+    # seed-initialized one, bit for bit, skipping the dead row's edges as
+    # the sweep does and skipping nothing
     for base in (torch.zeros_like(x), x0):
-        a, b = base.clone(), base.clone()
-        kernels.edge_or(a, x, src, dst)
-        reference.edge_or(b, x, src, dst)
-        err["edge_or"] = max(err["edge_or"], _diff(a, b))
+        for skip in (dead, None):
+            a, b = base.clone(), base.clone()
+            kernels.edge_or(a, x, src, dst, dead=skip)
+            reference.edge_or(b, x, src, dst)
+            err["edge_or"] = max(err["edge_or"], _diff(a, b))
     if any(err.values()):
         raise AssertionError(f"segment kernels disagree with their twins: "
                              f"{err}")
@@ -1989,6 +1991,25 @@ def segment_path(ep, w, timer, peak, smi_line, device: str = "cuda",
             "answers equal the ELL endpoint's")
     if (seg.stats["rebuilds"], ep.stats["rebuilds"]) != rebuilds0:
         raise AssertionError("a rebuild happened during the segment churn")
+    # edge_or again on the arrays the last flush produced: inserts sit in
+    # free positions out of destination order
+    src_c, dst_c = g.snapshot()
+    descents = int((np.diff(g.host_dst.astype(np.int64)) < 0).sum())
+    live_c = int((g.host_src != dead).sum())
+    churn_err = 0
+    for base in (torch.zeros_like(x), x0):
+        a, b = base.clone(), base.clone()
+        kernels.edge_or(a, x, src_c, dst_c, dead=dead)
+        reference.edge_or(b, x, src_c, dst_c)
+        churn_err = max(churn_err, _diff(a, b))
+    if churn_err:
+        raise AssertionError(f"edge_or differs from its twin on the "
+                             f"churned edge arrays: {churn_err}")
+    log(f"edge_or vs twin on the edge arrays after {n_rounds} churn rounds "
+        f"({live_c} live edges of {cap}; {descents} positions whose "
+        f"destination is below the one before it): bit-identical, "
+        f"{timer.ms(lambda: kernels.edge_or(a, x, src_c, dst_c, dead=dead)):.6f}"
+        f" ms a call")
     # scatter_rows at the segment flush's shapes: the last round's edge
     # positions into each [cap, 1] edge array, against its twin and
     # torch.index_put; the captured arrays are the pre-flush snapshot
@@ -2029,6 +2050,8 @@ def segment_path(ep, w, timer, peak, smi_line, device: str = "cuda",
         f"{statistics.median(flushes):.3f} ms host; scatter_rows launches "
         f"{scatter}")
     log(f"phase 11 wall time {time.perf_counter() - t_phase:.1f} s")
+    rows["edge_or"]["max_abs_err"] = max(rows["edge_or"]["max_abs_err"],
+                                         churn_err)
     for name, r in rows.items():
         r["launches"] = launches[name]
     rows["scatter_rows"] = {"launches": scatter, "max_abs_err": s_err,
@@ -2238,7 +2261,11 @@ def leopard_path(timer, peak, smi_line, mt_statuses: dict,
                                    for c in set(cols.values())}),
                            dtype=torch.int32, device=dev)
     err = 0
-    for words in (all_w, batch_w, all_w.flip(0)[:7].repeat(2)):
+    # 1 and 7 words take the column read, the batch's and all words the
+    # tiled one; repeated words both
+    word_sets = (all_w[:1], batch_w[:7], batch_w, all_w,
+                 all_w.flip(0)[:7].repeat(2), batch_w.repeat(2))
+    for words in word_sets:
         err = max(err, _diff(kernels.word_cols_T(plane, rows_n, words),
                              reference.word_cols_T(plane, rows_n, words)))
     w64 = batch_w.long()
@@ -2253,8 +2280,8 @@ def leopard_path(timer, peak, smi_line, mt_statuses: dict,
                              f"{rows}")
     log(f"plane kernels vs twins on the full [{rows_n}, {plane.shape[1]}] "
         f"plane: check_gather over {len(pr)} (row, col) pairs and "
-        f"word_cols_T over all, the batch's ({batch_w.numel()}) and "
-        f"repeated words: bit-identical; check_gather "
+        f"word_cols_T over {[int(w_.numel()) for w_ in word_sets]} words "
+        f"(1, 7, the batch's, all, repeated): bit-identical; check_gather "
         f"{rows['check_gather']['ms']:.6f} ms (bound "
         f"{rows['check_gather']['bound_ms']:.6f}), word_cols_T "
         f"{rows['word_cols_T']['ms']:.6f} ms for the batch's words (bound "
@@ -2946,6 +2973,26 @@ def mesh_segment(seg, mesh, timer, peak, device: str = "cuda") -> dict:
         sk.finish_step(y, x, x0, live)
         x, y = y, x
     sk.partials(y, x, x0, live, src, dst)
+    # edge_or on every shard's own edges (W = n_words / D), against the
+    # twin, from the shard's init step as the sweep runs it
+    dead = prog.dead_index
+    e_err = 0
+    for d in range(MESH_DATA):
+        for gg in range(MESH_GRAPH):
+            init = torch.empty_like(x[d][gg])
+            sk._caches[x[d][gg].device].run_step(
+                ("init", sk._caches[x[d][gg].device]._wc_bits), init,
+                x[d][gg], x0[d][gg], live[d][gg])
+            a, b = init.clone(), init.clone()
+            kernels.edge_or(a, x[d][gg], src[d][gg], dst[d][gg], dead=dead)
+            reference.edge_or(b, x[d][gg], src[d][gg], dst[d][gg])
+            e_err = max(e_err, _diff(a, b))
+    if e_err:
+        raise AssertionError(f"edge_or differs from its twin on a shard: "
+                             f"{e_err}")
+    log(f"edge_or vs twin on all {MESH_DATA * MESH_GRAPH} shards' edges "
+        f"([{x[0][0].shape[0]}, {x[0][0].shape[1]}] states, "
+        f"{src[0][0].numel()} edges a shard): bit-identical")
     # the all-reduce on a real sweep's partials: each data shard's G
     # replicas in one launch, against the twin
     err = 0
@@ -2976,7 +3023,6 @@ def mesh_segment(seg, mesh, timer, peak, device: str = "cuda") -> dict:
     t_part = timer.ms(lambda: sk.partials(y, x, x0, live, src, dst))
     t_red = timer.ms(lambda: [collectives.or_allreduce(reps) for reps in y])
     t_fin = timer.ms(lambda: sk.finish_step(y, x, x0, live))
-    dead = prog.dead_index
     t_delta = timer.ms(lambda: [kernels.sweep_delta(a_, b_, dead)
                                 for ra, rb in zip(y, x)
                                 for a_, b_ in zip(ra, rb)])

@@ -3,7 +3,7 @@
 and their PyTorch yardsticks, on one CUDA card, with device time and
 host cost apart.
 
-    python3 scripts/torch_kernel_ab.py [--rows sweep|copy|all]
+    python3 scripts/torch_kernel_ab.py [--rows sweep|copy|edge|all]
                                        [--variants old,new,graph,library]
                                        [--rounds 3] [--out FILE]
 
@@ -43,6 +43,13 @@ beside one `bitwise_or_`, and with "old" the G = 4 all-reduce at each
 launch shape of COMBINE_SHAPES (and `cav_gather_or` at each of
 CAV_ROWS_SWEEP, after row 5), built from SHAPE_SOURCE.
 
+`--rows edge` runs `edge_or` and `word_cols_T` (rows 10, 9) at the
+shapes of `edge_cases`: multitenant-1m's segment edge arrays (W = 8)
+before and after phase 11's churn rounds, one 2 x 4 `ShardedKernel`
+shard (W = 4), the whole segment sweep, and a [5,079, 65] plane with the
+batch's 63 words, all 65, 1 and 7, and the launch shapes of its tiled
+read (COLS_TILE_SWEEP).
+
 `--rows copy` runs `lookup_T` and `scatter_rows` (rows 4c, 8, 11, 13) at
 multitenant-1m after `--rounds` rounds of phase 9's churn, as before:
 the lookup transpose of the converged state (and of its two-plane
@@ -56,6 +63,8 @@ wrapper (`ell_gather_or` one thread per (row, word) through a scratch
 buffer copied back into the state; `perm_program` with a run-time
 indexed stack, through scratch when it reads its own slot;
 `cav_gather_or` one thread per (row, word), every index gathered;
+`edge_or` one thread per (edge, word), every edge gathered;
+`word_cols_T` one thread per output word;
 `or_combine` a launch per peer into replica 0, then a copy back to each
 peer; `lookup_T` one thread per output word; `scatter_rows` a copy
 launch and a scatter launch), kept here as source and built beside the
@@ -100,6 +109,8 @@ LANES = 256                     # lanes of a lookup batch (chip_smoke.py)
 COMBINE_SHAPES = [(u, b) for u in (1, 2) for b in (0, 264, 528, 1056, 2112)]
 CAV_ROWS_SWEEP = (1, 2, 4)      # cav_gather_or's table rows a thread; the
                                 # package runs 1
+# word_cols_T's (plane rows, threads) a block
+COLS_TILE_SWEEP = [(t, b) for t in (8, 16, 32) for b in (128, 256)]
 
 OLD_SOURCE = r"""
 #include <cuda_runtime.h>
@@ -314,6 +325,38 @@ __global__ void cav_gather_or_kernel(const int32_t* __restrict__ x,
     }
 }
 
+// Segment sweep, one thread per (edge, word): y[dst[e], w] |= x[src[e], w];
+// a zero source word makes no atomic.
+__global__ void edge_or_kernel(const uint32_t* __restrict__ x,
+                               const int32_t* __restrict__ src,
+                               const int32_t* __restrict__ dst,
+                               long long E, int W,
+                               uint32_t* __restrict__ y) {
+    const long long total = E * W;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         t < total; t += stride) {
+        const long long e = t / W;
+        const int w = (int)(t - e * W);
+        const uint32_t v = __ldg(x + (long long)__ldg(src + e) * W + w);
+        if (v) atomicOr(y + (long long)__ldg(dst + e) * W + w, v);
+    }
+}
+
+// out[k, r] = plane[r, words[k]] for r < R, one thread per output word.
+__global__ void word_cols_T_kernel(const int32_t* __restrict__ plane, int Wc,
+                                   const int32_t* __restrict__ words, int K,
+                                   long long R, int32_t* __restrict__ out) {
+    const long long total = (long long)K * R;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         t < total; t += stride) {
+        const long long k = t / R;
+        const long long r = t - k * R;
+        out[t] = __ldg(plane + r * Wc + __ldg(words + k));
+    }
+}
+
 // dst[i] |= src[i] over n packed words (one peer into replica 0).
 __global__ void or_combine_kernel(int32_t* __restrict__ dst,
                                   const int32_t* __restrict__ src,
@@ -418,6 +461,25 @@ EXPORT int old_cav_gather_or(const void* x, const void* idx, int k,
         (const int32_t*)x, (const int32_t*)idx, k, R, half, (int32_t*)out);
     return (int)cudaGetLastError();
 }
+EXPORT int old_edge_or(const void* x, const void* src, const void* dst,
+                       long long E, int W, void* y, void* stream) {
+    if (E <= 0 || W <= 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    edge_or_kernel<<<grid_for(E * W, kBlock, 1LL << 30), kBlock, 0, s>>>(
+        (const uint32_t*)x, (const int32_t*)src, (const int32_t*)dst, E, W,
+        (uint32_t*)y);
+    return (int)cudaGetLastError();
+}
+EXPORT int old_word_cols_T(const void* plane, int Wc, const void* words,
+                           int K, long long R, void* out, void* stream) {
+    if (K <= 0 || R <= 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    word_cols_T_kernel<<<grid_for((long long)K * R, kBlock, 1LL << 30),
+                         kBlock, 0, s>>>(
+        (const int32_t*)plane, Wc, (const int32_t*)words, K, R,
+        (int32_t*)out);
+    return (int)cudaGetLastError();
+}
 EXPORT int old_or_combine(void* dst, const void* src, long long n, int vec,
                           void* stream) {
     if (n <= 0) return 0;
@@ -508,6 +570,18 @@ shape_cav_kernel(const int32_t* __restrict__ x,
     }
 }
 }  // namespace
+// word_cols_T's tiled read at T plane rows (a power of two) and
+// `threads` (<= kColsThreads, whole warps) a block
+EXPORT int shape_word_cols_T(const void* plane, int Wc, const void* words,
+                             int K, long long R, int T, int threads,
+                             void* out, void* stream) {
+    const int P = Wc | 1;
+    word_cols_tile_kernel<<<(unsigned int)((R + T - 1) / T), threads,
+                            (size_t)(T * P + K) * 4, (cudaStream_t)stream>>>(
+        (const int32_t*)plane, Wc, P, T, (const int32_t*)words, K, (int)R,
+        (int32_t*)out);
+    return (int)cudaGetLastError();
+}
 // G = 4 replicas, 16-byte aligned, n % 4 == 0; `per_thread` 1 or 2,
 // `max_blocks` 0 for one trip a thread
 EXPORT int shape_or_combine(const void* const* ptrs, long long n,
@@ -598,8 +672,11 @@ class OldKernels:
                 (lib, "old_perm_program", (P, P, I, L, I, I, P, P, P)),
                 (lib, "old_cav_gather_or", (P, P, I, L, I, P, P)),
                 (lib, "old_or_combine", (P, P, L, I, P)),
+                (lib, "old_edge_or", (P, P, P, L, I, P, P)),
+                (lib, "old_word_cols_T", (P, I, P, I, L, P, P)),
                 (shape, "shape_or_combine", (P, L, I, L, P)),
-                (shape, "shape_cav_gather_or", (P, P, L, I, I, I, P, P))):
+                (shape, "shape_cav_gather_or", (P, P, L, I, I, I, P, P)),
+                (shape, "shape_word_cols_T", (P, I, P, I, L, I, I, P, P))):
             getattr(lib_, fn).argtypes = list(args)
             getattr(lib_, fn).restype = ctypes.c_int
         self.lib, self.shape = lib, shape
@@ -678,6 +755,20 @@ class OldKernels:
                       src.data_ptr(), root.numel(), vec)
         for dst in parts[1:]:
             dst.copy_(root)
+
+    def edge_or(self, y, x, src, dst, dead=None):
+        """The first version: one thread per (edge, word), every edge
+        gathered (`dead` is not read)."""
+        self._run("old_edge_or", x.device, x.data_ptr(), src.data_ptr(),
+                  dst.data_ptr(), src.numel(), x.shape[1], y.data_ptr())
+
+    def word_cols_T(self, plane, rows, words):
+        out = self.torch.empty((words.numel(), rows), dtype=self.torch.int32,
+                               device=plane.device)
+        self._run("old_word_cols_T", plane.device, plane.data_ptr(),
+                  plane.shape[1], words.data_ptr(), words.numel(), rows,
+                  out.data_ptr())
+        return out
 
     def scatter_rows(self, src, rows, vals):
         for t, name in ((src, "src"), (rows, "rows"), (vals, "vals")):
@@ -981,9 +1072,11 @@ def segment_cases(ep, w, batch, old, variants) -> list:
     e_bytes = lambda s_, d_: (s_.numel() * 8
                               + int(torch.unique(s_).numel()) * word
                               + 2 * int(torch.unique(d_).numel()) * word)
+    have = {"old": old, "new": kernels}
     cases = [Case("seg edge_or", f"{src.numel()} edges, {n_words} words",
                   e_bytes(src, dst),
-                  {"new": lambda: kernels.edge_or(y, x, src, dst)},
+                  {v: (lambda m=m: m.edge_or(y, x, src, dst, dead=dead))
+                   for v, m in have.items() if v in variants},
                   lambda: reference.edge_or(y, x, src, dst),
                   lambda out: y, lambda: y.copy_(y0))]
 
@@ -1040,7 +1133,6 @@ def segment_cases(ep, w, batch, old, variants) -> list:
             for code, _, length, *_ in sk._caches[s_.device]._ops:
                 n_read = int((code[0::2] == 0).sum())
                 sweep_bytes += code.numel() * 4 + length * sw * (n_read + 2)
-    have = {"old": old, "new": kernels}
     ar = {v: allreduce(m) for v, m in have.items() if v in variants}
     if "library" in variants:
         ar["library"] = lambda: [cs.or_chain(reps) for reps in sy]
@@ -1053,6 +1145,215 @@ def segment_cases(ep, w, batch, old, variants) -> list:
                                     if v in variants},
                       sweep(reference), flat, reset))
     return cases, seg
+
+
+def word_cols_cases(plane, batch, old, variants) -> list:
+    """`word_cols_T` on `plane` with the batch's words (`batch`), all
+    words, 1 and 7: first version, new, library (row 9)."""
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.ops.kernels import reference
+    rows, wc = plane.shape
+    sets = [("the batch's", batch),
+            ("all", torch.arange(wc, dtype=torch.int32, device=plane.device)),
+            ("1", batch[:1].clone()), ("7", batch[:7].clone())]
+    cases = []
+    for label, cols in sets:
+        k = cols.numel()
+        cols64 = cols.long()
+        fns = {v: (lambda m=m, cols=cols: m.word_cols_T(plane, rows, cols))
+               for v, m in (("old", old), ("new", kernels))
+               if v in variants and m is not None}
+        if "library" in variants:
+            fns["library"] = (lambda cols64=cols64:
+                              plane[:rows, cols64].t().contiguous())
+        name = "word_cols_T" if label == "the batch's" else \
+            f"word_cols_T {label} words"
+        cases.append(Case(name, f"[{k}, {rows}] of a [{rows}, {wc}] plane "
+                                f"({label} words)",
+                          2 * k * rows * 4 + k * 4, fns,
+                          lambda cols=cols: reference.word_cols_T(
+                              plane, rows, cols),
+                          lambda out: out, lambda: None))
+    return cases
+
+
+def edge_cases(ep, w, batch, old, variants) -> list:
+    """`--rows edge` (PERF.md rows 9, 10): `edge_or` on the segment
+    endpoint's full edge arrays at multitenant-1m (W = 8) before and after
+    `chip_smoke.SEG_ROUNDS` rounds of phase 11's churn, on one graph shard
+    of a 2 x 4 `ShardedKernel` (W = 4, cap/G edges), and the whole
+    segment sweep (init, `edge_or`, permission programs, delta), where
+    "old" is the package's sweep with the first `edge_or`.  `edge_rows`
+    then runs `word_cols_T` on a plane of group-explosion's shape
+    (PLANE_SHAPE) with PLANE_WORDS seeded words as the batch's, all words,
+    1 and 7, and with "old" the batch's words at each launch shape of
+    COLS_TILE_SWEEP."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.ops.kernels import reference
+    from spicedb_kubeapi_proxy_tpu_torch.parallel import collectives
+    from spicedb_kubeapi_proxy_tpu_torch.parallel.sharding import (
+        ShardedKernel)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import (
+        Bootstrap, create_endpoint)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        RelationshipUpdate, UpdateOp, parse_relationship)
+
+    seg = create_endpoint("torch://", Bootstrap(w.schema_text, ""),
+                          kernel="segment", store=ep.store)
+    g = seg.graph()
+    kc, prog = g.kernel, g.prog
+    dead = prog.dead_index
+    src, dst = g.snapshot()
+    q_arr, _, _ = seg._encode_subjects(g, batch)
+    n_words = len(q_arr) // 32
+    word = 4 * n_words
+    q = torch.from_numpy(q_arr).cuda()
+    x0, live = kc.init_state(q, n_words)
+    x, y = x0.clone(), torch.empty_like(x0)
+    for step in kc.sweep_steps(src, dst):        # the second sweep's input
+        kc.run_step(step, y, x, x0, live)
+    x = y.clone()
+    y0 = torch.empty_like(x0)
+    kc.run_step(("init", kc._wc_bits), y0, x, x0, live)
+    y = y0.clone()
+    e_bytes = lambda s_, d_, wd: (s_.numel() * 8
+                                  + int(torch.unique(s_).numel()) * wd
+                                  + 2 * int(torch.unique(d_).numel()) * wd)
+    have = {v: m for v, m in (("old", old), ("new", kernels))
+            if v in variants and m is not None}
+
+    def edge_case(name, yy, yy0, xx, s_, d_, wd):
+        return Case(name, f"{s_.numel()} edges, [{xx.shape[0]}, "
+                          f"{xx.shape[1]}] state",
+                    e_bytes(s_, d_, wd),
+                    {v: (lambda m=m: m.edge_or(yy, xx, s_, d_, dead=dead))
+                     for v, m in have.items()},
+                    lambda: reference.edge_or(yy, xx, s_, d_),
+                    lambda out: yy, lambda: yy.copy_(yy0))
+
+    cases = [edge_case("seg edge_or", y, y0, x, src, dst, word)]
+
+    class FirstEdge:
+        """The package's kernels with the first `edge_or`."""
+        def __getattr__(self, name):
+            return getattr(old if name == "edge_or" else kernels, name)
+
+    steps = list(kc.sweep_steps(src, dst))
+
+    def sweep(impl):
+        def fn():
+            for st in steps:
+                kc.run_step(st, y, x, x0, live, impl)
+            impl.sweep_delta(y, x, dead)
+        return fn
+
+    n = prog.state_size
+    s_bytes = 4 * n * word + 8 + e_bytes(src, dst, word)
+    for code, _, length, *_ in kc._ops:
+        n_read = int((code[0::2] == 0).sum())
+        s_bytes += code.numel() * 4 + length * word * (n_read + 2)
+    fns = {"new": sweep(kernels)} if "new" in variants else {}
+    if "old" in have:
+        fns["old"] = sweep(FirstEdge())
+    cases.append(Case("seg sweep", f"{len(steps)} steps + delta on [{n}, "
+                                   f"{n_words}]", s_bytes, fns,
+                      sweep(reference), lambda out: y,
+                      lambda: y.copy_(y0)))
+
+    # one graph shard of a 2 x 4 ShardedKernel, on its third sweep's input
+    mesh = cs.make_smoke_mesh("cuda")
+    sk = ShardedKernel(dataclasses.replace(
+        prog, edge_src=g.host_src.copy(), edge_dst=g.host_dst.copy()), mesh)
+    e_src, e_dst = sk.device_edges(len(g.host_src))
+    nw = cs.MESH_DATA * max(1, LANES // 32 // cs.MESH_DATA)
+    qp = np.full(32 * nw, dead, np.int32)
+    qp[:LANES] = q_arr[:LANES]
+    sx0, slive = sk.seed(qp, nw)
+    sx = [[t.clone() for t in row] for row in sx0]
+    sy = [[torch.empty_like(t) for t in row] for row in sx0]
+    for _ in range(2):
+        sk.partials(sy, sx, sx0, slive, e_src, e_dst)
+        for reps in sy:
+            collectives.or_allreduce(reps)
+        sk.finish_step(sy, sx, sx0, slive)
+        sx, sy = sy, sx
+    kc0 = sk._caches[sx[0][0].device]
+    sh_y0 = torch.empty_like(sx[0][0])
+    kc0.run_step(("init", kc0._wc_bits), sh_y0, sx[0][0], sx0[0][0],
+                 slive[0][0])
+    sh_y = sh_y0.clone()
+    cases.append(edge_case("shard edge_or", sh_y, sh_y0, sx[0][0],
+                           e_src[0][0], e_dst[0][0], 4 * (nw // cs.MESH_DATA)))
+
+    # phase 11's churn rounds through the segment endpoint, then the arrays
+    # its last flush produced
+    ops = {"touch": UpdateOp.TOUCH, "delete": UpdateOp.DELETE}
+    for rnd in cs._churn_plan(w, cs.SEG_ROUNDS, cs.SEED + 11, tag="s"):
+        for wr in rnd["writes"]:
+            asyncio.run(seg.write_relationships(
+                [RelationshipUpdate(ops[o], parse_relationship(r))
+                 for o, r in wr]))
+        asyncio.run(seg.lookup_resources_batch("pod", "view", batch[:8]))
+    if seg.graph() is not g:
+        raise AssertionError("the segment endpoint rebuilt under churn")
+    src_c, dst_c = g.snapshot()
+    descents = int((np.diff(g.host_dst.astype(np.int64)) < 0).sum())
+    cases.append(edge_case(f"seg edge_or after churn ({descents} "
+                           f"descents)", y, y0, x, src_c, dst_c, word))
+    return cases, (seg, sk)
+
+
+def edge_rows(args, variants, old, peak, result) -> None:
+    """`--rows edge`: rows 9 and 10 at the shapes of `edge_cases`."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import SubjectRef
+
+    ep, w = cs.load("cuda", {})
+    rng = np.random.default_rng(cs.SEED)
+    batch = [SubjectRef("user", w.subjects[i]) for i in
+             rng.choice(len(w.subjects), cs.LOOKUP_LANES, replace=False)]
+    cases, keep = edge_cases(ep, w, batch, old, variants)
+    torch.cuda.synchronize()
+    run_cases(cases, [v for v in variants if v != "graph"], peak, result)
+    del ep, w, cases, keep
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(7)
+    plane = torch.from_numpy(rng.integers(
+        -(1 << 31), 1 << 31, PLANE_SHAPE, dtype=np.int64)
+        .astype(np.int32)).cuda()
+    cols = torch.from_numpy(np.sort(rng.choice(
+        PLANE_SHAPE[1], PLANE_WORDS, replace=False)).astype(np.int32)).cuda()
+    cases = word_cols_cases(plane, cols, old, variants)
+    if old is not None:
+        rows, wc = plane.shape
+        k = cols.numel()
+
+        def tile_fn(t, b):
+            out = torch.empty((k, rows), dtype=torch.int32, device="cuda")
+            return lambda: (old._run("shape_word_cols_T", plane.device,
+                                     plane.data_ptr(), wc, cols.data_ptr(),
+                                     k, rows, t, b, out.data_ptr()), out)[1]
+        shapes = {f"rows {t}, threads {b}": tile_fn(t, b)
+                  for t, b in COLS_TILE_SWEEP}
+        cases.append(Case("word_cols_T launch shapes", cases[0].shape,
+                          cases[0].nbytes, shapes, cases[0].twin,
+                          lambda out: out, lambda: None,
+                          order=list(shapes)))
+    run_cases(cases, [v for v in variants if v != "graph"], peak, result)
 
 
 def library_cases(variants, old) -> list:
@@ -1075,10 +1376,8 @@ def library_cases(variants, old) -> list:
     words32 = lambda shape: torch.from_numpy(rng.integers(
         -(1 << 31), 1 << 31, shape, dtype=np.int64).astype(np.int32)).cuda()
     plane = words32(PLANE_SHAPE)
-    rows = PLANE_SHAPE[0]
     cols = torch.from_numpy(np.sort(rng.choice(
         PLANE_SHAPE[1], PLANE_WORDS, replace=False)).astype(np.int32)).cuda()
-    cols64 = cols.long()
     p0 = [words32(COMBINE_SHAPE) for _ in range(MESH_GRAPH)]
     parts = [t.clone() for t in p0]
     pair = parts[:2]
@@ -1102,14 +1401,7 @@ def library_cases(variants, old) -> list:
         fns2["old"] = lambda: old.or_combine(pair)
     shapes = {f"chunks {u}, blocks {b or 'all'}": shape_fn(u, b)
               for u, b in COMBINE_SHAPES} if old is not None else {}
-    cases = [
-        Case("word_cols_T",
-             f"[{PLANE_WORDS}, {rows}] of a [{rows}, {PLANE_SHAPE[1]}] plane",
-             2 * PLANE_WORDS * rows * 4 + PLANE_WORDS * 4,
-             {"new": lambda: kernels.word_cols_T(plane, rows, cols),
-              "library": lambda: plane[:rows, cols64].t().contiguous()},
-             lambda: reference.word_cols_T(plane, rows, cols),
-             lambda out: out, lambda: None),
+    cases = word_cols_cases(plane, cols, old, variants)[:1] + [
         Case("or_combine G=4", f"{MESH_GRAPH} x [{COMBINE_SHAPE[0]}, "
              f"{COMBINE_SHAPE[1]}]", 2 * MESH_GRAPH * numel * 4, fns4,
              lambda: reference.or_combine(parts), lambda out: parts, reset),
@@ -1397,7 +1689,7 @@ def copy_rows(args, variants, old, peak, result) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", default="sweep",
-                    choices=("sweep", "copy", "all"))
+                    choices=("sweep", "copy", "edge", "all"))
     ap.add_argument("--variants", default="old,new,graph,library")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--out", default=None)
@@ -1431,6 +1723,8 @@ def main() -> int:
         sweep_rows(args, variants, old, peak, result)
     if args.rows in ("copy", "all"):
         copy_rows(args, variants, old, peak, result)
+    if args.rows in ("edge", "all"):
+        edge_rows(args, variants, old, peak, result)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
@@ -180,7 +181,7 @@ def _load():
                 "ell_check_gather3": (P, I, P, P, L, P, P),
                 "ell_lookup_T": (P, I, L, L, L, P, P),
                 "ell_scatter_rows": (P, L, I, P, L, P, P, I, P),
-                "ell_edge_or": (P, P, P, L, I, P, P),
+                "ell_edge_or": (P, P, P, L, I, I, P, P),
                 "ell_word_cols_T": (P, I, P, I, L, P, P),
                 "ell_or_combine": (P, I, L, I, P),
             }
@@ -515,25 +516,40 @@ def scatter_rows(src: torch.Tensor, rows: torch.Tensor,
 
 
 def edge_or(y: torch.Tensor, x: torch.Tensor, src: torch.Tensor,
-            dst: torch.Tensor) -> None:
+            dst: torch.Tensor, dead: Optional[int] = None) -> None:
     """The segment sweep's edge pass: y[dst[e], w] |= x[src[e], w] for
     every edge e and word w.  `x` and `y` are int32 [N, W] packed states,
     distinct buffers (Jacobi: every edge reads the sweep's input);
-    `src`/`dst` int32 [E] row indices in [0, N)."""
+    `src`/`dst` int32 [E] row indices in [0, N).  `dead` is the state's
+    dead row: the kernel skips the edges whose source it is (padding and
+    freed positions), exact because its words are zero (sweep_delta and
+    the seed zero it); None skips nothing.  The twin gathers every edge,
+    so a comparison with it also checks that the dead row is zero.  The
+    shapes and `dead` are checked on every device."""
+    if x.dim() != 2 or y.shape != x.shape:
+        raise KernelError(f"edge_or: states {tuple(x.shape)} and "
+                          f"{tuple(y.shape)}, not two equal [N, W]")
+    if src.dim() != 1 or src.shape != dst.shape:
+        raise KernelError("edge_or: src and dst are not two equal [E]")
+    if y.data_ptr() == x.data_ptr():
+        raise KernelError("edge_or: y must not be the input state")
+    if dead is not None:
+        try:
+            dead = operator.index(dead)
+        except TypeError:
+            raise KernelError(f"edge_or: dead row {dead!r} is not an "
+                              f"integer") from None
+        if not 0 <= dead < x.shape[0]:
+            raise KernelError(f"edge_or: dead row {dead} outside [0, "
+                              f"{x.shape[0]})")
     if not _on_cuda(y, x, src, dst):
-        return reference.edge_or(y, x, src, dst)
+        return reference.edge_or(y, x, src, dst, dead)
     _check(y, "y", 2)
     _check(x, "x", 2)
     _check(src, "src", 1)
     _check(dst, "dst", 1)
-    if y.shape != x.shape:
-        raise KernelError("edge_or: x and y shapes differ")
-    if src.shape != dst.shape:
-        raise KernelError("edge_or: src and dst lengths differ")
-    if y.data_ptr() == x.data_ptr():
-        raise KernelError("edge_or: y must not be the input state")
     _run("ell_edge_or", x.device, _ptr(x), _ptr(src), _ptr(dst), src.shape[0],
-         x.shape[1], _ptr(y))
+         x.shape[1], -1 if dead is None else dead, _ptr(y))
     _count("edge_or")
     return None
 
@@ -541,14 +557,17 @@ def edge_or(y: torch.Tensor, x: torch.Tensor, src: torch.Tensor,
 def word_cols_T(plane: torch.Tensor, rows: int,
                 words: torch.Tensor) -> torch.Tensor:
     """int32 [K, rows]: out[k, r] = plane[r, words[k]] — word columns of
-    a closure plane (int32 [R, Wc]) made contiguous, in a new tensor."""
+    a closure plane (int32 [R, Wc]) made contiguous, in a new tensor.
+    Words may repeat; each must lie in [0, Wc)."""
+    if plane.dim() != 2 or words.dim() != 1:
+        raise KernelError("word_cols_T: plane not [R, Wc] or words not [K]")
+    if not 0 <= rows <= plane.shape[0]:
+        raise KernelError(f"word_cols_T: {rows} rows of a "
+                          f"{plane.shape[0]}-row plane")
     if not _on_cuda(plane, words):
         return reference.word_cols_T(plane, rows, words)
     _check(plane, "plane", 2)
     _check(words, "words", 1)
-    if not 0 <= rows <= plane.shape[0]:
-        raise KernelError(f"word_cols_T: {rows} rows of a "
-                          f"{plane.shape[0]}-row plane")
     k = words.shape[0]
     out = torch.empty((k, rows), dtype=torch.int32, device=plane.device)
     _run("ell_word_cols_T", plane.device, _ptr(plane), plane.shape[1], _ptr(words), k,

@@ -35,8 +35,8 @@
 // ~300 op/byte balance point of an H100).  The gathers read rows at data-
 // dependent addresses; their first design was one thread per (row, word)
 // — neighbouring threads on neighbouring words of a row, then of the next
-// row — with no shared memory and no tensor cores, which edge_or and the
-// rest keep.  Six kernels are redesigned for the card: lookup_T, whose
+// row — with no shared memory and no tensor cores, which the check and
+// seed kernels keep.  Eight kernels are redesigned for the card: lookup_T, whose
 // one-thread-per-output-word loads were strided (each 4-byte load cost a
 // 32-byte sector, fetched again by every other word pass), is a tiled
 // transpose through shared memory with 16-byte loads and stores;
@@ -49,7 +49,10 @@
 // thread a table row that skips the dead row's gathers, so it streams the
 // table and gathers only where a caveat edge is; or_combine ORs all of a
 // data shard's replicas in one pass and writes the result into each, in
-// place of a launch and a copy per peer.  At the main path's sizes each
+// place of a launch and a copy per peer; edge_or takes four edges a
+// thread, skips the dead row's edges and makes one atomic a destination
+// run; word_cols_T stages whole plane rows in shared memory and writes
+// each requested column as a coalesced segment.  At the main path's sizes each
 // launch runs for microseconds, close to the cost of a launch, and the
 // wrapper's host path per call is longer than most; the single-device
 // sweep therefore replays its launches from a CUDA graph (ops/ell.py).
@@ -106,6 +109,9 @@ template <> struct Chunk<uint32_t> {
     static __device__ __forceinline__ uint32_t shfl_xor(uint32_t v, int m) {
         return __shfl_xor_sync(0xffffffffu, v, m);
     }
+    static __device__ __forceinline__ uint32_t shfl_down(uint32_t v, int d) {
+        return __shfl_down_sync(0xffffffffu, v, d);
+    }
     static __device__ __forceinline__ bool any(uint32_t v) { return v != 0u; }
 };
 
@@ -137,6 +143,12 @@ template <> struct Chunk<uint4> {
                           __shfl_xor_sync(0xffffffffu, v.y, m),
                           __shfl_xor_sync(0xffffffffu, v.z, m),
                           __shfl_xor_sync(0xffffffffu, v.w, m));
+    }
+    static __device__ __forceinline__ uint4 shfl_down(uint4 v, int d) {
+        return make_uint4(__shfl_down_sync(0xffffffffu, v.x, d),
+                          __shfl_down_sync(0xffffffffu, v.y, d),
+                          __shfl_down_sync(0xffffffffu, v.z, d),
+                          __shfl_down_sync(0xffffffffu, v.w, d));
     }
     static __device__ __forceinline__ bool any(uint4 v) {
         return (v.x | v.y | v.z | v.w) != 0u;
@@ -719,41 +731,302 @@ scatter_rows_kernel(const int32_t* __restrict__ src, long long R, int K,
     }
 }
 
-// Segment sweep, one thread per (edge, word): y[dst[e], w] |= x[src[e], w].
-// `x` is the sweep's input and `y` another buffer (Jacobi).  The OR of the
-// 0/1 values of a column equals the reference's `segment_sum(...) > 0`.
-// A zero source word makes no atomic, so the padding edges (dead -> dead,
-// the dead row is all zero) and freed positions cost one load each and
-// never serialize on the dead row.  Words go through uint32_t so bit 31
-// is an ordinary bit.
-__global__ void edge_or_kernel(const uint32_t* __restrict__ x,
-                               const int32_t* __restrict__ src,
-                               const int32_t* __restrict__ dst,
-                               long long E, int W,
-                               uint32_t* __restrict__ y) {
-    const long long total = E * W;
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         t < total; t += stride) {
-        const long long e = t / W;
-        const int w = (int)(t - e * W);
-        const uint32_t v = __ldg(x + (long long)__ldg(src + e) * W + w);
-        if (v) atomicOr(y + (long long)__ldg(dst + e) * W + w, v);
+// edge_or: y[dst[e], :] |= x[src[e], :] for every edge e, `x` the
+// sweep's input and `y` another buffer (Jacobi).  The OR of a column's 0/1
+// values equals the reference's `segment_sum(x[src], dst) > 0`.
+//
+// Design.  A thread takes kEdgesPer = 4 consecutive edges: their `src` and
+// `dst` in one 16-byte load each (4-byte loads when an array is not
+// 16-byte aligned or at the ragged end), then the source rows of a slice
+// of the row's words: NC chunks (Chunk<V>: 16 bytes when W % 4 == 0 and
+// `x` is 16-byte aligned, else 4), all of them issued before any is used.
+// A block covers one slice (blockIdx.y), so any W works with NC chunks
+// in registers.  An edge whose source is `dead` loads nothing: padding
+// and freed positions are (dead, dead), half the capacity, and the dead
+// row of `x` is zero (sweep_delta and the seed zero it).
+//
+// One atomic a destination run.  The build sorts edges by destination
+// (ops/graph_compile.py), so neighbouring edges mostly share one.  A
+// thread ORs its consecutive same-destination edges in registers.  A run
+// that ends inside the thread and did not start in it (a middle run) is
+// ORed into `y` at once.  Its first run (head) and last run (tail) may
+// cross into the neighbouring lanes: a segmented suffix OR over the warp
+// (shuffles keyed on the lanes' first and last destinations, log steps
+// while some lane's run goes on) gives each lane S = its head run ORed
+// with every following lane's head run while the destination carries on
+// through lanes that hold one run only.  A run's owner, the lane where it
+// starts, then makes its one read-modify-write: S for a one-run lane, its
+// tail ORed with the next lane's S otherwise.  A continued head adds
+// nothing on its own.  The writes stay atomic (`atomicOr`, 64-bit where
+// `y` is 8-byte aligned and W even, 32-bit otherwise, a zero word never):
+// `y` already holds the init step's x0 | wildcard terms, a run may go on
+// in the next warp or block, and inserted edges sit in free positions out
+// of destination order (deltas) — each of those is a run of its own, so
+// the result is exact for any order, duplicate edges included.
+//
+// All index arithmetic is 32-bit (E < 2^31; a row address is one widening
+// multiply), with no division.  The first design ran one thread per
+// (edge, word): a 64-bit division each, W reads of src[e] an edge, 4-byte
+// loads, and an atomic per nonzero word, which serialised in L2 on the
+// run's one address.  Bound by bytes: the two edge arrays, each distinct
+// live source row's words read once and each distinct destination row's
+// words read and written once.
+constexpr int kEdgeThreads = 256;
+constexpr int kEdgesPer = 4;
+
+__device__ __forceinline__ void or_words(int32_t* p, uint32_t v, int) {
+    if (v) atomicOr(reinterpret_cast<unsigned int*>(p), v);
+}
+
+__device__ __forceinline__ void or_words(int32_t* p, uint4 v, int a64) {
+    if (a64) {
+        const unsigned long long lo = (unsigned long long)v.y << 32 | v.x;
+        const unsigned long long hi = (unsigned long long)v.w << 32 | v.z;
+        if (lo) atomicOr(reinterpret_cast<unsigned long long*>(p), lo);
+        if (hi) atomicOr(reinterpret_cast<unsigned long long*>(p + 2), hi);
+    } else {
+        or_words(p, v.x, 0);
+        or_words(p + 1, v.y, 0);
+        or_words(p + 2, v.z, 0);
+        or_words(p + 3, v.w, 0);
     }
 }
 
-// out[k, r] = plane[r, words[k]] for r < R: the batch's distinct closure
-// word columns, each made contiguous (one launch, one readback).
-__global__ void word_cols_T_kernel(const int32_t* __restrict__ plane, int Wc,
-                                   const int32_t* __restrict__ words, int K,
-                                   long long R, int32_t* __restrict__ out) {
-    const long long total = (long long)K * R;
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         t < total; t += stride) {
-        const long long k = t / R;
-        const long long r = t - k * R;
-        out[t] = __ldg(plane + r * Wc + __ldg(words + k));
+template <typename V, int NC>
+__global__ void __launch_bounds__(kEdgeThreads)
+edge_or_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ src,
+               const int32_t* __restrict__ dst, unsigned int E, int W,
+               int dead, int vec_idx, int a64, int32_t* __restrict__ y) {
+    using C = Chunk<V>;
+    constexpr int U = kEdgesPer;
+    constexpr unsigned int kFull = 0xffffffffu;
+    const int w0 = (int)blockIdx.y * NC * C::N;  // this slice's first word
+    const int lane = (int)(threadIdx.x & 31u);
+    const unsigned int groups = (E + U - 1) / U;
+    const unsigned int stride = gridDim.x * blockDim.x;
+    auto flush = [&](int d, const V* v) {
+        int32_t* row = y + (long long)d * W + w0;
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+            if (w0 + c * C::N < W) or_words(row + c * C::N, v[c], a64);
+    };
+    // the trip count is the same in every lane of a block (its bound moves
+    // with the block's base), so the shuffles see whole warps
+    for (unsigned int base = blockIdx.x * blockDim.x; base < groups;
+         base += stride) {
+        const unsigned int g = base + threadIdx.x;
+        const unsigned int e0 = g * U;
+        const int n = g < groups ? (int)min((unsigned int)U, E - e0) : 0;
+        int s[U], d[U];
+        if (n == U && vec_idx) {
+            const int4 a = __ldg(reinterpret_cast<const int4*>(src + e0));
+            const int4 b = __ldg(reinterpret_cast<const int4*>(dst + e0));
+            s[0] = a.x; s[1] = a.y; s[2] = a.z; s[3] = a.w;
+            d[0] = b.x; d[1] = b.y; d[2] = b.z; d[3] = b.w;
+        } else {
+#pragma unroll
+            for (int i = 0; i < U; ++i) {
+                s[i] = i < n ? __ldg(src + e0 + i) : dead;
+                d[i] = i < n ? __ldg(dst + e0 + i) : -1;
+            }
+        }
+        V v[U][NC];
+#pragma unroll
+        for (int i = 0; i < U; ++i) {
+            const bool live = i < n && s[i] != dead;
+            const int32_t* row = x + (long long)s[i] * W + w0;
+#pragma unroll
+            for (int c = 0; c < NC; ++c)
+                v[i][c] = live && w0 + c * C::N < W ? C::ld(row + c * C::N)
+                                                    : C::zero();
+        }
+        // the lane's runs: head (first), middle ones flushed here, tail
+        V h[NC], t[NC];
+        const int fd = n ? d[0] : -1;
+        int td = fd;
+        bool single = true;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) t[c] = v[0][c];
+#pragma unroll
+        for (int i = 1; i < U; ++i) {
+            if (i >= n) break;
+            if (d[i] == td) {
+#pragma unroll
+                for (int c = 0; c < NC; ++c) t[c] = C::or_(t[c], v[i][c]);
+                continue;
+            }
+            if (single) {
+#pragma unroll
+                for (int c = 0; c < NC; ++c) h[c] = t[c];
+                single = false;
+            } else {
+                flush(td, t);
+            }
+            td = d[i];
+#pragma unroll
+            for (int c = 0; c < NC; ++c) t[c] = v[i][c];
+        }
+        if (single) {
+#pragma unroll
+            for (int c = 0; c < NC; ++c) h[c] = t[c];
+        }
+        // across the warp: does my tail go on into the next lane, and did
+        // my head come from the previous one?  (inactive lanes hold -1,
+        // which no edge's destination equals)
+        const int next_fd = __shfl_down_sync(kFull, fd, 1);
+        const int prev_td = __shfl_up_sync(kFull, td, 1);
+        const bool conn = lane < 31 && n > 0 && next_fd == td;
+        const bool cont = lane > 0 && n > 0 && prev_td == fd;
+        // S: my head run ORed with the following lanes' heads along one
+        // destination; `link`: the run goes on past the lanes S covers
+        V S[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) S[c] = h[c];
+        bool link = single && conn;
+        for (int o = 1; o < 32 && __any_sync(kFull, link); o <<= 1) {
+            const int up_link = __shfl_down_sync(kFull, (int)link, o);
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+                const V up = C::shfl_down(S[c], o);
+                if (link) S[c] = C::or_(S[c], up);
+            }
+            if (link) link = up_link != 0;
+        }
+        const bool carry = !single && conn;
+        if (__any_sync(kFull, carry)) {
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+                const V up = C::shfl_down(S[c], 1);
+                if (carry) t[c] = C::or_(t[c], up);
+            }
+        }
+        if (n == 0) continue;
+        if (single) {
+            if (!cont) flush(fd, S);
+        } else {
+            if (!cont) flush(fd, h);
+            flush(td, t);
+        }
+    }
+}
+
+// word_cols_T: out[k, r] = plane[r, words[k]] for r < R, the batch's
+// distinct closure word columns each made contiguous (one launch, one
+// readback).
+//
+// Design.  Where the requested words touch most of a row's 32-byte
+// sectors (K * 8 >= Wc), a block stages a tile of T = 16 plane rows in
+// shared memory: the tile is one contiguous span of T * Wc words, read
+// with 16-byte loads from its first 16-byte boundary (4-byte loads for
+// the head before it and the tail after the last whole chunk), so each
+// sector of the plane is fetched once.  It lands in rows of pitch P = Wc
+// rounded up to odd, so that the column reads after the barrier — lane j
+// reads row j of the tile — hit 32 distinct banks.  Then for each
+// requested word k the block writes out[k, r0 : r0 + T], neighbouring
+// threads on neighbouring rows: one coalesced segment a word.  Repeated
+// words are read again from shared memory, not from the plane.  Where
+// few words are asked for (K * 8 < Wc), whole rows would move more than
+// the columns' sectors, and a block reads one column (blockIdx.y) down
+// the rows, one 4-byte load a row.  The launcher chooses from K and Wc.
+// The K words are staged in shared memory beside the tile, and each
+// thread keeps four loads and four stores in flight.  On an H100 at
+// phase 12's [5,079, 65] plane and 63 words, tiles of 8 to 64 rows at
+// 128 or 256 threads read 0.0026-0.0039 ms; 16 rows at 256 threads was
+// the fastest in every run (scripts/torch_kernel_ab.py, PERF.md row 9).
+// Index arithmetic is 32-bit with one division a 16-byte chunk; the first
+// design ran one thread per output word with a 64-bit division each, and
+// its neighbouring threads read rows Wc * 4 bytes apart, a sector a load
+// (phase 12's batch asks for ~63 of 65 words: ~8x the plane in sectors).
+// Bound by bytes: the columns read (K * R words) and written once.
+constexpr int kColsThreads = 256;
+constexpr int kColsTileRows = 16;      // T, a power of two
+constexpr int kColsTileWords = 12288;  // T * P + K at most: 48 KB of shared memory
+constexpr int kColsUnroll = 4;         // 16-byte loads in flight a thread
+
+__global__ void __launch_bounds__(kColsThreads)
+word_cols_tile_kernel(const int32_t* __restrict__ plane, int Wc, int P,
+                      int T, const int32_t* __restrict__ words, int K, int R,
+                      int32_t* __restrict__ out) {
+    extern __shared__ int32_t cols_tile[];  // [T][P], then the K words
+    int32_t* wsh = cols_tile + T * P;
+    const int r0 = (int)blockIdx.x * T;
+    const int tl = min(T, R - r0);
+    const int n = tl * Wc;                  // words of the tile's span
+    const int32_t* base = plane + (long long)r0 * Wc;
+    const int tid = (int)threadIdx.x;
+    const int nt = (int)blockDim.x;
+    const int head = min(n, (int)((16u - ((unsigned int)(uintptr_t)base
+                                          & 15u)) & 15u) >> 2);
+    const int quads = (n - head) >> 2;
+    const int4* b4 = reinterpret_cast<const int4*>(base + head);
+    for (int k = tid; k < K; k += nt) wsh[k] = __ldg(words + k);
+    for (int q0 = tid; q0 < quads; q0 += nt * kColsUnroll) {
+        int4 v[kColsUnroll];
+#pragma unroll
+        for (int i = 0; i < kColsUnroll; ++i) {
+            const int q = q0 + i * nt;
+            if (q < quads) v[i] = __ldg(b4 + q);
+        }
+#pragma unroll
+        for (int i = 0; i < kColsUnroll; ++i) {
+            const int q = q0 + i * nt;
+            if (q >= quads) continue;
+            const int o = head + 4 * q;
+            int r = o / Wc;
+            int c = o - r * Wc;
+            const int32_t vals[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                cols_tile[r * P + c] = vals[j];
+                if (++c == Wc) {
+                    c = 0;
+                    ++r;
+                }
+            }
+        }
+    }
+    // the < 4 words before the first chunk and the < 4 after the last
+    if (tid < 8) {
+        const int o = tid < 4 ? tid : head + 4 * quads + tid - 4;
+        if (tid < 4 ? o < head : o < n) {
+            const int r = o / Wc;
+            cols_tile[r * P + (o - r * Wc)] = __ldg(base + o);
+        }
+    }
+    __syncthreads();
+    // output e = k * T + j, neighbouring threads on neighbouring rows;
+    // kColsUnroll of them in flight a thread
+    const int shift = __ffs(T) - 1;
+    const int total = K * T;
+    for (int e0 = tid; e0 < total; e0 += nt * kColsUnroll) {
+        int32_t v[kColsUnroll];
+#pragma unroll
+        for (int i = 0; i < kColsUnroll; ++i) {
+            const int e = e0 + i * nt;
+            const int j = e & (T - 1);
+            v[i] = e < total && j < tl ? cols_tile[j * P + wsh[e >> shift]]
+                                       : 0;
+        }
+#pragma unroll
+        for (int i = 0; i < kColsUnroll; ++i) {
+            const int e = e0 + i * nt;
+            const int j = e & (T - 1);
+            if (e < total && j < tl)
+                out[(long long)(e >> shift) * R + r0 + j] = v[i];
+        }
+    }
+}
+
+__global__ void __launch_bounds__(kColsThreads)
+word_cols_kernel(const int32_t* __restrict__ plane, int Wc,
+                 const int32_t* __restrict__ words, int K, int R,
+                 int32_t* __restrict__ out) {
+    for (int k = (int)blockIdx.y; k < K; k += (int)gridDim.y) {
+        const int32_t* col = plane + __ldg(words + k);
+        int32_t* o = out + (long long)k * R;
+        for (int r = (int)(blockIdx.x * blockDim.x + threadIdx.x); r < R;
+             r += (int)(gridDim.x * blockDim.x))
+            o[r] = __ldg(col + (long long)r * Wc);
     }
 }
 
@@ -1057,24 +1330,72 @@ EXPORT int ell_scatter_rows(const void* src, long long R, int K,
     return last_error();
 }
 
-EXPORT int ell_edge_or(const void* x, const void* src, const void* dst,
-                       long long E, int W, void* y, void* stream) {
-    if (E <= 0 || W <= 0) return 0;
-    cudaStream_t s = (cudaStream_t)stream;
-    edge_or_kernel<<<grid_for(E * W, kBlock, 1LL << 30), kBlock, 0, s>>>(
-        (const uint32_t*)x, (const int32_t*)src, (const int32_t*)dst, E, W,
-        (uint32_t*)y);
+template <typename V, int NC>
+int launch_edge_or(const void* x, const void* src, const void* dst,
+                   long long E, int W, int dead, int vec_idx, int a64,
+                   void* y, cudaStream_t s) {
+    const int slice = NC * Chunk<V>::N;                  // words a block
+    const long long slices = (W + slice - 1) / slice;
+    if (slices > 65535) return (int)cudaErrorInvalidValue;
+    const dim3 grid(grid_for((E + kEdgesPer - 1) / kEdgesPer, kEdgeThreads,
+                             1LL << 30),
+                    (unsigned int)slices);
+    edge_or_kernel<V, NC><<<grid, kEdgeThreads, 0, s>>>(
+        (const int32_t*)x, (const int32_t*)src, (const int32_t*)dst,
+        (unsigned int)E, W, dead, vec_idx, a64, (int32_t*)y);
     return last_error();
 }
 
+// `dead`: the state's dead row, whose edges load nothing (-1: none).  The
+// launcher picks the chunk width and the index loads from W and the
+// pointers' alignment.
+EXPORT int ell_edge_or(const void* x, const void* src, const void* dst,
+                       long long E, int W, int dead, void* y, void* stream) {
+    if (E <= 0 || W <= 0) return 0;
+    if (E > 0x7fffffffLL - (long long)kEdgeThreads * kEdgesPer)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    const int vec_idx =
+        ((uintptr_t)src | (uintptr_t)dst) % 16 == 0 ? 1 : 0;
+    const int a64 = W % 2 == 0 && (uintptr_t)y % 8 == 0 ? 1 : 0;
+    if (W % 4 == 0 && (uintptr_t)x % 16 == 0) {
+        return W >= 8 ? launch_edge_or<uint4, 2>(x, src, dst, E, W, dead,
+                                                 vec_idx, a64, y, s)
+                      : launch_edge_or<uint4, 1>(x, src, dst, E, W, dead,
+                                                 vec_idx, a64, y, s);
+    }
+    if (W >= 4)
+        return launch_edge_or<uint32_t, 4>(x, src, dst, E, W, dead, vec_idx,
+                                           0, y, s);
+    if (W >= 2)
+        return launch_edge_or<uint32_t, 2>(x, src, dst, E, W, dead, vec_idx,
+                                           0, y, s);
+    return launch_edge_or<uint32_t, 1>(x, src, dst, E, W, dead, vec_idx, 0,
+                                       y, s);
+}
+
+// out [K, R] (16-byte alignment not needed); the tiled read where the
+// words cover most of a row's sectors, the column read otherwise.
 EXPORT int ell_word_cols_T(const void* plane, int Wc, const void* words,
                            int K, long long R, void* out, void* stream) {
     if (K <= 0 || R <= 0) return 0;
+    if (R > 0x7fffffffLL || Wc <= 0) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    word_cols_T_kernel<<<grid_for((long long)K * R, kBlock, 1LL << 30),
-                         kBlock, 0, s>>>(
-        (const int32_t*)plane, Wc, (const int32_t*)words, K, R,
-        (int32_t*)out);
+    const int P = Wc | 1;
+    const int T = kColsTileRows;
+    const int32_t *p_ = (const int32_t*)plane, *w_ = (const int32_t*)words;
+    int32_t* o_ = (int32_t*)out;
+    if ((long long)K * 8 >= Wc && (long long)T * P + K <= kColsTileWords &&
+        (long long)K * T <= 0x7fffffffLL - kColsThreads * kColsUnroll) {
+        word_cols_tile_kernel<<<(unsigned int)((R + T - 1) / T),
+                                kColsThreads, (size_t)(T * P + K) * 4, s>>>(
+            p_, Wc, P, T, w_, K, (int)R, o_);
+    } else {
+        const dim3 grid(grid_for(R, kColsThreads, 1LL << 30),
+                        (unsigned int)(K < 65535 ? K : 65535));
+        word_cols_kernel<<<grid, kColsThreads, 0, s>>>(p_, Wc, w_, K, (int)R,
+                                                       o_);
+    }
     return last_error();
 }
 

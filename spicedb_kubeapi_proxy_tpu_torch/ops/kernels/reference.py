@@ -230,10 +230,12 @@ def scatter_rows(src: torch.Tensor, rows: torch.Tensor,
 
 
 def edge_or(y: torch.Tensor, x: torch.Tensor, src: torch.Tensor,
-            dst: torch.Tensor) -> None:
+            dst: torch.Tensor, dead: Optional[int] = None) -> None:
     """y[dst[e]] |= x[src[e]] for every edge, as the reference computes
     it: per bit, the 0/1 values of the edges' sources are summed per
-    destination (`index_add_`) and a positive sum sets the bit."""
+    destination (`index_add_`) and a positive sum sets the bit.  Every
+    edge is gathered, `dead`'s too (the kernel skips them because that
+    row is zero; gathering them here checks it)."""
     if not src.numel():
         return
     vals = x[src.long()]                       # [E, W]

@@ -15,7 +15,8 @@ ops/ell.py does, and runs every part of that sweep as a hand-written
 CUDA kernel (ops/kernels): the seed and the wildcard liveness
 (`seed_bitplanes`), `x0 | wildcard terms` (`ell_gather_or` over no
 gathers; a plain copy of the seed when the program has no wildcard
-term), the edge pass `y[dst] |= x[src]` (`edge_or`), the permission ops
+term), the edge pass `y[dst] |= x[src]` (`edge_or`, which skips the
+dead row's edges), the permission ops
 (`perm_program`) and the trace and convergence test (`sweep_delta`).
 A sum of 0/1 values is positive exactly when one of them is 1, so the
 packed OR is the reference's function; the popcount of `x1 ^ x` equals
@@ -164,11 +165,12 @@ class KernelCache:
 
     def sweep_steps(self, edge_src: torch.Tensor, edge_dst: torch.Tensor):
         """The kernel calls of one sweep, in order: ("init", wc_bits) —
-        y = x0 | wildcard terms on every row; ("edge_or", src, dst);
-        then ("perm_program", code, offset, length, in_place, depth) per
-        op."""
+        y = x0 | wildcard terms on every row; ("edge_or", src, dst,
+        dead), `dead` the dead row whose edges (padding, freed positions)
+        the kernel skips; then ("perm_program", code, offset, length,
+        in_place, depth) per op."""
         yield ("init", self._wc_bits)
-        yield ("edge_or", edge_src, edge_dst)
+        yield ("edge_or", edge_src, edge_dst, self.prog.dead_index)
         for op in self._ops:
             yield ("perm_program", *op)
 
@@ -185,7 +187,8 @@ class KernelCache:
                 impl.ell_gather_or(y, self._no_gathers, 0, x0=x0, wc_bits=wc,
                                    wc_live=live)
         elif kind == "edge_or":
-            impl.edge_or(y, x, step[1], step[2])
+            _, src, dst, dead = step
+            impl.edge_or(y, x, src, dst, dead=dead)
         else:
             _, code, off, length, in_place, depth = step
             impl.perm_program(y, x0, code, off, length, in_place=in_place,

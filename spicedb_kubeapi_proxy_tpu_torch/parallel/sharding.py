@@ -737,8 +737,8 @@ class ShardedKernel:
                 kc = self._caches[dev]
                 args = (y[d][g], x[d][g], x0[d][g], live[d][g], impl)
                 kc.run_step(("init", kc._wc_bits), *args)
-                kc.run_step(("edge_or", edge_src[d][g], edge_dst[d][g]),
-                            *args)
+                kc.run_step(("edge_or", edge_src[d][g], edge_dst[d][g],
+                             self.prog.dead_index), *args)
 
     def finish_step(self, y: list, x: list, x0: list, live: list,
                     impl=kernels) -> None:

@@ -311,51 +311,135 @@ def test_every_plane_sweep_step_matches_its_twin(lanes):
     assert torch.equal(words.cpu(), words_c) and np.array_equal(tel, tel_c)
 
 
+def _edge_arrays(case: str, rng, n: int, dead: int) -> tuple:
+    """int32 (src, dst) numpy edge arrays of one `test_edge_or_matches_its_
+    twin` case; padding edges are (dead, dead) as the build lays them."""
+    if case == "random":            # heavy duplicate destinations, any order
+        src = rng.integers(0, dead, 150_000).astype(np.int32)
+        dst = rng.integers(0, 500, 150_000).astype(np.int32)
+        src[-50_000:] = dst[-50_000:] = dead
+        return src, dst
+    if case in ("runs", "offset_view"):
+        # sorted destinations in runs that end inside a lane, a warp and a
+        # block, and cross all of them (4 edges a thread, 256 threads)
+        lengths = [1, 31, 33, 4_097, 100_000, 1, 2, 3, 5, 129, 1_025]
+        dst = np.concatenate([np.full(k, i * 7 % dead, np.int32)
+                              for i, k in enumerate(lengths)])
+        dst = np.sort(dst)
+        src = rng.integers(0, dead, dst.size).astype(np.int32)
+        src[::5] = dead             # dead sources inside live runs
+        pad = np.full(3_001, dead, np.int32)
+        return np.concatenate([src, pad]), np.concatenate([dst, pad])
+    if case == "unsorted_tail":     # as after churn: inserts in free slots
+        e = 120_000
+        dst = np.sort(rng.integers(0, dead, e)).astype(np.int32)
+        src = rng.integers(0, dead, e).astype(np.int32)
+        src[60_000:110_000] = dst[60_000:110_000] = dead
+        tail = slice(e - 10_000, e)
+        src[tail] = rng.integers(0, dead, 10_000)
+        dst[tail] = rng.integers(0, dead, 10_000)
+        return src, dst
+    if case == "all_padding":
+        return np.full(40_003, dead, np.int32), np.full(40_003, dead, np.int32)
+    if case == "duplicates":        # every edge 9 times over, runs of 9+
+        src = np.repeat(rng.integers(0, dead, 4_000), 9).astype(np.int32)
+        dst = np.repeat(np.sort(rng.integers(0, 700, 4_000)), 9) \
+            .astype(np.int32)
+        return src, dst
+    assert case == "nonzero_dead"
+    dst = np.sort(rng.integers(0, dead, 50_000)).astype(np.int32)
+    src = rng.integers(0, dead, 50_000).astype(np.int32)
+    src[::3] = dead
+    return src, dst
+
+
+def _off16(t: torch.Tensor, k: int) -> torch.Tensor:
+    """A copy of `t` whose data starts `k` words past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    b = (-(flat.data_ptr() // 4)) % 4
+    v = flat[b + k: b + k + t.numel()].view(t.shape)
+    v.copy_(t)
+    return v
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("w", [1, 2, 8])
-def test_edge_or_matches_its_twin(w):
-    """The segment sweep's edge pass on random states: heavy duplicate
-    destinations, dead padding edges on the all-zero dead row, bit 31 live,
-    W = 1, 2 and 8 words."""
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("case", ["random", "runs", "unsorted_tail",
+                                  "all_padding", "duplicates",
+                                  "offset_view", "nonzero_dead"])
+def test_edge_or_matches_its_twin(case, w):
+    """The segment sweep's edge pass against its twin on random states
+    (bit 31 live): destination runs that cross lanes, warps and blocks, a
+    sorted array with an unsorted tail, all padding, duplicate edges,
+    state and edge views one word off 16 bytes, W = 1 to 16.  The kernel
+    skips the dead row's edges; with a non-zero dead row it equals the
+    twin on that row zeroed (the skip is exact only under the callers'
+    invariant that the row is zero), and with `dead=None` the twin as
+    it is."""
     _needs_card()
-    rng = np.random.default_rng(w)
-    n, e = 20_000, 150_000
+    rng = np.random.default_rng(w * 10 + len(case))
+    n = 20_000
     dead = n - 1
     x = _rand(rng, (n, w))
-    x[dead] = 0
+    if case != "nonzero_dead":
+        x[dead] = 0
     y = _rand(rng, (n, w))
     y[dead] = 0
-    src = rng.integers(0, dead, e).astype(np.int32)
-    dst = rng.integers(0, 500, e).astype(np.int32)
-    src[-50_000:] = dst[-50_000:] = dead
+    src, dst = _edge_arrays(case, rng, n, dead)
     src_t, dst_t = torch.from_numpy(src).cuda(), torch.from_numpy(dst).cuda()
+    if case == "offset_view":
+        x, y = _off16(x, 1), _off16(y, 3)
+        src_t, dst_t = _off16(src_t, 2), _off16(dst_t, 1)
     kernels.reset_launches()
-    a, b = y.clone(), y.clone()
-    kernels.edge_or(a, x, src_t, dst_t)
-    reference.edge_or(b, x, src_t, dst_t)
+    a, b = (_off16(y, 3) if case == "offset_view" else y.clone()), y.clone()
+    kernels.edge_or(a, x, src_t, dst_t, dead=dead)
+    x_twin = x.clone()
+    x_twin[dead] = 0
+    reference.edge_or(b, x_twin, src_t, dst_t)
     torch.cuda.synchronize()
-    assert torch.equal(a, b) and not torch.equal(a, y)
-    assert bool((a < 0).any()) and not bool(a[dead].any())
+    assert torch.equal(a, b)
     assert kernels.LAUNCHES["edge_or"] == 1
-    with pytest.raises(kernels.KernelError):
-        kernels.edge_or(x, x, src_t, dst_t)
+    if case == "all_padding":
+        assert torch.equal(a, y)
+    else:
+        assert not torch.equal(a, y) and bool((a < 0).any())
+    if case == "nonzero_dead":
+        a, b = y.clone(), y.clone()
+        kernels.edge_or(a, x, src_t, dst_t)
+        reference.edge_or(b, x, src_t, dst_t)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+    if case == "random":
+        assert not bool(a[dead].any())
+        with pytest.raises(kernels.KernelError):
+            kernels.edge_or(x, x, src_t, dst_t)
+        with pytest.raises(kernels.KernelError):
+            kernels.edge_or(a, x, src_t, dst_t, dead=n)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("wc", [63, 64, 65])
 @pytest.mark.parametrize("rows", [1, 1_000, 5_013])
-def test_word_cols_T_matches_its_twin(rows):
-    """Closure-plane word columns: repeated words, a row count that is no
-    multiple of the block, a plane taller than the rows read."""
+def test_word_cols_T_matches_its_twin(rows, wc):
+    """Closure-plane word columns against the twin: 1 and 7 words (the
+    column read), all words and repeated words (the tiled read), odd and
+    even widths (the tile's pitch is padded for an even one), row counts
+    that are no multiple of the 16-row tile, a plane taller than the rows
+    read, and a plane view one word off 16 bytes."""
     _needs_card()
-    rng = np.random.default_rng(rows)
-    plane = _rand(rng, (rows + 7, 63))
+    rng = np.random.default_rng(rows + wc)
+    plane = _rand(rng, (rows + 7, wc))
+    sets = ([0, wc - 1, 5, 5, 31], list(range(wc)), [7],
+            list(range(wc - 7, wc)), list(range(wc))[::-1] * 2,
+            [int(v) for v in rng.integers(0, wc, 40)])
     kernels.reset_launches()
-    for words in ([0, 62, 5, 5, 31], list(range(63)), [7]):
-        wt = torch.tensor(words, dtype=torch.int32, device="cuda")
-        got = kernels.word_cols_T(plane, rows, wt)
-        assert got.shape == (len(words), rows) and got.is_contiguous()
-        assert torch.equal(got, reference.word_cols_T(plane, rows, wt))
-    assert kernels.LAUNCHES["word_cols_T"] == 3
+    for p in (plane, _off16(plane, 1)):
+        for words in sets:
+            wt = torch.tensor(words, dtype=torch.int32, device="cuda")
+            got = kernels.word_cols_T(p, rows, wt)
+            assert got.shape == (len(words), rows) and got.is_contiguous()
+            assert torch.equal(got, reference.word_cols_T(p, rows, wt))
+    assert kernels.LAUNCHES["word_cols_T"] == 2 * len(sets)
 
 
 @pytest.mark.cuda
