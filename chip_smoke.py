@@ -194,6 +194,12 @@ REPLACES = {
     "edge_or": "spicedb_kubeapi_proxy_tpu/ops/spmv.py:130",
     "word_cols_T": "spicedb_kubeapi_proxy_tpu/ops/jax_endpoint.py:2970",
     "or_combine": "spicedb_kubeapi_proxy_tpu/parallel/sharding.py:69",
+    "mesh_gather_or": "spicedb_kubeapi_proxy_tpu/parallel/sharding.py:482",
+    "mesh_cav_gather_or": "spicedb_kubeapi_proxy_tpu/parallel/"
+                          "sharding.py:503",
+    "mesh_perm_program": "spicedb_kubeapi_proxy_tpu/parallel/"
+                         "sharding.py:522",
+    "mesh_sweep_delta": "spicedb_kubeapi_proxy_tpu/parallel/sharding.py:529",
 }
 # further TPU kernels a ported kernel also stands for (PERF.md rows 9-11)
 REPLACES_ALSO = {
@@ -205,11 +211,14 @@ REPLACES_ALSO = {
                     "(_SegmentGraph.flush), spicedb_kubeapi_proxy_tpu/"
                     "parallel/sharding.py:396 (_scatter_rows, per table "
                     "block)",
-    "ell_gather_or": "spicedb_kubeapi_proxy_tpu/parallel/sharding.py:437 "
-                     "(_evaluate_shard_fn, the aux and main gathers of "
-                     "each shard's block)",
-    "cav_gather_or": "spicedb_kubeapi_proxy_tpu/parallel/sharding.py:499 "
-                     "(the caveat block of each shard)",
+    "mesh_gather_or": "spicedb_kubeapi_proxy_tpu/parallel/sharding.py:491 "
+                      "(the main gather) and the tiled all_gathers after "
+                      "each pass (:488, :496), between replicas on one "
+                      "device",
+    "mesh_cav_gather_or": "spicedb_kubeapi_proxy_tpu/parallel/sharding.py:"
+                          "506 (the maybe words' all_gather)",
+    "mesh_sweep_delta": "spicedb_kubeapi_proxy_tpu/parallel/sharding.py:542 "
+                        "(changed, pmax) and :545 (delta, psum over data)",
 }
 REPLACES_ALSO["edge_or"] += (", spicedb_kubeapi_proxy_tpu/parallel/"
                              "sharding.py:63 (make_sharded_evaluate, each "
@@ -220,9 +229,15 @@ READ_KERNELS = ("ell_gather_or", "perm_program", "sweep_delta",
                 "seed_bitplanes", "check_gather", "lookup_T")
 CAVEAT_KERNELS = tuple(k for k in REPLACES
                        if k not in ("check_gather", "edge_or",
-                                    "word_cols_T", "or_combine"))
-# the per-shard kernels of the mesh read path (phase 13a)
-MESH_KERNELS = READ_KERNELS
+                                    "word_cols_T", "or_combine")
+                       and not k.startswith("mesh_"))
+# the kernels of the mesh read path (phase 13a; the sharded sweep's own
+# are MESH_SWEEP_KERNELS, plus mesh_cav_gather_or with planes)
+MESH_SWEEP_KERNELS = ("mesh_gather_or", "mesh_perm_program",
+                      "mesh_sweep_delta")
+MESH_KERNELS = MESH_SWEEP_KERNELS + ("seed_bitplanes", "check_gather",
+                                     "lookup_T")
+POISON = 0x5A5A5A5A     # what a sweep's output buffers hold before it
 # the segment path's kernels (phase 11; the init step is a plain copy of
 # the seed when the program has no wildcard term, as multitenant-1m's)
 SEGMENT_KERNELS = ("seed_bitplanes", "edge_or", "perm_program",
@@ -2497,131 +2512,289 @@ def _mesh_tables_match(graph) -> None:
                                      "differ from the host table")
 
 
-def _mesh_gathers(kern, cur, n_words: int) -> None:
-    """The all_gathers of one sharded sweep, alone (for their time)."""
-    from spicedb_kubeapi_proxy_tpu_torch.parallel.collectives import (
-        all_gather_rows)
-    half = n_words // kern.mesh.shape["data"]
-    for _ in range(kern.aux_passes):
-        for reps in cur:
-            all_gather_rows(reps, kern.n_pad, kern.rows)
-    for reps in cur:
-        all_gather_rows(reps, 0, kern.n_pad)
+def _flat(bufs) -> list:
+    return [t for row in bufs for t in row]
+
+
+def _uniq(t) -> int:
+    import torch
+    return int(torch.unique(t).numel())
+
+
+def mesh_kernel_bytes(kern, tables: tuple, n_words: int) -> dict:
+    """Bytes each mesh kernel must move in one sweep at these tables and
+    this bucket (each input read once, each output written once), summed
+    over its launches: a table block once a device, the distinct source
+    rows and seed rows once a data shard a device, every replica's output
+    rows once.  {kernel: bytes}."""
+    main, aux = tables[0], tables[1]
+    word = 4 * kern.width(n_words)
+    wl = n_words // kern.mesh.shape["data"]
+    out = {"mesh_gather_or": 0, "mesh_perm_program": 0,
+           "mesh_sweep_delta": 0}
     if kern.planes:
-        for reps in cur:
-            all_gather_rows(reps, 0, kern.rows, cols=(half, 2 * half))
+        out["mesh_cav_gather_or"] = 0
+    for dev, per_d in kern._placement.items():
+        seen: set = set()
+        for d, gs in per_d.items():
+            n_rep = len(gs)
+            for g in gs:
+                for blk, passes in ((aux[d][g], kern.aux_passes),
+                                    (main[d][g], 1)):
+                    if id(blk) not in seen:
+                        out["mesh_gather_or"] += passes * blk.numel() * 4
+                    out["mesh_gather_or"] += passes * (
+                        _uniq(blk) + blk.shape[0] * n_rep) * word
+                out["mesh_gather_or"] += main[d][g].shape[0] * word   # seed
+                seen.update((id(aux[d][g]), id(main[d][g])))
+                if kern.planes:
+                    c = tables[2][d][g]
+                    if id(c) not in seen:
+                        out["mesh_cav_gather_or"] += c.numel() * 4
+                        seen.add(id(c))
+                    reached = int((c != kern.prog.dead_index).any(
+                        dim=1).sum())
+                    out["mesh_cav_gather_or"] += (
+                        _uniq(c) + 2 * reached * n_rep) * 4 * wl
+            for code, _, length, _ in kern._plans[dev][2]:
+                n_read = int((code[0::2] == 0).sum())
+                out["mesh_perm_program"] += (code.numel() * 4 + length * word
+                                             * (n_read + 1 + n_rep))
+            out["mesh_sweep_delta"] += 2 * kern.rows * word + 8
+    return out
+
+
+def mesh_bound_bytes(kern, tables: tuple, n_words: int) -> dict:
+    """The least bytes of one sharded sweep: {"bytes": each distinct table
+    block read once a device, each data shard's input rows and seed rows
+    once a device, each replica's rows written once; "old_bytes": the
+    first design's count (every shard's kernels on its own replica, the
+    input copies and every block copy, read and written)}."""
+    main, aux = tables[0], tables[1]
+    word = 4 * kern.width(n_words)
+    wl = n_words // kern.mesh.shape["data"]
+    n_graph = kern.mesh.shape["graph"]
+    least = 0
+    for dev, per_d in kern._placement.items():
+        blocks = {id(t): t for d, gs in per_d.items() for g in gs
+                  for t in (main[d][g], aux[d][g])
+                  + ((tables[2][d][g],) if kern.planes else ())}
+        least += sum(t.numel() * 4 for t in blocks.values())
+        for d, gs in per_d.items():
+            least += (kern.rows + kern.n_pad + len(gs) * kern.rows) * word
+    old = 0
+    for dev, per_d in kern._placement.items():
+        for d, g in ((d, g) for d, gs in per_d.items() for g in gs):
+            blk = main[d][g]
+            n, k = blk.shape
+            old += n * k * 4 + _uniq(blk) * word + 2 * n * word
+            na, ka = aux[d][g].shape
+            old += kern.aux_passes * (na * ka * 4 + _uniq(aux[d][g]) * word
+                                      + na * word)
+            if kern.planes:
+                c = tables[2][d][g]
+                nc, kc_ = c.shape
+                old += nc * kc_ * 4 + _uniq(c) * 4 * wl + 2 * nc * 4 * wl
+            for code, _, length, _ in kern._plans[dev][2]:
+                n_read = int((code[0::2] == 0).sum())
+                old += code.numel() * 4 + length * word * (n_read + 2)
+            old += 2 * kern.rows * word
+    per_block = ((kern.aux_passes * kern.a_pad + kern.n_pad) * word
+                 + (kern.rows * 4 * wl if kern.planes else 0))
+    moved = len(main) * per_block * (n_graph - 1)
+    old += 2 * moved
+    return {"bytes": least, "old_bytes": old, "copy_bytes": moved}
+
+
+def _poisoned(kern, fn):
+    """`fn()` with every sweep's output buffers (`cur` and the aux
+    buffers) filled with POISON before the sweep writes them: no row may
+    rely on what they held."""
+    step = kern.step
+
+    def poisoned(cur, x, x0, live, aux, *args, **kw):
+        for t in _flat(cur) + _flat(aux):
+            t.fill_(POISON)
+        step(cur, x, x0, live, aux, *args, **kw)
+    kern.step = poisoned
+    try:
+        return fn()
+    finally:
+        del kern.step
 
 
 def mesh_sweep(kern, q_arr, n_words: int, tables: tuple, timer, peak,
                label: str) -> dict:
     """A sharded batch's kernels against their twins on the card: the
-    seed, two sweeps step by step (every shard compared after each), the
-    deltas; then the whole batch again with the twins on the same card
-    tensors (per-shard state, trace and words equal).  Then one sweep's
-    time, kernels and copies apart, and its bound.  Returns the sweep's
-    numbers."""
+    seed, two sweeps call by call (every mesh_* launch and collective of
+    `sweep_calls` on the kernels and on the twins from equal buffers,
+    every replica and aux buffer compared after each, the output buffers
+    poisoned first), the deltas; then the whole batch again on both, its
+    output buffers poisoned before every sweep (state of every replica,
+    trace and words equal).  Then one sweep's time, each kernel's share
+    apart, and its bounds.  Returns the sweep's numbers and the mesh
+    kernels' rows."""
     import numpy as np
     import torch
 
     from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
     from spicedb_kubeapi_proxy_tpu_torch.ops.kernels import reference
-    from spicedb_kubeapi_proxy_tpu_torch.parallel import collectives
+    from spicedb_kubeapi_proxy_tpu_torch.parallel.collectives import (
+        reduce_data_deltas)
 
     dead = kern.prog.dead_index
-    wl = n_words // kern.mesh.shape["data"]
-    width = kern.width(n_words)
-    word = 4 * width
+    n_data = kern.mesh.shape["data"]
+    dev0 = kern.mesh.devices[0][0]
     ar_k = kern._alloc_arenas(n_words)
     ar_t = kern._alloc_arenas(n_words)
     x0, live = kern.seed(q_arr, n_words, ar_k)
-    x0_t, _ = kern.seed(q_arr, n_words, ar_t, reference)
-    err = max(_diff(a, b) for ra, rb in zip(x0, x0_t) for a, b in zip(ra, rb))
-    x = [[a.clone() for a in row] for row in x0]
+    x0_t, live_t = kern.seed(q_arr, n_words, ar_t, reference)
+    seed_err = max(_diff(a, b) for a, b in zip(_flat(x0), _flat(x0_t)))
+    errs: dict = {}
+    fresh = lambda bufs: [[torch.full_like(t, POISON) for t in row]
+                          for row in bufs]
+    zeros = lambda: {dev: torch.zeros((1, n_data, 2), dtype=torch.int32,
+                                      device=dev)
+                     for dev in kern._placement}
+    x, x_t = x0, x0_t
+    aux_bufs = [[a.aux for a in row] for row in ar_k]
     for sweep in range(2):
-        cur_k = [[a.clone() for a in row] for row in x]
-        cur_t = [[a.clone() for a in row] for row in x]
-        kern.step(cur_k, x, x0, live, tables, n_words)
-        kern.step(cur_t, x, x0, live, tables, n_words, reference)
-        d_k = [[kernels.sweep_delta(c, a, dead) for c, a in zip(cr, xr)]
-               for cr, xr in zip(cur_k, x)]
-        d_t = [[reference.sweep_delta(c, a, dead) for c, a in zip(cr, xr)]
-               for cr, xr in zip(cur_t, x)]
-        err = max([err] + [_diff(a, b) for ra, rb in zip(cur_k, cur_t)
-                           for a, b in zip(ra, rb)]
-                  + [_diff(a.cpu(), b) for ra, rb in zip(d_k, d_t)
-                     for a, b in zip(ra, rb)])
-        if err:
-            raise AssertionError(f"{label}: a per-shard kernel differs from "
+        cur, cur_t = fresh(x), fresh(x)
+        aux_k, aux_t = fresh(aux_bufs), fresh(aux_bufs)
+        calls = zip(kern.sweep_calls(cur, x, x0, live, aux_k, tables,
+                                     n_words),
+                    kern.sweep_calls(cur_t, x_t, x0_t, live_t, aux_t,
+                                     tables, n_words))
+        for (name, fk), (_, ft) in calls:
+            fk(kernels)
+            ft(reference)
+            e = max(_diff(a, b) for a, b in zip(_flat(cur) + _flat(aux_k),
+                                                _flat(cur_t) + _flat(aux_t)))
+            errs[name] = max(errs.get(name, 0), e)
+            if e:
+                raise AssertionError(f"{label}: {name} differs from its twin "
+                                     f"in sweep {sweep}")
+        d_k, d_t = zeros(), zeros()
+        kern.sweep_deltas(cur, x, {k: t[0] for k, t in d_k.items()})
+        kern.sweep_deltas(cur_t, x_t, {k: t[0] for k, t in d_t.items()},
+                          reference)
+        e = max([_diff(a, b) for a, b in zip(_flat(cur), _flat(cur_t))]
+                + [_diff(d_k[k], d_t[k]) for k in d_k])
+        errs["mesh_sweep_delta"] = max(errs.get("mesh_sweep_delta", 0), e)
+        if e:
+            raise AssertionError(f"{label}: mesh_sweep_delta differs from "
                                  f"its twin in sweep {sweep}")
-        x = cur_k
+        x, x_t = cur, cur_t
+    log(f"{label}: seed and 2 sweeps on {kern.mesh.size} shards call by "
+        f"call, every replica against the twins': errors {errs}, seed "
+        f"{seed_err}")
     # the whole batch, kernels and twins, on the card
     t0 = time.perf_counter()
-    xs_k, tr_k = kern.evaluate(q_arr, n_words, tables, ar_k)
-    xs_t, tr_t = kern.evaluate(q_arr, n_words, tables, ar_t, reference)
+    xs_k, tr_k = _poisoned(kern, lambda: kern.evaluate(q_arr, n_words,
+                                                       tables, ar_k))
+    xs_t, tr_t = _poisoned(kern, lambda: kern.evaluate(
+        q_arr, n_words, tables, ar_t, reference))
     off_len = (0, min(kern.prog.state_size, 4096))
     w_k = kern.finish_lookup(xs_k, *off_len, n_words)
     w_t = kern.finish_lookup(xs_t, *off_len, n_words, reference)
-    err = max([_diff(w_k, w_t)] + [_diff(a, b) for ra, rb in zip(xs_k, xs_t)
-                                   for a, b in zip(ra, rb)])
+    err = max([seed_err, _diff(w_k, w_t)]
+              + [_diff(a, b) for a, b in zip(_flat(xs_k), _flat(xs_t))])
     if err or not np.array_equal(tr_k, tr_t):
         raise AssertionError(f"{label}: the sharded batch on the twins "
                              "differs from the kernels'")
-    log(f"{label}: seed, 2 sweeps step by step on {kern.mesh.size} shards "
-        f"and the whole batch on the twins (state of every shard, trace "
-        f"{tr_k[:1 + tr_k[0]].tolist()}, lookup words): bit-identical "
-        f"({time.perf_counter() - t0:.1f} s)")
-    # one sweep's time on the state after two sweeps
-    cur = [[a.clone() for a in row] for row in x]
-    t_copy = timer.ms(lambda: [c.copy_(a) for cr, xr in zip(cur, x)
-                               for c, a in zip(cr, xr)])
-    t_step = timer.ms(lambda: kern.step(cur, x, x0, live, tables, n_words))
-    collectives.reset_collectives()
-    t_gath = timer.ms(lambda: _mesh_gathers(kern, cur, n_words), reps=1)
-    moved = collectives.COLLECTIVES["all_gather_rows"]["bytes"] // 2
-    t_delta = timer.ms(lambda: [kernels.sweep_delta(c, a, dead)
-                                for cr, xr in zip(cur, x)
-                                for c, a in zip(cr, xr)])
-    t_plain = timer.ms(lambda: kern.step(cur, x, x0, live, tables, n_words,
-                                         reference), reps=2)
-    # the bound: what each shard's kernels must read and write (its table
-    # blocks, each distinct state row its gathers read, its rows' seeds
-    # and outputs, the permission ops on its replica, the delta), plus
-    # the copies (each byte read and written once)
-    nbytes = 0
-    main, aux = tables[0], tables[1]
-    for d, row in enumerate(main):
-        for g, blk in enumerate(row):
-            n, k = blk.shape
-            nbytes += (n * k * 4 + int(torch.unique(blk).numel()) * word
-                       + 2 * n * word)
-            a_blk = aux[d][g]
-            na, ka = a_blk.shape
-            nbytes += kern.aux_passes * (
-                na * ka * 4 + int(torch.unique(a_blk).numel()) * word
-                + na * word)
-            if kern.planes:
-                c_blk = tables[2][d][g]
-                nc, kc_ = c_blk.shape
-                nbytes += (nc * kc_ * 4 + int(torch.unique(c_blk).numel())
-                           * 4 * wl + 2 * nc * 4 * wl)
-            for code, _, length, *_ in kern._plans[blk.device][2]:
-                n_read = int((code[0::2] == 0).sum())
-                nbytes += code.numel() * 4 + length * word * (n_read + 2)
-            nbytes += 2 * kern.rows * word
-    nbytes += 2 * moved
-    out = {"copy_ms": t_copy, "step_ms": t_step, "gather_copies_ms": t_gath,
-           "kernels_ms": t_step - t_gath + t_delta, "delta_ms": t_delta,
-           "sweep_ms": t_copy + t_step + t_delta, "plain_step_ms": t_plain,
-           "bound_ms": nbytes / peak * 1e3, "bytes": nbytes,
-           "copy_bytes": moved, "trace": tr_k[:1 + tr_k[0]].tolist(),
-           "max_abs_err": err}
-    log(f"{label}: one sweep on {kern.mesh.size} shards: replica input "
-        f"copies {t_copy:.6f} ms, step {t_step:.6f} ms (all_gathers alone "
-        f"{t_gath:.6f} ms, {moved} bytes), deltas {t_delta:.6f} ms; kernels "
-        f"{out['kernels_ms']:.6f} ms, whole sweep {out['sweep_ms']:.6f} ms; "
-        f"bound {out['bound_ms']:.6f} ms over {nbytes} bytes; the step on "
-        f"the twins {t_plain:.6f} ms")
+    log(f"{label}: the whole batch on the kernels and on the twins, output "
+        f"buffers poisoned before every sweep (state of every replica, "
+        f"trace {tr_k[:1 + tr_k[0]].tolist()}, lookup words): "
+        f"bit-identical ({time.perf_counter() - t0:.1f} s)")
+    # one sweep's time on the state after two sweeps, split by kernel
+    cur, aux_k = fresh(x), fresh(aux_bufs)
+    d_k = zeros()
+    slots_of = {k: t[0] for k, t in d_k.items()}
+    calls = kern.sweep_calls(cur, x, x0, live, aux_k, tables, n_words)
+    names = list(dict.fromkeys(n for n, _ in calls))
+    by = {n: [f for m, f in calls if m == n] for n in names}
+    slots = kern.sweep_deltas(cur, x, slots_of)
+
+    def sweep():
+        kern.step(cur, x, x0, live, aux_k, tables, n_words)
+        reduce_data_deltas(d_k[dev0][0], kern.sweep_deltas(cur, x,
+                                                           slots_of))
+    t = {n: timer.ms(lambda fs=fs: [f(kernels) for f in fs])
+         for n, fs in by.items()}
+    plain = {n: timer.ms(lambda fs=fs: [f(reference) for f in fs], reps=2)
+             for n, fs in by.items() if n != "all_gather_rows"}
+    t["mesh_sweep_delta"] = timer.ms(lambda: kern.sweep_deltas(cur, x,
+                                                               slots_of))
+    plain["mesh_sweep_delta"] = timer.ms(lambda: kern.sweep_deltas(
+        cur, x, slots_of, reference), reps=2)
+    t["readback"] = timer.ms(lambda: reduce_data_deltas(d_k[dev0][0], slots))
+    t_sweep = timer.ms(sweep)
+    t_plain = timer.ms(lambda: kern.step(cur, x, x0, live, aux_k, tables,
+                                         n_words, reference), reps=2)
+    att = attribute(sweep, capturable=False) if timer.cuda else {}
+    bound = mesh_bound_bytes(kern, tables, n_words)
+    per_kernel = mesh_kernel_bytes(kern, tables, n_words)
+    rows = {}
+    for name, nbytes in per_kernel.items():
+        b_ms = nbytes / peak * 1e3
+        rows[name] = {"max_abs_err": errs.get(name, 0), "ms": t[name],
+                      "plain_ms": plain[name], "bound_ms": b_ms,
+                      "bound_by": "bytes", "library_ms": None}
+    out = {"sweep_ms": t_sweep, "split_ms": t, "plain_step_ms": t_plain,
+           "bound_ms": bound["bytes"] / peak * 1e3,
+           "old_bound_ms": bound["old_bytes"] / peak * 1e3,
+           "bytes": bound["bytes"], "old_bytes": bound["old_bytes"],
+           "copy_bytes": bound["copy_bytes"],
+           "trace": tr_k[:1 + tr_k[0]].tolist(), "max_abs_err": err,
+           "attribution": {k: v for k, v in att.items()
+                           if k != "device_names"},
+           "device_names": att.get("device_names", []), "rows": rows}
+    log(f"{label}: one sweep on {kern.mesh.size} shards: "
+        + ", ".join(f"{n} {v:.6f} ms" for n, v in t.items())
+        + f"; whole sweep {t_sweep:.6f} ms (event-timed); device-only "
+        f"{att.get('device_ms', float('nan')):.6f} ms "
+        f"({att.get('device_by')}, {att.get('launches')} activities), cold "
+        f"{att.get('cold_ms', float('nan')):.6f} ms, host "
+        f"{att.get('host_us', float('nan')):.2f} us; device activities "
+        f"{out['device_names']}; bound {out['bound_ms']:.6f} ms over "
+        f"{bound['bytes']} bytes (the first design's count "
+        f"{out['old_bound_ms']:.6f} ms over {bound['old_bytes']}); the "
+        f"step on the twins {t_plain:.6f} ms")
+    for name, r in rows.items():
+        log(f"{label}: {name} {r['ms']:.6f} ms a sweep, twins "
+            f"{r['plain_ms']:.6f} ms, bound {r['bound_ms']:.6f} ms over "
+            f"{per_kernel[name]} bytes")
     return out
+
+
+def _sweep_copies(kern, fn) -> tuple:
+    """(fn(), the copies between two tensors on one device made through
+    `Tensor.copy_` — the only way the mesh path copies state — while it
+    runs, the seed's excepted: on the CPU its twin copies into the
+    arena)."""
+    import torch
+    real, seed = torch.Tensor.copy_, kern.seed
+    n, paused = [0], [False]
+
+    def copy_(self, src, *args, **kw):
+        if isinstance(src, torch.Tensor) and src.device == self.device \
+                and not paused[0]:
+            n[0] += 1
+        return real(self, src, *args, **kw)
+
+    def seed_(*args, **kw):
+        paused[0] = True
+        try:
+            return seed(*args, **kw)
+        finally:
+            paused[0] = False
+    torch.Tensor.copy_ = copy_
+    kern.seed = seed_
+    try:
+        return fn(), n[0]
+    finally:
+        torch.Tensor.copy_ = real
+        del kern.seed
 
 
 def mesh_multitenant(ep, w, mesh, timer, peak, smi_line, device: str = "cuda",
@@ -2698,6 +2871,28 @@ def mesh_multitenant(ep, w, mesh, timer, peak, smi_line, device: str = "cuda",
     if idle:
         raise AssertionError(f"kernels never launched on the mesh path: "
                              f"{idle}")
+    # what a sweep costs in launches, copies and readbacks
+    per_sweep = sum(launches[k] for k in MESH_SWEEP_KERNELS) / sweeps_all
+    limit = MESH_DATA * (kern.aux_passes + 3 + len(prog.perm_ops))
+    one_card = len({dev for row in mesh.devices for dev in row}) == 1
+    q_arr, _, _ = m._encode_subjects(g, batches[0])
+    ar = kern._alloc_arenas(len(q_arr) // 32)
+    (_, tr), n_copies = _sweep_copies(kern, lambda: kern.evaluate(
+        q_arr, len(q_arr) // 32, g.snapshot(), ar))
+    log(f"mesh sweep: {per_sweep:g} launches a sweep (limit {limit}: "
+        f"{MESH_DATA} x (aux passes {kern.aux_passes} + 3 + "
+        f"{len(prog.perm_ops)} permission ops)); block copies "
+        f"{coll['all_gather_rows']['copies']} over {sweeps_all} sweeps "
+        f"({'every shard on one device' if one_card else 'several devices'}"
+        f"); readbacks {coll['reduce_sweep_deltas']['calls']}; device "
+        f"copies in one batch of {int(tr[0])} sweeps (input copies "
+        f"included) {n_copies}")
+    if per_sweep > limit:
+        raise AssertionError(f"{per_sweep:g} launches a sweep > {limit}")
+    if coll["reduce_sweep_deltas"]["calls"] != sweeps_all:
+        raise AssertionError("not one readback a sweep")
+    if one_card and (coll["all_gather_rows"]["copies"] or n_copies):
+        raise AssertionError("a sweep copied between replicas on one card")
     cm = comm_model(prog.state_size, kern.a_pad, MESH_DATA, MESH_GRAPH,
                     LOOKUP_LANES, aux_passes=kern.aux_passes)
     per_sweep = coll["all_gather_rows"]["bytes"] / sweeps_all
@@ -2744,9 +2939,11 @@ def mesh_multitenant(ep, w, mesh, timer, peak, smi_line, device: str = "cuda",
         f"pod) pairs, {sum(c.allowed for c in checks[0])} allowed checks; "
         f"{time.perf_counter() - t0:.1f} s)")
 
-    q_arr, _, _ = m._encode_subjects(g, batches[0])
     sweep = mesh_sweep(kern, q_arr, len(q_arr) // 32, g.snapshot(), timer,
                        peak, "mesh multitenant-1m")
+    sweep.update(launches_per_sweep=per_sweep, launch_limit=limit,
+                 block_copies=coll["all_gather_rows"]["copies"],
+                 batch_device_copies=n_copies)
 
     # churn through the shared store: both endpoints absorb it
     plan = _churn_plan(w, n_rounds, SEED + 13, tag="m")
@@ -2859,8 +3056,11 @@ def mesh_multitenant(ep, w, mesh, timer, peak, smi_line, device: str = "cuda",
         f"{med(summary['check']['single_e2e_s']):.6f} s); sweeps "
         f"{summary['lookup']['sweeps'][-1]} (lookup), "
         f"{summary['check']['sweeps'][-1]} (check); whole sweep "
-        f"{sweep['sweep_ms']:.6f} ms vs bound {sweep['bound_ms']:.6f} ms; "
-        f"scatter_rows launches {scatter} ({smi_line})")
+        f"{sweep['sweep_ms']:.6f} ms (device-only "
+        f"{sweep['attribution'].get('device_ms', float('nan')):.6f} ms) vs "
+        f"bound {sweep['bound_ms']:.6f} ms (the first design's count "
+        f"{sweep['old_bound_ms']:.6f} ms); scatter_rows launches {scatter} "
+        f"({smi_line})")
     log(f"phase 13a wall time {time.perf_counter() - t_phase:.1f} s")
     out = {"launches": launches, "sweep": sweep, "summary": summary,
            "scatter": {"launches": scatter, "max_abs_err": s_err,
@@ -3123,9 +3323,9 @@ def mesh_caveats(ep, w, mesh, timer, peak, device: str = "cuda") -> dict:
         f"{e2e['check']} s; sweeps {int(g.last_trace[0])}, trace "
         f"{g.last_trace[:1 + int(g.last_trace[0])].tolist()}; launches "
         f"{launches}")
-    idle = [k for k in ("ell_gather_or", "cav_gather_or", "perm_program",
-                        "sweep_delta", "seed_bitplanes", "check_gather3",
-                        "lookup_T") if not launches[k]]
+    idle = [k for k in MESH_SWEEP_KERNELS + (
+        "mesh_cav_gather_or", "seed_bitplanes", "check_gather3",
+        "lookup_T") if not launches[k]]
     if idle:
         raise AssertionError(f"kernels never launched on the caveated mesh "
                              f"path: {idle}")
@@ -3397,6 +3597,21 @@ def main() -> int:
                           "source": KERNEL_SOURCE,
                           "replaces": REPLACES["or_combine"],
                           **mesh_seg["rows"]["or_combine"]}
+    # the sharded sweep's kernels: numbers and launches of phase 13a (13c
+    # for the caveat gather), the caveated deployment's beside them
+    for kname in MESH_SWEEP_KERNELS + ("mesh_cav_gather_or",):
+        mt = mesh_mt["sweep"]["rows"].get(kname)
+        cav = mesh_cav["sweep"]["rows"][kname]
+        r = dict(mt) if mt is not None else dict(cav)
+        r["launches"] = (mesh_mt if mt is not None else
+                         mesh_cav)["launches"][kname]
+        if mt is not None:
+            r["max_abs_err"] = max(r["max_abs_err"], cav["max_abs_err"])
+            r.update({f"planes_{k}": v for k, v in cav.items()
+                      if k != "max_abs_err"})
+        rows[kname] = {"name": kname, "route": "cuda",
+                       "source": KERNEL_SOURCE, "replaces": REPLACES[kname],
+                       **r}
     for kname in rows:
         rows[kname]["mesh_launches"] = {
             "multitenant": mesh_mt["launches"].get(kname, 0),

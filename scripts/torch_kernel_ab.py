@@ -3,11 +3,11 @@
 and their PyTorch yardsticks, on one CUDA card, with device time and
 host cost apart.
 
-    python3 scripts/torch_kernel_ab.py [--rows sweep|copy|edge|all]
+    python3 scripts/torch_kernel_ab.py [--rows sweep|copy|edge|mesh|all]
                                        [--variants old,new,graph,library]
                                        [--rounds 3] [--out FILE]
 
-`--rows sweep` (the default; PERF.md rows 1-6, 9, 10, 12, 14, 14a) loads
+`--rows sweep` (the default; PERF.md rows 1-6, 9, 10, 14, 14a) loads
 multitenant-1m (`models/workloads.py multitenant_1m()` defaults) into
 `create_endpoint("torch://")` as `chip_smoke.py` does (phase 3), seeds a
 256-subject lookup batch and runs one sweep, then measures on the state
@@ -21,8 +21,6 @@ that the batch's second sweep reads, at the main path's shapes:
   mt sweep       the whole staged sweep (copy, every step, delta)
   mt seed        `seed_bitplanes` of the batch (row 4a)
   mt check_gather  a 10,000-pair check batch's gathers (row 4b)
-  mesh gathers   the per-shard `ell_gather_or` launches of one sweep of a
-                 2 x 4 mesh endpoint on the same store (row 12)
   seg edge_or    `edge_or` over the segment endpoint's full edge arrays
                  on the same store (row 10)
   mesh allreduce   a 2 x 4 `ShardedKernel` sweep's two `or_allreduce`s
@@ -49,6 +47,17 @@ before and after phase 11's churn rounds, one 2 x 4 `ShardedKernel`
 shard (W = 4), the whole segment sweep, and a [5,079, 65] plane with the
 batch's 63 words, all 65, 1 and 7, and the launch shapes of its tiled
 read (COLS_TILE_SWEEP).
+
+`--rows mesh` (PERF.md row 12) runs one sweep of the 2 x 4 mesh of
+`chip_smoke.py` phase 13 (cuda:0 repeated on one card) at multitenant-1m
+and at the caveated deployment, on the input of a batch's second sweep:
+"old" is the first design of the sharded step (`old_mesh_step`, kept as
+source: input copies, per-shard gathers through scratch, block copies
+between replicas, per-replica programs and deltas, a stacked readback),
+"new" the package's (`ShardedEllKernel.step`, `sweep_deltas` and one
+readback); the whole sweep old, new, new, old, then each part of it
+alone (`mesh old ...`, `mesh new ...`).  Its bound is the least bytes
+(`chip_smoke.mesh_bound_bytes`), with the first design's count beside it.
 
 `--rows copy` runs `lookup_T` and `scatter_rows` (rows 4c, 8, 11, 13) at
 multitenant-1m after `--rounds` rounds of phase 9's churn, as before:
@@ -799,14 +808,17 @@ def old_steps(steps: list) -> list:
 
 class Case:
     """One row of the A/B: its variants' callables, the twin's, and what
-    each one's result is compared on."""
+    each one's result is compared on.  `capturable` False: a variant reads
+    back to the host, so no CUDA graph may capture it."""
 
     def __init__(self, name, shape, nbytes, fns, twin, result, reset,
-                 order=None):
+                 order=None, capturable=True, extra=None):
         self.name, self.shape, self.nbytes = name, shape, nbytes
         self.fns, self.twin, self.result, self.reset = (fns, twin, result,
                                                         reset)
         self.order = order    # its own variants, else the run's
+        self.capturable = capturable
+        self.extra = extra or {}   # further numbers for the JSON row
 
 
 def step_bytes(step, word: int, live, dead: int) -> int:
@@ -965,70 +977,233 @@ def sweep_cases(label, kc, tables, q, n_words, old, variants) -> list:
     return cases
 
 
-def mesh_case(ep, w, q_arr, n_words, old, variants):
-    """Row 12: the per-shard gathers of one sweep of a 2 x 4 mesh
-    endpoint on the store of `ep` (cuda:0 for every shard on one card)."""
+def old_mesh_step(kern, cur, x, x0, live, tables, n_words, impl,
+                  parts=("gathers", "all_gathers", "cav", "programs")):
+    """The first design of the sharded ELL step (row 12), kept as
+    source for `--rows mesh`: every replica `cur` starts as a copy of the
+    sweep's input `x` (the caller's copy); `aux_passes` times, each shard
+    gathers its aux block into its own replica through scratch and the
+    aux blocks are copied into every peer replica (`all_gather_rows`);
+    then the main blocks with the seed, the same way; with planes each
+    shard's caveat block (`cav_gather_or`) and a copy of the maybe words;
+    then every replica runs the permission ops (through scratch where a
+    program reads its own slot).  `parts` runs a subset, for the split."""
+    from spicedb_kubeapi_proxy_tpu_torch.parallel.collectives import (
+        all_gather_rows)
+    main, aux = tables[0], tables[1]
+    cav = tables[2] if kern.planes else None
+    n_pad, a_pad = kern.n_pad, kern.a_pad
+    grid = [(d, g, dev) for d, row in enumerate(kern.mesh.devices)
+            for g, dev in enumerate(row)]
+    half = n_words // kern.mesh.shape["data"] if kern.planes else None
+    for _ in range(kern.aux_passes):
+        if "gathers" in parts:
+            for d, g, _dev in grid:
+                impl.ell_gather_or(cur[d][g], aux[d][g],
+                                   n_pad + g * kern.block_aux)
+        if "all_gathers" in parts:
+            for reps in cur:
+                all_gather_rows(reps, n_pad, n_pad + a_pad)
+    if "gathers" in parts:
+        for d, g, dev in grid:
+            wc = kern._plans[dev][1][g]
+            impl.ell_gather_or(cur[d][g], main[d][g], g * kern.block_main,
+                               x0=x0[d][g], wc_bits=wc,
+                               wc_live=live[d][g] if wc is not None
+                               else None)
+    if "all_gathers" in parts:
+        for reps in cur:
+            all_gather_rows(reps, 0, n_pad)
+    if cav is not None:
+        if "cav" in parts:
+            for d, g, _dev in grid:
+                impl.cav_gather_or(cur[d][g], x[d][g], cav[d][g], half,
+                                   dst_lo=g * kern.block_cav,
+                                   dead=kern.prog.dead_index)
+        if "all_gathers" in parts:
+            for reps in cur:
+                all_gather_rows(reps, 0, kern.rows, cols=(half, 2 * half))
+    if "programs" in parts:
+        for d, g, dev in grid:
+            for code, off, length, depth in kern._plans[dev][2]:
+                key = (id(code), off)
+                if key not in OLD_SELF_READ:
+                    ops = code.cpu().tolist()
+                    OLD_SELF_READ[key] = any(
+                        op == 0 and arg == off
+                        for op, arg in zip(ops[0::2], ops[1::2]))
+                self_read = OLD_SELF_READ[key]
+                impl.perm_program(cur[d][g], x0[d][g], code, off, length,
+                                  in_place=not self_read, half=half,
+                                  depth=depth)
+
+
+OLD_SELF_READ: dict = {}   # (code id, offset) -> the program reads its slot
+
+
+def mesh_cases(label, kern, tables, q_arr, n_words, variants) -> list:
+    """`--rows mesh` (PERF.md row 12): one sweep of a sharded ELL kernel,
+    the first version ("old": input copies, per-shard gathers through
+    scratch, block copies, per-replica programs and deltas, a stacked
+    readback) against the package's ("new": one launch a pass a card
+    writing every co-located replica, programs and deltas once a data
+    shard, one readback), whole and split, on the input of the batch's
+    second sweep."""
     import torch
 
     import chip_smoke as cs
     from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
     from spicedb_kubeapi_proxy_tpu_torch.ops.kernels import reference
+    from spicedb_kubeapi_proxy_tpu_torch.parallel.collectives import (
+        reduce_data_deltas, reduce_sweep_deltas)
 
-    mesh = cs.make_smoke_mesh("cuda")
-    m_ep = cs._mesh_endpoint(ep.store, w.schema_text, mesh, "cuda")
-    g = m_ep.graph()
-    kern = g.kernel
-    tables = g.snapshot()
-    main, aux = tables[0], tables[1]
+    dead = kern.prog.dead_index
     arenas = kern._alloc_arenas(n_words)
     x0, live = kern.seed(q_arr, n_words, arenas)
-    x = [[a.clone() for a in row] for row in x0]
-    cur = [[a.clone() for a in row] for row in x0]
-    kern.step(cur, x, x0, live, tables, n_words)
-    x = [[a.clone() for a in row] for row in cur]
-    grid = [(d, gi, dev) for d, row in enumerate(mesh.devices)
-            for gi, dev in enumerate(row)]
-    word = 4 * kern.width(n_words)
+    aux = [[a.aux for a in row] for row in arenas]
+    cur = [[a.b for a in row] for row in arenas]
+    x = [[a.a for a in row] for row in arenas]
+    for cr, xr in zip(cur, x0):
+        for c, a in zip(cr, xr):
+            c.copy_(a)
+    old_mesh_step(kern, cur, x0, x0, live, tables, n_words, kernels)
+    for xr, cr in zip(x, cur):
+        for a, c in zip(xr, cr):
+            a.copy_(c)
+    n_data = kern.mesh.shape["data"]
+    dev0 = kern.mesh.devices[0][0]
+    deltas = {dev: torch.zeros((1, n_data, 2), dtype=torch.int32,
+                               device=dev) for dev in kern._placement}
+    flat = lambda bufs: [t for row in bufs for t in row]
 
-    def gathers(impl):
-        def fn():
-            for _ in range(kern.aux_passes):
-                for d, gi, _dev in grid:
-                    impl.ell_gather_or(cur[d][gi], aux[d][gi],
-                                       kern.n_pad + gi * kern.block_aux)
-            for d, gi, dev in grid:
-                wc = kern._plans[dev][1][gi]
-                impl.ell_gather_or(cur[d][gi], main[d][gi],
-                                   gi * kern.block_main, x0=x0[d][gi],
-                                   wc_bits=wc,
-                                   wc_live=live[d][gi] if wc is not None
-                                   else None)
-        return fn
-
-    def reset():
+    def copies():
         for cr, xr in zip(cur, x):
             for c, a in zip(cr, xr):
                 c.copy_(a)
 
-    nbytes = 0
-    for d, gi, _dev in grid:
-        n, k = main[d][gi].shape
-        nbytes += (n * k * 4 + int(torch.unique(main[d][gi]).numel()) * word
-                   + 2 * n * word)
-        na, ka = aux[d][gi].shape
-        nbytes += kern.aux_passes * (
-            na * ka * 4 + int(torch.unique(aux[d][gi]).numel()) * word
-            + na * word)
-    fns = {v: gathers(m) for v, m in (("old", old), ("new", kernels))
-           if v in variants}
-    n_launch = (kern.aux_passes + 1) * len(grid)
-    case = Case("mesh gathers",
-                f"{n_launch} launches: {len(grid)} shards' main blocks "
-                f"[{main[0][0].shape[0]}, {main[0][0].shape[1]}] and aux "
-                f"blocks [{aux[0][0].shape[0]}, {aux[0][0].shape[1]}] x "
-                f"{kern.aux_passes} passes", nbytes, fns, gathers(reference),
-                lambda out: torch.cat([c for row in cur for c in row]), reset)
-    return case, m_ep
+    def old_part(*parts):
+        return lambda: old_mesh_step(kern, cur, x, x0, live, tables,
+                                     n_words, kernels, parts)
+
+    def old_deltas():
+        return [[kernels.sweep_delta(c, a, dead) for c, a in zip(cr, xr)]
+                for cr, xr in zip(cur, x)]
+
+    d_old = old_deltas() if "old" in variants else None
+
+    def old_sweep():
+        copies()
+        old_mesh_step(kern, cur, x, x0, live, tables, n_words, kernels)
+        reduce_sweep_deltas(old_deltas())
+
+    def new_part(name):
+        calls = [fn for n, fn in kern.sweep_calls(cur, x, x0, live, aux,
+                                                   tables, n_words)
+                 if n == name]
+        return lambda: [fn(kernels) for fn in calls]
+
+    def new_deltas(impl=kernels):
+        return kern.sweep_deltas(cur, x, {dev: t[0] for dev, t in
+                                          deltas.items()}, impl)
+
+    slots = new_deltas() if "new" in variants else None
+
+    def new_sweep():
+        kern.step(cur, x, x0, live, aux, tables, n_words)
+        reduce_data_deltas(deltas[dev0][0], new_deltas())
+
+    def twin():
+        kern.step(cur, x, x0, live, aux, tables, n_words, reference)
+        new_deltas(reference)
+
+    def poison():
+        for t in flat(cur) + flat(aux):
+            t.fill_(0x5A5A5A5A)
+
+    state = lambda out: flat(cur)
+    bound = cs.mesh_bound_bytes(kern, tables, n_words)
+    per_kernel = cs.mesh_kernel_bytes(kern, tables, n_words)
+    word = 4 * kern.width(n_words)
+    n_rep = kern.mesh.size
+    m_bytes = 2 * n_rep * kern.rows * word
+    shape = (f"{kern.mesh.shape['data']} x {kern.mesh.shape['graph']} "
+             f"shards, [{kern.rows}, {kern.width(n_words)}] a replica, "
+             f"{kern.aux_passes} aux passes")
+    cases = [Case(f"{label} sweep", shape, bound["bytes"],
+                  {v: f for v, f in (("old", old_sweep), ("new", new_sweep))
+                   if v in variants}, twin, state, poison,
+                  capturable=False,
+                  extra={"old_bytes": bound["old_bytes"],
+                         "old_bound_ms": None})]
+    fn_old = {"input copies": (copies, m_bytes),
+              "gathers": (old_part("gathers", "cav"), None),
+              "all_gathers": (old_part("all_gathers"),
+                              2 * bound["copy_bytes"]),
+              "programs": (old_part("programs"), None),
+              "deltas": (old_deltas, 2 * n_rep * kern.rows * word),
+              "readback": (lambda: reduce_sweep_deltas(d_old), 8 * n_rep)}
+    if "old" in variants:
+        for part, (fn, nb) in fn_old.items():
+            cases.append(Case(f"{label} old {part}", shape, nb or 0,
+                              {"old": fn}, fn, lambda out: flat(cur),
+                              copies, capturable=part != "readback"))
+    fn_new = {"gathers": ([new_part("mesh_gather_or"),
+                           new_part("mesh_cav_gather_or")],
+                          per_kernel["mesh_gather_or"]
+                          + per_kernel.get("mesh_cav_gather_or", 0)),
+              "copies": ([new_part("all_gather_rows")], 0),
+              "programs": ([new_part("mesh_perm_program")],
+                           per_kernel["mesh_perm_program"]),
+              "deltas": ([new_deltas], per_kernel["mesh_sweep_delta"]),
+              "readback": ([lambda: reduce_data_deltas(deltas[dev0][0],
+                                                       slots)], 8 * n_data)}
+    if "new" in variants:
+        for part, (fns, nb) in fn_new.items():
+            fn = (lambda fns=fns: [f() for f in fns])
+            cases.append(Case(f"{label} new {part}", shape, nb, {"new": fn},
+                              fn, lambda out: flat(cur), lambda: None,
+                              capturable=part != "readback"))
+    return cases
+
+
+def mesh_rows(args, variants, old, peak, result) -> None:
+    """`--rows mesh`: one sharded ELL sweep (PERF.md row 12), old against
+    new, on the 2 x 4 mesh of `chip_smoke.py` phase 13 (cuda:0 repeated
+    on one card) at multitenant-1m and at the caveated deployment."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import SubjectRef
+
+    for label, kwargs, gen in (("mesh", {}, "multitenant_1m"),
+                               ("mesh cav", cs.CAVEAT_WORKLOAD,
+                                "caveated_rbac")):
+        ep, w = cs.load("cuda", kwargs, gen)
+        mesh = cs.make_smoke_mesh("cuda")
+        m_ep = cs._mesh_endpoint(ep.store, w.schema_text, mesh, "cuda")
+        g = m_ep.graph()
+        rng = np.random.default_rng(cs.SEED)
+        batch = [SubjectRef("user", w.subjects[i]) for i in
+                 rng.choice(len(w.subjects), cs.LOOKUP_LANES, replace=False)]
+        q_arr, _, _ = m_ep._encode_subjects(g, batch)
+        cases = mesh_cases(label, g.kernel, g.snapshot(), q_arr,
+                           len(q_arr) // 32, variants)
+        torch.cuda.synchronize()
+        run_cases(cases, [v for v in variants if v in ("old", "new")], peak,
+                  result)
+        for case in cases:
+            row = result["rows"][case.name]
+            if "old_bytes" in row:
+                row["old_bound_ms"] = row["old_bytes"] / peak * 1e3
+                log(f"{case.name}: bound over the first design's count "
+                    f"{row['old_bound_ms']:.6f} ms over {row['old_bytes']} "
+                    "bytes")
+        del ep, w, m_ep, g, cases
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def segment_cases(ep, w, batch, old, variants) -> list:
@@ -1443,9 +1618,10 @@ def run_cases(cases, variants, peak, result: dict) -> None:
                 raise AssertionError(f"{case.name}: {v} differs from the "
                                      f"twin by {err}")
             readings.setdefault(v, []).append(
-                cs.attribute(fn, capturable=v != "graph"))
+                cs.attribute(fn, capturable=case.capturable
+                             and v != "graph"))
         row = {"shape": case.shape, "bound_ms": case.nbytes / peak * 1e3,
-               "bytes": case.nbytes, "readings": readings}
+               "bytes": case.nbytes, "readings": readings, **case.extra}
         result["rows"][case.name] = row
         for v, rs in readings.items():
             log(f"{case.name} {v}: " + " | ".join(
@@ -1458,8 +1634,9 @@ def run_cases(cases, variants, peak, result: dict) -> None:
 
 
 def sweep_rows(args, variants, old, peak, result) -> None:
-    """`--rows sweep`: multitenant-1m's staged sweep and its mesh gathers,
-    the caveated deployment's Jacobi sweep, and the two library pairs."""
+    """`--rows sweep`: multitenant-1m's staged sweep, the caveated
+    deployment's Jacobi sweep, and the two library pairs (the mesh sweep
+    is `--rows mesh`)."""
     import gc
 
     import numpy as np
@@ -1481,15 +1658,13 @@ def sweep_rows(args, variants, old, peak, result) -> None:
         tables = g.snapshot()
         cases = sweep_cases(label, g.kernel, tables, q, n_words, old,
                             variants)
-        m_ep = seg = None
+        seg = None
         if label == "mt":
-            case, m_ep = mesh_case(ep, w, q_arr, n_words, old, variants)
-            cases.append(case)
             more, seg = segment_cases(ep, w, batch, old, variants)
             cases += more
         torch.cuda.synchronize()
         run_cases(cases, variants, peak, result)
-        del ep, w, g, cases, m_ep, seg, tables
+        del ep, w, g, cases, seg, tables
         gc.collect()
         torch.cuda.empty_cache()
     run_cases(library_cases(variants, old), variants, peak, result)
@@ -1689,7 +1864,7 @@ def copy_rows(args, variants, old, peak, result) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", default="sweep",
-                    choices=("sweep", "copy", "edge", "all"))
+                    choices=("sweep", "copy", "edge", "mesh", "all"))
     ap.add_argument("--variants", default="old,new,graph,library")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--out", default=None)
@@ -1712,7 +1887,9 @@ def main() -> int:
     kernels.build()
     kernels._load()
     variants = args.variants.split(",")
-    old = OldKernels() if "old" in variants else None
+    # the mesh rows' first version is the package's kernels in the old
+    # step (old_mesh_step), not OLD_SOURCE
+    old = OldKernels() if "old" in variants and args.rows != "mesh" else None
     log(f"built in {time.perf_counter() - t0:.1f} s")
     for line in kernels.BUILD_LOG.splitlines():
         if "ptxas info" in line and ("Used" in line or "Compiling" in line
@@ -1725,6 +1902,8 @@ def main() -> int:
         copy_rows(args, variants, old, peak, result)
     if args.rows in ("edge", "all"):
         edge_rows(args, variants, old, peak, result)
+    if args.rows in ("mesh", "all"):
+        mesh_rows(args, variants, old, peak, result)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

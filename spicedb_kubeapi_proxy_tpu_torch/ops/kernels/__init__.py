@@ -24,6 +24,7 @@ stale libraries are both harmless.  The directory is listed in .gitignore.
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 import hashlib
 import operator
@@ -41,7 +42,8 @@ from . import reference
 KERNEL_NAMES = ("ell_gather_or", "perm_program", "sweep_delta",
                 "seed_bitplanes", "check_gather", "lookup_T", "scatter_rows",
                 "cav_gather_or", "check_gather3", "edge_or", "word_cols_T",
-                "or_combine")
+                "or_combine", "mesh_gather_or", "mesh_cav_gather_or",
+                "mesh_perm_program", "mesh_sweep_delta")
 
 # launches per kernel since the last reset_launches(); CPU twins never count
 LAUNCHES: dict = {name: 0 for name in KERNEL_NAMES}
@@ -59,6 +61,8 @@ MAX_STACK = 16            # kMaxStack, perm_program's operand stack
 MAX_PROGRAM = 4096        # perm_program instructions (shared memory)
 MAX_OR_PARTS = 8          # kMaxParts, or_combine's replicas a launch
 K_CAV = 8                 # kCav, the caveat table's width (cav_gather_or)
+MESH_DSTS = 16            # kMeshDsts, replicas a mesh_* launch writes
+MESH_JOBS = 16            # kMeshJobs, table blocks a mesh_* gather launch
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -184,6 +188,11 @@ def _load():
                 "ell_edge_or": (P, P, P, L, I, I, P, P),
                 "ell_word_cols_T": (P, I, P, I, L, P, P),
                 "ell_or_combine": (P, I, L, I, P),
+                "ell_mesh_gather_or": (P, P, I, I, I, I, L, I, I, P),
+                "ell_mesh_cav_gather_or": (P, P, I, L, I, I, I, P),
+                "ell_mesh_perm_program": (P, P, I, L, I, I, I, I, P, P, I,
+                                          P),
+                "ell_mesh_sweep_delta": (P, P, L, I, L, P, I, P, P),
             }
             for fn, args in sigs.items():
                 f = getattr(lib, fn)
@@ -607,4 +616,232 @@ def or_combine(parts: list) -> None:
     vec = int(all(t.data_ptr() % 16 == 0 for t in parts))
     _run("ell_or_combine", parts[0].device, ptrs, g, n, vec)
     _count("or_combine")
+    return None
+
+
+# -- the sharded ELL sweep (parallel/sharding.py ShardedEllKernel.step) -----
+#
+# One launch covers a card's share of a sweep step: every shard block on
+# the card (mesh_gather_or, mesh_cav_gather_or), or one data shard
+# (mesh_perm_program, mesh_sweep_delta); each result is written into every
+# co-located replica of its data shard (`dsts`, at most MESH_DSTS).  The
+# argument checks run on every device, so the CPU tests check each plan.
+
+def _span(t: torch.Tensor) -> tuple:
+    return (t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+
+
+def _check_disjoint(name: str, dsts: list, srcs: list) -> None:
+    """Raise unless the destinations (contiguous tensors) share no memory
+    with each other or with any source."""
+    d = sorted(_span(t) for t in dsts if t.numel())
+    if any(b[0] < a[1] for a, b in zip(d, d[1:])):
+        raise KernelError(f"{name}: two destinations share memory")
+    starts = [a for a, _ in d]
+    for s0, s1 in {_span(t) for t in srcs if t is not None and t.numel()}:
+        i = bisect.bisect_right(starts, s0) - 1
+        if (i >= 0 and d[i][1] > s0) or (i + 1 < len(d)
+                                         and d[i + 1][0] < s1):
+            raise KernelError(f"{name}: a destination overlaps a source")
+
+
+def _check_dsts(name: str, dsts: list, shape: tuple) -> None:
+    if not 1 <= len(dsts) <= MESH_DSTS:
+        raise KernelError(f"{name}: {len(dsts)} destinations (1 to "
+                          f"{MESH_DSTS})")
+    for t in dsts:
+        if tuple(t.shape) != shape:
+            raise KernelError(f"{name}: a destination of shape "
+                              f"{tuple(t.shape)}, not {shape}")
+
+
+def _ptr_array(rows: list) -> tuple:
+    """ctypes (pointers, counts) for the launchers: each row is a job's
+    fixed pointers then its destinations, padded to MESH_DSTS."""
+    per = len(rows[0][0]) + MESH_DSTS
+    ptrs = (ctypes.c_void_p * (per * len(rows)))()
+    counts = (ctypes.c_int * len(rows))()
+    for j, (fixed, dsts) in enumerate(rows):
+        base = j * per
+        ptrs[base: base + len(fixed)] = [_ptr(t) for t in fixed]
+        ptrs[base + len(fixed): base + len(fixed) + len(dsts)] = [
+            t.data_ptr() for t in dsts]
+        counts[j] = len(dsts)
+    return ptrs, counts
+
+
+def mesh_gather_or(jobs: list, split: int) -> None:
+    """One pass of the sharded ELL sweep's gathers for every shard block
+    of `jobs`, each job (idx, lo, hi, seed, wc_bits, wc_live, dsts):
+    y[r] = OR_k src(idx[r, k]) | seed[r] | OR over the set bits t of
+    wc_bits[r] of wc_live[t], where src(s) is lo[s] for s < split and
+    hi[s - split] past it, written into every tensor of dsts.  `idx` is
+    int32 [n, K] (a table block; n and K equal over the jobs), lo and hi
+    [.., W] state rows, seed [n, W], wc_bits [n] and wc_live [T, W] or
+    None, dsts [n, W] row blocks (1 to MESH_DSTS).  No destination may
+    share memory with another or with a source (checked here on every
+    device), so every read sees the rows as they stood before the call.
+    One launch for each MESH_JOBS jobs."""
+    if not jobs:
+        return None
+    n, k = jobs[0][0].shape
+    w = jobs[0][1].shape[1]
+    dsts_all, srcs = [], []
+    for idx, lo, hi, seed, wc_bits, wc_live, dsts in jobs:
+        if idx.dim() != 2 or tuple(idx.shape) != (n, k):
+            raise KernelError(f"mesh_gather_or: a table block of shape "
+                              f"{tuple(idx.shape)}, not ({n}, {k})")
+        if lo.dim() != 2 or hi.dim() != 2 or lo.shape[1] != w or \
+                hi.shape[1] != w or lo.shape[0] < split:
+            raise KernelError("mesh_gather_or: sources are not [.., W] "
+                              "rows covering the split")
+        if seed is not None and tuple(seed.shape) != (n, w):
+            raise KernelError("mesh_gather_or: seed shape mismatch")
+        if (wc_bits is None) != (wc_live is None) or (
+                wc_bits is not None and (wc_bits.shape[0] != n
+                                         or wc_live.shape[1] != w)):
+            raise KernelError("mesh_gather_or: wildcard shape mismatch")
+        _check_dsts("mesh_gather_or", dsts, (n, w))
+        dsts_all += dsts
+        srcs += [idx, lo, hi, seed, wc_bits, wc_live]
+    _check_disjoint("mesh_gather_or", dsts_all, srcs)
+    if not _on_cuda(*srcs, *dsts_all):
+        return reference.mesh_gather_or(jobs, split)
+    for t in srcs + dsts_all:
+        if t is not None:
+            _check(t, "mesh_gather_or")
+    if n == 0:
+        return None
+    rows = [t for job in jobs for t in (job[1], job[2], job[3], job[5])
+            if t is not None] + dsts_all
+    vec = int(w % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in rows))
+    ix = [job[0].data_ptr() for job in jobs]
+    iv = (4 if k % 4 == 0 and all(p % 16 == 0 for p in ix) else
+          2 if k % 2 == 0 and all(p % 8 == 0 for p in ix) else 1)
+    for c in range(0, len(jobs), MESH_JOBS):
+        chunk = jobs[c: c + MESH_JOBS]
+        ptrs, counts = _ptr_array([(job[:6], job[6]) for job in chunk])
+        _run("ell_mesh_gather_or", jobs[0][0].device, ptrs, counts,
+             len(chunk), split, k, iv, n, w, vec)
+        _count("mesh_gather_or")
+    return None
+
+
+def mesh_cav_gather_or(jobs: list, half: int,
+                       dead: Optional[int] = None) -> None:
+    """The caveat gathers of one sharded sweep for every shard block of
+    `jobs`, each job (idx, x_in, dsts): dst[r, half:] |= OR_k x_in[idx[r,
+    k], half:] for every row r of idx (int32 [R, K_CAV], R equal over the
+    jobs; 16-byte aligned on a card) and every dst of dsts ([R, 2 * half]
+    row blocks of the co-located replicas, 1 to MESH_DSTS).  x_in is the
+    sweep's input ([rows, 2 * half]); no destination may share memory with
+    another or with a source.  `dead` is the state's dead row, whose
+    gathers the kernel skips (its words are zero); None skips nothing.
+    One launch for each MESH_JOBS jobs."""
+    if not jobs:
+        return None
+    r = jobs[0][0].shape[0]
+    dsts_all, srcs = [], []
+    for idx, x_in, dsts in jobs:
+        if idx.dim() != 2 or tuple(idx.shape) != (r, K_CAV):
+            raise KernelError(f"mesh_cav_gather_or: table block of shape "
+                              f"{tuple(idx.shape)}, not ({r}, {K_CAV})")
+        if x_in.dim() != 2 or x_in.shape[1] != 2 * half:
+            raise KernelError("mesh_cav_gather_or: state width is not "
+                              "2 * half")
+        _check_dsts("mesh_cav_gather_or", dsts, (r, 2 * half))
+        dsts_all += dsts
+        srcs += [idx, x_in]
+    _check_disjoint("mesh_cav_gather_or", dsts_all, srcs)
+    if not _on_cuda(*srcs, *dsts_all):
+        return reference.mesh_cav_gather_or(jobs, half, dead)
+    for t in srcs + dsts_all:
+        _check(t, "mesh_cav_gather_or")
+    if any(job[0].data_ptr() % 16 for job in jobs):
+        raise KernelError("mesh_cav_gather_or: table rows not 16-byte "
+                          "aligned")
+    if r == 0 or half <= 0:
+        return None
+    vec = int(half % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in
+                                    [job[1] for job in jobs] + dsts_all))
+    for c in range(0, len(jobs), MESH_JOBS):
+        chunk = jobs[c: c + MESH_JOBS]
+        ptrs, counts = _ptr_array([(job[:2], job[2]) for job in chunk])
+        _run("ell_mesh_cav_gather_or", jobs[0][0].device, ptrs, counts,
+             len(chunk), r, half, -1 if dead is None else dead, vec)
+        _count("mesh_cav_gather_or")
+    return None
+
+
+def mesh_perm_program(cur: torch.Tensor, x0: torch.Tensor,
+                      code: torch.Tensor, offset: int, length: int,
+                      dsts: list, half: Optional[int] = None,
+                      depth: Optional[int] = None) -> None:
+    """perm_program of `cur` (one replica of a data shard), its rows
+    written into rows [offset, offset + length) of every tensor of dsts
+    (the shard's co-located replicas, `cur` among them; 1 to MESH_DSTS,
+    of cur's shape, sharing no memory), in place.  In place is legal when
+    every READ is of the slot itself or of a range disjoint from it (the
+    plan checks it; the twin raises otherwise).  `half` and `depth` as
+    perm_program's."""
+    _check_dsts("mesh_perm_program", dsts, tuple(cur.shape))
+    _check_disjoint("mesh_perm_program", dsts, [x0, code])
+    if not _on_cuda(cur, x0, code, *dsts):
+        return reference.mesh_perm_program(cur, x0, code, offset, length,
+                                           dsts, half, depth)
+    for t, name in ((cur, "cur"), (x0, "x0"), (code, "code")):
+        _check(t, name)
+    if length == 0:
+        return None
+    w = cur.shape[1]
+    if half is not None and 2 * half != w:
+        raise KernelError(f"mesh_perm_program: half {half} != width {w} / 2")
+    n_ins = code.shape[0] // 2
+    if n_ins > MAX_PROGRAM:
+        raise KernelError(f"mesh_perm_program: {n_ins} instructions (> "
+                          f"{MAX_PROGRAM})")
+    depth = MAX_STACK if depth is None else depth
+    if not 0 < depth <= MAX_STACK:
+        raise KernelError(f"mesh_perm_program: stack depth {depth}")
+    seed = x0[offset: offset + length]
+    outs = [t[offset: offset + length] for t in dsts]
+    for t in dsts:
+        _check(t, "dsts")
+    vec = int((half or w) % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in [cur, seed] + outs))
+    ptrs = (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs))
+    _run("ell_mesh_perm_program", cur.device, _ptr(cur), _ptr(code), n_ins,
+         length, w, half or 0, depth, vec, _ptr(seed), ptrs, len(outs))
+    _count("mesh_perm_program")
+    return None
+
+
+def mesh_sweep_delta(x_new: torch.Tensor, x_old: torch.Tensor, dead: int,
+                     out: torch.Tensor, dsts: list) -> None:
+    """sweep_delta of one data shard's co-located replicas: zero the dead
+    row of every tensor of dsts (x_new among them; 1 to MESH_DSTS of its
+    shape), and add [popcount(x_new ^ x_old), any(x_new != x_old)] (x_new's
+    dead row read as zero) into `out`, int32 [2] that the caller zeroed:
+    a slot of one device tensor for the whole sweep, read back once."""
+    if x_new.shape != x_old.shape or x_new.dim() != 2:
+        raise KernelError("mesh_sweep_delta: states are not two equal "
+                          "[N, W]")
+    if tuple(out.shape) != (2,):
+        raise KernelError("mesh_sweep_delta: out is not [2]")
+    if not 0 <= dead < x_new.shape[0]:
+        raise KernelError(f"mesh_sweep_delta: dead row {dead} outside the "
+                          f"state")
+    _check_dsts("mesh_sweep_delta", dsts, tuple(x_new.shape))
+    _check_disjoint("mesh_sweep_delta", dsts, [x_old, out])
+    if not _on_cuda(x_new, x_old, out, *dsts):
+        return reference.mesh_sweep_delta(x_new, x_old, dead, out, dsts)
+    for t, name in ((x_new, "x_new"), (x_old, "x_old"), (out, "out")):
+        _check(t, name)
+    for t in dsts:
+        _check(t, "dsts")
+    nt, w = x_new.shape
+    ptrs = (ctypes.c_void_p * len(dsts))(*(t.data_ptr() for t in dsts))
+    _run("ell_mesh_sweep_delta", x_new.device, _ptr(x_new), _ptr(x_old), nt,
+         w, dead, ptrs, len(dsts), _ptr(out))
+    _count("mesh_sweep_delta")
     return None

@@ -22,6 +22,14 @@
 //                     its compute half (parallel/sharding.py:69): the OR
 //                     all-reduce of a data shard's co-located replicas;
 //                     peers on another card reach it as plain copies
+//   mesh_gather_or, mesh_cav_gather_or, mesh_perm_program,
+//   mesh_sweep_delta
+//                  <- the sharded ELL sweep, ShardedEllKernel's step
+//                     (parallel/sharding.py:474-552): each pass's gathers
+//                     over every shard block on a card in one launch,
+//                     written into every co-located replica (the tiled
+//                     all_gathers between them), the permission ops and
+//                     the convergence delta once a data shard a card
 //
 // State layout: x is int32 [NT, W] row-major (W packed words per row, bit
 // b of word w = query column 32*w + b).  Words are handled as uint32
@@ -52,7 +60,11 @@
 // place of a launch and a copy per peer; edge_or takes four edges a
 // thread, skips the dead row's edges and makes one atomic a destination
 // run; word_cols_T stages whole plane rows in shared memory and writes
-// each requested column as a coalesced segment.  At the main path's sizes each
+// each requested column as a coalesced segment.  The sharded sweep's
+// kernels (mesh_*) replace per-shard launches that went through scratch,
+// an input copy of every replica and block copies between replicas: no
+// launch of a pass reads what the pass writes, so each writes its rows
+// straight into every replica on its card.  At the main path's sizes each
 // launch runs for microseconds, close to the cost of a launch, and the
 // wrapper's host path per call is longer than most; the single-device
 // sweep therefore replays its launches from a CUDA graph (ops/ell.py).
@@ -187,14 +199,71 @@ template <> struct Chunk<uint4> {
 // slots hold the dead row, whose word stays in L1; the copy-back the
 // scratch path adds (a read and a write of every output row) is what
 // writing in place saves.
-template <typename V, int P>
-__global__ void __launch_bounds__(kBlock)
-gather_or_kernel(const int32_t* cur, const int32_t* x_in, long long in_lo,
-                 unsigned long long in_span,
-                 const int32_t* __restrict__ idx, int k, int iv,
-                 long long nrows, int W, const int32_t* __restrict__ seed,
-                 const int32_t* __restrict__ wc_bits,
-                 const int32_t* __restrict__ wc_live, int32_t* out) {
+//
+// The body is `gather_rows`, written once over where rows come from
+// (`Src`) and where output chunks go (`Out`): `StateSrc` and `OneOut` for
+// this kernel, `SplitSrc` and `DstList` for mesh_gather_or below.
+constexpr int kMeshDsts = 16;   // MESH_DSTS: replicas a mesh launch writes
+constexpr int kMeshJobs = 16;   // MESH_JOBS: shard blocks a mesh launch
+
+// Rows of `cur`, those in [in_lo, in_lo + in_span) read from `x_in`.
+struct StateSrc {
+    const int32_t* cur;
+    const int32_t* x_in;
+    long long in_lo;
+    unsigned long long in_span;
+    __device__ __forceinline__ const int32_t* row(int s, int W) const {
+        return ((unsigned long long)(s - in_lo) < in_span ? x_in : cur) +
+               (long long)s * W;
+    }
+};
+
+// Rows [0, split) of `lo`, and row s >= split as row s - split of `hi`.
+struct SplitSrc {
+    const int32_t* lo;
+    const int32_t* hi;
+    int split;
+    __device__ __forceinline__ const int32_t* row(int s, int W) const {
+        return s < split ? lo + (long long)s * W
+                         : hi + (long long)(s - split) * W;
+    }
+};
+
+// One output: chunk `o` (a word offset) stored at p + o, or ORed into it.
+struct OneOut {
+    int32_t* p;
+    template <typename V>
+    __device__ __forceinline__ void st(long long o, V v) const {
+        Chunk<V>::st(p + o, v);
+    }
+    template <typename V>
+    __device__ __forceinline__ void or_st(long long o, V v) const {
+        Chunk<V>::st(p + o, Chunk<V>::or_(Chunk<V>::ld(p + o), v));
+    }
+};
+
+// The same chunk into each of n outputs: the co-located replicas of one
+// data shard, each pointer at the same row of its replica.
+struct DstList {
+    int32_t* p[kMeshDsts];
+    int n;
+    template <typename V>
+    __device__ __forceinline__ void st(long long o, V v) const {
+        for (int q = 0; q < n; ++q) Chunk<V>::st(p[q] + o, v);
+    }
+    template <typename V>
+    __device__ __forceinline__ void or_st(long long o, V v) const {
+        for (int q = 0; q < n; ++q)
+            Chunk<V>::st(p[q] + o, Chunk<V>::or_(Chunk<V>::ld(p[q] + o), v));
+    }
+};
+
+template <typename V, int P, typename Src, typename Out>
+__device__ __forceinline__ void
+gather_rows(const Src& src, const int32_t* __restrict__ idx, int k, int iv,
+            long long nrows, int W, const int32_t* __restrict__ seed,
+            const int32_t* __restrict__ wc_bits,
+            const int32_t* __restrict__ wc_live, const Out& out) {
     using C = Chunk<V>;
     const int chunks = W / C::N;
     const int kp = k / P;
@@ -223,11 +292,7 @@ gather_or_kernel(const int32_t* cur, const int32_t* x_in, long long in_lo,
             r = u / chunks;
             c = (int)(u - r * chunks) * C::N;
         }
-        auto row = [&](int s) -> V {
-            const int32_t* src =
-                (unsigned long long)(s - in_lo) < in_span ? x_in : cur;
-            return C::ld(src + (long long)s * W + c);
-        };
+        auto row = [&](int s) -> V { return C::ld(src.row(s, W) + c); };
         V v = C::zero();
         if (active) {
             const int32_t* ir = idx + r * k + part * kp;
@@ -263,8 +328,55 @@ gather_or_kernel(const int32_t* cur, const int32_t* x_in, long long in_lo,
                 v = C::or_(v, C::ld(wc_live + (long long)term * W + c));
             }
         }
-        C::st(out + r * W + c, v);
+        out.st(r * W + c, v);
     }
+}
+
+template <typename V, int P>
+__global__ void __launch_bounds__(kBlock)
+gather_or_kernel(const int32_t* cur, const int32_t* x_in, long long in_lo,
+                 unsigned long long in_span,
+                 const int32_t* __restrict__ idx, int k, int iv,
+                 long long nrows, int W, const int32_t* __restrict__ seed,
+                 const int32_t* __restrict__ wc_bits,
+                 const int32_t* __restrict__ wc_live, int32_t* out) {
+    gather_rows<V, P>(StateSrc{cur, x_in, in_lo, in_span}, idx, k, iv, nrows,
+                      W, seed, wc_bits, wc_live, OneOut{out});
+}
+
+// mesh_gather_or: the gathers of one pass of the sharded ELL sweep
+// (parallel/sharding.py ShardedEllKernel.step) for every shard block on
+// one card, in one launch: block job j = blockIdx.y computes its table
+// block's rows as gather_or_kernel does, reading rows [0, split) from
+// `lo` and the rows past `split` from `hi` (the sweep's input, or the
+// previous aux pass's output), and writes each output chunk into every
+// co-located replica of its data shard (`out`): the all_gather between
+// replicas on one card is those writes, not copies.  The jobs are passed
+// by value (as or_combine's Parts) and read from the constant bank.
+// No destination overlaps a source of the launch (the wrapper checks), so
+// no thread reads a word that another writes.  Bound by bytes: each
+// distinct table block and source row once a card, each replica's output
+// rows once.
+struct GatherJob {
+    const int32_t* idx;       // [nrows, k] table block
+    const int32_t* lo;
+    const int32_t* hi;
+    const int32_t* seed;      // [nrows, W] or null
+    const int32_t* wc_bits;   // [nrows] or null
+    const int32_t* wc_live;   // [terms, W] or null
+    DstList out;
+};
+struct GatherJobs {
+    GatherJob j[kMeshJobs];
+};
+
+template <typename V, int P>
+__global__ void __launch_bounds__(kBlock)
+mesh_gather_or_kernel(const __grid_constant__ GatherJobs jobs, int split,
+                      int k, int iv, long long nrows, int W) {
+    const GatherJob& j = jobs.j[blockIdx.y];
+    gather_rows<V, P>(SplitSrc{j.lo, j.hi, split}, j.idx, k, iv, nrows, W,
+                      j.seed, j.wc_bits, j.wc_live, j.out);
 }
 
 // S stack slots of chunks as named members (head, then the tail's), not
@@ -324,11 +436,17 @@ template <typename V> struct Slots<V, 0> {
 // slot itself reads only the word its own thread writes, before writing
 // it.  Bound by bytes: the rows each READ reads, the seed rows and the
 // written rows.
-template <typename V, int S, bool PLANES>
+//
+// `Out` is where the result rows go: `OneOut`, or (mesh_perm_program) a
+// `DstList` of the data shard's co-located replicas, each at the slot's
+// first row; `cur` is one of them, so every replica gets the program of
+// that one, which the sharded sweep keeps equal to the others.
+template <typename V, int S, bool PLANES, typename Out>
 __global__ void __launch_bounds__(kBlock)
 perm_program_kernel(const int32_t* cur, const int32_t* __restrict__ code,
                     int n_ins, long long length, int W, int H,
-                    const int32_t* __restrict__ seed, int32_t* out) {
+                    const int32_t* __restrict__ seed,
+                    const __grid_constant__ Out out) {
     using C = Chunk<V>;
     extern __shared__ int2 prog[];
     for (int p = threadIdx.x; p < n_ins; p += blockDim.x)
@@ -405,9 +523,8 @@ perm_program_kernel(const int32_t* cur, const int32_t* __restrict__ code,
             ++pc;
         }
         const long long o = i * W + c;
-        C::st(out + o, C::or_(sd.head, C::ld(seed + o)));
-        if constexpr (PLANES)
-            C::st(out + o + H, C::or_(sm.head, C::ld(seed + o + H)));
+        out.st(o, C::or_(sd.head, C::ld(seed + o)));
+        if constexpr (PLANES) out.st(o + H, C::or_(sm.head, C::ld(seed + o + H)));
     }
 }
 
@@ -441,11 +558,11 @@ perm_program_kernel(const int32_t* cur, const int32_t* __restrict__ code,
 // are a few hundred KB at the caveated deployment's size.
 constexpr int kCav = 8;  // the caveat table's width (ops/ell.py K_CAV)
 
-template <typename V, typename I>
-__global__ void __launch_bounds__(kBlock)
-cav_gather_or_kernel(const int32_t* __restrict__ x,
-                     const int32_t* __restrict__ idx, I R, int H, int dead,
-                     int32_t* __restrict__ out) {
+template <typename V, typename I, typename Out>
+__device__ __forceinline__ void cav_rows(const int32_t* __restrict__ x,
+                                         const int32_t* __restrict__ idx,
+                                         I R, int H, int dead,
+                                         const Out& out) {
     using C = Chunk<V>;
     const long long S = 2LL * H;
     const I stride = (I)gridDim.x * blockDim.x;
@@ -459,7 +576,7 @@ cav_gather_or_kernel(const int32_t* __restrict__ x,
         for (int j = 0; j < kCav; ++j)
             live |= (s[j] != dead ? 1u : 0u) << j;
         if (!live) continue;
-        int32_t* o = out + (long long)r * S + H;
+        const long long o = (long long)r * S + H;
         for (int c = 0; c < H; c += C::N) {
             V v = C::zero();
 #pragma unroll
@@ -467,9 +584,42 @@ cav_gather_or_kernel(const int32_t* __restrict__ x,
                 if (live >> j & 1u)
                     v = C::or_(v, C::ld(x + (long long)s[j] * S + H + c));
             }
-            if (C::any(v)) C::st(o + c, C::or_(C::ld(o + c), v));
+            if (C::any(v)) out.or_st(o + c, v);
         }
     }
+}
+
+template <typename V, typename I>
+__global__ void __launch_bounds__(kBlock)
+cav_gather_or_kernel(const int32_t* __restrict__ x,
+                     const int32_t* __restrict__ idx, I R, int H, int dead,
+                     int32_t* __restrict__ out) {
+    cav_rows<V, I>(x, idx, R, H, dead, OneOut{out});
+}
+
+// mesh_cav_gather_or: the caveat gathers of one sharded sweep for every
+// shard block on one card, in one launch (block job j = blockIdx.y):
+// cav_gather_or's rows over the job's caveat table block, each nonzero OR
+// read-modify-written into the maybe chunk of every co-located replica of
+// its data shard (`out`, each pointer at the block's first row).  `x` is
+// the sweep's input; no replica is a source.  Bound by bytes: each
+// distinct table block once a card, and the live rows' sources and
+// maybe chunks in each replica.
+struct CavJob {
+    const int32_t* idx;       // [R, kCav] table block
+    const int32_t* x;         // the sweep's input state
+    DstList out;
+};
+struct CavJobs {
+    CavJob j[kMeshJobs];
+};
+
+template <typename V, typename I>
+__global__ void __launch_bounds__(kBlock)
+mesh_cav_gather_or_kernel(const __grid_constant__ CavJobs jobs, I R, int H,
+                          int dead) {
+    const CavJob& j = jobs.j[blockIdx.y];
+    cav_rows<V, I>(j.x, j.idx, R, H, dead, j.out);
 }
 
 // out[0] += popcount(a ^ b) (mod 2^32), out[1] |= any(a != b)
@@ -481,6 +631,40 @@ __global__ void sweep_delta_kernel(const int32_t* __restrict__ a,
     for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
          t < n; t += stride) {
         const uint32_t d = (uint32_t)(a[t] ^ b[t]);
+        cnt += __popc(d);
+        any |= d;
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+        cnt += __shfl_down_sync(0xffffffffu, cnt, o);
+        any |= __shfl_down_sync(0xffffffffu, any, o);
+    }
+    if ((threadIdx.x & 31) == 0) {
+        if (cnt) atomicAdd(out, cnt);
+        if (any) atomicOr(out + 1, 1u);
+    }
+}
+
+// mesh_sweep_delta: sweep_delta for one data shard's co-located
+// replicas in one launch: out[0] += popcount(a ^ b), out[1] |= any(a !=
+// b), with the dead row's words [dead_lo, dead_lo + W) of `a` read as
+// zero, and that row zeroed in every replica of `dsts` (`a` among them)
+// by the threads that read it.  `out` is zeroed by the caller once a
+// batch (a slot a sweep), so the launch has no memset.  Bound by bytes:
+// a and b once, the dead row of each replica.
+__global__ void mesh_sweep_delta_kernel(const int32_t* a,
+                                        const int32_t* __restrict__ b,
+                                        long long n, long long dead_lo,
+                                        int W, const __grid_constant__
+                                        DstList dsts,
+                                        uint32_t* __restrict__ out) {
+    uint32_t cnt = 0, any = 0;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         t < n; t += stride) {
+        const bool dead = (unsigned long long)(t - dead_lo) < (unsigned)W;
+        const uint32_t d = (dead ? 0u : (uint32_t)a[t]) ^ (uint32_t)b[t];
+        if (dead)
+            for (int q = 0; q < dsts.n; ++q) dsts.p[q][t] = 0;
         cnt += __popc(d);
         any |= d;
     }
@@ -1152,23 +1336,80 @@ EXPORT int ell_gather_or(const void* cur, const void* x_in, long long in_lo,
                                 cudaMemcpyDeviceToDevice, s);
 }
 
-template <typename V, int S, bool PLANES>
-int launch_perm(const void* cur, const void* code, int n_ins,
-                long long length, int W, int H, const void* seed, void* out,
-                cudaStream_t s) {
-    const long long total = length * (H / Chunk<V>::N);
-    perm_program_kernel<V, S, PLANES>
-        <<<grid_for(total, kBlock, 1LL << 30), kBlock,
-           (size_t)n_ins * sizeof(int2), s>>>(
-            (const int32_t*)cur, (const int32_t*)code, n_ins, length, W, H,
-            (const int32_t*)seed, (int32_t*)out);
+// A DstList of the n (1..kMeshDsts) device pointers in the host array
+// `p`; false when n is out of range.
+inline bool dst_list(void* const* p, int n, DstList* out) {
+    if (n < 1 || n > kMeshDsts) return false;
+    *out = DstList{};
+    for (int q = 0; q < n; ++q) out->p[q] = (int32_t*)p[q];
+    out->n = n;
+    return true;
+}
+
+// One pass of the sharded sweep's gathers over `n_jobs` (1..kMeshJobs)
+// table blocks of `nrows` x k indices: `ptrs` holds 6 + kMeshDsts
+// pointers a job (idx, lo, hi, seed, wc_bits, wc_live, then its
+// destinations, `n_dst[j]` of them), `split` the first row read from
+// `hi`.  `vec` and `iv` as ell_gather_or's, over every job's pointers.
+EXPORT int ell_mesh_gather_or(void* const* ptrs, const int* n_dst,
+                              int n_jobs, int split, int k, int iv,
+                              long long nrows, int W, int vec,
+                              void* stream) {
+    if (nrows <= 0 || n_jobs <= 0) return 0;
+    if (n_jobs > kMeshJobs) return (int)cudaErrorInvalidValue;
+    constexpr int kPer = 6 + kMeshDsts;
+    GatherJobs jobs = {};
+    for (int j = 0; j < n_jobs; ++j) {
+        void* const* p = ptrs + j * kPer;
+        GatherJob& g = jobs.j[j];
+        g.idx = (const int32_t*)p[0];
+        g.lo = (const int32_t*)p[1];
+        g.hi = (const int32_t*)p[2];
+        g.seed = (const int32_t*)p[3];
+        g.wc_bits = (const int32_t*)p[4];
+        g.wc_live = (const int32_t*)p[5];
+        if (!dst_list(p + 6, n_dst[j], &g.out))
+            return (int)cudaErrorInvalidValue;
+    }
+    cudaStream_t s = (cudaStream_t)stream;
+    const int parts = k >= 16 && k % (4 * iv) == 0 ? 4 : 1;
+    const long long total = nrows * (vec ? W / 4 : W) * parts;
+    const int block =
+        total * n_jobs < 2LL * kSMs * kBlock ? kBlock / 4 : kBlock;
+    const dim3 grid(grid_for(total, block, 1LL << 30), (unsigned int)n_jobs);
+    if (vec && parts == 4) {
+        mesh_gather_or_kernel<uint4, 4><<<grid, block, 0, s>>>(
+            jobs, split, k, iv, nrows, W);
+    } else if (vec) {
+        mesh_gather_or_kernel<uint4, 1><<<grid, block, 0, s>>>(
+            jobs, split, k, iv, nrows, W);
+    } else if (parts == 4) {
+        mesh_gather_or_kernel<uint32_t, 4><<<grid, block, 0, s>>>(
+            jobs, split, k, iv, nrows, W);
+    } else {
+        mesh_gather_or_kernel<uint32_t, 1><<<grid, block, 0, s>>>(
+            jobs, split, k, iv, nrows, W);
+    }
     return last_error();
 }
 
-template <typename V, bool PLANES>
+template <typename V, int S, bool PLANES, typename Out>
+int launch_perm(const void* cur, const void* code, int n_ins,
+                long long length, int W, int H, const void* seed,
+                const Out& out, cudaStream_t s) {
+    const long long total = length * (H / Chunk<V>::N);
+    perm_program_kernel<V, S, PLANES, Out>
+        <<<grid_for(total, kBlock, 1LL << 30), kBlock,
+           (size_t)n_ins * sizeof(int2), s>>>(
+            (const int32_t*)cur, (const int32_t*)code, n_ins, length, W, H,
+            (const int32_t*)seed, out);
+    return last_error();
+}
+
+template <typename V, bool PLANES, typename Out>
 int launch_perm_depth(int depth, const void* cur, const void* code,
                       int n_ins, long long length, int W, int H,
-                      const void* seed, void* out, cudaStream_t s) {
+                      const void* seed, const Out& out, cudaStream_t s) {
     if (depth <= 4)
         return launch_perm<V, 4, PLANES>(cur, code, n_ins, length, W, H,
                                          seed, out, s);
@@ -1176,17 +1417,15 @@ int launch_perm_depth(int depth, const void* cur, const void* code,
                                              seed, out, s);
 }
 
-// `half` > 0: the tri-state program over rows of W = 2 * half words.
-// `depth`: the program's stack depth (<= kMaxStack); `vec`: the plane
-// width (half, else W) a multiple of 4 and the row pointers 16-byte
-// aligned.  `out` may be the output rows of `cur` (see the kernel).
-EXPORT int ell_perm_program(const void* cur, const void* code, int n_ins,
-                            long long length, int W, int half, int depth,
-                            int vec, const void* seed, void* out,
-                            void* stream) {
-    if (length <= 0) return 0;
+// The variant for a program: `half` > 0 the tri-state program over rows
+// of W = 2 * half words; `depth` its stack depth (<= kMaxStack); `vec`
+// the plane width (half, else W) a multiple of 4 and the row pointers
+// 16-byte aligned.
+template <typename Out>
+int launch_perm_for(const void* cur, const void* code, int n_ins,
+                    long long length, int W, int half, int depth, int vec,
+                    const void* seed, const Out& out, cudaStream_t s) {
     if (depth > kMaxStack) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
     const int H = half > 0 ? half : W;
     if (half > 0) {
         // 16 slots of 16-byte definite/maybe pairs need 255 registers and
@@ -1204,20 +1443,46 @@ EXPORT int ell_perm_program(const void* cur, const void* code, int n_ins,
                                                     s);
 }
 
-template <typename V>
+// `out` may be the output rows of `cur` (see the kernel).
+EXPORT int ell_perm_program(const void* cur, const void* code, int n_ins,
+                            long long length, int W, int half, int depth,
+                            int vec, const void* seed, void* out,
+                            void* stream) {
+    if (length <= 0) return 0;
+    return launch_perm_for(cur, code, n_ins, length, W, half, depth, vec,
+                           seed, OneOut{(int32_t*)out},
+                           (cudaStream_t)stream);
+}
+
+// The program of `cur` (one replica) written into each of the `n_dst`
+// slot rows `dsts` (the data shard's co-located replicas, `cur`'s among
+// them), in place: its READs are of other slots or of the thread's own
+// word (the wrapper checks the program).
+EXPORT int ell_mesh_perm_program(const void* cur, const void* code,
+                                 int n_ins, long long length, int W,
+                                 int half, int depth, int vec,
+                                 const void* seed, void* const* dsts,
+                                 int n_dst, void* stream) {
+    if (length <= 0) return 0;
+    DstList out;
+    if (!dst_list(dsts, n_dst, &out)) return (int)cudaErrorInvalidValue;
+    return launch_perm_for(cur, code, n_ins, length, W, half, depth, vec,
+                           seed, out, (cudaStream_t)stream);
+}
+
+template <typename V, typename I>
 int launch_cav(const void* x, const void* idx, long long R, int half,
                int dead, void* out, cudaStream_t s) {
     const unsigned int grid = grid_for(R, kBlock, 1LL << 30);
     const int32_t *x_ = (const int32_t*)x, *i_ = (const int32_t*)idx;
-    int32_t* o_ = (int32_t*)out;
-    if (R * kCav < 0x7fffffffLL - (long long)kBlock * kCav) {
-        cav_gather_or_kernel<V, unsigned int><<<grid, kBlock, 0, s>>>(
-            x_, i_, (unsigned int)R, half, dead, o_);
-    } else {
-        cav_gather_or_kernel<V, long long><<<grid, kBlock, 0, s>>>(
-            x_, i_, R, half, dead, o_);
-    }
+    cav_gather_or_kernel<V, I><<<grid, kBlock, 0, s>>>(
+        x_, i_, (I)R, half, dead, (int32_t*)out);
     return last_error();
+}
+
+// Row and index arithmetic in 32 bits where R * kCav allows it.
+inline bool cav_narrow(long long R) {
+    return R * kCav < 0x7fffffffLL - (long long)kBlock * kCav;
 }
 
 // `idx`: R rows of kCav indices, 16-byte aligned; `vec`: half % 4 == 0
@@ -1228,8 +1493,54 @@ EXPORT int ell_cav_gather_or(const void* x, const void* idx, long long R,
                              void* stream) {
     if (R <= 0 || half <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
-    return vec ? launch_cav<uint4>(x, idx, R, half, dead, out, s)
-               : launch_cav<uint32_t>(x, idx, R, half, dead, out, s);
+    if (cav_narrow(R))
+        return vec ? launch_cav<uint4, unsigned int>(x, idx, R, half, dead,
+                                                     out, s)
+                   : launch_cav<uint32_t, unsigned int>(x, idx, R, half,
+                                                        dead, out, s);
+    return vec ? launch_cav<uint4, long long>(x, idx, R, half, dead, out, s)
+               : launch_cav<uint32_t, long long>(x, idx, R, half, dead, out,
+                                                 s);
+}
+
+template <typename V, typename I>
+int launch_mesh_cav(const CavJobs& jobs, int n_jobs, long long R, int half,
+                    int dead, cudaStream_t s) {
+    const dim3 grid(grid_for(R, kBlock, 1LL << 30), (unsigned int)n_jobs);
+    mesh_cav_gather_or_kernel<V, I><<<grid, kBlock, 0, s>>>(jobs, (I)R,
+                                                           half, dead);
+    return last_error();
+}
+
+// The caveat gathers of `n_jobs` (1..kMeshJobs) table blocks of R rows:
+// `ptrs` holds 2 + kMeshDsts pointers a job (idx, x, then its
+// destinations, each at the block's first state row; `n_dst[j]` of
+// them).  `vec`: half % 4 == 0 and every x and destination 16-byte
+// aligned.
+EXPORT int ell_mesh_cav_gather_or(void* const* ptrs, const int* n_dst,
+                                  int n_jobs, long long R, int half,
+                                  int dead, int vec, void* stream) {
+    if (R <= 0 || half <= 0 || n_jobs <= 0) return 0;
+    if (n_jobs > kMeshJobs) return (int)cudaErrorInvalidValue;
+    constexpr int kPer = 2 + kMeshDsts;
+    CavJobs jobs = {};
+    for (int j = 0; j < n_jobs; ++j) {
+        void* const* p = ptrs + j * kPer;
+        jobs.j[j].idx = (const int32_t*)p[0];
+        jobs.j[j].x = (const int32_t*)p[1];
+        if (!dst_list(p + 2, n_dst[j], &jobs.j[j].out))
+            return (int)cudaErrorInvalidValue;
+    }
+    cudaStream_t s = (cudaStream_t)stream;
+    if (cav_narrow(R))
+        return vec ? launch_mesh_cav<uint4, unsigned int>(jobs, n_jobs, R,
+                                                          half, dead, s)
+                   : launch_mesh_cav<uint32_t, unsigned int>(
+                         jobs, n_jobs, R, half, dead, s);
+    return vec ? launch_mesh_cav<uint4, long long>(jobs, n_jobs, R, half,
+                                                   dead, s)
+               : launch_mesh_cav<uint32_t, long long>(jobs, n_jobs, R, half,
+                                                      dead, s);
 }
 
 // Zero the dead row of `x_new` (the step's last write, ell.py:500), then
@@ -1245,6 +1556,24 @@ EXPORT int ell_sweep_delta(void* x_new, const void* x_old, long long nt,
     const long long n = nt * W;
     sweep_delta_kernel<<<grid_for(n, kBlock, 132 * 16), kBlock, 0, s>>>(
         (const int32_t*)x_new, (const int32_t*)x_old, n, (uint32_t*)out);
+    return last_error();
+}
+
+// sweep_delta over one data shard's co-located replicas: `x_new` one of
+// them, `dsts` all `n_dst` of them, whose dead rows are zeroed; the
+// result is added into `out` (two words the caller zeroed).
+EXPORT int ell_mesh_sweep_delta(const void* x_new, const void* x_old,
+                                long long nt, int W, long long dead,
+                                void* const* dsts, int n_dst, void* out,
+                                void* stream) {
+    DstList zero;
+    if (!dst_list(dsts, n_dst, &zero)) return (int)cudaErrorInvalidValue;
+    const long long n = nt * W;
+    if (n <= 0) return 0;
+    mesh_sweep_delta_kernel<<<grid_for(n, kBlock, 132 * 16), kBlock, 0,
+                              (cudaStream_t)stream>>>(
+        (const int32_t*)x_new, (const int32_t*)x_old, n, dead * W, W, zero,
+        (uint32_t*)out);
     return last_error();
 }
 

@@ -90,6 +90,14 @@ def perm_program(cur: torch.Tensor, x0: torch.Tensor, code: torch.Tensor,
     if in_place and not reads_in_place(ops, offset, length):
         raise ValueError(f"perm_program: in place asked of slot [{offset}, "
                          f"{offset + length}), which a READ overlaps")
+    cur[offset: offset + length] = _program_rows(cur, x0, ops, offset,
+                                                 length, half)
+
+
+def _program_rows(cur: torch.Tensor, x0: torch.Tensor, ops: list,
+                  offset: int, length: int,
+                  half: Optional[int]) -> torch.Tensor:
+    """The rows perm_program writes: program(cur) | x0[same rows]."""
     stack: list = []
     for pc in range(0, len(ops), 2):
         op, arg = ops[pc], ops[pc + 1]
@@ -115,7 +123,7 @@ def perm_program(cur: torch.Tensor, x0: torch.Tensor, code: torch.Tensor,
         else:
             raise ValueError(f"bad perm opcode {op}")
     (result,) = stack
-    cur[offset: offset + length] = result | x0[offset: offset + length]
+    return result | x0[offset: offset + length]
 
 
 def cav_gather_or(cur: torch.Tensor, x_in: torch.Tensor, idx: torch.Tensor,
@@ -265,3 +273,85 @@ def or_combine(parts: list) -> None:
         acc |= p
     for p in parts:
         p.copy_(acc)
+
+
+# -- the sharded ELL sweep (parallel/sharding.py ShardedEllKernel.step) -----
+
+def mesh_gather_or(jobs: list, split: int) -> None:
+    """For each job (idx, lo, hi, seed, wc_bits, wc_live, dsts): y[r] =
+    OR_k src(idx[r, k]) | seed[r] | OR over the set bits t of wc_bits[r]
+    of wc_live[t], src(s) = lo[s] for s < split and hi[s - split] past
+    it; y is written into every tensor of dsts.  Every job reads before
+    any writes (the wrapper refuses a destination that overlaps a
+    source, so the order cannot matter)."""
+    ys = []
+    for idx, lo, hi, seed, wc_bits, wc_live, _ in jobs:
+        src = torch.cat([lo[:split], hi])
+        idx64 = idx.long()
+        if idx.shape[1] == 0:
+            y = torch.zeros((idx.shape[0], src.shape[1]), dtype=src.dtype,
+                            device=src.device)
+        else:
+            y = src[idx64[:, 0]]
+        for k in range(1, idx.shape[1]):
+            y |= src[idx64[:, k]]
+        if seed is not None:
+            y |= seed
+        if wc_bits is not None:
+            for t in range(wc_live.shape[0]):
+                sel = ((wc_bits >> t) & 1).bool()[:, None]
+                y |= torch.where(sel, wc_live[t][None, :], 0)
+        ys.append(y)
+    for job, y in zip(jobs, ys):
+        for dst in job[6]:
+            dst.copy_(y)
+
+
+def mesh_cav_gather_or(jobs: list, half: int,
+                       dead: Optional[int] = None) -> None:
+    """For each job (idx, x_in, dsts): dst[r, half:] |= OR_k x_in[idx[r,
+    k], half:] for every row r of idx and every tensor dst of dsts (row
+    blocks of the replicas).  Every index is gathered, `dead`'s too (the
+    kernel skips them because that row is zero; gathering them here
+    checks it)."""
+    for idx, x_in, dsts in jobs:
+        idx64 = idx.long()
+        extra = x_in[idx64[:, 0], half:]
+        for k in range(1, idx.shape[1]):
+            extra |= x_in[idx64[:, k], half:]
+        for dst in dsts:
+            dst[:, half:] |= extra
+
+
+def mesh_perm_program(cur: torch.Tensor, x0: torch.Tensor,
+                      code: torch.Tensor, offset: int, length: int,
+                      dsts: list, half: Optional[int] = None,
+                      depth: Optional[int] = None) -> None:
+    """perm_program(cur)'s rows written into rows [offset, offset +
+    length) of every tensor of dsts, in place: refused (ValueError) for a
+    program whose READs overlap its slot other than the slot itself
+    (`reads_in_place`).  `depth` changes nothing here."""
+    ops = code.tolist()
+    if not reads_in_place(ops, offset, length):
+        raise ValueError(f"mesh_perm_program: slot [{offset}, "
+                         f"{offset + length}) is read by an overlapping "
+                         f"READ")
+    rows = _program_rows(cur, x0, ops, offset, length, half)
+    for dst in dsts:
+        dst[offset: offset + length] = rows
+
+
+def mesh_sweep_delta(x_new: torch.Tensor, x_old: torch.Tensor, dead: int,
+                     out: torch.Tensor, dsts: list) -> None:
+    """Zero the dead row of every tensor of dsts, then add into out (int32
+    [2]) [popcount(x_new ^ x_old), any(x_new != x_old)] with x_new's dead
+    row read as zero: out[0] mod 2^32 (as int32), out[1] ORed."""
+    d = x_new ^ x_old
+    d[dead] = x_old[dead]
+    for dst in dsts:
+        dst[dead] = 0
+    cnt = (int(popcount32(d).sum()) + int(out[0])) & 0xFFFFFFFF
+    if cnt >= 1 << 31:
+        cnt -= 1 << 32
+    out[0] = cnt
+    out[1] = int(out[1]) | int(bool((d != 0).any()))

@@ -701,8 +701,8 @@ class _ShardedEllGraph(_EllGraph):
 
     def _note_row(self, table: str, row: int, old: np.ndarray,
                   new: np.ndarray) -> None:
-        """The sharded gathers always go through scratch: nothing to
-        prove."""
+        """The sharded sweep reads no buffer that a pass writes
+        (parallel/sharding.py): nothing to prove."""
 
     def flush(self) -> bool:
         changed = False

@@ -8,9 +8,10 @@ virtual CPU devices.  The port keeps that shape: a `Mesh` is a grid of
 shard slots, each bound to a torch device (a device may repeat, so eight
 shards can share one card or the CPU), every shard holds its own blocks
 of the tables and its own state replica, and the collectives are copies
-between the shards' buffers (parallel/collectives.py).  On several cards
-the same code places the shards on different cards and the copies become
-peer copies.
+between the shards' buffers (parallel/collectives.py) or, on the ELL
+sweep, writes of one kernel into every replica on its card.  On several
+cards the same code places the shards on different cards and the copies
+become peer copies.
 
 - `data` axis — the packed word axis of the batch: each shard owns W/D
   uint32 words (32 query columns each) and seeds only those columns.
@@ -29,19 +30,28 @@ for the sweep, which follows the reference's `_evaluate_shard_fn`.
 from __future__ import annotations
 
 import threading
+from collections import namedtuple
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..ops import kernels
-from ..ops.ell import (K_AUX, _Arena, _to_device, batch_words,
+from ..ops.ell import (K_AUX, _to_device, batch_words,
                        build_cav_tables, build_tables, compile_perm_program)
 from ..ops.ell import MAX_ITERATIONS as ELL_MAX
 from ..ops.graph_compile import GraphProgram
 from ..ops.spmv import KernelCache as SegmentKernelCache
+from ..ops.kernels.reference import reads_in_place
 from ..ops.spmv import MAX_ITERATIONS, bucket, pad_edges
-from .collectives import all_gather_rows, or_allreduce, reduce_sweep_deltas
+from .collectives import (all_gather_rows, or_allreduce, reduce_data_deltas,
+                          reduce_sweep_deltas)
+
+# One shard's state buffers of a bucket: the seed, the two sweep states the
+# fixpoint loop swaps between (the seed is the first sweep's input), and
+# the [a_pad, width] rows the aux passes ping-pong with `a` or `b`'s aux
+# rows.
+_ShardArena = namedtuple("_ShardArena", "x0 a b aux")
 
 
 class Mesh:
@@ -219,20 +229,28 @@ class ShardedEllKernel:
     own replica state int32 [n_pad + a_pad, W/D], or [.., 2W/D] with
     planes (definite words, then maybe words, the port's halves layout).
 
-    One sweep (the reference's `_evaluate_shard_fn.step`, Jacobi): every
-    replica starts as a copy of the sweep's input; `aux_passes` times,
-    each shard gathers its aux block (`ell_gather_or`) and the aux blocks
-    are all_gathered; each shard gathers its main block with the seed and
-    the wildcard terms of its rows, and the main blocks are all_gathered;
-    with planes each shard ORs the caveat closure of its caveat block into
-    the maybe words (`cav_gather_or`, reading the sweep's input) and those
-    maybe words are all_gathered; then every replica runs the permission
-    ops (`perm_program`) and `sweep_delta`.  Each shard writes only its
-    own block before an all_gather, and every gather of a pass runs before
-    that pass's all_gather, so each read sees the reference's values:
-    an aux pass reads the input's main rows and the previous pass's aux
-    rows, the main gather the input's main rows and the refreshed aux
-    rows, the caveat gather the input only.
+    One sweep (the reference's `_evaluate_shard_fn.step`, Jacobi) from the
+    replicas `x` into the replicas `cur`, each pass one launch a card over
+    every shard block on it (`step`): `aux_passes` times, the aux blocks
+    (`mesh_gather_or`; the first pass reads everything from `x`, a later
+    one `x`'s main rows and the previous pass's aux rows, which ping-pong
+    between `cur`'s aux rows and the arena's `aux` buffer so that the last
+    pass lands in `cur`); then the main blocks with the seed and the
+    wildcard terms of their rows (reading `x`'s main rows and `cur`'s
+    final aux rows); with planes the caveat closure of each caveat block
+    ORed into the maybe words (`mesh_cav_gather_or`, reading `x`); then
+    the permission ops (`mesh_perm_program`) and the delta
+    (`mesh_sweep_delta`, which zeroes the dead row) once per data shard a
+    card.  No pass reads a buffer that one of its launches writes, so
+    every gather writes `cur` directly, and every row of `cur` is
+    rewritten (main rows by the main gather, aux rows by the last aux
+    pass, the dead row zeroed): the sweep copies no input.  Each launch
+    reads one replica of a data shard on its card (the lead: the first
+    there) and writes every replica of that shard on the card, so
+    co-located replicas get their peers' blocks from the kernel that
+    computes them, with no copy; a replica on another card gets each
+    block by a copy (`all_gather_rows(written=True)`).  The deltas of a
+    sweep land in one device tensor and come back in one readback.
 
     Wildcard liveness comes from the seed (no edge targets a self slot,
     the port's design rule), as on the single-device path.  Every entry
@@ -296,6 +314,18 @@ class ShardedEllKernel:
         self.idx_aux = _blocks(mesh, aux, self.block_aux)
         self.idx_cav = (_blocks(mesh, cav_dev, self.block_cav)
                         if self.planes else None)
+        # per device: {data shard: [graph shards on it]}, the first of
+        # each list the data shard's lead replica there
+        self._placement: dict = {}
+        for d, row in enumerate(mesh.devices):
+            for g, dev in enumerate(row):
+                self._placement.setdefault(dev, {}).setdefault(d, []).append(
+                    g)
+        if any(len(gs) > kernels.MESH_DSTS
+               for per in self._placement.values() for gs in per.values()):
+            raise NotImplementedError(
+                f"more than {kernels.MESH_DSTS} replicas of one data shard "
+                f"on one device")
         self._plans: dict = {}
         self._build_plans()
         self._arenas: dict = {}
@@ -405,13 +435,17 @@ class ShardedEllKernel:
                 np.uint32(1) << np.uint32(i))
         ops = []
         for op in prog.perm_ops:
-            code, depth, self_read = compile_perm_program(op.expr, op.offset,
-                                                          op.length)
+            code, depth, _ = compile_perm_program(op.expr, op.offset,
+                                                  op.length)
             if depth > kernels.MAX_STACK:
                 raise NotImplementedError(
                     f"permission expression needs a stack of {depth} "
                     f"(> {kernels.MAX_STACK})")
-            ops.append((code, op.offset, op.length, not self_read, depth))
+            if not reads_in_place(code.tolist(), op.offset, op.length):
+                raise RuntimeError(
+                    f"permission op at {op.offset} reads rows that overlap "
+                    f"its own slot")
+            ops.append((code, op.offset, op.length, depth))
         b = self.block_main
         for row in self.mesh.devices:
             for dev in row:
@@ -428,9 +462,8 @@ class ShardedEllKernel:
                         dev, copy=True) if blk.any() else None)
                 self._plans[dev] = (
                     wc_ranges, wc_bits,
-                    [(torch.from_numpy(code).to(dev), off, length, in_place,
-                      depth)
-                     for code, off, length, in_place, depth in ops])
+                    [(torch.from_numpy(code).to(dev), off, length, depth)
+                     for code, off, length, depth in ops])
 
     # -- state arenas ---------------------------------------------------------
 
@@ -442,12 +475,15 @@ class ShardedEllKernel:
 
     def _alloc_arenas(self, n_words: int) -> list:
         width = self.width(n_words)
-        return [[_Arena(*(torch.empty((self.rows, width), dtype=torch.int32,
-                                      device=dev) for _ in range(3)))
+        return [[_ShardArena(*(torch.empty((self.rows, width),
+                                           dtype=torch.int32, device=dev)
+                               for _ in range(3)),
+                             torch.empty((self.a_pad, width),
+                                         dtype=torch.int32, device=dev))
                  for dev in row] for row in self.mesh.devices]
 
     def take_arena(self, n_words: int) -> list:
-        """Pop the bucket's per-shard arenas ([D][G] of (x0, a, b);
+        """Pop the bucket's per-shard arenas ([D][G] of (x0, a, b, aux);
         exclusive: two in-flight batches never share one), allocated on
         first use."""
         with self._arena_lock:
@@ -487,66 +523,123 @@ class ShardedEllKernel:
             live.append(live_row)
         return x0, live
 
-    def step(self, cur: list, x: list, x0: list, live: list, tables: tuple,
-             n_words: int, impl=kernels) -> None:
-        """One sweep into the replicas `cur` ([D][G], each a copy of the
-        sweep's input `x` on entry) with `impl`, the kernels or their
-        twins; the collectives run between the passes."""
-        main, aux = tables[0], tables[1]
+    def sweep_calls(self, cur: list, x: list, x0: list, live: list,
+                    aux: list, tables: tuple, n_words: int) -> list:
+        """One sweep from the replicas `x` into `cur` ([D][G] each; `aux`
+        the arenas' aux buffers), as its launches and collectives in
+        order: [(name, fn)], `fn(impl)` running that step with `impl` (the
+        kernels or their twins); `name` is the kernel's, or
+        "all_gather_rows" for the copies to replicas on other devices."""
+        main, aux_t = tables[0], tables[1]
         cav = tables[2] if self.planes else None
-        n_pad, a_pad = self.n_pad, self.a_pad
-        grid = [(d, g, dev) for d, row in enumerate(self.mesh.devices)
-                for g, dev in enumerate(row)]
+        n_pad = self.n_pad
         half = n_words // self.mesh.shape["data"] if self.planes else None
-        for _ in range(self.aux_passes):
-            for d, g, _dev in grid:
-                impl.ell_gather_or(cur[d][g], aux[d][g],
-                                   n_pad + g * self.block_aux)
-            for reps in cur:
-                all_gather_rows(reps, n_pad, n_pad + a_pad)
-        for d, g, dev in grid:
-            wc = self._plans[dev][1][g]
-            impl.ell_gather_or(cur[d][g], main[d][g], g * self.block_main,
-                               x0=x0[d][g], wc_bits=wc,
-                               wc_live=live[d][g] if wc is not None else None)
-        for reps in cur:
-            all_gather_rows(reps, 0, n_pad)
+        aux_of = lambda bufs: [[t[n_pad:] for t in row] for row in bufs]
+        calls: list = []
+
+        def gathers(table, hi, dest, b, seeded):
+            for dev, per_d in self._placement.items():
+                jobs = []
+                for d, gs in per_d.items():
+                    lead = gs[0]
+                    for g in gs:
+                        seed = wcb = wcl = None
+                        if seeded:
+                            seed = x0[d][lead][g * b:(g + 1) * b]
+                            wcb = self._plans[dev][1][g]
+                            wcl = live[d][lead] if wcb is not None else None
+                        jobs.append((table[d][g], x[d][lead], hi[d][lead],
+                                     seed, wcb, wcl,
+                                     [dest[d][j][g * b:(g + 1) * b]
+                                      for j in gs]))
+                calls.append(("mesh_gather_or", lambda impl, jobs=jobs:
+                              impl.mesh_gather_or(jobs, n_pad)))
+            for d, reps in enumerate(dest):
+                calls.append(("all_gather_rows", lambda impl, reps=reps:
+                              all_gather_rows(reps, 0, b * len(reps),
+                                              written=True)))
+
+        # the aux passes: the last one writes cur's aux rows
+        src = aux_of(x)
+        for p in range(self.aux_passes):
+            dest = aux_of(cur) if (self.aux_passes - 1 - p) % 2 == 0 else aux
+            gathers(aux_t, src, dest, self.block_aux, False)
+            src = dest
+        gathers(main, aux_of(cur), cur, self.block_main, True)
         if cav is not None:
-            for d, g, _dev in grid:
-                impl.cav_gather_or(cur[d][g], x[d][g], cav[d][g], half,
-                                   dst_lo=g * self.block_cav,
-                                   dead=self.prog.dead_index)
+            b = self.block_cav
+            for dev, per_d in self._placement.items():
+                jobs = [(cav[d][g], x[d][gs[0]],
+                         [cur[d][j][g * b:(g + 1) * b] for j in gs])
+                        for d, gs in per_d.items() for g in gs]
+                calls.append(("mesh_cav_gather_or", lambda impl, jobs=jobs:
+                              impl.mesh_cav_gather_or(
+                                  jobs, half, self.prog.dead_index)))
             for reps in cur:
-                all_gather_rows(reps, 0, self.rows, cols=(half, 2 * half))
-        for d, g, dev in grid:
-            for code, off, length, in_place, depth in self._plans[dev][2]:
-                impl.perm_program(cur[d][g], x0[d][g], code, off, length,
-                                  in_place=in_place, half=half, depth=depth)
+                calls.append(("all_gather_rows", lambda impl, reps=reps:
+                              all_gather_rows(reps, 0, self.rows,
+                                              cols=(half, 2 * half),
+                                              written=True)))
+        for dev, per_d in self._placement.items():
+            for d, gs in per_d.items():
+                reps = [cur[d][j] for j in gs]
+                for code, off, length, depth in self._plans[dev][2]:
+                    calls.append(("mesh_perm_program",
+                                  lambda impl, d=d, lead=gs[0], reps=reps,
+                                  code=code, off=off, length=length,
+                                  depth=depth: impl.mesh_perm_program(
+                                      cur[d][lead], x0[d][lead], code, off,
+                                      length, reps, half, depth)))
+        return calls
+
+    def step(self, cur: list, x: list, x0: list, live: list, aux: list,
+             tables: tuple, n_words: int, impl=kernels) -> None:
+        """One sweep from the replicas `x` into `cur` with `impl`, the
+        kernels or their twins (`sweep_calls`, in order).  Reads nothing
+        of `cur` or `aux` as they stood before."""
+        for _, fn in self.sweep_calls(cur, x, x0, live, aux, tables,
+                                      n_words):
+            fn(impl)
+
+    def sweep_deltas(self, cur: list, x: list, out: dict,
+                     impl=kernels) -> list:
+        """`mesh_sweep_delta` of each data shard once on each device that
+        holds one of its replicas, into row d of `out[device]` (int32
+        [D, 2], zeroed); every replica's dead row zeroed.  Returns each
+        data shard's row on the device of its replica 0."""
+        dead = self.prog.dead_index
+        for dev, per_d in self._placement.items():
+            for d, gs in per_d.items():
+                impl.mesh_sweep_delta(cur[d][gs[0]], x[d][gs[0]], dead,
+                                      out[dev][d], [cur[d][j] for j in gs])
+        return [out[row[0]][d] for d, row in enumerate(self.mesh.devices)]
 
     def evaluate(self, q_idx, n_words: int, tables: tuple, arenas: list,
                  impl=kernels) -> tuple:
-        """Seed, then sweep to the fixpoint (or the iteration cap).
+        """Seed, then sweep to the fixpoint (or the iteration cap): the
+        first sweep reads the seed, later ones swap the arenas' a and b.
         Returns ([D][G] final replica states — arena buffers —, trace)."""
-        dead = self.prog.dead_index
         x0, live = self.seed(q_idx, n_words, arenas, impl)
-        x = [[ar.a for ar in row] for row in arenas]
+        aux = [[ar.aux for ar in row] for row in arenas]
+        x = x0
         cur = [[ar.b for ar in row] for row in arenas]
-        for xr, x0r in zip(x, x0):
-            for a, b in zip(xr, x0r):
-                a.copy_(b)
+        spare = [[ar.a for ar in row] for row in arenas]
+        n_data = self.mesh.shape["data"]
+        deltas = {dev: torch.zeros((self.num_iters, n_data, 2),
+                                   dtype=torch.int32, device=dev)
+                  for dev in self._placement}
+        dev0 = self.mesh.devices[0][0]
         trace = np.zeros(1 + self.num_iters, np.int32)
         i = 0
         changed = True
         while changed and i < self.num_iters:
-            for cr, xr in zip(cur, x):
-                for c, a in zip(cr, xr):
-                    c.copy_(a)
-            self.step(cur, x, x0, live, tables, n_words, impl)
-            deltas = [[impl.sweep_delta(c, a, dead) for c, a in zip(cr, xr)]
-                      for cr, xr in zip(cur, x)]
-            trace[1 + i], changed = reduce_sweep_deltas(deltas)
+            self.step(cur, x, x0, live, aux, tables, n_words, impl)
+            slots = self.sweep_deltas(
+                cur, x, {dev: t[i] for dev, t in deltas.items()}, impl)
+            trace[1 + i], changed = reduce_data_deltas(deltas[dev0][i],
+                                                       slots)
             i += 1
-            x, cur = cur, x
+            x, cur = cur, (spare if x is x0 else x)
         trace[0] = i
         return x, trace
 

@@ -631,9 +631,11 @@ def test_mesh_endpoint_on_the_card_agrees_with_the_cpu(mesh):
                     [c.permissionship for c in chk]))
     assert out[0] == out[1] == out[2]
     assert eps[1]._graph.kernel.planes
+    # the single-device endpoint's kernels, and the mesh sweep's own
     for name in ("ell_gather_or", "perm_program", "sweep_delta",
                  "seed_bitplanes", "check_gather3", "lookup_T",
-                 "cav_gather_or"):
+                 "cav_gather_or", "mesh_gather_or", "mesh_cav_gather_or",
+                 "mesh_perm_program", "mesh_sweep_delta"):
         assert kernels.LAUNCHES[name] > 0, name
 
 
@@ -892,3 +894,287 @@ def test_graph_sweeps_equal_eager_sweeps_across_flushes():
     assert compare("grown") is g
     assert ep.stats["stage_aux_flips"] > flips
     assert ep.stats["rebuilds"] == 1
+
+
+# -- the sharded ELL sweep's kernels (parallel/sharding.py) -----------------
+
+def _offset(t: torch.Tensor, misaligned: bool) -> torch.Tensor:
+    """`t` itself, or an equal tensor that starts 4 bytes into its
+    storage (not 16-byte aligned)."""
+    if not misaligned:
+        return t
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _cpu_jobs(jobs):
+    """The same jobs on CPU copies (the twin's), and the copies of their
+    destinations to compare."""
+    host = lambda t: None if t is None else t.cpu()
+    out = [tuple(host(t) for t in job[:-1]) + ([d.cpu() for d in job[-1]],)
+           for job in jobs]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("k", [2, 5, 32])
+@pytest.mark.parametrize("w", [1, 3, 4, 8])
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 4)])
+def test_mesh_gather_or_matches_its_twin(mesh, w, k, misaligned):
+    """One launch over every shard block of a co-located D x G mesh, each
+    block written into its data shard's G replicas: seeded with wildcard
+    terms (a main gather) and not (an aux pass, rows past the split read
+    from another buffer), 16-byte rows and odd widths, wide rows split
+    over 4 lanes (K = 32) and not, aligned and not."""
+    _needs_card()
+    d_n, g_n = mesh
+    rng = np.random.default_rng(w * 100 + k + 7 * misaligned + d_n)
+    n, split, n_hi = 1_003, 4_019, 517
+    for seeded in (False, True):
+        jobs, reps = [], []
+        for d in range(d_n):
+            lo = _offset(_rand(rng, (split + 5, w)), misaligned)
+            hi = _offset(_rand(rng, (n_hi, w)), misaligned)
+            live = _rand(rng, (3, w)) if seeded else None
+            seed = _rand(rng, (g_n * n, w)) if seeded else None
+            rep = [_offset(_rand(rng, (g_n * n, w)), misaligned)
+                   for _ in range(g_n)]
+            reps += rep
+            for g in range(g_n):
+                idx = torch.from_numpy(rng.integers(
+                    0, split + n_hi, (n, k)).astype(np.int32)).cuda()
+                bits = (torch.from_numpy(rng.integers(0, 8, n).astype(
+                    np.int32)).cuda() if seeded else None)
+                jobs.append((_offset(idx, misaligned), lo, hi,
+                             None if seed is None
+                             else seed[g * n:(g + 1) * n], bits, live,
+                             [r[g * n:(g + 1) * n] for r in rep]))
+        twin = _cpu_jobs(jobs)
+        kernels.reset_launches()
+        kernels.mesh_gather_or(jobs, split)
+        reference.mesh_gather_or(twin, split)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["mesh_gather_or"] == 1
+        for job, tj in zip(jobs, twin):
+            for a, b in zip(job[-1], tj[-1]):
+                assert torch.equal(a.cpu(), b), (seeded, len(jobs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("half", [1, 3, 4, 8])
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 4)])
+def test_mesh_cav_gather_or_matches_its_twin(mesh, half, misaligned):
+    """The caveat gathers of every shard block in one launch, each nonzero
+    OR read-modify-written into the maybe words of its data shard's G
+    replicas (which differ, so each is its own read); the dead row's
+    gathers skipped (its words zero), holes mid-row, all-dead rows."""
+    _needs_card()
+    d_n, g_n = mesh
+    k = kernels.K_CAV
+    rng = np.random.default_rng(half * 10 + d_n + 5 * misaligned)
+    nt, r = 4_000, 1_000
+    dead = nt - 300
+    jobs = []
+    for d in range(d_n):
+        x_in = _rand(rng, (nt, 2 * half))
+        x_in[dead] = 0
+        x_in = _offset(x_in, misaligned)
+        rep = [_offset(_rand(rng, (g_n * r, 2 * half)), misaligned)
+               for _ in range(g_n)]
+        for g in range(g_n):
+            host = np.full((r, k), dead, np.int32)
+            live = rng.random((r, k)) < 0.2
+            host[live] = rng.integers(0, nt, int(live.sum()))
+            host[::5] = dead
+            jobs.append((torch.from_numpy(host).cuda(), x_in,
+                         [t[g * r:(g + 1) * r] for t in rep]))
+    twin = _cpu_jobs(jobs)
+    kernels.reset_launches()
+    kernels.mesh_cav_gather_or(jobs, half, dead)
+    reference.mesh_cav_gather_or(twin, half, dead)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mesh_cav_gather_or"] == 1
+    for job, tj in zip(jobs, twin):
+        for a, b in zip(job[-1], tj[-1]):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("planes", [False, True])
+@pytest.mark.parametrize("w", [1, 3, 8, 16])
+@pytest.mark.parametrize("g", [2, 4])
+def test_mesh_perm_program_matches_its_twin(g, w, planes, misaligned):
+    """Random programs (a 16-deep stack among them) of one replica written
+    into G replicas in place, definite and planes, at the register stack
+    of 4 and of 16."""
+    _needs_card()
+    from spicedb_kubeapi_proxy_tpu_torch.ops.ell import compile_perm_program
+    from spicedb_kubeapi_proxy_tpu_torch.ops.graph_compile import (
+        PRead, PUnion)
+    if planes and w % 2:
+        pytest.skip("a plane row has an even width")
+    rng = np.random.default_rng(w + 50 * planes + 7 * g + misaligned)
+    length, n_slots = 3_001, 6
+    offs = [i * length for i in range(n_slots)]
+    half = w // 2 if planes else None
+    kernels.reset_launches()
+    for trial in range(6):
+        out = int(rng.choice(offs))
+        if trial == 0:
+            expr = PRead(out, length)
+            for i in range(15):
+                expr = PUnion((PRead(offs[i % n_slots], length), expr))
+        else:
+            expr = _random_program(rng, offs, length, 4)
+        code, depth, _ = compile_perm_program(expr, out, length)
+        code = torch.from_numpy(code).cuda()
+        cur = _offset(_rand(rng, (n_slots * length + 5, w)), misaligned)
+        reps = [cur] + [_offset(_rand(rng, cur.shape), misaligned)
+                        for _ in range(g - 1)]
+        x0 = _rand(rng, cur.shape)
+        twin = [t.cpu() for t in reps]
+        kernels.mesh_perm_program(cur, x0, code, out, length, reps, half,
+                                  depth)
+        reference.mesh_perm_program(twin[0], x0.cpu(), code.cpu(), out,
+                                    length, twin, half, depth)
+        torch.cuda.synchronize()
+        for a, b in zip(reps, twin):
+            assert torch.equal(a.cpu(), b), trial
+    assert kernels.LAUNCHES["mesh_perm_program"] == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("w", [1, 3, 8])
+@pytest.mark.parametrize("g", [1, 2, 4])
+def test_mesh_sweep_delta_matches_its_twin(g, w, misaligned):
+    """One delta for a data shard's G replicas, accumulated into a slot of
+    a shared tensor: the count (bit 31 in play), the flag, every
+    replica's dead row zeroed, the rest untouched."""
+    _needs_card()
+    rng = np.random.default_rng(g * 10 + w + misaligned)
+    nt, dead = 50_001, 49_000
+    x_old = _offset(_rand(rng, (nt, w)), misaligned)
+    reps = [_offset(_rand(rng, (nt, w)), misaligned) for _ in range(g)]
+    twin = [t.cpu() for t in reps]
+    out = torch.zeros((3, 2), dtype=torch.int32, device="cuda")
+    out_t = out.cpu()
+    for slot in (1, 1):
+        kernels.mesh_sweep_delta(reps[0], x_old, dead, out[slot], reps)
+        reference.mesh_sweep_delta(twin[0], x_old.cpu(), dead, out_t[slot],
+                                   twin)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), out_t)
+    for a, b in zip(reps, twin):
+        assert torch.equal(a.cpu(), b)
+        assert int(a[dead].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workload", ["caveated", "rbac"])
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 4)])
+def test_mesh_sweep_on_the_card_matches_its_twins(mesh, workload):
+    """Whole batches of the sharded ELL kernel co-located on the card
+    against the same batches on the twins on the card (every replica, the
+    trace, the lookup words), each sweep's output buffers poisoned first;
+    a sweep launches at most D x (aux passes + 3 + permission ops)
+    kernels, copies nothing and reads back once."""
+    _needs_card()
+    from spicedb_kubeapi_proxy_tpu_torch.parallel import collectives
+    from spicedb_kubeapi_proxy_tpu_torch.parallel.sharding import make_mesh
+    d_n, g_n = mesh
+    if workload == "caveated":
+        w = workloads.caveated_rbac(n_pods=400, n_users=300, n_groups=10)
+    else:
+        w = workloads.rbac_deny(n_pods=400, n_users=300, n_groups=10)
+    ep = create_endpoint("torch://", Bootstrap(
+        w.schema_text, "\n".join(w.relationships)),
+        mesh=make_mesh(["cuda"] * (d_n * g_n), data=d_n, graph=g_n))
+    g = ep.graph()
+    kern, prog = g.kernel, g.prog
+    assert kern.planes == (workload == "caveated")
+    step = kern.step
+
+    def poisoned(cur, x, x0, live, aux, *args, **kw):
+        for t in [t for row in cur + aux for t in row]:
+            t.fill_(0x5A5A5A5A)
+        step(cur, x, x0, live, aux, *args, **kw)
+    kern.step = poisoned
+    for lanes in (8, 33, 256):
+        q = np.full(32 * kern.padded_batch_words(lanes), prog.dead_index,
+                    np.int32)
+        q[:lanes] = np.random.default_rng(lanes).integers(
+            0, prog.dead_index, lanes)
+        n_words = len(q) // 32
+        kernels.reset_launches()
+        collectives.reset_collectives()
+        xk, tk = kern.evaluate(q, n_words, g.snapshot(),
+                               kern._alloc_arenas(n_words))
+        sweeps = int(tk[0])
+        launched = sum(kernels.LAUNCHES[n] for n in kernels.KERNEL_NAMES
+                       if n.startswith("mesh_"))
+        assert launched <= sweeps * d_n * (kern.aux_passes + 3
+                                           + len(prog.perm_ops))
+        assert collectives.COLLECTIVES["all_gather_rows"]["copies"] == 0
+        assert collectives.COLLECTIVES["reduce_sweep_deltas"]["calls"] == \
+            sweeps
+        xt, tt = kern.evaluate(q, n_words, g.snapshot(),
+                               kern._alloc_arenas(n_words), reference)
+        torch.cuda.synchronize()
+        assert np.array_equal(tk, tt)
+        for a, b in zip([t for row in xk for t in row],
+                        [t for row in xt for t in row]):
+            assert torch.equal(a, b)
+        off, length = prog.slot_range("pod", "view")
+        assert torch.equal(kern.finish_lookup(xk, off, length, n_words),
+                           kern.finish_lookup(xt, off, length, n_words,
+                                              reference))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workload", ["caveated", "rbac"])
+def test_mesh_mixed_placement_copies_to_the_far_card_only(workload):
+    """Two graph shards on each of two cards (1 x 4 and 2 x 4 meshes): the
+    gathers write both replicas on their card, each block goes to the
+    other card's replicas by a copy, and the answers equal the co-located
+    CPU mesh's."""
+    _needs_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices")
+    from spicedb_kubeapi_proxy_tpu_torch.parallel import collectives
+    from spicedb_kubeapi_proxy_tpu_torch.parallel.sharding import make_mesh
+    if workload == "caveated":
+        w = workloads.caveated_rbac(n_pods=400, n_users=300, n_groups=10)
+    else:
+        w = workloads.rbac_deny(n_pods=400, n_users=300, n_groups=10)
+    bs = Bootstrap(w.schema_text, "\n".join(w.relationships))
+    for d_n in (1, 2):
+        cards = ["cuda:0", "cuda:0", "cuda:1", "cuda:1"] * d_n
+        kerns = [create_endpoint(url, bs, mesh=make_mesh(
+            devs, data=d_n, graph=4)).graph()
+            for url, devs in (("torch://?device=cpu", ["cpu"] * 4 * d_n),
+                              ("torch://", cards))]
+        prog = kerns[0].prog
+        q = np.full(32 * kerns[0].kernel.padded_batch_words(64),
+                    prog.dead_index, np.int32)
+        q[:64] = np.random.default_rng(d_n).integers(0, prog.dead_index, 64)
+        out = []
+        for g in kerns:
+            kern = g.kernel
+            collectives.reset_collectives()
+            x, tr = kern.evaluate(q, len(q) // 32, g.snapshot(),
+                                  kern._alloc_arenas(len(q) // 32))
+            out.append((tr, [t.cpu() for row in x for t in row],
+                        collectives.COLLECTIVES["all_gather_rows"]
+                        ["copies"]))
+        assert np.array_equal(out[0][0], out[1][0])
+        assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+        passes = kerns[1].kernel.aux_passes + 1 + kerns[1].kernel.planes
+        # each of 4 blocks into the 2 replicas on the other card
+        assert out[0][2] == 0
+        assert out[1][2] == int(out[1][0][0]) * passes * d_n * 4 * 2
