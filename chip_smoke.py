@@ -106,13 +106,30 @@ deployment (`models/workloads.py multitenant_1m()` with its defaults:
    `doc#view` indexed in one plane block per graph shard, reads served
    from it with no sweep kernel, answers equal A's.
 
+14. batched dispatch, BASELINE config 5, on the phase-3 endpoint wrapped
+   in the port's `BatchingEndpoint` (phases 1-13 build their endpoints
+   with `dispatch=direct`, the bare endpoint whose internals they read).
+   (a) 256 concurrent `lookup_resources` calls, one a user, must answer
+   as one direct 256-lane batch in fewer than 256 kernel calls, fused
+   batches of more than one; (b) 64 concurrent `check_bulk_permissions`
+   calls (10,000 pairs) interleaved with 256 concurrent lookups must
+   answer as the direct endpoint; every read kernel must launch in (a)-(b)
+   (counts from zero), and a fixed-seed sample equals the oracle; (e) one
+   pinned side-stream readback ran for every fused batch, and its bytes
+   equal a blocking copy of the same result; (c) (a) and (b) at pipeline
+   depth 1 and 2 and through the direct endpoint, 5 runs each: median
+   wall, per-request p50/p99 and batch counts, beside the `nvidia-smi`
+   line; (d) a lookup and a check batch started before a round of phase
+   9's churn and finished after its flush and sweep-graph recapture keep
+   their pre-write answers.
+
 Wherever `lookup_T` and `scatter_rows` are timed (phases 6, 9, 10, 11,
 13a), their rows also carry the device-only time, the time with L2
 flushed and the host cost per call, of the kernel and of its library
 yardstick (`attribute`), so that a gap between the event-timed loops is
 put down to the card or to the host.
 
-Phases run in the order 1-9, 11, 13a-b, 10, 13c, 12, 13d, and each
+Phases run in the order 1-9, 11, 13a-b, 14, 10, 13c, 12, 13d, and each
 phase's seconds are logged.  Any failed phase raises and the script
 exits non-zero.  The second-to-last line is the kernel table as JSON,
 the last line
@@ -176,6 +193,14 @@ LEO_ORACLE_CHECKS = 500
 # above; churn rounds of phase 9's generator on its multitenant-1m endpoint
 MESH_DATA, MESH_GRAPH = 2, 4
 MESH_ROUNDS = 4
+# phase 14, batched dispatch on the phase-3 endpoint: BASELINE config 5's
+# 256 concurrent list requests, then mixed traffic with 64 concurrent
+# check calls, each dispatch mode run DISPATCH_REPEATS times
+DISPATCH_CHECK_CALLS = 64
+DISPATCH_REPEATS = 5
+DISPATCH_ORACLE_CHECKS = 300
+DISPATCH_ORACLE_SUBJECTS = 2    # lookups held against oracle checks
+DISPATCH_ORACLE_PODS = 100      # allowed, and as many refused, pods each
 UNDECIDED = '[caveat:within_quota:{"used": 1}]'
 DECIDED = ('[caveat:within_quota:{"used": 1, "quota": 5}]',
            '[caveat:within_quota:{"used": 9, "quota": 5}]')
@@ -535,6 +560,16 @@ def _log_split(label: str, t: dict) -> None:
         f"{t['library_cold_ms']:.6f} ms, host {t['library_host_us']:.2f} us")
 
 
+def direct_url(device: str) -> str:
+    """The `torch://` URL of phases 1-13: the bare endpoint
+    (`dispatch=direct`), whose graph, stats and kernels those phases read
+    and write directly, as they did before batched dispatch became the
+    default; phase 14 wraps one in the dispatcher itself."""
+    if device == "cuda":
+        return "torch://?dispatch=direct"
+    return f"torch://?device={device}&dispatch=direct"
+
+
 def load(device: str, workload_kwargs: dict, generator: str = "multitenant_1m"):
     """Phase 3 (and 10): generate, load and build; returns (endpoint,
     workload)."""
@@ -545,7 +580,7 @@ def load(device: str, workload_kwargs: dict, generator: str = "multitenant_1m"):
     w = getattr(workloads, generator)(**workload_kwargs)
     text = "\n".join(w.relationships)
     t1 = time.perf_counter()
-    url = "torch://" if device == "cuda" else f"torch://?device={device}"
+    url = direct_url(device)
     ep = create_endpoint(url, Bootstrap(w.schema_text, text))
     t2 = time.perf_counter()
     g = ep.graph()
@@ -1699,7 +1734,7 @@ def segment_path(ep, w, timer, peak, smi_line, device: str = "cuda",
         parse_relationship)
 
     t_phase = time.perf_counter()
-    url = "torch://" if device == "cuda" else f"torch://?device={device}"
+    url = direct_url(device)
     seg = create_endpoint(url, Bootstrap(w.schema_text, ""),
                           kernel="segment", store=ep.store)
     t0 = time.perf_counter()
@@ -2131,7 +2166,7 @@ def leopard_path(timer, peak, smi_line, mt_statuses: dict,
     t0 = time.perf_counter()
     w = workloads.group_explosion(**(workload_kwargs or {}))
     text = "\n".join(w.relationships)
-    url = "torch://" if device == "cuda" else f"torch://?device={device}"
+    url = direct_url(device)
     a = create_endpoint(url, Bootstrap(w.schema_text, text))
     b = create_endpoint(url, Bootstrap(w.schema_text, ""), store=a.store,
                         leopard=False)
@@ -2492,7 +2527,7 @@ def make_smoke_mesh(device: str):
 def _mesh_endpoint(store, schema_text: str, mesh, device: str, **kw):
     from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import (
         Bootstrap, create_endpoint)
-    url = "torch://" if device == "cuda" else f"torch://?device={device}"
+    url = direct_url(device)
     return create_endpoint(url, Bootstrap(schema_text, ""), store=store,
                            mesh=mesh, **kw)
 
@@ -3435,6 +3470,327 @@ def mesh_leopard(a, w, mesh, timer, device: str = "cuda") -> dict:
     return {"launches": launches}
 
 
+def _concurrent(calls: list) -> tuple:
+    """Run the coroutine factories `calls` concurrently in one new event
+    loop: (results in call order, each call's seconds from the common
+    start to its answer, wall seconds)."""
+    async def go():
+        t0 = time.perf_counter()
+        lat = [0.0] * len(calls)
+
+        async def timed(i, make):
+            out = await make()
+            lat[i] = time.perf_counter() - t0
+            return out
+
+        res = await asyncio.gather(*(timed(i, c) for i, c in
+                                     enumerate(calls)))
+        return list(res), lat, time.perf_counter() - t0
+
+    return asyncio.run(go())
+
+
+def _pcts(xs: list) -> str:
+    import numpy as np
+    p50, p99 = np.percentile(np.asarray(xs), [50, 99])
+    return f"p50 {p50 * 1e3:.3f} ms, p99 {p99 * 1e3:.3f} ms"
+
+
+def batched_dispatch(ep, w, smi_line: str, device: str = "cuda") -> dict:
+    """Phase 14: cross-request batched dispatch on the phase-3 endpoint,
+    wrapped in the port's `BatchingEndpoint` (no second graph is built).
+    (a) BASELINE config 5: 256 concurrent `lookup_resources` calls, one
+    per user, must answer as one direct 256-lane batch, in fewer than 256
+    inner kernel calls and fused batches of more than one; (b) 64
+    concurrent `check_bulk_permissions` calls (10,000 pairs in all)
+    interleaved with 256 concurrent lookups must answer as the direct
+    endpoint; every read kernel must launch in (a)-(b); (e) the side-stream
+    readback ran once for every fused batch, and a readback's bytes equal
+    a blocking copy of the same result; (c) (a) and (b) at pipeline depth
+    1 and 2 and through the direct endpoint, DISPATCH_REPEATS runs each,
+    interleaved: wall times, per-request p50/p99 and batch counts; (d) a
+    lookup and a check batch started before one round of phase 9's churn
+    and finished after its flush and sweep-graph recapture return the
+    pre-write answers.  A fixed-seed sample of (a)-(b) equals the oracle."""
+    import numpy as np
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.ops.torch_endpoint import _Readback
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.dispatch import (
+        BatchingEndpoint)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        CheckRequest, CheckResult, ObjectRef, RelationshipUpdate, SubjectRef,
+        UpdateOp, parse_relationship)
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 14)
+    users = w.subjects
+    subjects = [SubjectRef("user", users[i]) for i in
+                rng.choice(len(users), LOOKUP_LANES, replace=False)]
+    want_lr = asyncio.run(ep.lookup_resources_batch("pod", "view", subjects))
+    pods = [p for p in ep.graph().prog.object_ids["pod"] if "\x00" not in p]
+    # half the pairs from the subjects' own answers, half at random
+    reqs = []
+    for k in range(N_CHECKS):
+        s = int(rng.integers(0, LOOKUP_LANES))
+        own = want_lr[s]
+        pod = (own[int(rng.integers(0, len(own)))] if k % 2 and len(own)
+               else pods[int(rng.integers(0, len(pods)))])
+        reqs.append(CheckRequest(ObjectRef("pod", pod), "view",
+                                 subjects[s]))
+    want_ck = [r.permissionship for r in
+               asyncio.run(ep.check_bulk_permissions(reqs))]
+    cuts = np.linspace(0, N_CHECKS, DISPATCH_CHECK_CALLS + 1).astype(int)
+    chunks = [reqs[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    per_chunk = LOOKUP_LANES // DISPATCH_CHECK_CALLS
+
+    def calls_a(target):
+        return [lambda s=s: target.lookup_resources("pod", "view", s)
+                for s in subjects]
+
+    def calls_b(target):
+        """Lookups and check calls interleaved: a check call after every
+        `per_chunk` lookups."""
+        out = []
+        for i, s in enumerate(subjects):
+            out.append(lambda s=s: target.lookup_resources("pod", "view", s))
+            if i % per_chunk == per_chunk - 1:
+                out.append(lambda c=chunks[i // per_chunk]:
+                           target.check_bulk_permissions(c))
+        return out
+
+    def split_b(res, lat):
+        """(lookup answers, check answers, lookup and check latencies)."""
+        lr, ck, lat_l, lat_c = [], [], [], []
+        for r, t in zip(res, lat):
+            if isinstance(r, list) and r and isinstance(r[0], CheckResult):
+                ck.extend(x.permissionship for x in r)
+                lat_c.append(t)
+            else:
+                lr.append(list(r))
+                lat_l.append(t)
+        return lr, ck, lat_l, lat_c
+
+    want_lists = [list(x) for x in want_lr]
+
+    def agree(lr, ck, what):
+        if lr is not None and lr != want_lists:
+            bad = sum(a != b for a, b in zip(lr, want_lists))
+            raise AssertionError(f"{what}: {bad} of {len(lr)} lookups differ "
+                                 f"from the direct 256-lane batch")
+        if ck is not None and ck != want_ck:
+            bad = sum(a != b for a, b in zip(ck, want_ck))
+            raise AssertionError(f"{what}: {bad} of {len(ck)} checks differ "
+                                 f"from the direct endpoint")
+
+    # (a) + (b) through the dispatcher at depth 2, launches counted from 0
+    bep = BatchingEndpoint(ep, pipeline_depth=2)
+    s0 = bep.stats
+    kernels.reset_launches()
+    res_a, lat_a, wall_a = _concurrent(calls_a(bep))
+    s1 = bep.stats
+    res_b, lat_b, wall_b = _concurrent(calls_b(bep))
+    launches = {k: kernels.LAUNCHES[k] for k in READ_KERNELS}
+    s2 = bep.stats
+    agree([list(x) for x in res_a], None, "(a) batched")
+    calls_made = s1["kernel_calls"] - s0["kernel_calls"]
+    fused_a = (s1["fused_lookups"] - s0["fused_lookups"])
+    if not calls_made < LOOKUP_LANES or s1["max_fused_batch"] <= 1:
+        raise AssertionError(f"(a) did not batch: {calls_made} kernel calls, "
+                             f"max fused batch {s1['max_fused_batch']}")
+    log(f"dispatch (a): {LOOKUP_LANES} concurrent lookup_resources calls "
+        f"answered as the direct {LOOKUP_LANES}-lane batch in {wall_a:.4f} s: "
+        f"{calls_made} kernel calls, {fused_a} fused lookup batches, max "
+        f"fused batch {s1['max_fused_batch']}; per request "
+        f"{_pcts(lat_a)}; {smi_line}")
+    lr_b, ck_b, lat_bl, lat_bc = split_b(res_b, lat_b)
+    agree(lr_b, ck_b, "(b) batched")
+    log(f"dispatch (b): {DISPATCH_CHECK_CALLS} concurrent "
+        f"check_bulk_permissions calls ({N_CHECKS} pairs) and "
+        f"{LOOKUP_LANES} lookups interleaved answered as the direct endpoint "
+        f"in {wall_b:.4f} s: {s2['fused_checks'] - s1['fused_checks']} fused "
+        f"check and {s2['fused_lookups'] - s1['fused_lookups']} fused lookup "
+        f"batches, {s2['kernel_calls'] - s1['kernel_calls']} kernel calls; "
+        f"lookups {_pcts(lat_bl)}, check calls {_pcts(lat_bc)}")
+    log(f"launches on the batched path (a)-(b): {launches}")
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle and device == "cuda":    # the CPU runs the twins, uncounted
+        raise AssertionError(f"kernels never launched on the batched path: "
+                             f"{idle}")
+
+    # the oracle, on a fixed-seed sample: checks, and each sampled
+    # subject's lookup through checks of its allowed and refused pods
+    oracle = ep._oracle
+    t0 = time.perf_counter()
+    for i in rng.choice(N_CHECKS, DISPATCH_ORACLE_CHECKS, replace=False):
+        r = reqs[i]
+        if oracle.check3(r.resource, r.permission, r.subject) != \
+                {"NO_PERMISSION": 0, "CONDITIONAL_PERMISSION": 1,
+                 "HAS_PERMISSION": 2}[ck_b[i].name]:
+            raise AssertionError(f"check {r} differs from the oracle")
+    n_held = 0
+    for j in rng.choice(LOOKUP_LANES, DISPATCH_ORACLE_SUBJECTS,
+                        replace=False):
+        got = set(res_a[j])
+        allowed = sorted(got)
+        refused = [p for p in (pods[int(i)] for i in
+                               rng.choice(len(pods), 4 * DISPATCH_ORACLE_PODS,
+                                          replace=False))
+                   if p not in got][:DISPATCH_ORACLE_PODS]
+        for want, sample in ((True, [allowed[int(i)] for i in rng.choice(
+                len(allowed), min(len(allowed), DISPATCH_ORACLE_PODS),
+                replace=False)] if allowed else []), (False, refused)):
+            for pod in sample:
+                if oracle.check(ObjectRef("pod", pod), "view",
+                                subjects[j]) != want:
+                    raise AssertionError(f"lookup of {subjects[j]} differs "
+                                         f"from the oracle at {pod}")
+                n_held += 1
+    log(f"dispatch oracle: {DISPATCH_ORACLE_CHECKS} checks of (b) and "
+        f"{n_held} checks of {DISPATCH_ORACLE_SUBJECTS} lookups of (a) "
+        f"(allowed and refused pods) equal the oracle "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # (e) the readback: one side-stream copy for every fused batch (nothing
+    # is served from a closure plane at multitenant-1m), and its bytes
+    # equal a blocking copy of the same result
+    fused = (s2["fused_lookups"] + s2["fused_checks"]
+             - s0["fused_lookups"] - s0["fused_checks"])
+    rbs = s2["readbacks"] - s0["readbacks"]
+    g = ep.graph()
+    q_arr, cols, _ = ep._encode_subjects(g, subjects)
+    off, length = g.prog.slot_range("pod", "view")
+    dev_l, _, _ = g.run_lookup_packed_T_device(off, length, q_arr)
+    gi = [g.prog.state_index("pod", "view", r.resource.id)
+          for r in chunks[0]]
+    gc = [cols[r.subject] for r in chunks[0]]
+    dev_c, _, _ = g.run_checks3_device(q_arr, gi, gc)
+    same, times = [], []
+    for dev in (dev_l, dev_c):
+        rb = _Readback(dev)
+        host = rb.wait()
+        blocking = dev.cpu()
+        same.append(bool(torch.equal(host, blocking)))
+        if device == "cuda" and not (rb.event is not None
+                                     and host.is_pinned()):
+            raise AssertionError("the readback did not go through a pinned "
+                                 "side-stream copy")
+        # host ms of each way, the result already computed (median of 10)
+        for fn in (lambda: _Readback(dev).wait(), dev.cpu):
+            ts = []
+            for _ in range(10):
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            times.append(statistics.median(ts))
+    if device == "cuda" and rbs != fused:
+        raise AssertionError(f"{rbs} side-stream readbacks for {fused} fused "
+                             f"batches")
+    if not all(same):
+        raise AssertionError(f"a readback differs from a blocking copy of the "
+                             f"same result: {same}")
+    log(f"dispatch (e): {rbs} side-stream readbacks ({s2['readback_bytes'] - s0['readback_bytes']} "
+        f"bytes) for {fused} fused batches; a lookup's [W, L] words and a "
+        f"check batch's values read back equal to a blocking .cpu() copy; "
+        f"host ms (median of 10), side-stream readback vs .cpu(): words "
+        f"{times[0]:.4f} vs {times[1]:.4f} ({dev_l.numel() * 4} B), check "
+        f"values {times[2]:.4f} vs {times[3]:.4f} ({dev_c.numel() * 4} B)")
+
+    # (c) depth 1, depth 2 and direct dispatch, interleaved per repeat
+    modes = {"depth 1": BatchingEndpoint(ep, pipeline_depth=1),
+             "depth 2": BatchingEndpoint(ep, pipeline_depth=2),
+             "direct": ep}
+    runs = {(m, part): [] for m in modes for part in "ab"}
+    for _ in range(DISPATCH_REPEATS):
+        for m, target in modes.items():
+            for part in "ab":
+                st0 = dict(target.stats)
+                res, lat, wall = _concurrent(
+                    (calls_a if part == "a" else calls_b)(target))
+                st1 = dict(target.stats)
+                if part == "a":
+                    agree([list(x) for x in res], None, f"(c) {m} (a)")
+                    lat_l, lat_c = lat, []
+                else:
+                    lr, ck, lat_l, lat_c = split_b(res, lat)
+                    agree(lr, ck, f"(c) {m} (b)")
+                runs[(m, part)].append({
+                    "wall": wall, "lat_l": lat_l, "lat_c": lat_c,
+                    "calls": st1["kernel_calls"] - st0["kernel_calls"],
+                    "fused": sum(st1.get(k, 0) - st0.get(k, 0) for k in
+                                 ("fused_lookups", "fused_checks"))})
+    summary = {}
+    for (m, part), rs in runs.items():
+        lat_l = [t for r in rs for t in r["lat_l"]]
+        lat_c = [t for r in rs for t in r["lat_c"]]
+        walls = [r["wall"] for r in rs]
+        summary[(m, part)] = statistics.median(walls)
+        log(f"dispatch (c) {m}, ({part}): median wall "
+            f"{statistics.median(walls):.4f} s (all: "
+            f"{', '.join(f'{t:.4f}' for t in walls)}); lookups "
+            f"{_pcts(lat_l)}"
+            + (f"; check calls {_pcts(lat_c)}" if lat_c else "")
+            + f"; fused batches {[r['fused'] for r in rs]}, kernel calls "
+            f"{[r['calls'] for r in rs]}; {smi_line}")
+
+    # (d) batches started before a churn round finish on their snapshot
+    ops = {"touch": UpdateOp.TOUCH, "delete": UpdateOp.DELETE}
+    rnd = _churn_plan(w, 1, SEED + 14, tag="d")[0]
+    creators = list(dict.fromkeys(u for _, _, u in rnd["created"]))
+    d_subj = [SubjectRef("user", u) for u in creators]
+    d_subj += [s for s in subjects if s.id not in set(creators)]
+    d_subj = d_subj[:LOOKUP_LANES]
+    d_reqs = [CheckRequest(ObjectRef("pod", pod), "view",
+                           SubjectRef("user", u))
+              for pod, _, u in rnd["created"]] + chunks[0]
+    before_l = [list(x) for x in asyncio.run(
+        ep.lookup_resources_batch("pod", "view", d_subj))]
+    before_c = [r.permissionship for r in
+                asyncio.run(ep.check_bulk_permissions(d_reqs))]
+    ctx_l = asyncio.run(ep.lookup_resources_batch_start("pod", "view",
+                                                        d_subj))
+    ctx_c = asyncio.run(ep.check_bulk_permissions_start(d_reqs))
+    st0 = dict(ep.stats)
+    gs0 = dict(ep.graph().kernel.graph_stats)
+
+    async def commit(writes):
+        for wr in writes:
+            await ep.write_relationships(
+                [RelationshipUpdate(ops[o], parse_relationship(r))
+                 for o, r in wr])
+
+    asyncio.run(commit(rnd["writes"]))
+    after_l = [list(x) for x in asyncio.run(
+        ep.lookup_resources_batch("pod", "view", d_subj))]
+    gs1 = ep.graph().kernel.graph_stats
+    st1 = ep.stats
+    if not (st1["delta_batches"] > st0["delta_batches"]
+            and st1["rebuilds"] == st0["rebuilds"]
+            and (device != "cuda" or gs1["captures"] > gs0["captures"])):
+        raise AssertionError("the churn round did not flush and recapture "
+                             "without a rebuild")
+    fin_l = [list(x) for x in asyncio.run(
+        ep.lookup_resources_batch_finish(ctx_l))]
+    fin_c = [r.permissionship for r in asyncio.run(
+        ep.check_bulk_permissions_finish(ctx_c))]
+    changed = sum(a != b for a, b in zip(after_l, before_l))
+    if fin_l != before_l or fin_c != before_c or not changed:
+        raise AssertionError(
+            f"(d): started batches did not keep their snapshot's answers "
+            f"(lookups equal {fin_l == before_l}, checks equal "
+            f"{fin_c == before_c}, {changed} answers changed by the writes)")
+    log(f"dispatch (d): a {len(d_subj)}-lane lookup batch and a "
+        f"{len(d_reqs)}-pair check batch started before a churn round "
+        f"finished after its flush ({st1['delta_batches'] - st0['delta_batches']} "
+        f"flushes, {gs1['captures'] - gs0['captures']} sweep graph captures, "
+        f"no rebuild) with their pre-write answers; {changed} of "
+        f"{len(d_subj)} lookups have since changed")
+    log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "summary": summary}
+
 def main() -> int:
     try:
         import torch
@@ -3540,6 +3896,11 @@ def main() -> int:
     gc.collect()
     mesh_seg = mesh_segment(seg, mesh, timer, peak)
     phase_s["13a-b"] = time.perf_counter() - t_ph
+
+    # 14. batched dispatch on the phase-3 endpoint, launches counted from 0
+    t_ph = time.perf_counter()
+    batched_dispatch(ep, w, smi_line)
+    phase_s["14"] = time.perf_counter() - t_ph
 
     # 10. the caveated deployment on its own endpoint (the first one goes),
     # then 13c, the same store on a mesh endpoint

@@ -23,7 +23,12 @@ What this endpoint carries over from the reference, and what not yet:
   phantom column per type for subjects outside the compiled universe and
   the reference's pool of spare object ids, so the compiled program has
   the reference's exact layout;
-- the fused check capture/finish and lookup capture/extract;
+- the fused check capture/finish and lookup capture/extract, exposed as
+  the two-phase entries the dispatcher pipelines
+  (`check_bulk_permissions_start`/`_finish`,
+  `lookup_resources_batch_start`/`_finish`); a capture ends by starting
+  its results' copy to the host on a side stream (`_Readback`), and the
+  finish waits on that copy, never on a blocking `.cpu()`;
 - caveats on the device: a caveated tuple whose stored context decides
   its caveat is an ordinary edge (True) or none (False); an undecidable
   one is an edge of the MAYBE plane (the caveat table), and checks on a
@@ -200,6 +205,64 @@ def _ids_for(ids: np.ndarray, idx: np.ndarray, ph, mask) -> tuple:
     if bad_n:
         idx = idx[~sel]
     return ids[idx].tolist(), bad_n
+
+
+# lookup_resources_stream yields its ids in chunks of this many, giving
+# the event loop a turn between chunks (reference jax_endpoint.py:2783)
+_STREAM_CHUNK = 4096
+
+# One side stream per card carries the result readbacks (`_Readback`).
+# It comes from PyTorch's high-priority stream pool: the default-priority
+# pool hands its streams round-robin to sweep-graph captures
+# (kernels.LaunchGraph), and a readback enqueued on a stream that another
+# thread is capturing would break that capture.
+_SIDE_STREAMS: dict = {}
+_SIDE_LOCK = threading.Lock()
+
+
+def _side_stream(device: torch.device):
+    with _SIDE_LOCK:
+        stream = _SIDE_STREAMS.get(device)
+        if stream is None:
+            stream = _SIDE_STREAMS[device] = torch.cuda.Stream(
+                device=device, priority=-1)
+        return stream
+
+
+class _Readback:
+    """A device result's copy to the host, started when its batch is
+    captured (the reference's `_start_readback`, jax_endpoint.py:390-449).
+
+    On CUDA the card's side stream first waits for the current stream,
+    which runs the kernels that produce the result; then it copies the
+    result into a pinned host tensor without blocking, the result is
+    marked as used on the side stream (so the caching allocator keeps its
+    memory until the copy is done), and an event is recorded after the
+    copy.  `wait()` waits on that event and returns the host tensor; a
+    failed copy raises there, and there is no fallback.  Kernels stay on
+    the current stream: only the copy moves to the side stream.  On the
+    CPU the readback is the tensor itself."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, dev: torch.Tensor):
+        if dev.device.type != "cuda":
+            self.host, self.event = dev, None
+            return
+        side = _side_stream(dev.device)
+        side.wait_stream(torch.cuda.current_stream(dev.device))
+        host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+        with torch.cuda.stream(side):
+            host.copy_(dev, non_blocking=True)
+        dev.record_stream(side)
+        self.event = torch.cuda.Event()
+        self.event.record(side)
+        self.host = host
+
+    def wait(self) -> torch.Tensor:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host
 
 
 def _unify_check_buckets(q_arr, gather_idx, gather_col) -> tuple:
@@ -821,7 +884,12 @@ class TorchEndpoint(PermissionsEndpoint):
                       "stage_aux_flips": 0, "stale_pair_marks": 0,
                       "leopard_checks": 0, "leopard_lookups": 0,
                       "leopard_recloses": 0,
-                      "delta_apply_s": 0.0, "flush_s": 0.0}
+                      "delta_apply_s": 0.0, "flush_s": 0.0,
+                      "readbacks": 0, "readback_bytes": 0,
+                      "readback_wait_s": 0.0}
+        # a leaf lock for the readback counters: a finish never takes
+        # self._lock, which a rebuild may hold for a long time
+        self._readback_lock = threading.Lock()
         # the Leopard closure index of the live generation (None when
         # off), and the in-flight background re-closes
         self._leopard_wanted = bool(leopard)
@@ -1444,13 +1512,35 @@ class TorchEndpoint(PermissionsEndpoint):
         ctx = {"reqs": reqs, "results": results, "kernel_rows": kernel_rows,
                "oracle_rows": oracle_rows, "rev": rev}
         if leo_rows:
-            ctx["leopard"] = self._leo_check_launch(leo_rows)
+            ctx["leopard"] = [(rows, self._start_readback(vals))
+                              for rows, vals in
+                              self._leo_check_launch(leo_rows)]
         if kernel_rows:
             dev, tel, _ = graph.run_checks3_device(q_arr, gather_idx,
                                                    gather_col, snap=snap)
             graph.last_trace = tel
-            ctx["out"] = dev
+            ctx["out"] = self._start_readback(dev)
         return ctx
+
+    def _start_readback(self, dev: torch.Tensor) -> _Readback:
+        """Start a result's copy to the host (`_Readback`), counting the
+        side-stream ones."""
+        rb = _Readback(dev)
+        if rb.event is not None:
+            with self._readback_lock:
+                self.stats["readbacks"] += 1
+                self.stats["readback_bytes"] += rb.host.numel() * \
+                    rb.host.element_size()
+        return rb
+
+    def _wait_readback(self, rb: _Readback) -> np.ndarray:
+        """The host copy of a started readback, as numpy."""
+        t0 = time.perf_counter()
+        host = rb.wait()
+        if rb.event is not None:
+            with self._readback_lock:
+                self.stats["readback_wait_s"] += time.perf_counter() - t0
+        return host.numpy()
 
     def _leo_check_launch(self, leo_rows: list) -> list:
         """Launch one `check_gather` per closure plane (per plane block
@@ -1463,14 +1553,16 @@ class TorchEndpoint(PermissionsEndpoint):
                 for (view, idx, rows, cls) in leo_rows]
 
     def _check_batch_finish(self, ctx: dict) -> list:
-        """Phase 2: read the kernel and closure-plane results back,
-        evaluate oracle rows on the live store, assemble CheckResults."""
+        """Phase 2: wait for the kernel and closure-plane results' copies,
+        evaluate oracle rows on the live store, assemble CheckResults.
+        The endpoint lock is not taken: the answers are those of the
+        snapshot the capture took."""
         results = ctx["results"]
-        for rows, vals in ctx.get("leopard", ()):
-            for i, v in zip(rows, vals.cpu().tolist()):
+        for rows, rb in ctx.get("leopard", ()):
+            for i, v in zip(rows, self._wait_readback(rb).tolist()):
                 results[i] = (v, ctx["rev"])
         if "out" in ctx:
-            out = ctx["out"].cpu().numpy()
+            out = self._wait_readback(ctx["out"])
             for j, row in enumerate(ctx["kernel_rows"]):
                 results[row] = (int(out[j]), ctx["rev"])
         for i in ctx["oracle_rows"]:
@@ -1498,6 +1590,17 @@ class TorchEndpoint(PermissionsEndpoint):
         if not reqs:
             return []
         return await self._off_loop(self._check_batch_sync, reqs)
+
+    async def check_bulk_permissions_start(self, reqs: list) -> dict:
+        """Two-phase fused check, phase 1: encode, sweep and start the
+        readback (reference jax_endpoint.py:2609).  The dispatcher pairs
+        it with check_bulk_permissions_finish to pipeline batches."""
+        return await self._off_loop(self._check_batch_capture, reqs)
+
+    async def check_bulk_permissions_finish(self, ctx: dict) -> list:
+        """Two-phase fused check, phase 2: readback wait, oracle rows,
+        result assembly."""
+        return await self._off_loop(self._check_batch_finish, ctx)
 
     # -- lookups -------------------------------------------------------------
 
@@ -1546,36 +1649,38 @@ class TorchEndpoint(PermissionsEndpoint):
             # per plane block under a mesh)
             view, lcols = leo
             words = sorted({lcol // 32 for lcol in lcols.values()})
-            dev = plane_word_cols(view, words) if words else None
-            ctx["leopard"] = (dev, {w: k for k, w in enumerate(words)},
+            rb = (self._start_readback(plane_word_cols(view, words))
+                  if words else None)
+            ctx["leopard"] = (rb, {w: k for k, w in enumerate(words)},
                               lcols)
             return ctx
         dev, tel, _ = graph.run_lookup_packed_T_device(rng[0], rng[1], q_arr,
                                                        snap=snap)
         graph.last_trace = tel
-        ctx["dev"] = dev
+        ctx["dev"] = self._start_readback(dev)
         return ctx
 
     def _lookup_batch_extract(self, ctx: dict) -> list:
-        """Phase 2: read the [W, L] words (or the closure plane's word
-        columns) back and materialize per-subject id lists (columns
-        shared by several subjects are decoded once)."""
+        """Phase 2: wait for the [W, L] words' copy (or the closure
+        plane's word columns') and materialize per-subject id lists
+        (columns shared by several subjects are decoded once), from the
+        id view the capture took."""
         rt, perm = ctx["rt"], ctx["perm"]
         if ctx.get("all_oracle"):
             return [AnnotatedIds(self._oracle.lookup_resources(rt, perm, s),
                                  source="oracle")
                     for s in ctx["subjects"]]
         if "leopard" in ctx:
-            dev, word_row, lcols = ctx["leopard"]
-            word_cols = (dev.cpu().numpy().view(np.uint32)
-                         if dev is not None else None)   # [K, plane rows]
+            rb, word_row, lcols = ctx["leopard"]
+            word_cols = (self._wait_readback(rb).view(np.uint32)
+                         if rb is not None else None)   # [K, plane rows]
 
             def col_indices(col):
                 lcol = lcols[col]
                 return _word_col_indices(word_cols[word_row[lcol // 32]],
                                          lcol % 32)
         else:
-            packed_T = ctx["dev"].cpu().numpy().view(np.uint32)   # [W, L]
+            packed_T = self._wait_readback(ctx["dev"]).view(np.uint32)  # [W, L]
 
             def col_indices(col):
                 return _word_col_indices(packed_T[col // 32], col % 32)
@@ -1619,12 +1724,39 @@ class TorchEndpoint(PermissionsEndpoint):
         return (await self._off_loop(self._lookup_batch_sync, resource_type,
                                      permission, [subject]))[0]
 
+    async def lookup_resources_stream(self, resource_type: str,
+                                      permission: str, subject):
+        """Chunked id stream: the batch runs off the loop and the ids
+        yield in chunks of 4,096, the loop getting a turn between chunks
+        (reference jax_endpoint.py:2783-2796)."""
+        ids = (await self._off_loop(self._lookup_batch_sync, resource_type,
+                                    permission, [subject]))[0]
+        for i in range(0, len(ids), _STREAM_CHUNK):
+            for rid in ids[i: i + _STREAM_CHUNK]:
+                yield rid
+            await asyncio.sleep(0)
+
     async def lookup_resources_batch(self, resource_type: str, permission: str,
                                      subjects: list) -> list:
         if not subjects:
             return []
         return await self._off_loop(self._lookup_batch_sync, resource_type,
                                     permission, subjects)
+
+    async def lookup_resources_batch_start(self, resource_type: str,
+                                           permission: str,
+                                           subjects: list) -> dict:
+        """Two-phase fused lookup, phase 1: encode, sweep and start the
+        readback (reference jax_endpoint.py:3075).  A batch finishes on
+        the snapshot and id view it captured, whatever flush or rebuild
+        runs before its finish."""
+        return await self._off_loop(self._lookup_batch_capture,
+                                    resource_type, permission, subjects)
+
+    async def lookup_resources_batch_finish(self, ctx: dict) -> list:
+        """Two-phase fused lookup, phase 2: readback wait and
+        extraction."""
+        return await self._off_loop(self._lookup_batch_extract, ctx)
 
     # -- store verbs ---------------------------------------------------------
 

@@ -89,8 +89,23 @@ class PermissionsEndpoint:
         return [await self.lookup_resources(resource_type, permission, s)
                 for s in subjects]
 
+    async def lookup_resources_stream(self, resource_type: str,
+                                      permission: str, subject: SubjectRef):
+        """Async iterator of allowed resource ids (the reference drains
+        the LookupResources server-stream incrementally, lookups.go:74-135).
+        Default: wrap the materialized list; `torch://` yields chunks."""
+        for rid in await self.lookup_resources(resource_type, permission,
+                                               subject):
+            yield rid
+
     async def read_relationships(self, flt: RelationshipFilter) -> list:
         raise NotImplementedError
+
+    async def read_relationships_stream(self, flt: RelationshipFilter):
+        """Async iterator of relationships (reference activity.go:160-172
+        drains a server-stream).  Default wraps the materialized list."""
+        for rel in await self.read_relationships(flt):
+            yield rel
 
     async def write_relationships(self, updates: Iterable[RelationshipUpdate],
                                   preconditions: Iterable[Precondition] = ()) -> int:
@@ -353,11 +368,21 @@ def create_endpoint(url: str,
     fewer are visible.  With `device=cpu` the D*G shards are co-located
     on the CPU (the counterpart of the reference's virtual CPU devices);
     `auto` there builds no mesh.  Under the MeshExecution gate off, `auto`
-    builds no mesh and `DxG` is a configuration error."""
+    builds no mesh and `DxG` is a configuration error.
+
+    `torch://` is wrapped in the cross-request dispatcher
+    (spicedb/dispatch.py `BatchingEndpoint`) unless `dispatch=direct` is
+    given or the CROSS_REQUEST_BATCHING switch is off, as `jax://` is
+    (reference endpoints.py:507-537).  `max_batch` (default 4096),
+    `pipeline_depth` (2) and `max_queue_depth` (0, unbounded) configure
+    it; each of the four comes from the URL or as a keyword, the URL
+    winning."""
     split = urlsplit(url)
     scheme = split.scheme
     params = parse_qs(split.query)
     store = kwargs.pop("store", None)
+    dispatch_kw = {k: kwargs.pop(k) for k in _DISPATCH_PARAMS
+                   if k in kwargs}
     if scheme == "embedded":
         return EmbeddedEndpoint.from_bootstrap(bootstrap, store=store)
     if scheme == "torch":
@@ -368,10 +393,13 @@ def create_endpoint(url: str,
                     f"device={params['device'][0]!r} in {url!r} conflicts "
                     f"with device={kwargs['device']!r}")
             kwargs["device"] = params["device"][0]
-        unknown = set(params) - {"device", "mesh"}
+        unknown = set(params) - {"device", "mesh", *_DISPATCH_PARAMS}
         if unknown:
             raise EndpointConfigError(
                 f"unsupported torch:// parameters {sorted(unknown)} in {url!r}")
+        for k in _DISPATCH_PARAMS:
+            if k in params:
+                dispatch_kw[k] = params[k][0]
         mesh_param = (params.get("mesh") or [""])[0]
         if mesh_param and "mesh" not in kwargs:
             mesh = _torch_mesh(mesh_param, kwargs.get("device"), url)
@@ -379,10 +407,44 @@ def create_endpoint(url: str,
                 kwargs["mesh"] = mesh
         if store is not None:
             kwargs["store"] = store
-        return TorchEndpoint.from_bootstrap(bootstrap, **kwargs)
+        ep = TorchEndpoint.from_bootstrap(bootstrap, **kwargs)
+        return _wrap_dispatch(ep, dispatch_kw, url)
     raise EndpointConfigError(
         f"unsupported spicedb endpoint scheme {scheme!r} "
         f"(this package serves embedded:// and torch://)")
+
+
+_DISPATCH_PARAMS = ("dispatch", "max_batch", "pipeline_depth",
+                    "max_queue_depth")
+
+
+def _wrap_dispatch(ep: PermissionsEndpoint, kw: dict,
+                   url: str) -> PermissionsEndpoint:
+    """`ep` behind the batching dispatcher, or bare under
+    `dispatch=direct` (see create_endpoint)."""
+    from ..utils import features
+    default = "batched" if features.CROSS_REQUEST_BATCHING else "direct"
+    dispatch = kw.get("dispatch") or default
+    if dispatch == "direct":
+        return ep
+    if dispatch != "batched":
+        raise EndpointConfigError(
+            f"unknown dispatch mode {dispatch!r}; use batched|direct")
+    from .dispatch import BatchingEndpoint
+
+    def arg(name: str, default: int) -> int:
+        v = kw.get(name)
+        return default if v is None else int(v)
+
+    try:
+        return BatchingEndpoint(
+            ep, max_batch=arg("max_batch", 4096),
+            pipeline_depth=arg("pipeline_depth", 2),
+            max_queue_depth=arg("max_queue_depth", 0))
+    except ValueError as e:
+        raise EndpointConfigError(
+            f"invalid max_batch/pipeline_depth/max_queue_depth "
+            f"in {url!r}: {e}") from e
 
 
 def _torch_mesh(param: str, device, url: str):

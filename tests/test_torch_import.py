@@ -138,6 +138,45 @@ def test_mesh_path_runs_with_jax_blocked():
         set(res["modules"])
 
 
+_PROBE_DISPATCH = r"""
+import json, sys
+sys.modules["jax"] = None          # any `import jax` now raises
+import asyncio
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import (
+    Bootstrap, create_endpoint)
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import SubjectRef
+ep = create_endpoint("torch://?device=cpu", Bootstrap(
+    "definition user {}\ndefinition doc { relation viewer: user\n"
+    "permission view = viewer }", "doc:d1#viewer@user:ann"))
+
+async def burst():
+    return await asyncio.gather(*[ep.lookup_resources(
+        "doc", "view", SubjectRef("user", u)) for u in ("ann", "bob")])
+
+ids = [list(x) for x in asyncio.run(burst())]
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None)
+print(json.dumps({"ids": ids, "type": type(ep).__name__,
+                  "fused": ep.stats["max_fused_batch"], "modules": loaded}))
+"""
+
+
+def test_batched_dispatch_runs_with_jax_blocked():
+    """The dispatcher modules (spicedb/dispatch.py, utils/admission.py,
+    utils/failpoints.py) load and serve `torch://`'s default batched
+    dispatch with jax unimportable, and import nothing of the reference."""
+    out = subprocess.run([sys.executable, "-c", _PROBE_DISPATCH], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["ids"] == [["d1"], []] and res["type"] == "BatchingEndpoint"
+    assert res["fused"] == 2
+    assert not [m for m in res["modules"] if _is_forbidden(m)]
+    assert {"spicedb_kubeapi_proxy_tpu_torch.spicedb.dispatch",
+            "spicedb_kubeapi_proxy_tpu_torch.utils.admission",
+            "spicedb_kubeapi_proxy_tpu_torch.utils.failpoints"} <= \
+        set(res["modules"])
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), str(path))
     for node in ast.walk(tree):
