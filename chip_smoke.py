@@ -123,14 +123,36 @@ deployment (`models/workloads.py multitenant_1m()` with its defaults:
    9's churn and finished after its flush and sweep-graph recapture keep
    their pre-write answers.
 
+15. off-loop rebuilds (the port's ASYNC_REBUILD switch, which phases 1-14
+   keep off: each asserts that its churn rebuilds nothing) on the phase-3
+   store.  (a) a fresh endpoint's `warm_start(prewarm=True)`: its seconds,
+   the lane buckets warmed and the captures made; its first 256-lane
+   lookup and 10,000-pair check batches run no eager sweep, make no
+   capture and answer as the phase-3 endpoint; (b) unique-name pods
+   created at ~200 a second past the pod spare pool while a reader thread
+   issues 256-lane pod#view lookup batches, switch on (one preemptive
+   background rebuild, no quarantine) and off (the pool runs dry and a
+   read waits out the rebuild): the reader's p50/p99/max, the lock-held
+   install and the card's memory before, at its peak during and after
+   the swap; (c) more new tenants in one write than the tenant pool
+   holds: pod#view quarantined to the oracle (checks) while the held
+   candidate waits and group#member still on the kernel, then after the
+   swap no quarantine, the card's tables equal the host's, the answers
+   equal `force_rebuild()`'s and the oracle's; (d) launches from zero
+   over one background swap whose candidate is prewarmed and replays
+   writes at its install: every read kernel and `scatter_rows`.  The
+   mesh endpoint of 13a and the caveated endpoint of 10 each take one
+   background swap, after which their answers equal the single-device
+   endpoint's and the oracle's.
+
 Wherever `lookup_T` and `scatter_rows` are timed (phases 6, 9, 10, 11,
 13a), their rows also carry the device-only time, the time with L2
 flushed and the host cost per call, of the kernel and of its library
 yardstick (`attribute`), so that a gap between the event-timed loops is
 put down to the card or to the host.
 
-Phases run in the order 1-9, 11, 13a-b, 14, 10, 13c, 12, 13d, and each
-phase's seconds are logged.  Any failed phase raises and the script
+Phases run in the order 1-9, 11, 13a-b, 14, 15, 10, 13c, 12, 13d, and
+each phase's seconds are logged.  Any failed phase raises and the script
 exits non-zero.  The second-to-last line is the kernel table as JSON,
 the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -201,6 +223,17 @@ DISPATCH_REPEATS = 5
 DISPATCH_ORACLE_CHECKS = 300
 DISPATCH_ORACLE_SUBJECTS = 2    # lookups held against oracle checks
 DISPATCH_ORACLE_PODS = 100      # allowed, and as many refused, pods each
+# phase 15, off-loop rebuilds on the phase-3 store: unique-name pods
+# created past the spare pool (pool + OFFLOOP_EXTRA_PODS a run, in writes
+# of one pod, OFFLOOP_WRITE_PODS of them every OFFLOOP_WRITE_GAP_S: ~200
+# pods/s, so the 25 % low watermark leaves a rebuild ~4 s of headroom),
+# then more new tenants in one write than the tenant pool holds
+OFFLOOP_EXTRA_PODS = 400
+OFFLOOP_WRITE_PODS = 8
+OFFLOOP_WRITE_GAP_S = 0.04
+OFFLOOP_EXTRA_TENANTS = 16
+OFFLOOP_ORACLE_CHECKS = 100
+OFFLOOP_SWAP_ORACLE = 200   # oracle checks after the 13a / 10 swaps
 UNDECIDED = '[caveat:within_quota:{"used": 1}]'
 DECIDED = ('[caveat:within_quota:{"used": 1, "quota": 5}]',
            '[caveat:within_quota:{"used": 9, "quota": 5}]')
@@ -3791,6 +3824,425 @@ def batched_dispatch(ep, w, smi_line: str, device: str = "cuda") -> dict:
     log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "summary": summary}
 
+# -- phase 15, off-loop rebuilds ------------------------------------------------
+
+def _hold(ep, name: str, gate, reached=None, before: bool = True):
+    """Make `ep.<name>` (a candidate build step) wait for `gate` before
+    (or after) it runs, setting `reached` when it gets there.  Returns a
+    function that restores the method."""
+    import threading
+    orig = getattr(ep, name)
+    reached = reached if reached is not None else threading.Event()
+
+    def held(*args):
+        if before:
+            reached.set()
+            if not gate.wait(timeout=600):
+                raise RuntimeError(f"{name} held for 600 s")
+        out = orig(*args)
+        if not before:
+            reached.set()
+            if not gate.wait(timeout=600):
+                raise RuntimeError(f"{name} held for 600 s")
+        return out
+
+    setattr(ep, name, held)
+    return lambda: delattr(ep, name)
+
+
+def _switch(on: bool) -> None:
+    """The port's ASYNC_REBUILD switch (phases 1-14 run with it off: each
+    asserts that its churn rebuilds nothing)."""
+    from spicedb_kubeapi_proxy_tpu_torch.utils import features
+    features.ASYNC_REBUILD = on
+
+
+def background_swap(x_ep, label: str) -> None:
+    """One background swap on `x_ep` (switch on, candidate prewarmed):
+    the rebuild is kicked directly, as a preemptive one would be, and
+    `wait_rebuilds()` must see it installed with no failure."""
+    _switch(True)
+    try:
+        x_ep.prewarm_rebuilds = True
+        n0 = x_ep.stats["bg_rebuilds"]
+        gen = x_ep._graph
+        with x_ep._lock:
+            x_ep._kick_background_rebuild("background")
+        if not x_ep.wait_rebuilds(timeout=600):
+            raise AssertionError(f"{label}: the background rebuild did not "
+                                 "finish")
+        if (x_ep.stats["bg_rebuilds"] != n0 + 1 or x_ep._graph is gen
+                or x_ep.stats["rebuild_failures"]):
+            raise AssertionError(f"{label}: no background swap "
+                                 f"({x_ep.stats['bg_rebuilds'] - n0} "
+                                 f"installs, "
+                                 f"{x_ep.stats['rebuild_failures']} failures)")
+    finally:
+        x_ep.prewarm_rebuilds = False
+        _switch(False)
+    log(f"{label}: one background swap (candidate prewarmed), "
+        f"{x_ep.stats['bg_install_s'] * 1e3:.3f} ms of lock-held installs "
+        "so far")
+
+
+def swap_and_agree(x_ep, ref_ep, rt: str, perm: str, subjects: list,
+                   reqs: list, label: str) -> None:
+    """One background swap on `x_ep`; before and after it, and on
+    `ref_ep` (the single-device endpoint), the lookups and tri-state
+    checks are equal, and a sample of the checks equals the oracle's."""
+    from spicedb_kubeapi_proxy_tpu_torch.ops.torch_endpoint import (
+        TorchEndpoint)
+
+    def answers(e):
+        looked = [sorted(x) for x in asyncio.run(
+            e.lookup_resources_batch(rt, perm, subjects))]
+        checked = [r.permissionship for r in asyncio.run(
+            e.check_bulk_permissions(reqs))]
+        return looked, checked
+
+    before = answers(x_ep)
+    background_swap(x_ep, label)
+    after = answers(x_ep)
+    if after != before or after != answers(ref_ep):
+        raise AssertionError(f"{label}: answers changed across the swap or "
+                             "differ from the single-device endpoint's")
+    tri = TorchEndpoint._TRISTATE
+    bad = sum(tri[x_ep._oracle.check3(r.resource, r.permission, r.subject)]
+              != after[1][i] for i, r in
+              enumerate(reqs[:OFFLOOP_SWAP_ORACLE]))
+    if bad:
+        raise AssertionError(f"{label}: {bad} checks differ from the oracle")
+    log(f"{label}: after the swap {len(subjects)} lookups and {len(reqs)} "
+        f"tri-state checks equal those before it and the single-device "
+        f"endpoint's; {OFFLOOP_SWAP_ORACLE} equal the oracle's")
+
+
+def offloop_rebuild(ep, w, batches, reqs, smi_line: str,
+                    device: str = "cuda") -> dict:
+    """Phase 15: off-loop rebuilds at multitenant-1m, on the phase-3
+    store.  (a) a fresh endpoint with `warm_start(prewarm=True)`: its
+    first 256-lane lookup and 10,000-pair check batches run no eager
+    sweep, make no capture and answer as the phase-3 endpoint; (b)
+    unique-name pods created on spare rows past the pool's 25 % low
+    watermark while a reader thread issues 256-lane pod#view lookup
+    batches, once with ASYNC_REBUILD on (a preemptive background rebuild,
+    no quarantine) and once off (the pool runs dry and the rebuild lands
+    on a read): the reader's p50/p99/max, the lock-held install and the
+    card's memory before, at its peak during and after the swap; (c)
+    more new tenants in one write than the tenant pool holds: pod#view
+    is quarantined to the oracle while the (held) candidate waits, a
+    pair outside the closure (group#member) stays on the kernel, and
+    after the swap the tables equal the host's and the answers equal a
+    `force_rebuild()`'s and the oracle's; (d) launches counted from zero
+    over one background swap with writes replayed at its install: the
+    candidate's prewarm and replay flush launch every read kernel and
+    `scatter_rows`.  Returns the launches of (d)."""
+    import threading
+    import weakref
+
+    import numpy as np
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import (
+        Bootstrap, create_endpoint)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        CheckRequest, ObjectRef, Permissionship, RelationshipUpdate,
+        SubjectRef, UpdateOp, parse_relationship)
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    rng = np.random.default_rng(SEED + 15)
+    subjects = batches[0]
+    ep.wait_rebuilds()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def answers(x_ep):
+        looked = [sorted(x) for x in asyncio.run(
+            x_ep.lookup_resources_batch("pod", "view", subjects))]
+        checked = [r.permissionship for r in asyncio.run(
+            x_ep.check_bulk_permissions(reqs))]
+        return looked, checked
+
+    # (a) a fresh endpoint on the store, prewarmed at its warm start
+    _switch(True)
+    t0 = time.perf_counter()
+    fresh = create_endpoint(direct_url(device), Bootstrap(w.schema_text, ""),
+                            store=ep.store)
+    fresh.warm_start(prewarm=True)
+    sync()
+    t_warm = time.perf_counter() - t0
+    g = fresh.graph()
+    gs0 = dict(g.kernel.graph_stats)
+    buckets = sorted(g.kernel._arenas)
+    ranges = fresh._prewarm_slot_ranges(g)
+    log(f"offloop (a): warm_start(prewarm=True) {t_warm:.3f} s (graph build "
+        f"and prewarm): {len(buckets)} lane buckets warmed ({[32 * b for b in buckets]} "
+        f"lanes) x {len(ranges)} lookup slot ranges + checks, "
+        f"{gs0['captures']} sweep graph captures, {gs0['eager_sweeps']} "
+        f"eager sweeps")
+    t0 = time.perf_counter()
+    got = answers(fresh)
+    sync()
+    t_first = time.perf_counter() - t0
+    gs1 = dict(fresh.graph().kernel.graph_stats)
+    if gs1["eager_sweeps"] != gs0["eager_sweeps"] or \
+            gs1["captures"] != gs0["captures"]:
+        raise AssertionError(f"(a): the first batches after the prewarm ran "
+                             f"{gs1['eager_sweeps'] - gs0['eager_sweeps']} "
+                             f"eager sweeps and made "
+                             f"{gs1['captures'] - gs0['captures']} captures")
+    if got != answers(ep):
+        raise AssertionError("(a): the prewarmed endpoint's answers differ "
+                             "from the phase-3 endpoint's")
+    log(f"offloop (a): first {LOOKUP_LANES}-lane lookup and {len(reqs)}-pair "
+        f"check batches after the prewarm {t_first:.4f} s: 0 eager sweeps, 0 "
+        f"captures, {gs1['replays'] - gs0['replays']} graph replays; answers "
+        "equal the phase-3 endpoint's")
+    del g      # hold no generation: (b) checks that a swap frees it
+
+    # (b) unique-name pod churn past the watermark under a reader
+    ns_of = [n for n in fresh.graph().prog.object_ids["namespace"]
+             if "\x00" not in n]
+    users = w.subjects
+
+    def create_pods(x_ep, tag: str, n: int) -> list:
+        made = []
+        for i in range(n):
+            ns = ns_of[int(rng.integers(len(ns_of)))]
+            u = users[int(rng.integers(len(users)))]
+            pod = f"{ns}/{tag}-{i}"
+            x_ep.store.write([
+                RelationshipUpdate(UpdateOp.TOUCH, parse_relationship(
+                    f"pod:{pod}#namespace@namespace:{ns}")),
+                RelationshipUpdate(UpdateOp.TOUCH, parse_relationship(
+                    f"pod:{pod}#creator@user:{u}"))])
+            made.append((pod, u))
+            if i % OFFLOOP_WRITE_PODS == OFFLOOP_WRITE_PODS - 1:
+                time.sleep(OFFLOOP_WRITE_GAP_S)
+        return made
+
+    def churn_run(on: bool, tag: str) -> dict:
+        _switch(on)
+        fresh.wait_rebuilds()
+        pool = len(fresh._spare_pool["pod"])
+        n = pool + OFFLOOP_EXTRA_PODS
+        st0 = dict(fresh.stats)
+        outgoing = weakref.ref(fresh._graph)
+        gc.collect()
+        sync()
+        mem0 = torch.cuda.memory_allocated() if on_card else 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        stop = threading.Event()
+        lat, errors = [], []
+
+        def reader():
+            try:
+                while not stop.is_set():
+                    t = time.perf_counter()
+                    asyncio.run(fresh.lookup_resources_batch(
+                        "pod", "view", subjects))
+                    lat.append(time.perf_counter() - t)
+            except Exception as e:      # raised by the main thread
+                errors.append(e)
+
+        def no_oracle_lookups(*args):
+            # a quarantined pod#view lookup would go to the host oracle
+            # (minutes a subject at this size): fail at once instead
+            raise AssertionError("(b): a pod#view lookup was routed to the "
+                                 "oracle")
+
+        fresh._oracle.lookup_resources = no_oracle_lookups
+        th = threading.Thread(target=reader)
+        th.start()
+        t0 = time.perf_counter()
+        try:
+            made = create_pods(fresh, tag, n)
+            t_write = time.perf_counter() - t0
+            time.sleep(0.5)     # the reader applies the last writes
+            if not fresh.wait_rebuilds(timeout=600):
+                raise AssertionError("(b): background rebuilds did not "
+                                     "settle")
+        finally:
+            stop.set()
+            th.join(timeout=600)
+            del fresh._oracle.lookup_resources
+        if th.is_alive():
+            raise AssertionError("(b): the reader thread did not stop")
+        if errors:
+            raise errors[0]
+        gc.collect()
+        sync()
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        mem1 = torch.cuda.memory_allocated() if on_card else 0
+        d = {k: fresh.stats[k] - st0[k] for k in
+             ("rebuilds", "bg_rebuilds", "preemptive_rebuilds",
+              "stale_routed", "stale_pair_marks", "spare_assignments")}
+        p50, p99 = np.percentile(np.asarray(lat), [50, 99])
+        if outgoing() is not None:
+            raise AssertionError("(b): the outgoing generation is still "
+                                 "alive after the swap")
+        out = {"pool": pool, "pods": n, "write_s": t_write,
+               "reads": len(lat), "p50_s": float(p50), "p99_s": float(p99),
+               "max_s": max(lat), "install_ms": (fresh.stats["bg_install_s"]
+                                                 - st0["bg_install_s"]) * 1e3,
+               "mem_mb": (mem0 / 2 ** 20, peak / 2 ** 20, mem1 / 2 ** 20),
+               **d}
+        log(f"offloop (b) ASYNC_REBUILD {'on' if on else 'off'}: {n} pods "
+            f"created on a {pool}-row spare pool in {t_write:.2f} s; reader "
+            f"{len(lat)} {LOOKUP_LANES}-lane lookup batches p50 "
+            f"{p50 * 1e3:.3f} ms, p99 {p99 * 1e3:.3f} ms, max "
+            f"{max(lat) * 1e3:.3f} ms; rebuilds {d['rebuilds']} (background "
+            f"{d['bg_rebuilds']}, preemptive {d['preemptive_rebuilds']}), "
+            f"stale pairs {d['stale_pair_marks']}, stale-routed reads "
+            f"{d['stale_routed']}; lock-held install {out['install_ms']:.3f} "
+            f"ms; card memory before {out['mem_mb'][0]:.1f} MiB, peak "
+            f"{out['mem_mb'][1]:.1f} MiB, after {out['mem_mb'][2]:.1f} MiB "
+            f"({smi_line})")
+        # the creators see their pods
+        sample = made[:: max(1, len(made) // 500)]
+        res = asyncio.run(fresh.check_bulk_permissions(
+            [CheckRequest(ObjectRef("pod", p), "view", SubjectRef("user", u))
+             for p, u in sample]))
+        if not all(r.allowed for r in res):
+            raise AssertionError("(b): a creator cannot view a created pod")
+        _tables_match(fresh.graph())
+        return out
+
+    runs = {"on": churn_run(True, "q15on")}
+    fresh.force_rebuild()           # a full pool again for the other run
+    runs["off"] = churn_run(False, "q15off")
+    on, off = runs["on"], runs["off"]
+    if on["preemptive_rebuilds"] < 1 or on["stale_routed"] or \
+            on["stale_pair_marks"]:
+        raise AssertionError(f"(b) on: expected a preemptive rebuild and no "
+                             f"quarantine: {on}")
+    if off["rebuilds"] < 1 or off["bg_rebuilds"]:
+        raise AssertionError(f"(b) off: expected a synchronous rebuild: {off}")
+
+    # (c) a forced quarantine: more new tenants than the tenant pool holds
+    _switch(True)
+    fresh.wait_rebuilds()
+    t_pool = len(fresh._spare_pool["tenant"])
+    n_t = t_pool + OFFLOOP_EXTRA_TENANTS
+    new_t = [(f"tq{k}", users[int(rng.integers(len(users)))])
+             for k in range(n_t)]
+    gate = threading.Event()
+    restore = _hold(fresh, "_build_candidate", gate)
+    st0 = dict(fresh.stats)
+    try:
+        fresh.store.write([RelationshipUpdate(UpdateOp.TOUCH,
+                                              parse_relationship(
+                                                  f"tenant:{t}#member@user:{u}"))
+                           for t, u in new_t])
+        pick = rng.choice(len(reqs), OFFLOOP_ORACLE_CHECKS, replace=False)
+        q_reqs = [reqs[i] for i in pick]
+        t0 = time.perf_counter()
+        routed = asyncio.run(fresh.check_bulk_permissions(q_reqs))
+        t_routed = time.perf_counter() - t0
+        n_routed = fresh.stats["stale_routed"] - st0["stale_routed"]
+        if ("pod", "view") not in fresh._stale_pairs or \
+                n_routed != len(q_reqs) or \
+                any(r.source != "oracle" for r in routed):
+            raise AssertionError(f"(c): pod#view was not quarantined "
+                                 f"({n_routed} routed)")
+        if any(r.allowed != fresh._oracle.check(q.resource, q.permission,
+                                                 q.subject)
+               for r, q in zip(routed, q_reqs)):
+            raise AssertionError("(c): quarantined answers differ from the "
+                                 "oracle's")
+        t0 = time.perf_counter()
+        members = asyncio.run(fresh.lookup_resources_batch(
+            "group", "member", subjects))
+        t_outside = time.perf_counter() - t0
+        if (fresh.stats["stale_routed"] - st0["stale_routed"] != n_routed
+                or any(x.source != "kernel" for x in members)
+                or not fresh.rebuild_inflight):
+            raise AssertionError("(c): group#member left the kernel, or the "
+                                 "build was not in flight")
+        access = asyncio.run(fresh.check_bulk_permissions(
+            [CheckRequest(ObjectRef("tenant", t), "access",
+                          SubjectRef("user", u)) for t, u in new_t]))
+        if not all(r.allowed for r in access):
+            raise AssertionError("(c): a new tenant member has no access")
+    finally:
+        gate.set()
+        restore()
+    if not fresh.wait_rebuilds(timeout=600):
+        raise AssertionError("(c): the background rebuild did not finish")
+    d = {k: fresh.stats[k] - st0[k] for k in
+         ("rebuilds", "bg_rebuilds", "stale_pair_marks", "stale_routed")}
+    if d["bg_rebuilds"] < 1 or fresh._stale_pairs:
+        raise AssertionError(f"(c): no clean background swap: {d}")
+    _tables_match(fresh.graph())
+    swapped = answers(fresh)
+    access = [r.permissionship for r in asyncio.run(
+        fresh.check_bulk_permissions(
+            [CheckRequest(ObjectRef("tenant", t), "access",
+                          SubjectRef("user", u)) for t, u in new_t]))]
+    fresh.force_rebuild()
+    if answers(fresh) != swapped or access != [r.permissionship for r in
+                                                asyncio.run(
+            fresh.check_bulk_permissions(
+                [CheckRequest(ObjectRef("tenant", t), "access",
+                              SubjectRef("user", u)) for t, u in new_t]))]:
+        raise AssertionError("(c): the swapped generation's answers differ "
+                             "from force_rebuild()'s")
+    bad = sum(fresh._oracle.check(q.resource, q.permission, q.subject)
+              != (swapped[1][i] == Permissionship.HAS_PERMISSION)
+              for q, i in zip(q_reqs, pick))
+    if bad:
+        raise AssertionError(f"(c): {bad} answers differ from the oracle")
+    log(f"offloop (c): {n_t} new tenants on a {t_pool}-row pool: "
+        f"{d['stale_pair_marks']} pairs quarantined, {n_routed} pod#view "
+        f"checks routed to the oracle in {t_routed:.4f} s while the candidate "
+        f"was held; a {LOOKUP_LANES}-lane group#member lookup on the kernel "
+        f"meanwhile {t_outside:.4f} s; after the swap ({d['bg_rebuilds']} "
+        f"background installs) no pair is quarantined, the card's tables "
+        f"equal the host's, and the answers equal force_rebuild()'s and "
+        f"{len(q_reqs)} oracle checks")
+
+    # (d) launches from zero over one background swap, writes replayed
+    fresh.wait_rebuilds()
+    fresh.prewarm_rebuilds = True
+    gate, reached = threading.Event(), threading.Event()
+    restore = _hold(fresh, "_prewarm_graph", gate, reached, before=False)
+    kernels.reset_launches()
+    f0 = fresh.stats["delta_batches"]
+    try:
+        with fresh._lock:
+            fresh._kick_background_rebuild("background")
+        if not reached.wait(timeout=600):
+            raise AssertionError("(d): the candidate never prewarmed")
+        create_pods(fresh, "q15d", 64)
+    finally:
+        gate.set()
+        restore()
+    if not fresh.wait_rebuilds(timeout=600):
+        raise AssertionError("(d): the background rebuild did not finish")
+    fresh.prewarm_rebuilds = False
+    launches = dict(kernels.LAUNCHES)
+    need = READ_KERNELS + ("scatter_rows",)
+    # (CPU twins count no launches: on the CPU this checks nothing)
+    idle = [k for k in need if on_card and not launches[k]]
+    if idle or fresh.stats["delta_batches"] != f0:
+        raise AssertionError(f"(d): kernels the candidate never launched: "
+                             f"{idle}")
+    _tables_match(fresh.graph())
+    log(f"offloop (d): launches over one background swap (prewarm + replay "
+        f"of 64 pod creates at the install), counted from zero after "
+        f"wait_rebuilds(): { {k: v for k, v in launches.items() if v} }")
+    _switch(False)
+    del fresh
+    gc.collect()
+    log(f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "runs": runs}
+
+
 def main() -> int:
     try:
         import torch
@@ -3804,6 +4256,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
     from spicedb_kubeapi_proxy_tpu_torch.ops.torch_endpoint import _sweep_bytes
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        CheckRequest, ObjectRef, SubjectRef)
 
     # 1. card identity
     name = torch.cuda.get_device_name(0)
@@ -3826,6 +4280,11 @@ def main() -> int:
     for line in kernels.BUILD_LOG.splitlines():
         if "ptxas info" in line and ("Used" in line or "Compiling" in line):
             log("  " + line.strip())
+
+    # phases 1-14 assert that their churn rebuilds nothing: they run with
+    # the off-loop rebuild switch off; phase 15 and the swaps after 13a and
+    # 10 turn it on where they need it
+    _switch(False)
 
     # 3. load
     phase_s = {}
@@ -3892,6 +4351,8 @@ def main() -> int:
     t_ph = time.perf_counter()
     mesh = make_smoke_mesh("cuda")
     m_ep, mesh_mt = mesh_multitenant(ep, w, mesh, timer, peak, smi_line)
+    swap_and_agree(m_ep, ep, "pod", "view", batches[0], reqs,
+                   "phase 13a mesh endpoint")
     del m_ep
     gc.collect()
     mesh_seg = mesh_segment(seg, mesh, timer, peak)
@@ -3901,6 +4362,11 @@ def main() -> int:
     t_ph = time.perf_counter()
     batched_dispatch(ep, w, smi_line)
     phase_s["14"] = time.perf_counter() - t_ph
+
+    # 15. off-loop rebuilds on the same store
+    t_ph = time.perf_counter()
+    offloop = offloop_rebuild(ep, w, batches, reqs, smi_line)
+    phase_s["15"] = time.perf_counter() - t_ph
 
     # 10. the caveated deployment on its own endpoint (the first one goes),
     # then 13c, the same store on a mesh endpoint
@@ -3912,6 +4378,14 @@ def main() -> int:
     phase_s["10"] = time.perf_counter() - t_ph
     t_ph = time.perf_counter()
     mesh_cav = mesh_caveats(cav_ep, cav_w, mesh, timer, peak)
+    cav_pods = [p for p in cav_ep.graph().prog.object_ids[
+        cav_w.resource_type] if "\x00" not in p][:40]
+    cav_subjects = [SubjectRef("user", u) for u in cav_w.subjects[:50]]
+    swap_and_agree(cav_ep, cav_ep, cav_w.resource_type, cav_w.permission,
+                   cav_subjects, [CheckRequest(ObjectRef(
+                       cav_w.resource_type, p), cav_w.permission, s)
+                       for p in cav_pods for s in cav_subjects],
+                   "phase 10 caveated endpoint")
     del cav_ep, cav_w
     phase_s["13c"] = time.perf_counter() - t_ph
 
@@ -3981,6 +4455,9 @@ def main() -> int:
             "leopard": mesh_leo["launches"].get(kname, 0)}
     rows["scatter_rows"].update({f"mesh_flush_{k}": v for k, v in
                                  mesh_mt["scatter"].items()})
+    # phase 15 (d): one background swap's launches, counted from zero
+    for kname in rows:
+        rows[kname]["offloop_launches"] = offloop["launches"].get(kname, 0)
     for kname, also in REPLACES_ALSO.items():
         rows[kname]["replaces_also"] = also
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}"

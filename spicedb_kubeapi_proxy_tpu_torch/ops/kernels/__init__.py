@@ -45,8 +45,11 @@ KERNEL_NAMES = ("ell_gather_or", "perm_program", "sweep_delta",
                 "or_combine", "mesh_gather_or", "mesh_cav_gather_or",
                 "mesh_perm_program", "mesh_sweep_delta")
 
-# launches per kernel since the last reset_launches(); CPU twins never count
+# launches per kernel since the last reset_launches(); CPU twins never count.
+# Serving threads and background rebuilds (a candidate's prewarm) launch at
+# once, so every increment takes _launches_lock
 LAUNCHES: dict = {name: 0 for name in KERNEL_NAMES}
+_launches_lock = threading.Lock()
 # a thread capturing a CUDA graph records its wrappers' launches here
 # instead (LaunchGraph): they run only when the graph is replayed
 _capture = threading.local()
@@ -74,16 +77,19 @@ class KernelError(RuntimeError):
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launches_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _count(name: str) -> None:
-    """One launch of `name`: into LAUNCHES, or into the capture this
-    thread is recording."""
+    """One launch of `name`: into LAUNCHES (under its lock: several
+    threads launch at once), or into the capture this thread is
+    recording (thread-local)."""
     rec = getattr(_capture, "counts", None)
     if rec is None:
-        LAUNCHES[name] += 1
+        with _launches_lock:
+            LAUNCHES[name] += 1
     else:
         rec[name] = rec.get(name, 0) + 1
 
@@ -95,7 +101,8 @@ class LaunchGraph:
     memsets; tensors it allocates come from the graph's own memory pool
     and live as long as the graph) and returns `fn`'s result; nothing runs
     until `replay()`, which launches the whole graph on the current stream
-    and adds the captured launches to LAUNCHES, as the calls would have.
+    and adds the captured launches to LAUNCHES, as the calls would have
+    (under the counters' lock, like every wrapper's count).
     The capture is `torch.cuda.graph`'s in "thread_local" mode (other
     threads keep launching meanwhile) on a side stream, without that
     context's device synchronise and cache flush; `pool`
@@ -128,9 +135,13 @@ class LaunchGraph:
         return out
 
     def replay(self) -> None:
+        """Launch the graph; its captured launches go into LAUNCHES under
+        the counters' lock (a replay may run beside another thread's
+        launches)."""
         self.graph.replay()
-        for name, n in self.counts.items():
-            LAUNCHES[name] += n
+        with _launches_lock:
+            for name, n in self.counts.items():
+                LAUNCHES[name] += n
 
 
 def _nvcc() -> str:

@@ -40,13 +40,25 @@ What this endpoint carries over from the reference, and what not yet:
   tables (positionless OR-tree edits in the definite and caveat tables,
   spare rows renamed for new ids, OR-tree growth for full rows) and
   flushes the dirty rows to the device copy-on-write (the `scatter_rows`
-  kernel).  A delta the tables cannot absorb — a wildcard change, the
-  first undecidable caveat on a graph compiled without planes, a dry
-  spare pool, an exhausted growth budget — rebuilds the generation
-  synchronously under the lock (the reference's AsyncRebuild-off path).
-  Every absorbed delta is mirrored into the Leopard closure (inserts
-  propagate, unprovable deletes quarantine the fragment until a
-  background re-close, a caveated tuple retires it).
+  kernel).  Every absorbed delta is mirrored into the Leopard closure
+  (inserts propagate, unprovable deletes quarantine the fragment until a
+  background re-close, a caveated tuple retires it);
+- off-loop rebuilds (the reference's AsyncRebuild path, switch
+  `utils/features.py` `ASYNC_REBUILD`): a delta the tables cannot absorb
+  — a wildcard change, the first undecidable caveat on a graph compiled
+  without planes, a dry spare pool, an exhausted growth budget —
+  quarantines its (type, permission) closure, whose reads the host
+  oracle answers exactly, while a candidate generation builds on a
+  background thread and the old one serves everything else; the deltas
+  that arrive meanwhile replay onto the candidate, which is swapped in
+  under a short lock.  A spare pool below its low watermark rebuilds
+  the same way before it runs dry.  With the switch off the generation
+  rebuilds synchronously under the lock;
+- `warm_start(prewarm=True)` builds the kernels and, for every word
+  bucket of the prewarm lanes, runs one check and one lookup batch per
+  slot range, so each bucket's arena exists and its sweep graphs are
+  captured before the first request (`prewarm_rebuilds` does the same
+  on background candidates before their swap).
 
 Reads are fully consistent w.r.t. the store: pending deltas are applied
 under the endpoint lock before a query captures its snapshot.
@@ -93,6 +105,8 @@ from ..spicedb.types import (
     UpdateOp,
     WatchUpdate,
 )
+from ..utils import features
+from ..utils.failpoints import fail_point
 from . import kernels
 from .ell import (K_AUX, EllKernelCache, _to_device, batch_words,
                   build_cav_tables, build_tables)
@@ -277,7 +291,54 @@ def _unify_check_buckets(q_arr, gather_idx, gather_col) -> tuple:
     return q_arr, gi, gc
 
 
-class _EllGraph:
+def _settle(devices) -> None:
+    """Wait until the work this thread queued so far on each card (its
+    current stream: uploads, launches, captures' first sweeps) is done;
+    CPU devices have nothing to wait for.  A candidate generation built
+    on a background thread settles before it is published."""
+    for dev in {d for d in devices if d.type == "cuda"}:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev))
+        ev.synchronize()
+
+
+class _PrewarmMixin:
+    """Prewarm of a generation's read path, shared by the graph kinds
+    (the reference's _PrewarmMixin, jax_endpoint.py:510-577).  torch
+    compiles nothing per shape; what a first request would otherwise
+    pay is the kernel library's build and load, its bucket's arena, the
+    first sweep launched step by step and, on the ELL graph, the capture
+    of the arena's two sweep graphs (ops/ell.py `_capture`).  The flush
+    has nothing to warm: `scatter_rows` is one launch at any row count."""
+
+    def prewarm(self, lanes: Iterable[int],
+                slot_ranges: Iterable[tuple]) -> int:
+        """Build and load the kernel library (on a card), then run one
+        check batch of dead-index lanes per word bucket that `lanes` land
+        in and one lookup batch per slot range and bucket, on this
+        generation's snapshot.  A bucket's first batch seeds, sweeps step
+        by step and captures its arena's sweep graphs; the later ones
+        replay (captures are keyed by arena, tables and plan, not by slot
+        range).  Returns the number of batches run; a failure raises, and
+        nothing falls back to eager launches."""
+        if any(d.type == "cuda" for d in self.devices()):
+            kernels._load()
+        dead = self.prog.dead_index
+        snap = self.snapshot()
+        slot_ranges = list(slot_ranges)
+        warmed = 0
+        for b in sorted({self.batch_bucket(n) for n in lanes}):
+            q = np.full(b, dead, np.int32)
+            g = np.zeros(b, np.int32)
+            self.run_checks3_device(q, g, g, snap=snap)
+            warmed += 1
+            for off, length in slot_ranges:
+                self.run_lookup_packed_T_device(off, length, q, snap=snap)
+                warmed += 1
+        return warmed
+
+
+class _EllGraph(_PrewarmMixin):
     """One compiled graph generation: fixed-fanin gather tables on the
     host and on the device, plus the kernel cache that sweeps them.
 
@@ -536,6 +597,10 @@ class _EllGraph:
 
     # -- queries ------------------------------------------------------------
 
+    def devices(self) -> list:
+        """The devices this generation's tables live on."""
+        return [self.kernel.device]
+
     def batch_bucket(self, n: int) -> int:
         return batch_words(n) * 32
 
@@ -594,7 +659,7 @@ def _scatter_dirty(dev: torch.Tensor, host: np.ndarray,
                                 _to_device(host[rows], dev.device))
 
 
-class _SegmentGraph:
+class _SegmentGraph(_PrewarmMixin):
     """One compiled generation as flat padded edge arrays, swept by the
     segment kernel (ops/spmv.py) — the reference's _SegmentGraph
     (jax_endpoint.py:601-776).
@@ -715,6 +780,9 @@ class _SegmentGraph:
 
     # -- queries ------------------------------------------------------------
 
+    def devices(self) -> list:
+        return [self.kernel.device]
+
     def batch_bucket(self, n: int) -> int:
         return batch_words(n) * 32
 
@@ -782,6 +850,9 @@ class _ShardedEllGraph(_EllGraph):
                 changed = True
         return changed
 
+    def devices(self) -> list:
+        return [d for row in self.kernel.mesh.devices for d in row]
+
     def batch_bucket(self, n: int) -> int:
         # whole words per data shard
         return self.kernel.padded_batch_words(max(n, 32)) * 32
@@ -809,8 +880,8 @@ class _ShardedEllGraph(_EllGraph):
 
 _GRAPH_KINDS = {"ell": _EllGraph, "segment": _SegmentGraph}
 
-# Background Leopard re-closes run here, never on the event loop's
-# executor that the query paths wait on (reference _rebuild_pool).
+# Background rebuilds and Leopard re-closes run here, never on the event
+# loop's executor that the query paths wait on (reference _rebuild_pool).
 _REBUILD_POOL = None
 _REBUILD_POOL_LOCK = threading.Lock()
 
@@ -823,6 +894,33 @@ def _rebuild_pool():
                 _REBUILD_POOL = concurrent.futures.ThreadPoolExecutor(
                     max_workers=2, thread_name_prefix="authz-rebuild")
     return _REBUILD_POOL
+
+
+class _GenState:
+    """One generation's host-side state, built as a candidate off the
+    endpoint lock and installed under it (reference jax_endpoint.py:
+    365-388).  The field names are the endpoint's live attributes, so the
+    delta machinery (`_apply_batches` and the helpers it calls) runs
+    identically on the live generation (`st=self`) and on a candidate
+    mid-replay."""
+
+    __slots__ = ("_graph", "_graph_revision", "_spare_pool",
+                 "_assigned_refs", "_spare_seq", "_caveat_affected",
+                 "_caveated_keys", "_expiry_heap", "_expiry_meta",
+                 "_stale_pairs", "_leopard")
+
+    def __init__(self):
+        self._graph = None
+        self._graph_revision = 0
+        self._spare_pool: dict = {}
+        self._assigned_refs: dict = {}
+        self._spare_seq = 0
+        self._caveat_affected: set = set()
+        self._caveated_keys: set = set()
+        self._expiry_heap: list = []
+        self._expiry_meta: dict = {}
+        self._stale_pairs: set = set()
+        self._leopard = None
 
 
 class TorchEndpoint(PermissionsEndpoint):
@@ -882,11 +980,37 @@ class TorchEndpoint(PermissionsEndpoint):
                       "oracle_residual_checks": 0, "placeholder_suppressed": 0,
                       "spare_assignments": 0, "spare_reclaims": 0,
                       "stage_aux_flips": 0, "stale_pair_marks": 0,
+                      "stale_routed": 0, "bg_rebuilds": 0,
+                      "preemptive_rebuilds": 0, "rebuild_failures": 0,
+                      "bg_install_s": 0.0,
                       "leopard_checks": 0, "leopard_lookups": 0,
                       "leopard_recloses": 0,
                       "delta_apply_s": 0.0, "flush_s": 0.0,
                       "readbacks": 0, "readback_bytes": 0,
                       "readback_wait_s": 0.0}
+        # off-loop rebuild state (the reference's, jax_endpoint.py:
+        # 1326-1359).  While a background rebuild is in flight the old
+        # generation keeps serving: deltas it can absorb apply as usual,
+        # deltas it cannot quarantine their (type, permission) closure in
+        # _stale_pairs, whose reads the host oracle answers until the swap
+        self._stale_pairs: set = set()
+        self._bg_inflight = False
+        self._bg_future = None
+        self._bg_pending: Optional[collections.deque] = None
+        self._bg_epoch = 0
+        self._bg_not_before = 0.0
+        # bumped at every install: a candidate built against epoch N is
+        # abandoned when a synchronous rebuild installed N + 1 first
+        self._gen_epoch = 0
+        # bumped at every background start and every install
+        self._rebuild_epoch = 0
+        # the live generation's initial spare pool sizes, for the
+        # low-watermark preemptive rebuild (_spare_pressure)
+        self._spare_initial: dict = {}
+        self._spare_aux_initial = 0
+        # prewarm background candidates before their swap, as
+        # warm_start(prewarm=True) does at startup
+        self.prewarm_rebuilds = False
         # a leaf lock for the readback counters: a finish never takes
         # self._lock, which a rebuild may hold for a long time
         self._readback_lock = threading.Lock()
@@ -912,10 +1036,52 @@ class TorchEndpoint(PermissionsEndpoint):
         apply_bootstrap_once(ep.store, rel_text)
         return ep
 
-    def warm_start(self) -> None:
+    # the prewarm ladder (reference jax_endpoint.py:1406-1412): the lane
+    # counts fused batches land in, from the single-query floor through
+    # the 256-concurrent headline shape, and at most this many lookup
+    # slot ranges
+    _PREWARM_LANES = (8, 16, 32, 64, 128, 256)
+    _PREWARM_SLOT_CAP = 16
+
+    def warm_start(self, prewarm: bool = False) -> None:
         """Build the device graph from the current store now instead of on
-        the first query."""
-        self.graph()
+        the first query.  `prewarm=True` also runs the generation's
+        prewarm (`_PrewarmMixin.prewarm`): the kernel library built and
+        loaded, and every bucket of `_PREWARM_LANES` seeded, swept and
+        captured, so the first batch of each pays none of it.  A failed
+        prewarm raises."""
+        with self._lock:
+            self._apply_pending()
+            graph = self._graph
+        if not prewarm or graph is None:
+            return
+        t0 = time.perf_counter()
+        warmed = self._prewarm_graph(graph)
+        _log.info("prewarmed %d read batches (%d lane buckets x %d lookup "
+                  "slot ranges + checks) in %.2f s", warmed,
+                  len({graph.batch_bucket(n) for n in self._PREWARM_LANES}),
+                  len(self._prewarm_slot_ranges(graph)),
+                  time.perf_counter() - t0)
+
+    def _prewarm_graph(self, graph) -> int:
+        """Prewarm one generation — the live one at warm_start, or a
+        background candidate before its swap, so the two can never cover
+        different entries.  Returns the batches run; a failure raises (a
+        background candidate then counts a rebuild failure and the old
+        generation keeps serving)."""
+        return graph.prewarm(lanes=self._PREWARM_LANES,
+                             slot_ranges=self._prewarm_slot_ranges(graph))
+
+    def _prewarm_slot_ranges(self, graph) -> list:
+        slot_ranges = []
+        for t, d in self.schema.definitions.items():
+            for p in d.permissions:
+                rng = graph.prog.slot_range(t, p)
+                if rng is not None:
+                    slot_ranges.append(rng)
+            if len(slot_ranges) >= self._PREWARM_SLOT_CAP:
+                break
+        return slot_ranges[: self._PREWARM_SLOT_CAP]
 
     def graph(self):
         """The device graph reflecting the committed store (pending
@@ -931,7 +1097,19 @@ class TorchEndpoint(PermissionsEndpoint):
     # -- delta intake -------------------------------------------------------
 
     def _on_delta(self, update: WatchUpdate) -> None:
-        # under the store lock: must not take self._lock
+        # under the store lock: must not take self._lock.  The background
+        # intake is appended BEFORE self._pending (reference :1446-1461):
+        # in the other order this thread could be preempted after the
+        # _pending append, the foreground drain it onto the OLD
+        # generation, the candidate replay without it and swap, and the
+        # delta be lost from the new generation.  Appended first, it is
+        # either in the intake before the swap's drain (replayed onto the
+        # candidate) or appended after the swap cleared the intake, and
+        # then _pending still holds it for the new generation's next
+        # drain (re-applying a delta is idempotent).
+        bg = self._bg_pending
+        if bg is not None:
+            bg.append(update)
         self._pending.append(update)
 
     def _on_reset(self) -> None:
@@ -990,8 +1168,12 @@ class TorchEndpoint(PermissionsEndpoint):
 
     def _apply_pending(self) -> None:
         """Drain store deltas into the graph and flush them (under
-        self._lock); rebuild when the graph is missing or invalid, or when
-        a delta could not be absorbed."""
+        self._lock; reference jax_endpoint.py:2003-2059).  The graph is
+        rebuilt synchronously when it is missing or a store reset
+        invalidated it.  A delta it cannot absorb quarantines its
+        (type, permission) closure and kicks a background rebuild; with
+        ASYNC_REBUILD off it rebuilds synchronously instead, the snapshot
+        subsuming every drained delta."""
         if self._graph_invalid:
             self._graph_invalid = False
             _evict_id_views(self._graph)
@@ -1000,18 +1182,28 @@ class TorchEndpoint(PermissionsEndpoint):
         if graph is None:
             self._rebuild()
             return
+        # re-arm a needed rebuild (pairs still quarantined after a crashed
+        # or abandoned background attempt), rate-limited
+        if (self._stale_pairs and not self._bg_inflight
+                and self._async_rebuild_on()
+                and time.monotonic() >= self._bg_not_before):
+            self._kick_background_rebuild("background")
         batches = self._drain_pending()
         if not batches and not (self._expiry_heap and self._expiry_heap[0][0]
                                 <= self.store.now()):
             return
         t0 = time.perf_counter()
-        stale, applied_revision = self._apply_batches(batches)
-        if stale:
-            # no quarantine yet: the snapshot of a synchronous rebuild
-            # subsumes every drained delta
+        stale, applied_revision = self._apply_batches(self, batches)
+        if stale and not self._async_rebuild_on():
             self._rebuild()
             return
         self._graph_revision = applied_revision
+        if stale:
+            # quarantine: the affected pairs go to the host oracle while
+            # the replacement builds off the lock and this generation
+            # serves everything else
+            self._stale_pairs |= stale
+            self._kick_background_rebuild("background")
         if graph.stage_aux_flips:
             self.stats["stage_aux_flips"] += graph.stage_aux_flips
             graph.stage_aux_flips = 0
@@ -1022,6 +1214,10 @@ class TorchEndpoint(PermissionsEndpoint):
         # uploads and launches; the kernels run on asynchronously)
         self.stats["delta_apply_s"] += t1 - t0
         self.stats["flush_s"] += time.perf_counter() - t1
+        if not stale and self._async_rebuild_on() and self._spare_pressure():
+            # low watermark: refresh the spare pools in the background
+            # before new-object churn runs them dry
+            self._kick_background_rebuild("preemptive")
         self._kick_leopard_recloses()
 
     def _kick_leopard_recloses(self) -> None:
@@ -1043,58 +1239,219 @@ class TorchEndpoint(PermissionsEndpoint):
             self._leo_futures.append(fut)
             self.stats["leopard_recloses"] += 1
 
+    # -- off-loop rebuilds (reference jax_endpoint.py:2095-2294) -------------
+
+    _SPARE_LOW_FRACTION = 0.25
+    _BG_RETRY_BACKOFF_S = 1.0
+    _BG_REPLAY_ATTEMPTS = 3
+
+    def _async_rebuild_on(self) -> bool:
+        """The ASYNC_REBUILD switch; a missing one reads as off (fails
+        closed: synchronous rebuilds)."""
+        return getattr(features, "ASYNC_REBUILD", False) is True
+
+    def _spare_pressure(self) -> bool:
+        """True when the live generation's spare capacity (an object
+        pool, or the ELL spare aux pool) is under the low watermark: the
+        signal to rebuild while churn can still be absorbed in place."""
+        for t, init in self._spare_initial.items():
+            if init >= 8 and (len(self._spare_pool.get(t, ()))
+                              < init * self._SPARE_LOW_FRACTION):
+                return True
+        if self._spare_aux_initial >= 8:
+            free_aux = len(getattr(self._graph, "_spare_aux", ()))
+            if free_aux < self._spare_aux_initial * self._SPARE_LOW_FRACTION:
+                return True
+        return False
+
+    def _kick_background_rebuild(self, mode: str) -> None:
+        """Submit one off-loop rebuild (under self._lock); a no-op while
+        one is in flight or inside the failure backoff."""
+        if self._bg_inflight or time.monotonic() < self._bg_not_before:
+            return
+        self._bg_inflight = True
+        self._rebuild_epoch += 1
+        self._bg_epoch = self._gen_epoch
+        # open the candidate's delta intake BEFORE its snapshot: every
+        # delta committed from now on is inside the snapshot (idempotent
+        # replay) or replayed at the swap
+        self._bg_pending = collections.deque()
+        try:
+            self._bg_future = _rebuild_pool().submit(self._bg_rebuild_run,
+                                                     mode)
+        except RuntimeError:    # the executor is shut down
+            # a failed submit must not latch _bg_inflight, which would
+            # pin the stale pairs on the oracle for good
+            self._bg_pending = None
+            self._bg_inflight = False
+            self._bg_future = None
+            self._bg_not_before = (time.monotonic()
+                                   + self._BG_RETRY_BACKOFF_S)
+            _log.exception("background rebuild submit failed; will re-arm")
+
+    def _drain_bg_pending(self) -> list:
+        out = []
+        bg = self._bg_pending
+        if bg is not None:
+            while True:
+                try:
+                    out.append(bg.popleft())
+                except IndexError:
+                    break
+        return out
+
+    def _bg_rebuild_run(self, mode: str) -> None:
+        """The executor's body of one off-loop rebuild: build a candidate
+        from a store snapshot with no endpoint lock held (prewarmed when
+        `prewarm_rebuilds`, and settled on the card), then under the lock
+        replay the deltas that arrived during the build and swap.  A
+        candidate that a synchronous install or a store reset overtook is
+        abandoned.  A replay that cannot absorb a delta retries from a
+        fresh snapshot; the last attempt installs with its residue still
+        quarantined and backs off.  On any failure the old generation
+        keeps serving."""
+        try:
+            for attempt in range(self._BG_REPLAY_ATTEMPTS):
+                st = self._build_candidate()
+                if self.prewarm_rebuilds:
+                    self._prewarm_graph(st._graph)
+                # the candidate's uploads, launches and captures are done
+                # before any serving thread can see its tables
+                _settle(st._graph.devices())
+                with self._lock:
+                    t_lock = time.perf_counter()
+                    if self._gen_epoch != self._bg_epoch:
+                        return  # a synchronous rebuild installed first
+                    if self._graph_invalid:
+                        # a bulk load or delete_all during the build: the
+                        # next read rebuilds synchronously
+                        return
+                    stale, rev = self._apply_batches(
+                        st, self._drain_bg_pending())
+                    st._graph_revision = max(st._graph_revision, rev)
+                    if stale and attempt < self._BG_REPLAY_ATTEMPTS - 1:
+                        continue  # a fresh snapshot subsumes the misfits
+                    st._stale_pairs |= stale
+                    st._graph.flush()
+                    self._install_candidate(st, mode=mode)
+                    # host seconds the install held the lock: the replay,
+                    # its flush and the swap
+                    self.stats["bg_install_s"] += time.perf_counter() - t_lock
+                    if stale:
+                        # residue carried over: back off, then a read
+                        # re-arms the follow-up
+                        self._bg_not_before = (time.monotonic()
+                                               + self._BG_RETRY_BACKOFF_S)
+                    return
+        except Exception:
+            _log.exception("background graph rebuild (%s) failed; the "
+                           "previous generation keeps serving", mode)
+            with self._lock:
+                self.stats["rebuild_failures"] += 1
+                self._bg_not_before = (time.monotonic()
+                                       + self._BG_RETRY_BACKOFF_S)
+        finally:
+            with self._lock:
+                self._bg_pending = None
+                self._bg_inflight = False
+                self._bg_future = None
+
+    @property
+    def rebuild_inflight(self) -> bool:
+        return self._bg_inflight
+
+    @property
+    def rebuild_epoch(self) -> int:
+        """Monotone count of background rebuild starts and installs: an
+        unchanged value proves no rebuild overlapped an operation."""
+        return self._rebuild_epoch
+
     def wait_rebuilds(self, timeout: float = 30.0) -> bool:
-        """Quiesce background work: block until no Leopard re-close is in
-        flight or pending (kicking one if a quarantined fragment waits).
-        Rebuilds themselves are synchronous here (the reference's
-        AsyncRebuild-off branch), so they leave nothing to wait for.
-        Returns True when quiescent."""
+        """Quiesce background work: block until no rebuild or Leopard
+        re-close is in flight and no pair is quarantined, kicking a
+        follow-up rebuild (or re-close) where one is needed.  The serving
+        paths never call it.  Returns True when quiescent."""
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
             with self._lock:
-                leo = [f for f in self._leo_futures if not f.done()]
-                if not leo and self._leopard is not None \
-                        and self._leopard.reclose_pending():
-                    self._kick_leopard_recloses()
+                fut = self._bg_future
+                if fut is None:
                     leo = [f for f in self._leo_futures if not f.done()]
-                if not leo:
-                    return True
-            try:
-                leo[0].result(timeout=max(0.01,
-                                          deadline - time.monotonic()))
-            except Exception:
-                pass  # a failed re-close leaves the fragment quarantined
+                    if leo:
+                        fut = leo[0]
+                    elif (self._leopard is not None
+                            and self._leopard.reclose_pending()):
+                        self._kick_leopard_recloses()
+                        leo = [f for f in self._leo_futures
+                               if not f.done()]
+                        fut = leo[0] if leo else None
+                    elif (not self._stale_pairs
+                            or not self._async_rebuild_on()):
+                        return True
+                    else:
+                        self._bg_not_before = 0.0
+                        self._kick_background_rebuild("background")
+                        fut = self._bg_future
+            if fut is not None:
+                try:
+                    fut.result(timeout=max(0.01,
+                                           deadline - time.monotonic()))
+                except Exception:
+                    pass  # a failed attempt counted itself; loop re-arms
         with self._lock:
-            return not any(not f.done() for f in self._leo_futures)
+            return not self._bg_inflight and not self._stale_pairs
+
+    def _make_graph(self, prog: GraphProgram):
+        if self.mesh is not None:
+            return _ShardedEllGraph(prog, self._edge_endpoints, self.mesh,
+                                    num_iters=self._num_iters)
+        return self._graph_cls(prog, self._edge_endpoints, self.device,
+                               num_iters=self._num_iters)
 
     def _rebuild(self) -> None:
-        """Full build from the store snapshot under the endpoint lock
-        (reference _rebuild + _build_candidate + _install_candidate,
-        jax_endpoint.py:1511-1625, without the background machinery),
-        the Leopard index included.  Queued deltas are subsumed by the
-        snapshot: one that lands after the drain is re-applied
-        idempotently."""
+        """Synchronous rebuild under the endpoint lock (reference
+        jax_endpoint.py:1511-1521): the first build, a store reset,
+        force_rebuild and the ASYNC_REBUILD-off path.  Queued deltas are
+        subsumed by the snapshot: one that lands after the drain is
+        re-applied idempotently."""
         self._drain_pending()
         self._graph_invalid = False
-        prev = self._graph
-        extra = {}
-        spare_pool = {}
-        for t in self.schema.definitions:
+        self._install_candidate(self._build_candidate(), mode="sync")
+
+    def _build_candidate(self) -> _GenState:
+        """Build a complete candidate generation from the current store
+        snapshot without changing the endpoint's state (reference
+        jax_endpoint.py:1523-1605), the Leopard index included.  The live
+        generation's sizes are read under the endpoint lock and the
+        snapshot and its revision under the store lock; the compile, the
+        uploads and the index build hold neither, so a background thread
+        can run it while the live generation serves."""
+        fail_point("rebuildExecutor")
+        st = _GenState()
+        with self._lock:
+            prev = self._graph
+            prev_counts = dict(prev.prog.num_objects) if prev else {}
             # num_objects counts the previous generation's synthetic rows
             # (1 phantom + the unassigned spares): size the pool from the
             # real universe
-            prev_n = prev.prog.num_objects.get(t, 0) if prev else 0
-            prev_synth = 1 + len(self._spare_pool.get(t, ())) if prev else 0
-            n_t = max(prev_n - prev_synth,
+            prev_synth = ({t: 1 + len(p) for t, p in self._spare_pool.items()}
+                          if prev else {})
+        extra = {}
+        for t in self.schema.definitions:
+            n_t = max(prev_counts.get(t, 0) - prev_synth.get(t, 0),
                       len(self.store.object_ids_of_type(t)))
             n_spare = max(_SPARE_FLOOR, n_t // _SPARE_DIVISOR)
             spares = [f"{_SPARE_PREFIX}{k}" for k in range(n_spare)]
             extra[t] = {PHANTOM_ID, *spares}
-            spare_pool[t] = spares
+            st._spare_pool[t] = spares
         with self.store.lock:
-            revision = self.store.revision
+            st._graph_revision = self.store.revision
             caveated = self.store.caveated_relation_pairs()
-            caveated_keys = self.store.caveated_keys() if caveated else set()
+            st._caveat_affected = (caveat_affected_pairs(self.schema,
+                                                         caveated)
+                                   if caveated else set())
+            st._caveated_keys = self.store.caveated_keys() if caveated \
+                else set()
             # the segment graph records tuple positions: it compiles from
             # the tuple list, as the reference's does
             view = (self.store.columnar_view()
@@ -1104,76 +1461,100 @@ class TorchEndpoint(PermissionsEndpoint):
             snap, rows, overlay = view
             prog = compile_graph_columnar(self.schema, snap, rows, overlay,
                                           extra_subject_ids=extra)
-            self._reset_expiry_columnar(snap, rows, overlay)
+            graph = self._make_graph(prog)
+            self._reset_expiry_columnar(st, snap, rows, overlay)
         else:
             prog = compile_graph(self.schema, tuples, extra_subject_ids=extra)
-            self._reset_expiry(tuples)
-        _evict_id_views(prev)
-        if self.mesh is not None:
-            graph = _ShardedEllGraph(prog, self._edge_endpoints, self.mesh,
-                                     num_iters=self._num_iters)
-        else:
-            graph = self._graph_cls(prog, self._edge_endpoints, self.device,
-                                    num_iters=self._num_iters)
-        if tuples is not None:
+            graph = self._make_graph(prog)
             graph.index_tuples(tuples)
-        self._graph = graph
-        self._graph_revision = revision
-        self._spare_pool = spare_pool
-        self._assigned_refs = {}
-        self._spare_seq = 0
-        self._caveat_affected = (caveat_affected_pairs(self.schema, caveated)
-                                 if caveated else set())
-        self._caveated_keys = caveated_keys
+            self._reset_expiry(st, tuples)
+        st._graph = graph
         # the closure is seeded from the compiled edges, so it reflects
         # exactly this generation's revision; the port has no workload
         # plane, so no candidate pairs go first
-        self._leopard = (LeopardIndex.build(
-            self.schema, prog,
-            caveat_affected=frozenset(self._caveat_affected),
-            device=self.device, mesh=self.mesh)
-            if self._leopard_wanted else None)
+        if self._leopard_wanted:
+            st._leopard = LeopardIndex.build(
+                self.schema, prog,
+                caveat_affected=frozenset(st._caveat_affected),
+                device=self.device, mesh=self.mesh)
+        return st
+
+    def _install_candidate(self, st: _GenState, mode: str = "sync") -> None:
+        """Swap a candidate generation in (under self._lock; reference
+        jax_endpoint.py:1607-1671): the short-lock tail of the
+        synchronous and the off-loop rebuild.  The outgoing generation's
+        tables go when the last batch that captured them drops its
+        snapshot."""
+        _evict_id_views(self._graph)
+        self._graph = st._graph
+        self._graph_revision = st._graph_revision
+        self._spare_pool = st._spare_pool
+        self._assigned_refs = st._assigned_refs
+        self._spare_seq = st._spare_seq
+        self._caveat_affected = st._caveat_affected
+        self._caveated_keys = st._caveated_keys
+        self._expiry_heap = st._expiry_heap
+        self._expiry_meta = st._expiry_meta
+        # a candidate's unresolved stale pairs (its replay kept failing)
+        # carry over, routed to the oracle until a follow-up; a clean
+        # candidate clears the set
+        self._stale_pairs = set(st._stale_pairs)
+        self._spare_initial = {t: len(p) for t, p in st._spare_pool.items()}
+        self._spare_aux_initial = len(getattr(st._graph, "_spare_aux", ()))
+        self._leopard = st._leopard
+        self._gen_epoch += 1
+        self._rebuild_epoch += 1
         self.stats["rebuilds"] += 1
+        if mode != "sync":
+            # every off-loop install, preemptive ones included; an
+            # abandoned candidate counts nowhere
+            self.stats["bg_rebuilds"] += 1
+        if mode == "preemptive":
+            self.stats["preemptive_rebuilds"] += 1
 
     # -- expiry heap ----------------------------------------------------------
 
-    def _reset_expiry_columnar(self, snap, rows, overlay) -> None:
-        self._expiry_heap = []
-        self._expiry_meta = {}
+    def _reset_expiry_columnar(self, st, snap, rows, overlay) -> None:
+        st._expiry_heap = []
+        st._expiry_meta = {}
         exp = snap.expiry[rows]
         for i in np.nonzero(~np.isnan(exp))[0]:
             key = snap.key_of(int(rows[i]))
-            self._set_expiry(key, float(exp[i]))
+            self._set_expiry(st, key, float(exp[i]))
         for rel in overlay:
             if rel.expires_at is not None:
-                self._set_expiry(rel.key(), rel.expires_at)
+                self._set_expiry(st, rel.key(), rel.expires_at)
 
-    def _reset_expiry(self, tuples: list) -> None:
-        self._expiry_heap = []
-        self._expiry_meta = {}
+    def _reset_expiry(self, st, tuples: list) -> None:
+        st._expiry_heap = []
+        st._expiry_meta = {}
         for rel in tuples:
             if rel.expires_at is not None:
-                self._set_expiry(rel.key(), rel.expires_at)
+                self._set_expiry(st, rel.key(), rel.expires_at)
 
-    def _set_expiry(self, key: tuple, expires_at) -> None:
+    def _set_expiry(self, st, key: tuple, expires_at) -> None:
         if expires_at is None:
-            self._expiry_meta.pop(key, None)
+            st._expiry_meta.pop(key, None)
         else:
-            self._expiry_meta[key] = expires_at
-            heapq.heappush(self._expiry_heap, (expires_at, key))
+            st._expiry_meta[key] = expires_at
+            heapq.heappush(st._expiry_heap, (expires_at, key))
 
     # -- spare object rows ----------------------------------------------------
+    # `st` is the live endpoint or a candidate mid-replay; counters move
+    # only for the live one, whose deltas the replay re-applies (reference
+    # jax_endpoint.py:1713-1732)
 
-    def _assign_spare(self, graph, type_name: str, new_id: str) -> bool:
+    def _assign_spare(self, st, graph, type_name: str, new_id: str) -> bool:
         """Claim a spare row for a brand-new object id by renaming it in
         the program's id maps; the tables are untouched (the row exists,
         dead, in every slot of the type).  False when the pool is dry."""
-        pool = self._spare_pool.get(type_name)
+        pool = st._spare_pool.get(type_name)
         if not pool:
             return False
         self._rename_row(graph, type_name, pool.pop(), new_id)
-        self._assigned_refs[(type_name, new_id)] = set()
-        self.stats["spare_assignments"] += 1
+        st._assigned_refs[(type_name, new_id)] = set()
+        if st is self:
+            self.stats["spare_assignments"] += 1
         return True
 
     def _rename_row(self, graph, type_name: str, old_id: str,
@@ -1199,37 +1580,38 @@ class TorchEndpoint(PermissionsEndpoint):
             mask[local] = "\x00" in new_id
         return True
 
-    def _note_key_applied(self, key: tuple) -> None:
+    def _note_key_applied(self, st, key: tuple) -> None:
         """Record a live tuple against any spare-assigned ids it names."""
         for side in ((key[0], key[1]), (key[3], key[4])):
-            refs = self._assigned_refs.get(side)
+            refs = st._assigned_refs.get(side)
             if refs is not None:
                 refs.add(key)
 
-    def _note_key_removed(self, graph, key: tuple) -> None:
+    def _note_key_removed(self, st, graph, key: tuple) -> None:
         """Drop a tuple from its ids' ref sets; an emptied set reclaims
         the spare row."""
         for side in ((key[0], key[1]), (key[3], key[4])):
-            refs = self._assigned_refs.get(side)
+            refs = st._assigned_refs.get(side)
             if refs is None:
                 continue
             refs.discard(key)
             if not refs:
-                self._reclaim_spare(graph, side)
+                self._reclaim_spare(st, graph, side)
 
-    def _reclaim_spare(self, graph, side: tuple) -> None:
+    def _reclaim_spare(self, st, graph, side: tuple) -> None:
         """Rename an assigned id's row back to a fresh placeholder and
         return it to the pool."""
         t, old_id = side
-        self._assigned_refs.pop(side, None)
-        self._spare_seq += 1
-        placeholder = f"{_SPARE_PREFIX}r{self._spare_seq}"
+        st._assigned_refs.pop(side, None)
+        st._spare_seq += 1
+        placeholder = f"{_SPARE_PREFIX}r{st._spare_seq}"
         if not self._rename_row(graph, t, old_id, placeholder):
             return
-        self._spare_pool.setdefault(t, []).append(placeholder)
-        self.stats["spare_reclaims"] += 1
+        st._spare_pool.setdefault(t, []).append(placeholder)
+        if st is self:
+            self.stats["spare_reclaims"] += 1
 
-    def _ensure_ids_for(self, graph, rel: Relationship) -> bool:
+    def _ensure_ids_for(self, st, graph, rel: Relationship) -> bool:
         """Make every id a TOUCHed tuple names indexable, assigning spare
         rows to new ones; False (pool dry) forces a rebuild."""
         prog = graph.prog
@@ -1238,12 +1620,12 @@ class TorchEndpoint(PermissionsEndpoint):
         if d is None or rel.relation not in d.relations:
             return True  # edgeless tuple: never spend a spare on it
         if rt in prog.object_index and rid not in prog.object_index[rt]:
-            if not self._assign_spare(graph, rt, rid):
+            if not self._assign_spare(st, graph, rt, rid):
                 return False
         stype, sid = rel.subject.type, rel.subject.id
         if (stype in prog.object_index and sid != WILDCARD
                 and sid not in prog.object_index[stype]):
-            if not self._assign_spare(graph, stype, sid):
+            if not self._assign_spare(st, graph, stype, sid):
                 return False
         return True
 
@@ -1272,37 +1654,38 @@ class TorchEndpoint(PermissionsEndpoint):
         except Exception:
             return "unsupported"
 
-    def _leo_insert(self, graph, rel: Relationship, key: tuple) -> None:
+    def _leo_insert(self, st, graph, rel: Relationship, key: tuple) -> None:
         """Mirror a definite tuple the graph just absorbed into the
-        Leopard closure."""
-        if self._leopard is not None:
-            self._leopard.apply_insert(key, self._edge_endpoints(graph.prog,
-                                                                 rel))
+        generation's Leopard closure."""
+        if st._leopard is not None:
+            st._leopard.apply_insert(key, self._edge_endpoints(graph.prog,
+                                                               rel))
 
-    def _leo_remove(self, graph, key: tuple) -> None:
+    def _leo_remove(self, st, graph, key: tuple) -> None:
         """Mirror a removal into the Leopard closure BEFORE a spare-row
         reclaim renames the ids away: the closure's rows are keyed by the
         compiled state index, which the rename re-purposes."""
-        if self._leopard is not None:
-            self._leopard.apply_remove(key, self._edge_endpoints(
+        if st._leopard is not None:
+            st._leopard.apply_remove(key, self._edge_endpoints(
                 graph.prog, _rel_from_key(key)))
 
-    def _remove_applied(self, graph, key: tuple) -> bool:
+    def _remove_applied(self, st, graph, key: tuple) -> bool:
         """Take a removed or expired tuple out of the graph and the
         Leopard closure; False when only a rebuild can.  A caveated tuple
         may sit in the definite tables (context decided True) or in the
         MAYBE plane (undecidable): both placements are cleared."""
-        if key in self._caveated_keys:
+        if key in st._caveated_keys:
             if not graph.supports_cav_deltas:
                 return False
             graph.remove_cav_key(key)
-            self._caveated_keys.discard(key)
+            st._caveated_keys.discard(key)
         graph.remove_key(key)
-        self._leo_remove(graph, key)
-        self._note_key_removed(graph, key)
+        self._leo_remove(st, graph, key)
+        self._note_key_removed(st, graph, key)
         return True
 
-    def _touch_caveated(self, graph, rel: Relationship, key: tuple) -> bool:
+    def _touch_caveated(self, st, graph, rel: Relationship,
+                        key: tuple) -> bool:
         """Place a caveated TOUCH by its decidability; False when only a
         rebuild can (an unsupported caveat shape, the first undecidable
         caveat on a graph without planes, a full row)."""
@@ -1313,31 +1696,32 @@ class TorchEndpoint(PermissionsEndpoint):
         # clear any previous placement, then insert per the new value
         graph.remove_key(key)
         graph.remove_cav_key(key)
-        self._caveated_keys.add(key)
+        st._caveated_keys.add(key)
         if value is True:
             ok = graph.add_rel(rel)
         elif value is None:
             ok = graph.add_cav_rel(rel)
         else:
             ok = True  # decided False: no edges at all
-        if ok and self._leopard is not None:
+        if ok and st._leopard is not None:
             # a caveated tuple now lives on this relation: a closure bit
             # cannot represent CONDITIONAL, so its fragments retire for
             # the generation (the next build skips them as caveat-affected)
-            self._leopard.retire_relation((rel.resource.type, rel.relation))
+            st._leopard.retire_relation((rel.resource.type, rel.relation))
         return ok
 
-    def _apply_batches(self, batches: list) -> tuple:
-        """Apply drained delta batches and due expirations to the host
-        tables and the Leopard closure (under self._lock; reference
-        jax_endpoint.py:1865-2001).  Returns (stale pairs, applied
-        revision): an update the tables cannot absorb adds its affected
-        (type, permission) closure to the stale set and application goes
-        on; the caller rebuilds when the set is non-empty, and flushes
-        otherwise."""
-        graph = self._graph
+    def _apply_batches(self, st, batches: list) -> tuple:
+        """Apply drained delta batches and due expirations to one
+        generation's host tables and Leopard closure (under self._lock;
+        reference jax_endpoint.py:1865-2001): `st` is the live endpoint
+        or a background candidate mid-replay.  Returns (stale pairs,
+        applied revision): an update the tables cannot absorb adds its
+        affected (type, permission) closure to the stale set and
+        application goes on; the caller quarantines or rebuilds when the
+        set is non-empty, and flushes."""
+        graph = st._graph
         stale: set = set()
-        applied_revision = self._graph_revision
+        applied_revision = st._graph_revision
         for batch in batches:
             applied_revision = max(applied_revision, batch.revision)
             for u in batch.updates:
@@ -1348,44 +1732,45 @@ class TorchEndpoint(PermissionsEndpoint):
                         # wildcard masks are baked into the program
                         stale |= self._stale_closure(rt, relation)
                         continue
-                    self._set_expiry(key, None)
-                    if not self._remove_applied(graph, key):
+                    self._set_expiry(st, key, None)
+                    if not self._remove_applied(st, graph, key):
                         stale |= self._stale_closure(rt, relation)
                     continue
-                self._set_expiry(key, u.rel.expires_at)
-                if not self._ensure_ids_for(graph, u.rel):
+                self._set_expiry(st, key, u.rel.expires_at)
+                if not self._ensure_ids_for(st, graph, u.rel):
                     stale |= self._stale_closure(rt, relation)
                     continue
                 if u.rel.caveat is not None:
-                    ok = self._touch_caveated(graph, u.rel, key)
+                    ok = self._touch_caveated(st, graph, u.rel, key)
                 else:
-                    if key in self._caveated_keys:
+                    if key in st._caveated_keys:
                         # a caveated tuple replaced by a definite one:
                         # undo its MAYBE-plane placement first
                         ok = graph.supports_cav_deltas
                         if ok:
                             graph.remove_cav_key(key)
-                            self._caveated_keys.discard(key)
+                            st._caveated_keys.discard(key)
                             ok = graph.add_rel(u.rel)
                     else:
                         ok = graph.add_rel(u.rel)
                     if ok:
-                        self._leo_insert(graph, u.rel, key)
+                        self._leo_insert(st, graph, u.rel, key)
                 if not ok:
                     stale |= self._stale_closure(rt, relation)
                     continue
-                self._note_key_applied(key)
+                self._note_key_applied(st, key)
         # expire lazily after the batches, on the store's clock (the one
         # reads filter with), so kernel and oracle agree at the instant
         now = self.store.now()
-        while self._expiry_heap and self._expiry_heap[0][0] <= now:
-            exp, key = heapq.heappop(self._expiry_heap)
-            if self._expiry_meta.get(key) != exp:
+        while st._expiry_heap and st._expiry_heap[0][0] <= now:
+            exp, key = heapq.heappop(st._expiry_heap)
+            if st._expiry_meta.get(key) != exp:
                 continue  # deleted or re-touched since
-            del self._expiry_meta[key]
-            if key[4] == WILDCARD or not self._remove_applied(graph, key):
+            del st._expiry_meta[key]
+            if key[4] == WILDCARD or not self._remove_applied(st, graph,
+                                                              key):
                 stale |= self._stale_closure(key[0], key[2])
-        if stale:
+        if stale and st is self:
             self.stats["stale_pair_marks"] += len(stale)
         return stale, applied_revision
 
@@ -1454,7 +1839,15 @@ class TorchEndpoint(PermissionsEndpoint):
             leo = self._leopard
             leo_frag: dict = {}   # pair -> (fragment, slot offset) | None
             leo_cand: dict = {}   # pair -> ([i], [query col], [state idx])
+            stale = self._stale_pairs
             for i, r in enumerate(reqs):
+                if stale and (r.resource.type, r.permission) in stale:
+                    # quarantined pair: this generation could not absorb
+                    # a delta affecting it (a background rebuild is on
+                    # its way); the host oracle reads the live store
+                    oracle_rows.append(i)
+                    self.stats["stale_routed"] += 1
+                    continue
                 if (not tri and (r.resource.type, r.permission)
                         in self._caveat_affected):
                     # caveat residual with no device lowering: host
@@ -1612,6 +2005,12 @@ class TorchEndpoint(PermissionsEndpoint):
         ctx = {"rt": resource_type, "perm": permission, "subjects": subjects}
         with self._lock:
             graph = self._current_graph()
+            if (resource_type, permission) in self._stale_pairs:
+                # quarantined pair (a background rebuild is on its way):
+                # the host oracle answers exactly until the swap
+                self.stats["stale_routed"] += 1
+                ctx["all_oracle"] = True
+                return ctx
             rng = graph.prog.slot_range(resource_type, permission)
             # a plane-capable kernel returns the DEFINITE plane, which
             # skips CONDITIONAL results as LookupResources must; without

@@ -3,7 +3,10 @@
 Named panic sites with arm counters: `enable_failpoint(name, n)` makes
 the next n `fail_point(name)` calls raise FailPointPanic (a simulated
 crash at the site).  The port's sites are the dispatcher's drain loop
-(`dispatchDrain`, `dispatchDrainBeforeFinish`, spicedb/dispatch.py).  The
+(`dispatchDrain`, `dispatchDrainBeforeFinish`, spicedb/dispatch.py) and
+the start of a candidate generation's build (`rebuildExecutor`,
+ops/torch_endpoint.py `_build_candidate`; a background rebuild that
+crashes there leaves the old generation serving).  The
 disarmed fast path is one module-global bool read.
 """
 

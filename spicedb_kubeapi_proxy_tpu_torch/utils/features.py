@@ -16,12 +16,20 @@
 - `ADMISSION_CONTROL` arms the dispatcher's queue bounds (the
   reference's `AdmissionControl` gate, :123).  Off, a configured bound is
   inert.
+- `ASYNC_REBUILD` moves graph rebuilds off the request path (the
+  reference's `AsyncRebuild` gate, :111-117): a delta the live
+  generation cannot absorb quarantines its (type, permission) closure to
+  the host oracle while a candidate builds on a background thread, and a
+  spare pool under its low watermark rebuilds there before it runs dry.
+  Off, such a delta rebuilds synchronously under the endpoint lock, as
+  before.  Read at each use; a missing switch reads as off.
 """
 
 MESH_EXECUTION = True
 CROSS_REQUEST_BATCHING = True
 DEVICE_PIPELINE = True
 ADMISSION_CONTROL = True
+ASYNC_REBUILD = True
 
 
 def pipeline_enabled() -> bool:

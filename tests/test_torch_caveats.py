@@ -13,9 +13,10 @@ and the host oracle, CONDITIONAL included; and caveated writes must leave
 both endpoints with equal host tables, caveat tables and rebuild counts.
 
 Inputs are seeded (numpy or `random`); tolerance is zero everywhere: the
-data are booleans, tri-state values, ids and bitplanes.  The reference
-runs with its AsyncRebuild gate off, so a delta it cannot absorb rebuilds
-synchronously, as the port does.
+data are booleans, tri-state values, ids and bitplanes.  Both packages
+run with their off-loop rebuilds off (the reference's AsyncRebuild gate,
+the port's ASYNC_REBUILD switch), so a delta they cannot absorb rebuilds
+synchronously and rebuild counts compare.
 """
 
 import ast
@@ -62,6 +63,7 @@ from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
     SubjectRef,
     UpdateOp,
     parse_relationship)
+from spicedb_kubeapi_proxy_tpu_torch.utils import features as port_features
 
 # the reference's caveat device schema (tests/test_caveat_device.py):
 # flag/limit caveats, intersection, exclusion, arrows, nested groups
@@ -103,9 +105,10 @@ REF_TRI = {RefPermissionship.NO_PERMISSION: 0,
 
 @pytest.fixture(autouse=True)
 def sync_reference_rebuilds(monkeypatch):
-    """The reference rebuilds synchronously (its AsyncRebuild-off path),
-    as the port does."""
+    """Both packages rebuild synchronously: the reference's AsyncRebuild
+    gate and the port's ASYNC_REBUILD switch are off."""
     monkeypatch.setattr(GATES._gates["AsyncRebuild"], "value", False)
+    monkeypatch.setattr(port_features, "ASYNC_REBUILD", False)
 
 
 def run(coro):

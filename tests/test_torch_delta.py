@@ -11,10 +11,14 @@ sweeps must also leave the same state, checks, lookup words and trace at
 33 and 256 lanes.  Copy-on-write is checked on the tensors and on the
 published id views, and the `scatter_rows` twin against numpy.
 
-The reference runs with its AsyncRebuild gate off: a delta it cannot
-absorb then rebuilds synchronously, as the port does (the port has no
-background rebuild), so rebuild counts compare.  Tolerance is zero
-everywhere: the data are ids, integers and bitplanes.
+Both packages run with their off-loop rebuilds off (the reference's
+AsyncRebuild gate, the port's ASYNC_REBUILD switch): a delta they cannot
+absorb then rebuilds synchronously inside the read, so rebuild counts
+compare after every read.  The scenarios that rebuild (spare exhaustion,
+a store reset, force_rebuild, one churn seed) run again as `_async_rebuild`
+cases with both on, the defaults: their tables and counters compare after
+both endpoints' `wait_rebuilds()`.  Tolerance is zero everywhere: the data
+are ids, integers and bitplanes.
 """
 
 import asyncio
@@ -53,6 +57,7 @@ from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
     SubjectRef,
     UpdateOp,
     parse_relationship)
+from spicedb_kubeapi_proxy_tpu_torch.utils import features as port_features
 
 GROUPS_SCHEMA = """
 definition user {}
@@ -82,9 +87,16 @@ definition doc {
 
 @pytest.fixture(autouse=True)
 def sync_reference_rebuilds(monkeypatch):
-    """The reference rebuilds synchronously (its AsyncRebuild-off path),
-    as the port does."""
+    """Both packages rebuild synchronously: the reference's AsyncRebuild
+    gate and the port's ASYNC_REBUILD switch are off."""
     monkeypatch.setattr(GATES._gates["AsyncRebuild"], "value", False)
+    monkeypatch.setattr(port_features, "ASYNC_REBUILD", False)
+
+
+def async_rebuilds(monkeypatch):
+    """Both packages on their default off-loop rebuild path."""
+    monkeypatch.setattr(GATES._gates["AsyncRebuild"], "value", True)
+    monkeypatch.setattr(port_features, "ASYNC_REBUILD", True)
 
 
 def run(coro):
@@ -155,6 +167,10 @@ class Pair:
             assert g.allowed == (r.permissionship
                                  == RefPermissionship.HAS_PERMISSION) \
                 == want, (o, names[i])
+        if port_features.ASYNC_REBUILD:
+            # off-loop rebuilds land in the background: compare the
+            # generations once both endpoints are quiescent
+            assert self.port.wait_rebuilds() and self.jx.wait_rebuilds()
         self.assert_same_tables()
 
     def assert_same_tables(self):
@@ -170,7 +186,7 @@ class Pair:
         assert np.array_equal(p.dev_main.numpy(), p.host_main)
         assert np.array_equal(p.dev_aux.numpy(), p.host_aux)
         for k in ("spare_assignments", "spare_reclaims", "delta_batches",
-                  "stale_pair_marks"):
+                  "stale_pair_marks", "bg_rebuilds", "preemptive_rebuilds"):
             assert self.port.stats[k] == self.jx.stats[k], k
         assert (self.port.stats["stage_aux_flips"]
                 == self.jx.stats.get("stage_aux_flips", 0))
@@ -219,6 +235,22 @@ def test_new_object_id_assigns_spare_without_rebuild():
 
 
 def test_spare_pool_exhaustion_rebuilds_and_resizes(monkeypatch):
+    _spare_pool_exhaustion(monkeypatch)
+
+
+def test_spare_pool_exhaustion_rebuilds_and_resizes_async_rebuild(
+        monkeypatch):
+    """Off-loop: the 6 ids past the pool quarantine namespace#view, the
+    reads answer it from the oracle, and the background candidate sized
+    for 71 namespaces is the reference's."""
+    async_rebuilds(monkeypatch)
+    p = _spare_pool_exhaustion(monkeypatch)
+    assert p.port.stats["bg_rebuilds"] == p.jx.stats["bg_rebuilds"] >= 1
+    assert p.port.stats["stale_routed"] > 0
+    assert not p.port._stale_pairs
+
+
+def _spare_pool_exhaustion(monkeypatch):
     monkeypatch.setattr(ref_je, "_SPARE_DIVISOR", 1)
     monkeypatch.setattr(port_te, "_SPARE_DIVISOR", 1)
     p = Pair(GROUPS_SCHEMA, ["namespace:ns1#viewer@user:alice"])
@@ -232,6 +264,7 @@ def test_spare_pool_exhaustion_rebuilds_and_resizes(monkeypatch):
     got = sorted(run(p.port.lookup_resources(
         "namespace", "view", SubjectRef("user", "alice"))))
     assert got == sorted(["ns1"] + [f"n{k}" for k in range(70)])
+    return p
 
 
 def test_unique_name_churn_reclaims_spares():
@@ -339,6 +372,20 @@ def test_delta_growth_flips_aux_free_stage_annotation():
 
 @pytest.mark.parametrize("seed", range(4))
 def test_random_delta_churn(seed):
+    p = _random_delta_churn(seed)
+    assert p.port.stats["rebuilds"] == 1
+
+
+def test_random_delta_churn_async_rebuild(monkeypatch):
+    """Seed 0 off-loop: nothing to rebuild, so nothing moves to the
+    background either."""
+    async_rebuilds(monkeypatch)
+    p = _random_delta_churn(0)
+    assert p.port.stats["rebuilds"] == p.jx.stats["rebuilds"]
+    assert p.port.stats["bg_rebuilds"] == p.jx.stats["bg_rebuilds"]
+
+
+def _random_delta_churn(seed):
     rng = random.Random(7000 + seed)
     n_users, n_groups, n_ns = 8, 4, 6
     rels = [f"group:g{g}#member@user:u{u}"
@@ -366,13 +413,26 @@ def test_random_delta_churn(seed):
         p.write([("delete" if rng.random() < 0.4 else "touch", any_rel())
                  for _ in range(rng.randint(3, 10))])
         p.agree("namespace", "view", users(n_users))
-    assert p.port.stats["rebuilds"] == 1
+    return p
 
 
 def test_force_rebuild_after_churn_matches_reference():
     """After absorbed churn, force_rebuild() recompiles from the store in
     both packages: the fresh generations are equal again, with a fresh
     spare pool and the same answers."""
+    _force_rebuild_after_churn()
+
+
+def test_force_rebuild_after_churn_matches_reference_async_rebuild(
+        monkeypatch):
+    """Off-loop: the row overflow goes to the background (one install in
+    both packages), and force_rebuild stays synchronous."""
+    async_rebuilds(monkeypatch)
+    p = _force_rebuild_after_churn()
+    assert p.port.stats["bg_rebuilds"] == p.jx.stats["bg_rebuilds"] == 1
+
+
+def _force_rebuild_after_churn():
     p = Pair(GROUPS_SCHEMA, ["namespace:ns1#viewer@user:alice",
                              "group:eng#member@user:bob",
                              "namespace:ns2#viewer@group:eng#member"])
@@ -392,12 +452,25 @@ def test_force_rebuild_after_churn_matches_reference():
     assert not p.port._assigned_refs and p.port._spare_seq == 0
     p.agree("namespace", "view", ["alice", "bob", "m3"])
     assert p.port.stats["rebuilds"] == rebuilds + 1
+    return p
 
 
 def test_store_reset_rebuilds_and_evicts_id_views():
     """delete_all (a reset, not a delta) rebuilds at the next read; the
     outgoing generation's id views are dropped, and no pre-reset id
     reaches a lookup."""
+    _store_reset()
+
+
+def test_store_reset_rebuilds_and_evicts_id_views_async_rebuild(
+        monkeypatch):
+    """Off-loop: a reset is still the foreground's synchronous rebuild."""
+    async_rebuilds(monkeypatch)
+    p = _store_reset()
+    assert p.port.stats["bg_rebuilds"] == p.jx.stats["bg_rebuilds"] == 0
+
+
+def _store_reset():
     p = Pair(GROUPS_SCHEMA, ["namespace:old1#viewer@user:alice",
                              "namespace:old2#viewer@user:alice"])
     p.agree("namespace", "view", ["alice"])
@@ -411,6 +484,7 @@ def test_store_reset_rebuilds_and_evicts_id_views():
     assert p.port.stats["rebuilds"] == 2
     assert run(p.port.lookup_resources(
         "namespace", "view", SubjectRef("user", "alice"))) == ["new1"]
+    return p
 
 
 # -- copy-on-write ------------------------------------------------------------

@@ -19,7 +19,12 @@ queries — a lookup per target and subject, tri-state checks of up to 12
 objects a target — issued concurrently, and every answer must equal the
 reference oracle's `lookup_resources`/`check3`, as the reference's
 `_compare_queries` holds them (`fuzz/driver.py:566-629`).  A divergence
-prints its seed.  The card leg runs the same seeds with `device="cuda"`
+prints its seed.  The endpoints run the port's defaults, off-loop
+rebuilds included: a write they cannot absorb quarantines its pairs to
+the oracle while a candidate builds in the background.  For a bias whose
+writes force rebuilds (wildcard-public), the background installs and the
+quarantine-routed reads summed over its cells must both be above zero,
+so that path is shown to run, not bypassed.  The card leg runs the same seeds with `device="cuda"`
 (the mesh on one card, repeated) and skips without a card.
 
 This file imports nothing of jax: the reference's fuzz generator, store
@@ -65,6 +70,11 @@ P3 = {"NO_PERMISSION": 0, "CONDITIONAL_PERMISSION": 1, "HAS_PERMISSION": 2}
 # (bias name, seeds): the default bias, then each scenario bias
 CELLS = [("default", s) for s in range(5)] + [
     (name, 1000 + s) for name in sorted(SCENARIO_BIASES) for s in range(3)]
+# biases whose writes force rebuilds (wildcard changes)
+REBUILD_BIASES = ("wildcard-public",)
+# (bias, seed, device) -> (background installs, quarantine-routed reads)
+# summed over a replay's endpoints
+_QUARANTINE: dict = {}
 
 
 def _biases(name: str) -> tuple:
@@ -192,6 +202,9 @@ def replay(bias: str, seed: int, device: str = "cpu") -> dict:
             counts[name] += len(got[0]) + sum(len(c) for c in got[1])
     for ep in eps.values():
         ep.wait_rebuilds()
+    _QUARANTINE[(bias, seed, device)] = (
+        sum(ep.stats["bg_rebuilds"] for ep in eps.values()),
+        sum(ep.stats["stale_routed"] for ep in eps.values()))
     return counts
 
 
@@ -199,6 +212,23 @@ def replay(bias: str, seed: int, device: str = "cpu") -> dict:
 def test_fuzz_case_answers_as_the_oracle(bias, seed):
     counts = replay(bias, seed)
     assert all(n > 0 for n in counts.values())
+
+
+@pytest.mark.parametrize("bias", REBUILD_BIASES)
+def test_fuzz_bias_runs_the_quarantine_path(bias):
+    """Summed over the bias's cells (replayed here unless this run already
+    replayed them), background installs and quarantine-routed reads are
+    both above zero."""
+    bg = routed = 0
+    for b, seed in CELLS:
+        if b != bias:
+            continue
+        if (b, seed, "cpu") not in _QUARANTINE:
+            replay(b, seed)
+        n_bg, n_routed = _QUARANTINE[(b, seed, "cpu")]
+        bg += n_bg
+        routed += n_routed
+    assert bg > 0 and routed > 0, (bg, routed)
 
 
 def _needs_card():

@@ -7,6 +7,8 @@ imports nothing but the port, so it also runs on a machine without jax:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1178,3 +1180,155 @@ def test_mesh_mixed_placement_copies_to_the_far_card_only(workload):
         # each of 4 blocks into the 2 replicas on the other card
         assert out[0][2] == 0
         assert out[1][2] == int(out[1][0][0]) * passes * d_n * 4 * 2
+
+
+# -- off-loop rebuilds on the card ------------------------------------------
+
+def _wildcard_pair(n_docs: int = 20_000):
+    """A card endpoint and a CPU one (both `dispatch=direct`, so their
+    internals are the endpoint's) on equal stores of WILDCARD docs."""
+    rels = [f"doc:d{i}#viewer@user:u{i % 97}" for i in range(n_docs)]
+    rels += ["doc:d1#banned@user:u1"]
+    bs = Bootstrap(WILDCARD, "\n".join(rels))
+    return [create_endpoint(url, bs) for url in (
+        "torch://?dispatch=direct", "torch://?device=cpu&dispatch=direct")]
+
+
+def _wildcard_reads(ep, subjects):
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        CheckRequest, ObjectRef, SubjectRef)
+    subs = [SubjectRef("user", s) for s in subjects]
+    looked = [sorted(x) for x in ep._lookup_batch_sync("doc", "view", subs)]
+    reqs = [CheckRequest(ObjectRef("doc", f"d{i}"), "view", subs[i % len(subs)])
+            for i in range(0, 400, 3)]
+    checked = [r.permissionship.name for r in ep._check_batch_sync(reqs)]
+    return looked, checked
+
+
+def _write_both(eps, rel):
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        RelationshipUpdate, UpdateOp, parse_relationship)
+    for ep in eps:
+        ep.store.write([RelationshipUpdate(UpdateOp.TOUCH,
+                                           parse_relationship(rel))])
+
+
+@pytest.mark.cuda
+def test_background_swap_under_concurrent_reads_on_the_card():
+    """A background rebuild whose candidate prewarms, captures its sweep
+    graphs and then recaptures one arena's graphs until the reader thread
+    has replayed 8 batches of the live generation meanwhile (each with
+    its side-stream readback): captures and replays from two threads
+    coexist on the card.  A write lands during the build and replays at
+    the install.  Every read answers as the CPU endpoint did before or
+    after the write, and the swapped generation answers as the CPU one.
+    (No quarantine here: a quarantined pair would be read from the host
+    oracle, not the card.)"""
+    _needs_card()
+    import threading
+    ep, cpu = _wildcard_pair()
+    subjects = [f"u{i}" for i in range(0, 97, 3)] + ["nobody"]
+    ep.warm_start(prewarm=True)
+    ep.prewarm_rebuilds = True
+    before = _wildcard_reads(cpu, subjects)
+    assert _wildcard_reads(ep, subjects) == before
+    stop = threading.Event()
+    done = [0]
+    seen, errors = [], []
+
+    def reader():
+        try:
+            while not stop.is_set():
+                seen.append(_wildcard_reads(ep, subjects))
+                done[0] += 1
+        except Exception as e:      # surfaced by the main thread
+            errors.append(e)
+
+    recaptures, prewarmed = [0], threading.Event()
+    orig = ep._prewarm_graph
+
+    def prewarm_and_recapture(graph):
+        n = orig(graph)
+        kc, snap = graph.kernel, graph.snapshot()
+        arena = kc.take_arena(8)
+        start = done[0]
+        deadline = time.monotonic() + 60
+        while done[0] < start + 8 and time.monotonic() < deadline:
+            kc._capture(arena, tuple(snap), 8, snap.plan)
+            recaptures[0] += 1
+        kc.put_arena(8, arena)
+        assert done[0] >= start + 8
+        prewarmed.set()
+        return n
+
+    ep._prewarm_graph = prewarm_and_recapture
+    thread = threading.Thread(target=reader)
+    thread.start()
+    try:
+        with ep._lock:
+            ep._kick_background_rebuild("background")
+        _write_both((ep, cpu), "doc:dnew#viewer@user:u3")
+        assert ep.wait_rebuilds(timeout=120)
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+    assert not thread.is_alive()
+    after = _wildcard_reads(cpu, subjects)
+    assert not errors, errors[:1]
+    assert prewarmed.is_set() and recaptures[0] >= 1
+    assert ep.stats["bg_rebuilds"] == 1 and ep.stats["rebuild_failures"] == 0
+    assert all(s in (before, after) for s in seen)
+    assert _wildcard_reads(ep, subjects) == after
+
+
+@pytest.mark.cuda
+def test_prewarm_leaves_no_capture_for_the_first_batch():
+    """After `warm_start(prewarm=True)` the first 256-lane lookup and check
+    batches replay graphs: no eager sweep, no capture, the same answers as
+    the CPU endpoint."""
+    _needs_card()
+    ep, cpu = _wildcard_pair(5_000)
+    ep.warm_start(prewarm=True)
+    stats = dict(ep.graph().kernel.graph_stats)
+    assert stats["captures"] == 4      # the 32, 64, 128 and 256-lane buckets
+    subjects = [f"u{i}" for i in range(97)] + [f"x{i}" for i in range(159)]
+    got = _wildcard_reads(ep, subjects)
+    after = ep.graph().kernel.graph_stats
+    assert after["eager_sweeps"] == stats["eager_sweeps"]
+    assert after["captures"] == stats["captures"]
+    assert after["replays"] > stats["replays"]
+    assert got == _wildcard_reads(cpu, subjects)
+
+
+@pytest.mark.cuda
+def test_card_memory_returns_after_the_swap():
+    """Two generations are on the card while the candidate builds; once
+    it is swapped in and the reads dropped their snapshots, the outgoing
+    generation's tables, arenas and graph pools are freed.  (The swap is
+    kicked directly, as the preemptive refresh does: a quarantined pair
+    would be read from the host oracle, slowly at this size.)"""
+    _needs_card()
+    import gc
+    import weakref
+    ep, cpu = _wildcard_pair(200_000)
+    ep.prewarm_rebuilds = True
+    ep.warm_start(prewarm=True)
+    subjects = [f"u{i}" for i in range(64)]
+    _wildcard_reads(ep, subjects)
+    outgoing = weakref.ref(ep.graph())
+    gc.collect()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with ep._lock:
+        ep._kick_background_rebuild("background")
+    _write_both((ep, cpu), "doc:dnew#viewer@user:u1")
+    assert ep.wait_rebuilds(timeout=120)
+    assert _wildcard_reads(ep, subjects) == _wildcard_reads(cpu, subjects)
+    gc.collect()
+    torch.cuda.synchronize()
+    peak, m1 = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    assert ep.stats["bg_rebuilds"] == 1 and outgoing() is None
+    # the prewarmed candidate took about one generation more; it came back
+    assert peak - m0 > 0
+    assert m1 - m0 < 0.25 * (peak - m0), (m0, peak, m1)

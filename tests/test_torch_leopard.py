@@ -14,9 +14,9 @@ count `leopard_*` hits exactly as `jax://` does, and as the oracle.
 The cases of the reference's tests/test_leopard.py are ported (the mesh
 case does not apply: the port has no mesh yet), plus the reference
 bench's group-explosion shape at a small size with its tail-user churn.
-The reference runs with its AsyncRebuild gate off, as the port (which has
-no background rebuild) does, and with its workload plane reset, so both
-order the candidate pairs alike.  Tolerance is zero everywhere.
+Both run with their off-loop rebuilds off (the reference's AsyncRebuild
+gate, the port's ASYNC_REBUILD switch), and the reference with its
+workload plane reset, so both order the candidate pairs alike.  Tolerance is zero everywhere.
 """
 
 import asyncio
@@ -58,6 +58,7 @@ from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
     SubjectRef,
     UpdateOp,
     parse_relationship)
+from spicedb_kubeapi_proxy_tpu_torch.utils import features as port_features
 
 # the reference's tests/test_leopard.py schema and depth-4 chain
 NESTED_SCHEMA = """
@@ -97,11 +98,13 @@ REF_TRI = {RefPermissionship.NO_PERMISSION: 0,
 
 @pytest.fixture(autouse=True)
 def reference_like_the_port(monkeypatch):
-    """The reference rebuilds synchronously (its AsyncRebuild-off path)
-    and orders no measured candidate pair first (its workload plane is
+    """Both rebuild synchronously (the reference's AsyncRebuild gate and
+    the port's ASYNC_REBUILD switch off), and the reference orders no
+    measured candidate pair first (its workload plane is
     reset and yields no candidates), as the port, which has no workload
     plane, does."""
     monkeypatch.setattr(GATES._gates["AsyncRebuild"], "value", False)
+    monkeypatch.setattr(port_features, "ASYNC_REBUILD", False)
     ref_workload.WORKLOAD.reset()
     monkeypatch.setattr(ref_workload.WORKLOAD, "leopard_candidates",
                         lambda: [])

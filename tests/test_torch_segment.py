@@ -11,9 +11,10 @@ and changed entries per sweep), checks and lookups, at 8, 33 and 256
 lanes.  End to end, `TorchEndpoint(kernel="segment", device="cpu")`
 answers as `JaxEndpoint(kernel="segment")` and the host oracle do, and
 under writes, deletes and expirations both keep equal edge arrays, free
-lists, tuple positions and rebuild counts.  The reference runs with its
-AsyncRebuild gate off (a delta it cannot absorb rebuilds synchronously,
-as the port does) and its Leopard index as the port's.  Tolerance is zero
+lists, tuple positions and rebuild counts.  Both run with their off-loop
+rebuilds off (the reference's AsyncRebuild gate, the port's ASYNC_REBUILD
+switch: a delta they cannot absorb rebuilds synchronously) and the
+reference's Leopard index as the port's.  Tolerance is zero
 everywhere: the data are ids, integers and bitplanes.
 """
 
@@ -61,6 +62,7 @@ from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
     SubjectRef,
     UpdateOp,
     parse_relationship)
+from spicedb_kubeapi_proxy_tpu_torch.utils import features as port_features
 
 WILDCARD_SCHEMA = """
 definition user {}
@@ -100,9 +102,10 @@ definition doc {
 
 @pytest.fixture(autouse=True)
 def sync_reference_rebuilds(monkeypatch):
-    """The reference rebuilds synchronously (its AsyncRebuild-off path),
-    as the port does."""
+    """Both packages rebuild synchronously: the reference's AsyncRebuild
+    gate and the port's ASYNC_REBUILD switch are off."""
     monkeypatch.setattr(GATES._gates["AsyncRebuild"], "value", False)
+    monkeypatch.setattr(port_features, "ASYNC_REBUILD", False)
 
 
 def run(coro):

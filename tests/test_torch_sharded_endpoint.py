@@ -9,8 +9,9 @@ delta drain and the sharded flush, hub trees, expirations, phantom
 subjects, a batch spanning the data axis, the MeshExecution gate — plus
 its caveated mesh case (tests/test_caveat_device.py) and its mesh-sharded
 Leopard plane (tests/test_leopard.py), each asked of both endpoints and
-the oracle with exact equality.  The reference rebuilds synchronously
-(its AsyncRebuild gate off), as the port does.
+the oracle with exact equality.  Both rebuild synchronously (the
+reference's AsyncRebuild gate and the port's ASYNC_REBUILD switch off);
+tests/test_torch_rebuild_async.py holds the off-loop rebuild.
 """
 
 import asyncio
@@ -130,9 +131,11 @@ REF_TRI = {RefPermissionship.NO_PERMISSION: 0,
 
 @pytest.fixture(autouse=True)
 def reference_like_the_port(monkeypatch):
-    """The reference rebuilds synchronously and orders no measured
-    candidate pair first, as the port does."""
+    """Both rebuild synchronously (the reference's AsyncRebuild gate and
+    the port's ASYNC_REBUILD switch off), and the reference orders no
+    measured candidate pair first, as the port does."""
     monkeypatch.setattr(REF_GATES._gates["AsyncRebuild"], "value", False)
+    monkeypatch.setattr(port_features, "ASYNC_REBUILD", False)
     ref_workload.WORKLOAD.reset()
     monkeypatch.setattr(ref_workload.WORKLOAD, "leopard_candidates",
                         lambda: [])
