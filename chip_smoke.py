@@ -144,6 +144,22 @@ deployment (`models/workloads.py multitenant_1m()` with its defaults:
    mesh endpoint of 13a and the caveated endpoint of 10 each take one
    background swap, after which their answers equal the single-device
    endpoint's and the oracle's.
+16. the proxy's read path (`proxy/server.py` `ProxyServer`) over
+   `torch://` at multitenant-1m, on its own endpoint built from the
+   phase-3 workload and warm-started with the prewarm, in front of a
+   fake kube-apiserver with 2,000 namespaces, 10,000 pods and 1,000
+   events, with deploy/rules.yaml's read rules: 256 concurrent pod lists
+   (BASELINE config 5 through the proxy), 1,000 pod gets, an events
+   postfilter list, a protobuf and a Table list and the e2e tests' watch
+   scenario, all through the embedded client.  Lists equal the seeded
+   pods intersected with the endpoint's lookup (8 users: the oracle's),
+   gets the oracle's checks; no read goes to the oracle; every read
+   kernel launches for these requests, which rebuild nothing.  Logged:
+   the lists' per-request p50/p99/max and wall, the proxy's own time
+   (request less upstream), the upstream round trip, the prefilter and
+   the largest wait on it, beside a direct 256-lane batch; the gets'
+   p50/p99, the launches, the card's memory; with h11 installed also one
+   list over a loopback socket.
 
 Wherever `lookup_T` and `scatter_rows` are timed (phases 6, 9, 10, 11,
 13a), their rows also carry the device-only time, the time with L2
@@ -151,7 +167,7 @@ flushed and the host cost per call, of the kernel and of its library
 yardstick (`attribute`), so that a gap between the event-timed loops is
 put down to the card or to the host.
 
-Phases run in the order 1-9, 11, 13a-b, 14, 15, 10, 13c, 12, 13d, and
+Phases run in the order 1-9, 11, 13a-b, 14, 15, 10, 13c, 12, 13d, 16, and
 each phase's seconds are logged.  Any failed phase raises and the script
 exits non-zero.  The second-to-last line is the kernel table as JSON,
 the last line
@@ -234,6 +250,45 @@ OFFLOOP_WRITE_GAP_S = 0.04
 OFFLOOP_EXTRA_TENANTS = 16
 OFFLOOP_ORACLE_CHECKS = 100
 OFFLOOP_SWAP_ORACLE = 200   # oracle checks after the 13a / 10 swaps
+# phase 16, the proxy's read path at multitenant-1m: the fake
+# kube-apiserver's seeded objects, the traffic, and deploy/rules.yaml's
+# read rules as mappings (proxyrule.parse_doc needs no yaml, which the
+# card machine may lack; a CPU test holds them equal to the file's)
+PROXY_NAMESPACES = 2_000
+PROXY_PODS = 10_000         # the north star's 10k-pod list
+PROXY_EVENTS = 1_000
+PROXY_LIST_USERS = 256      # BASELINE config 5, through the proxy
+PROXY_GETS = 1_000
+PROXY_ORACLE_USERS = 8
+_RULE = {"apiVersion": "authzed.com/v1alpha1", "kind": "ProxyRule"}
+PROXY_READ_RULES = [
+    {**_RULE, "metadata": {"name": "namespace-read"},
+     "match": [{"apiVersion": "v1", "resource": "namespaces",
+                "verbs": ["get"]}],
+     "check": [{"tpl": "namespace:{{name}}#view@user:{{user.name}}"}]},
+    {**_RULE, "metadata": {"name": "namespace-enumerate"},
+     "match": [{"apiVersion": "v1", "resource": "namespaces",
+                "verbs": ["list", "watch"]}],
+     "prefilter": [{"fromObjectIDNameExpr": "{{resourceId}}",
+                    "lookupMatchingResources": {
+                        "tpl": "namespace:$#view@user:{{user.name}}"}}]},
+    {**_RULE, "metadata": {"name": "pod-read"},
+     "match": [{"apiVersion": "v1", "resource": "pods", "verbs": ["get"]}],
+     "check": [{"tpl": "pod:{{namespacedName}}#view@user:{{user.name}}"}]},
+    {**_RULE, "metadata": {"name": "pod-enumerate"},
+     "match": [{"apiVersion": "v1", "resource": "pods",
+                "verbs": ["list", "watch"]}],
+     "prefilter": [{"fromObjectIDNamespaceExpr":
+                    "{{split_namespace(resourceId)}}",
+                    "fromObjectIDNameExpr": "{{split_name(resourceId)}}",
+                    "lookupMatchingResources": {
+                        "tpl": "pod:$#view@user:{{user.name}}"}}]},
+    {**_RULE, "metadata": {"name": "event-postfilter"},
+     "match": [{"apiVersion": "v1", "resource": "events",
+                "verbs": ["list"]}],
+     "postfilter": [{"checkPermissionTemplate": {
+         "tpl": "namespace:{{namespace}}#view@user:{{user.name}}"}}]},
+]
 UNDECIDED = '[caveat:within_quota:{"used": 1}]'
 DECIDED = ('[caveat:within_quota:{"used": 1, "quota": 5}]',
            '[caveat:within_quota:{"used": 9, "quota": 5}]')
@@ -4243,6 +4298,418 @@ def offloop_rebuild(ep, w, batches, reqs, smi_line: str,
     return {"launches": launches, "runs": runs}
 
 
+# -- phase 16, the proxy's read path ------------------------------------------
+
+
+def _seed_proxy_kube(n_namespaces: int, n_pods: int, n_events: int):
+    """The fake kube-apiserver of phase 16: namespaces ns0.., pods
+    ns{p % n}/p{p} and events ns{e % n}/ev{e}."""
+    from spicedb_kubeapi_proxy_tpu_torch.kubefake.apiserver import (
+        FakeKubeApiServer)
+    kube = FakeKubeApiServer()
+    for n in range(n_namespaces):
+        kube.seed("", "v1", "namespaces", {"metadata": {"name": f"ns{n}"}})
+    for p in range(n_pods):
+        kube.seed("", "v1", "pods", {"metadata": {
+            "name": f"p{p}", "namespace": f"ns{p % n_namespaces}"}})
+    for e in range(n_events):
+        kube.seed("", "v1", "events", {"metadata": {
+            "name": f"ev{e}", "namespace": f"ns{e % n_namespaces}"}})
+    return kube
+
+
+def _oracle_pods(oracle, pods: list, subject) -> set:
+    """The oracle's answer for `subject` over `pods` ("ns/name" ids):
+    its check of each, one memo shared by all, as its own
+    lookup_resources shares one over every candidate."""
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.evaluator import YES, _Ctx
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import ObjectRef
+    ctx = _Ctx()
+    return {p for p in pods
+            if oracle._check(ObjectRef("pod", p), "view", subject, 0,
+                             ctx) == YES}
+
+
+def proxy_path(w, smi_line: str, device: str = "cuda") -> dict:
+    """Phase 16: the proxy's read path on the card.  `ProxyServer(Options(
+    spicedb_endpoint="torch://"))` over multitenant-1m (`w`, loaded into
+    the server's own batched endpoint and warm-started with the prewarm),
+    a fake kube-apiserver holding PROXY_NAMESPACES namespaces, PROXY_PODS
+    pods and PROXY_EVENTS events, and deploy/rules.yaml's read rules
+    (PROXY_READ_RULES).  Every request goes through
+    `get_embedded_client(user=...)`: (a) PROXY_LIST_USERS concurrent
+    `GET /api/v1/pods`, one a user (BASELINE config 5 through the proxy);
+    (b) PROXY_GETS pod gets over fixed-seed (user, pod) pairs, half of
+    them on pods the user may see, in waves of 100 concurrent; (c) one
+    `GET /api/v1/events` postfilter list; (d) one protobuf and one Table
+    list; (e) the e2e tests' watch scenario (grant then event: delivered;
+    an unauthorized event: buffered; a late grant: flushed) on one
+    namespace.  Checks: each list equals the seeded pods intersected with
+    the bare TorchEndpoint's lookup for its user, and PROXY_ORACLE_USERS
+    of them the oracle's answer; every get's status the oracle's check;
+    the events the oracle's namespace checks; the protobuf and Table
+    lists the JSON list's names; no read routed to the oracle
+    (`stale_routed` 0); every READ_KERNELS kernel launched by these
+    requests (counted from zero after the warm start, and read as the
+    traffic ends; the traffic must rebuild nothing, so no background
+    rebuild adds launches of its own).  Logged: (a)'s per-request
+    p50/p99/max and wall; per request, the proxy's own time (request less
+    upstream), the upstream round trip, the prefilter and the largest
+    wait on it against PREFILTER_TIMEOUT; one direct 256-lane
+    `lookup_resources_batch` of the same users on the same endpoint
+    beside them and the proxy's summed phase seconds; (b)'s p50/p99; the
+    launches; the card's memory."""
+    import numpy as np
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.authz.responsefilterer import (
+        PREFILTER_TIMEOUT)
+    from spicedb_kubeapi_proxy_tpu_torch.config import proxyrule
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.ops.torch_endpoint import (
+        TorchEndpoint)
+    from spicedb_kubeapi_proxy_tpu_torch.proxy import k8sproto
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.httpcore import (
+        HandlerTransport)
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.server import (
+        Options, ProxyServer)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import Bootstrap
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        ObjectRef, RelationshipUpdate, SubjectRef, UpdateOp,
+        parse_relationship)
+    from spicedb_kubeapi_proxy_tpu_torch.utils import tracing
+    from spicedb_kubeapi_proxy_tpu_torch.utils.metrics import REGISTRY
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    _switch(True)   # the port's default rebuild path
+    rng = np.random.default_rng(SEED + 16)
+    kube = _seed_proxy_kube(PROXY_NAMESPACES, PROXY_PODS, PROXY_EVENTS)
+    seeded = [f"ns{p % PROXY_NAMESPACES}/p{p}" for p in range(PROXY_PODS)]
+    seeded_set = set(seeded)
+    rules = [proxyrule.parse_doc(d) for d in PROXY_READ_RULES]
+    t0 = time.perf_counter()
+    url = "torch://" if on_card else f"torch://?device={device}"
+    proxy = ProxyServer(Options(
+        spicedb_endpoint=url, rule_configs=rules,
+        bootstrap=Bootstrap(w.schema_text, "\n".join(w.relationships)),
+        upstream_transport=HandlerTransport(kube), prewarm_compiles=True))
+    t1 = time.perf_counter()
+    asyncio.run(proxy.warm_start())
+    t2 = time.perf_counter()
+    ep = proxy.endpoint
+    chain = []
+    while ep is not None:
+        chain.append(type(ep).__name__)
+        if isinstance(ep, TorchEndpoint):
+            break
+        ep = getattr(ep, "inner", None)
+    if chain != ["InstrumentedEndpoint", "BatchingEndpoint", "TorchEndpoint"]:
+        raise AssertionError(f"proxy endpoint chain {chain}")
+    if ep.device.type != torch.device(device).type:
+        raise AssertionError(f"proxy endpoint on {ep.device}, not {device}")
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    log(f"phase 16: {len(w.relationships)} tuples into ProxyServer({url!r}) "
+        f"in {t1 - t0:.3f} s, warm start with prewarm {t2 - t1:.3f} s; "
+        f"chain {' > '.join(chain)}; kube {PROXY_NAMESPACES} namespaces, "
+        f"{PROXY_PODS} pods, {PROXY_EVENTS} events")
+
+    users = [f"u{i}" for i in range(PROXY_LIST_USERS)]
+    subjects = [SubjectRef("user", u) for u in users]
+    gets_rng = [(users[int(i)], seeded[int(p)]) for i, p in zip(
+        rng.integers(0, len(users), PROXY_GETS),
+        rng.integers(0, len(seeded), PROXY_GETS))]
+
+    def phase_sums() -> dict:
+        h = REGISTRY.get("authz_request_phase_seconds")
+        return {k[0]: v[1] for k, v in h.raw().items()} if h else {}
+
+    async def timed_get(user, target, accept=None):
+        client = proxy.get_embedded_client(user=user)
+        t = time.perf_counter()
+        resp = await client.get(target, headers=[("Accept", accept)]
+                                if accept else None)
+        return resp, time.perf_counter() - t
+
+    def names_of(resp) -> set:
+        if resp.status != 200:
+            raise AssertionError(f"list answered {resp.status}: "
+                                 f"{resp.body[:300]!r}")
+        return {f"{i['metadata']['namespace']}/{i['metadata']['name']}"
+                for i in json.loads(resp.body)["items"]}
+
+    out = {}
+
+    def span_s(trace: dict, name: str) -> float:
+        return sum(sp["duration_ms"] for sp in trace["spans"]
+                   if sp["name"] == name) / 1e3
+
+    def span_start(trace: dict, name: str) -> float:
+        return min(sp["start_ms"] for sp in trace["spans"]
+                   if sp["name"] == name) / 1e3
+
+    def span_end(trace: dict, name: str) -> float:
+        return max(sp["start_ms"] + sp["duration_ms"]
+                   for sp in trace["spans"] if sp["name"] == name) / 1e3
+
+    async def traffic():
+        # (a) the concurrent lists.  The server records every finished
+        # request's trace; a recorder that holds all of them gives each
+        # request's upstream time and prefilter wait by its trace id
+        sums0 = phase_sums()
+        recorder = tracing.RECORDER
+        tracing.RECORDER = tracing.SlowTraceRecorder(capacity=2 * len(users))
+        try:
+            t_a = time.perf_counter()
+            res = await asyncio.gather(*(timed_get(u, "/api/v1/pods")
+                                         for u in users))
+            out["a_wall"] = time.perf_counter() - t_a
+            traces = {t["trace_id"]: t for t in tracing.RECORDER.snapshot()}
+        finally:
+            tracing.RECORDER = recorder
+        out["a_lat"] = [s for _, s in res]
+        out["a_lists"] = [names_of(r) for r, _ in res]
+        sums1 = phase_sums()
+        out["a_phases"] = {k: sums1[k] - sums0.get(k, 0.0) for k in sums1}
+        a_traces = [traces[r.headers.get(tracing.TRACE_ID_HEADER)]
+                    for r, _ in res]
+        # the proxy's own time is the request's less its upstream round
+        # trip, in which the fake apiserver encodes each list under its
+        # lock, one list at a time; the prefilter runs beside the upstream
+        out["a_upstream"] = [span_s(t, "upstream") for t in a_traces]
+        out["a_own"] = [t["duration_ms"] / 1e3 - u
+                        for t, u in zip(a_traces, out["a_upstream"])]
+        out["a_wait"] = [span_s(t, "respfilter.wait") for t in a_traces]
+        # what the pre-filter timeout measures: how long after a request
+        # began to wait its prefilter ended (its resume may then queue
+        # behind other requests' filtering on the loop, which the
+        # timeout does not count)
+        out["a_late"] = [max(0.0, span_end(t, "prefilter")
+                             - span_start(t, "respfilter.wait"))
+                         for t in a_traces]
+        out["a_prefilter"] = [span_s(t, "prefilter") for t in a_traces]
+        # (b) the gets: half on pods the user's list holds
+        pairs = []
+        for k in range(PROXY_GETS):
+            i = k % len(users)
+            mine = sorted(out["a_lists"][i])
+            if k % 2 == 0 and mine:
+                pairs.append((users[i], mine[int(rng.integers(len(mine)))]))
+            else:
+                pairs.append(gets_rng[k])
+        out["b_pairs"] = pairs
+        out["b_status"], out["b_lat"] = [], []
+        for w0 in range(0, len(pairs), 100):
+            res = await asyncio.gather(*(
+                timed_get(u, "/api/v1/namespaces/{}/pods/{}".format(
+                    *p.split("/"))) for u, p in pairs[w0: w0 + 100]))
+            out["b_status"] += [r.status for r, _ in res]
+            out["b_lat"] += [s for _, s in res]
+        # (c) the postfilter list
+        resp, out["c_s"] = await timed_get(users[0], "/api/v1/events")
+        out["c_names"] = names_of(resp)
+        # (d) protobuf and Table lists of the same user
+        resp, out["d_proto_s"] = await timed_get(
+            users[0], "/api/v1/pods", "application/vnd.kubernetes.protobuf")
+        _, kind, raw, _ = k8sproto.decode_unknown(resp.body)
+        out["d_proto"] = {"/".join(k8sproto.object_meta(i))
+                          for i in k8sproto.iter_list_items(raw)}
+        resp, out["d_table_s"] = await timed_get(
+            users[0], "/api/v1/pods",
+            "application/json;as=Table;v=v1;g=meta.k8s.io")
+        out["d_table"] = {"{namespace}/{name}".format(
+            **r["object"]["metadata"]) for r in json.loads(resp.body)["rows"]}
+        # (e) the watch scenario on one namespace
+        out["e"] = await watch_scenario()
+
+    async def watch_scenario() -> list:
+        ns = "ns0"
+        client = proxy.get_embedded_client(user=users[0])
+        resp = await client.get(f"/api/v1/namespaces/{ns}/pods?watch=true")
+        if resp.status != 200 or resp.stream is None:
+            raise AssertionError(f"watch answered {resp.status}")
+        frames: asyncio.Queue = asyncio.Queue()
+
+        async def consume():
+            async for frame in resp.stream:
+                await frames.put(json.loads(frame))
+
+        task = asyncio.ensure_future(consume())
+        key = ("", "v1", "pods")
+        seen = []
+        try:
+            await proxy.endpoint.write_relationships([RelationshipUpdate(
+                UpdateOp.TOUCH, parse_relationship(
+                    f"pod:{ns}/pwatch#creator@user:{users[0]}"))])
+            await asyncio.sleep(0.6)  # let the store watch propagate
+            kube.seed("", "v1", "pods", {"metadata": {
+                "name": "pwatch", "namespace": ns}})
+            await kube._notify(key, "ADDED", kube.objects[key][ns]["pwatch"])
+            seen.append((await asyncio.wait_for(frames.get(), 10))
+                        ["object"]["metadata"]["name"])
+            kube.seed("", "v1", "pods", {"metadata": {
+                "name": "phidden", "namespace": ns}})
+            await kube._notify(key, "ADDED",
+                               kube.objects[key][ns]["phidden"])
+            try:
+                ev = await asyncio.wait_for(frames.get(), 0.7)
+                seen.append(ev["object"]["metadata"]["name"])
+            except asyncio.TimeoutError:
+                seen.append("buffered")
+            await proxy.endpoint.write_relationships([RelationshipUpdate(
+                UpdateOp.TOUCH, parse_relationship(
+                    f"pod:{ns}/phidden#creator@user:{users[0]}"))])
+            seen.append((await asyncio.wait_for(frames.get(), 10))
+                        ["object"]["metadata"]["name"])
+        finally:
+            task.cancel()
+        return seen
+
+    rebuild_keys = ("rebuilds", "bg_rebuilds", "preemptive_rebuilds",
+                    "rebuild_failures")
+    rebuilds0 = {k: ep.stats[k] for k in rebuild_keys}
+    kernels.reset_launches()
+    t3 = time.perf_counter()
+    asyncio.run(traffic())
+    t4 = time.perf_counter()
+    launches = {k: kernels.LAUNCHES[k] for k in REPLACES}
+    # a rebuild kicked by the watch scenario's writes would launch kernels
+    # of its own in the background: the counts above hold only requests
+    ep.wait_rebuilds()
+    rebuilds1 = {k: ep.stats[k] for k in rebuild_keys}
+    if rebuilds1 != rebuilds0:
+        raise AssertionError(f"the traffic rebuilt the graph ({rebuilds0} "
+                             f"-> {rebuilds1}): its launches are not all "
+                             f"the requests'")
+    mem = ((torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated(),
+            torch.cuda.memory_reserved()) if on_card else (0, 0, 0))
+
+    # the direct batch beside (a): the same users, the same endpoint
+    direct_s = []
+    for _ in range(2):
+        t = time.perf_counter()
+        asyncio.run(proxy.endpoint.lookup_resources_batch(
+            "pod", "view", subjects))
+        direct_s.append(time.perf_counter() - t)
+    bare = asyncio.run(ep.lookup_resources_batch("pod", "view", subjects))
+
+    # correctness
+    for u, got, ids in zip(users, out["a_lists"], bare):
+        want = seeded_set & set(ids)
+        if got != want:
+            raise AssertionError(f"{u}'s list differs from the endpoint's "
+                                 f"lookup ({len(got)} vs {len(want)})")
+    oracle = ep._oracle
+    t5 = time.perf_counter()
+    for i in rng.choice(len(users), PROXY_ORACLE_USERS, replace=False):
+        want = _oracle_pods(oracle, seeded, subjects[i])
+        if out["a_lists"][i] != want:
+            raise AssertionError(f"{users[i]}'s list differs from the "
+                                 f"oracle ({len(out['a_lists'][i])} vs "
+                                 f"{len(want)})")
+    t6 = time.perf_counter()
+    for (u, p), status in zip(out["b_pairs"], out["b_status"]):
+        ok = oracle.check(ObjectRef("pod", p), "view", SubjectRef("user", u))
+        if status != (200 if ok else 403):
+            raise AssertionError(f"get of {p} by {u} answered {status}, "
+                                 f"oracle {ok}")
+    want_events = {f"ns{e % PROXY_NAMESPACES}/ev{e}"
+                   for e in range(PROXY_EVENTS)
+                   if oracle.check(ObjectRef(
+                       "namespace", f"ns{e % PROXY_NAMESPACES}"), "view",
+                       subjects[0])}
+    if out["c_names"] != want_events:
+        raise AssertionError(f"events list {len(out['c_names'])} differs "
+                             f"from the oracle's {len(want_events)}")
+    if not (out["d_proto"] == out["d_table"] == out["a_lists"][0]):
+        raise AssertionError("protobuf / Table lists differ from the JSON "
+                             "list")
+    if out["e"] != ["pwatch", "buffered", "phidden"]:
+        raise AssertionError(f"watch scenario saw {out['e']}")
+    stale = ep.stats["stale_routed"]
+    if stale:
+        raise AssertionError(f"{stale} reads routed to the oracle")
+    idle = [k for k in READ_KERNELS if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched by the proxy's "
+                             f"requests: {idle}")
+    n_allowed = sum(s == 200 for s in out["b_status"])
+    sizes = [len(x) for x in out["a_lists"]]
+    log(f"phase 16 (a) {len(users)} concurrent lists: wall "
+        f"{out['a_wall']:.4f} s; per request {_pcts(out['a_lat'])}, max "
+        f"{max(out['a_lat']) * 1e3:.3f} ms; items per list min "
+        f"{min(sizes)} median {int(np.median(sizes))} max {max(sizes)} "
+        f"({smi_line})")
+    late_max = max(out["a_late"])
+    log(f"phase 16 (a) per request, the proxy's own time (request less "
+        f"upstream): {_pcts(out['a_own'])}, max "
+        f"{max(out['a_own']) * 1e3:.3f} ms; upstream (the fake apiserver): "
+        f"{_pcts(out['a_upstream'])}, max "
+        f"{max(out['a_upstream']) * 1e3:.3f} ms; prefilter "
+        f"{_pcts(out['a_prefilter'])}, max "
+        f"{max(out['a_prefilter']) * 1e3:.3f} ms; respfilter.wait "
+        f"{_pcts(out['a_wait'])}, max {max(out['a_wait']) * 1e3:.3f} ms; "
+        f"latest prefilter end after its wait began "
+        f"{late_max * 1e3:.3f} ms, {PREFILTER_TIMEOUT - late_max:.3f} s "
+        f"under the {PREFILTER_TIMEOUT:.0f} s pre-filter timeout "
+        f"({smi_line})")
+    log(f"phase 16 (a) direct {len(users)}-lane lookup_resources_batch on "
+        f"the same endpoint: {', '.join(f'{s:.4f}' for s in direct_s)} s; proxy "
+        f"phase seconds summed over the burst: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+            out["a_phases"].items())))
+    log(f"phase 16 (b) {len(out['b_status'])} gets ({n_allowed} allowed) in "
+        f"waves of 100: {_pcts(out['b_lat'])}; (c) events list "
+        f"{out['c_s'] * 1e3:.3f} ms ({len(out['c_names'])} of "
+        f"{PROXY_EVENTS} kept); (d) protobuf {out['d_proto_s'] * 1e3:.3f} "
+        f"ms, Table {out['d_table_s'] * 1e3:.3f} ms, "
+        f"{len(out['d_proto'])} items each; (e) watch {out['e']}")
+    log(f"phase 16 launches by the proxy's requests: "
+        f"{ {k: v for k, v in launches.items() if v} }; stale_routed "
+        f"{stale}; card memory allocated {mem[0] / 2**20:.1f} MiB, peak "
+        f"{mem[1] / 2**20:.1f} MiB, reserved {mem[2] / 2**20:.1f} MiB; "
+        f"traffic {t4 - t3:.1f} s; oracle on {PROXY_ORACLE_USERS} users "
+        f"{t6 - t5:.1f} s")
+    # the watch scenario gave users[0] its two new pods
+    socket = _proxy_socket(proxy, users[0], out["a_lists"][0]
+                           | {"ns0/pwatch", "ns0/phidden"})
+    log(f"phase 16 loopback: {socket}")
+    log(f"phase 16 wall time {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
+def _proxy_socket(proxy, user: str, want: set) -> str:
+    """One (a)-style list over a loopback socket (`start(port=0)` and
+    `H11Transport`), when h11 is importable."""
+    try:
+        import h11  # noqa: F401
+    except ImportError:
+        return "skipped (h11 is not installed)"
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.httpcore import (
+        H11Transport, Headers, Request)
+
+    async def go():
+        port = await proxy.start(port=0)
+        try:
+            t = time.perf_counter()
+            resp = await H11Transport(f"http://127.0.0.1:{port}").round_trip(
+                Request("GET", "/api/v1/pods", headers=Headers([
+                    ("X-Remote-User", user), ("Accept", "application/json")])))
+            return resp, time.perf_counter() - t
+        finally:
+            await proxy.stop()
+
+    resp, secs = asyncio.run(go())
+    got = {f"{i['metadata']['namespace']}/{i['metadata']['name']}"
+           for i in json.loads(resp.body)["items"]}
+    if resp.status != 200 or got != want:
+        raise AssertionError(f"loopback list answered {resp.status} with "
+                             f"{len(got)} items, want {len(want)}")
+    return f"list of {len(got)} items in {secs * 1e3:.3f} ms"
+
+
 def main() -> int:
     try:
         import torch
@@ -4401,6 +4868,13 @@ def main() -> int:
     mesh_leo = mesh_leopard(leo_a, leo_w, mesh, timer)
     del leo_a, leo_w
     phase_s["13d"] = time.perf_counter() - t_ph
+
+    # 16. the proxy's read path over multitenant-1m on its own endpoint
+    t_ph = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    proxy = proxy_path(w, smi_line)
+    phase_s["16"] = time.perf_counter() - t_ph
     for kname, r in cav_rows.items():
         if kname in rows:
             # a kernel of both paths: its plane-mode numbers beside the
@@ -4458,6 +4932,9 @@ def main() -> int:
     # phase 15 (d): one background swap's launches, counted from zero
     for kname in rows:
         rows[kname]["offloop_launches"] = offloop["launches"].get(kname, 0)
+    # phase 16: the proxied requests' launches, counted from zero
+    for kname in rows:
+        rows[kname]["proxy_launches"] = proxy["launches"].get(kname, 0)
     for kname, also in REPLACES_ALSO.items():
         rows[kname]["replaces_also"] = also
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}"

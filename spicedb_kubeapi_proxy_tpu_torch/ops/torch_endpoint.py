@@ -987,7 +987,7 @@ class TorchEndpoint(PermissionsEndpoint):
                       "leopard_recloses": 0,
                       "delta_apply_s": 0.0, "flush_s": 0.0,
                       "readbacks": 0, "readback_bytes": 0,
-                      "readback_wait_s": 0.0}
+                      "readback_wait_s": 0.0, "explain_checks": 0}
         # off-loop rebuild state (the reference's, jax_endpoint.py:
         # 1326-1359).  While a background rebuild is in flight the old
         # generation keeps serving: deltas it can absorb apply as usual,
@@ -2178,3 +2178,56 @@ class TorchEndpoint(PermissionsEndpoint):
 
     def watch(self, object_types: Optional[Iterable[str]] = None) -> Watcher:
         return self.store.subscribe(object_types)
+
+    # -- decision explain ----------------------------------------------------
+
+    def explain_check(self, resource: ObjectRef, permission: str,
+                      subject: SubjectRef):
+        """Per-check evaluation witness (authz/explain.py `Witness`;
+        reference jax_endpoint.py:3121-3172).
+
+        One targeted re-check through the kernel path pins the decision;
+        the witness path comes from the host replay of the fixpoint
+        iterate over the compiled program (allowed rows: which relation
+        hop / iteration admitted the subject).  Deltas applied since the
+        last build live in the device tables, not the program's edge
+        arrays, so a replay that disagrees with the kernel — and every
+        denial or conditional — is explained by the (always current) host
+        oracle instead."""
+        from ..authz.explain import device_witness, oracle_witness
+
+        req = CheckRequest(resource=resource, permission=permission,
+                           subject=subject)
+        result = self._check_batch_sync([req])[0]
+        decision = {
+            Permissionship.HAS_PERMISSION: "allowed",
+            Permissionship.CONDITIONAL_PERMISSION: "conditional",
+            Permissionship.NO_PERMISSION: "denied",
+        }[result.permissionship]
+        with self._lock:
+            self.stats["explain_checks"] += 1
+        prog = sidx = tidx = None
+        if decision == "allowed":
+            with self._lock:
+                graph = self._graph
+                if graph is not None:
+                    prog = graph.prog
+                    sidx = prog.subject_index(subject.type, subject.id,
+                                              subject.relation)
+                    tidx = prog.state_index(resource.type, permission,
+                                            resource.id)
+        if prog is not None and sidx is not None and tidx is not None:
+            # the program's arrays are immutable after a build: the
+            # replay runs outside the lock
+            w = device_witness(prog, sidx, tidx)
+            if w.decision == decision:
+                w.backend = "torch"
+                return w
+        w = oracle_witness(self.schema, self.store, resource, permission,
+                           subject)
+        w.backend = "torch"
+        if w.decision != decision:
+            w.note = (f"kernel decision {decision!r} diverges from oracle "
+                      f"witness {w.decision!r}")
+            w.decision = decision
+        return w

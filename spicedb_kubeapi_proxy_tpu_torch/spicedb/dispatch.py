@@ -114,8 +114,8 @@ class BatchingEndpoint(PermissionsEndpoint):
         self._inflight: list = []      # waiters of the batch being executed
         self._drain_task: Optional[asyncio.Task] = None
         self._stats = {"drains": 0, "fused_checks": 0, "fused_lookups": 0,
-                       "max_fused_batch": 0, "singleflight_hits": 0,
-                       "admission_rejected": 0}
+                       "max_fused_batch": 0, "explain_bypass": 0,
+                       "singleflight_hits": 0, "admission_rejected": 0}
 
     def queue_depth(self) -> int:
         """Total queued (not in-flight) entries across both queues."""
@@ -465,6 +465,19 @@ class BatchingEndpoint(PermissionsEndpoint):
         return list(await asyncio.gather(*futs))
 
     # -- passthrough verbs ---------------------------------------------------
+
+    def explain_check(self, resource, permission, subject):
+        """Witness capture bypasses the fused queue (reference
+        spicedb/dispatch.py:668): an explain is a targeted re-check on a
+        rare debug path — co-batching it would make the captured iterate
+        depend on whatever requests it fused with, and a queue backlog
+        would stall the audit event it feeds."""
+        self._stats["explain_bypass"] += 1
+        fn = getattr(self.inner, "explain_check", None)
+        if fn is not None:
+            return fn(resource, permission, subject)
+        from ..authz.explain import witness_for
+        return witness_for(self.inner, resource, permission, subject)
 
     async def read_relationships(self, flt: RelationshipFilter) -> list:
         return await self.inner.read_relationships(flt)

@@ -359,7 +359,9 @@ def create_endpoint(url: str,
     """Endpoint registry dispatching on URL scheme
     (reference options.go:307-369).  `torch://` runs on the CUDA device
     unless `torch://?device=cpu` or `device="cpu"` asks for the CPU; a
-    missing CUDA device raises instead of falling back.
+    missing CUDA device raises instead of falling back.  `kernel=ell|
+    segment` (URL or keyword) picks the graph kind, as `TorchEndpoint`'s
+    `kernel` argument does.
 
     `torch://?mesh=auto|DxG` shards the ELL graph over a (data x graph)
     mesh, as `jax://?mesh=` does (reference endpoints.py:464-501): `auto`
@@ -387,13 +389,16 @@ def create_endpoint(url: str,
         return EmbeddedEndpoint.from_bootstrap(bootstrap, store=store)
     if scheme == "torch":
         from ..ops.torch_endpoint import TorchEndpoint  # lazy: imports torch
-        if "device" in params:
-            if kwargs.get("device") not in (None, params["device"][0]):
+        for key in ("device", "kernel"):
+            if key not in params:
+                continue
+            if kwargs.get(key) not in (None, params[key][0]):
                 raise EndpointConfigError(
-                    f"device={params['device'][0]!r} in {url!r} conflicts "
-                    f"with device={kwargs['device']!r}")
-            kwargs["device"] = params["device"][0]
-        unknown = set(params) - {"device", "mesh", *_DISPATCH_PARAMS}
+                    f"{key}={params[key][0]!r} in {url!r} conflicts "
+                    f"with {key}={kwargs[key]!r}")
+            kwargs[key] = params[key][0]
+        unknown = set(params) - {"device", "kernel", "mesh",
+                                 *_DISPATCH_PARAMS}
         if unknown:
             raise EndpointConfigError(
                 f"unsupported torch:// parameters {sorted(unknown)} in {url!r}")

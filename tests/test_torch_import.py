@@ -216,3 +216,66 @@ def test_device_resolution_never_falls_back():
             resolve_device(None)
         with pytest.raises(DeviceUnavailableError):
             resolve_device("cuda")
+
+
+_PROBE_PROXY = r"""
+import json, sys
+for name in ("jax", "h11", "yaml", "cryptography"):
+    sys.modules[name] = None       # importing any of them now raises
+import asyncio
+from spicedb_kubeapi_proxy_tpu_torch.authz import middleware
+from spicedb_kubeapi_proxy_tpu_torch.config import proxyrule
+from spicedb_kubeapi_proxy_tpu_torch.kubefake.apiserver import (
+    FakeKubeApiServer)
+from spicedb_kubeapi_proxy_tpu_torch.proxy.httpcore import HandlerTransport
+from spicedb_kubeapi_proxy_tpu_torch.proxy.server import Options, ProxyServer
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import Bootstrap
+kube = FakeKubeApiServer()
+for p in ("p0", "p1"):
+    kube.seed("", "v1", "pods", {"metadata": {"name": p, "namespace": "ns"}})
+rule = proxyrule.parse_doc({
+    "apiVersion": "authzed.com/v1alpha1", "kind": "ProxyRule",
+    "metadata": {"name": "pod-enumerate"},
+    "match": [{"apiVersion": "v1", "resource": "pods", "verbs": ["list"]}],
+    "prefilter": [{"fromObjectIDNamespaceExpr":
+                   "{{split_namespace(resourceId)}}",
+                   "fromObjectIDNameExpr": "{{split_name(resourceId)}}",
+                   "lookupMatchingResources": {
+                       "tpl": "pod:$#view@user:{{user.name}}"}}]})
+proxy = ProxyServer(Options(
+    spicedb_endpoint="torch://?device=cpu", rule_configs=[rule],
+    bootstrap=Bootstrap(
+        "definition user {}\ndefinition pod { relation viewer: user\n"
+        "permission view = viewer }", "pod:ns/p1#viewer@user:ann"),
+    upstream_transport=HandlerTransport(kube)))
+
+async def go():
+    resp = await proxy.get_embedded_client(user="ann").get("/api/v1/pods")
+    return resp.status, [i["metadata"]["name"]
+                         for i in json.loads(resp.body)["items"]]
+
+status, names = asyncio.run(go())
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None)
+print(json.dumps({"status": status, "names": names, "modules": loaded,
+                  "inner": type(proxy.endpoint.inner).__name__}))
+"""
+
+
+def test_proxy_serves_without_h11_yaml_or_cryptography():
+    """The port's proxy (proxy/server.py, authz/middleware.py,
+    kubefake/apiserver.py and what they import) loads and serves an
+    embedded-client list over `torch://?device=cpu` with jax, h11, yaml
+    and cryptography unimportable, and imports nothing of the
+    reference."""
+    out = subprocess.run([sys.executable, "-c", _PROBE_PROXY], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["status"] == 200 and res["names"] == ["p1"]
+    assert res["inner"] == "BatchingEndpoint"
+    assert not [m for m in res["modules"] if _is_forbidden(m)]
+    assert {"spicedb_kubeapi_proxy_tpu_torch.proxy.server",
+            "spicedb_kubeapi_proxy_tpu_torch.authz.middleware",
+            "spicedb_kubeapi_proxy_tpu_torch.kubefake.apiserver",
+            "spicedb_kubeapi_proxy_tpu_torch.ops.torch_endpoint"} <= \
+        set(res["modules"])

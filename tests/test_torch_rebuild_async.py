@@ -456,13 +456,20 @@ def test_force_rebuild_supersedes_a_background_candidate(kind):
     p = Pair(kind)
     p.agree()
     gate = threading.Event()
-    for ep in p.eps:
-        hold_builds(ep, gate, first_only=True, after=True)
+    held = [hold_builds(ep, gate, first_only=True, after=True)
+            for ep in p.eps]
     try:
         p.touch("doc:d1#viewer@user:*")
         for ep in p.eps:
             _doc_view(ep)      # kicks the background rebuild
             assert ep.rebuild_inflight
+        # only the first build is held: the background one must have
+        # begun before the synchronous one below, or that one is held
+        for builds in held:
+            deadline = time.monotonic() + 30
+            while not builds and time.monotonic() < deadline:
+                time.sleep(0.005)
+            assert builds
         # a synchronous rebuild installs first: the candidate must abandon
         # itself instead of replacing the newer generation
         installed = []
