@@ -167,7 +167,31 @@ flushed and the host cost per call, of the kernel and of its library
 yardstick (`attribute`), so that a gap between the event-timed loops is
 put down to the card or to the host.
 
-Phases run in the order 1-9, 11, 13a-b, 14, 15, 10, 13c, 12, 13d, 16, and
+17. dual writes and the command line.  (a) On phase 16's proxy, after
+   `enable_dual_writes()` with a SQLite journal and with the workflow
+   worker started (as `ProxyServer.start()` starts it), deploy/rules.yaml's
+   pod-launch and pod-retire shapes on multitenant-1m: 256 concurrent
+   pod creates (one a list user of phase 16, in a namespace it may
+   view), each user's list of that namespace showing its new pod, 8
+   pairs of racing creates of one name (one 201, one 409 each), one
+   create through a `panicKubeWrite` crash, and every new pod deleted,
+   256 at once; the store's new creator tuples equal the fake's new
+   pods and the set asked for, none is left after the deletes, the
+   journal has nothing pending, a sample of (user, new pod) checks
+   equals the oracle, and `scatter_rows` and every read kernel launched
+   in the proxy's traffic (the oracle sample's launches left out).
+   Logged: each burst's wall and per-request p50/p99/max, the
+   read-after-write lists', the endpoint's rebuild, spare-row and
+   write-path counters, the lock/workflow/activity tuples, the card's
+   memory.  (b) `python3 -m spicedb_kubeapi_proxy_tpu_torch` with no
+   endpoint flag (the default `torch://`), a kubeconfig to the port's
+   fake apiserver on a loopback socket, deploy/rules.yaml,
+   deploy/bootstrap.yaml and a SQLite journal: /readyz, ada's list, create (201), list, delete, list,
+   mallory's list, then SIGTERM: exit 0 with no traceback, the serving
+   line naming the card; then `entry.entry()` on the card equal to the
+   CPU's.
+
+Phases run in the order 1-9, 11, 13a-b, 14, 15, 10, 13c, 12, 13d, 16, 17, and
 each phase's seconds are logged.  Any failed phase raises and the script
 exits non-zero.  The second-to-last line is the kernel table as JSON,
 the last line
@@ -289,6 +313,31 @@ PROXY_READ_RULES = [
      "postfilter": [{"checkPermissionTemplate": {
          "tpl": "namespace:{{namespace}}#view@user:{{user.name}}"}}]},
 ]
+# phase 17 (a), dual writes on phase 16's proxy: deploy/rules.yaml's
+# pod-launch and pod-retire shapes on multitenant-1m's schema (its pods
+# have a namespace and a creator, and no viewer fan-out), one create a
+# list user of phase 16, pairs of racing creates of one name, one create
+# through a crash, then every new pod deleted
+DUALWRITE_RULES = [
+    {**_RULE, "metadata": {"name": "pod-launch"}, "lock": "Optimistic",
+     "match": [{"apiVersion": "v1", "resource": "pods",
+                "verbs": ["create"]}],
+     "check": [{"tpl": "namespace:{{namespace}}#view@user:{{user.name}}"}],
+     "update": {"creates": [
+         {"tpl": "pod:{{namespacedName}}#namespace@namespace:{{namespace}}"},
+         {"tpl": "pod:{{namespacedName}}#creator@user:{{user.name}}"}]}},
+    {**_RULE, "metadata": {"name": "pod-retire"}, "lock": "Pessimistic",
+     "match": [{"apiVersion": "v1", "resource": "pods",
+                "verbs": ["delete"]}],
+     "check": [{"tpl": "pod:{{namespacedName}}#view@user:{{user.name}}"}],
+     "update": {"deleteByFilter": [{"tpl": "pod:{{namespacedName}}"
+                                           "#$resourceRelation@$subjectType"
+                                           ":$subjectID"}]}},
+]
+DUALWRITE_PAIRS = 8
+DUALWRITE_ORACLE = 64
+CLI_READY_S = 300           # the command's warm start, prewarm included
+CLI_STOP_S = 10             # SIGTERM to exit
 UNDECIDED = '[caveat:within_quota:{"used": 1}]'
 DECIDED = ('[caveat:within_quota:{"used": 1, "quota": 5}]',
            '[caveat:within_quota:{"used": 9, "quota": 5}]')
@@ -4677,7 +4726,8 @@ def proxy_path(w, smi_line: str, device: str = "cuda") -> dict:
                            | {"ns0/pwatch", "ns0/phidden"})
     log(f"phase 16 loopback: {socket}")
     log(f"phase 16 wall time {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches}
+    return {"launches": launches, "proxy": proxy, "kube": kube, "ep": ep,
+            "users": users}
 
 
 def _proxy_socket(proxy, user: str, want: set) -> str:
@@ -4708,6 +4758,516 @@ def _proxy_socket(proxy, user: str, want: set) -> str:
         raise AssertionError(f"loopback list answered {resp.status} with "
                              f"{len(got)} items, want {len(want)}")
     return f"list of {len(got)} items in {secs * 1e3:.3f} ms"
+
+
+# -- phase 17, dual writes and the command line -------------------------------
+
+
+def dualwrite_path(p16: dict, smi_line: str, device: str = "cuda") -> dict:
+    """Phase 17 (a): dual writes on phase 16's `ProxyServer` (its
+    multitenant-1m endpoint and fake kube-apiserver), after
+    `enable_dual_writes()` with a SQLite journal in a temporary directory
+    (what `--workflow-database-path` gives) and DUALWRITE_RULES beside the
+    read rules.  The workflow worker runs, as `ProxyServer.start()` (the
+    served process) starts it, so the instances run one after another as
+    they do there.  The embedded client drives: (1) one pod create a list
+    user of phase 16,
+    all at once, each in a namespace the user may view (the endpoint's
+    lookup, confirmed by the oracle); (2) each user's list of that
+    namespace, which must show the new pod (read after write); (3)
+    DUALWRITE_PAIRS pairs of concurrent creates of one name by two users
+    of its namespace: one 201 and one 409 a pair; (4) one create with
+    `panicKubeWrite` armed once, which converges as in
+    tests/test_dualwrite.py TestCrashMatrix; (5) every new pod deleted
+    (the first-burst ones all at once), and the lists without them.
+    Held: the store's new `creator` tuples equal the fake's new pods and
+    the set asked for, and after the deletes none is left; the journal
+    has no pending instance; a fixed-seed sample of (user, new pod)
+    checks equals the oracle's; `scatter_rows` and every READ_KERNELS
+    kernel launched in the proxy's traffic (counted from zero, the
+    oracle sample's launches taken out).  Logged: each
+    burst's wall and per-request p50/p99/max, the read-after-write
+    lists', the deltas of the endpoint's rebuild, spare-row, quarantine
+    and write-path counters, the lock/workflow/activity tuples left, and
+    the card's memory."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.config import proxyrule
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.rules.engine import MapMatcher
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        CheckRequest, ObjectRef, RelationshipFilter, SubjectRef)
+    from spicedb_kubeapi_proxy_tpu_torch.utils import failpoints
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    proxy, kube, ep, users = (p16["proxy"], p16["kube"], p16["ep"],
+                              p16["users"])
+    rng = np.random.default_rng(SEED + 17)
+    tmp = tempfile.mkdtemp(prefix="smoke-dualwrite-")
+    try:
+        proxy.opts.workflow_database_path = os.path.join(tmp, "wf.db")
+        proxy.enable_dual_writes()
+        journal = proxy.workflow_client.journal
+        proxy.matcher = MapMatcher([proxyrule.parse_doc(d) for d in
+                                    PROXY_READ_RULES + DUALWRITE_RULES])
+        oracle = ep._oracle
+        subjects = [SubjectRef("user", u) for u in users]
+        ns_lists = asyncio.run(ep.lookup_resources_batch(
+            "namespace", "view", subjects))
+        home = []
+        for u, s, ids in zip(users, subjects, ns_lists):
+            if not ids:
+                raise AssertionError(f"{u} may view no namespace")
+            ns = sorted(ids)[int(rng.integers(len(ids)))]
+            if not oracle.check(ObjectRef("namespace", ns), "view", s):
+                raise AssertionError(f"the oracle refuses {u} on {ns}")
+            home.append(ns)
+        by_ns: dict = {}
+        for u, ids in zip(users, ns_lists):
+            for ns in ids:
+                by_ns.setdefault(ns, []).append(u)
+        shared = sorted(ns for ns, us in by_ns.items() if len(us) >= 2)
+        if len(shared) < DUALWRITE_PAIRS:
+            raise AssertionError(f"{len(shared)} namespaces with two list "
+                                 f"users, {DUALWRITE_PAIRS} needed")
+        pairs = [(shared[int(i)], by_ns[shared[int(i)]][:2]) for i in
+                 rng.choice(len(shared), DUALWRITE_PAIRS, replace=False)]
+        stat_keys = ("rebuilds", "bg_rebuilds", "preemptive_rebuilds",
+                     "spare_assignments", "spare_reclaims", "stale_routed",
+                     "delta_batches", "delta_apply_s", "flush_s")
+        stats0 = {k: ep.stats[k] for k in stat_keys}
+
+        def pods_path(ns, name=""):
+            return f"/api/v1/namespaces/{ns}/pods" + (f"/{name}" if name
+                                                      else "")
+
+        async def timed(user, method, target, obj=None):
+            client = proxy.get_embedded_client(user=user)
+            body = json.dumps(obj).encode() if obj is not None else b""
+            t = time.perf_counter()
+            resp = await client.request(method, target, body=body)
+            return resp, time.perf_counter() - t
+
+        def pod_obj(ns, name):
+            return {"apiVersion": "v1", "kind": "Pod",
+                    "metadata": {"name": name, "namespace": ns}}
+
+        def listed(resp) -> set:
+            if resp.status != 200:
+                raise AssertionError(f"list answered {resp.status}: "
+                                     f"{resp.body[:300]!r}")
+            return {i["metadata"]["name"]
+                    for i in json.loads(resp.body)["items"]}
+
+        out: dict = {}
+
+        async def burst(key, calls):
+            t = time.perf_counter()
+            res = await asyncio.gather(*calls)
+            out[key + "_wall"] = time.perf_counter() - t
+            out[key + "_lat"] = [s for _, s in res]
+            return [r for r, _ in res]
+
+        async def traffic():
+            created = {}
+            # (1) one create a user, all at once
+            res = await burst("create", [
+                timed(u, "POST", pods_path(ns), pod_obj(ns, f"dw-{i}"))
+                for i, (u, ns) in enumerate(zip(users, home))])
+            bad = [(u, r.status, r.body[:200]) for u, r in zip(users, res)
+                   if r.status != 201]
+            if bad:
+                raise AssertionError(f"{len(bad)} creates failed: {bad[:3]}")
+            for i, (u, ns) in enumerate(zip(users, home)):
+                created[f"{ns}/dw-{i}"] = u
+            # (2) read after write: each user's list of its namespace
+            res = await burst("raw", [timed(u, "GET", pods_path(ns))
+                                      for u, ns in zip(users, home)])
+            missing = [f"{ns}/dw-{i}" for i, (ns, r) in
+                       enumerate(zip(home, res)) if f"dw-{i}" not in
+                       listed(r)]
+            if missing:
+                raise AssertionError(f"{len(missing)} lists miss their "
+                                     f"user's new pod: {missing[:3]}")
+            # (3) racing creates of one name
+            calls = []
+            for k, (ns, (a, b)) in enumerate(pairs):
+                for u in (a, b):
+                    calls.append(timed(u, "POST", pods_path(ns),
+                                       pod_obj(ns, f"dup-{k}")))
+            res = await burst("pairs", calls)
+            out["pair_status"] = []
+            for k, (ns, (a, b)) in enumerate(pairs):
+                ra, rb = res[2 * k], res[2 * k + 1]
+                st = sorted([ra.status, rb.status])
+                out["pair_status"].append(st)
+                if st != [201, 409]:
+                    raise AssertionError(f"pair {k} on {ns} answered {st}: "
+                                         f"{ra.body[:200]!r} "
+                                         f"{rb.body[:200]!r}")
+                created[f"{ns}/dup-{k}"] = a if ra.status == 201 else b
+            # (4) one create through a crash before the kube write
+            failpoints.enable_failpoint("panicKubeWrite", 1)
+            try:
+                resp, out["crash_s"] = await timed(
+                    users[0], "POST", pods_path(home[0]),
+                    pod_obj(home[0], "crash-0"))
+            finally:
+                failpoints.disable_all()
+            out["crash_status"] = resp.status
+            if resp.status not in (201, 409):
+                raise AssertionError(f"the crashed create answered "
+                                     f"{resp.status}: {resp.body[:300]!r}")
+            created[f"{home[0]}/crash-0"] = users[0]
+            return created
+
+        async def teardown(created):
+            first = [(created[f"{ns}/dw-{i}"], ns, f"dw-{i}")
+                     for i, ns in enumerate(home)]
+            res = await burst("delete", [timed(u, "DELETE",
+                                               pods_path(ns, name))
+                                         for u, ns, name in first])
+            rest = [(u, *nn.split("/")) for nn, u in created.items()
+                    if "/dw-" not in nn]
+            for u, ns, name in rest:
+                r, _ = await timed(u, "DELETE", pods_path(ns, name))
+                res.append(r)
+            bad = [(n, r.status, r.body[:200]) for n, r in
+                   zip(list(created), res) if r.status != 200]
+            if bad:
+                raise AssertionError(f"{len(bad)} deletes failed: "
+                                     f"{bad[:3]}")
+            res = await burst("gone", [timed(u, "GET", pods_path(ns))
+                                       for u, ns in zip(users, home)])
+            stale = [f"{ns}/dw-{i}" for i, (ns, r) in
+                     enumerate(zip(home, res)) if f"dw-{i}" in listed(r)]
+            if stale:
+                raise AssertionError(f"{len(stale)} lists still show a "
+                                     f"deleted pod: {stale[:3]}")
+
+        def new_creators() -> dict:
+            rels = ep.store.read(RelationshipFilter(resource_type="pod",
+                                                    relation="creator"))
+            return {r.resource.id: r.subject.id for r in rels
+                    if r.resource.id.split("/")[-1].startswith(
+                        ("dw-", "dup-", "crash-"))}
+
+        def new_kube_pods() -> set:
+            pods = kube.objects.get(("", "v1", "pods"), {})
+            return {f"{ns}/{name}" for ns, by_name in pods.items()
+                    for name in by_name if name.startswith(
+                        ("dw-", "dup-", "crash-"))}
+
+        def internal_tuples() -> dict:
+            return {t: len(ep.store.read(RelationshipFilter(
+                resource_type=t))) for t in ("lock", "workflow",
+                                             "activity")}
+
+        def sample_requests(created) -> list:
+            # a fixed-seed sample of (user, new pod) checks
+            new_pods = sorted(created)
+            reqs = []
+            for k in range(DUALWRITE_ORACLE):
+                p = new_pods[int(rng.integers(len(new_pods)))]
+                u = created[p] if k % 2 == 0 else users[int(rng.integers(
+                    len(users)))]
+                reqs.append(CheckRequest(ObjectRef("pod", p), "view",
+                                         SubjectRef("user", u)))
+            return reqs
+
+        marks: dict = {}
+
+        async def run():
+            await proxy._worker.start()
+            try:
+                marks["t0"] = time.perf_counter()
+                created = await traffic()
+                marks["t1"] = time.perf_counter()
+                marks["traffic"] = dict(kernels.LAUNCHES)
+                creators = new_creators()
+                if creators != created:
+                    diff = sorted(set(creators.items())
+                                  ^ set(created.items()))
+                    raise AssertionError(
+                        f"the store's new creator tuples ({len(creators)}) "
+                        f"differ from the creates asked for "
+                        f"({len(created)}): {diff[:4]}")
+                if new_kube_pods() != set(created):
+                    raise AssertionError("the fake's new pods differ from "
+                                         "the creates asked for")
+                reqs = sample_requests(created)
+                got = await ep.check_bulk_permissions(reqs)
+                want = [oracle.check(r.resource, r.permission, r.subject)
+                        for r in reqs]
+                if [g.allowed for g in got] != want:
+                    raise AssertionError("a (user, new pod) check differs "
+                                         "from the oracle")
+                marks["internal"] = internal_tuples()
+                marks["sampled"] = dict(kernels.LAUNCHES)
+                marks["t2"] = time.perf_counter()
+                await teardown(created)
+                marks["t3"] = time.perf_counter()
+                marks["teardown"] = dict(kernels.LAUNCHES)
+            finally:
+                await proxy._worker.stop()
+
+        kernels.reset_launches()
+        # the fake's lock binds to the loop of its first contention
+        # (phase 16's bursts); this asyncio.run is a loop of its own
+        kube._lock = asyncio.Lock()
+        asyncio.run(run())
+        t0, t1, t2, t3 = (marks[k] for k in ("t0", "t1", "t2", "t3"))
+        internal = marks["internal"]
+        # the proxy's traffic only: the creates and the deletes, without
+        # the oracle sample between them
+        launches = {k: marks["traffic"].get(k, 0)
+                    + marks["teardown"].get(k, 0) - marks["sampled"].get(k, 0)
+                    for k in REPLACES}
+        left = new_creators()
+        if left or new_kube_pods():
+            raise AssertionError(f"{len(left)} creator tuples and "
+                                 f"{len(new_kube_pods())} pods left after "
+                                 f"the deletes")
+        pending = journal.pending_instances()
+        if pending:
+            raise AssertionError(f"{len(pending)} journal instances pending")
+        idle = [k for k in READ_KERNELS + ("scatter_rows",)
+                if launches[k] == 0]
+        if idle:
+            raise AssertionError(f"kernels never launched in phase 17 (a): "
+                                 f"{idle}")
+        ep.wait_rebuilds()
+        stats1 = {k: ep.stats[k] for k in stat_keys}
+        internal_end = internal_tuples()
+        mem = ((torch.cuda.memory_allocated(),
+                torch.cuda.max_memory_allocated(),
+                torch.cuda.memory_reserved()) if on_card else (0, 0, 0))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def lat(key):
+        xs = out[key + "_lat"]
+        return f"{_pcts(xs)}, max {max(xs) * 1e3:.3f} ms"
+    log(f"phase 17 (a) {len(users)} concurrent creates, the worker running "
+        f"the instances one after another: wall "
+        f"{out['create_wall']:.4f} s; per request {lat('create')} "
+        f"({smi_line})")
+    log(f"phase 17 (a) read after write, {len(users)} concurrent namespace "
+        f"lists: wall {out['raw_wall']:.4f} s; per request {lat('raw')}, "
+        f"every new pod listed ({smi_line})")
+    log(f"phase 17 (a) {DUALWRITE_PAIRS} racing pairs: wall "
+        f"{out['pairs_wall']:.4f} s; statuses {out['pair_status']}; "
+        f"per request {lat('pairs')}; crashed create "
+        f"{out['crash_status']} in {out['crash_s'] * 1e3:.3f} ms")
+    log(f"phase 17 (a) {len(users)} concurrent deletes: wall "
+        f"{out['delete_wall']:.4f} s; per request {lat('delete')}; lists "
+        f"after them: wall {out['gone_wall']:.4f} s, {lat('gone')} "
+        f"({smi_line})")
+    deltas = {k: (round(stats1[k] - stats0[k], 6)
+                  if isinstance(stats1[k], float) else stats1[k] - stats0[k])
+              for k in stat_keys}
+    log(f"phase 17 (a) endpoint counters over the phase: {deltas}; "
+        f"lock/workflow/activity tuples after the creates {internal}, "
+        f"after the deletes {internal_end}; journal {journal.path}")
+    log(f"phase 17 (a) launches: "
+        f"{ {k: v for k, v in launches.items() if v} }; card memory "
+        f"allocated {mem[0] / 2**20:.1f} MiB, peak {mem[1] / 2**20:.1f} "
+        f"MiB, reserved {mem[2] / 2**20:.1f} MiB; creates and lists "
+        f"{t1 - t0:.1f} s, oracle sample and counts {t2 - t1:.1f} s, "
+        f"deletes {t3 - t2:.1f} s")
+    log(f"phase 17 (a) wall time {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_process(smi_line: str, device: str = "cuda") -> None:
+    """Phase 17 (b): `python3 -m spicedb_kubeapi_proxy_tpu_torch` as a
+    process, with no `--spicedb-endpoint` on the card (the default
+    `torch://` is what runs; `torch://?device=cpu` for a CPU rehearsal),
+    in front of the port's fake kube-apiserver served on a loopback
+    socket and reached through a kubeconfig, with deploy/rules.yaml,
+    deploy/bootstrap.yaml and a SQLite journal.  Over loopback with X-Remote-User headers: /readyz;
+    ada lists acme-prod's pods, creates one through pod-launch (201) that
+    the list then shows, deletes it through pod-retire, and it is gone;
+    mallory's list lacks api-1.  SIGTERM must end the process with 0
+    within CLI_STOP_S, no traceback on its stderr, and its serving line
+    must name the card.  Then `entry.entry()` once on the card, equal to
+    its `fn` on the CPU."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch import entry
+    from spicedb_kubeapi_proxy_tpu_torch.kubefake.apiserver import (
+        FakeKubeApiServer)
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.httpcore import (
+        H11Transport, Headers, HttpServer, Request)
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    deploy = os.path.join(root, "deploy")
+    tmp = tempfile.mkdtemp(prefix="smoke-cli-")
+    try:
+        rules = os.path.join(deploy, "rules.yaml")
+        boot = os.path.join(deploy, "bootstrap.yaml")
+        want_device = (torch.cuda.get_device_name(0) if device == "cuda"
+                       else "cpu")
+
+        async def go():
+            kube = FakeKubeApiServer()
+            for ns in ("acme-prod", "initech-dev"):
+                kube.seed("", "v1", "namespaces", {"metadata": {"name": ns}})
+            for ns, name in (("acme-prod", "api-0"), ("acme-prod", "api-1"),
+                             ("initech-dev", "tps-report")):
+                kube.seed("", "v1", "pods", {"metadata": {
+                    "name": name, "namespace": ns}})
+            upstream = HttpServer(kube)
+            kport = await upstream.start("127.0.0.1", 0)
+            kubeconfig = os.path.join(tmp, "kubeconfig")
+            with open(kubeconfig, "w") as f:
+                json.dump({"current-context": "smoke",
+                           "contexts": [{"name": "smoke", "context": {
+                               "cluster": "fake"}}],
+                           "clusters": [{"name": "fake", "cluster": {
+                               "server": f"http://127.0.0.1:{kport}"}}]}, f)
+            port = _free_port()
+            argv = [sys.executable, "-m", "spicedb_kubeapi_proxy_tpu_torch",
+                    "--embedded-mode", "--bind-address", "127.0.0.1",
+                    "--secure-port", str(port), "--backend-kubeconfig",
+                    kubeconfig, "--no-override-upstream", "--rule-config",
+                    rules, "--spicedb-bootstrap", boot,
+                    "--workflow-database-path", os.path.join(tmp, "wf.db"),
+                    "-v", "2"]
+            if device != "cuda":
+                argv += ["--spicedb-endpoint", f"torch://?device={device}"]
+            env = {k: v for k, v in os.environ.items()
+                   if not k.startswith("KUBERNETES_SERVICE")}
+            env["PYTHONPATH"] = root
+            t_start = time.perf_counter()
+            proc = await asyncio.create_subprocess_exec(
+                *argv, cwd=root, env=env, stdout=asyncio.subprocess.PIPE,
+                stderr=asyncio.subprocess.PIPE)
+            client = H11Transport(f"http://127.0.0.1:{port}")
+
+            async def call(method, target, user="ada", obj=None):
+                h = Headers([("X-Remote-User", user),
+                             ("Accept", "application/json")])
+                body = b""
+                if obj is not None:
+                    body = json.dumps(obj).encode()
+                    h.set("Content-Type", "application/json")
+                t = time.perf_counter()
+                resp = await client.round_trip(Request(method, target,
+                                                       headers=h, body=body))
+                return resp, time.perf_counter() - t
+
+            def names(resp) -> list:
+                if resp.status != 200:
+                    raise AssertionError(f"list answered {resp.status}: "
+                                         f"{resp.body[:300]!r}")
+                return sorted(i["metadata"]["name"]
+                              for i in json.loads(resp.body)["items"])
+
+            pods = "/api/v1/namespaces/acme-prod/pods"
+            seen, secs = {}, {}
+            stderr = b""
+            try:
+                while True:
+                    if proc.returncode is not None:
+                        raise AssertionError(
+                            f"the command exited {proc.returncode} before "
+                            f"it served")
+                    if time.perf_counter() - t_start > CLI_READY_S:
+                        raise AssertionError("the command never answered "
+                                             "/readyz")
+                    try:
+                        if (await call("GET", "/readyz"))[0].status == 200:
+                            break
+                    except OSError:
+                        pass
+                    await asyncio.sleep(0.25)
+                secs["ready"] = time.perf_counter() - t_start
+                steps = [
+                    ("list", "GET", pods, "ada", None),
+                    ("create", "POST", pods, "ada", {
+                        "apiVersion": "v1", "kind": "Pod", "metadata": {
+                            "name": "api-9", "namespace": "acme-prod"}}),
+                    ("after_create", "GET", pods, "ada", None),
+                    ("delete", "DELETE", f"{pods}/api-9", "ada", None),
+                    ("after_delete", "GET", pods, "ada", None),
+                    ("mallory", "GET", pods, "mallory", None)]
+                for key, method, target, user, obj in steps:
+                    resp, secs[key] = await call(method, target, user, obj)
+                    seen[key] = (names(resp) if method == "GET"
+                                 else resp.status)
+            finally:
+                if proc.returncode is None:
+                    proc.send_signal(signal.SIGTERM)
+                t_stop = time.perf_counter()
+                try:
+                    _, stderr = await asyncio.wait_for(proc.communicate(),
+                                                       CLI_STOP_S)
+                except asyncio.TimeoutError:
+                    proc.kill()
+                    await proc.wait()
+                    raise AssertionError(f"the command outlived SIGTERM by "
+                                         f"{CLI_STOP_S} s") from None
+                secs["stop"] = time.perf_counter() - t_stop
+                await upstream.stop()
+            return seen, secs, proc.returncode, stderr.decode()
+
+        seen, secs, rc, stderr = asyncio.run(go())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = {"list": ["api-0", "api-1"], "create": 201,
+            "after_create": ["api-0", "api-1", "api-9"], "delete": 200,
+            "after_delete": ["api-0", "api-1"], "mallory": ["api-0"]}
+    serving = [ln for ln in stderr.splitlines() if "serving on" in ln]
+    if seen != want:
+        raise AssertionError(f"the command answered {seen}; stderr tail "
+                             f"{stderr[-2000:]}")
+    if rc != 0 or "Traceback" in stderr:
+        raise AssertionError(f"the command exited {rc}; stderr tail "
+                             f"{stderr[-2000:]}")
+    if not serving or not serving[0].endswith(f" on {want_device}"):
+        raise AssertionError(f"serving line {serving} does not name "
+                             f"{want_device}")
+    log(f"phase 17 (b) {serving[0].split(': ', 1)[-1]}")
+    log(f"phase 17 (b) python -m spicedb_kubeapi_proxy_tpu_torch: ready in "
+        f"{secs['ready']:.2f} s; list {secs['list'] * 1e3:.3f} ms, create "
+        f"{secs['create'] * 1e3:.3f} ms, list {secs['after_create'] * 1e3:.3f}"
+        f" ms, delete {secs['delete'] * 1e3:.3f} ms, list "
+        f"{secs['after_delete'] * 1e3:.3f} ms, mallory "
+        f"{secs['mallory'] * 1e3:.3f} ms; SIGTERM to exit 0 in "
+        f"{secs['stop']:.2f} s ({smi_line})")
+    t0 = time.perf_counter()
+    fn, args = entry.entry(device=None if device == "cuda" else device)
+    got = fn(*args)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cpu_fn, cpu_args = entry.entry(device="cpu")
+    want_out = cpu_fn(*cpu_args).numpy()
+    if not np.array_equal(got.cpu().numpy(), want_out):
+        raise AssertionError("entry() on the card differs from the CPU")
+    log(f"phase 17 (b) entry(): {tuple(got.shape)} {got.dtype} on "
+        f"{got.device} in {(t1 - t0) * 1e3:.1f} ms, equal to the CPU's "
+        f"({int(want_out.sum())} allowed bits)")
+    log(f"phase 17 (b) wall time {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -4875,6 +5435,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     proxy = proxy_path(w, smi_line)
     phase_s["16"] = time.perf_counter() - t_ph
+
+    # 17. dual writes on phase 16's proxy, then the command line as a
+    # process on the card
+    t_ph = time.perf_counter()
+    dual = dualwrite_path(proxy, smi_line)
+    del proxy["proxy"], proxy["ep"], proxy["kube"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s["17a"] = time.perf_counter() - t_ph
+    t_ph = time.perf_counter()
+    cli_process(smi_line)
+    phase_s["17b"] = time.perf_counter() - t_ph
     for kname, r in cav_rows.items():
         if kname in rows:
             # a kernel of both paths: its plane-mode numbers beside the
@@ -4935,6 +5507,9 @@ def main() -> int:
     # phase 16: the proxied requests' launches, counted from zero
     for kname in rows:
         rows[kname]["proxy_launches"] = proxy["launches"].get(kname, 0)
+    # phase 17 (a): the dual writes' launches, counted from zero
+    for kname in rows:
+        rows[kname]["dualwrite_launches"] = dual["launches"].get(kname, 0)
     for kname, also in REPLACES_ALSO.items():
         rows[kname]["replaces_also"] = also
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}"

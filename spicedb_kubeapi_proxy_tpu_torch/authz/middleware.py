@@ -2,10 +2,12 @@
 this package's reference authz/middleware.py).
 
 Per-request orchestration: extract ResolveInput -> match rules -> CEL filter
--> run Checks (concurrent bulk) -> dispatch to the watch filter /
-prefilter+response-filter / post-check / post-filter path.  A request
-whose matched rule carries an update (a dual write) gets the 500 Status
-"update engine not configured": the port has no dual-write engine yet.
+-> run Checks (concurrent bulk) -> dispatch to the update workflow / watch
+filter / prefilter+response-filter / post-check / post-filter path.  A
+request whose matched rule carries an update (a dual write) runs the
+dual-write workflow (authz/update.py) when the server wired a workflow
+client (`ProxyServer.enable_dual_writes`), and gets the 500 Status
+"update engine not configured" when it did not, as in the reference.
 
 Every decision taken here emits a structured audit event (utils/audit.py):
 stage names which gate decided (resolve/match/check/postcheck/update/watch),
@@ -151,6 +153,7 @@ def with_authorization(handler: Handler, failed: Handler,
                        endpoint: PermissionsEndpoint,
                        matcher_ref,  # callable returning the current matcher
                        input_extractor=None,
+                       workflow_client=None,
                        audit: AuditSink = NULL_SINK) -> Handler:
     """Build the authorization handler (reference authz.go:23-197).
 
@@ -251,12 +254,23 @@ def with_authorization(handler: Handler, failed: Handler,
                       rule=update_rule.name,
                       message=f"update rule on non-update verb {info.verb}")
                 return await failed(req)
-            # the dual-write engine is not ported yet: the reference
-            # answers so before enable_dual_writes() wires it
-            return json_response(500, {
-                "kind": "Status", "apiVersion": "v1",
-                "status": "Failure", "code": 500,
-                "message": "update engine not configured"})
+            if workflow_client is None:
+                return json_response(500, {
+                    "kind": "Status", "apiVersion": "v1",
+                    "status": "Failure", "code": 500,
+                    "message": "update engine not configured"})
+            from .update import perform_update
+            try:
+                req.context["authz_outcome"] = OUTCOME_ALLOWED
+                _emit(req, "update", OUTCOME_ALLOWED, rule=update_rule.name)
+                with span("workflow", phase=True):
+                    return await perform_update(update_rule, input, req,
+                                                workflow_client)
+            except Exception as e:
+                req.context["authz_outcome"] = OUTCOME_ERROR
+                _emit(req, "update", OUTCOME_ERROR, rule=update_rule.name,
+                      message=str(e))
+                return forbidden_response(f"failed to perform update: {e}")
 
         if info.verb == "watch":
             try:

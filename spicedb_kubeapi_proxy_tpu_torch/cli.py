@@ -1,0 +1,474 @@
+"""Command-line entry point of the torch port (this package's reference
+cli.py:65-1004, trimmed to what the port serves).
+
+The reference CLI's Complete -> Validate -> NewServer -> Run lifecycle
+(cmd/spicedb-kubeapi-proxy/main.go:20-64, pkg/proxy/options.go) with its
+word-separator normalization (`--rule_config` == `--rule-config`):
+
+    python -m spicedb_kubeapi_proxy_tpu_torch \\
+        --backend-kubeconfig ./backend.yaml \\
+        --rule-config ./rules.yaml \\
+        --spicedb-bootstrap ./bootstrap.yaml \\
+        --secure-port 8443
+
+`--spicedb-endpoint` defaults to `torch://`, which serves on the CUDA
+card and raises where there is none; `torch://?device=cpu` (the
+kernels' plain twins) and `embedded://` (the host evaluator) run on the
+CPU only when asked for.  Any other scheme, a scheme-less `host:port`
+included, is a `validate` error.
+
+Flags of features the port has not ported are not in the parser, so
+argparse refuses them (exit 2), each with the ROADMAP Queue 1 item that
+brings it back: `--decision-cache[-bytes]` (item 6, the decision
+cache); `--flight-window[s]`, `--slo-*`, `--shed-slo-burn` and
+`--device-hbm-peak-gbps` (item 7, device telemetry and the timeline);
+`--fleet-peers` (item 8, distributed serving); `--data-dir`,
+`--wal-fsync`, `--checkpoint-interval`, `--replicate-from` and the
+other replication flags, `--shards`, `--partition-map`, the
+`--shard-leaders` router, and the gRPC connection flags
+`--spicedb-insecure`, `--spicedb-skip-verify-ca`, `--spicedb-token` and
+`--spicedb-ca-path` (item 9: the durable store, replication, sharding
+and the remote endpoint); `--lint-schema[-strict|-json]` (the schema
+linter, not queued).
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import logging
+import signal
+import ssl
+import sys
+from dataclasses import dataclass
+from typing import Optional
+from urllib.parse import urlsplit
+
+from . import __version__
+from .config import proxyrule
+from .proxy import kubeconfig as kubecfg
+from .proxy.authn import (
+    Authenticator,
+    ClientCertAuthenticator,
+    HeaderAuthenticator,
+    OIDCAuthenticator,
+    RequestHeaderAuthenticator,
+    TokenFileAuthenticator)
+from .proxy.httpcore import Transport
+from .proxy.server import Options as ServerOptions, ProxyServer
+from .spicedb.endpoints import Bootstrap
+
+DEFAULT_WORKFLOW_DATABASE_PATH = "/tmp/dtx.sqlite"  # options.go:41
+DEFAULT_ENDPOINT = "torch://"
+ENDPOINT_SCHEMES = ("torch", "embedded")
+
+logger = logging.getLogger("spicedb_kubeapi_proxy_tpu_torch")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="spicedb-kubeapi-proxy-tpu-torch",
+        description="Authorizes Kube api requests against a relationship "
+                    "graph (CUDA-accelerated via the torch:// endpoint).",
+        allow_abbrev=False,
+    )
+    p.add_argument("--version", action="version", version=__version__)
+
+    # SpiceDB endpoint options (reference options.go:106-112)
+    p.add_argument("--spicedb-endpoint", default=DEFAULT_ENDPOINT,
+                   help="endpoint authorizing proxy operations: torch:// "
+                        "(hand-written CUDA kernels on the card; "
+                        "torch://?device=cpu runs their plain twins on "
+                        "the CPU) or embedded:// (in-memory host "
+                        "evaluator)")
+    p.add_argument("--spicedb-bootstrap", default="",
+                   help="YAML file with bootstrap schema/relationships for "
+                        "the endpoint")
+    # batched dispatch (spicedb/dispatch.py; killswitch:
+    # --feature-gates DevicePipeline=false)
+    p.add_argument("--pipeline-depth", type=int, default=2,
+                   help="fused dispatch pipeline depth for torch://: "
+                        "N-1 started batches stay in flight so batch "
+                        "N+1's host encode and kernel launches overlap "
+                        "batch N's readback (1 = fully serial)")
+    p.add_argument("--prewarm-compiles", default=True,
+                   action=argparse.BooleanOptionalAction,
+                   help="at warm start, build the kernel library and "
+                        "capture every lane bucket's sweep graphs, so "
+                        "the first request of each bucket pays none of "
+                        "it (torch:// only; on by default)")
+    # admission control (utils/admission.py; killswitch:
+    # --feature-gates AdmissionControl=false)
+    p.add_argument("--max-queue-depth", type=int, default=0,
+                   help="bound on each dispatcher queue (checks and "
+                        "LookupResources): an enqueue past the bound is "
+                        "rejected with 429 + Retry-After instead of "
+                        "queueing unboundedly; dual-write authorization "
+                        "is exempt (0 = unbounded)")
+    p.add_argument("--shed-queue-depth", type=int, default=0,
+                   help="load-shed threshold: read-only requests are "
+                        "rejected with 429 + Retry-After BEFORE "
+                        "authorization work starts once the dispatcher "
+                        "queues reach this depth (0 = disabled)")
+    p.add_argument("--shed-retry-after", type=float, default=1.0,
+                   help="Retry-After seconds suggested on shed "
+                        "responses")
+
+    # upstream cluster (options.go:203-206)
+    p.add_argument("--backend-kubeconfig", default="",
+                   help="path to the kubeconfig for the upstream apiserver; "
+                        "should authenticate with cluster-admin permission")
+    p.add_argument("--use-in-cluster-config", action="store_true",
+                   help="use the ambient service-account config as upstream")
+    p.add_argument("--override-upstream", action="store_true", default=True,
+                   help="rewrite the kubeconfig server address from the "
+                        "KUBERNETES_SERVICE_HOST/PORT environment")
+    p.add_argument("--no-override-upstream", dest="override_upstream",
+                   action="store_false")
+
+    # rules + workflow (options.go:201-202,207)
+    p.add_argument("--rule-config", default="",
+                   help="path to the proxy rule configuration (multi-doc YAML)")
+    p.add_argument("--workflow-database-path",
+                   default=DEFAULT_WORKFLOW_DATABASE_PATH,
+                   help="SQLite database backing the dual-write workflow "
+                        "engine")
+    p.add_argument("--lock-mode", default=proxyrule.PESSIMISTIC_LOCK_MODE,
+                   choices=[proxyrule.PESSIMISTIC_LOCK_MODE,
+                            proxyrule.OPTIMISTIC_LOCK_MODE],
+                   help="default dual-write locking strategy")
+
+    # serving (SecureServingOptions)
+    p.add_argument("--bind-address", default="0.0.0.0")
+    p.add_argument("--secure-port", type=int, default=443)
+    p.add_argument("--cert-dir", default="apiserver.local.config/certificates",
+                   help="directory for the serving certificate pair; a "
+                        "self-signed pair is generated if none exists")
+    p.add_argument("--tls-cert-file", default="")
+    p.add_argument("--tls-private-key-file", default="")
+    p.add_argument("--embedded-mode", action="store_true",
+                   help="serve plain HTTP with header authentication "
+                        "(X-Remote-User/-Group/-Extra-*); for use behind a "
+                        "trusted front end or for embedding")
+
+    # authentication (reference authn.go:17-53)
+    p.add_argument("--client-ca-file", default="",
+                   help="CA bundle for verifying client certificates "
+                        "(CN -> user, O -> groups)")
+    p.add_argument("--token-auth-file", default="",
+                   help="CSV file of static bearer tokens "
+                        "(token,user,uid,groups)")
+    # front-proxy (request-header) authn (reference authn.go:121-153)
+    p.add_argument("--requestheader-client-ca-file", default="",
+                   help="CA bundle; X-Remote-* identity headers are "
+                        "trusted only from clients whose certificate "
+                        "verifies against it")
+    p.add_argument("--requestheader-allowed-names", default="",
+                   help="comma-separated CNs allowed to front-proxy; "
+                        "empty = any CN under the requestheader CA")
+    p.add_argument("--requestheader-username-headers",
+                   default="X-Remote-User")
+    p.add_argument("--requestheader-group-headers",
+                   default="X-Remote-Group")
+    p.add_argument("--requestheader-extra-headers-prefix",
+                   default="X-Remote-Extra-")
+    # OIDC bearer authn with static JWKS (no egress for discovery)
+    p.add_argument("--oidc-issuer-url", default="")
+    p.add_argument("--oidc-client-id", default="")
+    p.add_argument("--oidc-jwks-file", default="",
+                   help="static JWKS (RFC 7517) file with the issuer's "
+                        "signing keys; required with --oidc-issuer-url")
+    p.add_argument("--oidc-username-claim", default="sub")
+    p.add_argument("--oidc-groups-claim", default="groups")
+    p.add_argument("--oidc-username-prefix", default="")
+
+    # observability
+    p.add_argument("--trace-slow-threshold", type=float, default=0.0,
+                   help="seconds; a request slower than this logs its full "
+                        "trace (per-phase span breakdown) as structured "
+                        "JSON (0 disables the log; traces always feed the "
+                        "phase histograms)")
+    p.add_argument("--audit-level", default="Metadata",
+                   help="decision-audit level: None (off), Metadata "
+                        "(identity + decision), Request (adds relationship "
+                        "strings, caveat context, explain witnesses)")
+    p.add_argument("--audit-sample-every", type=int, default=1,
+                   help="emit 1 of every N ALLOWED decisions per "
+                        "(user, verb); denials and errors always pass")
+    p.add_argument("--audit-explain", action="store_true",
+                   help="attach the relation-path witness to every audited "
+                        "denial (otherwise only requests with ?explain=1 "
+                        "are explained)")
+
+    p.add_argument("-v", "--verbosity", type=int, default=3,
+                   help="log verbosity (reference defaults to 3)")
+    p.add_argument("--feature-gates", default="",
+                   help="comma-separated name=true|false overrides of the "
+                        "port's switches: MeshExecution, "
+                        "CrossRequestBatching, DevicePipeline, "
+                        "AdmissionControl, AsyncRebuild (utils/features.py)")
+    return p
+
+
+@dataclass
+class CompletedConfig:
+    server_options: ServerOptions
+    bind_address: str
+    secure_port: int
+    embedded_mode: bool
+
+
+class OptionsError(ValueError):
+    pass
+
+
+def validate(args: argparse.Namespace) -> list:
+    """Mirror of Options.Validate (reference options.go:412-427)."""
+    errs = []
+    if urlsplit(args.spicedb_endpoint).scheme not in ENDPOINT_SCHEMES:
+        errs.append(f"--spicedb-endpoint {args.spicedb_endpoint!r} is not "
+                    f"served here: use torch:// (the CUDA card; "
+                    f"torch://?device=cpu for the CPU) or embedded://")
+    if not args.backend_kubeconfig and not args.use_in_cluster_config:
+        errs.append("either --backend-kubeconfig or --use-in-cluster-config"
+                    " must be specified")
+    if not args.rule_config:
+        errs.append("--rule-config is required")
+    if not args.embedded_mode and not (0 < args.secure_port < 65536):
+        errs.append(f"--secure-port {args.secure_port} is not a valid port")
+    if args.trace_slow_threshold < 0:
+        errs.append("--trace-slow-threshold must be >= 0")
+    from .utils.audit import parse_level
+    try:
+        parse_level(args.audit_level)
+    except ValueError as e:
+        errs.append(f"--audit-level: {e}")
+    if args.audit_sample_every < 1:
+        errs.append("--audit-sample-every must be >= 1")
+    if args.pipeline_depth < 1:
+        errs.append("--pipeline-depth must be >= 1 (1 = fully serial)")
+    if args.max_queue_depth < 0:
+        errs.append("--max-queue-depth must be >= 0 (0 = unbounded)")
+    if args.shed_queue_depth < 0:
+        errs.append("--shed-queue-depth must be >= 0 (0 = disabled)")
+    if args.shed_retry_after <= 0:
+        errs.append("--shed-retry-after must be > 0")
+    return errs
+
+
+def complete(args: argparse.Namespace,
+             upstream_transport: Optional[Transport] = None) -> CompletedConfig:
+    """Mirror of Options.Complete (reference options.go:213-380): logging,
+    upstream transport, rules, serving certs, authenticators, endpoint."""
+    level = (logging.DEBUG if args.verbosity >= 4
+             else logging.INFO if args.verbosity >= 2 else logging.WARNING)
+    logging.basicConfig(
+        level=level,
+        format="%(asctime)s %(levelname).1s %(name)s: %(message)s")
+
+    if args.feature_gates:
+        from .utils import features
+        try:
+            features.apply_flag(args.feature_gates)
+        except features.FeatureGateError as e:
+            raise OptionsError(f"invalid --feature-gates: {e}") from e
+
+    rule_configs: list = []
+    if args.rule_config:
+        try:
+            with open(args.rule_config, "r", encoding="utf-8") as f:
+                rules_yaml = f.read()
+        except OSError as e:
+            raise OptionsError(f"couldn't load rule config: {e}") from e
+        try:
+            rule_configs = proxyrule.parse(rules_yaml)
+        except Exception as e:
+            raise OptionsError(f"invalid rule config: {e}") from e
+
+    if upstream_transport is None:
+        if args.use_in_cluster_config:
+            ctx = kubecfg.in_cluster_context()
+        elif args.backend_kubeconfig:
+            try:
+                ctx = kubecfg.load_kubeconfig(
+                    args.backend_kubeconfig,
+                    override_upstream=args.override_upstream)
+            except OSError as e:
+                raise OptionsError(
+                    f"couldn't load kubeconfig from path: {e}") from e
+        else:
+            raise OptionsError("no upstream configured")
+        upstream_transport = kubecfg.transport_for(ctx)
+
+    bootstrap = None
+    if args.spicedb_bootstrap:
+        try:
+            bootstrap = Bootstrap.from_file(args.spicedb_bootstrap)
+        except (OSError, ValueError) as e:
+            raise OptionsError(f"couldn't load spicedb bootstrap: {e}") from e
+
+    ssl_context: Optional[ssl.SSLContext] = None
+    authenticators: list[Authenticator] = []
+    if args.embedded_mode:
+        authenticators.append(HeaderAuthenticator())
+    else:
+        cert_file, key_file = args.tls_cert_file, args.tls_private_key_file
+        if bool(cert_file) != bool(key_file):
+            raise OptionsError(
+                "--tls-cert-file and --tls-private-key-file must be"
+                " specified together")
+        if not cert_file:
+            cert_file, key_file = kubecfg.generate_self_signed_cert(
+                args.cert_dir, hosts=[args.bind_address])
+        ssl_context = kubecfg.serving_ssl_context(
+            cert_file, key_file, client_ca_file=args.client_ca_file,
+            extra_client_ca_files=(args.requestheader_client_ca_file,))
+        if args.requestheader_client_ca_file:
+            # requestheader outranks plain client-cert authn, matching the
+            # k8s union authenticator's order
+            try:
+                authenticators.append(RequestHeaderAuthenticator(
+                    args.requestheader_client_ca_file,
+                    allowed_names=tuple(
+                        n for n in
+                        args.requestheader_allowed_names.split(",") if n),
+                    username_headers=tuple(
+                        args.requestheader_username_headers.split(",")),
+                    group_headers=tuple(
+                        args.requestheader_group_headers.split(",")),
+                    extra_prefixes=tuple(
+                        args.requestheader_extra_headers_prefix.split(","))))
+            except (OSError, ValueError) as e:
+                raise OptionsError(
+                    f"couldn't load requestheader CA: {e}") from e
+        if args.client_ca_file:
+            authenticators.append(ClientCertAuthenticator())
+    if args.oidc_issuer_url:
+        if not args.oidc_jwks_file:
+            raise OptionsError(
+                "--oidc-jwks-file is required with --oidc-issuer-url "
+                "(no egress for issuer discovery)")
+        try:
+            authenticators.append(OIDCAuthenticator(
+                args.oidc_issuer_url, args.oidc_client_id,
+                args.oidc_jwks_file,
+                username_claim=args.oidc_username_claim,
+                groups_claim=args.oidc_groups_claim,
+                username_prefix=args.oidc_username_prefix))
+        except (OSError, ValueError) as e:
+            raise OptionsError(f"couldn't load OIDC JWKS: {e}") from e
+    if args.token_auth_file:
+        try:
+            authenticators.append(TokenFileAuthenticator(args.token_auth_file))
+        except OSError as e:
+            raise OptionsError(f"couldn't load token auth file: {e}") from e
+    if not authenticators:
+        # serving mode with no explicit authn: accept client certs if the
+        # handshake produced one (self-signed default trusts none)
+        authenticators.append(ClientCertAuthenticator())
+
+    # the dispatcher's pipeline depth and queue bound; a URL parameter
+    # (`torch://?pipeline_depth=N`) still overrides inside create_endpoint
+    endpoint_kwargs = {"pipeline_depth": args.pipeline_depth,
+                       "max_queue_depth": args.max_queue_depth}
+
+    server_options = ServerOptions(
+        spicedb_endpoint=args.spicedb_endpoint,
+        bootstrap=bootstrap,
+        rule_configs=rule_configs,
+        upstream_transport=upstream_transport,
+        authenticators=authenticators,
+        workflow_database_path=args.workflow_database_path,
+        lock_mode_default=args.lock_mode,
+        ssl_context=ssl_context,
+        endpoint_kwargs=endpoint_kwargs,
+        trace_slow_threshold=args.trace_slow_threshold,
+        audit_level=args.audit_level,
+        audit_sample_every=args.audit_sample_every,
+        audit_explain=args.audit_explain,
+        prewarm_compiles=args.prewarm_compiles,
+        shed_queue_depth=args.shed_queue_depth,
+        shed_retry_after_s=args.shed_retry_after,
+    )
+    return CompletedConfig(server_options=server_options,
+                           bind_address=args.bind_address,
+                           secure_port=args.secure_port,
+                           embedded_mode=args.embedded_mode)
+
+
+def endpoint_device(endpoint) -> str:
+    """What the endpoint computes on: the card's name for a `torch://`
+    endpoint on CUDA, else `cpu` (the twins, or the host evaluator)."""
+    ep = endpoint
+    while ep is not None and getattr(ep, "device", None) is None:
+        ep = getattr(ep, "inner", None)
+    device = getattr(ep, "device", None)
+    if device is None or device.type != "cuda":
+        return "cpu"
+    import torch
+    return torch.cuda.get_device_name(device)
+
+
+async def run_server(completed: CompletedConfig) -> None:
+    """Server.Run equivalent (reference server.go:170-208): serve until
+    SIGINT/SIGTERM."""
+    server = ProxyServer(completed.server_options)
+    server.enable_dual_writes()
+    port = await server.start(completed.bind_address, completed.secure_port)
+    scheme = "http" if completed.embedded_mode else "https"
+    logger.info("serving on %s://%s:%d; endpoint %s on %s", scheme,
+                completed.bind_address, port,
+                completed.server_options.spicedb_endpoint,
+                endpoint_device(server.endpoint))
+
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        try:
+            loop.add_signal_handler(sig, stop.set)
+        except NotImplementedError:  # non-unix
+            pass
+    try:
+        await stop.wait()
+    finally:
+        await server.stop()
+
+
+def _normalize_argv(argv: list) -> list:
+    """pflag word-separator normalization (reference main.go:23): underscores
+    in flag names are equivalent to dashes."""
+    out = []
+    for a in argv:
+        if a.startswith("--") and "=" in a:
+            name, _, val = a.partition("=")
+            out.append(name.replace("_", "-") + "=" + val)
+        elif a.startswith("--"):
+            out.append(a.replace("_", "-"))
+        else:
+            out.append(a)
+    return out
+
+
+def main(argv: Optional[list] = None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(_normalize_argv(
+        list(sys.argv[1:] if argv is None else argv)))
+    errs = validate(args)
+    if errs:
+        for e in errs:
+            print(f"error: {e}", file=sys.stderr)
+        return 2
+    try:
+        completed = complete(args)
+    except OptionsError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    try:
+        asyncio.run(run_server(completed))
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

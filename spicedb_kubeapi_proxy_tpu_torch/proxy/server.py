@@ -12,15 +12,18 @@ transport (reference server.go:282-403 and pkg/inmemory).
 
 `ProxyServer(Options(spicedb_endpoint="torch://"))` serves on the CUDA
 card through the batched `torch://` endpoint; `torch://?device=cpu` runs
-the kernels' plain twins on the CPU.  Left out against the reference,
-each with its `Options` fields (passing one is a TypeError): dual writes
-(`enable_dual_writes`, `workflow_database_path`, `lock_mode_default`; an
-update rule answers 500 "update engine not configured"), the durable
-store (`data_dir`, `wal_fsync`, `checkpoint_interval`), replication and
-sharding (`replicate_from` ... `replica_id`, `shards`,
-`partition_map`), fleet tracing (`fleet_peers`), device telemetry and
-the flight recorder (`flight_*`, `slo_*`, `device_hbm_peak_gbps`,
-`shed_slo_burn`) and the /debug surfaces.
+the kernels' plain twins on the CPU.  `enable_dual_writes()` wires the
+dual-write workflow engine (authz/distributedtx, a SQLite journal at
+`workflow_database_path` or an in-memory one for "") into the chain, so
+Update rules write through it; without it an update rule answers 500
+"update engine not configured", as in the reference.  Left out against
+the reference, each with its `Options` fields (passing one is a
+TypeError): the durable store (`data_dir`, `wal_fsync`,
+`checkpoint_interval`), replication and sharding (`replicate_from` ...
+`replica_id`, `shards`, `partition_map`), fleet tracing
+(`fleet_peers`), device telemetry and the flight recorder (`flight_*`,
+`slo_*`, `device_hbm_peak_gbps`, `shed_slo_burn`) and the /debug
+surfaces.
 """
 
 from __future__ import annotations
@@ -165,6 +168,10 @@ class Options:
     # endpoint's max_queue_depth (a URL parameter or endpoint kwarg).
     shed_queue_depth: int = 0
     shed_retry_after_s: float = 1.0
+    # dual writes (enable_dual_writes): the workflow journal, "" for an
+    # in-memory one, and the lock mode of rules that name none
+    workflow_database_path: str = ""
+    lock_mode_default: str = proxyrule.PESSIMISTIC_LOCK_MODE
 
 
 class ProxyServer:
@@ -194,6 +201,8 @@ class ProxyServer:
         # swap rule sets at runtime through the *Matcher pointer)
         self.matcher = MapMatcher(configs)
         self.rest_mapper = CachingRESTMapper(opts.upstream_transport)
+        self.workflow_client = None  # wired by enable_dual_writes()
+        self._worker = None
         self.authenticator: Authenticator = AuthenticatorChain(
             opts.authenticators if opts.authenticators is not None
             else [HeaderAuthenticator(), ClientCertAuthenticator()])
@@ -234,6 +243,17 @@ class ProxyServer:
         self._http: Optional[HttpServer] = None
         self._lag_probe = None
 
+    def enable_dual_writes(self) -> None:
+        """Wire the dual-write workflow engine into the chain (reference
+        server.py:582-589); `start()` starts its worker."""
+        from ..authz.distributedtx.client import setup_workflow_engine
+        self.workflow_client, self._worker = setup_workflow_engine(
+            self.endpoint, self.opts.upstream_transport,
+            self.opts.workflow_database_path,
+            default_lock_mode=self.opts.lock_mode_default,
+            audit=self.audit)
+        self.handler = self._build_chain()
+
     # -- chain ---------------------------------------------------------------
 
     def _build_chain(self) -> Handler:
@@ -245,6 +265,7 @@ class ProxyServer:
         authorized = with_authorization(
             cluster_proxy, failed, self.rest_mapper, self.endpoint,
             matcher_ref=lambda: self.matcher,
+            workflow_client=self.workflow_client,
             audit=self.audit)
 
         async def authenticated(req: Request) -> Response:
@@ -439,6 +460,10 @@ class ProxyServer:
             await self.warm_start()
         self._http = HttpServer(self.handler, ssl_context=self.opts.ssl_context)
         bound = await self._http.start(host, port)
+        if self._worker is not None:
+            # the worker's first drain replays dual-write instances left
+            # pending by a crash
+            await self._worker.start()
         # audit writer + runtime self-metrics ride the serving lifecycle;
         # embedded (handler-only) use still audits through the ring
         # buffer — only the JSON-line writer needs the loop task
@@ -456,6 +481,8 @@ class ProxyServer:
         if self._http is not None:
             await self._http.stop()
             self._http = None
+        if self._worker is not None:
+            await self._worker.stop()
         if self._lag_probe is not None:
             await self._lag_probe.stop()
         await self.audit.stop()

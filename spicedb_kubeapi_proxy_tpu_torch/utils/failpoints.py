@@ -6,8 +6,13 @@ crash at the site).  The port's sites are the dispatcher's drain loop
 (`dispatchDrain`, `dispatchDrainBeforeFinish`, spicedb/dispatch.py) and
 the start of a candidate generation's build (`rebuildExecutor`,
 ops/torch_endpoint.py `_build_candidate`; a background rebuild that
-crashes there leaves the old generation serving).  The
-disarmed fast path is one module-global bool read.
+crashes there leaves the old generation serving), and the six
+dual-write activity sites of authz/distributedtx/activity.py, where the
+reference's activities call them: `panicWriteSpiceDB`,
+`panicSpiceDBWriteResp`, `panicReadSpiceDB`, `panicSpiceDBReadResp`,
+`panicKubeWrite` and `panicKubeReadResp` (the workflow engine replays
+an instance that crashes there from its journal).  The disarmed fast
+path is one module-global bool read.
 """
 
 from __future__ import annotations

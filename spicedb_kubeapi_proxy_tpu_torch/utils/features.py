@@ -23,6 +23,10 @@
   spare pool under its low watermark rebuilds there before it runs dry.
   Off, such a delta rebuilds synchronously under the endpoint lock, as
   before.  Read at each use; a missing switch reads as off.
+
+`apply_flag` sets them from the CLI's `--feature-gates name=true|false`
+under the reference's gate names (`GATE_SWITCHES`); any other name is
+refused, as the reference refuses a gate it does not know.
 """
 
 MESH_EXECUTION = True
@@ -35,3 +39,37 @@ ASYNC_REBUILD = True
 def pipeline_enabled() -> bool:
     """The DevicePipeline switch, read at each drain."""
     return DEVICE_PIPELINE
+
+
+# the reference's gate name of each switch (utils/features.py there)
+GATE_SWITCHES = {
+    "MeshExecution": "MESH_EXECUTION",
+    "CrossRequestBatching": "CROSS_REQUEST_BATCHING",
+    "DevicePipeline": "DEVICE_PIPELINE",
+    "AdmissionControl": "ADMISSION_CONTROL",
+    "AsyncRebuild": "ASYNC_REBUILD",
+}
+
+
+class FeatureGateError(ValueError):
+    pass
+
+
+def apply_flag(spec: str) -> None:
+    """Set switches from a `name=true,name2=false` value (the reference's
+    component-base syntax; a bare name means true).  Nothing is set when
+    any part is refused."""
+    values = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, _, raw = part.partition("=")
+        name, raw = name.strip(), raw.strip().lower() or "true"
+        if name not in GATE_SWITCHES:
+            raise FeatureGateError(f"unknown feature gate {name!r}")
+        if raw not in ("true", "false"):
+            raise FeatureGateError(
+                f"invalid feature gate value {part!r}: want name=true|false")
+        values[GATE_SWITCHES[name]] = raw == "true"
+    globals().update(values)

@@ -279,3 +279,120 @@ def test_proxy_serves_without_h11_yaml_or_cryptography():
             "spicedb_kubeapi_proxy_tpu_torch.kubefake.apiserver",
             "spicedb_kubeapi_proxy_tpu_torch.ops.torch_endpoint"} <= \
         set(res["modules"])
+
+
+# -- the dual-write and command-line modules ---------------------------------
+
+NEW_MODULES = [
+    "spicedb_kubeapi_proxy_tpu_torch.authz.distributedtx",
+    "spicedb_kubeapi_proxy_tpu_torch.authz.distributedtx.journal",
+    "spicedb_kubeapi_proxy_tpu_torch.authz.distributedtx.engine",
+    "spicedb_kubeapi_proxy_tpu_torch.authz.distributedtx.workflow",
+    "spicedb_kubeapi_proxy_tpu_torch.authz.distributedtx.activity",
+    "spicedb_kubeapi_proxy_tpu_torch.authz.distributedtx.client",
+    "spicedb_kubeapi_proxy_tpu_torch.authz.update",
+    "spicedb_kubeapi_proxy_tpu_torch.proxy.kubeconfig",
+    "spicedb_kubeapi_proxy_tpu_torch.cli",
+    "spicedb_kubeapi_proxy_tpu_torch.__main__",
+    "spicedb_kubeapi_proxy_tpu_torch.entry",
+]
+
+_BLOCK = ("import sys\n"
+          "for name in ('jax', 'h11', 'yaml', 'cryptography'):\n"
+          "    sys.modules[name] = None   # importing any of them raises\n")
+
+_PROBE_NEW = _BLOCK + r"""
+import importlib, json
+mods = json.loads(sys.argv[1])
+for m in mods:
+    if m.endswith("__main__"):
+        continue   # runs main() only as a script
+    importlib.import_module(m)
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None)
+print(json.dumps(loaded))
+"""
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_new_module_imports_nothing_forbidden(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = ROOT / module.replace(".", "/") / "__init__.py"
+    assert path.exists(), module
+    bad = [m for m in _imports(path) if _is_forbidden(m)]
+    assert bad == [], f"{module} imports {bad}"
+
+
+def test_new_modules_load_with_jax_h11_yaml_and_cryptography_blocked():
+    out = subprocess.run([sys.executable, "-c", _PROBE_NEW,
+                          json.dumps(NEW_MODULES)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert not [m for m in loaded if _is_forbidden(m)]
+    main = "spicedb_kubeapi_proxy_tpu_torch.__main__"
+    assert set(NEW_MODULES) - {main} <= set(loaded)
+
+
+def test_module_help_runs_with_jax_h11_yaml_and_cryptography_blocked():
+    probe = _BLOCK + (
+        "import runpy\n"
+        "sys.argv = ['spicedb_kubeapi_proxy_tpu_torch', '--help']\n"
+        "runpy.run_module('spicedb_kubeapi_proxy_tpu_torch',"
+        " run_name='__main__')\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--spicedb-endpoint" in out.stdout
+    assert "--workflow-database-path" in out.stdout
+
+
+_PROBE_DUALWRITE = _BLOCK + r"""
+import asyncio, json
+from spicedb_kubeapi_proxy_tpu_torch.config import proxyrule
+from spicedb_kubeapi_proxy_tpu_torch.kubefake.apiserver import (
+    FakeKubeApiServer)
+from spicedb_kubeapi_proxy_tpu_torch.proxy.httpcore import HandlerTransport
+from spicedb_kubeapi_proxy_tpu_torch.proxy.server import Options, ProxyServer
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import Bootstrap
+rules = [proxyrule.parse_doc({
+    "apiVersion": "authzed.com/v1alpha1", "kind": "ProxyRule",
+    "metadata": {"name": "pod-launch"}, "lock": "Optimistic",
+    "match": [{"apiVersion": "v1", "resource": "pods", "verbs": ["create"]}],
+    "update": {"creates": [
+        {"tpl": "pod:{{namespacedName}}#creator@user:{{user.name}}"}]}})]
+kube = FakeKubeApiServer()
+proxy = ProxyServer(Options(
+    spicedb_endpoint="torch://?device=cpu", rule_configs=rules,
+    bootstrap=Bootstrap.from_mapping({"schema":
+        "definition user {}\ndefinition pod { relation creator: user\n"
+        "permission view = creator }"}),
+    upstream_transport=HandlerTransport(kube)))
+proxy.enable_dual_writes()
+
+async def go():
+    resp = await proxy.get_embedded_client(user="ann").post(
+        "/api/v1/namespaces/ns/pods",
+        {"metadata": {"name": "p0", "namespace": "ns"}})
+    return resp.status
+
+status = asyncio.run(go())
+rels = sorted(r.rel_string() for r in proxy.endpoint.store.read(None)
+              if r.resource.type == "pod")
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None)
+print(json.dumps({"status": status, "rels": rels, "modules": loaded}))
+"""
+
+
+def test_dual_write_serves_with_jax_h11_yaml_and_cryptography_blocked():
+    """A rule and a bootstrap given as mappings load without yaml, and a
+    dual-write create lands through the port's workflow engine."""
+    out = subprocess.run([sys.executable, "-c", _PROBE_DUALWRITE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["status"] == 201
+    assert res["rels"] == ["pod:ns/p0#creator@user:ann"]
+    assert not [m for m in res["modules"] if _is_forbidden(m)]
+    assert ("spicedb_kubeapi_proxy_tpu_torch.authz.distributedtx.engine"
+            in res["modules"])

@@ -1332,3 +1332,24 @@ def test_card_memory_returns_after_the_swap():
     # the prewarmed candidate took about one generation more; it came back
     assert peak - m0 > 0
     assert m1 - m0 < 0.25 * (peak - m0), (m0, peak, m1)
+
+
+# -- entry.py (the counterpart of __graft_entry__.py) on the card -------------
+
+@pytest.mark.cuda
+def test_entry_on_the_card_equals_the_cpu():
+    _needs_card()
+    from spicedb_kubeapi_proxy_tpu_torch import entry
+    fn, args = entry.entry()
+    assert all(a.device.type == "cuda" for a in args)
+    cpu_fn, cpu_args = entry.entry(device="cpu")
+    np.testing.assert_array_equal(fn(*args).cpu().numpy(),
+                                  cpu_fn(*cpu_args).numpy())
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_the_cards():
+    _needs_card()
+    from spicedb_kubeapi_proxy_tpu_torch import entry
+    out = entry.dryrun_multichip(4)
+    assert all(d.startswith("cuda") for d in out["devices"])
