@@ -191,8 +191,39 @@ put down to the card or to the host.
    line naming the card; then `entry.entry()` on the card equal to the
    CPU's.
 
-Phases run in the order 1-9, 11, 13a-b, 14, 15, 10, 13c, 12, 13d, 16, 17, and
-each phase's seconds are logged.  Any failed phase raises and the script
+18. the decision cache and device telemetry, between 17 (a) and (b), on
+   phase 16's store and fake apiserver: a second `ProxyServer` over
+   `torch://?cache=1` (the cache above the batched dispatcher).  (a) The
+   256 concurrent lists of phase 16 twice: the first all misses, the
+   second all hits with no kernel launched, both bursts' lists equal to
+   each other and, for phase 16's oracle sample, to the oracle over the
+   fake's pods.  (b) A `workflow:` tuple that expires 1.5 s later leaves
+   every list entry valid; its own check is a hit until the store clock
+   passes the expiry, then a miss answering NO; a namespace grant makes
+   its user's next list miss and answer the new set.  (c) The HBM
+   ledger's bytes lie between the graph tables' storage and
+   `torch.cuda.memory_allocated()`; after `force_rebuild()` the
+   outgoing generation's rows read 0.  (d) The cold burst's
+   kernel.device seconds of `authz_kernel_time_seconds` (its batches'
+   seeds and sweeps on the card) agree within 10 % with the smoke's own
+   CUDA events, recorded inside the seed and sweep graphs that the
+   phase's endpoint captured and read after each replay of the burst
+   (none of the burst's sweeps may run outside a graph), and the
+   workload plane's measured sweep depth of pod#view is the trace's.
+   (e) The timeline's roofline fraction over the burst lies in (0, 1]
+   against the card's 3,350 GB/s, and its chrome trace holds
+   device-track slices.  (f) `/debug/flight`, `/debug/timeline`,
+   `/debug/workload` and `/debug/profile?seconds=1` answer 200 through
+   the proxy and 401 without a user.  Logged: each burst's wall and the
+   proxy's own time, the cache's counters and bytes, the ledger against
+   `memory_allocated`, and phase 16's burst twice more on its proxy, with
+   the DEVICE_TELEMETRY, TIMELINE and KERNEL_INTROSPECT switches on and
+   then off (the telemetry's cost, reported, not enforced; phase 14
+   times its (a) burst on the batched and the direct endpoint the same
+   way, interleaved five times).
+
+Phases run in the order 1-9, 11, 13a-b, 14, 15, 10, 13c, 12, 13d, 16, 17a,
+18, 17b, and each phase's seconds are logged.  Any failed phase raises and the script
 exits non-zero.  The second-to-last line is the kernel table as JSON,
 the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -215,7 +246,7 @@ SEED = 20261017
 N_WARM = 5              # warm batches per verb (medians over these)
 LOOKUP_LANES = 256      # concurrent list subjects per lookup batch
 N_CHECKS = 10_000       # (pod, subject) pairs per check batch
-ORACLE_LOOKUPS = 4
+ORACLE_LOOKUPS = 1       # full oracle lookups of phase 7 (~60 s each)
 ORACLE_CHECKS = 2_000
 REPS = 10               # timing repetitions per kernel measurement
 ATTR_CALLS = 50         # calls per device-only / host-cost measurement
@@ -334,6 +365,9 @@ DUALWRITE_RULES = [
                                            "#$resourceRelation@$subjectType"
                                            ":$subjectID"}]}},
 ]
+# phase 18, the decision cache and device telemetry on phase 16's store
+CACHE_EXPIRY_S = 1.5        # lifetime of (b)'s expiring workflow tuple
+KERNEL_TIME_TOL = 0.10      # (d): accounted kernel.device s vs own events
 DUALWRITE_PAIRS = 8
 DUALWRITE_ORACLE = 64
 CLI_READY_S = 300           # the command's warm start, prewarm included
@@ -3873,6 +3907,35 @@ def batched_dispatch(ep, w, smi_line: str, device: str = "cuda") -> dict:
             + f"; fused batches {[r['fused'] for r in rs]}, kernel calls "
             f"{[r['calls'] for r in rs]}; {smi_line}")
 
+    # the telemetry's cost: (a) on the batched (depth 2) and the direct
+    # endpoint with the DeviceTelemetry, Timeline and KernelIntrospect
+    # switches on and off, interleaved per repeat
+    from spicedb_kubeapi_proxy_tpu_torch.utils import features
+    switches = ("DEVICE_TELEMETRY", "TIMELINE", "KERNEL_INTROSPECT")
+    saved = {k: getattr(features, k) for k in switches}
+    tel = {(m, on): [] for m in ("depth 2", "direct") for on in (1, 0)}
+    try:
+        for _ in range(DISPATCH_REPEATS):
+            for m in ("depth 2", "direct"):
+                for on in (1, 0):
+                    for k in switches:
+                        setattr(features, k, bool(on))
+                    res, _, wall = _concurrent(calls_a(modes[m]))
+                    agree([list(x) for x in res], None,
+                          f"telemetry {m} {'on' if on else 'off'}")
+                    tel[(m, on)].append(wall)
+    finally:
+        for k, v in saved.items():
+            setattr(features, k, v)
+    for m in ("depth 2", "direct"):
+        on, off = (statistics.median(tel[(m, x)]) for x in (1, 0))
+        log(f"dispatch telemetry cost, {m} (a): median wall {on:.4f} s with "
+            f"the three switches on, {off:.4f} s off ({(on / off - 1) * 100:+.2f} "
+            f"%); on {', '.join(f'{t:.4f}' for t in tel[(m, 1)])}; off "
+            f"{', '.join(f'{t:.4f}' for t in tel[(m, 0)])}; {smi_line}")
+    summary["telemetry"] = {f"{m} {'on' if x else 'off'}": v
+                            for (m, x), v in tel.items()}
+
     # (d) batches started before a churn round finish on their snapshot
     ops = {"touch": UpdateOp.TOUCH, "delete": UpdateOp.DELETE}
     rnd = _churn_plan(w, 1, SEED + 14, tag="d")[0]
@@ -4652,7 +4715,9 @@ def proxy_path(w, smi_line: str, device: str = "cuda") -> dict:
                                  f"lookup ({len(got)} vs {len(want)})")
     oracle = ep._oracle
     t5 = time.perf_counter()
-    for i in rng.choice(len(users), PROXY_ORACLE_USERS, replace=False):
+    oracle_users = [int(i) for i in rng.choice(len(users), PROXY_ORACLE_USERS,
+                                               replace=False)]
+    for i in oracle_users:
         want = _oracle_pods(oracle, seeded, subjects[i])
         if out["a_lists"][i] != want:
             raise AssertionError(f"{users[i]}'s list differs from the "
@@ -4727,7 +4792,8 @@ def proxy_path(w, smi_line: str, device: str = "cuda") -> dict:
     log(f"phase 16 loopback: {socket}")
     log(f"phase 16 wall time {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "proxy": proxy, "kube": kube, "ep": ep,
-            "users": users}
+            "users": users, "a_wall": out["a_wall"],
+            "oracle_users": oracle_users}
 
 
 def _proxy_socket(proxy, user: str, want: set) -> str:
@@ -5270,6 +5336,417 @@ def cli_process(smi_line: str, device: str = "cuda") -> None:
     log(f"phase 17 (b) wall time {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 18, the decision cache and device telemetry -------------------------
+
+
+def _list_burst(proxy, kube, users: list) -> tuple:
+    """One concurrent `GET /api/v1/pods` per user through `proxy`'s
+    embedded client, on a fresh event loop: (wall seconds, per-request
+    proxy's own time — request less upstream —, each user's pod set)."""
+    from spicedb_kubeapi_proxy_tpu_torch.utils import tracing
+
+    async def one(user):
+        resp = await proxy.get_embedded_client(user=user).get("/api/v1/pods")
+        if resp.status != 200:
+            raise AssertionError(f"{user}'s list answered {resp.status}: "
+                                 f"{resp.body[:300]!r}")
+        return resp
+
+    async def go():
+        # the fake's lock binds to the loop of its first contended use
+        kube._lock = asyncio.Lock()
+        recorder = tracing.RECORDER
+        tracing.RECORDER = tracing.SlowTraceRecorder(capacity=2 * len(users))
+        try:
+            t = time.perf_counter()
+            res = await asyncio.gather(*(one(u) for u in users))
+            wall = time.perf_counter() - t
+            traces = {tr["trace_id"]: tr
+                      for tr in tracing.RECORDER.snapshot()}
+        finally:
+            tracing.RECORDER = recorder
+        own = []
+        for r in res:
+            tr = traces[r.headers.get(tracing.TRACE_ID_HEADER)]
+            up = sum(sp["duration_ms"] for sp in tr["spans"]
+                     if sp["name"] == "upstream") / 1e3
+            own.append(tr["duration_ms"] / 1e3 - up)
+        lists = [{f"{i['metadata']['namespace']}/{i['metadata']['name']}"
+                  for i in json.loads(r.body)["items"]} for r in res]
+        return wall, own, lists
+
+    return asyncio.run(go())
+
+
+class _OwnGraphMarks:
+    """The smoke's own timing events inside every CUDA graph captured while
+    it is installed (`kernels.LaunchGraph`), read after each replay that
+    the endpoint reports complete (`kernels.note_replay`, right after the
+    sweep's readback) while `on` is set: the device seconds of each seed
+    and sweep replayed, from events the endpoint's window never sees.
+    Each of the pair is recorded one node after the graph's own mark (its
+    start after the graph's start, its end after the graph's end), so
+    each pair spans one node of the other: an event node costs the card
+    microseconds, and nested pairs would put two of them in the outer
+    one.  `uninstall()` restores both functions."""
+
+    def __init__(self):
+        import torch
+
+        from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+        self.kernels = kernels
+        self.on = False
+        self.spans: list = []
+        self._capture = capture = kernels.LaunchGraph.capture
+        self._note = note = kernels.note_replay
+
+        def own_capture(graph, fn):
+            marks = tuple(torch.cuda.Event(enable_timing=True, external=True)
+                          for _ in range(2))
+            for ev in marks:
+                ev.record()
+
+            def marked():
+                marks[0].record()
+                return fn()
+
+            cg = graph.graph
+
+            def end():
+                marks[1].record()
+                type(cg).capture_end(cg)
+
+            cg.capture_end = end
+            try:
+                out = capture(graph, marked)
+            finally:
+                del cg.capture_end
+            graph.smoke_marks = marks
+            return out
+
+        def own_note(graph):
+            note(graph)
+            marks = getattr(graph, "smoke_marks", None)
+            if self.on and marks is not None:
+                self.spans.append(marks[0].elapsed_time(marks[1]) / 1e3)
+
+        kernels.LaunchGraph.capture = own_capture
+        kernels.note_replay = own_note
+
+    def uninstall(self) -> None:
+        self.kernels.LaunchGraph.capture = self._capture
+        self.kernels.note_replay = self._note
+
+
+def cache_telemetry_path(p16: dict, w, smi_line: str,
+                         device: str = "cuda") -> dict:
+    """Phase 18: the decision cache and device telemetry on phase 16's
+    store and fake apiserver (see the module docstring)."""
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    _switch(True)
+    kube, users = p16["kube"], p16["users"]
+    p16["ep"].wait_rebuilds()
+    # (d)'s own events go into the graphs that this phase's endpoint
+    # captures from here on
+    marks = _OwnGraphMarks() if on_card else None
+    try:
+        return _cache_telemetry(p16, w, smi_line, device, t_phase, kube,
+                                users, marks)
+    finally:
+        if marks is not None:
+            marks.uninstall()
+
+
+def _cache_telemetry(p16: dict, w, smi_line: str, device: str,
+                     t_phase: float, kube, users: list, marks) -> dict:
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.config import proxyrule
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.ops.torch_endpoint import (
+        TorchEndpoint)
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.httpcore import (
+        HandlerTransport)
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.server import (
+        Options, ProxyServer)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.decision_cache import (
+        DecisionCacheEndpoint)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import Bootstrap
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        CheckRequest, ObjectRef, Permissionship, Relationship,
+        RelationshipUpdate, SubjectRef, UpdateOp)
+    from spicedb_kubeapi_proxy_tpu_torch.utils import (
+        devtel, features, timeline, workload)
+    from spicedb_kubeapi_proxy_tpu_torch.utils.metrics import REGISTRY
+
+    on_card = device == "cuda"
+    rules = [proxyrule.parse_doc(d) for d in PROXY_READ_RULES]
+    url = ("torch://?cache=1" if on_card
+           else f"torch://?device={device}&cache=1")
+    t0 = time.perf_counter()
+    # the card's rate is detected from its name; the CPU rehearsal names
+    # the H100's so that (e) has a denominator
+    proxy = ProxyServer(Options(
+        spicedb_endpoint=url, rule_configs=rules,
+        bootstrap=Bootstrap(w.schema_text, ""),
+        upstream_transport=HandlerTransport(kube), prewarm_compiles=True,
+        endpoint_kwargs={"store": p16["ep"].store},
+        device_hbm_peak_gbps=0.0 if on_card else 3350.0))
+    asyncio.run(proxy.warm_start())
+    t1 = time.perf_counter()
+    chain, ep, cached = [], proxy.endpoint, None
+    while ep is not None:
+        chain.append(type(ep).__name__)
+        if isinstance(ep, DecisionCacheEndpoint):
+            cached = ep
+        if isinstance(ep, TorchEndpoint):
+            break
+        ep = getattr(ep, "inner", None)
+    if chain != ["InstrumentedEndpoint", "DecisionCacheEndpoint",
+                 "BatchingEndpoint", "TorchEndpoint"]:
+        raise AssertionError(f"phase 18 endpoint chain {chain}")
+    cache = cached.cache
+    log(f"phase 18: ProxyServer({url!r}) over phase 16's store "
+        f"(revision {ep.store.revision}) warm-started with prewarm in "
+        f"{t1 - t0:.3f} s; chain {' > '.join(chain)}")
+
+    pods_key = ("", "v1", "pods")
+    pods = [f"{ns}/{name}" for ns, objs in kube.objects[pods_key].items()
+            for name in objs]
+    oracle = ep._oracle
+    sample = [users[i] for i in p16["oracle_users"]]
+    want = {u: _oracle_pods(oracle, pods, SubjectRef("user", u))
+            for u in sample}
+
+    def counts() -> dict:
+        return dict(cache.stats)
+
+    def delta(a: dict, b: dict) -> dict:
+        return {k: b[k] - a[k] for k in a}
+
+    h = REGISTRY.get("authz_kernel_time_seconds")
+
+    def device_s() -> float:
+        return sum(v[1] for k, v in h.raw().items()
+                   if k[0] == "kernel.device")
+
+    # (a) cold, with (d)'s own events in the graphs of the same batches
+    g = ep.graph()
+    workload.WORKLOAD.reset()
+    gs0 = dict(g.kernel.graph_stats)
+    c0, k0, since = counts(), device_s(), timeline.now()
+    kernels.reset_launches()
+    if marks is not None:
+        marks.on = True
+    try:
+        t_host = time.perf_counter()
+        wall1, own1, lists1 = _list_burst(proxy, kube, users)
+    finally:
+        if marks is not None:
+            marks.on = False
+    k1, c1 = device_s(), counts()
+    t_host = time.perf_counter() - t_host
+    graph_d = {k: g.kernel.graph_stats[k] - gs0[k]
+               for k in ("replays", "seed_replays", "eager_sweeps")}
+    launches1 = {k: kernels.LAUNCHES[k] for k in REPLACES}
+    cold = delta(c0, c1)
+    if cold["misses"] != len(users) or cold["hits"]:
+        raise AssertionError(f"cold burst cache counts {cold}")
+    idle = [k for k in ("ell_gather_or", "perm_program", "sweep_delta",
+                        "seed_bitplanes", "lookup_T") if not launches1[k]]
+    if idle:
+        raise AssertionError(f"cold burst launched no {idle}")
+    # warm
+    kernels.reset_launches()
+    wall2, own2, lists2 = _list_burst(proxy, kube, users)
+    c2 = counts()
+    launches2 = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    warm = delta(c1, c2)
+    if warm["hits"] != len(users) or warm["misses"]:
+        raise AssertionError(f"warm burst cache counts {warm}")
+    if launches2:
+        raise AssertionError(f"the warm burst launched kernels: {launches2}")
+    if lists1 != lists2:
+        raise AssertionError("the warm burst's lists differ from the cold's")
+    for u in sample:
+        got = lists1[users.index(u)]
+        if got != want[u]:
+            raise AssertionError(f"{u}'s list differs from the oracle "
+                                 f"({len(got)} vs {len(want[u])})")
+    log(f"phase 18 (a) {len(users)} concurrent lists, cold: wall "
+        f"{wall1:.4f} s, own time {_pcts(own1)}; warm: wall {wall2:.4f} s, "
+        f"own time {_pcts(own2)}; cache hits/misses cold {cold['hits']}/"
+        f"{cold['misses']}, warm {warm['hits']}/{warm['misses']}; "
+        f"{len(cache)} entries, {cache.resident_bytes} bytes; cold "
+        f"launches { {k: v for k, v in launches1.items() if v} }, warm "
+        f"none ({smi_line})")
+
+    # (d) kernel accounting and sweeps: the burst's kernel.device seconds
+    # against the smoke's own events in the seed and sweep graphs its
+    # batches replayed (a batch launched outside its graphs would be in
+    # the first and not in the second)
+    acc_s = k1 - k0
+    if on_card:
+        own_s = sum(marks.spans)
+        if (not own_s or graph_d["eager_sweeps"]
+                or abs(acc_s - own_s) > KERNEL_TIME_TOL * own_s):
+            raise AssertionError(
+                f"kernel.device {acc_s:.6f} s against the smoke's own "
+                f"{own_s:.6f} s over {len(marks.spans)} replays of the "
+                f"cold burst (graph stats {graph_d})")
+    else:
+        own_s = acc_s
+    rows = {(r["resource_type"], r["permission"]): r
+            for r in workload.WORKLOAD.payload()["rows"]}
+    depth = rows[("pod", "view")]["mean_sweep_depth"]
+    trace_iters = int(g.last_trace[0])
+    if depth != trace_iters:
+        raise AssertionError(f"workload sweep depth {depth} against the "
+                             f"trace's {trace_iters}")
+    log(f"phase 18 (d) kernel.device over the cold burst {acc_s:.6f} s, "
+        f"the smoke's own in-graph events {own_s:.6f} s "
+        f"({(acc_s / own_s - 1) * 100 if own_s else 0.0:+.3f} %) over "
+        f"{len(marks.spans) if marks else 0} replays (graph stats "
+        f"{graph_d}); the burst's host wall {t_host:.4f} s; pod#view "
+        f"measured sweep depth {depth}, trace "
+        f"{g.last_trace[: 1 + trace_iters].tolist()} ({smi_line})")
+
+    # (e) the timeline over the cold burst
+    summ = timeline.summary(since=since)
+    roof = summ["roofline_fraction"]
+    if summ["hbm_peak_gbps"] != 3350.0 or roof is None or not 0 < roof <= 1:
+        raise AssertionError(f"roofline {roof} against "
+                             f"{summ['hbm_peak_gbps']} GB/s")
+    trace = timeline.chrome_trace(since=since)
+    dev_slices = [e for e in trace["traceEvents"]
+                  if e.get("tid") == 3 and e["ph"] == "X"]
+    if not dev_slices:
+        raise AssertionError("no device-track slice in the chrome trace")
+    log(f"phase 18 (e) timeline over the cold burst: roofline fraction "
+        f"{roof} of {summ['hbm_peak_gbps']} GB/s ({summ['kernel_bytes_basis']}"
+        f" bytes), {len(dev_slices)} device-track slices, stages ms "
+        f"{summ['stage_ms']}, overlap {summ['overlap_ratio']}")
+
+    # (b) invalidation: an expiring internal tuple, then a grant
+    wf = Relationship(resource=ObjectRef("workflow", "smoke18"),
+                      relation="idempotency_key",
+                      subject=SubjectRef("activity", "a18"),
+                      expires_at=time.time() + CACHE_EXPIRY_S)
+    asyncio.run(proxy.endpoint.write_relationships(
+        [RelationshipUpdate(UpdateOp.TOUCH, wf)]))
+    still = sum(cache.contains_valid(("lr", "pod", "view",
+                                      SubjectRef("user", u))) for u in users)
+    if still != len(users):
+        raise AssertionError(f"a workflow: write left {still} of "
+                             f"{len(users)} list entries valid")
+    c3 = counts()
+    again = _list_burst(proxy, kube, users[2:4])[2]
+    if delta(c3, counts())["hits"] != 2 or again != lists1[2:4]:
+        raise AssertionError("lists after the workflow: write were not hits")
+    req = CheckRequest(resource=wf.resource, permission=wf.relation,
+                       subject=wf.subject)
+
+    def check():
+        return asyncio.run(proxy.endpoint.check_bulk_permissions([req]))[0]
+
+    r1, r2 = check(), check()
+    if (r1.permissionship != Permissionship.HAS_PERMISSION
+            or r2.source != "cache"):
+        raise AssertionError(f"expiring tuple checks {r1}, {r2}")
+    time.sleep(max(0.0, wf.expires_at - time.time()) + 0.1)
+    c4 = counts()
+    r3 = check()
+    if (r3.permissionship != Permissionship.NO_PERMISSION
+            or r3.source == "cache" or not delta(c4, counts())[
+                "invalidations"]):
+        raise AssertionError(f"after its expiry the check answered {r3}")
+    x = users[1]
+    xs = SubjectRef("user", x)
+    nss = sorted(name for objs in kube.objects[("", "v1", "namespaces")]
+                 .values() for name in objs)
+    grant = next(n for n in nss if not oracle.check(
+        ObjectRef("namespace", n), "view", xs))
+    asyncio.run(proxy.endpoint.write_relationships([RelationshipUpdate(
+        UpdateOp.TOUCH, Relationship(resource=ObjectRef("namespace", grant),
+                                     relation="viewer", subject=xs))]))
+    c5 = counts()
+    got = _list_burst(proxy, kube, [x])[2][0]
+    want_x = _oracle_pods(oracle, pods, xs)
+    if delta(c5, counts())["misses"] != 1 or got != want_x or not any(
+            p.startswith(f"{grant}/") for p in got):
+        raise AssertionError(f"{x}'s list after the grant of {grant}: "
+                             f"{len(got)} pods, the oracle {len(want_x)}")
+    log(f"phase 18 (b) a workflow: write left {still} list entries valid; "
+        f"its check hit until the store clock passed {CACHE_EXPIRY_S} s, "
+        f"then missed with {r3.permissionship.name}; granting {x} "
+        f"namespace {grant} made its list miss with {len(got)} pods (from "
+        f"{len(lists1[1])})")
+
+    # (c) the HBM ledger
+    ledger = devtel.LEDGER.total()
+    tables = devtel.tensor_bytes(g.dev_main, g.dev_aux, g.dev_cav)
+    alloc = torch.cuda.memory_allocated() if on_card else None
+    if ledger < tables or (on_card and ledger > alloc):
+        raise AssertionError(f"ledger {ledger} bytes against tables "
+                             f"{tables} and allocated {alloc}")
+    old_gen = ep._devtel_gen
+    kinds = devtel.LEDGER.totals()
+    t_rb = time.perf_counter()
+    ep.force_rebuild()
+    rebuild_s = time.perf_counter() - t_rb
+    left = {k: devtel.LEDGER.generation_bytes(old_gen, k) for k in kinds}
+    if any(left.values()) or ep._devtel_gen == old_gen:
+        raise AssertionError(f"generation {old_gen} kept {left}")
+    log(f"phase 18 (c) HBM ledger {ledger} bytes by kind {kinds}; graph "
+        f"tables {tables} bytes; torch.cuda.memory_allocated {alloc}; "
+        f"force_rebuild {rebuild_s:.3f} s retired generation {old_gen} "
+        f"(0 bytes left in every kind), generation {ep._devtel_gen} "
+        f"{devtel.LEDGER.generation_bytes(ep._devtel_gen)} bytes, peak "
+        f"{devtel.LEDGER.peak}")
+
+    # (f) the /debug surfaces, with and without a user
+    proxy.flight.capture()
+
+    async def surfaces():
+        out = {}
+        for path in ("/debug/flight", "/debug/timeline", "/debug/workload",
+                     "/debug/profile?seconds=1"):
+            a = await proxy.get_embedded_client(user=users[0]).get(path)
+            b = await proxy.get_embedded_client().get(path)
+            json.loads(a.body)
+            out[path] = (a.status, b.status, len(a.body))
+        return out
+
+    served = asyncio.run(surfaces())
+    bad = {p: s for p, s in served.items()
+           if s[0] != 200 or s[1] not in (401, 403)}
+    if bad:
+        raise AssertionError(f"debug surfaces answered {bad}")
+    log(f"phase 18 (f) debug surfaces (status with a user, without, "
+        f"bytes): {served}")
+
+    # the telemetry's cost: phase 16's burst again on its proxy, with the
+    # switches on and then off (its first run, on a fresh proxy, beside)
+    wall_on, own_on, _ = _list_burst(p16["proxy"], kube, users)
+    saved = (features.DEVICE_TELEMETRY, features.TIMELINE,
+             features.KERNEL_INTROSPECT)
+    features.DEVICE_TELEMETRY = features.TIMELINE = False
+    features.KERNEL_INTROSPECT = False
+    try:
+        wall_off, own_off, _ = _list_burst(p16["proxy"], kube, users)
+    finally:
+        (features.DEVICE_TELEMETRY, features.TIMELINE,
+         features.KERNEL_INTROSPECT) = saved
+    log(f"phase 18 telemetry cost: phase 16's {len(users)}-list burst on "
+        f"its proxy, wall {wall_on:.4f} s with the switches on (own time "
+        f"{_pcts(own_on)}), {wall_off:.4f} s off (own time "
+        f"{_pcts(own_off)}); phase 16's first burst {p16['a_wall']:.4f} s; "
+        f"reported, not enforced ({smi_line})")
+    log(f"phase 18 wall time {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches1, "cold_wall": wall1, "warm_wall": wall2}
+
+
 def main() -> int:
     try:
         import torch
@@ -5440,10 +5917,15 @@ def main() -> int:
     # process on the card
     t_ph = time.perf_counter()
     dual = dualwrite_path(proxy, smi_line)
+    phase_s["17a"] = time.perf_counter() - t_ph
+
+    # 18. the decision cache and device telemetry on phase 16's store
+    t_ph = time.perf_counter()
+    cached = cache_telemetry_path(proxy, w, smi_line)
     del proxy["proxy"], proxy["ep"], proxy["kube"]
     gc.collect()
     torch.cuda.empty_cache()
-    phase_s["17a"] = time.perf_counter() - t_ph
+    phase_s["18"] = time.perf_counter() - t_ph
     t_ph = time.perf_counter()
     cli_process(smi_line)
     phase_s["17b"] = time.perf_counter() - t_ph
@@ -5510,6 +5992,10 @@ def main() -> int:
     # phase 17 (a): the dual writes' launches, counted from zero
     for kname in rows:
         rows[kname]["dualwrite_launches"] = dual["launches"].get(kname, 0)
+    # phase 18 (a): the cold cached burst's launches (the warm one's are
+    # all 0, asserted)
+    for kname in rows:
+        rows[kname]["cache_cold_launches"] = cached["launches"].get(kname, 0)
     for kname, also in REPLACES_ALSO.items():
         rows[kname]["replaces_also"] = also
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}"

@@ -1,5 +1,5 @@
 """PreFilter LookupResources (reference pkg/authz/lookups.go; this
-package's reference authz/lookups.py, without its decision-cache route).
+package's reference authz/lookups.py).
 
 Resolves the single LR template, streams allowed resource ids from the
 endpoint, and maps each id to a NamespacedName via the rule's
@@ -127,14 +127,30 @@ async def run_lookup_resources(endpoint: PermissionsEndpoint,
                          filter.rel.subject_relation)
     allowed = result.allowed
     from_input = None     # the request's namespace, queried once
-    async for rid in endpoint.lookup_resources_stream(
-            filter.rel.resource_type,
-            filter.rel.resource_relation,
-            subject):
+
+    def name_of(rid: str) -> tuple:
+        nonlocal from_input
         namespace, name = _id_names(filter, rid, "")
         if namespace is None:
             if from_input is None:
                 from_input = _input_namespace(filter, input)
             namespace = from_input
-        allowed.add((namespace, name))
+        return namespace, name
+
+    if getattr(endpoint, "decision_cache_enabled", False):
+        # decision-cached chain (reference lookups.py:88-99): a warm hit
+        # is the whole frontier as a host list, with no dispatcher queue
+        # and no kernel, and it carries the decision source
+        # (cache|kernel|oracle) for the audit event; a miss is
+        # materialized for the fill before it returns anyway
+        ids = await endpoint.lookup_resources(
+            filter.rel.resource_type, filter.rel.resource_relation, subject)
+        result.source = getattr(ids, "source", "")
+        allowed.update(name_of(rid) for rid in ids)
+        return result
+    async for rid in endpoint.lookup_resources_stream(
+            filter.rel.resource_type,
+            filter.rel.resource_relation,
+            subject):
+        allowed.add(name_of(rid))
     return result

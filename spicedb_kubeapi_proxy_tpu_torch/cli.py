@@ -17,19 +17,22 @@ kernels' plain twins) and `embedded://` (the host evaluator) run on the
 CPU only when asked for.  Any other scheme, a scheme-less `host:port`
 included, is a `validate` error.
 
+`--decision-cache[-bytes]` puts the decision cache in front of the
+endpoint; `--flight-window[s]`, `--slo-*`, `--shed-slo-burn` and
+`--device-hbm-peak-gbps` configure device telemetry, the flight
+recorder and the timeline (served at /debug/flight and
+/debug/timeline).
+
 Flags of features the port has not ported are not in the parser, so
 argparse refuses them (exit 2), each with the ROADMAP Queue 1 item that
-brings it back: `--decision-cache[-bytes]` (item 6, the decision
-cache); `--flight-window[s]`, `--slo-*`, `--shed-slo-burn` and
-`--device-hbm-peak-gbps` (item 7, device telemetry and the timeline);
-`--fleet-peers` (item 8, distributed serving); `--data-dir`,
+brings it back: `--fleet-peers` (item 8, distributed serving); `--data-dir`,
 `--wal-fsync`, `--checkpoint-interval`, `--replicate-from` and the
 other replication flags, `--shards`, `--partition-map`, the
 `--shard-leaders` router, and the gRPC connection flags
 `--spicedb-insecure`, `--spicedb-skip-verify-ca`, `--spicedb-token` and
 `--spicedb-ca-path` (item 9: the durable store, replication, sharding
-and the remote endpoint); `--lint-schema[-strict|-json]` (the schema
-linter, not queued).
+and the remote endpoint); `--lint-schema[-strict|-json]` (item 10, the
+schema linter).
 """
 
 from __future__ import annotations
@@ -84,6 +87,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spicedb-bootstrap", default="",
                    help="YAML file with bootstrap schema/relationships for "
                         "the endpoint")
+    p.add_argument("--decision-cache", action="store_true",
+                   help="revision-keyed decision cache with relation-scoped "
+                        "invalidation in front of the endpoint: repeated "
+                        "identical checks/LookupResources are served from "
+                        "cache until a write touches a relation in their "
+                        "compiled footprint")
+    p.add_argument("--decision-cache-bytes", type=int, default=0,
+                   help="decision-cache LRU bound in bytes "
+                        "(0 = default 128MiB)")
     # batched dispatch (spicedb/dispatch.py; killswitch:
     # --feature-gates DevicePipeline=false)
     p.add_argument("--pipeline-depth", type=int, default=2,
@@ -110,6 +122,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "rejected with 429 + Retry-After BEFORE "
                         "authorization work starts once the dispatcher "
                         "queues reach this depth (0 = disabled)")
+    p.add_argument("--shed-slo-burn", action="store_true",
+                   help="also shed read-only requests while an SLO "
+                        "(--slo-check-p99-ms / --slo-error-rate) burns "
+                        "on both horizons; update verbs are never shed")
     p.add_argument("--shed-retry-after", type=float, default=1.0,
                    help="Retry-After seconds suggested on shed "
                         "responses")
@@ -199,6 +215,34 @@ def build_parser() -> argparse.ArgumentParser:
                    help="attach the relation-path witness to every audited "
                         "denial (otherwise only requests with ?explain=1 "
                         "are explained)")
+    # device telemetry: flight recorder and SLO burn rates
+    # (utils/devtel.py), and the dispatch timeline (utils/timeline.py)
+    p.add_argument("--flight-window", type=float, default=10.0,
+                   help="seconds per flight-recorder window; each window "
+                        "snapshots phase quantiles, queue depths, the HBM "
+                        "ledger, batch occupancy, and SLO burn rates, "
+                        "served at /debug/flight")
+    p.add_argument("--flight-windows", type=int, default=64,
+                   help="flight-recorder ring capacity (windows retained)")
+    p.add_argument("--slo-check-p99-ms", type=float, default=0.0,
+                   help="latency SLO target in ms: requests slower than "
+                        "this consume the error budget set by "
+                        "--slo-objective; burn rates export as "
+                        "authz_slo_burn_rate{slo=latency_p99} and surface "
+                        "in /readyz when burning (0 disables)")
+    p.add_argument("--slo-objective", type=float, default=0.01,
+                   help="allowed fraction of requests slower than the "
+                        "latency SLO target (the error budget; burn rate "
+                        "1.0 = consuming it exactly at the sustainable "
+                        "rate)")
+    p.add_argument("--slo-error-rate", type=float, default=0.0,
+                   help="error SLO: allowed fraction of 5xx responses "
+                        "(0 disables)")
+    p.add_argument("--device-hbm-peak-gbps", type=float, default=0.0,
+                   help="the card's memory rate in GB/s for the "
+                        "authz_roofline_fraction export and the "
+                        "/debug/timeline summary; 0 (default) detects it "
+                        "from the card (NVIDIA H100 80GB HBM3 -> 3350)")
 
     p.add_argument("-v", "--verbosity", type=int, default=3,
                    help="log verbosity (reference defaults to 3)")
@@ -206,7 +250,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma-separated name=true|false overrides of the "
                         "port's switches: MeshExecution, "
                         "CrossRequestBatching, DevicePipeline, "
-                        "AdmissionControl, AsyncRebuild (utils/features.py)")
+                        "AdmissionControl, AsyncRebuild, DecisionCache, "
+                        "DeviceTelemetry, Timeline, KernelIntrospect, "
+                        "Profiler (utils/features.py)")
     return p
 
 
@@ -253,6 +299,25 @@ def validate(args: argparse.Namespace) -> list:
         errs.append("--shed-queue-depth must be >= 0 (0 = disabled)")
     if args.shed_retry_after <= 0:
         errs.append("--shed-retry-after must be > 0")
+    if args.decision_cache_bytes < 0:
+        errs.append("--decision-cache-bytes must be >= 0")
+    if args.flight_window <= 0:
+        errs.append("--flight-window must be > 0")
+    if args.flight_windows < 2:
+        errs.append("--flight-windows must be >= 2 (burn rates need a "
+                    "short and a long horizon)")
+    if args.slo_check_p99_ms < 0:
+        errs.append("--slo-check-p99-ms must be >= 0")
+    if not (0 < args.slo_objective <= 1):
+        errs.append("--slo-objective must be in (0, 1]")
+    if not (0 <= args.slo_error_rate <= 1):
+        errs.append("--slo-error-rate must be in [0, 1]")
+    if args.device_hbm_peak_gbps < 0:
+        errs.append("--device-hbm-peak-gbps must be >= 0 (0 = auto)")
+    if args.shed_slo_burn and not (args.slo_check_p99_ms > 0
+                                   or args.slo_error_rate > 0):
+        errs.append("--shed-slo-burn needs an SLO configured "
+                    "(--slo-check-p99-ms or --slo-error-rate)")
     return errs
 
 
@@ -371,6 +436,12 @@ def complete(args: argparse.Namespace,
     # (`torch://?pipeline_depth=N`) still overrides inside create_endpoint
     endpoint_kwargs = {"pipeline_depth": args.pipeline_depth,
                        "max_queue_depth": args.max_queue_depth}
+    if args.decision_cache:
+        endpoint_kwargs["decision_cache"] = True
+    if args.decision_cache_bytes:
+        # independent of --decision-cache: the cache may come up through
+        # `?cache=1` or the DecisionCache gate, and the bound applies then
+        endpoint_kwargs["decision_cache_bytes"] = args.decision_cache_bytes
 
     server_options = ServerOptions(
         spicedb_endpoint=args.spicedb_endpoint,
@@ -388,7 +459,14 @@ def complete(args: argparse.Namespace,
         audit_explain=args.audit_explain,
         prewarm_compiles=args.prewarm_compiles,
         shed_queue_depth=args.shed_queue_depth,
+        shed_slo_burn=args.shed_slo_burn,
         shed_retry_after_s=args.shed_retry_after,
+        flight_window_s=args.flight_window,
+        flight_windows=args.flight_windows,
+        slo_check_p99_ms=args.slo_check_p99_ms,
+        slo_objective=args.slo_objective,
+        slo_error_rate=args.slo_error_rate,
+        device_hbm_peak_gbps=args.device_hbm_peak_gbps,
     )
     return CompletedConfig(server_options=server_options,
                            bind_address=args.bind_address,

@@ -39,6 +39,7 @@ later work (ROADMAP).
 from __future__ import annotations
 
 import bisect
+import itertools
 import threading
 import time
 from dataclasses import dataclass
@@ -47,6 +48,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import devtel, timeline
 from . import kernels
 from .graph_compile import (
     GraphProgram,
@@ -390,26 +392,36 @@ def compile_perm_program(expr, offset: int, length: int) -> tuple:
     return np.asarray(code, np.int32), depth[1], self_read[0]
 
 
+# versions of the (tables, plan) a bucket's sweep graphs were captured
+# for, unique across kernel caches
+_TABLE_VERSIONS = itertools.count(1)
+
+
 @dataclass
 class _Arena:
     """One bucket's state buffers, [NT, W] int32 each ([NT, 2W] with
     planes): the seed x0 and the two sweep states the fixpoint loop swaps
     between; the wildcard liveness [T, W] (None without wildcard terms);
-    and on a CUDA device the sweep's two captured graphs with the tables
-    and plan they were captured for (`graph_key`, which also keeps those
-    tensors alive while the graphs may replay them) and the memory pool
-    that every capture of this arena reuses (its graphs never replay at
-    the same time: the arena is one batch's at a time)."""
+    and on a CUDA device the bucket's query lanes `q` [32 W] (a batch's
+    lanes are copied in, so that the seed graph reads them), the seed's
+    captured graph (the seed and its copy into `a`), the sweep's two
+    captured graphs with the tables and plan they were captured for
+    (`graph_key`, which also keeps those tensors alive while the graphs
+    may replay them) and the memory pool that every capture of this arena
+    reuses (its graphs never replay at the same time: the arena is one
+    batch's at a time)."""
     x0: torch.Tensor
     a: torch.Tensor
     b: torch.Tensor
     live: Optional[torch.Tensor] = None
+    q: Optional[torch.Tensor] = None
+    seed_graph: Optional[object] = None
     graph_key: Optional[tuple] = None
     graphs: Optional[list] = None
     pool: Optional[tuple] = None    # the graphs' memory pool, kept
 
 
-class EllKernelCache:
+class EllKernelCache(devtel.ArenaLedger):
     """Packed check/lookup entry points for one (program, tables) pair on
     one device — the pipelined and serial paths of the reference's
     EllKernelCache (ops/ell.py:676-1088), with the KernelIntrospect sweep
@@ -428,7 +440,15 @@ class EllKernelCache:
     none of its own rows (counted at build from `host_main`/`host_aux`
     and kept true by `note_row`; unknown tables mean scratch), and the
     Jacobi main gather always does, reading its own rows from the sweep's
-    input.  Permission programs always write in place."""
+    input.  Permission programs always write in place.
+
+    Kernel accounting (utils/devtel.py): a capture of an arena's sweep
+    graphs is a compile of its lane bucket (and a `compile` slice on the
+    dispatch timeline), a batch that replays them a graph-cache hit; the
+    pooled arenas are ledger rows of the cache's graph generation."""
+
+    # metric label of authz_sweep_iterations / authz_frontier_decay
+    kernel_name = "ell"
 
     def __init__(self, prog: GraphProgram, n_aux_rows: int, tree_depth: int,
                  device: torch.device, num_iters: Optional[int] = None,
@@ -465,7 +485,22 @@ class EllKernelCache:
         # CUDA graph upkeep: captures (and their host seconds), replayed
         # sweeps, sweeps launched step by step on the card
         self.graph_stats = {"captures": 0, "capture_s": 0.0, "replays": 0,
-                            "eager_sweeps": 0}
+                            "eager_sweeps": 0, "seed_replays": 0}
+        # per lane bucket, the tables and plan of its last capture and
+        # their version (the recompile-storm detector's key: a capture
+        # for new tables starts a new one)
+        self._captured: dict = {}
+        devtel.KERNELS.track(self)
+
+    @property
+    def _jits(self) -> list:
+        """The pooled arenas holding captured sweep graphs (the graph
+        cache that the entries gauge counts)."""
+        with self._arena_lock:
+            return [a for a in self._arenas.values() if a.graphs]
+
+    def _arena_tensors(self, arena: _Arena) -> tuple:
+        return (arena.x0, arena.a, arena.b, arena.live, arena.q)
 
     # -- build-time plan -----------------------------------------------------
 
@@ -647,9 +682,13 @@ class EllKernelCache:
         live = (torch.empty((self._wc_ranges.shape[0], w), dtype=torch.int32,
                             device=self.device)
                 if self._wc_ranges is not None else None)
-        return _Arena(*(torch.empty((nt, w), dtype=torch.int32,
-                                    device=self.device)
-                        for _ in range(3)), live=live)
+        q = (torch.empty(32 * n_words, dtype=torch.int32, device=self.device)
+             if self.device.type == "cuda" else None)
+        a = _Arena(*(torch.empty((nt, w), dtype=torch.int32,
+                                 device=self.device)
+                     for _ in range(3)), live=live, q=q)
+        self._ledger_arena(n_words, a)
+        return a
 
     def put_arena(self, n_words: int, arena: _Arena) -> None:
         """Return an arena to the pool; if a concurrent call repooled
@@ -661,6 +700,7 @@ class EllKernelCache:
         """Drop a bucket's pooled arena (after a failed call)."""
         with self._arena_lock:
             self._arenas.pop(n_words, None)
+        self._unledger_arena(n_words)
 
     # -- the sweep -----------------------------------------------------------
 
@@ -755,7 +795,8 @@ class EllKernelCache:
         input state, which always equal the seed's (no edge, definite or
         caveated, targets a self slot), so the seed kernel computes it
         once.  On a CUDA device every sweep is one replay of a CUDA graph
-        of the arena (`_sweep_graphs`); on the CPU the twins run step by
+        of the arena (`_sweep_graphs`), and so is the seed when the batch's
+        lanes are the arena's `q`; on the CPU the twins run step by
         step."""
         return self._evaluate(q_idx, n_words, (idx_main, idx_aux, idx_cav),
                               arena, plan, self.device.type == "cuda")
@@ -769,17 +810,29 @@ class EllKernelCache:
         return self._evaluate(q_idx, n_words, (idx_main, idx_aux, idx_cav),
                               arena, plan, False)
 
+    def _seed(self, q_idx, n_words: int, arena: _Arena) -> None:
+        """The seed into arena.x0 (and the liveness), copied into arena.a
+        as the first sweep's input."""
+        kernels.seed_bitplanes(q_idx, self.prog.state_size
+                               + self.n_aux_rows, n_words,
+                               self.prog.dead_index, out=arena.x0,
+                               wc_ranges=self._wc_ranges, live=arena.live,
+                               planes=self.planes)
+        arena.a.copy_(arena.x0)
+
     def _evaluate(self, q_idx, n_words: int, tables: tuple, arena: _Arena,
                   plan: Optional[list], graphs: bool) -> tuple:
         plan = plan if plan is not None else self._plan
-        x0 = kernels.seed_bitplanes(q_idx, self.prog.state_size
-                                    + self.n_aux_rows, n_words,
-                                    self.prog.dead_index, out=arena.x0,
-                                    wc_ranges=self._wc_ranges,
-                                    live=arena.live, planes=self.planes)
+        seed = (arena.seed_graph if graphs and q_idx is arena.q else None)
+        if seed is None:
+            self._seed(q_idx, n_words, arena)
+        else:
+            seed.replay()
+            self.graph_stats["seed_replays"] += 1
         bufs = (arena.a, arena.b)
-        bufs[0].copy_(x0)
         replay = self._sweep_graphs(arena, tables, plan) if graphs else None
+        if replay is not None:
+            devtel.KERNELS.note_jit_hit(n_words * 32)
         trace = np.zeros(1 + self.num_iters, np.int32)
         i = 0
         changed = True
@@ -795,6 +848,11 @@ class EllKernelCache:
                 graph.replay()
                 self.graph_stats["replays"] += 1
             delta, any_change = out.tolist()
+            if seed is not None and i == 0:
+                # the seed graph ran before this sweep's readback
+                kernels.note_replay(seed)
+            if replay is not None:
+                kernels.note_replay(graph)
             if graphs and replay is None:
                 # the first sweep after a miss ran every kernel of the
                 # plan once (loaded); now capture both directions
@@ -829,10 +887,16 @@ class EllKernelCache:
     def _capture(self, arena: _Arena, tables: tuple, n_words: int,
                  plan: list) -> list:
         """Capture one sweep in each direction between the arena's two
-        buffers: [(graph a -> b, its delta pair), (graph b -> a, ...)]."""
+        buffers: [(graph a -> b, its delta pair), (graph b -> a, ...)];
+        and, once an arena, the seed from its `q` lanes (it reads no
+        table)."""
         t0 = time.perf_counter()
         if arena.pool is None:
             arena.pool = torch.cuda.graph_pool_handle()
+        if arena.seed_graph is None and arena.q is not None:
+            seed = kernels.LaunchGraph(self.device, arena.pool)
+            seed.capture(lambda: self._seed(arena.q, n_words, arena))
+            arena.seed_graph = seed
         # the old graphs go only after the new ones hold the pool, so that
         # its memory stays reserved for them
         graphs = []
@@ -845,6 +909,13 @@ class EllKernelCache:
         arena.graphs = graphs
         self.graph_stats["captures"] += 1
         self.graph_stats["capture_s"] += time.perf_counter() - t0
+        key = (*tables, plan)
+        last = self._captured.get(n_words)
+        if last is None or not all(a is b for a, b in zip(last[0], key)):
+            last = (key, next(_TABLE_VERSIONS))
+            self._captured[n_words] = last
+        devtel.KERNELS.note_compile(n_words * 32, owner=last[1])
+        timeline.record("compile", "device", t0, bucket=n_words * 32)
         return graphs
 
     def _run(self, n_words: int, q_idx, idx_main, idx_aux, idx_cav,
@@ -853,10 +924,16 @@ class EllKernelCache:
             raise ValueError("the plane path needs the caveat table")
         arena = self.take_arena(n_words)
         try:
-            q = _to_device(q_idx, self.device)
+            if arena.q is not None and len(q_idx) == arena.q.numel():
+                # the seed graph reads the lanes from the arena
+                q = arena.q
+                q.copy_(torch.as_tensor(q_idx))
+            else:
+                q = _to_device(q_idx, self.device)
             x, trace = self.evaluate(q, n_words, idx_main, idx_aux, arena,
                                      idx_cav, plan)
-            out = finish(x)
+            with kernels.unstamped():
+                out = finish(x)
         except BaseException:
             # a failed call returns no arena, and drops the bucket's pooled
             # one too: after a device fault its buffers are suspect

@@ -504,6 +504,65 @@ def compile_graph_columnar(schema: sch.Schema, snap, rows: np.ndarray,
 
 
 
+def relation_footprint(schema: sch.Schema, resource_type: str,
+                       name: str) -> frozenset:
+    """All (type, relation) pairs whose tuples can influence evaluation of
+    `name` (a permission or relation) on `resource_type` — the compiled
+    program's relation footprint.
+
+    This is exactly the set of relation nodes reachable in the schema's
+    dependency graph from (resource_type, name): a relation depends on
+    itself and, through userset annotations (`viewer: group#member`), on
+    the referenced (type, relation); a permission depends on the
+    relations/permissions its expression reads, and an arrow
+    `left->target` additionally on `target` at every subject type
+    annotated on `left` (a conservative superset, like
+    caveat_affected_pairs).  Wildcard and caveated tuples live on
+    ordinary relations, so they are covered without special cases.
+
+    Used by the decision cache (spicedb/decision_cache.py) for
+    relation-scoped invalidation: a store delta touching relation R only
+    invalidates cached decisions whose footprint contains R."""
+    seen: set = set()
+    rels: set = set()
+    stack: list = [(resource_type, name)]
+
+    def push_expr(t: str, d: sch.Definition, e: sch.Expr) -> None:
+        if isinstance(e, sch.RelRef):
+            stack.append((t, e.name))
+        elif isinstance(e, sch.Arrow):
+            stack.append((t, e.left))
+            for ref in d.relations.get(e.left, ()):
+                stack.append((ref.type, e.target))
+        elif isinstance(e, (sch.Union, sch.Intersection)):
+            for c in e.children:
+                push_expr(t, d, c)
+        elif isinstance(e, sch.Exclusion):
+            push_expr(t, d, e.base)
+            push_expr(t, d, e.subtract)
+        # Nil reads nothing
+
+    while stack:
+        node = stack.pop()
+        if node in seen:
+            continue
+        seen.add(node)
+        t, n = node
+        d = schema.definitions.get(t)
+        if d is None:
+            continue
+        if n in d.relations:
+            rels.add((t, n))
+            for ref in d.relations[n]:
+                if ref.relation:
+                    stack.append((ref.type, ref.relation))
+            continue
+        expr = d.permissions.get(n)
+        if expr is not None:
+            push_expr(t, d, expr)
+    return frozenset(rels)
+
+
 def caveat_affected_pairs(schema: sch.Schema, caveated_rels: set) -> set:
     """All (type, relation-or-permission) pairs whose evaluation could
     traverse a relation in `caveated_rels` ({(type, relation)} pairs that

@@ -32,6 +32,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -110,29 +111,49 @@ class LaunchGraph:
     at the same time share their memory.  A capture that fails
     raises; nothing falls back to eager launches.  Every pointer the calls
     read is baked into the graph, so the caller keeps their tensors alive
-    and unmoved while it may replay."""
+    and unmoved while it may replay.
+
+    The graph begins and ends with a timing event of its own (event record
+    nodes): each replay stamps them on the card as its first node starts
+    and its last one ends, and `seconds()` reads the last replay's span
+    once that replay is known complete (`note_replay`)."""
 
     def __init__(self, device, pool=None):
         self.device = torch.device(device)
         self.graph = torch.cuda.CUDAGraph()
         self.pool = pool
         self.counts: dict = {}
+        self.marks: Optional[tuple] = None
 
     def capture(self, fn):
         side = torch.cuda.Stream(self.device)
+        marks = tuple(torch.cuda.Event(enable_timing=True, external=True)
+                      for _ in range(2))
+        for ev in marks:
+            # made now, outside the capture (an event is made at its
+            # first record)
+            ev.record(side)
         _capture.counts = counts = {}
         try:
             with torch.cuda.device(self.device), torch.cuda.stream(side):
                 self.graph.capture_begin(pool=self.pool,
                                          capture_error_mode="thread_local")
                 try:
+                    marks[0].record(side)
                     out = fn()
+                    marks[1].record(side)
                 finally:
                     self.graph.capture_end()
         finally:
             _capture.counts = None
         self.counts = counts
+        self.marks = marks
         return out
+
+    def seconds(self) -> float:
+        """The device span of the last replay, first node to last; the
+        caller knows that replay complete (no wait here)."""
+        return self.marks[0].elapsed_time(self.marks[1]) / 1e3
 
     def replay(self) -> None:
         """Launch the graph; its captured launches go into LAUNCHES under
@@ -160,11 +181,15 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels if this source has no library yet; returns the
-    library path.  Raises KernelError when nvcc fails."""
+    library path.  Raises KernelError when nvcc fails.  A build is the
+    port's kernel compile: kernel accounting counts it (bucket 0) and
+    the dispatch timeline shows it as a `compile` slice."""
     global BUILD_LOG
     out = library_path()
     if out.exists():
         return out
+    from ...utils import devtel, timeline
+    t0 = timeline.now()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
@@ -174,6 +199,8 @@ def build() -> Path:
         tmp.unlink(missing_ok=True)
         raise KernelError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
     os.replace(tmp, out)
+    devtel.KERNELS.note_compile(0)
+    timeline.record("compile", "device", t0, bucket=0)
     return out
 
 
@@ -211,8 +238,114 @@ def _load():
                 f.restype = ctypes.c_int
             lib.ell_error_string.argtypes = [ctypes.c_int]
             lib.ell_error_string.restype = ctypes.c_char_p
+            lib.ell_stamps_open.argtypes = [ctypes.c_int]
+            lib.ell_stamps_open.restype = ctypes.c_void_p
+            lib.ell_stamps_close.argtypes = []
+            lib.ell_stamps_close.restype = None
+            lib.ell_stamps_resume.argtypes = [ctypes.c_void_p]
+            lib.ell_stamps_resume.restype = None
+            lib.ell_stamps_read.argtypes = [ctypes.c_void_p]
+            lib.ell_stamps_read.restype = ctypes.c_double
+            lib.ell_stamps_free.argtypes = [ctypes.c_void_p]
+            lib.ell_stamps_free.restype = None
             _lib = lib
     return _lib
+
+
+# the device window this thread's batch is recording, if any (DeviceWindow)
+_window = threading.local()
+
+
+class DeviceWindow:
+    """The device time of one kernel batch's fixpoint (its seed and its
+    sweeps), from CUDA events on the card that runs it, never from the
+    host's clock around an asynchronous launch.  Each graph replay's span
+    (`LaunchGraph.seconds`: the seed graph, each sweep graph) is added
+    after its sweep's readback (`note_replay`); while the window is open
+    on a thread, every launcher that thread calls on the window's card
+    outside a graph (a seed or sweep launched step by step, the segment
+    and mesh paths) records a timing event pair around its own launches
+    inside its C call (`ell_stamps_open`).  Host gaps between launches
+    and sweeps (the per-sweep readback, a wait for the interpreter lock)
+    lie outside every pair and are not counted; a launcher's pair does
+    hold its own submission when the card was idle.  The batch's result
+    gather after the fixpoint is left out (`unstamped`).  `seconds()`
+    sums the pairs once the batch's readback completed, so nothing
+    synchronizes for it, and returns the events to the library's pool.
+    On the CPU the twins are synchronous and the window is the host time
+    from `open` to `close`.  `t0` is the host instant it opened (the
+    timeline places the device slice there).  A mesh batch counts the
+    launches on the window's own card."""
+
+    __slots__ = ("device", "t0", "graph_s", "_set", "_s")
+
+    def __init__(self, device):
+        device = torch.device(device)
+        self.device = device
+        self.graph_s = 0.0
+        self._set = None
+        self._s: Optional[float] = None
+        if device.type == "cuda":
+            idx = (device.index if device.index is not None
+                   else torch.cuda.current_device())
+            self._set = _load().ell_stamps_open(idx)
+            if not self._set:
+                raise KernelError(f"no device-time stamps for card {idx}")
+        _window.current = self
+        self.t0 = time.perf_counter()
+
+    def close(self) -> None:
+        """Stop recording this thread's launches into the window."""
+        _window.current = None
+        if self.device.type == "cpu":
+            self._s = time.perf_counter() - self.t0
+        else:
+            _load().ell_stamps_close()
+
+    def seconds(self) -> float:
+        """The summed device seconds, read once the batch's readback
+        completed (each later call returns the same)."""
+        if self._set is not None:
+            ms = _load().ell_stamps_read(self._set)
+            self._set = None
+            self._s = ms / 1e3 + self.graph_s
+        return self._s
+
+    def discard(self) -> None:
+        """Drop a window whose batch failed (its events back to the
+        pool)."""
+        if getattr(_window, "current", None) is self:
+            self.close()
+        if self._set is not None:
+            _load().ell_stamps_free(self._set)
+            self._set = None
+
+
+class unstamped:
+    """A block whose launches stay out of this thread's open device
+    window (a batch's result gather after its fixpoint)."""
+
+    __slots__ = ("_set",)
+
+    def __enter__(self):
+        win = getattr(_window, "current", None)
+        self._set = win._set if win is not None else None
+        if self._set is not None:
+            _load().ell_stamps_close()
+        return self
+
+    def __exit__(self, *exc):
+        if self._set is not None:
+            _load().ell_stamps_resume(self._set)
+        return False
+
+
+def note_replay(graph: LaunchGraph) -> None:
+    """Add the span of `graph`'s last replay to this thread's open device
+    window, once the replay is known complete (its sweep's readback)."""
+    win = getattr(_window, "current", None)
+    if win is not None and win._set is not None and graph.marks is not None:
+        win.graph_s += graph.seconds()
 
 
 def _on_cuda(*tensors) -> bool:

@@ -77,6 +77,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 #define EXPORT extern "C" __attribute__((visibility("default")))
 
 namespace {
@@ -1285,7 +1288,147 @@ or_combine_kernel(Parts parts, long long n, int vec) {
 
 inline int last_error() { return (int)cudaGetLastError(); }
 
+// -- device-time stamps ------------------------------------------------------
+// A thread that opened a stamp set (ell_stamps_open) has each launcher it
+// calls on the set's card record a CUDA timing event on the launcher's
+// stream before its first launch and another after its last, inside the
+// one C call, so that no host delay between two Python calls (a wait for
+// the interpreter lock) falls between an event and the work it times.  A
+// launcher whose stream is capturing a graph records nothing (the graph's
+// own events time its replays).  Events come from a per-card pool and go
+// back to it when the set is read (ell_stamps_read) after the batch's
+// readback.  A stamp that cannot be recorded is left out; it never fails
+// the launch.
+
+constexpr int kMaxCards = 64;
+
+struct StampSet {
+    int card;
+    std::vector<cudaEvent_t> ev;   // (start, end) pairs
+};
+
+std::mutex g_pool_mu;
+std::vector<cudaEvent_t> g_pool[kMaxCards];
+thread_local StampSet* t_stamps = nullptr;
+
+cudaEvent_t take_event(int card) {
+    {
+        std::lock_guard<std::mutex> g(g_pool_mu);
+        std::vector<cudaEvent_t>& p = g_pool[card];
+        if (!p.empty()) {
+            cudaEvent_t e = p.back();
+            p.pop_back();
+            return e;
+        }
+    }
+    cudaEvent_t e = nullptr;
+    if (cudaEventCreateWithFlags(&e, cudaEventDefault) != cudaSuccess) {
+        cudaGetLastError();
+        return nullptr;
+    }
+    return e;
+}
+
+void give_events(int card, const cudaEvent_t* ev, size_t n) {
+    std::lock_guard<std::mutex> g(g_pool_mu);
+    for (size_t i = 0; i < n; ++i)
+        if (ev[i] != nullptr) g_pool[card].push_back(ev[i]);
+}
+
+class Stamp {
+  public:
+    explicit Stamp(void* stream) : s_((cudaStream_t)stream) {
+        StampSet* set = t_stamps;
+        if (set == nullptr) return;
+        int card = -1;
+        cudaStreamCaptureStatus cap = cudaStreamCaptureStatusNone;
+        if (cudaGetDevice(&card) != cudaSuccess || card != set->card ||
+            cudaStreamIsCapturing(s_, &cap) != cudaSuccess ||
+            cap != cudaStreamCaptureStatusNone) {
+            cudaGetLastError();
+            return;
+        }
+        cudaEvent_t ev[2] = {take_event(card), take_event(card)};
+        if (ev[0] == nullptr || ev[1] == nullptr ||
+            cudaEventRecord(ev[0], s_) != cudaSuccess) {
+            cudaGetLastError();
+            give_events(card, ev, 2);
+            return;
+        }
+        set_ = set;
+        a_ = ev[0];
+        b_ = ev[1];
+    }
+    ~Stamp() {
+        if (set_ == nullptr) return;
+        if (cudaEventRecord(b_, s_) != cudaSuccess) {
+            cudaGetLastError();
+            cudaEvent_t ev[2] = {a_, b_};
+            give_events(set_->card, ev, 2);
+            return;
+        }
+        set_->ev.push_back(a_);
+        set_->ev.push_back(b_);
+    }
+    Stamp(const Stamp&) = delete;
+    Stamp& operator=(const Stamp&) = delete;
+
+  private:
+    cudaStream_t s_;
+    StampSet* set_ = nullptr;
+    cudaEvent_t a_ = nullptr, b_ = nullptr;
+};
+
 }  // namespace
+
+// Open a stamp set for this thread's launches on `card`; returns it (null
+// for a card out of range).  A set already open on the thread is replaced.
+EXPORT void* ell_stamps_open(int card) {
+    if (card < 0 || card >= kMaxCards) return nullptr;
+    StampSet* set = new StampSet{card, {}};
+    t_stamps = set;
+    return set;
+}
+
+// Stop stamping this thread's launches (the set stays readable).
+EXPORT void ell_stamps_close(void) { t_stamps = nullptr; }
+
+// Stamp this thread's launches into an open set again.
+EXPORT void ell_stamps_resume(void* p) { t_stamps = (StampSet*)p; }
+
+// The summed milliseconds of a closed set's windows; returns the events
+// to the pool and frees the set.  A window not yet complete is waited for
+// on its own end event; one that cannot be read is left out.
+EXPORT double ell_stamps_read(void* p) {
+    StampSet* set = (StampSet*)p;
+    double sum = 0.0;
+    for (size_t i = 0; i + 1 < set->ev.size(); i += 2) {
+        float m = 0.0f;
+        cudaError_t e = cudaEventElapsedTime(&m, set->ev[i], set->ev[i + 1]);
+        if (e == cudaErrorNotReady) {
+            cudaGetLastError();
+            e = cudaEventSynchronize(set->ev[i + 1]);
+            if (e == cudaSuccess)
+                e = cudaEventElapsedTime(&m, set->ev[i], set->ev[i + 1]);
+        }
+        if (e != cudaSuccess) {
+            cudaGetLastError();
+            continue;
+        }
+        sum += m;
+    }
+    give_events(set->card, set->ev.data(), set->ev.size());
+    delete set;
+    return sum;
+}
+
+// Free a set without reading it (its batch failed); its events go back
+// to the pool.
+EXPORT void ell_stamps_free(void* p) {
+    StampSet* set = (StampSet*)p;
+    give_events(set->card, set->ev.data(), set->ev.size());
+    delete set;
+}
 
 EXPORT const char* ell_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
@@ -1302,6 +1445,7 @@ EXPORT int ell_gather_or(const void* cur, const void* x_in, long long in_lo,
                          long long nrows, int W, int vec, const void* seed,
                          const void* wc_bits, const void* wc_live, void* out,
                          void* dst, void* stream) {
+    const Stamp stamp(stream);
     if (nrows <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
     // a wide row's indices over 4 lanes, each share a whole number of
@@ -1355,6 +1499,7 @@ EXPORT int ell_mesh_gather_or(void* const* ptrs, const int* n_dst,
                               int n_jobs, int split, int k, int iv,
                               long long nrows, int W, int vec,
                               void* stream) {
+    const Stamp stamp(stream);
     if (nrows <= 0 || n_jobs <= 0) return 0;
     if (n_jobs > kMeshJobs) return (int)cudaErrorInvalidValue;
     constexpr int kPer = 6 + kMeshDsts;
@@ -1448,6 +1593,7 @@ EXPORT int ell_perm_program(const void* cur, const void* code, int n_ins,
                             long long length, int W, int half, int depth,
                             int vec, const void* seed, void* out,
                             void* stream) {
+    const Stamp stamp(stream);
     if (length <= 0) return 0;
     return launch_perm_for(cur, code, n_ins, length, W, half, depth, vec,
                            seed, OneOut{(int32_t*)out},
@@ -1463,6 +1609,7 @@ EXPORT int ell_mesh_perm_program(const void* cur, const void* code,
                                  int half, int depth, int vec,
                                  const void* seed, void* const* dsts,
                                  int n_dst, void* stream) {
+    const Stamp stamp(stream);
     if (length <= 0) return 0;
     DstList out;
     if (!dst_list(dsts, n_dst, &out)) return (int)cudaErrorInvalidValue;
@@ -1491,6 +1638,7 @@ inline bool cav_narrow(long long R) {
 EXPORT int ell_cav_gather_or(const void* x, const void* idx, long long R,
                              int half, int dead, int vec, void* out,
                              void* stream) {
+    const Stamp stamp(stream);
     if (R <= 0 || half <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
     if (cav_narrow(R))
@@ -1520,6 +1668,7 @@ int launch_mesh_cav(const CavJobs& jobs, int n_jobs, long long R, int half,
 EXPORT int ell_mesh_cav_gather_or(void* const* ptrs, const int* n_dst,
                                   int n_jobs, long long R, int half,
                                   int dead, int vec, void* stream) {
+    const Stamp stamp(stream);
     if (R <= 0 || half <= 0 || n_jobs <= 0) return 0;
     if (n_jobs > kMeshJobs) return (int)cudaErrorInvalidValue;
     constexpr int kPer = 2 + kMeshDsts;
@@ -1547,6 +1696,7 @@ EXPORT int ell_mesh_cav_gather_or(void* const* ptrs, const int* n_dst,
 // out = [popcount(x_new ^ x_old) mod 2^32, any(x_new != x_old)].
 EXPORT int ell_sweep_delta(void* x_new, const void* x_old, long long nt,
                            int W, long long dead, void* out, void* stream) {
+    const Stamp stamp(stream);
     cudaStream_t s = (cudaStream_t)stream;
     int e = (int)cudaMemsetAsync((int32_t*)x_new + dead * W, 0,
                                  (size_t)W * 4, s);
@@ -1566,6 +1716,7 @@ EXPORT int ell_mesh_sweep_delta(const void* x_new, const void* x_old,
                                 long long nt, int W, long long dead,
                                 void* const* dsts, int n_dst, void* out,
                                 void* stream) {
+    const Stamp stamp(stream);
     DstList zero;
     if (!dst_list(dsts, n_dst, &zero)) return (int)cudaErrorInvalidValue;
     const long long n = nt * W;
@@ -1581,6 +1732,7 @@ EXPORT int ell_seed_bitplanes(const void* q, int B, long long nt, int W,
                               int planes, long long dead,
                               const void* wc_ranges, int n_wc, void* x0,
                               void* live, void* stream) {
+    const Stamp stamp(stream);
     cudaStream_t s = (cudaStream_t)stream;
     const long long S = (long long)W * (planes ? 2 : 1);
     int e = (int)cudaMemsetAsync(x0, 0, (size_t)nt * S * 4, s);
@@ -1602,6 +1754,7 @@ EXPORT int ell_seed_bitplanes(const void* q, int B, long long nt, int W,
 EXPORT int ell_check_gather(const void* x, int W, const void* gi,
                             const void* gc, long long G, void* out,
                             void* stream) {
+    const Stamp stamp(stream);
     if (G <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
     check_gather_kernel<<<grid_for(G, kBlock, 1LL << 30), kBlock, 0, s>>>(
@@ -1613,6 +1766,7 @@ EXPORT int ell_check_gather(const void* x, int W, const void* gi,
 EXPORT int ell_check_gather3(const void* x, int half, const void* gi,
                              const void* gc, long long G, void* out,
                              void* stream) {
+    const Stamp stamp(stream);
     if (G <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
     check_gather3_kernel<<<grid_for(G, kBlock, 1LL << 30), kBlock, 0, s>>>(
@@ -1623,6 +1777,7 @@ EXPORT int ell_check_gather3(const void* x, int half, const void* gi,
 
 EXPORT int ell_lookup_T(const void* x, int W, long long S, long long offset,
                         long long L, void* out, void* stream) {
+    const Stamp stamp(stream);
     if (L <= 0 || W <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
     const int wc = W < kLookupMaxChunk ? W : kLookupMaxChunk;
@@ -1649,6 +1804,7 @@ EXPORT int ell_lookup_T(const void* x, int W, long long S, long long offset,
 EXPORT int ell_scatter_rows(const void* src, long long R, int K,
                             const void* rows, long long b, const void* vals,
                             void* out, int vec, void* stream) {
+    const Stamp stamp(stream);
     const long long n = R * K;
     if (n <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
@@ -1680,6 +1836,7 @@ int launch_edge_or(const void* x, const void* src, const void* dst,
 // pointers' alignment.
 EXPORT int ell_edge_or(const void* x, const void* src, const void* dst,
                        long long E, int W, int dead, void* y, void* stream) {
+    const Stamp stamp(stream);
     if (E <= 0 || W <= 0) return 0;
     if (E > 0x7fffffffLL - (long long)kEdgeThreads * kEdgesPer)
         return (int)cudaErrorInvalidValue;
@@ -1707,6 +1864,7 @@ EXPORT int ell_edge_or(const void* x, const void* src, const void* dst,
 // words cover most of a row's sectors, the column read otherwise.
 EXPORT int ell_word_cols_T(const void* plane, int Wc, const void* words,
                            int K, long long R, void* out, void* stream) {
+    const Stamp stamp(stream);
     if (K <= 0 || R <= 0) return 0;
     if (R > 0x7fffffffLL || Wc <= 0) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
@@ -1753,6 +1911,7 @@ int launch_or_combine(const Parts& parts, int g, long long n, int vec,
 // 16-byte aligned.
 EXPORT int ell_or_combine(const void* const* ptrs, int g, long long n,
                           int vec, void* stream) {
+    const Stamp stamp(stream);
     if (n <= 0 || g == 1) return 0;
     if (g < 1 || g > kMaxParts) return (int)cudaErrorInvalidValue;
     Parts parts = {};

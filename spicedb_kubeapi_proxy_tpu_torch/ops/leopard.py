@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from ..spicedb import schema as sch
+from ..utils import devtel, metrics
 from . import kernels
 from .ell import _to_device
 from .graph_compile import GraphProgram, PRead, PUnion, PZero, SELF_SLOT
@@ -63,6 +64,27 @@ BUDGET_ENV = "SPICEDB_TPU_LEOPARD_BUDGET_BYTES"
 DEFAULT_BUDGET_BYTES = 64 << 20
 FRONTIER_ENV = "SPICEDB_TPU_LEOPARD_FRONTIER"
 DEFAULT_FRONTIER_PASSES = 16
+
+
+# -- metrics (authz_leopard_*, reference leopard.py:77-95) --------------------
+
+_INDEX_BYTES = metrics.REGISTRY.gauge(
+    "authz_leopard_index_bytes",
+    "Resident closure bytes (host bitsets + device planes) of the live "
+    "Leopard index")
+_FRAGMENTS = metrics.REGISTRY.gauge(
+    "authz_leopard_fragments",
+    "Leopard fragments by state", labels=("state",))
+_HITS = metrics.REGISTRY.counter(
+    "authz_leopard_hits",
+    "Check/lookup rows answered from the Leopard closure plane",
+    labels=("verb",))
+_QUARANTINES = metrics.REGISTRY.counter(
+    "authz_leopard_quarantines",
+    "Fragment quarantines (unprovable delete or frontier overflow)")
+_REBUILDS = metrics.REGISTRY.counter(
+    "authz_leopard_rebuilds",
+    "Closure (re)builds", labels=("mode",))
 
 
 def budget_bytes() -> int:
@@ -435,6 +457,8 @@ class LeopardIndex:
             idx._frags.append(frag)
             idx._by_pair[pair] = frag
             idx.statuses[key] = "indexed"
+            _REBUILDS.inc(mode="build")
+        idx._note_gauges()
         return idx
 
     def _materialize(self, pair: Tuple[str, str],
@@ -553,7 +577,47 @@ class LeopardIndex:
         self.upload_s += time.perf_counter() - t0
         self.uploads += 1
 
+    def register_ledger(self, gen: int) -> int:
+        """Register every live plane under graph generation `gen` (one
+        row per plane block, with its card under a mesh); returns the
+        bytes.  The endpoint retires the generation wholesale at the
+        next install (reference leopard.py:530-554)."""
+        total = 0
+        for frag in self._frags:
+            if frag.plane is None:
+                continue
+            name = f"leopard:{frag.pair[0]}#{frag.pair[1]}"
+            for g, block in enumerate(frag.plane):
+                nb = devtel.tensor_bytes(block)
+                if self.mesh is not None:
+                    devtel.LEDGER.register(
+                        "leopard_plane", nb, generation=gen,
+                        name=f"{name}:g{g}", device=block.device.index or 0)
+                else:
+                    devtel.LEDGER.register("leopard_plane", nb,
+                                           generation=gen, name=name)
+                total += nb
+        return total
+
     # -- introspection -------------------------------------------------------
+
+    def _note_gauges(self) -> None:
+        """The authz_leopard_index_bytes and _fragments gauges of this
+        (the newest) index."""
+        _INDEX_BYTES.set(float(sum(
+            f.nbytes_host + devtel.tensor_bytes(*(f.plane or ()))
+            for f in self._frags)))
+        states = {"indexed": 0, "quarantined": 0, "retired": 0}
+        for f in self._frags:
+            states["retired" if f.retired else
+                   "quarantined" if f.quarantined else "indexed"] += 1
+        for k, v in states.items():
+            _FRAGMENTS.set(float(v), state=k)
+
+    def note_hits(self, verb: str, n: int) -> None:
+        """Rows of a batch answered from the closure planes."""
+        if n:
+            _HITS.inc(float(n), verb=verb)
 
     def status_map(self) -> Dict[str, str]:
         """Per-pair status: indexed, indexed(quarantined) or
@@ -689,12 +753,15 @@ class LeopardIndex:
         frag.quarantined = True
         frag.live = False
         self.quarantines += 1
+        _QUARANTINES.inc()
+        self._note_gauges()
 
     def _retire_locked(self, frag: _Fragment, reason: str) -> None:
         frag.retired = True
         frag.live = False
         frag.quarantined = False
         frag.reason = reason
+        self._note_gauges()
 
     # -- background re-close -------------------------------------------------
 
@@ -730,5 +797,7 @@ class LeopardIndex:
                 frag.live = True
                 self.reclose_s += time.perf_counter() - t0
                 self.recloses += 1
+                _REBUILDS.inc(mode="reclose")
+                self._note_gauges()
                 return True
         return False

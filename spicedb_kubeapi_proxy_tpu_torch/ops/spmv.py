@@ -37,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import devtel
 from . import kernels
 from .ell import _to_device, compile_perm_program
 from .graph_compile import GraphProgram
@@ -76,13 +77,17 @@ class _Arena:
     b: torch.Tensor
 
 
-class KernelCache:
+class KernelCache(devtel.ArenaLedger):
     """Packed check/lookup entry points of the segment sweep for one
     program on one device — the pipelined entries of the reference's
     spmv.KernelCache (`_pipe_fns`), with the sweep trace always on:
     every call returns an int32 [1 + num_iters] trace, entry 0 the
     executed sweep count and entry 1 + i the changed bits of sweep i.
-    Checks are {0, 2} (the segment kernel has no MAYBE plane)."""
+    Checks are {0, 2} (the segment kernel has no MAYBE plane).  Its
+    pooled arenas are ledger rows of its graph generation."""
+
+    # metric label of authz_sweep_iterations / authz_frontier_decay
+    kernel_name = "segment"
 
     def __init__(self, prog: GraphProgram, device,
                  num_iters: Optional[int] = None):
@@ -135,9 +140,14 @@ class KernelCache:
             a = self._arenas.pop(n_words, None)
         if a is not None:
             return a
-        return _Arena(*(torch.empty((self.prog.state_size, n_words),
-                                    dtype=torch.int32, device=self.device)
-                        for _ in range(3)))
+        a = _Arena(*(torch.empty((self.prog.state_size, n_words),
+                                 dtype=torch.int32, device=self.device)
+                     for _ in range(3)))
+        self._ledger_arena(n_words, a)
+        return a
+
+    def _arena_tensors(self, arena: _Arena) -> tuple:
+        return (arena.x0, arena.a, arena.b)
 
     def put_arena(self, n_words: int, arena: _Arena) -> None:
         with self._arena_lock:
@@ -146,6 +156,7 @@ class KernelCache:
     def discard_arena(self, n_words: int) -> None:
         with self._arena_lock:
             self._arenas.pop(n_words, None)
+        self._unledger_arena(n_words)
 
     # -- the sweep -----------------------------------------------------------
 
@@ -222,7 +233,8 @@ class KernelCache:
         try:
             q = _to_device(q_idx, self.device)
             x, trace = self.evaluate(q, n_words, edge_src, edge_dst, arena)
-            out = finish(x)
+            with kernels.unstamped():
+                out = finish(x)
         except BaseException:
             # after a failed call the bucket's buffers are suspect
             self.discard_arena(n_words)

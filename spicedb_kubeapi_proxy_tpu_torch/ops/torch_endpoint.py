@@ -58,7 +58,20 @@ What this endpoint carries over from the reference, and what not yet:
   bucket of the prewarm lanes, runs one check and one lookup batch per
   slot range, so each bucket's arena exists and its sweep graphs are
   captured before the first request (`prewarm_rebuilds` does the same
-  on background candidates before their swap).
+  on background candidates before their swap);
+- device telemetry (the reference's hooks, jax_endpoint.py:167-254,
+  :2364-3053): each generation's device tensors are rows of the HBM
+  ledger (utils/devtel.py; id views are host arrays here, and are not
+  rows), retired wholesale at the next install; a
+  kernel batch's device time is the sum of CUDA-event pairs on its launch
+  stream, one around each launcher's launches and one inside each sweep
+  graph, read when its readback completes (`kernels.DeviceWindow`: host
+  gaps between launches and sweeps are not counted), feeding
+  the kernel accounting, the dispatch timeline's device track
+  (utils/timeline.py) and, with the batch's sweep trace, the workload
+  attribution (utils/workload.py), whose measured deep pairs order each
+  generation's Leopard candidates.  Kernel phases open NVTX ranges on a
+  card.  None of it synchronizes the device.
 
 Reads are fully consistent w.r.t. the store: pending deltas are applied
 under the endpoint lock before a query captures its snapshot.
@@ -105,7 +118,7 @@ from ..spicedb.types import (
     UpdateOp,
     WatchUpdate,
 )
-from ..utils import features
+from ..utils import devtel, features, timeline, tracing, workload
 from ..utils.failpoints import fail_point
 from . import kernels
 from .ell import (K_AUX, EllKernelCache, _to_device, batch_words,
@@ -173,6 +186,45 @@ def _evict_id_views(graph) -> None:
         graph.ids_np_published.clear()
 
 
+_LEDGER_TABLES = (("dev_main", "ell_main"), ("dev_aux", "ell_aux"),
+                  ("dev_cav", "ell_cav"), ("edge_src", "segment_edges"),
+                  ("edge_dst", "segment_edges"))
+
+
+def _register_graph_buffers(graph, gen: int) -> int:
+    """Register one generation's device tensors with the HBM ledger
+    (utils/devtel.py) under `gen`: the tables (a mesh graph's blocks,
+    one row a distinct block with its card) and the kernel cache's
+    pooled arenas.  Returns their bytes.  Only device tensors are rows,
+    so the ledger is a lower bound of what the caching allocator holds:
+    the port's id views are host arrays, and the reference's modeled
+    per-call scratch is not registered.  A flush swaps tables for new
+    ones of the same shape, so the sizes stay exact for the generation's
+    life.  A finalizer retires the generation when the graph is
+    collected; it only queues the retirement (it may run inside a gc
+    triggered on a thread that holds the ledger's lock)."""
+    import weakref
+    graph.devtel_gen = gen
+    total = 0
+    kern = graph.kernel
+    if hasattr(kern, "ledger_blocks"):
+        for k, (kind, dev, t) in enumerate(kern.ledger_blocks()):
+            nb = devtel.tensor_bytes(t)
+            devtel.LEDGER.register(kind, nb, generation=gen,
+                                   name=f"{kind}:{k}", device=dev)
+            total += nb
+    else:
+        for attr, kind in _LEDGER_TABLES:
+            t = getattr(graph, attr, None)
+            if t is not None:
+                nb = devtel.tensor_bytes(t)
+                devtel.LEDGER.register(kind, nb, generation=gen, name=attr)
+                total += nb
+    total += kern.set_ledger_generation(gen)
+    weakref.finalize(graph, devtel.LEDGER.defer_retire, gen)
+    return total
+
+
 def _rel_from_key(key: tuple) -> Relationship:
     """The identity fields of a relationship from its key (enough for
     edge endpoints)."""
@@ -192,12 +244,14 @@ def _sweep_bytes(graph, lanes: int) -> int:
     port's `edge_or` moves."""
     if isinstance(graph, _SegmentGraph):
         return int(graph.edge_src.shape[0]) * 2 * lanes * 4
-    n, km = graph.dev_main.shape
-    a_rows, ka = graph.dev_aux.shape
+    # the host tables have the device tables' shapes (a mesh graph's
+    # device blocks pad them)
+    n, km = graph.host_main.shape
+    a_rows, ka = graph.host_aux.shape
     rows = n * (km + 1) + graph.kernel.aux_passes * a_rows * (ka + 1)
     width = max(1, lanes // 32) * 4
     if graph.has_cav:
-        rows += (n + a_rows) * (graph.dev_cav.shape[1] + 1)
+        rows += (n + a_rows) * (graph.host_cav.shape[1] + 1)
         width *= 2
     return rows * width
 
@@ -279,6 +333,15 @@ class _Readback:
         return self.host
 
 
+def _device_window(device: torch.device):
+    """A kernel batch's device window (`kernels.DeviceWindow`), or None
+    when no switch records one (DEVICE_TELEMETRY, TIMELINE and
+    KERNEL_INTROSPECT all off)."""
+    if devtel.enabled() or timeline.enabled() or workload.enabled():
+        return kernels.DeviceWindow(device)
+    return None
+
+
 def _unify_check_buckets(q_arr, gather_idx, gather_col) -> tuple:
     """Pad the check gather to a power-of-two bucket floored at the lane
     width (padded slots re-read (row 0, col 0) and are discarded); the
@@ -309,7 +372,11 @@ class _PrewarmMixin:
     pay is the kernel library's build and load, its bucket's arena, the
     first sweep launched step by step and, on the ELL graph, the capture
     of the arena's two sweep graphs (ops/ell.py `_capture`).  The flush
-    has nothing to warm: `scatter_rows` is one launch at any row count."""
+    has nothing to warm: `scatter_rows` is one launch at any row count.
+    `devtel_gen` is the generation's HBM-ledger key, set at its install
+    (0 before)."""
+
+    devtel_gen = 0
 
     def prewarm(self, lanes: Iterable[int],
                 slot_ranges: Iterable[tuple]) -> int:
@@ -907,9 +974,10 @@ class _GenState:
     __slots__ = ("_graph", "_graph_revision", "_spare_pool",
                  "_assigned_refs", "_spare_seq", "_caveat_affected",
                  "_caveated_keys", "_expiry_heap", "_expiry_meta",
-                 "_stale_pairs", "_leopard")
+                 "_stale_pairs", "_leopard", "t_start")
 
     def __init__(self):
+        self.t_start = timeline.now()   # the rebuild slice's start
         self._graph = None
         self._graph_revision = 0
         self._spare_pool: dict = {}
@@ -1019,6 +1087,11 @@ class TorchEndpoint(PermissionsEndpoint):
         self._leopard_wanted = bool(leopard)
         self._leopard: Optional[LeopardIndex] = None
         self._leo_futures: list = []
+        # the HBM-ledger generation of the live graph (0 before the
+        # first install); NVTX ranges open around kernel phases on a card
+        self._devtel_gen = 0
+        self._nvtx = self.device.type == "cuda"
+        workload.WORKLOAD.note_schema(schema)
         self.store.add_delta_listener(self._on_delta)
         self.store.add_reset_listener(self._on_reset)
 
@@ -1279,6 +1352,7 @@ class TorchEndpoint(PermissionsEndpoint):
         try:
             self._bg_future = _rebuild_pool().submit(self._bg_rebuild_run,
                                                      mode)
+            devtel.REBUILDS.note_inflight(+1)
         except RuntimeError:    # the executor is shut down
             # a failed submit must not latch _bg_inflight, which would
             # pin the stale pairs on the oracle for good
@@ -1351,6 +1425,7 @@ class TorchEndpoint(PermissionsEndpoint):
                 self._bg_not_before = (time.monotonic()
                                        + self._BG_RETRY_BACKOFF_S)
         finally:
+            devtel.REBUILDS.note_inflight(-1)
             with self._lock:
                 self._bg_pending = None
                 self._bg_inflight = False
@@ -1470,13 +1545,16 @@ class TorchEndpoint(PermissionsEndpoint):
             self._reset_expiry(st, tuples)
         st._graph = graph
         # the closure is seeded from the compiled edges, so it reflects
-        # exactly this generation's revision; the port has no workload
-        # plane, so no candidate pairs go first
+        # exactly this generation's revision; the pairs the workload
+        # plane measured deep and recursive go first, so the byte budget
+        # goes to measured wins (reference jax_endpoint.py:1590-1604)
         if self._leopard_wanted:
+            cand = tuple((c["resource_type"], c["permission"])
+                         for c in workload.WORKLOAD.leopard_candidates())
             st._leopard = LeopardIndex.build(
                 self.schema, prog,
                 caveat_affected=frozenset(st._caveat_affected),
-                device=self.device, mesh=self.mesh)
+                candidate_order=cand, device=self.device, mesh=self.mesh)
         return st
 
     def _install_candidate(self, st: _GenState, mode: str = "sync") -> None:
@@ -1505,6 +1583,19 @@ class TorchEndpoint(PermissionsEndpoint):
         self._gen_epoch += 1
         self._rebuild_epoch += 1
         self.stats["rebuilds"] += 1
+        # the HBM ledger: the new generation's rows in, the outgoing
+        # generation's out wholesale (its tensors go when the last batch
+        # holding its snapshot drops it)
+        devtel.REBUILDS.note_rebuild(mode)
+        old_gen, self._devtel_gen = self._devtel_gen, devtel.next_generation()
+        added = _register_graph_buffers(st._graph, self._devtel_gen)
+        if st._leopard is not None:
+            added += st._leopard.register_ledger(self._devtel_gen)
+            workload.WORKLOAD.note_leopard_status(st._leopard.status_map())
+        if old_gen:
+            devtel.LEDGER.retire_generation(old_gen)
+        timeline.record("rebuild", "rebuild", st.t_start, nbytes=added,
+                        generation=self._devtel_gen, mode=mode)
         if mode != "sync":
             # every off-loop install, preemptive ones included; an
             # abandoned candidate counts nowhere
@@ -1818,9 +1909,13 @@ class TorchEndpoint(PermissionsEndpoint):
     def _check_batch_capture(self, reqs: list) -> dict:
         """Phase 1 of a fused check batch: encode under the lock, then
         dispatch the kernel outside it on the immutable table snapshot."""
+        bid = timeline.next_batch()
         with self._lock:
             graph = self._current_graph()
             rev = self._graph_revision
+            # timeline "pack": the host query encode and gather list,
+            # after the delta drain so a rebuild is never counted here
+            t_pack = timeline.now()
             q_arr, cols, unknown = self._encode_subjects(
                 graph, [r.subject for r in reqs])
             gather_idx: list[int] = []
@@ -1899,20 +1994,54 @@ class TorchEndpoint(PermissionsEndpoint):
                         (np.asarray(sidx, np.int64)[ok] - off).astype(
                             np.int32), lcol[ok].astype(np.int32)))
                     self.stats["leopard_checks"] += int(ok.sum())
+            timeline.record("pack", "host", t_pack, batch=bid,
+                            bucket=len(q_arr), nbytes=int(q_arr.nbytes))
             if kernel_rows:
                 snap = graph.snapshot()
                 self.stats["kernel_calls"] += 1
+                # occupancy of a batch the kernel runs: distinct query
+                # columns against the padded lane bucket
+                used = len(set(cols.values()))
+                devtel.OCCUPANCY.record("check", used, len(q_arr) - used)
         ctx = {"reqs": reqs, "results": results, "kernel_rows": kernel_rows,
-               "oracle_rows": oracle_rows, "rev": rev}
+               "oracle_rows": oracle_rows, "rev": rev, "batch_id": bid}
         if leo_rows:
-            ctx["leopard"] = [(rows, self._start_readback(vals))
-                              for rows, vals in
-                              self._leo_check_launch(leo_rows)]
+            # one bit gather a row instead of the sweep: measured depth 1
+            with tracing.kernel_span("kernel.leopard", nvtx=self._nvtx,
+                                     kind="check") as a:
+                a["batch_id"] = bid
+                ctx["leopard"] = [(rows, self._start_readback(vals))
+                                  for rows, vals in
+                                  self._leo_check_launch(leo_rows)]
+            leo_reqs = [reqs[i] for _v, idx, _r, _c in leo_rows for i in idx]
+            workload.WORKLOAD.note_batch(workload.comp_rows(leo_reqs),
+                                         "check", 1, None)
+            leo.note_hits("check", len(leo_reqs))
+        if oracle_rows:
+            workload.WORKLOAD.note_oracle(
+                workload.comp_rows([reqs[i] for i in oracle_rows]))
         if kernel_rows:
-            dev, tel, _ = graph.run_checks3_device(q_arr, gather_idx,
-                                                   gather_col, snap=snap)
+            comp = workload.comp_rows([reqs[i] for i in kernel_rows])
+            workload.WORKLOAD.note_batch(comp, "check",
+                                         occupancy=used / len(q_arr))
+            with tracing.kernel_span("kernel.launch", nvtx=self._nvtx,
+                                     kind="check", rows=len(kernel_rows),
+                                     bucket=len(q_arr)) as a:
+                a["batch_id"] = bid
+                win = _device_window(self.device)
+                try:
+                    dev, tel, kern = graph.run_checks3_device(
+                        q_arr, gather_idx, gather_col, snap=snap)
+                except BaseException:
+                    if win is not None:
+                        win.discard()
+                    raise
+                if win is not None:
+                    win.close()
             graph.last_trace = tel
             ctx["out"] = self._start_readback(dev)
+            ctx["device"] = (win, tel, comp, _sweep_bytes(graph, len(q_arr)),
+                             kern.kernel_name, "check", len(q_arr))
         return ctx
 
     def _start_readback(self, dev: torch.Tensor) -> _Readback:
@@ -1926,14 +2055,41 @@ class TorchEndpoint(PermissionsEndpoint):
                     rb.host.element_size()
         return rb
 
-    def _wait_readback(self, rb: _Readback) -> np.ndarray:
-        """The host copy of a started readback, as numpy."""
+    def _wait_readback(self, rb: _Readback, bid: int) -> np.ndarray:
+        """The host copy of a started readback, as numpy; the wait is a
+        `transfer` slice of batch `bid` on the timeline's device track."""
         t0 = time.perf_counter()
-        host = rb.wait()
+        with tracing.kernel_span("kernel.wait", nvtx=self._nvtx) as a:
+            a["batch_id"] = bid
+            host = rb.wait()
+        t1 = time.perf_counter()
         if rb.event is not None:
             with self._readback_lock:
-                self.stats["readback_wait_s"] += time.perf_counter() - t0
+                self.stats["readback_wait_s"] += t1 - t0
+        timeline.record("transfer", "device", t0, t1, batch=bid,
+                        nbytes=host.numel() * host.element_size())
         return host.numpy()
+
+    def _note_device_batch(self, ctx: dict) -> None:
+        """After a kernel batch's readback: its sweep trace into the
+        workload plane (measured depth), and its device window — with the
+        bytes of its executed sweeps, or of one sweep when the trace is
+        not recorded — into the kernel accounting, the timeline's device
+        track and the per-pair device time."""
+        win, tel, comp, sweep_bytes, kernel, verb, bucket = ctx["device"]
+        nbytes, measured = sweep_bytes, False
+        rec = workload.note_sweep(kernel, verb, tel)
+        if rec is not None and rec.iterations > 0:
+            nbytes, measured = rec.iterations * sweep_bytes, True
+            workload.WORKLOAD.note_depth(comp, rec.iterations)
+        if win is not None:
+            kind = "check" if verb == "check" else "lookup_batch"
+            tracing.note_device_window(
+                "kernel.device", {"kind": kind, "bucket": bucket,
+                                  "workload": comp,
+                                  "batch_id": ctx["batch_id"],
+                                  "nbytes": nbytes, "measured": measured},
+                win.t0, win.seconds())
 
     def _leo_check_launch(self, leo_rows: list) -> list:
         """Launch one `check_gather` per closure plane (per plane block
@@ -1951,18 +2107,23 @@ class TorchEndpoint(PermissionsEndpoint):
         The endpoint lock is not taken: the answers are those of the
         snapshot the capture took."""
         results = ctx["results"]
+        bid = ctx["batch_id"]
         for rows, rb in ctx.get("leopard", ()):
-            for i, v in zip(rows, self._wait_readback(rb).tolist()):
+            for i, v in zip(rows, self._wait_readback(rb, bid).tolist()):
                 results[i] = (v, ctx["rev"])
         if "out" in ctx:
-            out = self._wait_readback(ctx["out"])
+            out = self._wait_readback(ctx["out"], bid)
+            self._note_device_batch(ctx)
             for j, row in enumerate(ctx["kernel_rows"]):
                 results[row] = (int(out[j]), ctx["rev"])
-        for i in ctx["oracle_rows"]:
-            r = ctx["reqs"][i]
-            results[i] = (self._oracle.check3(r.resource, r.permission,
-                                              r.subject),
-                          self.store.revision)
+        if ctx["oracle_rows"]:
+            with tracing.span("kernel.oracle", kind="check",
+                              rows=len(ctx["oracle_rows"])):
+                for i in ctx["oracle_rows"]:
+                    r = ctx["reqs"][i]
+                    results[i] = (self._oracle.check3(
+                        r.resource, r.permission, r.subject),
+                        self.store.revision)
         oracle_set = set(ctx["oracle_rows"])
         return [CheckResult(permissionship=self._TRISTATE[v], checked_at=at,
                             source="oracle" if i in oracle_set else "kernel")
@@ -2002,7 +2163,10 @@ class TorchEndpoint(PermissionsEndpoint):
         """Phase 1 of a fused batch lookup: capture a consistent (snapshot,
         id view) pair under the lock and dispatch the kernel outside it."""
         self.schema.definition(resource_type)  # raises like the oracle
-        ctx = {"rt": resource_type, "perm": permission, "subjects": subjects}
+        bid = timeline.next_batch()
+        ctx = {"rt": resource_type, "perm": permission, "subjects": subjects,
+               "batch_id": bid}
+        comp = [(resource_type, permission, len(subjects))]
         with self._lock:
             graph = self._current_graph()
             if (resource_type, permission) in self._stale_pairs:
@@ -2010,7 +2174,6 @@ class TorchEndpoint(PermissionsEndpoint):
                 # the host oracle answers exactly until the swap
                 self.stats["stale_routed"] += 1
                 ctx["all_oracle"] = True
-                return ctx
             rng = graph.prog.slot_range(resource_type, permission)
             # a plane-capable kernel returns the DEFINITE plane, which
             # skips CONDITIONAL results as LookupResources must; without
@@ -2018,8 +2181,15 @@ class TorchEndpoint(PermissionsEndpoint):
             if (((resource_type, permission) in self._caveat_affected
                  and not graph.tri_state_capable) or rng is None):
                 ctx["all_oracle"] = True
+            if ctx.get("all_oracle"):
+                workload.WORKLOAD.note_oracle(comp)
                 return ctx
+            t_pack = timeline.now()
             q_arr, cols, unknown = self._encode_subjects(graph, subjects)
+            timeline.record("pack", "host", t_pack, batch=bid,
+                            bucket=len(q_arr), nbytes=int(q_arr.nbytes))
+            used = len(set(cols.values()))
+            devtel.OCCUPANCY.record("lookup", used, len(q_arr) - used)
             snap = graph.snapshot()
             ids, mask = _object_ids_np(graph, resource_type)
             ph = graph.prog.object_index[resource_type].get(PHANTOM_ID)
@@ -2040,23 +2210,45 @@ class TorchEndpoint(PermissionsEndpoint):
                 if lcols is not None:
                     leo = (frag.view, lcols)
                     self.stats["leopard_lookups"] += len(lcols)
+                    leo_index = self._leopard
             if leo is None:
                 self.stats["kernel_calls"] += 1
         ctx.update(cols=cols, unknown=unknown, ids=ids, mask=mask, ph=ph)
+        occ = used / len(q_arr)
         if leo is not None:
             # the batch's distinct closure word columns, one launch (one
-            # per plane block under a mesh)
+            # per plane block under a mesh): measured depth 1
             view, lcols = leo
             words = sorted({lcol // 32 for lcol in lcols.values()})
-            rb = (self._start_readback(plane_word_cols(view, words))
-                  if words else None)
+            with tracing.kernel_span("kernel.leopard", nvtx=self._nvtx,
+                                     kind="lookup_batch") as a:
+                a["batch_id"] = bid
+                rb = (self._start_readback(plane_word_cols(view, words))
+                      if words else None)
             ctx["leopard"] = (rb, {w: k for k, w in enumerate(words)},
                               lcols)
+            workload.WORKLOAD.note_batch(comp, "lookup", 1, occ)
+            leo_index.note_hits("lookup", len(lcols))
             return ctx
-        dev, tel, _ = graph.run_lookup_packed_T_device(rng[0], rng[1], q_arr,
-                                                       snap=snap)
+        workload.WORKLOAD.note_batch(comp, "lookup", occupancy=occ)
+        with tracing.kernel_span("kernel.launch", nvtx=self._nvtx,
+                                 kind="lookup_batch", batch=len(subjects),
+                                 bucket=len(q_arr)) as a:
+            a["batch_id"] = bid
+            win = _device_window(self.device)
+            try:
+                dev, tel, kern = graph.run_lookup_packed_T_device(
+                    rng[0], rng[1], q_arr, snap=snap)
+            except BaseException:
+                if win is not None:
+                    win.discard()
+                raise
+            if win is not None:
+                win.close()
         graph.last_trace = tel
         ctx["dev"] = self._start_readback(dev)
+        ctx["device"] = (win, tel, comp, _sweep_bytes(graph, len(q_arr)),
+                         kern.kernel_name, "lookup", len(q_arr))
         return ctx
 
     def _lookup_batch_extract(self, ctx: dict) -> list:
@@ -2065,13 +2257,14 @@ class TorchEndpoint(PermissionsEndpoint):
         (columns shared by several subjects are decoded once), from the
         id view the capture took."""
         rt, perm = ctx["rt"], ctx["perm"]
+        bid = ctx["batch_id"]
         if ctx.get("all_oracle"):
-            return [AnnotatedIds(self._oracle.lookup_resources(rt, perm, s),
-                                 source="oracle")
-                    for s in ctx["subjects"]]
+            with tracing.span("kernel.oracle", kind="lookup_batch"):
+                return [AnnotatedIds(self._oracle.lookup_resources(
+                    rt, perm, s), source="oracle") for s in ctx["subjects"]]
         if "leopard" in ctx:
             rb, word_row, lcols = ctx["leopard"]
-            word_cols = (self._wait_readback(rb).view(np.uint32)
+            word_cols = (self._wait_readback(rb, bid).view(np.uint32)
                          if rb is not None else None)   # [K, plane rows]
 
             def col_indices(col):
@@ -2079,7 +2272,9 @@ class TorchEndpoint(PermissionsEndpoint):
                 return _word_col_indices(word_cols[word_row[lcol // 32]],
                                          lcol % 32)
         else:
-            packed_T = self._wait_readback(ctx["dev"]).view(np.uint32)  # [W, L]
+            packed_T = self._wait_readback(ctx["dev"], bid).view(
+                np.uint32)  # [W, L]
+            self._note_device_batch(ctx)
 
             def col_indices(col):
                 return _word_col_indices(packed_T[col // 32], col % 32)
@@ -2087,6 +2282,7 @@ class TorchEndpoint(PermissionsEndpoint):
         cols, unknown = ctx["cols"], ctx["unknown"]
         per_col: dict = {}
         out = []
+        t_ext = timeline.now()
         for s in ctx["subjects"]:
             if s in unknown:
                 out.append(AnnotatedIds(
@@ -2111,6 +2307,7 @@ class TorchEndpoint(PermissionsEndpoint):
                     lst = AnnotatedIds(got, source="kernel")
                 per_col[col] = lst
             out.append(lst)
+        timeline.record("extract", "host", t_ext, batch=bid)
         return out
 
     def _lookup_batch_sync(self, resource_type: str, permission: str,

@@ -44,6 +44,7 @@ from ..ops.graph_compile import GraphProgram
 from ..ops.spmv import KernelCache as SegmentKernelCache
 from ..ops.kernels.reference import reads_in_place
 from ..ops.spmv import MAX_ITERATIONS, bucket, pad_edges
+from ..utils import devtel
 from .collectives import (all_gather_rows, or_allreduce, reduce_data_deltas,
                           reduce_sweep_deltas)
 
@@ -217,7 +218,7 @@ def _join_lookup(x: list, slot_offset: int, slot_length: int,
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
-class ShardedEllKernel:
+class ShardedEllKernel(devtel.ArenaLedger):
     """The bit-packed fixed-fanin sweep over a (data x graph) mesh — the
     reference's ShardedEllKernel (parallel/sharding.py:276-893).
 
@@ -261,7 +262,8 @@ class ShardedEllKernel:
 
     A whole batch (arena take, sweeps, readback) runs under one lock, as
     the reference's `_dispatch_lock`: the shards of a batch share the
-    bucket's arenas."""
+    bucket's arenas.  The pooled arenas are ledger rows of the graph
+    generation, like the tables' blocks (`ledger_blocks`)."""
 
     kernel_name = "ell"
 
@@ -488,7 +490,27 @@ class ShardedEllKernel:
         first use."""
         with self._arena_lock:
             a = self._arenas.pop(n_words, None)
-        return a if a is not None else self._alloc_arenas(n_words)
+        if a is None:
+            a = self._alloc_arenas(n_words)
+            self._ledger_arena(n_words, a)
+        return a
+
+    def _arena_tensors(self, arenas: list) -> tuple:
+        return tuple(t for row in arenas for ar in row for t in ar)
+
+    def ledger_blocks(self) -> list:
+        """(kind, device index, block) of every distinct table block:
+        replicas on one card share a block, which counts once."""
+        out, seen = [], set()
+        for kind, blocks in (("ell_main", self.idx_main),
+                             ("ell_aux", self.idx_aux),
+                             ("ell_cav", self.idx_cav)):
+            for row in blocks or ():
+                for t in row:
+                    if id(t) not in seen:
+                        seen.add(id(t))
+                        out.append((kind, t.device.index or 0, t))
+        return out
 
     def put_arena(self, n_words: int, arenas: list) -> None:
         with self._arena_lock:
@@ -497,6 +519,7 @@ class ShardedEllKernel:
     def discard_arena(self, n_words: int) -> None:
         with self._arena_lock:
             self._arenas.pop(n_words, None)
+        self._unledger_arena(n_words)
 
     # -- the sweep ------------------------------------------------------------
 
@@ -671,7 +694,8 @@ class ShardedEllKernel:
             arenas = self.take_arena(n_words)
             try:
                 x, trace = self.evaluate(q_idx, n_words, tables, arenas)
-                out = finish(x)
+                with kernels.unstamped():
+                    out = finish(x)
             except BaseException:
                 # a failed batch returns no arenas and drops the pooled
                 # ones: after a device fault their buffers are suspect
@@ -875,7 +899,8 @@ class ShardedKernel:
         qp[: len(q)] = q
         with self._dispatch_lock:
             x, trace = self.evaluate(qp, w, edge_src, edge_dst)
-            out = finish(x, w // n_data)
+            with kernels.unstamped():
+                out = finish(x, w // n_data)
         self.last_trace = trace
         return out
 

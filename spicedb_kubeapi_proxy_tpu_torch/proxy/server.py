@@ -7,8 +7,11 @@ Chain (bottom-up, reference server.go:153-160):
   Authorization -> ReverseProxy(upstream, ModifyResponse=FilterResp)
 
 plus /readyz and /livez health endpoints, the authenticated /metrics
-scrape, and the embedded in-process client with header-injecting
-transport (reference server.go:282-403 and pkg/inmemory).
+scrape and /debug surfaces (traces, decisions, flight, timeline,
+workload, profile), the flight recorder with its SLO burn rates
+(utils/devtel.py), and the embedded in-process client with
+header-injecting transport (reference server.go:282-403 and
+pkg/inmemory).
 
 `ProxyServer(Options(spicedb_endpoint="torch://"))` serves on the CUDA
 card through the batched `torch://` endpoint; `torch://?device=cpu` runs
@@ -20,16 +23,16 @@ Update rules write through it; without it an update rule answers 500
 the reference, each with its `Options` fields (passing one is a
 TypeError): the durable store (`data_dir`, `wal_fsync`,
 `checkpoint_interval`), replication and sharding (`replicate_from` ...
-`replica_id`, `shards`, `partition_map`), fleet tracing
-(`fleet_peers`), device telemetry and the flight recorder (`flight_*`,
-`slo_*`, `device_hbm_peak_gbps`, `shed_slo_burn`) and the /debug
-surfaces.
+`replica_id`, `shards`, `partition_map`) and fleet tracing
+(`fleet_peers`), with their /debug surfaces (`replication`, `sharding`,
+`fleet`, `tail`).
 """
 
 from __future__ import annotations
 
 import asyncio
 import contextvars
+import inspect
 import json
 import logging
 import ssl
@@ -46,7 +49,7 @@ from ..authz.responsefilterer import FilterError
 from ..config import proxyrule
 from ..rules.engine import MapMatcher
 from ..spicedb.endpoints import Bootstrap, PermissionsEndpoint, create_endpoint
-from ..utils import tracing
+from ..utils import timeline, tracing
 from ..utils.admission import AdmissionRejectedError, LoadShedder
 from ..utils.audit import (
     AuditSink,
@@ -80,8 +83,16 @@ logger = logging.getLogger("spicedb_kubeapi_proxy_tpu_torch.proxy")
 
 _KV_TRUNCATE = 200  # keep object/body values from flooding the log line
 
-# health endpoints and the metrics scrape are not themselves traced
-_UNTRACED_PATHS = frozenset(("/metrics", "/readyz", "/livez", "/healthz"))
+# health and introspection endpoints are not themselves traced (a scrape
+# of /debug/traces must not evict a real slow trace from the recorder)
+_UNTRACED_PATHS = frozenset(
+    ("/metrics", "/debug", "/readyz", "/livez", "/healthz"))
+
+
+def _untraced(path: str) -> bool:
+    """Every debug surface stays untraced, the index and unknown names
+    (which answer 404) included."""
+    return path in _UNTRACED_PATHS or path.startswith("/debug/")
 
 
 def too_many_requests_response(retry_after_s: float, message: str) -> Response:
@@ -168,6 +179,22 @@ class Options:
     # endpoint's max_queue_depth (a URL parameter or endpoint kwarg).
     shed_queue_depth: int = 0
     shed_retry_after_s: float = 1.0
+    # shed reads also while an SLO burns on both horizons (needs an SLO)
+    shed_slo_burn: bool = False
+    # device telemetry and the flight recorder (utils/devtel.py): window
+    # length and ring size of the per-window snapshots at /debug/flight,
+    # and the SLOs whose burn rates they carry: slo_check_p99_ms the
+    # latency target (0 disables it), slo_objective the allowed fraction
+    # of requests slower than it, slo_error_rate the allowed 5xx
+    # fraction (0 disables it)
+    flight_window_s: float = 10.0
+    flight_windows: int = 64
+    slo_check_p99_ms: float = 0.0
+    slo_objective: float = 0.01
+    slo_error_rate: float = 0.0
+    # the card's memory rate in GB/s for the timeline's roofline
+    # fraction (utils/timeline.py); 0 detects it from the card
+    device_hbm_peak_gbps: float = 0.0
     # dual writes (enable_dual_writes): the workflow journal, "" for an
     # in-memory one, and the lock mode of rules that name none
     workflow_database_path: str = ""
@@ -206,7 +233,16 @@ class ProxyServer:
         self.authenticator: Authenticator = AuthenticatorChain(
             opts.authenticators if opts.authenticators is not None
             else [HeaderAuthenticator(), ClientCertAuthenticator()])
+        # the chain's closures read self.flight at request time, so it
+        # exists before the chain is built; the recorder itself is built
+        # after, because building the chain registers the phase histogram
+        # whose cumulative counts the recorder primes its baseline from.
+        # Built eagerly so /debug/flight serves without start(); its
+        # window task rides start/stop
+        self.flight = None
         self.handler = self._build_chain()
+        if opts.enable_metrics:
+            self.flight = self._make_flight_recorder()
         # load shedder: reads shed at the door when the dispatcher queues
         # are already deep.  The queue-depth accessor is found through the
         # wrapper layers once, here: the door check runs per read request
@@ -228,8 +264,11 @@ class ProxyServer:
                 opts.shed_queue_depth)
         self.shedder = LoadShedder(
             shed_queue_depth=opts.shed_queue_depth,
+            shed_on_burn=opts.shed_slo_burn,
             retry_after_s=opts.shed_retry_after_s,
-            depth_fn=depth_fn)
+            depth_fn=depth_fn,
+            burning_fn=(lambda: self.flight.burning()
+                        if self.flight is not None else []))
         # off-loop rebuilds prewarm their candidate generations when
         # compile prewarm is on, so a post-swap first request captures
         # nothing.  The flag is set on the endpoint that owns it: the
@@ -240,8 +279,30 @@ class ProxyServer:
                 inner = getattr(inner, "inner", None)
             if inner is not None:
                 inner.prewarm_rebuilds = True
+        # unconditional: 0 restores the card detection, so a server built
+        # with the default never inherits an earlier server's peak
+        timeline.set_hbm_peak(opts.device_hbm_peak_gbps)
         self._http: Optional[HttpServer] = None
         self._lag_probe = None
+
+    def _make_flight_recorder(self):
+        from ..utils import devtel
+        slos = []
+        if self.opts.slo_check_p99_ms > 0:
+            slos.append(devtel.Slo(
+                "latency_p99", "latency",
+                objective=self.opts.slo_objective,
+                threshold_s=self.opts.slo_check_p99_ms / 1e3))
+        if self.opts.slo_error_rate > 0:
+            slos.append(devtel.Slo(
+                "error_rate", "error",
+                objective=self.opts.slo_error_rate))
+        return devtel.FlightRecorder(
+            window_s=self.opts.flight_window_s,
+            capacity=self.opts.flight_windows,
+            slos=slos,
+            stats_fn=lambda: dict(getattr(self.endpoint, "stats", None)
+                                  or {}))
 
     def enable_dual_writes(self) -> None:
         """Wire the dual-write workflow engine into the chain (reference
@@ -253,6 +314,126 @@ class ProxyServer:
             default_lock_mode=self.opts.lock_mode_default,
             audit=self.audit)
         self.handler = self._build_chain()
+
+    # -- debug surfaces ------------------------------------------------------
+    # All authenticated-only (the chain checks the user first), all JSON,
+    # all error-handled by `_serve_debug` (reference server.py:591-805).
+
+    def _debug_surfaces(self) -> dict:
+        return {
+            "traces": ("slowest retained request traces with per-phase "
+                       "spans", self._debug_traces),
+            "decisions": ("recent authorization decisions from the audit "
+                          "ring, newest first", self._debug_decisions),
+            "flight": ("flight recorder: per-window telemetry snapshots "
+                       "(phase quantiles, queue depths, HBM ledger, "
+                       "occupancy) + SLO burn rates", self._debug_flight),
+            "timeline": ("dispatch timeline as chrome trace-event JSON "
+                         "(load in Perfetto): pack/kernel/transfer/extract/"
+                         "rebuild/compile slices + overlap/roofline/stall "
+                         "summary", self._debug_timeline),
+            "workload": ("per-(resource type, permission) cost "
+                         "attribution: device time, measured sweep "
+                         "depth, occupancy, cache hit rate, oracle "
+                         "fraction, Leopard-index candidates",
+                         self._debug_workload),
+            "profile": ("on-demand sampling profiler: ?seconds=N "
+                        "(capped) wall-clock stack capture across all "
+                        "threads, collapsed-stack + Perfetto output",
+                        self._debug_profile),
+        }
+
+    async def _serve_debug(self, req: Request) -> Response:
+        surfaces = self._debug_surfaces()
+        if req.path in ("/debug", "/debug/"):
+            return json_response(200, {
+                "surfaces": {f"/debug/{name}": desc
+                             for name, (desc, _fn) in sorted(
+                                 surfaces.items())}})
+        entry = surfaces.get(req.path[len("/debug/"):])
+        if entry is None:
+            return json_response(404, {
+                "kind": "Status", "apiVersion": "v1", "metadata": {},
+                "status": "Failure",
+                "message": f"unknown debug surface {req.path!r}; "
+                           f"GET /debug for the index",
+                "reason": "NotFound", "code": 404})
+        try:
+            fn = entry[1]
+            out = fn(req) if getattr(fn, "_wants_request", False) else fn()
+            if inspect.isawaitable(out):
+                out = await out
+            return json_response(200, out)
+        except Exception as e:
+            logger.exception("debug surface %s failed", req.path)
+            return json_response(500, {
+                "kind": "Status", "apiVersion": "v1", "metadata": {},
+                "status": "Failure",
+                "message": f"debug surface {req.path} failed: {e}",
+                "code": 500})
+
+    def _debug_traces(self) -> dict:
+        return {"capacity": tracing.RECORDER.capacity,
+                "traces": tracing.RECORDER.snapshot()}
+
+    def _debug_decisions(self) -> dict:
+        return {"level": self.audit.level,
+                "ring_capacity": self.audit.ring_capacity,
+                "sample_every": self.audit.sample_every,
+                "decisions": self.audit.recent()}
+
+    def _debug_flight(self) -> dict:
+        from ..utils import devtel
+        if self.flight is None:
+            return {"enabled": False, "windows": []}
+        if not devtel.enabled():
+            # built but switched off: the window task never starts, and
+            # the payload says why the ring stays empty
+            return {"enabled": False,
+                    "reason": "DeviceTelemetry feature gate disabled",
+                    "windows": self.flight.snapshots()}
+        return {"enabled": True,
+                "window_s": self.flight.window_s,
+                "capacity": self.flight.capacity,
+                "slos": self.flight.describe_slos(),
+                "burning": self.flight.burning(),
+                "windows": self.flight.snapshots()}
+
+    def _debug_timeline(self) -> dict:
+        if not timeline.enabled():
+            # a valid, empty chrome-trace envelope that says why
+            return {"traceEvents": [], "displayTimeUnit": "ms",
+                    "otherData": {
+                        "reason": "Timeline feature gate disabled"}}
+        return timeline.chrome_trace()
+
+    def _debug_workload(self) -> dict:
+        from ..utils import workload
+        if not workload.enabled():
+            return {"enabled": False,
+                    "reason": "KernelIntrospect feature gate disabled"}
+        return dict(workload.WORKLOAD.payload(), enabled=True)
+
+    async def _debug_profile(self, req: Request) -> dict:
+        from urllib.parse import parse_qs, urlsplit
+
+        from ..utils import profiler
+        if not profiler.enabled():
+            return {"enabled": False,
+                    "reason": "Profiler feature gate disabled"}
+        q = parse_qs(urlsplit(req.target).query)
+        try:
+            seconds = float((q.get("seconds") or ["1"])[0])
+        except ValueError:
+            seconds = 1.0
+        try:
+            # the capture blocks on a worker thread, so the event loop
+            # keeps serving and is sampled doing so
+            out = await asyncio.to_thread(profiler.capture, seconds)
+        except profiler.ProfilerBusy as e:
+            return {"enabled": True, "error": str(e)}
+        return dict(out, enabled=True)
+    _debug_profile._wants_request = True
 
     # -- chain ---------------------------------------------------------------
 
@@ -269,7 +450,13 @@ class ProxyServer:
             audit=self.audit)
 
         async def authenticated(req: Request) -> Response:
-            user = self.authenticator.authenticate(req)
+            if _untraced(req.path):
+                # scrape and health authn stay out of the serving-stage
+                # accounting, whose counts they would dominate
+                user = self.authenticator.authenticate(req)
+            else:
+                with timeline.serving_span("authn"):
+                    user = self.authenticator.authenticate(req)
             if user is None:
                 return json_response(401, {
                     "kind": "Status", "apiVersion": "v1", "metadata": {},
@@ -285,6 +472,10 @@ class ProxyServer:
                 resp.headers.set("Content-Type",
                                  "text/plain; version=0.0.4; charset=utf-8")
                 return resp
+            # debug introspection surfaces, at the trust level of /metrics:
+            # any authenticated principal may read them
+            if req.path == "/debug" or req.path.startswith("/debug/"):
+                return await self._serve_debug(req)
             # admission control: shed read-only traffic at the door when
             # the proxy is already saturated, and convert dispatcher
             # queue-bound rejections raised anywhere in the authorization
@@ -306,14 +497,22 @@ class ProxyServer:
 
         async def with_request_info(req: Request) -> Response:
             if req.path in ("/readyz", "/livez", "/healthz"):
-                body = b"ok"
-                if req.path == "/readyz" and self.shedder.shedding_recently():
-                    # shedding is degraded-but-200: the proxy is
-                    # protecting itself, and ejecting the pod would turn
-                    # deliberate backpressure into a real outage
-                    body = (b"ok\n[!] admission control shedding "
-                            b"read-only traffic (429)")
-                return Response(status=200, body=body)
+                lines = ["ok"]
+                if req.path == "/readyz":
+                    if self.flight is not None:
+                        # a burning SLO is an alert, not an outage: the
+                        # status stays 200
+                        lines += [
+                            f"[!] slo {b['slo']} burning: "
+                            f"short={b['short']:.2f} long={b['long']:.2f}"
+                            for b in self.flight.burning()]
+                    if self.shedder.shedding_recently():
+                        # shedding is degraded-but-200: the proxy is
+                        # protecting itself, and ejecting the pod would
+                        # turn deliberate backpressure into a real outage
+                        lines.append("[!] admission control shedding "
+                                     "read-only traffic (429)")
+                return Response(status=200, body="\n".join(lines).encode())
             req.context["request_info"] = parse_request_info(req.method,
                                                              req.target)
             return await authenticated(req)
@@ -340,7 +539,7 @@ class ProxyServer:
 
         async def with_logging(req: Request) -> Response:
             tr = token = None
-            if req.path not in _UNTRACED_PATHS:
+            if not _untraced(req.path):
                 # trace-id assignment: honor a well-formed caller id so
                 # multi-hop traces correlate; anything else gets a fresh id
                 tr, token = tracing.start_trace(
@@ -370,6 +569,10 @@ class ProxyServer:
                                 **({"user": user.name} if user else {}),
                                 **({"outcome": outcome} if outcome else {}))
                 resp.headers.set(tracing.TRACE_ID_HEADER, tr.trace_id)
+                if self.flight is not None:
+                    # SLO tallies count proxied (traced) requests only:
+                    # probes and introspection must not dilute them
+                    self.flight.observe_request(elapsed, resp.status)
                 if phase_latency is not None:
                     for phase, secs in tr.phase_durations().items():
                         phase_latency.observe(secs, phase=phase)
@@ -417,7 +620,8 @@ class ProxyServer:
                 up_headers.add(k, v)
             up_req = Request(method=req.method, target=req.target,
                              headers=up_headers, body=req.body)
-            with tracing.span("upstream", phase=True):
+            with tracing.span("upstream", phase=True), \
+                    timeline.serving_span("kube_upstream"):
                 resp = await upstream.round_trip(up_req)
 
             filterer = req.context.get(FILTERER_KEY)
@@ -475,6 +679,10 @@ class ProxyServer:
             if self._lag_probe is None:
                 self._lag_probe = EventLoopLagProbe()
             await self._lag_probe.start()
+        if self.flight is not None:
+            from ..utils import devtel
+            if devtel.enabled():
+                await self.flight.start()
         return bound
 
     async def stop(self) -> None:
@@ -485,6 +693,8 @@ class ProxyServer:
             await self._worker.stop()
         if self._lag_probe is not None:
             await self._lag_probe.stop()
+        if self.flight is not None:
+            await self.flight.stop()
         await self.audit.stop()
 
     # -- embedded client (reference server.go:317-364, pkg/inmemory) ---------

@@ -1,6 +1,9 @@
 """Cross-request batched dispatch, the reference's spicedb/dispatch.py
-`BatchingEndpoint` (:148-701) without its telemetry, timeline and tracing
-hooks (the port has none of those modules yet).
+`BatchingEndpoint` (:148-701), with its hooks: each caller's
+`queue_wait` and `execute` phase spans, the fused calls' spans fanned out
+into every co-batched caller's trace, singleflight collapses into the
+batch-occupancy metrics (utils/devtel.py), and `fused`, `fused_start` and
+`fused_finish` slices on the dispatch timeline's dispatcher track.
 
 On the card the batch IS the kernel invocation, so this wrapper coalesces
 across concurrent requests: concurrent check/LookupResources callers
@@ -28,9 +31,11 @@ from __future__ import annotations
 
 import asyncio
 import collections
+import contextlib
+import time
 from typing import Iterable, Optional
 
-from ..utils import admission
+from ..utils import admission, devtel, timeline, tracing
 from ..utils.failpoints import fail_point
 from .endpoints import PermissionsEndpoint
 from .store import Watcher
@@ -41,6 +46,71 @@ from .types import (
     RelationshipUpdate,
     SubjectRef,
 )
+
+
+def _trace_ctx() -> Optional[dict]:
+    """Per-caller trace context, captured at enqueue time; the drain
+    stamps exec_start/exec_end into it so the caller can attribute its
+    queue wait apart from the fused execution.  None when the request is
+    untraced."""
+    trace = tracing.current_trace()
+    if trace is None:
+        return None
+    return {"trace": trace, "enq": time.perf_counter()}
+
+
+def _record_waiter_spans(tc: Optional[dict]) -> None:
+    """queue_wait (enqueue -> drain pickup) and execute (the fused inner
+    call, kernels included) phase spans for one caller."""
+    if not tc:
+        return
+    now = time.perf_counter()
+    exec_start = tc.get("exec_start", now)
+    trace = tc["trace"]
+    trace.add_span("queue_wait", tc["enq"], exec_start, phase=True)
+    trace.add_span("execute", exec_start, tc.get("exec_end", now), phase=True)
+
+
+def _mark_exec_start(waiters: list) -> None:
+    t0 = time.perf_counter()
+    for w in waiters:
+        if w[2] is not None:
+            w[2].setdefault("exec_start", t0)
+
+
+def _mark_exec_end(waiters: list) -> None:
+    t1 = time.perf_counter()
+    for w in waiters:
+        if w[2] is not None:
+            w[2]["exec_end"] = t1
+
+
+@contextlib.contextmanager
+def _activate_batch_trace(waiters: list):
+    """Activate the co-batched callers' traces (fanned out) around a
+    fused inner call, so the spans the endpoint records land in every
+    member's trace.  It always sets the context: the drain task inherited
+    the context of the caller that started it, and an all-untraced batch
+    must not leak its spans into that caller's trace."""
+    traces: list = []
+    seen: set = set()
+    for w in waiters:
+        tc = w[2]
+        if tc is not None and id(tc["trace"]) not in seen:
+            seen.add(id(tc["trace"]))
+            traces.append(tc["trace"])
+    sink = (None if not traces
+            else traces[0] if len(traces) == 1
+            else tracing.FanoutTrace(traces))
+    token = tracing.activate(sink)
+    try:
+        yield
+    finally:
+        tracing.deactivate(token)
+
+
+def _batch_id(ctx) -> Optional[int]:
+    return ctx.get("batch_id") if isinstance(ctx, dict) else None
 
 
 def _follow(leader: asyncio.Future, loop) -> asyncio.Future:
@@ -94,9 +164,9 @@ class BatchingEndpoint(PermissionsEndpoint):
         # fused batches allowed in flight at once: depth N keeps N-1
         # STARTED batches pending.  1 = fully serial.
         self.pipeline_depth = pipeline_depth
-        # waiters are (item, Future) pairs
-        self._check_queue: list = []   # [(CheckRequest, Future)]
-        self._lr_queue: dict = {}      # (type, perm) -> [(SubjectRef, Future)]
+        # waiters are (item, Future, trace context or None) triples
+        self._check_queue: list = []   # [(CheckRequest, Future, tc)]
+        self._lr_queue: dict = {}      # (type, perm) -> [(SubjectRef, Future, tc)]
         # fair service order across LR keys: every queued (type, perm)
         # key appears exactly once; the drain serves the head and a key
         # with remaining waiters rejoins at the TAIL, so one hot lookup
@@ -111,6 +181,10 @@ class BatchingEndpoint(PermissionsEndpoint):
         # the executing batch applied its deltas, and a later arrival must
         # observe it — full consistency).
         self._lr_pending: dict = {}
+        # per-pending-key follower counts: how many duplicate callers a
+        # queued leader collapsed, drained into the batch-occupancy
+        # metrics (utils/devtel.py) at pickup
+        self._sf_counts: dict = {}
         self._inflight: list = []      # waiters of the batch being executed
         self._drain_task: Optional[asyncio.Task] = None
         self._stats = {"drains": 0, "fused_checks": 0, "fused_lookups": 0,
@@ -256,6 +330,7 @@ class BatchingEndpoint(PermissionsEndpoint):
             self._lr_rotation.clear()
             self._lr_depth = 0
             self._lr_pending.clear()
+            self._sf_counts.clear()
             for w in stranded:
                 if not w[1].done():
                     w[1].set_exception(failure)
@@ -278,13 +353,16 @@ class BatchingEndpoint(PermissionsEndpoint):
         identical queries arriving from now on must start fresh (the
         batch applies deltas at pickup, not at their arrival)."""
         resource_type, permission = key
+        collapsed = 0
         for w in waiters:
             k = (resource_type, permission, w[0])
             if self._lr_pending.get(k) is w[1]:
                 del self._lr_pending[k]
+                collapsed += self._sf_counts.pop(k, 0)
+        devtel.OCCUPANCY.note_collapsed(collapsed)
 
     def _enqueue_lookup(self, resource_type: str, permission: str,
-                        subject: SubjectRef,
+                        subject: SubjectRef, tc,
                         pre_admitted: bool = False) -> asyncio.Future:
         """Queue one lookup, singleflight-deduped: an identical query
         already QUEUED shares its waiter through an internal leader
@@ -307,19 +385,23 @@ class BatchingEndpoint(PermissionsEndpoint):
             if q is None:
                 q = self._lr_queue[qkey] = []
                 self._lr_rotation.append(qkey)
-            q.append((subject, leader))
+            q.append((subject, leader, tc))
             self._lr_depth += 1
         else:
             self._stats["singleflight_hits"] += 1
+            self._sf_counts[k] = self._sf_counts.get(k, 0) + 1
         return _follow(leader, loop)
 
     async def _retry_individually(self, waiters: list, single_call) -> None:
         """Per-member fallback after a fused call failed (concurrently: a
         poison request must not serialize the drain loop)."""
         async def retry_one(w):
-            item, fut = w
+            item, fut, tc = w
             if fut.done():
                 return
+            # each retry is ONE member's work: its own trace (or none),
+            # never the fused batch's fan-out
+            token = tracing.activate(tc["trace"] if tc else None)
             try:
                 res = await single_call(item)
             except Exception as e:
@@ -328,6 +410,8 @@ class BatchingEndpoint(PermissionsEndpoint):
             else:
                 if not fut.done():
                     fut.set_result(res)
+            finally:
+                tracing.deactivate(token)
 
         await asyncio.gather(*[retry_one(w) for w in waiters])
 
@@ -344,16 +428,26 @@ class BatchingEndpoint(PermissionsEndpoint):
 
     async def _run_fused(self, waiters: list, stat: str, fused_call,
                          single_call) -> None:
-        """One fused inner call for `waiters` ([(item, Future)]); on
+        """One fused inner call for `waiters` ([(item, Future, tc)]); on
         failure, retry members individually."""
         items = [w[0] for w in waiters]
         self._note_fused(stat, len(items))
+        _mark_exec_start(waiters)
+        t0 = timeline.now()
         try:
-            results = await fused_call(items)
-        except Exception:
-            await self._retry_individually(waiters, single_call)
-            return
-        self._resolve(waiters, results)
+            with _activate_batch_trace(waiters):
+                try:
+                    results = await fused_call(items)
+                except Exception:
+                    await self._retry_individually(waiters, single_call)
+                    return
+            self._resolve(waiters, results)
+        finally:
+            _mark_exec_end(waiters)
+            # how long this fused call held the drain loop (beside the
+            # device track's kernel slices in /debug/timeline)
+            timeline.record("fused", "dispatcher", t0, bucket=len(items),
+                            kind=stat)
 
     async def _run_checks(self, batch: list) -> None:
         await self._run_fused(
@@ -376,59 +470,91 @@ class BatchingEndpoint(PermissionsEndpoint):
         per-member retry; returns None so the drain has nothing to
         finish."""
         resource_type, permission = key
+        _mark_exec_start(waiters)
+        t0 = timeline.now()
         try:
-            ctx = await self.inner.lookup_resources_batch_start(
-                resource_type, permission, [w[0] for w in waiters])
+            with _activate_batch_trace(waiters):
+                ctx = await self.inner.lookup_resources_batch_start(
+                    resource_type, permission, [w[0] for w in waiters])
         except Exception:
             await self._run_lookups(key, waiters)
             return None
         self._note_fused("fused_lookups", len(waiters))
+        timeline.record("fused_start", "dispatcher", t0,
+                        batch=_batch_id(ctx), bucket=len(waiters))
         return ("lr", waiters, (key, ctx))
 
     async def _start_checks(self, batch: list):
         """Phase 1 of a pipelined fused check (see _start_lookups)."""
+        _mark_exec_start(batch)
+        t0 = timeline.now()
         try:
-            ctx = await self.inner.check_bulk_permissions_start(
-                [w[0] for w in batch])
+            with _activate_batch_trace(batch):
+                ctx = await self.inner.check_bulk_permissions_start(
+                    [w[0] for w in batch])
         except Exception:
             await self._run_checks(batch)
             return None
         self._note_fused("fused_checks", len(batch))
+        timeline.record("fused_start", "dispatcher", t0,
+                        batch=_batch_id(ctx), bucket=len(batch),
+                        kind="fused_checks")
         return ("ck", batch, ctx)
 
     async def _finish_checks(self, waiters: list, ctx) -> None:
         """Phase 2: readback wait and result assembly; per-member retry
         on failure (the same isolation contract as _run_fused)."""
+        t0 = timeline.now()
         try:
-            results = await self.inner.check_bulk_permissions_finish(ctx)
-        except Exception:
-            await self._retry_individually(waiters,
-                                           self.inner.check_permission)
-            return
-        self._resolve(waiters, results)
+            with _activate_batch_trace(waiters):
+                try:
+                    results = await self.inner.check_bulk_permissions_finish(
+                        ctx)
+                except Exception:
+                    await self._retry_individually(
+                        waiters, self.inner.check_permission)
+                    return
+            self._resolve(waiters, results)
+        finally:
+            _mark_exec_end(waiters)
+            timeline.record("fused_finish", "dispatcher", t0,
+                            batch=_batch_id(ctx), bucket=len(waiters),
+                            kind="fused_checks")
 
     async def _finish_lookups(self, waiters: list, started) -> None:
         """Phase 2: readback wait and extraction; per-member retry on
         failure."""
         key, ctx = started
         resource_type, permission = key
+        t0 = timeline.now()
         try:
-            results = await self.inner.lookup_resources_batch_finish(ctx)
-        except Exception:
-            await self._retry_individually(
-                waiters, lambda s: self.inner.lookup_resources(
-                    resource_type, permission, s))
-            return
-        self._resolve(waiters, results)
+            with _activate_batch_trace(waiters):
+                try:
+                    results = await self.inner.lookup_resources_batch_finish(
+                        ctx)
+                except Exception:
+                    await self._retry_individually(
+                        waiters, lambda s: self.inner.lookup_resources(
+                            resource_type, permission, s))
+                    return
+            self._resolve(waiters, results)
+        finally:
+            _mark_exec_end(waiters)
+            timeline.record("fused_finish", "dispatcher", t0,
+                            batch=_batch_id(ctx), bucket=len(waiters))
 
     # -- batched verbs -------------------------------------------------------
 
     async def check_permission(self, req: CheckRequest):
         self._admit(len(self._check_queue), 1, "check")
+        tc = _trace_ctx()
         fut = asyncio.get_running_loop().create_future()
-        self._check_queue.append((req, fut))
+        self._check_queue.append((req, fut, tc))
         self._kick()
-        return await fut
+        try:
+            return await fut
+        finally:
+            _record_waiter_spans(tc)
 
     async def check_bulk_permissions(self, reqs: list) -> list:
         if not reqs:
@@ -436,20 +562,28 @@ class BatchingEndpoint(PermissionsEndpoint):
         # admit or reject the bulk WHOLE: half-enqueueing one caller's
         # batch would run checks for an answer the caller never sees
         self._admit(len(self._check_queue), len(reqs), "check")
+        tc = _trace_ctx()  # one shared context: the bulk is one caller
         loop = asyncio.get_running_loop()
         futs = []
         for r in reqs:
             fut = loop.create_future()
-            self._check_queue.append((r, fut))
+            self._check_queue.append((r, fut, tc))
             futs.append(fut)
         self._kick()
-        return list(await asyncio.gather(*futs))
+        try:
+            return list(await asyncio.gather(*futs))
+        finally:
+            _record_waiter_spans(tc)
 
     async def lookup_resources(self, resource_type: str, permission: str,
                                subject: SubjectRef) -> list:
-        fut = self._enqueue_lookup(resource_type, permission, subject)
+        tc = _trace_ctx()
+        fut = self._enqueue_lookup(resource_type, permission, subject, tc)
         self._kick()
-        return await fut
+        try:
+            return await fut
+        finally:
+            _record_waiter_spans(tc)
 
     async def lookup_resources_batch(self, resource_type: str, permission: str,
                                      subjects: list) -> list:
@@ -458,11 +592,15 @@ class BatchingEndpoint(PermissionsEndpoint):
         # whole-batch admission (duplicates that would collapse into
         # followers still count)
         self._admit(self._lr_depth, len(subjects), "lookup")
-        futs = [self._enqueue_lookup(resource_type, permission, s,
+        tc = _trace_ctx()  # one shared context: the batch is one caller
+        futs = [self._enqueue_lookup(resource_type, permission, s, tc,
                                      pre_admitted=True)
                 for s in subjects]
         self._kick()
-        return list(await asyncio.gather(*futs))
+        try:
+            return list(await asyncio.gather(*futs))
+        finally:
+            _record_waiter_spans(tc)
 
     # -- passthrough verbs ---------------------------------------------------
 

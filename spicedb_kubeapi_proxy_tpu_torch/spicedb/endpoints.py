@@ -11,6 +11,8 @@ interface and never know which backend ran.
                  bit-packed fixpoint sweep of hand-written CUDA kernels
                  (ops/torch_endpoint.py); `torch://?device=cpu` runs the
                  kernels' plain-torch twins instead
+
+Either may sit behind the decision cache (`?cache=1`).
 """
 
 from __future__ import annotations
@@ -378,15 +380,27 @@ def create_endpoint(url: str,
     (reference endpoints.py:507-537).  `max_batch` (default 4096),
     `pipeline_depth` (2) and `max_queue_depth` (0, unbounded) configure
     it; each of the four comes from the URL or as a keyword, the URL
-    winning."""
+    winning.
+
+    `cache=1` (or the `decision_cache=True` keyword, or the
+    DECISION_CACHE switch) puts the decision cache
+    (spicedb/decision_cache.py) on top, above the dispatcher, so a warm
+    hit returns before any queue or kernel work; `cache_bytes=` (or
+    `decision_cache_bytes=`) bounds it (reference endpoints.py:359-398,
+    :536-540).  Both schemes are store-backed, so an explicit cache is
+    refused only by an endpoint without a store."""
     split = urlsplit(url)
     scheme = split.scheme
     params = parse_qs(split.query)
+    cache_on, cache_explicit, cache_bytes = _resolve_cache_config(
+        url, params, kwargs)
     store = kwargs.pop("store", None)
     dispatch_kw = {k: kwargs.pop(k) for k in _DISPATCH_PARAMS
                    if k in kwargs}
     if scheme == "embedded":
-        return EmbeddedEndpoint.from_bootstrap(bootstrap, store=store)
+        ep = EmbeddedEndpoint.from_bootstrap(bootstrap, store=store)
+        return _wrap_decision_cache(ep, cache_on, cache_explicit,
+                                    cache_bytes, url)
     if scheme == "torch":
         from ..ops.torch_endpoint import TorchEndpoint  # lazy: imports torch
         for key in ("device", "kernel"):
@@ -398,7 +412,7 @@ def create_endpoint(url: str,
                     f"with {key}={kwargs[key]!r}")
             kwargs[key] = params[key][0]
         unknown = set(params) - {"device", "kernel", "mesh",
-                                 *_DISPATCH_PARAMS}
+                                 *_DISPATCH_PARAMS, *_CACHE_PARAMS}
         if unknown:
             raise EndpointConfigError(
                 f"unsupported torch:// parameters {sorted(unknown)} in {url!r}")
@@ -413,7 +427,9 @@ def create_endpoint(url: str,
         if store is not None:
             kwargs["store"] = store
         ep = TorchEndpoint.from_bootstrap(bootstrap, **kwargs)
-        return _wrap_dispatch(ep, dispatch_kw, url)
+        return _wrap_decision_cache(_wrap_dispatch(ep, dispatch_kw, url),
+                                    cache_on, cache_explicit, cache_bytes,
+                                    url)
     raise EndpointConfigError(
         f"unsupported spicedb endpoint scheme {scheme!r} "
         f"(this package serves embedded:// and torch://)")
@@ -421,6 +437,62 @@ def create_endpoint(url: str,
 
 _DISPATCH_PARAMS = ("dispatch", "max_batch", "pipeline_depth",
                     "max_queue_depth")
+_CACHE_PARAMS = ("cache", "cache_bytes")
+
+
+def _resolve_cache_config(url: str, params: dict, kwargs: dict) -> tuple:
+    """The decision-cache wiring for create_endpoint: the explicit
+    keyword (the CLI's --decision-cache), else the `?cache=` URL
+    parameter, else the DECISION_CACHE switch turns it on.  Returns
+    (enabled, explicit, max_bytes) after POPPING the cache keywords so
+    the backends never see them; `explicit` tells a requested cache (an
+    endpoint that cannot hold one raises) from a switch-derived default
+    (dropped silently there)."""
+    want = kwargs.pop("decision_cache", None)
+    max_bytes = kwargs.pop("decision_cache_bytes", None)
+    explicit = want is not None
+    raw = (params.get("cache") or [""])[0].lower()
+    if want is None:
+        if raw in ("1", "true", "yes"):
+            want, explicit = True, True
+        elif raw in ("0", "false", "no"):
+            want, explicit = False, True
+        elif raw == "":
+            from ..utils import features
+            want = features.DECISION_CACHE is True
+        else:
+            raise EndpointConfigError(
+                f"invalid cache={raw!r} in {url!r} "
+                f"(expected 1/true/yes/0/false/no)")
+    raw_bytes = (params.get("cache_bytes") or [""])[0]
+    if raw_bytes:
+        try:
+            max_bytes = int(raw_bytes)
+        except ValueError as e:
+            raise EndpointConfigError(
+                f"invalid cache_bytes in {url!r}: {e}") from e
+    return bool(want), explicit, max_bytes
+
+
+def _wrap_decision_cache(ep: PermissionsEndpoint, on: bool, explicit: bool,
+                         max_bytes: Optional[int],
+                         url: str) -> PermissionsEndpoint:
+    """`ep` behind the decision cache when `on` (see create_endpoint)."""
+    if not on:
+        return ep
+    if getattr(ep, "store", None) is None:
+        if explicit:
+            raise EndpointConfigError(
+                f"--decision-cache requires a store-backed endpoint, "
+                f"not {url!r}")
+        return ep   # switch-derived default: inapplicable, not fatal
+    from .decision_cache import DEFAULT_MAX_BYTES, DecisionCacheEndpoint
+    try:
+        return DecisionCacheEndpoint(
+            ep, max_bytes=max_bytes if max_bytes else DEFAULT_MAX_BYTES)
+    except ValueError as e:
+        raise EndpointConfigError(
+            f"invalid cache_bytes in {url!r}: {e}") from e
 
 
 def _wrap_dispatch(ep: PermissionsEndpoint, kw: dict,

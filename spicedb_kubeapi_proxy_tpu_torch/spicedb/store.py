@@ -294,6 +294,34 @@ class TupleStore:
                         ids.add(rid)
         return sorted(ids)
 
+    def expiry_schedule(self) -> list:
+        """(expires_at, (resource_type, relation)) for every LIVE tuple
+        carrying an expiration — vectorized over the columnar base, object
+        scan over the overlay.  Consumers that cache decisions keyed on
+        relation state (spicedb/decision_cache.py) seed their expiry heap
+        from this so a tuple expiring without a delta event still
+        invalidates the relations it touches."""
+        now = self._clock()
+        out = []
+        with self._lock:
+            base = self._base
+            if base is not None:
+                snap = base.snap
+                exp = snap.expiry
+                rows = np.nonzero(~np.isnan(exp) & ~base.dead
+                                  & (exp > now))[0]
+                pool = snap.pool
+                for i in rows:
+                    out.append((float(exp[i]),
+                                (pool[snap.rtype[i]], pool[snap.rel[i]])))
+            for (rtype, relation), by_id in self._by_relation.items():
+                for subjects in by_id.values():
+                    for e in subjects.values():
+                        if (e.rel.expires_at is not None
+                                and not e.rel.expired(now)):
+                            out.append((e.rel.expires_at, (rtype, relation)))
+        return out
+
     # -- writes -------------------------------------------------------------
 
     def write(self, updates: Iterable[RelationshipUpdate],

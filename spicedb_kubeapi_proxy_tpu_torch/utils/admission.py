@@ -98,31 +98,38 @@ def set_queue_limit(n: int) -> None:
 class LoadShedder:
     """Sheds read-only traffic when the proxy is already saturated, so
     queue depth stays bounded and in-flight requests keep their latency
-    (reference utils/admission.py:127-237, with its queue-depth signal
-    only: the SLO-burn signal comes back with device telemetry, ROADMAP
-    Queue 1 item 7, and the port has no replication to lag).
+    (reference utils/admission.py:127-237; the port has no replication,
+    so no replica-lag signal).
 
-    `shed_queue_depth` > 0 sheds a read when the total dispatcher queue
-    depth (check + LR), read through `depth_fn`, is at or over the
-    threshold.  `check(verb)` returns the rejection reason (or None to
-    admit); callers build the 429 from `retry_after_s`.
-    `shedding_recently()` feeds /readyz: shed decisions within the last
-    window mark the proxy degraded (still 200)."""
+    Two independent signals, either sufficient:
+    - `shed_queue_depth` > 0: the total dispatcher queue depth (check +
+      LR), read through `depth_fn`, at or over the threshold;
+    - `shed_on_burn`: the flight recorder reports an SLO burning on both
+      horizons (`burning_fn` non-empty).
+
+    `check(verb)` returns the rejection reason (or None to admit);
+    callers build the 429 from `retry_after_s`.  `shedding_recently()`
+    feeds /readyz: shed decisions within the last window mark the proxy
+    degraded (still 200)."""
 
     RECENT_WINDOW_S = 10.0
 
-    def __init__(self, shed_queue_depth: int = 0, retry_after_s: float = 1.0,
-                 depth_fn: Optional[Callable[[], int]] = None):
+    def __init__(self, shed_queue_depth: int = 0, shed_on_burn: bool = False,
+                 retry_after_s: float = 1.0,
+                 depth_fn: Optional[Callable[[], int]] = None,
+                 burning_fn: Optional[Callable[[], list]] = None):
         self.shed_queue_depth = shed_queue_depth
+        self.shed_on_burn = shed_on_burn
         self.retry_after_s = max(retry_after_s, 0.001)
         self._depth_fn = depth_fn
+        self._burning_fn = burning_fn
         self._lock = threading.Lock()
         self._last_shed = 0.0
         self._shed_total = 0
 
     @property
     def active(self) -> bool:
-        return self.shed_queue_depth > 0
+        return self.shed_queue_depth > 0 or self.shed_on_burn
 
     def _queue_depth(self) -> int:
         if self._depth_fn is None:
@@ -139,9 +146,18 @@ class LoadShedder:
             return None
         if verb not in READ_ONLY_VERBS:
             return None
-        if self._queue_depth() < self.shed_queue_depth:
+        reason = None
+        if (self.shed_queue_depth > 0
+                and self._queue_depth() >= self.shed_queue_depth):
+            reason = "queue_depth"
+        elif self.shed_on_burn and self._burning_fn is not None:
+            try:
+                if self._burning_fn():
+                    reason = "slo_burn"
+            except Exception:
+                reason = None
+        if reason is None:
             return None
-        reason = "queue_depth"
         note_rejected(reason)
         with self._lock:
             self._last_shed = time.monotonic()
@@ -161,4 +177,5 @@ class LoadShedder:
                                  <= self.RECENT_WINDOW_S)
         return {"shed_total": total,
                 "shedding_recently": recent,
-                "shed_queue_depth": self.shed_queue_depth}
+                "shed_queue_depth": self.shed_queue_depth,
+                "shed_on_burn": self.shed_on_burn}

@@ -23,6 +23,21 @@
   spare pool under its low watermark rebuilds there before it runs dry.
   Off, such a delta rebuilds synchronously under the endpoint lock, as
   before.  Read at each use; a missing switch reads as off.
+- `DECISION_CACHE` puts the revision-keyed decision cache
+  (spicedb/decision_cache.py) in front of every store-backed endpoint
+  the factory builds (the reference's `DecisionCache` gate, :91, ALPHA,
+  default off); `?cache=` in the URL or `--decision-cache` win over it.
+- `DEVICE_TELEMETRY` is the killswitch of the HBM ledger, the kernel
+  accounting, batch occupancy and the flight recorder (utils/devtel.py;
+  the reference's `DeviceTelemetry` gate, :101).
+- `TIMELINE` is the killswitch of the dispatch timeline
+  (utils/timeline.py; the reference's `Timeline` gate, :106).
+- `KERNEL_INTROSPECT` is the killswitch of the sweep telemetry and the
+  workload attribution (utils/workload.py; the reference's
+  `KernelIntrospect` gate, :148).  The sweeps compute their trace either
+  way (the host loop needs it to stop); off, nothing records it.
+- `PROFILER` lets `/debug/profile` sample (utils/profiler.py; the
+  reference's `Profiler` gate, :154, ALPHA, default on).
 
 `apply_flag` sets them from the CLI's `--feature-gates name=true|false`
 under the reference's gate names (`GATE_SWITCHES`); any other name is
@@ -34,6 +49,11 @@ CROSS_REQUEST_BATCHING = True
 DEVICE_PIPELINE = True
 ADMISSION_CONTROL = True
 ASYNC_REBUILD = True
+DECISION_CACHE = False
+DEVICE_TELEMETRY = True
+TIMELINE = True
+KERNEL_INTROSPECT = True
+PROFILER = True
 
 
 def pipeline_enabled() -> bool:
@@ -48,6 +68,11 @@ GATE_SWITCHES = {
     "DevicePipeline": "DEVICE_PIPELINE",
     "AdmissionControl": "ADMISSION_CONTROL",
     "AsyncRebuild": "ASYNC_REBUILD",
+    "DecisionCache": "DECISION_CACHE",
+    "DeviceTelemetry": "DEVICE_TELEMETRY",
+    "Timeline": "TIMELINE",
+    "KernelIntrospect": "KERNEL_INTROSPECT",
+    "Profiler": "PROFILER",
 }
 
 

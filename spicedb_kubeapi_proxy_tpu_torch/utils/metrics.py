@@ -74,6 +74,17 @@ class Counter(Metric):
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + amount
 
+    def value(self, **labels) -> float:
+        key = tuple(str(labels.get(n, "")) for n in self.label_names)
+        with self._lock:
+            return self._values.get(key, 0.0)
+
+    def snapshot(self) -> dict:
+        """Consistent label-key -> value copy (for window-delta readers
+        like the flight recorder, utils/devtel.py)."""
+        with self._lock:
+            return dict(self._values)
+
     def render(self) -> list:
         with self._lock:
             items = sorted(self._values.items())
@@ -133,6 +144,11 @@ class Histogram(Metric):
                 counts[-1] += 1
             self._sums[key] = self._sums.get(key, 0.0) + value
             self._totals[key] = self._totals.get(key, 0) + 1
+
+    def count(self, **labels) -> int:
+        key = tuple(str(labels.get(n, "")) for n in self.label_names)
+        with self._lock:
+            return self._totals.get(key, 0)
 
     def raw(self) -> dict:
         """Consistent label-key -> (bucket counts, sum, total) copy, for

@@ -7,17 +7,21 @@
   `current_trace()` still resolves off the loop.
 - Spans marked `phase=True` are the request's latency attribution: they
   tile the request wall time without overlapping (authn, resolve, match,
-  upstream, respfilter, ...), feed the
+  queue_wait, execute, upstream, respfilter, ...), feed the
   `authz_request_phase_seconds{phase=...}` histogram and sum to about the
   wall time.  Unmarked spans are forensic detail and may overlap phases.
 - `SlowTraceRecorder`: a bounded recorder retaining the N slowest traces.
+- `FanoutTrace` lets the dispatcher record one fused batch's spans
+  into every co-batched request's trace.
+- `kernel_span` times a kernel phase on the host, opens an NVTX range
+  named after it when the endpoint's device is a CUDA card (Nsight
+  Systems shows the proxy's phase names on the device timeline), and
+  feeds the kernel accounting (utils/devtel.py) and the dispatch
+  timeline (utils/timeline.py).  `note_device_window` feeds them a
+  batch's device window measured with CUDA events.
 
 Left out against the reference: fleet propagation (the cross-process
-X-Authz-* headers and hop spans; the port has no fleet), the fused-batch
-fan-out of dispatcher spans, and `kernel_span`, which there enters
-`jax.profiler.TraceAnnotation` and feeds device-time accounting.  The
-port's counterpart, an NVTX range around each kernel phase, comes with
-device telemetry.
+X-Authz-* headers and hop spans; the port has no fleet).
 
 Thread-safe: spans are recorded from asyncio handlers and executor
 threads concurrently.
@@ -28,12 +32,15 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import heapq
+import logging
 import threading
 import time
 import uuid
-from typing import Optional
+from typing import Iterable, Optional
 
 TRACE_ID_HEADER = "X-Trace-Id"
+
+_log = logging.getLogger(__name__)
 
 # per-trace span cap: a runaway loop recording spans must not grow a
 # request's memory without bound (the slowest traces are retained)
@@ -59,7 +66,15 @@ class Span:
         return self.end - self.start
 
 
-class Trace:
+class SpanSink:
+    """Anything spans can be recorded into (Trace or FanoutTrace)."""
+
+    def add_span(self, name: str, start: float, end: float,
+                 phase: bool = False, **attrs) -> None:
+        raise NotImplementedError
+
+
+class Trace(SpanSink):
     """One request's spans, on the monotonic clock (perf_counter)."""
 
     def __init__(self, trace_id: Optional[str] = None, **attrs):
@@ -116,8 +131,32 @@ class Trace:
                 "spans": out_spans}
 
 
-def current_trace() -> Optional[Trace]:
+class FanoutTrace(SpanSink):
+    """Multiplexes span records to several traces: the dispatcher
+    activates one around a fused inner call so kernel spans land in
+    every co-batched request's trace."""
+
+    def __init__(self, traces: Iterable[SpanSink]):
+        self.traces = tuple(traces)
+
+    def add_span(self, name: str, start: float, end: float,
+                 phase: bool = False, **attrs) -> None:
+        for tr in self.traces:
+            tr.add_span(name, start, end, phase=phase, **attrs)
+
+
+def current_trace() -> Optional[SpanSink]:
     return _current.get()
+
+
+def activate(sink: Optional[SpanSink]):
+    """Set (or, with None, null out) the active trace; returns a token
+    for `deactivate`."""
+    return _current.set(sink)
+
+
+def deactivate(token) -> None:
+    _current.reset(token)
 
 
 def start_trace(trace_id: Optional[str] = None, **attrs):
@@ -155,6 +194,63 @@ def span(name: str, phase: bool = False, **attrs):
         yield attrs
     finally:
         tr.add_span(name, t0, time.perf_counter(), phase=phase, **attrs)
+
+
+def _note_kernel(name: str, attrs: dict, seconds: float) -> None:
+    """Feed one kernel window into the kernel accounting (utils/devtel.py,
+    imported at use).  A recording failure is logged and never fails the
+    request whose batch it measured."""
+    try:
+        from .devtel import note_kernel_span
+        note_kernel_span(name, attrs, seconds)
+    except Exception:
+        _log.exception("kernel accounting failed for %s", name)
+
+
+def _note_timeline(name: str, attrs: dict, start: float, end: float) -> None:
+    """Feed one kernel window, with its instants, into the dispatch
+    timeline's device track (utils/timeline.py); failures as above."""
+    try:
+        from .timeline import note_kernel_span
+        note_kernel_span(name, attrs, start, end)
+    except Exception:
+        _log.exception("timeline record failed for %s", name)
+
+
+def note_device_window(name: str, attrs: dict, start: float,
+                       seconds: float) -> None:
+    """A batch's device window, measured with CUDA events on the launch
+    stream (or, on the CPU, around the synchronous plain kernels) and
+    read when its readback completed: into the kernel accounting and the
+    workload attribution (`attrs["workload"]`), and onto the timeline's
+    device track from `start` (the host instant the window opened)."""
+    _note_kernel(name, attrs, seconds)
+    _note_timeline(name, attrs, start, start + seconds)
+
+
+@contextlib.contextmanager
+def kernel_span(name: str, phase: bool = False, nvtx: bool = False,
+                **attrs):
+    """A span timed on the host that also feeds the kernel accounting
+    (`authz_kernel_time_seconds{phase=,kind=,bucket=}`) and the timeline,
+    whether or not a request trace is active.  `nvtx=True` (an endpoint
+    on a CUDA card) opens an NVTX range named `name` around the block;
+    an endpoint on the CPU opens none.  Callers may enrich the yielded
+    attrs dict (e.g. set `bucket`) before the block closes."""
+    a = attrs
+    t0 = time.perf_counter()
+    if nvtx:
+        import torch
+        torch.cuda.nvtx.range_push(name)
+    try:
+        with span(name, phase=phase, **attrs) as a:
+            yield a
+    finally:
+        if nvtx:
+            torch.cuda.nvtx.range_pop()
+        t1 = time.perf_counter()
+        _note_kernel(name, a, t1 - t0)
+        _note_timeline(name, a, t0, t1)
 
 
 def clean_trace_id(raw: str) -> Optional[str]:
@@ -196,6 +292,26 @@ class SlowTraceRecorder:
         """Slowest-first list of retained trace dicts (non-destructive)."""
         with self._lock:
             return self._sorted()
+
+    def exemplars(self, k: int = 3,
+                  since_unix: Optional[float] = None) -> list:
+        """Top-k slowest retained traces as exemplar refs (trace id,
+        duration, wall start), optionally only those that STARTED at or
+        after `since_unix`: the flight recorder embeds these per window,
+        so a burning window at /debug/flight links to /debug/traces."""
+        with self._lock:
+            dicts = self._sorted()
+        out = []
+        for d in dicts:
+            if (since_unix is not None
+                    and d.get("start_unix", 0.0) < since_unix):
+                continue
+            out.append({"trace_id": d["trace_id"],
+                        "duration_ms": d["duration_ms"],
+                        "start_unix": d["start_unix"]})
+            if len(out) >= k:
+                break
+        return out
 
 
 RECORDER = SlowTraceRecorder()

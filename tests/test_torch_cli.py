@@ -425,6 +425,11 @@ def _shape(value):
      "--no-prewarm-compiles"],
     ["--spicedb_bootstrap", str(DEPLOY / "bootstrap.yaml"),
      "--token-auth-file", "TOKENS"],
+    ["--decision-cache", "--decision-cache-bytes", "4096",
+     "--flight-window", "5", "--flight-windows", "8",
+     "--slo-check-p99-ms", "250", "--slo-objective", "0.05",
+     "--slo-error-rate", "0.01", "--shed-slo-burn",
+     "--device-hbm-peak-gbps", "3350"],
 ])
 def test_same_argv_gives_the_reference_options(tmp_path, extra):
     tokens = tmp_path / "tokens.csv"
@@ -443,7 +448,7 @@ def test_same_argv_gives_the_reference_options(tmp_path, extra):
     ref_fields = {f.name for f in dataclasses.fields(want.server_options)}
     shared = sorted(port_fields & ref_fields)
     assert port_fields <= ref_fields
-    assert len(shared) == len(port_fields) == 18
+    assert len(shared) == len(port_fields) == 25
     for name in shared:
         assert (_shape(getattr(got.server_options, name))
                 == _shape(getattr(want.server_options, name))), name
@@ -452,14 +457,11 @@ def test_same_argv_gives_the_reference_options(tmp_path, extra):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--decision-cache"], ["--decision-cache-bytes", "1"],
     ["--data-dir", "d"], ["--wal-fsync", "always"],
     ["--checkpoint-interval", "1"], ["--replicate-from", "http://l"],
     ["--fleet-peers", "http://p"], ["--shards", "2"],
     ["--partition-map", "pod=0"], ["--shard-leaders", "http://a"],
-    ["--lint-schema"], ["--flight-window", "1"],
-    ["--slo-check-p99-ms", "5"], ["--shed-slo-burn"],
-    ["--device-hbm-peak-gbps", "3350"], ["--spicedb-ca-path", "x"],
+    ["--lint-schema"], ["--spicedb-ca-path", "x"],
     ["--spicedb-skip-verify-ca"],
 ])
 def test_unported_flag_exits_2(flag):
@@ -490,8 +492,82 @@ def test_feature_gates_set_the_port_switches(tmp_path):
         assert getattr(features, switch) is True
 
 
+# the decision cache and device-telemetry flags: each parses, validates
+# and reaches the server Options (or the endpoint keywords) as in the
+# reference CLI, and the endpoint built from them is what it asks for
+_SLO = ["--slo-check-p99-ms", "250"]
+
+
+@pytest.mark.parametrize("argv,where,name,want", [
+    (["--decision-cache"], "endpoint", "decision_cache", True),
+    (["--decision-cache-bytes", "4096"], "endpoint",
+     "decision_cache_bytes", 4096),
+    (["--flight-window", "2.5"], "options", "flight_window_s", 2.5),
+    (["--flight-windows", "16"], "options", "flight_windows", 16),
+    (_SLO, "options", "slo_check_p99_ms", 250.0),
+    (_SLO + ["--slo-objective", "0.05"], "options", "slo_objective", 0.05),
+    (["--slo-error-rate", "0.02"], "options", "slo_error_rate", 0.02),
+    (_SLO + ["--shed-slo-burn"], "options", "shed_slo_burn", True),
+    (["--device-hbm-peak-gbps", "3350"], "options",
+     "device_hbm_peak_gbps", 3350.0),
+    (["--feature-gates", "DecisionCache=true"], "switch",
+     "DECISION_CACHE", True),
+    (["--feature-gates", "DeviceTelemetry=false,Timeline=false,"
+      "KernelIntrospect=false,Profiler=false"], "switch",
+     "DEVICE_TELEMETRY", False),
+])
+def test_cache_and_telemetry_flags_reach_options(tmp_path, argv, where,
+                                                 name, want):
+    base = ["--rule-config", rules_file(tmp_path), "--embedded-mode",
+            "--use-in-cluster-config", "--spicedb-endpoint", "embedded://"]
+    args = parse(base + argv)
+    assert cli.validate(args) == []
+    got = cli.complete(args, upstream_transport=NullTransport())
+    if where == "switch":
+        assert getattr(features, name) is want
+        return
+    opts = got.server_options
+    value = (opts.endpoint_kwargs.get(name) if where == "endpoint"
+             else getattr(opts, name))
+    assert value == want
+    ref_args = ref_cli.build_parser().parse_args(
+        ref_cli._normalize_argv(base + argv))
+    ref_opts = ref_cli.complete(ref_args,
+                                upstream_transport=NullTransport()
+                                ).server_options
+    ref_value = (ref_opts.endpoint_kwargs.get(name) if where == "endpoint"
+                 else getattr(ref_opts, name))
+    assert value == ref_value
+    if where == "endpoint":
+        from spicedb_kubeapi_proxy_tpu_torch.spicedb.decision_cache import (
+            DecisionCacheEndpoint)
+        from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import (
+            create_endpoint)
+        ep = create_endpoint("embedded://?cache=1", **opts.endpoint_kwargs)
+        assert isinstance(ep, DecisionCacheEndpoint)
+        if name == "decision_cache_bytes":
+            assert ep.cache.max_bytes == want
+
+
+@pytest.mark.parametrize("argv,err", [
+    (["--shed-slo-burn"], "--shed-slo-burn needs an SLO"),
+    (["--flight-windows", "1"], "--flight-windows must be >= 2"),
+    (["--flight-window", "0"], "--flight-window must be > 0"),
+    (["--slo-objective", "0"], "--slo-objective must be in (0, 1]"),
+    (["--device-hbm-peak-gbps", "-1"], "--device-hbm-peak-gbps must be"),
+    (["--decision-cache-bytes", "-1"], "--decision-cache-bytes must be"),
+])
+def test_bad_telemetry_values_fail_validate(tmp_path, argv, err):
+    base = ["--rule-config", rules_file(tmp_path), "--embedded-mode",
+            "--use-in-cluster-config"]
+    errs = cli.validate(parse(base + argv))
+    assert any(e.startswith(err) for e in errs), errs
+    ref_errs = ref_cli.validate(ref_cli.build_parser().parse_args(
+        ref_cli._normalize_argv(base + argv)))
+    assert any(e.startswith(err) for e in ref_errs), ref_errs
+
+
 @pytest.mark.parametrize("spec,match", [
-    ("DecisionCache=true", "unknown feature gate"),
     ("AsyncRebuild=false,Bogus=true", "unknown feature gate"),
     ("AsyncRebuild=maybe", "invalid feature gate value"),
 ])

@@ -27,9 +27,23 @@ quarantine-routed reads summed over its cells must both be above zero,
 so that path is shown to run, not bypassed.  The card leg runs the same seeds with `device="cuda"`
 (the mesh on one card, repeated) and skips without a card.
 
-This file imports nothing of jax: the reference's fuzz generator, store
-and evaluator do not, so the card leg runs on a machine without it
-(`python -m pytest --noconftest tests/test_torch_fuzz.py`).
+The decision-cache legs are the reference fuzz harness's (`fuzz/driver.py:
+412-466`): the plain, mesh and Leopard endpoints behind the decision
+cache (`torch://?device=cpu&cache=1`; the Leopard one with
+`dispatch=direct` and the index on), replayed on the same cells beside
+`jax://` behind the reference's cache, on the reference's store.  Every
+answer of each equals the oracle's and `jax://`'s, and after every step
+each port cache's hit, miss, invalidation, eviction and fill counts and
+resident bytes equal the reference cache's: the same queries and writes
+reach every cache, whatever endpoint it fronts.
+
+The module imports nothing of jax (the jax endpoints of the cached
+legs are imported inside their test), so the card leg runs on a
+machine without it.
+
+The reference's fuzz generator, store and evaluator import no jax:
+`python -m pytest --noconftest tests/test_torch_fuzz.py -m cuda` runs
+the card leg.
 """
 
 import asyncio
@@ -171,10 +185,63 @@ def _describe(case, ids_of, got, want) -> str:
     return "no difference"
 
 
-def replay(bias: str, seed: int, device: str = "cpu") -> dict:
-    """Replay one case on the four endpoints; returns per endpoint the
-    number of compared answers.  Raises on the first divergence, naming
-    the seed."""
+def _cached_endpoints(schema_text: str, store, device: str) -> dict:
+    """The reference fuzz harness's decision-cache legs on `torch://`."""
+    url = ("torch://?cache=1" if device == "cuda"
+           else "torch://?device=cpu&cache=1")
+    bs = Bootstrap(schema_text, "")
+    return {
+        "ell": create_endpoint(url, bs, store=store),
+        "mesh": create_endpoint(url, bs, store=store, mesh=make_mesh(
+            [device] * 4, data=2, graph=2)),
+        "leopard": create_endpoint(url, bs, store=store, dispatch="direct",
+                                   leopard=True),
+    }
+
+
+def _ref_cached_endpoint(case, store):
+    """`jax://` behind the reference's decision cache (fuzz/driver.py
+    `build_endpoint`'s plain leg), over the reference store."""
+    from spicedb_kubeapi_proxy_tpu.ops.jax_endpoint import JaxEndpoint
+    from spicedb_kubeapi_proxy_tpu.spicedb.decision_cache import (
+        DecisionCacheEndpoint)
+    from spicedb_kubeapi_proxy_tpu.utils.features import GATES
+    prev = GATES.enabled("LeopardIndex")
+    try:
+        GATES.set("LeopardIndex", False)
+        return DecisionCacheEndpoint(JaxEndpoint(case.parsed_schema(),
+                                                 store=store))
+    finally:
+        GATES.set("LeopardIndex", prev)
+
+
+def _ref_answers(ep, case, ids_of: dict) -> tuple:
+    """`_answers` with the reference package's request types."""
+    from spicedb_kubeapi_proxy_tpu.spicedb.types import (
+        CheckRequest as RefCheckRequest)
+
+    async def go():
+        lookups = [ep.lookup_resources(rt, perm, _subject(s, RefSubjectRef))
+                   for rt, perm in case.targets for s in case.subjects]
+        checks = [ep.check_bulk_permissions([
+            RefCheckRequest(RefObjectRef(rt, oid), perm,
+                            _subject(s, RefSubjectRef))
+            for s in case.subjects])
+            for rt, perm in case.targets for oid in ids_of[rt]]
+        out = await asyncio.gather(*lookups, *checks)
+        n = len(lookups)
+        return ([sorted(x) for x in out[:n]],
+                [[P3[r.permissionship.name] for r in c] for c in out[n:]])
+
+    return asyncio.run(go())
+
+
+def replay(bias: str, seed: int, device: str = "cpu",
+           cached: bool = False) -> dict:
+    """Replay one case on the four endpoints (`cached`: on the three
+    decision-cache legs, beside the reference's on `jax://`); returns per
+    endpoint the number of compared answers.  Raises on the first
+    divergence, naming the seed."""
     schema_bias, delta_bias = _biases(bias)
     case = build_case(seed, schema_bias=schema_bias, delta_bias=delta_bias)
     clock = FakeClock()
@@ -183,7 +250,11 @@ def replay(bias: str, seed: int, device: str = "cpu") -> dict:
     ref.bulk_load([ref_parse(r) for r in init])
     port.bulk_load([parse_relationship(r) for r in init])
     oracle = Evaluator(case.parsed_schema(), ref)
-    eps = _endpoints(case.schema_text, port, device)
+    if cached:
+        eps = _cached_endpoints(case.schema_text, port, device)
+        ref_ep = _ref_cached_endpoint(case, ref)
+    else:
+        eps, ref_ep = _endpoints(case.schema_text, port, device), None
     counts = dict.fromkeys(eps, 0)
     for step in range(-1, len(case.bursts)):
         if step >= 0:
@@ -191,6 +262,12 @@ def replay(bias: str, seed: int, device: str = "cpu") -> dict:
         ids_of = {rt: ref.object_ids_of_type(rt)[:12]
                   for rt, _ in case.targets}
         want = _oracle_answers(oracle, case, ids_of)
+        if ref_ep is not None:
+            ref_got = _ref_answers(ref_ep, case, ids_of)
+            ref_stats = (dict(ref_ep.cache.stats), ref_ep.cache.resident_bytes)
+            if ref_got != want:
+                raise AssertionError(f"jax:// diverges from the oracle: "
+                                     f"seed={seed} bias={bias} step={step}")
         for name, ep in eps.items():
             got = asyncio.run(_answers(ep, case, ids_of))
             if got != want:
@@ -200,6 +277,14 @@ def replay(bias: str, seed: int, device: str = "cpu") -> dict:
                 print(msg)
                 raise AssertionError(msg)
             counts[name] += len(got[0]) + sum(len(c) for c in got[1])
+            if ref_ep is not None:
+                stats = (dict(ep.cache.stats), ep.cache.resident_bytes)
+                if stats != ref_stats:
+                    msg = (f"DIVERGENCE seed={seed} bias={bias} cached "
+                           f"endpoint={name} step={step}: cache "
+                           f"port={stats} reference={ref_stats}")
+                    print(msg)
+                    raise AssertionError(msg)
     for ep in eps.values():
         ep.wait_rebuilds()
     _QUARANTINE[(bias, seed, device)] = (
@@ -211,6 +296,13 @@ def replay(bias: str, seed: int, device: str = "cpu") -> dict:
 @pytest.mark.parametrize("bias,seed", CELLS)
 def test_fuzz_case_answers_as_the_oracle(bias, seed):
     counts = replay(bias, seed)
+    assert all(n > 0 for n in counts.values())
+
+
+@pytest.mark.parametrize("bias,seed", CELLS)
+def test_cached_fuzz_case_matches_jax_and_the_oracle(bias, seed):
+    counts = replay(bias, seed, cached=True)
+    assert set(counts) == {"ell", "mesh", "leopard"}
     assert all(n > 0 for n in counts.values())
 
 

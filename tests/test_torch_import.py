@@ -396,3 +396,79 @@ def test_dual_write_serves_with_jax_h11_yaml_and_cryptography_blocked():
     assert not [m for m in res["modules"] if _is_forbidden(m)]
     assert ("spicedb_kubeapi_proxy_tpu_torch.authz.distributedtx.engine"
             in res["modules"])
+
+
+# the decision cache and the device-telemetry modules
+TELEMETRY_MODULES = [
+    "spicedb_kubeapi_proxy_tpu_torch.spicedb.decision_cache",
+    "spicedb_kubeapi_proxy_tpu_torch.utils.devtel",
+    "spicedb_kubeapi_proxy_tpu_torch.utils.timeline",
+    "spicedb_kubeapi_proxy_tpu_torch.utils.workload",
+    "spicedb_kubeapi_proxy_tpu_torch.utils.profiler",
+]
+
+
+@pytest.mark.parametrize("module", TELEMETRY_MODULES)
+def test_telemetry_module_imports_nothing_forbidden(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    assert path.exists(), module
+    bad = [m for m in _imports(path) if _is_forbidden(m)]
+    assert bad == [], f"{module} imports {bad}"
+
+
+_PROBE_CACHE = _BLOCK + r"""
+import asyncio, json
+from spicedb_kubeapi_proxy_tpu_torch.kubefake.apiserver import (
+    FakeKubeApiServer)
+from spicedb_kubeapi_proxy_tpu_torch.proxy.httpcore import HandlerTransport
+from spicedb_kubeapi_proxy_tpu_torch.proxy.server import Options, ProxyServer
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import Bootstrap
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import SubjectRef
+kube = FakeKubeApiServer()
+kube.seed("", "v1", "pods", {"metadata": {"name": "p0", "namespace": "ns"}})
+proxy = ProxyServer(Options(
+    spicedb_endpoint="torch://?device=cpu&cache=1",
+    rule_configs=[],
+    bootstrap=Bootstrap.from_mapping({"schema":
+        "definition user {}\ndefinition pod { relation creator: user\n"
+        "permission view = creator }", "relationships":
+        "pod:ns/p0#creator@user:ann"}),
+    upstream_transport=HandlerTransport(kube)))
+
+async def go():
+    out = []
+    for _ in range(2):
+        ids = await proxy.endpoint.lookup_resources(
+            "pod", "view", SubjectRef("user", "ann"))
+        out.append([list(ids), ids.source])
+    client = proxy.get_embedded_client(user="ann")
+    for path in ("/debug/flight", "/debug/timeline", "/debug/workload",
+                 "/debug/profile?seconds=0.05"):
+        out.append([path, (await client.get(path)).status])
+    return out
+
+res = asyncio.run(go())
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None)
+print(json.dumps({"res": res, "modules": loaded}))
+"""
+
+
+def test_cached_endpoint_and_debug_surfaces_run_with_jax_blocked():
+    out = subprocess.run([sys.executable, "-c", _PROBE_CACHE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["res"][:2] == [[["ns/p0"], "kernel"], [["ns/p0"], "cache"]]
+    assert [s for _, s in res["res"][2:]] == [200] * 4
+    assert not [m for m in res["modules"] if _is_forbidden(m)]
+    assert set(TELEMETRY_MODULES) <= set(res["modules"])
+
+
+def test_no_tpu_figure_in_the_port():
+    """The reference's TPU memory rate (819 GB/s) and its v5e figures are
+    not the port's: no file of the port quotes them."""
+    import re
+    for path in sorted(PORT.rglob("*.py")):
+        text = path.read_text()
+        assert not re.search(r"\b819(\.0)?\b", text), path
+        assert "v5e" not in text.lower(), path

@@ -1353,3 +1353,129 @@ def test_dryrun_multichip_on_the_cards():
     from spicedb_kubeapi_proxy_tpu_torch import entry
     out = entry.dryrun_multichip(4)
     assert all(d.startswith("cuda") for d in out["devices"])
+
+
+# -- device telemetry on the card ------------------------------------------------
+
+
+def _telemetry_endpoint():
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import SubjectRef
+    w = workloads.multitenant_1m(n_pods=20_000, n_tuples=60_000,
+                                 n_users=500, n_namespaces=200)
+    # the index off: at this size the closure planes would answer pod#view
+    # without a sweep
+    ep = create_endpoint("torch://?dispatch=direct", Bootstrap(
+        w.schema_text, "\n".join(w.relationships)), leopard=False)
+    ep.warm_start(prewarm=True)
+    subjects = [SubjectRef("user", u) for u in w.subjects[:256]]
+    return ep, subjects
+
+
+def _kernel_device_s() -> float:
+    from spicedb_kubeapi_proxy_tpu_torch.utils.metrics import REGISTRY
+    h = REGISTRY.get("authz_kernel_time_seconds")
+    return 0.0 if h is None else sum(
+        v[1] for k, v in h.raw().items() if k[0] == "kernel.device")
+
+
+@pytest.mark.cuda
+def test_device_windows_are_cuda_event_times():
+    """A batch's kernel.device seconds are the device spans of the seed
+    and sweep graphs it replayed, read at readback: they agree with
+    events the test records inside the same graphs, hold none of the
+    host's time between sweeps, and no synchronize runs for them."""
+    import asyncio
+
+    from chip_smoke import _OwnGraphMarks
+    _needs_card()
+    marks = _OwnGraphMarks()
+    syncs = []
+    real_sync = torch.cuda.synchronize
+    try:
+        ep, subjects = _telemetry_endpoint()
+        asyncio.run(ep.lookup_resources_batch("pod", "view", subjects))
+        torch.cuda.synchronize = lambda *a, **k: syncs.append(a) or \
+            real_sync(*a, **k)
+        marks.on = True
+        k0, t0 = _kernel_device_s(), time.perf_counter()
+        for _ in range(4):
+            asyncio.run(ep.lookup_resources_batch("pod", "view", subjects))
+        host = time.perf_counter() - t0
+        acc = _kernel_device_s() - k0
+    finally:
+        torch.cuda.synchronize = real_sync
+        marks.uninstall()
+    own = sum(marks.spans)
+    sweeps = int(ep.graph().last_trace[0])
+    # each batch: its seed graph and one graph a sweep
+    assert len(marks.spans) == 4 * (1 + sweeps) and syncs == []
+    assert abs(acc - own) <= 0.10 * own, (acc, own)
+    assert acc < host
+
+
+@pytest.mark.cuda
+def test_stepwise_launches_are_stamped_on_the_card():
+    """Outside a graph (the segment kernel launches each step), a batch's
+    kernel.device seconds are the sum of the launchers' own event pairs:
+    more than zero and less than events around the whole batch call,
+    which hold the host's time between launches."""
+    import asyncio
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import SubjectRef
+    _needs_card()
+    w = workloads.multitenant_1m(n_pods=20_000, n_tuples=60_000,
+                                 n_users=500, n_namespaces=200)
+    ep = create_endpoint("torch://?dispatch=direct&kernel=segment",
+                         Bootstrap(w.schema_text,
+                                   "\n".join(w.relationships)),
+                         leopard=False)
+    subjects = [SubjectRef("user", u) for u in w.subjects[:256]]
+    asyncio.run(ep.lookup_resources_batch("pod", "view", subjects))
+    graph = ep.graph()
+    orig = graph.run_lookup_packed_T_device
+    pairs = []
+
+    def whole(*a, **k):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = orig(*a, **k)
+        e.record()
+        pairs.append((s, e))
+        return out
+
+    graph.run_lookup_packed_T_device = whole
+    try:
+        k0 = _kernel_device_s()
+        for _ in range(2):
+            asyncio.run(ep.lookup_resources_batch("pod", "view", subjects))
+        acc = _kernel_device_s() - k0
+    finally:
+        del graph.run_lookup_packed_T_device
+    outer = sum(s.elapsed_time(e) for s, e in pairs) / 1e3
+    assert len(pairs) == 2 and 0 < acc < outer, (acc, outer)
+
+
+@pytest.mark.cuda
+def test_ledger_lies_between_the_tables_and_the_allocator():
+    from spicedb_kubeapi_proxy_tpu_torch.utils import devtel
+    _needs_card()
+    ep, _ = _telemetry_endpoint()
+    g = ep.graph()
+    tables = devtel.tensor_bytes(g.dev_main, g.dev_aux, g.dev_cav)
+    assert tables <= devtel.LEDGER.total() <= torch.cuda.memory_allocated()
+    old = ep._devtel_gen
+    ep.force_rebuild()
+    assert devtel.LEDGER.generation_bytes(old) == 0
+    assert devtel.LEDGER.generation_bytes(ep._devtel_gen) >= tables
+
+
+@pytest.mark.cuda
+def test_kernel_phases_open_nvtx_ranges_on_the_card(monkeypatch):
+    import asyncio
+    _needs_card()
+    ep, subjects = _telemetry_endpoint()
+    names = []
+    push = torch.cuda.nvtx.range_push
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push",
+                        lambda n: names.append(n) or push(n))
+    asyncio.run(ep.lookup_resources_batch("pod", "view", subjects))
+    assert "kernel.launch" in names and "kernel.wait" in names

@@ -45,6 +45,7 @@ from spicedb_kubeapi_proxy_tpu.utils import workload as ref_workload
 from spicedb_kubeapi_proxy_tpu.utils.features import GATES
 from spicedb_kubeapi_proxy_tpu_torch import convert
 from spicedb_kubeapi_proxy_tpu_torch.models import workloads as port_workloads
+from spicedb_kubeapi_proxy_tpu_torch.utils import workload as port_workload
 from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
 from spicedb_kubeapi_proxy_tpu_torch.ops import leopard as port_leopard
 from spicedb_kubeapi_proxy_tpu_torch.ops.torch_endpoint import TorchEndpoint
@@ -99,16 +100,21 @@ REF_TRI = {RefPermissionship.NO_PERMISSION: 0,
 @pytest.fixture(autouse=True)
 def reference_like_the_port(monkeypatch):
     """Both rebuild synchronously (the reference's AsyncRebuild gate and
-    the port's ASYNC_REBUILD switch off), and the reference orders no
-    measured candidate pair first (its workload plane is
-    reset and yields no candidates), as the port, which has no workload
-    plane, does."""
+    the port's ASYNC_REBUILD switch off), and both workload planes start
+    empty: the same traffic then drives both, so each generation's
+    Leopard build orders the same measured candidates first
+    (`candidate_order=`)."""
     monkeypatch.setattr(GATES._gates["AsyncRebuild"], "value", False)
     monkeypatch.setattr(port_features, "ASYNC_REBUILD", False)
     ref_workload.WORKLOAD.reset()
-    monkeypatch.setattr(ref_workload.WORKLOAD, "leopard_candidates",
-                        lambda: [])
+    port_workload.WORKLOAD.reset()
 
+
+
+def _order(candidates) -> list:
+    """The Leopard build order a workload plane's candidates give
+    (`candidate_order=`)."""
+    return [(c["resource_type"], c["permission"]) for c in candidates]
 
 def run(coro):
     return asyncio.run(coro)
@@ -274,6 +280,8 @@ def assert_same_index(port, jx) -> None:
     for k in ("leopard_checks", "leopard_lookups", "leopard_recloses",
               "kernel_calls", "rebuilds"):
         assert port.stats[k] == jx.stats[k], k
+    assert (_order(port_workload.WORKLOAD.leopard_candidates())
+            == _order(ref_workload.WORKLOAD.leopard_candidates()))
     pl, rl = port._leopard, jx._leopard
     assert (pl is None) == (rl is None)
     if pl is None:
@@ -507,6 +515,9 @@ def test_small_group_explosion_with_bench_churn(kernel):
     b = TorchEndpoint(port_sch.parse_schema(w.schema_text),
                       store=p.port.store, device="cpu", kernel=kernel,
                       leopard=False)
+    # B's reads go to the reference's B too, so that both workload planes
+    # measure the same traffic (and order the same Leopard candidates)
+    b_ref = _ref_endpoint(w.schema_text, False, kernel, store=p.jx.store)
     rng = random.Random(199)
     n_chains = 800 // depth
     docs = sorted(p.jx.store.object_ids_of_type("doc"))
@@ -526,6 +537,10 @@ def test_small_group_explosion_with_bench_churn(kernel):
         assert [c.allowed for c in a_c] == [c.allowed for c in b_c]
         # the same reads on jax://, so the counters stay comparable
         refs = [RefSubjectRef("user", s) for s in subjects]
+        run(b_ref.lookup_resources_batch("doc", "view", refs))
+        run(b_ref.check_bulk_permissions(
+            [RefCheckRequest(RefObjectRef("doc", d), "view", s)
+             for d in docs for s in refs[:4]]))
         run(p.jx.lookup_resources_batch("doc", "view", refs))
         run(p.jx.check_bulk_permissions(
             [RefCheckRequest(RefObjectRef("doc", d), "view", s)

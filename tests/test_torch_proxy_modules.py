@@ -569,6 +569,18 @@ def _shedder_cases(adm, set_gate):
         raise RuntimeError("no depth")
     s = adm.LoadShedder(shed_queue_depth=1, depth_fn=broken)
     out.append(s.check("get"))
+    # the SLO-burn signal: sheds reads while an SLO burns, never writes,
+    # and a broken burn reader admits
+    burning = []
+    s = adm.LoadShedder(shed_on_burn=True, burning_fn=lambda: burning)
+    out += [s.active, s.check("list")]
+    burning.append({"slo": "latency_p99"})
+    out += [s.check("list"), s.check("create"), s.snapshot()["shed_on_burn"]]
+    s = adm.LoadShedder(shed_queue_depth=4, shed_on_burn=True,
+                        depth_fn=lambda: 4, burning_fn=lambda: burning)
+    out.append(s.check("get"))
+    s = adm.LoadShedder(shed_on_burn=True, burning_fn=broken)
+    out.append(s.check("get"))
     return out
 
 
@@ -585,10 +597,15 @@ def test_load_shedder_matches_reference():
     assert ref[0] == "queue_depth" and ref[4] is None
     # a rejection counts once per reason, never with the switch off
     assert port_adm.REJECTED["queue_depth"] == \
-        before.get("queue_depth", 0) + 4
+        before.get("queue_depth", 0) + 5
+    assert port_adm.REJECTED["slo_burn"] == before.get("slo_burn", 0) + 1
     assert port_adm.READ_ONLY_VERBS == ref_adm.READ_ONLY_VERBS
-    # the SLO-burn and stats inputs are left out, not silently ignored
-    for kw in ({"shed_on_burn": True}, {"burning_fn": list},
-               {"stats_fn": dict}):
+    assert ref[-7:] == [True, None, "slo_burn", None, True, "queue_depth",
+                        None]
+    # the stats input (the port reads the depth through depth_fn) and the
+    # replica-lag one (the port has no replication) are left out, not
+    # silently ignored
+    for kw in ({"stats_fn": dict}, {"shed_lag_s": 1.0},
+               {"lag_fn": float}):
         with pytest.raises(TypeError):
             port_adm.LoadShedder(**kw)

@@ -76,6 +76,7 @@ from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
     parse_relationship)
 from spicedb_kubeapi_proxy_tpu_torch.utils import failpoints
 from spicedb_kubeapi_proxy_tpu_torch.utils import features as port_features
+from spicedb_kubeapi_proxy_tpu_torch.utils import workload as port_workload
 
 # the reference scenario's doc schema, with a wildcard-capable and a
 # caveated viewer, and nested groups behind editor for the Leopard index
@@ -114,18 +115,25 @@ COUNTERS = ("rebuilds", "bg_rebuilds", "preemptive_rebuilds",
 @pytest.fixture(autouse=True)
 def default_async_rebuilds(monkeypatch):
     """Both packages on their defaults — the reference's AsyncRebuild gate
-    and the port's ASYNC_REBUILD switch on — and the reference ordering no
-    measured Leopard candidate first, as the port (no workload plane)."""
+    and the port's ASYNC_REBUILD switch on — with both workload planes
+    empty at the start: the same traffic drives both, so their background
+    candidates order the same measured Leopard pairs first
+    (`candidate_order=`)."""
     monkeypatch.setattr(GATES._gates["AsyncRebuild"], "value", True)
     monkeypatch.setattr(GATES._gates["LeopardIndex"], "value", True)
     monkeypatch.setattr(port_features, "ASYNC_REBUILD", True)
     ref_workload.WORKLOAD.reset()
-    monkeypatch.setattr(ref_workload.WORKLOAD, "leopard_candidates",
-                        lambda: [])
+    port_workload.WORKLOAD.reset()
     yield
     failpoints.disable_all()
     ref_failpoints.disable_all()
 
+
+
+def _order(candidates) -> list:
+    """The Leopard build order a workload plane's candidates give
+    (`candidate_order=`)."""
+    return [(c["resource_type"], c["permission"]) for c in candidates]
 
 def run(coro):
     return asyncio.run(coro)
@@ -210,6 +218,13 @@ class Pair:
         for k in COUNTERS:
             assert self.port.stats[k] == self.jx.stats[k], k
         assert_same_tables(self.port, self.jx)
+        # the same traffic fed both workload planes: the same measured
+        # candidates, so the same Leopard build order and statuses
+        assert (_order(port_workload.WORKLOAD.leopard_candidates())
+                == _order(ref_workload.WORKLOAD.leopard_candidates()))
+        pl, rl = self.port._leopard, self.jx._leopard
+        if pl is not None and rl is not None:
+            assert pl.status_map() == rl.status_map()
 
 
 def assert_same_tables(port, jx):

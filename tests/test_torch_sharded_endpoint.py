@@ -59,6 +59,7 @@ from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
     UpdateOp,
     parse_relationship)
 from spicedb_kubeapi_proxy_tpu_torch.utils import features as port_features
+from spicedb_kubeapi_proxy_tpu_torch.utils import workload as port_workload
 
 SCHEMA = """
 definition user {}
@@ -132,14 +133,21 @@ REF_TRI = {RefPermissionship.NO_PERMISSION: 0,
 @pytest.fixture(autouse=True)
 def reference_like_the_port(monkeypatch):
     """Both rebuild synchronously (the reference's AsyncRebuild gate and
-    the port's ASYNC_REBUILD switch off), and the reference orders no
-    measured candidate pair first, as the port does."""
+    the port's ASYNC_REBUILD switch off), and both workload planes start
+    empty: the same traffic drives both, so each generation's Leopard
+    build orders the same measured candidates first
+    (`candidate_order=`)."""
     monkeypatch.setattr(REF_GATES._gates["AsyncRebuild"], "value", False)
     monkeypatch.setattr(port_features, "ASYNC_REBUILD", False)
     ref_workload.WORKLOAD.reset()
-    monkeypatch.setattr(ref_workload.WORKLOAD, "leopard_candidates",
-                        lambda: [])
+    port_workload.WORKLOAD.reset()
 
+
+
+def _order(candidates) -> list:
+    """The Leopard build order a workload plane's candidates give
+    (`candidate_order=`)."""
+    return [(c["resource_type"], c["permission"]) for c in candidates]
 
 def run(coro):
     return asyncio.run(coro)
@@ -478,6 +486,8 @@ class TestLeopardOnTheMesh:
         lp = p.port._leopard
         assert lp.status_map().get("doc#view") == "indexed" == \
             p.jx._leopard.status_map().get("doc#view")
+        assert (_order(port_workload.WORKLOAD.leopard_candidates())
+                == _order(ref_workload.WORKLOAD.leopard_candidates()))
         frag = lp.lookup_frag("doc", "view")
         assert isinstance(frag.plane, tuple) and len(frag.plane) == 2
         ref_frag = p.jx._leopard.lookup_frag("doc", "view")
