@@ -117,7 +117,7 @@ deployment (`models/workloads.py multitenant_1m()` with its defaults:
    (counts from zero), and a fixed-seed sample equals the oracle; (e) one
    pinned side-stream readback ran for every fused batch, and its bytes
    equal a blocking copy of the same result; (c) (a) and (b) at pipeline
-   depth 1 and 2 and through the direct endpoint, 5 runs each: median
+   depth 1 and 2 and through the direct endpoint, 3 runs each: median
    wall, per-request p50/p99 and batch counts, beside the `nvidia-smi`
    line; (d) a lookup and a check batch started before a round of phase
    9's churn and finished after its flush and sweep-graph recapture keep
@@ -220,10 +220,50 @@ put down to the card or to the host.
    the DEVICE_TELEMETRY, TIMELINE and KERNEL_INTROSPECT switches on and
    then off (the telemetry's cost, reported, not enforced; phase 14
    times its (a) burst on the batched and the direct endpoint the same
-   way, interleaved five times).
+   way, interleaved DISPATCH_REPEATS times).
+
+19. the durable store and WAL-shipping read replication at multitenant-1m
+   (phase 3's workload, uncut) over phase 16's fake apiserver, between
+   18 and 17 (b).  (a) A leader `ProxyServer` over `torch://` with a
+   `data_dir` and `wal_fsync="always"`, deploy/rules.yaml's read and
+   dual-write shapes: the workload bulk-loaded (one snapshot record, its
+   sidecar fsynced before it), a warm start with the prewarm, a
+   checkpoint, then 16 rounds of 64 pod-churn writes through the
+   endpoint and 64 dual-write creates through the proxy as the WAL tail.
+   Logged: the journaled load's seconds, the checkpoint's and how long
+   it held the store lock, the WAL's records and bytes, the durable
+   writes' p50/p99 beside phase 9's in-memory ones.  (b) A dual write
+   left pending by a crash in its SpiceDB write, then `walAfterAppend`
+   on one more write and the leader abandoned without `stop()`; a fresh
+   `ProxyServer` on the data dir recovers (checkpoint + tail, the
+   bootstrap skipped) to the last journaled revision, its read-set
+   equal to the pre-crash store's, warm-starts once, and its 256-lane
+   lookup and 10,000-pair check batches equal the pre-crash endpoint's
+   and a sample of the oracle's; its restarted worker completes the
+   pending instance once and leaves nothing pending.  Logged: the
+   recovery split, the warm start, the first batch, the card's memory.
+   (c) `python3 -m spicedb_kubeapi_proxy_tpu_torch --data-dir D
+   --wal-fsync always` on deploy/'s files: a create (201), SIGKILL, a
+   restart on D that lists the pod with the revision continuing, SIGTERM
+   to exit 0.  (d) A follower `ProxyServer` (`replicate_from`, through
+   an in-process transport to (b)'s leader) bootstraps from the 1M-tuple
+   checkpoint (read-set equal to the leader's) and warm-starts; then 16
+   rounds of 64 writes on the leader while it tails, each followed by a
+   256-lane lookup batch, a 10,000-pair check batch and 8 proxied lists
+   with X-Authz-Min-Revision on the follower, equal to the leader's,
+   served locally; every read
+   kernel and `scatter_rows` launch on the follower, and no read goes to
+   the oracle.  Logged: the bootstrap's split, commit-to-apply lag
+   p50/p99/max, the read-after-write batch against the follower's warm
+   median (printed, not enforced), the follower's launches and rebuilds,
+   both endpoints' HBM ledger bytes, one list over a loopback socket.
+   (e) The follower paused while the leader checkpoints (reclaiming the
+   segment it tails) and writes on: its next pass re-bootstraps
+   (`replica_reset`), the next read rebuilds the graph on the card
+   synchronously (its latency logged) and answers as the leader.
 
 Phases run in the order 1-9, 11, 13a-b, 14, 15, 10, 13c, 12, 13d, 16, 17a,
-18, 17b, and each phase's seconds are logged.  Any failed phase raises and the script
+18, 19, 17b, and each phase's seconds are logged.  Any failed phase raises and the script
 exits non-zero.  The second-to-last line is the kernel table as JSON,
 the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -288,9 +328,10 @@ MESH_DATA, MESH_GRAPH = 2, 4
 MESH_ROUNDS = 4
 # phase 14, batched dispatch on the phase-3 endpoint: BASELINE config 5's
 # 256 concurrent list requests, then mixed traffic with 64 concurrent
-# check calls, each dispatch mode run DISPATCH_REPEATS times
+# check calls, each dispatch mode run DISPATCH_REPEATS times (3 since
+# phase 19 joined the smoke: the direct runs are most of the phase)
 DISPATCH_CHECK_CALLS = 64
-DISPATCH_REPEATS = 5
+DISPATCH_REPEATS = 3
 DISPATCH_ORACLE_CHECKS = 300
 DISPATCH_ORACLE_SUBJECTS = 2    # lookups held against oracle checks
 DISPATCH_ORACLE_PODS = 100      # allowed, and as many refused, pods each
@@ -369,6 +410,13 @@ DUALWRITE_RULES = [
 CACHE_EXPIRY_S = 1.5        # lifetime of (b)'s expiring workflow tuple
 KERNEL_TIME_TOL = 0.10      # (d): accounted kernel.device s vs own events
 DUALWRITE_PAIRS = 8
+# phase 19, the durable store and read replication at multitenant-1m
+DURABLE_ROUNDS = 16         # rounds of pod-churn writes on the leader
+DURABLE_ROUND_WRITES = 64   # writes a round, each one WAL record
+DURABLE_CREATES = 64        # dual-write creates through the leader proxy
+DURABLE_ORACLE_CHECKS = 200
+FOLLOWER_ROUNDS = 16
+FOLLOWER_LISTS = 8          # proxied lists on the follower a round
 DUALWRITE_ORACLE = 64
 CLI_READY_S = 300           # the command's warm start, prewarm included
 CLI_STOP_S = 10             # SIGTERM to exit
@@ -433,6 +481,8 @@ MESH_SWEEP_KERNELS = ("mesh_gather_or", "mesh_perm_program",
                       "mesh_sweep_delta")
 MESH_KERNELS = MESH_SWEEP_KERNELS + ("seed_bitplanes", "check_gather",
                                      "lookup_T")
+# each in-memory write's seconds in phase 9, beside phase 19's durable ones
+WRITE_SECONDS: dict = {}
 POISON = 0x5A5A5A5A     # what a sweep's output buffers hold before it
 # the segment path's kernels (phase 11; the init step is a plain copy of
 # the seed when the program has no wildcard term, as multitenant-1m's)
@@ -1144,9 +1194,12 @@ def churn(ep, w, timer, peak, warm_lookup_s, n_rounds: int = N_ROUNDS):
 
     async def commit(writes):
         for wr in writes:
+            t = time.perf_counter()
             await ep.write_relationships(
                 [RelationshipUpdate(ops[o], parse_relationship(r))
                  for o, r in wr])
+            WRITE_SECONDS.setdefault("phase 9", []).append(
+                time.perf_counter() - t)
 
     def lookup(subjects):
         t0 = time.perf_counter()
@@ -5747,6 +5800,896 @@ def _cache_telemetry(p16: dict, w, smi_line: str, device: str,
     return {"launches": launches1, "cold_wall": wall1, "warm_wall": wall2}
 
 
+# -- phase 19, the durable store and WAL-shipping read replication -----------
+
+
+class _LeaderLink:
+    """A follower's transport to an in-process leader: the leader's
+    current handler at every call (enable_dual_writes rebuilds it)."""
+
+    def __init__(self, proxy):
+        self.proxy = proxy
+
+    async def round_trip(self, req):
+        return await self.proxy.handler(req)
+
+
+def _bare(proxy):
+    """The TorchEndpoint under a proxy's wrappers."""
+    from spicedb_kubeapi_proxy_tpu_torch.ops.torch_endpoint import (
+        TorchEndpoint)
+    ep = proxy.endpoint
+    while not isinstance(ep, TorchEndpoint):
+        ep = ep.inner
+    return ep
+
+
+def _read_set(store, gid: dict):
+    """A store's live tuples as one sorted [n, 7] int64 array: the six
+    identity strings through the interning `gid` (shared by the stores
+    compared) and the expiry's float64 bits, so two stores of a million
+    tuples compare without a million Python objects each.  Caveats are
+    not covered: a caveated tuple raises (multitenant-1m has none)."""
+    import numpy as np
+
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.columnar import _COLS
+
+    def ids(strings):
+        return np.fromiter((gid.setdefault(x, len(gid)) for x in strings),
+                           np.int64, len(strings))
+
+    view = store.columnar_view()
+    snap, rows, overlay = view if view is not None else (
+        None, None, store.read(None))
+    parts = []
+    if snap is not None and len(rows):
+        pool = ids(snap.pool)
+        parts.append(np.stack(
+            [pool[getattr(snap, c)[rows]] for c in _COLS]
+            + [np.asarray(snap.expiry[rows], np.float64).view(np.int64)],
+            1))
+    if overlay:
+        if any(r.caveat is not None for r in overlay):
+            raise AssertionError("a caveated tuple in the read-set")
+        cols = [ids([getattr(r.resource, "type") for r in overlay]),
+                ids([r.resource.id for r in overlay]),
+                ids([r.relation for r in overlay]),
+                ids([r.subject.type for r in overlay]),
+                ids([r.subject.id for r in overlay]),
+                ids([r.subject.relation for r in overlay])]
+        exp = np.array([np.nan if r.expires_at is None else r.expires_at
+                        for r in overlay], np.float64).view(np.int64)
+        parts.append(np.stack(cols + [exp], 1))
+    if not parts:
+        return np.zeros((0, 7), np.int64)
+    a = np.concatenate(parts)
+    return a[np.lexsort(a.T[::-1])]
+
+
+def _durable_writes(rnd: dict, n: int) -> list:
+    """A round of `_churn_plan`'s writes cut to `n`: its namespace
+    grants first (the lists that read them change), then the rest in
+    the plan's order."""
+    grants = [wr for wr in rnd["writes"]
+              if wr[0][1].startswith("namespace:")]
+    rest = [wr for wr in rnd["writes"] if wr not in grants]
+    return (grants + rest)[:n]
+
+
+def durable_path(w, kube, smi_line: str, device: str = "cuda") -> dict:
+    """Phase 19: the durable store and WAL-shipping read replication at
+    multitenant-1m (`w`, phase 3's workload), over phase 16's fake
+    kube-apiserver (see the module docstring for (a)-(e)).  Returns the
+    follower's launches by kernel."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    _switch(True)   # the port's default rebuild path
+    tmp = tempfile.mkdtemp(prefix="smoke-durable-")
+    try:
+        ctx = _durable_leader(w, kube, smi_line, device, tmp)
+        _durable_crash(ctx)
+        cli_crash(smi_line, device=device)
+        out = _durable_follower(ctx)
+        _durable_rebootstrap(ctx)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 19 wall time {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _durable_leader(w, kube, smi_line: str, device: str, tmp: str) -> dict:
+    """Phase 19 (a): a durable leader and its WAL tail."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.config import proxyrule
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.httpcore import (
+        HandlerTransport)
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.server import (
+        Options, ProxyServer)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.columnar import (
+        ColumnarSnapshot)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import Bootstrap
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        RelationshipUpdate, SubjectRef, UpdateOp, parse_relationship)
+
+    on_card = device == "cuda"
+    url = "torch://" if on_card else f"torch://?device={device}"
+    data = os.path.join(tmp, "data")
+    text = "\n".join(w.relationships)
+    rules = [proxyrule.parse_doc(d)
+             for d in PROXY_READ_RULES + DUALWRITE_RULES]
+    opts = dict(spicedb_endpoint=url, rule_configs=rules,
+                upstream_transport=HandlerTransport(kube),
+                prewarm_compiles=True, data_dir=data, wal_fsync="always",
+                workflow_database_path=os.path.join(data, "dtx.sqlite"))
+    leader = ProxyServer(Options(bootstrap=Bootstrap(w.schema_text), **opts))
+    mgr = leader.persistence
+    store = leader.endpoint.store
+    # the bulk load: one snapshot record, its sidecar written and fsynced
+    # before it
+    t0 = time.perf_counter()
+    snap = ColumnarSnapshot.from_text(text)
+    t1 = time.perf_counter()
+    store.bulk_load_snapshot(snap)
+    t2 = time.perf_counter()
+    records = list(mgr.wal.replay())
+    if [r["k"] for r in records] != ["s"] or store.revision != 1:
+        raise AssertionError(f"the bulk load journaled {records}")
+    sidecar = os.path.getsize(os.path.join(mgr.wal.dir, records[0]["f"]))
+    asyncio.run(leader.warm_start())
+    t3 = time.perf_counter()
+    ep = _bare(leader)
+    if ep.device.type != torch.device(device).type:
+        raise AssertionError(f"leader endpoint on {ep.device}")
+
+    # the checkpoint, and how long it holds the store lock: the capture
+    # (the columnar view) and the WAL cut run under it, the serializing
+    # after it; a probe thread takes the lock meanwhile
+    held = {}
+    view_fn, cut_fn = store.columnar_view, mgr.wal.cut
+
+    def timed_view():
+        held["t0"] = time.perf_counter()
+        return view_fn()
+
+    def timed_cut():
+        out = cut_fn()
+        held["t1"] = time.perf_counter()
+        return out
+
+    store.columnar_view, mgr.wal.cut = timed_view, timed_cut
+    waits, stop = [], threading.Event()
+
+    def probe():
+        while not stop.is_set():
+            t = time.perf_counter()
+            with store.lock:
+                pass
+            waits.append(time.perf_counter() - t)
+            time.sleep(0.0005)
+
+    th = threading.Thread(target=probe, daemon=True)
+    th.start()
+    try:
+        t4 = time.perf_counter()
+        manifest = mgr.checkpoint()
+        t5 = time.perf_counter()
+    finally:
+        stop.set()
+        th.join()
+        del store.columnar_view, mgr.wal.cut
+    if manifest is None or manifest["revision"] != store.revision:
+        raise AssertionError(f"checkpoint manifest {manifest}")
+    ckpt_bytes = os.path.getsize(os.path.join(mgr.ckpt_dir,
+                                              manifest["checkpoint"]))
+    log(f"phase 19 (a): durable leader ProxyServer({url!r}, data_dir, "
+        f"wal_fsync='always'); {len(snap)} tuples parsed in "
+        f"{t1 - t0:.3f} s, journaled bulk load (snapshot record + "
+        f"{sidecar} byte sidecar, fsynced) {t2 - t1:.3f} s; warm start "
+        f"with prewarm {t3 - t2:.3f} s; checkpoint at revision "
+        f"{manifest['revision']} {t5 - t4:.3f} s ({ckpt_bytes} bytes), the "
+        f"store lock held {held['t1'] - held['t0']:.6f} s (capture and WAL "
+        f"cut), the longest wait of a thread taking it "
+        f"{max(waits):.6f} s (interpreter lock included, {len(waits)} "
+        f"takes) ({smi_line})")
+
+    # the WAL tail: pod-churn rounds through the endpoint, then dual-write
+    # creates through the proxy
+    ops = {"touch": UpdateOp.TOUCH, "delete": UpdateOp.DELETE}
+    plan = _churn_plan(w, DURABLE_ROUNDS + FOLLOWER_ROUNDS + 2, SEED + 19,
+                       tag="d")
+    lat = []
+
+    async def churn_rounds():
+        for rnd in plan[:DURABLE_ROUNDS]:
+            for wr in _durable_writes(rnd, DURABLE_ROUND_WRITES):
+                t = time.perf_counter()
+                await leader.endpoint.write_relationships(
+                    [RelationshipUpdate(ops[o], parse_relationship(r))
+                     for o, r in wr])
+                lat.append(time.perf_counter() - t)
+
+    t6 = time.perf_counter()
+    asyncio.run(churn_rounds())
+    t7 = time.perf_counter()
+    # the creates' users: the first who may view a namespace, each in
+    # one of those
+    cands = [f"u{i}" for i in range(4 * DURABLE_CREATES)]
+    ns_lists = asyncio.run(ep.lookup_resources_batch(
+        "namespace", "view", [SubjectRef("user", u) for u in cands]))
+    rng = np.random.default_rng(SEED + 19)
+    viewers = [(u, sorted(ids)) for u, ids in zip(cands, ns_lists) if ids]
+    if len(viewers) < DURABLE_CREATES:
+        raise AssertionError(f"{len(viewers)} of {len(cands)} users may "
+                             f"view a namespace")
+    users = [u for u, _ in viewers[:DURABLE_CREATES]]
+    home = [ids[int(rng.integers(len(ids)))]
+            for _, ids in viewers[:DURABLE_CREATES]]
+    leader.enable_dual_writes()
+
+    async def creates():
+        kube._lock = asyncio.Lock()
+        await leader._worker.start()
+        try:
+            res = await asyncio.gather(*(
+                leader.get_embedded_client(user=u).post(
+                    f"/api/v1/namespaces/{ns}/pods",
+                    {"apiVersion": "v1", "kind": "Pod",
+                     "metadata": {"name": f"dur-{i}", "namespace": ns}})
+                for i, (u, ns) in enumerate(zip(users, home))))
+        finally:
+            await leader._worker.stop()
+        return res
+
+    res = asyncio.run(creates())
+    t8 = time.perf_counter()
+    bad = [(r.status, r.body[:200]) for r in res if r.status != 201]
+    if bad:
+        raise AssertionError(f"{len(bad)} durable creates failed: {bad[:3]}")
+    tail = [r for r in mgr.wal.replay() if r["r"] > manifest["revision"]]
+    phase9 = WRITE_SECONDS.get("phase 9") or [float("nan")]
+    log(f"phase 19 (a) {DURABLE_ROUNDS} rounds of {DURABLE_ROUND_WRITES} "
+        f"pod-churn writes through the endpoint in {t7 - t6:.3f} s, per "
+        f"write (WAL append + fsync under the store lock) {_pcts(lat)}, max "
+        f"{max(lat) * 1e3:.3f} ms; phase 9's in-memory writes on the bare "
+        f"endpoint {_pcts(phase9)} ({smi_line})")
+    log(f"phase 19 (a) {DURABLE_CREATES} concurrent dual-write creates "
+        f"through the proxy {t8 - t7:.3f} s, all 201; WAL tail past the "
+        f"checkpoint {len(tail)} records, segments "
+        f"{mgr.wal.segment_seqs()} {mgr.wal.total_bytes()} bytes")
+    return {"w": w, "kube": kube, "smi_line": smi_line, "device": device,
+            "url": url, "data": data, "text": text, "opts": opts,
+            "leader": leader, "ep": ep, "plan": plan, "ops": ops,
+            "users": users, "home": home, "rng": rng,
+            "manifest": manifest, "tail": tail}
+
+
+def _durable_crash(ctx: dict) -> None:
+    """Phase 19 (b): an in-process crash and the recovery."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.authz.distributedtx.workflow import (
+        STRATEGY_PESSIMISTIC, _collect_updates, _lock_update)
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.server import (
+        Options, ProxyServer)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import Bootstrap
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        CheckRequest, ObjectRef, RelationshipFilter, RelationshipUpdate,
+        SubjectRef, UpdateOp, parse_relationship)
+    from spicedb_kubeapi_proxy_tpu_torch.utils import failpoints
+
+    on_card = ctx["device"] == "cuda"
+    w, kube, leader, ep = ctx["w"], ctx["kube"], ctx["leader"], ctx["ep"]
+    rng = ctx["rng"]
+    subjects = [SubjectRef("user", w.subjects[i]) for i in
+                rng.choice(len(w.subjects), LOOKUP_LANES, replace=False)]
+    pods = [p for p in ep.graph().prog.object_ids["pod"] if "\x00" not in p]
+    reqs = [CheckRequest(ObjectRef("pod", pods[int(i)]), "view",
+                         subjects[int(s)]) for i, s in zip(
+        rng.choice(len(pods), N_CHECKS, replace=False),
+        rng.integers(0, LOOKUP_LANES, N_CHECKS))]
+    sample_idx = [int(i) for i in rng.choice(len(reqs), DURABLE_ORACLE_CHECKS,
+                                             replace=False)]
+    sample = [reqs[i] for i in sample_idx]
+    ctx.update(subjects=subjects, reqs=reqs)
+
+    def answers(e):
+        look = asyncio.run(e.lookup_resources_batch("pod", "view", subjects))
+        chk = asyncio.run(e.check_bulk_permissions(reqs))
+        return [sorted(x) for x in look], [c.allowed for c in chk]
+
+    # a dual write left pending: its SpiceDB write (and idempotency key)
+    # committed and journaled, the activity's completion not
+    ns, user = ctx["home"][0], ctx["users"][0]
+    inp = {"verb": "create", "request_uri": f"/api/v1/namespaces/{ns}/pods",
+           "request_path": f"/api/v1/namespaces/{ns}/pods",
+           "request_name": "", "api_group": "", "resource": "pods",
+           "headers": {}, "user_name": user, "object_name": "revived",
+           "body": json.dumps({"apiVersion": "v1", "kind": "Pod",
+                               "metadata": {"name": "revived",
+                                            "namespace": ns}}),
+           "probe_uri": f"/api/v1/namespaces/{ns}/pods/revived",
+           "creates": [f"pod:{ns}/revived#namespace@namespace:{ns}",
+                       f"pod:{ns}/revived#creator@user:{user}"],
+           "touches": [], "deletes": [], "preconditions": [],
+           "delete_by_filter": []}
+    engine = leader.workflow_client
+    engine.journal.create_instance("smoke-revived", STRATEGY_PESSIMISTIC, inp)
+    lock_rel, lock_pre = _lock_update(inp, "smoke-revived")
+
+    async def crash_in_write():
+        failpoints.enable_failpoint("panicSpiceDBWriteResp", 1)
+        try:
+            await engine._activities["write_to_spicedb"](
+                {"updates": _collect_updates(inp) + [lock_rel],
+                 "preconditions": [lock_pre]}, "smoke-revived")
+        except failpoints.FailPointPanic:
+            return True
+        finally:
+            failpoints.disable_all()
+        return False
+
+    if not asyncio.run(crash_in_write()):
+        raise AssertionError("the pending dual write did not crash")
+    gid: dict = {}
+    t0 = time.perf_counter()
+    before = _read_set(leader.endpoint.store, gid)
+    t_digest = time.perf_counter() - t0
+    pre = answers(ep)
+    oracle = ep._oracle
+    want_sample = [oracle.check(r.resource, r.permission, r.subject)
+                   for r in sample]
+    if [pre[1][i] for i in sample_idx] != want_sample:
+        raise AssertionError("the leader's checks differ from the oracle "
+                             "before the crash")
+    last_rev = leader.endpoint.store.revision
+    # the crash: walAfterAppend on a re-touch of a tuple the store holds
+    # (the record is on disk, the commit never applied in memory), and
+    # the process gone without stop(): no final checkpoint
+    failpoints.enable_failpoint("walAfterAppend", 1)
+    try:
+        asyncio.run(leader.endpoint.write_relationships([RelationshipUpdate(
+            UpdateOp.TOUCH, parse_relationship(
+                f"pod:{ns}/dur-0#creator@user:{user}"))]))
+        raise AssertionError("walAfterAppend did not fire")
+    except failpoints.FailPointPanic:
+        pass
+    finally:
+        failpoints.disable_all()
+    if leader.endpoint.store.revision != last_rev:
+        raise AssertionError("the crashed write became visible")
+    ep.wait_rebuilds()
+    del leader, ep, engine, oracle
+    ctx.pop("leader"), ctx.pop("ep")
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the restart: recover (checkpoint + WAL tail) into a fresh store,
+    # a fresh torch:// endpoint over it, the bootstrap skipped
+    t0 = time.perf_counter()
+    leader = ProxyServer(Options(
+        bootstrap=Bootstrap(w.schema_text, ctx["text"]), **ctx["opts"]))
+    t1 = time.perf_counter()
+    mgr = leader.persistence
+    info = mgr.recovery_info
+    store = leader.endpoint.store
+    if not mgr.recovered or store.revision != last_rev + 1:
+        raise AssertionError(f"recovered revision {store.revision}, the "
+                             f"last journaled one is {last_rev + 1}")
+    if info["checkpoint_revision"] != ctx["manifest"]["revision"] or \
+            info["replayed_records"] != last_rev + 1 - info[
+                "checkpoint_revision"]:
+        raise AssertionError(f"recovery info {info}")
+    if info["idempotency_keys"] != DURABLE_CREATES + 1:
+        raise AssertionError(f"{info['idempotency_keys']} idempotency keys "
+                             f"replayed, {DURABLE_CREATES + 1} journaled")
+    after = _read_set(store, gid)
+    if not np.array_equal(before, after):
+        raise AssertionError(f"the recovered read-set ({len(after)} "
+                             f"tuples) differs from the pre-crash one "
+                             f"({len(before)})")
+    t2 = time.perf_counter()
+    asyncio.run(leader.warm_start())
+    t3 = time.perf_counter()
+    ep = _bare(leader)
+    if ep.stats["rebuilds"] != 1:
+        raise AssertionError(f"warm start made {ep.stats['rebuilds']} "
+                             f"rebuilds")
+    t4 = time.perf_counter()
+    look = asyncio.run(ep.lookup_resources_batch("pod", "view", subjects))
+    if on_card:
+        torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    chk = asyncio.run(ep.check_bulk_permissions(reqs))
+    t6 = time.perf_counter()
+    got = ([sorted(x) for x in look], [c.allowed for c in chk])
+    if got != pre:
+        raise AssertionError("the recovered endpoint's answers differ from "
+                             "the pre-crash endpoint's")
+    if [got[1][i] for i in sample_idx] != want_sample:
+        raise AssertionError("the recovered checks differ from the oracle")
+    if ep.stats["rebuilds"] != 1 or ep.stats["stale_routed"]:
+        raise AssertionError(f"recovered reads rebuilt or went to the "
+                             f"oracle: {ep.stats}")
+    mem = ((torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+           if on_card else (0, 0))
+
+    # the restarted worker: the pending instance replays against the
+    # recovered store, detects its applied write, and writes it once
+    leader.enable_dual_writes()
+
+    async def replay():
+        kube._lock = asyncio.Lock()
+        return await leader.workflow_client.run_pending_once()
+
+    n_replayed = asyncio.run(replay())
+    journal = leader.workflow_client.journal
+    rec = journal.get_instance("smoke-revived")
+    pods_now = kube.objects.get(("", "v1", "pods"), {}).get(ns, {})
+    if (n_replayed != 1 or rec.status != "completed"
+            or rec.result.get("status_code") != 201
+            or journal.pending_instances()
+            or not all(store.has_exact(parse_relationship(r))
+                       for r in inp["creates"])
+            or "revived" not in pods_now
+            or store.read(RelationshipFilter(resource_type="lock"))):
+        raise AssertionError(f"the restarted worker: {n_replayed} replayed, "
+                             f"{rec.status} {rec.result} {rec.error}")
+    ctx.update(leader=leader, ep=ep, gid=gid)
+    log(f"phase 19 (b) crash (walAfterAppend on revision {last_rev + 1}, "
+        f"no stop()) and restart: recovered revision {store.revision} in "
+        f"{info['total_s']:.3f} s (checkpoint load "
+        f"{info['checkpoint_load_s']:.3f} s, {info['checkpoint_tuples']} "
+        f"tuples; tail replay {info['wal_replay_s']:.3f} s, "
+        f"{info['replayed_records']} records, {info['idempotency_keys']} "
+        f"idempotency keys), ProxyServer built in {t1 - t0:.3f} s with the "
+        f"bootstrap skipped; read-set equal ({len(after)} tuples, compared "
+        f"in {t_digest:.3f} s); warm start with prewarm {t3 - t2:.3f} s; "
+        f"first lookup batch after recovery {t5 - t4:.4f} s, check batch "
+        f"{t6 - t5:.4f} s, both equal to the pre-crash endpoint's and "
+        f"{DURABLE_ORACLE_CHECKS} oracle checks; card memory allocated "
+        f"{mem[0] / 2**20:.1f} MiB, reserved {mem[1] / 2**20:.1f} MiB "
+        f"({ctx['smi_line']})")
+    log(f"phase 19 (b) restarted worker: {n_replayed} pending instance "
+        f"replayed to {rec.status} ({rec.result.get('status_code')}), its "
+        f"write applied once, nothing pending")
+
+
+def _durable_follower(ctx: dict) -> dict:
+    """Phase 19 (d): a follower of (b)'s leader."""
+    import numpy as np
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.config import proxyrule
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.httpcore import (
+        HandlerTransport)
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.server import (
+        Options, ProxyServer)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import Bootstrap
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        RelationshipUpdate, parse_relationship)
+    from spicedb_kubeapi_proxy_tpu_torch.utils import devtel
+
+    on_card = ctx["device"] == "cuda"
+    w, kube, leader, l_ep = ctx["w"], ctx["kube"], ctx["leader"], ctx["ep"]
+    subjects, reqs, ops = ctx["subjects"], ctx["reqs"], ctx["ops"]
+    t0 = time.perf_counter()
+    follower = ProxyServer(Options(
+        spicedb_endpoint=ctx["url"],
+        rule_configs=[proxyrule.parse_doc(d) for d in PROXY_READ_RULES],
+        bootstrap=Bootstrap(w.schema_text),
+        upstream_transport=HandlerTransport(kube), prewarm_compiles=True,
+        replicate_from="http://leader.smoke",
+        leader_transport=_LeaderLink(leader)))
+    repl = follower.replication
+    f_ep = _bare(follower)
+    # the bootstrap's split: the checkpoint's fetch, its parse, and the
+    # adoption into the store
+    split = {"fetch": 0.0, "parse": 0.0, "adopt": 0.0}
+
+    def timed(key, fn, is_async):
+        if is_async:
+            async def wrapped(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return await fn(*a, **k)
+                finally:
+                    split[key] += time.perf_counter() - t
+        else:
+            def wrapped(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    split[key] += time.perf_counter() - t
+        return wrapped
+
+    repl._fetch_artifact = timed("fetch", repl._fetch_artifact, True)
+    repl._spool_npz = timed("parse", repl._spool_npz, True)
+    repl.store.replica_reset = timed("adopt", repl.store.replica_reset, False)
+    t1 = time.perf_counter()
+    applied = asyncio.run(repl.sync_once())
+    t2 = time.perf_counter()
+    del repl._fetch_artifact, repl._spool_npz, repl.store.replica_reset
+    if (not repl.bootstrapped
+            or repl.store.revision != leader.endpoint.store.revision):
+        raise AssertionError(f"follower at {repl.store.revision}, leader at "
+                             f"{leader.endpoint.store.revision}")
+    if not np.array_equal(_read_set(repl.store, ctx["gid"]),
+                          _read_set(leader.endpoint.store, ctx["gid"])):
+        raise AssertionError("the follower's read-set differs from the "
+                             "leader's after its bootstrap")
+    t3 = time.perf_counter()
+    asyncio.run(follower.warm_start())
+    t4 = time.perf_counter()
+    log(f"phase 19 (d): follower ProxyServer({ctx['url']!r}, replicate_from"
+        f") built in {t1 - t0:.3f} s; bootstrap {t2 - t1:.3f} s (checkpoint "
+        f"fetch {split['fetch']:.3f} s, parse {split['parse']:.3f} s, "
+        f"adoption {split['adopt']:.3f} s; then {applied} tail records) to "
+        f"revision {repl.store.revision}, read-set equal to the leader's; "
+        f"graph build with prewarm {t4 - t3:.3f} s ({ctx['smi_line']})")
+
+    def look(e):
+        return asyncio.run(e.lookup_resources_batch("pod", "view", subjects))
+
+    warm = []
+    for _ in range(N_WARM):
+        t = time.perf_counter()
+        look(f_ep)
+        if on_card:
+            torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t)
+    warm_med = statistics.median(warm)
+    # the proxied lists of a round: its grants' (namespace, user) pairs,
+    # then dual-write users in their home namespaces
+    fixed = list(zip(ctx["home"], ctx["users"]))
+    commit_t, apply_t = {}, {}
+
+    def on_commit(kind, revision, payload):
+        commit_t[revision] = time.perf_counter()
+
+    apply_batch = repl.store.apply_replica_batch
+
+    def timed_apply(updates):
+        rev = apply_batch(updates)
+        apply_t[rev] = time.perf_counter()
+        return rev
+
+    leader.endpoint.store.add_commit_listener(on_commit)
+    repl.store.apply_replica_batch = timed_apply
+    stats0 = dict(f_ep.stats)
+    launches: dict = {}
+    raw, lists_ok = [], 0
+
+    def names(resp):
+        if resp.status != 200:
+            raise AssertionError(f"list answered {resp.status}: "
+                                 f"{resp.body[:300]!r}")
+        return sorted(i["metadata"]["name"]
+                      for i in json.loads(resp.body)["items"])
+
+    async def rounds():
+        nonlocal lists_ok
+        kube._lock = asyncio.Lock()
+        repl.start()    # the tail: long-polls the leader's manifest
+        try:
+            for rnd in ctx["plan"][DURABLE_ROUNDS:
+                                   DURABLE_ROUNDS + FOLLOWER_ROUNDS]:
+                for wr in _durable_writes(rnd, DURABLE_ROUND_WRITES):
+                    await leader.endpoint.write_relationships(
+                        [RelationshipUpdate(ops[o], parse_relationship(r))
+                         for o, r in wr])
+                rev = leader.endpoint.store.revision
+                if not await repl.wait_for_revision(rev, 60.0):
+                    raise AssertionError(f"the follower never reached "
+                                         f"revision {rev}")
+                pairs = (list(rnd["granted"]) + fixed)[:FOLLOWER_LISTS]
+                f_ep.wait_rebuilds()
+                l0 = dict(kernels.LAUNCHES)
+                t = time.perf_counter()
+                got = await f_ep.lookup_resources_batch("pod", "view",
+                                                        subjects)
+                if on_card:
+                    torch.cuda.synchronize()
+                raw.append(time.perf_counter() - t)
+                got_c = await f_ep.check_bulk_permissions(reqs)
+                hdr = [("X-Authz-Min-Revision", str(rev))]
+                f_lists = await asyncio.gather(*(
+                    follower.get_embedded_client(user=u).get(
+                        f"/api/v1/namespaces/{ns}/pods", headers=hdr)
+                    for ns, u in pairs))
+                f_ep.wait_rebuilds()
+                for k, v in kernels.LAUNCHES.items():
+                    launches[k] = launches.get(k, 0) + v - l0.get(k, 0)
+                want = await l_ep.lookup_resources_batch("pod", "view",
+                                                         subjects)
+                want_c = await l_ep.check_bulk_permissions(reqs)
+                if ([sorted(x) for x in got] != [sorted(x) for x in want]
+                        or [c.allowed for c in got_c]
+                        != [c.allowed for c in want_c]):
+                    raise AssertionError(f"the follower's lookup or check "
+                                         f"batch differs from the "
+                                         f"leader's at revision {rev}")
+                l_lists = await asyncio.gather(*(
+                    leader.get_embedded_client(user=u).get(
+                        f"/api/v1/namespaces/{ns}/pods")
+                    for ns, u in pairs))
+                for (ns, u), fr, lr in zip(pairs, f_lists, l_lists):
+                    if (fr.headers.get("X-Authz-Forwarded-To")
+                            or int(fr.headers.get("X-Authz-Revision"))
+                            < rev or names(fr) != names(lr)):
+                        raise AssertionError(f"the follower's list of {ns} "
+                                             f"for {u} differs from the "
+                                             f"leader's at revision {rev}")
+                    lists_ok += 1
+        finally:
+            await repl.stop()
+
+    t5 = time.perf_counter()
+    asyncio.run(rounds())
+    t6 = time.perf_counter()
+    leader.endpoint.store.remove_commit_listener(on_commit)
+    del repl.store.apply_replica_batch
+    f_ep.wait_rebuilds()
+    lag = [apply_t[r] - commit_t[r] for r in commit_t if r in apply_t]
+    if len(lag) != FOLLOWER_ROUNDS * DURABLE_ROUND_WRITES:
+        raise AssertionError(f"{len(lag)} replicated commits timed")
+    idle = [k for k in READ_KERNELS + ("scatter_rows",)
+            if not launches.get(k)]
+    if idle:
+        raise AssertionError(f"kernels never launched on the follower: "
+                             f"{idle}")
+    d = {k: f_ep.stats[k] - stats0[k] for k in
+         ("rebuilds", "bg_rebuilds", "preemptive_rebuilds",
+          "spare_assignments", "stale_routed", "delta_batches")}
+    if d["stale_routed"]:
+        raise AssertionError(f"follower reads went to the oracle: {d}")
+    async def all_pods(user):
+        resp = await leader.get_embedded_client(user=user).get(
+            "/api/v1/pods")
+        return {f"{i['metadata']['namespace']}/{i['metadata']['name']}"
+                for i in json.loads(resp.body)["items"]}
+
+    user0 = ctx["users"][0]
+    socket = _proxy_socket(follower, user0, asyncio.run(all_pods(user0)))
+    mem = {"leader": devtel.LEDGER.generation_bytes(l_ep._devtel_gen),
+           "follower": devtel.LEDGER.generation_bytes(f_ep._devtel_gen)}
+    cuda_mem = torch.cuda.memory_allocated() if on_card else 0
+    raw_med = statistics.median(raw)
+    log(f"phase 19 (d) {FOLLOWER_ROUNDS} rounds of {DURABLE_ROUND_WRITES} "
+        f"writes on the leader in {t6 - t5:.1f} s: commit-to-apply lag "
+        f"{_pcts(lag)}, max {max(lag) * 1e3:.3f} ms over {len(lag)} "
+        f"commits; follower read-after-write lookup batch median "
+        f"{raw_med:.4f} s vs its warm median {warm_med:.4f} s "
+        f"({raw_med / warm_med:.3f}x; printed, not enforced); its "
+        f"{len(reqs)}-pair check batches and {lists_ok} proxied lists with "
+        f"X-Authz-Min-Revision equal to the leader's, served locally "
+        f"({ctx['smi_line']})")
+    log(f"phase 19 (d) follower launches "
+        f"{ {k: v for k, v in launches.items() if v} }; counters {d}; HBM "
+        f"ledger bytes {mem}, card memory allocated "
+        f"{cuda_mem / 2**20:.1f} MiB; loopback {socket}")
+    ctx.update(follower=follower, f_ep=f_ep)
+    return {"launches": launches}
+
+
+def _durable_rebootstrap(ctx: dict) -> None:
+    """Phase 19 (e): the follower re-bootstraps past a reclaimed tail."""
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        RelationshipUpdate, parse_relationship)
+
+    on_card = ctx["device"] == "cuda"
+    leader, l_ep = ctx["leader"], ctx["ep"]
+    follower, f_ep = ctx["follower"], ctx["f_ep"]
+    repl, subjects, ops = follower.replication, ctx["subjects"], ctx["ops"]
+    plan = ctx["plan"][DURABLE_ROUNDS + FOLLOWER_ROUNDS:]
+    boots0, rebuilds0 = repl.stats["rebootstraps"], f_ep.stats["rebuilds"]
+
+    async def write(rnd):
+        for wr in _durable_writes(rnd, DURABLE_ROUND_WRITES):
+            await leader.endpoint.write_relationships(
+                [RelationshipUpdate(ops[o], parse_relationship(r))
+                 for o, r in wr])
+
+    # the follower paused; the leader checkpoints and reclaims the
+    # segment the follower was tailing, then writes on
+    asyncio.run(write(plan[0]))
+    manifest = leader.persistence.checkpoint()
+    asyncio.run(write(plan[1]))
+    t0 = time.perf_counter()
+    asyncio.run(repl.sync_once())
+    t1 = time.perf_counter()
+    if (repl.stats["rebootstraps"] != boots0 + 1
+            or repl.store.revision != leader.endpoint.store.revision):
+        raise AssertionError(f"no re-bootstrap: {repl.snapshot()}")
+    got = asyncio.run(f_ep.lookup_resources_batch("pod", "view", subjects))
+    if on_card:
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    want = asyncio.run(l_ep.lookup_resources_batch("pod", "view", subjects))
+    if [sorted(x) for x in got] != [sorted(x) for x in want]:
+        raise AssertionError("after the re-bootstrap the follower's lookup "
+                             "batch differs from the leader's")
+    if f_ep.stats["rebuilds"] != rebuilds0 + 1:
+        raise AssertionError(f"the reset made "
+                             f"{f_ep.stats['rebuilds'] - rebuilds0} rebuilds")
+    t3 = time.perf_counter()
+    again = asyncio.run(f_ep.lookup_resources_batch("pod", "view", subjects))
+    if on_card:
+        torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    if [sorted(x) for x in again] != [sorted(x) for x in want]:
+        raise AssertionError("the follower's second batch differs")
+    log(f"phase 19 (e) paused follower, leader checkpoint at revision "
+        f"{manifest['revision']} reclaimed its segment: re-bootstrap "
+        f"(replica_reset to the checkpoint, then the tail) "
+        f"{t1 - t0:.3f} s; first read after the reset (a synchronous "
+        f"{ctx['w'].name} graph rebuild on {f_ep.device} and the batch) "
+        f"{t2 - t1:.4f} s, the next batch {t4 - t3:.4f} s; answers equal "
+        f"the leader's ({ctx['smi_line']})")
+
+
+def cli_crash(smi_line: str, device: str = "cuda") -> None:
+    """Phase 19 (c): `python3 -m spicedb_kubeapi_proxy_tpu_torch
+    --data-dir D --wal-fsync always` on deploy/'s files, as phase 17 (b)
+    runs it: one create answered 201, SIGKILL, a restart on D that lists
+    the pod and stamps revisions continuing the first process's, and
+    SIGTERM to exit 0."""
+    import shutil
+    import signal
+    import tempfile
+
+    from spicedb_kubeapi_proxy_tpu_torch.kubefake.apiserver import (
+        FakeKubeApiServer)
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.httpcore import (
+        H11Transport, Headers, HttpServer, Request)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    deploy = os.path.join(root, "deploy")
+    tmp = tempfile.mkdtemp(prefix="smoke-cli-crash-")
+    data = os.path.join(tmp, "data")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KUBERNETES_SERVICE")}
+    env["PYTHONPATH"] = root
+
+    async def go():
+        kube = FakeKubeApiServer()
+        kube.seed("", "v1", "namespaces", {"metadata": {"name": "acme-prod"}})
+        kube.seed("", "v1", "pods", {"metadata": {
+            "name": "api-0", "namespace": "acme-prod"}})
+        upstream = HttpServer(kube)
+        kport = await upstream.start("127.0.0.1", 0)
+        kubeconfig = os.path.join(tmp, "kubeconfig")
+        with open(kubeconfig, "w") as f:
+            json.dump({"current-context": "smoke",
+                       "contexts": [{"name": "smoke", "context": {
+                           "cluster": "fake"}}],
+                       "clusters": [{"name": "fake", "cluster": {
+                           "server": f"http://127.0.0.1:{kport}"}}]}, f)
+
+        async def call(client, method, target, obj=None):
+            h = Headers([("X-Remote-User", "ada"),
+                         ("Accept", "application/json")])
+            body = b""
+            if obj is not None:
+                body = json.dumps(obj).encode()
+                h.set("Content-Type", "application/json")
+            return await client.round_trip(Request(method, target,
+                                                   headers=h, body=body))
+
+        async def spawn():
+            port = _free_port()
+            argv = [sys.executable, "-m", "spicedb_kubeapi_proxy_tpu_torch",
+                    "--embedded-mode", "--bind-address", "127.0.0.1",
+                    "--secure-port", str(port), "--backend-kubeconfig",
+                    kubeconfig, "--no-override-upstream", "--rule-config",
+                    os.path.join(deploy, "rules.yaml"),
+                    "--spicedb-bootstrap",
+                    os.path.join(deploy, "bootstrap.yaml"),
+                    "--data-dir", data, "--wal-fsync", "always", "-v", "2"]
+            if device != "cuda":
+                argv += ["--spicedb-endpoint", f"torch://?device={device}"]
+            t = time.perf_counter()
+            proc = await asyncio.create_subprocess_exec(
+                *argv, cwd=root, env=env, stdout=asyncio.subprocess.DEVNULL,
+                stderr=asyncio.subprocess.PIPE)
+            client = H11Transport(f"http://127.0.0.1:{port}")
+            while True:
+                if proc.returncode is not None:
+                    raise AssertionError(f"the command exited "
+                                         f"{proc.returncode} before it "
+                                         f"served")
+                if time.perf_counter() - t > CLI_READY_S:
+                    proc.kill()
+                    await proc.wait()
+                    raise AssertionError("the command never answered "
+                                         "/readyz")
+                try:
+                    if (await call(client, "GET", "/readyz")).status == 200:
+                        return proc, client, time.perf_counter() - t
+                except OSError:
+                    pass
+                await asyncio.sleep(0.25)
+
+        pods = "/api/v1/namespaces/acme-prod/pods"
+        seen = {}
+        procs = []
+        try:
+            proc, client, seen["ready1"] = await spawn()
+            procs.append(proc)
+            resp = await call(client, "POST", pods, {
+                "apiVersion": "v1", "kind": "Pod",
+                "metadata": {"name": "api-9", "namespace": "acme-prod"}})
+            seen["create"] = resp.status
+            seen["rev1"] = int(resp.headers.get("X-Authz-Revision") or -1)
+            proc.send_signal(signal.SIGKILL)
+            await proc.wait()
+            seen["killed"] = proc.returncode
+            proc, client, seen["ready2"] = await spawn()
+            procs.append(proc)
+            resp = await call(client, "GET", pods)
+            seen["listed"] = sorted(i["metadata"]["name"]
+                                    for i in json.loads(resp.body)["items"])
+            seen["rev2"] = int(resp.headers.get("X-Authz-Revision") or -1)
+            resp = await call(client, "POST", pods, {
+                "apiVersion": "v1", "kind": "Pod",
+                "metadata": {"name": "api-10", "namespace": "acme-prod"}})
+            seen["create2"] = resp.status
+            seen["rev3"] = int(resp.headers.get("X-Authz-Revision") or -1)
+        finally:
+            for p in procs:
+                if p.returncode is None:
+                    p.send_signal(signal.SIGTERM)
+            t = time.perf_counter()
+            stderr = b""
+            for p in procs:
+                try:
+                    _, err = await asyncio.wait_for(p.communicate(),
+                                                    CLI_STOP_S)
+                    stderr = err or stderr
+                except asyncio.TimeoutError:
+                    p.kill()
+                    await p.wait()
+                    raise AssertionError(f"the command outlived SIGTERM "
+                                         f"by {CLI_STOP_S} s") from None
+            seen["stop"] = time.perf_counter() - t
+            await upstream.stop()
+        return seen, procs[-1].returncode, stderr.decode()
+
+    try:
+        seen, rc, stderr = asyncio.run(go())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if (seen["create"] != 201 or seen["killed"] != -signal.SIGKILL
+            or seen["listed"] != ["api-0", "api-9"]
+            or seen["rev2"] < seen["rev1"] or seen["create2"] != 201
+            or seen["rev3"] <= seen["rev2"]):
+        raise AssertionError(f"the crashed command answered {seen}; stderr "
+                             f"tail {stderr[-2000:]}")
+    if rc != 0 or "Traceback" in stderr or \
+            "recovered store at revision" not in stderr:
+        raise AssertionError(f"the restarted command exited {rc}; stderr "
+                             f"tail {stderr[-2000:]}")
+    log(f"phase 19 (c) python -m spicedb_kubeapi_proxy_tpu_torch --data-dir "
+        f"--wal-fsync always: ready in {seen['ready1']:.2f} s, create 201 "
+        f"at revision {seen['rev1']}, SIGKILL; restart ready in "
+        f"{seen['ready2']:.2f} s, the pod listed at revision {seen['rev2']},"
+        f" the next create at {seen['rev3']}; SIGTERM to exit 0 in "
+        f"{seen['stop']:.2f} s ({smi_line})")
+
+
 def main() -> int:
     try:
         import torch
@@ -5922,10 +6865,17 @@ def main() -> int:
     # 18. the decision cache and device telemetry on phase 16's store
     t_ph = time.perf_counter()
     cached = cache_telemetry_path(proxy, w, smi_line)
-    del proxy["proxy"], proxy["ep"], proxy["kube"]
+    del proxy["proxy"], proxy["ep"]
     gc.collect()
     torch.cuda.empty_cache()
     phase_s["18"] = time.perf_counter() - t_ph
+
+    # 19. the durable store and read replication, on phase 16's fake
+    t_ph = time.perf_counter()
+    durable = durable_path(w, proxy.pop("kube"), smi_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s["19"] = time.perf_counter() - t_ph
     t_ph = time.perf_counter()
     cli_process(smi_line)
     phase_s["17b"] = time.perf_counter() - t_ph
@@ -5996,6 +6946,9 @@ def main() -> int:
     # all 0, asserted)
     for kname in rows:
         rows[kname]["cache_cold_launches"] = cached["launches"].get(kname, 0)
+    # phase 19 (d): the follower's launches over its replicated rounds
+    for kname in rows:
+        rows[kname]["follower_launches"] = durable["launches"].get(kname, 0)
     for kname, also in REPLACES_ALSO.items():
         rows[kname]["replaces_also"] = also
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}"

@@ -23,16 +23,26 @@ endpoint; `--flight-window[s]`, `--slo-*`, `--shed-slo-burn` and
 recorder and the timeline (served at /debug/flight and
 /debug/timeline).
 
+`--data-dir` makes the store durable (a segmented WAL and columnar
+checkpoints, `--wal-fsync`, `--checkpoint-interval`; the dual-write
+journal then defaults into `<data-dir>/dtx.sqlite`), and a proxy with a
+data dir serves its log to read replicas; `--replicate-from` makes this
+proxy such a replica (`--replica-wait-ms`, `--[no-]replica-forward`,
+`--replica-user`, `--shed-replica-lag`, `--replica-id`).  The data dir's
+format is the reference's, so a deployment moves between `jax://` and
+`torch://` on the same volume.
+
 Flags of features the port has not ported are not in the parser, so
 argparse refuses them (exit 2), each with the ROADMAP Queue 1 item that
-brings it back: `--fleet-peers` (item 8, distributed serving); `--data-dir`,
-`--wal-fsync`, `--checkpoint-interval`, `--replicate-from` and the
-other replication flags, `--shards`, `--partition-map`, the
-`--shard-leaders` router, and the gRPC connection flags
-`--spicedb-insecure`, `--spicedb-skip-verify-ca`, `--spicedb-token` and
-`--spicedb-ca-path` (item 9: the durable store, replication, sharding
-and the remote endpoint); `--lint-schema[-strict|-json]` (item 10, the
-schema linter).
+brings it back: the failover flags `--serve-replication`,
+`--replication-mirror-dir`, `--promote-data-dir`,
+`--promote-on-leader-loss`, `--leader-loss-grace` and `--replica-peers`
+(item 9b); `--shards`, `--partition-map`, the `--shard-leaders` router
+and `--lint-schema[-strict|-json]` (item 9c, sharding with the schema
+linter); the gRPC connection flags `--spicedb-insecure`,
+`--spicedb-skip-verify-ca`, `--spicedb-token` and `--spicedb-ca-path`
+(item 9d, the remote endpoint); `--fleet-peers` (item 9e, the fleet
+plane).
 """
 
 from __future__ import annotations
@@ -66,6 +76,27 @@ DEFAULT_ENDPOINT = "torch://"
 ENDPOINT_SCHEMES = ("torch", "embedded")
 
 logger = logging.getLogger("spicedb_kubeapi_proxy_tpu_torch")
+
+
+def resolve_workflow_db(data_dir: str, workflow_database_path: str) -> str:
+    """The SQLite dual-write journal defaults into the persistence data
+    dir when one is configured: the journal and the relationship store
+    must share a fate for crash recovery to replay pending dual writes
+    against the state they committed into."""
+    if data_dir and workflow_database_path == DEFAULT_WORKFLOW_DATABASE_PATH:
+        import os
+        os.makedirs(data_dir, exist_ok=True)
+        return os.path.join(data_dir, "dtx.sqlite")
+    return workflow_database_path
+
+
+def _store_backed(endpoint: str) -> bool:
+    return urlsplit(endpoint).scheme in ENDPOINT_SCHEMES
+
+
+def _durable_store_on() -> bool:
+    from .utils import features
+    return features.DURABLE_STORE
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -130,6 +161,42 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Retry-After seconds suggested on shed "
                         "responses")
 
+    # WAL-shipping replication (spicedb/replication; killswitch:
+    # --feature-gates Replication=false)
+    p.add_argument("--replicate-from", default="",
+                   help="run as a read replica of the proxy at this base "
+                        "URL (e.g. http://leader:8443): bootstrap from "
+                        "its newest checkpoint, tail its WAL segments, "
+                        "serve read-only traffic at bounded staleness, "
+                        "and forward update verbs to it.  Exclusive "
+                        "with --data-dir (the leader owns the log).  "
+                        "The leader serves the replication API whenever "
+                        "it has a --data-dir")
+    p.add_argument("--replica-wait-ms", type=float, default=2000.0,
+                   help="how long a replica read carrying "
+                        "X-Authz-Min-Revision waits for the tail to "
+                        "reach that revision before forwarding to the "
+                        "leader (or 503 when forwarding is disabled)")
+    p.add_argument("--replica-forward", default=True,
+                   action=argparse.BooleanOptionalAction,
+                   help="forward update verbs and too-stale ZedToken "
+                        "reads to the leader; --no-replica-forward "
+                        "rejects them 503 with a Status naming the "
+                        "leader instead")
+    p.add_argument("--replica-user", default="system:replica",
+                   help="identity this follower presents to the leader "
+                        "(header authentication; the leader must trust "
+                        "the follower's transport path)")
+    p.add_argument("--shed-replica-lag", type=float, default=0.0,
+                   help="shed read-only requests with 429 + Retry-After "
+                        "once this replica is at least this many "
+                        "seconds behind its leader (0 = disabled); a "
+                        "stale replica sheds before serving stale "
+                        "answers")
+    p.add_argument("--replica-id", default="",
+                   help="this proxy's identity in /debug/replication "
+                        "(default: minted per process)")
+
     # upstream cluster (options.go:203-206)
     p.add_argument("--backend-kubeconfig", default="",
                    help="path to the kubeconfig for the upstream apiserver; "
@@ -148,7 +215,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--workflow-database-path",
                    default=DEFAULT_WORKFLOW_DATABASE_PATH,
                    help="SQLite database backing the dual-write workflow "
-                        "engine")
+                        "engine (defaults into --data-dir/dtx.sqlite when "
+                        "a data dir is configured)")
+
+    # durable relationship store (spicedb/persist)
+    p.add_argument("--data-dir", default="",
+                   help="directory for the durable relationship store "
+                        "(segmented WAL + columnar checkpoints); empty = "
+                        "in-memory only.  On restart the store is "
+                        "recovered from the newest checkpoint plus the "
+                        "WAL tail, the revision counter continues, and "
+                        "the bootstrap RELATIONSHIPS are skipped "
+                        "(bootstrap-once) — keep passing "
+                        "--spicedb-bootstrap: its schema is not "
+                        "persisted and is required every start")
+    p.add_argument("--wal-fsync", default="interval",
+                   choices=["always", "interval", "never"],
+                   help="WAL fsync policy: always (every committed write "
+                        "is durable before it is acked), interval "
+                        "(~1s loss window), never (OS cache only)")
+    p.add_argument("--checkpoint-interval", type=float, default=300.0,
+                   help="seconds between store checkpoints; each "
+                        "checkpoint lets covered WAL segments be "
+                        "reclaimed and bounds restart replay time")
     p.add_argument("--lock-mode", default=proxyrule.PESSIMISTIC_LOCK_MODE,
                    choices=[proxyrule.PESSIMISTIC_LOCK_MODE,
                             proxyrule.OPTIMISTIC_LOCK_MODE],
@@ -252,7 +341,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "CrossRequestBatching, DevicePipeline, "
                         "AdmissionControl, AsyncRebuild, DecisionCache, "
                         "DeviceTelemetry, Timeline, KernelIntrospect, "
-                        "Profiler (utils/features.py)")
+                        "Profiler, DurableStore, Replication "
+                        "(utils/features.py)")
     return p
 
 
@@ -301,6 +391,11 @@ def validate(args: argparse.Namespace) -> list:
         errs.append("--shed-retry-after must be > 0")
     if args.decision_cache_bytes < 0:
         errs.append("--decision-cache-bytes must be >= 0")
+    if args.data_dir and not _store_backed(args.spicedb_endpoint):
+        errs.append("--data-dir persistence requires a store-backed "
+                    "endpoint (embedded:// or torch://)")
+    if args.checkpoint_interval <= 0:
+        errs.append("--checkpoint-interval must be > 0")
     if args.flight_window <= 0:
         errs.append("--flight-window must be > 0")
     if args.flight_windows < 2:
@@ -318,6 +413,23 @@ def validate(args: argparse.Namespace) -> list:
                                    or args.slo_error_rate > 0):
         errs.append("--shed-slo-burn needs an SLO configured "
                     "(--slo-check-p99-ms or --slo-error-rate)")
+    if args.replicate_from:
+        if not _store_backed(args.spicedb_endpoint):
+            errs.append("--replicate-from requires a store-backed "
+                        "endpoint (embedded:// or torch://)")
+        if args.data_dir:
+            errs.append("--replicate-from is exclusive with --data-dir: "
+                        "a follower re-bootstraps from its leader and "
+                        "must not journal the leader's log as its own")
+        if not args.replicate_from.startswith(("http://", "https://")):
+            errs.append("--replicate-from must be an http(s) base URL")
+    if args.replica_wait_ms < 0:
+        errs.append("--replica-wait-ms must be >= 0")
+    if args.shed_replica_lag < 0:
+        errs.append("--shed-replica-lag must be >= 0 (0 = disabled)")
+    if args.shed_replica_lag > 0 and not args.replicate_from:
+        errs.append("--shed-replica-lag only applies to a replica "
+                    "(--replicate-from)")
     return errs
 
 
@@ -449,7 +561,13 @@ def complete(args: argparse.Namespace,
         rule_configs=rule_configs,
         upstream_transport=upstream_transport,
         authenticators=authenticators,
-        workflow_database_path=args.workflow_database_path,
+        # the journal relocates into the data dir only when persistence
+        # will actually engage: with the DurableStore switch off the
+        # store runs in memory, and the journal must not imply a shared
+        # fate that does not exist
+        workflow_database_path=resolve_workflow_db(
+            args.data_dir if _durable_store_on() else "",
+            args.workflow_database_path),
         lock_mode_default=args.lock_mode,
         ssl_context=ssl_context,
         endpoint_kwargs=endpoint_kwargs,
@@ -467,6 +585,15 @@ def complete(args: argparse.Namespace,
         slo_objective=args.slo_objective,
         slo_error_rate=args.slo_error_rate,
         device_hbm_peak_gbps=args.device_hbm_peak_gbps,
+        data_dir=args.data_dir,
+        wal_fsync=args.wal_fsync,
+        checkpoint_interval=args.checkpoint_interval,
+        replicate_from=args.replicate_from,
+        replica_wait_ms=args.replica_wait_ms,
+        replica_forward=args.replica_forward,
+        replica_user=args.replica_user,
+        shed_replica_lag_s=args.shed_replica_lag,
+        replica_id=args.replica_id,
     )
     return CompletedConfig(server_options=server_options,
                            bind_address=args.bind_address,

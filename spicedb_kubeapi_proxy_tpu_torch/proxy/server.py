@@ -19,24 +19,40 @@ the kernels' plain twins on the CPU.  `enable_dual_writes()` wires the
 dual-write workflow engine (authz/distributedtx, a SQLite journal at
 `workflow_database_path` or an in-memory one for "") into the chain, so
 Update rules write through it; without it an update rule answers 500
-"update engine not configured", as in the reference.  Left out against
-the reference, each with its `Options` fields (passing one is a
-TypeError): the durable store (`data_dir`, `wal_fsync`,
-`checkpoint_interval`), replication and sharding (`replicate_from` ...
-`replica_id`, `shards`, `partition_map`) and fleet tracing
-(`fleet_peers`), with their /debug surfaces (`replication`, `sharding`,
-`fleet`, `tail`).
+"update engine not configured", as in the reference.
+
+With `data_dir` the store is durable (spicedb/persist): recovered from
+the newest checkpoint and the WAL tail before the endpoint is built,
+journaled from then on, checkpointed by a loop that rides `start()` and
+`stop()`, and published to read replicas at the authenticated
+`/replication/*` routes (spicedb/replication `ReplicationHub`).  With
+`replicate_from` the proxy is such a replica: an in-memory store that a
+`ReplicaFollower` bootstraps from the leader's checkpoint and tails,
+serving reads at bounded staleness (`X-Authz-Min-Revision` waits, then
+forwards or answers 503) and forwarding update verbs to the leader.
+`/debug/replication` shows either role.
+
+Left out against the reference, each with its `Options` fields (passing
+one is a TypeError): failover (`serve_replication`, `mirror_dir`,
+`promote_data_dir`, `promote_on_leader_loss`, `leader_loss_grace_s`,
+`replica_peers`, `peer_transports`; ROADMAP Queue 1 item 9b), sharding
+(`shards`, `partition_map`; item 9c) and fleet tracing (`fleet_peers`;
+item 9e), with their /debug surfaces (`sharding`, `fleet`, `tail`) and
+the `/replication/status`, `/promote` and `/rejoin` routes.
 """
 
 from __future__ import annotations
 
 import asyncio
 import contextvars
+import dataclasses
 import inspect
 import json
 import logging
+import os
 import ssl
 import time
+import uuid
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -48,12 +64,19 @@ from ..authz.middleware import (
 from ..authz.responsefilterer import FilterError
 from ..config import proxyrule
 from ..rules.engine import MapMatcher
+from ..spicedb import replication as repl
 from ..spicedb.endpoints import Bootstrap, PermissionsEndpoint, create_endpoint
-from ..utils import timeline, tracing
-from ..utils.admission import AdmissionRejectedError, LoadShedder
+from ..utils import features, timeline, tracing
+from ..utils.admission import (
+    READ_ONLY_VERBS,
+    AdmissionRejectedError,
+    LoadShedder,
+)
 from ..utils.audit import (
+    AuditEvent,
     AuditSink,
     LEVEL_METADATA,
+    OUTCOME_ALLOWED,
     OUTCOME_SHED,
     normalize_outcome,
 )
@@ -91,8 +114,11 @@ _UNTRACED_PATHS = frozenset(
 
 def _untraced(path: str) -> bool:
     """Every debug surface stays untraced, the index and unknown names
-    (which answer 404) included."""
-    return path in _UNTRACED_PATHS or path.startswith("/debug/")
+    (which answer 404) included; so does the replication API (a
+    follower's long-poll parks for tens of seconds by design and would
+    evict every real slow trace)."""
+    return (path in _UNTRACED_PATHS or path.startswith("/debug/")
+            or path == "/replication" or path.startswith("/replication/"))
 
 
 def too_many_requests_response(retry_after_s: float, message: str) -> Response:
@@ -199,6 +225,38 @@ class Options:
     # in-memory one, and the lock mode of rules that name none
     workflow_database_path: str = ""
     lock_mode_default: str = proxyrule.PESSIMISTIC_LOCK_MODE
+    # durable relationship store (spicedb/persist): "" = in-memory only.
+    # With a data dir, the store is recovered from the newest checkpoint
+    # + WAL tail at construction, every commit is journaled, and a
+    # periodic checkpoint loop runs with the server
+    data_dir: str = ""
+    wal_fsync: str = "interval"  # always | interval | never
+    checkpoint_interval: float = 300.0
+    # WAL-shipping replication (spicedb/replication; killswitch: the
+    # REPLICATION switch).  Leader side: with a data dir, the authed
+    # /replication/* API serves the live WAL segments + checkpoints.
+    # Follower side: replicate_from names the leader's base URL — the
+    # server bootstraps its (in-memory) store from the leader's newest
+    # checkpoint, tails WAL segments, serves read-only traffic at bounded
+    # staleness, and forwards update verbs to the leader (or rejects them
+    # 503 when forwarding is off)
+    replicate_from: str = ""
+    # how long a read carrying X-Authz-Min-Revision waits for the tail
+    # to catch up before it is forwarded to the leader / rejected
+    replica_wait_ms: float = 2000.0
+    replica_forward: bool = True
+    # identity the follower presents to the leader (header authn; the
+    # leader must trust the follower's transport path)
+    replica_user: str = "system:replica"
+    # shed read-only traffic once the follower is this many seconds
+    # stale (0 = disabled)
+    shed_replica_lag_s: float = 0.0
+    # transport seam to the leader (tests inject an in-process
+    # HandlerTransport); None = H11Transport(replicate_from)
+    leader_transport: Optional[Transport] = None
+    # this proxy's identity in /debug/replication (minted per process
+    # when empty)
+    replica_id: str = ""
 
 
 class ProxyServer:
@@ -211,9 +269,73 @@ class ProxyServer:
         configs = list(opts.rule_configs)
         if opts.rules_yaml:
             configs.extend(proxyrule.parse(opts.rules_yaml))
+        # durable store: recover BEFORE endpoint construction and attach
+        # BEFORE bootstrap so the bootstrap load itself is journaled;
+        # bootstrap-once then skips re-applying it onto recovered state
+        self.persistence = None
+        endpoint_kwargs = dict(opts.endpoint_kwargs)
+        if opts.data_dir:
+            if features.DURABLE_STORE:
+                from ..spicedb.persist import PersistenceManager
+                self.persistence = PersistenceManager(
+                    opts.data_dir, fsync=opts.wal_fsync,
+                    checkpoint_interval=opts.checkpoint_interval)
+                store = self.persistence.recover()
+                self.persistence.attach(store)
+                endpoint_kwargs["store"] = store
+            else:
+                logger.info("data_dir %r set but the DurableStore switch "
+                            "is off; running in-memory", opts.data_dir)
+        # WAL-shipping replication.  Follower mode: an in-memory store the
+        # ReplicaFollower bootstraps from the leader's newest checkpoint
+        # and tails, built BEFORE the endpoint so the device graph and the
+        # decision cache ride the store's listener hooks exactly as they
+        # do on a leader.  Leader mode: the hub publishes the data dir.
+        # The REPLICATION switch off constructs neither, and the proxy is
+        # exactly single-node.
+        self.replication = None        # ReplicaFollower (follower mode)
+        self.replication_hub = None    # ReplicationHub (leader mode)
+        self._leader_transport: Optional[Transport] = None
+        self.replica_id = (opts.replica_id
+                           or f"replica-{os.getpid()}-{uuid.uuid4().hex[:8]}")
+        if self.persistence is not None and repl.enabled():
+            # attach AFTER the persistence manager, so the WAL append
+            # precedes every long-poll wakeup
+            self.replication_hub = repl.ReplicationHub(
+                self.persistence._store, self.persistence)
+            self.replication_hub.attach()
+        if opts.replicate_from and repl.enabled():
+            if self.persistence is not None:
+                raise ValueError(
+                    "--replicate-from is exclusive with --data-dir: a "
+                    "follower re-bootstraps from its leader and must not "
+                    "journal the leader's log as its own")
+            from ..spicedb.store import TupleStore
+            store = TupleStore()
+            endpoint_kwargs["store"] = store
+            # a follower takes the bootstrap SCHEMA only: relationships
+            # are the leader's state and arrive via replication — a
+            # locally-applied bootstrap would advance the revision past 0
+            # and the follower could never anchor the leader's log to it
+            if opts.bootstrap is not None:
+                opts = dataclasses.replace(
+                    opts, bootstrap=Bootstrap(
+                        schema_text=opts.bootstrap.schema_text))
+                self.opts = opts
+            from .httpcore import H11Transport
+            self._leader_transport = (opts.leader_transport
+                                      or H11Transport(opts.replicate_from))
+            self.replication = repl.ReplicaFollower(
+                store, self._leader_transport,
+                identity=opts.replica_user,
+                replica_id=self.replica_id,
+                upstream_url=opts.replicate_from)
+        elif opts.replicate_from:
+            logger.info("replicate_from %r set but the Replication switch "
+                        "is off; running single-node", opts.replicate_from)
         self.endpoint: PermissionsEndpoint = create_endpoint(
             opts.spicedb_endpoint, bootstrap=opts.bootstrap,
-            **opts.endpoint_kwargs)
+            **endpoint_kwargs)
         # metric and audit label: the URL scheme
         backend = opts.spicedb_endpoint.split(":")[0]
         if opts.enable_metrics:
@@ -224,6 +346,16 @@ class ProxyServer:
                                sample_every=opts.audit_sample_every,
                                explain=opts.audit_explain,
                                backend=backend)
+        if self.persistence is not None and self.persistence.recovered:
+            info = self.persistence.recovery_info
+            self.audit.emit(AuditEvent(
+                stage="recovery", decision=OUTCOME_ALLOWED, backend=backend,
+                message=(f"recovered store at revision {info.get('revision')}"
+                         f" (checkpoint rev {info['checkpoint_revision']},"
+                         f" {info['replayed_records']} WAL records,"
+                         f" {info['torn_records']} torn,"
+                         f" {info['idempotency_keys']} idempotency keys)"
+                         f" in {info['total_s']}s")))
         # exposed mutable matcher (reference server.go:145-146: e2e tests
         # swap rule sets at runtime through the *Matcher pointer)
         self.matcher = MapMatcher(configs)
@@ -268,7 +400,12 @@ class ProxyServer:
             retry_after_s=opts.shed_retry_after_s,
             depth_fn=depth_fn,
             burning_fn=(lambda: self.flight.burning()
-                        if self.flight is not None else []))
+                        if self.flight is not None else []),
+            # a stale replica sheds reads before serving stale answers
+            shed_lag_s=(opts.shed_replica_lag_s
+                        if self.replication is not None else 0.0),
+            lag_fn=(self.replication.lag_seconds
+                    if self.replication is not None else None))
         # off-loop rebuilds prewarm their candidate generations when
         # compile prewarm is on, so a post-swap first request captures
         # nothing.  The flag is set on the endpoint that owns it: the
@@ -297,12 +434,20 @@ class ProxyServer:
             slos.append(devtel.Slo(
                 "error_rate", "error",
                 objective=self.opts.slo_error_rate))
+        def stats_fn() -> dict:
+            # follower lag rides every flight window beside the latency
+            out = dict(getattr(self.endpoint, "stats", None) or {})
+            if self.replication is not None:
+                out["replica_lag_revisions"] = self.replication.lag_revisions()
+                out["replica_lag_seconds"] = round(
+                    self.replication.lag_seconds(), 3)
+            return out
+
         return devtel.FlightRecorder(
             window_s=self.opts.flight_window_s,
             capacity=self.opts.flight_windows,
             slos=slos,
-            stats_fn=lambda: dict(getattr(self.endpoint, "stats", None)
-                                  or {}))
+            stats_fn=stats_fn)
 
     def enable_dual_writes(self) -> None:
         """Wire the dual-write workflow engine into the chain (reference
@@ -341,6 +486,10 @@ class ProxyServer:
                         "(capped) wall-clock stack capture across all "
                         "threads, collapsed-stack + Perfetto output",
                         self._debug_profile),
+            "replication": ("replication state: leader (served segments, "
+                            "long-poll waiters) or follower (applied "
+                            "revision, lag, cursor, bootstraps)",
+                            self._debug_replication),
         }
 
     async def _serve_debug(self, req: Request) -> Response:
@@ -414,6 +563,17 @@ class ProxyServer:
                     "reason": "KernelIntrospect feature gate disabled"}
         return dict(workload.WORKLOAD.payload(), enabled=True)
 
+    def _debug_replication(self) -> dict:
+        if self.replication_hub is not None:
+            return self.replication_hub.snapshot()
+        if self.replication is not None:
+            return self.replication.snapshot()
+        return {"enabled": False,
+                "reason": ("Replication feature gate disabled"
+                           if not repl.enabled() else
+                           "not configured (leader needs --data-dir, "
+                           "follower needs --replicate-from)")}
+
     async def _debug_profile(self, req: Request) -> dict:
         from urllib.parse import parse_qs, urlsplit
 
@@ -434,6 +594,169 @@ class ProxyServer:
             return {"enabled": True, "error": str(e)}
         return dict(out, enabled=True)
     _debug_profile._wants_request = True
+
+    # -- replication serving (spicedb/replication) ---------------------------
+
+    async def _serve_replication(self, req: Request) -> Response:
+        """Replication API (authenticated, like /metrics): manifest,
+        segment and checkpoint bytes from the leader hub.  A proxy that
+        is no leader — a follower, a proxy without a data dir, or any
+        proxy with the REPLICATION switch off — answers 503 exactly as
+        a single-node proxy always has."""
+        hub = self.replication_hub
+        if hub is None:
+            return json_response(503, {
+                "kind": "Status", "apiVersion": "v1", "metadata": {},
+                "status": "Failure", "code": 503,
+                "reason": "ServiceUnavailable",
+                "message": "replication is not served here: this proxy "
+                           "has no durable data dir (--data-dir) or is "
+                           "itself a follower"})
+        path = req.path
+        if path == "/replication/manifest":
+            return await hub.serve_manifest(req)
+        if path.startswith("/replication/segment/"):
+            return await hub.serve_segment(req, path.rsplit("/", 1)[1])
+        if path.startswith("/replication/checkpoint/"):
+            return await hub.serve_checkpoint(req, path.rsplit("/", 1)[1])
+        return json_response(404, {
+            "kind": "Status", "apiVersion": "v1", "metadata": {},
+            "status": "Failure", "reason": "NotFound", "code": 404,
+            "message": f"unknown replication endpoint {path!r}; use "
+                       f"/replication/manifest, /replication/segment/"
+                       f"<name>, /replication/checkpoint/<name>"})
+
+    def _leader_unavailable(self, message: str) -> Response:
+        return json_response(503, {
+            "kind": "Status", "apiVersion": "v1", "metadata": {},
+            "status": "Failure", "reason": "ServiceUnavailable",
+            "code": 503, "message": message,
+            "details": {"leader": self.opts.replicate_from,
+                        "leaderId": getattr(self.replication, "leader_id",
+                                            "")}})
+
+    async def _forward_to_leader(self, req: Request, why: str) -> Response:
+        """Relay a request to the leader verbatim, re-asserting the
+        follower-authenticated identity as X-Remote-* headers (the
+        leader must trust this follower's transport path)."""
+        if not self.opts.replica_forward or self._leader_transport is None:
+            return self._leader_unavailable(
+                f"{why}; write/fresh-read forwarding is disabled — "
+                f"retry against the leader")
+        up = Headers()
+        for k, v in req.headers.items():
+            lk = k.lower()
+            if lk in ("authorization", "connection", "content-length",
+                      "host") or lk.startswith("x-remote-"):
+                continue
+            up.add(k, v)
+        user = req.context.get("user")
+        if user is not None:
+            up.set(REMOTE_USER_HEADER, user.name)
+            for g in user.groups:
+                up.add(REMOTE_GROUP_HEADER, g)
+            for key, values in (getattr(user, "extra", None) or {}).items():
+                for v in values:
+                    up.add(REMOTE_EXTRA_PREFIX + key, v)
+        try:
+            resp = await self._leader_transport.round_trip(Request(
+                method=req.method, target=req.target, headers=up,
+                body=req.body))
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:
+            return self._leader_unavailable(
+                f"{why}; forwarding to the leader failed: {e}")
+        if self.replication is not None:
+            self.replication.stats["forwarded"] = (
+                self.replication.stats.get("forwarded", 0) + 1)
+        resp.headers.set("X-Authz-Forwarded-To", "leader")
+        return resp
+
+    def _min_revision(self, req: Request):
+        """(min revision or None, 400 response or None) from the
+        X-Authz-Min-Revision header."""
+        raw = req.headers.get(repl.MIN_REVISION_HEADER)
+        if not raw:
+            return None, None
+        try:
+            return int(raw), None
+        except ValueError:
+            return None, json_response(400, {
+                "kind": "Status", "apiVersion": "v1", "metadata": {},
+                "status": "Failure", "code": 400,
+                "message": f"invalid {repl.MIN_REVISION_HEADER} "
+                           f"header {raw!r}: want an integer revision"})
+
+    async def _leader_gate(self, req: Request,
+                           verb: str) -> Optional[Response]:
+        """Leader-side admission.  (1) Fencing tripwire: an ex-leader
+        that has observed a newer incarnation refuses every update verb;
+        reads keep serving.  (2) ZedToken honoring: a read carrying
+        X-Authz-Min-Revision ahead of this leader's revision waits like
+        a follower would, then 503s rather than answer below the token.
+        None = serve."""
+        hub = self.replication_hub
+        fen = hub.fenced_by
+        if fen is not None and verb not in READ_ONLY_VERBS:
+            return json_response(503, {
+                "kind": "Status", "apiVersion": "v1", "metadata": {},
+                "status": "Failure", "code": 503,
+                "reason": "ServiceUnavailable",
+                "message": f"this leader (incarnation {hub.incarnation})"
+                           f" has been superseded by incarnation "
+                           f"{fen['incarnation']}; update verbs are "
+                           f"fenced — retry against the new leader",
+                "details": {"fencedBy": fen}})
+        min_rev, bad = self._min_revision(req)
+        if bad is not None:
+            return bad
+        if min_rev is not None and min_rev > hub.store.revision:
+            if not await hub.wait_for_revision(
+                    min_rev - 1, self.opts.replica_wait_ms / 1e3):
+                return json_response(503, {
+                    "kind": "Status", "apiVersion": "v1", "metadata": {},
+                    "status": "Failure", "code": 503,
+                    "reason": "ServiceUnavailable",
+                    "message": f"revision {min_rev} is not available on "
+                               f"this leader (at {hub.store.revision}); "
+                               f"the token may predate a failover"})
+        return None
+
+    async def _replica_gate(self, req: Request,
+                            verb: str) -> Optional[Response]:
+        """Follower-mode admission: anything that can mutate goes to the
+        leader (allowlist by read verb); a read whose ZedToken is ahead
+        of the applied revision waits up to replica_wait_ms, then
+        forwards.  None = serve locally."""
+        if verb not in READ_ONLY_VERBS:
+            return await self._forward_to_leader(
+                req, "this proxy is a read replica; update verbs are "
+                     "served by the leader")
+        min_rev, bad = self._min_revision(req)
+        if bad is not None:
+            return bad
+        if min_rev is None:
+            return None
+        if not await self.replication.wait_for_revision(
+                min_rev, self.opts.replica_wait_ms / 1e3):
+            return await self._forward_to_leader(
+                req, f"replica at revision "
+                     f"{self.replication.store.revision} has not "
+                     f"reached requested min-revision {min_rev} "
+                     f"within {self.opts.replica_wait_ms:.0f}ms")
+        return None
+
+    def _stamp_revision(self, resp: Response) -> None:
+        """Every authenticated response from a replicating proxy carries
+        the revision it served at — the ZedToken a client threads back
+        as X-Authz-Min-Revision to read its writes on any replica."""
+        if self.replication_hub is not None:
+            resp.headers.set(repl.REVISION_HEADER,
+                             str(self.replication_hub.store.revision))
+        elif self.replication is not None:
+            resp.headers.set(repl.REVISION_HEADER,
+                             str(self.replication.store.revision))
 
     # -- chain ---------------------------------------------------------------
 
@@ -476,6 +799,10 @@ class ProxyServer:
             # any authenticated principal may read them
             if req.path == "/debug" or req.path.startswith("/debug/"):
                 return await self._serve_debug(req)
+            # the replication API, at the trust level of /metrics
+            if (req.path == "/replication"
+                    or req.path.startswith("/replication/")):
+                return await self._serve_replication(req)
             # admission control: shed read-only traffic at the door when
             # the proxy is already saturated, and convert dispatcher
             # queue-bound rejections raised anywhere in the authorization
@@ -489,16 +816,70 @@ class ProxyServer:
                     self.shedder.retry_after_s,
                     f"request shed by admission control ({reason}); "
                     f"retry after {self.shedder.retry_after_s:.0f}s")
+            # leader mode: a fenced ex-leader refuses update verbs, and a
+            # ZedToken ahead of this leader's revision waits or 503s
+            if self.replication_hub is not None:
+                gated = await self._leader_gate(req, verb)
+                if gated is not None:
+                    return gated
+            # follower mode: update verbs forward to the leader, a read
+            # whose ZedToken is ahead of the tail waits or forwards —
+            # never a stale answer below its min-revision
+            if self.replication is not None:
+                gated = await self._replica_gate(req, verb)
+                if gated is not None:
+                    return gated
             try:
-                return await authorized(req)
+                resp = await authorized(req)
             except AdmissionRejectedError as e:
                 req.context["authz_outcome"] = OUTCOME_SHED
                 return too_many_requests_response(e.retry_after_s, str(e))
+            self._stamp_revision(resp)
+            return resp
 
         async def with_request_info(req: Request) -> Response:
             if req.path in ("/readyz", "/livez", "/healthz"):
                 lines = ["ok"]
                 if req.path == "/readyz":
+                    if (self.replication is not None
+                            and not self.replication.ever_bootstrapped):
+                        # not ready before the FIRST adoption only: a
+                        # follower with no adopted state would answer
+                        # every read "nothing exists".  A later
+                        # re-bootstrap keeps serving the adopted state
+                        # and reports degraded below
+                        return Response(
+                            status=503,
+                            body=b"[-] replication: bootstrapping from "
+                                 b"leader (no checkpoint adopted yet)")
+                    if (self.replication_hub is not None
+                            and self.replication_hub.fenced_by
+                            is not None):
+                        fen = self.replication_hub.fenced_by
+                        lines.append(
+                            "[!] replication fenced: superseded by "
+                            f"incarnation {fen['incarnation']}; update "
+                            "verbs are refused")
+                    if self.replication is not None:
+                        # degraded-but-200 while catching up or cut off
+                        # from the leader: bounded-staleness reads are
+                        # still correct answers
+                        from ..spicedb.replication import follower as f
+                        if self.replication.state == f.STATE_DEGRADED:
+                            lines.append(
+                                "[!] replication degraded: leader "
+                                "unreachable, serving reads at revision "
+                                f"{self.replication.store.revision}")
+                        elif not self.replication.bootstrapped:
+                            lines.append(
+                                "[!] replication re-bootstrapping: "
+                                "serving reads at revision "
+                                f"{self.replication.store.revision}")
+                        elif self.replication.lag_revisions() > 0:
+                            lines.append(
+                                "[!] replication catching up: "
+                                f"{int(self.replication.lag_revisions())}"
+                                " revisions behind the leader")
                     if self.flight is not None:
                         # a burning SLO is an alert, not an outage: the
                         # status stays 200
@@ -644,26 +1025,38 @@ class ProxyServer:
         """Build the device graph before serving, and with
         `prewarm_compiles` also the kernel library and every lane
         bucket's sweep graphs, off the event loop (`TorchEndpoint.
-        warm_start`).  `start()` runs it; a caller serving through the
-        embedded client runs it itself.  A no-op for an endpoint with no
-        device graph."""
+        warm_start`).  `start()` runs it when the store was recovered
+        from a data dir or the prewarm is on; a caller serving through
+        the embedded client runs it itself.  A no-op for an endpoint
+        with no device graph."""
         warm = getattr(self.endpoint, "warm_start", None)
         if warm is None:
             return
         prewarm = self.opts.prewarm_compiles
         loop = asyncio.get_running_loop()
         ctx = contextvars.copy_context()
+        name = ("recovery.graph_rebuild" if self.persistence is not None
+                else "warm_start")
         with tracing.request_trace(op="warm_start") as tr:
-            with tracing.span("warm_start", phase=True):
+            with tracing.span(name, phase=True):
                 await loop.run_in_executor(
                     None, lambda: ctx.run(warm, prewarm=prewarm))
         tracing.RECORDER.record(tr)
 
     async def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
-        if self.opts.prewarm_compiles:
+        # a recovered store pays its device-graph build before serving,
+        # so the first request after a restart does not absorb it
+        if self.persistence is not None or self.opts.prewarm_compiles:
             await self.warm_start()
         self._http = HttpServer(self.handler, ssl_context=self.opts.ssl_context)
         bound = await self._http.start(host, port)
+        if self.persistence is not None:
+            await self.persistence.start()
+        if self.replication is not None:
+            # the follower's tail task: the bootstrap happens inside it,
+            # so serving starts at once (/readyz answers 503 until the
+            # first checkpoint adoption)
+            self.replication.start()
         if self._worker is not None:
             # the worker's first drain replays dual-write instances left
             # pending by a crash
@@ -695,6 +1088,14 @@ class ProxyServer:
             await self._lag_probe.stop()
         if self.flight is not None:
             await self.flight.stop()
+        if self.replication is not None:
+            await self.replication.stop()
+        if self.replication_hub is not None:
+            self.replication_hub.detach()
+        if self.persistence is not None:
+            # final checkpoint: a clean shutdown restarts from the
+            # checkpoint alone, with an empty WAL tail
+            await self.persistence.stop()
         await self.audit.stop()
 
     # -- embedded client (reference server.go:317-364, pkg/inmemory) ---------

@@ -14,7 +14,7 @@ endpoints.Bootstrap.relationships()).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Iterable, Optional
 
 import numpy as np
 
@@ -127,6 +127,33 @@ class ColumnarSnapshot:
                 col.append(intern(val))
             expiry.append(exp)
         arrays = [np.asarray(c, np.int32) for c in cols]
+        return cls(pool, *arrays, expiry=np.asarray(expiry, np.float64))
+
+    @classmethod
+    def from_relationships(cls, rels: Iterable[Relationship]) -> "ColumnarSnapshot":
+        """Intern relationship objects into columns (a checkpoint of a
+        store without a columnar base, spicedb/persist/manager.py)."""
+        pool: list = []
+        index: dict = {}
+
+        def intern(s: str) -> int:
+            i = index.get(s)
+            if i is None:
+                i = len(pool)
+                index[s] = i
+                pool.append(s)
+            return i
+
+        cols: list[list[int]] = [[] for _ in range(6)]
+        expiry: list[float] = []
+        for r in rels:
+            vals = (r.resource.type, r.resource.id, r.relation,
+                    r.subject.type, r.subject.id, r.subject.relation)
+            for col, val in zip(cols, vals):
+                col.append(intern(val))
+            expiry.append(float("nan") if r.expires_at is None
+                          else float(r.expires_at))
+        arrays = [np.asarray(c, np.int32).reshape(-1) for c in cols]
         return cls(pool, *arrays, expiry=np.asarray(expiry, np.float64))
 
 

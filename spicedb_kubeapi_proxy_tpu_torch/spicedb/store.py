@@ -177,6 +177,17 @@ class TupleStore:
         # reset listeners fire on non-delta mass changes (bulk_load,
         # delete_all) that require a full cache rebuild.
         self._reset_listeners: list[Callable[[], None]] = []
+        # commit listeners receive EVERY revision-advancing commit with
+        # its payload — (kind, revision, payload) where kind is "delta"
+        # (payload: applied RelationshipUpdate tuple, possibly empty),
+        # "snapshot" (ColumnarSnapshot), "bulk" (Relationship list), or
+        # "clear" (None).  They run synchronously under the store lock
+        # BEFORE the mutation applies: the WAL (spicedb/persist) must
+        # observe a revision before any reader can act on it, and a
+        # listener exception (durability failure) aborts the commit —
+        # the store stays untouched, the revision is not consumed, and
+        # the error propagates to the writer.
+        self._commit_listeners: list[Callable] = []
 
     # -- revision -----------------------------------------------------------
 
@@ -322,6 +333,35 @@ class TupleStore:
                             out.append((e.rel.expires_at, (rtype, relation)))
         return out
 
+    def relationships_since(self, revision: int) -> list:
+        """Live relationships whose last write landed AFTER `revision`.
+        Overlay entries carry exact per-tuple revisions; base-layer rows
+        all carry the base's adoption revision, so a base adopted above
+        `revision` exports wholesale (conservative, and safe for a
+        TOUCH-idempotent replay of the effects)."""
+        now = self._clock()
+        out = []
+        with self._lock:
+            if self._base is not None and self._base.revision > revision:
+                snap = self._base.snap
+                out.extend(snap.relationship(int(i))
+                           for i in self._base.matching_rows(None, now))
+            for by_id in self._by_relation.values():
+                for subjects in by_id.values():
+                    for entry in subjects.values():
+                        if (entry.revision > revision
+                                and not entry.rel.expired(now)):
+                            out.append(entry.rel)
+        return out
+
+    def has_exact(self, rel: Relationship) -> bool:
+        now = self._clock()
+        with self._lock:
+            return self._live_entry(rel, now) is not None
+
+    def count(self) -> int:
+        return len(self.read())
+
     # -- writes -------------------------------------------------------------
 
     def write(self, updates: Iterable[RelationshipUpdate],
@@ -351,9 +391,11 @@ class TupleStore:
                     raise AlreadyExistsError(
                         f"relationship already exists: {u.rel.rel_string()}")
                 created_in_batch.add(key)
-            # compute the applied set before mutating.  `present` tracks
-            # intra-batch ordering (touch-then-delete deletes;
-            # double-delete applies once).
+            # compute the applied set WITHOUT mutating: commit listeners
+            # (the WAL) journal the batch before any reader-visible
+            # change, so a durability failure aborts the write with the
+            # store untouched.  `present` tracks intra-batch ordering
+            # (touch-then-delete deletes; double-delete applies once).
             applied = []
             present: dict = {}
             for u in updates:
@@ -366,8 +408,10 @@ class TupleStore:
                         applied.append(
                             RelationshipUpdate(UpdateOp.DELETE, u.rel))
                     present[key] = False
-            # effect-free commits still advance the revision
+            # journal even effect-free commits: the revision advances,
+            # and recovery must reproduce the exact counter
             rev = self._revision + 1
+            self._commit("delta", rev, tuple(applied))
             self._revision = rev
             for u in applied:
                 if u.op == UpdateOp.TOUCH:
@@ -384,7 +428,10 @@ class TupleStore:
         the datastore, not through WriteRelationships — spicedb.go:63-67).
         One revision, no watch events."""
         with self._lock:
+            if self._commit_listeners:
+                rels = list(rels)  # journaled payload; iterated twice
             rev = self._revision + 1
+            self._commit("bulk", rev, rels if isinstance(rels, list) else ())
             self._revision = rev
             for rel in rels:
                 self._put(rel, rev)
@@ -404,6 +451,7 @@ class TupleStore:
             applied = tuple(RelationshipUpdate(UpdateOp.DELETE, rel)
                             for rel in victims)
             rev = self._revision + 1
+            self._commit("delta", rev, applied)
             self._revision = rev
             for rel in victims:
                 self._remove(rel)
@@ -414,6 +462,7 @@ class TupleStore:
         """Test helper (mirrors the reference e2e DeleteAllTuples util)."""
         with self._lock:
             rev = self._revision + 1
+            self._commit("clear", rev, None)
             self._revision = rev
             self._by_relation.clear()
             self._base = None
@@ -433,6 +482,7 @@ class TupleStore:
                 return self.bulk_load(snap.relationship(i)
                                       for i in range(len(snap)))
             rev = self._revision + 1
+            self._commit("snapshot", rev, snap)
             self._revision = rev
             self._base = BaseLayer(snap, rev)
             for fn in list(self._reset_listeners):
@@ -508,6 +558,104 @@ class TupleStore:
             if fn in self._reset_listeners:
                 self._reset_listeners.remove(fn)
 
+    def add_commit_listener(self, fn: Callable) -> None:
+        """fn(kind, revision, payload) on every revision-advancing
+        commit, synchronously under the store lock (see __init__)."""
+        with self._lock:
+            self._commit_listeners.append(fn)
+
+    def remove_commit_listener(self, fn: Callable) -> None:
+        with self._lock:
+            if fn in self._commit_listeners:
+                self._commit_listeners.remove(fn)
+
+    # -- recovery (spicedb/persist) -----------------------------------------
+
+    def adopt_recovery_state(self, snap: Optional[ColumnarSnapshot],
+                             overlay: Iterable[Relationship],
+                             revision: int) -> None:
+        """Recovery-only: adopt a checkpointed state wholesale at
+        EXACTLY `revision` — columnar base plus object overlay
+        (caveated tuples), with no intermediate revision bumps (a
+        checkpoint taken at revision 1 must not land at 2 because its
+        overlay loaded as a second step).  Requires a store with no
+        history; fires no listeners (recovery precedes attach)."""
+        if revision < 1:
+            raise ValueError(f"invalid recovery revision {revision}")
+        with self._lock:
+            if self._revision != 0 or self._by_relation or self._base is not None:
+                raise ValueError(
+                    "adopt_recovery_state requires an empty store")
+            if snap is not None and len(snap):
+                self._base = BaseLayer(snap, revision)
+            for rel in overlay:
+                self._put(rel, revision)
+            self._revision = revision
+
+    def apply_recovery_batch(self, updates: Iterable[RelationshipUpdate]) -> int:
+        """Re-apply one journaled committed batch exactly as recorded:
+        no limits, preconditions, CREATE validation, or listener
+        broadcast (recovery runs before any listener attaches) — the
+        batch already committed once, so it re-applies verbatim.  One
+        revision bump even for an effect-free batch, mirroring write()."""
+        with self._lock:
+            self._revision += 1
+            rev = self._revision
+            for u in updates:
+                if u.op == UpdateOp.DELETE:
+                    self._remove(u.rel)
+                else:
+                    self._put(u.rel, rev)
+            return rev
+
+    # -- replication (spicedb/replication) ----------------------------------
+
+    def apply_replica_batch(self, updates: Iterable[RelationshipUpdate]) -> int:
+        """Replica-apply one journaled committed batch: the exact-replay
+        semantics of apply_recovery_batch (no limits / preconditions /
+        CREATE validation — the batch already committed on the leader),
+        but applied to a LIVE store: watchers and delta listeners fire,
+        so the device graph, decision-cache epochs, and watch streams
+        follow the leader through the normal delta pipeline.  Commit
+        listeners do NOT fire — a follower must never re-journal the
+        leader's log."""
+        updates = tuple(updates)
+        with self._lock:
+            self._revision += 1
+            rev = self._revision
+            for u in updates:
+                if u.op == UpdateOp.DELETE:
+                    self._remove(u.rel)
+                else:
+                    self._put(u.rel, rev)
+            if updates:
+                self._broadcast(WatchUpdate(updates=updates, revision=rev))
+            return rev
+
+    def replica_reset(self, snap: Optional[ColumnarSnapshot],
+                      overlay: Iterable[Relationship],
+                      revision: int) -> None:
+        """Replica (re-)bootstrap: discard ALL current state and adopt a
+        leader checkpoint wholesale at EXACTLY `revision`.  Unlike
+        adopt_recovery_state this works on a non-empty store (a follower
+        re-bootstraps after losing the segment tail it was tailing) and
+        fires the reset listeners so live consumers rebuild their caches
+        from the adopted state.  The revision may move backwards — after
+        a leader crash that lost an unsynced WAL tail, the checkpoint is
+        the only truthful state left."""
+        if revision < 1:
+            raise ValueError(f"invalid replica reset revision {revision}")
+        with self._lock:
+            self._by_relation.clear()
+            self._base = None
+            if snap is not None and len(snap):
+                self._base = BaseLayer(snap, revision)
+            for rel in overlay:
+                self._put(rel, revision)
+            self._revision = revision
+            for fn in list(self._reset_listeners):
+                fn()
+
     # -- internals ----------------------------------------------------------
 
     def _present(self, rel: Relationship) -> bool:
@@ -578,3 +726,9 @@ class TupleStore:
             fn(update)
         for w in list(self._watchers):
             w._publish(update)
+
+    def _commit(self, kind: str, revision: int, payload) -> None:
+        """Notify commit listeners (under the store lock, before any
+        watcher/delta listener — WAL-before-visibility ordering)."""
+        for fn in list(self._commit_listeners):
+            fn(kind, revision, payload)

@@ -74,7 +74,8 @@ QUEUE_LIMIT: dict = {"value": 0}
 _REJECTED = m.REGISTRY.counter(
     "authz_admission_rejected_total",
     "Requests rejected by admission control, by reason (queue_limit = "
-    "dispatcher queue bound, queue_depth = load shedder)",
+    "dispatcher queue bound, queue_depth / slo_burn / replica_lag = "
+    "load shedder)",
     labels=("reason",))
 _QUEUE_LIMIT = m.REGISTRY.gauge(
     "authz_admission_queue_limit",
@@ -98,14 +99,16 @@ def set_queue_limit(n: int) -> None:
 class LoadShedder:
     """Sheds read-only traffic when the proxy is already saturated, so
     queue depth stays bounded and in-flight requests keep their latency
-    (reference utils/admission.py:127-237; the port has no replication,
-    so no replica-lag signal).
+    (reference utils/admission.py:127-237).
 
-    Two independent signals, either sufficient:
+    Three independent signals, any sufficient:
     - `shed_queue_depth` > 0: the total dispatcher queue depth (check +
       LR), read through `depth_fn`, at or over the threshold;
     - `shed_on_burn`: the flight recorder reports an SLO burning on both
-      horizons (`burning_fn` non-empty).
+      horizons (`burning_fn` non-empty);
+    - `shed_lag_s` > 0: the replication follower's staleness (`lag_fn`,
+      seconds behind the leader) at or over the threshold, so a stale
+      replica sheds reads before serving stale answers.
 
     `check(verb)` returns the rejection reason (or None to admit);
     callers build the 429 from `retry_after_s`.  `shedding_recently()`
@@ -117,19 +120,24 @@ class LoadShedder:
     def __init__(self, shed_queue_depth: int = 0, shed_on_burn: bool = False,
                  retry_after_s: float = 1.0,
                  depth_fn: Optional[Callable[[], int]] = None,
-                 burning_fn: Optional[Callable[[], list]] = None):
+                 burning_fn: Optional[Callable[[], list]] = None,
+                 shed_lag_s: float = 0.0,
+                 lag_fn: Optional[Callable[[], float]] = None):
         self.shed_queue_depth = shed_queue_depth
         self.shed_on_burn = shed_on_burn
+        self.shed_lag_s = shed_lag_s
         self.retry_after_s = max(retry_after_s, 0.001)
         self._depth_fn = depth_fn
         self._burning_fn = burning_fn
+        self._lag_fn = lag_fn
         self._lock = threading.Lock()
         self._last_shed = 0.0
         self._shed_total = 0
 
     @property
     def active(self) -> bool:
-        return self.shed_queue_depth > 0 or self.shed_on_burn
+        return (self.shed_queue_depth > 0 or self.shed_on_burn
+                or (self.shed_lag_s > 0 and self._lag_fn is not None))
 
     def _queue_depth(self) -> int:
         if self._depth_fn is None:
@@ -154,6 +162,13 @@ class LoadShedder:
             try:
                 if self._burning_fn():
                     reason = "slo_burn"
+            except Exception:
+                reason = None
+        if (reason is None and self.shed_lag_s > 0
+                and self._lag_fn is not None):
+            try:
+                if self._lag_fn() >= self.shed_lag_s:
+                    reason = "replica_lag"
             except Exception:
                 reason = None
         if reason is None:

@@ -11,8 +11,18 @@ dual-write activity sites of authz/distributedtx/activity.py, where the
 reference's activities call them: `panicWriteSpiceDB`,
 `panicSpiceDBWriteResp`, `panicReadSpiceDB`, `panicSpiceDBReadResp`,
 `panicKubeWrite` and `panicKubeReadResp` (the workflow engine replays
-an instance that crashes there from its journal).  The disarmed fast
-path is one module-global bool read.
+an instance that crashes there from its journal).  The durable store
+(spicedb/persist) has `walBeforeAppend` and `walAfterAppend` around a
+WAL record's append and `checkpointBeforeRename` and
+`manifestBeforeRename` on a checkpoint's two atomic renames; a crash
+there loses no committed revision.  Replication (spicedb/replication)
+has `replServeManifest` and `replServeSegment` on the leader's routes
+and, on the follower, `replLeaderLink` (every request to the leader),
+`replManifestPoll`, `replSegmentFetch`, `replCheckpointFetch`,
+`replBootstrapAdopt` (before a checkpoint's adoption) and
+`replBootstrapFinish` (after it): a follower that crashes there keeps
+serving its adopted state and restarts the pass from the manifest.  The
+disarmed fast path is one module-global bool read.
 """
 
 from __future__ import annotations

@@ -38,6 +38,13 @@
   way (the host loop needs it to stop); off, nothing records it.
 - `PROFILER` lets `/debug/profile` sample (utils/profiler.py; the
   reference's `Profiler` gate, :154, ALPHA, default on).
+- `DURABLE_STORE` is the killswitch of the durable store
+  (spicedb/persist; the reference's `DurableStore` gate, :94): off, a
+  configured data dir is inert and the store runs in memory.
+- `REPLICATION` is the killswitch of WAL-shipping replication
+  (spicedb/replication; the reference's `Replication` gate, :129): off,
+  the `/replication/*` routes answer 503 and a configured
+  `replicate_from` is inert, so the proxy is exactly single-node.
 
 `apply_flag` sets them from the CLI's `--feature-gates name=true|false`
 under the reference's gate names (`GATE_SWITCHES`); any other name is
@@ -54,6 +61,8 @@ DEVICE_TELEMETRY = True
 TIMELINE = True
 KERNEL_INTROSPECT = True
 PROFILER = True
+DURABLE_STORE = True
+REPLICATION = True
 
 
 def pipeline_enabled() -> bool:
@@ -73,6 +82,8 @@ GATE_SWITCHES = {
     "Timeline": "TIMELINE",
     "KernelIntrospect": "KERNEL_INTROSPECT",
     "Profiler": "PROFILER",
+    "DurableStore": "DURABLE_STORE",
+    "Replication": "REPLICATION",
 }
 
 

@@ -10,7 +10,14 @@ Beside them: the same argv through both packages' `build_parser`,
 the field; flags of unported features exit 2; `--feature-gates` sets
 the port's switches and refuses other names; and `python -m
 spicedb_kubeapi_proxy_tpu_torch` serves, dual-writes and exits 0 on
-SIGTERM in a subprocess against a loopback fake apiserver.
+SIGTERM in a subprocess against a loopback fake apiserver.  The durable
+store's and replication's flags (`--data-dir`, `--wal-fsync`,
+`--checkpoint-interval`, `--replicate-from`, `--replica-*`,
+`--shed-replica-lag`) reach the same `Options` and fail `validate` with
+the reference's texts (the endpoint named `torch://` where the reference
+names `jax://`), and a `python -m ... --data-dir` process killed with
+SIGKILL after an acknowledged create serves that create again after its
+restart on the same data dir.
 """
 
 import asyncio
@@ -430,14 +437,21 @@ def _shape(value):
      "--slo-check-p99-ms", "250", "--slo-objective", "0.05",
      "--slo-error-rate", "0.01", "--shed-slo-burn",
      "--device-hbm-peak-gbps", "3350"],
+    ["--data-dir", "DATADIR", "--wal-fsync", "always",
+     "--checkpoint-interval", "60"],
+    ["--data-dir", "DATADIR", "--workflow-database-path", "wf.db"],
+    ["--replicate-from", "http://leader:8443", "--replica-wait-ms", "250",
+     "--no-replica-forward", "--replica-user", "system:r2",
+     "--shed-replica-lag", "1.5", "--replica-id", "r2"],
 ])
 def test_same_argv_gives_the_reference_options(tmp_path, extra):
     tokens = tmp_path / "tokens.csv"
     tokens.write_text("tok1,alice,uid1\n")
+    subs = {"TOKENS": str(tokens), "DATADIR": str(tmp_path / "data")}
     argv = ["--rule-config", str(DEPLOY / "rules.yaml"),
             "--use-in-cluster-config", "--embedded-mode",
             "--spicedb-endpoint", "embedded://"] + [
-        str(tokens) if a == "TOKENS" else a for a in extra]
+        subs.get(a, a) for a in extra]
     ref_args = ref_cli.build_parser().parse_args(ref_cli._normalize_argv(
         argv))
     args = parse(argv)
@@ -448,7 +462,7 @@ def test_same_argv_gives_the_reference_options(tmp_path, extra):
     ref_fields = {f.name for f in dataclasses.fields(want.server_options)}
     shared = sorted(port_fields & ref_fields)
     assert port_fields <= ref_fields
-    assert len(shared) == len(port_fields) == 25
+    assert len(shared) == len(port_fields) == 35
     for name in shared:
         assert (_shape(getattr(got.server_options, name))
                 == _shape(getattr(want.server_options, name))), name
@@ -457,12 +471,14 @@ def test_same_argv_gives_the_reference_options(tmp_path, extra):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--data-dir", "d"], ["--wal-fsync", "always"],
-    ["--checkpoint-interval", "1"], ["--replicate-from", "http://l"],
+    ["--serve-replication"], ["--replication-mirror-dir", "m"],
+    ["--promote-data-dir", "d"], ["--replica-peers", "http://l"],
     ["--fleet-peers", "http://p"], ["--shards", "2"],
     ["--partition-map", "pod=0"], ["--shard-leaders", "http://a"],
     ["--lint-schema"], ["--spicedb-ca-path", "x"],
-    ["--spicedb-skip-verify-ca"],
+    ["--spicedb-skip-verify-ca"], ["--promote-on-leader-loss"],
+    ["--leader-loss-grace", "1"], ["--spicedb-insecure"],
+    ["--spicedb-token", "t"],
 ])
 def test_unported_flag_exits_2(flag):
     # each flag parses in the reference CLI
@@ -690,10 +706,11 @@ def test_module_version_and_unported_flag():
     from spicedb_kubeapi_proxy_tpu_torch import __version__
     assert out.returncode == 0 and out.stdout.strip() == __version__
     out = subprocess.run([sys.executable, "-m",
-                          "spicedb_kubeapi_proxy_tpu_torch", "--data-dir",
-                          "d"], cwd=ROOT, capture_output=True, text=True,
-                         timeout=120, env=env)
-    assert out.returncode == 2 and "--data-dir" in out.stderr
+                          "spicedb_kubeapi_proxy_tpu_torch",
+                          "--serve-replication"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert out.returncode == 2 and "--serve-replication" in out.stderr
     out = subprocess.run([sys.executable, "-m",
                           "spicedb_kubeapi_proxy_tpu_torch",
                           "--spicedb-endpoint", "jax://",
@@ -731,3 +748,170 @@ def test_phase17_rules_are_the_deploy_shapes():
     assert (launch["lock"], retire["lock"]) == ("Optimistic", "Pessimistic")
     configs = [proxyrule.parse_doc(d) for d in smoke.DUALWRITE_RULES]
     assert [c.name for c in configs] == ["pod-launch", "pod-retire"]
+
+
+# -- the durable store's and replication's flags ------------------------------
+
+@pytest.mark.parametrize("argv", [
+    ["--checkpoint-interval", "0"],
+    ["--data-dir", "d", "--replicate-from", "http://leader:1"],
+    ["--replicate-from", "leader:1"],
+    ["--replica-wait-ms", "-1"],
+    ["--shed-replica-lag", "-1"],
+    ["--shed-replica-lag", "1"],
+    ["--data-dir", "d", "--spicedb-endpoint", "grpc://h:1"],
+    ["--replicate-from", "http://leader:1", "--spicedb-endpoint",
+     "grpc://h:1"],
+])
+def test_durable_and_replica_flags_fail_validate_as_the_reference(
+        tmp_path, argv):
+    """Every error the reference's `validate` gives for these flags, the
+    port's gives in the same words (its store-backed endpoints named
+    `torch://` where the reference names `jax://`)."""
+    base = ["--rule-config", rules_file(tmp_path), "--embedded-mode",
+            "--use-in-cluster-config"]
+    errs = cli.validate(parse(base + argv))
+    ref_errs = ref_cli.validate(ref_cli.build_parser().parse_args(
+        ref_cli._normalize_argv(base + argv)))
+    assert ref_errs
+    for e in ref_errs:
+        assert e.replace("jax://", "torch://") in errs, (e, errs)
+
+
+def test_durable_and_replica_flags_reach_options(tmp_path):
+    base = ["--rule-config", rules_file(tmp_path), "--embedded-mode",
+            "--use-in-cluster-config", "--spicedb-endpoint", CPU]
+    data = tmp_path / "data"
+    leader = cli.complete(parse(base + [
+        "--data-dir", str(data), "--wal-fsync", "never",
+        "--checkpoint-interval", "7"]), upstream_transport=NullTransport())
+    o = leader.server_options
+    assert (o.data_dir, o.wal_fsync, o.checkpoint_interval) == \
+        (str(data), "never", 7.0)
+    assert o.workflow_database_path == str(data / "dtx.sqlite")
+    follower = cli.complete(parse(base + [
+        "--replicate-from", "http://leader:8443", "--replica-wait-ms", "50",
+        "--no-replica-forward", "--shed-replica-lag", "2",
+        "--replica-id", "r1"]), upstream_transport=NullTransport())
+    o = follower.server_options
+    assert (o.replicate_from, o.replica_wait_ms, o.replica_forward,
+            o.replica_user, o.shed_replica_lag_s, o.replica_id) == (
+        "http://leader:8443", 50.0, False, "system:replica", 2.0, "r1")
+    # with the DurableStore switch off the journal stays where it was
+    features.DURABLE_STORE = False
+    off = cli.complete(parse(base + ["--data-dir", str(tmp_path / "d2")]),
+                       upstream_transport=NullTransport())
+    assert off.server_options.workflow_database_path == \
+        cli.DEFAULT_WORKFLOW_DATABASE_PATH
+
+
+def test_module_with_data_dir_survives_sigkill(tmp_path):
+    """`python -m spicedb_kubeapi_proxy_tpu_torch --data-dir D --wal-fsync
+    always` on `torch://?device=cpu` and deploy/'s files, against a fake
+    apiserver on a loopback socket: a create answered 201, then SIGKILL
+    (no final checkpoint); a second process on D recovers the store,
+    lists the pod, and stamps revisions that continue the first
+    process's; SIGTERM then exits 0 after a final checkpoint.  The
+    journal defaults into D."""
+    pytest.importorskip("h11")
+    from spicedb_kubeapi_proxy_tpu_torch.kubefake.apiserver import (
+        FakeKubeApiServer)
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.httpcore import (
+        H11Transport, HttpServer)
+
+    data = tmp_path / "data"
+
+    async def go():
+        kube = FakeKubeApiServer()
+        kube.seed("", "v1", "namespaces", {"metadata": {"name": "acme-prod"}})
+        kube.seed("", "v1", "pods", {"metadata": {
+            "name": "api-0", "namespace": "acme-prod"}})
+        upstream = HttpServer(kube)
+        kport = await upstream.start("127.0.0.1", 0)
+        kc = tmp_path / "kubeconfig"
+        kc.write_text(json.dumps({
+            "current-context": "c",
+            "contexts": [{"name": "c", "context": {"cluster": "k"}}],
+            "clusters": [{"name": "k", "cluster": {
+                "server": f"http://127.0.0.1:{kport}"}}]}))
+
+        async def spawn():
+            port = _free_port()
+            proc = await asyncio.create_subprocess_exec(
+                sys.executable, "-m", "spicedb_kubeapi_proxy_tpu_torch",
+                "--spicedb-endpoint", CPU, "--embedded-mode",
+                "--bind-address", "127.0.0.1", "--secure-port", str(port),
+                "--backend-kubeconfig", str(kc), "--no-override-upstream",
+                "--rule-config", str(DEPLOY / "rules.yaml"),
+                "--spicedb-bootstrap", str(DEPLOY / "bootstrap.yaml"),
+                "--data-dir", str(data), "--wal-fsync", "always", "-v", "2",
+                cwd=str(ROOT), stdout=asyncio.subprocess.DEVNULL,
+                stderr=asyncio.subprocess.PIPE,
+                env={**os.environ, "PYTHONPATH": str(ROOT)})
+            client = H11Transport(f"http://127.0.0.1:{port}")
+            for _ in range(600):
+                try:
+                    h = Headers([("X-Remote-User", "ada")])
+                    if (await client.round_trip(Request(
+                            "GET", "/readyz", headers=h))).status == 200:
+                        return proc, client
+                except OSError:
+                    pass
+                if proc.returncode is not None:
+                    break
+                await asyncio.sleep(0.1)
+            proc.kill()
+            err = await proc.stderr.read()
+            raise AssertionError(err.decode()[-2000:])
+
+        async def call(client, method, target, obj=None):
+            h = Headers([("X-Remote-User", "ada"),
+                         ("Accept", "application/json")])
+            body = b""
+            if obj is not None:
+                body = json.dumps(obj).encode()
+                h.set("Content-Type", "application/json")
+            return await client.round_trip(Request(method, target,
+                                                   headers=h, body=body))
+
+        pods = "/api/v1/namespaces/acme-prod/pods"
+        out = {}
+        try:
+            proc, client = await spawn()
+            created = await call(client, "POST", pods, {
+                "apiVersion": "v1", "kind": "Pod",
+                "metadata": {"name": "api-9", "namespace": "acme-prod"}})
+            out["create"] = created.status
+            out["rev1"] = int(created.headers.get("X-Authz-Revision"))
+            proc.send_signal(signal.SIGKILL)
+            await asyncio.wait_for(proc.wait(), 30)
+            out["killed"] = proc.returncode
+            proc, client = await spawn()
+            listed = await call(client, "GET", pods)
+            out["listed"] = sorted(i["metadata"]["name"]
+                                   for i in json.loads(listed.body)["items"])
+            out["rev2"] = int(listed.headers.get("X-Authz-Revision"))
+            again = await call(client, "POST", pods, {
+                "apiVersion": "v1", "kind": "Pod",
+                "metadata": {"name": "api-10", "namespace": "acme-prod"}})
+            out["create2"] = again.status
+            out["rev3"] = int(again.headers.get("X-Authz-Revision"))
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            _, stderr = await asyncio.wait_for(proc.communicate(), 30)
+            await upstream.stop()
+        return out, proc.returncode, stderr.decode()
+
+    out, rc, stderr = asyncio.run(go())
+    assert out["create"] == 201 and out["killed"] == -signal.SIGKILL
+    assert out["listed"] == ["api-0", "api-9"]
+    assert out["rev2"] >= out["rev1"]
+    assert out["create2"] == 201 and out["rev3"] > out["rev2"]
+    assert rc == 0, stderr[-2000:]
+    assert "Traceback" not in stderr
+    assert "recovered store at revision" in stderr
+    assert "skipping bootstrap relationships" in stderr
+    assert (data / "dtx.sqlite").exists()
+    # the clean stop wrote a final checkpoint, which reclaimed the log
+    assert list((data / "checkpoints").glob("ckpt-*.npz"))
+    assert not list((data / "wal").glob("seg-*.wal"))

@@ -561,7 +561,8 @@ check: [{tpl: "pod:{{namespacedName}}#view@user:{{user.name}}"}]
 """
 
 PORT_SURFACES = {"/debug/traces", "/debug/decisions", "/debug/flight",
-                 "/debug/timeline", "/debug/workload", "/debug/profile"}
+                 "/debug/timeline", "/debug/workload", "/debug/profile",
+                 "/debug/replication"}
 
 
 def make_server(root, url, **extra):
@@ -603,15 +604,15 @@ def test_index_enumerates_the_ported_surfaces(url):
     (st, got), (rst, want) = run(go(port)), run(go(ref))
     assert st == rst == 200
     assert set(got) == PORT_SURFACES
-    # the reference's four others come with replication, sharding and
-    # the fleet (ROADMAP Queue 1 items 8-9)
-    assert set(want) - set(got) == {"/debug/replication", "/debug/sharding",
-                                    "/debug/fleet", "/debug/tail"}
+    # the reference's three others come with sharding and the fleet
+    # (ROADMAP Queue 1 items 9c and 9e)
+    assert set(want) - set(got) == {"/debug/sharding", "/debug/fleet",
+                                    "/debug/tail"}
     assert all(isinstance(d, str) and d for d in got.values())
 
 
-@pytest.mark.parametrize("path", ["/debug/bogus", "/debug/replication",
-                                  "/debug/fleet"])
+@pytest.mark.parametrize("path", ["/debug/bogus", "/debug/sharding",
+                                  "/debug/fleet", "/debug/tail"])
 def test_unknown_surface_uniform_404(path):
     port, _ = servers()
 
@@ -620,6 +621,21 @@ def test_unknown_surface_uniform_404(path):
         return resp.status, json.loads(resp.body)["reason"]
 
     assert run(go()) == (404, "NotFound")
+
+
+def test_replication_surface_without_a_role_matches_the_reference():
+    """A proxy with neither a data dir nor a leader reports replication
+    as not configured, in the reference's words."""
+    port, ref = servers()
+
+    async def go(server):
+        resp = await server.get_embedded_client(user="alice").get(
+            "/debug/replication")
+        return resp.status, json.loads(resp.body)
+
+    got = run(go(port))
+    assert got == run(go(ref))
+    assert got[0] == 200 and got[1]["enabled"] is False
 
 
 def test_surfaces_unauthenticated_401_like_the_reference():

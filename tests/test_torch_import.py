@@ -472,3 +472,83 @@ def test_no_tpu_figure_in_the_port():
         text = path.read_text()
         assert not re.search(r"\b819(\.0)?\b", text), path
         assert "v5e" not in text.lower(), path
+
+
+# the durable store and WAL-shipping replication
+DURABLE_MODULES = [
+    "spicedb_kubeapi_proxy_tpu_torch.spicedb.persist",
+    "spicedb_kubeapi_proxy_tpu_torch.spicedb.persist.wal",
+    "spicedb_kubeapi_proxy_tpu_torch.spicedb.persist.checkpoint",
+    "spicedb_kubeapi_proxy_tpu_torch.spicedb.persist.manager",
+    "spicedb_kubeapi_proxy_tpu_torch.spicedb.replication",
+    "spicedb_kubeapi_proxy_tpu_torch.spicedb.replication.leader",
+    "spicedb_kubeapi_proxy_tpu_torch.spicedb.replication.follower",
+]
+
+
+@pytest.mark.parametrize("module", DURABLE_MODULES)
+def test_durable_module_imports_nothing_forbidden(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = ROOT / module.replace(".", "/") / "__init__.py"
+    assert path.exists(), module
+    bad = [m for m in _imports(path) if _is_forbidden(m)]
+    assert bad == [], f"{module} imports {bad}"
+
+
+_PROBE_DURABLE = _BLOCK + r"""
+import asyncio, json, tempfile
+from spicedb_kubeapi_proxy_tpu_torch.kubefake.apiserver import (
+    FakeKubeApiServer)
+from spicedb_kubeapi_proxy_tpu_torch.proxy.httpcore import HandlerTransport
+from spicedb_kubeapi_proxy_tpu_torch.proxy.server import Options, ProxyServer
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import Bootstrap
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import SubjectRef
+boot = Bootstrap.from_mapping({"schema":
+    "definition user {}\ndefinition pod { relation creator: user\n"
+    "permission view = creator }", "relationships":
+    "pod:ns/p0#creator@user:ann"})
+data = tempfile.mkdtemp()
+kube = FakeKubeApiServer()
+
+def leader():
+    return ProxyServer(Options(
+        spicedb_endpoint="torch://?device=cpu", rule_configs=[],
+        bootstrap=boot, upstream_transport=HandlerTransport(kube),
+        data_dir=data, wal_fsync="always"))
+
+first = leader()
+first.persistence.checkpoint()
+second = leader()          # recovered: the bootstrap is not applied again
+follower = ProxyServer(Options(
+    spicedb_endpoint="torch://?device=cpu", rule_configs=[],
+    bootstrap=boot, upstream_transport=HandlerTransport(kube),
+    replicate_from="http://leader",
+    leader_transport=HandlerTransport(second.handler)))
+
+async def go():
+    await follower.replication.sync_once()
+    return list(await follower.endpoint.lookup_resources(
+        "pod", "view", SubjectRef("user", "ann")))
+
+ids = asyncio.run(go())
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None)
+print(json.dumps({"ids": ids, "revisions": [
+    first.endpoint.store.revision, second.endpoint.store.revision,
+    follower.endpoint.store.revision], "modules": loaded}))
+"""
+
+
+def test_durable_store_and_follower_run_with_jax_blocked():
+    """A `torch://?device=cpu` leader with a data dir, its restart on the
+    same dir (recovered, bootstrap-once) and a follower bootstrapped
+    from its checkpoint, with jax, h11, yaml and cryptography
+    unimportable: nothing of the reference is loaded."""
+    out = subprocess.run([sys.executable, "-c", _PROBE_DURABLE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["ids"] == ["ns/p0"]
+    assert res["revisions"] == [1, 1, 1]
+    assert not [m for m in res["modules"] if _is_forbidden(m)]
+    assert set(DURABLE_MODULES) <= set(res["modules"])

@@ -602,10 +602,26 @@ def test_load_shedder_matches_reference():
     assert port_adm.READ_ONLY_VERBS == ref_adm.READ_ONLY_VERBS
     assert ref[-7:] == [True, None, "slo_burn", None, True, "queue_depth",
                         None]
-    # the stats input (the port reads the depth through depth_fn) and the
-    # replica-lag one (the port has no replication) are left out, not
-    # silently ignored
-    for kw in ({"stats_fn": dict}, {"shed_lag_s": 1.0},
-               {"lag_fn": float}):
-        with pytest.raises(TypeError):
-            port_adm.LoadShedder(**kw)
+    # the stats input (the port reads the depth through depth_fn) is left
+    # out, not silently ignored
+    with pytest.raises(TypeError):
+        port_adm.LoadShedder(stats_fn=dict)
+    # the replica-lag signal (a follower's staleness) sheds as the
+    # reference's does
+    assert _lag_cases(port_adm) == _lag_cases(ref_adm)
+    assert port_adm.REJECTED["replica_lag"] == \
+        before.get("replica_lag", 0) + 1
+
+
+def _lag_cases(adm):
+    lag = [0.0]
+    s = adm.LoadShedder(shed_lag_s=1.0, lag_fn=lambda: lag[0])
+    out = [s.active, s.check("list")]
+    lag[0] = 2.0
+    out += [s.check("list"), s.check("create"), s.shedding_recently()]
+    out.append(adm.LoadShedder(shed_lag_s=1.0).active)
+
+    def broken():
+        raise RuntimeError("no lag")
+    out.append(adm.LoadShedder(shed_lag_s=1.0, lag_fn=broken).check("get"))
+    return out
