@@ -261,9 +261,36 @@ put down to the card or to the host.
    segment it tails) and writes on: its next pass re-bootstraps
    (`replica_reset`), the next read rebuilds the graph on the card
    synchronously (its latency logged) and answers as the leader.
+20. leader failover at multitenant-1m on phase 19's leader (b) and
+   follower (d), right after 19.  (a) The leader acknowledges 32 pod
+   creates it never ships and dies (its transport dead); the follower is
+   promoted through `POST /replication/promote` (timed: the epoch mint,
+   the persistence open and attach, the anchor checkpoint, the hub
+   attach; and promotion to the first acknowledged write), then takes 16
+   rounds of 64 journaled writes, each followed by a 256-lane lookup
+   batch and a 10,000-pair check batch: no rebuild, nothing routed to the
+   oracle, every read kernel and `scatter_rows` launched, the last
+   batches equal to a fixed-seed oracle sample.  (b) The old leader comes
+   back: a poll carrying the new incarnation fences it (its create
+   answers 503, its list 200), `demote_and_rejoin` collects its
+   unshipped tail, resets its store and graph from the new leader's
+   checkpoint and replays the tail; every acknowledged write of both
+   nodes holds on both, and its first read after the reset (a
+   synchronous rebuild) and the next equal the new leader's.  (c) The
+   rejoined node relays the log from a mirror (`FanoutHub`, re-bootstrap
+   into it) to a leaf `torch://` follower, which bootstraps from the
+   mirror; 8 rounds of writes on the new leader: per-hop lag p50/p99,
+   the leaf's read-after-write against its warm median, its batches
+   equal to the leader's and its last ones to an oracle sample.  (d) The
+   election: a leader and two followers with `promote_on_leader_loss`
+   over `replica_peers` on a small multitenant store, one follower
+   ahead; the leader dies, the one ahead promotes itself and the other
+   repoints to it, both within the 10 s flight window.  Every read
+   kernel and `scatter_rows` must launch on (a) and (c)'s leaf, every
+   read kernel on (b).
 
 Phases run in the order 1-9, 11, 13a-b, 14, 15, 10, 13c, 12, 13d, 16, 17a,
-18, 19, 17b, and each phase's seconds are logged.  Any failed phase raises and the script
+18, 19, 20, 17b, and each phase's seconds are logged.  Any failed phase raises and the script
 exits non-zero.  The second-to-last line is the kernel table as JSON,
 the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -419,6 +446,19 @@ FOLLOWER_ROUNDS = 16
 FOLLOWER_LISTS = 8          # proxied lists on the follower a round
 DUALWRITE_ORACLE = 64
 CLI_READY_S = 300           # the command's warm start, prewarm included
+# phase 20, leader failover on phase 19's leader and follower
+FAILOVER_UNSHIPPED = 32     # pod creates the old leader acknowledges, unshipped
+FAILOVER_ROUNDS = 16        # rounds of writes on the promoted node
+FAILOVER_ROUND_WRITES = 64
+LEAF_ROUNDS = 8             # rounds while the rejoined node relays to a leaf
+FAILOVER_ORACLE_CHECKS = 200
+FAILOVER_ORACLE_SUBJECTS = 2
+FAILOVER_ORACLE_PODS = 100  # returned, and as many drawn, pods a lookup
+# (d): the election's store (host logic), its grace and writes
+ELECTION_WORKLOAD = {"n_pods": 2_000, "n_tuples": 20_000, "n_users": 500,
+                     "n_namespaces": 200}
+ELECTION_GRACE_S = 1.0
+ELECTION_WRITES = 16
 CLI_STOP_S = 10             # SIGTERM to exit
 UNDECIDED = '[caveat:within_quota:{"used": 1}]'
 DECIDED = ('[caveat:within_quota:{"used": 1, "quota": 5}]',
@@ -5876,11 +5916,14 @@ def _durable_writes(rnd: dict, n: int) -> list:
     return (grants + rest)[:n]
 
 
-def durable_path(w, kube, smi_line: str, device: str = "cuda") -> dict:
+def durable_path(w, kube, smi_line: str, device: str = "cuda",
+                 failover: bool = False) -> dict:
     """Phase 19: the durable store and WAL-shipping read replication at
     multitenant-1m (`w`, phase 3's workload), over phase 16's fake
-    kube-apiserver (see the module docstring for (a)-(e)).  Returns the
-    follower's launches by kernel."""
+    kube-apiserver (see the module docstring for (a)-(e)); with
+    `failover`, phase 20 on its leader and follower after it.  Returns
+    the follower's launches by kernel, phase 20's under "failover", and
+    each phase's seconds under "phase_s"."""
     import shutil
     import tempfile
 
@@ -5889,13 +5932,19 @@ def durable_path(w, kube, smi_line: str, device: str = "cuda") -> dict:
     tmp = tempfile.mkdtemp(prefix="smoke-durable-")
     try:
         ctx = _durable_leader(w, kube, smi_line, device, tmp)
+        ctx["tmp"] = tmp
         _durable_crash(ctx)
         cli_crash(smi_line, device=device)
         out = _durable_follower(ctx)
         _durable_rebootstrap(ctx)
+        out["phase_s"] = {"19": time.perf_counter() - t_phase}
+        log(f"phase 19 wall time {out['phase_s']['19']:.1f} s")
+        if failover:
+            t = time.perf_counter()
+            out["failover"] = failover_path(ctx)
+            out["phase_s"]["20"] = time.perf_counter() - t
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"phase 19 wall time {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -6541,6 +6590,632 @@ def _durable_rebootstrap(ctx: dict) -> None:
         f"the leader's ({ctx['smi_line']})")
 
 
+class _DeadLink:
+    """A transport to a leader that is gone (killed, or across a
+    partition): every call fails as a refused connection would."""
+
+    async def round_trip(self, req):
+        raise ConnectionError("the leader is gone")
+
+
+class _timed_attr:
+    """Patch `obj.name` with a wrapper adding each call's seconds to
+    `split[key]` (a coroutine function stays one), restored on exit."""
+
+    def __init__(self, obj, name: str, split: dict, key: str):
+        self.obj, self.name, self.split, self.key = obj, name, split, key
+
+    def __enter__(self):
+        import inspect
+        fn = self.orig = getattr(self.obj, self.name)
+        split, key = self.split, self.key
+        split.setdefault(key, 0.0)
+        if inspect.iscoroutinefunction(fn):
+            async def wrapped(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return await fn(*a, **k)
+                finally:
+                    split[key] += time.perf_counter() - t
+        else:
+            def wrapped(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    split[key] += time.perf_counter() - t
+        setattr(self.obj, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.orig)
+        return False
+
+
+def _launch_delta(l0: dict) -> dict:
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    return {k: v - l0.get(k, 0) for k, v in kernels.LAUNCHES.items()
+            if v - l0.get(k, 0)}
+
+
+def _add(acc: dict, d: dict) -> None:
+    for k, v in d.items():
+        acc[k] = acc.get(k, 0) + v
+
+
+def _require_launches(launches: dict, kernels_: tuple, where: str) -> None:
+    idle = [k for k in kernels_ if not launches.get(k)]
+    if idle:
+        raise AssertionError(f"kernels never launched {where}: {idle}")
+
+
+def _oracle_sample(ep, subjects, reqs, look, chk, rng, label: str) -> str:
+    """A fixed-seed oracle sample of one lookup batch and one check batch
+    of `ep`: FAILOVER_ORACLE_CHECKS checks, and FAILOVER_ORACLE_SUBJECTS
+    lookups over the pods they returned and as many others."""
+    oracle = ep._oracle
+    idx = [int(i) for i in rng.choice(len(reqs), FAILOVER_ORACLE_CHECKS,
+                                      replace=False)]
+    for i in idx:
+        r = reqs[i]
+        if chk[i].allowed != oracle.check(r.resource, r.permission,
+                                          r.subject):
+            raise AssertionError(f"{label}: check {r} differs from the "
+                                 f"oracle")
+    pods = [p for p in ep.graph().prog.object_ids["pod"] if "\x00" not in p]
+    for s in rng.choice(len(subjects), FAILOVER_ORACLE_SUBJECTS,
+                        replace=False):
+        s = int(s)
+        got = set(look[s])
+        cand = sorted(got)[:FAILOVER_ORACLE_PODS] + [
+            pods[int(i)] for i in rng.choice(len(pods), FAILOVER_ORACLE_PODS,
+                                             replace=False)]
+        want = _oracle_pods(oracle, cand, subjects[s])
+        if want != got & set(cand):
+            raise AssertionError(f"{label}: the lookup of {subjects[s]} "
+                                 f"differs from the oracle")
+    return (f"{FAILOVER_ORACLE_CHECKS} checks and {FAILOVER_ORACLE_SUBJECTS}"
+            f" lookups equal to the oracle's")
+
+
+def failover_path(ctx: dict) -> dict:
+    """Phase 20: leader failover at multitenant-1m on phase 19's leader
+    (b) and its follower (d), over phase 16's fake apiserver (see the
+    module docstring for (a)-(d)).  Returns the launches of (a)-(c) by
+    kernel."""
+    t_phase = time.perf_counter()
+    # what phase 19 no longer needs
+    for k in ("text", "tail", "manifest"):
+        ctx.pop(k, None)
+    gc.collect()
+    a = _failover_promote(ctx)
+    b = _failover_rejoin(ctx)
+    c = _failover_chain(ctx)
+    _failover_election(ctx)
+    out: dict = {}
+    for part in (a, b, c):
+        _add(out, part)
+    log(f"phase 20 launches: (a) {a}; (b) {b}; (c) {c}")
+    log(f"phase 20 wall time {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": out}
+
+
+def _failover_promote(ctx: dict) -> dict:
+    """Phase 20 (a): the leader dies and its follower is promoted."""
+    import numpy as np
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb import persist
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.replication import (
+        ReplicationHub, failover as replfo)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        RelationshipUpdate, parse_relationship)
+
+    on_card = ctx["device"] == "cuda"
+    leader, follower, f_ep = ctx["leader"], ctx["follower"], ctx["f_ep"]
+    repl, subjects, reqs, ops = (follower.replication, ctx["subjects"],
+                                 ctx["reqs"], ctx["ops"])
+    w = ctx["w"]
+    plan = _churn_plan(w, 1 + FAILOVER_ROUNDS + LEAF_ROUNDS, SEED + 20,
+                       tag="f")
+    ctx["fplan"] = plan
+    asyncio.run(repl.sync_once())
+    if repl.store.revision != leader.endpoint.store.revision:
+        raise AssertionError("the follower did not catch up before the kill")
+    # the old leader acknowledges a round of pod creates it never ships
+    unshipped = [wr for wr in plan[0]["writes"]
+                 if wr[0][1].startswith("pod:")][:FAILOVER_UNSHIPPED]
+
+    async def ack():
+        for wr in unshipped:
+            await leader.endpoint.write_relationships(
+                [RelationshipUpdate(ops[o], parse_relationship(r))
+                 for o, r in wr])
+
+    asyncio.run(ack())
+    ctx["unshipped"] = [r for wr in unshipped for _, r in wr]
+    shipped = repl.store.revision
+    # the kill: the tail and the write forwarding both lose the leader
+    repl.transport = follower._leader_transport = _DeadLink()
+    follower.opts.promote_data_dir = os.path.join(ctx["tmp"], "promote")
+    follower.opts.wal_fsync = "always"
+    stats0 = dict(f_ep.stats)
+    split: dict = {}
+    admin = follower.get_embedded_client(user="admin",
+                                         groups=["system:masters"])
+    first = plan[1]
+    writes = _durable_writes(first, FAILOVER_ROUND_WRITES)
+
+    async def promote():
+        t = time.perf_counter()
+        resp = await admin.post("/replication/promote", {})
+        t_resp = time.perf_counter()
+        await f_ep.write_relationships(
+            [RelationshipUpdate(ops[o], parse_relationship(r))
+             for o, r in writes[0]])
+        return resp, t_resp - t, time.perf_counter() - t
+
+    manager = persist.PersistenceManager
+    with _timed_attr(replfo, "mint_promotion_incarnation", split, "mint"), \
+            _timed_attr(persist, "PersistenceManager", split, "open"), \
+            _timed_attr(manager, "attach", split, "attach"), \
+            _timed_attr(manager, "checkpoint", split, "checkpoint"), \
+            _timed_attr(ReplicationHub, "attach", split, "hub"):
+        resp, t_promote, t_first = asyncio.run(promote())
+    if resp.status != 200:
+        raise AssertionError(f"promotion answered {resp.status}: "
+                             f"{resp.body[:300]!r}")
+    info = json.loads(resp.body)
+    if (follower.replication is not None or follower.replication_hub is None
+            or info["revision"] != shipped
+            or info["incarnation"] != leader.replication_hub.incarnation + 2):
+        raise AssertionError(f"promotion {info}, shipped {shipped}")
+    ctx.update(promoted=follower, p_ep=f_ep, info=info)
+    lat = []
+    launches: dict = {}
+    raw = []
+    look = chk = None
+
+    async def rounds():
+        nonlocal look, chk
+        for n, rnd in enumerate(plan[1:1 + FAILOVER_ROUNDS]):
+            for wr in _durable_writes(rnd, FAILOVER_ROUND_WRITES)[
+                    1 if n == 0 else 0:]:
+                t = time.perf_counter()
+                await f_ep.write_relationships(
+                    [RelationshipUpdate(ops[o], parse_relationship(r))
+                     for o, r in wr])
+                lat.append(time.perf_counter() - t)
+            f_ep.wait_rebuilds()
+            l0 = dict(kernels.LAUNCHES)
+            t = time.perf_counter()
+            look = await f_ep.lookup_resources_batch("pod", "view", subjects)
+            if on_card:
+                torch.cuda.synchronize()
+            raw.append(time.perf_counter() - t)
+            chk = await f_ep.check_bulk_permissions(reqs)
+            _add(launches, _launch_delta(l0))
+
+    t0 = time.perf_counter()
+    asyncio.run(rounds())
+    t1 = time.perf_counter()
+    f_ep.wait_rebuilds()
+    d = {k: f_ep.stats[k] - stats0[k] for k in
+         ("rebuilds", "bg_rebuilds", "preemptive_rebuilds", "stale_routed",
+          "delta_batches")}
+    if d["rebuilds"] or d["bg_rebuilds"] or d["preemptive_rebuilds"] \
+            or d["stale_routed"]:
+        raise AssertionError(f"the promoted node rebuilt or went to the "
+                             f"oracle: {d}")
+    _require_launches(launches, READ_KERNELS + ("scatter_rows",),
+                      "on the promoted node")
+    sample = _oracle_sample(f_ep, subjects, reqs, look, chk,
+                            np.random.default_rng(SEED + 20),
+                            "the promoted node")
+    t2 = time.perf_counter()
+    log(f"phase 20 (a): leader killed {len(unshipped)} acknowledged, "
+        f"unshipped writes past shipped revision {shipped}; POST "
+        f"/replication/promote {t_promote:.4f} s (epoch mint "
+        f"{split['mint']:.4f} s, persistence open {split['open']:.4f} s, "
+        f"attach {split['attach']:.4f} s, anchor checkpoint "
+        f"{split['checkpoint']:.4f} s, hub attach {split['hub']:.6f} s) "
+        f"to incarnation {info['incarnation']} at revision "
+        f"{info['revision']}; promotion to the first acknowledged write "
+        f"{t_first:.4f} s ({ctx['smi_line']})")
+    log(f"phase 20 (a) {FAILOVER_ROUNDS} rounds of {FAILOVER_ROUND_WRITES} "
+        f"writes on the promoted node in {t1 - t0:.3f} s, per write "
+        f"(journaled, wal_fsync='always') {_pcts(lat)}, max "
+        f"{max(lat) * 1e3:.3f} ms; read-after-write lookup batch median "
+        f"{statistics.median(raw):.4f} s; counters {d}; launches "
+        f"{launches}; {sample} ({t2 - t1:.1f} s)")
+    return launches
+
+
+def _failover_rejoin(ctx: dict) -> dict:
+    """Phase 20 (b): the old leader comes back fenced and rejoins."""
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.replication import (
+        INCARNATION_HEADER, LEADER_ID_HEADER, ReplicaFollower,
+        failover as replfo)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        parse_relationship)
+
+    on_card = ctx["device"] == "cuda"
+    old, promoted = ctx["leader"], ctx["promoted"]
+    o_ep, p_ep, subjects, reqs = (ctx["ep"], ctx["p_ep"], ctx["subjects"],
+                                  ctx["reqs"])
+    hub = promoted.replication_hub
+    # the partition heals: a follower's poll carries the new incarnation
+    poll = asyncio.run(old.get_embedded_client(user="system:replica").get(
+        "/replication/manifest", headers=[
+            (INCARNATION_HEADER, str(hub.incarnation)),
+            (LEADER_ID_HEADER, hub.leader_id)]))
+    fenced = old.replication_hub.fenced_by
+    if poll.status != 200 or fenced is None \
+            or fenced["incarnation"] != hub.incarnation:
+        raise AssertionError(f"the old leader was not fenced: {fenced}")
+    write = asyncio.run(old.get_embedded_client(user=ctx["users"][0]).post(
+        f"/api/v1/namespaces/{ctx['home'][0]}/pods",
+        {"apiVersion": "v1", "kind": "Pod",
+         "metadata": {"name": "fenced-0", "namespace": ctx["home"][0]}}))
+    read = asyncio.run(old.get_embedded_client(user=ctx["users"][0]).get(
+        f"/api/v1/namespaces/{ctx['home'][0]}/pods"))
+    if write.status != 503 or b"superseded" not in write.body \
+            or read.status != 200:
+        raise AssertionError(f"fenced old leader: write {write.status}, "
+                             f"read {read.status}")
+    old_rev = old.endpoint.store.revision
+    rebuilds0 = o_ep.stats["rebuilds"]
+    split: dict = {}
+    syncs = []
+    sync_once = ReplicaFollower.sync_once
+
+    async def timed_sync(self, *a, **k):
+        t = time.perf_counter()
+        try:
+            return await sync_once(self, *a, **k)
+        finally:
+            syncs.append(time.perf_counter() - t)
+
+    ReplicaFollower.sync_once = timed_sync
+    try:
+        with _timed_attr(replfo, "collect_unshipped_tail", split, "tail"), \
+                _timed_attr(replfo, "_peer_json", split, "peer"):
+            t0 = time.perf_counter()
+            res = asyncio.run(replfo.demote_and_rejoin(
+                old, "http://promoted.smoke", _LeaderLink(promoted)))
+            t1 = time.perf_counter()
+    finally:
+        ReplicaFollower.sync_once = sync_once
+    n_tail = len(ctx["unshipped"])
+    if (res["replayed"] != n_tail or res["skipped_records"]
+            or res["reclaimed_window"] or old.replication_hub is not None
+            or old.replication is None):
+        raise AssertionError(f"rejoin {res}, {n_tail} unshipped updates")
+    if old.endpoint.store.revision != p_ep.store.revision:
+        raise AssertionError(f"rejoined at {old.endpoint.store.revision}, "
+                             f"the new leader at {p_ep.store.revision}")
+    # zero lost: the old leader's unshipped creates and the promoted
+    # node's writes (each tuple's last op) hold on both nodes
+    last: dict = {}
+    for rnd in ctx["fplan"][1:1 + FAILOVER_ROUNDS]:
+        for wr in _durable_writes(rnd, FAILOVER_ROUND_WRITES):
+            for o, r in wr:
+                last[r] = o
+    for r in ctx["unshipped"]:
+        last[r] = "touch"
+    for store, who in ((old.endpoint.store, "rejoined node"),
+                       (p_ep.store, "new leader")):
+        lost = [r for r, o in last.items()
+                if store.has_exact(parse_relationship(r)) != (o == "touch")]
+        if lost:
+            raise AssertionError(f"{len(lost)} acknowledged writes lost on "
+                                 f"the {who}: {lost[:3]}")
+    l0 = dict(kernels.LAUNCHES)
+    t2 = time.perf_counter()
+    got = asyncio.run(o_ep.lookup_resources_batch("pod", "view", subjects))
+    if on_card:
+        torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    again = asyncio.run(o_ep.lookup_resources_batch("pod", "view", subjects))
+    if on_card:
+        torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    got_c = asyncio.run(o_ep.check_bulk_permissions(reqs))
+    launches = _launch_delta(l0)
+    want = asyncio.run(p_ep.lookup_resources_batch("pod", "view", subjects))
+    want_c = asyncio.run(p_ep.check_bulk_permissions(reqs))
+    if ([sorted(x) for x in got] != [sorted(x) for x in want]
+            or [sorted(x) for x in again] != [sorted(x) for x in want]
+            or [c.allowed for c in got_c] != [c.allowed for c in want_c]):
+        raise AssertionError("the rejoined node's batches differ from the "
+                             "new leader's")
+    if o_ep.stats["rebuilds"] != rebuilds0 + 1 or o_ep.stats["stale_routed"]:
+        raise AssertionError(f"the reset made "
+                             f"{o_ep.stats['rebuilds'] - rebuilds0} "
+                             f"rebuilds, {o_ep.stats['stale_routed']} "
+                             f"oracle reads")
+    _require_launches(launches, READ_KERNELS, "on the rejoined node")
+    reset_s = syncs[0] if syncs else float("nan")
+    log(f"phase 20 (b) old leader (incarnation "
+        f"{ctx['info']['incarnation'] - 2}, revision {old_rev}) fenced by a "
+        f"poll: its create answered {write.status}, its list "
+        f"{read.status}; demote_and_rejoin {t1 - t0:.3f} s (tail "
+        f"collection {split['tail']:.4f} s, reset from the new leader's "
+        f"checkpoint {reset_s:.3f} s, replay of {res['replayed']} updates "
+        f"{split['peer']:.4f} s incl. the manifest probe, catch-up "
+        f"{sum(syncs[1:]):.4f} s); revision {old.endpoint.store.revision} "
+        f"on both, {len(last)} acknowledged tuples held, none lost; first "
+        f"read after the reset (a synchronous graph rebuild on "
+        f"{o_ep.device} and the batch) {t3 - t2:.4f} s, the next "
+        f"{t4 - t3:.4f} s; launches {launches} ({ctx['smi_line']})")
+    return launches
+
+
+def _failover_chain(ctx: dict) -> dict:
+    """Phase 20 (c): the rejoined node relays the log to a leaf."""
+    import numpy as np
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.config import proxyrule
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.httpcore import (
+        HandlerTransport)
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.server import (
+        Options, ProxyServer)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import Bootstrap
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.replication import (
+        failover as replfo)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        RelationshipUpdate, parse_relationship)
+
+    on_card = ctx["device"] == "cuda"
+    relay, promoted, p_ep = ctx["leader"], ctx["promoted"], ctx["p_ep"]
+    subjects, reqs, ops, w = (ctx["subjects"], ctx["reqs"], ctx["ops"],
+                              ctx["w"])
+    mirror = os.path.join(ctx["tmp"], "mirror")
+    # the rejoined node serves replication: a relay over a mirror of
+    # what it applies, filled by its re-bootstrap against the new leader
+    relay.opts.serve_replication = True
+    relay.fanout_hub = replfo.FanoutHub(relay.replication, mirror)
+    t0 = time.perf_counter()
+    relay.replication.repoint(relay._leader_transport,
+                              relay.opts.replicate_from)
+    asyncio.run(relay.replication.sync_once())
+    t1 = time.perf_counter()
+    leaf = ProxyServer(Options(
+        spicedb_endpoint=ctx["url"],
+        rule_configs=[proxyrule.parse_doc(d) for d in PROXY_READ_RULES],
+        bootstrap=Bootstrap(w.schema_text),
+        upstream_transport=HandlerTransport(ctx["kube"]),
+        prewarm_compiles=True, replicate_from="http://relay.smoke",
+        leader_transport=_LeaderLink(relay), replica_id="leaf"))
+    lrepl, leaf_ep = leaf.replication, _bare(leaf)
+    asyncio.run(lrepl.sync_once())
+    t2 = time.perf_counter()
+    asyncio.run(leaf.warm_start())
+    t3 = time.perf_counter()
+    if (lrepl.store.revision != p_ep.store.revision
+            or lrepl.upstream_chain["path"][-1] != relay.replica_id):
+        raise AssertionError(f"leaf at {lrepl.store.revision} via "
+                             f"{lrepl.upstream_chain}")
+    warm = []
+    for _ in range(N_WARM):
+        t = time.perf_counter()
+        asyncio.run(leaf_ep.lookup_resources_batch("pod", "view", subjects))
+        if on_card:
+            torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t)
+    warm_med = statistics.median(warm)
+    commit_t, relay_t, leaf_t = {}, {}, {}
+
+    def on_commit(kind, revision, payload):
+        commit_t[revision] = time.perf_counter()
+
+    def timed(store, into):
+        apply = store.apply_replica_batch
+
+        def wrapped(updates):
+            rev = apply(updates)
+            into[rev] = time.perf_counter()
+            return rev
+        store.apply_replica_batch = wrapped
+
+    p_ep.store.add_commit_listener(on_commit)
+    timed(relay.replication.store, relay_t)
+    timed(lrepl.store, leaf_t)
+    launches: dict = {}
+    raw = []
+    look = chk = None
+
+    async def rounds():
+        nonlocal look, chk
+        relay.replication.start()
+        lrepl.start()
+        try:
+            for rnd in ctx["fplan"][1 + FAILOVER_ROUNDS:]:
+                for wr in _durable_writes(rnd, FAILOVER_ROUND_WRITES):
+                    await p_ep.write_relationships(
+                        [RelationshipUpdate(ops[o], parse_relationship(r))
+                         for o, r in wr])
+                rev = p_ep.store.revision
+                if not await lrepl.wait_for_revision(rev, 60.0):
+                    raise AssertionError(f"the leaf never reached revision "
+                                         f"{rev}")
+                leaf_ep.wait_rebuilds()
+                l0 = dict(kernels.LAUNCHES)
+                t = time.perf_counter()
+                look = await leaf_ep.lookup_resources_batch("pod", "view",
+                                                            subjects)
+                if on_card:
+                    torch.cuda.synchronize()
+                raw.append(time.perf_counter() - t)
+                chk = await leaf_ep.check_bulk_permissions(reqs)
+                _add(launches, _launch_delta(l0))
+                want = await p_ep.lookup_resources_batch("pod", "view",
+                                                         subjects)
+                if [sorted(x) for x in look] != [sorted(x) for x in want]:
+                    raise AssertionError(f"the leaf's lookup batch differs "
+                                         f"from the leader's at {rev}")
+        finally:
+            await lrepl.stop()
+            await relay.replication.stop()
+
+    t4 = time.perf_counter()
+    asyncio.run(rounds())
+    t5 = time.perf_counter()
+    p_ep.store.remove_commit_listener(on_commit)
+    del relay.replication.store.apply_replica_batch
+    del lrepl.store.apply_replica_batch
+    hop1 = [relay_t[r] - commit_t[r] for r in commit_t if r in relay_t]
+    hop2 = [leaf_t[r] - relay_t[r] for r in relay_t if r in leaf_t]
+    chain = [leaf_t[r] - commit_t[r] for r in commit_t if r in leaf_t]
+    if not chain or len(chain) != len(hop1):
+        raise AssertionError(f"{len(chain)} of {len(commit_t)} commits "
+                             f"reached the leaf")
+    _require_launches(launches, READ_KERNELS + ("scatter_rows",),
+                      "on the leaf")
+    if leaf_ep.stats["stale_routed"]:
+        raise AssertionError("leaf reads went to the oracle")
+    sample = _oracle_sample(leaf_ep, subjects, reqs, look, chk,
+                            np.random.default_rng(SEED + 21), "the leaf")
+    raw_med = statistics.median(raw)
+    mirrored = relay.replication.stats["mirrored_bytes"]
+    log(f"phase 20 (c) relay re-bootstrap into its mirror {t1 - t0:.3f} s "
+        f"({mirrored} bytes mirrored); leaf bootstrap from the relay "
+        f"{t2 - t1:.3f} s, graph build with prewarm {t3 - t2:.3f} s; "
+        f"{LEAF_ROUNDS} rounds of {FAILOVER_ROUND_WRITES} writes on the "
+        f"leader in {t5 - t4:.1f} s: lag leader->relay {_pcts(hop1)}, "
+        f"relay->leaf {_pcts(hop2)}, leader->leaf {_pcts(chain)}, max "
+        f"{max(chain) * 1e3:.3f} ms over {len(chain)} commits; leaf "
+        f"read-after-write lookup batch median {raw_med:.4f} s vs its warm "
+        f"median {warm_med:.4f} s ({raw_med / warm_med:.3f}x; printed, not "
+        f"enforced); {sample}; path {lrepl.upstream_chain['path'][1:]}; "
+        f"launches {launches} ({ctx['smi_line']})")
+    return launches
+
+
+def _failover_election(ctx: dict) -> None:
+    """Phase 20 (d): the leader-loss watchdog's election, on a small
+    multitenant store (host logic: the card serves each node's reads)."""
+    import shutil
+    import tempfile
+
+    from spicedb_kubeapi_proxy_tpu_torch.config import proxyrule
+    from spicedb_kubeapi_proxy_tpu_torch.kubefake.apiserver import (
+        FakeKubeApiServer)
+    from spicedb_kubeapi_proxy_tpu_torch.models import workloads
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.httpcore import (
+        HandlerTransport)
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.server import (
+        Options, ProxyServer)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import Bootstrap
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        RelationshipUpdate, UpdateOp, parse_relationship)
+
+    small = workloads.multitenant_1m(**ELECTION_WORKLOAD)
+    tmp = tempfile.mkdtemp(prefix="smoke-election-")
+    kube = FakeKubeApiServer()
+    rules = [proxyrule.parse_doc(d) for d in PROXY_READ_RULES]
+    common = dict(spicedb_endpoint=ctx["url"], rule_configs=rules,
+                  upstream_transport=HandlerTransport(kube))
+    leader = ProxyServer(Options(
+        bootstrap=Bootstrap(small.schema_text,
+                            "\n".join(small.relationships)),
+        data_dir=os.path.join(tmp, "leader"), wal_fsync="always", **common))
+    links = {u: _LeaderLink(None) for u in ("http://a.smoke",
+                                            "http://b.smoke")}
+    nodes = {}
+    for me, peer in (("a", "b"), ("b", "a")):
+        nodes[me] = ProxyServer(Options(
+            bootstrap=Bootstrap(small.schema_text),
+            replicate_from="http://leader.smoke",
+            leader_transport=_LeaderLink(leader), replica_id=f"node-{me}",
+            promote_data_dir=os.path.join(tmp, f"p{me}"),
+            promote_on_leader_loss=True,
+            leader_loss_grace_s=ELECTION_GRACE_S,
+            replica_peers=[f"http://{peer}.smoke"],
+            peer_transports={f"http://{peer}.smoke":
+                             links[f"http://{peer}.smoke"]},
+            **common))
+    for me in ("a", "b"):
+        links[f"http://{me}.smoke"].proxy = nodes[me]
+    a, b = nodes["a"], nodes["b"]
+    users = small.subjects[:8]
+
+    async def go():
+        kube._lock = asyncio.Lock()
+        await leader.start()
+        await a.start()
+        await b.start()
+        try:
+            for i in range(ELECTION_WRITES):
+                await leader.endpoint.write_relationships([RelationshipUpdate(
+                    UpdateOp.TOUCH, parse_relationship(
+                        f"namespace:ns{i % 50}#viewer@user:{users[i % 8]}"))])
+            rev = leader.endpoint.store.revision
+            for n in (a, b):
+                if not await n.replication.wait_for_revision(rev, 30.0):
+                    raise AssertionError("a follower never caught up")
+            # b falls behind: its tail pauses while a keeps tailing
+            await b.replication.stop()
+            for i in range(ELECTION_WRITES):
+                await leader.endpoint.write_relationships([RelationshipUpdate(
+                    UpdateOp.TOUCH, parse_relationship(
+                        f"namespace:ns{50 + i % 50}#viewer@user:"
+                        f"{users[i % 8]}"))])
+            rev = leader.endpoint.store.revision
+            if not await a.replication.wait_for_revision(rev, 30.0):
+                raise AssertionError("a never caught up")
+            revs = (a.replication.store.revision,
+                    b.replication.store.revision)
+            # the kill
+            t0 = time.perf_counter()
+            for n in (a, b):
+                n.replication.transport = n._leader_transport = _DeadLink()
+            b.replication.start()
+            window = a.opts.flight_window_s
+            t_a = t_b = None
+            while time.perf_counter() - t0 < window:
+                if t_a is None and a.replication_hub is not None:
+                    t_a = time.perf_counter() - t0
+                if (t_b is None and b.replication is not None
+                        and b.opts.replicate_from == "http://a.smoke"):
+                    t_b = time.perf_counter() - t0
+                if t_a is not None and t_b is not None:
+                    break
+                await asyncio.sleep(0.02)
+            if t_a is None or t_b is None or b.replication_hub is not None:
+                raise AssertionError(
+                    f"no failover within the {window} s flight window: a "
+                    f"{a._debug_replication()}, b {b._debug_replication()}")
+            rev = await a.endpoint.write_relationships([RelationshipUpdate(
+                UpdateOp.TOUCH, parse_relationship(
+                    f"namespace:ns0#viewer@user:{users[0]}"))])
+            if not await b.replication.wait_for_revision(rev, 30.0):
+                raise AssertionError("the loser never followed the winner")
+            t_sync = time.perf_counter() - t0
+            return revs, t_a, t_b, t_sync, dict(a._watchdog.stats), \
+                dict(b._watchdog.stats)
+        finally:
+            for n in (b, a, leader):
+                await n.stop()
+
+    try:
+        revs, t_a, t_b, t_sync, wa, wb = asyncio.run(go())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 20 (d) election over replica_peers on a "
+        f"{len(small.relationships)}-tuple store, grace "
+        f"{ELECTION_GRACE_S} s: node-a at revision {revs[0]} beat node-b at "
+        f"{revs[1]}; leader loss to node-a writable {t_a:.3f} s, node-b "
+        f"repointed to it {t_b:.3f} s, both within the "
+        f"{a.opts.flight_window_s} s flight window; node-b held node-a's "
+        f"next write {t_sync:.3f} s after the loss; watchdogs a {wa}, "
+        f"b {wb} ({ctx['smi_line']})")
 def cli_crash(smi_line: str, device: str = "cuda") -> None:
     """Phase 19 (c): `python3 -m spicedb_kubeapi_proxy_tpu_torch
     --data-dir D --wal-fsync always` on deploy/'s files, as phase 17 (b)
@@ -6870,12 +7545,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_s["18"] = time.perf_counter() - t_ph
 
-    # 19. the durable store and read replication, on phase 16's fake
-    t_ph = time.perf_counter()
-    durable = durable_path(w, proxy.pop("kube"), smi_line)
+    # 19. the durable store and read replication, on phase 16's fake,
+    # then 20, leader failover on its leader and follower
+    durable = durable_path(w, proxy.pop("kube"), smi_line, failover=True)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_s["19"] = time.perf_counter() - t_ph
+    phase_s.update(durable["phase_s"])
     t_ph = time.perf_counter()
     cli_process(smi_line)
     phase_s["17b"] = time.perf_counter() - t_ph
@@ -6949,6 +7624,10 @@ def main() -> int:
     # phase 19 (d): the follower's launches over its replicated rounds
     for kname in rows:
         rows[kname]["follower_launches"] = durable["launches"].get(kname, 0)
+    # phase 20 (a)-(c): the promoted, rejoined and leaf nodes' launches
+    for kname in rows:
+        rows[kname]["failover_launches"] = durable["failover"][
+            "launches"].get(kname, 0)
     for kname, also in REPLACES_ALSO.items():
         rows[kname]["replaces_also"] = also
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}"

@@ -30,16 +30,19 @@ data dir serves its log to read replicas; `--replicate-from` makes this
 proxy such a replica (`--replica-wait-ms`, `--[no-]replica-forward`,
 `--replica-user`, `--shed-replica-lag`, `--replica-id`).  The data dir's
 format is the reference's, so a deployment moves between `jax://` and
-`torch://` on the same volume.
+`torch://` on the same volume.  Failover: a replica with
+`--promote-data-dir` can be promoted to leader (`POST
+/replication/promote`, or by election with `--promote-on-leader-loss`,
+`--leader-loss-grace` and `--replica-peers`); a leader given
+`--replica-peers` probes them and steps down when a newer incarnation
+leads; `--serve-replication` (with `--replication-mirror-dir`) makes a
+replica relay the log to further replicas.
 
 Flags of features the port has not ported are not in the parser, so
 argparse refuses them (exit 2), each with the ROADMAP Queue 1 item that
-brings it back: the failover flags `--serve-replication`,
-`--replication-mirror-dir`, `--promote-data-dir`,
-`--promote-on-leader-loss`, `--leader-loss-grace` and `--replica-peers`
-(item 9b); `--shards`, `--partition-map`, the `--shard-leaders` router
-and `--lint-schema[-strict|-json]` (item 9c, sharding with the schema
-linter); the gRPC connection flags `--spicedb-insecure`,
+brings it back: `--shards`, `--partition-map`, the `--shard-leaders`
+router and `--lint-schema[-strict|-json]` (item 9c, sharding with the
+schema linter); the gRPC connection flags `--spicedb-insecure`,
 `--spicedb-skip-verify-ca`, `--spicedb-token` and `--spicedb-ca-path`
 (item 9d, the remote endpoint); `--fleet-peers` (item 9e, the fleet
 plane).
@@ -193,9 +196,45 @@ def build_parser() -> argparse.ArgumentParser:
                         "seconds behind its leader (0 = disabled); a "
                         "stale replica sheds before serving stale "
                         "answers")
+    # failover (spicedb/replication/failover.py)
+    p.add_argument("--serve-replication", action="store_true",
+                   help="this replica also serves /replication/* from "
+                        "a byte mirror of what it applies, so further "
+                        "replicas chain off it (fan-out trees) instead "
+                        "of all tailing one leader; requires "
+                        "--replicate-from")
+    p.add_argument("--replication-mirror-dir", default="",
+                   help="directory for the --serve-replication artifact "
+                        "mirror (default: a private temp dir)")
+    p.add_argument("--promote-data-dir", default="",
+                   help="data dir this replica will own if promoted to "
+                        "leader (POST /replication/promote or "
+                        "--promote-on-leader-loss); its WAL and "
+                        "checkpoints are wiped at promotion, only the "
+                        "incarnation epoch persists across promotions")
+    p.add_argument("--promote-on-leader-loss", action="store_true",
+                   help="watchdog: after --leader-loss-grace seconds "
+                        "without a successful sync, poll "
+                        "--replica-peers and run the election (highest "
+                        "adopted revision wins, ties break on the "
+                        "smallest --replica-id); the winner promotes "
+                        "itself, the losers repoint to it.  Requires "
+                        "--promote-data-dir")
+    p.add_argument("--leader-loss-grace", type=float, default=5.0,
+                   help="seconds without a successful sync before the "
+                        "leader-loss watchdog starts an election; keep "
+                        "it well under one flight window so failover "
+                        "completes inside it")
+    p.add_argument("--replica-peers", default="",
+                   help="comma-separated base URLs of the other proxies "
+                        "of the deployment: election candidates for a "
+                        "replica, fence probes for a (possibly "
+                        "resurrected) leader")
     p.add_argument("--replica-id", default="",
-                   help="this proxy's identity in /debug/replication "
-                        "(default: minted per process)")
+                   help="stable identity in elections, "
+                        "/replication/status and /debug/replication "
+                        "(default: minted per process); the election "
+                        "tie-break orders on it")
 
     # upstream cluster (options.go:203-206)
     p.add_argument("--backend-kubeconfig", default="",
@@ -425,6 +464,25 @@ def validate(args: argparse.Namespace) -> list:
             errs.append("--replicate-from must be an http(s) base URL")
     if args.replica_wait_ms < 0:
         errs.append("--replica-wait-ms must be >= 0")
+    if args.serve_replication and not args.replicate_from:
+        errs.append("--serve-replication only applies to a replica "
+                    "(--replicate-from); a leader always serves "
+                    "/replication/* with a --data-dir")
+    if args.promote_on_leader_loss and not args.replicate_from:
+        errs.append("--promote-on-leader-loss only applies to a replica "
+                    "(--replicate-from)")
+    if args.promote_on_leader_loss and not args.promote_data_dir:
+        errs.append("--promote-on-leader-loss needs --promote-data-dir "
+                    "(the data dir a promoted leader will own)")
+    if args.promote_data_dir and not args.replicate_from:
+        errs.append("--promote-data-dir only applies to a replica "
+                    "(--replicate-from)")
+    if args.leader_loss_grace <= 0:
+        errs.append("--leader-loss-grace must be > 0")
+    for peer in (u.strip() for u in args.replica_peers.split(",")):
+        if peer and not peer.startswith(("http://", "https://")):
+            errs.append(f"--replica-peers entry {peer!r} must be an "
+                        f"http(s) base URL")
     if args.shed_replica_lag < 0:
         errs.append("--shed-replica-lag must be >= 0 (0 = disabled)")
     if args.shed_replica_lag > 0 and not args.replicate_from:
@@ -593,6 +651,13 @@ def complete(args: argparse.Namespace,
         replica_forward=args.replica_forward,
         replica_user=args.replica_user,
         shed_replica_lag_s=args.shed_replica_lag,
+        serve_replication=args.serve_replication,
+        mirror_dir=args.replication_mirror_dir,
+        promote_data_dir=args.promote_data_dir,
+        promote_on_leader_loss=args.promote_on_leader_loss,
+        leader_loss_grace_s=args.leader_loss_grace,
+        replica_peers=[u.strip() for u in args.replica_peers.split(",")
+                       if u.strip()],
         replica_id=args.replica_id,
     )
     return CompletedConfig(server_options=server_options,

@@ -32,13 +32,23 @@ serving reads at bounded staleness (`X-Authz-Min-Revision` waits, then
 forwards or answers 503) and forwarding update verbs to the leader.
 `/debug/replication` shows either role.
 
+Failover (spicedb/replication/failover.py): a follower with
+`promote_data_dir` is promoted by `POST /replication/promote` or, with
+`promote_on_leader_loss`, by the election its leader-loss watchdog runs
+over `replica_peers` (`/replication/status` is the vote); a leader with
+peers probes them for a newer incarnation at start and then
+periodically, and a fenced ex-leader demotes itself into a follower of
+the new leader and replays its unshipped WAL tail through
+`POST /replication/rejoin`.  With `serve_replication` a follower relays
+the log it applies from a byte mirror (`mirror_dir`), so further
+followers chain off it.  The promoted and the rejoined proxy keep their
+endpoint: the device graph follows the store through its delta and
+reset listeners.
+
 Left out against the reference, each with its `Options` fields (passing
-one is a TypeError): failover (`serve_replication`, `mirror_dir`,
-`promote_data_dir`, `promote_on_leader_loss`, `leader_loss_grace_s`,
-`replica_peers`, `peer_transports`; ROADMAP Queue 1 item 9b), sharding
-(`shards`, `partition_map`; item 9c) and fleet tracing (`fleet_peers`;
-item 9e), with their /debug surfaces (`sharding`, `fleet`, `tail`) and
-the `/replication/status`, `/promote` and `/rejoin` routes.
+one is a TypeError): sharding (`shards`, `partition_map`; ROADMAP Queue
+1 item 9c) and fleet tracing (`fleet_peers`; item 9e), with their /debug
+surfaces (`sharding`, `fleet`, `tail`).
 """
 
 from __future__ import annotations
@@ -254,8 +264,28 @@ class Options:
     # transport seam to the leader (tests inject an in-process
     # HandlerTransport); None = H11Transport(replicate_from)
     leader_transport: Optional[Transport] = None
-    # this proxy's identity in /debug/replication (minted per process
-    # when empty)
+    # failover (spicedb/replication/failover.py).  serve_replication:
+    # this FOLLOWER also serves /replication/* from a byte mirror of what
+    # it applies, so further followers chain off it (fan-out trees).
+    # promote_data_dir: the data dir this follower owns once promoted
+    # (needed by /replication/promote and promote_on_leader_loss).
+    # promote_on_leader_loss: a watchdog that detects a dead upstream
+    # and runs the election (highest adopted revision wins, ties break
+    # on the smallest replica id) over replica_peers, the base URLs of
+    # the other proxies: election candidates for a follower, fence
+    # probes for a (possibly resurrected) leader
+    serve_replication: bool = False
+    mirror_dir: str = ""  # "" with serve_replication => private tempdir
+    promote_data_dir: str = ""
+    promote_on_leader_loss: bool = False
+    leader_loss_grace_s: float = 5.0
+    replica_peers: list = field(default_factory=list)
+    # transport seam: url -> Transport for peer status probes and
+    # repoints; unlisted peers dial HTTP
+    peer_transports: Optional[dict] = None
+    # this proxy's identity in elections, /replication/status and
+    # /debug/replication (minted per process when empty); the election
+    # tie-break orders on it
     replica_id: str = ""
 
 
@@ -295,7 +325,13 @@ class ProxyServer:
         # exactly single-node.
         self.replication = None        # ReplicaFollower (follower mode)
         self.replication_hub = None    # ReplicationHub (leader mode)
+        self.fanout_hub = None         # FanoutHub (follower fan-out)
         self._leader_transport: Optional[Transport] = None
+        # failover (spicedb/replication/failover.py)
+        self._watchdog = None          # LeaderLossWatchdog (follower)
+        self._fence_monitor = None     # FenceMonitor (leader)
+        self._promote_lock = asyncio.Lock()
+        self._peer_transport_cache: dict = {}
         self.replica_id = (opts.replica_id
                            or f"replica-{os.getpid()}-{uuid.uuid4().hex[:8]}")
         if self.persistence is not None and repl.enabled():
@@ -330,6 +366,15 @@ class ProxyServer:
                 identity=opts.replica_user,
                 replica_id=self.replica_id,
                 upstream_url=opts.replicate_from)
+            if opts.serve_replication:
+                # fan-out tree: this follower also serves /replication/*
+                # from a byte mirror of what it applies
+                import tempfile
+                from ..spicedb.replication import failover as replfo
+                mirror = (opts.mirror_dir or tempfile.mkdtemp(
+                    prefix="authz-replication-mirror-"))
+                self.fanout_hub = replfo.FanoutHub(self.replication,
+                                                   mirror)
         elif opts.replicate_from:
             logger.info("replicate_from %r set but the Replication switch "
                         "is off; running single-node", opts.replicate_from)
@@ -565,9 +610,18 @@ class ProxyServer:
 
     def _debug_replication(self) -> dict:
         if self.replication_hub is not None:
-            return self.replication_hub.snapshot()
+            out = self.replication_hub.snapshot()
+            if self._fence_monitor is not None:
+                out["fence_monitor"] = dict(self._fence_monitor.stats)
+            return out
         if self.replication is not None:
-            return self.replication.snapshot()
+            out = self.replication.snapshot()
+            if self.fanout_hub is not None:
+                out["fanout"] = self.fanout_hub.snapshot()
+            if self._watchdog is not None:
+                out["watchdog"] = dict(self._watchdog.stats,
+                                       grace_s=self._watchdog.grace_s)
+            return out
         return {"enabled": False,
                 "reason": ("Replication feature gate disabled"
                            if not repl.enabled() else
@@ -598,13 +652,15 @@ class ProxyServer:
     # -- replication serving (spicedb/replication) ---------------------------
 
     async def _serve_replication(self, req: Request) -> Response:
-        """Replication API (authenticated, like /metrics): manifest,
-        segment and checkpoint bytes from the leader hub.  A proxy that
-        is no leader — a follower, a proxy without a data dir, or any
-        proxy with the REPLICATION switch off — answers 503 exactly as
-        a single-node proxy always has."""
-        hub = self.replication_hub
-        if hub is None:
+        """Replication API (authenticated, like /metrics): manifest /
+        segment / checkpoint bytes from the leader hub or a follower's
+        fan-out hub, plus the failover control surface (status /
+        promote / rejoin).  A proxy with no replication role at all —
+        including the REPLICATION switch off — answers 503 exactly as a
+        single-node proxy always has."""
+        path = req.path
+        if (self.replication_hub is None and self.fanout_hub is None
+                and self.replication is None):
             return json_response(503, {
                 "kind": "Status", "apiVersion": "v1", "metadata": {},
                 "status": "Failure", "code": 503,
@@ -612,7 +668,21 @@ class ProxyServer:
                 "message": "replication is not served here: this proxy "
                            "has no durable data dir (--data-dir) or is "
                            "itself a follower"})
-        path = req.path
+        if path == "/replication/status":
+            return json_response(200, self._replication_status())
+        if path == "/replication/promote":
+            return await self._serve_promote(req)
+        if path == "/replication/rejoin":
+            return await self._serve_rejoin(req)
+        hub = self.replication_hub or self.fanout_hub
+        if hub is None:
+            return json_response(503, {
+                "kind": "Status", "apiVersion": "v1", "metadata": {},
+                "status": "Failure", "code": 503,
+                "reason": "ServiceUnavailable",
+                "message": "replication artifacts are not served here: "
+                           "this follower runs without "
+                           "--serve-replication"})
         if path == "/replication/manifest":
             return await hub.serve_manifest(req)
         if path.startswith("/replication/segment/"):
@@ -624,7 +694,161 @@ class ProxyServer:
             "status": "Failure", "reason": "NotFound", "code": 404,
             "message": f"unknown replication endpoint {path!r}; use "
                        f"/replication/manifest, /replication/segment/"
-                       f"<name>, /replication/checkpoint/<name>"})
+                       f"<name>, /replication/checkpoint/<name>, "
+                       f"/replication/status, /replication/promote, "
+                       f"/replication/rejoin"})
+
+    def _replication_status(self) -> dict:
+        """Election / fence-probe surface: role, incarnation, revision."""
+        if self.replication_hub is not None:
+            hub = self.replication_hub
+            return {"role": "leader", "replica_id": self.replica_id,
+                    "leader_id": hub.leader_id,
+                    "incarnation": hub.incarnation,
+                    "revision": hub.store.revision,
+                    "fenced_by": hub.fenced_by}
+        r = self.replication
+        if r is not None:
+            return {"role": "follower", "replica_id": r.replica_id,
+                    "leader_id": r.max_leader_id or r.leader_id,
+                    "incarnation": r.max_incarnation,
+                    "revision": r.store.revision,
+                    "state": r.state,
+                    "upstream": self.opts.replicate_from,
+                    "serves_replication": self.fanout_hub is not None,
+                    "fenced_by": None}
+        return {"role": "single"}  # pragma: no cover - guarded above
+
+    def _replication_privileged(self, req: Request) -> Optional[Response]:
+        """The mutating failover control endpoints (promote / rejoin)
+        change who takes writes or write tuples directly — unlike the
+        read-only artifact/status surfaces (any authenticated principal,
+        same trust level as /metrics), they require the replication
+        identity (--replica-user) or system:masters.  None = allowed."""
+        user = req.context.get("user")
+        if (user is not None
+                and (user.name == self.opts.replica_user
+                     or "system:masters" in (user.groups or ()))):
+            return None
+        return json_response(403, {
+            "kind": "Status", "apiVersion": "v1", "metadata": {},
+            "status": "Failure", "reason": "Forbidden", "code": 403,
+            "message": f"replication control endpoints require the "
+                       f"replication identity "
+                       f"({self.opts.replica_user!r}) or membership in "
+                       f"system:masters"})
+
+    async def _serve_promote(self, req: Request) -> Response:
+        """POST /replication/promote: promote this follower to leader
+        (spicedb/replication/failover.py)."""
+        denied = self._replication_privileged(req)
+        if denied is not None:
+            return denied
+        if req.method != "POST":
+            return json_response(405, {
+                "kind": "Status", "apiVersion": "v1", "metadata": {},
+                "status": "Failure", "code": 405,
+                "message": "promotion is POST /replication/promote"})
+        from ..spicedb.replication import failover as replfo
+        try:
+            info = await replfo.promote_follower(self)
+        except replfo.PromotionError as e:
+            return json_response(e.status, {
+                "kind": "Status", "apiVersion": "v1", "metadata": {},
+                "status": "Failure", "code": e.status,
+                "reason": ("Conflict" if e.status == 409
+                           else "ServiceUnavailable"),
+                "message": str(e)})
+        return json_response(200, info)
+
+    async def _serve_rejoin(self, req: Request) -> Response:
+        """POST /replication/rejoin: a re-joining ex-leader replays its
+        unshipped WAL tail as a batch of TOUCH/DELETE updates.  Applied
+        through the normal store write path: journaled, watched, and
+        shipped onward to this leader's own followers."""
+        denied = self._replication_privileged(req)
+        if denied is not None:
+            return denied
+        hub = self.replication_hub
+        if hub is None:
+            return json_response(503, {
+                "kind": "Status", "apiVersion": "v1", "metadata": {},
+                "status": "Failure", "code": 503,
+                "reason": "ServiceUnavailable",
+                "message": "rejoin is served by the leader"})
+        if hub.fenced_by is not None:
+            return json_response(409, {
+                "kind": "Status", "apiVersion": "v1", "metadata": {},
+                "status": "Failure", "code": 409, "reason": "Conflict",
+                "message": "this leader is itself fenced by incarnation "
+                           f"{hub.fenced_by['incarnation']}; rejoin "
+                           f"against the newer leader"})
+        if req.method != "POST":
+            return json_response(405, {
+                "kind": "Status", "apiVersion": "v1", "metadata": {},
+                "status": "Failure", "code": 405,
+                "message": "rejoin is POST /replication/rejoin"})
+        from ..spicedb.store import WriteLimitExceededError
+        from ..spicedb.types import (
+            RelationshipUpdate,
+            UpdateOp,
+            parse_relationship,
+        )
+        try:
+            body = json.loads(req.body or b"{}")
+            updates = [
+                RelationshipUpdate(
+                    UpdateOp.DELETE if op == "d" else UpdateOp.TOUCH,
+                    parse_relationship(s))
+                for op, s in body["updates"]]
+        except (KeyError, TypeError, ValueError) as e:
+            return json_response(400, {
+                "kind": "Status", "apiVersion": "v1", "metadata": {},
+                "status": "Failure", "code": 400,
+                "message": f"invalid rejoin payload: {e}"})
+        if not updates:
+            return json_response(200, {"applied": 0,
+                                       "revision": hub.store.revision})
+        try:
+            # the store write journals (WAL append + fsync policy): off
+            # the serving loop like every other store-touching write
+            rev = await asyncio.get_running_loop().run_in_executor(
+                None, hub.store.write, updates)
+        except WriteLimitExceededError as e:
+            return json_response(400, {
+                "kind": "Status", "apiVersion": "v1", "metadata": {},
+                "status": "Failure", "code": 400, "message": str(e)})
+        logger.info("rejoin replay from %s: %d update(s) at revision %d",
+                    body.get("from_leader_id", "?"), len(updates), rev)
+        return json_response(200, {"applied": len(updates),
+                                   "revision": rev})
+
+    def peer_transports(self) -> dict:
+        """url -> Transport for each replica_peers entry (tests inject
+        via Options.peer_transports; real deployments dial HTTP)."""
+        out = {}
+        for url in self.opts.replica_peers:
+            tr = self._peer_transport_cache.get(url)
+            if tr is None:
+                tr = (self.opts.peer_transports or {}).get(url)
+                if tr is None:
+                    from .httpcore import H11Transport
+                    tr = H11Transport(url)
+                self._peer_transport_cache[url] = tr
+            out[url] = tr
+        return out
+
+    def repoint_leader(self, url: str) -> None:
+        """Point this follower (tail + write forwarding) at a different
+        leader — the election loser's path once the winner shows up."""
+        tr = self.peer_transports().get(url)
+        if tr is None:
+            from .httpcore import H11Transport
+            tr = H11Transport(url)
+        self._leader_transport = tr
+        self.opts.replicate_from = url
+        if self.replication is not None:
+            self.replication.repoint(tr, url)
 
     def _leader_unavailable(self, message: str) -> Response:
         return json_response(503, {
@@ -1048,15 +1272,40 @@ class ProxyServer:
         # so the first request after a restart does not absorb it
         if self.persistence is not None or self.opts.prewarm_compiles:
             await self.warm_start()
+        if (self.replication_hub is not None and self.opts.replica_peers
+                and repl.enabled()):
+            # startup fence probe BEFORE the listener opens: a resurrected
+            # ex-leader must not accept a write the fleet won't see.  A
+            # newer incarnation among the peers demotes this process into
+            # a follower of it (its unshipped WAL tail replayed) here
+            from ..spicedb.replication import failover as replfo
+            if self._fence_monitor is None:
+                self._fence_monitor = replfo.FenceMonitor(self)
+            try:
+                await self._fence_monitor.check_once()
+            except Exception:
+                logger.exception("startup fence probe failed; serving "
+                                 "anyway (header-exchange fencing still "
+                                 "guards writes)")
         self._http = HttpServer(self.handler, ssl_context=self.opts.ssl_context)
         bound = await self._http.start(host, port)
         if self.persistence is not None:
             await self.persistence.start()
+        if self._fence_monitor is not None and self.replication_hub is not None:
+            self._fence_monitor.start()
         if self.replication is not None:
             # the follower's tail task: the bootstrap happens inside it,
             # so serving starts at once (/readyz answers 503 until the
             # first checkpoint adoption)
             self.replication.start()
+        if (self.replication is not None
+                and self.opts.promote_on_leader_loss and repl.enabled()):
+            # the leader-loss watchdog: election and self-promotion
+            from ..spicedb.replication import failover as replfo
+            if self._watchdog is None:
+                self._watchdog = replfo.LeaderLossWatchdog(
+                    self, grace_s=self.opts.leader_loss_grace_s)
+            self._watchdog.start()
         if self._worker is not None:
             # the worker's first drain replays dual-write instances left
             # pending by a crash
@@ -1088,8 +1337,14 @@ class ProxyServer:
             await self._lag_probe.stop()
         if self.flight is not None:
             await self.flight.stop()
+        if self._watchdog is not None:
+            await self._watchdog.stop()
+        if self._fence_monitor is not None:
+            await self._fence_monitor.stop()
         if self.replication is not None:
             await self.replication.stop()
+        if self.fanout_hub is not None:
+            self.fanout_hub.close()
         if self.replication_hub is not None:
             self.replication_hub.detach()
         if self.persistence is not None:

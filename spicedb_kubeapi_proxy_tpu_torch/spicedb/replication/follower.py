@@ -27,6 +27,13 @@ a resurrected ex-leader serving a superseded log — raises
 `StaleLeaderError`: the follower refuses to apply it (keeps serving its
 adopted state) rather than re-bootstrap backwards into a fenced log.
 
+Fan-out trees (`--serve-replication`): a follower given a `mirror_dir`
+spools every artifact byte it consumes — checkpoint, segments, sidecars
+— into a data-dir-shaped mirror, which `failover.FanoutHub` serves to
+downstream followers with the SAME protocol the leader speaks.  Chain
+lag is additive: the upstream's manifest carries its own chain lag, and
+this follower's lag gauges report hop + upstream.
+
 The follower never journals: commit listeners do not fire on the
 replica-apply paths, so a follower is free to also be configured with
 its own (independent) observability but never re-ships the leader's log.
@@ -72,7 +79,7 @@ class ReplicationProtocolError(Exception):
 class StaleLeaderError(Exception):
     """The upstream served a manifest from a SUPERSEDED incarnation (a
     resurrected ex-leader).  Never re-bootstrap from it: keep serving
-    the adopted state and wait for the real leader."""
+    the adopted state and wait for a repoint / the real leader."""
 
 
 # switch off = no follower exists (the server requires replicate_from
@@ -85,6 +92,7 @@ class ReplicaFollower:
                  groups: tuple = (),
                  replica_id: str = "",
                  upstream_url: str = "",
+                 mirror_dir: str = "",
                  poll_timeout_s: float = 25.0,
                  retry_backoff_s: float = 1.0,
                  retry_backoff_cap_s: float = DEFAULT_BACKOFF_CAP_S,
@@ -98,6 +106,8 @@ class ReplicaFollower:
                            or f"replica-{os.getpid()}"
                               f"-{uuid.uuid4().hex[:8]}")
         self.upstream_url = upstream_url
+        # fan-out mirror (failover.FanoutHub serves it): "" = disabled
+        self.mirror_dir = mirror_dir
         self.poll_timeout_s = poll_timeout_s
         self.retry_backoff_s = retry_backoff_s
         self.retry_backoff_cap_s = retry_backoff_cap_s
@@ -120,14 +130,23 @@ class ReplicaFollower:
         # learns it has been superseded
         self.max_incarnation = 0
         self.max_leader_id = ""
+        # upstream-reported chain provenance (manifest "chain"): path of
+        # hub ids from the root leader down to the direct upstream, plus
+        # the upstream's own cumulative lag — this follower's lag is
+        # hop + upstream
+        self.upstream_chain: dict = {"path": [], "lag_revisions": 0.0,
+                                     "lag_seconds": 0.0}
         self._cursor_seq = 0      # segment currently being tailed
         self._cursor_off = 0      # raw file bytes fully consumed from it
         self._caught_up_at: Optional[float] = None  # monotonic
+        self._last_success: Optional[float] = None  # monotonic
         self._task: Optional[asyncio.Task] = None
         self._waiters: list = []  # (min_revision, future)
+        self._progress_listeners: list = []
         self.stats = {"applied_records": 0, "applied_updates": 0,
                       "bootstraps": 0, "polls": 0, "poll_errors": 0,
-                      "rebootstraps": 0, "fenced_polls": 0}
+                      "rebootstraps": 0, "fenced_polls": 0, "repoints": 0,
+                      "mirrored_bytes": 0}
         registry = registry or m.REGISTRY
         self._applied_bytes = registry.counter(
             "authz_replication_applied_bytes_total",
@@ -142,14 +161,16 @@ class ReplicaFollower:
         ref = weakref.ref(self)
         registry.gauge(
             "authz_replica_lag_revisions",
-            "Leader revision minus the follower's applied revision (-1 = "
-            "leader revision unknown yet)",
+            "Leader revision minus the follower's applied revision, plus "
+            "the upstream chain's reported lag (-1 = leader revision "
+            "unknown yet)",
             callback=lambda: (ref().lag_revisions()
                               if ref() is not None else -1.0))
         registry.gauge(
             "authz_replica_lag_seconds",
             "Seconds since this follower last had the leader's newest "
-            "revision fully applied (0 = caught up, -1 = never synced)",
+            "revision fully applied, plus the upstream chain's reported "
+            "lag, clamped at 0 (0 = caught up, -1 = never synced)",
             callback=lambda: (ref().lag_seconds()
                               if ref() is not None else -1.0))
         registry.gauge(
@@ -164,14 +185,41 @@ class ReplicaFollower:
     def lag_revisions(self) -> float:
         if self.leader_revision <= 0 and not self.bootstrapped:
             return -1.0
-        return float(max(0, self.leader_revision - self.store.revision))
+        hop = float(max(0, self.leader_revision - self.store.revision))
+        return hop + float(self.upstream_chain.get("lag_revisions") or 0.0)
 
     def lag_seconds(self) -> float:
         if self._caught_up_at is None:
             return -1.0
+        # chain lag crosses process (and possibly host) boundaries:
+        # wall-clock skew between hubs could drive it negative, and a
+        # negative "seconds behind" is always a measurement artifact,
+        # so it is clamped at 0
+        chain = max(0.0,
+                    float(self.upstream_chain.get("lag_seconds") or 0.0))
         if self.store.revision >= self.leader_revision:
-            return 0.0
-        return max(0.0, time.monotonic() - self._caught_up_at)
+            return chain
+        return max(0.0, time.monotonic() - self._caught_up_at) + chain
+
+    def seconds_since_success(self) -> float:
+        """Monotonic seconds since the last fully-successful sync pass —
+        the leader-loss watchdog's FIRST-stage signal (inf = never).
+        Note an idle tail legitimately parks in a manifest long-poll for
+        tens of seconds, so a stale success alone is not loss: the
+        watchdog confirms with `probe_upstream` before electing."""
+        if self._last_success is None:
+            return float("inf")
+        return time.monotonic() - self._last_success
+
+    async def probe_upstream(self) -> None:
+        """One cheap no-wait manifest fetch — the watchdog's direct
+        liveness check.  Raises on an unreachable, hung (caller bounds
+        it), or fenced (StaleLeaderError) upstream; success means the
+        leader is alive even while sync_once is parked long-polling, so
+        it refreshes the loss clock (one probe per grace window, not
+        one per watchdog tick)."""
+        await self._fetch_manifest(wait=False)
+        self._last_success = time.monotonic()
 
     def _note_progress(self) -> None:
         if self.store.revision >= self.leader_revision:
@@ -184,6 +232,20 @@ class ReplicaFollower:
                     fut.set_result(True)
             else:
                 self._waiters.append((min_rev, fut))
+        for fn in list(self._progress_listeners):
+            try:
+                fn()
+            except Exception:  # pragma: no cover - defensive
+                logger.exception("replica progress listener failed")
+
+    def add_progress_listener(self, fn) -> None:
+        """fn() after every sync pass that may have advanced the applied
+        revision — the fan-out hub's long-poll wakeup."""
+        self._progress_listeners.append(fn)
+
+    def remove_progress_listener(self, fn) -> None:
+        if fn in self._progress_listeners:
+            self._progress_listeners.remove(fn)
 
     async def wait_for_revision(self, min_revision: int,
                                 timeout_s: float) -> bool:
@@ -254,6 +316,10 @@ class ReplicaFollower:
             self.max_incarnation, self.max_leader_id = inc, lid
         self.leader_id = lid
         self.leader_revision = int(man.get("revision", 0))
+        self.upstream_chain = (man.get("chain")
+                               or {"path": [lid] if lid else [],
+                                   "lag_revisions": 0.0,
+                                   "lag_seconds": 0.0})
         return man
 
     async def _fetch_artifact(self, kind: str, name: str,
@@ -298,10 +364,81 @@ class ReplicaFollower:
         return await asyncio.get_running_loop().run_in_executor(
             None, _spool_and_parse)
 
+    # -- fan-out mirror ------------------------------------------------------
+    # With a mirror_dir, every artifact byte this follower consumes is
+    # spooled into a data-dir-shaped mirror that failover.FanoutHub
+    # serves to downstream followers.  Ordering invariant: a segment
+    # chunk is appended only AFTER its records (and any sidecars they
+    # reference) applied and landed in the mirror, so a downstream
+    # tailing the mirror can never fetch a record whose sidecar is
+    # missing, and the mirror never exposes bytes past this follower's
+    # applied revision.
+
+    async def _mirror_io(self, fn) -> None:
+        # file writes stay off the serving loop
+        await asyncio.get_running_loop().run_in_executor(None, fn)
+
+    async def _mirror_reset(self, cp: Optional[dict],
+                            ckpt_body: Optional[bytes]) -> None:
+        if not self.mirror_dir:
+            return
+        from ..persist import checkpoint as ckpt
+
+        def _reset():
+            import shutil
+            wal_dir = os.path.join(self.mirror_dir, "wal")
+            ck_dir = os.path.join(self.mirror_dir, ckpt.CHECKPOINT_DIR)
+            for d in (wal_dir, ck_dir):
+                shutil.rmtree(d, ignore_errors=True)
+                os.makedirs(d, exist_ok=True)
+            man_path = os.path.join(self.mirror_dir, ckpt.MANIFEST_NAME)
+            if cp is None:
+                try:
+                    os.unlink(man_path)
+                except OSError:
+                    pass
+                return
+            with open(os.path.join(ck_dir, cp["checkpoint"]), "wb") as f:
+                f.write(ckpt_body or b"")
+            ckpt.write_manifest(self.mirror_dir, dict(cp))
+
+        await self._mirror_io(_reset)
+        if ckpt_body is not None:
+            self.stats["mirrored_bytes"] += len(ckpt_body)
+
+    async def _mirror_sidecar(self, name: str, body: bytes) -> None:
+        if not self.mirror_dir:
+            return
+        path = os.path.join(self.mirror_dir, "wal", name)
+
+        def _write():
+            with open(path, "wb") as f:
+                f.write(body)
+
+        await self._mirror_io(_write)
+        self.stats["mirrored_bytes"] += len(body)
+
+    async def _mirror_append_segment(self, name: str, base: int,
+                                     chunk: bytes) -> None:
+        if not self.mirror_dir or not chunk:
+            return
+        path = os.path.join(self.mirror_dir, "wal", name)
+
+        def _append():
+            mode = "r+b" if os.path.exists(path) else "wb"
+            with open(path, mode) as f:
+                f.seek(base)
+                f.write(chunk)
+                f.truncate(base + len(chunk))
+
+        await self._mirror_io(_append)
+        self.stats["mirrored_bytes"] += len(chunk)
+
     # -- bootstrap -----------------------------------------------------------
 
     async def _bootstrap(self, man: dict) -> None:
         cp = man.get("checkpoint")
+        ckpt_body = None
         if cp is None:
             if self.store.revision > 0:
                 # local state exists but the leader has no checkpoint to
@@ -315,6 +452,7 @@ class ReplicaFollower:
             self._applied_bytes.inc(len(body), kind="checkpoint")
             snap, overlay, _meta = await self._spool_npz(body,
                                                          "replica-ckpt-")
+            ckpt_body = body
             # a crash ANYWHERE in this window must restart cleanly from
             # the manifest: everything before replica_reset leaves the
             # old state serving untouched, and replica_reset itself is
@@ -324,6 +462,7 @@ class ReplicaFollower:
             self.store.replica_reset(snap if len(snap) else None, overlay,
                                      int(cp["revision"]))
             watermark = int(cp.get("watermark", 0))
+        await self._mirror_reset(cp, ckpt_body)
         fail_point("replBootstrapFinish")
         # position the cursor on the first segment past the watermark
         seqs = sorted(s["seq"] for s in man.get("segments", ()))
@@ -345,6 +484,23 @@ class ReplicaFollower:
         self.bootstrapped = False
         self.state = STATE_BOOTSTRAPPING
         await self._bootstrap(await self._fetch_manifest(wait=False))
+
+    def repoint(self, transport, url: str = "") -> None:
+        """Point this follower at a different upstream (failover: the
+        fleet re-points from the dead leader to the promoted one).  The
+        next sync re-bootstraps against the new log; the fencing memory
+        (max incarnation) survives, so a stale upstream is still
+        rejected."""
+        self.transport = transport
+        if url:
+            self.upstream_url = url
+        self.bootstrapped = False
+        self.state = STATE_BOOTSTRAPPING
+        self._boot_leader_id = ""
+        self._cursor_seq = 0
+        self._cursor_off = 0
+        self.stats["repoints"] += 1
+        logger.info("replica repointed to %s", url or "<new transport>")
 
     # -- record application --------------------------------------------------
 
@@ -370,6 +526,9 @@ class ReplicaFollower:
         elif kind == "s":
             body = await self._fetch_artifact("segment", rec["f"])
             self._applied_bytes.inc(len(body), kind="sidecar")
+            # the sidecar lands in the mirror BEFORE the segment chunk
+            # referencing it is appended (ordering invariant above)
+            await self._mirror_sidecar(rec["f"], body)
             snap, _overlay, _meta = await self._spool_npz(body,
                                                           "replica-snap-")
             self.store.bulk_load_snapshot(snap)
@@ -449,11 +608,17 @@ class ReplicaFollower:
             # fresh segment — `base + consumed` is the new raw offset
             # either way, since base is 0 in the fresh case
             self._applied_bytes.inc(consumed, kind="segment")
-            self._cursor_off = base + consumed if base else consumed
+            new_off = base + consumed if base else consumed
+            # mirror the consumed prefix AFTER applying (and after any
+            # sidecar landed), never the torn remainder: the mirror only
+            # exposes bytes this follower has fully applied
+            await self._mirror_append_segment(name, base,
+                                              data[:new_off - base])
+            self._cursor_off = new_off
             if not records:
                 return applied  # torn tail: wait for the next poll
 
-    # -- sync loop -----------------------------------------------------------
+    # -- sync driver ---------------------------------------------------------
 
     async def sync_once(self, wait: bool = False) -> int:
         """One manifest poll + apply pass (deterministic unit for tests;
@@ -484,6 +649,7 @@ class ReplicaFollower:
                 man = await self._fetch_manifest(wait=False)
                 applied = await self._consume_segments(man)
         self._note_progress()
+        self._last_success = time.monotonic()
         if self.bootstrapped:
             self.state = STATE_STREAMING
         return applied
@@ -543,10 +709,12 @@ class ReplicaFollower:
                 "leader_id": self.leader_id,
                 "incarnation": self.max_incarnation,
                 "upstream": self.upstream_url,
+                "upstream_path": list(self.upstream_chain.get("path") or ()),
                 "leader_revision": self.leader_revision,
                 "applied_revision": self.store.revision,
                 "lag_revisions": self.lag_revisions(),
                 "lag_seconds": round(self.lag_seconds(), 3),
                 "cursor": {"seq": self._cursor_seq,
                            "offset": self._cursor_off},
+                "mirror_dir": self.mirror_dir,
                 **self.stats}

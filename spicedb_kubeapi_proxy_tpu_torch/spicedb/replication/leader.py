@@ -29,14 +29,16 @@ by WAL-before-visibility ordering every revision a waiter is woken for
 is already on disk and replayable.
 
 Incarnation fencing: every hub owns a monotonic integer **incarnation
-epoch**, persisted in the data dir's INCARNATION file; a restart in
-place mints `persisted + 1`.  Followers reject manifests from a lower
-epoch than the highest they have seen, and echo that highest epoch back
-on every poll (`X-Replication-Incarnation`): a resurrected ex-leader
-that receives a poll carrying a newer epoch marks itself `fenced_by`,
-and the server then rejects its update verbs 503.  Promotion, which
-mints the newer epochs, is failover's (the reference's
-replication/failover.py) and not part of this package.
+epoch**, persisted in the data dir's INCARNATION file.  A restart in
+place mints `persisted + 1`; a promotion (failover.py) mints
+`max(persisted, observed) + 2`, so it strictly dominates any later
+resurrection mint of the dead leader (which can only reach
+`observed + 1`).  Followers reject manifests from a lower epoch than the
+highest they have seen, and echo that highest epoch back on every poll
+(`X-Replication-Incarnation`): a resurrected ex-leader that receives a
+poll carrying a newer epoch marks itself `fenced_by`, and the server
+then rejects its update verbs 503 and (with peers configured) demotes
+it into a follower of the new leader.
 """
 
 from __future__ import annotations
@@ -125,12 +127,40 @@ def mint_restart_incarnation(data_dir: str, leader_id: str) -> tuple:
     return epoch, state["fenced"]
 
 
+def mint_promotion_incarnation(data_dir: str, observed: int,
+                               fenced: Optional[dict]) -> int:
+    """Promotion mint: max(persisted, observed) + 2.  The +2 (against the
+    restart path's +1) makes a promotion epoch strictly dominate the
+    epoch a later resurrection of the dead leader can mint (its
+    persisted value is what this follower `observed`, so it resurrects
+    at observed + 1 < observed + 2): no tie, no split brain."""
+    state = read_incarnation_state(data_dir)
+    epoch = max(state["epoch"], int(observed)) + 2
+    write_incarnation_state(data_dir, epoch, fenced,
+                            state["leader_ids"])
+    return epoch
+
+
+def append_leader_lineage(data_dir: str, leader_id: str) -> None:
+    """Record `leader_id` in the data dir's hub-id lineage (a promotion
+    constructs its hub after minting the epoch)."""
+    state = read_incarnation_state(data_dir)
+    write_incarnation_state(data_dir, state["epoch"], state["fenced"],
+                            state["leader_ids"] + [leader_id])
+
+
+def leader_lineage(data_dir: str) -> list:
+    return read_incarnation_state(data_dir)["leader_ids"]
+
+
 # -- shared artifact byte serving --------------------------------------------
 
 
 async def serve_artifact_file(req, path: str, kind: str,
                               shipped_counter, stats: dict) -> "Response":
-    """Serve one artifact file's bytes with offset/Range semantics."""
+    """Serve one artifact file's bytes with offset/Range semantics:
+    shared by the leader hub and the follower fan-out hub (failover.py),
+    so a relay serves byte-identical responses to the leader's."""
     from ...proxy.httpcore import Response, json_response
     params = parse_qs(urlsplit(req.target).query)
     offset = 0
@@ -185,6 +215,8 @@ class ReplicationHub:
 
     def __init__(self, store: TupleStore, persistence,
                  leader_id: str = "",
+                 incarnation: int = 0,
+                 fenced: Optional[dict] = None,
                  registry: Optional[m.Registry] = None):
         self.store = store
         self.persistence = persistence
@@ -194,15 +226,22 @@ class ReplicationHub:
         # changing and re-bootstrap rather than resume its byte cursor
         self.leader_id = (leader_id
                           or f"leader-{os.getpid()}-{uuid.uuid4().hex[:8]}")
-        # monotonic fencing epoch, minted restart-in-place from the data
-        # dir's INCARNATION file
+        # monotonic fencing epoch: a promotion passes its explicit
+        # epoch; a plain construction mints restart-in-place from the
+        # data dir's INCARNATION file
         data_dir = getattr(persistence, "data_dir", None)
-        if data_dir:
-            self.incarnation, self.fenced = mint_restart_incarnation(
+        if incarnation > 0:
+            self.incarnation = int(incarnation)
+            self.fenced = fenced
+            if data_dir:
+                append_leader_lineage(data_dir, self.leader_id)
+        elif data_dir:
+            self.incarnation, persisted_fenced = mint_restart_incarnation(
                 data_dir, self.leader_id)
+            self.fenced = fenced if fenced is not None else persisted_fenced
         else:  # persistence-less construction (unit tests)
             self.incarnation = 1
-            self.fenced = None
+            self.fenced = fenced
         # set once a /replication poll proves a newer
         # incarnation exists: {"incarnation": E, "leader_id": id}.  The
         # server refuses update verbs while fenced — a resurrected
@@ -371,7 +410,8 @@ class ReplicationHub:
             "leader_id": self.leader_id,
             "incarnation": self.incarnation,
             # which log this incarnation superseded at a promotion (None
-            # for a plain leader)
+            # for a plain leader): a rejoining ex-leader whose id matches
+            # bounds its unshipped-tail replay at `revision`
             "fenced": self.fenced,
             "revision": self.store.revision,
             "checkpoint": ckpt.read_manifest(self.persistence.data_dir),

@@ -443,11 +443,17 @@ def _shape(value):
     ["--replicate-from", "http://leader:8443", "--replica-wait-ms", "250",
      "--no-replica-forward", "--replica-user", "system:r2",
      "--shed-replica-lag", "1.5", "--replica-id", "r2"],
+    ["--replicate-from", "http://leader:8443", "--serve-replication",
+     "--replication-mirror-dir", "MIRROR", "--promote-data-dir", "PROMOTE",
+     "--promote-on-leader-loss", "--leader-loss-grace", "2",
+     "--replica-peers", "http://a:1, http://b:2", "--replica-id", "a"],
 ])
 def test_same_argv_gives_the_reference_options(tmp_path, extra):
     tokens = tmp_path / "tokens.csv"
     tokens.write_text("tok1,alice,uid1\n")
-    subs = {"TOKENS": str(tokens), "DATADIR": str(tmp_path / "data")}
+    subs = {"TOKENS": str(tokens), "DATADIR": str(tmp_path / "data"),
+            "MIRROR": str(tmp_path / "mirror"),
+            "PROMOTE": str(tmp_path / "promote")}
     argv = ["--rule-config", str(DEPLOY / "rules.yaml"),
             "--use-in-cluster-config", "--embedded-mode",
             "--spicedb-endpoint", "embedded://"] + [
@@ -462,7 +468,7 @@ def test_same_argv_gives_the_reference_options(tmp_path, extra):
     ref_fields = {f.name for f in dataclasses.fields(want.server_options)}
     shared = sorted(port_fields & ref_fields)
     assert port_fields <= ref_fields
-    assert len(shared) == len(port_fields) == 35
+    assert len(shared) == len(port_fields) == 42
     for name in shared:
         assert (_shape(getattr(got.server_options, name))
                 == _shape(getattr(want.server_options, name))), name
@@ -471,13 +477,13 @@ def test_same_argv_gives_the_reference_options(tmp_path, extra):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--serve-replication"], ["--replication-mirror-dir", "m"],
-    ["--promote-data-dir", "d"], ["--replica-peers", "http://l"],
+    ["--lint-schema-strict"], ["--lint-schema-json"],
+    ["--shards=4"], ["--fleet-peers=http://q"],
     ["--fleet-peers", "http://p"], ["--shards", "2"],
     ["--partition-map", "pod=0"], ["--shard-leaders", "http://a"],
     ["--lint-schema"], ["--spicedb-ca-path", "x"],
-    ["--spicedb-skip-verify-ca"], ["--promote-on-leader-loss"],
-    ["--leader-loss-grace", "1"], ["--spicedb-insecure"],
+    ["--spicedb-skip-verify-ca"], ["--partition-map=pod=1"],
+    ["--spicedb-token=t2"], ["--spicedb-insecure"],
     ["--spicedb-token", "t"],
 ])
 def test_unported_flag_exits_2(flag):
@@ -707,10 +713,10 @@ def test_module_version_and_unported_flag():
     assert out.returncode == 0 and out.stdout.strip() == __version__
     out = subprocess.run([sys.executable, "-m",
                           "spicedb_kubeapi_proxy_tpu_torch",
-                          "--serve-replication"], cwd=ROOT,
+                          "--shards", "2"], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          env=env)
-    assert out.returncode == 2 and "--serve-replication" in out.stderr
+    assert out.returncode == 2 and "--shards" in out.stderr
     out = subprocess.run([sys.executable, "-m",
                           "spicedb_kubeapi_proxy_tpu_torch",
                           "--spicedb-endpoint", "jax://",

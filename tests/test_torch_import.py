@@ -552,3 +552,87 @@ def test_durable_store_and_follower_run_with_jax_blocked():
     assert res["revisions"] == [1, 1, 1]
     assert not [m for m in res["modules"] if _is_forbidden(m)]
     assert set(DURABLE_MODULES) <= set(res["modules"])
+
+
+# leader failover
+FAILOVER_MODULES = [
+    "spicedb_kubeapi_proxy_tpu_torch.spicedb.replication.failover",
+    "spicedb_kubeapi_proxy_tpu_torch.utils.failpoints",
+]
+
+
+@pytest.mark.parametrize("module", FAILOVER_MODULES)
+def test_failover_module_imports_nothing_forbidden(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    assert path.exists(), module
+    bad = [m for m in _imports(path) if _is_forbidden(m)]
+    assert bad == [], f"{module} imports {bad}"
+
+
+_PROBE_FAILOVER = _BLOCK + r"""
+import asyncio, json, os, tempfile
+from spicedb_kubeapi_proxy_tpu_torch.kubefake.apiserver import (
+    FakeKubeApiServer)
+from spicedb_kubeapi_proxy_tpu_torch.proxy.httpcore import HandlerTransport
+from spicedb_kubeapi_proxy_tpu_torch.proxy.server import Options, ProxyServer
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import Bootstrap
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.replication import failover
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+    RelationshipUpdate, SubjectRef, UpdateOp, parse_relationship)
+schema = ("definition user {}\ndefinition pod { relation creator: user\n"
+          "permission view = creator }")
+tmp = tempfile.mkdtemp()
+kube = FakeKubeApiServer()
+common = dict(spicedb_endpoint="torch://?device=cpu", rule_configs=[],
+              upstream_transport=HandlerTransport(kube))
+leader = ProxyServer(Options(bootstrap=Bootstrap(
+    schema, "pod:ns/p0#creator@user:ann"), data_dir=os.path.join(tmp, "l"),
+    wal_fsync="never", **common))
+
+class Link:
+    def __init__(self, proxy):
+        self.proxy = proxy
+    async def round_trip(self, req):
+        return await self.proxy.handler(req)
+
+fol = ProxyServer(Options(bootstrap=Bootstrap(schema),
+    replicate_from="http://leader", leader_transport=Link(leader),
+    promote_data_dir=os.path.join(tmp, "p"), **common))
+
+def touch(s):
+    return [RelationshipUpdate(UpdateOp.TOUCH, parse_relationship(s))]
+
+async def go():
+    await fol.replication.sync_once()
+    await leader.endpoint.write_relationships(touch("pod:ns/p1#creator@user:ann"))
+    info = await failover.promote_follower(fol)
+    await fol.endpoint.write_relationships(touch("pod:ns/p2#creator@user:ann"))
+    leader.opts.replica_peers = ["http://new"]
+    leader.opts.peer_transports = {"http://new": Link(fol)}
+    state = await failover.FenceMonitor(leader).check_once()
+    ids = []
+    for p in (fol, leader):
+        ids.append(sorted(await p.endpoint.lookup_resources(
+            "pod", "view", SubjectRef("user", "ann"))))
+    return info["incarnation"], state, ids
+
+inc, state, ids = asyncio.run(go())
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None)
+print(json.dumps({"incarnation": inc, "state": state, "ids": ids,
+                  "modules": loaded}))
+"""
+
+
+def test_promotion_and_rejoin_run_with_jax_blocked():
+    """A follower promoted over a dead `torch://?device=cpu` leader, and
+    the ex-leader fenced and rejoined with its unshipped write, with jax,
+    h11, yaml and cryptography unimportable: nothing of the reference is
+    loaded."""
+    out = subprocess.run([sys.executable, "-c", _PROBE_FAILOVER], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["incarnation"] == 3 and res["state"] == "demoted"
+    assert res["ids"] == [["ns/p0", "ns/p1", "ns/p2"]] * 2
+    assert not [m for m in res["modules"] if _is_forbidden(m)]
+    assert set(FAILOVER_MODULES) <= set(res["modules"])
