@@ -289,8 +289,29 @@ put down to the card or to the host.
    kernel and `scatter_rows` must launch on (a) and (c)'s leaf, every
    read kernel on (b).
 
+21. tuple-space sharding at full width, after 20: a `ProxyServer` with
+   `shards=2` on `torch://` and a data dir, shard 0 holding multitenant-1m
+   uncut and shard 1 the reference bench's configmap and secret classes
+   (200,000 of each over 2,000 namespaces of each kind, ~404,000 tuples),
+   each shard its own graph on the card (`shard_path`).  (a) Each graph's
+   build and prewarm, the HBM ledger against the memory allocated; (b) a
+   burst of 64 pod lists and 64 configmap lists, each shard's dispatcher
+   serving its own type, every list equal to the oracle over both shards'
+   tuples; (c) 32 pod and 32 configmap dual writes at once through the
+   worker, each on its owning shard, vector tokens read back, the vector
+   gate, `scatter_rows` on each graph; (d) a 10,000-pair mixed bulk
+   check in request order, an untyped read fanning out, a spanning batch
+   refused, a merged watch, and a background rebuild of shard 1 (its
+   candidate capturing sweep graphs) while shard 0 serves a pod burst;
+   (e) the proxy dropped without a final checkpoint and recovered on its
+   data dir, both graphs warm-started; (f) a spanning map refused before
+   any graph is built; (g) two `python -m` shard leaders behind a
+   `--shard-leaders` router process, and `--lint-schema-json`
+   (`shard_cli`).  Every read kernel and `scatter_rows` must launch in
+   (b)-(d).
+
 Phases run in the order 1-9, 11, 13a-b, 14, 15, 10, 13c, 12, 13d, 16, 17a,
-18, 19, 20, 17b, and each phase's seconds are logged.  Any failed phase raises and the script
+18, 19, 20, 21, 17b, and each phase's seconds are logged.  Any failed phase raises and the script
 exits non-zero.  The second-to-last line is the kernel table as JSON,
 the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -356,9 +377,10 @@ MESH_ROUNDS = 4
 # phase 14, batched dispatch on the phase-3 endpoint: BASELINE config 5's
 # 256 concurrent list requests, then mixed traffic with 64 concurrent
 # check calls, each dispatch mode run DISPATCH_REPEATS times (3 since
-# phase 19 joined the smoke: the direct runs are most of the phase)
+# phase 19 joined the smoke, 2 since phase 21 did: the direct runs are
+# most of the phase)
 DISPATCH_CHECK_CALLS = 64
-DISPATCH_REPEATS = 3
+DISPATCH_REPEATS = 2
 DISPATCH_ORACLE_CHECKS = 300
 DISPATCH_ORACLE_SUBJECTS = 2    # lookups held against oracle checks
 DISPATCH_ORACLE_PODS = 100      # allowed, and as many refused, pods each
@@ -460,6 +482,79 @@ ELECTION_WORKLOAD = {"n_pods": 2_000, "n_tuples": 20_000, "n_users": 500,
 ELECTION_GRACE_S = 1.0
 ELECTION_WRITES = 16
 CLI_STOP_S = 10             # SIGTERM to exit
+# phase 21, tuple-space sharding: shard 1's classes (the reference bench's
+# write-shard-scale, bench.py:1338-1349) beside multitenant-1m on shard 0
+SHARD_SCHEMA = "".join(
+    f"definition {t} {{\n  relation creator: user\n"
+    f"  permission view = creator\n}}\n"
+    for t in ("cfgns", "configmap", "secns", "secret"))
+SHARD_MAP = "configmap=1,cfgns=1,secret=1,secns=1"
+SHARD_SPANNING_MAP = "pod=1"    # pod#view's closure then spans both shards
+SHARD_CONFIGMAPS = 200_000
+SHARD_SECRETS = 200_000
+SHARD_NAMESPACES = 2_000        # ids of each of cfgns and secns
+SHARD_KUBE_CONFIGMAPS = 10_000  # configmaps the fake apiserver holds
+SHARD_LISTS = 64                # pod lists and configmap lists in (b)
+SHARD_CREATES = 32              # pod creates and configmap creates in (c)
+SHARD_BULK_CHECKS = 10_000
+SHARD_ISOLATION_LISTS = 64      # pod lists during shard 1's rebuild in (d)
+# (g): the reference test's schema, rules and map
+# (tests/test_tuple_sharding.py:77-132)
+SHARD_CLI_SCHEMA = """
+definition user {}
+definition namespace {
+  relation creator: user
+  relation viewer: user
+  permission view = viewer + creator
+}
+definition podns {
+  relation creator: user
+  permission view = creator
+}
+definition pod {
+  relation creator: user
+  relation viewer: user
+  permission view = viewer + creator
+}
+"""
+SHARD_CLI_RULES = """
+apiVersion: authzed.com/v1alpha1
+kind: ProxyRule
+metadata: {name: get-namespaces}
+match: [{apiVersion: v1, resource: namespaces, verbs: [get]}]
+check: [{tpl: "namespace:{{name}}#view@user:{{user.name}}"}]
+---
+apiVersion: authzed.com/v1alpha1
+kind: ProxyRule
+metadata: {name: list-namespaces}
+match: [{apiVersion: v1, resource: namespaces, verbs: [list]}]
+prefilter:
+- fromObjectIDNameExpr: "{{resourceId}}"
+  lookupMatchingResources: {tpl: "namespace:$#view@user:{{user.name}}"}
+---
+apiVersion: authzed.com/v1alpha1
+kind: ProxyRule
+metadata: {name: list-pods}
+match: [{apiVersion: v1, resource: pods, verbs: [list]}]
+prefilter:
+- fromObjectIDNamespaceExpr: "{{split_namespace(resourceId)}}"
+  fromObjectIDNameExpr: "{{split_name(resourceId)}}"
+  lookupMatchingResources: {tpl: "pod:$#view@user:{{user.name}}"}
+---
+apiVersion: authzed.com/v1alpha1
+kind: ProxyRule
+metadata: {name: create-pods}
+match: [{apiVersion: v1, resource: pods, verbs: [create]}]
+lock: Optimistic
+check: [{tpl: "podns:{{namespace}}#view@user:{{user.name}}"}]
+update:
+  creates:
+  - tpl: "pod:{{namespacedName}}#creator@user:{{user.name}}"
+"""
+SHARD_CLI_MAP = "pod=1,podns=1"
+SHARD_CLI_TUPLES = ("namespace:team-a#creator@user:alice",
+                    "podns:team-a#creator@user:alice",
+                    "pod:team-a/p0#creator@user:alice")
 UNDECIDED = '[caveat:within_quota:{"used": 1}]'
 DECIDED = ('[caveat:within_quota:{"used": 1, "quota": 5}]',
            '[caveat:within_quota:{"used": 9, "quota": 5}]')
@@ -7365,6 +7460,1113 @@ def cli_crash(smi_line: str, device: str = "cuda") -> None:
         f"{seen['stop']:.2f} s ({smi_line})")
 
 
+# -- phase 21, tuple-space sharding --------------------------------------------
+
+
+def shard1_relationships(n_configmaps: int, n_secrets: int,
+                         n_namespaces: int, n_users: int,
+                         seed: int) -> tuple:
+    """Shard 1's tuples (the reference bench's write-shard-scale classes,
+    bench.py:1338-1349, at phase 21's size): `cfgns`/`configmap` and
+    `secns`/`secret`, each namespace type with `n_namespaces` ids (the
+    kube namespaces ns0..), one creator a namespace and one a configmap
+    or secret, drawn from u0..u{n_users - 1}.  Built as Relationship
+    objects (no string parse).  Returns (relationships, the creator of
+    each cfgns id, the creator of each configmap id)."""
+    import numpy as np
+
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        ObjectRef, Relationship, SubjectRef)
+
+    rng = np.random.default_rng(seed)
+    users = [SubjectRef("user", f"u{i}") for i in range(n_users)]
+    rels, cfg_creator, cm_creator = [], {}, {}
+    for ns_type, draw in (("cfgns", cfg_creator), ("secns", None)):
+        for k, u in enumerate(rng.integers(0, n_users, n_namespaces)):
+            rels.append(Relationship(ObjectRef(ns_type, f"ns{k}"), "creator",
+                                     users[int(u)]))
+            if draw is not None:
+                draw[f"ns{k}"] = f"u{int(u)}"
+    for typ, prefix, n, draw in (("configmap", "cm", n_configmaps,
+                                  cm_creator),
+                                 ("secret", "sec", n_secrets, None)):
+        for i, u in enumerate(rng.integers(0, n_users, n)):
+            oid = f"ns{i % n_namespaces}/{prefix}{i}"
+            rels.append(Relationship(ObjectRef(typ, oid), "creator",
+                                     users[int(u)]))
+            if draw is not None:
+                draw[oid] = f"u{int(u)}"
+    return rels, cfg_creator, cm_creator
+
+
+def _shard_rules() -> list:
+    """Phase 21's rules: deploy/rules.yaml's pod read rules and its
+    pod-launch create (PROXY_READ_RULES, DUALWRITE_RULES), list and get
+    rules for configmaps and secrets in the shape of the reference test's
+    list-pods prefilter rule (tests/test_tuple_sharding.py:111-119), and
+    the reference bench's configmap create and delete rules
+    (bench.py:1350-1373)."""
+    rules = [r for r in PROXY_READ_RULES
+             if r["metadata"]["name"] in ("pod-read", "pod-enumerate")]
+    rules.append(DUALWRITE_RULES[0])
+    for res, typ in (("configmaps", "configmap"), ("secrets", "secret")):
+        rules.append({**_RULE, "metadata": {"name": f"list-{res}"},
+                      "match": [{"apiVersion": "v1", "resource": res,
+                                 "verbs": ["list"]}],
+                      "prefilter": [{
+                          "fromObjectIDNamespaceExpr":
+                              "{{split_namespace(resourceId)}}",
+                          "fromObjectIDNameExpr": "{{split_name(resourceId)}}",
+                          "lookupMatchingResources": {
+                              "tpl": f"{typ}:$#view@user:{{{{user.name}}}}"}}]})
+        rules.append({**_RULE, "metadata": {"name": f"get-{res}"},
+                      "match": [{"apiVersion": "v1", "resource": res,
+                                 "verbs": ["get"]}],
+                      "check": [{"tpl": f"{typ}:{{{{namespacedName}}}}#view"
+                                        f"@user:{{{{user.name}}}}"}]})
+    rules.append({**_RULE, "metadata": {"name": "create-configmaps"},
+                  "lock": "Optimistic",
+                  "match": [{"apiVersion": "v1", "resource": "configmaps",
+                             "verbs": ["create"]}],
+                  "check": [{"tpl": "cfgns:{{namespace}}#view"
+                                    "@user:{{user.name}}"}],
+                  "update": {"creates": [{
+                      "tpl": "configmap:{{namespacedName}}#creator"
+                             "@user:{{user.name}}"}]}})
+    rules.append({**_RULE, "metadata": {"name": "delete-configmaps"},
+                  "lock": "Optimistic",
+                  "match": [{"apiVersion": "v1", "resource": "configmaps",
+                             "verbs": ["delete"]}],
+                  "update": {"deleteByFilter": [{
+                      "tpl": "configmap:{{namespacedName}}#$resourceRelation"
+                             "@$subjectType:$subjectID"}]}})
+    return rules
+
+
+def _oracle_ids(oracle, rtype: str, ids, subject) -> set:
+    """The oracle's answer for `subject` over the `rtype` objects `ids`:
+    its check of each, one memo shared by all (as `_oracle_pods`)."""
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.evaluator import YES, _Ctx
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import ObjectRef
+    ctx = _Ctx()
+    return {i for i in ids
+            if oracle._check(ObjectRef(rtype, i), "view", subject, 0,
+                             ctx) == YES}
+
+
+def _shard_eps(proxy) -> list:
+    """The TorchEndpoint of each shard under a sharded proxy's wrappers."""
+    from spicedb_kubeapi_proxy_tpu_torch.ops.torch_endpoint import (
+        TorchEndpoint)
+    out = []
+    for ep in _sharded(proxy).shards:
+        while not isinstance(ep, TorchEndpoint):
+            ep = ep.inner
+        out.append(ep)
+    return out
+
+
+def _record_lookup_types(ep) -> tuple:
+    """Record the resource type of every lookup `ep` (a shard's
+    TorchEndpoint, under its dispatcher) runs: (the set it fills, a
+    function that removes the recording)."""
+    seen: set = set()
+    names = ("lookup_resources_batch_start", "lookup_resources_batch",
+             "lookup_resources")
+    for name in names:
+        inner = getattr(ep, name)
+
+        async def rec(resource_type, *a, _inner=inner, **k):
+            seen.add(resource_type)
+            return await _inner(resource_type, *a, **k)
+        setattr(ep, name, rec)
+
+    def undo():
+        for name in names:
+            delattr(ep, name)
+    return seen, undo
+
+
+def _sharded(proxy):
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.sharding import (
+        ShardedEndpoint)
+    ep = proxy.endpoint
+    while not isinstance(ep, ShardedEndpoint):
+        ep = ep.inner
+    return ep
+
+
+def shard_path(w, smi_line: str, device: str = "cuda") -> dict:
+    """Phase 21: a two-shard deployment at full width on the card.
+
+    Shard 0 holds multitenant-1m uncut (`w`; its group, tenant, namespace
+    and pod types are one co-location class); shard 1 holds the
+    reference bench's write-shard-scale classes (`shard1_relationships`:
+    SHARD_CONFIGMAPS configmaps and SHARD_SECRETS secrets over
+    SHARD_NAMESPACES namespaces of each of cfgns and secns), under the
+    map SHARD_MAP (0 SL007 errors).  The upstream is phase 16's fake
+    apiserver plus SHARD_KUBE_CONFIGMAPS configmaps, the rules
+    `_shard_rules()`.  The oracle is the port's Evaluator over one store
+    holding both shards' tuples, kept equal to them by their delta
+    listeners.
+
+    (a) `ProxyServer(Options(shards=2, partition_map=SHARD_MAP,
+    spicedb_endpoint="torch://", data_dir=...))`, both shard stores
+    loaded (journaled) and each shard's graph built and prewarmed; the
+    HBM ledger of the two generations at least 90 % of the memory the
+    phase allocated.  (b) One burst of SHARD_LISTS pod lists and as many
+    configmap lists: every list equals the oracle's; each shard's
+    dispatcher fused lookups of its own type only; the routed counter
+    counts both shards.  (c) SHARD_CREATES pod creates and as many
+    configmap creates at once, dual writes through the worker: each lands
+    on its owning shard and no batch of the other type commits on a
+    shard; the tokens are revision vectors and a list carrying its token
+    reads its write; a token one revision ahead on shard 1 gets 503 (the
+    in-process gate refuses a token ahead on any shard, as the
+    reference's does; (g) shows the per-shard split through the router);
+    read-after-write lists equal the oracle; `scatter_rows` runs on each
+    graph.  (d) A check_bulk_permissions of SHARD_BULK_CHECKS mixed pairs
+    in request order equal to the oracle; an untyped read fanning out; a
+    spanning batch refused; a merged watch; a forced background rebuild
+    of shard 1 during a pod burst on shard 0, every answer right.  (e)
+    The proxy dropped without a final checkpoint and rebuilt on the data
+    dir: both lineages recover, both graphs warm-start, the first lists
+    equal the oracle.  (f) SHARD_SPANNING_MAP raises RouterConfigError
+    before any graph is built.  Returns the launches of (b)-(d), counted
+    from zero, and the phase's seconds."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.config import proxyrule
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.httpcore import (
+        HandlerTransport)
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.server import (
+        Options, ProxyServer)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb import schema as sch
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import (
+        Bootstrap, merge_internal_definitions)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.evaluator import Evaluator
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.replication import (
+        MIN_REVISION_HEADER, REVISION_HEADER)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.sharding import (
+        CrossShardWriteError, MergedWatcher, PartitionMap, RevisionVector,
+        RouterConfigError)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.sharding import (
+        metrics as shard_metrics)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.store import TupleStore
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        CheckRequest, ObjectRef, RelationshipFilter, RelationshipUpdate,
+        SubjectFilter, SubjectRef, UpdateOp, parse_relationship)
+    from spicedb_kubeapi_proxy_tpu_torch.utils import devtel
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    _switch(True)   # the port's default rebuild path
+    rng = np.random.default_rng(SEED + 21)
+    schema_text = w.schema_text + SHARD_SCHEMA
+    schema = merge_internal_definitions(sch.parse_schema(schema_text))
+    rules = [proxyrule.parse_doc(d) for d in _shard_rules()]
+    pmap = PartitionMap.parse(SHARD_MAP, n_shards=2)
+    errors, warnings = pmap.validate_schema(schema, rules)
+    if errors or warnings:
+        raise AssertionError(f"{SHARD_MAP}: SL007 {errors}, SL008 {warnings}")
+    n_users = len(w.subjects)
+    t0 = time.perf_counter()
+    rels0 = [parse_relationship(r) for r in w.relationships]
+    rels1, cfg_creator, cm_creator = shard1_relationships(
+        SHARD_CONFIGMAPS, SHARD_SECRETS, SHARD_NAMESPACES, n_users, SEED + 21)
+    union = TupleStore()
+    union.bulk_load(rels0 + rels1)
+    oracle = Evaluator(schema, union)
+    t_data = time.perf_counter() - t0
+
+    kube = _seed_proxy_kube(PROXY_NAMESPACES, PROXY_PODS, PROXY_EVENTS)
+    for c in range(SHARD_KUBE_CONFIGMAPS):
+        kube.seed("", "v1", "configmaps", {"metadata": {
+            "name": f"cm{c}", "namespace": f"ns{c % SHARD_NAMESPACES}"}})
+    seeded_pods = [f"ns{p % PROXY_NAMESPACES}/p{p}" for p in range(PROXY_PODS)]
+    seeded_cms = [f"ns{c % SHARD_NAMESPACES}/cm{c}"
+                  for c in range(SHARD_KUBE_CONFIGMAPS)]
+    tmp = tempfile.mkdtemp(prefix="smoke-shards-")
+    url = "torch://" if on_card else f"torch://?device={device}"
+    opts = dict(spicedb_endpoint=url, rule_configs=rules,
+                bootstrap=Bootstrap(schema_text=schema_text),
+                upstream_transport=HandlerTransport(kube),
+                prewarm_compiles=True, shards=2, partition_map=SHARD_MAP,
+                data_dir=os.path.join(tmp, "data"), wal_fsync="always",
+                workflow_database_path=os.path.join(tmp, "wf.db"))
+    out: dict = {"phase_s": {}}
+    try:
+        # (a) build: the proxy, both stores loaded, each graph built and
+        # prewarmed on its own
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        alloc0 = torch.cuda.memory_allocated() if on_card else 0
+        t0 = time.perf_counter()
+        proxy = ProxyServer(Options(**opts))
+        proxy.enable_dual_writes()
+        sharded = _sharded(proxy)
+        stores = sharded.shard_stores()
+        t1 = time.perf_counter()
+        load_s, ckpt_s = [], []
+        for st, rels, mgr in zip(stores, (rels0, rels1),
+                                 proxy._shard_persistence):
+            t = time.perf_counter()
+            st.bulk_load(rels)
+            load_s.append(time.perf_counter() - t)
+            # each lineage's checkpoint, as its periodic loop would take
+            # one: (e)'s recovery is the checkpoint and the WAL tail
+            t = time.perf_counter()
+            mgr.checkpoint()
+            ckpt_s.append(time.perf_counter() - t)
+        eps = _shard_eps(proxy)
+        build_s, prewarm_s = [], []
+        for ep in eps:
+            t = time.perf_counter()
+            ep.warm_start(prewarm=False)
+            build_s.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            ep.warm_start(prewarm=True)
+            prewarm_s.append(time.perf_counter() - t)
+            if ep.device.type != torch.device(device).type:
+                raise AssertionError(f"shard endpoint on {ep.device}")
+        if on_card:
+            torch.cuda.synchronize()
+        gens = [ep._devtel_gen for ep in eps]
+        ledger = [devtel.LEDGER.generation_bytes(g) for g in gens]
+        alloc = (torch.cuda.memory_allocated() - alloc0) if on_card else 0
+        share = sum(ledger) / alloc if alloc else None
+        if on_card and share < 0.90:
+            raise AssertionError(f"the HBM ledger holds {sum(ledger)} of "
+                                 f"{alloc} bytes allocated by the phase "
+                                 f"({share:.3f} < 0.90)")
+        sizes = [st.revision for st in stores]
+        log(f"phase 21 (a) data {t_data:.3f} s ({len(rels0)} + {len(rels1)} "
+            f"tuples, the oracle's union store); ProxyServer(shards=2, "
+            f"partition_map={SHARD_MAP!r}, {url!r}, data_dir) "
+            f"{t1 - t0:.3f} s; journaled loads "
+            + ", ".join(f"shard {k} {s:.3f} s" for k, s in
+                        enumerate(load_s))
+            + "; checkpoints " + ", ".join(f"shard {k} {s:.3f} s" for k, s
+                                           in enumerate(ckpt_s))
+            + "; graph build " + ", ".join(f"shard {k} {s:.3f} s" for k, s
+                                           in enumerate(build_s))
+            + "; prewarm " + ", ".join(f"shard {k} {s:.3f} s" for k, s
+                                       in enumerate(prewarm_s))
+            + "; HBM ledger " + ", ".join(f"shard {k} {b} bytes" for k, b
+                                          in enumerate(ledger))
+            + (f", {share * 100:.2f} % of the {alloc} bytes the phase "
+               f"allocated" if share is not None else "")
+            + f"; revisions {sizes} ({smi_line})")
+        out["phase_s"]["a"] = time.perf_counter() - t_phase
+
+        # the oracle follows both shards' commits
+        def mirror(update):
+            union.write([RelationshipUpdate(
+                UpdateOp.DELETE if u.op == UpdateOp.DELETE else
+                UpdateOp.TOUCH, u.rel) for u in update.updates])
+
+        committed = ([], [])
+
+        def on_commit(k):
+            def fn(update):
+                committed[k].append({u.rel.resource.type
+                                     for u in update.updates})
+                mirror(update)
+            return fn
+
+        listeners = [on_commit(k) for k in range(2)]
+        for st, fn in zip(stores, listeners):
+            st.add_delta_listener(fn)
+
+        async def call(user, method, target, obj=None, headers=None):
+            client = proxy.get_embedded_client(user=user)
+            body = json.dumps(obj).encode() if obj is not None else b""
+            t = time.perf_counter()
+            resp = await client.request(method, target, body=body,
+                                        headers=headers)
+            return resp, time.perf_counter() - t
+
+        def listed(resp) -> set:
+            if resp.status != 200:
+                raise AssertionError(f"list answered {resp.status}: "
+                                     f"{resp.body[:300]!r}")
+            return {f"{i['metadata']['namespace']}/{i['metadata']['name']}"
+                    for i in json.loads(resp.body)["items"]}
+
+        def fused():
+            return [(s.get("fused_lookups", 0), s.get("fused_checks", 0))
+                    for s in sharded.shard_stats()]
+
+        # (b) one burst of pod lists and configmap lists
+        pod_users = [f"u{i}" for i in range(SHARD_LISTS)]
+        cm_users = []
+        for oid in seeded_cms:
+            u = cm_creator[oid]
+            if u not in cm_users:
+                cm_users.append(u)
+            if len(cm_users) == SHARD_LISTS:
+                break
+        routed0 = dict(shard_metrics._routed.snapshot())
+        fused0 = fused()
+        recorders = [_record_lookup_types(ep) for ep in eps]
+        kernels.reset_launches()
+        kube._lock = asyncio.Lock()
+
+        async def burst_b():
+            t = time.perf_counter()
+            res = await asyncio.gather(
+                *(call(u, "GET", "/api/v1/pods") for u in pod_users),
+                *(call(u, "GET", "/api/v1/configmaps") for u in cm_users))
+            return res, time.perf_counter() - t
+
+        try:
+            res, b_wall = asyncio.run(burst_b())
+        finally:
+            for _, undo in recorders:
+                undo()
+        fused1 = fused()
+        routed1 = dict(shard_metrics._routed.snapshot())
+        pod_lists = [listed(r) for r, _ in res[:SHARD_LISTS]]
+        cm_lists = [listed(r) for r, _ in res[SHARD_LISTS:]]
+        t_or = time.perf_counter()
+        for u, got in zip(pod_users, pod_lists):
+            want = _oracle_ids(oracle, "pod", seeded_pods,
+                               SubjectRef("user", u))
+            if got != want:
+                raise AssertionError(f"{u}'s pod list ({len(got)}) differs "
+                                     f"from the oracle's ({len(want)})")
+        for u, got in zip(cm_users, cm_lists):
+            want = _oracle_ids(oracle, "configmap", seeded_cms,
+                               SubjectRef("user", u))
+            if got != want or not got:
+                raise AssertionError(f"{u}'s configmap list ({len(got)}) "
+                                     f"differs from the oracle's "
+                                     f"({len(want)})")
+        oracle_b_s = time.perf_counter() - t_or
+        d_fused = [(a1 - a0, c1 - c0) for (a0, c0), (a1, c1)
+                   in zip(fused0, fused1)]
+        if d_fused[0][0] < 1 or d_fused[1][0] < 1:
+            raise AssertionError(f"fused lookups by shard {d_fused}: a "
+                                 f"shard's graph served no burst")
+        lr_types = [sorted(seen) for seen, _ in recorders]
+        if lr_types != [["pod"], ["configmap"]]:
+            raise AssertionError(f"lookups by shard {lr_types}: a shard "
+                                 f"served a type it does not own")
+        d_routed = {k: routed1.get(k, 0) - routed0.get(k, 0)
+                    for k in set(routed1) | set(routed0)}
+        if not (d_routed.get(("0",), 0) >= SHARD_LISTS
+                and d_routed.get(("1",), 0) >= SHARD_LISTS):
+            raise AssertionError(f"authz_shard_routed_total moved by "
+                                 f"{d_routed}")
+        pod_lat = [s for _, s in res[:SHARD_LISTS]]
+        cm_lat = [s for _, s in res[SHARD_LISTS:]]
+        log(f"phase 21 (b) {SHARD_LISTS} pod lists + {SHARD_LISTS} configmap "
+            f"lists at once: wall {b_wall:.4f} s; pods {_pcts(pod_lat)}, "
+            f"configmaps {_pcts(cm_lat)}; items per pod list median "
+            f"{int(np.median([len(x) for x in pod_lists]))}, per configmap "
+            f"list median {int(np.median([len(x) for x in cm_lists]))}; "
+            f"all {2 * SHARD_LISTS} equal the oracle's ({oracle_b_s:.1f} s); "
+            f"fused (lookups, checks) by shard {d_fused}, lookup types by "
+            f"shard {lr_types}; authz_shard_routed_total moved {d_routed}; "
+            f"launches so far { {k: v for k, v in kernels.LAUNCHES.items() if v} } "
+            f"({smi_line})")
+        out["phase_s"]["b"] = time.perf_counter() - t_phase
+
+        # (c) dual writes on both shards at once, through the worker
+        ns_lists = asyncio.run(eps[0].lookup_resources_batch(
+            "namespace", "view", [SubjectRef("user", u) for u in pod_users]))
+        pod_home = []
+        for u, ids in zip(pod_users[:SHARD_CREATES], ns_lists):
+            if not ids:
+                raise AssertionError(f"{u} may view no namespace")
+            pod_home.append(sorted(ids)[int(rng.integers(len(ids)))])
+        cm_home = [f"ns{k}" for k in range(SHARD_CREATES)]
+        cm_makers = [cfg_creator[ns] for ns in cm_home]
+        stats_keys = ("rebuilds", "bg_rebuilds", "preemptive_rebuilds",
+                      "delta_batches", "flush_s", "stale_routed")
+        stats0 = [{k: ep.stats[k] for k in stats_keys} for ep in eps]
+        fused_c0 = fused()
+        revs0 = [st.revision for st in stores]
+        n_commit0 = [len(c) for c in committed]
+
+        def obj(kind, ns, name):
+            return {"apiVersion": "v1", "kind": kind,
+                    "metadata": {"name": name, "namespace": ns}}
+
+        marks: dict = {}
+
+        async def writes():
+            kube._lock = asyncio.Lock()
+            await proxy._worker.start()
+            try:
+                t = time.perf_counter()
+                res = await asyncio.gather(
+                    *(call(u, "POST", f"/api/v1/namespaces/{ns}/pods",
+                           obj("Pod", ns, f"sp-{i}"))
+                      for i, (u, ns) in enumerate(zip(pod_users, pod_home))),
+                    *(call(u, "POST", f"/api/v1/namespaces/{ns}/configmaps",
+                           obj("ConfigMap", ns, f"sc-{i}"))
+                      for i, (u, ns) in enumerate(zip(cm_makers, cm_home))))
+                marks["wall"] = time.perf_counter() - t
+                marks["res"] = res
+                bad = [(r.status, r.body[:200]) for r, _ in res
+                       if r.status != 201]
+                if bad:
+                    raise AssertionError(f"{len(bad)} creates failed: "
+                                         f"{bad[:3]}")
+                marks["revs"] = [st.revision for st in stores]
+                # read your write: each creator's list of its namespace,
+                # carrying its create's token
+                reads = []
+                for i, ((r, _), u, ns, res_name) in enumerate(zip(
+                        res, pod_users[:SHARD_CREATES] + cm_makers,
+                        pod_home + cm_home,
+                        ["pods"] * SHARD_CREATES
+                        + ["configmaps"] * SHARD_CREATES)):
+                    tok = r.headers.get(REVISION_HEADER)
+                    reads.append(call(u, "GET",
+                                      f"/api/v1/namespaces/{ns}/{res_name}",
+                                      headers=[(MIN_REVISION_HEADER, tok)]))
+                t = time.perf_counter()
+                marks["reads"] = await asyncio.gather(*reads)
+                marks["read_wall"] = time.perf_counter() - t
+                # the in-process vector gate
+                v = sharded.revision_vector()
+                ahead = v.merged(1, v.component(1) + 1).encode()
+                marks["gate"] = [
+                    (await call(cm_makers[0], "GET",
+                                f"/api/v1/namespaces/{cm_home[0]}/configmaps",
+                                headers=[(MIN_REVISION_HEADER, ahead)]))[0],
+                    (await call(pod_users[0], "GET",
+                                f"/api/v1/namespaces/{pod_home[0]}/pods",
+                                headers=[(MIN_REVISION_HEADER, ahead)]))[0],
+                    (await call(pod_users[0], "GET",
+                                f"/api/v1/namespaces/{pod_home[0]}/pods",
+                                headers=[(MIN_REVISION_HEADER,
+                                          f"0:{v.component(0)}")]))[0]]
+            finally:
+                await proxy._worker.stop()
+
+        asyncio.run(writes())
+        d_fused_c = [(a1 - a0, c1 - c0) for (a0, c0), (a1, c1)
+                     in zip(fused_c0, fused())]
+        if min(c for _, c in d_fused_c) < 1:
+            raise AssertionError(f"fused (lookups, checks) by shard in (c) "
+                                 f"{d_fused_c}: a shard's graph checked no "
+                                 f"create")
+        res = marks["res"]
+        tokens = [RevisionVector.decode(r.headers.get(REVISION_HEADER))
+                  for r, _ in res]
+        if not all(t.parts and set(t.parts) == {0, 1} for t in tokens):
+            raise AssertionError(f"response tokens {[t.encode() for t in tokens[:4]]} "
+                                 f"are not revision vectors")
+        pod_names = {f"{ns}/sp-{i}" for i, ns in enumerate(pod_home)}
+        cm_names = {f"{ns}/sc-{i}" for i, ns in enumerate(cm_home)}
+        for k, (typ, names) in enumerate((("pod", pod_names),
+                                          ("configmap", cm_names))):
+            here = {r.resource.id for r in stores[k].read(RelationshipFilter(
+                resource_type=typ, relation="creator")) if r.resource.id in
+                names}
+            there = stores[1 - k].read(RelationshipFilter(resource_type=typ))
+            if here != names or there:
+                raise AssertionError(f"{typ} creates: {len(here)} of "
+                                     f"{len(names)} on shard {k}, "
+                                     f"{len(there)} on shard {1 - k}")
+        foreign = ({"configmap", "cfgns", "secret", "secns"},
+                   {"pod", "namespace", "tenant", "group"})
+        for k in range(2):
+            leaked = [t for t in committed[k][n_commit0[k]:]
+                      if t & foreign[k]]
+            if leaked:
+                raise AssertionError(f"shard {k} committed batches of "
+                                     f"another shard's types: {leaked[:3]}")
+        d_rev = [b - a for a, b in zip(revs0, marks["revs"])]
+        d_batches = [len(c) - n for c, n in zip(committed, n_commit0)]
+        if min(d_rev) < SHARD_CREATES:
+            raise AssertionError(f"revisions moved {d_rev}, batches "
+                                 f"committed {d_batches}")
+        missing = []
+        for i, ((r, _), ns, name) in enumerate(zip(
+                marks["reads"], pod_home + cm_home,
+                [f"sp-{i}" for i in range(SHARD_CREATES)]
+                + [f"sc-{i}" for i in range(SHARD_CREATES)])):
+            if f"{ns}/{name}" not in listed(r):
+                missing.append(f"{ns}/{name}")
+        if missing:
+            raise AssertionError(f"{len(missing)} lists with their token "
+                                 f"miss their write: {missing[:3]}")
+        gate = [r.status for r in marks["gate"]]
+        if gate != [503, 503, 200]:
+            raise AssertionError(f"the vector gate answered {gate}, want "
+                                 f"[503, 503, 200]")
+        # read-after-write lists equal the oracle
+        kube_pods = {f"{ns}/{n}" for (ns, n) in (
+            (ns, n) for ns, objs in kube.objects[("", "v1", "pods")].items()
+            for n in objs)}
+        kube_cms = {f"{ns}/{n}" for (ns, n) in (
+            (ns, n) for ns, objs in kube.objects[
+                ("", "v1", "configmaps")].items() for n in objs)}
+        for i, ((r, _), u, ns) in enumerate(zip(
+                marks["reads"], pod_users[:SHARD_CREATES] + cm_makers,
+                pod_home + cm_home)):
+            typ, pool = (("pod", kube_pods) if i < SHARD_CREATES
+                         else ("configmap", kube_cms))
+            want = _oracle_ids(oracle, typ, [p for p in pool
+                                             if p.startswith(ns + "/")],
+                               SubjectRef("user", u))
+            if listed(r) != want:
+                raise AssertionError(f"read-after-write {typ} list of {u} in "
+                                     f"{ns} differs from the oracle")
+        for ep in eps:
+            ep.wait_rebuilds()
+        stats1 = [{k: ep.stats[k] for k in stats_keys} for ep in eps]
+        d_stats = [{k: round(s1[k] - s0[k], 6) for k in stats_keys}
+                   for s0, s1 in zip(stats0, stats1)]
+        if any(d["stale_routed"] for d in d_stats):
+            raise AssertionError(f"reads routed to the oracle: {d_stats}")
+        if any(d["delta_batches"] < 1 or d["rebuilds"] for d in d_stats):
+            raise AssertionError(f"a shard absorbed no delta or rebuilt "
+                                 f"synchronously: {d_stats}")
+        # scatter_rows on each graph: one write on one shard, then a read
+        # of it, launches counted from zero
+        scatter = []
+        for k, (ep, rel, rtype, subj) in enumerate((
+                (eps[0], f"pod:{pod_home[0]}/sp-0#creator@user:u{SHARD_LISTS}",
+                 "pod", f"u{SHARD_LISTS}"),
+                (eps[1], f"configmap:{cm_home[0]}/sc-0#creator"
+                         f"@user:u{SHARD_LISTS}", "configmap",
+                 f"u{SHARD_LISTS}"))):
+            base = dict(kernels.LAUNCHES)
+            asyncio.run(sharded.write_relationships([RelationshipUpdate(
+                UpdateOp.TOUCH, parse_relationship(rel))]))
+            ids = asyncio.run(sharded.lookup_resources(
+                rtype, "view", SubjectRef("user", subj)))
+            n = kernels.LAUNCHES["scatter_rows"] - base["scatter_rows"]
+            scatter.append(n)
+            if rel.split("#")[0].split(":", 1)[1] not in ids or (
+                    on_card and n < 1):
+                raise AssertionError(f"shard {k}: scatter_rows {n}, the "
+                                     f"write seen {ids[:3]}")
+        log(f"phase 21 (c) {SHARD_CREATES} pod + {SHARD_CREATES} configmap "
+            f"creates at once, the worker running them: wall "
+            f"{marks['wall']:.4f} s, {_pcts([s for _, s in res])}; each on "
+            f"its owning shard (revisions moved {d_rev}, batches committed "
+            f"{d_batches}, none of a foreign type); tokens like "
+            f"{tokens[0].encode()!r}, {tokens[-1].encode()!r}; "
+            f"{2 * SHARD_CREATES} lists with their token read their write "
+            f"(wall {marks['read_wall']:.4f} s) and equal the oracle; "
+            f"vector gate: shard 1 ahead -> configmaps {gate[0]}, pods "
+            f"{gate[1]} (any shard ahead refuses, as the reference's "
+            f"in-process gate), pods with the shard-0 component only "
+            f"{gate[2]}; fused (lookups, checks) by shard {d_fused_c}; "
+            f"scatter_rows by shard {scatter}; stats moved by "
+            f"shard {d_stats} ({smi_line})")
+        out["phase_s"]["c"] = time.perf_counter() - t_phase
+
+        # (d) fan-out and isolation
+        pods_all = [p for p in eps[0].graph().prog.object_ids["pod"]
+                    if "\x00" not in p]
+        cms_all = [c for c in eps[1].graph().prog.object_ids["configmap"]
+                   if "\x00" not in c]
+        subs = [SubjectRef("user", f"u{int(i)}")
+                for i in rng.integers(0, n_users, 256)]
+        pairs = []
+        for i in range(SHARD_BULK_CHECKS):
+            pool, typ = ((pods_all, "pod") if rng.random() < 0.5
+                         else (cms_all, "configmap"))
+            pairs.append(CheckRequest(ObjectRef(typ, pool[int(
+                rng.integers(len(pool)))]), "view",
+                subs[int(rng.integers(len(subs)))]))
+        # a quarter of the configmap pairs by their creators: allowed
+        for i in range(0, SHARD_BULK_CHECKS, 8):
+            r = pairs[i]
+            if r.resource.type == "configmap":
+                u = cm_creator.get(r.resource.id)
+                if u is not None:
+                    pairs[i] = CheckRequest(r.resource, "view",
+                                            SubjectRef("user", u))
+        t = time.perf_counter()
+        got = asyncio.run(sharded.check_bulk_permissions(pairs))
+        bulk_s = time.perf_counter() - t
+        want = [oracle.check(r.resource, r.permission, r.subject)
+                for r in pairs]
+        if [g.allowed for g in got] != want:
+            raise AssertionError("the mixed bulk check differs from the "
+                                 "oracle in request order")
+        n_allowed = sum(want)
+        # (c)'s scatter writes gave this user a pod and a configmap
+        flt = RelationshipFilter(relation="creator", subject=SubjectFilter(
+            type="user", id=f"u{SHARD_LISTS}"))
+        fan0 = dict(shard_metrics._fanout.snapshot())
+        fan = asyncio.run(sharded.read_relationships(flt))
+        fanned = (shard_metrics._fanout.snapshot().get(("read",), 0)
+                  - fan0.get(("read",), 0))
+        want_fan = union.read(flt)
+        if (sorted(r.rel_string() for r in fan)
+                != sorted(r.rel_string() for r in want_fan)
+                or not {"pod", "configmap"} <= {r.resource.type
+                                                for r in fan}
+                or fanned != 1):
+            raise AssertionError(f"the untyped read returned {len(fan)} "
+                                 f"tuples, the union {len(want_fan)}")
+        revs_b = [st.revision for st in stores]
+        try:
+            asyncio.run(sharded.write_relationships([
+                RelationshipUpdate(UpdateOp.TOUCH, parse_relationship(
+                    f"pod:{pod_home[0]}/sx#creator@user:u1")),
+                RelationshipUpdate(UpdateOp.TOUCH, parse_relationship(
+                    f"configmap:{cm_home[0]}/sx#creator@user:u1"))]))
+            raise AssertionError("a batch spanning both shards was taken")
+        except CrossShardWriteError:
+            pass
+        if [st.revision for st in stores] != revs_b:
+            raise AssertionError("a refused spanning batch moved a shard")
+        watch = sharded.watch(["pod", "configmap"])
+        if not isinstance(watch, MergedWatcher):
+            raise AssertionError(f"a two-type watch is {type(watch)}")
+
+        async def watched():
+            for rel in (f"pod:{pod_home[0]}/sw#creator@user:u1",
+                        f"configmap:{cm_home[0]}/sw#creator@user:u1"):
+                await sharded.write_relationships([RelationshipUpdate(
+                    UpdateOp.TOUCH, parse_relationship(rel))])
+            seen = set()
+            for _ in range(2):
+                batch = await watch.next(timeout=10.0)
+                if batch is None:
+                    break
+                seen |= {u.rel.resource.type for u in batch.updates}
+            watch.close()
+            return seen
+
+        seen = asyncio.run(watched())
+        if seen != {"pod", "configmap"} or not watch.join(10):
+            raise AssertionError(f"the merged watch saw {seen}")
+        for ep in eps:
+            ep.wait_rebuilds()
+        launches = {k: kernels.LAUNCHES[k] for k in REPLACES}
+        # a background rebuild of shard 1 (its candidate prewarmed, so it
+        # captures sweep graphs) while a pod burst runs on shard 0
+        eps[1].prewarm_rebuilds = True
+        bg0 = eps[1].stats["bg_rebuilds"]
+        gen1 = eps[1]._graph
+        iso_users = [f"u{i}" for i in range(SHARD_ISOLATION_LISTS)]
+        marks = {}
+        fused_d0 = fused()
+
+        async def isolation():
+            kube._lock = asyncio.Lock()
+            t = time.perf_counter()
+            with eps[1]._lock:
+                eps[1]._kick_background_rebuild("background")
+            res = await asyncio.gather(*(call(u, "GET", "/api/v1/pods")
+                                         for u in iso_users))
+            marks["burst"] = time.perf_counter() - t
+            marks["inflight_after_burst"] = eps[1]._bg_inflight
+            return res
+
+        res = asyncio.run(isolation())
+        d_fused_d = [(a1 - a0, c1 - c0) for (a0, c0), (a1, c1)
+                     in zip(fused_d0, fused())]
+        if d_fused_d[0][0] < 1 or d_fused_d[1] != (0, 0):
+            raise AssertionError(f"fused (lookups, checks) by shard during "
+                                 f"the pod burst {d_fused_d}")
+        t = time.perf_counter()
+        if not eps[1].wait_rebuilds(timeout=600):
+            raise AssertionError("shard 1's background rebuild never ended")
+        wait_s = time.perf_counter() - t
+        if on_card:
+            torch.cuda.synchronize()   # surfaces an asynchronous CUDA error
+        if (eps[1].stats["bg_rebuilds"] != bg0 + 1 or eps[1]._graph is gen1
+                or eps[1].stats["rebuild_failures"]):
+            raise AssertionError(f"shard 1: no background swap "
+                                 f"({eps[1].stats})")
+        eps[1].prewarm_rebuilds = False
+        iso_lists = [listed(r) for r, _ in res]
+        for u, got in zip(iso_users, iso_lists):
+            want = _oracle_ids(oracle, "pod", sorted(kube_pods),
+                               SubjectRef("user", u))
+            if got != want:
+                raise AssertionError(f"{u}'s pod list during shard 1's "
+                                     f"rebuild differs from the oracle")
+        cm_after = asyncio.run(sharded.lookup_resources_batch(
+            "configmap", "view", [SubjectRef("user", u) for u in cm_users]))
+        for u, ids in zip(cm_users, cm_after):
+            # candidates: what the endpoint answered and every configmap
+            # the user has a tuple on; the oracle decides each
+            cand = set(ids) | {r.resource.id for r in union.read(
+                RelationshipFilter(resource_type="configmap",
+                                   subject=SubjectFilter(type="user",
+                                                         id=u)))}
+            want = _oracle_ids(oracle, "configmap", sorted(cand),
+                               SubjectRef("user", u))
+            if set(ids) != want:
+                raise AssertionError(f"{u}'s configmaps after shard 1's "
+                                     f"swap differ from the oracle")
+        log(f"phase 21 (d) check_bulk_permissions of {SHARD_BULK_CHECKS} "
+            f"mixed pod/configmap pairs in {bulk_s:.4f} s, in request order "
+            f"and equal to the oracle ({n_allowed} allowed); the untyped "
+            f"read fanned out ({len(fan)} tuples of "
+            f"{sorted({r.resource.type for r in fan})}); the spanning batch "
+            f"refused, no shard moved; the merged watch saw {sorted(seen)}; "
+            f"shard 1 rebuilt in the background (candidate prewarmed) while "
+            f"{SHARD_ISOLATION_LISTS} pod lists ran on shard 0 in "
+            f"{marks['burst']:.4f} s (rebuild still in flight at the "
+            f"burst's end: {marks['inflight_after_burst']}; waited "
+            f"{wait_s:.3f} s more; fused (lookups, checks) by shard "
+            f"{d_fused_d}), every list and the configmap lookups "
+            f"after the swap equal the oracle, no CUDA error "
+            f"({smi_line})")
+        rebuilds = [{k: ep.stats[k] for k in ("rebuilds", "bg_rebuilds",
+                                              "preemptive_rebuilds")}
+                    for ep in eps]
+        out["phase_s"]["d"] = time.perf_counter() - t_phase
+
+        # (e) the proxy dropped without stop() (no final checkpoint) and
+        # started again on the same data dir
+        for st, fn in zip(stores, listeners):
+            st.remove_delta_listener(fn)
+        want_revs = [st.revision for st in stores]
+        for ep in eps:
+            ep.wait_rebuilds()
+        del proxy, sharded, eps, stores, ep, gen1, watch
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        proxy = ProxyServer(Options(**opts))
+        t1 = time.perf_counter()
+        sharded = _sharded(proxy)
+        stores = sharded.shard_stores()
+        infos = [m.recovery_info for m in proxy._shard_persistence]
+        if [st.revision for st in stores] != want_revs or not all(
+                m.recovered and i["checkpoint_revision"] == 1
+                for m, i in zip(proxy._shard_persistence, infos)):
+            raise AssertionError(f"recovered revisions "
+                                 f"{[st.revision for st in stores]}, "
+                                 f"journaled {want_revs}")
+        eps = _shard_eps(proxy)
+        warm = []
+        for ep in eps:
+            t = time.perf_counter()
+            ep.warm_start(prewarm=True)
+            warm.append(time.perf_counter() - t)
+        kube._lock = asyncio.Lock()
+
+        async def first_lists():
+            return await asyncio.gather(
+                *(call(u, "GET", "/api/v1/pods") for u in pod_users[:8]),
+                *(call(u, "GET", "/api/v1/configmaps") for u in cm_users[:8]))
+
+        t = time.perf_counter()
+        res = asyncio.run(first_lists())
+        first_s = time.perf_counter() - t
+        for i, (r, _) in enumerate(res):
+            typ, pool, u = (("pod", kube_pods, pod_users[i]) if i < 8 else
+                            ("configmap", kube_cms, cm_users[i - 8]))
+            if listed(r) != _oracle_ids(oracle, typ, sorted(pool),
+                                        SubjectRef("user", u)):
+                raise AssertionError(f"{u}'s first {typ} list after the "
+                                     f"restart differs from the oracle")
+        log(f"phase 21 (e) dropped without stop() and restarted on the data "
+            f"dir: ProxyServer {t1 - t0:.3f} s; recovery "
+            + "; ".join(f"shard {k} revision {st.revision} in "
+                        f"{i['total_s']:.3f} s (checkpoint at "
+                        f"{i['checkpoint_revision']} in "
+                        f"{i['checkpoint_load_s']:.3f} s, "
+                        f"{i['replayed_records']} WAL records in "
+                        f"{i['wal_replay_s']:.3f} s, "
+                        f"{i['idempotency_keys']} idempotency keys)"
+                        for k, (st, i) in enumerate(zip(stores, infos)))
+            + "; warm start with prewarm " + ", ".join(
+                f"shard {k} {s:.3f} s" for k, s in enumerate(warm))
+            + f"; first 8 + 8 lists {first_s:.4f} s, equal to the oracle "
+            f"({smi_line})")
+        for ep in eps:
+            ep.wait_rebuilds()
+        del proxy, sharded, eps, stores
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        out["phase_s"]["e"] = time.perf_counter() - t_phase
+
+        # (f) a map whose pod closure spans both shards refuses to boot
+        alloc_f = torch.cuda.memory_allocated() if on_card else 0
+        try:
+            ProxyServer(Options(**{**opts, "partition_map": SHARD_SPANNING_MAP,
+                                   "data_dir": os.path.join(tmp, "f")}))
+            raise AssertionError(f"{SHARD_SPANNING_MAP} booted")
+        except RouterConfigError as e:
+            why = str(e)
+        if "SL007" not in why or "pod#view" not in why:
+            raise AssertionError(f"the refusal says {why[:300]}")
+        if on_card and torch.cuda.memory_allocated() != alloc_f:
+            raise AssertionError("the refused map allocated card memory")
+        log(f"phase 21 (f) partition_map={SHARD_SPANNING_MAP!r} refused "
+            f"before any graph: {why.splitlines()[1].strip()[:160]}...; "
+            f"card memory allocated unchanged")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    idle = [k for k in READ_KERNELS + ("scatter_rows",) if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched in phase 21: {idle}")
+    log(f"phase 21 launches of (b)-(d): "
+        f"{ {k: v for k, v in launches.items() if v} }; rebuilds by shard "
+        f"{rebuilds}")
+    out["launches"] = launches
+    out["rebuilds"] = rebuilds
+    log(f"phase 21 wall time {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def shard_cli(smi_line: str, device: str = "cuda") -> dict:
+    """Phase 21 (g): the command line, at small depth.  Two single-shard
+    `python3 -m spicedb_kubeapi_proxy_tpu_torch` leaders on `torch://`
+    (with `--data-dir`, so each gates X-Authz-Min-Revision), over the
+    reference test's schema and rules (tests/test_tuple_sharding.py:
+    77-130, SHARD_CLI_SCHEMA and SHARD_CLI_RULES) with the tuples split
+    by its map SHARD_CLI_MAP, in front of one fake kube-apiserver on a
+    loopback socket; a `--shard-leaders` router process in front of
+    them.  Through the router: its /readyz aggregates both leaders; a
+    namespace get answers from shard 0 and a pod list from shard 1
+    (X-Authz-Shard); a pod create lands on shard 1 with a vector token
+    that a list carrying it honors; a token one revision ahead on shard
+    1 gets 503 on pods and 200 on namespaces.  `--lint-schema-json` on
+    deploy/'s bootstrap and rules exits 0, and with the spanning
+    `--partition-map pod=1` exits 1 with an SL007 finding.  Every
+    serving process exits 0 on SIGTERM within CLI_STOP_S, with no
+    traceback."""
+    import shutil
+    import signal
+    import tempfile
+
+    from spicedb_kubeapi_proxy_tpu_torch.kubefake.apiserver import (
+        FakeKubeApiServer)
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.httpcore import (
+        H11Transport, Headers, HttpServer, Request)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.replication import (
+        MIN_REVISION_HEADER, REVISION_HEADER)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.sharding import (
+        PartitionMap, RevisionVector)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        parse_relationship)
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    deploy = os.path.join(root, "deploy")
+    tmp = tempfile.mkdtemp(prefix="smoke-shard-cli-")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KUBERNETES_SERVICE")}
+    env["PYTHONPATH"] = root
+    pmap = PartitionMap.parse(SHARD_CLI_MAP, n_shards=2)
+    shard_rels: dict = {0: [], 1: []}
+    for line in SHARD_CLI_TUPLES:
+        rel = parse_relationship(line)
+        shard_rels[pmap.shard_of(rel.resource.type, rel.resource.id)].append(
+            line)
+    rules = os.path.join(tmp, "rules.yaml")
+    with open(rules, "w") as f:
+        f.write(SHARD_CLI_RULES)
+    boots = []
+    for k in (0, 1):
+        boots.append(os.path.join(tmp, f"bootstrap-{k}.yaml"))
+        with open(boots[k], "w") as f:
+            json.dump({"schema": SHARD_CLI_SCHEMA,
+                       "relationships": "\n".join(shard_rels[k])}, f)
+    schema_only = os.path.join(tmp, "schema.yaml")
+    with open(schema_only, "w") as f:
+        json.dump({"schema": SHARD_CLI_SCHEMA}, f)
+    module = [sys.executable, "-m", "spicedb_kubeapi_proxy_tpu_torch"]
+    secs: dict = {}
+
+    async def run(argv):
+        proc = await asyncio.create_subprocess_exec(
+            *argv, cwd=root, env=env, stdout=asyncio.subprocess.PIPE,
+            stderr=asyncio.subprocess.PIPE)
+        out, err = await asyncio.wait_for(proc.communicate(), 300)
+        return proc.returncode, out.decode(), err.decode()
+
+    async def go():
+        kube = FakeKubeApiServer()
+        kube.seed("", "v1", "namespaces", {"metadata": {"name": "team-a"}})
+        for name in ("p0", "p1"):
+            kube.seed("", "v1", "pods", {"metadata": {
+                "name": name, "namespace": "team-a"}})
+        upstream = HttpServer(kube)
+        kport = await upstream.start("127.0.0.1", 0)
+        kubeconfig = os.path.join(tmp, "kubeconfig")
+        with open(kubeconfig, "w") as f:
+            json.dump({"current-context": "smoke",
+                       "contexts": [{"name": "smoke", "context": {
+                           "cluster": "fake"}}],
+                       "clusters": [{"name": "fake", "cluster": {
+                           "server": f"http://127.0.0.1:{kport}"}}]}, f)
+        ports = [_free_port() for _ in range(3)]
+        procs, labels = [], ["leader 0", "leader 1", "router"]
+        # the lint runs beside the serving processes' start
+        lint = asyncio.ensure_future(asyncio.gather(
+            run(module + ["--lint-schema", "--lint-schema-json",
+                          "--spicedb-bootstrap",
+                          os.path.join(deploy, "bootstrap.yaml"),
+                          "--rule-config",
+                          os.path.join(deploy, "rules.yaml")]),
+            run(module + ["--lint-schema", "--lint-schema-json",
+                          "--spicedb-bootstrap",
+                          os.path.join(deploy, "bootstrap.yaml"),
+                          "--rule-config",
+                          os.path.join(deploy, "rules.yaml"),
+                          "--partition-map", SHARD_SPANNING_MAP])))
+        t_start = time.perf_counter()
+        for k in (0, 1):
+            argv = module + [
+                "--embedded-mode", "--bind-address", "127.0.0.1",
+                "--secure-port", str(ports[k]), "--backend-kubeconfig",
+                kubeconfig, "--no-override-upstream", "--rule-config",
+                rules, "--spicedb-bootstrap", boots[k],
+                "--data-dir", os.path.join(tmp, f"data-{k}"),
+                "--wal-fsync", "never", "--replica-wait-ms", "50",
+                "--no-prewarm-compiles", "-v", "2"]
+            if device != "cuda":
+                argv += ["--spicedb-endpoint", f"torch://?device={device}"]
+            procs.append(await asyncio.create_subprocess_exec(
+                *argv, cwd=root, env=env, stdout=asyncio.subprocess.PIPE,
+                stderr=asyncio.subprocess.PIPE))
+        leaders = ",".join(f"http://127.0.0.1:{p}" for p in ports[:2])
+        procs.append(await asyncio.create_subprocess_exec(
+            *module, "--shard-leaders", leaders, "--partition-map",
+            SHARD_CLI_MAP, "--rule-config", rules, "--spicedb-bootstrap",
+            schema_only, "--embedded-mode", "--bind-address", "127.0.0.1",
+            "--secure-port", str(ports[2]), "-v", "2", cwd=root, env=env,
+            stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.PIPE))
+        router = H11Transport(f"http://127.0.0.1:{ports[2]}")
+
+        async def call(method, target, headers=(), obj=None):
+            h = Headers([("X-Remote-User", "alice"),
+                         ("Accept", "application/json"), *headers])
+            body = b""
+            if obj is not None:
+                body = json.dumps(obj).encode()
+                h.set("Content-Type", "application/json")
+            return await router.round_trip(Request(method, target,
+                                                   headers=h, body=body))
+
+        def names(resp) -> list:
+            if resp.status != 200:
+                raise AssertionError(f"list answered {resp.status}: "
+                                     f"{resp.body[:300]!r}")
+            return sorted(i["metadata"]["name"]
+                          for i in json.loads(resp.body)["items"])
+
+        seen: dict = {}
+        stderr = ["", "", ""]
+        try:
+            while True:
+                for p, n in zip(procs, labels):
+                    if p.returncode is not None:
+                        raise AssertionError(f"{n} exited {p.returncode} "
+                                             f"before it served")
+                if time.perf_counter() - t_start > CLI_READY_S:
+                    raise AssertionError("the router never saw both "
+                                         "leaders ready")
+                try:
+                    r = await router.round_trip(Request("GET", "/readyz"))
+                    if r.status == 200 and r.body == b"ok shard 0\nok shard 1":
+                        break
+                except OSError:
+                    pass
+                await asyncio.sleep(0.25)
+            secs["ready"] = time.perf_counter() - t_start
+            seen["readyz"] = r.body.decode()
+            r = await call("GET", "/api/v1/namespaces/team-a")
+            seen["ns_get"] = (r.status, r.headers.get("X-Authz-Shard"))
+            pods = "/api/v1/namespaces/team-a/pods"
+            r = await call("GET", pods)
+            seen["pods"] = (names(r), r.headers.get("X-Authz-Shard"))
+            t = time.perf_counter()
+            r = await call("POST", pods, obj={
+                "apiVersion": "v1", "kind": "Pod",
+                "metadata": {"name": "p2", "namespace": "team-a"}})
+            secs["create"] = time.perf_counter() - t
+            tok = r.headers.get(REVISION_HEADER) or ""
+            seen["create"] = (r.status, r.headers.get("X-Authz-Shard"),
+                              tok)
+            r = await call("GET", pods, headers=[(MIN_REVISION_HEADER, tok)])
+            seen["read_own"] = names(r)
+            vec = RevisionVector.decode(tok)
+            ahead = vec.merged(1, vec.component(1) + 1).encode()
+            seen["ahead"] = [
+                (await call("GET", pods,
+                            headers=[(MIN_REVISION_HEADER, ahead)])).status,
+                (await call("GET", "/api/v1/namespaces/team-a",
+                            headers=[(MIN_REVISION_HEADER, ahead)])).status]
+        finally:
+            for p in procs:
+                if p.returncode is None:
+                    p.send_signal(signal.SIGTERM)
+            t_stop = time.perf_counter()
+            for i, p in enumerate(procs):
+                try:
+                    _, err = await asyncio.wait_for(p.communicate(),
+                                                    CLI_STOP_S)
+                    stderr[i] = err.decode()
+                except asyncio.TimeoutError:
+                    p.kill()
+                    await p.wait()
+                    raise AssertionError(f"{labels[i]} outlived SIGTERM by "
+                                         f"{CLI_STOP_S} s") from None
+            secs["stop"] = time.perf_counter() - t_stop
+            await upstream.stop()
+            lints = await lint
+        return seen, [p.returncode for p in procs], stderr, lints
+
+    try:
+        seen, rcs, stderr, lints = asyncio.run(go())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = {"readyz": "ok shard 0\nok shard 1", "ns_get": (200, "0"),
+            "pods": (["p0"], "1"), "read_own": ["p0", "p2"],
+            "ahead": [503, 200]}
+    got = {k: v for k, v in seen.items() if k in want}
+    tok = RevisionVector.decode(seen["create"][2])
+    if (got != want or seen["create"][:2] != (201, "1")
+            or not tok.component(1) or tok.component(0)):
+        raise AssertionError(f"through the router: {seen}; stderr tails "
+                             f"{[e[-1500:] for e in stderr]}")
+    if rcs != [0, 0, 0] or any("Traceback" in e for e in stderr):
+        raise AssertionError(f"exit codes {rcs}; stderr tails "
+                             f"{[e[-1500:] for e in stderr]}")
+    (rc0, out0, err0), (rc1, out1, err1) = lints
+    clean, spanning = json.loads(out0), json.loads(out1)
+    sl007 = [f for f in spanning["findings"] if f["code"] == "SL007"]
+    if (rc0 != 0 or clean["summary"]["errors"] or rc1 != 1 or not sl007):
+        raise AssertionError(f"--lint-schema-json exits {rc0}, {rc1}: "
+                             f"{clean['summary']}, "
+                             f"{spanning['summary']}; {err0[-500:]} "
+                             f"{err1[-500:]}")
+    log(f"phase 21 (g) two `python -m` leaders on "
+        f"{'torch://' if device == 'cuda' else f'torch://?device={device}'}"
+        f" and a --shard-leaders router: both ready behind the router in "
+        f"{secs['ready']:.2f} s (/readyz {seen['readyz']!r}); namespace "
+        f"get -> shard {seen['ns_get'][1]}, pod list -> shard "
+        f"{seen['pods'][1]}; create 201 on shard 1 in "
+        f"{secs['create'] * 1e3:.3f} ms with token {seen['create'][2]!r}, "
+        f"read back with it {seen['read_own']}; a token ahead on shard 1: "
+        f"pods {seen['ahead'][0]}, namespaces {seen['ahead'][1]}; "
+        f"--lint-schema-json exits 0 ({clean['summary']}) and "
+        f"{rc1} with the spanning map ({len(sl007)} SL007: "
+        f"{sl007[0]['where']}); SIGTERM to exit 0 in {secs['stop']:.2f} s "
+        f"({smi_line})")
+    return {"s": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     try:
         import torch
@@ -7551,6 +8753,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_s.update(durable["phase_s"])
+
+    # 21. tuple-space sharding: two shard graphs on the card behind one
+    # proxy, then the router and the lint as processes
+    t_ph = time.perf_counter()
+    sharded = shard_path(w, smi_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard_cli(smi_line)
+    phase_s["21"] = time.perf_counter() - t_ph
     t_ph = time.perf_counter()
     cli_process(smi_line)
     phase_s["17b"] = time.perf_counter() - t_ph
@@ -7628,6 +8839,9 @@ def main() -> int:
     for kname in rows:
         rows[kname]["failover_launches"] = durable["failover"][
             "launches"].get(kname, 0)
+    # phase 21 (b)-(d): the two shard graphs' launches, counted from zero
+    for kname in rows:
+        rows[kname]["shard_launches"] = sharded["launches"].get(kname, 0)
     for kname, also in REPLACES_ALSO.items():
         rows[kname]["replaces_also"] = also
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}"

@@ -38,11 +38,20 @@ format is the reference's, so a deployment moves between `jax://` and
 leads; `--serve-replication` (with `--replication-mirror-dir`) makes a
 replica relay the log to further replicas.
 
+Sharding (spicedb/sharding): `--shards N` with `--partition-map
+type=shard,...` splits the tuple space by resource type across N
+in-process leaders (each with its own graph on the card over
+`torch://`, and its own lineage under `<data-dir>/shard-<k>`);
+`--shard-leaders URL,...` runs this process as the thin stateless
+router in front of N single-shard proxies instead of serving; and
+`--lint-schema` (`--lint-schema-strict`, `--lint-schema-json`) lints
+the bootstrap schema and the rules instead of serving, the sharding
+co-location rules SL007/SL008 included when a partition is configured
+(exit 0 clean, 1 findings, 2 inputs that would not boot).
+
 Flags of features the port has not ported are not in the parser, so
 argparse refuses them (exit 2), each with the ROADMAP Queue 1 item that
-brings it back: `--shards`, `--partition-map`, the `--shard-leaders`
-router and `--lint-schema[-strict|-json]` (item 9c, sharding with the
-schema linter); the gRPC connection flags `--spicedb-insecure`,
+brings it back: the gRPC connection flags `--spicedb-insecure`,
 `--spicedb-skip-verify-ca`, `--spicedb-token` and `--spicedb-ca-path`
 (item 9d, the remote endpoint); `--fleet-peers` (item 9e, the fleet
 plane).
@@ -52,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import logging
 import signal
 import ssl
@@ -236,6 +246,53 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default: minted per process); the election "
                         "tie-break orders on it")
 
+    # tuple-space sharding (spicedb/sharding; killswitch:
+    # --feature-gates Sharding=false)
+    p.add_argument("--shards", type=int, default=1,
+                   help="split the tuple space by resource type across "
+                        "this many independent in-process leaders, each "
+                        "with its own WAL/checkpoint lineage under "
+                        "<data-dir>/shard-<k> and, over torch://, its "
+                        "own graph on the card (embedded:// and "
+                        "torch:// only; 1 = single leader).  The "
+                        "partition is validated against every "
+                        "permission's and rule's relation_footprint "
+                        "closure at startup: a closure spanning two "
+                        "shards is a hard error")
+    p.add_argument("--partition-map", default="",
+                   help="comma-separated type=shard assignments "
+                        "(e.g. pod=0,secret=1); unassigned types land "
+                        "on shard 0.  Shared verbatim by the router "
+                        "and every shard leader")
+    p.add_argument("--shard-leaders", default="",
+                   help="router mode: serve as a thin stateless router "
+                        "over these comma-separated shard-leader base "
+                        "URLs (one per shard, index = shard id).  Each "
+                        "leader is an unmodified proxy with its own "
+                        "data dir and replication tree; the router "
+                        "maps each request to the shard its matched "
+                        "rules' types live on, and translates "
+                        "revision-vector ZedTokens to per-shard "
+                        "components.  Exclusive with serving locally")
+
+    # static schema/rule lint (spicedb/schema_lint.py): analyze instead
+    # of serve
+    p.add_argument("--lint-schema", action="store_true",
+                   help="lint the bootstrap schema (--spicedb-bootstrap; "
+                        "the built-in default schema when omitted) and "
+                        "the proxy rules (--rule-config) instead of "
+                        "serving: flags unreachable relations, "
+                        "permissions with empty footprints, and rule "
+                        "templates referencing undefined relations.  "
+                        "Exit 1 on errors; --lint-schema-strict also "
+                        "fails on warnings")
+    p.add_argument("--lint-schema-strict", action="store_true",
+                   help="with --lint-schema, exit 1 on warnings too")
+    p.add_argument("--lint-schema-json", action="store_true",
+                   help="with --lint-schema, emit machine-readable JSON; "
+                        "same exit-code contract: 0 clean, 1 findings, "
+                        "2 inputs would not boot")
+
     # upstream cluster (options.go:203-206)
     p.add_argument("--backend-kubeconfig", default="",
                    help="path to the kubeconfig for the upstream apiserver; "
@@ -380,7 +437,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "CrossRequestBatching, DevicePipeline, "
                         "AdmissionControl, AsyncRebuild, DecisionCache, "
                         "DeviceTelemetry, Timeline, KernelIntrospect, "
-                        "Profiler, DurableStore, Replication "
+                        "Profiler, DurableStore, Replication, Sharding "
                         "(utils/features.py)")
     return p
 
@@ -400,10 +457,64 @@ class OptionsError(ValueError):
 def validate(args: argparse.Namespace) -> list:
     """Mirror of Options.Validate (reference options.go:412-427)."""
     errs = []
+    if args.lint_schema:
+        # analysis mode: no upstream, no serving — only the schema/rule
+        # inputs matter
+        return []
+    from .spicedb.sharding import PartitionMap, PartitionMapError
+    if args.shard_leaders:
+        # router mode: no upstream, no local endpoint — the shard
+        # leaders do the serving
+        urls = [u.strip() for u in args.shard_leaders.split(",")
+                if u.strip()]
+        for u in urls:
+            if not u.startswith(("http://", "https://")):
+                errs.append(f"--shard-leaders entry {u!r} must be an "
+                            f"http(s) base URL")
+        if args.shards > 1:
+            errs.append("--shards describes in-process sharding; router "
+                        "mode derives the shard count from the "
+                        "--shard-leaders list")
+        if args.replicate_from:
+            errs.append("--shard-leaders (router mode) is exclusive "
+                        "with --replicate-from")
+        if args.data_dir:
+            errs.append("--shard-leaders (router mode) is exclusive "
+                        "with --data-dir: the router is stateless; the "
+                        "shard leaders own the logs")
+        if urls and not errs:
+            try:
+                PartitionMap.parse(args.partition_map,
+                                   n_shards=len(urls))
+            except PartitionMapError as e:
+                errs.append(f"--partition-map: {e}")
+        if not args.embedded_mode and not (0 < args.secure_port < 65536):
+            errs.append(f"--secure-port {args.secure_port} is not a "
+                        f"valid port")
+        return errs
     if urlsplit(args.spicedb_endpoint).scheme not in ENDPOINT_SCHEMES:
         errs.append(f"--spicedb-endpoint {args.spicedb_endpoint!r} is not "
                     f"served here: use torch:// (the CUDA card; "
                     f"torch://?device=cpu for the CPU) or embedded://")
+    if args.shards < 1:
+        errs.append("--shards must be >= 1")
+    elif args.shards > 1:
+        if not _store_backed(args.spicedb_endpoint):
+            errs.append("--shards requires a store-backed endpoint "
+                        "(embedded:// or torch://)")
+        if args.replicate_from:
+            errs.append("--shards is exclusive with --replicate-from: "
+                        "a follower tails ONE leader's log; run one "
+                        "follower per shard leader instead")
+        try:
+            PartitionMap.parse(args.partition_map, n_shards=args.shards)
+        except PartitionMapError as e:
+            errs.append(f"--partition-map: {e}")
+    elif args.partition_map:
+        try:
+            PartitionMap.parse(args.partition_map)
+        except PartitionMapError as e:
+            errs.append(f"--partition-map: {e}")
     if not args.backend_kubeconfig and not args.use_in_cluster_config:
         errs.append("either --backend-kubeconfig or --use-in-cluster-config"
                     " must be specified")
@@ -659,6 +770,8 @@ def complete(args: argparse.Namespace,
         replica_peers=[u.strip() for u in args.replica_peers.split(",")
                        if u.strip()],
         replica_id=args.replica_id,
+        shards=args.shards,
+        partition_map=args.partition_map,
     )
     return CompletedConfig(server_options=server_options,
                            bind_address=args.bind_address,
@@ -719,6 +832,156 @@ def _normalize_argv(argv: list) -> list:
     return out
 
 
+def run_schema_lint(args: argparse.Namespace) -> int:
+    """`--lint-schema`: static schema/rule analysis
+    (spicedb/schema_lint.py) instead of serving.  Exit 0 = clean (or
+    warnings only, unless --lint-schema-strict), 1 = findings, 2 = the
+    inputs would not even boot."""
+    from .spicedb import schema as sch
+    from .spicedb import schema_lint
+    from .spicedb.endpoints import (
+        DEFAULT_BOOTSTRAP_SCHEMA,
+        merge_internal_definitions,
+    )
+
+    try:
+        schema_text = DEFAULT_BOOTSTRAP_SCHEMA
+        if args.spicedb_bootstrap:
+            bootstrap = Bootstrap.from_file(args.spicedb_bootstrap)
+            if bootstrap.schema_text:
+                schema_text = bootstrap.schema_text
+        schema = merge_internal_definitions(sch.parse_schema(schema_text))
+        rule_configs = (proxyrule.parse_file(args.rule_config)
+                        if args.rule_config else [])
+        # sharding co-location lint (SL007/SL008) engages when a
+        # partition is configured: --shards N and/or an explicit
+        # --partition-map (router mode infers the count from the
+        # leader list)
+        partition_map = None
+        if args.partition_map or args.shards > 1 or args.shard_leaders:
+            from .spicedb.sharding import PartitionMap
+            n_shards = None
+            if args.shard_leaders:
+                n_shards = len([u for u in args.shard_leaders.split(",")
+                                if u.strip()])
+            elif args.shards > 1:
+                n_shards = args.shards
+            partition_map = PartitionMap.parse(args.partition_map,
+                                               n_shards=n_shards)
+    except Exception as e:
+        if args.lint_schema_json:
+            print(json.dumps({"version": 1, "error": str(e),
+                              "findings": []}))
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    findings = schema_lint.lint_schema(schema, rule_configs,
+                                       partition_map=partition_map)
+    errors = [f for f in findings if f.severity == "error"]
+    warnings = [f for f in findings if f.severity != "error"]
+    failed = bool(errors or (warnings and args.lint_schema_strict))
+    if args.lint_schema_json:
+        # the reference's shape and exit-code contract (0 clean, 1
+        # findings, 2 boot failure)
+        print(json.dumps({
+            "version": 1,
+            "findings": [{"code": f.code, "severity": f.severity,
+                          "where": f.where, "message": f.message}
+                         for f in findings],
+            "summary": {"errors": len(errors), "warnings": len(warnings),
+                        "strict": bool(args.lint_schema_strict)},
+        }, indent=1))
+    else:
+        for f in findings:
+            print(f"{f.severity.upper()} {f.code} [{f.where}] {f.message}")
+        print(f"schema lint: {len(errors)} errors, "
+              f"{len(warnings)} warnings")
+    return 1 if failed else 0
+
+
+def run_router(args: argparse.Namespace) -> int:
+    """`--shard-leaders`: serve as the thin stateless shard router
+    (spicedb/sharding/router.py) instead of a local proxy.  The routing
+    table derives from --rule-config (+ the bootstrap schema's
+    footprint closures when supplied) and is validated at startup: a
+    rule whose types span shards refuses to boot."""
+    level = (logging.DEBUG if args.verbosity >= 4
+             else logging.INFO if args.verbosity >= 2 else logging.WARNING)
+    logging.basicConfig(
+        level=level,
+        format="%(asctime)s %(levelname).1s %(name)s: %(message)s")
+    if args.feature_gates:
+        from .utils import features
+        try:
+            features.apply_flag(args.feature_gates)
+        except features.FeatureGateError as e:
+            print(f"error: invalid --feature-gates: {e}", file=sys.stderr)
+            return 1
+    from .spicedb import schema as sch
+    from .spicedb import sharding
+    from .spicedb.endpoints import merge_internal_definitions
+    try:
+        import yaml
+        config_errors = (OSError, ValueError, yaml.YAMLError)
+    except ImportError:  # the bootstrap and rule files then fail to load
+        config_errors = (OSError, ValueError, ImportError)
+    urls = [u.strip() for u in args.shard_leaders.split(",") if u.strip()]
+    try:
+        pmap = sharding.PartitionMap.parse(args.partition_map,
+                                           n_shards=len(urls))
+        rule_configs = (proxyrule.parse_file(args.rule_config)
+                        if args.rule_config else [])
+        schema = None
+        if args.spicedb_bootstrap:
+            bootstrap = Bootstrap.from_file(args.spicedb_bootstrap)
+            if bootstrap.schema_text:
+                schema = merge_internal_definitions(
+                    sch.parse_schema(bootstrap.schema_text))
+        ssl_context: Optional[ssl.SSLContext] = None
+        if not args.embedded_mode:
+            cert_file, key_file = args.tls_cert_file, args.tls_private_key_file
+            if bool(cert_file) != bool(key_file):
+                raise OptionsError(
+                    "--tls-cert-file and --tls-private-key-file must be"
+                    " specified together")
+            if not cert_file:
+                cert_file, key_file = kubecfg.generate_self_signed_cert(
+                    args.cert_dir, hosts=[args.bind_address])
+            ssl_context = kubecfg.serving_ssl_context(cert_file, key_file)
+        server = sharding.RouterServer(
+            pmap, urls, rule_configs=rule_configs, schema=schema,
+            ssl_context=ssl_context)
+    except config_errors as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    if not sharding.enabled():
+        logger.info("Sharding switch off: routing everything to shard "
+                    "%d (pass-through)", pmap.default_shard)
+
+    async def serve() -> None:
+        port = await server.start(args.bind_address, args.secure_port)
+        scheme = "http" if args.embedded_mode else "https"
+        logger.info("shard router serving on %s://%s:%d over %d shard "
+                    "leader(s): %s", scheme, args.bind_address, port,
+                    len(urls), ", ".join(urls))
+        stop = asyncio.Event()
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            try:
+                loop.add_signal_handler(sig, stop.set)
+            except NotImplementedError:  # non-unix
+                pass
+        try:
+            await stop.wait()
+        finally:
+            await server.stop()
+
+    try:
+        asyncio.run(serve())
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
 def main(argv: Optional[list] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(_normalize_argv(
@@ -728,6 +991,10 @@ def main(argv: Optional[list] = None) -> int:
         for e in errs:
             print(f"error: {e}", file=sys.stderr)
         return 2
+    if args.lint_schema:
+        return run_schema_lint(args)
+    if args.shard_leaders:
+        return run_router(args)
     try:
         completed = complete(args)
     except OptionsError as e:

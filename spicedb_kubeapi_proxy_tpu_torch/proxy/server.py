@@ -45,10 +45,21 @@ followers chain off it.  The promoted and the rejoined proxy keep their
 endpoint: the device graph follows the store through its delta and
 reset listeners.
 
-Left out against the reference, each with its `Options` fields (passing
-one is a TypeError): sharding (`shards`, `partition_map`; ROADMAP Queue
-1 item 9c) and fleet tracing (`fleet_peers`; item 9e), with their /debug
-surfaces (`sharding`, `fleet`, `tail`).
+Sharding (spicedb/sharding): with `shards` > 1 the tuple space splits
+by resource type (`partition_map`, `type=shard` pairs) across that many
+in-process leaders behind a `ShardedEndpoint`, each over its own store
+(with a data dir, its own WAL and checkpoint lineage under
+`<data-dir>/shard-<k>`) and, over `torch://`, its own graph on the card.
+The map is validated against every permission's and rule's footprint
+closure before any graph is built (`RouterConfigError`, SL007);
+responses carry the revision VECTOR as their token, a token component
+ahead of its shard answers 503, and `/debug/sharding` shows the map and
+the shard revisions.  Sharding excludes `replicate_from`, and a sharded
+proxy serves no replication (each shard is its own leader).
+
+Left out against the reference: fleet tracing (`fleet_peers`, ROADMAP
+Queue 1 item 9e; passing it is a TypeError), with its /debug surfaces
+(`fleet`, `tail`).
 """
 
 from __future__ import annotations
@@ -65,6 +76,7 @@ import time
 import uuid
 from dataclasses import dataclass, field
 from typing import Optional
+from urllib.parse import urlsplit
 
 from ..authz.middleware import (
     FILTERER_KEY,
@@ -287,6 +299,16 @@ class Options:
     # /debug/replication (minted per process when empty); the election
     # tie-break orders on it
     replica_id: str = ""
+    # tuple-space sharding (spicedb/sharding; killswitch: the SHARDING
+    # switch).  shards > 1 splits the tuple space by resource type
+    # across that many independent in-process leaders — each its own
+    # store and (with a data dir) its own WAL/checkpoint lineage under
+    # <data-dir>/shard-<k> — behind a ShardedEndpoint.  partition_map is
+    # the `type=shard` assignment string; the partition is validated
+    # against every permission's and rule's relation_footprint closure
+    # at construction (a closure spanning two shards refuses to boot)
+    shards: int = 1
+    partition_map: str = ""
 
 
 class ProxyServer:
@@ -304,7 +326,61 @@ class ProxyServer:
         # bootstrap-once then skips re-applying it onto recovered state
         self.persistence = None
         endpoint_kwargs = dict(opts.endpoint_kwargs)
-        if opts.data_dir:
+        # sharding: N independent in-process leaders behind a
+        # ShardedEndpoint.  The SHARDING switch is the killswitch — off,
+        # opts.shards is inert and the proxy is exactly single-shard
+        self.sharding = None           # PartitionMap when sharded
+        self._shard_persistence = []   # per-shard PersistenceManagers
+        sharded_on = False
+        if opts.shards > 1:
+            from ..spicedb import sharding as shrd
+            if urlsplit(opts.spicedb_endpoint).scheme not in (
+                    "embedded", "torch"):
+                raise ValueError(
+                    "--shards requires a store-backed endpoint "
+                    "(embedded:// or torch://)")
+            if opts.replicate_from:
+                raise ValueError(
+                    "--shards is exclusive with --replicate-from: a "
+                    "follower tails ONE leader's log; run one follower "
+                    "per shard leader instead")
+            sharded_on = shrd.enabled()
+            if not sharded_on:
+                logger.info("shards=%d set but the Sharding switch is "
+                            "off; running single-shard", opts.shards)
+        if sharded_on:
+            from ..spicedb.sharding import (
+                PartitionMap,
+                build_sharded_endpoint,
+            )
+            from ..spicedb.store import TupleStore
+            pmap = PartitionMap.parse(opts.partition_map,
+                                      n_shards=opts.shards)
+            stores = []
+            if opts.data_dir and features.DURABLE_STORE:
+                from ..spicedb.persist import PersistenceManager
+                for k in range(opts.shards):
+                    mgr = PersistenceManager(
+                        os.path.join(opts.data_dir, f"shard-{k}"),
+                        fsync=opts.wal_fsync,
+                        checkpoint_interval=opts.checkpoint_interval)
+                    store = mgr.recover()
+                    mgr.attach(store)
+                    self._shard_persistence.append(mgr)
+                    stores.append(store)
+            else:
+                if opts.data_dir:
+                    logger.info("data_dir %r set but the DurableStore "
+                                "switch is off; running in-memory",
+                                opts.data_dir)
+                stores = [TupleStore() for _ in range(opts.shards)]
+            # a hard startup error when any footprint closure spans
+            # shards (SL007): RouterConfigError before any graph is built
+            self.endpoint: PermissionsEndpoint = build_sharded_endpoint(
+                opts.spicedb_endpoint, opts.bootstrap, pmap, stores,
+                rule_configs=configs, **endpoint_kwargs)
+            self.sharding = pmap
+        if opts.data_dir and not sharded_on:
             if features.DURABLE_STORE:
                 from ..spicedb.persist import PersistenceManager
                 self.persistence = PersistenceManager(
@@ -378,9 +454,10 @@ class ProxyServer:
         elif opts.replicate_from:
             logger.info("replicate_from %r set but the Replication switch "
                         "is off; running single-node", opts.replicate_from)
-        self.endpoint: PermissionsEndpoint = create_endpoint(
-            opts.spicedb_endpoint, bootstrap=opts.bootstrap,
-            **endpoint_kwargs)
+        if not sharded_on:
+            self.endpoint = create_endpoint(
+                opts.spicedb_endpoint, bootstrap=opts.bootstrap,
+                **endpoint_kwargs)
         # metric and audit label: the URL scheme
         backend = opts.spicedb_endpoint.split(":")[0]
         if opts.enable_metrics:
@@ -455,12 +532,16 @@ class ProxyServer:
         # compile prewarm is on, so a post-swap first request captures
         # nothing.  The flag is set on the endpoint that owns it: the
         # wrappers forward reads but would keep a write for themselves
+        # A sharded endpoint prewarms every shard's graph
         if opts.prewarm_compiles:
-            inner = self.endpoint
-            while inner is not None and "prewarm_rebuilds" not in vars(inner):
-                inner = getattr(inner, "inner", None)
-            if inner is not None:
-                inner.prewarm_rebuilds = True
+            roots = (list(self.endpoint.shards)
+                     if self.sharding is not None else [self.endpoint])
+            for inner in roots:
+                while (inner is not None
+                       and "prewarm_rebuilds" not in vars(inner)):
+                    inner = getattr(inner, "inner", None)
+                if inner is not None:
+                    inner.prewarm_rebuilds = True
         # unconditional: 0 restores the card detection, so a server built
         # with the default never inherits an earlier server's peak
         timeline.set_hbm_peak(opts.device_hbm_peak_gbps)
@@ -535,6 +616,9 @@ class ProxyServer:
                             "long-poll waiters) or follower (applied "
                             "revision, lag, cursor, bootstraps)",
                             self._debug_replication),
+            "sharding": ("partition map + per-shard revisions of the "
+                         "in-process sharded endpoint",
+                         self._debug_sharding),
         }
 
     async def _serve_debug(self, req: Request) -> Response:
@@ -627,6 +711,22 @@ class ProxyServer:
                            if not repl.enabled() else
                            "not configured (leader needs --data-dir, "
                            "follower needs --replicate-from)")}
+
+    def _debug_sharding(self) -> dict:
+        if self.sharding is None:
+            from ..spicedb import sharding as shrd
+            return {"enabled": False,
+                    "reason": ("Sharding feature gate disabled"
+                               if not shrd.enabled() else
+                               "not configured (--shards N with a "
+                               "store-backed endpoint)")}
+        return {"enabled": True,
+                "partition_map": self.sharding.describe(),
+                "revision_vector": self.endpoint.revision_vector().encode(),
+                "shard_revisions": {
+                    str(k): store.revision
+                    for k, store in
+                    enumerate(self.endpoint.shard_stores())}}
 
     async def _debug_profile(self, req: Request) -> dict:
         from urllib.parse import parse_qs, urlsplit
@@ -981,6 +1081,56 @@ class ProxyServer:
         elif self.replication is not None:
             resp.headers.set(repl.REVISION_HEADER,
                              str(self.replication.store.revision))
+        elif self.sharding is not None:
+            # a sharded proxy stamps the full revision VECTOR
+            resp.headers.set(repl.REVISION_HEADER,
+                             self.endpoint.revision_vector().encode())
+
+    def _sharded_gate(self, req: Request) -> Optional[Response]:
+        """In-process sharded mode: honor revision-vector ZedTokens.
+        Writes commit synchronously here (no replication tail), so any
+        token this proxy issued is already satisfied; a component ahead
+        of its shard (a token from a lost future, or another fleet) is
+        refused 503 rather than served below the token.  None = serve."""
+        from ..spicedb.sharding import RevisionVector, RevisionVectorError
+        raw = req.headers.get(repl.MIN_REVISION_HEADER)
+        if not raw:
+            return None
+        try:
+            vec = RevisionVector.decode(raw)
+        except RevisionVectorError as e:
+            return json_response(400, {
+                "kind": "Status", "apiVersion": "v1", "metadata": {},
+                "status": "Failure", "code": 400,
+                "message": f"invalid {repl.MIN_REVISION_HEADER} "
+                           f"revision-vector token: {e}"})
+        stores = self.endpoint.shard_stores()
+        for k, store in enumerate(stores):
+            want = vec.component(k)
+            if want > store.revision:
+                return json_response(503, {
+                    "kind": "Status", "apiVersion": "v1", "metadata": {},
+                    "status": "Failure", "code": 503,
+                    "reason": "ServiceUnavailable",
+                    "message": f"revision {want} is not available on "
+                               f"shard {k} (at {store.revision}); the "
+                               f"token may predate a shard recovery"})
+        # a component naming a shard outside this fleet demands a
+        # revision no store here can ever satisfy — refuse it rather
+        # than silently dropping the client's staleness bound
+        unknown = sorted(k for k, v in vec.parts.items()
+                         if k >= len(stores) and v > 0)
+        if unknown:
+            return json_response(503, {
+                "kind": "Status", "apiVersion": "v1", "metadata": {},
+                "status": "Failure", "code": 503,
+                "reason": "ServiceUnavailable",
+                "message": f"revision-vector token names shard(s) "
+                           f"{unknown} outside this fleet's "
+                           f"0..{len(stores) - 1}; the token may come "
+                           f"from another fleet or a larger partition "
+                           f"map"})
+        return None
 
     # -- chain ---------------------------------------------------------------
 
@@ -1051,6 +1201,13 @@ class ProxyServer:
             # never a stale answer below its min-revision
             if self.replication is not None:
                 gated = await self._replica_gate(req, verb)
+                if gated is not None:
+                    return gated
+            # in-process sharded mode: revision-vector tokens are checked
+            # per shard component (writes are synchronous, so this is a
+            # tripwire for tokens from a lost future, never a wait)
+            if self.sharding is not None:
+                gated = self._sharded_gate(req)
                 if gated is not None:
                     return gated
             try:
@@ -1259,7 +1416,8 @@ class ProxyServer:
         prewarm = self.opts.prewarm_compiles
         loop = asyncio.get_running_loop()
         ctx = contextvars.copy_context()
-        name = ("recovery.graph_rebuild" if self.persistence is not None
+        name = ("recovery.graph_rebuild"
+                if self.persistence is not None or self._shard_persistence
                 else "warm_start")
         with tracing.request_trace(op="warm_start") as tr:
             with tracing.span(name, phase=True):
@@ -1270,7 +1428,8 @@ class ProxyServer:
     async def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
         # a recovered store pays its device-graph build before serving,
         # so the first request after a restart does not absorb it
-        if self.persistence is not None or self.opts.prewarm_compiles:
+        if (self.persistence is not None or self._shard_persistence
+                or self.opts.prewarm_compiles):
             await self.warm_start()
         if (self.replication_hub is not None and self.opts.replica_peers
                 and repl.enabled()):
@@ -1291,6 +1450,9 @@ class ProxyServer:
         bound = await self._http.start(host, port)
         if self.persistence is not None:
             await self.persistence.start()
+        for mgr in self._shard_persistence:
+            # per-shard checkpoint loops: each shard owns its lineage
+            await mgr.start()
         if self._fence_monitor is not None and self.replication_hub is not None:
             self._fence_monitor.start()
         if self.replication is not None:
@@ -1351,6 +1513,12 @@ class ProxyServer:
             # final checkpoint: a clean shutdown restarts from the
             # checkpoint alone, with an empty WAL tail
             await self.persistence.stop()
+        for mgr in self._shard_persistence:
+            await mgr.stop()
+        if self.sharding is not None:
+            # merged watch streams end with the proxy: their pump threads
+            # exit once the shard watchers close
+            self.endpoint.close_watches()
         await self.audit.stop()
 
     # -- embedded client (reference server.go:317-364, pkg/inmemory) ---------

@@ -45,6 +45,11 @@
   (spicedb/replication; the reference's `Replication` gate, :129): off,
   the `/replication/*` routes answer 503 and a configured
   `replicate_from` is inert, so the proxy is exactly single-node.
+- `SHARDING` is the killswitch of tuple-space sharding (spicedb/sharding;
+  the reference's `Sharding` gate, :136-141, default on): off, a
+  configured shard count is inert and the proxy is exactly single-shard,
+  the shard metrics tick nothing, and the `--shard-leaders` router
+  passes every request through to the default shard untouched.
 
 `apply_flag` sets them from the CLI's `--feature-gates name=true|false`
 under the reference's gate names (`GATE_SWITCHES`); any other name is
@@ -63,6 +68,7 @@ KERNEL_INTROSPECT = True
 PROFILER = True
 DURABLE_STORE = True
 REPLICATION = True
+SHARDING = True
 
 
 def pipeline_enabled() -> bool:
@@ -84,6 +90,7 @@ GATE_SWITCHES = {
     "Profiler": "PROFILER",
     "DurableStore": "DURABLE_STORE",
     "Replication": "REPLICATION",
+    "Sharding": "SHARDING",
 }
 
 

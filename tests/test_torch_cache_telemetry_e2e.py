@@ -198,7 +198,7 @@ def test_debug_surfaces_answer_as_the_reference(url):
 
 
 # the reference's surfaces of subsystems the port has not ported
-_UNPORTED = {"/debug/sharding", "/debug/fleet", "/debug/tail"}
+_UNPORTED = {"/debug/fleet", "/debug/tail"}
 
 
 def test_cached_workload_rows_count_hits_and_misses():

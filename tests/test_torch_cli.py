@@ -468,7 +468,7 @@ def test_same_argv_gives_the_reference_options(tmp_path, extra):
     ref_fields = {f.name for f in dataclasses.fields(want.server_options)}
     shared = sorted(port_fields & ref_fields)
     assert port_fields <= ref_fields
-    assert len(shared) == len(port_fields) == 42
+    assert len(shared) == len(port_fields) == 44
     for name in shared:
         assert (_shape(getattr(got.server_options, name))
                 == _shape(getattr(want.server_options, name))), name
@@ -477,12 +477,8 @@ def test_same_argv_gives_the_reference_options(tmp_path, extra):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--lint-schema-strict"], ["--lint-schema-json"],
-    ["--shards=4"], ["--fleet-peers=http://q"],
-    ["--fleet-peers", "http://p"], ["--shards", "2"],
-    ["--partition-map", "pod=0"], ["--shard-leaders", "http://a"],
-    ["--lint-schema"], ["--spicedb-ca-path", "x"],
-    ["--spicedb-skip-verify-ca"], ["--partition-map=pod=1"],
+    ["--fleet-peers=http://q"], ["--fleet-peers", "http://p"],
+    ["--spicedb-ca-path", "x"], ["--spicedb-skip-verify-ca"],
     ["--spicedb-token=t2"], ["--spicedb-insecure"],
     ["--spicedb-token", "t"],
 ])
@@ -492,6 +488,23 @@ def test_unported_flag_exits_2(flag):
     with pytest.raises(SystemExit) as e:
         parse(flag)
     assert e.value.code == 2
+
+
+_SHARDING_DESTS = ("shards", "partition_map", "shard_leaders", "lint_schema",
+                   "lint_schema_strict", "lint_schema_json")
+
+
+@pytest.mark.parametrize("flag", [
+    ["--lint-schema-strict"], ["--lint-schema-json"],
+    ["--shards=4"], ["--shards", "2"],
+    ["--partition-map", "pod=0"], ["--shard-leaders", "http://a"],
+    ["--lint-schema"], ["--partition-map=pod=1"],
+])
+def test_sharding_flag_parses_as_the_reference(flag):
+    want = ref_cli.build_parser().parse_args(ref_cli._normalize_argv(flag))
+    got = parse(flag)
+    assert ({d: getattr(got, d) for d in _SHARDING_DESTS}
+            == {d: getattr(want, d) for d in _SHARDING_DESTS})
 
 
 def test_feature_gates_set_the_port_switches(tmp_path):
@@ -713,10 +726,10 @@ def test_module_version_and_unported_flag():
     assert out.returncode == 0 and out.stdout.strip() == __version__
     out = subprocess.run([sys.executable, "-m",
                           "spicedb_kubeapi_proxy_tpu_torch",
-                          "--shards", "2"], cwd=ROOT,
+                          "--fleet-peers", "http://p"], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          env=env)
-    assert out.returncode == 2 and "--shards" in out.stderr
+    assert out.returncode == 2 and "--fleet-peers" in out.stderr
     out = subprocess.run([sys.executable, "-m",
                           "spicedb_kubeapi_proxy_tpu_torch",
                           "--spicedb-endpoint", "jax://",

@@ -562,7 +562,7 @@ check: [{tpl: "pod:{{namespacedName}}#view@user:{{user.name}}"}]
 
 PORT_SURFACES = {"/debug/traces", "/debug/decisions", "/debug/flight",
                  "/debug/timeline", "/debug/workload", "/debug/profile",
-                 "/debug/replication"}
+                 "/debug/replication", "/debug/sharding"}
 
 
 def make_server(root, url, **extra):
@@ -604,15 +604,14 @@ def test_index_enumerates_the_ported_surfaces(url):
     (st, got), (rst, want) = run(go(port)), run(go(ref))
     assert st == rst == 200
     assert set(got) == PORT_SURFACES
-    # the reference's three others come with sharding and the fleet
-    # (ROADMAP Queue 1 items 9c and 9e)
-    assert set(want) - set(got) == {"/debug/sharding", "/debug/fleet",
-                                    "/debug/tail"}
+    # the reference's two others come with the fleet (ROADMAP Queue 1
+    # item 9e)
+    assert set(want) - set(got) == {"/debug/fleet", "/debug/tail"}
     assert all(isinstance(d, str) and d for d in got.values())
 
 
-@pytest.mark.parametrize("path", ["/debug/bogus", "/debug/sharding",
-                                  "/debug/fleet", "/debug/tail"])
+@pytest.mark.parametrize("path", ["/debug/bogus", "/debug/fleet",
+                                  "/debug/tail"])
 def test_unknown_surface_uniform_404(path):
     port, _ = servers()
 
@@ -636,6 +635,32 @@ def test_replication_surface_without_a_role_matches_the_reference():
     got = run(go(port))
     assert got == run(go(ref))
     assert got[0] == 200 and got[1]["enabled"] is False
+
+
+def test_sharding_surface_without_shards_matches_the_reference():
+    """A proxy with one shard reports sharding as not configured, in the
+    reference's words; with the SHARDING switch off, as disabled."""
+    from spicedb_kubeapi_proxy_tpu.utils.features import GATES
+    from spicedb_kubeapi_proxy_tpu_torch.utils import features
+    port, ref = servers()
+
+    async def go(server):
+        resp = await server.get_embedded_client(user="alice").get(
+            "/debug/sharding")
+        return resp.status, json.loads(resp.body)
+
+    got = run(go(port))
+    assert got == run(go(ref))
+    assert got[0] == 200 and got[1]["enabled"] is False
+    features.SHARDING = False
+    GATES.set("Sharding", False)
+    try:
+        off = run(go(port))
+        assert off == run(go(ref))
+        assert off[1]["reason"] == "Sharding feature gate disabled"
+    finally:
+        features.SHARDING = True
+        GATES.reset()
 
 
 def test_surfaces_unauthenticated_401_like_the_reference():

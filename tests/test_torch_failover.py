@@ -1119,8 +1119,9 @@ def test_failover_flags_fail_validate_as_the_reference(argv, err, tmp_path):
 def test_module_accepts_the_failover_flags(tmp_path):
     """`python -m spicedb_kubeapi_proxy_tpu_torch` parses the six
     failover flags (here one `validate` error: a relay needs
-    --replicate-from, exit 2 with the reference's text) and still
-    refuses the sharding flags (argparse, exit 2)."""
+    --replicate-from, exit 2 with the reference's text), and a malformed
+    `--partition-map` is a `validate` error (exit 2), as in the
+    reference."""
     import subprocess
     import sys
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -1139,9 +1140,10 @@ def test_module_accepts_the_failover_flags(tmp_path):
     assert "unrecognized arguments" not in out.stderr
     out = subprocess.run(
         [sys.executable, "-m", "spicedb_kubeapi_proxy_tpu_torch",
-         "--partition-map", "pod=0"], cwd=root, capture_output=True,
+         "--partition-map", "pod"], cwd=root, capture_output=True,
         text=True, timeout=120, env=env)
     assert out.returncode == 2 and "--partition-map" in out.stderr
+    assert "unrecognized arguments" not in out.stderr
 
 
 def test_options_accept_the_failover_fields_and_refuse_sharding():
@@ -1151,10 +1153,10 @@ def test_options_accept_the_failover_fields_and_refuse_sharding():
                    leader_loss_grace_s=1.0, replica_peers=["http://a"],
                    peer_transports={})
     assert opts.replica_peers == ["http://a"]
-    for name, value in (("shards", 2), ("partition_map", "pod=0"),
-                        ("fleet_peers", ["http://p"])):
-        with pytest.raises(TypeError):
-            Options(**{name: value})
+    opts = Options(shards=2, partition_map="pod=0")
+    assert (opts.shards, opts.partition_map) == (2, "pod=0")
+    with pytest.raises(TypeError):
+        Options(fleet_peers=["http://p"])
 
 
 # -- chip_smoke.py phase 20 on the CPU, at a small size ----------------------

@@ -37,6 +37,14 @@ each port cache's hit, miss, invalidation, eviction and fill counts and
 resident bytes equal the reference cache's: the same queries and writes
 reach every cache, whatever endpoint it fronts.
 
+The sharded legs are the reference fuzz harness's `sharded2` role
+(`fuzz/driver.py:101-105`, `:276-297`, `:335-371`): per case, the port's
+`partition_map_for_schema(schema, 2)` (equal to the reference's, and
+accepted by the footprint validation), two `torch://` shard stores fed
+the case's stream routed by that map, and a `ShardedEndpoint` over one
+endpoint a shard, whose answers after the load and after every burst
+equal the oracle's over the whole stream.
+
 The module imports nothing of jax (the jax endpoints of the cached
 legs are imported inside their test), so the card leg runs on a
 machine without it.
@@ -323,6 +331,101 @@ def test_fuzz_bias_runs_the_quarantine_path(bias):
     assert bg > 0 and routed > 0, (bg, routed)
 
 
+def _route(burst: dict, clock: FakeClock, ref: RefStore, pmap,
+           stores: list) -> None:
+    """One burst on the reference store (the oracle's) and, routed by the
+    partition map, on the shard stores (fuzz/driver.py `_route_burst`)."""
+    kind = burst["kind"]
+    if kind == "advance":
+        clock.advance(burst["dt"])
+    elif kind == "write":
+        ops = [(op["op"] == "delete", op["rel"]) for op in burst["ops"]]
+        ref.write([RefUpdate(RefOp.DELETE if d else RefOp.TOUCH,
+                             ref_parse(r)) for d, r in ops])
+        groups: dict = {}
+        for d, r in ops:
+            rel = parse_relationship(r)
+            groups.setdefault(pmap.shard_of(rel.resource.type,
+                                            rel.resource.id), []).append(
+                RelationshipUpdate(UpdateOp.DELETE if d else UpdateOp.TOUCH,
+                                   rel))
+        for k, ups in sorted(groups.items()):
+            stores[k].write(ups)
+    elif kind == "dbf":
+        f = (burst["resource_type"], burst["relation"], burst["resource_id"])
+        ref.delete_by_filter(RefFilter(resource_type=f[0], relation=f[1],
+                                       resource_id=f[2]))
+        flt = RelationshipFilter(resource_type=f[0], relation=f[1],
+                                 resource_id=f[2])
+        for k in pmap.shards_for_filter(flt):
+            stores[k].delete_by_filter(flt)
+    elif kind == "bulk":
+        ref.bulk_load([ref_parse(r) for r in burst["rels"]])
+        _route_bulk(burst["rels"], pmap, stores)
+    else:
+        raise ValueError(f"unknown burst kind {kind!r}")
+
+
+def _route_bulk(rels: list, pmap, stores: list) -> None:
+    groups: dict = {}
+    for r in rels:
+        rel = parse_relationship(r)
+        groups.setdefault(pmap.shard_of(rel.resource.type, rel.resource.id),
+                          []).append(rel)
+    for k, subset in sorted(groups.items()):
+        stores[k].bulk_load(subset)
+
+
+def replay_sharded(bias: str, seed: int, device: str = "cpu") -> int:
+    """Replay one case through a `ShardedEndpoint` over two `torch://`
+    shards (the reference fuzz's `sharded2` role); returns the number of
+    compared answers.  Raises on the first divergence, naming the seed."""
+    from spicedb_kubeapi_proxy_tpu.spicedb.sharding import (
+        partition_map_for_schema as ref_partition_map)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb import schema as sch
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.sharding import (
+        ShardedEndpoint, partition_map_for_schema)
+    schema_bias, delta_bias = _biases(bias)
+    case = build_case(seed, schema_bias=schema_bias, delta_bias=delta_bias)
+    schema = sch.parse_schema(case.schema_text)
+    pmap = partition_map_for_schema(schema, 2)
+    assert pmap.validate_schema(schema)[0] == []
+    assert pmap.describe() == ref_partition_map(case.parsed_schema(),
+                                                2).describe()
+    clock = FakeClock()
+    ref = RefStore(clock=clock.now)
+    stores = [TupleStore(clock=clock.now) for _ in range(2)]
+    ref.bulk_load([ref_parse(r) for r in case.init_rels])
+    _route_bulk(case.init_rels, pmap, stores)
+    oracle = Evaluator(case.parsed_schema(), ref)
+    url = "torch://" if device == "cuda" else "torch://?device=cpu"
+    bs = Bootstrap(case.schema_text, "")
+    ep = ShardedEndpoint(pmap, [create_endpoint(url, bs, store=st)
+                                for st in stores], schema=schema)
+    n = 0
+    for step in range(-1, len(case.bursts)):
+        if step >= 0:
+            _route(case.bursts[step], clock, ref, pmap, stores)
+        ids_of = {rt: ref.object_ids_of_type(rt)[:12]
+                  for rt, _ in case.targets}
+        want = _oracle_answers(oracle, case, ids_of)
+        got = asyncio.run(_answers(ep, case, ids_of))
+        if got != want:
+            msg = (f"DIVERGENCE seed={seed} bias={bias} endpoint=sharded2 "
+                   f"device={device} step={step} map={pmap.describe()}: "
+                   f"{_describe(case, ids_of, got, want)}")
+            print(msg)
+            raise AssertionError(msg)
+        n += len(got[0]) + sum(len(c) for c in got[1])
+    ep.wait_rebuilds()
+    return n
+
+
+@pytest.mark.parametrize("bias,seed", CELLS)
+def test_sharded_fuzz_case_answers_as_the_oracle(bias, seed):
+    assert replay_sharded(bias, seed) > 0
+
+
 def _needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
@@ -334,3 +437,10 @@ def test_card_fuzz_case_answers_as_the_oracle(bias, seed):
     _needs_card()
     counts = replay(bias, seed, device="cuda")
     assert all(n > 0 for n in counts.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias,seed", CELLS)
+def test_card_sharded_fuzz_case_answers_as_the_oracle(bias, seed):
+    _needs_card()
+    assert replay_sharded(bias, seed, device="cuda") > 0

@@ -636,3 +636,95 @@ def test_promotion_and_rejoin_run_with_jax_blocked():
     assert res["ids"] == [["ns/p0", "ns/p1", "ns/p2"]] * 2
     assert not [m for m in res["modules"] if _is_forbidden(m)]
     assert set(FAILOVER_MODULES) <= set(res["modules"])
+
+
+# tuple-space sharding and the schema lint
+SHARDING_MODULES = [
+    "spicedb_kubeapi_proxy_tpu_torch.spicedb.sharding",
+    "spicedb_kubeapi_proxy_tpu_torch.spicedb.sharding.metrics",
+    "spicedb_kubeapi_proxy_tpu_torch.spicedb.sharding.partition",
+    "spicedb_kubeapi_proxy_tpu_torch.spicedb.sharding.revvec",
+    "spicedb_kubeapi_proxy_tpu_torch.spicedb.sharding.router",
+    "spicedb_kubeapi_proxy_tpu_torch.spicedb.schema_lint",
+]
+
+
+@pytest.mark.parametrize("module", SHARDING_MODULES)
+def test_sharding_module_imports_nothing_forbidden(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = ROOT / module.replace(".", "/") / "__init__.py"
+    assert path.exists(), module
+    bad = [m for m in _imports(path) if _is_forbidden(m)]
+    assert bad == [], f"{module} imports {bad}"
+
+
+_PROBE_SHARDING = _BLOCK + r"""
+import asyncio, json, os, tempfile
+from spicedb_kubeapi_proxy_tpu_torch.kubefake.apiserver import (
+    FakeKubeApiServer)
+from spicedb_kubeapi_proxy_tpu_torch.proxy.httpcore import (
+    HandlerTransport, Headers, Request)
+from spicedb_kubeapi_proxy_tpu_torch.proxy.server import Options, ProxyServer
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import Bootstrap
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.schema_lint import lint_schema
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.sharding import (
+    PartitionMap, ShardRouter)
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import SubjectRef
+schema = ("definition user {}\ndefinition pod { relation creator: user\n"
+          "permission view = creator }\ndefinition note {\n"
+          "relation creator: user\npermission view = creator }")
+kube = FakeKubeApiServer()
+kube.seed("", "v1", "pods", {"metadata": {"name": "p0", "namespace": "ns"}})
+rule = {"apiVersion": "authzed.com/v1alpha1", "kind": "ProxyRule",
+        "metadata": {"name": "list-pods"},
+        "match": [{"apiVersion": "v1", "resource": "pods",
+                   "verbs": ["list"]}],
+        "prefilter": [{"fromObjectIDNamespaceExpr":
+                       "{{split_namespace(resourceId)}}",
+                       "fromObjectIDNameExpr": "{{split_name(resourceId)}}",
+                       "lookupMatchingResources": {
+                           "tpl": "pod:$#view@user:{{user.name}}"}}]}
+from spicedb_kubeapi_proxy_tpu_torch.config import proxyrule
+rules = [proxyrule.parse_doc(rule)]
+proxy = ProxyServer(Options(
+    spicedb_endpoint="torch://?device=cpu", rule_configs=rules,
+    bootstrap=Bootstrap(schema, "pod:ns/p0#creator@user:ann\n"
+                                "note:n1#creator@user:ann"),
+    upstream_transport=HandlerTransport(kube), shards=2,
+    partition_map="pod=1", data_dir=tempfile.mkdtemp(), wal_fsync="never"))
+router = ShardRouter(PartitionMap.parse("pod=1", n_shards=2),
+                     [HandlerTransport(proxy.handler)] * 2,
+                     rule_configs=rules)
+
+async def go():
+    ids = [sorted(await proxy.endpoint.lookup_resources(
+        t, "view", SubjectRef("user", "ann"))) for t in ("pod", "note")]
+    resp = await router.handle(Request("GET", "/api/v1/pods", headers=Headers(
+        [("X-Remote-User", "ann"), ("Accept", "application/json")])))
+    return ids, resp.status, resp.headers.get("X-Authz-Shard"), \
+        resp.headers.get("X-Authz-Revision")
+
+ids, status, shard, token = asyncio.run(go())
+codes = [f.code for f in lint_schema(proxy.endpoint.schema, rules,
+                                     partition_map=proxy.sharding)]
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None)
+print(json.dumps({"ids": ids, "status": status, "shard": shard,
+                  "token": token, "codes": codes, "modules": loaded}))
+"""
+
+
+def test_sharded_proxy_router_and_lint_run_with_jax_blocked():
+    """A two-shard proxy on `torch://?device=cpu` with a data dir, a
+    router in front of it and the schema lint, with jax, h11, yaml and
+    cryptography unimportable: nothing of the reference is loaded."""
+    out = subprocess.run([sys.executable, "-c", _PROBE_SHARDING], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["ids"] == [["ns/p0"], ["n1"]]
+    assert (res["status"], res["shard"], res["token"]) == (200, "1",
+                                                           "0:1,1:1")
+    assert res["codes"] == []
+    assert not [m for m in res["modules"] if _is_forbidden(m)]
+    assert set(SHARDING_MODULES) <= set(res["modules"])
