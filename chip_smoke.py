@@ -309,9 +309,45 @@ put down to the card or to the host.
    `--shard-leaders` router process, and `--lint-schema-json`
    (`shard_cli`).  Every read kernel and `scatter_rows` must launch in
    (b)-(d).
+22. the remote endpoint, between 18 and 19, on phase 16's batched
+   `torch://` endpoint (multitenant-1m, uncut), served by the port's
+   `PermissionsGrpcServer` with a bearer token (`remote_path`).  Its
+   `transport` line says `grpc` (grpcio importable: a loopback gRPC
+   server and four `RemoteEndpoint` clients) or `in-process` (the seven
+   handlers called directly, requests and answers through the port's
+   wire codecs).  REMOTE_CLIENTS x REMOTE_LOOKUPS concurrent
+   namespace#view LookupResources fuse on the server (fewer fused
+   batches than RPCs) and equal one direct 256-lane batch and the
+   oracle; one pod#view LookupResources (thousands of ids, one stream
+   message each) is timed against the direct call; a 10,000-pair
+   CheckBulkPermissions equals the direct bulk check; REMOTE_WRITES
+   WriteRelationships move the revision by one each, a ReadRelationships
+   returns them, a DeleteRelationships takes them back, a Watch sees
+   them; with grpc a wrong token gets UNAUTHENTICATED and `python3 -m
+   spicedb_kubeapi_proxy_tpu_torch.permsd --spicedb-endpoint torch://`
+   on deploy/'s bootstrap answers a check and exits 0 on SIGTERM;
+   without it permsd and `grpc://` fail with the "requires grpcio"
+   message.  Every read kernel and `scatter_rows` launch.
+23. the fleet plane, after 21's (f), on its per-shard lineages
+   (`fleet_path`): two `python3 -m spicedb_kubeapi_proxy_tpu_torch
+   --spicedb-endpoint torch:// --data-dir <lineage>` shard-leader
+   processes, each with its own CUDA context and graph on the card
+   (shard 0 multitenant-1m, shard 1 the configmap and secret classes),
+   a `--shard-leaders ... --fleet-peers ...` router process and phase
+   21's fake kube-apiserver on a loopback socket, managed by the port's
+   `ProcessFleet`.  The port's `OpenLoopRunner` offers FLEET_RATE
+   requests a second (lists and checks, FLEET_MIX, zipfian users) for
+   FLEET_WINDOW_S through the router; then the router's /debug/fleet
+   must assemble most of its sampled list traces across the router and
+   a leader (each child inside its hop span, the tier sums equal to the
+   root latency), /debug/tail's deltas must sum to its gap, a sample of
+   lists must equal the oracle, each leader's /metrics must show kernel
+   launches, and authz_loadgen_lag_seconds must be exported; a second
+   window kills leader 1 with SIGKILL, and /debug/fleet still answers
+   with that member's error; the others exit 0 on SIGTERM.
 
 Phases run in the order 1-9, 11, 13a-b, 14, 15, 10, 13c, 12, 13d, 16, 17a,
-18, 19, 20, 21, 17b, and each phase's seconds are logged.  Any failed phase raises and the script
+18, 22, 19, 20, 21, 23, 21 (g), 17b, and each phase's seconds are logged.  Any failed phase raises and the script
 exits non-zero.  The second-to-last line is the kernel table as JSON,
 the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -324,6 +360,7 @@ import asyncio
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -349,6 +386,7 @@ ROUND_GROUP_DELETES = 8
 ROUND_GRANTS = 2        # namespace viewer grants on one namespace
 ISOLATION_ROUND = 8
 CHURN_ORACLE_CHECKS = 500
+CHURN_ORACLE_PODS = 2_000   # pods outside a lookup the oracle checks too
 
 # phase 10, the caveated deployment: caveated_rbac at multitenant-1m's
 # users, groups and pods; the generator's own caveat mix and seed
@@ -495,6 +533,7 @@ SHARD_SECRETS = 200_000
 SHARD_NAMESPACES = 2_000        # ids of each of cfgns and secns
 SHARD_KUBE_CONFIGMAPS = 10_000  # configmaps the fake apiserver holds
 SHARD_LISTS = 64                # pod lists and configmap lists in (b)
+SHARD_ORACLE_LISTS = 8          # of each type, held against the oracle
 SHARD_CREATES = 32              # pod creates and configmap creates in (c)
 SHARD_BULK_CHECKS = 10_000
 SHARD_ISOLATION_LISTS = 64      # pod lists during shard 1's rebuild in (d)
@@ -551,6 +590,29 @@ update:
   creates:
   - tpl: "pod:{{namespacedName}}#creator@user:{{user.name}}"
 """
+# phase 22, the remote endpoint on phase 16's endpoint
+REMOTE_CLIENTS = 4          # RemoteEndpoint "proxies", each its own channel
+REMOTE_LOOKUPS = 64         # concurrent LookupResources a client
+REMOTE_BULK = 10_000        # pairs in the one CheckBulkPermissions
+REMOTE_WRITES = 32          # WriteRelationships calls, one update each
+REMOTE_ORACLE_USERS = 4     # burst lookups held against the oracle
+REMOTE_ORACLE_CHECKS = 200  # bulk pairs held against the oracle
+REMOTE_TOKEN = "phase-22-token"
+# the burst's lookups: the list-namespaces prefilter's (tens of ids a
+# user).  A pod#view lookup streams thousands of ids, one gRPC message
+# each, at multitenant-1m (the burst's 256 took 117 s over loopback gRPC
+# on the card); one is timed beside the burst
+REMOTE_LOOKUP_TYPE = "namespace"
+# phase 23, the fleet plane on phase 21's lineages: about half the rate
+# phase 21 (b) sustained through the in-process proxy (~20 lists/s)
+FLEET_WINDOW_S = 20.0
+FLEET_RATE = 50.0           # requests a second, offered open-loop
+FLEET_MIX = (("filter", 0.2), ("check", 0.8))   # ~10 lists/s, ~40 checks/s
+FLEET_KILL_WINDOW_S = 6.0   # the second window, leader 1 killed in it
+FLEET_KILL_AT_S = 2.0
+FLEET_ORACLE_LISTS = 6      # lists of each type held against the oracle
+FLEET_ORACLE_GETS = 50      # checks (gets) held against the oracle
+FLEET_INSIDE_SHARE = 0.9    # assembled traces whose child fits its hop
 SHARD_CLI_MAP = "pod=1,podns=1"
 SHARD_CLI_TUPLES = ("namespace:team-a#creator@user:alice",
                     "podns:team-a#creator@user:alice",
@@ -1536,12 +1598,20 @@ def churn(ep, w, timer, peak, warm_lookup_s, n_rounds: int = N_ROUNDS):
             raise AssertionError(f"check pod:{p} user:{u} differs from the "
                                  "oracle")
     t1 = time.perf_counter()
+    # the creator's lookup against the oracle's checks of every returned
+    # pod, the pods it created and CHURN_ORACLE_PODS drawn at random (the
+    # oracle's own lookup enumerates all 200,000 pods: ~60 s)
     creator = SubjectRef("user", plan[-1]["created"][0][2])
-    want = sorted(oracle.lookup_resources("pod", "view", creator))
-    if sorted(res2[subjects_of[-1].index(creator)]) != want:
+    got_ids = set(res2[subjects_of[-1].index(creator)])
+    cand = got_ids | {c[0] for r in plan for c in r["created"]
+                      if c[2] == creator.id} | {
+        pods[int(i)] for i in rng.choice(len(pods), CHURN_ORACLE_PODS,
+                                         replace=False)}
+    if got_ids != _oracle_pods(oracle, sorted(cand), creator):
         raise AssertionError(f"lookup for {creator} differs from the oracle")
     log(f"oracle: {CHURN_ORACLE_CHECKS} touched-pair checks "
-        f"({t1 - t0:.1f} s) and 1 creator lookup "
+        f"({t1 - t0:.1f} s) and 1 creator lookup ({len(got_ids)} pods) "
+        f"against the oracle's checks of {len(cand)} pods "
         f"({time.perf_counter() - t1:.1f} s) equal")
     log(f"phase 9 wall time {time.perf_counter() - t_phase:.1f} s")
     return out_row
@@ -7596,7 +7666,8 @@ def _sharded(proxy):
     return ep
 
 
-def shard_path(w, smi_line: str, device: str = "cuda") -> dict:
+def shard_path(w, smi_line: str, device: str = "cuda",
+               keep: bool = False) -> dict:
     """Phase 21: a two-shard deployment at full width on the card.
 
     Shard 0 holds multitenant-1m uncut (`w`; its group, tenant, namespace
@@ -7615,8 +7686,9 @@ def shard_path(w, smi_line: str, device: str = "cuda") -> dict:
     loaded (journaled) and each shard's graph built and prewarmed; the
     HBM ledger of the two generations at least 90 % of the memory the
     phase allocated.  (b) One burst of SHARD_LISTS pod lists and as many
-    configmap lists: every list equals the oracle's; each shard's
-    dispatcher fused lookups of its own type only; the routed counter
+    configmap lists: every list equals its shard's direct lookup of the
+    same user, and SHARD_ORACLE_LISTS of each type the oracle's; each
+    shard's dispatcher fused lookups of its own type only; the routed counter
     counts both shards.  (c) SHARD_CREATES pod creates and as many
     configmap creates at once, dual writes through the worker: each lands
     on its owning shard and no batch of the other type commits on a
@@ -7633,7 +7705,11 @@ def shard_path(w, smi_line: str, device: str = "cuda") -> dict:
     dir: both lineages recover, both graphs warm-start, the first lists
     equal the oracle.  (f) SHARD_SPANNING_MAP raises RouterConfigError
     before any graph is built.  Returns the launches of (b)-(d), counted
-    from zero, and the phase's seconds."""
+    from zero, and the phase's seconds; with `keep`, also what phase 23
+    boots its shard-leader processes from (`out["fleet"]`: the temporary
+    directory, left for the caller to remove, with the lineages under
+    `data/shard-<k>`, the fake apiserver, the oracle, the schema, the
+    rules and the user count)."""
     import shutil
     import tempfile
 
@@ -7835,20 +7911,24 @@ def shard_path(w, smi_line: str, device: str = "cuda") -> dict:
         routed1 = dict(shard_metrics._routed.snapshot())
         pod_lists = [listed(r) for r, _ in res[:SHARD_LISTS]]
         cm_lists = [listed(r) for r, _ in res[SHARD_LISTS:]]
+        # every list against its shard's direct lookup of the same user,
+        # a sample of them against the oracle
         t_or = time.perf_counter()
-        for u, got in zip(pod_users, pod_lists):
-            want = _oracle_ids(oracle, "pod", seeded_pods,
-                               SubjectRef("user", u))
-            if got != want:
-                raise AssertionError(f"{u}'s pod list ({len(got)}) differs "
-                                     f"from the oracle's ({len(want)})")
-        for u, got in zip(cm_users, cm_lists):
-            want = _oracle_ids(oracle, "configmap", seeded_cms,
-                               SubjectRef("user", u))
-            if got != want or not got:
-                raise AssertionError(f"{u}'s configmap list ({len(got)}) "
-                                     f"differs from the oracle's "
-                                     f"({len(want)})")
+        for typ, ep_k, users, lists, pool in (
+                ("pod", eps[0], pod_users, pod_lists, seeded_pods),
+                ("configmap", eps[1], cm_users, cm_lists, seeded_cms)):
+            direct = asyncio.run(ep_k.lookup_resources_batch(
+                typ, "view", [SubjectRef("user", u) for u in users]))
+            pool_set = set(pool)
+            for i, (u, got, ids) in enumerate(zip(users, lists, direct)):
+                if got != set(ids) & pool_set or (typ == "configmap"
+                                                  and not got):
+                    raise AssertionError(f"{u}'s {typ} list ({len(got)}) "
+                                         f"differs from the shard's lookup")
+                if i < SHARD_ORACLE_LISTS and got != _oracle_ids(
+                        oracle, typ, pool, SubjectRef("user", u)):
+                    raise AssertionError(f"{u}'s {typ} list ({len(got)}) "
+                                         f"differs from the oracle's")
         oracle_b_s = time.perf_counter() - t_or
         d_fused = [(a1 - a0, c1 - c0) for (a0, c0), (a1, c1)
                    in zip(fused0, fused1)]
@@ -7872,7 +7952,8 @@ def shard_path(w, smi_line: str, device: str = "cuda") -> dict:
             f"configmaps {_pcts(cm_lat)}; items per pod list median "
             f"{int(np.median([len(x) for x in pod_lists]))}, per configmap "
             f"list median {int(np.median([len(x) for x in cm_lists]))}; "
-            f"all {2 * SHARD_LISTS} equal the oracle's ({oracle_b_s:.1f} s); "
+            f"all {2 * SHARD_LISTS} equal their shard's direct lookup, "
+            f"{2 * SHARD_ORACLE_LISTS} the oracle's ({oracle_b_s:.1f} s); "
             f"fused (lookups, checks) by shard {d_fused}, lookup types by "
             f"shard {lr_types}; authz_shard_routed_total moved {d_routed}; "
             f"launches so far { {k: v for k, v in kernels.LAUNCHES.items() if v} } "
@@ -8313,7 +8394,15 @@ def shard_path(w, smi_line: str, device: str = "cuda") -> dict:
         log(f"phase 21 (f) partition_map={SHARD_SPANNING_MAP!r} refused "
             f"before any graph: {why.splitlines()[1].strip()[:160]}...; "
             f"card memory allocated unchanged")
-    finally:
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    if keep:
+        out["fleet"] = {"tmp": tmp, "data": os.path.join(tmp, "data"),
+                        "kube": kube, "oracle": oracle,
+                        "schema_text": schema_text, "rules": _shard_rules(),
+                        "n_users": n_users}
+    else:
         shutil.rmtree(tmp, ignore_errors=True)
     idle = [k for k in READ_KERNELS + ("scatter_rows",) if launches[k] == 0]
     if idle:
@@ -8567,6 +8656,862 @@ def shard_cli(smi_line: str, device: str = "cuda") -> dict:
     return {"s": time.perf_counter() - t_phase}
 
 
+# -- phase 22, the remote endpoint ----------------------------------------------
+
+
+class _Aborted(Exception):
+    """An in-process handler's abort (grpc's own context raises too)."""
+
+
+class _HandlerContext:
+    """The servicer context the seven handlers see when called
+    in-process: `abort` raises, `cancelled` turns true on close."""
+
+    def __init__(self):
+        self.done = False
+
+    async def abort(self, code, details):
+        raise _Aborted(f"{code}: {details}")
+
+    def cancelled(self) -> bool:
+        return self.done
+
+
+class _HandlerClient:
+    """The verbs of a `RemoteEndpoint` over a `PermissionsGrpcServer`'s
+    handlers called in-process (where grpcio is absent): each request
+    encoded with the port's wire encoders, each answer decoded with its
+    decoders, as the gRPC transport would carry them."""
+
+    def __init__(self, server):
+        from spicedb_kubeapi_proxy_tpu_torch.spicedb import wire
+        self.wire = wire
+        self.handlers = server.handlers()
+
+    def _fn(self, verb: str):
+        path = ("/authzed.api.v1.WatchService/Watch" if verb == "Watch"
+                else "/authzed.api.v1.PermissionsService/" + verb)
+        return self.handlers[path][1]
+
+    async def _unary(self, verb: str, payload: bytes) -> bytes:
+        return await self._fn(verb)(payload, _HandlerContext())
+
+    async def _stream(self, verb: str, payload: bytes) -> list:
+        return [f async for f in self._fn(verb)(payload, _HandlerContext())]
+
+    async def lookup_resources(self, resource_type, permission, subject):
+        from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+            Permissionship)
+        frames = await self._stream("LookupResources",
+                                    self.wire.enc_lookup_request(
+                                        resource_type, permission, subject))
+        return [rid for rid, ship in map(self.wire.dec_lookup_response,
+                                         frames)
+                if ship == Permissionship.HAS_PERMISSION]
+
+    async def check_permission(self, req):
+        return self.wire.dec_check_response(await self._unary(
+            "CheckPermission", self.wire.enc_check_request(req)))
+
+    async def check_bulk_permissions(self, reqs):
+        return self.wire.dec_bulk_response(await self._unary(
+            "CheckBulkPermissions", self.wire.enc_bulk_request(reqs)))
+
+    async def read_relationships(self, flt):
+        return [self.wire.dec_read_response(f) for f in await self._stream(
+            "ReadRelationships", self.wire.enc_read_request(flt))]
+
+    async def write_relationships(self, updates, preconditions=()):
+        return self.wire.dec_write_response(await self._unary(
+            "WriteRelationships", self.wire.enc_write_request(
+                list(updates), list(preconditions))))
+
+    async def delete_relationships(self, flt, preconditions=()):
+        return self.wire.dec_delete_response(await self._unary(
+            "DeleteRelationships", self.wire.enc_delete_request(
+                flt, list(preconditions))))
+
+    def watch(self, object_types=None):
+        """The Watch handler pumped on the running loop into a queue:
+        `poll(timeout)` gives a WatchUpdate or None, `close()` ends it."""
+        import queue
+
+        from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import WatchUpdate
+        q: queue.Queue = queue.Queue()
+        ctx = _HandlerContext()
+        gen = self._fn("Watch")(self.wire.enc_watch_request(object_types),
+                                ctx)
+
+        async def pump():
+            async for frame in gen:
+                revision, updates = self.wire.dec_watch_response(frame)
+                q.put(WatchUpdate(updates=tuple(updates), revision=revision))
+
+        task = asyncio.get_running_loop().create_task(pump())
+
+        class _Watch:
+            def poll(self, timeout: float):
+                try:
+                    return q.get(timeout=timeout)
+                except queue.Empty:
+                    return None
+
+            def close(self):
+                ctx.done = True
+                task.cancel()
+
+        return _Watch()
+
+    async def close(self) -> None:
+        pass
+
+
+def _grpc_transport() -> str:
+    """`grpc` where grpcio imports, else `in-process`."""
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.grpc_remote import _grpc
+    try:
+        _grpc()
+    except ImportError:
+        return "in-process"
+    return "grpc"
+
+
+def remote_path(p16: dict, smi_line: str, device: str = "cuda") -> dict:
+    """Phase 22: the remote endpoint on phase 16's batched `torch://`
+    endpoint at multitenant-1m (see the module docstring).  Returns the
+    launches of the remote traffic, counted from zero, the transport
+    and the phase's seconds."""
+    import numpy as np
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.dispatch import (
+        BatchingEndpoint)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import (
+        EndpointConfigError, create_endpoint)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.grpc_remote import (
+        PermissionsGrpcServer)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        CheckRequest, ObjectRef, Relationship, RelationshipFilter,
+        RelationshipUpdate, SubjectFilter, SubjectRef, UpdateOp)
+
+    t_phase = time.perf_counter()
+    _switch(True)
+    proxy, ep = p16["proxy"], p16["ep"]
+    ep.wait_rebuilds()
+    served = proxy.endpoint
+    while not isinstance(served, BatchingEndpoint):
+        served = served.inner
+    transport = _grpc_transport()
+    log(f"phase 22 transport: {transport}")
+    rng = np.random.default_rng(SEED + 22)
+    n = REMOTE_CLIENTS * REMOTE_LOOKUPS
+    subjects = [SubjectRef("user", f"u{i}") for i in range(n)]
+    seeded = [f"ns{p % PROXY_NAMESPACES}/p{p}" for p in range(PROXY_PODS)]
+    seeded_set = set(seeded)
+    pairs = [CheckRequest(ObjectRef("pod", seeded[int(p)]), "view",
+                          subjects[int(u)])
+             for p, u in zip(rng.integers(0, len(seeded), REMOTE_BULK),
+                             rng.integers(0, n, REMOTE_BULK))]
+    writer = SubjectRef("user", f"u{n + 1}")
+    write_pods = [seeded[int(i)] for i in rng.choice(len(seeded),
+                                                      REMOTE_WRITES,
+                                                      replace=False)]
+    mine = RelationshipFilter(resource_type="pod", relation="creator",
+                              subject=SubjectFilter(type="user",
+                                                    id=writer.id))
+    oracle = ep._oracle
+    server = PermissionsGrpcServer(served, token=REMOTE_TOKEN)
+    out: dict = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    url = "torch://" if device == "cuda" else f"torch://?device={device}"
+    permsd = [sys.executable, "-m", "spicedb_kubeapi_proxy_tpu_torch.permsd",
+              "--spicedb-endpoint", url]
+    # permsd starts now, beside the in-process traffic (its imports and
+    # CUDA context take seconds), and is asked once the traffic is done
+    started = (_permsd_start(permsd, root, env) if transport == "grpc"
+               else None)
+    try:
+
+        async def drive():
+            port = None
+            if transport == "grpc":
+                from spicedb_kubeapi_proxy_tpu_torch.spicedb import (
+                    grpc_remote)
+                port = await server.start("127.0.0.1:0")
+                clients = [grpc_remote.RemoteEndpoint(
+                    f"127.0.0.1:{port}", insecure=True, token=REMOTE_TOKEN)
+                    for _ in range(REMOTE_CLIENTS)]
+            else:
+                clients = [_HandlerClient(server)
+                           for _ in range(REMOTE_CLIENTS)]
+            try:
+                # each client's channel up before the burst
+                await asyncio.gather(*(c.lookup_resources("pod", "view",
+                                                          subjects[0])
+                                       for c in clients))
+                kernels.reset_launches()
+                stats0 = dict(served.stats)
+
+                async def one(c, s):
+                    t = time.perf_counter()
+                    ids = await c.lookup_resources(REMOTE_LOOKUP_TYPE,
+                                                   "view", s)
+                    return ids, time.perf_counter() - t
+
+                t = time.perf_counter()
+                res = await asyncio.gather(*(
+                    one(clients[i % REMOTE_CLIENTS], s)
+                    for i, s in enumerate(subjects)))
+                out["burst_wall"] = time.perf_counter() - t
+                stats1 = dict(served.stats)
+                out["lookups"] = [set(ids) for ids, _ in res]
+                out["lat"] = [s for _, s in res]
+                out["fused"] = (stats1["fused_lookups"]
+                                - stats0["fused_lookups"])
+                # one pod#view lookup (a proxied pod list's prefilter): the
+                # stream carries one LookupResourcesResponse an id
+                t = time.perf_counter()
+                out["pod_ids"] = len(await clients[0].lookup_resources(
+                    "pod", "view", subjects[0]))
+                out["pod_s"] = time.perf_counter() - t
+                t = time.perf_counter()
+                bulk = await clients[0].check_bulk_permissions(pairs)
+                out["bulk_s"] = time.perf_counter() - t
+                out["bulk"] = [r.permissionship for r in bulk]
+                watcher = clients[1].watch(["pod"])
+                await asyncio.sleep(0.5)
+                revs, write_s = [], []
+                for i, p in enumerate(write_pods):
+                    t = time.perf_counter()
+                    revs.append(await clients[i % REMOTE_CLIENTS]
+                                .write_relationships([RelationshipUpdate(
+                                    UpdateOp.TOUCH, Relationship(
+                                        ObjectRef("pod", p), "creator",
+                                        writer))]))
+                    write_s.append(time.perf_counter() - t)
+                out["revs"], out["write_s"] = revs, write_s
+                out["read"] = {r.resource.id for r in
+                               await clients[2].read_relationships(mine)}
+                out["after_write"] = set(await clients[3].lookup_resources(
+                    "pod", "view", writer))
+                out["oracle_after_write"] = _oracle_pods(oracle, seeded,
+                                                         writer)
+                out["rev_delete"] = await clients[0].delete_relationships(mine)
+                out["after_delete"] = set(await clients[0].lookup_resources(
+                    "pod", "view", writer))
+                out["oracle_after_delete"] = _oracle_pods(oracle, seeded,
+                                                          writer)
+                seen = []
+                loop = asyncio.get_running_loop()
+                deadline = time.perf_counter() + 30
+                while (len(seen) < REMOTE_WRITES + 1
+                       and time.perf_counter() < deadline):
+                    upd = await loop.run_in_executor(None, watcher.poll, 1.0)
+                    if upd is not None:
+                        seen.extend((u.op, u.rel.resource.id)
+                                    for u in upd.updates)
+                watcher.close()
+                out["watch"] = seen
+                out["launches"] = dict(kernels.LAUNCHES)
+                if transport == "grpc":
+                    bad = grpc_remote.RemoteEndpoint(
+                        f"127.0.0.1:{port}", insecure=True,
+                        token="not-" + REMOTE_TOKEN)
+                    try:
+                        await bad.check_permission(pairs[0])
+                        out["bad_token"] = "answered"
+                    except grpc_remote.RemoteEndpointError as e:
+                        out["bad_token"] = str(e.code)
+                    finally:
+                        await bad.close()
+                # the same burst and bulk on the bare endpoint, in-process
+                t = time.perf_counter()
+                out["direct"] = [set(x) for x in
+                                 await ep.lookup_resources_batch(
+                                     REMOTE_LOOKUP_TYPE, "view", subjects)]
+                out["direct_s"] = time.perf_counter() - t
+                t = time.perf_counter()
+                out["direct_pod_ids"] = len(await ep.lookup_resources(
+                    "pod", "view", subjects[0]))
+                out["direct_pod_s"] = time.perf_counter() - t
+                out["direct_bulk"] = [r.permissionship for r in
+                                      await ep.check_bulk_permissions(pairs)]
+            finally:
+                for c in clients:
+                    await c.close()
+                if transport == "grpc":
+                    await server.stop()
+
+        asyncio.run(drive())
+        launches = out["launches"]
+
+        # checks
+        if not 1 <= out["fused"] < n:
+            raise AssertionError(f"{n} concurrent lookups fused into "
+                                 f"{out['fused']} batches")
+        if out["lookups"] != out["direct"]:
+            bad = sum(a != b for a, b in zip(out["lookups"], out["direct"]))
+            raise AssertionError(f"{bad} remote lookups differ from the "
+                                 f"direct 256-lane batch")
+        if out["pod_ids"] != out["direct_pod_ids"]:
+            raise AssertionError(f"the remote pod lookup gave "
+                                 f"{out['pod_ids']} ids, the direct one "
+                                 f"{out['direct_pod_ids']}")
+        objects = [i for i in ep.graph().prog.object_ids[REMOTE_LOOKUP_TYPE]
+                   if "\x00" not in i]
+        for i in rng.choice(n, REMOTE_ORACLE_USERS, replace=False):
+            want = _oracle_ids(oracle, REMOTE_LOOKUP_TYPE, objects,
+                               subjects[int(i)])
+            if out["lookups"][int(i)] != want:
+                raise AssertionError(f"{subjects[int(i)].id}'s remote lookup "
+                                     f"differs from the oracle")
+        if out["bulk"] != out["direct_bulk"]:
+            raise AssertionError("the remote bulk check differs from the "
+                                 "direct one")
+        for i in rng.choice(REMOTE_BULK, REMOTE_ORACLE_CHECKS, replace=False):
+            r = pairs[int(i)]
+            ok = oracle.check(r.resource, r.permission, r.subject)
+            if (out["bulk"][int(i)].name == "HAS_PERMISSION") != ok:
+                raise AssertionError(f"remote check {r} differs from the "
+                                     f"oracle")
+        revs = out["revs"]
+        if (revs != list(range(revs[0], revs[0] + REMOTE_WRITES))
+                or out["rev_delete"] != revs[-1] + 1):
+            raise AssertionError(f"revisions {revs}, delete at "
+                                 f"{out['rev_delete']}")
+        if not set(write_pods) <= out["read"]:
+            raise AssertionError("ReadRelationships misses a write")
+        if (not set(write_pods) <= out["after_write"]
+                or out["after_write"] & seeded_set != out["oracle_after_write"]
+                or out["after_delete"] & seeded_set
+                != out["oracle_after_delete"]):
+            raise AssertionError("read-after-write lookups differ from the "
+                                 "oracle")
+        watched = [p for op, p in out["watch"] if op == UpdateOp.TOUCH]
+        if sorted(watched[:REMOTE_WRITES]) != sorted(write_pods):
+            raise AssertionError(f"the watch saw {len(watched)} of "
+                                 f"{REMOTE_WRITES} writes")
+        if transport == "grpc" and out["bad_token"] != \
+                "StatusCode.UNAUTHENTICATED":
+            raise AssertionError(f"a wrong token got {out['bad_token']}")
+        idle = [k for k in READ_KERNELS + ("scatter_rows",)
+                if launches[k] == 0]
+        if idle:
+            raise AssertionError(f"kernels never launched in phase 22: {idle}")
+        lat = out["lat"]
+        ids = sum(len(x) for x in out["lookups"])
+        log(f"phase 22 (a) {REMOTE_CLIENTS} x {REMOTE_LOOKUPS} concurrent "
+            f"{REMOTE_LOOKUP_TYPE}#view LookupResources ({transport}): wall "
+            f"{out['burst_wall']:.4f} s, per RPC {_pcts(lat)}, {ids} ids "
+            f"streamed; fused on the server into {out['fused']} batches; the "
+            f"same {n} lookups as one direct {n}-lane batch "
+            f"{out['direct_s']:.4f} s; all equal to it, {REMOTE_ORACLE_USERS} "
+            f"to the oracle; one pod#view lookup: {out['pod_ids']} ids in "
+            f"{out['pod_s']:.4f} s remote "
+            f"({out['pod_ids'] / out['pod_s']:.0f} ids/s), "
+            f"{out['direct_pod_s']:.4f} s direct ({smi_line})")
+        log(f"phase 22 (b) CheckBulkPermissions of {REMOTE_BULK} pairs "
+            f"{out['bulk_s']:.4f} s, equal to the direct bulk check, "
+            f"{REMOTE_ORACLE_CHECKS} to the oracle; {REMOTE_WRITES} "
+            f"WriteRelationships {_pcts(out['write_s'])}, revisions "
+            f"{revs[0]}..{revs[-1]}, DeleteRelationships at "
+            f"{out['rev_delete']}; the watch saw {len(out['watch'])} updates; "
+            f"read-after-write and after-delete lookups equal the oracle"
+            + (f"; a wrong token: {out['bad_token']}"
+               if transport == "grpc" else "") + f" ({smi_line})")
+        log(f"phase 22 launches: { {k: v for k, v in launches.items() if v} }")
+
+        # permsd and grpc:// as a user runs them
+        if transport == "grpc":
+            seen = _permsd_answers(*started)
+            log(f"phase 22 (c) permsd on {url} over deploy/bootstrap.yaml: "
+                f"answered in {seen['ready_s']:.2f} s ({seen['answers']}, "
+                f"equal to embedded://), SIGTERM to exit 0 in "
+                f"{seen['stop_s']:.2f} s")
+        else:
+            proc = subprocess.run(permsd, cwd=root, env=env,
+                                  capture_output=True, text=True,
+                                  timeout=120)
+            if proc.returncode == 0 or "require grpcio" not in proc.stderr:
+                raise AssertionError(f"permsd without grpcio exited "
+                                     f"{proc.returncode}: "
+                                     f"{proc.stderr[-500:]}")
+            try:
+                create_endpoint("grpc://127.0.0.1:1")
+                raise AssertionError("grpc:// built without grpcio")
+            except EndpointConfigError as e:
+                why = str(e)
+            if "requires grpcio" not in why:
+                raise AssertionError(f"grpc:// raised {why}")
+            log(f"phase 22 (c) without grpcio: permsd exits "
+                f"{proc.returncode} ({proc.stderr.strip().splitlines()[-1]}); "
+                f"grpc:// raises EndpointConfigError ({why})")
+    finally:
+        if started is not None and started[0].poll() is None:
+            started[0].kill()
+            started[0].communicate()
+    secs = time.perf_counter() - t_phase
+    log(f"phase 22 wall time {secs:.1f} s")
+    return {"launches": launches, "transport": transport, "s": secs}
+
+
+def _permsd_start(argv: list, root: str, env: dict) -> tuple:
+    """`python3 -m spicedb_kubeapi_proxy_tpu_torch.permsd` on deploy/'s
+    bootstrap with a bearer token on a loopback port: (the process, its
+    port, the bootstrap's path, its start instant)."""
+    boot = os.path.join(root, "deploy", "bootstrap.yaml")
+    port = _free_port()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        argv + ["--spicedb-bootstrap", boot, "--listen-address",
+                f"127.0.0.1:{port}", "--spicedb-token", REMOTE_TOKEN],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return proc, port, boot, t0
+
+
+def _permsd_answers(proc, port: int, boot: str, t0: float) -> dict:
+    """Two checks and one lookup through a `RemoteEndpoint` to the
+    started permsd, equal to an embedded endpoint's on the same
+    bootstrap, then SIGTERM and exit 0 with no traceback."""
+    import signal
+
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import (
+        Bootstrap, create_endpoint)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.grpc_remote import (
+        RemoteEndpoint, RemoteEndpointError)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        CheckRequest, ObjectRef, SubjectRef)
+
+    asks = [CheckRequest(ObjectRef("pod", "acme-prod/api-0"), "view",
+                         SubjectRef("user", "grace")),
+            CheckRequest(ObjectRef("pod", "acme-prod/api-1"), "view",
+                         SubjectRef("user", "mallory"))]
+
+    async def answers(ep):
+        return ([(await ep.check_permission(r)).permissionship.name
+                 for r in asks]
+                + [sorted(await ep.lookup_resources(
+                    "pod", "view", SubjectRef("user", "mallory")))])
+
+    async def go():
+        client = RemoteEndpoint(f"127.0.0.1:{port}", insecure=True,
+                                token=REMOTE_TOKEN)
+        try:
+            while True:
+                try:
+                    return await answers(client)
+                except RemoteEndpointError:
+                    if proc.poll() is not None or \
+                            time.perf_counter() - t0 > CLI_READY_S:
+                        raise
+                    await asyncio.sleep(0.25)
+        finally:
+            await client.close()
+
+    try:
+        got = asyncio.run(go())
+        ready_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=CLI_STOP_S)
+        stop_s = time.perf_counter() - t1
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    want = asyncio.run(answers(create_endpoint(
+        "embedded://", Bootstrap.from_file(boot))))
+    if got != want or proc.returncode != 0 or "Traceback" in err:
+        raise AssertionError(f"permsd answered {got} (embedded {want}), "
+                             f"exited {proc.returncode}: {err[-1500:]}")
+    return {"ready_s": ready_s, "stop_s": stop_s, "answers": got}
+
+
+# -- phase 23, the fleet plane -----------------------------------------------
+
+
+class _LoopThread:
+    """An event loop on a thread of its own, for a server that must keep
+    accepting while the main thread runs its own loop (phase 23's fake
+    kube-apiserver)."""
+
+    def __init__(self):
+        import threading
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       name="smoke-kube", daemon=True)
+        self.thread.start()
+
+    def run(self, coro, timeout: float = 60.0):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout)
+
+    def close(self) -> None:
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(10)
+        self.loop.close()
+
+
+def _launch_counts(base: str, user: str) -> dict:
+    """A member's `authz_kernel_launches{kernel=}` from its /metrics."""
+    import re
+
+    from spicedb_kubeapi_proxy_tpu_torch.utils.topology import http
+    status, _, body = http("GET", base + "/metrics", user=user, timeout=30)
+    if status != 200:
+        raise AssertionError(f"{base}/metrics answered {status}")
+    return {m.group(1): int(float(m.group(2))) for m in re.finditer(
+        r'^authz_kernel_launches\{kernel="([^"]+)"\} (\S+)$',
+        body.decode(), re.MULTILINE)}
+
+
+def fleet_path(f21: dict, smi_line: str, device: str = "cuda") -> dict:
+    """Phase 23: the fleet plane on phase 21's per-shard lineages (see
+    the module docstring).  `f21` is what `shard_path(..., keep=True)`
+    left: its temporary directory with the checkpointed lineages under
+    `data/shard-<k>`, the fake kube-apiserver, the oracle over both
+    shards' tuples, the schema and the rules.  Returns the launches of
+    the first window summed over the two leader processes (from their
+    /metrics), the members, the numbers logged and the phase's seconds."""
+    import collections
+    import signal
+
+    import yaml
+
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.httpcore import (
+        H11Transport, Headers, HttpServer, Request)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        ObjectRef, SubjectRef)
+    from spicedb_kubeapi_proxy_tpu_torch.utils import tailexplain
+    from spicedb_kubeapi_proxy_tpu_torch.utils.loadgen import (
+        OpenLoopRunner, WorkloadSpec)
+    from spicedb_kubeapi_proxy_tpu_torch.utils.metrics import REGISTRY
+    from spicedb_kubeapi_proxy_tpu_torch.utils.topology import (
+        FleetSpec, ProcessFleet, free_port, http, single_thread_env)
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    kube, oracle = f21["kube"], f21["oracle"]
+    pods, cms = (sorted(f"{ns}/{n}" for ns, objs in kube.objects[
+        ("", "v1", res)].items() for n in objs)
+        for res in ("pods", "configmaps"))
+    # the read rules of phase 21 (the traffic lists and gets): its
+    # configmap delete rule's filter names no resource type, which the
+    # router cannot place on one shard
+    reads = [r for r in f21["rules"] if "update" not in r]
+    fleet = ProcessFleet(FleetSpec(
+        schema_text=f21["schema_text"],
+        rules_yaml=yaml.safe_dump_all(reads), shard_leaders=0,
+        router=False), workdir=os.path.join(f21["tmp"], "fleet"))
+    upstream = _LoopThread()
+    out: dict = {"phase_s": {}}
+    try:
+        async def serve_kube():
+            kube._lock = asyncio.Lock()   # the loop of its first use
+            server = HttpServer(kube)
+            return server, await server.start("127.0.0.1", 0)
+
+        kube_server, kport = upstream.run(serve_kube())
+        kubeconfig = os.path.join(fleet.workdir, "kubeconfig")
+        with open(kubeconfig, "w") as f:
+            json.dump({"current-context": "smoke",
+                       "contexts": [{"name": "smoke", "context": {
+                           "cluster": "fake"}}],
+                       "clusters": [{"name": "fake", "cluster": {
+                           "server": f"http://127.0.0.1:{kport}"}}]}, f)
+        env = single_thread_env({"PYTHONPATH": os.pathsep.join(
+            [root] + [p for p in [os.environ.get("PYTHONPATH")] if p])})
+        for k in [k for k in env if k.startswith("KUBERNETES_SERVICE")]:
+            del env[k]
+        module = [sys.executable, "-m", "spicedb_kubeapi_proxy_tpu_torch"]
+        url = "torch://" if device == "cuda" else f"torch://?device={device}"
+        common = ["--rule-config", fleet.rules_path, "--spicedb-bootstrap",
+                  fleet.bootstrap_path, "--embedded-mode", "--bind-address",
+                  "127.0.0.1", "-v", "2"]
+
+        # (a) boot: two shard leaders on the lineages, then the router
+        t0 = time.perf_counter()
+        leaders = []
+        for k in (0, 1):
+            port = free_port()
+            data = os.path.join(f21["data"], f"shard-{k}")
+            fleet.spawn(f"leader-{k}", "leader", "leader", module + [
+                "--spicedb-endpoint", url, "--data-dir", data,
+                "--wal-fsync", "never", "--secure-port", str(port),
+                "--backend-kubeconfig", kubeconfig,
+                "--no-override-upstream"] + common, port, data_dir=data,
+                env=env)
+            leaders.append(f"http://127.0.0.1:{port}")
+        for k in (0, 1):
+            fleet.wait_ready(f"leader-{k}", CLI_READY_S)
+        t1 = time.perf_counter()
+        rport = free_port()
+        fleet.spawn("router", "router", "router", module + [
+            "--shard-leaders", ",".join(leaders), "--partition-map",
+            SHARD_MAP, "--fleet-peers", ",".join(leaders), "--secure-port",
+            str(rport)] + common, rport, env=env)
+        fleet.wait_ready("router", CLI_READY_S)
+        t2 = time.perf_counter()
+        router_url = fleet.members["router"].url
+        members = []
+        for name, m in sorted(fleet.members.items()):
+            text = fleet.log_text(name)
+            found = [line.split("; endpoint ", 1)[1]
+                     for line in text.splitlines() if "; endpoint " in line]
+            members.append((name, m.proc.pid,
+                            found[-1] if found else "no endpoint (router)"))
+            if m.role == "leader" and not found:
+                raise AssertionError(f"{name} logged no endpoint: "
+                                     f"{text[-1500:]}")
+            if (m.role == "leader" and device == "cuda"
+                    and "NVIDIA" not in found[-1]):
+                raise AssertionError(f"{name} serves {found[-1]}, not the "
+                                     f"card")
+            if m.role == "leader" and "recovered store at revision" \
+                    not in text:
+                raise AssertionError(f"{name} did not recover its lineage: "
+                                     f"{text[-1500:]}")
+        log(f"phase 23 members: " + "; ".join(
+            f"{name} pid {pid} {what}" for name, pid, what in members))
+        log(f"phase 23 (a) two shard leaders on phase 21's lineages ready in "
+            f"{t1 - t0:.2f} s, the router in {t2 - t1:.2f} s more")
+        out["members"] = members
+        out["phase_s"]["a"] = time.perf_counter() - t_phase
+
+        # (b) the open-loop window through the router
+        user0 = "system:smoke"
+        before = [_launch_counts(u, user0) for u in leaders]
+        transport = H11Transport(router_url)
+        statuses: collections.Counter = collections.Counter()
+        sample = {"pod": [], "configmap": []}
+        gets = []
+
+        def target(ev) -> tuple:
+            seq = ev["seq"]
+            typ = "pod" if seq % 2 == 0 else "configmap"
+            if ev["verb"] == "filter":
+                return typ, f"/api/v1/{typ}s", None
+            pool = pods if typ == "pod" else cms
+            oid = pool[(seq * 7919) % len(pool)]
+            ns, name = oid.split("/")
+            return typ, f"/api/v1/namespaces/{ns}/{typ}s/{name}", oid
+
+        def issue_with(strict: bool):
+            async def issue(ev):
+                user = f"u{int(ev['user'][1:]) - 1}"
+                typ, path, oid = target(ev)
+                resp = await transport.round_trip(Request(
+                    "GET", path, headers=Headers([
+                        ("X-Remote-User", user),
+                        ("Accept", "application/json")])))
+                statuses[(ev["verb"], typ, resp.status)] += 1
+                if ev["verb"] == "filter":
+                    if resp.status != 200:
+                        raise RuntimeError(f"list {resp.status}")
+                    if strict and len(sample[typ]) < FLEET_ORACLE_LISTS:
+                        sample[typ].append((user, {
+                            f"{i['metadata']['namespace']}/"
+                            f"{i['metadata']['name']}"
+                            for i in json.loads(resp.body)["items"]}))
+                elif resp.status not in (200, 403):
+                    raise RuntimeError(f"get {resp.status}")
+                elif strict and len(gets) < FLEET_ORACLE_GETS:
+                    gets.append((typ, oid, user, resp.status))
+            return issue
+
+        spec = WorkloadSpec(seed=SEED + 23, duration_s=FLEET_WINDOW_S,
+                            rate_per_s=FLEET_RATE, users=f21["n_users"],
+                            verb_mix=FLEET_MIX)
+        runner = OpenLoopRunner(issue_with(True))
+        report = asyncio.run(runner.run(spec.schedule()))
+        after = [_launch_counts(u, user0) for u in leaders]
+        launches = {k: sum(a.get(k, 0) - b.get(k, 0)
+                           for a, b in zip(after, before))
+                    for k in set().union(*after)}
+        per_leader = [sum(a.get(k, 0) - b.get(k, 0) for k in a)
+                      for a, b in zip(after, before)]
+        lag_line = [line for line in REGISTRY.render().splitlines()
+                    if line.startswith("authz_loadgen_lag_seconds")]
+        if report["errors"] or report["achieved"] != report["offered"]:
+            raise AssertionError(f"the window answered {report} "
+                                 f"({dict(statuses)})")
+        if device == "cuda" and min(per_leader) <= 0:
+            # (the CPU twins count no launch)
+            raise AssertionError(f"kernel launches by leader {per_leader}")
+        if not lag_line:
+            raise AssertionError("authz_loadgen_lag_seconds not exported")
+        t_or = time.perf_counter()
+        for typ, pool in (("pod", pods), ("configmap", cms)):
+            for user, got in sample[typ]:
+                want = _oracle_ids(oracle, typ, sorted(pool),
+                                   SubjectRef("user", user))
+                if got != want:
+                    raise AssertionError(f"{user}'s {typ} list through the "
+                                         f"router ({len(got)}) differs from "
+                                         f"the oracle's ({len(want)})")
+        for typ, oid, user, status in gets:
+            ok = oracle.check(ObjectRef(typ, oid), "view",
+                              SubjectRef("user", user))
+            if status != (200 if ok else 403):
+                raise AssertionError(f"{user}'s get of {typ} {oid} "
+                                     f"answered {status}, oracle {ok}")
+        oracle_s = time.perf_counter() - t_or
+        log(f"phase 23 (b) open loop through the router, {FLEET_RATE:g}/s "
+            f"offered for {FLEET_WINDOW_S:g} s ({dict(FLEET_MIX)}): "
+            f"{report['offered']} offered, {report['achieved']} answered in "
+            f"{report['window_s']} s; p50 {report['p50_ms']} ms, p99 "
+            f"{report['p99_ms']} ms; per verb "
+            + ", ".join(f"{v} {r['count']} p50 {r['p50_ms']} ms p99 "
+                        f"{r['p99_ms']} ms" for v, r in
+                        report["per_verb"].items())
+            + f"; max scheduler lag {report['max_sched_lag_ms']} ms "
+            f"({lag_line[-1]}); statuses {dict(statuses)}; "
+            f"{len(sample['pod'])} + {len(sample['configmap'])} lists and "
+            f"{len(gets)} gets equal the oracle ({oracle_s:.1f} s); kernel "
+            f"launches by leader {per_leader} "
+            f"({ {k: v for k, v in launches.items() if v} }) ({smi_line})")
+        out["report"], out["launches"] = report, launches
+        out["phase_s"]["b"] = time.perf_counter() - t_phase
+
+        # (c) the merged view and the tail report
+        t = time.perf_counter()
+        status, _, body = http("GET", router_url + "/debug/traces",
+                               user=user0, timeout=60)
+        router_traces = json.loads(body)["traces"] if status == 200 else []
+        status_f, _, body = http("GET", router_url + "/debug/fleet",
+                                 user=user0, timeout=60)
+        fleet_s = time.perf_counter() - t
+        merged = json.loads(body)
+        status_t, _, body = http("GET", router_url + "/debug/tail",
+                                 user=user0, timeout=60)
+        tail = json.loads(body)
+        if (status, status_f, status_t) != (200, 200, 200):
+            raise AssertionError(f"/debug answered {status}, {status_f}, "
+                                 f"{status_t}")
+        if any(m["error"] for m in merged["members"]):
+            raise AssertionError(f"members {merged['members']}")
+        assembled = {a["trace_id"]: a for a in merged["traces"]}
+        lists = [t["trace_id"] for t in router_traces
+                 if t["attrs"].get("target") in ("/api/v1/pods",
+                                                 "/api/v1/configmaps")]
+        joined = [tid for tid in lists if tid in assembled
+                  and {"router", "leader"} <= set(assembled[tid]["tiers"])]
+        if not lists or len(joined) * 2 <= len(lists):
+            raise AssertionError(f"{len(joined)} of the router's "
+                                 f"{len(lists)} sampled list traces "
+                                 f"assembled across the fleet")
+        inside = off = 0
+        for a in assembled.values():
+            if a["aligned_by_wall"] or a["wall_fallbacks"]:
+                raise AssertionError(f"trace {a['trace_id']} aligned by "
+                                     f"the wall clock")
+            if abs(a["attributed_ms"] - a["duration_ms"]) > 0.05:
+                off += 1
+            segs = {s["tier"]: s for s in a["segments"]}
+            hops = [sp for sp in segs["router"]["spans"]
+                    if sp["name"] == "hop.shard_forward"]
+            child = segs.get("leader")
+            if child and hops and (
+                    child["offset_ms"] == round(hops[0]["start_ms"], 3)
+                    and child["offset_ms"] + child["duration_ms"]
+                    <= hops[0]["start_ms"] + hops[0]["duration_ms"] + 1e-3):
+                inside += 1
+        if off or inside < FLEET_INSIDE_SHARE * len(assembled):
+            raise AssertionError(f"{off} assembled traces do not reconcile "
+                                 f"with their root; {inside} of "
+                                 f"{len(assembled)} children inside their "
+                                 f"hop span")
+        full = tailexplain.explain(merged, top=10_000)
+        total = sum(r["delta_ms"] for r in full["ranked"])
+        if (not tail.get("enabled") or tail.get("requests", 0) < 2
+                or abs(total - full["gap_ms"]) > 0.01 * full["gap_ms"] + 0.05):
+            raise AssertionError(f"the tail report {tail}; over the merged "
+                                 f"view its deltas sum to {total:.3f} ms "
+                                 f"against a gap of {full['gap_ms']} ms")
+        top = [(r["tier"], r["stage"], r["delta_ms"])
+               for r in tail["ranked"][:4]]
+        costly = [(r["tier"], r["stage"], r["body_mean_ms"],
+                   r["tail_mean_ms"])
+                  for r in sorted(full["ranked"],
+                                  key=lambda r: -r["tail_mean_ms"])[:6]]
+        tiers = merged["tiers"]
+        log(f"phase 23 (c) /debug/fleet in {fleet_s:.3f} s: "
+            f"{len(assembled)} traces assembled across the router and a "
+            f"leader, {len(joined)} of the router's {len(lists)} sampled "
+            f"list traces among them; {inside} children inside their hop "
+            f"span, every trace's tier sums equal to its root latency; per "
+            f"tier " + ", ".join(f"{k} p50 {v['p50_ms']} ms p99 "
+                                 f"{v['p99_ms']} ms" for k, v in tiers.items())
+            + f"; /debug/tail over {tail['requests']} traces: p50 "
+            f"{tail['p50_ms']} ms, p99 {tail['p99_ms']} ms, gap "
+            f"{tail['gap_ms']} ms, explained {tail['explained_fraction']}, "
+            f"top {top}; the costliest components (tier, stage, body mean "
+            f"ms, tail mean ms) {costly}; all deltas of the merged view sum "
+            f"to {total:.3f} ms against its gap {full['gap_ms']} ms "
+            f"({smi_line})")
+        out["tiers"], out["tail"] = tiers, tail
+        out["phase_s"]["c"] = time.perf_counter() - t_phase
+
+        # (d) a second window with leader 1 killed in it
+        async def killing():
+            loop = asyncio.get_running_loop()
+            await asyncio.sleep(FLEET_KILL_AT_S)
+            await loop.run_in_executor(None, fleet.kill, "leader-1",
+                                       signal.SIGKILL)
+
+        async def window_d():
+            kill = asyncio.ensure_future(killing())
+            rep = await OpenLoopRunner(issue_with(False)).run(WorkloadSpec(
+                seed=SEED + 230, duration_s=FLEET_KILL_WINDOW_S,
+                rate_per_s=FLEET_RATE, users=f21["n_users"],
+                verb_mix=FLEET_MIX).schedule())
+            await kill
+            return rep
+
+        statuses.clear()
+        report_d = asyncio.run(window_d())
+        status, _, body = http("GET", router_url + "/debug/fleet",
+                               user=user0, timeout=60)
+        merged_d = json.loads(body)
+        errs = {m["url"]: m["error"] for m in merged_d["members"]}
+        if (status != 200 or not errs.get(leaders[1])
+                or errs.get(leaders[0])):
+            raise AssertionError(f"/debug/fleet with leader 1 dead: "
+                                 f"{status} {errs}")
+        log(f"phase 23 (d) leader 1 killed with SIGKILL {FLEET_KILL_AT_S:g} s "
+            f"into a {FLEET_KILL_WINDOW_S:g} s window: {report_d['offered']} "
+            f"offered, {report_d['achieved']} answered, "
+            f"{report_d['errors']} failed; statuses {dict(statuses)}; "
+            f"/debug/fleet still 200, leader 1's entry: "
+            f"{errs[leaders[1]]!r}")
+
+        # (e) SIGTERM to the rest
+        t = time.perf_counter()
+        rcs = fleet.stop(CLI_STOP_S)
+        stop_s = time.perf_counter() - t
+        bad = {n: rc for n, rc in rcs.items()
+               if rc != (-signal.SIGKILL if n == "leader-1" else 0)}
+        tracebacks = [n for n in rcs if n != "leader-1"
+                      and "Traceback" in fleet.log_text(n)]
+        if bad or tracebacks:
+            raise AssertionError(f"exit codes {rcs}; tracebacks in "
+                                 f"{tracebacks}: " + " | ".join(
+                                     fleet.log_text(n)[-1500:]
+                                     for n in list(bad) + tracebacks))
+        log(f"phase 23 (e) SIGTERM: exit codes {rcs} in {stop_s:.2f} s, no "
+            f"traceback")
+        upstream.run(kube_server.stop())
+    finally:
+        fleet.teardown()
+        upstream.close()
+    out["s"] = time.perf_counter() - t_phase
+    log(f"phase 23 wall time {out['s']:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -8742,10 +9687,15 @@ def main() -> int:
     # 18. the decision cache and device telemetry on phase 16's store
     t_ph = time.perf_counter()
     cached = cache_telemetry_path(proxy, w, smi_line)
+    phase_s["18"] = time.perf_counter() - t_ph
+
+    # 22. the remote endpoint on phase 16's batched endpoint
+    t_ph = time.perf_counter()
+    remote = remote_path(proxy, smi_line)
     del proxy["proxy"], proxy["ep"]
     gc.collect()
     torch.cuda.empty_cache()
-    phase_s["18"] = time.perf_counter() - t_ph
+    phase_s["22"] = time.perf_counter() - t_ph
 
     # 19. the durable store and read replication, on phase 16's fake,
     # then 20, leader failover on its leader and follower
@@ -8757,11 +9707,25 @@ def main() -> int:
     # 21. tuple-space sharding: two shard graphs on the card behind one
     # proxy, then the router and the lint as processes
     t_ph = time.perf_counter()
-    sharded = shard_path(w, smi_line)
+    sharded = shard_path(w, smi_line, keep=True)
     gc.collect()
     torch.cuda.empty_cache()
-    shard_cli(smi_line)
     phase_s["21"] = time.perf_counter() - t_ph
+
+    # 23. the fleet plane: phase 21's lineages as shard-leader processes
+    # behind a router process
+    t_ph = time.perf_counter()
+    f21 = sharded.pop("fleet")
+    try:
+        fleet = fleet_path(f21, smi_line)
+    finally:
+        shutil.rmtree(f21["tmp"], ignore_errors=True)
+    del f21
+    gc.collect()
+    phase_s["23"] = time.perf_counter() - t_ph
+    t_ph = time.perf_counter()
+    shard_cli(smi_line)
+    phase_s["21g"] = time.perf_counter() - t_ph
     t_ph = time.perf_counter()
     cli_process(smi_line)
     phase_s["17b"] = time.perf_counter() - t_ph
@@ -8832,6 +9796,9 @@ def main() -> int:
     # all 0, asserted)
     for kname in rows:
         rows[kname]["cache_cold_launches"] = cached["launches"].get(kname, 0)
+    # phase 22: the remote traffic's launches, counted from zero
+    for kname in rows:
+        rows[kname]["remote_launches"] = remote["launches"].get(kname, 0)
     # phase 19 (d): the follower's launches over its replicated rounds
     for kname in rows:
         rows[kname]["follower_launches"] = durable["launches"].get(kname, 0)
@@ -8842,6 +9809,10 @@ def main() -> int:
     # phase 21 (b)-(d): the two shard graphs' launches, counted from zero
     for kname in rows:
         rows[kname]["shard_launches"] = sharded["launches"].get(kname, 0)
+    # phase 23 (b): the two leader processes' launches over the window,
+    # from their /metrics
+    for kname in rows:
+        rows[kname]["fleet_launches"] = fleet["launches"].get(kname, 0)
     for kname, also in REPLACES_ALSO.items():
         rows[kname]["replaces_also"] = also
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}"

@@ -112,6 +112,12 @@ def audit_event_for(req: Request, stage: str, decision: str,
     if trace_id:
         ev.trace_id = trace_id
         ev.latency_ms = (time.perf_counter() - tr.t0) * 1e3
+        # hop provenance (fleet tracing): the tier path this request
+        # walked to reach this node, so /debug/decisions on any node
+        # names the full forwarding chain of a decision
+        attrs = getattr(tr, "attrs", None)
+        if isinstance(attrs, dict):
+            ev.tier_path = str(attrs.get("tier_path") or "")
     sink: AuditSink = req.context.get(AUDIT_KEY) or NULL_SINK
     ev.backend = getattr(sink, "backend", "")
     for k, v in overrides.items():
@@ -201,8 +207,11 @@ def with_authorization(handler: Handler, failed: Handler,
             return await handler(req)
 
         # rule matching + CEL condition filtering are one attribution
-        # phase: both walk the matched rule set against the request
-        with span("match", phase=True) as match_attrs:
+        # phase: both walk the matched rule set against the request (and
+        # one serving stage, which the fleet's tail report ranks)
+        from ..utils import timeline
+        with span("match", phase=True) as match_attrs, \
+                timeline.serving_span("rule_match"):
             matching_rules = matcher_ref().match(info)
             filtered_rules: list = []
             cel_failed = False

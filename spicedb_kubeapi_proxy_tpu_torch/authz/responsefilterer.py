@@ -304,18 +304,28 @@ class StandardResponseFilterer(ResponseFilterer):
             raise FilterError(
                 f"unsupported media type {media} for gvk {gvk}")
 
+        # the serving stages (decode, filter, serialize) are timeline
+        # spans in the request's trace, which the fleet's tail report
+        # ranks (utils/tailexplain.py)
+        from ..utils import timeline
         try:
-            decoded = json.loads(resp.body) if resp.body else {}
+            with timeline.serving_span("decode",
+                                       nbytes=len(resp.body or b"")):
+                decoded = json.loads(resp.body) if resp.body else {}
         except ValueError as e:
             raise FilterError(f"failed to decode response body: {e}") from e
 
         if len(info.parts) == 1:
             # list response
-            err = self._filter_list(decoded, result)
-            body = b"" if err else json.dumps(decoded).encode()
+            with timeline.serving_span("filter"):
+                err = self._filter_list(decoded, result)
+            with timeline.serving_span("serialize") as ser_attrs:
+                body = b"" if err else json.dumps(decoded).encode()
+                ser_attrs["nbytes"] = len(body)
             self._write_resp(resp, body, err)
         else:
-            err = self._filter_object(decoded, result)
+            with timeline.serving_span("filter"):
+                err = self._filter_object(decoded, result)
             self._write_resp(resp, resp.body if not err else b"", err)
 
     async def _gvk(self, info: RequestInfo):

@@ -14,8 +14,13 @@ word-separator normalization (`--rule_config` == `--rule-config`):
 `--spicedb-endpoint` defaults to `torch://`, which serves on the CUDA
 card and raises where there is none; `torch://?device=cpu` (the
 kernels' plain twins) and `embedded://` (the host evaluator) run on the
-CPU only when asked for.  Any other scheme, a scheme-less `host:port`
-included, is a `validate` error.
+CPU only when asked for.  `grpc://host:port` (`grpcs://`, `http://`,
+`https://`, or a scheme-less `host:port`, TLS unless `--spicedb-insecure`)
+dials a remote permissions service over gRPC, such as `python -m
+spicedb_kubeapi_proxy_tpu_torch.permsd` serving `torch://` on a card for
+many proxies, with `--spicedb-token`, `--spicedb-ca-path` and
+`--spicedb-skip-verify-ca`; it needs grpcio.  Any other scheme (`jax://`
+included) is a `validate` error.
 
 `--decision-cache[-bytes]` puts the decision cache in front of the
 endpoint; `--flight-window[s]`, `--slo-*`, `--shed-slo-burn` and
@@ -49,12 +54,13 @@ the bootstrap schema and the rules instead of serving, the sharding
 co-location rules SL007/SL008 included when a partition is configured
 (exit 0 clean, 1 findings, 2 inputs that would not boot).
 
-Flags of features the port has not ported are not in the parser, so
-argparse refuses them (exit 2), each with the ROADMAP Queue 1 item that
-brings it back: the gRPC connection flags `--spicedb-insecure`,
-`--spicedb-skip-verify-ca`, `--spicedb-token` and `--spicedb-ca-path`
-(item 9d, the remote endpoint); `--fleet-peers` (item 9e, the fleet
-plane).
+Fleet tracing: every internal hop (router to shard leader, follower to
+leader) carries the X-Authz-* propagation headers, so the receiving
+proxy joins the caller's trace; `--fleet-peers URL,...` names the
+members whose traces, flight recorder, workload and metrics this node
+merges at /debug/fleet, and /debug/tail explains where p99 - p50 lives
+from that merge.  On the `--shard-leaders` router the shard leaders are
+members without being listed.
 """
 
 from __future__ import annotations
@@ -87,6 +93,7 @@ from .spicedb.endpoints import Bootstrap
 DEFAULT_WORKFLOW_DATABASE_PATH = "/tmp/dtx.sqlite"  # options.go:41
 DEFAULT_ENDPOINT = "torch://"
 ENDPOINT_SCHEMES = ("torch", "embedded")
+REMOTE_SCHEMES = ("grpc", "grpcs", "http", "https")
 
 logger = logging.getLogger("spicedb_kubeapi_proxy_tpu_torch")
 
@@ -105,6 +112,18 @@ def resolve_workflow_db(data_dir: str, workflow_database_path: str) -> str:
 
 def _store_backed(endpoint: str) -> bool:
     return urlsplit(endpoint).scheme in ENDPOINT_SCHEMES
+
+
+def _endpoint_served(endpoint: str) -> bool:
+    """A store-backed scheme, a remote one, or a scheme-less `host:port`
+    (a remote endpoint, as in the reference, options.go:107)."""
+    if endpoint and "://" not in endpoint:
+        return True
+    return urlsplit(endpoint).scheme in ENDPOINT_SCHEMES + REMOTE_SCHEMES
+
+
+def _fleet_peers(args) -> list:
+    return [u.strip() for u in args.fleet_peers.split(",") if u.strip()]
 
 
 def _durable_store_on() -> bool:
@@ -126,8 +145,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="endpoint authorizing proxy operations: torch:// "
                         "(hand-written CUDA kernels on the card; "
                         "torch://?device=cpu runs their plain twins on "
-                        "the CPU) or embedded:// (in-memory host "
-                        "evaluator)")
+                        "the CPU), embedded:// (in-memory host "
+                        "evaluator), or grpc://host:port (a remote "
+                        "permissions service such as permsd; needs "
+                        "grpcio)")
+    p.add_argument("--spicedb-insecure", action="store_true",
+                   help="use insecure transport for the remote gRPC endpoint")
+    p.add_argument("--spicedb-skip-verify-ca", action="store_true",
+                   help="do not verify the remote endpoint's certificate chain")
+    p.add_argument("--spicedb-token", default="",
+                   help="preshared key for the remote endpoint")
+    p.add_argument("--spicedb-ca-path", default="",
+                   help="directory or file with CAs to trust for the remote "
+                        "endpoint")
     p.add_argument("--spicedb-bootstrap", default="",
                    help="YAML file with bootstrap schema/relationships for "
                         "the endpoint")
@@ -245,6 +275,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "/replication/status and /debug/replication "
                         "(default: minted per process); the election "
                         "tie-break orders on it")
+    p.add_argument("--fleet-peers", default="",
+                   help="comma-separated base URLs of fleet members "
+                        "whose /debug/traces, /debug/flight, "
+                        "/debug/workload and /metrics this node merges at "
+                        "/debug/fleet (cross-process trace assembly and "
+                        "per-tier attribution; /debug/tail explains the "
+                        "tail from it).  On the --shard-leaders router the "
+                        "shard leaders are included implicitly")
 
     # tuple-space sharding (spicedb/sharding; killswitch:
     # --feature-gates Sharding=false)
@@ -437,8 +475,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "CrossRequestBatching, DevicePipeline, "
                         "AdmissionControl, AsyncRebuild, DecisionCache, "
                         "DeviceTelemetry, Timeline, KernelIntrospect, "
-                        "Profiler, DurableStore, Replication, Sharding "
-                        "(utils/features.py)")
+                        "Profiler, DurableStore, Replication, Sharding, "
+                        "TailExplain (utils/features.py)")
     return p
 
 
@@ -492,10 +530,11 @@ def validate(args: argparse.Namespace) -> list:
             errs.append(f"--secure-port {args.secure_port} is not a "
                         f"valid port")
         return errs
-    if urlsplit(args.spicedb_endpoint).scheme not in ENDPOINT_SCHEMES:
+    if not _endpoint_served(args.spicedb_endpoint):
         errs.append(f"--spicedb-endpoint {args.spicedb_endpoint!r} is not "
                     f"served here: use torch:// (the CUDA card; "
-                    f"torch://?device=cpu for the CPU) or embedded://")
+                    f"torch://?device=cpu for the CPU), embedded:// or a "
+                    f"remote grpc://host:port")
     if args.shards < 1:
         errs.append("--shards must be >= 1")
     elif args.shards > 1:
@@ -539,6 +578,9 @@ def validate(args: argparse.Namespace) -> list:
         errs.append("--shed-queue-depth must be >= 0 (0 = disabled)")
     if args.shed_retry_after <= 0:
         errs.append("--shed-retry-after must be > 0")
+    if args.decision_cache and not _store_backed(args.spicedb_endpoint):
+        errs.append("--decision-cache requires a store-backed endpoint "
+                    "(embedded:// or torch://)")
     if args.decision_cache_bytes < 0:
         errs.append("--decision-cache-bytes must be >= 0")
     if args.data_dir and not _store_backed(args.spicedb_endpoint):
@@ -593,6 +635,10 @@ def validate(args: argparse.Namespace) -> list:
     for peer in (u.strip() for u in args.replica_peers.split(",")):
         if peer and not peer.startswith(("http://", "https://")):
             errs.append(f"--replica-peers entry {peer!r} must be an "
+                        f"http(s) base URL")
+    for peer in _fleet_peers(args):
+        if not peer.startswith(("http://", "https://")):
+            errs.append(f"--fleet-peers entry {peer!r} must be an "
                         f"http(s) base URL")
     if args.shed_replica_lag < 0:
         errs.append("--shed-replica-lag must be >= 0 (0 = disabled)")
@@ -723,6 +769,16 @@ def complete(args: argparse.Namespace,
         # independent of --decision-cache: the cache may come up through
         # `?cache=1` or the DecisionCache gate, and the bound applies then
         endpoint_kwargs["decision_cache_bytes"] = args.decision_cache_bytes
+    if not _store_backed(args.spicedb_endpoint):
+        # every other endpoint dials gRPC, the scheme-less `host:port`
+        # included (reference options.go:107), and carries the
+        # connection flags
+        endpoint_kwargs = {
+            "token": args.spicedb_token,
+            "insecure": args.spicedb_insecure,
+            "skip_verify_ca": args.spicedb_skip_verify_ca,
+            "ca_path": args.spicedb_ca_path,
+        }
 
     server_options = ServerOptions(
         spicedb_endpoint=args.spicedb_endpoint,
@@ -772,6 +828,7 @@ def complete(args: argparse.Namespace,
         replica_id=args.replica_id,
         shards=args.shards,
         partition_map=args.partition_map,
+        fleet_peers=_fleet_peers(args),
     )
     return CompletedConfig(server_options=server_options,
                            bind_address=args.bind_address,
@@ -781,9 +838,12 @@ def complete(args: argparse.Namespace,
 
 def endpoint_device(endpoint) -> str:
     """What the endpoint computes on: the card's name for a `torch://`
-    endpoint on CUDA, else `cpu` (the twins, or the host evaluator)."""
+    endpoint on CUDA, `remote <target>` for a gRPC endpoint, else `cpu`
+    (the twins, or the host evaluator)."""
     ep = endpoint
     while ep is not None and getattr(ep, "device", None) is None:
+        if getattr(ep, "target", None) is not None:
+            return f"remote {ep.target}"
         ep = getattr(ep, "inner", None)
     device = getattr(ep, "device", None)
     if device is None or device.type != "cuda":
@@ -949,7 +1009,7 @@ def run_router(args: argparse.Namespace) -> int:
             ssl_context = kubecfg.serving_ssl_context(cert_file, key_file)
         server = sharding.RouterServer(
             pmap, urls, rule_configs=rule_configs, schema=schema,
-            ssl_context=ssl_context)
+            ssl_context=ssl_context, fleet_peers=_fleet_peers(args))
     except config_errors as e:
         print(f"error: {e}", file=sys.stderr)
         return 1

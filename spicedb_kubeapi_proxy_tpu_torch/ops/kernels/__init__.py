@@ -83,6 +83,30 @@ def reset_launches() -> None:
             LAUNCHES[name] = 0
 
 
+def _register_launch_metric() -> None:
+    """`authz_kernel_launches{kernel=}` on /metrics: LAUNCHES as they
+    stand at each scrape (since the last reset_launches()), so a
+    process serving `torch://` shows which hand-written kernels it ran.
+    A process that never imported this module exports none."""
+    from ...utils.metrics import REGISTRY, Gauge
+
+    class _LaunchGauge(Gauge):
+        def render(self) -> list:
+            with _launches_lock:
+                counts = dict(LAUNCHES)
+            for name, n in counts.items():
+                self.set(n, kernel=name)
+            return super().render()
+
+    REGISTRY.register(_LaunchGauge(
+        "authz_kernel_launches",
+        "Launches of each hand-written CUDA kernel in this process since "
+        "the last reset (CPU twins never count)", labels=("kernel",)))
+
+
+_register_launch_metric()
+
+
 def _count(name: str) -> None:
     """One launch of `name`: into LAUNCHES (under its lock: several
     threads launch at once), or into the capture this thread is

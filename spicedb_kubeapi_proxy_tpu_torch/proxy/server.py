@@ -57,9 +57,14 @@ ahead of its shard answers 503, and `/debug/sharding` shows the map and
 the shard revisions.  Sharding excludes `replicate_from`, and a sharded
 proxy serves no replication (each shard is its own leader).
 
-Left out against the reference: fleet tracing (`fleet_peers`, ROADMAP
-Queue 1 item 9e; passing it is a TypeError), with its /debug surfaces
-(`fleet`, `tail`).
+Fleet tracing: every request's trace is stamped with this node's tier
+(leader, follower or hub) and joins the caller's trace when an internal
+hop (the router, a follower forwarding to its leader) sends the
+X-Authz-* propagation headers; the forward to the leader is a hop span
+of its own.  With `fleet_peers` the node merges its own and its peers'
+traces, flight recorders, workload and metrics at /debug/fleet
+(utils/fleet.py), and /debug/tail ranks where the tail lives in that
+merge (utils/tailexplain.py).
 """
 
 from __future__ import annotations
@@ -309,6 +314,11 @@ class Options:
     # at construction (a closure spanning two shards refuses to boot)
     shards: int = 1
     partition_map: str = ""
+    # fleet tracing: base URLs of the other fleet members; a node given
+    # peers serves the merged cross-process view at /debug/fleet (it
+    # fans out to each member's /debug/traces, /debug/flight,
+    # /debug/workload and /metrics)
+    fleet_peers: list = field(default_factory=list)
 
 
 class ProxyServer:
@@ -548,6 +558,17 @@ class ProxyServer:
         self._http: Optional[HttpServer] = None
         self._lag_probe = None
 
+    @property
+    def _tier(self) -> str:
+        """Fleet tracing tier: stamped on every trace this node records
+        and appended to the X-Authz-Tier-Path it forwards.  A fan-out hub
+        is a follower that also serves /replication/* to further
+        followers.  Recomputed per read — promotion turns a follower into
+        a leader in place, and the tier follows the role."""
+        return ("hub" if self.fanout_hub is not None
+                else "follower" if self.replication is not None
+                else "leader")
+
     def _make_flight_recorder(self):
         from ..utils import devtel
         slos = []
@@ -619,6 +640,13 @@ class ProxyServer:
             "sharding": ("partition map + per-shard revisions of the "
                          "in-process sharded endpoint",
                          self._debug_sharding),
+            "fleet": ("merged fleet view: cross-process trace assembly, "
+                      "per-tier latency attribution, SLO burn roll-up "
+                      "across --fleet-peers", self._debug_fleet),
+            "tail": ("tail explainer: p99-vs-p50 population diff of the "
+                     "merged fleet traces, ranked by which (tier, "
+                     "serving stage) component grew the most in the "
+                     "tail", self._debug_tail),
         }
 
     async def _serve_debug(self, req: Request) -> Response:
@@ -653,6 +681,58 @@ class ProxyServer:
     def _debug_traces(self) -> dict:
         return {"capacity": tracing.RECORDER.capacity,
                 "traces": tracing.RECORDER.snapshot()}
+
+    async def _debug_fleet(self, req: Request) -> dict:
+        from ..utils import fleet
+        peers = list(self.opts.fleet_peers)
+        if not peers:
+            return {"enabled": False,
+                    "reason": "no --fleet-peers configured",
+                    "tier": self._tier}
+        # re-assert the already-authenticated caller toward the peers
+        # (the trust model of _forward_to_leader: the peers trust this
+        # node's transport path)
+        headers = []
+        user = req.context.get("user")
+        if user is not None:
+            headers.append((REMOTE_USER_HEADER, user.name))
+            for g in user.groups:
+                headers.append((REMOTE_GROUP_HEADER, g))
+        members = await fleet.collect_fleet(
+            peers, headers=headers,
+            transports=self.opts.peer_transports)
+        local = {"url": "local", "error": None,
+                 "traces": self._debug_traces()["traces"],
+                 "flight": self._debug_flight(),
+                 "workload": self._debug_workload(),
+                 "skew_s": (self.replication.clock_skew_s()
+                            if self.replication is not None else None),
+                 "lag_s": (self.replication.lag_seconds()
+                           if self.replication is not None else None)}
+        merged = fleet.merge_fleet([local] + members)
+        merged["enabled"] = True
+        merged["tier"] = self._tier
+        return merged
+    _debug_fleet._wants_request = True
+
+    async def _debug_tail(self, req: Request) -> dict:
+        from ..utils import tailexplain
+        if not tailexplain.enabled():
+            return {"enabled": False,
+                    "reason": "TailExplain feature gate disabled"}
+        merged = await self._debug_fleet(req)
+        if merged.get("enabled") is not True:
+            # no fleet peers: explain the local trace population alone
+            # (single-segment traces carry no cross-tier attribution,
+            # so the report says how many traces were usable)
+            from ..utils import fleet
+            local = {"url": "local", "error": None,
+                     "traces": self._debug_traces()["traces"]}
+            merged = fleet.merge_fleet([local])
+        report = tailexplain.explain(merged)
+        report["tier"] = self._tier
+        return report
+    _debug_tail._wants_request = True
 
     def _debug_decisions(self) -> dict:
         return {"level": self.audit.level,
@@ -983,9 +1063,16 @@ class ProxyServer:
                 for v in values:
                     up.add(REMOTE_EXTRA_PREFIX + key, v)
         try:
-            resp = await self._leader_transport.round_trip(Request(
-                method=req.method, target=req.target, headers=up,
-                body=req.body))
+            # fleet tracing: the leader joins this request's trace, and
+            # the hop span separates network time from the leader's
+            # (no span, no headers, when propagation is switched off)
+            with tracing.hop_span("hop.forward_to_leader",
+                                  tier=self._tier, why=why) as hop:
+                for hk, hv in hop.headers.items():
+                    up.set(hk, hv)
+                resp = await self._leader_transport.round_trip(Request(
+                    method=req.method, target=req.target, headers=up,
+                    body=req.body))
         except asyncio.CancelledError:
             raise
         except Exception as e:
@@ -1294,8 +1381,14 @@ class ProxyServer:
                 "Request latency attributed to tracing phases (authn, "
                 "resolve, match, upstream, respfilter, ...)",
                 labels=("phase",))
+            tier_latency = REGISTRY.histogram(
+                "authz_tier_seconds",
+                "Per-tier request wall time (router, leader, follower, "
+                "hub) for fleet latency attribution",
+                labels=("tier",))
         else:
             request_counter = request_latency = phase_latency = None
+            tier_latency = None
 
         slow_threshold = self.opts.trace_slow_threshold
 
@@ -1303,11 +1396,31 @@ class ProxyServer:
             tr = token = None
             if not _untraced(req.path):
                 # trace-id assignment: honor a well-formed caller id so
-                # multi-hop traces correlate; anything else gets a fresh id
+                # multi-hop traces correlate; anything else gets a fresh
+                # id.  Fleet propagation (switch on only): an internal
+                # hop carrying X-Authz-Trace-Id JOINS the caller's trace
+                # (same id, own spans, tier-stamped) instead of minting;
+                # switched off, the fleet headers are never read
+                propagate = tracing.propagation_enabled()
+                prop_id = None
+                if propagate:
+                    prop_id = tracing.clean_trace_id(
+                        req.headers.get(tracing.PROP_TRACE_HEADER))
                 tr, token = tracing.start_trace(
-                    trace_id=tracing.clean_trace_id(
+                    trace_id=prop_id or tracing.clean_trace_id(
                         req.headers.get(tracing.TRACE_ID_HEADER)),
                     method=req.method, target=req.target)
+                if propagate:
+                    incoming = tracing.clean_tier_path(
+                        req.headers.get(tracing.PROP_TIER_PATH_HEADER))
+                    tr.attrs["tier"] = self._tier
+                    tr.attrs["tier_path"] = (
+                        incoming + ">" + self._tier if incoming
+                        else self._tier)
+                    parent = tracing.clean_trace_id(
+                        req.headers.get(tracing.PROP_PARENT_HEADER))
+                    if prop_id and parent:
+                        tr.attrs["parent_span"] = parent
             start = time.monotonic()
             try:
                 resp = await with_request_info(req)
@@ -1338,6 +1451,9 @@ class ProxyServer:
                 if phase_latency is not None:
                     for phase, secs in tr.phase_durations().items():
                         phase_latency.observe(secs, phase=phase)
+                if (tier_latency is not None
+                        and tracing.propagation_enabled()):
+                    tier_latency.observe(elapsed, tier=self._tier)
                 tracing.RECORDER.record(tr)
                 if slow_threshold and tr.duration >= slow_threshold:
                     logger.warning("slow request trace: %s",

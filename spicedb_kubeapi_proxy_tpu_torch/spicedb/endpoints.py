@@ -1,4 +1,4 @@
-"""Endpoint plugin boundary: `embedded://` | `torch://`.
+"""Endpoint plugin boundary: `embedded://` | `torch://` | `grpc://`.
 
 Mirrors the reference's SpiceDB-endpoint dispatch on URL scheme
 (reference pkg/proxy/options.go:307-369): upper layers speak only this
@@ -11,8 +11,13 @@ interface and never know which backend ran.
                  bit-packed fixpoint sweep of hand-written CUDA kernels
                  (ops/torch_endpoint.py); `torch://?device=cpu` runs the
                  kernels' plain-torch twins instead
+- `grpc://host:port` a remote permissions service over gRPC
+                 (spicedb/grpc_remote.py; needs grpcio, imported when
+                 the channel is dialed), e.g. a `permsd` serving
+                 `torch://` on a card for many proxies
 
-Either may sit behind the decision cache (`?cache=1`).
+Either store-backed scheme may sit behind the decision cache
+(`?cache=1`).
 """
 
 from __future__ import annotations
@@ -388,7 +393,19 @@ def create_endpoint(url: str,
     hit returns before any queue or kernel work; `cache_bytes=` (or
     `decision_cache_bytes=`) bounds it (reference endpoints.py:359-398,
     :536-540).  Both schemes are store-backed, so an explicit cache is
-    refused only by an endpoint without a store."""
+    refused only by an endpoint without a store.
+
+    `grpc://host:port`, `grpcs://`, `http://`, `https://` and a
+    scheme-less `host:port` (the reference's default shape, options.go:
+    107) dial a remote permissions service over gRPC
+    (spicedb/grpc_remote.py `RemoteEndpoint`, reference endpoints.py:
+    543-568): TLS unless the scheme is `grpc`/`http` or `insecure=True`,
+    with `token`, `ca_path` and `skip_verify[_ca]` as the reference
+    takes them.  A remote endpoint has no store, so `store=` (a data
+    dir) and an explicit decision cache are configuration errors there,
+    and a switch-derived cache is dropped."""
+    if "://" not in url and url:
+        url = "grpcs://" + url
     split = urlsplit(url)
     scheme = split.scheme
     params = parse_qs(split.query)
@@ -397,6 +414,9 @@ def create_endpoint(url: str,
     store = kwargs.pop("store", None)
     dispatch_kw = {k: kwargs.pop(k) for k in _DISPATCH_PARAMS
                    if k in kwargs}
+    if scheme in _REMOTE_SCHEMES:
+        return _remote_endpoint(url, split, store, cache_on and cache_explicit,
+                                kwargs)
     if scheme == "embedded":
         ep = EmbeddedEndpoint.from_bootstrap(bootstrap, store=store)
         return _wrap_decision_cache(ep, cache_on, cache_explicit,
@@ -432,11 +452,46 @@ def create_endpoint(url: str,
                                     url)
     raise EndpointConfigError(
         f"unsupported spicedb endpoint scheme {scheme!r} "
-        f"(this package serves embedded:// and torch://)")
+        f"(this package serves embedded://, torch:// and the remote "
+        f"grpc://, grpcs://, http://, https://)")
 
 
 _DISPATCH_PARAMS = ("dispatch", "max_batch", "pipeline_depth",
                     "max_queue_depth")
+_REMOTE_SCHEMES = ("grpc", "grpcs", "http", "https")
+
+
+def _remote_endpoint(url: str, split, store, cache_explicit: bool,
+                     kwargs: dict) -> PermissionsEndpoint:
+    """The remote branch of create_endpoint (reference endpoints.py:
+    425-436, 543-568)."""
+    if store is not None:
+        raise EndpointConfigError(
+            f"--data-dir persistence requires a store-backed endpoint "
+            f"(embedded:// or torch://), not {url!r}")
+    if cache_explicit:
+        raise EndpointConfigError(
+            f"--decision-cache requires a store-backed endpoint "
+            f"(embedded:// or torch://), not {url!r}")
+    from .grpc_remote import RemoteEndpoint, _grpc
+    try:
+        _grpc()
+    except ImportError as e:
+        raise EndpointConfigError(
+            f"remote endpoint {url!r} requires grpcio: {e}") from e
+    target = split.netloc or split.path
+    if not target:
+        raise EndpointConfigError(f"remote endpoint {url!r} has no host")
+    insecure = split.scheme in ("grpc", "http") or bool(kwargs.get("insecure"))
+    ca_pem = None
+    ca_path = kwargs.get("ca_path") or ""
+    if ca_path:
+        with open(ca_path, "rb") as f:
+            ca_pem = f.read()
+    return RemoteEndpoint(target, token=kwargs.get("token", ""),
+                          insecure=insecure, ca_pem=ca_pem,
+                          skip_verify=bool(kwargs.get("skip_verify")
+                                           or kwargs.get("skip_verify_ca")))
 _CACHE_PARAMS = ("cache", "cache_bytes")
 
 

@@ -101,8 +101,14 @@ async def _peer_json(transport, identity: str, method: str, target: str,
     """One authenticated JSON round trip to a peer proxy."""
     import json
     from ...proxy.httpcore import Headers, Request
+    from ...utils import tracing
     h = Headers([("Accept", "application/json"),
                  ("X-Remote-User", identity)])
+    # fleet tracing: election, fence and repoint control calls carry
+    # provenance too (none when propagation is switched off)
+    for pk, pv in tracing.propagation_headers(
+            default_tier="follower").items():
+        h.set(pk, pv)
     data = b""
     if body is not None:
         data = json.dumps(body).encode()

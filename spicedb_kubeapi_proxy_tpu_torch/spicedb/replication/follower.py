@@ -140,6 +140,7 @@ class ReplicaFollower:
         self._cursor_off = 0      # raw file bytes fully consumed from it
         self._caught_up_at: Optional[float] = None  # monotonic
         self._last_success: Optional[float] = None  # monotonic
+        self._clock_skew_s: Optional[float] = None  # upstream - local
         self._task: Optional[asyncio.Task] = None
         self._waiters: list = []  # (min_revision, future)
         self._progress_listeners: list = []
@@ -170,9 +171,20 @@ class ReplicaFollower:
             "authz_replica_lag_seconds",
             "Seconds since this follower last had the leader's newest "
             "revision fully applied, plus the upstream chain's reported "
-            "lag, clamped at 0 (0 = caught up, -1 = never synced)",
+            "lag, clamped at 0 (0 = caught up, -1 = never synced); "
+            "cross-process clock skew is exported separately as "
+            "authz_clock_skew_seconds instead of bleeding in here",
             callback=lambda: (ref().lag_seconds()
                               if ref() is not None else -1.0))
+        registry.gauge(
+            "authz_clock_skew_seconds",
+            "Estimated upstream wall clock minus this process's wall "
+            "clock (seconds), sampled from the manifest's "
+            "server_time_unix at receive time; 0 until the first "
+            "manifest lands.  Merged fleet traces never use this — hop "
+            "spans align children by the parent's clock",
+            callback=lambda: ((ref().clock_skew_s() or 0.0)
+                              if ref() is not None else 0.0))
         registry.gauge(
             "authz_replication_incarnation",
             "Current replication incarnation epoch (leader: own epoch; "
@@ -200,6 +212,13 @@ class ReplicaFollower:
         if self.store.revision >= self.leader_revision:
             return chain
         return max(0.0, time.monotonic() - self._caught_up_at) + chain
+
+    def clock_skew_s(self) -> Optional[float]:
+        """Most recent estimate of (upstream wall clock - local wall
+        clock), from the manifest's server_time_unix sampled at receive
+        time; None until the first manifest lands.  Its bias is bounded
+        by the one-way response latency."""
+        return self._clock_skew_s
 
     def seconds_since_success(self) -> float:
         """Monotonic seconds since the last fully-successful sync pass —
@@ -274,6 +293,14 @@ class ReplicaFollower:
                      ("X-Remote-User", self.identity)])
         for g in self.groups:
             h.add("X-Remote-Group", g)
+        # fleet tracing: sync and control calls carry provenance headers
+        # too (the tier path always; the trace id when a request trace
+        # is active, e.g. a rejoin driven from a handler); none when
+        # propagation is switched off
+        from ...utils import tracing
+        for pk, pv in tracing.propagation_headers(
+                default_tier="follower").items():
+            h.set(pk, pv)
         if self.max_incarnation > 0:
             # fencing exchange: tell the upstream the newest incarnation
             # we have adopted — a resurrected ex-leader seeing a newer
@@ -291,10 +318,17 @@ class ReplicaFollower:
             target += (f"?wait_revision={self.store.revision}"
                        f"&timeout_ms={int(self.poll_timeout_s * 1e3)}")
         resp = await self._request(target)
+        t_recv = time.time()
         if resp.status != 200:
             raise ConnectionError(
                 f"manifest fetch failed: HTTP {resp.status}")
         man = json.loads(resp.body)
+        server_time = man.get("server_time_unix")
+        if server_time is not None:
+            # skew sample: the manifest is stamped just before the
+            # response is written, so compare against RECEIVE time (a
+            # long-poll's park time drops out; bias = one-way latency)
+            self._clock_skew_s = float(server_time) - t_recv
         inc = int(man.get("incarnation", 0) or 0)
         lid = man.get("leader_id", "")
         # total order on (incarnation, leader_id): an epoch tie — two

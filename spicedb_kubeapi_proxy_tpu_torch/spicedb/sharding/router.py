@@ -27,11 +27,12 @@ Two compositions of the same PartitionMap, one per deployment shape:
   closure at startup), (2) translates revision-vector ZedTokens to
   single components on the way in and merges the serving shard's
   revision into the vector on the way out, and (3) aggregates health.
-  The router authenticates nothing and holds no state.  The fleet plane
-  (the reference's `fleet_peers`, `/debug/fleet`, `/debug/tail` and
-  cross-process trace propagation) is not ported: `fleet_peers=` is a
-  TypeError, and those two surfaces answer 404 as the port's server
-  answers every surface it does not serve.
+  The router authenticates nothing and holds no state.  It is the
+  fleet's front tier: it starts (or joins) each routed request's trace,
+  forwards inside a `hop.shard_forward` hop span whose X-Authz-*
+  headers make the shard leader join that trace, and serves the merged
+  cross-process view over its `fleet_peers` (the shard leaders, and any
+  extra members) at `/debug/fleet` and its tail report at `/debug/tail`.
 
 Killswitch: the SHARDING switch (utils/features.py).  Off,
 `ShardedEndpoint` is never constructed (single-shard behavior exactly)
@@ -541,7 +542,9 @@ class ShardRouter:
 
     def __init__(self, pmap: PartitionMap, transports: list,
                  rule_configs: Iterable = (),
-                 schema: Optional[sch.Schema] = None):
+                 schema: Optional[sch.Schema] = None,
+                 fleet_peers: Iterable = (),
+                 fleet_transports: Optional[dict] = None):
         if len(transports) != pmap.n_shards:
             raise RouterConfigError(
                 f"{pmap.n_shards} shard(s) configured but "
@@ -550,6 +553,12 @@ class ShardRouter:
         self.transports = list(transports)
         self.table = build_routing_table(pmap, rule_configs, schema)
         self.stats = {"routed": 0, "route_errors": 0, "health_fanouts": 0}
+        # fleet tracing: the member base URLs /debug/fleet fans out to
+        # (typically the shard leaders plus any --fleet-peers);
+        # fleet_transports (url -> Transport) is the test seam, as
+        # Options.peer_transports is the server's
+        self.fleet_peers = list(fleet_peers)
+        self.fleet_transports = dict(fleet_transports or {})
 
     # the router IS a Handler (proxy/httpcore.py)
     async def __call__(self, req):
@@ -567,7 +576,7 @@ class ShardRouter:
 
     async def handle(self, req):
         from ...proxy.httpcore import json_response
-        from ...utils import timeline, tracing
+        from ...utils import tracing
         from .. import replication as repl
         if not shard_metrics.enabled():
             # killswitch: transparent pass-through to the default shard
@@ -595,24 +604,40 @@ class ShardRouter:
             return json_response(400, _status(
                 400, f"invalid {repl.MIN_REVISION_HEADER} "
                      f"revision-vector token: {e}"))
-        # the router records its own trace of each routed request (its
-        # time and the forward's), served at its /debug/traces; the
-        # trace does not cross to the shard leader (the fleet plane is
-        # not ported).  The TIMELINE switch off records nothing
+        # fleet tracing: the router is the fleet's front tier — it starts
+        # (or joins) the request trace, so the merged view attributes the
+        # router's time and the routed hop's network share apart from the
+        # shard leader's.  Propagation switched off: no trace and no
+        # headers, the forward as it would be without fleet tracing
         tr = token = None
-        if timeline.enabled():
+        if tracing.propagation_enabled():
             tr, token = tracing.start_trace(
-                trace_id=tracing.clean_trace_id(
-                    req.headers.get(tracing.TRACE_ID_HEADER)),
+                trace_id=(tracing.clean_trace_id(
+                    req.headers.get(tracing.PROP_TRACE_HEADER))
+                    or tracing.clean_trace_id(
+                        req.headers.get(tracing.TRACE_ID_HEADER))),
                 method=req.method, target=req.target)
+            incoming = tracing.clean_tier_path(
+                req.headers.get(tracing.PROP_TIER_PATH_HEADER))
             tr.attrs["tier"] = "router"
+            tr.attrs["tier_path"] = (incoming + ">router" if incoming
+                                     else "router")
+            parent = tracing.clean_trace_id(
+                req.headers.get(tracing.PROP_PARENT_HEADER))
+            if parent and tracing.clean_trace_id(
+                    req.headers.get(tracing.PROP_TRACE_HEADER)):
+                tr.attrs["parent_span"] = parent
         try:
             resp = await self._forward(req, shard, vector=vec)
-        finally:
+        except BaseException:
             if tr is not None:
                 tracing.end_trace(token)
                 tr.finish()
+                tracing.RECORDER.record(tr)
+            raise
         if tr is not None:
+            tracing.end_trace(token)
+            tr.finish()
             tr.attrs["status"] = resp.status
             tracing.RECORDER.record(tr)
             resp.headers.set(tracing.TRACE_ID_HEADER, tr.trace_id)
@@ -638,8 +663,14 @@ class ShardRouter:
                 # wait-or-forward gate enforces ONLY its own component
                 up.set(repl.MIN_REVISION_HEADER, str(component))
         try:
-            with tracing.span("hop.shard_forward", tier="router",
-                              shard=shard):
+            # fleet tracing: the shard leader joins this trace, and the
+            # hop span isolates network time from the leader's.  With no
+            # active trace (switch off, killswitch pass-through) the
+            # headers are empty and the forward is unchanged
+            with tracing.hop_span("hop.shard_forward", tier="router",
+                                  shard=shard) as hop:
+                for hk, hv in hop.headers.items():
+                    up.set(hk, hv)
                 resp = await self.transports[shard].round_trip(Request(
                     method=req.method, target=req.target, headers=up,
                     body=req.body))
@@ -662,13 +693,13 @@ class ShardRouter:
         return resp
 
     async def _serve_debug(self, req):
-        """Router-side observability at the fleet's trust level: the
-        caller must present SOME identity (X-Remote-User from a trusted
-        transport path, or an Authorization header the shard leaders
-        would verify) — the router itself runs no authenticator.
-        /debug/traces serves this process's recorder; /debug/fleet and
-        /debug/tail (the fleet plane) are not served here and answer as
-        the port's server answers an unknown surface."""
+        """Router-side observability: /debug/traces (this process's
+        recorder), /debug/fleet (the merged cross-process view over
+        `fleet_peers`) and /debug/tail (its tail report).  At the
+        fleet's trust level: the caller must present SOME identity
+        (X-Remote-User from a trusted transport path, or an
+        Authorization header the shard leaders would verify) — the
+        router itself runs no authenticator."""
         from ...proxy.httpcore import json_response
         from ...utils import tracing
         if not (req.headers.get("X-Remote-User")
@@ -679,9 +710,35 @@ class ShardRouter:
             return json_response(200, {
                 "capacity": tracing.RECORDER.capacity,
                 "traces": tracing.RECORDER.snapshot()})
-        return json_response(404, _status(
-            404, f"unknown debug surface {req.path!r}; "
-                 f"GET /debug for the index", reason="NotFound"))
+        from ...utils import fleet as fleetmod
+        peers = self.fleet_peers
+        if not peers:
+            return json_response(200, {
+                "enabled": False, "tier": "router",
+                "reason": "no fleet peers configured"})
+        # forward the caller's identity and authorization verbatim — the
+        # members authenticate it as they would a direct scrape
+        fwd = [(k, v) for k, v in req.headers.items()
+               if k.lower().startswith("x-remote-")
+               or k.lower() == "authorization"]
+        members = await fleetmod.collect_fleet(
+            peers, headers=fwd, transports=self.fleet_transports)
+        local = {"url": "router", "error": None,
+                 "traces": tracing.RECORDER.snapshot(),
+                 "flight": {}, "skew_s": None, "lag_s": None}
+        merged = fleetmod.merge_fleet([local] + members)
+        merged["enabled"] = True
+        merged["tier"] = "router"
+        if req.path == "/debug/tail":
+            from ...utils import tailexplain
+            if not tailexplain.enabled():
+                return json_response(200, {
+                    "enabled": False, "tier": "router",
+                    "reason": "TailExplain feature gate disabled"})
+            report = tailexplain.explain(merged)
+            report["tier"] = "router"
+            return json_response(200, report)
+        return json_response(200, merged)
 
     async def _aggregate_health(self, req):
         from ...proxy.httpcore import Request, Response
@@ -728,13 +785,22 @@ class RouterServer:
     def __init__(self, pmap: PartitionMap, leader_urls: list,
                  rule_configs: Iterable = (),
                  schema: Optional[sch.Schema] = None,
-                 transports: Optional[list] = None, ssl_context=None):
+                 transports: Optional[list] = None, ssl_context=None,
+                 fleet_peers: Iterable = ()):
         if transports is None:
             from ...proxy.httpcore import H11Transport
             transports = [H11Transport(u) for u in leader_urls]
         self.leader_urls = list(leader_urls)
-        self.router = ShardRouter(pmap, transports,
-                                  rule_configs=rule_configs, schema=schema)
+        # /debug/fleet members: every shard leader plus any extra
+        # fleet_peers (e.g. followers behind the leaders); the shard
+        # transports are reused, so a test seam carries over to the
+        # fleet fan-out
+        members = list(leader_urls) + [u for u in fleet_peers
+                                       if u not in leader_urls]
+        self.router = ShardRouter(
+            pmap, transports, rule_configs=rule_configs, schema=schema,
+            fleet_peers=members,
+            fleet_transports=dict(zip(leader_urls, transports)))
         self._ssl_context = ssl_context
         self._http = None
 

@@ -119,6 +119,11 @@ class AuditEvent:
     # cache answers without touching the evaluator at all.
     decision_source: str = ""
     trace_id: str = ""
+    # fleet tracing provenance: the tier chain the request walked to
+    # reach this node ("router>leader", "follower>leader", ...) — a
+    # forwarded decision names its full hop chain on any node's
+    # /debug/decisions, joining the merged trace by trace_id
+    tier_path: str = ""
     latency_ms: float = 0.0
     # Request-level payload (dropped at Metadata)
     rel: str = ""                 # the checked relationship string
@@ -139,6 +144,10 @@ class AuditEvent:
              "latency_ms": round(self.latency_ms, 3)}
         if self.decision_source:
             d["decision_source"] = self.decision_source
+        if self.tier_path:
+            # provenance, not payload: rendered at any emitting level
+            # (like decision_source); it holds tier names only
+            d["tier_path"] = self.tier_path
         if self.explain is not None:
             # witnesses are explicitly requested (--audit-explain or
             # ?explain=1): render them at any level that emits at all

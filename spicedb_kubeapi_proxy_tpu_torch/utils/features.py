@@ -50,6 +50,10 @@
   configured shard count is inert and the proxy is exactly single-shard,
   the shard metrics tick nothing, and the `--shard-leaders` router
   passes every request through to the default shard untouched.
+- `TAIL_EXPLAIN` is the killswitch of the tail explainer
+  (utils/tailexplain.py; the reference's `TailExplain` gate, :186,
+  default on): off, /debug/tail answers enabled:false and computes no
+  report.  Trace collection and fleet propagation follow TIMELINE.
 
 `apply_flag` sets them from the CLI's `--feature-gates name=true|false`
 under the reference's gate names (`GATE_SWITCHES`); any other name is
@@ -69,6 +73,7 @@ PROFILER = True
 DURABLE_STORE = True
 REPLICATION = True
 SHARDING = True
+TAIL_EXPLAIN = True
 
 
 def pipeline_enabled() -> bool:
@@ -91,6 +96,7 @@ GATE_SWITCHES = {
     "DurableStore": "DURABLE_STORE",
     "Replication": "REPLICATION",
     "Sharding": "SHARDING",
+    "TailExplain": "TAIL_EXPLAIN",
 }
 
 

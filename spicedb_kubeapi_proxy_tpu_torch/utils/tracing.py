@@ -20,8 +20,14 @@
   timeline (utils/timeline.py).  `note_device_window` feeds them a
   batch's device window measured with CUDA events.
 
-Left out against the reference: fleet propagation (the cross-process
-X-Authz-* headers and hop spans; the port has no fleet).
+- Fleet propagation: every internal hop (router to shard leader,
+  follower to leader, replication control calls) carries the
+  X-Authz-Trace-Id / X-Authz-Parent-Span / X-Authz-Tier-Path headers
+  (`propagation_headers`, `hop_span`), so the receiving proxy joins the
+  caller's trace instead of minting its own, and the fleet merge
+  (utils/fleet.py) aligns the child inside the caller's hop span.  The
+  TIMELINE switch is the killswitch: off, no header is sent and
+  receivers mint locally, as a single process does.
 
 Thread-safe: spans are recorded from asyncio handlers and executor
 threads concurrently.
@@ -39,6 +45,14 @@ import uuid
 from typing import Iterable, Optional
 
 TRACE_ID_HEADER = "X-Trace-Id"
+
+# fleet-internal trace propagation (see the module docstring)
+PROP_TRACE_HEADER = "X-Authz-Trace-Id"
+PROP_PARENT_HEADER = "X-Authz-Parent-Span"
+PROP_TIER_PATH_HEADER = "X-Authz-Tier-Path"
+
+# tier vocabulary for per-tier latency attribution (authz_tier_seconds)
+TIERS = ("router", "leader", "follower", "hub")
 
 _log = logging.getLogger(__name__)
 
@@ -196,6 +210,97 @@ def span(name: str, phase: bool = False, **attrs):
         tr.add_span(name, t0, time.perf_counter(), phase=phase, **attrs)
 
 
+# -- fleet propagation (cross-process trace continuity) ----------------------
+
+
+def propagation_enabled() -> bool:
+    """True when fleet trace propagation is on: the TIMELINE switch
+    (utils/features.py) turns off both the serving-stage spans and the
+    cross-process headers, as the reference's Timeline gate does."""
+    from . import features
+    return features.TIMELINE is True
+
+
+_TIER_PATH_OK = frozenset(
+    "abcdefghijklmnopqrstuvwxyz0123456789_->|,")
+
+
+def clean_tier_path(raw: str) -> str:
+    """Sanitize a caller-supplied tier path header: bounded, lowercase
+    tier names joined by `>` — anything else is dropped (the path is
+    advisory provenance, not a trust input)."""
+    raw = (raw or "").strip().lower()
+    if not raw or len(raw) > 128:
+        return ""
+    if any(c not in _TIER_PATH_OK for c in raw):
+        return ""
+    return raw
+
+
+def propagation_headers(default_tier: str = "") -> dict:
+    """Headers an outbound fleet-internal hop carries so the receiving
+    proxy joins this trace instead of minting its own.  Empty when
+    propagation is switched off; without an active trace the tier path
+    still travels (background hops such as follower sync keep their
+    provenance though they have no request trace)."""
+    if not propagation_enabled():
+        return {}
+    headers = {}
+    tr = _current.get()
+    trace_id = getattr(tr, "trace_id", "") if tr is not None else ""
+    if trace_id:
+        headers[PROP_TRACE_HEADER] = trace_id
+    path = ""
+    if tr is not None:
+        attrs = getattr(tr, "attrs", None)
+        if isinstance(attrs, dict):
+            path = str(attrs.get("tier_path") or "")
+    path = path or default_tier
+    if path:
+        headers[PROP_TIER_PATH_HEADER] = path
+    return headers
+
+
+class _Hop:
+    """Yielded by hop_span: `.headers` is what the caller copies onto
+    the outbound request; `.span_id` is the client-side span a
+    downstream trace names as its parent."""
+    __slots__ = ("headers", "span_id")
+
+    def __init__(self, headers: dict, span_id: str = ""):
+        self.headers = headers
+        self.span_id = span_id
+
+
+_NULL_HOP = _Hop({})
+
+
+@contextlib.contextmanager
+def hop_span(name: str, tier: str = "", **attrs):
+    """Client-side span around ONE outbound internal HTTP hop (router ->
+    shard leader, follower -> leader forward, ...).  Yields a `_Hop`
+    whose `.headers` carry X-Authz-Trace-Id / X-Authz-Parent-Span /
+    X-Authz-Tier-Path for the outbound request.  The recorded span's
+    `span_id` attr is what the downstream trace names as its parent, so
+    the fleet merge aligns the child trace inside this hop and
+    attributes the hop's network time apart from the downstream
+    server's.  A no-op with empty headers when propagation is switched
+    off or no trace is active."""
+    tr = _current.get()
+    if tr is None or not propagation_enabled():
+        yield _NULL_HOP
+        return
+    span_id = uuid.uuid4().hex[:16]
+    headers = propagation_headers(default_tier=tier)
+    headers[PROP_PARENT_HEADER] = span_id
+    t0 = time.perf_counter()
+    try:
+        yield _Hop(headers, span_id)
+    finally:
+        tr.add_span(name, t0, time.perf_counter(), span_id=span_id,
+                    **attrs)
+
+
 def _note_kernel(name: str, attrs: dict, seconds: float) -> None:
     """Feed one kernel window into the kernel accounting (utils/devtel.py,
     imported at use).  A recording failure is logged and never fails the
@@ -292,6 +397,13 @@ class SlowTraceRecorder:
         """Slowest-first list of retained trace dicts (non-destructive)."""
         with self._lock:
             return self._sorted()
+
+    def drain(self) -> list:
+        """Snapshot and reset: a per-window view."""
+        with self._lock:
+            out = self._sorted()
+            self._heap = []
+            return out
 
     def exemplars(self, k: int = 3,
                   since_unix: Optional[float] = None) -> list:

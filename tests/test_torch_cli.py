@@ -3,11 +3,12 @@
 Every case of tests/test_cli.py runs on the port's `cli` and
 `proxy/kubeconfig.py` (TLS end to end included), with the port's
 endpoints: `torch://` is the default and needs the card, so a case that
-serves here asks for `torch://?device=cpu`, and the reference's
-scheme-less gRPC endpoint case becomes the port's refusal of it.
+serves here asks for `torch://?device=cpu`; the reference's scheme-less
+gRPC endpoint case carries the connection flags as the reference's.
 Beside them: the same argv through both packages' `build_parser`,
 `validate` and `complete` gives equal `Options` fields where both have
-the field; flags of unported features exit 2; `--feature-gates` sets
+the field; the remote endpoint's flags and `--fleet-peers` parse and
+validate as the reference's; `--feature-gates` sets
 the port's switches and refuses other names; and `python -m
 spicedb_kubeapi_proxy_tpu_torch` serves, dual-writes and exits 0 on
 SIGTERM in a subprocess against a loopback fake apiserver.  The durable
@@ -131,8 +132,16 @@ def test_validate_accepts_the_port_endpoints(endpoint):
                                       "spicedb.example.com:50051",
                                       "grpc://spicedb:50051", ""])
 def test_validate_refuses_other_endpoints(endpoint):
-    errs = cli.validate(parse(["--use-in-cluster-config", "--rule-config",
-                               "r.yaml", "--spicedb-endpoint", endpoint]))
+    """`jax://` and an empty endpoint are refused; the remote endpoints
+    (a scheme-less `host:port` and `grpc://`) validate, as in the
+    reference."""
+    argv = ["--use-in-cluster-config", "--rule-config", "r.yaml",
+            "--spicedb-endpoint", endpoint]
+    errs = cli.validate(parse(argv))
+    if endpoint in ("spicedb.example.com:50051", "grpc://spicedb:50051"):
+        assert errs == ref_cli.validate(
+            ref_cli.build_parser().parse_args(argv)) == []
+        return
     assert len(errs) == 1
     assert "torch://" in errs[0] and "embedded://" in errs[0]
 
@@ -260,16 +269,26 @@ def test_complete_loads_and_validates_rules(tmp_path):
 
 def test_scheme_less_endpoint_is_refused():
     """The reference dials gRPC for a scheme-less host:port and carries
-    the connection flags to it; the port serves no remote endpoint, so
-    the endpoint is a validate error and the flags do not parse."""
-    args = parse(["--spicedb-endpoint", "spicedb.example.com:50051",
-                  "--use-in-cluster-config", "--embedded-mode",
-                  "--rule-config", "r.yaml"])
-    assert any("spicedb.example.com:50051" in e for e in cli.validate(args))
-    for flag in ("--spicedb-token", "--spicedb-insecure"):
-        with pytest.raises(SystemExit) as e:
-            parse([flag, "tok"] if flag.endswith("token") else [flag])
-        assert e.value.code == 2
+    the connection flags to it (tests/test_cli.py
+    test_scheme_less_endpoint_carries_connection_flags); the port does
+    the same since it serves the remote endpoint: it validates, and the
+    four flags reach the endpoint keywords as the reference's."""
+    argv = ["--spicedb-endpoint", "spicedb.example.com:50051",
+            "--spicedb-token", "tok", "--spicedb-insecure",
+            "--spicedb-ca-path", "/ca.pem", "--spicedb-skip-verify-ca",
+            "--use-in-cluster-config", "--embedded-mode",
+            "--rule-config", "r.yaml"]
+    args = parse(argv)
+    assert cli.validate(args) == []
+    args.rule_config = ""
+    completed = cli.complete(args, upstream_transport=NullTransport())
+    ref_args = ref_cli.build_parser().parse_args(argv)
+    ref_args.rule_config = ""
+    want = ref_cli.complete(ref_args, upstream_transport=NullTransport())
+    kw = completed.server_options.endpoint_kwargs
+    assert kw == want.server_options.endpoint_kwargs == {
+        "token": "tok", "insecure": True, "skip_verify_ca": True,
+        "ca_path": "/ca.pem"}
 
 
 def test_complete_rejects_invalid_rules(tmp_path):
@@ -468,7 +487,7 @@ def test_same_argv_gives_the_reference_options(tmp_path, extra):
     ref_fields = {f.name for f in dataclasses.fields(want.server_options)}
     shared = sorted(port_fields & ref_fields)
     assert port_fields <= ref_fields
-    assert len(shared) == len(port_fields) == 44
+    assert len(shared) == len(port_fields) == 45
     for name in shared:
         assert (_shape(getattr(got.server_options, name))
                 == _shape(getattr(want.server_options, name))), name
@@ -483,11 +502,24 @@ def test_same_argv_gives_the_reference_options(tmp_path, extra):
     ["--spicedb-token", "t"],
 ])
 def test_unported_flag_exits_2(flag):
-    # each flag parses in the reference CLI
-    ref_cli.build_parser().parse_args(flag)
-    with pytest.raises(SystemExit) as e:
-        parse(flag)
-    assert e.value.code == 2
+    """The remote endpoint's four flags and `--fleet-peers`, refused
+    with exit 2 while their features were unported, now parse into the
+    reference's values, and `--fleet-peers` reaches `Options.fleet_peers`
+    as the reference's does."""
+    base = ["--use-in-cluster-config", "--embedded-mode",
+            "--spicedb-endpoint", "embedded://", "--rule-config", "r.yaml"]
+    want = ref_cli.build_parser().parse_args(base + flag)
+    got = parse(base + flag)
+    dest = flag[0].split("=")[0][2:].replace("-", "_")
+    assert getattr(got, dest) == getattr(want, dest)
+    assert cli.validate(got) == ref_cli.validate(want) == []
+    if dest == "fleet_peers":
+        got.rule_config = want.rule_config = ""
+        got_opts = cli.complete(got, upstream_transport=NullTransport())
+        want_opts = ref_cli.complete(want, upstream_transport=NullTransport())
+        assert (got_opts.server_options.fleet_peers
+                == want_opts.server_options.fleet_peers
+                == [flag[-1].split("=")[-1]])
 
 
 _SHARDING_DESTS = ("shards", "partition_map", "shard_leaders", "lint_schema",
@@ -724,12 +756,16 @@ def test_module_version_and_unported_flag():
                          timeout=120, env=env)
     from spicedb_kubeapi_proxy_tpu_torch import __version__
     assert out.returncode == 0 and out.stdout.strip() == __version__
+    # --fleet-peers parses now; an entry that is no http(s) URL is the
+    # reference's validate error, exit 2
     out = subprocess.run([sys.executable, "-m",
                           "spicedb_kubeapi_proxy_tpu_torch",
-                          "--fleet-peers", "http://p"], cwd=ROOT,
+                          "--use-in-cluster-config", "--rule-config", "r",
+                          "--fleet-peers", "ftp://p"], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          env=env)
     assert out.returncode == 2 and "--fleet-peers" in out.stderr
+    assert "must be an http(s) base URL" in out.stderr
     out = subprocess.run([sys.executable, "-m",
                           "spicedb_kubeapi_proxy_tpu_torch",
                           "--spicedb-endpoint", "jax://",

@@ -562,7 +562,8 @@ check: [{tpl: "pod:{{namespacedName}}#view@user:{{user.name}}"}]
 
 PORT_SURFACES = {"/debug/traces", "/debug/decisions", "/debug/flight",
                  "/debug/timeline", "/debug/workload", "/debug/profile",
-                 "/debug/replication", "/debug/sharding"}
+                 "/debug/replication", "/debug/sharding", "/debug/fleet",
+                 "/debug/tail"}
 
 
 def make_server(root, url, **extra):
@@ -604,22 +605,42 @@ def test_index_enumerates_the_ported_surfaces(url):
     (st, got), (rst, want) = run(go(port)), run(go(ref))
     assert st == rst == 200
     assert set(got) == PORT_SURFACES
-    # the reference's two others come with the fleet (ROADMAP Queue 1
-    # item 9e)
-    assert set(want) - set(got) == {"/debug/fleet", "/debug/tail"}
+    # the fleet plane's two surfaces included, the reference's set
+    assert set(want) == set(got)
     assert all(isinstance(d, str) and d for d in got.values())
 
 
 @pytest.mark.parametrize("path", ["/debug/bogus", "/debug/fleet",
                                   "/debug/tail"])
 def test_unknown_surface_uniform_404(path):
-    port, _ = servers()
+    """An unknown surface answers 404 NotFound; the fleet plane's two,
+    on a proxy without fleet peers, answer as the reference's do (over
+    recorders emptied first: they are process-wide)."""
+    from spicedb_kubeapi_proxy_tpu.utils import tracing as ref_tracing
+    from spicedb_kubeapi_proxy_tpu_torch.utils import tracing
+    tracing.RECORDER.drain()
+    ref_tracing.RECORDER.drain()
+    port, ref = servers()
 
-    async def go():
-        resp = await port.get_embedded_client(user="alice").get(path)
-        return resp.status, json.loads(resp.body)["reason"]
+    async def go(server):
+        resp = await server.get_embedded_client(user="alice").get(path)
+        return resp.status, json.loads(resp.body)
 
-    assert run(go()) == (404, "NotFound")
+    got = run(go(port))
+    if path == "/debug/bogus":
+        assert (got[0], got[1]["reason"]) == (404, "NotFound")
+        return
+    want = run(go(ref))
+    assert got[0] == want[0] == 200
+    if path == "/debug/fleet":
+        assert got[1] == want[1] == {
+            "enabled": False, "reason": "no --fleet-peers configured",
+            "tier": "leader"}
+    else:
+        # no peers: the local traces alone, too few to diff
+        assert got[1]["enabled"] is want[1]["enabled"] is True
+        assert got[1]["ranked"] == want[1]["ranked"] == []
+        assert got[1]["tier"] == want[1]["tier"] == "leader"
 
 
 def test_replication_surface_without_a_role_matches_the_reference():

@@ -728,3 +728,70 @@ def test_sharded_proxy_router_and_lint_run_with_jax_blocked():
     assert res["codes"] == []
     assert not [m for m in res["modules"] if _is_forbidden(m)]
     assert set(SHARDING_MODULES) <= set(res["modules"])
+
+
+# the remote endpoint and the fleet plane
+REMOTE_FLEET_MODULES = [
+    "spicedb_kubeapi_proxy_tpu_torch.permsd",
+    "spicedb_kubeapi_proxy_tpu_torch.spicedb.wire",
+    "spicedb_kubeapi_proxy_tpu_torch.spicedb.grpc_remote",
+    "spicedb_kubeapi_proxy_tpu_torch.utils.fleet",
+    "spicedb_kubeapi_proxy_tpu_torch.utils.tailexplain",
+    "spicedb_kubeapi_proxy_tpu_torch.utils.loadgen",
+    "spicedb_kubeapi_proxy_tpu_torch.utils.topology",
+]
+
+
+@pytest.mark.parametrize("module", REMOTE_FLEET_MODULES)
+def test_remote_and_fleet_module_imports_nothing_forbidden(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    assert path.exists(), module
+    bad = [m for m in _imports(path) if _is_forbidden(m)]
+    assert bad == [], f"{module} imports {bad}"
+
+
+_PROBE_REMOTE_FLEET = _BLOCK + r"""
+import asyncio, json
+sys.modules["grpc"] = None
+from spicedb_kubeapi_proxy_tpu_torch import permsd
+from spicedb_kubeapi_proxy_tpu_torch.spicedb import grpc_remote, wire
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import (
+    Bootstrap, create_endpoint)
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import SubjectRef
+from spicedb_kubeapi_proxy_tpu_torch.utils import (
+    fleet, loadgen, tailexplain, topology)
+ep = create_endpoint("torch://?device=cpu", Bootstrap(
+    "definition user {}\ndefinition doc { relation viewer: user\n"
+    "permission view = viewer }", "doc:d1#viewer@user:ann"))
+_, lookup = grpc_remote.PermissionsGrpcServer(ep).handlers()[
+    "/authzed.api.v1.PermissionsService/LookupResources"]
+
+async def go():
+    return [wire.dec_lookup_response(f)[0] async for f in lookup(
+        wire.enc_lookup_request("doc", "view", SubjectRef("user", "ann")),
+        None)]
+
+ids = asyncio.run(go())
+merged = fleet.merge_fleet([{"url": "a", "traces": []}])
+report = tailexplain.explain(merged)
+lines = loadgen.WorkloadSpec(duration_s=0.5).schedule_lines()
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None)
+print(json.dumps({"ids": ids, "traces": merged["traces"],
+                  "requests": report["requests"], "lines": len(lines),
+                  "modules": loaded}))
+"""
+
+
+def test_remote_and_fleet_run_with_jax_grpc_and_yaml_blocked():
+    """permsd's handlers over `torch://?device=cpu`, the fleet merge, the
+    tail report and the workload schedule, with jax, grpc, h11, yaml and
+    cryptography unimportable: nothing of the reference is loaded."""
+    out = subprocess.run([sys.executable, "-c", _PROBE_REMOTE_FLEET],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["ids"] == ["d1"] and res["traces"] == []
+    assert res["requests"] == 0 and res["lines"] > 0
+    assert not [m for m in res["modules"] if _is_forbidden(m)]
+    assert set(REMOTE_FLEET_MODULES) <= set(res["modules"])

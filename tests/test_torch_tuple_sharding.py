@@ -65,6 +65,7 @@ class SPkg:
         self.metrics = mod("spicedb.sharding.metrics")
         self.activity = mod("authz.distributedtx.activity")
         self.features = mod("utils.features")
+        self.tracing = mod("utils.tracing")
         self.cli = mod("cli")
 
     def set_sharding(self, on: bool) -> None:
@@ -999,30 +1000,60 @@ def test_router_holds_the_reference_tests_asserts(tmp):
 
 
 def test_router_refuses_the_fleet_plane(tmp):
-    """The fleet plane is not ported: `fleet_peers=` is a TypeError, and
-    /debug/fleet and /debug/tail answer 404 as the port's server answers
-    a surface it does not serve (401 without an identity first)."""
-    pm = PORT.sharding.PartitionMap.parse(PMAP_SPEC, n_shards=2)
-    with pytest.raises(TypeError):
-        PORT.sharding.ShardRouter(pm, [None, None], fleet_peers=["http://x"])
-    with pytest.raises(TypeError):
-        PORT.sharding.RouterServer(pm, ["http://a", "http://b"],
-                                   fleet_peers=["http://x"])
-    router, shard0, _ = make_router(PORT, "embedded://", tmp)
+    """The router's fleet plane, refused while it was unported (a
+    TypeError for `fleet_peers=`, 404 at /debug/fleet and /debug/tail),
+    answers as the reference router's: `fleet_peers=` is taken, the
+    RouterServer adds its shard leaders as implicit members, both
+    surfaces want an identity (401), and a router without peers says so
+    at both; with the shard leaders as peers /debug/fleet merges one
+    routed request's trace across the router and its leader."""
+    def observe(P, url, sub):
+        P.tracing.RECORDER.drain()
+        pm = P.sharding.PartitionMap.parse(PMAP_SPEC, n_shards=2)
+        server = P.sharding.RouterServer(pm, ["http://a", "http://b"],
+                                         fleet_peers=["http://x",
+                                                      "http://a"])
+        members = server.router.fleet_peers
+        bare, shard0, shard1 = make_router(P, url, os.path.join(tmp, sub))
+        fleet = P.sharding.ShardRouter(
+            pm, bare.transports, rule_configs=P.proxyrule.parse(RULES),
+            schema=P.schema(), fleet_peers=["http://s0", "http://s1"],
+            fleet_transports={
+                "http://s0": P.httpcore.HandlerTransport(shard0.handler),
+                "http://s1": P.httpcore.HandlerTransport(shard1.handler)})
 
-    async def go():
-        out = []
-        for path in ("/debug/fleet", "/debug/tail"):
-            for user in ("", "alice"):
-                r = await router_req(PORT, router, "GET", path, user=user)
+        async def go():
+            out = []
+            for path in ("/debug/fleet", "/debug/tail"):
+                r = await router_req(P, bare, "GET", path, user="")
                 out.append((r.status, json.loads(r.body)["reason"]))
-        r = await router_req(PORT, router, "GET", "/debug/bogus")
-        return out, r.status, (await shard0.get_embedded_client(
-            "alice").get("/debug/fleet")).status
+                r = await router_req(P, bare, "GET", path)
+                out.append((r.status, json.loads(r.body)))
+            r = await router_req(P, fleet, "GET",
+                                 "/api/v1/namespaces/team-a")
+            out.append(r.status)
+            r = await router_req(P, fleet, "GET", "/debug/fleet")
+            merged = json.loads(r.body)
+            out.append((r.status, merged["enabled"], merged["tier"],
+                        [(m["url"], m["error"]) for m in merged["members"]],
+                        [(sorted(t["tiers"]), t["tier_count"],
+                          t["aligned_by_wall"]) for t in merged["traces"]]))
+            return out
+        return members, asyncio.run(go())
 
-    out, bogus, leader = asyncio.run(go())
-    assert out == [(401, "Unauthorized"), (404, "NotFound")] * 2
-    assert leader == bogus == 404
+    got = observe(PORT, "embedded://", "port")
+    assert got == observe(REF, "embedded://", "ref")
+    members, out = got
+    assert members == ["http://a", "http://b", "http://x"]
+    assert out[0] == out[2] == (401, "Unauthorized")
+    assert out[1] == (200, {"enabled": False, "tier": "router",
+                            "reason": "no fleet peers configured"})
+    assert out[3] == out[1]
+    assert out[4] == 200
+    assert out[5] == (200, True, "router",
+                      [("router", None), ("http://s0", None),
+                       ("http://s1", None)],
+                      [(["leader", "router"], 2, False)])
 
 
 def test_sharded_construction_refuses_before_any_graph(monkeypatch):
