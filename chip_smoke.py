@@ -14,10 +14,17 @@ deployment (`models/workloads.py multitenant_1m()` with its defaults:
 4. lookups: `lookup_resources_batch("pod", "view", 256 subjects)` batches;
 5. checks: `check_bulk_permissions` over 10,000 (pod, subject) pairs;
    every read kernel (all but `scatter_rows`) must have launched during
-   phases 4-5;
+   phases 4-5, and no standalone `sweep_delta`, `check_gather` or
+   `check_gather3`: the checks ride every sweep's tail,
+   `sweep_delta_checks` (also asserted for phases 10, 16, 20, 22, 23);
 6. kernels against their plain-torch twins, on the card, on the real
    1M-row tables: every step of two real sweeps, the seed, the delta, the
-   check gather and the lookup transpose, bit for bit; then one whole
+   check gather, the fused check tail `sweep_delta_checks` (delta pair,
+   packed answers and their pinned host copy; its answers against the
+   standalone gather, the cache's replayed `checks_device` against the
+   same, a warm check batch's launches and readbacks, (b) also from
+   event nodes inside a graph) and the lookup transpose, bit for bit;
+   then one whole
    lookup batch re-run on the CPU twins (state, trace and words equal)
    and launched step by step (equal to its CUDA graph replays), and a
    warm endpoint batch that must be one graph replay and one readback a
@@ -115,7 +122,10 @@ deployment (`models/workloads.py multitenant_1m()` with its defaults:
    calls (10,000 pairs) interleaved with 256 concurrent lookups must
    answer as the direct endpoint; every read kernel must launch in (a)-(b)
    (counts from zero), and a fixed-seed sample equals the oracle; (e) one
-   pinned side-stream readback ran for every fused batch, and its bytes
+   pinned side-stream readback ran for every fused lookup batch and none
+   for a fused check batch (its answers come back with its last sweep,
+   equal to `check_gather` on the converged state), and the readback's
+   bytes
    equal a blocking copy of the same result; (c) (a) and (b) at pipeline
    depth 1 and 2 and through the direct endpoint, 3 runs each: median
    wall, per-request p50/p99 and batch counts, beside the `nvidia-smi`
@@ -641,6 +651,7 @@ REPLACES = {
     "mesh_perm_program": "spicedb_kubeapi_proxy_tpu/parallel/"
                          "sharding.py:522",
     "mesh_sweep_delta": "spicedb_kubeapi_proxy_tpu/parallel/sharding.py:529",
+    "sweep_delta_checks": "spicedb_kubeapi_proxy_tpu/ops/ell.py:853",
 }
 # further TPU kernels a ported kernel also stands for (PERF.md rows 9-11)
 REPLACES_ALSO = {
@@ -660,17 +671,25 @@ REPLACES_ALSO = {
                           "506 (the maybe words' all_gather)",
     "mesh_sweep_delta": "spicedb_kubeapi_proxy_tpu/parallel/sharding.py:542 "
                         "(changed, pmax) and :545 (delta, psum over data)",
+    "sweep_delta_checks": "spicedb_kubeapi_proxy_tpu/ops/ell.py:878 (the "
+                          "definite run_checks) and :613 (the fixpoint "
+                          "test and trace, with sweep_delta): the ELL "
+                          "sweep's tail, one launch",
 }
 REPLACES_ALSO["edge_or"] += (", spicedb_kubeapi_proxy_tpu/parallel/"
                              "sharding.py:63 (make_sharded_evaluate, each "
                              "edge shard)")
 # the kernels of the definite read path (phases 4-5) and of the caveat
-# path (phase 10: definite checks are check_gather3's there)
-READ_KERNELS = ("ell_gather_or", "perm_program", "sweep_delta",
-                "seed_bitplanes", "check_gather", "lookup_T")
+# path (phase 10); on both the checks ride every sweep's tail
+# (sweep_delta_checks), so neither launches sweep_delta, check_gather or
+# check_gather3 (STANDALONE_TAIL), which serve the segment, mesh and
+# Leopard paths
+READ_KERNELS = ("ell_gather_or", "perm_program", "sweep_delta_checks",
+                "seed_bitplanes", "lookup_T")
+STANDALONE_TAIL = ("sweep_delta", "check_gather", "check_gather3")
 CAVEAT_KERNELS = tuple(k for k in REPLACES
-                       if k not in ("check_gather", "edge_or",
-                                    "word_cols_T", "or_combine")
+                       if k not in STANDALONE_TAIL + (
+                           "edge_or", "word_cols_T", "or_combine")
                        and not k.startswith("mesh_"))
 # the kernels of the mesh read path (phase 13a; the sharded sweep's own
 # are MESH_SWEEP_KERNELS, plus mesh_cav_gather_or with planes)
@@ -917,6 +936,7 @@ def sweep_split(kc, tables, x0, live, x, steps, n_words: int,
     cur = x.clone()
     dead = kc.prog.dead_index
     arena = _Arena(x0=x0, a=x, b=cur, live=live)
+    kc.size_tail(arena, 32 * n_words)
     out = {}
     for kind in dict.fromkeys(s[0] for s in steps):
         mine = [s for s in steps if s[0] == kind]
@@ -1185,6 +1205,13 @@ def kernels_vs_twins(ep, batches, reqs, timer, peak):
         timer.ms(lambda: kernels.check_gather(x_final, gi, gc)),
         timer.ms(lambda: reference.check_gather(x_final, gi, gc)),
         gi.numel() * 4 * 3 + pairs * 4, 3 * gi.numel())
+    # the fused tail that carries these gathers on the main path
+    rows["sweep_delta_checks"] = {
+        "name": "sweep_delta_checks", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": REPLACES["sweep_delta_checks"],
+        **check_tail(ep, kc, q, n_words, (main, aux, None), x_final, x_prev,
+                     reqs, gi.cpu().numpy(), gc.cpu().numpy(), timer, peak,
+                     "phase 6")}
     off, length = prog.slot_range("pod", "view")
     lk = kernels.lookup_T(x_final, off, length)
     lt = reference.lookup_T(x_final, off, length)
@@ -1261,7 +1288,7 @@ def graph_batch_checks(ep, kc, q, n_words: int, tables, x_dev, tr_dev,
     want = Counter()
     for _ in range(sweeps):
         want.update(s[0] for s in steps)
-        want["sweep_delta"] += 1
+        want["sweep_delta_checks"] += 1
     want.update(("seed_bitplanes", "lookup_T"))
     got = {k: v for k, v in kernels.LAUNCHES.items() if v}
     if d["captures"] or d["eager_sweeps"] or d["replays"] != sweeps or \
@@ -1273,6 +1300,147 @@ def graph_batch_checks(ep, kc, q, n_words: int, tables, x_dev, tr_dev,
         f"trace {tr_dev[:1 + tr_dev[0]].tolist()}); a warm endpoint batch of "
         f"{sweeps} sweeps = {sweeps} graph replays + {sweeps} readbacks, "
         f"launches {got}; graph stats {kc.graph_stats}")
+
+
+def _no_standalone_tail(launches: dict, label: str) -> None:
+    """The ELL path gathers its checks in the sweep tail: fail if `label`'s
+    launches hold a standalone delta or check gather."""
+    bad = {k: launches.get(k, 0) for k in STANDALONE_TAIL
+           if launches.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{label}: the ELL path launched {bad} (its "
+                             f"checks ride sweep_delta_checks)")
+    log(f"{label}: no standalone sweep_delta / check_gather / check_gather3 "
+        f"launch; sweep_delta_checks {launches.get('sweep_delta_checks', 0)}")
+
+
+def check_tail(ep, kc, q, n_words: int, tables, x_final, x_prev, reqs,
+               gidx, gcol, timer, peak, label: str) -> dict:
+    """The fused sweep tail, `sweep_delta_checks`, at a real check batch
+    (`gidx`, `gcol`: its gather slots, padded as the endpoint pads them):
+    against its twin on the converged state (delta pair, packed answers,
+    the pinned host copy, the dead row), its answers against the
+    standalone `check_gather` (`check_gather3` with planes) on the same
+    state, then the endpoint cache's replayed `checks_device` against the
+    same gathers; a warm check batch of the endpoint counts its launches
+    and readbacks.  Timed as the other rows, plus (b) from event nodes
+    inside a replayed graph of the tail alone.  Returns the kernel row's
+    fields."""
+    import asyncio
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.ops.ell import _Arena
+    from spicedb_kubeapi_proxy_tpu_torch.ops.kernels import reference
+    planes = kc.planes
+    half = n_words if planes else None
+    dead = kc.prog.dead_index
+    nt, width = x_final.shape
+    dev = x_final.device
+    g = len(gidx)
+    gi_np = np.asarray(gidx, np.int32)
+    gc_np = np.asarray(gcol, np.int32)
+    arena = _Arena(x0=x_final, a=x_final, b=x_prev)
+    kc.size_tail(arena, max(g, 32 * n_words))
+    kc._load_tail(arena, n_words, (gi_np, gc_np))
+    cur_k, cur_t = x_final.clone(), x_final.clone()
+    out_t = arena.out.clone()
+    call = lambda: kernels.sweep_delta_checks(
+        cur_k, x_prev, dead, arena.tail, arena.out, half=half,
+        host=arena.host)
+    call()
+    reference.sweep_delta_checks(cur_t, x_prev, dead, arena.tail, out_t,
+                                 half=half)
+    timer.sync()
+    err = _diff(arena.out, out_t) + _diff(cur_k, cur_t)
+    if arena.host is not None:
+        err += _diff(arena.host, arena.out.cpu())
+    answers = kc._answers(arena)
+    gi, gc = torch.from_numpy(gi_np).to(dev), torch.from_numpy(gc_np).to(dev)
+    alone = (kernels.check_gather3(x_final, gi, gc, n_words) if planes
+             else kernels.check_gather(x_final, gi, gc)).cpu()
+    if err or not torch.equal(answers, alone):
+        raise AssertionError(f"{label}: sweep_delta_checks differs from its "
+                             f"twin ({err}) or from the standalone gather")
+    # the endpoint cache's own entry, replayed from its graphs (the first
+    # call may capture), against the standalone gather
+    out_c, _ = kc.checks_device(q, n_words, gi_np, gc_np, *tables)
+    st0 = dict(kc.graph_stats)
+    kernels.reset_launches()
+    out_c, tr = kc.checks_device(q, n_words, gi_np, gc_np, *tables)
+    launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    st = {k: kc.graph_stats[k] - st0[k] for k in st0}
+    sweeps = int(tr[0])
+    if (not torch.equal(out_c, alone) or out_c.device.type != "cpu"
+            or st["replays"] != (sweeps if timer.cuda else 0)
+            or (timer.cuda and launched.get("sweep_delta_checks") != sweeps)
+            or any(launched.get(k) for k in STANDALONE_TAIL)):
+        raise AssertionError(f"{label}: the replayed checks_device "
+                             f"({sweeps} sweeps, graph stats {st}, launches "
+                             f"{launched}) differs from the standalone "
+                             f"gather")
+    # a warm check batch through the endpoint: its launches and readbacks
+    asyncio.run(ep.check_bulk_permissions(reqs))
+    kernels.reset_launches()
+    rb0 = ep.stats["readbacks"]
+    asyncio.run(ep.check_bulk_permissions(reqs))
+    batch = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    readbacks = ep.stats["readbacks"] - rb0
+    batch_sweeps = int(ep.graph().last_trace[0])
+    if (any(batch.get(k) for k in STANDALONE_TAIL) or readbacks
+            or (timer.cuda and batch.get("sweep_delta_checks")
+                != batch_sweeps)):
+        raise AssertionError(f"{label}: a warm check batch launched "
+                             f"{batch} and started {readbacks} readbacks")
+    # bound: the delta's two states once, the slots' pairs and G once, the
+    # distinct gathered words once (two planes), the delta pairs and
+    # answer words written on the card and into the host copy
+    cells = len(np.unique(gi_np.astype(np.int64) * n_words + gc_np // 32))
+    out_bytes = arena.out.numel() * 4
+    nbytes = 2 * nt * width * 4 + 8 * g + 4 \
+        + cells * 4 * (2 if planes else 1) + 2 * out_bytes
+    ops = 3 * nt * width + 5 * g
+    b_bytes, b_ops = nbytes / peak * 1e3, ops / INT_OPS_PER_S * 1e3
+    row = {"max_abs_err": err, "ms": timer.ms(call),
+           "plain_ms": timer.ms(lambda: reference.sweep_delta_checks(
+               cur_t, x_prev, dead, arena.tail, out_t, half=half), reps=2),
+           "bound_ms": max(b_bytes, b_ops),
+           "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+           "library_ms": None, "gathers": g, "replayed_sweeps": sweeps,
+           "batch_launches": batch, "batch_readbacks": readbacks,
+           "batch_sweeps": batch_sweeps}
+    if timer.cuda:
+        t = attribute(call)
+        row.update({"device_ms": t["device_ms"], "cold_ms": t["cold_ms"],
+                    "host_us": t["host_us"], "event_ms": t["event_ms"],
+                    "device_by": t["device_by"],
+                    "launches_per_call": t["launches"]})
+        # (b) from the event nodes of a graph that holds the tail alone
+        graph = kernels.LaunchGraph(dev)
+        graph.capture(call)
+        spans = []
+        for _ in range(ATTR_CALLS):
+            graph.replay()
+            torch.cuda.current_stream(dev).synchronize()
+            spans.append(graph.seconds() * 1e3)
+        row["graph_event_ms"] = statistics.median(spans)
+        del graph
+    log(f"{label}: sweep_delta_checks on the converged batch ({g} slots, "
+        f"{width} words a row): delta pair, answers and host copy "
+        f"bit-identical to its twin, answers equal to the standalone "
+        f"{'check_gather3' if planes else 'check_gather'}; the replayed "
+        f"checks_device ({sweeps} sweeps) equals it with launches "
+        f"{launched}; a warm check batch: launches {batch}, readbacks "
+        f"{readbacks}; (a) {row['ms']:.6f} ms"
+        + (f", (b) {row['device_ms']:.6f} ms ({row['device_by']}), in-graph "
+           f"events {row['graph_event_ms']:.6f} ms, (c) "
+           f"{row['host_us']:.2f} us, (d) {row['cold_ms']:.6f} ms"
+           if timer.cuda else "")
+        + f"; bound {row['bound_ms']:.6f} ms ({nbytes} B)")
+    return row
 
 
 def oracle_check(ep, batches, lookups, reqs, checks):
@@ -1790,6 +1958,7 @@ def caveats(timer, peak, smi_line, device: str = "cuda",
             f"(all: {', '.join(f'{t:.4f}' for t in e2e)})")
     launches = {k: kernels.LAUNCHES[k] for k in kernels.KERNEL_NAMES}
     log(f"launches on the caveat path: {launches}")
+    _no_standalone_tail(launches, "phase 10")
     # the warm lookup batches again, split at the endpoint's two phases
     split = []
     for k in range(1, 1 + N_WARM):
@@ -1920,6 +2089,9 @@ def caveats(timer, peak, smi_line, device: str = "cuda",
         timer.ms(lambda: kernels.check_gather3(x_final, gi, gc, n_words)),
         timer.ms(lambda: reference.check_gather3(x_final, gi, gc, n_words)),
         gi.numel() * 4 * 3 + cells * 4 * 2, 5 * gi.numel())
+    rows["sweep_delta_checks"] = check_tail(
+        ep, kc, q, n_words, (main, aux, cav), x_final, x_prev, reqs,
+        gi.cpu().numpy(), gc.cpu().numpy(), timer, peak, "phase 10")
     off, length = prog.slot_range("pod", "view")
     lk = kernels.lookup_T(x_final, off, length, n_words)
     row("lookup_T", _diff(lk, reference.lookup_T(x_final, off, length,
@@ -2670,7 +2842,8 @@ def leopard_path(timer, peak, smi_line, mt_statuses: dict,
                                               "kernel_calls")}
     log(f"A launches {a_launch}; served {served}")
     swept = [k for k in ("ell_gather_or", "perm_program", "sweep_delta",
-                         "seed_bitplanes", "edge_or", "lookup_T")
+                         "sweep_delta_checks", "seed_bitplanes", "edge_or",
+                         "lookup_T")
              if a_launch[k]]
     if swept or served["kernel_calls"]:
         raise AssertionError(f"A's batches reached the sweep: {swept}")
@@ -3879,7 +4052,8 @@ def mesh_leopard(a, w, mesh, timer, device: str = "cuda") -> dict:
                                               "leopard_lookups",
                                               "kernel_calls")}
     swept = [k for k in ("ell_gather_or", "perm_program", "sweep_delta",
-                         "seed_bitplanes", "lookup_T") if launches[k]]
+                         "sweep_delta_checks", "seed_bitplanes", "lookup_T")
+             if launches[k]]
     if swept or served["kernel_calls"] or served["leopard_checks"] != \
             len(reqs) or not (launches["check_gather"]
                               and launches["word_cols_T"]):
@@ -4081,11 +4255,13 @@ def batched_dispatch(ep, w, smi_line: str, device: str = "cuda") -> dict:
         f"(allowed and refused pods) equal the oracle "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    # (e) the readback: one side-stream copy for every fused batch (nothing
-    # is served from a closure plane at multitenant-1m), and its bytes
-    # equal a blocking copy of the same result
-    fused = (s2["fused_lookups"] + s2["fused_checks"]
-             - s0["fused_lookups"] - s0["fused_checks"])
+    # (e) the readback: one side-stream copy for every fused lookup batch
+    # (nothing is served from a closure plane at multitenant-1m), its
+    # bytes equal to a blocking copy of the same result; a fused check
+    # batch starts none: its answers come back with its last sweep (the
+    # ELL check tail), on the host, equal to the standalone gather
+    fused_l = s2["fused_lookups"] - s0["fused_lookups"]
+    fused_c = s2["fused_checks"] - s0["fused_checks"]
     rbs = s2["readbacks"] - s0["readbacks"]
     g = ep.graph()
     q_arr, cols, _ = ep._encode_subjects(g, subjects)
@@ -4094,39 +4270,52 @@ def batched_dispatch(ep, w, smi_line: str, device: str = "cuda") -> dict:
     gi = [g.prog.state_index("pod", "view", r.resource.id)
           for r in chunks[0]]
     gc = [cols[r.subject] for r in chunks[0]]
-    dev_c, _, _ = g.run_checks3_device(q_arr, gi, gc)
-    same, times = [], []
-    for dev in (dev_l, dev_c):
-        rb = _Readback(dev)
-        host = rb.wait()
-        blocking = dev.cpu()
-        same.append(bool(torch.equal(host, blocking)))
-        if device == "cuda" and not (rb.event is not None
-                                     and host.is_pinned()):
-            raise AssertionError("the readback did not go through a pinned "
-                                 "side-stream copy")
-        # host ms of each way, the result already computed (median of 10)
-        for fn in (lambda: _Readback(dev).wait(), dev.cpu):
-            ts = []
-            for _ in range(10):
-                if device == "cuda":
-                    torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                ts.append((time.perf_counter() - t0) * 1e3)
-            times.append(statistics.median(ts))
-    if device == "cuda" and rbs != fused:
-        raise AssertionError(f"{rbs} side-stream readbacks for {fused} fused "
-                             f"batches")
-    if not all(same):
-        raise AssertionError(f"a readback differs from a blocking copy of the "
-                             f"same result: {same}")
+    host_c, _, _ = g.run_checks3_device(q_arr, gi, gc)
+    kc = g.kernel
+    main, aux, cav = g.snapshot()
+    n_words = len(q_arr) // 32
+    x_fin, _ = kc.evaluate(torch.from_numpy(q_arr).to(kc.device), n_words,
+                           main, aux, kc.take_arena(n_words), cav)
+    alone = kernels.check_gather(
+        x_fin, torch.tensor(gi, dtype=torch.int32, device=kc.device),
+        torch.tensor(gc, dtype=torch.int32, device=kc.device)).cpu()
+    rb_c = _Readback(host_c)
+    if (host_c.device.type != "cpu" or rb_c.event is not None
+            or rb_c.wait() is not host_c
+            or not torch.equal(host_c[:len(gi)], alone)):
+        raise AssertionError("a check batch's answers did not arrive on the "
+                             "host with its sweeps, equal to check_gather")
+    rb = _Readback(dev_l)
+    host = rb.wait()
+    same = bool(torch.equal(host, dev_l.cpu()))
+    if device == "cuda" and not (rb.event is not None and host.is_pinned()):
+        raise AssertionError("the readback did not go through a pinned "
+                             "side-stream copy")
+    # host ms of each way, the result already computed (median of 10)
+    times = []
+    for fn in (lambda: _Readback(dev_l).wait(), dev_l.cpu):
+        ts = []
+        for _ in range(10):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        times.append(statistics.median(ts))
+    if device == "cuda" and rbs != fused_l:
+        raise AssertionError(f"{rbs} side-stream readbacks for {fused_l} "
+                             f"fused lookup batches ({fused_c} check "
+                             f"batches)")
+    if not same:
+        raise AssertionError("a readback differs from a blocking copy of the "
+                             "same result")
     log(f"dispatch (e): {rbs} side-stream readbacks ({s2['readback_bytes'] - s0['readback_bytes']} "
-        f"bytes) for {fused} fused batches; a lookup's [W, L] words and a "
-        f"check batch's values read back equal to a blocking .cpu() copy; "
-        f"host ms (median of 10), side-stream readback vs .cpu(): words "
-        f"{times[0]:.4f} vs {times[1]:.4f} ({dev_l.numel() * 4} B), check "
-        f"values {times[2]:.4f} vs {times[3]:.4f} ({dev_c.numel() * 4} B)")
+        f"bytes) for {fused_l} fused lookup batches, none for {fused_c} "
+        f"fused check batches (their answers arrive with the last sweep, "
+        f"equal to check_gather on the converged state); a lookup's [W, L] "
+        f"words read back equal to a blocking .cpu() copy; host ms (median "
+        f"of 10), side-stream readback vs .cpu(): {times[0]:.4f} vs "
+        f"{times[1]:.4f} ({dev_l.numel() * 4} B)")
 
     # (c) depth 1, depth 2 and direct dispatch, interleaved per repeat
     modes = {"depth 1": BatchingEndpoint(ep, pipeline_depth=1),
@@ -5811,7 +6000,7 @@ def _cache_telemetry(p16: dict, w, smi_line: str, device: str,
     cold = delta(c0, c1)
     if cold["misses"] != len(users) or cold["hits"]:
         raise AssertionError(f"cold burst cache counts {cold}")
-    idle = [k for k in ("ell_gather_or", "perm_program", "sweep_delta",
+    idle = [k for k in ("ell_gather_or", "perm_program", "sweep_delta_checks",
                         "seed_bitplanes", "lookup_T") if not launches1[k]]
     if idle:
         raise AssertionError(f"cold burst launched no {idle}")
@@ -9568,13 +9757,14 @@ def main() -> int:
     # 4-5. the main path, launches counted from zero
     kernels.reset_launches()
     batches, lookups, reqs, checks, summary = drive(ep, w, timer)
-    launches = {k: kernels.LAUNCHES[k] for k in READ_KERNELS}
+    launches = dict(kernels.LAUNCHES)
     log(f"launches on the main path: {launches}; sweep graphs "
         f"{ep.graph().kernel.graph_stats}")
-    idle = [k for k, v in launches.items() if v == 0]
+    idle = [k for k in READ_KERNELS if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{idle}")
+    _no_standalone_tail(launches, "phases 4-5")
 
     # 6. kernels against twins, timings and bounds
     rows, per, nt = kernels_vs_twins(ep, batches, reqs, timer, peak)
@@ -9815,6 +10005,18 @@ def main() -> int:
         rows[kname]["fleet_launches"] = fleet["launches"].get(kname, 0)
     for kname, also in REPLACES_ALSO.items():
         rows[kname]["replaces_also"] = also
+    # the ELL path's checks ride the sweep tail in every phase that serves
+    # it: no standalone delta or gather launched there
+    for key, label in (("proxy_launches", "phase 16"),
+                       ("failover_launches", "phase 20"),
+                       ("remote_launches", "phase 22"),
+                       ("fleet_launches", "phase 23")):
+        _no_standalone_tail({k: r.get(key, 0) for k, r in rows.items()},
+                            label)
+    log("sweep_delta_checks launches: " + ", ".join(
+        f"{k} {v}" for k, v in rows["sweep_delta_checks"].items()
+        if k == "launches" or k.endswith("_launches")
+        and not isinstance(v, dict)))
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}"
                                       for k, v in phase_s.items()))
     print(json.dumps({"kernels": [rows[k] for k in REPLACES]}))

@@ -3,7 +3,7 @@
 and their PyTorch yardsticks, on one CUDA card, with device time and
 host cost apart.
 
-    python3 scripts/torch_kernel_ab.py [--rows sweep|copy|edge|mesh|all]
+    python3 scripts/torch_kernel_ab.py [--rows sweep|copy|edge|mesh|tail|all]
                                        [--variants old,new,graph,library]
                                        [--rounds 3] [--out FILE]
 
@@ -58,6 +58,15 @@ between replicas, per-replica programs and deltas, a stacked readback),
 readback); the whole sweep old, new, new, old, then each part of it
 alone (`mesh old ...`, `mesh new ...`).  Its bound is the least bytes
 (`chip_smoke.mesh_bound_bytes`), with the first design's count beside it.
+
+`--rows tail` (PERF.md rows 3, 4b, 6) runs a check batch's last sweep
+tail at multitenant-1m and the caveated deployment, on the output of a
+batch's second sweep, up to the answers on the host: "old" the pair the
+ELL path ran before the fused tail (`sweep_delta` and its 8-byte
+readback, then `check_gather` or `check_gather3` and its side-stream
+readback), "new" `sweep_delta_checks` with its copy to pinned memory and
+the host's decode, "graph" the fused tail replayed from a CUDA graph;
+old, new, graph, then reversed, at 10,000 pairs padded to 16,384 slots.
 
 `--rows copy` runs `lookup_T` and `scatter_rows` (rows 4c, 8, 11, 13) at
 multitenant-1m after `--rounds` rounds of phase 9's churn, as before:
@@ -977,6 +986,149 @@ def sweep_cases(label, kc, tables, q, n_words, old, variants) -> list:
     return cases
 
 
+def tail_cases(label, kc, tables, q, n_words, variants) -> list:
+    """`--rows tail` (PERF.md rows 3, 4b, 6): a check batch's last sweep
+    tail on the state that the batch's second sweep writes, each variant
+    up to its answers on the host: "old" the pair the ELL path ran before
+    the fused tail (`sweep_delta`, its 8-byte `.tolist()`, then
+    `check_gather` or `check_gather3` and its pinned side-stream readback,
+    `_Readback`, waited on), "new" `sweep_delta_checks` with its copy to
+    pinned memory, a wait on the stream and the host's decode of the
+    answer words (`EllKernelCache._answers`), "graph" the same tail
+    replayed from a CUDA graph, as the sweep graphs replay it."""
+    import numpy as np
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.ops.ell import (TAIL_SLOTS,
+                                                         EllKernelCache,
+                                                         _Arena)
+    from spicedb_kubeapi_proxy_tpu_torch.ops.kernels import reference
+    from spicedb_kubeapi_proxy_tpu_torch.ops.torch_endpoint import (
+        _Readback, _unify_check_buckets)
+
+    prog = kc.prog
+    dead = prog.dead_index
+    nt = prog.state_size + kc.n_aux_rows
+    width = kc.width(n_words)
+    half = n_words if kc.planes else None
+    live = None
+    if kc._wc_ranges is not None:
+        live = torch.empty((kc._wc_ranges.shape[0], width),
+                           dtype=torch.int32, device=q.device)
+    x0 = kernels.seed_bitplanes(q, nt, n_words, dead,
+                                wc_ranges=kc._wc_ranges, live=live,
+                                planes=kc.planes)
+
+    def one_sweep(src):
+        dst = src.clone()
+        for s in kc.sweep_steps(*tables, n_words=n_words):
+            EllKernelCache.run_step(s, dst, x0, live, kernels, x_in=src)
+        kernels.sweep_delta(dst, src, dead)
+        return dst
+
+    # x: the first sweep's output; cur: the second's
+    x = one_sweep(x0)
+    cur = one_sweep(x)
+    rng = np.random.default_rng(13)
+    off, length = prog.slot_range("pod", "view")
+    _, gi_np, gc_np = _unify_check_buckets(
+        q.cpu().numpy(), rng.integers(off, off + length, N_CHECKS),
+        rng.integers(0, LANES, N_CHECKS))
+    g = len(gi_np)
+    gi = torch.from_numpy(gi_np).to(q.device)
+    gc = torch.from_numpy(gc_np).to(q.device)
+    arena = _Arena(x0=x0, a=x, b=cur)
+    kc.size_tail(arena, max(TAIL_SLOTS, g))
+    kc._load_tail(arena, n_words, (gi_np, gc_np))
+    stream = torch.cuda.current_stream(q.device)
+
+    def old_fn():
+        pair = kernels.sweep_delta(cur, x, dead).tolist()
+        v = (kernels.check_gather3(cur, gi, gc, n_words) if kc.planes
+             else kernels.check_gather(cur, gi, gc))
+        return torch.cat([torch.tensor(pair, dtype=torch.int32),
+                          _Readback(v).wait()])
+
+    # calls alternate the two delta pairs, as a batch's sweeps do: each
+    # adds into its pair and zeroes the other, the next call's
+    turn = [0]
+
+    def decoded(slot):
+        return torch.cat([torch.from_numpy(
+            arena.words[2 * slot:2 * slot + 2].copy()), kc._answers(arena)])
+
+    def tail_call(slot):
+        return lambda: kernels.sweep_delta_checks(
+            cur, x, dead, arena.tail, arena.out, half=half, host=arena.host,
+            slot=slot)
+    calls = [tail_call(0), tail_call(1)]
+
+    def new_fn():
+        slot = turn[0] = 1 - turn[0]
+        calls[slot]()
+        stream.synchronize()
+        return decoded(slot)
+
+    def twin():
+        out_t = torch.zeros_like(arena.out)
+        reference.sweep_delta_checks(cur.clone(), x, dead, arena.tail,
+                                     out_t, half=half)
+        arena.words[:] = out_t.cpu().numpy()
+        return decoded(0)
+
+    fns = {"old": old_fn, "new": new_fn}
+    if "graph" in variants:
+        graphs = [kernels.LaunchGraph(q.device) for _ in range(2)]
+        for g_, call in zip(graphs, calls):
+            g_.capture(call)
+
+        def graph_fn():
+            slot = turn[0] = 1 - turn[0]
+            graphs[slot].replay()
+            stream.synchronize()
+            return decoded(slot)
+        fns["graph"] = graph_fn
+    cells = int(torch.unique(gi.long() * n_words + gc.long() // 32).numel())
+    nbytes = (2 * nt * 4 * width + 8 * g + 4
+              + cells * 4 * (2 if kc.planes else 1)
+              + 2 * arena.out.numel() * 4)
+    return [Case(f"{label} check tail",
+                 f"delta over [{nt}, {width}] + {g} check slots "
+                 f"({N_CHECKS} pairs)", nbytes, fns, twin, lambda out: out,
+                 lambda: None, capturable=False,
+                 extra={"slots": g, "pairs": N_CHECKS})]
+
+
+def tail_rows(args, variants, peak, result) -> None:
+    """`--rows tail`: the old tail pair against the fused tail at
+    multitenant-1m (definite) and the caveated deployment (planes)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import SubjectRef
+
+    for label, kwargs, gen in (("mt", {}, "multitenant_1m"),
+                               ("cav", cs.CAVEAT_WORKLOAD, "caveated_rbac")):
+        ep, w = cs.load("cuda", kwargs, gen)
+        g = ep.graph()
+        rng = np.random.default_rng(cs.SEED)
+        batch = [SubjectRef("user", w.subjects[i]) for i in
+                 rng.choice(len(w.subjects), cs.LOOKUP_LANES, replace=False)]
+        q_arr, _, _ = ep._encode_subjects(g, batch)
+        q = torch.from_numpy(q_arr).cuda()
+        cases = tail_cases(label, g.kernel, g.snapshot(), q,
+                           len(q_arr) // 32, variants)
+        torch.cuda.synchronize()
+        run_cases(cases, variants, peak, result)
+        del ep, w, g, cases
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def old_mesh_step(kern, cur, x, x0, live, tables, n_words, impl,
                   parts=("gathers", "all_gathers", "cav", "programs")):
     """The first design of the sharded ELL step (row 12), kept as
@@ -1864,7 +2016,8 @@ def copy_rows(args, variants, old, peak, result) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", default="sweep",
-                    choices=("sweep", "copy", "edge", "mesh", "all"))
+                    choices=("sweep", "copy", "edge", "mesh", "tail",
+                             "all"))
     ap.add_argument("--variants", default="old,new,graph,library")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--out", default=None)
@@ -1889,7 +2042,8 @@ def main() -> int:
     variants = args.variants.split(",")
     # the mesh rows' first version is the package's kernels in the old
     # step (old_mesh_step), not OLD_SOURCE
-    old = OldKernels() if "old" in variants and args.rows != "mesh" else None
+    old = (OldKernels() if "old" in variants
+           and args.rows not in ("mesh", "tail") else None)
     log(f"built in {time.perf_counter() - t0:.1f} s")
     for line in kernels.BUILD_LOG.splitlines():
         if "ptxas info" in line and ("Used" in line or "Compiling" in line
@@ -1904,6 +2058,8 @@ def main() -> int:
         edge_rows(args, variants, old, peak, result)
     if args.rows in ("mesh", "all"):
         mesh_rows(args, variants, old, peak, result)
+    if args.rows in ("tail", "all"):
+        tail_rows(args, variants, peak, result)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

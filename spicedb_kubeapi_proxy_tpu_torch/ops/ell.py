@@ -28,12 +28,17 @@ exclusion mixes the planes by Kleene logic.  Checks answer {0, 1, 2}
 skips conditional results).
 
 The fixpoint loop runs on the host: after each sweep it reads back the
-sweep_delta pair (changed bits, any change) — one device sync per sweep.
-On a CUDA device a sweep's launches (the copy of the input, every step,
-the delta) are captured once per state arena, tables and plan in a CUDA
-graph, one for each direction between the arena's two buffers, and each
-sweep is one replay; moving the convergence test onto the device is
-later work (ROADMAP).
+delta pair (changed bits, any change) — one device sync per sweep.  Each
+sweep ends in the check tail, `sweep_delta_checks`: the delta and the
+batch's check gather from the new state in one launch, its answers packed
+32 slots a word beside the pair and read back with it, so the last
+sweep's readback carries the fixpoint's answers and a check batch
+launches and copies nothing after its sweeps.  On a CUDA device a
+sweep's launches (the copy of the input, every step, the tail and its
+copy to pinned host memory) are captured once per state arena, tables,
+plan and tail in a CUDA graph, one for each direction between the
+arena's two buffers, and each sweep is one replay; moving the
+convergence test onto the device is later work (ROADMAP).
 """
 
 from __future__ import annotations
@@ -72,6 +77,11 @@ K_AUX = 32
 K_CAV = kernels.K_CAV
 
 MAX_ITERATIONS = 50  # matches embedded reference dispatch depth cap
+
+# Check slots an arena's tail holds from the start (more for a wider
+# lane bucket): the bucket of a 10,000-pair bulk check, so that serving
+# grows a tail, and recaptures its graphs, only past that.
+TAIL_SLOTS = 16_384
 
 
 def batch_words(batch: int, minimum: int = 1) -> int:
@@ -401,11 +411,22 @@ _TABLE_VERSIONS = itertools.count(1)
 class _Arena:
     """One bucket's state buffers, [NT, W] int32 each ([NT, 2W] with
     planes): the seed x0 and the two sweep states the fixpoint loop swaps
-    between; the wildcard liveness [T, W] (None without wildcard terms);
-    and on a CUDA device the bucket's query lanes `q` [32 W] (a batch's
+    between; the wildcard liveness [T, W] (None without wildcard terms).
+
+    The check tail (`sweep_delta_checks`, `size_tail`): `tail` [2 + 2C]
+    holds G, then the batch's (row, column) gather pairs, written by the
+    host once a batch (C = `cap` slots, a multiple of 32; `g` the G it
+    holds); `out` [4 + C / 32] ([4 + C / 16] with planes) two delta
+    pairs (a sweep adds into the pair of its direction and zeroes the
+    other) and the last sweep's packed answers; on a card `host` the
+    pinned copy of `out`, which each sweep writes, and `stage` the pinned
+    buffer the tail is copied from; `words` a numpy view of `host` (of
+    `out` on the CPU).
+
+    On a CUDA device also the bucket's query lanes `q` [32 W] (a batch's
     lanes are copied in, so that the seed graph reads them), the seed's
     captured graph (the seed and its copy into `a`), the sweep's two
-    captured graphs with the tables and plan they were captured for
+    captured graphs with the tables, plan and tail they were captured for
     (`graph_key`, which also keeps those tensors alive while the graphs
     may replay them) and the memory pool that every capture of this arena
     reuses (its graphs never replay at the same time: the arena is one
@@ -415,6 +436,13 @@ class _Arena:
     b: torch.Tensor
     live: Optional[torch.Tensor] = None
     q: Optional[torch.Tensor] = None
+    tail: Optional[torch.Tensor] = None
+    out: Optional[torch.Tensor] = None
+    host: Optional[torch.Tensor] = None
+    stage: Optional[torch.Tensor] = None
+    words: Optional[np.ndarray] = None
+    cap: int = 0
+    g: int = 0
     seed_graph: Optional[object] = None
     graph_key: Optional[tuple] = None
     graphs: Optional[list] = None
@@ -500,7 +528,8 @@ class EllKernelCache(devtel.ArenaLedger):
             return [a for a in self._arenas.values() if a.graphs]
 
     def _arena_tensors(self, arena: _Arena) -> tuple:
-        return (arena.x0, arena.a, arena.b, arena.live, arena.q)
+        return (arena.x0, arena.a, arena.b, arena.live, arena.q, arena.tail,
+                arena.out)
 
     # -- build-time plan -----------------------------------------------------
 
@@ -687,8 +716,66 @@ class EllKernelCache(devtel.ArenaLedger):
         a = _Arena(*(torch.empty((nt, w), dtype=torch.int32,
                                  device=self.device)
                      for _ in range(3)), live=live, q=q)
+        self.size_tail(a, max(TAIL_SLOTS, 32 * n_words))
         self._ledger_arena(n_words, a)
         return a
+
+    def size_tail(self, arena: _Arena, cap: int) -> None:
+        """Give `arena` a check tail of `cap` slots (rounded up to whole
+        answer words) holding G = 0.  The arena's graphs were captured
+        over the old buffers: the sweep graphs' key no longer matches and
+        the seed graph (which zeroes the delta pairs) is dropped, so the
+        next batch seeds step by step and recaptures."""
+        cap = -(-cap // 32) * 32
+        words = 4 + cap // 32 * (2 if self.planes else 1)
+        arena.tail = torch.zeros(2 + 2 * cap, dtype=torch.int32,
+                                 device=self.device)
+        arena.out = torch.zeros(words, dtype=torch.int32, device=self.device)
+        if self.device.type == "cuda":
+            arena.host = torch.zeros(words, dtype=torch.int32,
+                                     pin_memory=True)
+            arena.stage = torch.zeros(2 + 2 * cap, dtype=torch.int32,
+                                      pin_memory=True)
+        arena.words = (arena.host if arena.host is not None
+                       else arena.out).numpy()
+        arena.cap, arena.g = cap, 0
+        arena.seed_graph = None
+
+    def _load_tail(self, arena: _Arena, n_words: int, gathers) -> None:
+        """Write a batch's check slots into the arena's tail (one copy to
+        the card), or G = 0 for a batch without checks when the tail held
+        some.  A batch of more slots than the tail holds first grows it
+        to the next power of two."""
+        g = 0 if gathers is None else len(gathers[0])
+        if g > arena.cap:
+            self.size_tail(arena, 1 << (g - 1).bit_length())
+            self._ledger_arena(n_words, arena)
+        if g:
+            n = 2 + 2 * g
+            # pinned staging on a card: the copy need not wait for the
+            # stream, and the buffer is written again only by this
+            # arena's next batch, after this one's sweeps read back
+            stage = (arena.stage[:n] if arena.stage is not None
+                     else torch.empty(n, dtype=torch.int32))
+            buf = stage.numpy()
+            buf[0], buf[1] = g, 0
+            buf[2::2], buf[3::2] = gathers
+            arena.tail[:n].copy_(stage, non_blocking=True)
+        elif arena.g:
+            arena.tail[:1].zero_()
+        arena.g = g
+
+    def _answers(self, arena: _Arena) -> torch.Tensor:
+        """The last sweep's answers to the tail's G slots, decoded on the
+        host from its packed words (the sweep's own readback): int32 [G],
+        {0, 2}, or {0, 1, 2} with planes."""
+        words, nw = arena.words, arena.cap // 32
+        bits = lambda lo: np.unpackbits(
+            words[lo:lo + nw].view(np.uint8), bitorder="little")[:arena.g]
+        out = bits(4).astype(np.int32) * 2
+        if self.planes:
+            out += bits(4 + nw)
+        return torch.from_numpy(out)
 
     def put_arena(self, n_words: int, arena: _Arena) -> None:
         """Return an arena to the pool; if a concurrent call repooled
@@ -790,7 +877,7 @@ class EllKernelCache(devtel.ArenaLedger):
         default the current one).
 
         Each sweep starts `cur` as a copy of the input `x` and leaves it
-        the next state, dead row zeroed by sweep_delta.  `live` is the
+        the next state, dead row zeroed by its tail.  `live` is the
         wildcard liveness: the reference ORs the self rows of the sweep's
         input state, which always equal the seed's (no edge, definite or
         caveated, targets a self slot), so the seed kernel computes it
@@ -812,13 +899,15 @@ class EllKernelCache(devtel.ArenaLedger):
 
     def _seed(self, q_idx, n_words: int, arena: _Arena) -> None:
         """The seed into arena.x0 (and the liveness), copied into arena.a
-        as the first sweep's input."""
+        as the first sweep's input; the delta pairs that the sweeps add
+        into start at zero."""
         kernels.seed_bitplanes(q_idx, self.prog.state_size
                                + self.n_aux_rows, n_words,
                                self.prog.dead_index, out=arena.x0,
                                wc_ranges=self._wc_ranges, live=arena.live,
                                planes=self.planes)
         arena.a.copy_(arena.x0)
+        arena.out[:4].zero_()
 
     def _evaluate(self, q_idx, n_words: int, tables: tuple, arena: _Arena,
                   plan: Optional[list], graphs: bool) -> tuple:
@@ -839,15 +928,15 @@ class EllKernelCache(devtel.ArenaLedger):
         while changed and i < self.num_iters:
             p = i % 2
             if replay is None:
-                out = self._sweep(bufs[p], bufs[1 - p], arena, tables,
-                                  n_words, plan)
+                self._sweep(bufs[p], bufs[1 - p], arena, tables, n_words,
+                            plan, slot=p)
                 if graphs:
                     self.graph_stats["eager_sweeps"] += 1
             else:
-                graph, out = replay[p]
+                graph = replay[p]
                 graph.replay()
                 self.graph_stats["replays"] += 1
-            delta, any_change = out.tolist()
+            delta, any_change = self._readback(arena, p)
             if seed is not None and i == 0:
                 # the seed graph ran before this sweep's readback
                 kernels.note_replay(seed)
@@ -863,33 +952,50 @@ class EllKernelCache(devtel.ArenaLedger):
         trace[0] = i
         return bufs[i % 2], trace
 
+    def _readback(self, arena: _Arena, slot: int) -> tuple:
+        """The sweep's readback: its (changed bits, any change) pair in
+        `slot`, from the host copy the sweep itself made on a card (a wait
+        on the stream), or from `out` on the CPU.  The answer words beside
+        the pairs stay in `arena.words` for `_answers`."""
+        if arena.host is not None:
+            torch.cuda.current_stream(self.device).synchronize()
+        return int(arena.words[2 * slot]), int(arena.words[2 * slot + 1])
+
     def _sweep(self, x, cur, arena: _Arena, tables: tuple, n_words: int,
-               plan: list) -> torch.Tensor:
-        """One sweep from `x` into `cur`; returns sweep_delta's device
-        [changed bits, any change] pair."""
+               plan: list, slot: int = 0) -> torch.Tensor:
+        """One sweep from `x` into `cur`, ending in the check tail
+        (`sweep_delta_checks`): pair `slot` of the arena's `out` (its
+        direction's: 0 from `a`, 1 from `b`) gets [changed bits, any
+        change], the other pair zero, and the answer words the packed
+        answers of its tail's slots; on a card its pinned `host` gets a
+        copy of them.  Returns `out`."""
         cur.copy_(x)
         for step in self.sweep_steps(*tables, n_words, plan):
             self.run_step(step, cur, arena.x0, arena.live, x_in=x)
-        return kernels.sweep_delta(cur, x, self.prog.dead_index)
+        return kernels.sweep_delta_checks(
+            cur, x, self.prog.dead_index, arena.tail, arena.out,
+            half=n_words if self.planes else None, host=arena.host,
+            slot=slot)
 
     @staticmethod
     def _sweep_graphs(arena: _Arena, tables: tuple, plan: list):
         """The arena's captured sweep graphs if they were captured for
-        these very tables and this plan (identity), else None: a flush, a
-        plan change or a new arena recaptures, and a graph is never
-        replayed over pointers it was not captured with."""
+        these very tables, this plan and this tail (identity), else None:
+        a flush, a plan change, a grown tail or a new arena recaptures,
+        and a graph is never replayed over pointers it was not captured
+        with."""
         key = arena.graph_key
-        if key is not None and all(a is b for a, b in zip(key,
-                                                          (*tables, plan))):
+        if key is not None and all(a is b for a, b in zip(
+                key, (*tables, plan, arena.tail))):
             return arena.graphs
         return None
 
     def _capture(self, arena: _Arena, tables: tuple, n_words: int,
                  plan: list) -> list:
         """Capture one sweep in each direction between the arena's two
-        buffers: [(graph a -> b, its delta pair), (graph b -> a, ...)];
-        and, once an arena, the seed from its `q` lanes (it reads no
-        table)."""
+        buffers: [graph a -> b, graph b -> a], each ending in the check
+        tail and its copy to the host; and, once an arena, the seed from
+        its `q` lanes (it reads no table)."""
         t0 = time.perf_counter()
         if arena.pool is None:
             arena.pool = torch.cuda.graph_pool_handle()
@@ -900,12 +1006,13 @@ class EllKernelCache(devtel.ArenaLedger):
         # the old graphs go only after the new ones hold the pool, so that
         # its memory stays reserved for them
         graphs = []
-        for x, cur in ((arena.a, arena.b), (arena.b, arena.a)):
+        for slot, (x, cur) in enumerate(((arena.a, arena.b),
+                                         (arena.b, arena.a))):
             graph = kernels.LaunchGraph(self.device, arena.pool)
-            out = graph.capture(lambda x=x, cur=cur: self._sweep(
-                x, cur, arena, tables, n_words, plan))
-            graphs.append((graph, out))
-        arena.graph_key = (*tables, plan)
+            graph.capture(lambda x=x, cur=cur, slot=slot: self._sweep(
+                x, cur, arena, tables, n_words, plan, slot))
+            graphs.append(graph)
+        arena.graph_key = (*tables, plan, arena.tail)
         arena.graphs = graphs
         self.graph_stats["captures"] += 1
         self.graph_stats["capture_s"] += time.perf_counter() - t0
@@ -919,7 +1026,10 @@ class EllKernelCache(devtel.ArenaLedger):
         return graphs
 
     def _run(self, n_words: int, q_idx, idx_main, idx_aux, idx_cav,
-             finish, plan: Optional[list] = None) -> tuple:
+             finish, plan: Optional[list] = None, gathers=None) -> tuple:
+        """Seed and sweep a batch on a pooled arena, then `finish(x)` on
+        the final state, or, with `gathers` ((row, column) int32 arrays),
+        the answers its sweeps' check tail gathered and read back."""
         if self.planes and idx_cav is None:
             raise ValueError("the plane path needs the caveat table")
         arena = self.take_arena(n_words)
@@ -930,10 +1040,14 @@ class EllKernelCache(devtel.ArenaLedger):
                 q.copy_(torch.as_tensor(q_idx))
             else:
                 q = _to_device(q_idx, self.device)
+            self._load_tail(arena, n_words, gathers)
             x, trace = self.evaluate(q, n_words, idx_main, idx_aux, arena,
                                      idx_cav, plan)
-            with kernels.unstamped():
-                out = finish(x)
+            if gathers is not None:
+                out = self._answers(arena)
+            else:
+                with kernels.unstamped():
+                    out = finish(x)
         except BaseException:
             # a failed call returns no arena, and drops the bucket's pooled
             # one too: after a device fault its buffers are suspect
@@ -948,15 +1062,16 @@ class EllKernelCache(devtel.ArenaLedger):
                       idx_main, idx_aux, idx_cav=None,
                       plan: Optional[list] = None) -> tuple:
         """Tri-state-encoded checks per gather slot ({0, 2}; {0, 1, 2}
-        with planes): returns (int32 [G] device tensor, trace)."""
-        gi = _to_device(gather_idx, self.device)
-        gc = _to_device(gather_col, self.device)
-        if self.planes:
-            finish = lambda x: kernels.check_gather3(x, gi, gc, n_words)
-        else:
-            finish = lambda x: kernels.check_gather(x, gi, gc)
-        return self._run(n_words, q_idx, idx_main, idx_aux, idx_cav, finish,
-                         plan)
+        with planes): returns (int32 [G] host tensor, trace).  The gather
+        rides every sweep's tail (`sweep_delta_checks`) and comes back
+        with the sweep's delta pair: the last sweep's answers are the
+        fixpoint's, and nothing is launched or copied after it."""
+        gathers = tuple(np.ascontiguousarray(a, np.int32)
+                        for a in (gather_idx, gather_col))
+        if len(gathers[0]) != len(gathers[1]):
+            raise ValueError("gather rows and columns differ in length")
+        return self._run(n_words, q_idx, idx_main, idx_aux, idx_cav, None,
+                         plan, gathers=gathers)
 
     def lookup_packed_T_device(self, slot_offset: int, slot_length: int,
                                q_idx, n_words: int, idx_main,

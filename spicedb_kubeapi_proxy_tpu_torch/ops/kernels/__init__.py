@@ -44,7 +44,8 @@ KERNEL_NAMES = ("ell_gather_or", "perm_program", "sweep_delta",
                 "seed_bitplanes", "check_gather", "lookup_T", "scatter_rows",
                 "cav_gather_or", "check_gather3", "edge_or", "word_cols_T",
                 "or_combine", "mesh_gather_or", "mesh_cav_gather_or",
-                "mesh_perm_program", "mesh_sweep_delta")
+                "mesh_perm_program", "mesh_sweep_delta",
+                "sweep_delta_checks")
 
 # launches per kernel since the last reset_launches(); CPU twins never count.
 # Serving threads and background rebuilds (a candidate's prewarm) launch at
@@ -255,6 +256,8 @@ def _load():
                 "ell_mesh_perm_program": (P, P, I, L, I, I, I, I, P, P, I,
                                           P),
                 "ell_mesh_sweep_delta": (P, P, L, I, L, P, I, P, P),
+                "ell_sweep_delta_checks": (P, P, L, I, I, L, P, I, I, P,
+                                           P, P),
             }
             for fn, args in sigs.items():
                 f = getattr(lib, fn)
@@ -574,6 +577,65 @@ def sweep_delta(x_new: torch.Tensor, x_old: torch.Tensor,
     nt, w = x_new.shape
     _run("ell_sweep_delta", x_new.device, _ptr(x_new), _ptr(x_old), nt, w, dead, _ptr(out))
     _count("sweep_delta")
+    return out
+
+
+def sweep_delta_checks(x_new: torch.Tensor, x_old: torch.Tensor, dead: int,
+                       tail: torch.Tensor, out: torch.Tensor,
+                       half: Optional[int] = None,
+                       host: Optional[torch.Tensor] = None,
+                       slot: int = 0) -> torch.Tensor:
+    """The ELL sweep's tail in one launch: `sweep_delta` and the batch's
+    check gather from the new state.  Zeroes x_new's dead row, then
+    writes `out`, int32 [4 + nw] ([4 + 2 nw] with `half`): pair `slot`
+    (out[2 slot], out[2 slot + 1], which must hold zero or a sum to add
+    to) gets [popcount(x_new ^ x_old) mod 2^32, any(x_new != x_old)] and
+    the other pair is zeroed, for the next sweep to take; out[4 + w] bit b
+    = the definite bit of check slot 32 w + b, and with `half` (rows of
+    definite and maybe planes of `half` words) out[4 + nw + w] bit b =
+    its maybe-and-not-definite bit; every answer word is written, zero
+    past G.  `tail` is int32 [2 + 64 nw]: tail[0] = G (the slots in use,
+    clamped to [0, 32 nw]), tail[1] unused, then the slots' (state row,
+    query column) pairs from tail[2].  `host`, a pinned CPU tensor of
+    out's shape (CUDA only), receives a copy of `out` on the same stream
+    after the kernel.  Returns `out`."""
+    if tail.dim() != 1 or (tail.shape[0] - 2) % 64:
+        raise KernelError(f"sweep_delta_checks: tail of {tuple(tail.shape)}"
+                          f", not [2 + 64 nw]")
+    nw = (tail.shape[0] - 2) // 64
+    want = 4 + nw * (1 if half is None else 2)
+    if out.dim() != 1 or out.shape[0] != want:
+        raise KernelError(f"sweep_delta_checks: out of {tuple(out.shape)}, "
+                          f"not [{want}]")
+    if slot not in (0, 1):
+        raise KernelError(f"sweep_delta_checks: slot {slot}, not 0 or 1")
+    if not _on_cuda(x_new, x_old, tail, out):
+        if host is not None:
+            raise KernelError("sweep_delta_checks: a host copy is a CUDA "
+                              "launch's")
+        return reference.sweep_delta_checks(x_new, x_old, dead, tail, out,
+                                            half, slot)
+    _check(x_new, "x_new", 2)
+    _check(x_old, "x_old", 2)
+    _check(tail, "tail", 1)
+    _check(out, "out", 1)
+    if x_new.shape != x_old.shape:
+        raise KernelError("sweep_delta_checks: shape mismatch")
+    nt, s = x_new.shape
+    if half is not None and 2 * half != s:
+        raise KernelError(f"sweep_delta_checks: half {half} != width {s} / 2")
+    if not 0 <= dead < nt:
+        raise KernelError("sweep_delta_checks: dead row out of range")
+    if tail.data_ptr() % 8:
+        raise KernelError("sweep_delta_checks: tail not 8-byte aligned")
+    if host is not None and (host.device.type != "cpu" or not host.is_pinned()
+                             or host.dtype != torch.int32
+                             or host.shape != out.shape):
+        raise KernelError("sweep_delta_checks: host must be a pinned int32 "
+                          "CPU tensor of out's shape")
+    _run("ell_sweep_delta_checks", x_new.device, _ptr(x_new), _ptr(x_old), nt,
+         s, half or 0, dead, _ptr(tail), nw, slot, _ptr(out), _ptr(host))
+    _count("sweep_delta_checks")
     return out
 
 

@@ -7,10 +7,18 @@
 //   cav_gather_or  <- the Jacobi step's idx_cav gather        (ell.py:528-536)
 //   perm_program   <- _apply_perm_expr_packed, both planes    (ell.py:215-254)
 //   sweep_delta    <- make_ell_evaluate.fixpoint test + trace (ell.py:613-631)
+//   sweep_delta_checks
+//                  <- the fixpoint test + trace and _pipe_fns.run_checks'
+//                     gather (ell.py:613-631, 853-887) in one launch:
+//                     the ELL sweep's tail (sweep_delta and the check
+//                     gather fused, answers packed as ballot words)
 //   seed_bitplanes <- init_packed_state, both planes          (ell.py:556-584)
 //                     + the steps' wildcard liveness          (ell.py:462-468)
 //   check_gather   <- _pipe_fns.run_checks, definite          (ell.py:878-887)
 //   check_gather3  <- _pipe_fns.run_checks, tri-state         (ell.py:853-865)
+//                     (on the ELL path both ride sweep_delta_checks; the
+//                     standalone kernels serve the Leopard plane, the
+//                     segment sweep and the mesh)
 //   lookup_T       <- _pipe_fns.run_lookup, definite plane    (ell.py:867-895)
 //   scatter_rows   <- _EllGraph.flush's `.at[rows].set`  (jax_endpoint.py:1004-1050)
 //                     and _SegmentGraph.flush's edge scatter (jax_endpoint.py:690-704)
@@ -645,6 +653,98 @@ __global__ void sweep_delta_kernel(const int32_t* __restrict__ a,
         if (cnt) atomicAdd(out, cnt);
         if (any) atomicOr(out + 1, 1u);
     }
+}
+
+// sweep_delta_checks: sweep_delta and the batch's check gather in one
+// launch, the tail of every ELL sweep (ops/ell.py `_sweep`).  It replaces
+// sweep_delta, then check_gather or check_gather3, launched one after the
+// other and each followed by its own copy to the host: the reference
+// computes the gather inside the jitted program of its fixpoint
+// (_pipe_fns.run_checks, ell.py:853-887), one dispatch and one result.
+//
+// Part (a) is sweep_delta, into pair `slot` of out[0..3]:
+// out[2 slot] += popcount(a ^ b) (mod 2^32), out[2 slot + 1] |= any(a !=
+// b), with the dead row's words [dead_lo, dead_lo + S) of `a` read as
+// zero (and zeroed in memory, `dead_words`, at the end); the other pair is
+// zeroed for the next sweep, which takes it (the fixpoint alternates
+// slots, and each batch's seed zeroes both), so the launch needs no
+// memset.  Part (b) gathers the batch's G check slots from `a`, the
+// sweep's output (a slot on the dead row reads zero).  `tail` holds the
+// batch on the card: tail[0] = G (clamped to [0, 32 nw]), tail[1]
+// unused, then (gi, gc) pairs from tail[2]; the host writes it once a
+// batch, so one captured graph serves every batch.  A warp owns 32
+// consecutive slots and packs their bits with __ballot_sync into one
+// answer word: out[4 + w] the definite bits; with PLANES (rows of stride
+// S = 2H) also out[4 + nw + w] the bits of maybe & ~definite
+// (CONDITIONAL).  Every answer word is written, zero past G.  Every sweep
+// runs the gather, since the last one is known only after its readback:
+// the answers of the last sweep are those of the fixpoint.
+//
+// What bounds it: bytes, as sweep_delta (a and b once) plus 8 bytes of
+// tail a slot, one word (two with planes) a distinct gathered row word
+// and the answer words; at the main path's sizes the launch.  The design
+// removes the check's own launch and its second copy to the host, and
+// sweep_delta's two memsets: the launcher issues the kernel and then the
+// copy of out[] to the host, inside the sweep's graph.
+template <bool PLANES>
+__global__ void sweep_delta_checks_kernel(const int32_t* __restrict__ a,
+                                          const int32_t* __restrict__ b,
+                                          long long n, long long dead_lo,
+                                          int S, int H,
+                                          const int32_t* __restrict__ tail,
+                                          int nw, int slot,
+                                          uint32_t* __restrict__ out,
+                                          int32_t* dead_words) {
+    uint32_t cnt = 0, any = 0;
+    const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    // the loop only reads `a` (read-only loads, no store to order them
+    // against); the dead row's words count as zero, and the first S
+    // threads zero them in memory at the end
+    for (long long t = tid; t < n; t += stride) {
+        uint32_t v = (uint32_t)a[t];
+        if ((unsigned long long)(t - dead_lo) < (unsigned)S) v = 0u;
+        const uint32_t d = v ^ (uint32_t)b[t];
+        cnt += __popc(d);
+        any |= d;
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+        cnt += __shfl_down_sync(0xffffffffu, cnt, o);
+        any |= __shfl_down_sync(0xffffffffu, any, o);
+    }
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+        if (cnt) atomicAdd(out + 2 * slot, cnt);
+        if (any) atomicOr(out + 2 * slot + 1, 1u);
+    }
+    if (tid == 0) {
+        out[2 - 2 * slot] = 0u;
+        out[3 - 2 * slot] = 0u;
+    }
+    const int G = min(max(tail[0], 0), 32 * nw);
+    const int2* pairs = reinterpret_cast<const int2*>(tail + 2);
+    const long long dead_row = dead_lo / S;
+    // warp-uniform loop (blockDim is a multiple of 32): every lane of a
+    // warp takes the same words, so the ballots see the full warp
+    for (long long w = tid >> 5; w < nw; w += stride >> 5) {
+        const int s = (int)w * 32 + lane;
+        uint32_t d = 0u, m = 0u;
+        if (s < G) {
+            const int2 p = pairs[s];
+            if (p.x != dead_row) {
+                const int32_t* row = a + (long long)p.x * S + (p.y >> 5);
+                d = ((uint32_t)row[0] >> (p.y & 31)) & 1u;
+                if (PLANES) m = ((uint32_t)row[H] >> (p.y & 31)) & 1u;
+            }
+        }
+        const uint32_t dw = __ballot_sync(0xffffffffu, d);
+        if (PLANES) {
+            const uint32_t mw = __ballot_sync(0xffffffffu, m & (d ^ 1u));
+            if (lane == 0) out[4 + nw + w] = mw;
+        }
+        if (lane == 0) out[4 + w] = dw;
+    }
+    if (tid < S) dead_words[tid] = 0;
 }
 
 // mesh_sweep_delta: sweep_delta for one data shard's co-located
@@ -1707,6 +1807,38 @@ EXPORT int ell_sweep_delta(void* x_new, const void* x_old, long long nt,
     sweep_delta_kernel<<<grid_for(n, kBlock, 132 * 16), kBlock, 0, s>>>(
         (const int32_t*)x_new, (const int32_t*)x_old, n, (uint32_t*)out);
     return last_error();
+}
+
+// The fused tail of an ELL sweep: sweep_delta_checks_kernel over `x_new`
+// (rows of S words, H > 0: planes of H words) into pair `slot` (0 or 1)
+// of `out`, then, when `host` is not null, a copy of the whole result
+// [4 + nw * (1 + planes)] into `host` (pinned memory) on the same stream,
+// so that a captured sweep carries its own readback.
+EXPORT int ell_sweep_delta_checks(void* x_new, const void* x_old,
+                                  long long nt, int S, int H, long long dead,
+                                  const void* tail, int nw, int slot,
+                                  void* out, void* host, void* stream) {
+    const Stamp stamp(stream);
+    cudaStream_t s = (cudaStream_t)stream;
+    const long long n = nt * S;
+    const long long cap = 132 * 16;
+    long long blocks = grid_for(n, kBlock, cap);
+    const long long tail_blocks = ((long long)nw * 32 + kBlock - 1) / kBlock;
+    if (tail_blocks > blocks) blocks = tail_blocks < cap ? tail_blocks : cap;
+    if (H > 0)
+        sweep_delta_checks_kernel<true><<<(unsigned)blocks, kBlock, 0, s>>>(
+            (const int32_t*)x_new, (const int32_t*)x_old, n, dead * S, S, H,
+            (const int32_t*)tail, nw, slot, (uint32_t*)out,
+            (int32_t*)x_new + dead * S);
+    else
+        sweep_delta_checks_kernel<false><<<(unsigned)blocks, kBlock, 0, s>>>(
+            (const int32_t*)x_new, (const int32_t*)x_old, n, dead * S, S, 0,
+            (const int32_t*)tail, nw, slot, (uint32_t*)out,
+            (int32_t*)x_new + dead * S);
+    int e = last_error();
+    if (e || host == nullptr) return e;
+    const size_t bytes = (size_t)(4 + (long long)nw * (H > 0 ? 2 : 1)) * 4;
+    return (int)cudaMemcpyAsync(host, out, bytes, cudaMemcpyDeviceToHost, s);
 }
 
 // sweep_delta over one data shard's co-located replicas: `x_new` one of

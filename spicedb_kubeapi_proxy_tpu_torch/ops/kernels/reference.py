@@ -160,6 +160,50 @@ def sweep_delta(x_new: torch.Tensor, x_old: torch.Tensor,
     return torch.tensor([cnt, int(bool((d != 0).any()))], dtype=torch.int32)
 
 
+def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """int32 [n / 32] words from n bits (0/1), bit b of word w = bit 32 w
+    + b: what a warp's __ballot_sync packs."""
+    w = (bits.view(-1, 32).long()
+         << torch.arange(32, device=bits.device)).sum(1)
+    return (((w + (1 << 31)) % (1 << 32)) - (1 << 31)).to(torch.int32)
+
+
+def sweep_delta_checks(x_new: torch.Tensor, x_old: torch.Tensor, dead: int,
+                       tail: torch.Tensor, out: torch.Tensor,
+                       half: Optional[int] = None,
+                       slot: int = 0) -> torch.Tensor:
+    """`sweep_delta` added into pair `slot` of out[:4] (count mod 2^32, any
+    OR-ed) and the other pair zeroed, then the check gather of the first G
+    = tail[0] slots (pairs (tail[2 + 2s], tail[3 + 2s])) from x_new,
+    packed 32 slots a word: out[4:4 + nw] the definite bits, and with
+    `half` out[4 + nw:] the maybe-and-not-definite bits (`check_gather3`'s
+    1); zero past G.  Computed here in full, not through the other
+    twins."""
+    x_new[dead] = 0
+    d = x_new ^ x_old
+    cnt = (int(popcount32(d).sum()) + int(out[2 * slot])) & 0xFFFFFFFF
+    if cnt >= 1 << 31:
+        cnt -= 1 << 32
+    out[2 * slot] = cnt
+    out[2 * slot + 1] = int(out[2 * slot + 1]) | int(bool((d != 0).any()))
+    out[2 - 2 * slot: 4 - 2 * slot] = 0
+    c = (tail.shape[0] - 2) // 2
+    g = min(max(int(tail[0]), 0), c)
+    pairs = tail[2:].view(-1, 2)[:g].long()
+    gi, col = pairs[:, 0], pairs[:, 1]
+    b = (col % 32).to(torch.int32)
+    bits = torch.zeros((2, c), dtype=torch.int32, device=x_new.device)
+    bits[0, :g] = (x_new[gi, col // 32] >> b) & 1
+    if half is not None:
+        bits[1, :g] = ((x_new[gi, half + col // 32] >> b) & 1) \
+            & (bits[0, :g] ^ 1)
+    nw = c // 32
+    out[4:4 + nw] = _pack_bits(bits[0])
+    if half is not None:
+        out[4 + nw:] = _pack_bits(bits[1])
+    return out
+
+
 def seed_bitplanes(q_idx: torch.Tensor, nt: int, n_words: int, dead: int,
                    out: Optional[torch.Tensor] = None,
                    wc_ranges: Optional[torch.Tensor] = None,

@@ -13,9 +13,10 @@ as in the reference:
   `TorchEndpoint(kernel="segment")` or `SPICEDB_TPU_KERNEL=segment`.
 
 Both are fronted by the Leopard closure index (ops/leopard.py, on unless
-`leopard=False`): a nested-group (type, permission) pair whose fragment
-is indexed answers checks with one bit gather of its closure plane and
-lookups with its word columns, instead of one sweep per nesting level.
+`leopard=False` or the LEOPARD_INDEX switch is off): a nested-group
+(type, permission) pair whose fragment is indexed answers checks with one
+bit gather of its closure plane and lookups with its word columns,
+instead of one sweep per nesting level.
 
 What this endpoint carries over from the reference, and what not yet:
 
@@ -28,7 +29,9 @@ What this endpoint carries over from the reference, and what not yet:
   (`check_bulk_permissions_start`/`_finish`,
   `lookup_resources_batch_start`/`_finish`); a capture ends by starting
   its results' copy to the host on a side stream (`_Readback`), and the
-  finish waits on that copy, never on a blocking `.cpu()`;
+  finish waits on that copy, never on a blocking `.cpu()`.  An ELL check
+  batch has no such copy: its answers come back with its last sweep's
+  readback (the check tail, ops/ell.py), already on the host;
 - caveats on the device: a caveated tuple whose stored context decides
   its caveat is an ordinary edge (True) or none (False); an undecidable
   one is an edge of the MAYBE plane (the caveat table), and checks on a
@@ -308,8 +311,10 @@ class _Readback:
     memory until the copy is done), and an event is recorded after the
     copy.  `wait()` waits on that event and returns the host tensor; a
     failed copy raises there, and there is no fallback.  Kernels stay on
-    the current stream: only the copy moves to the side stream.  On the
-    CPU the readback is the tensor itself."""
+    the current stream: only the copy moves to the side stream.  A
+    result that lies on the host (the CPU's, or the answers of an ELL
+    check batch, which its sweeps read back) is its own readback: no
+    copy, and `_start_readback` counts none."""
 
     __slots__ = ("host", "event")
 
@@ -993,17 +998,17 @@ class _GenState:
 
 class TorchEndpoint(PermissionsEndpoint):
     """`kernel` picks the graph kind ("ell" or "segment"; default the
-    SPICEDB_TPU_KERNEL environment variable, else "ell").  `leopard` is
-    the port's form of the reference's LeopardIndex gate, read once here:
-    with it on, every generation builds the closure index.  `mesh` (a
+    SPICEDB_TPU_KERNEL environment variable, else "ell").  `leopard`
+    (default the LEOPARD_INDEX switch, the reference's LeopardIndex gate,
+    read once here) builds the closure index in every generation.  `mesh` (a
     parallel.sharding.Mesh) shards the ELL graph and the closure planes
     over its (data x graph) grid; the endpoint's own device is then shard
     (0, 0)'s unless `device` names one."""
 
     def __init__(self, schema: sch.Schema, store: Optional[TupleStore] = None,
                  num_iters: Optional[int] = None, device=None,
-                 kernel: Optional[str] = None, leopard: bool = True,
-                 mesh=None):
+                 kernel: Optional[str] = None,
+                 leopard: Optional[bool] = None, mesh=None):
         kind = kernel or os.environ.get("SPICEDB_TPU_KERNEL", "ell")
         if kind not in _GRAPH_KINDS:
             raise ValueError(f"unknown kernel {kind!r}; "
@@ -1084,7 +1089,8 @@ class TorchEndpoint(PermissionsEndpoint):
         self._readback_lock = threading.Lock()
         # the Leopard closure index of the live generation (None when
         # off), and the in-flight background re-closes
-        self._leopard_wanted = bool(leopard)
+        self._leopard_wanted = bool(features.LEOPARD_INDEX if leopard is None
+                                    else leopard)
         self._leopard: Optional[LeopardIndex] = None
         self._leo_futures: list = []
         # the HBM-ledger generation of the live graph (0 before the

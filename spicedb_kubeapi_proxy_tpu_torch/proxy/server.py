@@ -1461,7 +1461,8 @@ class ProxyServer:
             if logger.isEnabledFor(logging.INFO):
                 logger.info("%s %s -> %d (%.1fms)%s", req.method,
                             req.target, resp.status, elapsed * 1e3,
-                            format_request_kv(req))
+                            format_request_kv(req)
+                            if features.STRUCTURED_REQUEST_LOG else "")
             if request_counter is not None:
                 request_counter.inc(verb=verb, code=resp.status)
                 request_latency.observe(elapsed, verb=verb)

@@ -55,9 +55,23 @@
   default on): off, /debug/tail answers enabled:false and computes no
   report.  Trace collection and fleet propagation follow TIMELINE.
 
+- `LEOPARD_INDEX` is the default of `TorchEndpoint(leopard=)`: with it
+  on, every generation builds the Leopard closure index (the reference's
+  `LeopardIndex` gate, :179, read at endpoint construction as there).
+- `STRUCTURED_REQUEST_LOG` adds the request's key=value fields to the
+  proxy's request log line (the reference's `StructuredRequestLog` gate,
+  :85; proxy/server.py).
+- `CONTEXTUAL_LOGGING`, `LOGGING_ALPHA_OPTIONS` and
+  `LOGGING_BETA_OPTIONS` are the component-base logging gates the
+  reference registers (:81-83) and reads nowhere; `FUZZ_TELEMETRY` is the
+  reference's `FuzzTelemetry` gate (:134), read by its fuzz harness,
+  which the port does not carry.  They are accepted and kept, so that a
+  command line written for the reference runs unchanged.
+
 `apply_flag` sets them from the CLI's `--feature-gates name=true|false`
-under the reference's gate names (`GATE_SWITCHES`); any other name is
-refused, as the reference refuses a gate it does not know.
+under the reference's gate names (`GATE_SWITCHES`, all 20 of the
+reference's); any other name is refused, as the reference refuses a gate
+it does not know.
 """
 
 MESH_EXECUTION = True
@@ -74,6 +88,12 @@ DURABLE_STORE = True
 REPLICATION = True
 SHARDING = True
 TAIL_EXPLAIN = True
+LEOPARD_INDEX = True
+STRUCTURED_REQUEST_LOG = True
+CONTEXTUAL_LOGGING = True
+LOGGING_ALPHA_OPTIONS = False
+LOGGING_BETA_OPTIONS = True
+FUZZ_TELEMETRY = True
 
 
 def pipeline_enabled() -> bool:
@@ -97,6 +117,12 @@ GATE_SWITCHES = {
     "Replication": "REPLICATION",
     "Sharding": "SHARDING",
     "TailExplain": "TAIL_EXPLAIN",
+    "LeopardIndex": "LEOPARD_INDEX",
+    "StructuredRequestLog": "STRUCTURED_REQUEST_LOG",
+    "ContextualLogging": "CONTEXTUAL_LOGGING",
+    "LoggingAlphaOptions": "LOGGING_ALPHA_OPTIONS",
+    "LoggingBetaOptions": "LOGGING_BETA_OPTIONS",
+    "FuzzTelemetry": "FUZZ_TELEMETRY",
 }
 
 

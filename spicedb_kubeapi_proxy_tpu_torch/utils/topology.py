@@ -54,6 +54,11 @@ class FleetError(RuntimeError):
     readiness deadline; the whole fleet has been reaped."""
 
 
+# seconds a member that closed its output gets to exit before its death
+# is reported without an exit code
+EXIT_WAIT_S = 5.0
+
+
 # -- process environment ------------------------------------------------------
 
 
@@ -244,7 +249,12 @@ class WorkerFleet:
                 continue
             line = w.proc.stdout.readline()
             if not line:
-                rc = w.proc.poll()
+                # EOF comes before the child is reaped: wait (bounded) for
+                # its exit code, so that the message names it
+                try:
+                    rc = w.proc.wait(EXIT_WAIT_S)
+                except subprocess.TimeoutExpired:
+                    rc = None
                 self._fail(f"member {w.label!r} died "
                            f"(exit {rc}) before responding")
             return line

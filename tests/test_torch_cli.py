@@ -559,6 +559,48 @@ def test_feature_gates_set_the_port_switches(tmp_path):
         assert getattr(features, switch) is True
 
 
+@pytest.mark.parametrize("value", ["true", "false"])
+def test_every_reference_gate_name_is_accepted(tmp_path, value):
+    """The reference's 20 gate names in one --feature-gates value: both
+    CLIs take it and both packages' apply_flag set every gate to it;
+    LeopardIndex=false leaves a `torch://` endpoint without the index."""
+    from spicedb_kubeapi_proxy_tpu.utils.features import GATES
+    names = sorted(GATES.known())
+    assert len(names) == 20 and set(names) == set(features.GATE_SWITCHES)
+    spec = ",".join(f"{n}={value}" for n in names)
+    saved = {n: GATES.enabled(n) for n in names}
+    try:
+        GATES.apply_flag(spec)
+        features.apply_flag(spec)
+        want = value == "true"
+        for n in names:
+            assert GATES.enabled(n) is want
+            assert getattr(features, features.GATE_SWITCHES[n]) is want
+        base = ["--rule-config", rules_file(tmp_path), "--embedded-mode",
+                "--use-in-cluster-config", "--spicedb-endpoint",
+                "torch://?device=cpu", "--feature-gates", spec]
+        args = parse(base)
+        assert cli.validate(args) == []
+        cli.complete(args, upstream_transport=NullTransport())
+        ref_args = ref_cli.build_parser().parse_args(
+            ref_cli._normalize_argv(base))
+        ref_cli.complete(ref_args, upstream_transport=NullTransport())
+        assert features.LEOPARD_INDEX is want and \
+            GATES.enabled("LeopardIndex") is want
+        from spicedb_kubeapi_proxy_tpu_torch.ops.torch_endpoint import (
+            TorchEndpoint)
+        from spicedb_kubeapi_proxy_tpu_torch.spicedb import schema as psch
+        ep = TorchEndpoint(psch.parse_schema(
+            "definition user {}\ndefinition doc {\n  relation viewer: user"
+            "\n  permission view = viewer\n}"), device="cpu")
+        assert ep._leopard_wanted is want
+        assert TorchEndpoint(ep.schema, device="cpu",
+                             leopard=True)._leopard_wanted
+    finally:
+        for n, v in saved.items():
+            GATES.set(n, v)
+
+
 # the decision cache and device-telemetry flags: each parses, validates
 # and reaches the server Options (or the endpoint keywords) as in the
 # reference CLI, and the endpoint built from them is what it asks for

@@ -429,10 +429,11 @@ def test_rebuild_returns_ledger_to_exact_total():
         assert pk[kind] == rk[kind], kind
     assert rk["id_view"] > 0 and pk["id_view"] == 0
     # the port's arena is its three state buffers (the reference donates
-    # one): registered from the tensors' storage
+    # one) and its check tail (the gather pairs in, the delta pairs and
+    # packed answers out): registered from the tensors' storage
     arena = next(iter(port.graph().kernel._arenas.values()))
-    assert pk["state_arena"] == devtel.tensor_bytes(arena.x0, arena.a,
-                                                    arena.b, arena.live)
+    assert pk["state_arena"] == devtel.tensor_bytes(
+        arena.x0, arena.a, arena.b, arena.live, arena.tail, arena.out)
 
 
 def test_warm_start_registers_generation():

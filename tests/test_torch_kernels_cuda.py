@@ -96,7 +96,7 @@ def test_card_and_cpu_endpoints_agree_with_wildcards():
     assert np.array_equal(got[1], want[1])
     assert all(kernels.LAUNCHES[k] for k in
                ("seed_bitplanes", "ell_gather_or", "perm_program",
-                "sweep_delta", "lookup_T"))
+                "sweep_delta_checks", "lookup_T"))
 
 
 @pytest.mark.cuda
@@ -311,6 +311,113 @@ def test_every_plane_sweep_step_matches_its_twin(lanes):
     words, tel = g.run_lookup_packed_T_device(*pods, q_arr)[:2]
     words_c, tel_c = g_cpu.run_lookup_packed_T_device(*pods, q_arr)[:2]
     assert torch.equal(words.cpu(), words_c) and np.array_equal(tel, tel_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [False, True])
+@pytest.mark.parametrize("g", [0, 1, 45, 4_096, 10_000])
+def test_sweep_delta_checks_matches_its_twin(planes, g):
+    """The fused sweep tail (delta pair and packed check answers) against
+    its twin on the same card tensors, bit for bit, and its pinned host
+    copy against the device buffer."""
+    _needs_card()
+    rng = np.random.default_rng(g)
+    nt, half, cap = 5_003, 8, 16_384
+    width = 2 * half if planes else half
+    x = torch.from_numpy(rng.integers(-2**31, 2**31, (nt, width),
+                                      dtype=np.int64).astype(np.int32))
+    x_old = x.clone()
+    x_old[rng.integers(0, nt, 300)] ^= 1 << 31
+    tail = np.zeros(2 + 2 * cap, np.int32)
+    tail[0] = g
+    tail[2::2] = rng.integers(0, nt, cap)
+    tail[3::2] = rng.integers(0, 32 * half, cap)
+    tail[2:200:2] = nt - 1       # slots on the dead row read zero
+    words = 4 + cap // 32 * (2 if planes else 1)
+    a, b = x.cuda(), x.clone().cuda()
+    xo, t = x_old.cuda(), torch.from_numpy(tail).cuda()
+    out_k = torch.full((words,), -1, dtype=torch.int32, device="cuda")
+    out_k[:4] = 0
+    out_t = out_k.clone()
+    host = torch.zeros(words, dtype=torch.int32, pin_memory=True)
+    a[nt - 1] = 7                # the kernel zeroes the dead row
+    kernels.reset_launches()
+    for slot in (0, 1):          # slot 0 zeroes slot 1 for the next sweep
+        kernels.sweep_delta_checks(a, xo, nt - 1, t, out_k,
+                                   half=half if planes else None, host=host,
+                                   slot=slot)
+    reference.sweep_delta_checks(b, xo, nt - 1, t, out_t,
+                                 half=half if planes else None, slot=1)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sweep_delta_checks"] == 2
+    assert torch.equal(a, b) and not a[nt - 1].any()
+    assert torch.equal(out_k, out_t)
+    assert torch.equal(host, out_k.cpu())
+    if g:
+        gi, gc = t[2:2 + 2 * g:2].contiguous(), t[3:3 + 2 * g:2].contiguous()
+        v = (kernels.check_gather3(a, gi, gc, half) if planes
+             else kernels.check_gather(a, gi, gc)).cpu().numpy()
+        h = host.numpy()
+        d = np.unpackbits(h[4:4 + cap // 32].view(np.uint8),
+                          bitorder="little")[:g]
+        m = (np.unpackbits(h[4 + cap // 32:].view(np.uint8),
+                           bitorder="little")[:g] if planes else 0)
+        assert np.array_equal(v, 2 * d + m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caveated", [False, True])
+def test_replayed_checks_ride_the_sweep_tail(caveated):
+    """A warm check batch on the card: every sweep a graph replay whose
+    tail gathers the answers, no standalone gather launched and no
+    readback started for them; the answers equal `check_gather(3)` on the
+    final state and the CPU endpoint's."""
+    _needs_card()
+    import asyncio
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        CheckRequest, ObjectRef, SubjectRef)
+    w = (workloads.caveated_rbac(n_pods=2_000, n_users=1_500, n_groups=40)
+         if caveated else workloads.rbac_deny(n_pods=2_000, n_users=1_500,
+                                              n_groups=20))
+    bs = Bootstrap(w.schema_text, "\n".join(w.relationships))
+    eps = [create_endpoint(f"torch://?device={d}&dispatch=direct", bs,
+                           leopard=False) for d in ("cpu", "cuda")]
+    g = eps[1].graph()
+    rng = np.random.default_rng(4)
+    pods = [p for p in g.prog.object_ids["pod"] if "\x00" not in p]
+    subs = [SubjectRef("user", u) for u in w.subjects[:200]]
+    reqs = [CheckRequest(ObjectRef("pod", pods[int(i)]), "view",
+                         subs[j % len(subs)])
+            for j, i in enumerate(rng.integers(0, len(pods), 5_000))]
+    asyncio.run(eps[1].check_bulk_permissions(reqs))    # captures
+    kernels.reset_launches()
+    st0, rb0 = dict(g.kernel.graph_stats), eps[1].stats["readbacks"]
+    got = asyncio.run(eps[1].check_bulk_permissions(reqs))
+    want = asyncio.run(eps[0].check_bulk_permissions(reqs))
+    assert [r.permissionship for r in got] == [r.permissionship for r in want]
+    sweeps = int(g.last_trace[0])
+    st = {k: g.kernel.graph_stats[k] - st0[k] for k in st0}
+    assert st["captures"] == st["eager_sweeps"] == 0
+    assert st["replays"] == sweeps
+    assert kernels.LAUNCHES["sweep_delta_checks"] == sweeps
+    assert kernels.LAUNCHES["check_gather"] == 0
+    assert kernels.LAUNCHES["check_gather3"] == 0
+    assert kernels.LAUNCHES["sweep_delta"] == 0
+    assert eps[1].stats["readbacks"] == rb0
+    # the same slots gathered from the converged state, standalone
+    q_arr, cols, _ = eps[1]._encode_subjects(g, subs)
+    gi = [g.prog.state_index("pod", "view", r.resource.id) for r in reqs]
+    gc = [cols[r.subject] for r in reqs]
+    n_words = len(q_arr) // 32
+    main, aux, cav = g.snapshot()
+    out, _ = g.kernel.checks_device(q_arr, n_words, gi, gc, main, aux, cav)
+    x, _ = g.kernel.evaluate(torch.from_numpy(q_arr).cuda(), n_words, main,
+                             aux, g.kernel.take_arena(n_words), cav)
+    gi_d = torch.tensor(gi, dtype=torch.int32, device="cuda")
+    gc_d = torch.tensor(gc, dtype=torch.int32, device="cuda")
+    alone = (kernels.check_gather3(x, gi_d, gc_d, n_words) if caveated
+             else kernels.check_gather(x, gi_d, gc_d))
+    assert torch.equal(out, alone.cpu())
 
 
 def _edge_arrays(case: str, rng, n: int, dead: int) -> tuple:
@@ -634,7 +741,7 @@ def test_mesh_endpoint_on_the_card_agrees_with_the_cpu(mesh):
     assert out[0] == out[1] == out[2]
     assert eps[1]._graph.kernel.planes
     # the single-device endpoint's kernels, and the mesh sweep's own
-    for name in ("ell_gather_or", "perm_program", "sweep_delta",
+    for name in ("ell_gather_or", "perm_program", "sweep_delta_checks",
                  "seed_bitplanes", "check_gather3", "lookup_T",
                  "cav_gather_or", "mesh_gather_or", "mesh_cav_gather_or",
                  "mesh_perm_program", "mesh_sweep_delta"):

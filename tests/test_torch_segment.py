@@ -302,12 +302,20 @@ class Pair:
                                for o, r in ops])
         self.jx.store.write([RefUpdate(ref_ops[o], ref_parse(r))
                              for o, r in ops])
+        self.settle()
+
+    def settle(self):
+        """Both endpoints apply what is pending (writes, and expirations
+        the clock has reached) and finish the Leopard re-closes it kicked."""
         for ep in (self.port, self.jx):
             with ep._lock:
                 ep._current_graph()
             assert ep.wait_rebuilds()
 
     def agree(self, rtype, perm, names, objects=None, stype="user"):
+        # an expiration the clock reached since the last write is a delta
+        # too: settle it first, so the reads never race its re-close
+        self.settle()
         subjects = [SubjectRef(stype, n) for n in names]
         refs = [RefSubjectRef(stype, n) for n in names]
         got = run(self.port.lookup_resources_batch(rtype, perm, subjects))
