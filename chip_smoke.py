@@ -355,9 +355,25 @@ put down to the card or to the host.
    launches, and authz_loadgen_lag_seconds must be exported; a second
    window kills leader 1 with SIGKILL, and /debug/fleet still answers
    with that member's error; the others exit 0 on SIGTERM.
+24. a mesh across processes, after 13a-b, on the phase-3 store
+   (`distributed_path`): `torch://?distributed=1&mesh=1x2` in a one-rank
+   process group that the phase sets up (a loopback coordinator,
+   NUM_PROCESSES=1, PROCESS_ID=0; NCCL for the card's tensors), both
+   shards on the card.  Before and after a churn round its lookups and
+   checks must equal the single-device endpoint's and an oracle sample,
+   every sweep must make one delta all-reduce and every batch one
+   readout all-reduce; `mesh_sweep` holds its kernels against their
+   twins call by call, and the readout's `check_gather` and `lookup_T`
+   are held against theirs on the final state.  The cross-rank calls and
+   bytes are logged; the process group is destroyed before phase 14.
 
-Phases run in the order 1-9, 11, 13a-b, 14, 15, 10, 13c, 12, 13d, 16, 17a,
-18, 22, 19, 20, 21, 23, 21 (g), 17b, and each phase's seconds are logged.  Any failed phase raises and the script
+Phase 19 (a) parses its 1M-tuple text through the native bulk parser
+(native/fastparse.cpp, built by g++ beside the kernels' nvcc in phase 2)
+and holds a 100,000-line slice against `_from_text_py`.
+
+Phases run in the order 1-9, 11, 13a-b, 24, 14, 15, 10, 13c, 12, 13d, 16,
+17a, 18, 22, 19, 20, 21, 23, 21 (g), 17b, and each phase's seconds are
+logged.  Any failed phase raises and the script
 exits non-zero.  The second-to-last line is the kernel table as JSON,
 the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -6335,11 +6351,31 @@ def _durable_leader(w, kube, smi_line: str, device: str, tmp: str) -> dict:
     store = leader.endpoint.store
     # the bulk load: one snapshot record, its sidecar written and fsynced
     # before it
+    from spicedb_kubeapi_proxy_tpu_torch import native
+    if native.disabled():
+        raise AssertionError("phase 19 (a) parses through the native parser")
     t0 = time.perf_counter()
     snap = ColumnarSnapshot.from_text(text)
     t1 = time.perf_counter()
     store.bulk_load_snapshot(snap)
     t2 = time.perf_counter()
+    # the native parse against its Python twin on a slice of the text
+    part = "\n".join(w.relationships[:PARSE_TWIN_LINES])
+    tp0 = time.perf_counter()
+    a = ColumnarSnapshot.from_text(part)
+    tp1 = time.perf_counter()
+    b = ColumnarSnapshot._from_text_py(part)
+    tp2 = time.perf_counter()
+    if a.pool != b.pool or not all(
+            np.array_equal(getattr(a, c), getattr(b, c))
+            for c in ("rtype", "rid", "rel", "stype", "sid", "srel")) or \
+            not np.array_equal(a.expiry, b.expiry, equal_nan=True):
+        raise AssertionError("phase 19 (a): the native parse differs from "
+                             "_from_text_py")
+    log(f"phase 19 (a) parse: {len(snap)} tuples through the native parser "
+        f"in {t1 - t0:.3f} s; on a {len(a)}-line slice native "
+        f"{tp1 - tp0:.3f} s, _from_text_py {tp2 - tp1:.3f} s, equal pools "
+        f"({len(a.pool)} strings) and columns ({smi_line})")
     records = list(mgr.wal.replay())
     if [r["k"] for r in records] != ["s"] or store.revision != 1:
         raise AssertionError(f"the bulk load journaled {records}")
@@ -9701,6 +9737,199 @@ def fleet_path(f21: dict, smi_line: str, device: str = "cuda") -> dict:
     return out
 
 
+PARSE_TWIN_LINES = 100_000  # phase 19 (a)'s slice parsed by both parsers
+DIST_MESH = (1, 2)          # phase 24's mesh in its one-rank process group
+DIST_BATCHES = 3            # lookup and check batches before and after
+DIST_ORACLE_PODS = 1_000    # pods outside a lookup the oracle checks too
+
+
+def distributed_path(ep, w, batches: list, reqs: list, timer, peak,
+                     smi_line: str, device: str = "cuda") -> dict:
+    """Phase 24: `torch://?distributed=1&mesh=1x2` on the phase-3 store,
+    in a one-rank process group set up here (a loopback coordinator,
+    NUM_PROCESSES=1, PROCESS_ID=0; NCCL for the card's tensors): both
+    shards on this card, every sweep's deltas and the readout going
+    through `torch.distributed`.  Its lookups and checks equal the
+    single-device endpoint's and an oracle sample, before and after a
+    churn round; its kernels are held against their twins (`mesh_sweep`);
+    the process group is destroyed before returning."""
+    import numpy as np
+    import torch
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+    from spicedb_kubeapi_proxy_tpu_torch.ops.torch_endpoint import (
+        _ShardedEllGraph)
+    from spicedb_kubeapi_proxy_tpu_torch.parallel import (collectives,
+                                                          distributed)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import (
+        Bootstrap, create_endpoint)
+    from spicedb_kubeapi_proxy_tpu_torch.spicedb.types import (
+        RelationshipUpdate, SubjectRef, UpdateOp, parse_relationship)
+
+    t_phase = time.perf_counter()
+    if distributed.is_initialized():
+        raise AssertionError("a process group is up before phase 24")
+    env = {"SPICEDB_TPU_COORDINATOR": f"127.0.0.1:{_free_port()}",
+           "SPICEDB_TPU_NUM_PROCESSES": "1", "SPICEDB_TPU_PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    d, g = DIST_MESH
+    url = (f"torch://?distributed=1&mesh={d}x{g}&dispatch=direct"
+           + ("" if device == "cuda" else f"&device={device}"))
+    try:
+        m = create_endpoint(url, Bootstrap(w.schema_text, ""),
+                            store=ep.store)
+        import torch.distributed as dist
+        gr = m.graph()
+        if not isinstance(gr, _ShardedEllGraph) or not \
+                m.mesh.spans_processes or m.mesh.world != 1:
+            raise AssertionError(f"{url} built {type(gr).__name__} on "
+                                 f"{m.mesh!r}")
+        kern = gr.kernel
+        backend = dist.get_backend()
+        log(f"phase 24: {url} on the phase-3 store: {m.mesh!r}, backend "
+            f"{backend}; {kern.n_pad} + {kern.a_pad} rows, blocks main "
+            f"{kern.block_main}, aux {kern.block_aux}")
+        rounds = []
+
+        def read(label):
+            looks, chks, e2e = [], [], {"lookup": [], "check": []}
+            kernels.reset_launches()
+            collectives.reset_collectives()
+            sweeps = 0
+            for k in range(DIST_BATCHES):
+                t0 = time.perf_counter()
+                looks.append(asyncio.run(m.lookup_resources_batch(
+                    "pod", "view", batches[k])))
+                timer.sync()
+                e2e["lookup"].append(time.perf_counter() - t0)
+                sweeps += int(gr.last_trace[0])
+                t0 = time.perf_counter()
+                chks.append(asyncio.run(m.check_bulk_permissions(reqs)))
+                timer.sync()
+                e2e["check"].append(time.perf_counter() - t0)
+                sweeps += int(gr.last_trace[0])
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            coll = {k: dict(v) for k, v in collectives.COLLECTIVES.items()}
+            for k in range(DIST_BATCHES):
+                one = asyncio.run(ep.lookup_resources_batch("pod", "view",
+                                                            batches[k]))
+                one_c = asyncio.run(ep.check_bulk_permissions(reqs))
+                if [sorted(x) for x in one] != [sorted(x) for x in looks[k]]:
+                    raise AssertionError(f"phase 24 {label}: lookup batch "
+                                         f"{k} differs from the single-"
+                                         "device endpoint's")
+                if [c.permissionship for c in one_c] != \
+                        [c.permissionship for c in chks[k]]:
+                    raise AssertionError(f"phase 24 {label}: checks differ "
+                                         "from the single-device endpoint's")
+            # the oracle: a subject's lookup against its checks of the
+            # returned pods and DIST_ORACLE_PODS others, and a sample of
+            # the batch's checks
+            rng = np.random.default_rng(SEED + 24 + len(rounds))
+            pods = [p for p in gr.prog.object_ids["pod"] if "\x00" not in p]
+            subj = batches[0][int(rng.integers(0, len(batches[0])))]
+            got = set(looks[0][batches[0].index(subj)])
+            cand = got | {pods[int(i)] for i in rng.choice(
+                len(pods), DIST_ORACLE_PODS, replace=False)}
+            oracle = ep._oracle
+            if got != _oracle_pods(oracle, sorted(cand), subj):
+                raise AssertionError(f"phase 24 {label}: lookup for {subj} "
+                                     "differs from the oracle")
+            for i in rng.choice(len(reqs), 64, replace=False).tolist():
+                r = reqs[i]
+                if oracle.check(r.resource, r.permission, r.subject) != \
+                        chks[0][i].allowed:
+                    raise AssertionError(f"phase 24 {label}: check {i} "
+                                         "differs from the oracle")
+            idle = [k for k in MESH_KERNELS if not launches.get(k)]
+            if idle:
+                raise AssertionError(f"phase 24 {label}: kernels never "
+                                     f"launched: {idle}")
+            red = coll["reduce_sweep_deltas"]
+            if red["xrank_calls"] != sweeps or red["calls"] != sweeps:
+                raise AssertionError(f"phase 24 {label}: {red} for {sweeps} "
+                                     "sweeps: not one all-reduce a sweep")
+            if coll["sum_across"]["xrank_calls"] != 2 * DIST_BATCHES:
+                raise AssertionError(f"phase 24 {label}: readout "
+                                     f"all-reduces {coll['sum_across']}")
+            med = {v: statistics.median(t[1:]) for v, t in e2e.items()}
+            log(f"phase 24 {label}: {DIST_BATCHES} lookup batches x "
+                f"{len(batches[0])} lanes and {DIST_BATCHES} check batches "
+                f"x {len(reqs)} pairs equal the single-device endpoint's; "
+                f"the oracle agrees on {subj.id}'s lookup over {len(cand)} "
+                f"pods and 64 checks; sweeps {sweeps}; warm median lookup "
+                f"{med['lookup']:.6f} s, check {med['check']:.6f} s; "
+                f"launches {launches}; cross-rank collectives "
+                + ", ".join(f"{k} {v['xrank_calls']} calls "
+                            f"{v['xrank_bytes']} bytes" for k, v in
+                            coll.items())
+                + f"; all_gather_rows delivered {coll['all_gather_rows']['bytes']}"
+                f" bytes by the kernels' writes, {coll['all_gather_rows']['copies']}"
+                f" copies ({smi_line})")
+            rounds.append({"launches": launches, "collectives": coll,
+                           "e2e_s": e2e, "sweeps": sweeps})
+            return launches
+
+        launches = dict(read("before churn"))
+        # one churn round through the distributed endpoint: the shared
+        # store's writes reach both endpoints
+        rebuilds0 = m.stats["rebuilds"]
+        plan = _churn_plan(w, 1, SEED + 24, tag="x")
+        ops = {"touch": UpdateOp.TOUCH, "delete": UpdateOp.DELETE}
+
+        async def commit():
+            for wr in plan[0]["writes"]:
+                await m.write_relationships(
+                    [RelationshipUpdate(ops[o], parse_relationship(rel))
+                     for o, rel in wr])
+        asyncio.run(commit())
+        for k, v in read("after a churn round").items():
+            launches[k] = launches.get(k, 0) + v
+        if m.stats["rebuilds"] != rebuilds0:
+            raise AssertionError("phase 24: the churn round rebuilt")
+        # the sharded batch's kernels against their twins, call by call,
+        # then the readout's on its final state
+        from spicedb_kubeapi_proxy_tpu_torch.ops.kernels import reference
+        q_arr, _, _ = m._encode_subjects(gr, batches[0])
+        n_words = len(q_arr) // 32
+        sweep = mesh_sweep(kern, q_arr, n_words, gr.snapshot(), timer, peak,
+                           "phase 24 distributed mesh")
+        x, _ = kern.evaluate(q_arr, n_words, gr.snapshot(),
+                             kern._alloc_arenas(n_words))
+        rng = np.random.default_rng(SEED + 240)
+        gi = rng.integers(0, gr.prog.state_size, N_CHECKS).astype(np.int32)
+        gc_ = rng.integers(0, 32 * n_words, N_CHECKS).astype(np.int32)
+        c_err = _diff(kern.finish_checks(x, gi, gc_, n_words),
+                      kern.finish_checks(x, gi, gc_, n_words, reference))
+        off, length = gr.prog.slot_range("pod", "view")
+        l_err = _diff(kern.finish_lookup(x, off, length, n_words),
+                      kern.finish_lookup(x, off, length, n_words, reference))
+        if c_err or l_err:
+            raise AssertionError(f"phase 24: the readout's check_gather "
+                                 f"({c_err}) or lookup_T ({l_err}) differs "
+                                 "from its twin")
+        log(f"phase 24 readout on the final state: check_gather over "
+            f"{N_CHECKS} pairs and lookup_T over pod#view's {length} rows "
+            f"bit-identical to their twins (through the readout's "
+            f"all-reduce)")
+        del m, gr, kern
+        gc.collect()
+    finally:
+        distributed.destroy()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if distributed.is_initialized():
+        raise AssertionError("phase 24 left its process group up")
+    secs = time.perf_counter() - t_phase
+    log(f"phase 24 wall time {secs:.1f} s")
+    return {"launches": launches, "rounds": rounds, "sweep": sweep,
+            "s": secs}
+
+
 def main() -> int:
     try:
         import torch
@@ -9730,11 +9959,32 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(smi_line)
 
-    # 2. build
+    # 2. build: the kernels (nvcc) and, beside them, the bulk parser (g++)
+    import threading
+
+    from spicedb_kubeapi_proxy_tpu_torch import native
     t0 = time.perf_counter()
+    native_out: dict = {}
+
+    def build_native():
+        try:
+            native.load()
+            native_out["s"] = time.perf_counter() - t0
+        except BaseException as e:      # re-raised below
+            native_out["error"] = e
+    th = threading.Thread(target=build_native)
+    th.start()
     path = kernels.build()
     kernels._load()
-    log(f"build: {path.name} in {time.perf_counter() - t0:.2f} s")
+    th.join()
+    if "error" in native_out:
+        raise native_out["error"]
+    if native.disabled():
+        raise AssertionError("SPICEDB_TPU_NO_NATIVE is set: the smoke "
+                             "parses through the native parser")
+    log(f"build: {path.name} in {time.perf_counter() - t0:.2f} s; "
+        f"{native.library_path().name} (g++, beside it) in "
+        f"{native_out['s']:.2f} s")
     for line in kernels.BUILD_LOG.splitlines():
         if "ptxas info" in line and ("Used" in line or "Compiling" in line):
             log("  " + line.strip())
@@ -9816,6 +10066,13 @@ def main() -> int:
     gc.collect()
     mesh_seg = mesh_segment(seg, mesh, timer, peak)
     phase_s["13a-b"] = time.perf_counter() - t_ph
+
+    # 24. the same store behind torch://?distributed=1&mesh=1x2 in a
+    # one-rank process group
+    t_ph = time.perf_counter()
+    dist24 = distributed_path(ep, w, batches, reqs, timer, peak, smi_line)
+    gc.collect()
+    phase_s["24"] = time.perf_counter() - t_ph
 
     # 14. batched dispatch on the phase-3 endpoint, launches counted from 0
     t_ph = time.perf_counter()
@@ -10003,6 +10260,16 @@ def main() -> int:
     # from their /metrics
     for kname in rows:
         rows[kname]["fleet_launches"] = fleet["launches"].get(kname, 0)
+    # phase 24: the distributed mesh endpoint's reads, counted from zero,
+    # and its sweep kernels' numbers against their twins
+    for kname in rows:
+        rows[kname]["distributed_launches"] = dist24["launches"].get(kname,
+                                                                     0)
+    for kname, r in dist24["sweep"]["rows"].items():
+        rows[kname].update({f"distributed_{k}": v for k, v in r.items()
+                            if k != "max_abs_err"})
+        rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"],
+                                         r["max_abs_err"])
     for kname, also in REPLACES_ALSO.items():
         rows[kname]["replaces_also"] = also
     # the ELL path's checks ride the sweep tail in every phase that serves

@@ -100,6 +100,7 @@ from ..spicedb import schema as sch
 from ..spicedb.endpoints import (
     Bootstrap,
     DEFAULT_BOOTSTRAP_SCHEMA,
+    EndpointConfigError,
     PermissionsEndpoint,
     apply_bootstrap_once,
     merge_internal_definitions,
@@ -1091,6 +1092,14 @@ class TorchEndpoint(PermissionsEndpoint):
         # off), and the in-flight background re-closes
         self._leopard_wanted = bool(features.LEOPARD_INDEX if leopard is None
                                     else leopard)
+        if self._leopard_wanted and mesh is not None and mesh.world > 1:
+            # its re-closes land off the request path, at different
+            # times on different ranks: they would route a read to the
+            # plane on one rank and to the sweep's collectives on another
+            raise EndpointConfigError(
+                f"the Leopard closure index is not served on a mesh "
+                f"across {mesh.world} processes; pass leopard=False or "
+                f"turn the LeopardIndex gate off")
         self._leopard: Optional[LeopardIndex] = None
         self._leo_futures: list = []
         # the HBM-ledger generation of the live graph (0 before the
@@ -1326,7 +1335,12 @@ class TorchEndpoint(PermissionsEndpoint):
 
     def _async_rebuild_on(self) -> bool:
         """The ASYNC_REBUILD switch; a missing one reads as off (fails
-        closed: synchronous rebuilds)."""
+        closed: synchronous rebuilds).  A mesh across processes always
+        rebuilds synchronously: every rank must install a new generation
+        between the same two batches, or their collectives would not
+        match."""
+        if self.mesh is not None and self.mesh.world > 1:
+            return False
         return getattr(features, "ASYNC_REBUILD", False) is True
 
     def _spare_pressure(self) -> bool:

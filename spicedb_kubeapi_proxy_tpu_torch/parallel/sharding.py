@@ -46,7 +46,7 @@ from ..ops.kernels.reference import reads_in_place
 from ..ops.spmv import MAX_ITERATIONS, bucket, pad_edges
 from ..utils import devtel
 from .collectives import (all_gather_rows, or_allreduce, reduce_data_deltas,
-                          reduce_sweep_deltas)
+                          reduce_sweep_deltas, sum_across)
 
 # One shard's state buffers of a bucket: the seed, the two sweep states the
 # fixpoint loop swaps between (the seed is the first sweep's input), and
@@ -58,9 +58,16 @@ _ShardArena = namedtuple("_ShardArena", "x0 a b aux")
 class Mesh:
     """A [data, graph] grid of torch devices.  `devices[d][g]` holds shard
     (d, g); `shape` is {"data": D, "graph": G}, as the reference's
-    `jax.sharding.Mesh.shape`."""
+    `jax.sharding.Mesh.shape`.
 
-    def __init__(self, devices):
+    A mesh across processes (`make_process_mesh`) also has `ranks[d][g]`,
+    the rank that holds shard (d, g), and this process's `rank` in a
+    world of `world` ranks.  Each rank holds its shards on its own card,
+    so `devices[d][g]` is this rank's card for every shard, and only
+    `local(d, g)` shards are allocated and computed here; `link(d)` is
+    how data shard d's replicas on other ranks are reached."""
+
+    def __init__(self, devices, ranks=None, rank: int = 0, world: int = 1):
         grid = [[torch.device(dev) for dev in row] for row in devices]
         if not grid or not grid[0] or any(len(r) != len(grid[0])
                                           for r in grid):
@@ -68,12 +75,62 @@ class Mesh:
         self.devices = tuple(tuple(row) for row in grid)
         self.shape = {"data": len(grid), "graph": len(grid[0])}
         self.size = len(grid) * len(grid[0])
+        self.ranks = (tuple(tuple(int(r) for r in row) for row in ranks)
+                      if ranks is not None else None)
+        self.rank = rank
+        self.world = world
+        self._links: dict = {}
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.ranks is not None
+
+    def local(self, d: int, g: int) -> bool:
+        return self.ranks is None or self.ranks[d][g] == self.rank
+
+    def owner(self, d: int) -> int:
+        """The rank that answers for data shard d (holds replica (d, 0))."""
+        return self.ranks[d][0] if self.ranks is not None else self.rank
+
+    def link(self, d: int):
+        """Data shard d's graph-axis group across ranks (None in one
+        process)."""
+        return self._links.get(d)
 
     def __repr__(self) -> str:
+        where = (lambda d, g: f"rank {self.ranks[d][g]}"
+                 if self.ranks is not None else str(self.devices[d][g]))
         return (f"Mesh({self.shape['data']}x{self.shape['graph']}: "
-                + ", ".join(f"({d},{g})={dev}"
+                + ", ".join(f"({d},{g})={where(d, g)}"
                             for d, row in enumerate(self.devices)
-                            for g, dev in enumerate(row)) + ")")
+                            for g, _ in enumerate(row))
+                + (f"; rank {self.rank} of {self.world} on "
+                   f"{self.devices[0][0]}" if self.ranks is not None
+                   else "") + ")")
+
+
+class GraphLink:
+    """Data shard d's replicas across ranks: the process group of the
+    ranks that hold them (None when this rank holds them all), the
+    group's ranks in graph order, and this rank's run of `k` replicas
+    starting at graph shard `g0` (every member holds as many)."""
+
+    def __init__(self, group, members: list, g0: int, k: int):
+        self.group = group
+        self.members = members
+        self.g0 = g0
+        self.k = k
+
+
+def _factor(n: int) -> tuple:
+    """The smallest factor pair (data, graph) of n with graph >= data."""
+    graph = n
+    g = 1
+    while g * g <= n:
+        if n % g == 0:
+            graph = n // g
+        g += 1
+    return n // graph, graph
 
 
 def make_mesh(devices=None, data: Optional[int] = None,
@@ -92,16 +149,67 @@ def make_mesh(devices=None, data: Optional[int] = None,
     if n == 0:
         raise ValueError("a mesh needs at least one device")
     if data is None or graph is None:
-        graph = n
-        g = 1
-        while g * g <= n:
-            if n % g == 0:
-                graph = n // g
-            g += 1
-        data = n // graph
+        data, graph = _factor(n)
     if data * graph != n:
         raise ValueError(f"mesh {data}x{graph} != {n} devices")
     return Mesh([devices[d * graph:(d + 1) * graph] for d in range(data)])
+
+
+def make_process_mesh(data: Optional[int] = None,
+                      graph: Optional[int] = None, device=None) -> Mesh:
+    """A mesh over every rank of the process group: D * G shards (default
+    one a rank, split as `make_mesh` splits), a multiple of the world
+    size, placed row-major over the ranks — rank r holds shards [r * S,
+    (r + 1) * S), S = D * G / world, all on its card
+    (`distributed.local_card()`), or on the CPU with `device="cpu"`.
+    Every rank must call this with the same arguments: the graph-axis
+    process groups are made here, once, in the same order everywhere.
+    A data shard's replicas split evenly over the ranks that hold them
+    (S divides G or G divides S)."""
+    import torch.distributed as dist
+
+    from .distributed import is_initialized, local_card, world
+    if not is_initialized():
+        raise ValueError("a mesh across processes needs a process group "
+                         "(distributed.init_from_env)")
+    rank, n_ranks = world()
+    if data is None or graph is None:
+        data, graph = _factor(n_ranks)
+    if data < 1 or graph < 1:
+        raise ValueError(f"mesh axes must be positive, got {data}x{graph}")
+    n = data * graph
+    if n % n_ranks:
+        raise ValueError(f"mesh {data}x{graph}: {n} shards do not split "
+                         f"over {n_ranks} processes")
+    per = n // n_ranks
+    if per % graph and graph % per:
+        raise ValueError(f"mesh {data}x{graph} over {n_ranks} processes: "
+                         f"{per} shards a rank split a data shard's {graph} "
+                         f"replicas unevenly")
+    if device is None:
+        if not torch.cuda.is_available():
+            from ..device import DeviceUnavailableError
+            raise DeviceUnavailableError(
+                "a mesh across processes runs on each rank's card and no "
+                "CUDA device is visible (device=cpu asks for the CPU)")
+        dev = torch.device("cuda", local_card())
+    else:
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", local_card())
+    ranks = [[(d * graph + g) // per for g in range(graph)]
+             for d in range(data)]
+    mesh = Mesh([[dev] * graph for _ in range(data)], ranks=ranks,
+                rank=rank, world=n_ranks)
+    for d, row in enumerate(ranks):
+        members = sorted(set(row))
+        # every rank makes every group (new_group is collective over the
+        # world), in data-shard order
+        group = dist.new_group(members) if len(members) > 1 else None
+        if rank in members:
+            mine = [g for g, r in enumerate(row) if r == rank]
+            mesh._links[d] = GraphLink(group, members, mine[0], len(mine))
+    return mesh
 
 
 def padded_batch_words_for(n_data: int, batch: int) -> int:
@@ -144,13 +252,17 @@ def _ceil_mult(n: int, m: int) -> int:
 
 def _blocks(mesh: Mesh, arr: np.ndarray, b: int) -> tuple:
     """[D][G] tuple of row blocks of `arr` (b rows each): block g of data
-    replica d on mesh.devices[d][g].  Replicas on one device share the
-    block: tables are only read, and a flush swaps whole blocks."""
+    replica d on mesh.devices[d][g], None where another rank holds the
+    shard.  Replicas on one device share the block: tables are only
+    read, and a flush swaps whole blocks."""
     made: dict = {}
     out = []
-    for row in mesh.devices:
+    for d, row in enumerate(mesh.devices):
         blocks = []
         for g, dev in enumerate(row):
+            if not mesh.local(d, g):
+                blocks.append(None)
+                continue
             t = made.get((dev, g))
             if t is None:
                 # copy=True: on the CPU `.to()` would alias the host array
@@ -180,14 +292,18 @@ def _local_queries(mesh: Mesh, q_idx, n_words: int) -> list:
 
 
 def _route_checks(x: list, gather_idx, gather_col, wl: int,
-                  check) -> torch.Tensor:
+                  check, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """`check(state, rows, cols)` per (state row, query column) pair, in
     request order, on shard (0, 0)'s device: each pair is routed to the
     data shard owning its column (col // 32 // wl) and read from that
-    shard's graph replica 0."""
+    shard's graph replica 0.  Across processes each data shard's owner
+    reads its pairs and one all-reduce gives every rank the whole
+    answer."""
     gi = _host(gather_idx).astype(np.int32)
     gc = _host(gather_col).astype(np.int64)
     d_of = gc // 32 // wl
+    if mesh is not None and mesh.spans_processes:
+        return _route_checks_across(x, gi, gc, d_of, wl, check, mesh)
     dev0 = x[0][0].device
     parts, order = [], []
     for d in np.unique(d_of).tolist():
@@ -207,11 +323,46 @@ def _route_checks(x: list, gather_idx, gather_col, wl: int,
     return out
 
 
+def _route_checks_across(x: list, gi: np.ndarray, gc: np.ndarray,
+                         d_of: np.ndarray, wl: int, check,
+                         mesh: Mesh) -> torch.Tensor:
+    """`_route_checks` over a mesh across processes: the owner of each
+    data shard writes its pairs' values into a zeroed answer, the other
+    ranks leave them 0, and an all-reduce sums the answers."""
+    dev = mesh.devices[0][0]
+    out = torch.zeros(len(gi), dtype=torch.int32, device=dev)
+    for d in np.unique(d_of).tolist():
+        if mesh.owner(d) != mesh.rank:
+            continue
+        sel = np.nonzero(d_of == d)[0]
+        xs = x[d][0]
+        res = check(xs, _to_device(gi[sel], dev),
+                    _to_device((gc[sel] - d * 32 * wl).astype(np.int32),
+                               dev))
+        out[torch.from_numpy(sel).to(dev)] = res
+    sum_across(out)
+    return out
+
+
 def _join_lookup(x: list, slot_offset: int, slot_length: int,
-                 words, impl=kernels) -> torch.Tensor:
+                 words, impl=kernels,
+                 mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Lookup words [W, slot_length]: `lookup_T` of graph replica 0 of
     each data shard (its first `words` words), word rows in data order,
-    on shard (0, 0)'s device."""
+    on shard (0, 0)'s device.  Across processes each data shard's owner
+    writes its rows into a zeroed answer and an all-reduce sums them."""
+    if mesh is not None and mesh.spans_processes:
+        dev = mesh.devices[0][0]
+        local = next(t for row in x for t in row if t is not None)
+        wl = words if words is not None else local.shape[1]
+        out = torch.zeros((wl * len(x), slot_length), dtype=torch.int32,
+                          device=dev)
+        for d, row in enumerate(x):
+            if mesh.owner(d) == mesh.rank:
+                out[d * wl:(d + 1) * wl] = impl.lookup_T(
+                    row[0], slot_offset, slot_length, words)
+        sum_across(out)
+        return out
     dev0 = x[0][0].device
     parts = [impl.lookup_T(row[0], slot_offset, slot_length, words).to(dev0)
              for row in x]
@@ -321,8 +472,9 @@ class ShardedEllKernel(devtel.ArenaLedger):
         self._placement: dict = {}
         for d, row in enumerate(mesh.devices):
             for g, dev in enumerate(row):
-                self._placement.setdefault(dev, {}).setdefault(d, []).append(
-                    g)
+                if mesh.local(d, g):
+                    self._placement.setdefault(dev, {}).setdefault(
+                        d, []).append(g)
         if any(len(gs) > kernels.MESH_DSTS
                for per in self._placement.values() for gs in per.values()):
             raise NotImplementedError(
@@ -392,6 +544,8 @@ class ShardedEllKernel(devtel.ArenaLedger):
             new: dict = {}
             for d, row in enumerate(blocks):
                 old = row[g]
+                if old is None:
+                    continue
                 if id(old) not in new:
                     new[id(old)] = impl.scatter_rows(
                         old, _to_device(local, old.device),
@@ -449,10 +603,8 @@ class ShardedEllKernel(devtel.ArenaLedger):
                     f"its own slot")
             ops.append((code, op.offset, op.length, depth))
         b = self.block_main
-        for row in self.mesh.devices:
-            for dev in row:
-                if dev in self._plans:
-                    continue
+        for dev in self._placement:
+            if dev not in self._plans:
                 wc_ranges = (torch.tensor(
                     [[t.self_offset, t.self_offset + t.self_length]
                      for t in terms], dtype=torch.int32, device=dev)
@@ -476,13 +628,17 @@ class ShardedEllKernel(devtel.ArenaLedger):
         return 2 * wl if self.planes else wl
 
     def _alloc_arenas(self, n_words: int) -> list:
+        """[D][G] arenas, None where another rank holds the shard."""
         width = self.width(n_words)
+        mesh = self.mesh
         return [[_ShardArena(*(torch.empty((self.rows, width),
                                            dtype=torch.int32, device=dev)
                                for _ in range(3)),
                              torch.empty((self.a_pad, width),
                                          dtype=torch.int32, device=dev))
-                 for dev in row] for row in self.mesh.devices]
+                 if mesh.local(d, g) else None
+                 for g, dev in enumerate(row)]
+                for d, row in enumerate(mesh.devices)]
 
     def take_arena(self, n_words: int) -> list:
         """Pop the bucket's per-shard arenas ([D][G] of (x0, a, b, aux);
@@ -496,7 +652,8 @@ class ShardedEllKernel(devtel.ArenaLedger):
         return a
 
     def _arena_tensors(self, arenas: list) -> tuple:
-        return tuple(t for row in arenas for ar in row for t in ar)
+        return tuple(t for row in arenas for ar in row if ar is not None
+                     for t in ar)
 
     def ledger_blocks(self) -> list:
         """(kind, device index, block) of every distinct table block:
@@ -507,7 +664,7 @@ class ShardedEllKernel(devtel.ArenaLedger):
                              ("ell_cav", self.idx_cav)):
             for row in blocks or ():
                 for t in row:
-                    if id(t) not in seen:
+                    if t is not None and id(t) not in seen:
                         seen.add(id(t))
                         out.append((kind, t.device.index or 0, t))
         return out
@@ -533,6 +690,10 @@ class ShardedEllKernel(devtel.ArenaLedger):
                 _local_queries(self.mesh, q_idx, n_words))):
             x0_row, live_row = [], []
             for g, dev in enumerate(row):
+                if arenas[d][g] is None:
+                    x0_row.append(None)
+                    live_row.append(None)
+                    continue
                 wc_ranges = self._plans[dev][0]
                 lv = (torch.empty((wc_ranges.shape[0], self.width(n_words)),
                                   dtype=torch.int32, device=dev)
@@ -557,7 +718,9 @@ class ShardedEllKernel(devtel.ArenaLedger):
         cav = tables[2] if self.planes else None
         n_pad = self.n_pad
         half = n_words // self.mesh.shape["data"] if self.planes else None
-        aux_of = lambda bufs: [[t[n_pad:] for t in row] for row in bufs]
+        aux_of = lambda bufs: [[t[n_pad:] if t is not None else None
+                                for t in row] for row in bufs]
+        link = self.mesh.link
         calls: list = []
 
         def gathers(table, hi, dest, b, seeded):
@@ -578,9 +741,12 @@ class ShardedEllKernel(devtel.ArenaLedger):
                 calls.append(("mesh_gather_or", lambda impl, jobs=jobs:
                               impl.mesh_gather_or(jobs, n_pad)))
             for d, reps in enumerate(dest):
-                calls.append(("all_gather_rows", lambda impl, reps=reps:
-                              all_gather_rows(reps, 0, b * len(reps),
-                                              written=True)))
+                if self._holds(d):
+                    calls.append(("all_gather_rows",
+                                  lambda impl, reps=reps, d=d:
+                                  all_gather_rows(reps, 0, b * len(reps),
+                                                  written=True,
+                                                  link=link(d))))
 
         # the aux passes: the last one writes cur's aux rows
         src = aux_of(x)
@@ -598,11 +764,14 @@ class ShardedEllKernel(devtel.ArenaLedger):
                 calls.append(("mesh_cav_gather_or", lambda impl, jobs=jobs:
                               impl.mesh_cav_gather_or(
                                   jobs, half, self.prog.dead_index)))
-            for reps in cur:
-                calls.append(("all_gather_rows", lambda impl, reps=reps:
-                              all_gather_rows(reps, 0, self.rows,
-                                              cols=(half, 2 * half),
-                                              written=True)))
+            for d, reps in enumerate(cur):
+                if self._holds(d):
+                    calls.append(("all_gather_rows",
+                                  lambda impl, reps=reps, d=d:
+                                  all_gather_rows(reps, 0, self.rows,
+                                                  cols=(half, 2 * half),
+                                                  written=True,
+                                                  link=link(d))))
         for dev, per_d in self._placement.items():
             for d, gs in per_d.items():
                 reps = [cur[d][j] for j in gs]
@@ -628,14 +797,26 @@ class ShardedEllKernel(devtel.ArenaLedger):
                      impl=kernels) -> list:
         """`mesh_sweep_delta` of each data shard once on each device that
         holds one of its replicas, into row d of `out[device]` (int32
-        [D, 2], zeroed); every replica's dead row zeroed.  Returns each
-        data shard's row on the device of its replica 0."""
+        [D + 1, 2], zeroed); every replica's dead row zeroed.  Returns
+        each data shard's row on the device of its replica 0.  Across
+        processes only the data shard's owner writes row d; another
+        rank's pair goes to the spare row D, so that an all-reduce counts
+        each data shard once."""
         dead = self.prog.dead_index
+        mesh = self.mesh
+        n_data = mesh.shape["data"]
         for dev, per_d in self._placement.items():
             for d, gs in per_d.items():
+                slot = d if mesh.owner(d) == mesh.rank else n_data
                 impl.mesh_sweep_delta(cur[d][gs[0]], x[d][gs[0]], dead,
-                                      out[dev][d], [cur[d][j] for j in gs])
-        return [out[row[0]][d] for d, row in enumerate(self.mesh.devices)]
+                                      out[dev][slot], [cur[d][j] for j in gs])
+        if mesh.spans_processes:
+            return []
+        return [out[row[0]][d] for d, row in enumerate(mesh.devices)]
+
+    def _holds(self, d: int) -> bool:
+        """This process holds a replica of data shard d."""
+        return any(d in per for per in self._placement.values())
 
     def evaluate(self, q_idx, n_words: int, tables: tuple, arenas: list,
                  impl=kernels) -> tuple:
@@ -643,15 +824,18 @@ class ShardedEllKernel(devtel.ArenaLedger):
         first sweep reads the seed, later ones swap the arenas' a and b.
         Returns ([D][G] final replica states — arena buffers —, trace)."""
         x0, live = self.seed(q_idx, n_words, arenas, impl)
-        aux = [[ar.aux for ar in row] for row in arenas]
+        pick = lambda f: [[f(ar) if ar is not None else None for ar in row]
+                          for row in arenas]
+        aux = pick(lambda ar: ar.aux)
         x = x0
-        cur = [[ar.b for ar in row] for row in arenas]
-        spare = [[ar.a for ar in row] for row in arenas]
+        cur = pick(lambda ar: ar.b)
+        spare = pick(lambda ar: ar.a)
         n_data = self.mesh.shape["data"]
-        deltas = {dev: torch.zeros((self.num_iters, n_data, 2),
+        deltas = {dev: torch.zeros((self.num_iters, n_data + 1, 2),
                                    dtype=torch.int32, device=dev)
                   for dev in self._placement}
         dev0 = self.mesh.devices[0][0]
+        across = self.mesh.spans_processes
         trace = np.zeros(1 + self.num_iters, np.int32)
         i = 0
         changed = True
@@ -659,8 +843,8 @@ class ShardedEllKernel(devtel.ArenaLedger):
             self.step(cur, x, x0, live, aux, tables, n_words, impl)
             slots = self.sweep_deltas(
                 cur, x, {dev: t[i] for dev, t in deltas.items()}, impl)
-            trace[1 + i], changed = reduce_data_deltas(deltas[dev0][i],
-                                                       slots)
+            trace[1 + i], changed = reduce_data_deltas(
+                deltas[dev0][i][:n_data], slots, across=across)
             i += 1
             x, cur = cur, (spare if x is x0 else x)
         trace[0] = i
@@ -677,7 +861,8 @@ class ShardedEllKernel(devtel.ArenaLedger):
             check = lambda xs, gi, gc: impl.check_gather3(xs, gi, gc, wl)
         else:
             check = impl.check_gather
-        return _route_checks(x, gather_idx, gather_col, wl, check)
+        return _route_checks(x, gather_idx, gather_col, wl, check,
+                             self.mesh)
 
     def finish_lookup(self, x: list, slot_offset: int, slot_length: int,
                       n_words: int, impl=kernels) -> torch.Tensor:
@@ -685,7 +870,7 @@ class ShardedEllKernel(devtel.ArenaLedger):
         planes)."""
         wl = n_words // self.mesh.shape["data"]
         return _join_lookup(x, slot_offset, slot_length,
-                            wl if self.planes else None, impl)
+                            wl if self.planes else None, impl, self.mesh)
 
     def _run(self, n_words: int, q_idx, tables: tuple, finish) -> tuple:
         if self.planes and len(tables) < 3:
@@ -788,7 +973,9 @@ class ShardedKernel:
     `graph` (the reference's `lax.pmax(y, "graph")`: one `or_combine`
     launch over the co-located replicas), then the permission ops and
     `sweep_delta` on every replica.  The per-device plan (wildcard bits,
-    permission programs) is the single-device segment cache's."""
+    permission programs) is the single-device segment cache's.  On a
+    mesh across processes each rank runs its own shards only, and the
+    all-reduce gathers the other ranks' partials (collectives.py)."""
 
     def __init__(self, prog: GraphProgram, mesh: Mesh,
                  num_iters: Optional[int] = None):
@@ -829,10 +1016,15 @@ class ShardedKernel:
         wl = n_words // self.mesh.shape["data"]
         n, dead = self.prog.state_size, self.prog.dead_index
         x0, live = [], []
-        for row, q_local in zip(self.mesh.devices,
-                                _local_queries(self.mesh, q_idx, n_words)):
+        for d, (row, q_local) in enumerate(zip(
+                self.mesh.devices, _local_queries(self.mesh, q_idx,
+                                                  n_words))):
             x0_row, live_row = [], []
-            for dev in row:
+            for g, dev in enumerate(row):
+                if not self.mesh.local(d, g):
+                    x0_row.append(None)
+                    live_row.append(None)
+                    continue
                 wc_ranges = self._caches[dev]._wc_ranges
                 lv = (torch.empty((wc_ranges.shape[0], wl),
                                   dtype=torch.int32, device=dev)
@@ -851,6 +1043,8 @@ class ShardedKernel:
         wildcard terms`, then `edge_or` over its own edges of x[d][g]."""
         for d, row in enumerate(self.mesh.devices):
             for g, dev in enumerate(row):
+                if not self.mesh.local(d, g):
+                    continue
                 kc = self._caches[dev]
                 args = (y[d][g], x[d][g], x0[d][g], live[d][g], impl)
                 kc.run_step(("init", kc._wc_bits), *args)
@@ -862,6 +1056,8 @@ class ShardedKernel:
         """The permission ops on every (combined) replica."""
         for d, row in enumerate(self.mesh.devices):
             for g, dev in enumerate(row):
+                if not self.mesh.local(d, g):
+                    continue
                 kc = self._caches[dev]
                 for op in kc._ops:
                     kc.run_step(("perm_program",) + op, y[d][g], x[d][g],
@@ -873,19 +1069,23 @@ class ShardedKernel:
         replica states, trace int32 [1 + num_iters])."""
         dead = self.prog.dead_index
         x0, live = self.seed(q_idx, n_words, impl)
-        x = [[t.clone() for t in row] for row in x0]
-        y = [[torch.empty_like(t) for t in row] for row in x0]
+        x = [[t.clone() if t is not None else None for t in row]
+             for row in x0]
+        y = [[torch.empty_like(t) if t is not None else None for t in row]
+             for row in x0]
         trace = np.zeros(1 + self.num_iters, np.int32)
         i = 0
         changed = True
         while changed and i < self.num_iters:
             self.partials(y, x, x0, live, edge_src, edge_dst, impl)
-            for reps in y:
-                or_allreduce(reps, impl)
+            for d, reps in enumerate(y):
+                if any(r is not None for r in reps):
+                    or_allreduce(reps, impl, link=self.mesh.link(d))
             self.finish_step(y, x, x0, live, impl)
-            deltas = [[impl.sweep_delta(a, b, dead) for a, b in zip(yr, xr)]
+            deltas = [[impl.sweep_delta(a, b, dead) if a is not None
+                       else None for a, b in zip(yr, xr)]
                       for yr, xr in zip(y, x)]
-            trace[1 + i], changed = reduce_sweep_deltas(deltas)
+            trace[1 + i], changed = reduce_sweep_deltas(deltas, self.mesh)
             i += 1
             x, y = y, x
         trace[0] = i
@@ -911,7 +1111,8 @@ class ShardedKernel:
         """bool [slot_length, len(q_idx)] allowed bitmap."""
         words = self._run(q_idx, edge_src, edge_dst,
                           lambda x, wl: _join_lookup(
-                              x, slot_offset, slot_length, None).cpu().numpy())
+                              x, slot_offset, slot_length, None,
+                              mesh=self.mesh).cpu().numpy())
         packed = np.ascontiguousarray(words.view(np.uint32).T)
         bits = np.unpackbits(packed.view(np.uint8).reshape(slot_length, -1),
                              axis=1, bitorder="little").astype(bool)
@@ -923,4 +1124,5 @@ class ShardedKernel:
         return self._run(q_idx, edge_src, edge_dst,
                          lambda x, wl: _route_checks(
                              x, gather_idx, gather_col, wl,
-                             kernels.check_gather).cpu().numpy() != 0)
+                             kernels.check_gather,
+                             self.mesh).cpu().numpy() != 0)

@@ -69,13 +69,25 @@ class ColumnarSnapshot:
 
     @classmethod
     def from_text(cls, text: str) -> "ColumnarSnapshot":
-        """Parse relationship lines (pure Python; this package carries no
-        native parser).
+        """Parse relationship lines with the native parser
+        (native/fastparse.cpp, built at first use); only
+        SPICEDB_TPU_NO_NATIVE=1 selects the pure-Python `_from_text_py`."""
+        from .. import native
 
-        The bulk-text grammar is deliberately ASCII-strict: lines split on
-        '\\n' only, surrounding whitespace is ASCII whitespace, and
-        expiration floats reject Python-only forms (underscores) and
-        C-only forms (hex).
+        if native.disabled():
+            return cls._from_text_py(text)
+        pool, cols, expiry = native.parse(text)
+        return cls(pool, *cols, expiry=expiry)
+
+    @classmethod
+    def _from_text_py(cls, text: str) -> "ColumnarSnapshot":
+        """Pure-Python twin of native/fastparse.cpp: the same pool order
+        and columns.
+
+        The bulk-text grammar is deliberately ASCII-strict so both
+        implementations agree bit-for-bit: lines split on '\\n' only,
+        surrounding whitespace is ASCII whitespace, and expiration floats
+        reject Python-only forms (underscores) and C-only forms (hex).
         """
         pool: list = []
         index: dict = {}

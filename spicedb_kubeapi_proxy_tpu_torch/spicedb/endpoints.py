@@ -379,6 +379,16 @@ def create_endpoint(url: str,
     `auto` there builds no mesh.  Under the MeshExecution gate off, `auto`
     builds no mesh and `DxG` is a configuration error.
 
+    `torch://?distributed=1|auto` joins a `torch.distributed` process
+    group first (parallel/distributed.py, `jax://?distributed=`'s
+    contract), and `mesh=` then spans every rank: shard (d, g) is placed
+    row by row over the ranks, each rank holding its shards on its own
+    card.  Every rank must be fed the same requests in the same order
+    (SPMD, as the reference's processes are).  What would let two ranks
+    run different collectives is refused there, default or not: the
+    Leopard index (TorchEndpoint), the batching dispatcher (pass
+    `dispatch=direct`) and the decision cache.
+
     `torch://` is wrapped in the cross-request dispatcher
     (spicedb/dispatch.py `BatchingEndpoint`) unless `dispatch=direct` is
     given or the CROSS_REQUEST_BATCHING switch is off, as `jax://` is
@@ -431,7 +441,7 @@ def create_endpoint(url: str,
                     f"{key}={params[key][0]!r} in {url!r} conflicts "
                     f"with {key}={kwargs[key]!r}")
             kwargs[key] = params[key][0]
-        unknown = set(params) - {"device", "kernel", "mesh",
+        unknown = set(params) - {"device", "kernel", "mesh", "distributed",
                                  *_DISPATCH_PARAMS, *_CACHE_PARAMS}
         if unknown:
             raise EndpointConfigError(
@@ -439,11 +449,16 @@ def create_endpoint(url: str,
         for k in _DISPATCH_PARAMS:
             if k in params:
                 dispatch_kw[k] = params[k][0]
+        distributed = _torch_distributed(params, url)
         mesh_param = (params.get("mesh") or [""])[0]
         if mesh_param and "mesh" not in kwargs:
-            mesh = _torch_mesh(mesh_param, kwargs.get("device"), url)
+            mesh = _torch_mesh(mesh_param, kwargs.get("device"), url,
+                               distributed)
             if mesh is not None:
                 kwargs["mesh"] = mesh
+        mesh = kwargs.get("mesh")
+        if mesh is not None and mesh.world > 1:
+            _refuse_unordered_serving(dispatch_kw, cache_on, url, mesh.world)
         if store is not None:
             kwargs["store"] = store
         ep = TorchEndpoint.from_bootstrap(bootstrap, **kwargs)
@@ -579,12 +594,67 @@ def _wrap_dispatch(ep: PermissionsEndpoint, kw: dict,
             f"in {url!r}: {e}") from e
 
 
-def _torch_mesh(param: str, device, url: str):
+def _refuse_unordered_serving(dispatch_kw: dict, cache_on: bool, url: str,
+                              world: int) -> None:
+    """A mesh across processes is SPMD: every rank must run the same
+    collectives on the same batches in the same order.  The batching
+    dispatcher fuses whatever is queued when it drains, and keeps two
+    batches in flight, so two ranks fed the same requests can cut and
+    order their batches differently; a decision-cache hit on one rank
+    skips the sweep the others wait in.  Either would hang the
+    collectives or sum answers to different queries, so both are
+    refused, also where a switch and not the URL turned them on."""
+    from ..utils import features
+    dispatch = dispatch_kw.get("dispatch") or (
+        "batched" if features.CROSS_REQUEST_BATCHING else "direct")
+    if dispatch == "batched":
+        raise EndpointConfigError(
+            f"{url!r}: the batching dispatcher is not served on a mesh "
+            f"across {world} processes (ranks would cut different "
+            f"batches); pass dispatch=direct")
+    if cache_on:
+        raise EndpointConfigError(
+            f"{url!r}: the decision cache is not served on a mesh across "
+            f"{world} processes (a hit on one rank skips the collectives "
+            f"the others wait in); pass cache=0 or turn the "
+            f"DecisionCache gate off")
+
+
+def _torch_distributed(params: dict, url: str) -> bool:
+    """`torch://?distributed=1|true|yes|auto|0|false|no`, as `jax://`
+    takes it (reference endpoints.py:443-465): join the process group
+    named by the SPICEDB_TPU_COORDINATOR/NUM_PROCESSES/PROCESS_ID env
+    triplet (else `env://`) BEFORE any mesh is built, so the mesh spans
+    every rank.  `1` is strict (an authz proxy must not silently serve
+    over a partial mesh); `auto` is best-effort.  True when this process
+    is in a process group."""
+    dist_param = (params.get("distributed") or ["0"])[0].lower()
+    if dist_param in ("1", "true", "yes", "auto"):
+        from ..parallel import distributed
+        try:
+            return bool(distributed.init_from_env(
+                strict=dist_param != "auto"))
+        except Exception as e:
+            raise EndpointConfigError(
+                f"distributed={dist_param} in {url!r}: torch.distributed "
+                f"initialization failed: {e}") from e
+    if dist_param not in ("0", "false", "no", ""):
+        raise EndpointConfigError(
+            f"invalid distributed={dist_param!r} in {url!r} "
+            f"(expected 1/true/yes/auto/0/false/no)")
+    return False
+
+
+def _torch_mesh(param: str, device, url: str, distributed: bool = False):
     """The mesh a `torch://?mesh=` value asks for, or None (see
-    create_endpoint)."""
+    create_endpoint).  In a process group the mesh spans every rank:
+    `auto` puts one shard on each rank's card (none in a one-rank
+    world), `DxG` places D*G shards (a multiple of the world size) row
+    by row over the ranks, each rank's on its own card (the CPU with
+    `device=cpu`)."""
     import torch
 
-    from ..parallel.sharding import make_mesh
+    from ..parallel.sharding import make_mesh, make_process_mesh
     from ..utils import features
     if not features.MESH_EXECUTION:
         if param != "auto":
@@ -593,6 +663,18 @@ def _torch_mesh(param: str, device, url: str):
                 f"feature gate (disabled)")
         return None
     on_cpu = device is not None and torch.device(device).type == "cpu"
+    if distributed:
+        from ..parallel.distributed import world
+        try:
+            if param == "auto":
+                return make_process_mesh(device=device) \
+                    if world()[1] > 1 else None
+            data_s, _, graph_s = param.partition("x")
+            return make_process_mesh(int(data_s), int(graph_s),
+                                     device=device)
+        except ValueError as e:
+            raise EndpointConfigError(
+                f"invalid mesh {param!r} in {url!r}: {e}") from e
     if param == "auto":
         n = 1 if on_cpu else torch.cuda.device_count()
         return make_mesh() if n > 1 else None

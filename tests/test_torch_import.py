@@ -795,3 +795,54 @@ def test_remote_and_fleet_run_with_jax_grpc_and_yaml_blocked():
     assert res["requests"] == 0 and res["lines"] > 0
     assert not [m for m in res["modules"] if _is_forbidden(m)]
     assert set(REMOTE_FLEET_MODULES) <= set(res["modules"])
+
+
+# the last two modules: the native bulk parser and the process-group glue
+NATIVE_DIST_MODULES = [
+    "spicedb_kubeapi_proxy_tpu_torch.native",
+    "spicedb_kubeapi_proxy_tpu_torch.parallel.distributed",
+]
+
+
+@pytest.mark.parametrize("module", NATIVE_DIST_MODULES)
+def test_native_and_distributed_import_nothing_forbidden(module):
+    rel = module.replace(".", "/")
+    path = ROOT / (rel + ".py")
+    if not path.exists():
+        path = ROOT / rel / "__init__.py"
+    assert path.exists(), module
+    bad = [m for m in _imports(path) if _is_forbidden(m)]
+    assert bad == [], f"{module} imports {bad}"
+
+
+_PROBE_NATIVE_DIST = _BLOCK + r"""
+import json
+from spicedb_kubeapi_proxy_tpu_torch import native
+from spicedb_kubeapi_proxy_tpu_torch.parallel import distributed
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.endpoints import (
+    Bootstrap, EndpointConfigError, create_endpoint)
+from spicedb_kubeapi_proxy_tpu_torch.spicedb.store import TupleStore
+store = TupleStore()
+store.bulk_load_text("doc:d1#viewer@user:ann\ndoc:d2#viewer@user:bob")
+try:
+    create_endpoint("torch://?distributed=bogus&device=cpu")
+    refused = False
+except EndpointConfigError:
+    refused = True
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None)
+print(json.dumps({"n": len(store.read(None)), "refused": refused,
+                  "up": distributed.is_initialized(), "modules": loaded}))
+"""
+
+
+def test_native_parse_and_distributed_glue_run_with_jax_blocked():
+    """A bulk load through the native parser and the `distributed=`
+    parsing, with jax, h11, yaml and cryptography unimportable."""
+    out = subprocess.run([sys.executable, "-c", _PROBE_NATIVE_DIST],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=180)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["n"] == 2 and res["refused"] and not res["up"]
+    assert not [m for m in res["modules"] if _is_forbidden(m)]
+    assert set(NATIVE_DIST_MODULES) <= set(res["modules"])

@@ -835,6 +835,66 @@ def test_mesh_across_cards_agrees_with_the_cpu(mesh, workload):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mesh", ["1x4", "2x2"])
+@pytest.mark.parametrize("workload", ["caveated", "groups"])
+def test_mesh_across_processes_agrees_with_the_cpu(mesh, workload, tmp_path):
+    """Four ranks of one NCCL process group, a card each
+    (`torch://?distributed=1&mesh=DxG`, tests/torch_dist_rank.py): every
+    rank answers as the co-located CPU mesh in one process, before and
+    after a write every rank applies, sweep traces included; the sharded
+    ELL kernel alone gives the same lookup words, checks and traces, and
+    ShardedKernel (the OR all-reduce over gathered partials) the same
+    answers.  Each rank has its own timeout."""
+    _needs_card()
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices (one rank a card)")
+    import torch_dist_rank as tdr
+    if workload == "caveated":
+        w = workloads.caveated_rbac(n_pods=400, n_users=300, n_groups=10)
+    else:
+        w = workloads.group_explosion(n_groups=400, n_users=100, n_docs=300,
+                                      depth=4)
+    member = next(r for r in w.relationships if "#member@user:" in r)
+    writes = [("touch", member.split("@")[0] + "@user:" + w.subjects[0])]
+    spec = tdr.make_spec(w.schema_text, w.relationships, w.resource_type,
+                         w.permission, w.subjects[:70], writes, mesh,
+                         n_objs=200)
+    kernels.build()
+    one = tdr.drive_in_process(spec)
+    ranks = tdr.spawn(spec, 4, tmp_path, device="cuda", timeout=180)
+    for r in ranks:
+        assert r["world"] == 4
+        for got, want in zip(r["reads"], one["reads"]):
+            assert got == want
+        assert r["rebuilds"] == one["rebuilds"]
+        assert r["planes"] == one["planes"] == (workload == "caveated")
+        k = dict(r["kernel"])
+        assert k.pop("local_shards") == 1
+        assert k == {key: v for key, v in one["kernel"].items()
+                     if key != "local_shards"}
+        if "segment" in spec:
+            assert r["segment"] == one["segment"]
+            assert r["collectives"]["or_allreduce"]["xrank_calls"] > 0
+        c = r["collectives"]
+        assert c["reduce_sweep_deltas"]["xrank_calls"] == \
+            c["reduce_sweep_deltas"]["calls"] > 0
+        assert c["all_gather_rows"]["xrank_calls"] > 0
+        for name in ("mesh_gather_or", "mesh_perm_program",
+                     "mesh_sweep_delta", "seed_bitplanes"):
+            assert r["launches"].get(name), (name, r["launches"])
+        # refused before any request: what would reorder the collectives
+        assert "Leopard" in r["refused"]["leopard"]
+        assert "dispatch=direct" in r["refused"]["dispatch"]
+        assert "decision cache" in r["refused"]["cache"]
+    # the readout runs on each data shard's owner, (d, 0)'s rank
+    d, g = (int(v) for v in mesh.split("x"))
+    check = "check_gather3" if workload == "caveated" else "check_gather"
+    for name in ("lookup_T", check):
+        assert {r["rank"] for r in ranks if r["launches"].get(name)} == \
+            {i * g for i in range(d)}, name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["scratch", "in_place", "x_in"])
 @pytest.mark.parametrize("seeded", [False, True])
 @pytest.mark.parametrize("w", [1, 2, 3, 4, 8, 16])

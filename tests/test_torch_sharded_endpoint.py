@@ -241,7 +241,7 @@ class TestShardedEndpoint:
                 ref_create_endpoint(f"jax://?mesh={mesh}",
                                     RefBootstrap(schema_text=SCHEMA))
 
-    def test_mesh_needs_its_cards_and_the_ell_kernel(self):
+    def test_mesh_needs_its_cards_and_the_ell_kernel(self, monkeypatch):
         n = torch.cuda.device_count()
         with pytest.raises(EndpointConfigError,
                            match=f"needs {n + 1} devices, have {n}"):
@@ -254,7 +254,17 @@ class TestShardedEndpoint:
         with pytest.raises(ValueError, match="requires the ell kernel"):
             JaxEndpoint(ref_sch.parse_schema(SCHEMA), kernel="segment",
                         mesh=ref_sharding.make_mesh(jax.devices()[:2]))
-        with pytest.raises(EndpointConfigError, match="distributed"):
+        # distributed= as jax:// takes it: an invalid value is refused,
+        # and a strict join with no cluster configured fails the build
+        with pytest.raises(EndpointConfigError, match="invalid distributed"):
+            create_endpoint("torch://?distributed=bogus&device=cpu",
+                            Bootstrap(schema_text=SCHEMA))
+        for k in ("SPICEDB_TPU_COORDINATOR", "SPICEDB_TPU_NUM_PROCESSES",
+                  "SPICEDB_TPU_PROCESS_ID", "MASTER_ADDR", "MASTER_PORT",
+                  "WORLD_SIZE", "RANK"):
+            monkeypatch.delenv(k, raising=False)
+        with pytest.raises(EndpointConfigError,
+                           match="distributed=1 .* initialization failed"):
             create_endpoint("torch://?distributed=1&device=cpu",
                             Bootstrap(schema_text=SCHEMA))
 
