@@ -226,7 +226,8 @@ put down to the card or to the host.
    `/debug/workload` and `/debug/profile?seconds=1` answer 200 through
    the proxy and 401 without a user.  Logged: each burst's wall and the
    proxy's own time, the cache's counters and bytes, the ledger against
-   `memory_allocated`, and phase 16's burst twice more on its proxy, with
+   `memory_allocated`, and the first 64 lists of phase 16's burst twice
+   more on its proxy, with
    the DEVICE_TELEMETRY, TIMELINE and KERNEL_INTROSPECT switches on and
    then off (the telemetry's cost, reported, not enforced; phase 14
    times its (a) burst on the batched and the direct endpoint the same
@@ -305,7 +306,7 @@ put down to the card or to the host.
    (200,000 of each over 2,000 namespaces of each kind, ~404,000 tuples),
    each shard its own graph on the card (`shard_path`).  (a) Each graph's
    build and prewarm, the HBM ledger against the memory allocated; (b) a
-   burst of 64 pod lists and 64 configmap lists, each shard's dispatcher
+   burst of 32 pod lists and 32 configmap lists, each shard's dispatcher
    serving its own type, every list equal to the oracle over both shards'
    tuples; (c) 32 pod and 32 configmap dual writes at once through the
    worker, each on its owning shard, vector tokens read back, the vector
@@ -367,12 +368,23 @@ put down to the card or to the host.
    are held against theirs on the final state.  The cross-rank calls and
    bytes are logged; the process group is destroyed before phase 14.
 
+25. the port's own differential fuzz (`spicedb_kubeapi_proxy_tpu_torch.
+   fuzz`), last (`fuzz_path`): its 31 fixed cells — the 3 x 3 gate x
+   replication-role matrix, two `sharded2`, two `mesh` (2 x 2, co-located
+   on the card) and two `leopard` cells — replayed through `torch://`
+   endpoints on the card against the host oracle: zero divergences, every
+   matrix cell twice or more, and the ELL, segment, mesh and Leopard
+   kernels launched (counts from zero, printed per cell and per kernel);
+   then the `wildcard-plane-skipped` mutation must be caught by the fixed
+   seeds, and its shrunk artifact must diverge on replay under it and
+   replay clean without it.
+
 Phase 19 (a) parses its 1M-tuple text through the native bulk parser
 (native/fastparse.cpp, built by g++ beside the kernels' nvcc in phase 2)
 and holds a 100,000-line slice against `_from_text_py`.
 
 Phases run in the order 1-9, 11, 13a-b, 24, 14, 15, 10, 13c, 12, 13d, 16,
-17a, 18, 22, 19, 20, 21, 23, 21 (g), 17b, and each phase's seconds are
+17a, 18, 22, 19, 20, 21, 23, 21 (g), 17b, 25, and each phase's seconds are
 logged.  Any failed phase raises and the script
 exits non-zero.  The second-to-last line is the kernel table as JSON,
 the last line
@@ -522,6 +534,7 @@ DUALWRITE_RULES = [
 # phase 18, the decision cache and device telemetry on phase 16's store
 CACHE_EXPIRY_S = 1.5        # lifetime of (b)'s expiring workflow tuple
 KERNEL_TIME_TOL = 0.10      # (d): accounted kernel.device s vs own events
+TELEMETRY_COST_USERS = 64   # lists of the burst run with the switches on/off
 DUALWRITE_PAIRS = 8
 # phase 19, the durable store and read replication at multitenant-1m
 DURABLE_ROUNDS = 16         # rounds of pod-churn writes on the leader
@@ -558,11 +571,11 @@ SHARD_CONFIGMAPS = 200_000
 SHARD_SECRETS = 200_000
 SHARD_NAMESPACES = 2_000        # ids of each of cfgns and secns
 SHARD_KUBE_CONFIGMAPS = 10_000  # configmaps the fake apiserver holds
-SHARD_LISTS = 64                # pod lists and configmap lists in (b)
+SHARD_LISTS = 32                # pod lists and configmap lists in (b)
 SHARD_ORACLE_LISTS = 8          # of each type, held against the oracle
 SHARD_CREATES = 32              # pod creates and configmap creates in (c)
 SHARD_BULK_CHECKS = 10_000
-SHARD_ISOLATION_LISTS = 64      # pod lists during shard 1's rebuild in (d)
+SHARD_ISOLATION_LISTS = 32      # pod lists during shard 1's rebuild in (d)
 # (g): the reference test's schema, rules and map
 # (tests/test_tuple_sharding.py:77-132)
 SHARD_CLI_SCHEMA = """
@@ -6189,22 +6202,26 @@ def _cache_telemetry(p16: dict, w, smi_line: str, device: str,
     log(f"phase 18 (f) debug surfaces (status with a user, without, "
         f"bytes): {served}")
 
-    # the telemetry's cost: phase 16's burst again on its proxy, with the
-    # switches on and then off (its first run, on a fresh proxy, beside)
-    wall_on, own_on, _ = _list_burst(p16["proxy"], kube, users)
+    # the telemetry's cost: the first TELEMETRY_COST_USERS lists of
+    # phase 16's burst again on its proxy, with the switches on and then
+    # off (its first run, on a fresh proxy, beside)
+    cost_users = users[:TELEMETRY_COST_USERS]
+    wall_on, own_on, _ = _list_burst(p16["proxy"], kube, cost_users)
     saved = (features.DEVICE_TELEMETRY, features.TIMELINE,
              features.KERNEL_INTROSPECT)
     features.DEVICE_TELEMETRY = features.TIMELINE = False
     features.KERNEL_INTROSPECT = False
     try:
-        wall_off, own_off, _ = _list_burst(p16["proxy"], kube, users)
+        wall_off, own_off, _ = _list_burst(p16["proxy"], kube, cost_users)
     finally:
         (features.DEVICE_TELEMETRY, features.TIMELINE,
          features.KERNEL_INTROSPECT) = saved
-    log(f"phase 18 telemetry cost: phase 16's {len(users)}-list burst on "
+    log(f"phase 18 telemetry cost: {len(cost_users)} lists of phase 16's "
+        f"{len(users)}-list burst on "
         f"its proxy, wall {wall_on:.4f} s with the switches on (own time "
         f"{_pcts(own_on)}), {wall_off:.4f} s off (own time "
-        f"{_pcts(own_off)}); phase 16's first burst {p16['a_wall']:.4f} s; "
+        f"{_pcts(own_off)}); phase 16's first burst (all {len(users)}) "
+        f"{p16['a_wall']:.4f} s; "
         f"reported, not enforced ({smi_line})")
     log(f"phase 18 wall time {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches1, "cold_wall": wall1, "warm_wall": wall2}
@@ -9930,6 +9947,102 @@ def distributed_path(ep, w, batches: list, reqs: list, timer, peak,
             "s": secs}
 
 
+FUZZ_SEEDS = 31            # phase 25: the fixed cells of the port's fuzz
+FUZZ_MUTATION = "wildcard-plane-skipped"   # the tripwire it must catch
+# kernels each role family must launch over phase 25's cells: the ELL
+# sweep and readout, the segment sweep, the mesh sweep and the Leopard
+# plane read (`check_gather` also reads the segment state and the plane)
+FUZZ_FAMILIES = {
+    "ell": ("ell_gather_or", "perm_program", "sweep_delta_checks",
+            "seed_bitplanes", "lookup_T"),
+    "segment": ("edge_or", "sweep_delta", "check_gather"),
+    "mesh": ("mesh_gather_or", "mesh_perm_program", "mesh_sweep_delta"),
+    "leopard": ("word_cols_T",),
+}
+
+
+def fuzz_path(smi_line: str, device: str = "cuda") -> dict:
+    """Phase 25: the port's own differential fuzz (`fuzz/`) on the card.
+    (a) The FUZZ_SEEDS fixed cells of `smoke_cell_for` — the 3 x 3 gate x
+    role matrix (leader, 2-hop follower chain, promoted follower), two
+    `sharded2` cells, two `mesh` cells (a 2 x 2 mesh co-located on the
+    card against a single-device endpoint) and two `leopard` cells
+    (indexed against index-free) — each a generated schema, load and
+    burst stream replayed through `torch://` endpoints on the card and
+    compared with the host oracle at `checkpoints="final"`: zero
+    divergences, every matrix cell at least twice, every role family
+    present, and every kernel of FUZZ_FAMILIES launched (counts from
+    zero over the cells).  (b) The tripwire: under FUZZ_MUTATION the
+    fixed seeds must catch a divergence on the card, whose shrunk
+    artifact (written to a temporary directory) diverges on replay under
+    the mutation and replays clean without it."""
+    import tempfile
+
+    from spicedb_kubeapi_proxy_tpu_torch.fuzz import (MUTATIONS,
+                                                      replay_artifact)
+    from spicedb_kubeapi_proxy_tpu_torch.fuzz.__main__ import (
+        coverage_hole, mutation_check, run_cell)
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    cells_hit: dict = {}
+    by_role: dict = {}
+    failed = []
+    for seed in range(FUZZ_SEEDS):
+        l0 = dict(kernels.LAUNCHES)
+        res = run_cell(seed, device)
+        d = _launch_delta(l0)
+        cell = (res["gates"], res["role"])
+        cells_hit[cell] = cells_hit.get(cell, 0) + 1
+        _add(by_role.setdefault(res["role"], {}), d)
+        log(f"phase 25 (a) seed {seed} [{res['gates']}/{res['role']}/"
+            f"{res['kernel']}] {len(res['divergences'])} divergences in "
+            f"{res['elapsed']:.3f} s; launches {d}")
+        failed.extend(res["divergences"])
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    t_a = time.perf_counter() - t_phase
+    log(f"phase 25 (a) launches per kernel over the {FUZZ_SEEDS} cells: "
+        f"{launches}; by role: {by_role}")
+    if failed:
+        raise AssertionError(f"phase 25: {len(failed)} divergences: "
+                             + "; ".join(failed))
+    hole = coverage_hole(cells_hit, FUZZ_SEEDS)
+    if hole:
+        raise AssertionError(f"phase 25: {hole}")
+    for role in ("sharded2", "mesh", "leopard"):
+        if role not in by_role:
+            raise AssertionError(f"phase 25: no {role} cell replayed")
+    for family, names in FUZZ_FAMILIES.items():
+        _require_launches(launches, names, f"in phase 25's {family} "
+                          f"family")
+    log(f"phase 25 (a) {FUZZ_SEEDS} cells replayed on the card, 0 "
+        f"divergences, in {t_a:.1f} s; cells {dict(sorted(cells_hit.items()))}"
+        f" ({smi_line})")
+
+    # (b) the tripwire
+    t_b = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="fuzz25-") as tmp:
+        caught = mutation_check(FUZZ_MUTATION, FUZZ_SEEDS, device, tmp,
+                                log=lambda m: log(f"phase 25 (b) {m}"))
+        if not caught:
+            raise AssertionError(f"phase 25: {FUZZ_MUTATION} not caught by "
+                                 f"the fixed seeds on the card")
+        with MUTATIONS[FUZZ_MUTATION]():
+            live = replay_artifact(caught["path"], device=device)
+        fixed = replay_artifact(caught["path"], device=device)
+    if not live or fixed:
+        raise AssertionError(f"phase 25: the shrunk artifact replays "
+                             f"{len(live)} divergences under the mutation "
+                             f"and {len(fixed)} without it")
+    log(f"phase 25 (b) {FUZZ_MUTATION} caught at seed {caught['seed']}, "
+        f"shrunk to {caught['deltas']} deltas; the artifact diverges under "
+        f"the mutation ({live[0].line()}) and replays clean without it, in "
+        f"{time.perf_counter() - t_b:.1f} s")
+    log(f"phase 25 wall time {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "cells": cells_hit, "seconds_a": t_a}
+
+
 def main() -> int:
     try:
         import torch
@@ -10176,6 +10289,11 @@ def main() -> int:
     t_ph = time.perf_counter()
     cli_process(smi_line)
     phase_s["17b"] = time.perf_counter() - t_ph
+
+    # 25. the port's own fuzz: the fixed cells on the card, the tripwire
+    t_ph = time.perf_counter()
+    fz25 = fuzz_path(smi_line)
+    phase_s["25"] = time.perf_counter() - t_ph
     for kname, r in cav_rows.items():
         if kname in rows:
             # a kernel of both paths: its plane-mode numbers beside the
@@ -10265,6 +10383,9 @@ def main() -> int:
     for kname in rows:
         rows[kname]["distributed_launches"] = dist24["launches"].get(kname,
                                                                      0)
+    # phase 25 (a): the fuzz cells' launches, counted from zero
+    for kname in rows:
+        rows[kname]["fuzz_launches"] = fz25["launches"].get(kname, 0)
     for kname, r in dist24["sweep"]["rows"].items():
         rows[kname].update({f"distributed_{k}": v for k, v in r.items()
                             if k != "max_abs_err"})

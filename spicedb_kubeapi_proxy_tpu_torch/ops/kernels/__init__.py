@@ -25,7 +25,9 @@ stale libraries are both harmless.  The directory is listed in .gitignore.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import ctypes
+import gc
 import hashlib
 import operator
 import os
@@ -120,6 +122,31 @@ def _count(name: str) -> None:
         rec[name] = rec.get(name, 0) + 1
 
 
+# captures in progress on any thread, and whether the cyclic collector
+# was on before the first of them began: a collection that runs on a
+# capturing thread can free a dead graph (cudaGraphExecDestroy), which
+# CUDA refuses there and answers by invalidating the capture, so the
+# collector is paused while any capture is open
+_gc_pause = {"depth": 0, "was_enabled": False}
+_gc_pause_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    with _gc_pause_lock:
+        if _gc_pause["depth"] == 0:
+            _gc_pause["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _gc_pause["depth"] += 1
+    try:
+        yield
+    finally:
+        with _gc_pause_lock:
+            _gc_pause["depth"] -= 1
+            if _gc_pause["depth"] == 0 and _gc_pause["was_enabled"]:
+                gc.enable()
+
+
 class LaunchGraph:
     """Wrapper calls captured once in a CUDA graph and replayed.
 
@@ -131,7 +158,8 @@ class LaunchGraph:
     (under the counters' lock, like every wrapper's count).
     The capture is `torch.cuda.graph`'s in "thread_local" mode (other
     threads keep launching meanwhile) on a side stream, without that
-    context's device synchronise and cache flush; `pool`
+    context's device synchronise and cache flush, with Python's cyclic
+    collector paused until it ends (`_collector_paused`); `pool`
     (`torch.cuda.graph_pool_handle()`) lets graphs that never replay
     at the same time share their memory.  A capture that fails
     raises; nothing falls back to eager launches.  Every pointer the calls
@@ -160,7 +188,8 @@ class LaunchGraph:
             ev.record(side)
         _capture.counts = counts = {}
         try:
-            with torch.cuda.device(self.device), torch.cuda.stream(side):
+            with _collector_paused(), torch.cuda.device(self.device), \
+                    torch.cuda.stream(side):
                 self.graph.capture_begin(pool=self.pool,
                                          capture_error_mode="thread_local")
                 try:

@@ -63,10 +63,12 @@
   :85; proxy/server.py).
 - `CONTEXTUAL_LOGGING`, `LOGGING_ALPHA_OPTIONS` and
   `LOGGING_BETA_OPTIONS` are the component-base logging gates the
-  reference registers (:81-83) and reads nowhere; `FUZZ_TELEMETRY` is the
-  reference's `FuzzTelemetry` gate (:134), read by its fuzz harness,
-  which the port does not carry.  They are accepted and kept, so that a
-  command line written for the reference runs unchanged.
+  reference registers (:81-83) and reads nowhere.  They are accepted and
+  kept, so that a command line written for the reference runs unchanged.
+- `FUZZ_TELEMETRY` is the killswitch of the fuzz harness's
+  `authz_fuzz_*` counters (the reference's `FuzzTelemetry` gate, :134),
+  read at every record by fuzz/metrics.py: off, the harness records
+  nothing.
 
 `apply_flag` sets them from the CLI's `--feature-gates name=true|false`
 under the reference's gate names (`GATE_SWITCHES`, all 20 of the

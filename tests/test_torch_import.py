@@ -846,3 +846,59 @@ def test_native_parse_and_distributed_glue_run_with_jax_blocked():
     assert res["n"] == 2 and res["refused"] and not res["up"]
     assert not [m for m in res["modules"] if _is_forbidden(m)]
     assert set(NATIVE_DIST_MODULES) <= set(res["modules"])
+
+
+# the port's own fuzz harness and its command line
+FUZZ_MODULES = [
+    "spicedb_kubeapi_proxy_tpu_torch.fuzz",
+    "spicedb_kubeapi_proxy_tpu_torch.fuzz.schema_gen",
+    "spicedb_kubeapi_proxy_tpu_torch.fuzz.delta_gen",
+    "spicedb_kubeapi_proxy_tpu_torch.fuzz.scenarios",
+    "spicedb_kubeapi_proxy_tpu_torch.fuzz.metrics",
+    "spicedb_kubeapi_proxy_tpu_torch.fuzz.driver",
+    "spicedb_kubeapi_proxy_tpu_torch.fuzz.shrink",
+    "spicedb_kubeapi_proxy_tpu_torch.fuzz.mutations",
+    "spicedb_kubeapi_proxy_tpu_torch.fuzz.__main__",
+]
+
+
+@pytest.mark.parametrize("module", FUZZ_MODULES)
+def test_fuzz_module_imports_nothing_forbidden(module):
+    rel = module.replace(".", "/")
+    path = ROOT / (rel + ".py")
+    if not path.exists():
+        path = ROOT / rel / "__init__.py"
+    assert path.exists(), module
+    bad = [m for m in _imports(path) if _is_forbidden(m)]
+    assert bad == [], f"{module} imports {bad}"
+
+
+_PROBE_FUZZ = _BLOCK + r"""
+import json, runpy
+sys.argv = ["spicedb_kubeapi_proxy_tpu_torch.fuzz", "--device", "cpu",
+            "--seeds", "3"]
+try:
+    runpy.run_module("spicedb_kubeapi_proxy_tpu_torch.fuzz",
+                     run_name="__main__", alter_sys=True)
+    code = 0
+except SystemExit as e:
+    code = e.code
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None)
+print(json.dumps({"code": code, "modules": loaded}))
+"""
+
+
+def test_fuzz_command_runs_with_jax_blocked():
+    """`python -m spicedb_kubeapi_proxy_tpu_torch.fuzz --device cpu`
+    replays fixed cells with jax, h11, yaml and cryptography
+    unimportable, and loads nothing of the reference."""
+    out = subprocess.run([sys.executable, "-c", _PROBE_FUZZ], cwd=ROOT,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["code"] == 0, out.stdout
+    assert "fuzz: 3 fixed cells agree" in out.stdout
+    assert not [m for m in res["modules"] if _is_forbidden(m)]
+    # runpy runs the command line as `__main__`
+    main = "spicedb_kubeapi_proxy_tpu_torch.fuzz.__main__"
+    assert set(FUZZ_MODULES) - {main} <= set(res["modules"])

@@ -1646,3 +1646,56 @@ def test_kernel_phases_open_nvtx_ranges_on_the_card(monkeypatch):
                         lambda n: names.append(n) or push(n))
     asyncio.run(ep.lookup_resources_batch("pod", "view", subjects))
     assert "kernel.launch" in names and "kernel.wait" in names
+
+
+@pytest.mark.cuda
+def test_capture_survives_a_collection_of_dead_graphs():
+    """Graphs dropped in reference cycles are freed at the next cyclic
+    collection; one that ran on a capturing thread would free them there
+    (`cudaGraphExecDestroy`), which CUDA refuses and answers by
+    invalidating the capture.  Here dead graphs young enough for a
+    first-generation collection lose their last references inside the
+    captured function, whose own allocations would then trigger
+    collections (threshold 1): with the collector paused while a capture
+    is open, the capture still succeeds and replays, and the dead graphs
+    go at the next collection after it."""
+    import gc
+    _needs_card()
+    dev = torch.device("cuda")
+    x = torch.zeros(1 << 10, dtype=torch.int32, device=dev)
+    table = torch.zeros((64, 1), dtype=torch.int32, device=dev)
+    src = torch.ones((8, 1), dtype=torch.int32, device=dev)
+    rows = torch.arange(8, dtype=torch.int32, device=dev)
+    keep = []
+    threshold = gc.get_threshold()
+    gc.collect()
+    # made with the collector off, so no collection moves them past the
+    # first generation before the capture
+    gc.disable()
+    try:
+        for _ in range(8):
+            dead = kernels.LaunchGraph(dev)
+            dead.capture(lambda: x.add_(1))
+            cycle = {"graph": dead}
+            cycle["self"] = cycle
+            keep.append(cycle)
+        del dead, cycle
+        g = kernels.LaunchGraph(dev)
+    finally:
+        gc.enable()
+
+    def fn():
+        keep.clear()            # the dead graphs are cyclic garbage now
+        gc.set_threshold(1, 1, 1)
+        junk = [[i] for i in range(2_000)]
+        return len(junk), kernels.scatter_rows(table, rows, src)
+
+    try:
+        n, out = g.capture(fn)
+        g.replay()
+        torch.cuda.synchronize()
+    finally:
+        gc.set_threshold(*threshold)
+        gc.collect()
+    assert n == 2_000 and g.counts == {"scatter_rows": 1}
+    assert int(out[:8].sum()) == 8 and int(out[8:].sum()) == 0
